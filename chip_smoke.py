@@ -1,37 +1,64 @@
 #!/usr/bin/env python3
-"""Smoke test of the simulst_tpu_torch serving slice on one NVIDIA GPU.
+"""Smoke test of the simulst_tpu_torch port on one NVIDIA GPU: the
+s2t_emformer serving slice and the MT-teacher training slice.
 
-Drives the PyTorch + CUDA port's main path once at the full s2t_emformer_s
-width (conv subsampler 80 -> 1024 -> 2x256, 12 x 256-dim Emformer with 4
-heads and FFN 2048, segment/left/right context 16/32/8 frames after
-subsampling, 5 memory slots, 6-layer decoder, vocab 4100), with random
-weights from a seeded generator and seeded synthetic audio:
+Drives the PyTorch + CUDA port's main paths once at full width with random
+weights from a seeded generator: serving at s2t_emformer_s width (conv
+subsampler 80 -> 1024 -> 2x256, 12 x 256-dim Emformer with 4 heads and FFN
+2048, segment/left/right context 16/32/8 frames after subsampling, 5
+memory slots, 6-layer decoder, vocab 4100) on seeded synthetic audio, and
+training at transformer_small width (MTConfig(): 256-d, 4 heads, 6 + 6
+layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches:
 
-  1. build   compile csrc/*.cu with nvcc (sm_90a) from this checkout;
-             print the build time and the card's name and power limit
-  2. kernels each CUDA kernel vs its plain PyTorch version on the card, at
-             the slice's shapes, in fp32 and bf16, with CUDA-event times
-  3. offline decode_batch on 8 utterances of 1024 fbank frames, beam 5,
-             max_len 64; every kernel must have launched; encoder_out with
-             kernels vs the same encoder through the plain versions
-  4. stream  one utterance in 640 ms chunks through the encoder stepper,
-             one greedy decoder_step per chunk; streaming encoder output
-             must equal the offline encoder_forward
-  5. report  a JSON line of per-kernel numbers, the nvidia-smi line, and
-             the result line {"ok": true, "device": {...}} last
+  1. build    compile csrc/*.cu with nvcc (sm_90a) from this checkout;
+              print the build time and the card's name and power limit
+  2. kernels  each serving kernel vs its plain PyTorch version on the card,
+              at the serving shapes, in fp32 and bf16, with CUDA-event times
+  3. offline  decode_batch on 8 utterances of 1024 fbank frames, beam 5,
+              max_len 64; every serving kernel must have launched;
+              encoder_out with kernels vs the same encoder through the
+              plain versions
+  4. stream   one utterance in 640 ms chunks through the encoder stepper,
+              one greedy decoder_step per chunk; streaming encoder output
+              must equal the offline encoder_forward
+  5. train-kernels  the training kernels (fused_mha, fused_ffn,
+              fused_linear_res, forward and backward) vs their plain
+              versions at the MT shapes (64 x 128 tokens), at dropout 0 and
+              at 0.1 with one seed (both sides then draw the same Philox
+              mask); CUDA-event times, and SDPA's time beside fused_mha;
+              one bf16 case of each
+  6. train    8 Adam steps of mt_transformer through cli/train's loss and
+              train/state's train step (lr 5e-4, warmup 4000, clip 10, as
+              exp/0_mt.sh) on 64 sentence pairs of 96-128 tokens; losses
+              finite, launches per step as the layer count predicts; then
+              one step at dropout 0 with the kernels and one through the
+              plain versions from the same params, optimizer and batch
+  7. report   a JSON line of per-kernel numbers with their bounds, the
+              nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero without a CUDA device, without the package beside it,
 or when any phase fails.  Tolerances:
-  fp32 kernel vs plain   atol 1e-4, rtol 1e-4 (only the order of sums differs)
+  fp32 kernel vs plain   atol 1e-4, rtol 1e-4 (only the order of sums
+                         differs); weight gradients within 1e-4 of their
+                         largest entry
   bf16 kernel vs plain   atol 3e-2, rtol 1e-2 (LN-scale outputs rounded to
-                         bf16: a flip of the last rounding is 2^-8 relative)
+                         bf16: a flip of the last rounding is 2^-8 relative);
+                         bf16 weight gradients within 1e-2 of their largest
+                         entry
   offline encoder_out, kernels vs plain, fp32: atol 1e-4
   streaming vs offline encoder output, fp32:   atol 1e-4
+  train step, kernels vs plain, fp32: loss rtol 1e-5; updated parameters
+                         atol 1e-5 (an update is at most lr ~ 1e-6 here)
+The bound of a kernel is the larger of its bytes (each input read once,
+each output written once) over 3.35 TB/s and its operations (on this
+run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
+peak of an H100 SXM at 700 W.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import statistics
 import subprocess
@@ -41,8 +68,46 @@ import numpy as np
 
 SEED = 0
 N_UTT, N_FRAMES, BEAM, MAX_LEN = 8, 1024, 5, 64
+MT_PAIRS, MT_MIN_LEN, MT_MAX_LEN, MT_STEPS = 64, 96, 128, 8
+MT_ARGS = ["--task", "mt", "--model", "mt_transformer", "--loss", "ce",
+           "--lr", "5e-4", "--warmup-updates", "4000", "--clip-norm", "10",
+           "--seed", str(SEED)]
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM
+FP32_FLOP_PER_S = 67e12        # H100 SXM, CUDA cores
+
+# name -> (module, source, the TPU kernel it replaces (the function that
+# reaches pl.pallas_call), the slice whose main path reports it)
+KERNELS = {
+    "fused_ln_ffn_res": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+                         "simulst_tpu/ops/ffn_pallas.py:436", "serving"),
+    "emformer_grouped_attention": (
+        "emformer_attn", "simulst_tpu_torch/csrc/emformer_attn.cu",
+        "simulst_tpu/ops/emformer_attn_pallas.py:336", "serving"),
+    "fused_ffn": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+                  "simulst_tpu/ops/ffn_pallas.py:202", "training"),
+    "fused_ffn_backward": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+                           "simulst_tpu/ops/ffn_pallas.py:230", "training"),
+    "fused_linear_res": ("linear_res", "simulst_tpu_torch/csrc/linear_res.cu",
+                         "simulst_tpu/ops/linear_res_pallas.py:102",
+                         "training"),
+    "fused_linear_res_backward": (
+        "linear_res", "simulst_tpu_torch/csrc/linear_res.cu",
+        "simulst_tpu/ops/linear_res_pallas.py:132", "training"),
+    "fused_mha": ("mha", "simulst_tpu_torch/csrc/mha.cu",
+                  "simulst_tpu/ops/mha_pallas.py:192", "training"),
+    "fused_mha_backward": ("mha", "simulst_tpu_torch/csrc/mha.cu",
+                           "simulst_tpu/ops/mha_pallas.py:208", "training"),
+}
+SERVING_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
+                   "fused_ffn", "fused_linear_res", "fused_mha")
+# launches per MT training step: 6 encoder self-attention cores, 6 decoder
+# self- and 6 cross-attention cores; 6 decoder FFNs; 12 decoder epilogues
+MT_LAUNCHES_PER_STEP = {"fused_mha": 18, "fused_mha_backward": 18,
+                        "fused_ffn": 6, "fused_ffn_backward": 6,
+                        "fused_linear_res": 12,
+                        "fused_linear_res_backward": 12}
 
 
 def log(tag, **fields):
@@ -63,6 +128,15 @@ def max_err(name, out, ref, atol, rtol):
     return err.max().item()
 
 
+def max_err_to_largest(name, out, ref, rtol=1e-4):
+    """Max |out - ref|; raise unless within rtol of the largest |ref|."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if not err <= rtol * ref.float().abs().max().item():
+        raise AssertionError(f"{name}: max_abs_err {err:.3e} beyond {rtol} "
+                             "of the largest entry")
+    return err
+
+
 def cuda_ms(fn, samples=7, runs=10, warmup=3):
     """Median over `samples` of the CUDA-event time of `runs` back-to-back
     calls of fn(), divided by `runs` (after warm-up)."""
@@ -80,6 +154,18 @@ def cuda_ms(fn, samples=7, runs=10, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
+
+
+def bound(nbytes, flops):
+    """(least ms, what bounds it) for moving nbytes and doing fp32 flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def synthetic_audio(rng, n_utt, n_frames):
@@ -103,18 +189,25 @@ def gpu_name_and_power_limit():
     return out.stdout.strip().splitlines()[0]
 
 
+def wrappers():
+    """name -> the wrapper function that carries the launch count."""
+    from simulst_tpu_torch.ops import emformer_attn, ffn, linear_res, mha
+    mods = {"ffn": ffn, "emformer_attn": emformer_attn,
+            "linear_res": linear_res, "mha": mha}
+    return {name: getattr(mods[m], name) for name, (m, *_) in KERNELS.items()}
+
+
+def reset_launches():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Route the model's kernel calls to the plain PyTorch versions for a
-    reference run on the card (patches the call sites, restores after)."""
-    from simulst_tpu_torch.nn import emformer as emf
-    from simulst_tpu_torch.nn import transformer as tfm
-    from simulst_tpu_torch.ops import emformer_attn, ffn, linear_res
-    patches = [(emf, "fused_ln_ffn_res", ffn.ln_ffn_res_plain),
-               (emf, "emformer_grouped_attention",
-                emformer_attn.grouped_attention_plain),
-               (emf, "fused_linear_res", linear_res.linear_res_plain),
-               (tfm, "fused_ffn", ffn.ffn_plain)]
+def patched(patches):
     saved = [(m, name, getattr(m, name)) for m, name, _ in patches]
     for m, name, fn in patches:
         setattr(m, name, fn)
@@ -125,8 +218,38 @@ def plain_versions():
             setattr(m, name, fn)
 
 
+def plain_versions():
+    """Route the serving model's kernel calls to the plain PyTorch versions
+    for a reference run on the card (patches the call sites)."""
+    from simulst_tpu_torch.nn import emformer as emf
+    from simulst_tpu_torch.nn import transformer as tfm
+    from simulst_tpu_torch.ops import emformer_attn, ffn, linear_res
+    return patched([(emf, "fused_ln_ffn_res", ffn.ln_ffn_res_plain),
+                    (emf, "emformer_grouped_attention",
+                     emformer_attn.grouped_attention_plain),
+                    (emf, "fused_linear_res", linear_res.linear_res_plain),
+                    (tfm, "fused_ffn", ffn.ffn_plain)])
+
+
+def plain_training():
+    """Route the training kernels' forward and backward entries to their
+    plain versions (what the autograd Functions call), on the card."""
+    from simulst_tpu_torch.ops import ffn, linear_res, mha
+    return patched([
+        (mha, "fused_mha_forward",
+         lambda *a: (mha.mha_plain(*a), None)),
+        (mha, "fused_mha_backward",
+         lambda q, k, v, km, out, lse, do, *cfg:
+         mha.mha_plain_backward(q, k, v, km, do, *cfg)),
+        (ffn, "fused_ffn_forward", ffn.ffn_plain),
+        (ffn, "fused_ffn_backward", ffn.ffn_plain_backward),
+        (linear_res, "fused_linear_res_forward", linear_res.linear_res_plain),
+        (linear_res, "fused_linear_res_backward",
+         linear_res.linear_res_plain_backward)])
+
+
 def phase_kernels(dev):
-    """Each kernel vs its plain version at the slice's shapes."""
+    """Each serving kernel vs its plain version at the serving shapes."""
     import torch
     from simulst_tpu_torch.ops import emformer_attn as ea
     from simulst_tpu_torch.ops import ffn, linear_res
@@ -188,11 +311,308 @@ def phase_kernels(dev):
                 log("phase2", kernel=name, shape=label, dtype=str(dtype),
                     max_abs_err=err, ms=ms, plain_ms=plain_ms)
                 if i == 0 and dtype == torch.float32:
-                    report[name] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)
-                if i == 0 and dtype == torch.bfloat16:
+                    report[name] = dict(shape=label, max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, library_ms=None)
+                    if name == "fused_ln_ffn_res":
+                        x = args[0]
+                        b_ms, by = bound(
+                            nbytes(x, x, *ffn_w.values()),
+                            4 * x.shape[0] * d * hid)
+                    elif name == "emformer_grouped_attention":
+                        vis = grouped_visible_pairs(ea, geom, lengths)
+                        b_ms, by = bound(nbytes(*args, out), 4 * d * vis)
+                    else:
+                        continue
+                    report[name].update(bound_ms=b_ms, bound_by=by)
+                if i == 0 and dtype == torch.bfloat16 and name in report:
                     report[name]["bf16_max_abs_err"] = err
     return report
+
+
+def grouped_visible_pairs(ea, geom, lengths):
+    """(query row, key) pairs the grouped attention scores visibly, summed
+    over the batch and groups (every head scores each once)."""
+    import torch
+    dev = lengths.device
+    idx, valid, utt_col, allowed = (torch.as_tensor(a, device=dev) for a in
+                                    ea.group_gather_indices(
+                                        geom.U, geom.seg, geom.lc, geom.rc,
+                                        geom.max_mem, geom.G))
+    in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
+    key_valid = valid[None] & in_len                          # (B, ng, ctx)
+    return int((key_valid[:, :, None, :] & allowed[None, None]).sum())
+
+
+def mha_visible_pairs(kmask, tq, causal):
+    import torch
+    vis = (kmask != 0)[:, None, :].expand(-1, tq, -1)
+    if causal:
+        q = torch.arange(tq, device=kmask.device)[:, None]
+        vis = vis & (torch.arange(kmask.shape[1], device=kmask.device) <= q)
+    return int(vis.sum())
+
+
+def phase_train_kernels(dev, batch):
+    """Training kernels vs their plain versions at the MT shapes, forward
+    and backward, at dropout 0 and 0.1; times at dropout 0.1."""
+    import torch
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import ffn, linear_res, mha
+
+    g = torch.Generator().manual_seed(SEED + 2)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    b, t = batch["target"].shape
+    d, hid, heads = 256, 2048, 4
+    n = b * t
+    tgt_mask = (batch["prev_tokens"] != 1).to(torch.int32)
+    src_mask = (batch["src_tokens"] != 1).to(torch.int32)
+    report = {}
+
+    def record(name, **fields):
+        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   fields.pop("max_abs_err"))
+        entry.update(fields)
+
+    # fused_mha: decoder causal self-attention and cross-attention
+    for case, kmask, causal in (("self causal", tgt_mask, True),
+                                ("cross", src_mask, False)):
+        q, k, v, dout = (randn(b, t, d) for _ in range(4))
+        for rate in (0.0, 0.1):
+            cfg = (heads, causal, rate, 4321)
+            out, lse = mha.fused_mha_forward(q, k, v, kmask, *cfg)
+            torch.cuda.synchronize()
+            e_fwd = max_err(f"fused_mha {case} rate {rate}", out,
+                            mha.mha_plain(q, k, v, kmask, *cfg), **F32_TOL)
+            got = mha.fused_mha_backward(q, k, v, kmask, out, lse, dout, *cfg)
+            want = mha.mha_plain_backward(q, k, v, kmask, dout, *cfg)
+            torch.cuda.synchronize()
+            e_bwd = max(max_err(f"fused_mha_backward {case} rate {rate} {w}",
+                                x, y, **F32_TOL)
+                        for w, x, y in zip("qkv", got, want))
+            log("phase5", kernel="fused_mha", case=case, rate=rate,
+                fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
+            record("fused_mha", max_abs_err=e_fwd)
+            record("fused_mha_backward", max_abs_err=e_bwd)
+            if case != "self causal" or rate == 0.0:
+                continue
+            vis = mha_visible_pairs(kmask, t, causal)
+            mask = ((kmask != 0)[:, None, None, :] &
+                    (torch.arange(t, device=dev)[None, :] <=
+                     torch.arange(t, device=dev)[:, None])[None, None])
+            heads_view = [x.view(b, t, heads, d // heads).transpose(1, 2)
+                          for x in (q, k, v)]
+            record("fused_mha", max_abs_err=0.0,
+                   shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d}) causal rate 0.1",
+                   ms=cuda_ms(lambda: mha.fused_mha_forward(q, k, v, kmask,
+                                                            *cfg)),
+                   plain_ms=cuda_ms(lambda: mha.mha_plain(q, k, v, kmask,
+                                                          *cfg)),
+                   library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                       *heads_view, attn_mask=mask, dropout_p=rate)),
+                   **dict(zip(("bound_ms", "bound_by"), bound(
+                       nbytes(q, k, v, kmask, out, lse), 4 * d * vis))))
+            record("fused_mha_backward", max_abs_err=0.0,
+                   shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d}) causal rate 0.1",
+                   ms=cuda_ms(lambda: mha.fused_mha_backward(
+                       q, k, v, kmask, out, lse, dout, *cfg)),
+                   plain_ms=cuda_ms(lambda: mha.mha_plain_backward(
+                       q, k, v, kmask, dout, *cfg)),
+                   library_ms=None,
+                   **dict(zip(("bound_ms", "bound_by"), bound(
+                       nbytes(q, k, v, kmask, out, lse, dout, *got),
+                       10 * d * vis))))
+
+    # fused_ffn: the decoder FFN, relu, 8192 rows
+    xav = (6.0 / (d + hid)) ** 0.5
+    x, dy = randn(n, d), randn(n, d)
+    w1, b1 = randn(d, hid, scale=xav), randn(hid, scale=0.02)
+    w2, b2 = randn(hid, d, scale=xav), randn(d, scale=0.02)
+    for rate in (0.0, 0.1):
+        cfg = ("relu", rate, rate, 99)
+        y = ffn.fused_ffn_forward(x, w1, b1, w2, b2, *cfg)
+        torch.cuda.synchronize()
+        e_fwd = max_err(f"fused_ffn rate {rate}", y,
+                        ffn.ffn_plain(x, w1, b1, w2, b2, *cfg), **F32_TOL)
+        got = ffn.fused_ffn_backward(x, w1, b1, w2, dy, *cfg)
+        want = ffn.ffn_plain_backward(x, w1, b1, w2, dy, *cfg)
+        torch.cuda.synchronize()
+        e_bwd = max([max_err(f"fused_ffn_backward rate {rate} dx", got[0],
+                             want[0], **F32_TOL)] +
+                    [max_err_to_largest(f"fused_ffn_backward rate {rate} {w}",
+                                        gw, ww)
+                     for w, gw, ww in zip(("dw1", "db1", "dw2", "db2"),
+                                          got[1:], want[1:])])
+        log("phase5", kernel="fused_ffn", rows=n, rate=rate,
+            fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
+        record("fused_ffn", max_abs_err=e_fwd)
+        record("fused_ffn_backward", max_abs_err=e_bwd)
+    flops = 2 * n * d * hid
+    record("fused_ffn", max_abs_err=0.0, shape=f"x=({n},{d}) relu rate 0.1",
+           ms=cuda_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, *cfg)),
+           plain_ms=cuda_ms(lambda: ffn.ffn_plain(x, w1, b1, w2, b2, *cfg)),
+           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(x, y, w1, b1, w2, b2), 2 * flops))))
+    record("fused_ffn_backward", max_abs_err=0.0,
+           shape=f"x=({n},{d}) relu rate 0.1",
+           ms=cuda_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, *cfg),
+                      samples=5, runs=5),
+           plain_ms=cuda_ms(lambda: ffn.ffn_plain_backward(
+               x, w1, b1, w2, dy, *cfg), samples=5, runs=5),
+           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(x, dy, w1, b1, w2, *got), 5 * flops))))
+
+    # fused_linear_res: the decoder attention epilogue, 8192 rows
+    h, res = randn(n, d), randn(n, d)
+    w, bias = randn(d, d, scale=d ** -0.5), randn(d, scale=0.02)
+    for rate in (0.0, 0.1):
+        cfg = (0, 0, rate, 7)
+        y = linear_res.fused_linear_res_forward(h, w, bias, res, *cfg)
+        torch.cuda.synchronize()
+        e_fwd = max_err(f"fused_linear_res rate {rate}", y,
+                        linear_res.linear_res_plain(h, w, bias, res, *cfg),
+                        **F32_TOL)
+        got = linear_res.fused_linear_res_backward(h, w, dy, *cfg)
+        want = linear_res.linear_res_plain_backward(h, w, dy, *cfg)
+        torch.cuda.synchronize()
+        e_bwd = max([max_err(f"fused_linear_res_backward rate {rate} dh",
+                             got[0], want[0], **F32_TOL)] +
+                    [max_err_to_largest(
+                        f"fused_linear_res_backward rate {rate} {nm}", gw, ww)
+                     for nm, gw, ww in zip(("dw", "db"), got[1:], want[1:])])
+        log("phase5", kernel="fused_linear_res", rows=n, rate=rate,
+            fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
+        record("fused_linear_res", max_abs_err=e_fwd)
+        record("fused_linear_res_backward", max_abs_err=e_bwd)
+    flops = 2 * n * d * d
+    record("fused_linear_res", max_abs_err=0.0, shape=f"h=({n},{d}) rate 0.1",
+           ms=cuda_ms(lambda: linear_res.fused_linear_res_forward(
+               h, w, bias, res, *cfg)),
+           plain_ms=cuda_ms(lambda: linear_res.linear_res_plain(
+               h, w, bias, res, *cfg)),
+           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(h, w, bias, res, y), flops))))
+    record("fused_linear_res_backward", max_abs_err=0.0,
+           shape=f"h=({n},{d}) rate 0.1",
+           ms=cuda_ms(lambda: linear_res.fused_linear_res_backward(
+               h, w, dy, *cfg)),
+           plain_ms=cuda_ms(lambda: linear_res.linear_res_plain_backward(
+               h, w, dy, *cfg)),
+           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(h, w, dy, *got), 2 * flops))))
+    # bf16: the kernels take it too (the MT path runs fp32); one case each
+    bf = torch.bfloat16
+    qb, kb, vb, dob = (randn(b, t, d).to(bf) for _ in range(4))
+    cfg = (heads, True, 0.1, 4321)
+    out, lse = mha.fused_mha_forward(qb, kb, vb, tgt_mask, *cfg)
+    errs = {"fused_mha": max_err("fused_mha bf16", out, mha.mha_plain(
+        qb, kb, vb, tgt_mask, *cfg), **BF16_TOL)}
+    errs["fused_mha_backward"] = max(
+        max_err(f"fused_mha_backward bf16 d{w}", x, y, **BF16_TOL)
+        for w, x, y in zip("qkv", mha.fused_mha_backward(
+            qb, kb, vb, tgt_mask, out, lse, dob, *cfg),
+            mha.mha_plain_backward(qb, kb, vb, tgt_mask, dob, *cfg)))
+    fargs = [a.to(bf) for a in (x, w1, b1, w2, b2)]
+    cfg = ("relu", 0.1, 0.1, 99)
+    errs["fused_ffn"] = max_err("fused_ffn bf16", ffn.fused_ffn_forward(
+        *fargs, *cfg), ffn.ffn_plain(*fargs, *cfg), **BF16_TOL)
+    got = ffn.fused_ffn_backward(*fargs[:4], dy.to(bf), *cfg)
+    want = ffn.ffn_plain_backward(*fargs[:4], dy.to(bf), *cfg)
+    errs["fused_ffn_backward"] = max(
+        [max_err("fused_ffn_backward bf16 dx", got[0], want[0], **BF16_TOL)]
+        + [max_err_to_largest(f"fused_ffn_backward bf16 {nm}", gw, ww, 1e-2)
+           for nm, gw, ww in zip(("dw1", "db1", "dw2", "db2"), got[1:],
+                                 want[1:])])
+    largs = [a.to(bf) for a in (h, w, bias, res)]
+    cfg = (0, 0, 0.1, 7)
+    errs["fused_linear_res"] = max_err(
+        "fused_linear_res bf16", linear_res.fused_linear_res_forward(
+            *largs, *cfg), linear_res.linear_res_plain(*largs, *cfg),
+        **BF16_TOL)
+    got = linear_res.fused_linear_res_backward(largs[0], largs[1], dy.to(bf),
+                                               *cfg)
+    want = linear_res.linear_res_plain_backward(largs[0], largs[1],
+                                                dy.to(bf), *cfg)
+    errs["fused_linear_res_backward"] = max(
+        [max_err("fused_linear_res_backward bf16 dh", got[0], want[0],
+                 **BF16_TOL)]
+        + [max_err_to_largest(f"fused_linear_res_backward bf16 {nm}", gw, ww,
+                              1e-2)
+           for nm, gw, ww in zip(("dw", "db"), got[1:], want[1:])])
+    for name, err in errs.items():
+        report[name]["bf16_max_abs_err"] = err
+    for name, entry in report.items():
+        log("phase5", kernel=name, **entry)
+    return report
+
+
+def phase_train(dev, batch):
+    """8 full-width MT training steps through the CLI's loss and the train
+    step, counting launches; then kernels vs plain on one step."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_train_step)
+
+    args = cli.parse_args(MT_ARGS)
+    model = cli.build_model(args, 8000, device=dev)
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    ntokens = int((batch["target"] != 1).sum())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(MT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / MT_STEPS for k in MT_LAUNCHES_PER_STEP}
+    if per_step != MT_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{MT_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses)) or state.step != MT_STEPS:
+        raise AssertionError(f"losses {losses}, updates {state.step}")
+    log("phase6", config="MTConfig() transformer_small", pairs=MT_PAIRS,
+        lengths=f"{MT_MIN_LEN}-{MT_MAX_LEN}", target_tokens=ntokens,
+        steps=MT_STEPS, first_step_ms=step_ms[0],
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, launches_per_step=per_step,
+        peak_memory_gib=peak_gib)
+
+    # one step at dropout 0 (no generator) with the kernels and through the
+    # plain versions, from the same params, optimizer state and batch
+    outs = []
+    for use_plain in (False, True):
+        st = copy.deepcopy(state)
+        with plain_training() if use_plain else contextlib.nullcontext():
+            st, m = train_step(st, batch, None)
+        torch.cuda.synchronize()
+        outs.append((st.model.state_dict(), float(m["loss"]),
+                     float(m["gnorm"])))
+    (sd_k, loss_k, gn_k), (sd_p, loss_p, gn_p) = outs
+    before = state.model.state_dict()
+    diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
+    moved = max((sd_k[k] - before[k]).abs().max().item() for k in sd_k)
+    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
+        raise AssertionError(f"train step kernels vs plain: loss {loss_k} vs "
+                             f"{loss_p}, params max abs diff {diff}")
+    log("phase6", kernels_vs_plain_loss=[loss_k, loss_p],
+        kernels_vs_plain_gnorm=[gn_k, gn_p],
+        updated_params_max_abs_diff=diff, update_max_abs=moved)
+    return launches
 
 
 def run(dev):
@@ -201,24 +621,11 @@ def run(dev):
     from simulst_tpu_torch.decode.beam import BeamConfig
     from simulst_tpu_torch.models import s2t_emformer as s2t
     from simulst_tpu_torch.nn import transformer as tfm
-    from simulst_tpu_torch.ops import _build, emformer_attn, ffn, linear_res
+    from simulst_tpu_torch.ops import _build
     from simulst_tpu_torch.ops.fbank import fbank_batch, utterance_cmvn
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {
-        "fused_ln_ffn_res": (ffn.fused_ln_ffn_res, "simulst_tpu_torch/csrc/ffn.cu",
-                             "simulst_tpu/ops/ffn_pallas.py:513"),
-        "fused_ffn": (ffn.fused_ffn, "simulst_tpu_torch/csrc/ffn.cu",
-                      "simulst_tpu/ops/ffn_pallas.py:271"),
-        "fused_linear_res": (linear_res.fused_linear_res,
-                             "simulst_tpu_torch/csrc/linear_res.cu",
-                             "simulst_tpu/ops/linear_res_pallas.py:171"),
-        "emformer_grouped_attention": (
-            emformer_attn.emformer_grouped_attention,
-            "simulst_tpu_torch/csrc/emformer_attn.cu",
-            "simulst_tpu/ops/emformer_attn_pallas.py:419"),
-    }
     gpu = gpu_name_and_power_limit()
 
     # 1. build
@@ -232,7 +639,7 @@ def run(dev):
     print(f"phase1 gpu: {gpu}", flush=True)
 
     with torch.inference_mode():
-        # 2. kernels vs plain
+        # 2. serving kernels vs plain
         report = phase_kernels(dev)
 
         # 3. offline decode
@@ -248,17 +655,16 @@ def run(dev):
         batch = {"feats": feats, "feat_lengths": lengths}
         beam_cfg = BeamConfig(beam_size=BEAM, max_len=MAX_LEN)
 
-        for fn, _, _ in wrappers.values():
-            fn.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tokens, tok_lengths = decode_batch(model, batch, beam_cfg)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
-        after_offline = {k: fn.launches for k, (fn, _, _) in wrappers.items()}
-        if not all(after_offline.values()):
+        serving = read_launches()
+        if not all(serving[k] for k in SERVING_KERNELS):
             raise AssertionError(f"a kernel did not launch in the offline "
-                                 f"decode: {after_offline}")
+                                 f"decode: {serving}")
         if tokens.shape != (N_UTT, MAX_LEN) or not (
                 (tok_lengths >= 1) & (tok_lengths <= MAX_LEN)).all():
             raise AssertionError(f"decode output {tuple(tokens.shape)}, "
@@ -277,7 +683,7 @@ def run(dev):
         plan.append(N_FRAMES - sum(plan))            # the flush
         state = s2t.encoder_init_state(model.encoder, cfg, 1, device=dev)
         dstate = tfm.decoder_init_state(cfg.decoder, 1, MAX_LEN, device=dev)
-        before = {k: fn.launches for k, (fn, _, _) in wrappers.items()}
+        reset_launches()
         token = torch.full((1,), cfg.eos_idx, dtype=torch.int64, device=dev)
         outs, chunk_ms, t = [], [], 0
         for i, c in enumerate(plan):
@@ -294,11 +700,11 @@ def run(dev):
             torch.cuda.synchronize()
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
             t += c
-        launches = {k: fn.launches for k, (fn, _, _) in wrappers.items()}
-        for k in ("fused_ln_ffn_res", "fused_ffn"):
-            if launches[k] <= before[k]:
+        session = read_launches()
+        for k in ("fused_ln_ffn_res", "fused_ffn", "fused_mha"):
+            if not session[k]:
                 raise AssertionError(f"{k} did not launch in the streaming "
-                                     f"session: {before} -> {launches}")
+                                     f"session: {session}")
 
         # checks of the main path's outputs (launches here are not counted)
         enc_k = s2t.encoder_forward(model.encoder, cfg, feats, lengths)
@@ -311,7 +717,7 @@ def run(dev):
                               atol=1e-4, rtol=0.0)
         log("phase3", batch=N_UTT, frames=N_FRAMES, beam=BEAM, max_len=MAX_LEN,
             first_ms_per_batch=first_ms, steady_ms_per_batch=steady_ms,
-            token_lengths=tok_lengths.tolist(), launches=after_offline,
+            token_lengths=tok_lengths.tolist(), launches=serving,
             encoder_out_max_abs_err=offline_err)
         stream_out = torch.cat(outs, dim=1)
         off1 = s2t.encoder_forward(model.encoder, cfg, feats[:1], lengths[:1])
@@ -320,14 +726,32 @@ def run(dev):
         log("phase4", chunks=plan, median_ms_per_chunk=statistics.median(
                 chunk_ms), mean_ms_per_chunk=statistics.mean(chunk_ms),
             first_chunk_ms=chunk_ms[0], streaming_vs_offline_max_abs_err=
-            stream_err, launches_in_session={
-                k: launches[k] - before[k] for k in launches})
+            stream_err, launches_in_session=session)
+        del model, enc_k, enc_p, off1
 
-    # 5. report
+    # 5. training kernels vs plain at the MT shapes
+    from simulst_tpu_torch.data.synthetic import synthetic_pairs
+    mt_batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_pairs(
+        np.random.RandomState(SEED), MT_PAIRS, MT_MIN_LEN, MT_MAX_LEN,
+        8000).items()}
+    with torch.no_grad():
+        report.update(phase_train_kernels(dev, mt_batch))
+
+    # 6. MT training steps
+    training = phase_train(dev, mt_batch)
+
+    # 7. report
+    launches = {name: (serving if KERNELS[name][3] == "serving"
+                       else training)[name] for name in KERNELS}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], **report[name]}
-        for name, (_, src, tpu) in wrappers.items()]}), flush=True)
+         "launches": launches[name],
+         "launches_by_path": {"serving": serving[name],
+                              "training": training[name]},
+         **{key: report[name].get(key) for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape")}}
+        for name, (_, src, tpu, _) in KERNELS.items()]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,47 @@
-// Fused position-wise FFN for Hopper: y = [x +] fc2(gelu(fc1([LN](x)))).
+// Fused position-wise FFN for Hopper, forward and backward:
+//   y = [x +] drop_o(fc2(drop_a(act(fc1([LN](x))))))
 //
 // Replaces the Pallas kernels simulst_tpu/ops/ffn_pallas.py
 // `fused_ln_ffn_res` (_ln_ffn_fwd_kernel; the Emformer pos_ff block with its
-// pre-LN and residual) and `fused_ffn` (_fwd_kernel; the decoder FFN), the
-// forward at dropout 0.  One source serves both: the LN prologue and the
-// residual epilogue are template flags.
+// pre-LN and residual, forward at dropout 0) and `fused_ffn` (_fwd_kernel
+// and _bwd_kernel; the decoder FFN, with relu or gelu and both dropouts).
+// One forward source serves both: the LN prologue and the residual epilogue
+// are template flags.
 //
 // What bounds it on the H100: at the offline shape (3072 rows x 256 x 2048)
 // it is compute, 6.4 GFLOP per layer, run here on the CUDA cores in fp32
 // (TF32 tensor cores would miss the fp32 tolerance); at the streaming and
 // decoder shapes (1..40 rows) it is reading W1 and W2 (2 x 2 MB in fp32).
-// The design keeps the (rows x 2048) hidden out of device memory, as the
+// The forward keeps the (rows x 2048) hidden out of device memory, as the
 // TPU kernel did: a block owns a 32-row tile, normalises it once into
 // shared memory, then walks its share of the hidden in 64-column chunks,
-// computing gelu(x W1[:, c] + b1) into shared memory and accumulating
+// computing drop_a(act(x W1[:, c] + b1)) into shared memory and accumulating
 // h_c W2[c, :] into fp32 registers.  So that a few rows still spread over
 // the SMs, the hidden is split across `splits` blocks (grid.y); each writes
 // an fp32 partial (rows x 256) and a second small kernel sums the partials
-// and adds b2 and the residual.  GELU is the exact erf form (the TPU kernel
-// used tanh only because Mosaic has no erf).
+// and adds b2, the output dropout and the residual.  GELU is the exact erf
+// form (the TPU kernel used tanh only because Mosaic has no erf).  Dropout
+// draws Philox bits keyed by (seed, row * hidden + column) for the hidden
+// (stream 0) and (seed, row * 256 + column) for the output (stream 1).
+//
+// The backward (training, MT decoder: 8192 rows x 256 x 2048, 43 GFLOP, so
+// compute) recomputes the hidden and both masks and runs as five fp32 tiled
+// products (common.cuh gemm) with fused epilogues:
+//   u  = x W1 + b1                                 (the recompute)
+//   dh = g W2^T, g = drop_o(dy); epilogue du = dh act'(u) m_a, and u is
+//        overwritten with h_d = act(u) m_a
+//   dx = du W1^T
+//   dW1 = x^T du, dW2 = h_d^T g                    (K = rows, split across
+//                                                   blocks, fp32 partials)
+// plus column sums for db1 and db2 and one pass that adds the partials, so
+// every weight gradient is summed in fp32 without atomics.  Unlike the
+// forward, u and du make one round trip through device memory (2 x 64 MB at
+// the MT shape, about an eighth of the compute bound).
 #include "common.cuh"
 
 namespace {
 
+using simulst::Dropout;
 using simulst::from_f32;
 using simulst::gelu_erf;
 using simulst::round_to;
@@ -40,16 +59,33 @@ constexpr size_t kSmemBytes =
 static_assert(kRowsPerWarp == 4, "thread tiling assumes 4 rows per warp");
 static_assert(kChunk == 64, "thread tiling assumes 2 hidden columns per lane");
 
-template <typename T, bool kLayerNorm>
+// activation codes passed from Python (ops/ffn.py ACTIVATION_CODES)
+constexpr int kGelu = 0;
+constexpr int kRelu = 1;
+
+template <int kAct>
+__device__ __forceinline__ float act_fn(float u) {
+  return kAct == kRelu ? fmaxf(u, 0.f) : gelu_erf(u);
+}
+
+// d act / du; relu' is 1 where u > 0, as jax.nn.relu's gradient
+template <int kAct>
+__device__ __forceinline__ float act_grad(float u) {
+  if (kAct == kRelu) return u > 0.f ? 1.f : 0.f;
+  return 0.5f * (1.0f + erff(u * 0.7071067811865476f)) +
+         u * 0.3989422804014327f * expf(-0.5f * u * u);
+}
+
+template <typename T, bool kLayerNorm, int kAct>
 __global__ void __launch_bounds__(kThreads)
     ffn_partial_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
                        const T* __restrict__ ln_b, const T* __restrict__ w1,
                        const T* __restrict__ b1, const T* __restrict__ w2,
                        float* __restrict__ partial, int n_rows, int hidden,
-                       int hidden_per_split) {
+                       int hidden_per_split, Dropout act_drop) {
   extern __shared__ float smem[];
   float* xs = smem;                  // [kRows][kDim] fc1 input, rounded to T
-  float* hs = xs + kRows * kDim;     // [kRows][kChunk] gelu(u), rounded to T
+  float* hs = xs + kRows * kDim;     // [kRows][kChunk] drop_a(act(u)), rounded to T
   float* wb = hs + kRows * kChunk;   // W1 chunk [kDim][kChunk], then W2 chunk
                                      // [kChunk][kDim]
   const int tid = threadIdx.x;
@@ -122,7 +158,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j;
         const float uu = u[r][j] + to_f32(b1[h0 + c]);
-        hs[(r_base + r) * kChunk + c] = round_to<T>(gelu_erf(uu));
+        const size_t off = (size_t)(row0 + r_base + r) * hidden + h0 + c;
+        hs[(r_base + r) * kChunk + c] =
+            round_to<T>(act_fn<kAct>(uu) * act_drop.scale(off, 0));
       }
     __syncthreads();  // hs complete; wb free
 
@@ -156,28 +194,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// y = sum of the split partials + b2 [+ x], residual added in fp32
+// y = drop_o(sum of the split partials + b2) [+ x], residual added in fp32
 template <typename T, bool kResidual>
 __global__ void ffn_epilogue_kernel(const float* __restrict__ partial,
                                     int splits, const T* __restrict__ b2,
                                     const T* __restrict__ x, T* __restrict__ y,
-                                    int n_rows) {
+                                    int n_rows, Dropout out_drop) {
   const size_t total = (size_t)n_rows * kDim;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += partial[sp * total + idx];
   s += to_f32(b2[idx % kDim]);
+  s *= out_drop.scale(idx, 1);
   if (kResidual) s += to_f32(x[idx]);
   y[idx] = from_f32<T>(s);
 }
 
-template <typename T, bool kFusedBlock>
+template <typename T, bool kFusedBlock, int kAct>
 int launch_ffn(const void* x, const void* ln_g, const void* ln_b,
                const void* w1, const void* b1, const void* w2, const void* b2,
                void* y, float* partial, int n_rows, int hidden, int splits,
-               cudaStream_t stream) {
-  auto partial_kernel = ffn_partial_kernel<T, kFusedBlock>;
+               Dropout act_drop, Dropout out_drop, cudaStream_t stream) {
+  auto partial_kernel = ffn_partial_kernel<T, kFusedBlock, kAct>;
   cudaError_t err = cudaFuncSetAttribute(
       partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
@@ -187,39 +226,165 @@ int launch_ffn(const void* x, const void* ln_g, const void* ln_b,
       static_cast<const T*>(x), static_cast<const T*>(ln_g),
       static_cast<const T*>(ln_b), static_cast<const T*>(w1),
       static_cast<const T*>(b1), static_cast<const T*>(w2), partial, n_rows,
-      hidden, hidden / splits);
+      hidden, hidden / splits, act_drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int total = n_rows * kDim;
   ffn_epilogue_kernel<T, kFusedBlock>
       <<<simulst::ceil_div(total, 256), 256, 0, stream>>>(
           partial, splits, static_cast<const T*>(b2),
-          static_cast<const T*>(x), static_cast<T*>(y), n_rows);
+          static_cast<const T*>(x), static_cast<T*>(y), n_rows, out_drop);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// u = acc + b1 into the fp32 hidden buffer
+template <typename T>
+struct BiasStore {
+  float* u;
+  const T* b1;
+  int hidden;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    u[(size_t)m * hidden + n] = v + to_f32(b1[n]);
+  }
+};
+
+// dh -> du = round_T(dh act'(u) m_a); u -> h_d = round_T(act(u) m_a)
+template <typename T, int kAct>
+struct HiddenGradStore {
+  float* u;   // in: u, out: h_d
+  float* du;
+  int hidden;
+  Dropout act_drop;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    const size_t off = (size_t)m * hidden + n;
+    const float uu = u[off];
+    const float mult = act_drop.scale(off, 0);
+    du[off] = round_to<T>(v * act_grad<kAct>(uu) * mult);
+    u[off] = round_to<T>(act_fn<kAct>(uu) * mult);
+  }
+};
+
+template <typename T>
+struct CastStore {
+  T* y;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    y[(size_t)m * ld + n] = from_f32<T>(v);
+  }
+};
+
+template <typename T, int kAct>
+int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
+                   const void* w2_, const void* dy, void* dx_, float* grads,
+                   float* u, float* du, float* g, float* partial, int n,
+                   int hidden, int splits, Dropout act_drop, Dropout out_drop,
+                   cudaStream_t s) {
+  using simulst::RowMajor;
+  using simulst::Transposed;
+  using simulst::PartialStore;
+  const T* x = static_cast<const T*>(x_);
+  const T* w1 = static_cast<const T*>(w1_);
+  const T* w2 = static_cast<const T*>(w2_);
+  const int d = kDim;
+  // grads / partial layout: [dW1 (d, hidden) | dW2 (hidden, d) | db1 | db2]
+  const size_t len = 2 * (size_t)d * hidden + hidden + d;
+  const size_t o_dw2 = (size_t)d * hidden, o_db1 = 2 * o_dw2,
+               o_db2 = o_db1 + hidden;
+  SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
+  SIMULST_TRY((simulst::gemm<false, true>(
+      n, hidden, d, 1, RowMajor<T>{x, d}, RowMajor<T>{w1, hidden},
+      BiasStore<T>{u, static_cast<const T*>(b1_), hidden}, s)));
+  SIMULST_TRY((simulst::gemm<false, false>(
+      n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
+      HiddenGradStore<T, kAct>{u, du, hidden, act_drop}, s)));
+  SIMULST_TRY((simulst::gemm<false, false>(
+      n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
+      CastStore<T>{static_cast<T*>(dx_), d}, s)));
+  SIMULST_TRY((simulst::gemm<true, true>(
+      d, hidden, n, splits, Transposed<T>{x, d}, RowMajor<float>{du, hidden},
+      PartialStore{partial, len, 0, hidden}, s)));
+  SIMULST_TRY((simulst::gemm<true, true>(
+      hidden, d, n, splits, Transposed<float>{u, hidden}, RowMajor<float>{g, d},
+      PartialStore{partial, len, o_dw2, d}, s)));
+  SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
+                                      o_db1, s));
+  SIMULST_TRY(simulst::colsum_partial(g, n, d, splits, partial, len, o_db2, s));
+  return (int)simulst::sum_splits(partial, splits, len, grads, s);
 }
 
 }  // namespace
 
-// ln_res = 1: y = x + fc2(gelu(fc1(LN(x))))   (fused_ln_ffn_res)
-// ln_res = 0: y = fc2(gelu(fc1(x)))           (fused_ffn; ln_g/ln_b unused)
+// ln_res = 1: y = x + fc2(gelu(fc1(LN(x))))   (fused_ln_ffn_res; act must
+//             be gelu and both dropouts off)
+// ln_res = 0: y = drop_o(fc2(drop_a(act(fc1(x)))))  (fused_ffn; ln_g/ln_b
+//             unused)
 // x, y: (n_rows, dim); w1: (dim, hidden); w2: (hidden, dim), all of `dtype`;
-// partial: fp32 scratch of (splits, n_rows, dim).  Returns a cudaError_t.
-extern "C" int simulst_ffn(int dtype, int ln_res, const void* x,
+// partial: fp32 scratch of (splits, n_rows, dim); act 0 gelu, 1 relu; each
+// dropout site is on when its flag is set.  Returns a cudaError_t.
+extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            const void* ln_g, const void* ln_b, const void* w1,
                            const void* b1, const void* w2, const void* b2,
                            void* y, void* partial, int n_rows, int dim,
-                           int hidden, int splits, void* stream) {
+                           int hidden, int splits, unsigned long long seed,
+                           int act_on, unsigned act_threshold,
+                           float act_inv_keep, int out_on,
+                           unsigned out_threshold, float out_inv_keep,
+                           void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 ||
-      hidden % (splits * kChunk) != 0)
+      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu) ||
+      (ln_res && (act != kGelu || act_on || out_on)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
+  const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
+  const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
   if (ln_res) {
-    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true>(
+    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kGelu>(
                                 x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                                hidden, splits, s));
+                                hidden, splits, act_drop, out_drop, s));
   }
-  SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false>(
+  if (act == kRelu) {
+    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kRelu>(
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
+                                hidden, splits, act_drop, out_drop, s));
+  }
+  SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kGelu>(
                               x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                              hidden, splits, s));
+                              hidden, splits, act_drop, out_drop, s));
+}
+
+// The backward of simulst_ffn (ln_res = 0): dx (n_rows, dim) of `dtype` and
+// grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) | db2 (dim)]
+// in fp32.  Scratch, all fp32: u and du (n_rows, hidden), g (n_rows, dim),
+// partial (splits, len(grads)) zero-filled.  Returns a cudaError_t.
+extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
+                               const void* w1, const void* b1, const void* w2,
+                               const void* dy, void* dx, void* grads, void* u,
+                               void* du, void* g, void* partial, int n_rows,
+                               int dim, int hidden, int splits,
+                               unsigned long long seed, int act_on,
+                               unsigned act_threshold, float act_inv_keep,
+                               int out_on, unsigned out_threshold,
+                               float out_inv_keep, void* stream) {
+  if (dim != kDim || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
+      (act != kGelu && act != kRelu))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
+  const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
+  float *gr = static_cast<float*>(grads), *uf = static_cast<float*>(u),
+        *duf = static_cast<float*>(du), *gf = static_cast<float*>(g),
+        *pf = static_cast<float*>(partial);
+  if (act == kRelu) {
+    SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kRelu>(
+                                x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
+                                n_rows, hidden, splits, act_drop, out_drop, s));
+  }
+  SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kGelu>(
+                              x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
+                              n_rows, hidden, splits, act_drop, out_drop, s));
 }

@@ -20,7 +20,8 @@ from torch import nn
 from simulst_tpu_torch.nn import conv as cnv
 from simulst_tpu_torch.nn import emformer as emf
 from simulst_tpu_torch.nn import transformer as tfm
-from simulst_tpu_torch.nn.core import Linear, lengths_to_mask, linear
+from simulst_tpu_torch.nn.core import (Linear, lengths_to_mask, linear,
+                                       resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,8 +94,11 @@ class EncoderOut(NamedTuple):
 
 
 class S2TEmformerEncoder(nn.Module):
+    """Weights from a seeded CPU generator, then moved to `device` (the card
+    unless the caller names another)."""
+
     def __init__(self, cfg: S2TEmformerConfig, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.subsample = cnv.Subsampler(cfg.input_feat, cfg.conv_channels,
                                         cfg.embed_dim, cfg.conv_kernel_sizes,
@@ -108,6 +112,7 @@ class S2TEmformerEncoder(nn.Module):
                                     generator=generator)
         else:
             self.ctc_layer = None
+        self.to(resolve_device(device))
 
 
 def _ctc(p: S2TEmformerEncoder, enc):
@@ -232,16 +237,17 @@ def make_encoder_stepper(p: S2TEmformerEncoder, cfg: S2TEmformerConfig):
 class S2TEmformerModel(nn.Module):
     """Encoder-decoder ASR/ST model.  Weights come from a seeded CPU
     generator with the JAX package's init distributions, then move to
-    `device`; `compat/jax_bridge.py` loads JAX weights instead."""
+    `device`, the card unless the caller names another;
+    `compat/jax_bridge.py` loads JAX weights instead."""
 
     def __init__(self, cfg: S2TEmformerConfig, *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = S2TEmformerEncoder(cfg, generator=generator)
-        self.decoder = tfm.Decoder(cfg.decoder, generator=generator)
-        if device is not None:
-            self.to(device)
+        self.encoder = S2TEmformerEncoder(cfg, generator=generator,
+                                          device=device)
+        self.decoder = tfm.Decoder(cfg.decoder, generator=generator,
+                                   device=device)
 
     def forward(self, feats, feat_lengths, prev_tokens):
         """Teacher-forced forward.  Returns (logits (B, T, V), extra)."""

@@ -1,11 +1,17 @@
 """Multi-head attention with fixed-capacity incremental KV caches
-(counterpart of simulst_tpu/nn/attention.py, forward at dropout 0).
+(counterpart of simulst_tpu/nn/attention.py).
 
-The cache is a (B, H, Tmax, hd) buffer plus a per-example fill count.
-`kv_cache_append` writes the new step into the buffer in place (the JAX
-package returns a new buffer); rolling back is a count decrement.  The
-attention core is plain torch: the decoder's Pallas core (`fused_mha`) is
-reached only by the teacher-forced forward, never by the decode step.
+`mha_forward` (full sequences, training and the decoder's cross-attention)
+runs the attention core through the `fused_mha` kernel and, given an
+epilogue (res, rate, seed), folds `res + dropout(out_proj(.))` into the
+`fused_linear_res` kernel, as the JAX package does on the TPU; only
+`need_probs=True` takes the plain `attend`, which returns the weights.
+Dropout seeds come from the caller (nn/core.RngStream); None means no
+dropout.  The cache is a (B, H, Tmax, hd) buffer plus a per-example fill
+count.  `kv_cache_append` writes the new step into the buffer in place
+(the JAX package returns a new buffer); rolling back is a count decrement.
+`mha_step` (one query step against the cache) stays plain torch, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -15,7 +21,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from simulst_tpu_torch.nn.core import Linear, linear, neg_inf
+from simulst_tpu_torch.nn.core import Linear, dropout, linear, neg_inf
+from simulst_tpu_torch.ops.linear_res import fused_linear_res
+from simulst_tpu_torch.ops.mha import fused_mha
 
 
 class MultiheadAttention(nn.Module):
@@ -50,10 +58,12 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, t, h * hd)
 
 
-def attend(q, k, v, *, bias=None, key_valid=None):
+def attend(q, k, v, *, bias=None, key_valid=None, dropout_rate: float = 0.0,
+           seed: Optional[int] = None):
     """q: (B, H, Tq, hd); k, v: (B, H, Tk, hd); bias: additive, broadcastable
     to (B, H, Tq, Tk); key_valid: (B, Tk) bool.  Masked scores are set to
-    neg_inf and the softmax runs in fp32, as in the JAX package."""
+    neg_inf and the softmax runs in fp32, as in the JAX package.  Returns
+    (out, probs), probs after dropout."""
     hd = q.shape[-1]
     scores = ((q * (hd ** -0.5)) @ k.transpose(-1, -2)).float()
     if bias is not None:
@@ -61,24 +71,65 @@ def attend(q, k, v, *, bias=None, key_valid=None):
     if key_valid is not None:
         scores = scores.masked_fill(~key_valid[:, None, None, :],
                                     neg_inf(q.dtype))
-    return torch.softmax(scores, dim=-1).to(q.dtype) @ v
+    probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype), dropout_rate,
+                    seed)
+    return probs @ v, probs
+
+
+def _merged_linear(parts, x):
+    """One product for several same-input projections: x @ [W1|W2|...] +
+    [b1|b2|...], split afterwards."""
+    w = torch.cat([q.weight for q in parts], dim=1).to(x.dtype)
+    b = torch.cat([q.bias for q in parts]).to(x.dtype)
+    return (x @ w + b).split([q.weight.shape[1] for q in parts], dim=-1)
 
 
 def mha_forward(p: MultiheadAttention, query, key, value, num_heads: int, *,
-                key_valid=None, causal: bool = False):
+                key_valid=None, causal: bool = False,
+                dropout_rate: float = 0.0, seed: Optional[int] = None,
+                epilogue=None, need_probs: bool = False):
     """Full-sequence attention.  query: (B, Tq, D); key/value: (B, Tk, D').
-    Returns out_proj(attention)."""
-    q = _split_heads(linear(p.q_proj, query), num_heads)
-    k = _split_heads(linear(p.k_proj, key), num_heads)
-    v = _split_heads(linear(p.v_proj, value), num_heads)
-    bias = None
-    if causal:
-        tq, tk = q.shape[2], k.shape[2]
-        blocked = (torch.arange(tk, device=q.device)[None, :]
-                   > torch.arange(tq, device=q.device)[:, None])
-        bias = torch.where(blocked, neg_inf(q.dtype), 0.0)
-    out = attend(q, k, v, bias=bias, key_valid=key_valid)
-    return linear(p.out_proj, _merge_heads(out))
+
+    Dropout on the probabilities at dropout_rate when seed is not None.
+    epilogue: optional (res, rate, seed): return res + dropout(out_proj(.))
+    from one fused_linear_res pass instead of the bare projection.
+    Returns (y, probs); probs is None unless need_probs."""
+    if query is key and key is value:
+        qp, kp, vp = _merged_linear([p.q_proj, p.k_proj, p.v_proj], query)
+    elif key is value:
+        qp = linear(p.q_proj, query)
+        kp, vp = _merged_linear([p.k_proj, p.v_proj], key)
+    else:
+        qp, kp, vp = (linear(p.q_proj, query), linear(p.k_proj, key),
+                      linear(p.v_proj, value))
+    rate = dropout_rate if seed is not None else 0.0
+    if need_probs:
+        bias = None
+        if causal:
+            tq, tk = qp.shape[1], kp.shape[1]
+            blocked = (torch.arange(tk, device=qp.device)[None, :]
+                       > torch.arange(tq, device=qp.device)[:, None])
+            bias = torch.where(blocked, neg_inf(qp.dtype), 0.0)
+        out, probs = attend(_split_heads(qp, num_heads),
+                            _split_heads(kp, num_heads),
+                            _split_heads(vp, num_heads), bias=bias,
+                            key_valid=key_valid, dropout_rate=rate, seed=seed)
+        merged = _merge_heads(out)
+    else:
+        kmask = (torch.ones(kp.shape[:2], dtype=torch.int32, device=kp.device)
+                 if key_valid is None else key_valid.to(torch.int32))
+        merged = fused_mha(qp, kp, vp, kmask, num_heads, causal, rate,
+                           seed or 0)
+        probs = None
+    if epilogue is not None:
+        res, ep_rate, ep_seed = epilogue
+        d = merged.dtype
+        y = fused_linear_res(merged, p.out_proj.weight.to(d),
+                             p.out_proj.bias.to(d), res.to(d),
+                             rate=ep_rate if ep_seed is not None else 0.0,
+                             seed=ep_seed or 0)
+        return y, probs
+    return linear(p.out_proj, merged), probs
 
 
 class KVCache(NamedTuple):
@@ -120,6 +171,6 @@ def mha_step(p: MultiheadAttention, cache: KVCache, query_step,
     cache = kv_cache_append(cache, k_new, v_new)
     tmax = cache.k.shape[2]
     valid = torch.arange(tmax, device=q.device)[None, :] < cache.length[:, None]
-    out = attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
-                 key_valid=valid)
+    out, _ = attend(q, cache.k.to(q.dtype), cache.v.to(q.dtype),
+                    key_valid=valid)
     return linear(p.out_proj, _merge_heads(out)), cache

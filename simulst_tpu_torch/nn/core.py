@@ -10,7 +10,11 @@ exact (erf) GELU, parameters cast to the activation dtype per op.
 
 Initialisers draw from an explicit CPU `torch.Generator` with the JAX
 package's distributions (the numbers differ from jax.random's; tests that
-need equal weights bridge them from JAX instead).
+need equal weights bridge them from JAX instead).  Dropout draws from an
+explicit generator too: `RngStream` (the JAX package's _RngStream) hands out
+one seed per dropout site, and `dropout` turns a seed into a mask on the
+tensor's own device.  Entry points place their weights on the card unless
+the caller names another device (`resolve_device`).
 """
 from __future__ import annotations
 
@@ -37,6 +41,46 @@ def gelu(x):
 
 def glu(x, dim: int = -1):
     return F.glu(x, dim=dim)
+
+
+ACTIVATIONS = {"relu": torch.relu, "gelu": gelu}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for another (the tests pass "cpu")."""
+    return torch.device("cuda") if device is None else torch.device(device)
+
+
+class RngStream:
+    """Seeds for the dropout sites of one forward pass, drawn from a CPU
+    `torch.Generator` (no device synchronisation).  Counterpart of the JAX
+    package's nn/transformer._RngStream; None-safe through `next_seed`."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def next(self) -> int:
+        return int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=self.generator).item())
+
+
+def next_seed(rngs: Optional[RngStream]) -> Optional[int]:
+    return None if rngs is None else rngs.next()
+
+
+def dropout(x, rate: float, seed: Optional[int]):
+    """Inverted dropout with its mask drawn on x's device from a generator
+    seeded with `seed`; identity when seed is None or rate is 0 (the JAX
+    package's deterministic / rng-None cases)."""
+    if seed is None or rate == 0.0:
+        return x
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def masked_softmax(scores, visible):

@@ -1,11 +1,14 @@
 """Transformer decoder with incremental steps (counterpart of
-simulst_tpu/nn/transformer.py, forward at dropout 0).
+simulst_tpu/nn/transformer.py).
 
-fairseq semantics as configured by s2t_emformer_s: pre-LN (the only form
-the port builds), sinusoidal
-positions with the padding_idx offset, GELU FFN, shared input/output
-embedding.  The FFN of every layer is the `fused_ffn` CUDA kernel on the
-card.
+fairseq semantics as configured by s2t_emformer_s and transformer_small:
+pre-LN (the only form the port builds), sinusoidal positions with the
+padding_idx offset, GELU or ReLU FFN, shared input/output embedding.  On
+the card every layer runs its attention cores through `fused_mha`, its
+attention epilogues through `fused_linear_res` and its FFN through
+`fused_ffn`.  The teacher-forced forward takes an `RngStream`: each
+dropout site draws one seed from it, and without one nothing is dropped
+(the JAX package's deterministic mode).
 """
 from __future__ import annotations
 
@@ -17,9 +20,10 @@ import torch
 from torch import nn
 
 from simulst_tpu_torch.nn import attention as attn
-from simulst_tpu_torch.nn.core import (Embedding, LayerNorm, Linear, embedding,
-                                       layer_norm, linear)
-from simulst_tpu_torch.ops.ffn import fused_ffn
+from simulst_tpu_torch.nn.core import (Embedding, LayerNorm, Linear, RngStream,
+                                       dropout, embedding, layer_norm, linear,
+                                       next_seed, resolve_device)
+from simulst_tpu_torch.ops.ffn import ACTIVATION_CODES, fused_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +33,9 @@ class DecoderConfig:
     ffn_dim: int = 2048
     num_layers: int = 6
     num_heads: int = 4
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
     activation: str = "gelu"
     share_input_output_embed: bool = True
     padding_idx: int = 1
@@ -38,8 +45,10 @@ class DecoderConfig:
     no_scale_embedding: bool = False
 
     def __post_init__(self):
-        if self.activation != "gelu":
-            raise NotImplementedError("the port's FFN kernel computes GELU only")
+        if self.activation not in ACTIVATION_CODES:
+            raise NotImplementedError(
+                f"the port's FFN kernel computes {sorted(ACTIVATION_CODES)}, "
+                f"not {self.activation!r}")
 
     @property
     def embed_scale(self) -> float:
@@ -83,8 +92,11 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
+    """Weights from a seeded CPU generator, then moved to `device` (the card
+    unless the caller names another)."""
+
     def __init__(self, cfg: DecoderConfig, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.embed_dim,
                                       cfg.padding_idx, generator=generator)
@@ -100,44 +112,58 @@ class Decoder(nn.Module):
             sinusoidal_table(cfg.max_target_positions + cfg.padding_idx + 1,
                              cfg.embed_dim, cfg.padding_idx),
             persistent=False)
+        self.to(resolve_device(device))
 
 
-def _ffn(p: DecoderLayer, x):
+def _ffn(p: DecoderLayer, cfg: DecoderConfig, x,
+         rngs: Optional[RngStream] = None):
+    """x + drop_o(fc2(drop_a(act(fc1(LN(x)))))): one fused_ffn pass; one
+    seed keys both dropout sites."""
     h = layer_norm(p.final_ln, x)
     d = h.dtype
+    seed = next_seed(rngs)
+    on = seed is not None
     return x + fused_ffn(h, p.fc1.weight.to(d), p.fc1.bias.to(d),
-                         p.fc2.weight.to(d), p.fc2.bias.to(d))
+                         p.fc2.weight.to(d), p.fc2.bias.to(d), cfg.activation,
+                         cfg.activation_dropout if on else 0.0,
+                         cfg.dropout if on else 0.0, seed or 0)
 
 
-def _sublayer(p_attn, p_ln, x, key_value, num_heads, *, key_valid=None,
-              causal=False):
-    """x + attention(LN(x)); self-attention when key_value is None."""
+def _sublayer(p_attn, p_ln, cfg: DecoderConfig, x, key_value, *,
+              key_valid=None, causal=False, rngs: Optional[RngStream] = None):
+    """x + dropout(attention(LN(x))); self-attention when key_value is None.
+    The residual add and its dropout are the fused_linear_res epilogue."""
     h = layer_norm(p_ln, x)
     kv = h if key_value is None else key_value
-    return x + attn.mha_forward(p_attn, h, kv, kv, num_heads,
-                                key_valid=key_valid, causal=causal)
+    y, _ = attn.mha_forward(p_attn, h, kv, kv, cfg.num_heads,
+                            key_valid=key_valid, causal=causal,
+                            dropout_rate=cfg.attention_dropout,
+                            seed=next_seed(rngs),
+                            epilogue=(x, cfg.dropout, next_seed(rngs)))
+    return y
 
 
 def decoder_layer_forward(p: DecoderLayer, cfg: DecoderConfig, x, encoder_out,
-                          encoder_valid, *, self_attn_valid=None):
+                          encoder_valid, *, self_attn_valid=None,
+                          rngs: Optional[RngStream] = None):
     """Teacher-forced layer. x: (B, T, D); encoder_out: (B, S, De)."""
-    x = _sublayer(p.self_attn, p.self_attn_ln, x, None, cfg.num_heads,
-                  key_valid=self_attn_valid, causal=True)
-    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, x, encoder_out,
-                  cfg.num_heads, key_valid=encoder_valid)
-    return _ffn(p, x)
+    x = _sublayer(p.self_attn, p.self_attn_ln, cfg, x, None,
+                  key_valid=self_attn_valid, causal=True, rngs=rngs)
+    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, cfg, x, encoder_out,
+                  key_valid=encoder_valid, rngs=rngs)
+    return _ffn(p, cfg, x, rngs)
 
 
 def decoder_layer_step(p: DecoderLayer, cfg: DecoderConfig,
                        cache: attn.KVCache, x_step, encoder_out,
                        encoder_valid) -> Tuple[torch.Tensor, attn.KVCache]:
-    """Incremental step. x_step: (B, 1, D)."""
+    """Incremental step (no dropout). x_step: (B, 1, D)."""
     out, cache = attn.mha_step(p.self_attn, cache,
                                layer_norm(p.self_attn_ln, x_step),
                                cfg.num_heads)
-    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, x_step + out,
-                  encoder_out, cfg.num_heads, key_valid=encoder_valid)
-    return _ffn(p, x), cache
+    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, cfg, x_step + out,
+                  encoder_out, key_valid=encoder_valid)
+    return _ffn(p, cfg, x), cache
 
 
 def output_layer(p: Decoder, cfg: DecoderConfig, x):
@@ -146,20 +172,24 @@ def output_layer(p: Decoder, cfg: DecoderConfig, x):
     return linear(p.output_projection, x)
 
 
-def decoder_embed(p: Decoder, cfg: DecoderConfig, tokens, positions):
+def decoder_embed(p: Decoder, cfg: DecoderConfig, tokens, positions,
+                  rngs: Optional[RngStream] = None):
     x = cfg.embed_scale * embedding(p.embed_tokens, tokens)
-    return x + p.pos_table[positions].to(x.dtype)
+    x = x + p.pos_table[positions].to(x.dtype)
+    return dropout(x, cfg.dropout, next_seed(rngs))
 
 
 def decoder_forward(p: Decoder, cfg: DecoderConfig, prev_tokens, encoder_out,
-                    encoder_valid, *, features_only: bool = False):
-    """Teacher-forced forward. prev_tokens: (B, T) with EOS moved to front."""
+                    encoder_valid, *, rngs: Optional[RngStream] = None,
+                    features_only: bool = False):
+    """Teacher-forced forward. prev_tokens: (B, T) with EOS moved to front.
+    Dropout at the config's rates when rngs is given."""
     positions = positions_from_tokens(prev_tokens, cfg.padding_idx)
-    x = decoder_embed(p, cfg, prev_tokens, positions)
+    x = decoder_embed(p, cfg, prev_tokens, positions, rngs)
     self_valid = prev_tokens != cfg.padding_idx
     for layer in p.layers:
         x = decoder_layer_forward(layer, cfg, x, encoder_out, encoder_valid,
-                                  self_attn_valid=self_valid)
+                                  self_attn_valid=self_valid, rngs=rngs)
     x = layer_norm(p.layer_norm, x)
     return x if features_only else output_layer(p, cfg, x)
 

@@ -36,12 +36,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# a dropout site: seed (uint64), on flag, keep threshold (uint32), 1 / keep
+_DROP = [ctypes.c_uint64, _I, ctypes.c_uint32, ctypes.c_float]
 SIGNATURES = {
-    # dtype, ln_res, x, ln_g, ln_b, w1, b1, w2, b2, y, partial,
-    # n_rows, dim, hidden, splits, stream
-    "simulst_ffn": [_I, _I] + [_P] * 9 + [_I] * 4 + [_P],
-    # dtype, h, w, b, res, y, n_rows, din, dout, period, res_rows, stream
-    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, ln_res, act, x, ln_g, ln_b, w1, b1, w2, b2, y, partial,
+    # n_rows, dim, hidden, splits, seed, act_on, act_threshold, act_inv_keep,
+    # out_on, out_threshold, out_inv_keep, stream
+    "simulst_ffn": [_I] * 3 + [_P] * 9 + [_I] * 4 + _DROP + _DROP[1:] + [_P],
+    # dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g, partial,
+    # n_rows, dim, hidden, splits, seed, act site, out site, stream
+    "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:]
+                       + [_P],
+    # dtype, h, w, b, res, y, n_rows, din, dout, period, res_rows,
+    # dropout, seed, threshold, inv_keep, stream
+    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 5 + _DROP[1:2] + _DROP[:1]
+                          + _DROP[2:] + [_P],
+    # dtype, h, w, dy, dh, grads, du, partial, n_rows, din, dout, period,
+    # res_rows, splits, dropout, seed, threshold, inv_keep, stream
+    "simulst_linear_res_bwd": [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_uint64]
+                              + _DROP[2:] + [_P],
+    # dtype, q, k, v, kmask, out, lse, B, Tq, Tk, D, heads, causal,
+    # dropout, seed, threshold, inv_keep, stream
+    "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64]
+                       + _DROP[2:] + [_P],
+    # dtype, q, k, v, kmask, out, lse, dout, dq, dk, dv, B, Tq, Tk, D, heads,
+    # causal, dropout, seed, threshold, inv_keep, stream
+    "simulst_mha_bwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
+                       + _DROP[2:] + [_P],
     # dtype, q3, k, v, lengths, out, batch, ng, nq, dim, heads, seg, lc, rc,
     # max_mem, G, tk, rows_per_block, stream
     "simulst_emformer_attn": [_I] + [_P] * 5 + [_I] * 12 + [_P],
@@ -113,6 +134,47 @@ def dtype_code(t: torch.Tensor) -> int:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dropout_args(rate: float, seed: int):
+    """(on, seed, keep threshold, 1 / keep) of one dropout site, as the C
+    entries take them (ops/philox.py keep_threshold)."""
+    from simulst_tpu_torch.ops.philox import keep_threshold
+    if rate <= 0.0:
+        return 0, 0, 0, 1.0
+    return 1, seed & (2 ** 64 - 1), keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Marks the output of a kernel that has no backward kernel yet: autograd
+    reaching it raises instead of silently dropping the gradient."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *args):
+        ctx.name = name
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name}: its backward kernel is not ported yet (ROADMAP "
+            "Queue 2); a CUDA tensor never differentiates through the plain "
+            "version")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors; when not, the
+    wrappers skip their autograd.Function (its host time shows at the
+    1-40 row shapes of decoding)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def forward_only(name: str, fn, *args):
+    """fn(*args) on the card, with a backward that raises."""
+    if not needs_grad(*args):
+        return fn(*args)
+    return _ForwardOnly.apply(name, fn, *args)
 
 
 def check_cuda(name: str, ref: torch.Tensor, **tensors) -> None:

@@ -6,8 +6,10 @@ q3: (B, ng, nq, D) projected queries, rows [G rc blocks | G segments |
 G summaries] per group; k/v: (B, Tk, D) projected rows of [mems (n-1) |
 rc blocks (n*rc) | utterance (U)] at their exact Tk; lengths (B,) int32.
 Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernel
-csrc/emformer_attn.cu runs; on a CPU tensor `grouped_attention_plain`, the
-gathered-context formulation of nn/emformer.py `_grouped_attention`.
+csrc/emformer_attn.cu runs, forward only: its backward kernel is ROADMAP
+Queue 2, and autograd reaching the kernel's output raises.  On a CPU tensor
+`grouped_attention_plain`, the gathered-context formulation of
+nn/emformer.py `_grouped_attention`.
 """
 from __future__ import annotations
 
@@ -141,6 +143,11 @@ def grouped_attention_plain(q3, k, v, lengths, geom: AttnGeom):
 def emformer_grouped_attention(q3, k, v, lengths, geom: AttnGeom):
     if q3.device.type == "cpu":
         return grouped_attention_plain(q3, k, v, lengths, geom)
+    return _build.forward_only("emformer_grouped_attention", _launch, q3, k, v,
+                               lengths, geom)
+
+
+def _launch(q3, k, v, lengths, geom: AttnGeom):
     b, ng, nq, d = q3.shape
     if (ng, nq) != (geom.ng, geom.nq) or d != geom.num_heads * HEAD_DIM \
             or geom.rc <= 0 or k.shape != (b, geom.tk, d) \

@@ -1,15 +1,22 @@
-"""Fused FFN blocks (counterpart of simulst_tpu/ops/ffn_pallas.py, forward).
+"""Fused FFN blocks (counterpart of simulst_tpu/ops/ffn_pallas.py).
 
   fused_ln_ffn_res: y = x + fc2(gelu(fc1(LN(x))))   the Emformer pos_ff block
-  fused_ffn:        y = fc2(gelu(fc1(x)))           the decoder FFN
+                    (forward only: its backward kernel is ROADMAP Queue 2)
+  fused_ffn:        y = drop_o(fc2(drop_a(act(fc1(x)))))   the decoder FFN,
+                    relu or gelu, forward and backward
 
-Both run the CUDA kernel csrc/ffn.cu on a CUDA tensor, at any row count,
-and their plain PyTorch versions (`ln_ffn_res_plain`, `ffn_plain`) on a CPU
-tensor.  GELU is the exact erf form.  Weights keep the JAX layout:
-w1 (D, H), w2 (H, D).  The plain versions round to the activation dtype
-where the kernel does (fc1 input, hidden), so bf16 compares like with
-like; in fp32 they are the JAX package's ln_ffn_res_reference and
-ffn_reference at dropout 0.
+Both run the CUDA kernels of csrc/ffn.cu on a CUDA tensor, at any row
+count, and their plain PyTorch versions (`ln_ffn_res_plain`, `ffn_plain`,
+`ffn_plain_backward`) on a CPU tensor.  GELU is the exact erf form.
+Weights keep the JAX layout: w1 (D, H), w2 (H, D).  The plain versions
+round to the activation dtype where the kernel does (fc1 input, hidden,
+the gradients the JAX kernel casts), so bf16 compares like with like; in
+fp32 they are the JAX package's ln_ffn_res_reference and ffn_reference
+at dropout 0.  Dropout masks come from ops/philox.py: the hidden site is
+stream 0 at offset row * H + column, the output site stream 1 at row * D
++ column, both keyed by the call's seed, so the plain version, the kernel
+and the backward all drop the same elements.  The plain backward mirrors
+the JAX `_bwd_kernel` formulas, not autograd.
 """
 from __future__ import annotations
 
@@ -19,21 +26,78 @@ import torch
 
 from simulst_tpu_torch.nn.core import gelu
 from simulst_tpu_torch.ops import _build
+from simulst_tpu_torch.ops.philox import drop_scale
 
 KERNEL_DIM = 256     # the width csrc/ffn.cu is built for
 HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cu kChunk)
 ROWS_PER_BLOCK = 32  # csrc/ffn.cu kRows
+GEMM_TILE = 64       # output tile of the backward products (common.cuh)
+ACTIVATION_CODES = {"gelu": 0, "relu": 1}
 
 
-def _ffn_f32(x, w1, b1, w2, b2):
-    """fc2(gelu(fc1(x))) in fp32 with the hidden rounded to x's dtype."""
+def _act(name: str, u):
+    return torch.relu(u) if name == "relu" else gelu(u)
+
+
+def _act_grad(name: str, u):
+    if name == "relu":
+        return (u > 0).to(u.dtype)
+    cdf = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
+    return cdf + u * 0.3989422804014327 * torch.exp(-0.5 * u * u)
+
+
+def _check_activation(activation: str):
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"fused_ffn: activation {activation!r} is not one of "
+                         f"{sorted(ACTIVATION_CODES)}")
+
+
+def _ffn_f32(x, w1, b1, w2, b2, activation="gelu", act_rate=0.0,
+             out_rate=0.0, seed=0):
+    """drop_o(fc2(drop_a(act(fc1 x)))) in fp32 on (rows, D) input, the
+    hidden rounded to x's dtype."""
     u = x.float() @ w1.float() + b1.float()
-    h = gelu(u).to(x.dtype).float()
-    return h @ w2.float() + b2.float()
+    h = _act(activation, u)
+    if act_rate > 0.0:
+        h = h * drop_scale(seed, h.shape, act_rate, 0, x.device)
+    y = h.to(x.dtype).float() @ w2.float() + b2.float()
+    if out_rate > 0.0:
+        y = y * drop_scale(seed, y.shape, out_rate, 1, x.device)
+    return y
 
 
-def ffn_plain(x, w1, b1, w2, b2):
-    return _ffn_f32(x, w1, b1, w2, b2).to(x.dtype)
+def ffn_plain(x, w1, b1, w2, b2, activation="gelu", act_rate=0.0,
+              out_rate=0.0, seed=0):
+    _check_activation(activation)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _ffn_f32(x2, w1, b1, w2, b2, activation, act_rate, out_rate, seed)
+    return y.to(x.dtype).reshape(*x.shape[:-1], w2.shape[1])
+
+
+def ffn_plain_backward(x, w1, b1, w2, dy, activation="gelu", act_rate=0.0,
+                       out_rate=0.0, seed=0):
+    """(dx, dw1, db1, dw2, db2) of ffn_plain, the weight gradients in fp32:
+    the hidden and both masks recomputed, as ffn_pallas._bwd_kernel."""
+    _check_activation(activation)
+    d, hidden = w1.shape
+    dtype, dev = x.dtype, x.device
+    x2 = x.reshape(-1, d)
+    n = x2.shape[0]
+    u = x2.float() @ w1.float() + b1.float()
+    h = _act(activation, u)
+    mask_a = (drop_scale(seed, (n, hidden), act_rate, 0, dev)
+              if act_rate > 0.0 else None)
+    h_d = (h if mask_a is None else h * mask_a).to(dtype).float()
+    g = dy.reshape(-1, d).float()
+    if out_rate > 0.0:
+        g = g * drop_scale(seed, (n, d), out_rate, 1, dev)
+    g = g.to(dtype).float()
+    du = (g @ w2.float().T) * _act_grad(activation, u)
+    if mask_a is not None:
+        du = du * mask_a
+    du = du.to(dtype).float()
+    dx = (du @ w1.float().T).to(dtype).reshape(x.shape)
+    return dx, x2.float().T @ du, du.sum(0), h_d.T @ g, g.sum(0)
 
 
 def ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
@@ -60,8 +124,15 @@ def _splits(n_rows: int, hidden: int, device) -> int:
     return splits
 
 
-def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2):
-    name = "fused_ln_ffn_res" if ln_res else "fused_ffn"
+def k_splits(rows: int, out_tiles: int, device) -> int:
+    """Slices of the row (K) axis for a weight-gradient product with
+    `out_tiles` 64 x 64 output tiles: about two blocks per SM, and at least
+    256 rows per slice."""
+    want = -(-2 * _sm_count(device.index) // out_tiles)
+    return max(1, min(want, rows // 256))
+
+
+def _check_shapes(name, x, w1, w2):
     d = x.shape[-1]
     hidden = w1.shape[1]
     if d != KERNEL_DIM or tuple(w1.shape) != (d, hidden) or \
@@ -69,6 +140,21 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2):
         raise ValueError(f"{name}: kernel takes D={KERNEL_DIM} and a hidden "
                          f"multiple of {HIDDEN_CHUNK}; got x {tuple(x.shape)}, "
                          f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    return d, hidden
+
+
+def _dropout_sites(act_rate, out_rate, seed):
+    """seed, then (on, threshold, 1 / keep) of the hidden and output sites,
+    as simulst_ffn and simulst_ffn_bwd take them."""
+    a_on, _, a_thr, a_inv = _build.dropout_args(act_rate, seed)
+    o_on, _, o_thr, o_inv = _build.dropout_args(out_rate, seed)
+    return (seed & (2 ** 64 - 1), a_on, a_thr, a_inv, o_on, o_thr, o_inv)
+
+
+def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
+            act_rate=0.0, out_rate=0.0, seed=0):
+    name = "fused_ln_ffn_res" if ln_res else "fused_ffn"
+    d, hidden = _check_shapes(name, x, w1, w2)
     x2 = x.reshape(-1, d).contiguous()
     vecs = dict(b1=b1, w1=w1, w2=w2, b2=b2)
     if ln_res:
@@ -81,13 +167,46 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2):
     splits = _splits(n, hidden, x.device)
     partial = torch.empty(splits, n, d, dtype=torch.float32, device=x.device)
     _build.launch(
-        "simulst_ffn", _build.dtype_code(x2), int(ln_res), x2.data_ptr(),
+        "simulst_ffn", _build.dtype_code(x2), int(ln_res),
+        ACTIVATION_CODES[activation], x2.data_ptr(),
         ln_g.data_ptr() if ln_res else None, ln_b.data_ptr() if ln_res else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         y.data_ptr(), partial.data_ptr(), n, d, hidden, splits,
-        _build.stream_of(x2))
+        *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
     (fused_ln_ffn_res if ln_res else fused_ffn).launches += 1
     return y.reshape(x.shape)
+
+
+def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
+    d, hidden = _check_shapes("fused_ffn_backward", x, w1, w2)
+    x2 = x.reshape(-1, d).contiguous()
+    dy2 = dy.reshape(-1, d).contiguous()
+    _build.check_cuda("fused_ffn_backward", x2, w1=w1, b1=b1, w2=w2, dy=dy2)
+    n = x2.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    length = 2 * d * hidden + hidden + d
+    grads = torch.zeros(length, **f32)
+    dx = torch.zeros_like(x2)
+    if n:
+        tiles = -(-d // GEMM_TILE) * -(-hidden // GEMM_TILE)
+        splits = k_splits(n, tiles, x.device)
+        u = torch.empty(n, hidden, **f32)
+        du = torch.empty(n, hidden, **f32)
+        g = torch.empty(n, d, **f32)
+        partial = torch.zeros(splits, length, **f32)
+        _build.launch(
+            "simulst_ffn_bwd", _build.dtype_code(x2),
+            ACTIVATION_CODES[activation], x2.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+            grads.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
+            partial.data_ptr(), n, d, hidden, splits,
+            *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
+        fused_ffn_backward.launches += 1
+    dw1 = grads[:d * hidden].view(d, hidden)
+    dw2 = grads[d * hidden:2 * d * hidden].view(hidden, d)
+    db1 = grads[2 * d * hidden:2 * d * hidden + hidden]
+    db2 = grads[2 * d * hidden + hidden:]
+    return dx.reshape(x.shape), dw1, db1, dw2, db2
 
 
 def fused_ln_ffn_res(x, ln_g, ln_b, w1, b1, w2, b2):
@@ -95,15 +214,65 @@ def fused_ln_ffn_res(x, ln_g, ln_b, w1, b1, w2, b2):
     fp32, eps 1e-5."""
     if x.device.type == "cpu":
         return ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2)
-    return _launch(True, x, ln_g, ln_b, w1, b1, w2, b2)
+    return _build.forward_only("fused_ln_ffn_res", _launch, True, x, ln_g,
+                               ln_b, w1, b1, w2, b2)
 
 
-def fused_ffn(x, w1, b1, w2, b2):
-    """y = fc2(gelu(fc1(x))); x (..., D)."""
+def fused_ffn_forward(x, w1, b1, w2, b2, activation="gelu", act_rate=0.0,
+                      out_rate=0.0, seed=0):
+    """fused_ffn's output without autograd: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return ffn_plain(x, w1, b1, w2, b2)
-    return _launch(False, x, None, None, w1, b1, w2, b2)
+        return ffn_plain(x, w1, b1, w2, b2, activation, act_rate, out_rate,
+                         seed)
+    return _launch(False, x, None, None, w1, b1, w2, b2, activation,
+                   act_rate, out_rate, seed)
+
+
+def fused_ffn_backward(x, w1, b1, w2, dy, activation="gelu", act_rate=0.0,
+                       out_rate=0.0, seed=0):
+    """(dx, dw1, db1, dw2, db2) of fused_ffn for upstream gradient dy; the
+    weight gradients in fp32.  The CUDA kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ffn_plain_backward(x, w1, b1, w2, dy, activation, act_rate,
+                                  out_rate, seed)
+    _check_activation(activation)
+    return _launch_backward(x, w1, b1, w2, dy, activation, act_rate,
+                            out_rate, seed)
+
+
+class _FusedFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, activation, act_rate, out_rate, seed):
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.config = (activation, act_rate, out_rate, seed)
+        ctx.b2_dtype = b2.dtype
+        return fused_ffn_forward(x, w1, b1, w2, b2, activation, act_rate,
+                                 out_rate, seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, b1, w2 = ctx.saved_tensors
+        dx, dw1, db1, dw2, db2 = fused_ffn_backward(x, w1, b1, w2, dy,
+                                                    *ctx.config)
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(ctx.b2_dtype), None, None, None, None)
+
+
+def fused_ffn(x, w1, b1, w2, b2, activation: str = "gelu",
+              act_rate: float = 0.0, out_rate: float = 0.0, seed: int = 0):
+    """y = drop_o(fc2(drop_a(act(fc1(x))))); x (..., D).  Differentiable:
+    the backward is `fused_ffn_backward`.  seed keys both dropout masks
+    (ignored at rate 0)."""
+    _check_activation(activation)
+    if not _build.needs_grad(x, w1, b1, w2, b2):
+        return fused_ffn_forward(x, w1, b1, w2, b2, activation, act_rate,
+                                 out_rate, seed)
+    return _FusedFFN.apply(x, w1, b1, w2, b2, activation, act_rate, out_rate,
+                           seed)
 
 
 fused_ln_ffn_res.launches = 0
 fused_ffn.launches = 0
+fused_ffn_backward.launches = 0

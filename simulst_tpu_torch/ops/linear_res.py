@@ -1,20 +1,25 @@
-"""Fused projection + gated residual (counterpart of
-simulst_tpu/ops/linear_res_pallas.py `fused_linear_drop_res`, forward at
-dropout 0).
+"""Fused projection + dropout + gated residual (counterpart of
+simulst_tpu/ops/linear_res_pallas.py `fused_linear_drop_res`, forward and
+backward).
 
-    y = res + h @ w + b   on rows with row % period < res_rows
-    y = h @ w + b         on the others (they ignore `res`)
+    y = res + drop(h @ w + b)   on rows with row % period < res_rows
+    y = h @ w + b               on the others (they ignore `res`)
 
 Rows are counted in the flattened row-major order of h's leading axes;
 period = 0 makes every row a residual row.  On a CUDA tensor the CUDA
-kernel csrc/linear_res.cu runs; on a CPU tensor `linear_res_plain`.  w keeps
-the JAX layout (D_in, D_out).
+kernels of csrc/linear_res.cu run; on a CPU tensor `linear_res_plain` and
+`linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
+dropout mask is ops/philox.py's, stream 0 at offset row * D_out + column,
+keyed by the call's seed; d(res) is the upstream gradient on residual rows
+and zero elsewhere, as in the JAX package's _flr_bwd.
 """
 from __future__ import annotations
 
 import torch
 
 from simulst_tpu_torch.ops import _build
+from simulst_tpu_torch.ops.ffn import GEMM_TILE, k_splits
+from simulst_tpu_torch.ops.philox import drop_scale
 
 K_STEP = 32      # csrc/linear_res.cu kBK: D_in must be a multiple
 COL_TILE = 64    # csrc/linear_res.cu kBN: D_out must be a multiple
@@ -27,38 +32,149 @@ def _residual_rows(n: int, period: int, res_rows: int, device):
     return rows % period < res_rows
 
 
-def linear_res_plain(h, w, b, res, period: int = 0, res_rows: int = 0):
+def _grad_scale(n, dout, period, res_rows, rate, seed, device):
+    """(rows, D_out) fp32 multiplier of the projection: the dropout mask on
+    residual rows, 1 on plain rows; and the (rows,) residual-row flags."""
+    gate = _residual_rows(n, period, res_rows, device)
+    if rate > 0.0:
+        drop = drop_scale(seed, (n, dout), rate, 0, device)
+        return torch.where(gate[:, None], drop, 1.0), gate
+    return torch.ones(n, 1, device=device), gate
+
+
+def linear_res_plain(h, w, b, res, period: int = 0, res_rows: int = 0,
+                     rate: float = 0.0, seed: int = 0):
     din, dout = w.shape
     h2 = h.reshape(-1, din)
     u = h2.float() @ w.float() + b.float()
-    gate = _residual_rows(h2.shape[0], period, res_rows, h.device)
-    y = torch.where(gate[:, None], u + res.reshape(-1, dout).float(), u)
+    scale, gate = _grad_scale(h2.shape[0], dout, period, res_rows, rate, seed,
+                              h.device)
+    y = torch.where(gate[:, None], u * scale + res.reshape(-1, dout).float(), u)
     return y.to(h.dtype).reshape(*h.shape[:-1], dout)
 
 
-def fused_linear_res(h, w, b, res, period: int = 0, res_rows: int = 0):
-    """h: (..., D_in); w: (D_in, D_out); b: (D_out,); res: (..., D_out)."""
-    if h.device.type == "cpu":
-        return linear_res_plain(h, w, b, res, period, res_rows)
+def linear_res_plain_backward(h, w, dy, period: int = 0, res_rows: int = 0,
+                              rate: float = 0.0, seed: int = 0):
+    """(dh, dw, db) of linear_res_plain, dw and db in fp32, as
+    linear_res_pallas._bwd_kernel."""
+    din, dout = w.shape
+    h2 = h.reshape(-1, din)
+    dy2 = dy.reshape(-1, dout)
+    scale, _ = _grad_scale(h2.shape[0], dout, period, res_rows, rate, seed,
+                           h.device)
+    du = (dy2.float() * scale).to(h.dtype).float()
+    dh = (du @ w.float().T).to(h.dtype).reshape(h.shape)
+    return dh, h2.float().T @ du, du.sum(0)
+
+
+def _check(name, h, w, res=None, period=0):
     din, dout = w.shape
     if h.shape[-1] != din or din % K_STEP or dout % COL_TILE or period < 0 \
-            or res.shape != (*h.shape[:-1], dout):
+            or (res is not None and res.shape != (*h.shape[:-1], dout)):
         raise ValueError(
-            f"fused_linear_res: kernel takes D_in % {K_STEP} == 0 and D_out % "
+            f"{name}: kernel takes D_in % {K_STEP} == 0 and D_out % "
             f"{COL_TILE} == 0; got h {tuple(h.shape)}, w {tuple(w.shape)}, "
-            f"res {tuple(res.shape)}, period {period}")
+            f"res {None if res is None else tuple(res.shape)}, "
+            f"period {period}")
+    return din, dout
+
+
+def _launch(h, w, b, res, period, res_rows, rate, seed):
+    din, dout = _check("fused_linear_res", h, w, res, period)
     h2 = h.reshape(-1, din).contiguous()
     res2 = res.reshape(-1, dout).contiguous()
     _build.check_cuda("fused_linear_res", h2, w=w, b=b, res=res2)
     n = h2.shape[0]
     y = torch.empty(n, dout, dtype=h.dtype, device=h.device)
     if n:
+        on, seed64, thr, inv = _build.dropout_args(rate, seed)
         _build.launch("simulst_linear_res", _build.dtype_code(h2),
                       h2.data_ptr(), w.data_ptr(), b.data_ptr(),
                       res2.data_ptr(), y.data_ptr(), n, din, dout, period,
-                      res_rows, _build.stream_of(h2))
+                      res_rows, on, seed64, thr, inv, _build.stream_of(h2))
         fused_linear_res.launches += 1
     return y.reshape(*h.shape[:-1], dout)
 
 
+def _launch_backward(h, w, dy, period, res_rows, rate, seed):
+    din, dout = _check("fused_linear_res_backward", h, w, period=period)
+    h2 = h.reshape(-1, din).contiguous()
+    dy2 = dy.reshape(-1, dout).contiguous()
+    _build.check_cuda("fused_linear_res_backward", h2, w=w, dy=dy2)
+    n = h2.shape[0]
+    f32 = dict(dtype=torch.float32, device=h.device)
+    length = din * dout + dout
+    grads = torch.zeros(length, **f32)
+    dh = torch.zeros_like(h2)
+    if n:
+        tiles = -(-din // GEMM_TILE) * -(-dout // GEMM_TILE)
+        splits = k_splits(n, tiles, h.device)
+        du = torch.empty(n, dout, **f32)
+        partial = torch.zeros(splits, length, **f32)
+        on, seed64, thr, inv = _build.dropout_args(rate, seed)
+        _build.launch("simulst_linear_res_bwd", _build.dtype_code(h2),
+                      h2.data_ptr(), w.data_ptr(), dy2.data_ptr(),
+                      dh.data_ptr(), grads.data_ptr(), du.data_ptr(),
+                      partial.data_ptr(), n, din, dout, period, res_rows,
+                      splits, on, seed64, thr, inv, _build.stream_of(h2))
+        fused_linear_res_backward.launches += 1
+    return (dh.reshape(h.shape), grads[:din * dout].view(din, dout),
+            grads[din * dout:])
+
+
+def fused_linear_res_forward(h, w, b, res, period: int = 0, res_rows: int = 0,
+                             rate: float = 0.0, seed: int = 0):
+    """fused_linear_res's output without autograd: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if h.device.type == "cpu":
+        return linear_res_plain(h, w, b, res, period, res_rows, rate, seed)
+    return _launch(h, w, b, res, period, res_rows, rate, seed)
+
+
+def fused_linear_res_backward(h, w, dy, period: int = 0, res_rows: int = 0,
+                              rate: float = 0.0, seed: int = 0):
+    """(dh, dw, db) of fused_linear_res for upstream gradient dy; dw and db
+    in fp32.  The CUDA kernel on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if h.device.type == "cpu":
+        return linear_res_plain_backward(h, w, dy, period, res_rows, rate,
+                                         seed)
+    return _launch_backward(h, w, dy, period, res_rows, rate, seed)
+
+
+class _FusedLinearRes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, b, res, period, res_rows, rate, seed):
+        ctx.save_for_backward(h, w)
+        ctx.config = (period, res_rows, rate, seed)
+        ctx.dtypes = (b.dtype, res.dtype)
+        return fused_linear_res_forward(h, w, b, res, period, res_rows, rate,
+                                        seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        period, res_rows, _, _ = ctx.config
+        dh, dw, db = fused_linear_res_backward(h, w, dy, *ctx.config)
+        dres = dy
+        if period != 0:
+            dy2 = dy.reshape(-1, dy.shape[-1])
+            gate = _residual_rows(dy2.shape[0], period, res_rows, dy.device)
+            dres = torch.where(gate[:, None], dy2, 0.0).reshape(dy.shape)
+        return (dh, dw.to(w.dtype), db.to(ctx.dtypes[0]),
+                dres.to(ctx.dtypes[1]), None, None, None, None)
+
+
+def fused_linear_res(h, w, b, res, period: int = 0, res_rows: int = 0,
+                     rate: float = 0.0, seed: int = 0):
+    """h: (..., D_in); w: (D_in, D_out); b: (D_out,); res: (..., D_out).
+    Differentiable: the backward is `fused_linear_res_backward`.  seed keys
+    the dropout mask (ignored at rate 0)."""
+    if not _build.needs_grad(h, w, b, res):
+        return fused_linear_res_forward(h, w, b, res, period, res_rows, rate,
+                                        seed)
+    return _FusedLinearRes.apply(h, w, b, res, period, res_rows, rate, seed)
+
+
 fused_linear_res.launches = 0
+fused_linear_res_backward.launches = 0

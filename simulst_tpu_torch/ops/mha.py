@@ -1,0 +1,205 @@
+"""Fused multi-head attention core (counterpart of
+simulst_tpu/ops/mha_pallas.py `fused_mha`, forward and backward).
+
+The attention after the q/k/v projections and before out_proj:
+qp (B, Tq, D), kp / vp (B, Tk, D), heads are column slices of D;
+kmask (B, Tk) int32, nonzero where the key may be attended; `causal` adds
+key <= query; dropout at `rate` on the probabilities.  Returns the merged
+(B, Tq, D) output.  On a CUDA tensor the CUDA kernels of csrc/mha.cu run
+(head dim 64, any Tq and Tk); on a CPU tensor `mha_plain` and
+`mha_plain_backward`.  The softmax is the running-max form in fp32; a
+query row that sees no key returns exact zeros, as the JAX kernel's -1e9
+bias with its 1e-30 denominator does.  Probabilities are rounded to the
+activation dtype before the product with v, as in the JAX kernel.  The
+dropout mask is ops/philox.py's, stream 0 at offset ((b H + h) Tq + q) Tk
++ k, keyed by the call's seed.  The plain backward mirrors the JAX
+`_bwd_kernel` formulas, not autograd.
+"""
+from __future__ import annotations
+
+import torch
+
+from simulst_tpu_torch.nn.core import masked_softmax
+from simulst_tpu_torch.ops import _build
+from simulst_tpu_torch.ops.philox import drop_scale
+
+HEAD_DIM = 64    # csrc/mha.cu kHD
+
+
+def _heads(x, num_heads):
+    b, t, d = x.shape
+    return x.float().reshape(b, t, num_heads, d // num_heads).transpose(1, 2)
+
+
+def _merge(x):
+    b, h, t, hd = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * hd)
+
+
+def _visible(kmask, tq, causal):
+    """(B, 1, Tq, Tk) bool."""
+    vis = (kmask != 0)[:, None, None, :]
+    if causal:
+        tk = kmask.shape[1]
+        q = torch.arange(tq, device=kmask.device)[:, None]
+        k = torch.arange(tk, device=kmask.device)[None, :]
+        vis = vis & (k <= q)
+    return vis
+
+
+def _probs(qp, kp, kmask, num_heads, causal, rate, seed):
+    """fp32 probabilities p (B, H, Tq, Tk) and the dropout multiplier
+    (or None at rate 0)."""
+    hd = qp.shape[-1] // num_heads
+    s = (_heads(qp, num_heads) @ _heads(kp, num_heads).transpose(-1, -2)) \
+        * (hd ** -0.5)
+    p = masked_softmax(s, _visible(kmask, qp.shape[1], causal))
+    mult = drop_scale(seed, p.shape, rate, 0, qp.device) if rate > 0.0 else None
+    return p, mult
+
+
+def mha_plain(qp, kp, vp, kmask, num_heads: int, causal: bool = False,
+              rate: float = 0.0, seed: int = 0):
+    p, mult = _probs(qp, kp, kmask, num_heads, causal, rate, seed)
+    pd = p if mult is None else p * mult
+    out = pd.to(qp.dtype).float() @ _heads(vp, num_heads)
+    return _merge(out).to(qp.dtype)
+
+
+def mha_plain_backward(qp, kp, vp, kmask, dout, num_heads: int,
+                       causal: bool = False, rate: float = 0.0, seed: int = 0):
+    """(dq, dk, dv) with the probabilities recomputed, as
+    mha_pallas._bwd_kernel."""
+    dtype = qp.dtype
+    hd = qp.shape[-1] // num_heads
+    p, mult = _probs(qp, kp, kmask, num_heads, causal, rate, seed)
+    pd = (p if mult is None else p * mult).to(dtype).float()
+    do = _heads(dout, num_heads)
+    dv = pd.transpose(-1, -2) @ do
+    dp = do @ _heads(vp, num_heads).transpose(-1, -2)
+    if mult is not None:
+        dp = dp * mult
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * (hd ** -0.5)).to(dtype).float()
+    dq = ds @ _heads(kp, num_heads)
+    dk = ds.transpose(-1, -2) @ _heads(qp, num_heads)
+    return tuple(_merge(t).to(dtype) for t in (dq, dk, dv))
+
+
+def _check(name, qp, kp, vp, kmask, num_heads):
+    b, tq, d = qp.shape
+    if d != num_heads * HEAD_DIM or kp.ndim != 3 or kp.shape[0] != b or \
+            kp.shape[2] != d or vp.shape != kp.shape or \
+            kmask.shape != kp.shape[:2]:
+        raise ValueError(
+            f"{name}: kernel takes head dim {HEAD_DIM} and qp (B, Tq, D), "
+            f"kp = vp (B, Tk, D), kmask (B, Tk); got qp {tuple(qp.shape)}, kp "
+            f"{tuple(kp.shape)}, vp {tuple(vp.shape)}, kmask "
+            f"{tuple(kmask.shape)} with {num_heads} heads")
+    if kmask.dtype != torch.int32 or kmask.device != qp.device:
+        raise TypeError(f"{name}: kmask must be an int32 tensor on {qp.device}")
+
+
+def _check_lse(lse, qp, num_heads):
+    b, tq, _ = qp.shape
+    if lse is None or lse.shape != (b, num_heads, tq) or \
+            lse.dtype != torch.float32 or lse.device != qp.device or \
+            not lse.is_contiguous():
+        raise ValueError("fused_mha_backward: lse must be the forward's "
+                         f"contiguous fp32 (B, H, Tq) = {(b, num_heads, tq)} "
+                         f"tensor on {qp.device}")
+
+
+def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
+    _check("fused_mha", qp, kp, vp, kmask, num_heads)
+    qp, kp, vp, kmask = (t.contiguous() for t in (qp, kp, vp, kmask))
+    _build.check_cuda("fused_mha", qp, kp=kp, vp=vp)
+    b, tq, d = qp.shape
+    tk = kp.shape[1]
+    out = torch.empty_like(qp)
+    lse = torch.empty(b, num_heads, tq, dtype=torch.float32, device=qp.device)
+    if b and tq and tk:
+        on, seed64, thr, inv = _build.dropout_args(rate, seed)
+        _build.launch("simulst_mha_fwd", _build.dtype_code(qp), qp.data_ptr(),
+                      kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
+                      out.data_ptr(), lse.data_ptr(), b, tq, tk, d, num_heads,
+                      int(causal), on, seed64, thr, inv, _build.stream_of(qp))
+        fused_mha.launches += 1
+    else:
+        out.zero_()
+    return out, lse
+
+
+def _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads, causal,
+                     rate, seed):
+    _check("fused_mha_backward", qp, kp, vp, kmask, num_heads)
+    _check_lse(lse, qp, num_heads)
+    qp, kp, vp, kmask, out, dout = (t.contiguous() for t in
+                                    (qp, kp, vp, kmask, out, dout))
+    _build.check_cuda("fused_mha_backward", qp, kp=kp, vp=vp, out=out,
+                      dout=dout)
+    b, tq, d = qp.shape
+    tk = kp.shape[1]
+    dq, dk, dv = (torch.zeros_like(t) for t in (qp, kp, vp))
+    if b and tq and tk:
+        on, seed64, thr, inv = _build.dropout_args(rate, seed)
+        _build.launch("simulst_mha_bwd", _build.dtype_code(qp), qp.data_ptr(),
+                      kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
+                      out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk,
+                      d, num_heads, int(causal), on, seed64, thr, inv,
+                      _build.stream_of(qp))
+        fused_mha_backward.launches += 1
+    return dq, dk, dv
+
+
+def fused_mha_backward(qp, kp, vp, kmask, out, lse, dout, num_heads: int,
+                       causal: bool = False, rate: float = 0.0, seed: int = 0):
+    """(dq, dk, dv) of fused_mha for upstream gradient dout.  The CUDA
+    kernels take the forward's output and per-row log-sum-exp `lse`
+    (B, H, Tq); the plain version (CPU) recomputes from the inputs."""
+    if qp.device.type == "cpu":
+        return mha_plain_backward(qp, kp, vp, kmask, dout, num_heads, causal,
+                                  rate, seed)
+    return _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads,
+                            causal, rate, seed)
+
+
+def fused_mha_forward(qp, kp, vp, kmask, num_heads: int, causal: bool = False,
+                      rate: float = 0.0, seed: int = 0):
+    """(out, lse): the output and, on the card, the (B, H, Tq) fp32 per-row
+    log-sum-exp the backward kernels take (None on the CPU)."""
+    if qp.device.type == "cpu":
+        return mha_plain(qp, kp, vp, kmask, num_heads, causal, rate, seed), None
+    return _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed)
+
+
+class _FusedMHA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qp, kp, vp, kmask, num_heads, causal, rate, seed):
+        out, lse = fused_mha_forward(qp, kp, vp, kmask, num_heads, causal,
+                                     rate, seed)
+        ctx.save_for_backward(qp, kp, vp, kmask, out, lse)
+        ctx.config = (num_heads, causal, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qp, kp, vp, kmask, out, lse = ctx.saved_tensors
+        dq, dk, dv = fused_mha_backward(qp, kp, vp, kmask, out, lse, dout,
+                                        *ctx.config)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def fused_mha(qp, kp, vp, kmask, num_heads: int, causal: bool = False,
+              rate: float = 0.0, seed: int = 0):
+    """Fused attention core; differentiable in qp, kp and vp (the backward is
+    `fused_mha_backward`).  seed keys the dropout mask (ignored at rate 0)."""
+    if not _build.needs_grad(qp, kp, vp):
+        return fused_mha_forward(qp, kp, vp, kmask, num_heads, causal, rate,
+                                 seed)[0]
+    return _FusedMHA.apply(qp, kp, vp, kmask, num_heads, causal, rate, seed)
+
+
+fused_mha.launches = 0
+fused_mha_backward.launches = 0

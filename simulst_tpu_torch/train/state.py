@@ -1,0 +1,120 @@
+"""TrainState and the train step with microbatch accumulation
+(counterpart of simulst_tpu/train/state.py).
+
+The JAX package's step semantics, on an nn.Module: gradients of SUM losses
+are summed over `update_freq` microbatches and divided by the summed
+'sample_size' (fairseq); `freeze_until` zeroes a top-level component's
+gradients while step < n (the reference's --encoder-freezing-updates); the
+global-norm clip, Adam and the learning rate follow; a non-finite gradient
+norm skips the whole update, so params, Adam moments and step stay put.
+Gradients accumulate in each parameter's .grad and the update is made in
+place; the decision to skip reads the norm on the host once per update.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from simulst_tpu_torch.nn.core import RngStream
+from simulst_tpu_torch.train.optim import (Adam, OptimConfig,
+                                           clip_by_global_norm_, global_norm)
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module        # the parameters
+    opt: Adam               # the optimizer's moments and count
+    step: int = 0           # updates made (skipped ones not counted)
+
+
+def create_train_state(model: nn.Module, optim_cfg: OptimConfig) -> TrainState:
+    return TrainState(model=model,
+                      opt=Adam(list(model.parameters()), optim_cfg), step=0)
+
+
+def sum_metrics(acc: Optional[Dict], m: Dict) -> Dict:
+    """Sum two metric dicts key by key (acc may be None)."""
+    m = {k: torch.as_tensor(v).detach() for k, v in m.items()}
+    return m if acc is None else {k: acc[k] + m[k] for k in acc}
+
+
+def accumulate_grads(state: TrainState, loss_fn: Callable, batch: Dict,
+                     rngs: Optional[RngStream]) -> Dict:
+    """One microbatch: loss_fn(model, batch, rngs) -> (loss, metrics); the
+    loss's gradient is added to each parameter's .grad."""
+    loss, metrics = loss_fn(state.model, batch, rngs)
+    loss.backward()
+    return sum_metrics(None, metrics)
+
+
+def apply_update(state: TrainState, metrics: Dict, optim_cfg: OptimConfig,
+                 freeze_until: Optional[Dict[str, int]] = None):
+    """Normalise the accumulated gradients, freeze, clip, Adam; skip on a
+    non-finite norm.  Clears the gradients.  Returns (state, metrics)."""
+    named = list(state.model.named_parameters())
+    params = [p for _, p in named]
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    denom = max(float(metrics["sample_size"]), 1.0)
+    torch._foreach_div_(grads, denom)
+    if freeze_until:
+        for (name, _), g in zip(named, grads):
+            n = freeze_until.get(name.split(".")[0])
+            if n is not None and state.step < n:
+                g.zero_()
+    gnorm = global_norm(grads)
+    ok = bool(torch.isfinite(gnorm))
+    if ok:
+        if optim_cfg.clip_norm > 0:
+            clip_by_global_norm_(grads, optim_cfg.clip_norm, gnorm)
+        state.opt.update_(params, grads)
+        state.step += 1
+    for p in params:
+        p.grad = None
+    metrics = dict(metrics, gnorm=gnorm.detach(),
+                   skipped=torch.tensor(0.0 if ok else 1.0))
+    return state, metrics
+
+
+def make_train_step(loss_fn: Callable, optim_cfg: OptimConfig,
+                    update_freq: int = 1,
+                    freeze_until: Optional[Dict[str, int]] = None):
+    """loss_fn(model, batch, rngs) -> (loss, metrics), loss a SUM with a
+    'sample_size' metric.  Returns train_step(state, batch, generator) ->
+    (state, metrics).  With update_freq > 1 every tensor of `batch` has a
+    leading microbatch axis of that size.  generator (a CPU
+    torch.Generator) seeds the dropout; None runs without dropout."""
+    def train_step(state: TrainState, batch: Dict,
+                   generator: Optional[torch.Generator] = None):
+        rngs = None if generator is None else RngStream(generator)
+        if update_freq == 1:
+            metrics = accumulate_grads(state, loss_fn, batch, rngs)
+        else:
+            metrics = None
+            for i in range(update_freq):
+                mb = {k: v[i] for k, v in batch.items()}
+                metrics = sum_metrics(
+                    metrics, accumulate_grads(state, loss_fn, mb, rngs))
+        return apply_update(state, metrics, optim_cfg, freeze_until)
+
+    return train_step
+
+
+def make_accum_train_step(loss_fn: Callable, optim_cfg: OptimConfig,
+                          freeze_until: Optional[Dict[str, int]] = None):
+    """Host-orchestrated accumulation for microbatches of differing shapes.
+    Returns (grad_step, apply_step):
+      grad_step(state, batch, generator) -> metrics   (adds to .grad)
+      apply_step(state, metrics) -> (state, metrics)  (metrics summed)"""
+    def grad_step(state: TrainState, batch: Dict,
+                  generator: Optional[torch.Generator] = None):
+        rngs = None if generator is None else RngStream(generator)
+        return accumulate_grads(state, loss_fn, batch, rngs)
+
+    def apply_step(state: TrainState, metrics: Dict):
+        return apply_update(state, metrics, optim_cfg, freeze_until)
+
+    return grad_step, apply_step

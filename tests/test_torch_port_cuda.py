@@ -4,9 +4,12 @@ conftest, so on a machine with the card and no JAX run it as
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py
 
-fp32 at the slice's widths (D 256, FFN 2048, 4 heads of 64) with ragged
-row counts and lengths; tolerance atol 1e-4, rtol 1e-4: the kernels and
-the plain versions differ only in the order of the fp32 sums.
+fp32 at the slices' widths (D 256, FFN 2048, 4 heads of 64) with ragged
+row counts and lengths; tolerance atol 1e-4, rtol 1e-4 on outputs and
+activation gradients, and 1e-4 of the largest entry on weight gradients:
+the kernels and the plain versions differ only in the order of the fp32
+sums.  Dropout cases run at rate 0.1 with one seed on both sides, which
+then draw the same Philox mask.
 """
 import pytest
 
@@ -15,10 +18,15 @@ torch = pytest.importorskip("torch")
 from simulst_tpu_torch.ops.emformer_attn import (AttnGeom,  # noqa: E402
                                                  emformer_grouped_attention,
                                                  grouped_attention_plain)
-from simulst_tpu_torch.ops.ffn import (ffn_plain, fused_ffn,  # noqa: E402
+from simulst_tpu_torch.ops.ffn import (ffn_plain, ffn_plain_backward,  # noqa: E402
+                                       fused_ffn, fused_ffn_backward,
                                        fused_ln_ffn_res, ln_ffn_res_plain)
-from simulst_tpu_torch.ops.linear_res import (fused_linear_res,  # noqa: E402
-                                              linear_res_plain)
+from simulst_tpu_torch.ops.linear_res import (  # noqa: E402
+    fused_linear_res, fused_linear_res_backward, linear_res_plain,
+    linear_res_plain_backward)
+from simulst_tpu_torch.ops.mha import (fused_mha_backward,  # noqa: E402
+                                       fused_mha_forward, mha_plain,
+                                       mha_plain_backward)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -68,3 +76,92 @@ def test_grouped_attention_kernel_matches_plain(randn, U, G):
     torch.testing.assert_close(
         emformer_grouped_attention(q3, k, v, lengths, geom),
         grouped_attention_plain(q3, k, v, lengths, geom), **TOL)
+
+
+def _close_to_largest(got, want, rtol=1e-4):
+    """max |got - want| within rtol of the largest |want| entry."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("case", ["causal", "cross"])
+def test_mha_kernels_match_plain(randn, case, rate):
+    b, tq, tk = (3, 77, 77) if case == "causal" else (3, 77, 200)
+    q, k, v, dout = (randn(b, t, 256) for t in (tq, tk, tk, tq))
+    kmask = torch.ones(b, tk, dtype=torch.int32, device="cuda")
+    kmask[1, 150 if tk > 77 else 60:] = 0
+    if case == "cross":
+        kmask[2] = 0                      # every query row sees no key
+    args = (q, k, v, kmask, 4, case == "causal", rate, 1234)
+    out, lse = fused_mha_forward(*args)
+    torch.testing.assert_close(out, mha_plain(*args), **TOL)
+    got = fused_mha_backward(q, k, v, kmask, out, lse, dout, *args[4:])
+    want = mha_plain_backward(q, k, v, kmask, dout, *args[4:])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    if case == "cross":
+        assert not out[2].any()
+
+
+@pytest.mark.cuda
+def test_mha_kernels_take_bf16(randn):
+    """bf16 in, fp32 softmax and sums; tolerance atol 3e-2, rtol 1e-2 (the
+    kernel rounds the probabilities before the running sum is divided out,
+    the plain version after: a 2^-8 relative flip)."""
+    q, k, v, dout = (randn(2, 70, 256).to(torch.bfloat16) for _ in range(4))
+    kmask = torch.ones(2, 70, dtype=torch.int32, device="cuda")
+    kmask[0, 50:] = 0
+    args = (q, k, v, kmask, 4, True, 0.1, 5)
+    out, lse = fused_mha_forward(*args)
+    torch.testing.assert_close(out, mha_plain(*args), atol=3e-2, rtol=1e-2)
+    got = fused_mha_backward(q, k, v, kmask, out, lse, dout, *args[4:])
+    want = mha_plain_backward(q, k, v, kmask, dout, *args[4:])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("rows", [1, 300])
+def test_ffn_backward_matches_plain(randn, rows, activation, rate):
+    x, dy = randn(rows, 256), randn(rows, 256)
+    w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
+    cfg = (activation, rate, rate, 77)
+    torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2, *cfg),
+                               ffn_plain(x, w1, b1, w2, b2, *cfg), **TOL)
+    got = fused_ffn_backward(x, w1, b1, w2, dy, *cfg)
+    want = ffn_plain_backward(x, w1, b1, w2, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w in zip(got[1:], want[1:]):
+        _close_to_largest(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("period,res_rows", [(0, 0), (200, 192)])
+def test_linear_res_backward_matches_plain(randn, period, res_rows, rate):
+    h, res, dy = randn(437, 256), randn(437, 256), randn(437, 256)
+    w, b = randn(256, 256, scale=0.06), randn(256, scale=0.06)
+    cfg = (period, res_rows, rate, 99)
+    torch.testing.assert_close(fused_linear_res(h, w, b, res, *cfg),
+                               linear_res_plain(h, w, b, res, *cfg), **TOL)
+    got = fused_linear_res_backward(h, w, dy, *cfg)
+    want = linear_res_plain_backward(h, w, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w_ in zip(got[1:], want[1:]):
+        _close_to_largest(g, w_)
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_autograd(randn):
+    x = randn(40, 256).requires_grad_()
+    g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
+    w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
+    y = fused_ln_ffn_res(x, g, b, w1, b1, w2, b2)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
+        y.sum().backward()

@@ -26,7 +26,7 @@ def _np_tree(params):
 def decoder_pair():
     jcfg, tcfg = jtfm.DecoderConfig(**DEC), ttfm.DecoderConfig(**DEC)
     jp = jtfm.decoder_init(jax.random.PRNGKey(0), jcfg)
-    tp = ttfm.Decoder(tcfg)
+    tp = ttfm.Decoder(tcfg, device="cpu")
     tp.load_state_dict(load_jax_params(_np_tree(jp)))
     return jcfg, jp, tcfg, tp
 

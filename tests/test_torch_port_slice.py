@@ -38,7 +38,8 @@ def models():
                                   activation_dropout=0.0)
     jmodel = js2t.S2TEmformerModel(jcfg)
     jp = jmodel.init(jax.random.PRNGKey(0))
-    tmodel = ts2t.S2TEmformerModel(ts2t.S2TEmformerConfig(**SMALL))
+    tmodel = ts2t.S2TEmformerModel(ts2t.S2TEmformerConfig(**SMALL),
+                                   device="cpu")
     tmodel.load_state_dict(load_jax_params(
         jax.tree_util.tree_map(np.asarray, jp)))
     return jmodel, jp, tmodel
