@@ -13,7 +13,8 @@ layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches:
   1. build    compile csrc/*.cu with nvcc (sm_90a) from this checkout;
               print the build time and the card's name and power limit
   2. kernels  each serving kernel vs its plain PyTorch version on the card,
-              at the serving shapes, in fp32 and bf16, with CUDA-event times
+              at the serving shapes (encoder and decoder step), in fp32 and
+              bf16, with CUDA-event times
   3. offline  decode_batch on 8 utterances of 1024 fbank frames, beam 5,
               max_len 64; every serving kernel must have launched;
               encoder_out with kernels vs the same encoder through the
@@ -252,7 +253,7 @@ def phase_kernels(dev):
     """Each serving kernel vs its plain version at the serving shapes."""
     import torch
     from simulst_tpu_torch.ops import emformer_attn as ea
-    from simulst_tpu_torch.ops import ffn, linear_res
+    from simulst_tpu_torch.ops import ffn, linear_res, mha
 
     g = torch.Generator().manual_seed(SEED + 1)
 
@@ -270,6 +271,10 @@ def phase_kernels(dev):
     geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8, num_heads=4)
     lengths = torch.tensor([256, 240, 200, 177, 256, 131, 64, 255],
                            dtype=torch.int32, device=dev)
+    # the decoder step's cross-attention: 8 utterances x beam 5, one query
+    # row each, over 256 encoder frames (ragged here)
+    enc_valid = (torch.arange(256, device=dev)[None, :] <
+                 lengths.repeat_interleave(BEAM)[:, None]).to(torch.int32)
     cases = {   # name -> (kernel, plain, {shape label: argument builder})
         "fused_ln_ffn_res": (
             ffn.fused_ln_ffn_res, ffn.ln_ffn_res_plain,
@@ -293,6 +298,16 @@ def phase_kernels(dev):
             {"q3=(8,2,200,256) kv=(8,399,256)": lambda: (
                 randn(8, geom.ng, geom.nq, d), randn(8, geom.tk, d),
                 randn(8, geom.tk, d))}),
+        "fused_mha (decoder step)": (
+            lambda q, k, v: mha.fused_mha(q, k, v, enc_valid, 4),
+            lambda q, k, v: mha.mha_plain(q, k, v, enc_valid, 4),
+            {"q=(40,1,256) kv=(40,256,256)": lambda: (
+                randn(40, 1, d), randn(40, 256, d), randn(40, 256, d))}),
+        "fused_linear_res (decoder step)": (
+            linear_res.fused_linear_res, linear_res.linear_res_plain,
+            {"h=(40,1,256)": lambda: (
+                randn(40, 1, d), unif(d, d, bound=d ** -0.5),
+                unif(d, bound=d ** -0.5), randn(40, 1, d))}),
     }
     report = {}
     for name, (kernel, plain, shapes) in cases.items():
