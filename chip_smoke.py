@@ -31,9 +31,13 @@ layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches:
   6. train    8 Adam steps of mt_transformer through cli/train's loss and
               train/state's train step (lr 5e-4, warmup 4000, clip 10, as
               exp/0_mt.sh) on 64 sentence pairs of 96-128 tokens; losses
-              finite, launches per step as the layer count predicts; then
-              one step at dropout 0 with the kernels and one through the
-              plain versions from the same params, optimizer and batch
+              finite, launches per step as the layer count predicts; 3
+              more steps under torch.profiler: device time by kernel family
+              and the top kernels; then one step at dropout 0, with gelu in
+              place of relu, with the kernels and one through the plain
+              versions from the same params, optimizer and batch: every
+              parameter's gradient, their global norm, the loss and the
+              updated parameters compared
   7. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
@@ -49,8 +53,13 @@ or when any phase fails.  Tolerances:
                          entry
   offline encoder_out, kernels vs plain, fp32: atol 1e-4
   streaming vs offline encoder output, fp32:   atol 1e-4
-  train step, kernels vs plain, fp32: loss rtol 1e-5; updated parameters
-                         atol 1e-5 (an update is at most lr ~ 1e-6 here)
+  train step, kernels vs plain, fp32, dropout 0, gelu: each parameter's
+                         gradient within 1e-4 of its largest entry (of its
+                         weight's for a key bias, whose exact gradient is
+                         0); gradient norm and loss rtol 1e-5; updated
+                         parameters atol 1e-5 (an update is at most lr ~
+                         1e-6 here, so this last check alone would not see
+                         a wrong gradient)
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -60,10 +69,12 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
 import time
+from collections import defaultdict
 
 import numpy as np
 
@@ -109,6 +120,18 @@ MT_LAUNCHES_PER_STEP = {"fused_mha": 18, "fused_mha_backward": 18,
                         "fused_ffn": 6, "fused_ffn_backward": 6,
                         "fused_linear_res": 12,
                         "fused_linear_res_backward": 12}
+PROFILE_STEPS = 3
+# kernel-name fragments -> family in phase 6's profile, first match wins
+# (the port's kernels of csrc/*.cu and the backward products of common.cuh
+# before cuBLAS, whose names also hold "gemm")
+KERNEL_FAMILIES = (
+    ("mha_fwd_kernel", "fused_mha"), ("mha_bwd_", "fused_mha_backward"),
+    ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
+    ("linear_res_kernel", "fused_linear_res"),
+    *((k, "ffn/linear_res backward products") for k in (
+        "gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
+        "drop_grad_kernel")),
+    *((k, "cuBLAS products") for k in ("gemm", "xmma", "cutlass")))
 
 
 def log(tag, **fields):
@@ -564,12 +587,58 @@ def phase_train_kernels(dev, batch):
     return report
 
 
+def kernel_family(name):
+    return next((fam for frag, fam in KERNEL_FAMILIES if frag in name),
+                "other PyTorch kernels")
+
+
+def profile_steps(state, train_step, batch, generator):
+    """PROFILE_STEPS training steps under torch.profiler: the device busy
+    share of the profiled wall (which the profiler stretches), the device
+    time by kernel family and the top kernels, per step."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state, _ = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_family = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        fam = by_family[kernel_family(e.key)]
+        fam[0] += e.self_device_time_total / 1e3 / PROFILE_STEPS
+        fam[1] += e.count / PROFILE_STEPS
+    log("phase6-profile", steps=PROFILE_STEPS,
+        profiled_wall_ms_per_step=wall_ms / PROFILE_STEPS,
+        device_ms_per_step=device_ms / PROFILE_STEPS,
+        device_busy_share_of_profiled_wall=device_ms / wall_ms,
+        kernels_per_step=sum(e.count for e in kernels) / PROFILE_STEPS,
+        families={name: {"device_ms_per_step": ms, "kernels_per_step": n}
+                  for name, (ms, n) in sorted(by_family.items(),
+                                              key=lambda x: -x[1][0])},
+        top=[{"kernel": e.key[:100], "calls_per_step": e.count /
+              PROFILE_STEPS, "device_ms_per_step":
+              e.self_device_time_total / 1e3 / PROFILE_STEPS}
+             for e in sorted(kernels,
+                             key=lambda e: -e.self_device_time_total)[:12]])
+    return state
+
+
 def phase_train(dev, batch):
     """8 full-width MT training steps through the CLI's loss and the train
     step, counting launches; then kernels vs plain on one step."""
     import torch
     from simulst_tpu_torch.cli import train as cli
     from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
                                                make_train_step)
 
     args = cli.parse_args(MT_ARGS)
@@ -607,25 +676,54 @@ def phase_train(dev, batch):
         losses=losses, launches_per_step=per_step,
         peak_memory_gib=peak_gib)
 
+    state = profile_steps(state, train_step, batch, generator)
+
     # one step at dropout 0 (no generator) with the kernels and through the
-    # plain versions, from the same params, optimizer state and batch
+    # plain versions, from the same params, optimizer state and batch; the
+    # same functions as train_step, split so that the gradients can be read
+    # before the update.  The step runs gelu in place of relu: with relu, a
+    # hidden unit whose input lies within rounding of 0 lands on opposite
+    # sides of the kink on the two sides and flips its whole gradient, and
+    # such flips would hide a wrong backward of a few parts in 1e3.  Phase
+    # 5 holds the relu backward to its plain version.
+    grad_step, apply_step = make_accum_train_step(loss_fn, optim_cfg)
     outs = []
     for use_plain in (False, True):
         st = copy.deepcopy(state)
+        st.model.cfg = dataclasses.replace(st.model.cfg, activation="gelu")
         with plain_training() if use_plain else contextlib.nullcontext():
-            st, m = train_step(st, batch, None)
+            m = grad_step(st, batch, None)
+        grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
+        st, m = apply_step(st, m)
         torch.cuda.synchronize()
-        outs.append((st.model.state_dict(), float(m["loss"]),
+        outs.append((grads, st.model.state_dict(), float(m["loss"]),
                      float(m["gnorm"])))
-    (sd_k, loss_k, gn_k), (sd_p, loss_p, gn_p) = outs
+    (g_k, sd_k, loss_k, gn_k), (g_p, sd_p, loss_p, gn_p) = outs
+
+    def grad_scale(name):
+        """The largest gradient entry that a parameter's error is held
+        against: its own, but for a key bias, which adds one q.b to every
+        score of a query row; the softmax ignores that, so its exact
+        gradient is 0 and both sides hold rounding noise: its weight's."""
+        if name.endswith("k_proj.bias"):
+            name = name[:-len("bias")] + "weight"
+        return max(g_p[name].abs().max().item(), 1e-30)
+
+    grad_rel = {n: (g_k[n] - g_p[n]).abs().max().item() / grad_scale(n)
+                for n in g_k}
+    worst = max(grad_rel, key=grad_rel.get)
     before = state.model.state_dict()
     diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
     moved = max((sd_k[k] - before[k]).abs().max().item() for k in sd_k)
-    if abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
-        raise AssertionError(f"train step kernels vs plain: loss {loss_k} vs "
-                             f"{loss_p}, params max abs diff {diff}")
+    if grad_rel[worst] > 1e-4 or abs(gn_k - gn_p) > 1e-5 * gn_p or \
+            abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
+        raise AssertionError(
+            f"train step kernels vs plain: gradient of {worst} off by "
+            f"{grad_rel[worst]:.3e} of its largest entry; gnorm {gn_k} vs "
+            f"{gn_p}; loss {loss_k} vs {loss_p}; params max abs diff {diff}")
     log("phase6", kernels_vs_plain_loss=[loss_k, loss_p],
         kernels_vs_plain_gnorm=[gn_k, gn_p],
+        grads_max_err_to_largest=grad_rel[worst], grads_worst_param=worst,
         updated_params_max_abs_diff=diff, update_max_abs=moved)
     return launches
 

@@ -55,13 +55,6 @@ def parser() -> argparse.ArgumentParser:
                    help="checkpoint_resume path (params + optimizer + step)")
     p.add_argument("--override", action="append", default=[],
                    help="model config overrides key=value")
-    p.add_argument("--eval-metric", default="none",
-                   choices=["none", "bleu", "wer"],
-                   help="inline validation metric; --task mt validates the "
-                        "loss only, as the JAX package does")
-    p.add_argument("--best-metric", default=None,
-                   help="metric for best-checkpoint selection (default: the "
-                        "eval metric if set, else loss)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda)")
     return p
@@ -154,12 +147,8 @@ def main(argv=None):
     model = build_model(args, len(vocab), device=args.device)
     device = next(model.parameters()).device
     loss_fn = build_loss(args, model)
-    best_metric = args.best_metric or (
-        args.eval_metric if args.eval_metric != "none" else "loss")
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
-                          save_dir=args.save_dir, seed=args.seed,
-                          best_metric=best_metric,
-                          maximize_metric=best_metric == "bleu")
+                          save_dir=args.save_dir, seed=args.seed)
     metadata = {"model": args.model, "config": cfglib.to_dict(model.cfg)}
     trainer = Trainer(
         loss_fn, optim_config(args), loop_cfg, model,

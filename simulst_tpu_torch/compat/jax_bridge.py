@@ -15,10 +15,10 @@ Every 3-D leaf of a JAX s2t_emformer tree is one of the conv tensors
 above, so the rule is: 3-D leaves reverse their axes, the rest copy.  The
 inverse of compat/fairseq_converter.py's `_conv` in the JAX package.
 
-Tied parameters: the JAX mt_transformer tree holds the shared embedding
-under both encoder.embed_tokens and decoder.embed_tokens (one array at
-init); the port ties them into one parameter, so both state_dict names get
-the same tensor, and two arrays that differ are refused.
+The mt_transformer tree's encoder.embed_tokens and decoder.embed_tokens
+are two leaves (one array at init, apart once trained); the port keeps two
+parameters too, so they copy like any other leaf.
+
 This module imports no JAX: callers pass the tree already converted to
 numpy (e.g. jax.tree_util.tree_map(np.asarray, params)).
 """
@@ -52,14 +52,4 @@ def load_jax_params(tree: Any) -> Dict[str, torch.Tensor]:
         if a.ndim == 3:
             a = np.transpose(a, (2, 1, 0))
         sd[key] = torch.tensor(np.asarray(a, np.float32))
-    for a, b in TIED:
-        if a in sd and b in sd:
-            if not torch.equal(sd[a], sd[b]):
-                raise ValueError(f"{a} and {b} differ, but the port ties "
-                                 "them into one parameter")
-            sd[b] = sd[a]
     return sd
-
-
-# state_dict names the port ties into one parameter (shared embeddings)
-TIED = (("encoder.embed_tokens.weight", "decoder.embed_tokens.weight"),)

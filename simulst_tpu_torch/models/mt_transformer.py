@@ -7,11 +7,13 @@ and the output projection.  The encoder layers keep their FFN as plain
 linear + act + dropout, exactly as the JAX package does (its fused FFN
 kernel serves the decoder only); every attention core is `fused_mha`.
 
-Shared embeddings are one tied parameter, as in fairseq's
-share_all_embeddings: `encoder.embed_tokens` and `decoder.embed_tokens`
-are the same module, so their gradient is the sum of both uses.  The JAX
-package builds the two names from the same initial array but, as two
-pytree leaves, updates them apart.
+Shared embeddings start shared and train apart, as in the JAX package:
+its init puts one array under `encoder.embed_tokens` and
+`decoder.embed_tokens`, but the two are separate pytree leaves, each with
+its own gradient and Adam moments (the decoder's serving the decoder input
+and the output projection).  So here `decoder.embed_tokens` is its own
+parameter, initialised to a copy of the encoder's.  fairseq's
+share_all_embeddings would tie them into one; ROADMAP notes the difference.
 """
 from __future__ import annotations
 
@@ -132,7 +134,9 @@ class MTTransformerModel(nn.Module):
         self.decoder = tfm.Decoder(cfg.decoder, generator=generator,
                                    device="cpu")
         if cfg.share_all_embeddings:
-            self.decoder.embed_tokens = self.encoder.embed_tokens
+            with torch.no_grad():
+                self.decoder.embed_tokens.weight.copy_(
+                    self.encoder.embed_tokens.weight)
         self.to(resolve_device(device))
 
     def forward(self, src_tokens, prev_tokens, *,

@@ -3,8 +3,7 @@ and averaging, component-wise pretrained init (counterpart of
 simulst_tpu/train/checkpoint.py).
 
 A checkpoint is one file holding {"state": ..., "metadata": {...}}, the
-state a state_dict (or a dict of them: params, optimizer, step).  Tied
-parameters stay tied: torch.save keeps tensors that share storage shared.
+state a state_dict (or a dict of them: params, optimizer, step).
 """
 from __future__ import annotations
 

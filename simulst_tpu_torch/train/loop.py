@@ -1,10 +1,12 @@
 """Training loop (counterpart of simulst_tpu/train/loop.py): epoch
-iteration, the train step, validation, best-metric checkpoints with the
-metric in the file name, patience early stopping, jsonl logging.
+iteration, the train step, validation, best-loss checkpoints with the
+validation loss in the file name, patience early stopping, jsonl logging.
 
 The JAX loop's tensorboard and wandb sinks and its profiler hook are not
 ported; the jsonl log (<save_dir>/train_log.jsonl, echoed to stdout) is
-the one sink.
+the one sink.  Its BLEU/WER best-checkpoint selection waits for a task
+that computes them (ROADMAP Queue 1): the best checkpoint is the lowest
+validation loss.
 """
 from __future__ import annotations
 
@@ -35,8 +37,6 @@ class LoopConfig:
     log_interval: int = 100
     validate_interval_updates: int = 1000
     keep_best: int = 5
-    best_metric: str = "loss"     # "loss" | "wer" | "bleu"
-    maximize_metric: bool = False
     patience: int = 0
     save_dir: str = "checkpoints"
     seed: int = 1
@@ -79,7 +79,7 @@ class Trainer:
                  update_freq: int = 1, metadata: Optional[Dict] = None,
                  device=None):
         """loss_fn(model, batch, rngs) -> (loss, metrics); valid_fn(model)
-        -> dict of metrics (with the loop's best_metric).  The model moves
+        -> dict of metrics, "loss" among them.  The model moves
         to `device`, the card unless the caller names another; batches
         follow it.  metadata is stamped into every checkpoint."""
         self.loop_cfg = loop_cfg
@@ -109,13 +109,9 @@ class Trainer:
     def _maybe_save_best(self, metrics: Dict[str, float],
                          count_patience: bool = False):
         cfg = self.loop_cfg
-        value = metrics.get(cfg.best_metric)
-        if value is None:
-            return
-        better = (self.best is None or
-                  (value > self.best if cfg.maximize_metric
-                   else value < self.best))
-        name = f"checkpoint.best_{cfg.best_metric}_{value:.4f}"
+        value = metrics["loss"]
+        better = self.best is None or value < self.best
+        name = f"checkpoint.best_loss_{value:.4f}"
         save_checkpoint(os.path.join(cfg.save_dir, name),
                         self.state.model.state_dict(),
                         metadata={**self.metadata, "step": self.state.step})
@@ -127,7 +123,7 @@ class Trainer:
             # improvement; mid-epoch validations checkpoint only
             self.bad_epochs += 1
         keep = set(find_best_checkpoints(cfg.save_dir, cfg.keep_best,
-                                         cfg.maximize_metric))
+                                         maximize=False))
         for f in os.listdir(cfg.save_dir):
             p = os.path.join(cfg.save_dir, f)
             if re.match(r"checkpoint\.best_", f) and p not in keep:

@@ -5,11 +5,10 @@ vs the JAX package, on the CPU.
 Small config: 2 + 2 layers, width 32, 2 heads, FFN 64, vocab 40; JAX init
 bridged to the port; seeded numpy token batches; fp32 with
 jax_default_matmul_precision float32 (tests/conftest.py); no dropout, so
-both sides compute the same function.  The port ties the shared embedding
-into one parameter (fairseq's share_all_embeddings), so the JAX side is
-held with the same tie: its gradient for the embedding is the sum of the
-encoder and decoder leaves', and its train step runs on a tree with one
-embedding leaf that the loss puts in both places.  Tolerances: loss rtol
+both sides compute the same function.  The shared embedding is two
+leaves in the JAX tree (encoder.embed_tokens and decoder.embed_tokens, one
+array at init) with a gradient each, and two parameters in the port, so
+the trees compare leaf by leaf.  Tolerances: loss rtol
 1e-5; gradients atol 1e-5; parameters after one Adam update atol 2e-5 (the
 update is about lr = 1e-3 per element, the gradient error is amplified
 only where |g| is near Adam's eps).
@@ -62,13 +61,11 @@ def _batch(seed, b=3, s=9, t=7):
     return {"src_tokens": src, "target": tgt, "prev_tokens": prev}
 
 
-def _jax_tied_loss(jmodel):
-    """The JAX CLI's CE loss on a tree with one embedding leaf, placed at
-    both encoder and decoder as the port's tied parameter is."""
+def _jax_loss(jmodel):
+    """The JAX CLI's CE loss (simulst_tpu/cli/train.py build_loss), without
+    dropout."""
     def fn(params, batch, rng):
-        full = dict(params, decoder=dict(
-            params["decoder"], embed_tokens=params["encoder"]["embed_tokens"]))
-        logits, _ = jmodel.forward(full, batch["src_tokens"],
+        logits, _ = jmodel.forward(params, batch["src_tokens"],
                                    batch["prev_tokens"])
         loss, nll = j_ce_loss(logits, batch["target"], 0.1, 1)
         ntokens = (batch["target"] != 1).sum()
@@ -81,10 +78,7 @@ def _jax_tied_loss(jmodel):
 @pytest.fixture(scope="module")
 def pair():
     jmodel = JModel(JConfig(**SMALL, **NO_DROPOUT))
-    jp = jmodel.init(jax.random.PRNGKey(0))
-    jtied = dict(jp, decoder={k: v for k, v in jp["decoder"].items()
-                              if k != "embed_tokens"})
-    return jmodel, jp, jtied
+    return jmodel, jmodel.init(jax.random.PRNGKey(0))
 
 
 def _port_model(jp):
@@ -106,44 +100,40 @@ def _torch_batch(batch):
 
 def _assert_params_match(model, jtree, atol):
     ref = flatten_tree(jax.tree_util.tree_map(np.asarray, jtree))
+    assert sorted(model.state_dict()) == sorted(ref)
     for name, p in model.state_dict().items():
-        key = EMB if name == DEC_EMB else name
-        np.testing.assert_allclose(p.numpy(), ref[key], atol=atol, rtol=0,
+        np.testing.assert_allclose(p.numpy(), ref[name], atol=atol, rtol=0,
                                    err_msg=name)
 
 
 def test_loss_and_gradients_match_jax(pair):
-    jmodel, jp, _ = pair
+    jmodel, jp = pair
     batch = _batch(0)
     loss_j, grads_j = jax.value_and_grad(
-        lambda p: _jax_tied_loss(jmodel)(
-            dict(p, decoder={k: v for k, v in p["decoder"].items()
-                             if k != "embed_tokens"}),
-            {k: jnp.asarray(v) for k, v in batch.items()}, None)[0])(jp)
+        lambda p: _jax_loss(jmodel)(
+            p, {k: jnp.asarray(v) for k, v in batch.items()}, None)[0])(jp)
     model = _port_model(jp)
     loss_t, metrics = _port_loss()(model, _torch_batch(batch), None)
     loss_t.backward()
     np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)
     assert int(metrics["sample_size"]) == int((batch["target"] != 1).sum())
     ref = flatten_tree(jax.tree_util.tree_map(np.asarray, grads_j))
-    names = [n for n, _ in model.named_parameters()]
-    assert len(names) == len(ref) - 1            # one tied embedding
+    assert sorted(n for n, _ in model.named_parameters()) == sorted(ref)
     for name, p in model.named_parameters():
-        want = ref[name] + (ref[DEC_EMB] if name == EMB else 0)
-        np.testing.assert_allclose(p.grad.numpy(), want, atol=1e-5, rtol=0,
-                                   err_msg=name)
+        np.testing.assert_allclose(p.grad.numpy(), ref[name], atol=1e-5,
+                                   rtol=0, err_msg=name)
 
 
 @pytest.mark.parametrize("update_freq,freeze", [(1, None), (2, None),
                                                 (1, {"encoder": 1})])
 def test_train_step_matches_jax(pair, update_freq, freeze):
-    jmodel, jp, jtied = pair
+    jmodel, jp = pair
     batches = [_batch(10 + i) for i in range(update_freq)]
     batch = (batches[0] if update_freq == 1 else
              {k: np.stack([b[k] for b in batches]) for k in batches[0]})
-    jstep = j_make_step(_jax_tied_loss(jmodel), JOptim(**OPTIM), update_freq,
+    jstep = j_make_step(_jax_loss(jmodel), JOptim(**OPTIM), update_freq,
                         freeze)
-    jstate, jmetrics = jstep(j_create(jtied, JOptim(**OPTIM)),
+    jstate, jmetrics = jstep(j_create(jp, JOptim(**OPTIM)),
                              {k: jnp.asarray(v) for k, v in batch.items()},
                              jax.random.PRNGKey(0))   # unused: no dropout
     model = _port_model(jp)
@@ -157,13 +147,24 @@ def test_train_step_matches_jax(pair, update_freq, freeze):
     np.testing.assert_allclose(float(metrics["loss"]),
                                float(jmetrics["loss"]), rtol=1e-5)
     _assert_params_match(model, jstate.params, atol=2e-5)
+    # the two embedding leaves start equal and part after one update, on
+    # both sides; the bridge loads the parted pair as it is
+    stepped = jax.tree_util.tree_map(np.asarray, jstate.params)
+    emb_j = (stepped["encoder"]["embed_tokens"]["weight"],
+             stepped["decoder"]["embed_tokens"]["weight"])
+    assert not np.array_equal(*emb_j)
+    assert not torch.equal(model.encoder.embed_tokens.weight,
+                           model.decoder.embed_tokens.weight)
+    reloaded = load_jax_params(stepped)
+    for name, want in zip((EMB, DEC_EMB), emb_j):
+        np.testing.assert_array_equal(reloaded[name].numpy(), want)
     if freeze:
         torch.testing.assert_close(model.encoder.layers[0].fc1.weight,
                                    _port_model(jp).encoder.layers[0].fc1.weight)
 
 
 def test_non_finite_gradient_skips_the_update(pair):
-    _, jp, _ = pair
+    _, jp = pair
     model = _port_model(jp)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     state = create_train_state(model, OptimConfig(**OPTIM))
@@ -187,7 +188,7 @@ def test_non_finite_gradient_skips_the_update(pair):
 def test_dropout_training_step_is_seeded(pair):
     """With a generator the step drops (the loss differs from the
     no-dropout loss) and two runs from one seed agree exactly."""
-    _, jp, _ = pair
+    _, jp = pair
     losses = []
     for gen in (torch.Generator().manual_seed(5),
                 torch.Generator().manual_seed(5), None):
@@ -200,7 +201,7 @@ def test_dropout_training_step_is_seeded(pair):
 
 
 def test_checkpoint_roundtrip_and_average(pair, tmp_path):
-    _, jp, _ = pair
+    _, jp = pair
     model = _port_model(jp)
     sd = model.state_dict()
     tckpt.save_checkpoint(str(tmp_path / "checkpoint.best_loss_2.5000"), sd,
@@ -214,8 +215,10 @@ def test_checkpoint_roundtrip_and_average(pair, tmp_path):
     loaded, meta = tckpt.load_checkpoint(best[1])
     assert meta == {"model": "mt_transformer"}
     fresh = MTTransformerModel(MTConfig(**SMALL), device="cpu")
+    assert fresh.decoder.embed_tokens is not fresh.encoder.embed_tokens
+    assert torch.equal(fresh.decoder.embed_tokens.weight,
+                       fresh.encoder.embed_tokens.weight)   # shared at init
     fresh.load_state_dict(loaded)
-    assert fresh.decoder.embed_tokens is fresh.encoder.embed_tokens
     for k, v in fresh.state_dict().items():
         torch.testing.assert_close(v, sd[k], atol=0, rtol=0)
     avg = tckpt.average_params([tckpt.load_checkpoint(p)[0] for p in best])
