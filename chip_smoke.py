@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the simulst_tpu_torch port on one NVIDIA GPU: the
-s2t_emformer serving slice and the MT-teacher training slice.
+s2t_emformer serving slice, the MT-teacher training slice and the
+s2t_emformer joint-CTC training slice.
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -8,7 +9,10 @@ subsampler 80 -> 1024 -> 2x256, 12 x 256-dim Emformer with 4 heads and FFN
 2048, segment/left/right context 16/32/8 frames after subsampling, 5
 memory slots, 6-layer decoder, vocab 4100) on seeded synthetic audio, and
 training at transformer_small width (MTConfig(): 256-d, 4 heads, 6 + 6
-layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches:
+layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches,
+and ASR training of the full s2t_emformer_s with its CTC head (dropout,
+attention and activation dropout 0.1, SpecAugment) on seeded synthetic
+audio:
 
   1. build    compile csrc/*.cu with nvcc (sm_90a) from this checkout;
               print the build time and the card's name and power limit
@@ -38,7 +42,22 @@ layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches:
               versions from the same params, optimizer and batch: every
               parameter's gradient, their global norm, the loss and the
               updated parameters compared
-  7. report   a JSON line of per-kernel numbers with their bounds, the
+  7. asr-kernels  the ASR training kernels (LN-FFN forward and backward,
+              grouped attention forward and backward, the conv-pos weight
+              gradient, the CTC alphas and d_em) vs their plain versions at
+              the shapes of a 32 x 1024-frame batch, at dropout 0 and 0.1
+              with one seed, bf16 cases of the LN-FFN and the attention;
+              CUDA-event times beside one PyTorch call of the same function
+              (SDPA on the gathered context, conv1d_weight, F.ctc_loss)
+  8. asr-train  8 Adam steps of s2t_emformer_s with joint CTC through
+              cli/train's model and loss and train/state's step (lr 1e-3,
+              warmup 10000, clip 10, as exp/1a_pretrain_asr.sh) on 32
+              utterances of 717-1024 frames with 38-64 target tokens;
+              losses finite, launches per step as the layer count predicts;
+              3 profiled steps; then one step at dropout 0 without
+              SpecAugment, kernels vs plain versions from the same params
+              and batch
+  9. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -51,6 +70,8 @@ or when any phase fails.  Tolerances:
                          bf16: a flip of the last rounding is 2^-8 relative);
                          bf16 weight gradients within 1e-2 of their largest
                          entry
+  CTC alphas           finite entries atol 1e-4, the -1e30 sentinels
+                         equal
   offline encoder_out, kernels vs plain, fp32: atol 1e-4
   streaming vs offline encoder output, fp32:   atol 1e-4
   train step, kernels vs plain, fp32, dropout 0, gelu: each parameter's
@@ -59,7 +80,8 @@ or when any phase fails.  Tolerances:
                          0); gradient norm and loss rtol 1e-5; updated
                          parameters atol 1e-5 (an update is at most lr ~
                          1e-6 here, so this last check alone would not see
-                         a wrong gradient)
+                         a wrong gradient); the ASR step the same, at
+                         dropout 0 without SpecAugment (gelu throughout)
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -84,6 +106,13 @@ MT_PAIRS, MT_MIN_LEN, MT_MAX_LEN, MT_STEPS = 64, 96, 128, 8
 MT_ARGS = ["--task", "mt", "--model", "mt_transformer", "--loss", "ce",
            "--lr", "5e-4", "--warmup-updates", "4000", "--clip-norm", "10",
            "--seed", str(SEED)]
+ASR_UTT, ASR_MIN_FRAMES, ASR_FRAMES, ASR_STEPS = 32, 717, 1024, 8
+ASR_MIN_TOKENS, ASR_MAX_TOKENS, ASR_TOKEN_BUCKET = 38, 64, 72
+ASR_VOCAB = 4100
+ASR_ARGS = ["--task", "asr", "--model", "s2t_emformer", "--loss",
+            "joint_ctc", "--override", "ctc_layer=true", "--lr", "1e-3",
+            "--warmup-updates", "10000", "--clip-norm", "10", "--seed",
+            str(SEED)]
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
@@ -111,6 +140,19 @@ KERNELS = {
                   "simulst_tpu/ops/mha_pallas.py:192", "training"),
     "fused_mha_backward": ("mha", "simulst_tpu_torch/csrc/mha.cu",
                            "simulst_tpu/ops/mha_pallas.py:208", "training"),
+    "fused_ln_ffn_res_backward": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+                                  "simulst_tpu/ops/ffn_pallas.py:466",
+                                  "asr-training"),
+    "emformer_grouped_attention_backward": (
+        "emformer_attn", "simulst_tpu_torch/csrc/emformer_attn.cu",
+        "simulst_tpu/ops/emformer_attn_pallas.py:369", "asr-training"),
+    "convpos_wgrad": ("conv_pos", "simulst_tpu_torch/csrc/conv_pos.cu",
+                      "simulst_tpu/ops/conv_pos_pallas.py:58",
+                      "asr-training"),
+    "ctc_alphas": ("ctc", "simulst_tpu_torch/csrc/ctc.cu",
+                   "simulst_tpu/ops/ctc.py:465", "asr-training"),
+    "ctc_d_em": ("ctc", "simulst_tpu_torch/csrc/ctc.cu",
+                 "simulst_tpu/ops/ctc.py:492", "asr-training"),
 }
 SERVING_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
                    "fused_ffn", "fused_linear_res", "fused_mha")
@@ -120,15 +162,34 @@ MT_LAUNCHES_PER_STEP = {"fused_mha": 18, "fused_mha_backward": 18,
                         "fused_ffn": 6, "fused_ffn_backward": 6,
                         "fused_linear_res": 12,
                         "fused_linear_res_backward": 12}
+# launches per ASR training step: 12 Emformer layers (LN-FFN, grouped
+# attention, its epilogue), 6 decoder layers (2 attention cores and 2
+# epilogues each, one FFN), one conv-pos, one CTC loss
+ASR_LAUNCHES_PER_STEP = {
+    "fused_ln_ffn_res": 12, "fused_ln_ffn_res_backward": 12,
+    "emformer_grouped_attention": 12,
+    "emformer_grouped_attention_backward": 12,
+    "fused_linear_res": 24, "fused_linear_res_backward": 24,
+    "fused_mha": 12, "fused_mha_backward": 12,
+    "fused_ffn": 6, "fused_ffn_backward": 6,
+    "convpos_wgrad": 1, "ctc_alphas": 1, "ctc_d_em": 1}
 PROFILE_STEPS = 3
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the backward products of common.cuh
 # before cuBLAS, whose names also hold "gemm")
 KERNEL_FAMILIES = (
     ("mha_fwd_kernel", "fused_mha"), ("mha_bwd_", "fused_mha_backward"),
+    ("grouped_attn_kernel", "emformer_grouped_attention"),
+    ("grouped_attn_", "emformer_grouped_attention_backward"),
+    ("ln_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
+    ("ln_bwd_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
+    ("convpos_wgrad", "convpos_wgrad"), ("ctc_alpha_kernel", "ctc_alphas"),
+    ("ctc_d_em_kernel", "ctc_d_em"),
+    ("ffn_partial_kernel<float, true", "fused_ln_ffn_res"),
+    ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
     ("linear_res_kernel", "fused_linear_res"),
-    *((k, "ffn/linear_res backward products") for k in (
+    *((k, "ffn/ln-ffn/linear_res backward products") for k in (
         "gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
         "drop_grad_kernel")),
     *((k, "cuBLAS products") for k in ("gemm", "xmma", "cutlass")))
@@ -215,9 +276,11 @@ def gpu_name_and_power_limit():
 
 def wrappers():
     """name -> the wrapper function that carries the launch count."""
-    from simulst_tpu_torch.ops import emformer_attn, ffn, linear_res, mha
+    from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
+                                       linear_res, mha)
     mods = {"ffn": ffn, "emformer_attn": emformer_attn,
-            "linear_res": linear_res, "mha": mha}
+            "linear_res": linear_res, "mha": mha, "conv_pos": conv_pos,
+            "ctc": ctc}
     return {name: getattr(mods[m], name) for name, (m, *_) in KERNELS.items()}
 
 
@@ -258,7 +321,8 @@ def plain_versions():
 def plain_training():
     """Route the training kernels' forward and backward entries to their
     plain versions (what the autograd Functions call), on the card."""
-    from simulst_tpu_torch.ops import ffn, linear_res, mha
+    from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
+                                       linear_res, mha)
     return patched([
         (mha, "fused_mha_forward",
          lambda *a: (mha.mha_plain(*a), None)),
@@ -267,9 +331,18 @@ def plain_training():
          mha.mha_plain_backward(q, k, v, km, do, *cfg)),
         (ffn, "fused_ffn_forward", ffn.ffn_plain),
         (ffn, "fused_ffn_backward", ffn.ffn_plain_backward),
+        (ffn, "fused_ln_ffn_res_forward", ffn.ln_ffn_res_plain),
+        (ffn, "fused_ln_ffn_res_backward", ffn.ln_ffn_res_plain_backward),
         (linear_res, "fused_linear_res_forward", linear_res.linear_res_plain),
         (linear_res, "fused_linear_res_backward",
-         linear_res.linear_res_plain_backward)])
+         linear_res.linear_res_plain_backward),
+        (emformer_attn, "emformer_grouped_attention_forward",
+         emformer_attn.grouped_attention_plain),
+        (emformer_attn, "emformer_grouped_attention_backward",
+         emformer_attn.grouped_attention_plain_backward),
+        (conv_pos, "convpos_wgrad", conv_pos.convpos_wgrad_plain),
+        (ctc, "ctc_alphas", ctc.alphas_plain),
+        (ctc, "ctc_d_em", ctc.d_em_plain)])
 
 
 def phase_kernels(dev):
@@ -359,6 +432,10 @@ def phase_kernels(dev):
                     elif name == "emformer_grouped_attention":
                         vis = grouped_visible_pairs(ea, geom, lengths)
                         b_ms, by = bound(nbytes(*args, out), 4 * d * vis)
+                        sd, mask = sdpa_on_context(ea, geom, *args, lengths)
+                        report[name]["library_ms"] = cuda_ms(
+                            lambda: torch.nn.functional.
+                            scaled_dot_product_attention(*sd, attn_mask=mask))
                     else:
                         continue
                     report[name].update(bound_ms=b_ms, bound_by=by)
@@ -379,6 +456,17 @@ def grouped_visible_pairs(ea, geom, lengths):
     in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
     key_valid = valid[None] & in_len                          # (B, ng, ctx)
     return int((key_valid[:, :, None, :] & allowed[None, None]).sum())
+
+
+def sdpa_on_context(ea, geom, q3, k, v, lengths):
+    """The grouped attention's gathered context as SDPA takes it: per-head
+    (B ng, heads, rows, 64) fp32 queries, keys and values, and the boolean
+    (B ng, 1, nq, ctx) mask; the library yardstick beside the kernel."""
+    qh, kh, vh, visible, _ = ea._context(q3, k, v, lengths, geom)
+    rows = q3.shape[0] * geom.ng
+    sd = [t.reshape(rows, geom.num_heads, t.shape[-2], t.shape[-1])
+          .contiguous() for t in (qh, kh, vh)]
+    return sd, visible.reshape(rows, 1, geom.nq, geom.ctx)
 
 
 def mha_visible_pairs(kmask, tq, causal):
@@ -592,7 +680,7 @@ def kernel_family(name):
                 "other PyTorch kernels")
 
 
-def profile_steps(state, train_step, batch, generator):
+def profile_steps(state, train_step, batch, generator, tag):
     """PROFILE_STEPS training steps under torch.profiler: the device busy
     share of the profiled wall (which the profiler stretches), the device
     time by kernel family and the top kernels, per step."""
@@ -616,7 +704,7 @@ def profile_steps(state, train_step, batch, generator):
         fam = by_family[kernel_family(e.key)]
         fam[0] += e.self_device_time_total / 1e3 / PROFILE_STEPS
         fam[1] += e.count / PROFILE_STEPS
-    log("phase6-profile", steps=PROFILE_STEPS,
+    log(f"{tag}-profile", steps=PROFILE_STEPS,
         profiled_wall_ms_per_step=wall_ms / PROFILE_STEPS,
         device_ms_per_step=device_ms / PROFILE_STEPS,
         device_busy_share_of_profiled_wall=device_ms / wall_ms,
@@ -676,21 +764,39 @@ def phase_train(dev, batch):
         losses=losses, launches_per_step=per_step,
         peak_memory_gib=peak_gib)
 
-    state = profile_steps(state, train_step, batch, generator)
+    state = profile_steps(state, train_step, batch, generator, "phase6")
+    compare_plain_step(state, loss_fn, optim_cfg, batch, "phase6",
+                       make_accum_train_step)
+    return launches
 
-    # one step at dropout 0 (no generator) with the kernels and through the
-    # plain versions, from the same params, optimizer state and batch; the
-    # same functions as train_step, split so that the gradients can be read
-    # before the update.  The step runs gelu in place of relu: with relu, a
-    # hidden unit whose input lies within rounding of 0 lands on opposite
-    # sides of the kink on the two sides and flips its whole gradient, and
-    # such flips would hide a wrong backward of a few parts in 1e3.  Phase
-    # 5 holds the relu backward to its plain version.
+
+def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
+                       make_accum_train_step):
+    """One step at dropout 0 (no generator: no SpecAugment either) with the
+    kernels and through the plain versions, from the same params, optimizer
+    state and batch; the same functions as the train step, split so that
+    the gradients can be read before the update.  The step runs gelu (in
+    place of the MT model's relu: with relu, a hidden unit whose input lies
+    within rounding of 0 lands on opposite sides of the kink on the two
+    sides and flips its whole gradient, and such flips would hide a wrong
+    backward of a few parts in 1e3; phase 5 holds the relu backward to its
+    plain version).  One more plain step from the parameters scaled by
+    (1 + 1e-7 N(0, 1)), about one fp32 rounding each, measures how far
+    rounding alone moves these gradients: the floor under the comparison's
+    limits."""
+    import torch
     grad_step, apply_step = make_accum_train_step(loss_fn, optim_cfg)
     outs = []
-    for use_plain in (False, True):
+    for use_plain, noise in ((False, 0.0), (True, 0.0), (True, 1e-7)):
         st = copy.deepcopy(state)
         st.model.cfg = dataclasses.replace(st.model.cfg, activation="gelu")
+        if noise:
+            gen = torch.Generator(device=batch["target"].device)
+            gen.manual_seed(SEED)
+            with torch.no_grad():
+                for p in st.model.parameters():
+                    p.mul_(1 + noise * torch.randn(p.shape, generator=gen,
+                                                   device=p.device))
         with plain_training() if use_plain else contextlib.nullcontext():
             m = grad_step(st, batch, None)
         grads = {n: p.grad.clone() for n, p in st.model.named_parameters()}
@@ -698,7 +804,9 @@ def phase_train(dev, batch):
         torch.cuda.synchronize()
         outs.append((grads, st.model.state_dict(), float(m["loss"]),
                      float(m["gnorm"])))
-    (g_k, sd_k, loss_k, gn_k), (g_p, sd_p, loss_p, gn_p) = outs
+        del st
+    (g_k, sd_k, loss_k, gn_k), (g_p, sd_p, loss_p, gn_p), \
+        (g_n, _, _, gn_n) = outs
 
     def grad_scale(name):
         """The largest gradient entry that a parameter's error is held
@@ -709,22 +817,355 @@ def phase_train(dev, batch):
             name = name[:-len("bias")] + "weight"
         return max(g_p[name].abs().max().item(), 1e-30)
 
-    grad_rel = {n: (g_k[n] - g_p[n]).abs().max().item() / grad_scale(n)
-                for n in g_k}
+    def rel_errors(grads):
+        return {n: (grads[n] - g_p[n]).abs().max().item() / grad_scale(n)
+                for n in grads}
+
+    grad_rel = rel_errors(g_k)
     worst = max(grad_rel, key=grad_rel.get)
+    noise_rel = rel_errors(g_n)
+    worst_n = max(noise_rel, key=noise_rel.get)
+    log(tag, rounding_floor_grads_max_err_to_largest=noise_rel[worst_n],
+        rounding_floor_worst_param=worst_n,
+        rounding_floor_gnorm_rel=abs(gn_n - gn_p) / gn_p)
     before = state.model.state_dict()
     diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
     moved = max((sd_k[k] - before[k]).abs().max().item() for k in sd_k)
     if grad_rel[worst] > 1e-4 or abs(gn_k - gn_p) > 1e-5 * gn_p or \
             abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
         raise AssertionError(
-            f"train step kernels vs plain: gradient of {worst} off by "
+            f"{tag} train step kernels vs plain: gradient of {worst} off by "
             f"{grad_rel[worst]:.3e} of its largest entry; gnorm {gn_k} vs "
             f"{gn_p}; loss {loss_k} vs {loss_p}; params max abs diff {diff}")
-    log("phase6", kernels_vs_plain_loss=[loss_k, loss_p],
+    log(tag, kernels_vs_plain_loss=[loss_k, loss_p],
         kernels_vs_plain_gnorm=[gn_k, gn_p],
         grads_max_err_to_largest=grad_rel[worst], grads_worst_param=worst,
+        grads_top=sorted(grad_rel.items(), key=lambda kv: -kv[1])[:6],
         updated_params_max_abs_diff=diff, update_max_abs=moved)
+
+
+def asr_batch(dev):
+    """32 utterances of seeded synthetic audio of 717-1024 fbank frames
+    (utterance CMVN over each one's own frames, zero-padded to the 1024-frame
+    bucket) with 38-64 uniform target ids + EOS, right-padded to 72."""
+    import torch
+    from simulst_tpu_torch.ops.fbank import fbank_batch, utterance_cmvn
+    rng = np.random.RandomState(SEED + 3)
+    frames = rng.randint(ASR_MIN_FRAMES, ASR_FRAMES + 1, ASR_UTT)
+    frames[0] = ASR_FRAMES
+    feats = torch.zeros(ASR_UTT, ASR_FRAMES, 80, device=dev)
+    with torch.no_grad():
+        for j, n in enumerate(frames):
+            wav = torch.from_numpy(synthetic_audio(rng, 1, int(n))).to(dev)
+            feats[j, :n] = utterance_cmvn(fbank_batch(wav))[0]
+    target = np.ones((ASR_UTT, ASR_TOKEN_BUCKET), np.int64)
+    prev = np.ones_like(target)
+    for j in range(ASR_UTT):
+        n = rng.randint(ASR_MIN_TOKENS, ASR_MAX_TOKENS + 1)
+        toks = np.append(rng.randint(4, ASR_VOCAB, n), 2)
+        target[j, :n + 1] = toks
+        prev[j, :n + 1] = np.append(2, toks[:-1])
+    return {"feats": feats,
+            "feat_lengths": torch.from_numpy(frames).to(dev),
+            "target": torch.from_numpy(target).to(dev),
+            "prev_tokens": torch.from_numpy(prev).to(dev)}
+
+
+def subsampled(lengths):
+    """Frames after the two stride-2 causal convolutions."""
+    for _ in range(2):
+        lengths = (lengths - 1) // 2 + 1
+    return lengths
+
+
+def phase_asr_kernels(dev, batch):
+    """The ASR training kernels vs their plain versions at the shapes of a
+    32 x 1024-frame batch (U 256, 16 segments in 2 groups of 8, nq 200, ctx
+    236, Tk 399), forward and backward at dropout 0 and 0.1; CUDA-event
+    times at dropout 0.1 beside one PyTorch call of the same function."""
+    import torch
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import conv_pos, ctc, ffn
+    from simulst_tpu_torch.ops import emformer_attn as ea
+
+    g = torch.Generator().manual_seed(SEED + 4)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    b, d, hid, heads = ASR_UTT, 256, 2048, 4
+    lengths = subsampled(batch["feat_lengths"]).to(torch.int32)
+    report = {}
+
+    def record(name, **fields):
+        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   fields.pop("max_abs_err"))
+        entry.update(fields)
+
+    # LN-FFN: every Emformer layer's 32 x (128 rc + 256 utterance) rows
+    n = b * (8 * 16 + 256)
+    xav = (6.0 / (d + hid)) ** 0.5
+    x, dy = randn(n, d), randn(n, d)
+    lnw = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, hid, scale=xav), randn(hid, scale=0.02),
+           randn(hid, d, scale=xav), randn(d, scale=0.02))
+    names = ("dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+    for rate in (0.0, 0.1):
+        cfg = ("gelu", rate, rate, 17)
+        y = ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg)
+        torch.cuda.synchronize()
+        e_fwd = max_err(f"fused_ln_ffn_res rate {rate}", y,
+                        ffn.ln_ffn_res_plain(x, *lnw, *cfg), **F32_TOL)
+        got = ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy, *cfg)
+        want = ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy, *cfg)
+        torch.cuda.synchronize()
+        e_bwd = max([max_err(f"fused_ln_ffn_res_backward rate {rate} dx",
+                             got[0], want[0], **F32_TOL)] +
+                    [max_err_to_largest(
+                        f"fused_ln_ffn_res_backward rate {rate} {nm}", gw,
+                        ww) for nm, gw, ww in zip(names, got[1:], want[1:])])
+        log("phase7", kernel="fused_ln_ffn_res", rows=n, rate=rate,
+            fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
+        record("fused_ln_ffn_res_backward", max_abs_err=e_bwd)
+    flops = 2 * n * d * hid
+    log("phase7", kernel="fused_ln_ffn_res", shape=f"x=({n},{d}) gelu rate "
+        "0.1", ms=cuda_ms(lambda: ffn.fused_ln_ffn_res_forward(x, *lnw,
+                                                               *cfg)),
+        plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain(x, *lnw, *cfg),
+                         samples=5, runs=5),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes(x, y, *lnw),
+                                                   2 * flops))))
+    record("fused_ln_ffn_res_backward", max_abs_err=0.0,
+           shape=f"x=({n},{d}) gelu rate 0.1",
+           ms=cuda_ms(lambda: ffn.fused_ln_ffn_res_backward(
+               x, *lnw[:5], dy, *cfg), samples=5, runs=5),
+           plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain_backward(
+               x, *lnw[:5], dy, *cfg), samples=5, runs=5),
+           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(x, dy, *lnw[:5], *got), 5 * flops))))
+
+    # grouped attention: the Emformer layer's core
+    geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=heads)
+    q3, dout = randn(b, geom.ng, geom.nq, d), randn(b, geom.ng, geom.nq, d)
+    k, v = randn(b, geom.tk, d), randn(b, geom.tk, d)
+    args = (q3, k, v, lengths)
+    for rate in (0.0, 0.1):
+        out = ea.emformer_grouped_attention_forward(*args, geom, rate, 23)
+        torch.cuda.synchronize()
+        e_fwd = max_err(f"emformer_grouped_attention rate {rate}", out,
+                        ea.grouped_attention_plain(*args, geom, rate, 23),
+                        **F32_TOL)
+        got = ea.emformer_grouped_attention_backward(*args, dout, geom, rate,
+                                                     23)
+        want = ea.grouped_attention_plain_backward(*args, dout, geom, rate,
+                                                   23)
+        torch.cuda.synchronize()
+        e_bwd = max(max_err(f"emformer_grouped_attention_backward rate "
+                            f"{rate} d{w}", x_, y_, **F32_TOL)
+                    for w, x_, y_ in zip("qkv", got, want))
+        log("phase7", kernel="emformer_grouped_attention", rate=rate,
+            fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
+        record("emformer_grouped_attention_backward", max_abs_err=e_bwd)
+    # SDPA with the same boolean mask on the gathered context (the gather
+    # is not timed)
+    sd, mask = sdpa_on_context(ea, geom, *args)
+    sd = [t.requires_grad_() for t in sd]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=rate)
+    sd_dout = torch.randn_like(sd_out)
+    vis = grouped_visible_pairs(ea, geom, lengths)
+    shape = f"q3=({b},{geom.ng},{geom.nq},{d}) kv=({b},{geom.tk},{d}) rate 0.1"
+    log("phase7", kernel="emformer_grouped_attention", shape=shape,
+        ms=cuda_ms(lambda: ea.emformer_grouped_attention_forward(
+            *args, geom, rate, 23)),
+        plain_ms=cuda_ms(lambda: ea.grouped_attention_plain(*args, geom,
+                                                            rate, 23)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            *sd, attn_mask=mask, dropout_p=rate)),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes(*args, out),
+                                                   4 * d * vis))))
+    record("emformer_grouped_attention_backward", max_abs_err=0.0,
+           shape=shape,
+           ms=cuda_ms(lambda: ea.emformer_grouped_attention_backward(
+               *args, dout, geom, rate, 23)),
+           plain_ms=cuda_ms(lambda: ea.grouped_attention_plain_backward(
+               *args, dout, geom, rate, 23), samples=5, runs=5),
+           library_ms=cuda_ms(lambda: torch.autograd.grad(
+               sd_out, sd, sd_dout, retain_graph=True)),
+           **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(*args, dout, *got), 10 * d * vis))))
+    del sd, sd_out
+
+    # conv-pos weight gradient: 64 taps, 16 groups of 16 channels
+    taps, groups, t_out = 64, 16, 256
+    xp, dyc = randn(b, t_out + taps - 1, d), randn(b, t_out, d)
+    got = conv_pos.convpos_wgrad(xp, dyc, taps, groups)
+    torch.cuda.synchronize()
+    want = conv_pos.convpos_wgrad_plain(xp, dyc, taps, groups)
+    xt, dyt = xp.transpose(1, 2).contiguous(), dyc.transpose(1, 2).contiguous()
+    lib = torch.nn.grad.conv1d_weight(xt, (d, d // groups, taps), dyt,
+                                      groups=groups)
+    err = max_err_to_largest("convpos_wgrad", got, want)
+    max_err_to_largest("conv1d_weight vs the plain wgrad", lib, want)
+    record("convpos_wgrad", max_abs_err=err,
+           shape=f"xp=({b},{t_out + taps - 1},{d}) dy=({b},{t_out},{d}) "
+                 f"-> dw ({taps},{d // groups},{d})",
+           ms=cuda_ms(lambda: conv_pos.convpos_wgrad(xp, dyc, taps, groups)),
+           plain_ms=cuda_ms(lambda: conv_pos.convpos_wgrad_plain(
+               xp, dyc, taps, groups), samples=5, runs=5),
+           library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+               xt, (d, d // groups, taps), dyt, groups=groups)),
+           **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(xp, dyc, got), 2 * b * t_out * taps * d * (d // groups)))))
+
+    # CTC alphas and d_em: T 256, B 32, targets of 38-64 labels (S 129)
+    t_len, L = t_out, ASR_MAX_TOKENS
+    tl = torch.from_numpy(np.random.RandomState(SEED + 5).randint(
+        ASR_MIN_TOKENS, L + 1, b)).to(dev)
+    targets = torch.randint(4, ASR_VOCAB, (b, L), generator=g).to(dev)
+    targets = torch.where(torch.arange(L, device=dev)[None] < tl[:, None],
+                          targets, torch.ones_like(targets))
+    logits = randn(b, t_len, ASR_VOCAB)
+    labels, can_skip = ctc._ctc_masks(targets, 0)
+    lse = torch.logsumexp(logits, dim=-1)
+    em = (ctc._emissions(logits, labels) - lse.T[:, :, None]).contiguous()
+    got = ctc.ctc_alphas(em, can_skip, lengths, tl)
+    torch.cuda.synchronize()
+    want = ctc.alphas_plain(em, can_skip, lengths, tl)
+    sentinel = want <= ctc.NEG / 2
+    if not torch.equal(got <= ctc.NEG / 2, sentinel) or \
+            not torch.equal(got[sentinel], want[sentinel]):
+        raise AssertionError("ctc_alphas: the -1e30 sentinels differ")
+    err_a = max_err("ctc_alphas", got[~sentinel], want[~sentinel], **F32_TOL)
+    nll = ctc._nll_from_alpha(want[-1], tl)
+    scale = -torch.ones(b, device=dev)
+    d_em = ctc.ctc_d_em(em, want, can_skip, lengths, tl, scale, nll)
+    torch.cuda.synchronize()
+    err_d = max_err("ctc_d_em", d_em, ctc.d_em_plain(
+        em, want, can_skip, lengths, tl, scale, nll), **F32_TOL)
+    lp = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    lp.requires_grad_()
+    ctc_args = (targets, lengths.long(), tl.long())
+    with torch.enable_grad():
+        lib_loss = F.ctc_loss(lp, *ctc_args, reduction="sum",
+                              zero_infinity=True)
+    shape = f"em=({t_len},{b},{2 * L + 1}) targets {ASR_MIN_TOKENS}-{L}"
+    record("ctc_alphas", max_abs_err=err_a, shape=shape,
+           ms=cuda_ms(lambda: ctc.ctc_alphas(em, can_skip, lengths, tl)),
+           plain_ms=cuda_ms(lambda: ctc.alphas_plain(em, can_skip, lengths,
+                                                     tl), samples=3, runs=3),
+           library_ms=cuda_ms(lambda: F.ctc_loss(
+               lp, *ctc_args, reduction="sum", zero_infinity=True)),
+           **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(em, can_skip, lengths, tl, got),
+               12 * em.numel()))))
+    record("ctc_d_em", max_abs_err=err_d, shape=shape,
+           ms=cuda_ms(lambda: ctc.ctc_d_em(em, want, can_skip, lengths, tl,
+                                           scale, nll)),
+           plain_ms=cuda_ms(lambda: ctc.d_em_plain(
+               em, want, can_skip, lengths, tl, scale, nll), samples=3,
+               runs=3),
+           library_ms=cuda_ms(lambda: torch.autograd.grad(
+               lib_loss, lp, retain_graph=True)),
+           **dict(zip(("bound_ms", "bound_by"), bound(
+               nbytes(em, want, can_skip, lengths, tl, d_em),
+               16 * em.numel()))))
+
+    # bf16: the LN-FFN and the attention take it (the ASR path runs fp32)
+    bf = torch.bfloat16
+    xb, dyb = x.to(bf), dy.to(bf)
+    lnb = [w.to(bf) for w in lnw]
+    cfg = ("gelu", 0.1, 0.1, 17)
+    errs = {"fused_ln_ffn_res_backward": max(
+        [max_err("fused_ln_ffn_res bf16", ffn.fused_ln_ffn_res_forward(
+            xb, *lnb, *cfg), ffn.ln_ffn_res_plain(xb, *lnb, *cfg),
+            **BF16_TOL)] +
+        [max_err("fused_ln_ffn_res_backward bf16 dx", *pair[:2], **BF16_TOL)
+         if pair[2] == "dx" else
+         max_err_to_largest(f"fused_ln_ffn_res_backward bf16 {pair[2]}",
+                            pair[0], pair[1], 1e-2)
+         for pair in zip(ffn.fused_ln_ffn_res_backward(xb, *lnb[:5], dyb,
+                                                       *cfg),
+                         ffn.ln_ffn_res_plain_backward(xb, *lnb[:5], dyb,
+                                                       *cfg),
+                         ("dx",) + names)])}
+    argsb = (q3.to(bf), k.to(bf), v.to(bf), lengths)
+    errs["emformer_grouped_attention_backward"] = max(
+        [max_err("emformer_grouped_attention bf16",
+                 ea.emformer_grouped_attention_forward(*argsb, geom, 0.1, 23),
+                 ea.grouped_attention_plain(*argsb, geom, 0.1, 23),
+                 **BF16_TOL)] +
+        [max_err(f"emformer_grouped_attention_backward bf16 d{w}", x_, y_,
+                 **BF16_TOL)
+         for w, x_, y_ in zip("qkv", ea.emformer_grouped_attention_backward(
+             *argsb, dout.to(bf), geom, 0.1, 23),
+             ea.grouped_attention_plain_backward(*argsb, dout.to(bf), geom,
+                                                 0.1, 23))])
+    for name, err in errs.items():
+        report[name]["bf16_max_abs_err"] = err
+    for name, entry in report.items():
+        log("phase7", kernel=name, **entry)
+    return report
+
+
+def phase_asr_train(dev, batch):
+    """8 full-width ASR training steps of s2t_emformer with joint CTC
+    through the CLI's model and loss and the train step, counting
+    launches; 3 profiled steps; then kernels vs plain on one step."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    args = cli.parse_args(ASR_ARGS)
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    ntokens = int((batch["target"] != 1).sum())
+
+    # the kernels-vs-plain step runs from the initial parameters: a 1e-7
+    # relative perturbation of the parameters alone moves this model's
+    # deepest gradients by about 5e-5 of their largest entries (the floor
+    # compare_plain_step logs; PERF.md, PR 3), so the 1e-4 limit sits near
+    # that floor
+    initial = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(ASR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / ASR_STEPS for k in ASR_LAUNCHES_PER_STEP}
+    if per_step != ASR_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{ASR_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses)) or state.step != ASR_STEPS:
+        raise AssertionError(f"losses {losses}, updates {state.step}")
+    log("phase8", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer",
+        utterances=ASR_UTT, frames=f"{ASR_MIN_FRAMES}-{ASR_FRAMES}",
+        target_tokens=ntokens, steps=ASR_STEPS, first_step_ms=step_ms[0],
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
+        ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
+
+    profile_steps(state, train_step, batch, generator, "phase8")
+    del state
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase8",
+                       make_accum_train_step)
     return launches
 
 
@@ -852,19 +1293,27 @@ def run(dev):
 
     # 6. MT training steps
     training = phase_train(dev, mt_batch)
+    del mt_batch
 
-    # 7. report
-    launches = {name: (serving if KERNELS[name][3] == "serving"
-                       else training)[name] for name in KERNELS}
+    # 7. ASR training kernels vs plain at the 32 x 1024-frame shapes
+    asr = asr_batch(dev)
+    with torch.no_grad():
+        report.update(phase_asr_kernels(dev, asr))
+
+    # 8. ASR training steps
+    asr_training = phase_asr_train(dev, asr)
+
+    # 9. report
+    paths = {"serving": serving, "training": training,
+             "asr-training": asr_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name],
-         "launches_by_path": {"serving": serving[name],
-                              "training": training[name]},
+         "launches": paths[path][name],
+         "launches_by_path": {p: counts[name] for p, counts in paths.items()},
          **{key: report[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
-        for name, (_, src, tpu, _) in KERNELS.items()]}), flush=True)
+        for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

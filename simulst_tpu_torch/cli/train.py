@@ -1,14 +1,22 @@
-"""Training CLI (counterpart of simulst_tpu/cli/train.py), the MT-teacher
-path: --task mt --model mt_transformer --loss ce.
+"""Training CLI (counterpart of simulst_tpu/cli/train.py): the MT teacher
+(--task mt --model mt_transformer --loss ce) and the speech model's
+joint-CTC training (--task asr|st --model s2t_emformer --loss joint_ctc),
+e.g. the ASR pretraining recipe exp/1a_pretrain_asr.sh:
 
-  python -m simulst_tpu_torch.cli.train --data DATA/en-de --task mt \
-      --model mt_transformer --loss ce --lr 5e-4 --warmup-updates 4000 \
-      --clip-norm 10 --max-tokens 16000 --save-dir checkpoints/mt_teacher
+  python -m simulst_tpu_torch.cli.train --data DATA/en-de --task asr \\
+      --model s2t_emformer --loss joint_ctc --override ctc_layer=true \\
+      --loss-override ctc_factor=1.0 --loss-override label_smoothing=0.1 \\
+      --cmvn global --lr 1e-3 --warmup-updates 10000 --clip-norm 10 \\
+      --max-tokens 40000 --update-freq 8 --save-dir checkpoints/asr
 
-The manifests are <data>/{train,dev}_st.tsv with src_text and tgt_text
-columns, the dictionary <data>/spm_*.txt (or --vocab).  The model trains
-on the card unless --device names another.  Any other task, model or loss
-raises: those are not yet ported (ROADMAP Queue 1).
+The manifests are <data>/{train,dev}_st.tsv (speech: id, audio, n_frames,
+src_text, tgt_text; text: src_text and tgt_text), the dictionary
+<data>/spm_*.txt (or --vocab), global CMVN stats <data>/gcmvn.npz.  asr
+trains on src_text, st on tgt_text; SpecAugment (policy "lb") masks the
+training batches, never the validation ones.  The model trains on the card
+unless --device names another.  Any other task, model or loss, and the
+--eval-metric, --pack and --mtl options, raise: those are not yet ported
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -16,19 +24,31 @@ import argparse
 import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from simulst_tpu_torch import config as cfglib
-from simulst_tpu_torch.data.dataset import BatcherConfig, load_tsv
+from simulst_tpu_torch.data.dataset import (BatcherConfig, SpeechDataset,
+                                            make_batches)
+from simulst_tpu_torch.data.manifest import filter_by_frames, load_tsv
 from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
 from simulst_tpu_torch.data.vocab import PAD, Vocabulary
+from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
+from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
+                                                   S2TEmformerModel)
+from simulst_tpu_torch.ops.specaugment import spec_augment
 from simulst_tpu_torch.train.checkpoint import save_checkpoint
 from simulst_tpu_torch.train.loop import LoopConfig, Trainer
 from simulst_tpu_torch.train.optim import OptimConfig
 
-PORTED = {"task": "mt", "model": "mt_transformer", "loss": "ce"}
+# (task, model, loss) combinations the port trains
+PORTED = {("mt", "mt_transformer", "ce"),
+          ("asr", "s2t_emformer", "joint_ctc"),
+          ("st", "s2t_emformer", "joint_ctc")}
+MODELS = {"mt_transformer": (MTConfig, MTTransformerModel),
+          "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel)}
 LABEL_SMOOTHING = 0.1
 
 
@@ -51,50 +71,84 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-norm", type=float, default=10.0)
     p.add_argument("--patience", type=int, default=0)
     p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--cmvn", default="utterance",
+                   choices=["utterance", "global", "none"],
+                   help="feature normalization; 'global' reads gcmvn.npz "
+                        "from the data dir")
+    p.add_argument("--specaugment", action="store_true", default=True)
+    p.add_argument("--no-specaugment", dest="specaugment",
+                   action="store_false")
     p.add_argument("--resume", default=None,
                    help="checkpoint_resume path (params + optimizer + step)")
     p.add_argument("--override", action="append", default=[],
                    help="model config overrides key=value")
+    p.add_argument("--loss-override", action="append", default=[],
+                   help="loss config overrides key=value")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda)")
+    # the JAX package's options that the port does not take yet
+    p.add_argument("--eval-metric", default="none",
+                   choices=["none", "bleu", "wer"])
+    p.add_argument("--pack", action="store_true")
+    p.add_argument("--mtl", action="store_true")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = parser().parse_args(argv)
-    for key, ported in PORTED.items():
-        if getattr(args, key) != ported:
-            raise NotImplementedError(
-                f"--{key} {getattr(args, key)} is not yet ported (ROADMAP "
-                f"Queue 1); the port trains --task mt --model mt_transformer "
-                f"--loss ce")
+    path = (args.task, args.model, args.loss)
+    unported = [f"--{k.replace('_', '-')}" for k, off in
+                (("eval_metric", "none"), ("pack", False), ("mtl", False))
+                if getattr(args, k) != off]
+    if path not in PORTED or unported:
+        what = " ".join(unported) or \
+            f"--task {args.task} --model {args.model} --loss {args.loss}"
+        raise NotImplementedError(
+            f"{what} is not yet ported (ROADMAP Queue 1); the port trains "
+            + ", ".join(f"--task {t} --model {m} --loss {l}"
+                        for t, m, l in sorted(PORTED)))
     args.overrides = dict(cfglib.parse_override(s) for s in args.override)
+    args.loss_overrides = dict(cfglib.parse_override(s)
+                               for s in args.loss_override)
     return args
 
 
-def build_model(args, vocab_size: int, device=None) -> MTTransformerModel:
-    """MTConfig (transformer_small) with --override applied; weights from a
-    generator seeded with --seed."""
-    cfg = cfglib.apply_overrides(MTConfig(vocab_size=vocab_size),
+def build_model(args, vocab_size: int, device=None):
+    """The model's default config (transformer_small / s2t_emformer_s) with
+    --override applied; weights from a generator seeded with --seed."""
+    config_cls, model_cls = MODELS[args.model]
+    cfg = cfglib.apply_overrides(config_cls(vocab_size=vocab_size),
                                  args.overrides)
-    return MTTransformerModel(cfg, generator=torch.Generator().manual_seed(
-        args.seed), device=device)
+    return model_cls(cfg, generator=torch.Generator().manual_seed(args.seed),
+                     device=device)
 
 
-def build_loss(args, model: MTTransformerModel):
-    """loss_fn(model, batch, rngs) -> (summed LS-CE, metrics); no dropout
-    when rngs is None (validation)."""
-    del args, model
+def build_loss(args, model):
+    """loss_fn(model, batch, rngs) -> (summed loss, metrics); no dropout
+    and no SpecAugment when rngs is None (validation)."""
+    del model
+    if args.loss == "ce":
+        def fn(model, batch, rngs):
+            logits, _ = model(batch["src_tokens"], batch["prev_tokens"],
+                              rngs=rngs)
+            loss, nll = ce_loss(logits, batch["target"], LABEL_SMOOTHING, PAD)
+            ntokens = (batch["target"] != PAD).sum()
+            return loss, {"loss": loss.detach(), "nll_loss": nll.detach(),
+                          "ntokens": ntokens,
+                          "nsentences": batch["target"].shape[0],
+                          "sample_size": ntokens}
+        return fn
+
+    lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)
+    specaugment = args.specaugment
 
     def fn(model, batch, rngs):
-        logits, _ = model(batch["src_tokens"], batch["prev_tokens"],
-                          rngs=rngs)
-        loss, nll = ce_loss(logits, batch["target"], LABEL_SMOOTHING, PAD)
-        ntokens = (batch["target"] != PAD).sum()
-        return loss, {"loss": loss.detach(), "nll_loss": nll.detach(),
-                      "ntokens": ntokens,
-                      "nsentences": batch["target"].shape[0],
-                      "sample_size": ntokens}
+        feats = batch["feats"]
+        if specaugment and rngs is not None:
+            feats = spec_augment(rngs.generator, feats, batch["feat_lengths"])
+        logits, extra = model(feats, batch["feat_lengths"],
+                              batch["prev_tokens"], rngs=rngs)
+        return joint_ctc_loss(logits, extra, batch["target"], lcfg)
     return fn
 
 
@@ -104,7 +158,7 @@ def optim_config(args) -> OptimConfig:
 
 
 def build_valid_fn(loss_fn, batches_fn, device):
-    """Validation loss per target token (sample_size), no dropout."""
+    """Validation loss per sample_size unit, no dropout."""
     def valid_fn(model):
         total, n = 0.0, 0.0
         for batch in batches_fn():
@@ -133,16 +187,38 @@ def _find_vocab(args) -> Vocabulary:
             else Vocabulary.from_txt(path))
 
 
+def _datasets(args, vocab, bcfg):
+    """(train batches by epoch, valid batches) for the task."""
+    def rows(split):
+        return load_tsv(os.path.join(args.data, f"{split}_st.tsv"))
+
+    valid_cfg = dataclasses.replace(bcfg, shuffle=False)
+    if args.task == "mt":
+        train_ds = TextDataset(rows(args.train_split), vocab)
+        valid_ds = TextDataset(rows(args.valid_split), vocab)
+        return (lambda epoch: make_text_batches(train_ds, bcfg, epoch),
+                lambda: make_text_batches(valid_ds, valid_cfg))
+    stats = None
+    if args.cmvn == "global":
+        with np.load(os.path.join(args.data, "gcmvn.npz")) as f:
+            stats = {"mean": f["mean"], "std": f["std"]}
+    field = "src_text" if args.task == "asr" else "tgt_text"
+    train_ds = SpeechDataset(filter_by_frames(rows(args.train_split)), vocab,
+                             bcfg, field, global_stats=stats)
+    valid_ds = SpeechDataset(rows(args.valid_split), vocab, valid_cfg, field,
+                             global_stats=stats)
+    return (lambda epoch: make_batches(train_ds, epoch=epoch),
+            lambda: make_batches(valid_ds))
+
+
 def main(argv=None):
     args = parse_args(argv)
     if not args.data:
         raise SystemExit("--data is required")
     vocab = _find_vocab(args)
-    bcfg = BatcherConfig(max_tokens=args.max_tokens, seed=args.seed)
-    train_ds = TextDataset(load_tsv(os.path.join(
-        args.data, f"{args.train_split}_st.tsv")), vocab)
-    valid_ds = TextDataset(load_tsv(os.path.join(
-        args.data, f"{args.valid_split}_st.tsv")), vocab)
+    bcfg = BatcherConfig(max_tokens=args.max_tokens, seed=args.seed,
+                         cmvn=args.cmvn)
+    train_batches, valid_batches = _datasets(args, vocab, bcfg)
 
     model = build_model(args, len(vocab), device=args.device)
     device = next(model.parameters()).device
@@ -150,17 +226,17 @@ def main(argv=None):
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
                           save_dir=args.save_dir, seed=args.seed)
     metadata = {"model": args.model, "config": cfglib.to_dict(model.cfg)}
-    trainer = Trainer(
-        loss_fn, optim_config(args), loop_cfg, model,
-        valid_fn=build_valid_fn(loss_fn, lambda: make_text_batches(
-            valid_ds, dataclasses.replace(bcfg, shuffle=False)), device),
-        update_freq=args.update_freq,
-        metadata=metadata, device=device)
+    if args.task != "mt":
+        metadata["cmvn"] = args.cmvn
+    trainer = Trainer(loss_fn, optim_config(args), loop_cfg, model,
+                      valid_fn=build_valid_fn(loss_fn, valid_batches, device),
+                      update_freq=args.update_freq, metadata=metadata,
+                      device=device)
     if args.resume:
         print(f"resumed from {args.resume} at update "
               f"{trainer.resume(args.resume)}")
 
-    state = trainer.fit(lambda epoch: make_text_batches(train_ds, bcfg, epoch))
+    state = trainer.fit(train_batches)
     save_checkpoint(os.path.join(args.save_dir, "checkpoint_last"),
                     state.model.state_dict(),
                     metadata={**metadata, "step": state.step})

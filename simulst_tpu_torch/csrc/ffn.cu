@@ -2,11 +2,11 @@
 //   y = [x +] drop_o(fc2(drop_a(act(fc1([LN](x))))))
 //
 // Replaces the Pallas kernels simulst_tpu/ops/ffn_pallas.py
-// `fused_ln_ffn_res` (_ln_ffn_fwd_kernel; the Emformer pos_ff block with its
-// pre-LN and residual, forward at dropout 0) and `fused_ffn` (_fwd_kernel
-// and _bwd_kernel; the decoder FFN, with relu or gelu and both dropouts).
-// One forward source serves both: the LN prologue and the residual epilogue
-// are template flags.
+// `fused_ln_ffn_res` (_ln_ffn_fwd_kernel and _ln_ffn_bwd_kernel; the Emformer
+// pos_ff block with its pre-LN and residual) and `fused_ffn` (_fwd_kernel
+// and _bwd_kernel; the decoder FFN), each with relu or gelu and both
+// dropouts.  One forward source serves both: the LN prologue and the
+// residual epilogue are template flags.
 //
 // What bounds it on the H100: at the offline shape (3072 rows x 256 x 2048)
 // it is compute, 6.4 GFLOP per layer, run here on the CUDA cores in fp32
@@ -24,9 +24,10 @@
 // draws Philox bits keyed by (seed, row * hidden + column) for the hidden
 // (stream 0) and (seed, row * 256 + column) for the output (stream 1).
 //
-// The backward (training, MT decoder: 8192 rows x 256 x 2048, 43 GFLOP, so
-// compute) recomputes the hidden and both masks and runs as five fp32 tiled
-// products (common.cuh gemm) with fused epilogues:
+// The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
+// LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
+// the hidden and both masks and run as five fp32 tiled products
+// (common.cuh gemm) with fused epilogues:
 //   u  = x W1 + b1                                 (the recompute)
 //   dh = g W2^T, g = drop_o(dy); epilogue du = dh act'(u) m_a, and u is
 //        overwritten with h_d = act(u) m_a
@@ -36,7 +37,15 @@
 // plus column sums for db1 and db2 and one pass that adds the partials, so
 // every weight gradient is summed in fp32 without atomics.  Unlike the
 // forward, u and du make one round trip through device memory (2 x 64 MB at
-// the MT shape, about an eighth of the compute bound).
+// the MT shape, about an eighth of the compute bound).  The LN-FFN backward
+// adds two row passes around the products: the first normalises x into an
+// fp32 buffer (the fc1 input, rounded to the activation dtype, and each
+// row's mean and 1/sigma); the product du W1^T then yields dnormed in fp32,
+// and the second row pass takes LN's backward along each row (two warp
+// reductions: mean(dnormed gamma) and mean(dnormed gamma xhat)), adds the
+// residual's dy and writes dx; it also leaves dnormed xhat in the first
+// buffer, whose column sums (split like the weight products) give dgamma,
+// and those of dnormed dbeta.
 #include "common.cuh"
 
 namespace {
@@ -316,10 +325,149 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
   return (int)simulst::sum_splits(partial, splits, len, grads, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// LN-FFN backward
+// ---------------------------------------------------------------------------
+
+constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
+
+// xn = round_T(LN(x) gamma + beta) in fp32, stats = (mean, 1/sigma) per row
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
+                   const T* __restrict__ ln_b, float* __restrict__ xn,
+                   float* __restrict__ stats, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  float v[kDim / 32];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    v[i] = to_f32(x[(size_t)row * kDim + lane + 32 * i]);
+    s += v[i];
+  }
+  const float mean = simulst::warp_sum(s) / kDim;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const float c = v[i] - mean;
+    q += c * c;
+  }
+  const float inv = rsqrtf(simulst::warp_sum(q) / kDim + 1e-5f);
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const int col = lane + 32 * i;
+    xn[(size_t)row * kDim + col] =
+        round_to<T>((v[i] - mean) * inv * to_f32(ln_g[col]) + to_f32(ln_b[col]));
+  }
+  if (lane == 0) {
+    stats[2 * row] = mean;
+    stats[2 * row + 1] = inv;
+  }
+}
+
+// dx = inv (gg - mean(gg) - xhat mean(gg xhat)) + dy with gg = dn gamma;
+// xn is overwritten with dn xhat (the per-row terms of dgamma)
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ dn, const T* __restrict__ dy,
+                       T* __restrict__ dx, float* __restrict__ xn,
+                       int n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const float mean = stats[2 * row], inv = stats[2 * row + 1];
+  float xh[kDim / 32], gg[kDim / 32];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const size_t off = (size_t)row * kDim + lane + 32 * i;
+    xh[i] = (to_f32(x[off]) - mean) * inv;
+    const float d = dn[off];
+    gg[i] = d * to_f32(ln_g[lane + 32 * i]);
+    s1 += gg[i];
+    s2 += gg[i] * xh[i];
+    xn[off] = d * xh[i];
+  }
+  const float m1 = simulst::warp_sum(s1) / kDim;
+  const float m2 = simulst::warp_sum(s2) / kDim;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const size_t off = (size_t)row * kDim + lane + 32 * i;
+    dx[off] = from_f32<T>(inv * (gg[i] - m1 - xh[i] * m2) + to_f32(dy[off]));
+  }
+}
+
+struct F32Store {
+  float* y;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    y[(size_t)m * ld + n] = v;
+  }
+};
+
+template <typename T, int kAct>
+int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
+                      const void* w1_, const void* b1_, const void* w2_,
+                      const void* dy_, void* dx_, float* grads, float* xn,
+                      float* stats, float* u, float* du, float* g, float* dn,
+                      float* partial, int n, int hidden, int splits,
+                      Dropout act_drop, Dropout out_drop, cudaStream_t s) {
+  using simulst::PartialStore;
+  using simulst::RowMajor;
+  using simulst::Transposed;
+  const T* x = static_cast<const T*>(x_);
+  const T* ln_g = static_cast<const T*>(g_);
+  const T* w1 = static_cast<const T*>(w1_);
+  const T* w2 = static_cast<const T*>(w2_);
+  const T* dy = static_cast<const T*>(dy_);
+  const int d = kDim;
+  // grads / partial layout:
+  // [dW1 (d, hidden) | dW2 (hidden, d) | db1 | db2 | dgamma | dbeta]
+  const size_t o_dw2 = (size_t)d * hidden, o_db1 = 2 * o_dw2,
+               o_db2 = o_db1 + hidden, o_dg = o_db2 + d, o_dbe = o_dg + d,
+               len = o_dbe + d;
+  const int row_blocks = simulst::ceil_div(n, kRowThreads / 32);
+  ln_rows_kernel<T><<<row_blocks, kRowThreads, 0, s>>>(
+      x, ln_g, static_cast<const T*>(be_), xn, stats, n);
+  SIMULST_TRY(cudaGetLastError());
+  SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
+  SIMULST_TRY((simulst::gemm<false, true>(
+      n, hidden, d, 1, RowMajor<float>{xn, d}, RowMajor<T>{w1, hidden},
+      BiasStore<T>{u, static_cast<const T*>(b1_), hidden}, s)));
+  SIMULST_TRY((simulst::gemm<false, false>(
+      n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
+      HiddenGradStore<T, kAct>{u, du, hidden, act_drop}, s)));
+  SIMULST_TRY((simulst::gemm<false, false>(
+      n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
+      F32Store{dn, d}, s)));
+  SIMULST_TRY((simulst::gemm<true, true>(
+      d, hidden, n, splits, Transposed<float>{xn, d},
+      RowMajor<float>{du, hidden}, PartialStore{partial, len, 0, hidden}, s)));
+  SIMULST_TRY((simulst::gemm<true, true>(
+      hidden, d, n, splits, Transposed<float>{u, hidden}, RowMajor<float>{g, d},
+      PartialStore{partial, len, o_dw2, d}, s)));
+  SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
+                                      o_db1, s));
+  SIMULST_TRY(simulst::colsum_partial(g, n, d, splits, partial, len, o_db2, s));
+  ln_bwd_rows_kernel<T><<<row_blocks, kRowThreads, 0, s>>>(
+      x, ln_g, stats, dn, dy, static_cast<T*>(dx_), xn, n);
+  SIMULST_TRY(cudaGetLastError());
+  SIMULST_TRY(simulst::colsum_partial(xn, n, d, splits, partial, len, o_dg,
+                                      s));
+  SIMULST_TRY(simulst::colsum_partial(dn, n, d, splits, partial, len, o_dbe,
+                                      s));
+  return (int)simulst::sum_splits(partial, splits, len, grads, s);
+}
+
 }  // namespace
 
-// ln_res = 1: y = x + fc2(gelu(fc1(LN(x))))   (fused_ln_ffn_res; act must
-//             be gelu and both dropouts off)
+// ln_res = 1: y = x + drop_o(fc2(drop_a(act(fc1(LN(x))))))
+//             (fused_ln_ffn_res)
 // ln_res = 0: y = drop_o(fc2(drop_a(act(fc1(x)))))  (fused_ffn; ln_g/ln_b
 //             unused)
 // x, y: (n_rows, dim); w1: (dim, hidden); w2: (hidden, dim), all of `dtype`;
@@ -335,13 +483,17 @@ extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            unsigned out_threshold, float out_inv_keep,
                            void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 ||
-      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu) ||
-      (ln_res && (act != kGelu || act_on || out_on)))
+      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
   const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
+  if (ln_res && act == kRelu) {
+    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kRelu>(
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
+                                hidden, splits, act_drop, out_drop, s));
+  }
   if (ln_res) {
     SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kGelu>(
                                 x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
@@ -387,4 +539,42 @@ extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
   SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kGelu>(
                               x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
                               n_rows, hidden, splits, act_drop, out_drop, s));
+}
+
+// The backward of simulst_ffn with ln_res = 1: dx (n_rows, dim) of `dtype`
+// and grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) |
+// db2 (dim) | dgamma (dim) | dbeta (dim)] in fp32.  Scratch, all fp32: xn,
+// g and dn (n_rows, dim), stats (n_rows, 2), u and du (n_rows, hidden),
+// partial (splits, len(grads)) zero-filled.  Returns a cudaError_t.
+extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
+                                  const void* ln_g, const void* ln_b,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* dy, void* dx,
+                                  void* grads, void* xn, void* stats, void* u,
+                                  void* du, void* g, void* dn, void* partial,
+                                  int n_rows, int dim, int hidden, int splits,
+                                  unsigned long long seed, int act_on,
+                                  unsigned act_threshold, float act_inv_keep,
+                                  int out_on, unsigned out_threshold,
+                                  float out_inv_keep, void* stream) {
+  if (dim != kDim || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
+      (act != kGelu && act != kRelu))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
+  const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
+  float *gr = static_cast<float*>(grads), *xf = static_cast<float*>(xn),
+        *st = static_cast<float*>(stats), *uf = static_cast<float*>(u),
+        *duf = static_cast<float*>(du), *gf = static_cast<float*>(g),
+        *dnf = static_cast<float*>(dn), *pf = static_cast<float*>(partial);
+  if (act == kRelu) {
+    SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kRelu>(
+                                x, ln_g, ln_b, w1, b1, w2, dy, dx, gr, xf, st,
+                                uf, duf, gf, dnf, pf, n_rows, hidden, splits,
+                                act_drop, out_drop, s));
+  }
+  SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kGelu>(
+                              x, ln_g, ln_b, w1, b1, w2, dy, dx, gr, xf, st,
+                              uf, duf, gf, dnf, pf, n_rows, hidden, splits,
+                              act_drop, out_drop, s));
 }

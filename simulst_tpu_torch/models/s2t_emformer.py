@@ -1,8 +1,10 @@
 """S2T Emformer: causal conv subsampler + conv-pos + Emformer encoder +
 Transformer decoder (+ optional CTC head).  Counterpart of
-simulst_tpu/models/s2t_emformer.py, forward only.
+simulst_tpu/models/s2t_emformer.py.
 
-Offline: `encoder_forward` runs the whole utterance batch.  Streaming:
+Offline and training: `encoder_forward` runs the whole utterance batch,
+with dropout at the config's rates when given an `RngStream` (after the
+conv-pos, in every Emformer layer and in the decoder).  Streaming:
 `encoder_step` takes one chunk of new feature frames, featurizes it with
 the conv caches, and runs every complete segment+rc block through
 `emformer_step`; leftover frames stay in a carry buffer whose length is a
@@ -20,7 +22,8 @@ from torch import nn
 from simulst_tpu_torch.nn import conv as cnv
 from simulst_tpu_torch.nn import emformer as emf
 from simulst_tpu_torch.nn import transformer as tfm
-from simulst_tpu_torch.nn.core import (Linear, lengths_to_mask, linear,
+from simulst_tpu_torch.nn.core import (Linear, RngStream, dropout,
+                                       lengths_to_mask, linear, next_seed,
                                        resolve_device)
 
 
@@ -36,6 +39,9 @@ class S2TEmformerConfig:
     ffn_dim: int = 2048
     encoder_layers: int = 12
     encoder_heads: int = 4
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
     activation: str = "gelu"
     conv_pos: int = 128
     conv_pos_groups: int = 16
@@ -69,6 +75,8 @@ class S2TEmformerConfig:
         return emf.EmformerConfig(
             input_dim=self.embed_dim, num_heads=self.encoder_heads,
             ffn_dim=self.ffn_dim, num_layers=self.encoder_layers,
+            dropout=self.dropout, attention_dropout=self.attention_dropout,
+            activation_dropout=self.activation_dropout,
             activation=self.activation, left_context=self.left_context // s,
             right_context=self.right_context // s,
             segment=self.segment_length // s, max_memory=self.max_memory,
@@ -79,7 +87,10 @@ class S2TEmformerConfig:
         return tfm.DecoderConfig(
             vocab_size=self.vocab_size, embed_dim=self.embed_dim,
             ffn_dim=self.decoder_ffn_dim, num_layers=self.decoder_layers,
-            num_heads=self.decoder_heads, activation=self.activation,
+            num_heads=self.decoder_heads, dropout=self.dropout,
+            attention_dropout=self.attention_dropout,
+            activation_dropout=self.activation_dropout,
+            activation=self.activation,
             share_input_output_embed=self.share_decoder_input_output_embed,
             padding_idx=self.padding_idx, eos_idx=self.eos_idx,
             encoder_embed_dim=self.embed_dim,
@@ -120,16 +131,19 @@ def _ctc(p: S2TEmformerEncoder, enc):
 
 
 def encoder_forward(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, feats,
-                    feat_lengths) -> EncoderOut:
-    """Offline forward. feats: (B, T, F); feat_lengths: (B,)."""
+                    feat_lengths, rngs: Optional[RngStream] = None
+                    ) -> EncoderOut:
+    """Offline / training forward. feats: (B, T, F); feat_lengths: (B,).
+    Dropout at the config's rates when rngs is given."""
     ecfg = cfg.emformer
     x, lengths = cnv.subsampler_apply(p.subsample, feats, feat_lengths)
     x = cfg.embed_scale * x
     x = x + cnv.conv_pos_apply(p.conv_pos, x, cfg.conv_pos_groups)
+    x = dropout(x, cfg.dropout, next_seed(rngs))
     x = torch.where(lengths_to_mask(lengths, x.shape[1])[:, :, None], x,
                     torch.zeros_like(x))
     x = torch.nn.functional.pad(x, (0, 0, 0, ecfg.right_context))
-    enc = emf.emformer_forward(p.emformer, ecfg, x, lengths)
+    enc = emf.emformer_forward(p.emformer, ecfg, x, lengths, rngs)
     return EncoderOut(encoder_out=enc, lengths=lengths, ctc_logits=_ctc(p, enc))
 
 
@@ -249,12 +263,17 @@ class S2TEmformerModel(nn.Module):
         self.decoder = tfm.Decoder(cfg.decoder, generator=generator,
                                    device=device)
 
-    def forward(self, feats, feat_lengths, prev_tokens):
-        """Teacher-forced forward.  Returns (logits (B, T, V), extra)."""
-        enc = encoder_forward(self.encoder, self.cfg, feats, feat_lengths)
+    def forward(self, feats, feat_lengths, prev_tokens, *,
+                rngs: Optional[RngStream] = None):
+        """Teacher-forced forward; dropout when `rngs` is given (the JAX
+        package's rng with deterministic=False).  Returns (logits (B, T, V),
+        extra)."""
+        enc = encoder_forward(self.encoder, self.cfg, feats, feat_lengths,
+                              rngs)
         enc_valid = lengths_to_mask(enc.lengths, enc.encoder_out.shape[1])
         logits = tfm.decoder_forward(self.decoder, self.cfg.decoder,
-                                     prev_tokens, enc.encoder_out, enc_valid)
+                                     prev_tokens, enc.encoder_out, enc_valid,
+                                     rngs=rngs)
         return logits, {"ctc_logits": enc.ctc_logits,
                         "encoder_lengths": enc.lengths,
                         "encoder_out": enc.encoder_out}

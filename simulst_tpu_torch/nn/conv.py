@@ -1,12 +1,15 @@
 """Causal convolutions with fixed-size streaming caches (counterpart of
-simulst_tpu/nn/conv.py, forward only).
+simulst_tpu/nn/conv.py).
 
 Activations keep the JAX layout (B, T, C); conv weights are stored in torch's
 (Cout, Cin/groups, K) layout for `F.conv1d` (the bridge permutes the JAX
 (K, Cin/groups, Cout) weights).  Offline: left-pad k-1 zeros and run one
 conv.  Streaming: the cache holds the last k-1 input frames (zeros at start
 == the left pad); every chunk length must be a multiple of the stride for
-streaming == offline.
+streaming == offline.  The offline conv-pos runs through
+ops/conv_pos.py's `grouped_conv_fast_wgrad`, whose weight gradient is a
+kernel (the JAX package's custom VJP); the weight norm's gradient to g and
+v is autograd's.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simulst_tpu_torch.nn.core import gelu, glu, normal, uniform
+from simulst_tpu_torch.ops.conv_pos import grouped_conv_fast_wgrad
 
 
 class CausalConv1d(nn.Module):
@@ -151,9 +155,9 @@ def _conv_pos_weight(p):
 
 def conv_pos_apply(p, x, groups: int):
     """x: (B, T, D) -> GELU'd positional features (B, T, D)."""
-    w = _conv_pos_weight(p)
+    w = _conv_pos_weight(p).to(x.dtype)
     k = w.shape[-1]
-    y = _conv1d(F.pad(x, (0, 0, k - 1, 0)), w, 1, groups)
+    y = grouped_conv_fast_wgrad(F.pad(x, (0, 0, k - 1, 0)), w, groups)
     return gelu(y + p.bias.to(x.dtype))
 
 

@@ -1,13 +1,17 @@
-"""Emformer streaming encoder (counterpart of simulst_tpu/nn/emformer.py,
-forward at dropout 0).
+"""Emformer streaming encoder (counterpart of simulst_tpu/nn/emformer.py).
 
-Offline (`emformer_forward`): per layer, one attention over
+Offline and training (`emformer_forward`): per layer, one attention over
 [rc blocks | utterance | summaries] queries and [mems | rc blocks |
 utterance] keys, batched per segment.  When whole segments divide into
 groups (`_choose_group` > 1) the layer takes the grouped path: the CUDA
-kernels `emformer_grouped_attention` and `fused_linear_res` (out_proj +
-residual).  A ragged utterance takes `_segmented_attention` in plain torch.
-Either way the pos_ff block is the `fused_ln_ffn_res` kernel.
+kernels `emformer_grouped_attention` (attention dropout inside) and
+`fused_linear_res` (out_proj + residual dropout + residual).  A ragged
+utterance takes `_segmented_attention` in plain torch, with its dropout,
+as the JAX package takes XLA there.  Either way the pos_ff block is the
+`fused_ln_ffn_res` kernel with both of its dropout sites.  Every kernel has
+its backward; with an `RngStream` each dropout site draws one seed (the
+JAX package's per-layer rng stream, in the same site order), and without
+one nothing is dropped.
 
 Streaming (`emformer_step`): per-layer state is fixed-size buffers (mems
 (B, M, D), left-context K/V (B, L, D)) valid at their end, plus
@@ -32,8 +36,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from simulst_tpu_torch.nn.core import (LayerNorm, Linear, layer_norm, linear,
-                                       masked_softmax)
+from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, dropout,
+                                       layer_norm, linear, masked_softmax,
+                                       next_seed)
 from simulst_tpu_torch.ops.emformer_attn import (AttnGeom,
                                                  emformer_grouped_attention)
 from simulst_tpu_torch.ops.ffn import fused_ln_ffn_res
@@ -46,6 +51,9 @@ class EmformerConfig:
     num_heads: int = 4
     ffn_dim: int = 2048
     num_layers: int = 12
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
     activation: str = "gelu"
     left_context: int = 32     # post-subsample frames (128 / stride 4)
     right_context: int = 8     # 32 / 4
@@ -54,11 +62,6 @@ class EmformerConfig:
     tanh_on_mem: bool = True
     # G consecutive segments per attention block over their union context
     segment_group: int = 8
-
-    def __post_init__(self):
-        if self.activation != "gelu":
-            raise NotImplementedError(
-                "the port's pos_ff kernel computes GELU only")
 
     @property
     def use_mem(self) -> bool:
@@ -138,12 +141,18 @@ def _mem_transform(x, cfg: EmformerConfig):
     return torch.tanh(x) if cfg.tanh_on_mem else torch.clamp(x, -10, 10)
 
 
-def _pos_ff_res(p: PosFF, x):
-    """x + fc2(gelu(fc1(LN(x)))): one fused_ln_ffn_res kernel on the card."""
+def _pos_ff_res(p: PosFF, cfg: EmformerConfig, x,
+                rngs: Optional[RngStream] = None):
+    """x + drop(fc2(drop(act(fc1(LN(x)))))): one fused_ln_ffn_res kernel on
+    the card; one seed keys both dropout sites."""
     d = x.dtype
+    seed = next_seed(rngs)
+    on = seed is not None
     return fused_ln_ffn_res(x, p.ln.scale, p.ln.bias, p.fc1.weight.to(d),
                             p.fc1.bias.to(d), p.fc2.weight.to(d),
-                            p.fc2.bias.to(d))
+                            p.fc2.bias.to(d), cfg.activation,
+                            cfg.activation_dropout if on else 0.0,
+                            cfg.dropout if on else 0.0, seed or 0)
 
 
 def _attend(q, k, v, num_heads: int, visible):
@@ -220,11 +229,13 @@ def _choose_group(n: int, U: int, cfg: EmformerConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
-                       rc_ln, mems, summary, lengths, rc_raw, utt_raw):
+                       rc_ln, mems, summary, lengths, rc_raw, utt_raw,
+                       rngs: Optional[RngStream] = None):
     """Grouped-segment attention with its epilogue: the attention core
-    kernel, then out_proj + residual on the rc/utterance rows (summary rows
-    get the plain projection) in one fused_linear_res kernel.  Returns
-    (result (B, rc_len+U, D) post-residual, summary_out (B, n, D))."""
+    kernel (attention dropout inside), then out_proj + residual dropout +
+    residual on the rc/utterance rows (summary rows get the plain
+    projection) in one fused_linear_res kernel.  Returns (result (B,
+    rc_len+U, D) post-residual, summary_out (B, n, D))."""
     b, U, d = utt_ln.shape
     seg, rc = cfg.segment, cfg.right_context
     n = U // seg
@@ -238,16 +249,22 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
                       utt_ln.reshape(b, ng, G * seg, d),
                       summary.reshape(b, ng, G, d)], dim=2)
     q = linear(ap.emb_to_query, q_in)
-    out = emformer_grouped_attention(q, k, v, lengths.to(torch.int32), geom)
+    seed = next_seed(rngs)
+    out = emformer_grouped_attention(
+        q, k, v, lengths.to(torch.int32), geom,
+        cfg.attention_dropout if seed is not None else 0.0, seed or 0)
     # residual = raw (pre-LN) input in the grouped row layout, zeros under
     # the summary rows (which ignore it)
     res = torch.cat([rc_raw.reshape(b, ng, G * rc, d),
                      utt_raw.reshape(b, ng, G * seg, d),
                      torch.zeros(b, ng, G, d, dtype=out.dtype,
                                  device=out.device)], dim=2)
+    seed = next_seed(rngs)
     y = fused_linear_res(out, ap.out_proj.weight.to(out.dtype),
                          ap.out_proj.bias.to(out.dtype), res,
-                         period=geom.nq, res_rows=G * (rc + seg))
+                         period=geom.nq, res_rows=G * (rc + seg),
+                         rate=cfg.dropout if seed is not None else 0.0,
+                         seed=seed or 0)
     rc_res = y[:, :, :G * rc].reshape(b, n * rc, d)
     utt_res = y[:, :, G * rc:G * (rc + seg)].reshape(b, U, d)
     summary_out = y[:, :, G * (rc + seg):].reshape(b, n, d)
@@ -255,10 +272,11 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
 
 
 def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
-                         mems, summary, lengths):
-    """Per-segment batched attention in plain torch (ragged U).  Returns
-    (rc_utt_out (B, rc_len+U, D), summary_out (B, n, D)) before the
-    residual."""
+                         mems, summary, lengths,
+                         rngs: Optional[RngStream] = None):
+    """Per-segment batched attention in plain torch (ragged U), attention
+    dropout included.  Returns (rc_utt_out (B, rc_len+U, D), summary_out
+    (B, n, D)) before the residual."""
     b, U, d = utt_ln.shape
     n = _num_segs(U, cfg.segment)
     seg, rc = cfg.segment, cfg.right_context
@@ -301,6 +319,7 @@ def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
         col_is_mem = torch.arange(ctx, device=dev) < m_slots
         visible = visible & ~(row_is_summary[:, None] & col_is_mem[None, :])
     probs = masked_softmax(scores, visible).to(q.dtype)
+    probs = dropout(probs, cfg.attention_dropout, next_seed(rngs))
     out = (probs @ vh).transpose(2, 3).reshape(b, n, nq, d)
     out = linear(ap.out_proj, out)
 
@@ -311,8 +330,9 @@ def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
 
 
 def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
-                   rc_blocks, mems, lengths):
-    """One Emformer layer, offline.  Returns (utt_out, rc_out, next_mems)."""
+                   rc_blocks, mems, lengths, rngs: Optional[RngStream] = None):
+    """One Emformer layer, offline or training.  Returns (utt_out, rc_out,
+    next_mems)."""
     U = utterance.shape[1]
     rc_len = rc_blocks.shape[1]
     raw = torch.cat([rc_blocks, utterance], dim=1)
@@ -326,21 +346,22 @@ def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
     if G > 1:
         result, summary_out = _grouped_attention(
             p, cfg, G, utt_ln, rc_ln, mems, summary, lengths, rc_blocks,
-            utterance)
+            utterance, rngs)
     else:
         rc_utt_out, summary_out = _segmented_attention(
-            p, cfg, utt_ln, rc_ln, mems, summary, lengths)
-        result = rc_utt_out + raw
+            p, cfg, utt_ln, rc_ln, mems, summary, lengths, rngs)
+        result = dropout(rc_utt_out, cfg.dropout, next_seed(rngs)) + raw
     next_mems = (_mem_transform(summary_out, cfg)[:, :n - 1] if cfg.use_mem
                  else mems)
-    result = _pos_ff_res(p.pos_ff, result)
+    result = _pos_ff_res(p.pos_ff, cfg, result, rngs)
     return result[:, rc_len:], result[:, :rc_len], next_mems
 
 
-def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths):
+def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths,
+                     rngs: Optional[RngStream] = None):
     """x: (B, U + right_context, D), the utterance right-padded with rc
-    frames; lengths: (B,) valid utterance frames.  Returns the encoded
-    utterance (B, U, D)."""
+    frames; lengths: (B,) valid utterance frames.  Dropout at the config's
+    rates when rngs is given.  Returns the encoded utterance (B, U, D)."""
     U = x.shape[1] - cfg.right_context
     utterance = x[:, :U]
     idx = torch.as_tensor(_rc_gather_indices(U, cfg.segment,
@@ -355,7 +376,7 @@ def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths):
     out = utterance
     for layer in p.layers:
         out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
-                                              mems, lengths)
+                                              mems, lengths, rngs)
     return layer_norm(p.final_ln, out)
 
 
@@ -448,7 +469,7 @@ def _layer_step(p: EmformerLayer, cfg: EmformerConfig,
 
     mems_out = (_mem_transform(out[:, R + S:], cfg) if cfg.use_mem
                 else out[:, :0])
-    result = _pos_ff_res(p.pos_ff, out[:, :R + S] + raw)
+    result = _pos_ff_res(p.pos_ff, cfg, out[:, :R + S] + raw)
 
     if cfg.use_mem:
         _shift_append(lstate.mems, in_mems, torch.ones_like(utt_valid))

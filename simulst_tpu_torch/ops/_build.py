@@ -1,12 +1,13 @@
 """Build the CUDA kernels of `csrc/` with nvcc and load them with ctypes.
 
 The sources are compiled at first use, on the machine with the card, into
-one shared library with a plain C interface:
+one shared library with a plain C interface: one nvcc per source, all
+started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/libsimulst_kernels_<hash>.so
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c -o _build/<hash>/<source>.o csrc/<source>.cu
 
+then one link, nvcc -shared -o _build/libsimulst_kernels_<hash>.so.
 The file name carries a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the library already built.  nvcc's
 output (with ptxas' register and shared-memory report) is kept beside the
@@ -30,7 +31,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes understood by csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,9 +64,29 @@ SIGNATURES = {
     # causal, dropout, seed, threshold, inv_keep, stream
     "simulst_mha_bwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
+    # dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads, xn, stats, u,
+    # du, g, dn, partial, n_rows, dim, hidden, splits, seed, act site, out
+    # site, stream
+    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 16 + [_I] * 4 + _DROP
+                          + _DROP[1:] + [_P],
     # dtype, q3, k, v, lengths, out, batch, ng, nq, dim, heads, seg, lc, rc,
-    # max_mem, G, tk, rows_per_block, stream
-    "simulst_emformer_attn": [_I] + [_P] * 5 + [_I] * 12 + [_P],
+    # max_mem, G, tk, rows_per_block, dropout, seed, threshold, inv_keep,
+    # stream
+    "simulst_emformer_attn": [_I] + [_P] * 5 + [_I] * 12 + _DROP[1:2]
+                             + _DROP[:1] + _DROP[2:] + [_P],
+    # dtype, q3, k, v, lengths, dout, dq, dk, dv, stats, dk_part, dv_part,
+    # batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk, rows_per_block,
+    # col_chunk, dropout, seed, threshold, inv_keep, stream
+    "simulst_emformer_attn_bwd": [_I] + [_P] * 11 + [_I] * 13 + _DROP[1:2]
+                                 + _DROP[:1] + _DROP[2:] + [_P],
+    # dtype, xp, dy, dw, partial, batch, t_out, taps, dim, groups, splits,
+    # stream
+    "simulst_convpos_wgrad": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+    # em, can_skip, input_lengths, target_lengths, alphas, T, B, S, stream
+    "simulst_ctc_alpha": [_P] * 5 + [_I] * 3 + [_P],
+    # em, alphas, can_skip, input_lengths, target_lengths, scale, nll, d_em,
+    # T, B, S, stream
+    "simulst_ctc_d_em": [_P] * 8 + [_I] * 3 + [_P],
 }
 
 
@@ -96,15 +117,29 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = out.with_suffix("")
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / f"{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-6000:]}")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        logs.append(link.stdout + link.stderr)
+    out.with_suffix(".log").write_text("\n".join(logs))
+    failed = [str(src.name) for src, p in zip(sources, procs)
+              if p.returncode != 0]
+    if failed or link.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {failed or 'the link'}:\n"
+                           + "\n".join(logs)[-6000:])
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
     return out
 
@@ -145,36 +180,12 @@ def dropout_args(rate: float, seed: int):
     return 1, seed & (2 ** 64 - 1), keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Marks the output of a kernel that has no backward kernel yet: autograd
-    reaching it raises instead of silently dropping the gradient."""
-
-    @staticmethod
-    def forward(ctx, name, fn, *args):
-        ctx.name = name
-        return fn(*args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            f"{ctx.name}: its backward kernel is not ported yet (ROADMAP "
-            "Queue 2); a CUDA tensor never differentiates through the plain "
-            "version")
-
-
 def needs_grad(*tensors) -> bool:
     """Whether autograd would record a call on these tensors; when not, the
     wrappers skip their autograd.Function (its host time shows at the
     1-40 row shapes of decoding)."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
-
-
-def forward_only(name: str, fn, *args):
-    """fn(*args) on the card, with a backward that raises."""
-    if not needs_grad(*args):
-        return fn(*args)
-    return _ForwardOnly.apply(name, fn, *args)
 
 
 def check_cuda(name: str, ref: torch.Tensor, **tensors) -> None:

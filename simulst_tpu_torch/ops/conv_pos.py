@@ -1,0 +1,108 @@
+"""The grouped causal conv-pos convolution with its weight gradient as a
+kernel (counterpart of simulst_tpu/ops/conv_pos_pallas.py
+`convpos_wgrad_pallas` and the custom VJP of simulst_tpu/nn/conv.py
+`_grouped_conv_fast_wgrad`).
+
+`grouped_conv_fast_wgrad(xp, w, groups)` is the VALID grouped convolution
+of the left-padded input xp (B, T + K - 1, D) with w (D, D / groups, K),
+torch's conv layout (the JAX package keeps (K, D / groups, D)).  Its
+forward and its input gradient are ordinary convolutions (`F.conv1d`,
+`torch.nn.grad.conv1d_input`), as they are XLA convolutions in the JAX
+package; its weight gradient is `convpos_wgrad`: the CUDA kernel of
+csrc/conv_pos.cu on a CUDA tensor (16 channels per group), the plain
+version `convpos_wgrad_plain` on a CPU tensor.  Both sum in fp32 and
+compute only the block-diagonal part of each tap's product.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from simulst_tpu_torch.ops import _build
+
+CHANNELS_PER_GROUP = 16   # csrc/conv_pos.cu kCg
+BATCH_SPLITS = 8          # batch slices the kernel sums as fp32 partials
+
+
+def convpos_wgrad_plain(xp, dy, taps: int, groups: int):
+    """dw (D, D / groups, K) fp32 with dw[o, ci, k] = sum over (b, t) of
+    xp[b, t + k, group(o) * cg + ci] * dy[b, t, o]."""
+    b, t_in, d = xp.shape
+    t = dy.shape[1]
+    cg = d // groups
+    x = xp.float().reshape(b, t_in, groups, cg)
+    g = dy.float().reshape(b * t, groups, cg)
+    dw = torch.empty(d, cg, taps, dtype=torch.float32, device=xp.device)
+    for k in range(taps):
+        xk = x[:, k:k + t].reshape(b * t, groups, cg)
+        dw[:, :, k] = torch.einsum("ngc,ngo->goc", xk, g).reshape(d, cg)
+    return dw
+
+
+def _launch(xp, dy, taps: int, groups: int):
+    b, t_in, d = xp.shape
+    t = dy.shape[1]
+    if d != groups * CHANNELS_PER_GROUP or dy.shape != (b, t, d) or \
+            t_in != t + taps - 1:
+        raise ValueError(
+            f"convpos_wgrad: kernel takes {CHANNELS_PER_GROUP} channels per "
+            f"group and xp (B, T + K - 1, D), dy (B, T, D); got xp "
+            f"{tuple(xp.shape)}, dy {tuple(dy.shape)}, {taps} taps, "
+            f"{groups} groups")
+    xp, dy = xp.contiguous(), dy.contiguous()
+    _build.check_cuda("convpos_wgrad", xp, dy=dy)
+    f32 = dict(dtype=torch.float32, device=xp.device)
+    splits = min(BATCH_SPLITS, b)
+    splits = -(-b // -(-b // splits))        # the slices the kernel forms
+    dw = torch.empty(d, CHANNELS_PER_GROUP, taps, **f32)
+    partial = torch.empty(splits, taps, CHANNELS_PER_GROUP, d, **f32)
+    _build.launch("simulst_convpos_wgrad", _build.dtype_code(xp),
+                  xp.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                  partial.data_ptr(), b, t, taps, d, groups, splits,
+                  _build.stream_of(xp))
+    convpos_wgrad.launches += 1
+    return dw
+
+
+def convpos_wgrad(xp, dy, taps: int, groups: int):
+    """Weight gradient (D, D / groups, K) fp32 of the grouped conv of xp
+    (B, T + K - 1, D) for output gradient dy (B, T, D): the CUDA kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    if xp.device.type == "cpu":
+        return convpos_wgrad_plain(xp, dy, taps, groups)
+    return _launch(xp, dy, taps, groups)
+
+
+def _conv(xp, w, groups):
+    return F.conv1d(xp.transpose(1, 2), w, groups=groups).transpose(1, 2)
+
+
+class _GroupedConvFastWgrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, w, groups):
+        ctx.save_for_backward(xp, w)
+        ctx.groups = groups
+        return _conv(xp, w, groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xp, w = ctx.saved_tensors
+        dxp = dw = None
+        if ctx.needs_input_grad[0]:
+            dxp = torch.nn.grad.conv1d_input(
+                xp.transpose(1, 2).shape, w, dy.transpose(1, 2),
+                groups=ctx.groups).transpose(1, 2)
+        if ctx.needs_input_grad[1]:
+            dw = convpos_wgrad(xp, dy, w.shape[-1], ctx.groups).to(w.dtype)
+        return dxp, dw, None
+
+
+def grouped_conv_fast_wgrad(xp, w, groups: int):
+    """VALID grouped conv, xp (B, T + K - 1, D), w (D, D / groups, K) ->
+    (B, T, D); its weight gradient is `convpos_wgrad`."""
+    if not _build.needs_grad(xp, w):
+        return _conv(xp, w, groups)
+    return _GroupedConvFastWgrad.apply(xp, w, groups)
+
+
+convpos_wgrad.launches = 0

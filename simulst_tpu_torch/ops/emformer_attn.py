@@ -1,15 +1,18 @@
 """Grouped-segment Emformer attention core (counterpart of
 simulst_tpu/ops/emformer_attn_pallas.py `emformer_grouped_attention`,
-forward at dropout 0, without the sequence-packing id gate).
+forward and backward with attention dropout, without the sequence-packing
+id gate).
 
 q3: (B, ng, nq, D) projected queries, rows [G rc blocks | G segments |
 G summaries] per group; k/v: (B, Tk, D) projected rows of [mems (n-1) |
 rc blocks (n*rc) | utterance (U)] at their exact Tk; lengths (B,) int32.
-Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernel
-csrc/emformer_attn.cu runs, forward only: its backward kernel is ROADMAP
-Queue 2, and autograd reaching the kernel's output raises.  On a CPU tensor
-`grouped_attention_plain`, the gathered-context formulation of
-nn/emformer.py `_grouped_attention`.
+Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
+csrc/emformer_attn.cu run; on a CPU tensor `grouped_attention_plain` and
+`grouped_attention_plain_backward`, the gathered-context formulation of
+nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
+ops/philox.py's mask, stream 0, at the row-major offset of each element of
+the (B, ng, heads, nq, ctx) probabilities in the gathered-context layout
+(`group_gather_indices`), keyed by the call's seed.
 """
 from __future__ import annotations
 
@@ -21,9 +24,11 @@ import torch
 
 from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
+from simulst_tpu_torch.ops.philox import drop_scale
 
 HEAD_DIM = 64            # csrc/emformer_attn.cu kHeadDim
 MAX_ROWS_PER_BLOCK = 64  # query rows one block takes (grid.y splits nq)
+MAX_COLS_PER_BLOCK = 120  # context columns one backward dk/dv block takes
 
 
 class AttnGeom(NamedTuple):
@@ -114,9 +119,10 @@ def group_gather_indices(U: int, seg: int, lc: int, rc: int, max_mem: int,
     return idx, valid, utt_col, allowed
 
 
-def grouped_attention_plain(q3, k, v, lengths, geom: AttnGeom):
-    """Gather each group's context, mask, fp32 softmax, probs rounded to the
-    activation dtype, then P @ V (the kernel's rounding points)."""
+def _context(q3, k, v, lengths, geom: AttnGeom):
+    """Per-head fp32 queries (B, ng, h, nq, hd), gathered keys and values
+    (B, ng, h, ctx, hd), the visibility (B, ng, 1, nq, ctx) and the gather
+    indices (ng, ctx)."""
     b, ng, nq, d = q3.shape
     h = geom.num_heads
     hd = d // h
@@ -131,46 +137,169 @@ def grouped_attention_plain(q3, k, v, lengths, geom: AttnGeom):
     in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
     key_valid = valid[None] & in_len                              # (B,ng,ctx)
     visible = key_valid[:, :, None, None, :] & allowed[None, None, None]
-    qh = q3.float().reshape(b, ng, nq, h, hd).transpose(2, 3)     # (B,ng,h,nq,hd)
-    kh = k_ctx.float().permute(0, 1, 3, 4, 2)                     # (B,ng,h,hd,ctx)
-    vh = v_ctx.float().transpose(2, 3)                            # (B,ng,h,ctx,hd)
-    scores = (qh @ kh) * (hd ** -0.5)
-    probs = masked_softmax(scores, visible).to(q3.dtype).float()
-    out = (probs @ vh).transpose(2, 3).reshape(b, ng, nq, d)
-    return out.to(q3.dtype)
+    qh = q3.float().reshape(b, ng, nq, h, hd).transpose(2, 3)
+    return (qh, k_ctx.float().transpose(2, 3), v_ctx.float().transpose(2, 3),
+            visible, idx)
 
 
-def emformer_grouped_attention(q3, k, v, lengths, geom: AttnGeom):
-    if q3.device.type == "cpu":
-        return grouped_attention_plain(q3, k, v, lengths, geom)
-    return _build.forward_only("emformer_grouped_attention", _launch, q3, k, v,
-                               lengths, geom)
+def _probs(qh, kh, visible, rate, seed):
+    """fp32 probabilities (B, ng, h, nq, ctx) and the dropout multiplier (or
+    None at rate 0), offsets row-major over that shape."""
+    scores = (qh @ kh.transpose(-1, -2)) * (qh.shape[-1] ** -0.5)
+    p = masked_softmax(scores, visible)
+    mult = drop_scale(seed, p.shape, rate, 0, p.device) if rate > 0.0 else None
+    return p, mult
 
 
-def _launch(q3, k, v, lengths, geom: AttnGeom):
+def _merge(x):
+    """(B, ng, h, rows, hd) -> (B, ng, rows, h * hd)."""
+    b, ng, h, rows, hd = x.shape
+    return x.transpose(2, 3).reshape(b, ng, rows, h * hd)
+
+
+def grouped_attention_plain(q3, k, v, lengths, geom: AttnGeom,
+                            rate: float = 0.0, seed: int = 0):
+    """Gather each group's context, mask, fp32 softmax, dropout, probs
+    rounded to the activation dtype, then P @ V (the kernel's rounding
+    points)."""
+    qh, kh, vh, visible, _ = _context(q3, k, v, lengths, geom)
+    p, mult = _probs(qh, kh, visible, rate, seed)
+    pd = (p if mult is None else p * mult).to(q3.dtype).float()
+    return _merge(pd @ vh).to(q3.dtype)
+
+
+def grouped_attention_plain_backward(q3, k, v, lengths, dout, geom: AttnGeom,
+                                     rate: float = 0.0, seed: int = 0):
+    """(dq, dk, dv) with the probabilities and the mask recomputed, as
+    emformer_attn_pallas._bwd_kernel; dk and dv are the context gradients
+    summed into their key rows in fp32."""
+    dtype = q3.dtype
+    b, ng, nq, d = q3.shape
+    qh, kh, vh, visible, idx = _context(q3, k, v, lengths, geom)
+    p, mult = _probs(qh, kh, visible, rate, seed)
+    pd = (p if mult is None else p * mult).to(dtype).float()
+    do = dout.float().reshape(b, ng, nq, geom.num_heads, -1).transpose(2, 3)
+    dv_ctx = pd.transpose(-1, -2) @ do
+    dp = do @ vh.transpose(-1, -2)
+    if mult is not None:
+        dp = dp * mult
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * (qh.shape[-1] ** -0.5)).to(dtype).float()
+    dq = _merge(ds @ kh).to(dtype)
+    dk_ctx = ds.transpose(-1, -2) @ qh
+
+    def to_rows(g_ctx):
+        rows = torch.zeros(b, k.shape[1], d, dtype=torch.float32,
+                           device=q3.device)
+        rows.index_add_(1, idx.reshape(-1), _merge(g_ctx).reshape(b, -1, d))
+        return rows.to(dtype)
+
+    return dq, to_rows(dk_ctx), to_rows(dv_ctx)
+
+
+def _check(name, q3, k, v, lengths, geom: AttnGeom):
     b, ng, nq, d = q3.shape
     if (ng, nq) != (geom.ng, geom.nq) or d != geom.num_heads * HEAD_DIM \
             or geom.rc <= 0 or k.shape != (b, geom.tk, d) \
             or v.shape != k.shape or lengths.shape != (b,):
         raise ValueError(
-            f"emformer_grouped_attention: kernel takes head dim {HEAD_DIM}, "
-            f"rc > 0 and exact shapes; got q3 {tuple(q3.shape)}, k "
-            f"{tuple(k.shape)}, lengths {tuple(lengths.shape)} for {geom}")
+            f"{name}: kernel takes head dim {HEAD_DIM}, rc > 0 and exact "
+            f"shapes; got q3 {tuple(q3.shape)}, k {tuple(k.shape)}, lengths "
+            f"{tuple(lengths.shape)} for {geom}")
     if lengths.dtype != torch.int32 or lengths.device != q3.device:
-        raise TypeError("emformer_grouped_attention: lengths must be an int32 "
-                        f"tensor on {q3.device}")
-    q3, k, v = q3.contiguous(), k.contiguous(), v.contiguous()
-    lengths = lengths.contiguous()
+        raise TypeError(f"{name}: lengths must be an int32 tensor on "
+                        f"{q3.device}")
+
+
+def _geom_args(q3, geom: AttnGeom):
+    b, ng, nq, d = q3.shape
+    return (b, ng, nq, d, geom.num_heads, geom.seg, geom.lc, geom.rc,
+            geom.max_mem, geom.G, geom.tk, -(-nq // -(-nq // MAX_ROWS_PER_BLOCK)))
+
+
+def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed):
+    _check("emformer_grouped_attention", q3, k, v, lengths, geom)
+    q3, k, v, lengths = (t.contiguous() for t in (q3, k, v, lengths))
     _build.check_cuda("emformer_grouped_attention", q3, k=k, v=v)
     out = torch.empty_like(q3)
-    chunks = -(-nq // MAX_ROWS_PER_BLOCK)
     _build.launch("simulst_emformer_attn", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), b, ng, nq, d,
-                  geom.num_heads, geom.seg, geom.lc, geom.rc, geom.max_mem,
-                  geom.G, geom.tk, -(-nq // chunks), _build.stream_of(q3))
+                  lengths.data_ptr(), out.data_ptr(), *_geom_args(q3, geom),
+                  *_build.dropout_args(rate, seed), _build.stream_of(q3))
     emformer_grouped_attention.launches += 1
     return out
 
 
+def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed):
+    name = "emformer_grouped_attention_backward"
+    _check(name, q3, k, v, lengths, geom)
+    q3, k, v, lengths, dout = (t.contiguous() for t in
+                               (q3, k, v, lengths, dout))
+    _build.check_cuda(name, q3, k=k, v=v, dout=dout)
+    b, ng, nq, d = q3.shape
+    f32 = dict(dtype=torch.float32, device=q3.device)
+    dq, dk, dv = (torch.empty_like(t) for t in (q3, k, v))
+    stats = torch.empty(b, ng, geom.num_heads, nq, 2, **f32)
+    dk_part, dv_part = (torch.empty(b, ng, geom.ctx, d, **f32)
+                        for _ in range(2))
+    col_chunk = -(-geom.ctx // -(-geom.ctx // MAX_COLS_PER_BLOCK))
+    _build.launch("simulst_emformer_attn_bwd", _build.dtype_code(q3),
+                  q3.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  lengths.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                  dk_part.data_ptr(), dv_part.data_ptr(),
+                  *_geom_args(q3, geom), col_chunk,
+                  *_build.dropout_args(rate, seed), _build.stream_of(q3))
+    emformer_grouped_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+def emformer_grouped_attention_forward(q3, k, v, lengths, geom: AttnGeom,
+                                       rate: float = 0.0, seed: int = 0):
+    """The output without autograd: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if q3.device.type == "cpu":
+        return grouped_attention_plain(q3, k, v, lengths, geom, rate, seed)
+    return _launch(q3, k, v, lengths, geom, rate, seed)
+
+
+def emformer_grouped_attention_backward(q3, k, v, lengths, dout,
+                                        geom: AttnGeom, rate: float = 0.0,
+                                        seed: int = 0):
+    """(dq, dk, dv) for upstream gradient dout: the CUDA kernels on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if q3.device.type == "cpu":
+        return grouped_attention_plain_backward(q3, k, v, lengths, dout, geom,
+                                                rate, seed)
+    return _launch_backward(q3, k, v, lengths, dout, geom, rate, seed)
+
+
+class _GroupedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q3, k, v, lengths, geom, rate, seed):
+        ctx.save_for_backward(q3, k, v, lengths)
+        ctx.config = (geom, rate, seed)
+        return emformer_grouped_attention_forward(q3, k, v, lengths, geom,
+                                                  rate, seed)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q3, k, v, lengths = ctx.saved_tensors
+        dq, dk, dv = emformer_grouped_attention_backward(
+            q3, k, v, lengths, dout, *ctx.config)
+        return dq, dk, dv, None, None, None, None
+
+
+def emformer_grouped_attention(q3, k, v, lengths, geom: AttnGeom,
+                               rate: float = 0.0, seed: int = 0):
+    """Differentiable in q3, k and v (the backward is
+    `emformer_grouped_attention_backward`); seed keys the dropout mask on
+    the probabilities (ignored at rate 0)."""
+    if not _build.needs_grad(q3, k, v):
+        return emformer_grouped_attention_forward(q3, k, v, lengths, geom,
+                                                  rate, seed)
+    return _GroupedAttention.apply(q3, k, v, lengths, geom, rate, seed)
+
+
 emformer_grouped_attention.launches = 0
+emformer_grouped_attention_backward.launches = 0

@@ -1,22 +1,24 @@
 """Fused FFN blocks (counterpart of simulst_tpu/ops/ffn_pallas.py).
 
-  fused_ln_ffn_res: y = x + fc2(gelu(fc1(LN(x))))   the Emformer pos_ff block
-                    (forward only: its backward kernel is ROADMAP Queue 2)
-  fused_ffn:        y = drop_o(fc2(drop_a(act(fc1(x)))))   the decoder FFN,
-                    relu or gelu, forward and backward
+  fused_ln_ffn_res: y = x + drop_o(fc2(drop_a(act(fc1(LN(x))))))   the
+                    Emformer pos_ff block
+  fused_ffn:        y = drop_o(fc2(drop_a(act(fc1(x)))))   the decoder FFN
 
-Both run the CUDA kernels of csrc/ffn.cu on a CUDA tensor, at any row
-count, and their plain PyTorch versions (`ln_ffn_res_plain`, `ffn_plain`,
-`ffn_plain_backward`) on a CPU tensor.  GELU is the exact erf form.
-Weights keep the JAX layout: w1 (D, H), w2 (H, D).  The plain versions
-round to the activation dtype where the kernel does (fc1 input, hidden,
-the gradients the JAX kernel casts), so bf16 compares like with like; in
-fp32 they are the JAX package's ln_ffn_res_reference and ffn_reference
-at dropout 0.  Dropout masks come from ops/philox.py: the hidden site is
-stream 0 at offset row * H + column, the output site stream 1 at row * D
-+ column, both keyed by the call's seed, so the plain version, the kernel
-and the backward all drop the same elements.  The plain backward mirrors
-the JAX `_bwd_kernel` formulas, not autograd.
+Both take relu or gelu and both dropout sites, forward and backward.  Both
+run the CUDA kernels of csrc/ffn.cu on a CUDA tensor, at any row count,
+and their plain PyTorch versions (`ln_ffn_res_plain`,
+`ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`) on a CPU
+tensor.  GELU is the exact erf form.  Weights keep the JAX layout: w1 (D,
+H), w2 (H, D).  The plain versions round to the activation dtype where the
+kernel does (fc1 input, hidden, the gradients the JAX kernel casts), so
+bf16 compares like with like; in fp32 they are the JAX package's
+ln_ffn_res_reference and ffn_reference at dropout 0.  LN statistics and the
+residual are fp32, eps 1e-5.  Dropout masks come from ops/philox.py: the
+hidden site is stream 0 at offset row * H + column, the output site stream
+1 at row * D + column, both keyed by the call's seed, so the plain version,
+the kernel and the backward all drop the same elements.  The plain
+backwards mirror the JAX `_bwd_kernel` / `_ln_ffn_bwd_kernel` formulas,
+not autograd.
 """
 from __future__ import annotations
 
@@ -74,21 +76,19 @@ def ffn_plain(x, w1, b1, w2, b2, activation="gelu", act_rate=0.0,
     return y.to(x.dtype).reshape(*x.shape[:-1], w2.shape[1])
 
 
-def ffn_plain_backward(x, w1, b1, w2, dy, activation="gelu", act_rate=0.0,
-                       out_rate=0.0, seed=0):
-    """(dx, dw1, db1, dw2, db2) of ffn_plain, the weight gradients in fp32:
-    the hidden and both masks recomputed, as ffn_pallas._bwd_kernel."""
-    _check_activation(activation)
+def _ffn_grads(x2, w1, b1, w2, dy2, activation, act_rate, out_rate, seed):
+    """(d x2 in fp32, dw1, db1, dw2, db2) of drop_o(fc2(drop_a(act(fc1
+    x2)))) on (rows, D) input: the hidden and both masks recomputed, as
+    ffn_pallas._bwd_kernel; d x2 is not rounded."""
     d, hidden = w1.shape
-    dtype, dev = x.dtype, x.device
-    x2 = x.reshape(-1, d)
+    dtype, dev = x2.dtype, x2.device
     n = x2.shape[0]
     u = x2.float() @ w1.float() + b1.float()
     h = _act(activation, u)
     mask_a = (drop_scale(seed, (n, hidden), act_rate, 0, dev)
               if act_rate > 0.0 else None)
     h_d = (h if mask_a is None else h * mask_a).to(dtype).float()
-    g = dy.reshape(-1, d).float()
+    g = dy2.float()
     if out_rate > 0.0:
         g = g * drop_scale(seed, (n, d), out_rate, 1, dev)
     g = g.to(dtype).float()
@@ -96,16 +96,58 @@ def ffn_plain_backward(x, w1, b1, w2, dy, activation="gelu", act_rate=0.0,
     if mask_a is not None:
         du = du * mask_a
     du = du.to(dtype).float()
-    dx = (du @ w1.float().T).to(dtype).reshape(x.shape)
-    return dx, x2.float().T @ du, du.sum(0), h_d.T @ g, g.sum(0)
+    return du @ w1.float().T, x2.float().T @ du, du.sum(0), h_d.T @ g, \
+        g.sum(0)
 
 
-def ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
-    normed = (xf - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()
-    return (_ffn_f32(normed.to(x.dtype), w1, b1, w2, b2) + xf).to(x.dtype)
+def ffn_plain_backward(x, w1, b1, w2, dy, activation="gelu", act_rate=0.0,
+                       out_rate=0.0, seed=0):
+    """(dx, dw1, db1, dw2, db2) of ffn_plain, the weight gradients in fp32:
+    the hidden and both masks recomputed, as ffn_pallas._bwd_kernel."""
+    _check_activation(activation)
+    d = w1.shape[0]
+    dx, *grads = _ffn_grads(x.reshape(-1, d), w1, b1, w2, dy.reshape(-1, d),
+                            activation, act_rate, out_rate, seed)
+    return (dx.to(x.dtype).reshape(x.shape), *grads)
+
+
+def _layer_norm_f32(x2, ln_g, ln_b, eps: float = 1e-5):
+    """(normed, xhat, 1/sigma) of (rows, D) input, all fp32."""
+    xf = x2.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * inv
+    return xhat * ln_g.float() + ln_b.float(), xhat, inv
+
+
+def ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
+                     act_rate=0.0, out_rate=0.0, seed=0):
+    _check_activation(activation)
+    x2 = x.reshape(-1, x.shape[-1])
+    normed, _, _ = _layer_norm_f32(x2, ln_g, ln_b)
+    y = _ffn_f32(normed.to(x.dtype), w1, b1, w2, b2, activation, act_rate,
+                 out_rate, seed) + x2.float()
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def ln_ffn_res_plain_backward(x, ln_g, ln_b, w1, b1, w2, dy,
+                              activation="gelu", act_rate=0.0, out_rate=0.0,
+                              seed=0):
+    """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of ln_ffn_res_plain, all but
+    dx in fp32, as ffn_pallas._ln_ffn_bwd_kernel: LN and the hidden
+    recomputed, dx = LN-backward(dnormed) + dy."""
+    _check_activation(activation)
+    d = w1.shape[0]
+    x2, dy2 = x.reshape(-1, d), dy.reshape(-1, d)
+    normed, xhat, inv = _layer_norm_f32(x2, ln_g, ln_b)
+    dn, *grads = _ffn_grads(normed.to(x.dtype), w1, b1, w2, dy2, activation,
+                            act_rate, out_rate, seed)
+    gg = dn * ln_g.float()
+    m1 = gg.mean(dim=-1, keepdim=True)
+    m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+    dx = inv * (gg - m1 - xhat * m2) + dy2.float()
+    return (dx.to(x.dtype).reshape(x.shape), (dn * xhat).sum(0), dn.sum(0),
+            *grads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -209,13 +251,99 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     return dx.reshape(x.shape), dw1, db1, dw2, db2
 
 
-def fused_ln_ffn_res(x, ln_g, ln_b, w1, b1, w2, b2):
-    """y = x + fc2(gelu(fc1(LN(x)))); x (..., D).  LN and the residual in
-    fp32, eps 1e-5."""
+def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
+                        out_rate, seed):
+    name = "fused_ln_ffn_res_backward"
+    d, hidden = _check_shapes(name, x, w1, w2)
+    x2 = x.reshape(-1, d).contiguous()
+    dy2 = dy.reshape(-1, d).contiguous()
+    _build.check_cuda(name, x2, ln_g=ln_g, ln_b=ln_b, w1=w1, b1=b1, w2=w2,
+                      dy=dy2)
+    n = x2.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    o_dw2, o_db1 = d * hidden, 2 * d * hidden
+    o_db2 = o_db1 + hidden
+    grads = torch.zeros(o_db2 + 3 * d, **f32)
+    dx = torch.zeros_like(x2)
+    if n:
+        tiles = -(-d // GEMM_TILE) * -(-hidden // GEMM_TILE)
+        splits = k_splits(n, tiles, x.device)
+        xn, g, dn = (torch.empty(n, d, **f32) for _ in range(3))
+        u, du = (torch.empty(n, hidden, **f32) for _ in range(2))
+        stats = torch.empty(n, 2, **f32)
+        partial = torch.zeros(splits, grads.numel(), **f32)
+        _build.launch(
+            "simulst_ln_ffn_bwd", _build.dtype_code(x2),
+            ACTIVATION_CODES[activation], x2.data_ptr(), ln_g.data_ptr(),
+            ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), xn.data_ptr(),
+            stats.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
+            dn.data_ptr(), partial.data_ptr(), n, d, hidden, splits,
+            *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
+        fused_ln_ffn_res_backward.launches += 1
+    return (dx.reshape(x.shape), grads[o_db2 + d:o_db2 + 2 * d],
+            grads[o_db2 + 2 * d:], grads[:o_dw2].view(d, hidden),
+            grads[o_db1:o_db2], grads[o_dw2:o_db1].view(hidden, d),
+            grads[o_db2:o_db2 + d])
+
+
+def fused_ln_ffn_res_forward(x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
+                             act_rate=0.0, out_rate=0.0, seed=0):
+    """fused_ln_ffn_res's output without autograd: the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2)
-    return _build.forward_only("fused_ln_ffn_res", _launch, True, x, ln_g,
-                               ln_b, w1, b1, w2, b2)
+        return ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2, activation,
+                                act_rate, out_rate, seed)
+    return _launch(True, x, ln_g, ln_b, w1, b1, w2, b2, activation, act_rate,
+                   out_rate, seed)
+
+
+def fused_ln_ffn_res_backward(x, ln_g, ln_b, w1, b1, w2, dy,
+                              activation="gelu", act_rate=0.0, out_rate=0.0,
+                              seed=0):
+    """(dx, dgamma, dbeta, dw1, db1, dw2, db2) of fused_ln_ffn_res for
+    upstream gradient dy; all but dx in fp32.  The CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return ln_ffn_res_plain_backward(x, ln_g, ln_b, w1, b1, w2, dy,
+                                         activation, act_rate, out_rate, seed)
+    _check_activation(activation)
+    return _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation,
+                               act_rate, out_rate, seed)
+
+
+class _FusedLNFFNRes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_g, ln_b, w1, b1, w2, b2, activation, act_rate,
+                out_rate, seed):
+        ctx.save_for_backward(x, ln_g, ln_b, w1, b1, w2)
+        ctx.config = (activation, act_rate, out_rate, seed)
+        ctx.b2_dtype = b2.dtype
+        return fused_ln_ffn_res_forward(x, ln_g, ln_b, w1, b1, w2, b2,
+                                        activation, act_rate, out_rate, seed)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ln_g, ln_b, w1, b1, w2 = ctx.saved_tensors
+        dx, dg, dbe, dw1, db1, dw2, db2 = fused_ln_ffn_res_backward(
+            x, ln_g, ln_b, w1, b1, w2, dy, *ctx.config)
+        return (dx, dg.to(ln_g.dtype), dbe.to(ln_b.dtype), dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
+                None, None, None, None)
+
+
+def fused_ln_ffn_res(x, ln_g, ln_b, w1, b1, w2, b2, activation: str = "gelu",
+                     act_rate: float = 0.0, out_rate: float = 0.0,
+                     seed: int = 0):
+    """y = x + drop_o(fc2(drop_a(act(fc1(LN(x)))))); x (..., D).
+    Differentiable: the backward is `fused_ln_ffn_res_backward`.  seed keys
+    both dropout masks (ignored at rate 0)."""
+    _check_activation(activation)
+    if not _build.needs_grad(x, ln_g, ln_b, w1, b1, w2, b2):
+        return fused_ln_ffn_res_forward(x, ln_g, ln_b, w1, b1, w2, b2,
+                                        activation, act_rate, out_rate, seed)
+    return _FusedLNFFNRes.apply(x, ln_g, ln_b, w1, b1, w2, b2, activation,
+                                act_rate, out_rate, seed)
 
 
 def fused_ffn_forward(x, w1, b1, w2, b2, activation="gelu", act_rate=0.0,
@@ -274,5 +402,6 @@ def fused_ffn(x, w1, b1, w2, b2, activation: str = "gelu",
 
 
 fused_ln_ffn_res.launches = 0
+fused_ln_ffn_res_backward.launches = 0
 fused_ffn.launches = 0
 fused_ffn_backward.launches = 0

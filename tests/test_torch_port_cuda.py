@@ -9,18 +9,21 @@ row counts and lengths; tolerance atol 1e-4, rtol 1e-4 on outputs and
 activation gradients, and 1e-4 of the largest entry on weight gradients:
 the kernels and the plain versions differ only in the order of the fp32
 sums.  Dropout cases run at rate 0.1 with one seed on both sides, which
-then draw the same Philox mask.
+then draw the same Philox mask.  The CTC alphas and d_em hold their finite
+entries to atol 1e-4 and their -1e30 sentinels exactly.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from simulst_tpu_torch.ops.emformer_attn import (AttnGeom,  # noqa: E402
-                                                 emformer_grouped_attention,
-                                                 grouped_attention_plain)
-from simulst_tpu_torch.ops.ffn import (ffn_plain, ffn_plain_backward,  # noqa: E402
-                                       fused_ffn, fused_ffn_backward,
-                                       fused_ln_ffn_res, ln_ffn_res_plain)
+from simulst_tpu_torch.ops import conv_pos, ctc  # noqa: E402
+from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
+    AttnGeom, emformer_grouped_attention, emformer_grouped_attention_backward,
+    grouped_attention_plain, grouped_attention_plain_backward)
+from simulst_tpu_torch.ops.ffn import (  # noqa: E402
+    ffn_plain, ffn_plain_backward, fused_ffn, fused_ffn_backward,
+    fused_ln_ffn_res, fused_ln_ffn_res_backward, ln_ffn_res_plain,
+    ln_ffn_res_plain_backward)
 from simulst_tpu_torch.ops.linear_res import (  # noqa: E402
     fused_linear_res, fused_linear_res_backward, linear_res_plain,
     linear_res_plain_backward)
@@ -157,11 +160,113 @@ def test_linear_res_backward_matches_plain(randn, period, res_rows, rate):
 
 
 @pytest.mark.cuda
-def test_forward_only_kernels_refuse_autograd(randn):
-    x = randn(40, 256).requires_grad_()
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["relu", "gelu"])
+@pytest.mark.parametrize("rows", [1, 300])
+def test_ln_ffn_backward_matches_plain(randn, rows, activation, rate):
+    x, dy = randn(rows, 256), randn(rows, 256)
     g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
     w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
     w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
-    y = fused_ln_ffn_res(x, g, b, w1, b1, w2, b2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        y.sum().backward()
+    cfg = (activation, rate, rate, 55)
+    before = fused_ln_ffn_res_backward.launches
+    torch.testing.assert_close(
+        fused_ln_ffn_res(x, g, b, w1, b1, w2, b2, *cfg),
+        ln_ffn_res_plain(x, g, b, w1, b1, w2, b2, *cfg), **TOL)
+    got = fused_ln_ffn_res_backward(x, g, b, w1, b1, w2, dy, *cfg)
+    want = ln_ffn_res_plain_backward(x, g, b, w1, b1, w2, dy, *cfg)
+    assert fused_ln_ffn_res_backward.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for gw, w in zip(got[1:], want[1:]):
+        _close_to_largest(gw, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("U,G", [(256, 8), (128, 4)])
+def test_grouped_attention_backward_matches_plain(randn, U, G, rate):
+    geom = AttnGeom(U=U, seg=16, lc=32, rc=8, max_mem=5, G=G, num_heads=4)
+    q3, dout = (randn(3, geom.ng, geom.nq, 256) for _ in range(2))
+    k, v = randn(3, geom.tk, 256), randn(3, geom.tk, 256)
+    lengths = torch.tensor([U, U - 37, 5], dtype=torch.int32, device="cuda")
+    args = (q3, k, v, lengths)
+    torch.testing.assert_close(
+        emformer_grouped_attention(*args, geom, rate, 21),
+        grouped_attention_plain(*args, geom, rate, 21), **TOL)
+    got = emformer_grouped_attention_backward(*args, dout, geom, rate, 21)
+    want = grouped_attention_plain_backward(*args, dout, geom, rate, 21)
+    for gw, w in zip(got, want):
+        torch.testing.assert_close(gw, w, **TOL)
+
+
+@pytest.mark.cuda
+def test_ln_ffn_and_grouped_attention_take_bf16(randn):
+    """bf16 in, fp32 sums; tolerance atol 3e-2, rtol 1e-2 on outputs and
+    activation gradients (a flip of the last bf16 rounding is 2^-8
+    relative), 1e-2 of the largest entry on weight gradients."""
+    bf = torch.bfloat16
+    x, dy = randn(300, 256).to(bf), randn(300, 256).to(bf)
+    ws = [(1 + randn(256, scale=0.1)), randn(256, scale=0.1),
+          randn(256, 2048, scale=0.03), randn(2048, scale=0.02),
+          randn(2048, 256, scale=0.03), randn(256, scale=0.02)]
+    ws = [w.to(bf) for w in ws]
+    cfg = ("gelu", 0.1, 0.1, 3)
+    torch.testing.assert_close(fused_ln_ffn_res(x, *ws, *cfg),
+                               ln_ffn_res_plain(x, *ws, *cfg),
+                               atol=3e-2, rtol=1e-2)
+    got = fused_ln_ffn_res_backward(x, *ws[:5], dy, *cfg)
+    want = ln_ffn_res_plain_backward(x, *ws[:5], dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], atol=3e-2, rtol=1e-2)
+    for gw, w in zip(got[1:], want[1:]):
+        _close_to_largest(gw, w, 1e-2)
+    geom = AttnGeom(U=128, seg=16, lc=32, rc=8, max_mem=5, G=4, num_heads=4)
+    q3, dout = (randn(2, geom.ng, geom.nq, 256).to(bf) for _ in range(2))
+    k, v = (randn(2, geom.tk, 256).to(bf) for _ in range(2))
+    lengths = torch.tensor([128, 90], dtype=torch.int32, device="cuda")
+    torch.testing.assert_close(
+        emformer_grouped_attention(q3, k, v, lengths, geom, 0.1, 8),
+        grouped_attention_plain(q3, k, v, lengths, geom, 0.1, 8),
+        atol=3e-2, rtol=1e-2)
+    for gw, w in zip(
+            emformer_grouped_attention_backward(q3, k, v, lengths, dout, geom,
+                                                0.1, 8),
+            grouped_attention_plain_backward(q3, k, v, lengths, dout, geom,
+                                             0.1, 8)):
+        torch.testing.assert_close(gw, w, atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,frames", [(3, 50), (32, 256)])
+def test_convpos_wgrad_matches_plain(randn, batch, frames):
+    xp, dy = randn(batch, frames + 63, 256), randn(batch, frames, 256)
+    before = conv_pos.convpos_wgrad.launches
+    got = conv_pos.convpos_wgrad(xp, dy, 64, 16)
+    assert conv_pos.convpos_wgrad.launches == before + 1
+    assert got.shape == (256, 16, 64)
+    _close_to_largest(got, conv_pos.convpos_wgrad_plain(xp, dy, 64, 16))
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_match_plain(randn):
+    """Alphas and d_em at T 60, B 4, S 2L+1 = 17, with an example whose
+    target cannot fit its frames (zero_infinity) and frames past the
+    input length."""
+    t, b, L = 60, 4, 8
+    em = torch.log_softmax(randn(t, b, 2 * L + 1), dim=-1)
+    g = torch.Generator().manual_seed(1)
+    targets = torch.randint(3, 9, (b, L), generator=g).cuda()
+    targets[1, 3] = targets[1, 2]
+    _, can_skip = ctc._ctc_masks(targets, 0)
+    il = torch.tensor([60, 41, 5, 60], device="cuda")
+    tl = torch.tensor([8, 5, 8, 0], device="cuda")   # example 2: impossible
+    got = ctc.ctc_alphas(em, can_skip, il, tl)
+    want = ctc.alphas_plain(em, can_skip, il, tl)
+    sentinel = want <= ctc.NEG / 2
+    assert torch.equal(got <= ctc.NEG / 2, sentinel)
+    torch.testing.assert_close(got[~sentinel], want[~sentinel], **TOL)
+    nll = ctc._nll_from_alpha(want[-1], tl)
+    scale = torch.tensor([-1.0, -0.5, 0.0, -2.0], device="cuda")
+    got = ctc.ctc_d_em(em, want, can_skip, il, tl, scale, nll)
+    torch.testing.assert_close(got, ctc.d_em_plain(em, want, can_skip, il, tl,
+                                                   scale, nll), **TOL)
+    assert not got[5:, 2].any() and not got[41:, 1].any()
