@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the simulst_tpu_torch port on one NVIDIA GPU: the
-s2t_emformer serving slice, the MT-teacher training slice and the
-s2t_emformer joint-CTC training slice.
+s2t_emformer serving slice, the MT-teacher training slice, the
+s2t_emformer joint-CTC training slice and the MMA slice (training as
+exp/2_mma.sh from that encoder, and its streaming READ/WRITE step).
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -10,9 +11,11 @@ subsampler 80 -> 1024 -> 2x256, 12 x 256-dim Emformer with 4 heads and FFN
 memory slots, 6-layer decoder, vocab 4100) on seeded synthetic audio, and
 training at transformer_small width (MTConfig(): 256-d, 4 heads, 6 + 6
 layers, FFN 2048 relu, vocab 8000, dropout 0.1) on seeded token batches,
-and ASR training of the full s2t_emformer_s with its CTC head (dropout,
+ASR training of the full s2t_emformer_s with its CTC head (dropout,
 attention and activation dropout 0.1, SpecAugment) on seeded synthetic
-audio:
+audio, and MMA training of MMAConfig() at full width (s2t_emformer_s
+encoder, 6-layer monotonic decoder, infinite lookback with fixed
+pre-decision ratio 8, mass preservation, DAL latency loss weight 0.1):
 
   1. build    compile csrc/*.cu with nvcc (sm_90a) from this checkout;
               print the build time and the card's name and power limit
@@ -57,7 +60,23 @@ audio:
               3 profiled steps; then one step at dropout 0 without
               SpecAugment, kernels vs plain versions from the same params
               and batch
-  9. report   a JSON line of per-kernel numbers with their bounds, the
+  9. mma-kernels  the MMA alignment recursion's forward and backward
+              kernels vs their plain versions at the recipe's pooled shape
+              (N = B H 128, U 72, S 32), unpooled (S 256), ragged (S 29,
+              U 1) and on wait-k's one-hot rows; CUDA-event times
+ 10. mma-train  8 Adam steps of MMAConfig() with exp/2_mma.sh's options
+              through cli/train's parse_args, build_model and build_loss,
+              the encoder loaded from phase 8's trained encoder through
+              --load-pretrained-encoder-from (lr 5e-4, warmup 4000, clip
+              10) on phase 7's batch; losses finite, launches per step as
+              the layer count predicts; 3 profiled steps; then one step at
+              dropout 0 without noise, kernels vs plain versions from the
+              same params and batch
+ 11. mma-stream  one 1024-frame utterance in 640 ms chunks through
+              make_mma_fused_step with phase 10's weights; its tokens must
+              equal those of the step-wise mma_decoder_step / adopt_on_read
+              loop on the card
+ 12. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -72,6 +91,8 @@ or when any phase fails.  Tolerances:
                          entry
   CTC alphas           finite entries atol 1e-4, the -1e30 sentinels
                          equal
+  MMA alignment        alphas atol 1e-4; d_prefix and d_denom within 1e-4
+                         of their largest entries
   offline encoder_out, kernels vs plain, fp32: atol 1e-4
   streaming vs offline encoder output, fp32:   atol 1e-4
   train step, kernels vs plain, fp32, dropout 0, gelu: each parameter's
@@ -81,7 +102,9 @@ or when any phase fails.  Tolerances:
                          parameters atol 1e-5 (an update is at most lr ~
                          1e-6 here, so this last check alone would not see
                          a wrong gradient); the ASR step the same, at
-                         dropout 0 without SpecAugment (gelu throughout)
+                         dropout 0 without SpecAugment (gelu throughout),
+                         the MMA step at dropout 0 without p_choose noise
+  MMA streaming tokens, fused step vs step-wise loop: equal
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -93,8 +116,10 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 
@@ -109,6 +134,17 @@ MT_ARGS = ["--task", "mt", "--model", "mt_transformer", "--loss", "ce",
 ASR_UTT, ASR_MIN_FRAMES, ASR_FRAMES, ASR_STEPS = 32, 717, 1024, 8
 ASR_MIN_TOKENS, ASR_MAX_TOKENS, ASR_TOKEN_BUCKET = 38, 64, 72
 ASR_VOCAB = 4100
+MMA_STEPS, MMA_MAX_TOKENS = 8, 128
+MMA_ARGS = ["--task", "st", "--model", "mma", "--loss", "mma",
+            "--override",
+            "simul_attn_type=infinite_lookback_fixed_pre_decision",
+            "--override", "fixed_pre_decision_ratio=8",
+            "--override", "mass_preservation=true",
+            "--loss-override", "latency_avg_weight=0.1",
+            "--loss-override",
+            "latency_avg_type=differentiable_average_lagging",
+            "--lr", "5e-4", "--warmup-updates", "4000", "--clip-norm", "10",
+            "--seed", str(SEED)]
 ASR_ARGS = ["--task", "asr", "--model", "s2t_emformer", "--loss",
             "joint_ctc", "--override", "ctc_layer=true", "--lr", "1e-3",
             "--warmup-updates", "10000", "--clip-norm", "10", "--seed",
@@ -153,6 +189,12 @@ KERNELS = {
                    "simulst_tpu/ops/ctc.py:465", "asr-training"),
     "ctc_d_em": ("ctc", "simulst_tpu_torch/csrc/ctc.cu",
                  "simulst_tpu/ops/ctc.py:492", "asr-training"),
+    "alignment_fwd": ("monotonic_align", "simulst_tpu_torch/csrc/monotonic.cu",
+                      "simulst_tpu/ops/monotonic_pallas.py:146",
+                      "mma-training"),
+    "alignment_bwd": ("monotonic_align", "simulst_tpu_torch/csrc/monotonic.cu",
+                      "simulst_tpu/ops/monotonic_pallas.py:167",
+                      "mma-training"),
 }
 SERVING_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
                    "fused_ffn", "fused_linear_res", "fused_mha")
@@ -173,6 +215,19 @@ ASR_LAUNCHES_PER_STEP = {
     "fused_mha": 12, "fused_mha_backward": 12,
     "fused_ffn": 6, "fused_ffn_backward": 6,
     "convpos_wgrad": 1, "ctc_alphas": 1, "ctc_d_em": 1}
+# launches per MMA training step: the encoder's as in ASR training but no
+# CTC head; 6 decoder layers, each one self-attention core, two epilogues
+# (self-attention and monotonic attention out-projections), one FFN and
+# one alignment recursion
+MMA_LAUNCHES_PER_STEP = {
+    "fused_ln_ffn_res": 12, "fused_ln_ffn_res_backward": 12,
+    "emformer_grouped_attention": 12,
+    "emformer_grouped_attention_backward": 12,
+    "fused_linear_res": 24, "fused_linear_res_backward": 24,
+    "fused_mha": 6, "fused_mha_backward": 6,
+    "fused_ffn": 6, "fused_ffn_backward": 6,
+    "convpos_wgrad": 1, "ctc_alphas": 0, "ctc_d_em": 0,
+    "alignment_fwd": 6, "alignment_bwd": 6}
 PROFILE_STEPS = 3
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the backward products of common.cuh
@@ -185,6 +240,8 @@ KERNEL_FAMILIES = (
     ("ln_bwd_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
     ("convpos_wgrad", "convpos_wgrad"), ("ctc_alpha_kernel", "ctc_alphas"),
     ("ctc_d_em_kernel", "ctc_d_em"),
+    ("alignment_fwd_kernel", "alignment_fwd"),
+    ("alignment_bwd_kernel", "alignment_bwd"),
     ("ffn_partial_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
@@ -277,10 +334,10 @@ def gpu_name_and_power_limit():
 def wrappers():
     """name -> the wrapper function that carries the launch count."""
     from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
-                                       linear_res, mha)
+                                       linear_res, mha, monotonic_align)
     mods = {"ffn": ffn, "emformer_attn": emformer_attn,
             "linear_res": linear_res, "mha": mha, "conv_pos": conv_pos,
-            "ctc": ctc}
+            "ctc": ctc, "monotonic_align": monotonic_align}
     return {name: getattr(mods[m], name) for name, (m, *_) in KERNELS.items()}
 
 
@@ -322,7 +379,8 @@ def plain_training():
     """Route the training kernels' forward and backward entries to their
     plain versions (what the autograd Functions call), on the card."""
     from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
-                                       linear_res, mha)
+                                       linear_res, mha, monotonic,
+                                       monotonic_align)
     return patched([
         (mha, "fused_mha_forward",
          lambda *a: (mha.mha_plain(*a), None)),
@@ -342,7 +400,9 @@ def plain_training():
          emformer_attn.grouped_attention_plain_backward),
         (conv_pos, "convpos_wgrad", conv_pos.convpos_wgrad_plain),
         (ctc, "ctc_alphas", ctc.alphas_plain),
-        (ctc, "ctc_d_em", ctc.d_em_plain)])
+        (ctc, "ctc_d_em", ctc.d_em_plain),
+        (monotonic, "alignment_fwd", monotonic_align.alignment_fwd_plain),
+        (monotonic, "alignment_bwd", monotonic_align.alignment_bwd_plain)])
 
 
 def phase_kernels(dev):
@@ -531,6 +591,11 @@ def phase_train_kernels(dev, batch):
                      torch.arange(t, device=dev)[:, None])[None, None])
             heads_view = [x.view(b, t, heads, d // heads).transpose(1, 2)
                           for x in (q, k, v)]
+            sd = [x.detach().clone().requires_grad_() for x in heads_view]
+            with torch.enable_grad():
+                sd_out = F.scaled_dot_product_attention(
+                    *sd, attn_mask=mask, dropout_p=rate)
+            sd_dout = dout.view(b, t, heads, d // heads).transpose(1, 2)
             record("fused_mha", max_abs_err=0.0,
                    shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d}) causal rate 0.1",
                    ms=cuda_ms(lambda: mha.fused_mha_forward(q, k, v, kmask,
@@ -547,7 +612,8 @@ def phase_train_kernels(dev, batch):
                        q, k, v, kmask, out, lse, dout, *cfg)),
                    plain_ms=cuda_ms(lambda: mha.mha_plain_backward(
                        q, k, v, kmask, dout, *cfg)),
-                   library_ms=None,
+                   library_ms=cuda_ms(lambda: torch.autograd.grad(
+                       sd_out, sd, sd_dout, retain_graph=True)),
                    **dict(zip(("bound_ms", "bound_by"), bound(
                        nbytes(q, k, v, kmask, out, lse, dout, *got),
                        10 * d * vis))))
@@ -811,9 +877,10 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     def grad_scale(name):
         """The largest gradient entry that a parameter's error is held
         against: its own, but for a key bias, which adds one q.b to every
-        score of a query row; the softmax ignores that, so its exact
-        gradient is 0 and both sides hold rounding noise: its weight's."""
-        if name.endswith("k_proj.bias"):
+        score of a query row; the softmax ignores that (and MMA's soft
+        attention nearly so), so its exact gradient is 0 and both sides
+        hold rounding noise: its weight's."""
+        if name.endswith(("k_proj.bias", "k_proj_soft.bias")):
             name = name[:-len("bias")] + "weight"
         return max(g_p[name].abs().max().item(), 1e-30)
 
@@ -1111,12 +1178,15 @@ def phase_asr_kernels(dev, batch):
     return report
 
 
-def phase_asr_train(dev, batch):
+def phase_asr_train(dev, batch, save_path):
     """8 full-width ASR training steps of s2t_emformer with joint CTC
     through the CLI's model and loss and the train step, counting
-    launches; 3 profiled steps; then kernels vs plain on one step."""
+    launches; 3 profiled steps, after which the trained parameters are
+    saved to save_path (the MMA phase's encoder); then kernels vs plain on
+    one step."""
     import torch
     from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.checkpoint import save_checkpoint
     from simulst_tpu_torch.train.state import (create_train_state,
                                                make_accum_train_step,
                                                make_train_step)
@@ -1162,11 +1232,242 @@ def phase_asr_train(dev, batch):
         losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
         ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
 
-    profile_steps(state, train_step, batch, generator, "phase8")
+    state = profile_steps(state, train_step, batch, generator, "phase8")
+    save_checkpoint(save_path, state.model.state_dict(),
+                    {"model": "s2t_emformer", "step": state.step})
     del state
     compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase8",
                        make_accum_train_step)
     return launches
+
+
+def alignment_panels(dev, n, u, s, waitk=False):
+    """(prefix, denom, g) on the card as expected_alignment_from_p_choose
+    makes them from a seeded p in [0.05, 0.95], or from wait-k's one-hot
+    rows (lagging 3); g a seeded upstream gradient."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + n + u + s)
+    if waitk:
+        steps = torch.clamp(torch.arange(u) + 2, max=s - 1)
+        p = (torch.arange(s)[None, :] == steps[:, None]).float().expand(
+            n, u, s)
+    else:
+        p = 0.05 + 0.9 * torch.rand(n, u, s, generator=g)
+    cp = torch.exp(torch.cumsum(torch.log(torch.cat(
+        [torch.ones(n, u, 1), 1 - p], dim=2) + 1e-6), dim=2))[..., :s]
+    return [t.contiguous().to(dev) for t in (
+        p * cp, torch.clamp(cp, 1e-6, 1.0),
+        torch.randn(n, u, s, generator=g))]
+
+
+def phase_mma_kernels(dev):
+    """The alignment recursion's kernels vs their plain versions at the
+    recipe's pooled shape (32 utterances x 4 heads, 72 target steps, 256
+    frames pooled by 8), unpooled, ragged (S 29, U 1) and on wait-k's
+    one-hot rows.  No single PyTorch call computes the recursion: no
+    library time."""
+    from simulst_tpu_torch.ops import monotonic_align as ma
+
+    cases = {"pooled (N,U,S)=(128,72,32)": (128, 72, 32, False),
+             "unpooled (N,U,S)=(128,72,256)": (128, 72, 256, False),
+             "ragged (N,U,S)=(128,1,29)": (128, 1, 29, False),
+             "waitk one-hot (N,U,S)=(128,72,32)": (128, 72, 32, True)}
+    report = {}
+    for i, (label, (n, u, s, waitk)) in enumerate(cases.items()):
+        prefix, denom, g = alignment_panels(dev, n, u, s, waitk)
+        alphas = ma.alignment_fwd(prefix, denom)
+        err_f = max_err(f"alignment_fwd {label}", alphas,
+                        ma.alignment_fwd_plain(prefix, denom), atol=1e-4,
+                        rtol=0.0)
+        got = ma.alignment_bwd(prefix, denom, alphas, g)
+        want = ma.alignment_bwd_plain(prefix, denom, alphas, g)
+        err_b = max(max_err_to_largest(f"alignment_bwd {label} {w}", x, y)
+                    for w, x, y in zip(("d_prefix", "d_denom"), got, want))
+        largest = max(y.abs().max().item() for y in want)
+        # forward: divide, scan add, multiply, two clip compares per entry;
+        # backward: the forward's c again, the gate, two products, the
+        # reverse scan, d_denom's three operations and the carry's divide
+        fwd = dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes(prefix, denom, alphas), 5 * prefix.numel())))
+        bwd = dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes(prefix, denom, alphas, g, *got), 12 * prefix.numel())))
+        fwd.update(ms=cuda_ms(lambda: ma.alignment_fwd(prefix, denom)),
+                   plain_ms=cuda_ms(lambda: ma.alignment_fwd_plain(
+                       prefix, denom), samples=3, runs=3))
+        bwd.update(ms=cuda_ms(lambda: ma.alignment_bwd(prefix, denom, alphas,
+                                                       g)),
+                   plain_ms=cuda_ms(lambda: ma.alignment_bwd_plain(
+                       prefix, denom, alphas, g), samples=3, runs=3))
+        log("phase9", case=label, fwd_max_abs_err=err_f,
+            bwd_max_abs_err=err_b, bwd_largest_entry=largest, fwd=fwd,
+            bwd=bwd)
+        for name, err, t in (("alignment_fwd", err_f, fwd),
+                             ("alignment_bwd", err_b, bwd)):
+            entry = report.setdefault(name, {"max_abs_err": 0.0,
+                                             "library_ms": None})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            if i == 0:
+                entry.update(shape=label, **t)
+            elif s == 256:
+                entry["unpooled_ms"] = t["ms"]
+                entry["unpooled_bound_ms"] = t["bound_ms"]
+    for name, entry in report.items():
+        log("phase9", kernel=name, **entry)
+    return report
+
+
+def phase_mma_train(dev, batch, asr_checkpoint):
+    """8 full-width MMA training steps with exp/2_mma.sh's options through
+    the CLI (the encoder loaded from phase 8's checkpoint), counting
+    launches; 3 profiled steps; then kernels vs plain on one step from the
+    initial parameters.  Returns (launches, the trained model)."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.checkpoint import load_checkpoint
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    args = cli.parse_args(MMA_ARGS + ["--load-pretrained-encoder-from",
+                                      asr_checkpoint])
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    asr, _ = load_checkpoint(asr_checkpoint)
+    loaded = {k: v for k, v in model.state_dict().items()
+              if k.startswith("encoder.")}
+    if "encoder.ctc_layer.weight" not in asr or not all(
+            torch.equal(v.cpu(), asr[k]) for k, v in loaded.items()):
+        raise AssertionError("the MMA encoder is not phase 8's encoder")
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    ntokens = int((batch["target"] != 1).sum())
+
+    initial = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses, latency = [], [], []
+    for _ in range(MMA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+        latency.append(float(metrics["latency_loss"])
+                       / float(metrics["sample_size"]))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / MMA_STEPS for k in MMA_LAUNCHES_PER_STEP}
+    if per_step != MMA_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{MMA_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses + latency)) or state.step != MMA_STEPS:
+        raise AssertionError(f"losses {losses}, latency terms {latency}, "
+                             f"updates {state.step}")
+    log("phase10", config="MMAConfig() " + " ".join(MMA_ARGS[6:16]),
+        utterances=ASR_UTT, frames=f"{ASR_MIN_FRAMES}-{ASR_FRAMES}",
+        target_tokens=ntokens, steps=MMA_STEPS, first_step_ms=step_ms[0],
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, latency_loss_per_token=latency,
+        launches_per_step=per_step, peak_memory_gib=peak_gib)
+
+    state = profile_steps(state, train_step, batch, generator, "phase10")
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase10",
+                       make_accum_train_step)
+    return launches, state.model
+
+
+def mma_stepwise(model, cfg, feats, plan, dev):
+    """Tokens of the host-driven step-by-step session: per chunk the
+    encoder step, then mma_decoder_step until a READ or a premature EOS,
+    which keep the old state but for the monotonic positions."""
+    import torch
+    from simulst_tpu_torch.models import mma
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    enc_state = s2t.encoder_init_state(model.encoder, cfg, 1, device=dev)
+    dec = mma.mma_decoder_init_state(cfg, 1, MMA_MAX_TOKENS, device=dev)
+    enc_buf = torch.zeros(1, ASR_FRAMES // cfg.stride, cfg.embed_dim,
+                          device=dev)
+    src_len, tokens, finished, t = 0, [], False, 0
+    for i, c in enumerate(plan):
+        finish = i == len(plan) - 1
+        out, enc_state = s2t.encoder_step(model.encoder, cfg, enc_state,
+                                          feats[:, t:t + c], finish)
+        t += c
+        n = out.encoder_out.shape[1]
+        enc_buf[:, src_len:src_len + n] = out.encoder_out
+        src_len += n
+        while not finished and len(tokens) < MMA_MAX_TOKENS - 1:
+            prev = torch.tensor([tokens[-1] if tokens else cfg.eos_idx],
+                                device=dev)
+            logits, action, new = mma.mma_decoder_step(
+                model.decoder, cfg, dec, prev, enc_buf,
+                torch.tensor([src_len], device=dev), not finish)
+            tok = int(logits[0].argmax())
+            if int(action[0]) == 0 or (tok == cfg.eos_idx and not finish):
+                dec = mma.adopt_on_read(dec, new)
+                break
+            dec = new
+            tokens.append(tok)
+            finished = tok == cfg.eos_idx
+    return tokens
+
+
+def phase_mma_stream(dev, model, feats):
+    """One 1024-frame utterance in 640 ms chunks (96, 14 x 64, 32 frames)
+    through make_mma_fused_step; its tokens vs the step-wise loop's.  Then
+    the same with EOS's embedding row shrunk 10x, so that the briefly
+    trained model writes more than EOS: many WRITEs, READs and rollbacks
+    on the card."""
+    stream_session(dev, model, feats, "phase11")
+    model = copy.deepcopy(model)
+    model.decoder.embed_tokens.weight[model.cfg.eos_idx] *= 0.1
+    stream_session(dev, model, feats, "phase11 (EOS row x 0.1)")
+
+
+def stream_session(dev, model, feats, tag):
+    import torch
+    from simulst_tpu_torch.stream.fused import (make_mma_fused_step,
+                                                mma_fused_init)
+    cfg = model.cfg
+    ecfg = cfg.emformer
+    first = (ecfg.segment + ecfg.right_context) * cfg.stride
+    steady = ecfg.segment * cfg.stride
+    plan = [first] + [steady] * ((ASR_FRAMES - first) // steady)
+    plan.append(ASR_FRAMES - sum(plan))
+    step = make_mma_fused_step(model, cfg)
+    state = mma_fused_init(model, cfg, ASR_FRAMES // cfg.stride,
+                           MMA_MAX_TOKENS, device=dev)
+    reset_launches()
+    chunk_ms, written, t = [], [], 0
+    for i, c in enumerate(plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, n_new = step(state, feats[:, t:t + c],
+                            finish=i == len(plan) - 1)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        written.append(int(n_new[0]))
+        t += c
+    session = read_launches()
+    for k in ("fused_ln_ffn_res", "fused_ffn"):
+        if not session[k]:
+            raise AssertionError(f"{k} did not launch in the MMA streaming "
+                                 f"session: {session}")
+    tokens = state.tokens[0, :int(state.n_tokens[0])].tolist()
+    want = mma_stepwise(model, cfg, feats, plan, dev)
+    if tokens != want:
+        raise AssertionError(f"MMA fused step tokens {tokens} differ from "
+                             f"the step-wise loop's {want}")
+    log(tag, chunks=plan, tokens_per_chunk=written, chunk_ms=chunk_ms,
+        n_tokens=len(tokens), distinct_tokens=len(set(tokens)),
+        median_ms_per_chunk=statistics.median(chunk_ms),
+        mean_ms_per_chunk=statistics.mean(chunk_ms),
+        first_chunk_ms=chunk_ms[0], last_chunk_ms=chunk_ms[-1],
+        fused_equals_stepwise=True, launches_in_session=session)
 
 
 def run(dev):
@@ -1300,12 +1601,27 @@ def run(dev):
     with torch.no_grad():
         report.update(phase_asr_kernels(dev, asr))
 
-    # 8. ASR training steps
-    asr_training = phase_asr_train(dev, asr)
+    # 8. ASR training steps; the trained encoder is MMA's starting point
+    workdir = tempfile.TemporaryDirectory()
+    asr_checkpoint = os.path.join(workdir.name, "asr_checkpoint_last")
+    asr_training = phase_asr_train(dev, asr, asr_checkpoint)
 
-    # 9. report
+    # 9. the MMA alignment kernels vs plain
+    with torch.no_grad():
+        report.update(phase_mma_kernels(dev))
+
+    # 10. MMA training steps from the ASR encoder
+    mma_training, mma_model = phase_mma_train(dev, asr, asr_checkpoint)
+    workdir.cleanup()
+
+    # 11. MMA streaming on the first utterance of the batch
+    with torch.no_grad():
+        phase_mma_stream(dev, mma_model, asr["feats"][:1])
+    del mma_model, asr
+
+    # 12. report
     paths = {"serving": serving, "training": training,
-             "asr-training": asr_training}
+             "asr-training": asr_training, "mma-training": mma_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],

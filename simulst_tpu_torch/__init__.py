@@ -2,10 +2,11 @@
 
 The JAX package `simulst_tpu` stays the reference; this package mirrors its
 layout (`nn/`, `ops/`, `models/`, `losses/`, `train/`, `data/`, `decode/`,
-`cli/`, `compat/`) so every module has an obvious counterpart.  Plain
-tensor code is PyTorch; every Pallas kernel on the ported paths (serving
-s2t_emformer, training the MT teacher, training s2t_emformer with joint
-CTC) is a hand-written CUDA kernel under
+`stream/`, `cli/`, `compat/`) so every module has an obvious counterpart.
+Plain tensor code is PyTorch; every Pallas kernel on the ported paths
+(serving s2t_emformer, training the MT teacher, training s2t_emformer with
+joint CTC, training MMA and its streaming step) is a hand-written CUDA
+kernel under
 `csrc/`, built with nvcc at first use (`ops/_build.py`), differentiable
 through a `torch.autograd.Function` where the path trains.  On a CPU tensor
 a kernel wrapper runs its plain PyTorch version; on a CUDA tensor it

@@ -1,5 +1,5 @@
 """Training CLI (counterpart of simulst_tpu/cli/train.py): the MT teacher
-(--task mt --model mt_transformer --loss ce) and the speech model's
+(--task mt --model mt_transformer --loss ce), the speech model's
 joint-CTC training (--task asr|st --model s2t_emformer --loss joint_ctc),
 e.g. the ASR pretraining recipe exp/1a_pretrain_asr.sh:
 
@@ -9,14 +9,31 @@ e.g. the ASR pretraining recipe exp/1a_pretrain_asr.sh:
       --cmvn global --lr 1e-3 --warmup-updates 10000 --clip-norm 10 \\
       --max-tokens 40000 --update-freq 8 --save-dir checkpoints/asr
 
+and MMA with the latency loss from that encoder (--task st --model mma
+--loss mma), the recipe exp/2_mma.sh:
+
+  python -m simulst_tpu_torch.cli.train --data DATA/en-de --task st \\
+      --model mma --loss mma --cmvn global \\
+      --override simul_attn_type=infinite_lookback_fixed_pre_decision \\
+      --override fixed_pre_decision_ratio=8 --override mass_preservation=true \\
+      --loss-override latency_avg_weight=0.1 \\
+      --loss-override latency_avg_type=differentiable_average_lagging \\
+      --load-pretrained-encoder-from checkpoints/asr/checkpoint_last \\
+      --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 40000 \\
+      --update-freq 4 --patience 25 --save-dir checkpoints/mma
+
 The manifests are <data>/{train,dev}_st.tsv (speech: id, audio, n_frames,
 src_text, tgt_text; text: src_text and tgt_text), the dictionary
 <data>/spm_*.txt (or --vocab), global CMVN stats <data>/gcmvn.npz.  asr
 trains on src_text, st on tgt_text; SpecAugment (policy "lb") masks the
-training batches, never the validation ones.  The model trains on the card
-unless --device names another.  Any other task, model or loss, and the
---eval-metric, --pack and --mtl options, raise: those are not yet ported
-(ROADMAP Queue 1).
+training batches, never the validation ones.  --load-params and
+--load-pretrained-{encoder,decoder}-from initialise the parameters, or one
+component of them, from a checkpoint of this package (checkpoint_last, a
+best or averaged checkpoint, or checkpoint_resume): a component takes
+exactly the keys the model has, so an ASR encoder's CTC head is left
+behind.  The model trains on the card unless --device names another.
+Any other task, model or loss, and the --eval-metric, --pack and --mtl
+options, raise: those are not yet ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -35,20 +52,27 @@ from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
 from simulst_tpu_torch.data.vocab import PAD, Vocabulary
 from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
+from simulst_tpu_torch.losses.mma_loss import MMALossConfig, mma_loss
+from simulst_tpu_torch.models.mma import MMAConfig, MMAModel
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
 from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
                                                    S2TEmformerModel)
 from simulst_tpu_torch.ops.specaugment import spec_augment
-from simulst_tpu_torch.train.checkpoint import save_checkpoint
+from simulst_tpu_torch.train.checkpoint import (conform_state,
+                                                load_checkpoint,
+                                                load_pretrained_component,
+                                                save_checkpoint)
 from simulst_tpu_torch.train.loop import LoopConfig, Trainer
 from simulst_tpu_torch.train.optim import OptimConfig
 
 # (task, model, loss) combinations the port trains
 PORTED = {("mt", "mt_transformer", "ce"),
           ("asr", "s2t_emformer", "joint_ctc"),
-          ("st", "s2t_emformer", "joint_ctc")}
+          ("st", "s2t_emformer", "joint_ctc"),
+          ("st", "mma", "mma")}
 MODELS = {"mt_transformer": (MTConfig, MTTransformerModel),
-          "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel)}
+          "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel),
+          "mma": (MMAConfig, MMAModel)}
 LABEL_SMOOTHING = 0.1
 
 
@@ -80,6 +104,12 @@ def parser() -> argparse.ArgumentParser:
                    action="store_false")
     p.add_argument("--resume", default=None,
                    help="checkpoint_resume path (params + optimizer + step)")
+    p.add_argument("--load-params", default=None,
+                   help="checkpoint to initialise every parameter from")
+    p.add_argument("--load-pretrained-encoder-from", default=None,
+                   help="checkpoint to initialise the encoder from")
+    p.add_argument("--load-pretrained-decoder-from", default=None,
+                   help="checkpoint to initialise the decoder from")
     p.add_argument("--override", action="append", default=[],
                    help="model config overrides key=value")
     p.add_argument("--loss-override", action="append", default=[],
@@ -113,14 +143,36 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _checkpoint_params(path: str):
+    """The parameters of a checkpoint: its state_dict, or a resumable
+    checkpoint's params."""
+    state, _ = load_checkpoint(path)
+    return state["params"] if "params" in state else state
+
+
 def build_model(args, vocab_size: int, device=None):
-    """The model's default config (transformer_small / s2t_emformer_s) with
-    --override applied; weights from a generator seeded with --seed."""
+    """The model's default config (transformer_small, s2t_emformer_s, or
+    MMA on s2t_emformer_s) with --override applied; weights from a
+    generator seeded with --seed, then from --load-params and the
+    --load-pretrained-*-from components."""
     config_cls, model_cls = MODELS[args.model]
     cfg = cfglib.apply_overrides(config_cls(vocab_size=vocab_size),
                                  args.overrides)
-    return model_cls(cfg, generator=torch.Generator().manual_seed(args.seed),
-                     device=device)
+    model = model_cls(cfg, generator=torch.Generator().manual_seed(args.seed),
+                      device=device)
+    if args.load_params:
+        model.load_state_dict(conform_state(
+            model.state_dict(), _checkpoint_params(args.load_params)))
+    for comp, path in (("encoder", args.load_pretrained_encoder_from),
+                       ("decoder", args.load_pretrained_decoder_from)):
+        if path:
+            pre = _checkpoint_params(path)
+            model.load_state_dict(load_pretrained_component(
+                model.state_dict(), {k[len(comp) + 1:]: v
+                                     for k, v in pre.items()
+                                     if k.startswith(comp + ".")}, comp))
+            print(f"loaded pretrained {comp} from {path}")
+    return model
 
 
 def build_loss(args, model):
@@ -139,8 +191,18 @@ def build_loss(args, model):
                           "sample_size": ntokens}
         return fn
 
-    lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)
     specaugment = args.specaugment
+    if args.loss == "mma":
+        lcfg = cfglib.apply_overrides(MMALossConfig(), args.loss_overrides)
+
+        def criterion(logits, extra, batch):
+            return mma_loss(logits, extra, batch["target"],
+                            batch["feat_lengths"], lcfg)
+    else:
+        lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)
+
+        def criterion(logits, extra, batch):
+            return joint_ctc_loss(logits, extra, batch["target"], lcfg)
 
     def fn(model, batch, rngs):
         feats = batch["feats"]
@@ -148,7 +210,7 @@ def build_loss(args, model):
             feats = spec_augment(rngs.generator, feats, batch["feat_lengths"])
         logits, extra = model(feats, batch["feat_lengths"],
                               batch["prev_tokens"], rngs=rngs)
-        return joint_ctc_loss(logits, extra, batch["target"], lcfg)
+        return criterion(logits, extra, batch)
     return fn
 
 

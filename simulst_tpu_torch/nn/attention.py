@@ -9,7 +9,8 @@ epilogue (res, rate, seed), folds `res + dropout(out_proj(.))` into the
 Dropout seeds come from the caller (nn/core.RngStream); None means no
 dropout.  The cache is a (B, H, Tmax, hd) buffer plus a per-example fill
 count.  `kv_cache_append` writes the new step into the buffer in place
-(the JAX package returns a new buffer); rolling back is a count decrement.
+(the JAX package returns a new buffer) and returns new counts; rolling
+back is keeping the old counts, or a count decrement.
 `mha_step` (one query step against the cache) stays plain torch, as in
 the JAX package.
 """
@@ -149,12 +150,13 @@ def kv_cache_init(batch: int, num_heads: int, max_len: int, head_dim: int,
 
 def kv_cache_append(cache: KVCache, k_new, v_new) -> KVCache:
     """Write one step (B, H, 1, hd) at each example's fill position, in
-    place, and advance the counts."""
+    place, and return the cache with the counts advanced in a new tensor:
+    the cache passed in keeps its counts, so keeping it (per example, as an
+    MMA READ does) rolls the step back."""
     rows = torch.arange(cache.k.shape[0], device=cache.k.device)
     cache.k[rows, :, cache.length] = k_new[:, :, 0].to(cache.k.dtype)
     cache.v[rows, :, cache.length] = v_new[:, :, 0].to(cache.v.dtype)
-    cache.length.add_(1)
-    return cache
+    return cache._replace(length=cache.length + 1)
 
 
 def kv_cache_rollback(cache: KVCache, n: int = 1) -> KVCache:

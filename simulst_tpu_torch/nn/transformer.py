@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -93,14 +93,18 @@ class DecoderLayer(nn.Module):
 
 class Decoder(nn.Module):
     """Weights from a seeded CPU generator, then moved to `device` (the card
-    unless the caller names another)."""
+    unless the caller names another).  make_layer() builds each layer in
+    place of a DecoderLayer (the MMA decoder's monotonic layers)."""
 
     def __init__(self, cfg: DecoderConfig, *,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 make_layer: Optional[Callable[[], nn.Module]] = None):
         super().__init__()
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.embed_dim,
                                       cfg.padding_idx, generator=generator)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, generator=generator)
+        make_layer = make_layer or (lambda: DecoderLayer(cfg,
+                                                         generator=generator))
+        self.layers = nn.ModuleList(make_layer()
                                     for _ in range(cfg.num_layers))
         self.layer_norm = LayerNorm(cfg.embed_dim)
         if not cfg.share_input_output_embed:

@@ -87,6 +87,10 @@ SIGNATURES = {
     # em, alphas, can_skip, input_lengths, target_lengths, scale, nll, d_em,
     # T, B, S, stream
     "simulst_ctc_d_em": [_P] * 8 + [_I] * 3 + [_P],
+    # prefix, denom, alphas, N, U, S, stream
+    "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
+    # prefix, denom, alphas, g, d_prefix, d_denom, carry, N, U, S, stream
+    "simulst_alignment_bwd": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 

@@ -1,0 +1,150 @@
+"""Per-chunk streaming step of the MMA policy: READ + every WRITE of one
+audio chunk in one call (counterpart of the MMA part of
+simulst_tpu/stream/fused.py).
+
+One call runs the incremental encoder on a chunk for B utterances in
+lock-step, appends the new frames to each example's encoder buffer, then
+keeps decoding until every example demands a READ (any monotonic head
+wants more source), emits EOS, or rejects a premature EOS (before the
+final chunk), with per-example rollback: an example that does not WRITE
+keeps its old KV caches and step and adopts only its advanced monotonic
+head positions.  The JAX step is one lax.while_loop on the device; here
+the loop is Python over `mma_decoder_step` calls, with one host read of
+"anyone still writing" per attempt.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from simulst_tpu_torch.models import mma as mma_mod
+from simulst_tpu_torch.models import s2t_emformer as s2t
+
+
+def _where_b(mask, new, old):
+    """Per-example select over batch-leading tensors in nested tuples;
+    mask: (B,) bool.  A tensor that both sides share (a KV buffer written
+    in place) is kept as it is."""
+    if isinstance(new, tuple):
+        parts = [_where_b(mask, n, o) for n, o in zip(new, old)]
+        return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
+    if new is old:
+        return new
+    m = mask.reshape(mask.shape + (1,) * (new.ndim - 1))
+    return torch.where(m, new, old)
+
+
+def _append_rows(buf, buf_len, new, n_new):
+    """Masked per-example append: new[i, :n_new[i]] goes to buf[i,
+    buf_len[i]:].  buf: (B, Tmax, D); new: (B, c, D).  Returns (buf,
+    buf_len, overflow): rows past the capacity are dropped, buf_len is
+    clamped at Tmax, and overflow (B,) says which examples lost rows."""
+    tmax = buf.shape[1]
+    if new.shape[1] == 0:
+        return buf, buf_len, torch.zeros_like(buf_len, dtype=torch.bool)
+    pos = torch.arange(tmax, device=buf.device)[None, :]
+    new_idx = pos - buf_len[:, None]                 # slot within `new`
+    take = (new_idx >= 0) & (new_idx < n_new[:, None])
+    gathered = new.gather(1, torch.clamp(new_idx, 0, new.shape[1] - 1)[
+        :, :, None].expand(-1, -1, new.shape[2]))
+    out = torch.where(take[:, :, None], gathered.to(buf.dtype), buf)
+    want = buf_len + n_new.to(buf_len.dtype)
+    return out, torch.clamp(want, max=tmax), want > tmax
+
+
+class MMAFusedState(NamedTuple):
+    enc: s2t.EncoderStreamState
+    dec: mma_mod.MMADecoderState
+    enc_buf: torch.Tensor                # (B, Smax, D)
+    src_len: torch.Tensor                # (B,) int64
+    tokens: torch.Tensor                 # (B, Tmax) int64
+    n_tokens: torch.Tensor               # (B,) int64
+    finished: torch.Tensor               # (B,) bool
+    truncated: torch.Tensor              # (B,) bool: a buffer overflowed
+
+
+def mma_fused_init(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
+                   max_src: int, max_tokens: int, batch: int = 1,
+                   dtype=torch.float32, device=None) -> MMAFusedState:
+    device = device or next(model.parameters()).device
+    return MMAFusedState(
+        enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
+        dec=mma_mod.mma_decoder_init_state(cfg, batch, max_tokens, dtype,
+                                           device),
+        enc_buf=torch.zeros(batch, max_src, cfg.embed_dim, dtype=dtype,
+                            device=device),
+        src_len=torch.zeros(batch, dtype=torch.int64, device=device),
+        tokens=torch.full((batch, max_tokens), cfg.padding_idx,
+                          dtype=torch.int64, device=device),
+        n_tokens=torch.zeros(batch, dtype=torch.int64, device=device),
+        finished=torch.zeros(batch, dtype=torch.bool, device=device),
+        truncated=torch.zeros(batch, dtype=torch.bool, device=device))
+
+
+def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
+                        max_writes_per_chunk: int = 64):
+    """Returns step(state, feats, finish=False) -> (state, n_new): the
+    encoder step on feats (B, f, F) (or None), then the WRITE loop until
+    every example READs, emits EOS or rejects a premature EOS; at most
+    max_writes_per_chunk attempts mid-stream, up to the token buffer on
+    the final chunk.  A per-example count of valid frames (the JAX step's
+    n_valid) is not ported: utterances of a batch share one chunk plan."""
+
+    @torch.no_grad()
+    def step(state: MMAFusedState, feats, finish: bool = False,
+             n_valid: Optional[torch.Tensor] = None
+             ) -> Tuple[MMAFusedState, torch.Tensor]:
+        if n_valid is not None:
+            raise NotImplementedError(
+                "per-example n_valid needs encoder_step's feat_valid flush, "
+                "which is not yet ported (ROADMAP Queue 1 item 5)")
+        enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
+                                              feats, finish)
+        enc_buf, src_len, overflow = _append_rows(
+            state.enc_buf, state.src_len, enc_out.encoder_out,
+            enc_out.lengths)
+        b, tmax = state.tokens.shape
+        dev = state.tokens.device
+        pos = torch.arange(tmax, device=dev)[None, :]
+        cap = (tmax - 1) if finish else max_writes_per_chunk
+        eos = torch.full((b,), cfg.eos_idx, dtype=torch.int64, device=dev)
+
+        dec, tokens, n_tok, finished = (state.dec, state.tokens,
+                                        state.n_tokens, state.finished)
+        stopped = torch.zeros(b, dtype=torch.bool, device=dev)
+        for _ in range(cap):
+            attempted = ~finished & ~stopped & (n_tok < tmax - 1)
+            if not bool(attempted.any()):
+                break
+            prev = torch.where(n_tok > 0, tokens.gather(
+                1, torch.clamp(n_tok - 1, min=0)[:, None])[:, 0], eos)
+            logits, action, new_dec = mma_mod.mma_decoder_step(
+                model.decoder, cfg, dec, prev, enc_buf, src_len,
+                online=not finish)
+            tok = logits.argmax(-1)
+            is_eos = tok == cfg.eos_idx
+            read = attempted & (action == 0)
+            premature = is_eos & (not finish)
+            reject = attempted & (action == 1) & premature
+            write = attempted & (action == 1) & ~premature
+            # rollback (READ or rejected EOS): keep the old KV counts and
+            # step, adopt the advanced monotonic positions; examples not
+            # attempted keep everything
+            rolled = mma_mod.adopt_on_read(dec, new_dec)
+            dec = _where_b(write, new_dec, _where_b(attempted, rolled, dec))
+            tokens = torch.where((pos == n_tok[:, None]) & write[:, None],
+                                 tok[:, None], tokens)
+            n_tok = n_tok + write.long()
+            finished = finished | (write & is_eos)
+            stopped = stopped | read | reject | (write & is_eos)
+        # truncated: a buffer overflowed, or the token buffer filled before
+        # EOS (n_tok reaches tmax - 1 only by using every writable slot)
+        trunc = state.truncated | overflow | (~finished & (n_tok >= tmax - 1))
+        new_state = MMAFusedState(enc=enc_state, dec=dec, enc_buf=enc_buf,
+                                  src_len=src_len, tokens=tokens,
+                                  n_tokens=n_tok, finished=finished,
+                                  truncated=trunc)
+        return new_state, n_tok - state.n_tokens
+
+    return step

@@ -1,5 +1,5 @@
 """Checkpoints: torch.save / torch.load in place of orbax, best-N selection
-and averaging, component-wise pretrained init (counterpart of
+and averaging, conformed and component-wise pretrained init (counterpart of
 simulst_tpu/train/checkpoint.py).
 
 A checkpoint is one file holding {"state": ..., "metadata": {...}}, the
@@ -60,12 +60,30 @@ def average_params(state_dicts: List[Dict[str, torch.Tensor]]
             for k in state_dicts[0]}
 
 
+def conform_state(template: Dict[str, torch.Tensor],
+                  restored: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """restored's entries for exactly template's keys, in template's dtypes
+    (the JAX package's conform_tree): a key that restored lacks raises, a
+    key that template lacks (an ASR encoder's CTC head under an MMA
+    encoder) is left behind."""
+    missing = sorted(set(template) - set(restored))
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} of the model's "
+                       f"parameters: {missing[:5]}")
+    return {k: restored[k].to(template[k].dtype) for k in template}
+
+
 def load_pretrained_component(state_dict: Dict[str, torch.Tensor],
                               component_state: Dict[str, torch.Tensor],
                               component: str) -> Dict[str, torch.Tensor]:
-    """Component-wise init: the keys under `component.` replaced by
-    component_state (keyed without the prefix), the rest kept."""
+    """Component-wise init: the keys under `component.` taken from
+    component_state (keyed without the prefix) by conform_state, the rest
+    kept."""
     prefix = component + "."
-    out = {k: v for k, v in state_dict.items() if not k.startswith(prefix)}
-    out.update({prefix + k: v for k, v in component_state.items()})
+    template = {k[len(prefix):]: v for k, v in state_dict.items()
+                if k.startswith(prefix)}
+    out = dict(state_dict)
+    out.update({prefix + k: v for k, v in
+                conform_state(template, component_state).items()})
     return out

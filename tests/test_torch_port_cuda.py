@@ -10,13 +10,15 @@ activation gradients, and 1e-4 of the largest entry on weight gradients:
 the kernels and the plain versions differ only in the order of the fp32
 sums.  Dropout cases run at rate 0.1 with one seed on both sides, which
 then draw the same Philox mask.  The CTC alphas and d_em hold their finite
-entries to atol 1e-4 and their -1e30 sentinels exactly.
+entries to atol 1e-4 and their -1e30 sentinels exactly.  The MMA alignment
+recursion holds its alphas to atol 1e-4 and d_prefix and d_denom to 1e-4
+of their largest entries (d_denom spans many orders of magnitude).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from simulst_tpu_torch.ops import conv_pos, ctc  # noqa: E402
+from simulst_tpu_torch.ops import conv_pos, ctc, monotonic_align  # noqa: E402
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
     AttnGeom, emformer_grouped_attention, emformer_grouped_attention_backward,
     grouped_attention_plain, grouped_attention_plain_backward)
@@ -270,3 +272,56 @@ def test_ctc_kernels_match_plain(randn):
     torch.testing.assert_close(got, ctc.d_em_plain(em, want, can_skip, il, tl,
                                                    scale, nll), **TOL)
     assert not got[5:, 2].any() and not got[41:, 1].any()
+
+
+def _alignment_panels(n, u, s, waitk=False):
+    """prefix, denom as expected_alignment_from_p_choose makes them from a
+    seeded p in [0.05, 0.95] (or wait-k's one-hot rows, lagging 3), and an
+    upstream gradient, on the card."""
+    g = torch.Generator().manual_seed(n * u + s)
+    if waitk:
+        steps = torch.clamp(torch.arange(u) + 2, max=s - 1)
+        p = (torch.arange(s)[None, :] == steps[:, None]).float().expand(
+            n, u, s)
+    else:
+        p = 0.05 + 0.9 * torch.rand(n, u, s, generator=g)
+    cp = torch.exp(torch.cumsum(torch.log(torch.cat(
+        [torch.ones(n, u, 1), 1 - p], dim=2) + 1e-6), dim=2))[..., :s]
+    return [t.contiguous().cuda() for t in (
+        p * cp, torch.clamp(cp, 1e-6, 1.0), torch.randn(n, u, s, generator=g))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,u,s,waitk", [
+    (128, 72, 32, False), (128, 72, 256, False), (128, 1, 29, False),
+    (7, 5, 700, False), (128, 72, 32, True)],
+    ids=["pooled", "unpooled", "ragged-U1", "S>block", "waitk"])
+def test_alignment_kernels_match_plain(randn, n, u, s, waitk):
+    """The recipe's pooled shape (N 128, U 72, S 32), the unpooled one (S
+    256), a ragged one (S 29, U 1), S above the block (three tiles) and
+    wait-k's one-hot rows."""
+    prefix, denom, g = _alignment_panels(n, u, s, waitk)
+    before = (monotonic_align.alignment_fwd.launches,
+              monotonic_align.alignment_bwd.launches)
+    alphas = monotonic_align.alignment_fwd(prefix, denom)
+    torch.testing.assert_close(
+        alphas, monotonic_align.alignment_fwd_plain(prefix, denom),
+        atol=1e-4, rtol=0)
+    got = monotonic_align.alignment_bwd(prefix, denom, alphas, g)
+    want = monotonic_align.alignment_bwd_plain(prefix, denom, alphas, g)
+    for gw, w in zip(got, want):
+        _close_to_largest(gw, w)
+    assert (monotonic_align.alignment_fwd.launches,
+            monotonic_align.alignment_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_alignment_kernels_refuse_what_they_do_not_take(randn):
+    prefix, denom, g = _alignment_panels(2, 3, 8)
+    with pytest.raises(TypeError):
+        monotonic_align.alignment_fwd(prefix.double(), denom.double())
+    with pytest.raises(ValueError):
+        monotonic_align.alignment_fwd(prefix, denom[:, :2])
+    with pytest.raises(ValueError):
+        monotonic_align.alignment_bwd(prefix, denom, prefix, g[:1])
