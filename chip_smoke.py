@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the simulst_tpu_torch port on one NVIDIA GPU: the
 s2t_emformer serving slice, the MT-teacher training slice, the
-s2t_emformer joint-CTC training slice and the MMA slice (training as
-exp/2_mma.sh from that encoder, and its streaming READ/WRITE step).
+s2t_emformer joint-CTC training slice, the MMA slice (training as
+exp/2_mma.sh from that encoder, and its streaming READ/WRITE step) and the
+CIF slice (training as exp/3_cif.sh from that encoder, and serving CIF and
+MMA through the streaming evaluator, as cli/stream_eval does).
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -15,7 +17,11 @@ ASR training of the full s2t_emformer_s with its CTC head (dropout,
 attention and activation dropout 0.1, SpecAugment) on seeded synthetic
 audio, and MMA training of MMAConfig() at full width (s2t_emformer_s
 encoder, 6-layer monotonic decoder, infinite lookback with fixed
-pre-decision ratio 8, mass preservation, DAL latency loss weight 0.1):
+pre-decision ratio 8, mass preservation, DAL latency loss weight 0.1) and
+CIF training of CIFConfig() at full width (that encoder with its CTC head,
+the CIF layer, a 6-layer decoder with the position-aligned cross-attention;
+exp/3_cif.sh's CTC factor 0.3 and quantity factor 1.0 with the alignment
+targets):
 
   1. build    compile csrc/*.cu with nvcc (sm_90a) from this checkout;
               print the build time and the card's name and power limit
@@ -76,7 +82,26 @@ pre-decision ratio 8, mass preservation, DAL latency loss weight 0.1):
               make_mma_fused_step with phase 10's weights; its tokens must
               equal those of the step-wise mma_decoder_step / adopt_on_read
               loop on the card
- 12. report   a JSON line of per-kernel numbers with their bounds, the
+ 12. cif-kernels  the CIF integrate-and-fire kernel vs its plain version
+              at the train batch's shape (B 32, S 256, C 256, T 72), a
+              streaming chunk (1, 17, 256, T 19), ragged (S 29, T 1), more
+              than 128 buckets (S 512, T 300) and beta 0.8; CUDA-event
+              times beside torch.bmm on a pre-built portion tensor
+ 13. cif-train  8 Adam steps of CIFConfig() with exp/3_cif.sh's options
+              through cli/train's parse_args, build_model and build_loss,
+              the encoder loaded from phase 8's through
+              --load-pretrained-encoder-from (lr 5e-4, warmup 4000, clip
+              10) on phase 7's batch; losses finite, launches per step as
+              the layer count predicts; 3 profiled steps; then one step at
+              dropout 0 without SpecAugment, kernels vs plain versions
+ 14. cif-serve  stream/evaluator.evaluate over two 1024-frame synthetic
+              utterances (int16, global CMVN from their own fbank) with a
+              fused CIFAgent and a fused MMAAgent built by
+              stream/build.build_agent from the checkpoints of phases 13
+              and 10; the fused sessions' tokens must equal the step-wise
+              sessions'; ms per chunk, AL / AP / DAL, CIF launches per
+              chunk
+ 15. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -105,6 +130,11 @@ or when any phase fails.  Tolerances:
                          dropout 0 without SpecAugment (gelu throughout),
                          the MMA step at dropout 0 without p_choose noise
   MMA streaming tokens, fused step vs step-wise loop: equal
+  CIF integrate-and-fire out and delays within 1e-5 of their largest
+                         entries (the same cumsums on both sides; only the
+                         order of the sums over frames differs)
+  CIF train step, kernels vs plain: as the ASR step
+  CIF and MMA serving tokens, fused sessions vs step-wise sessions: equal
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -145,6 +175,15 @@ MMA_ARGS = ["--task", "st", "--model", "mma", "--loss", "mma",
             "latency_avg_type=differentiable_average_lagging",
             "--lr", "5e-4", "--warmup-updates", "4000", "--clip-norm", "10",
             "--seed", str(SEED)]
+CIF_STEPS = 8
+CIF_ARGS = ["--task", "st", "--model", "cif", "--loss", "cif",
+            "--override", "cif_beta=1.0", "--override", "ctc_layer=true",
+            "--loss-override", "ctc_factor=0.3",
+            "--loss-override", "quant_factor=1.0",
+            "--loss-override", "quant_type=align",
+            "--lr", "5e-4", "--warmup-updates", "4000", "--clip-norm", "10",
+            "--seed", str(SEED)]
+SERVE_UTT = 2
 ASR_ARGS = ["--task", "asr", "--model", "s2t_emformer", "--loss",
             "joint_ctc", "--override", "ctc_layer=true", "--lr", "1e-3",
             "--warmup-updates", "10000", "--clip-norm", "10", "--seed",
@@ -195,6 +234,8 @@ KERNELS = {
     "alignment_bwd": ("monotonic_align", "simulst_tpu_torch/csrc/monotonic.cu",
                       "simulst_tpu/ops/monotonic_pallas.py:167",
                       "mma-training"),
+    "cif_integrate": ("cif_integrate", "simulst_tpu_torch/csrc/cif.cu",
+                      "simulst_tpu/ops/cif_pallas.py:61", "cif-training"),
 }
 SERVING_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
                    "fused_ffn", "fused_linear_res", "fused_mha")
@@ -228,6 +269,22 @@ MMA_LAUNCHES_PER_STEP = {
     "fused_ffn": 6, "fused_ffn_backward": 6,
     "convpos_wgrad": 1, "ctc_alphas": 0, "ctc_d_em": 0,
     "alignment_fwd": 6, "alignment_bwd": 6}
+# launches per CIF training step: the ASR step's encoder and CTC loss; 6
+# decoder layers, each one self-attention core, two epilogues (the
+# self-attention's and the position-aligned cross-attention's
+# out-projections) and one FFN; one integrate-and-fire (its backward is the
+# plain version's, as in the JAX package)
+CIF_LAUNCHES_PER_STEP = {
+    "fused_ln_ffn_res": 12, "fused_ln_ffn_res_backward": 12,
+    "emformer_grouped_attention": 12,
+    "emformer_grouped_attention_backward": 12,
+    "fused_linear_res": 24, "fused_linear_res_backward": 24,
+    "fused_mha": 6, "fused_mha_backward": 6,
+    "fused_ffn": 6, "fused_ffn_backward": 6,
+    "convpos_wgrad": 1, "ctc_alphas": 1, "ctc_d_em": 1,
+    "alignment_fwd": 0, "alignment_bwd": 0, "cif_integrate": 1}
+# kernels the streaming evaluator's fused CIF and MMA sessions must launch
+CIF_SERVE_KERNELS = ("fused_ln_ffn_res", "fused_ffn", "cif_integrate")
 PROFILE_STEPS = 3
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the backward products of common.cuh
@@ -242,6 +299,7 @@ KERNEL_FAMILIES = (
     ("ctc_d_em_kernel", "ctc_d_em"),
     ("alignment_fwd_kernel", "alignment_fwd"),
     ("alignment_bwd_kernel", "alignment_bwd"),
+    ("cif_integrate_kernel", "cif_integrate"),
     ("ffn_partial_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
@@ -333,11 +391,13 @@ def gpu_name_and_power_limit():
 
 def wrappers():
     """name -> the wrapper function that carries the launch count."""
-    from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
-                                       linear_res, mha, monotonic_align)
+    from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,
+                                       emformer_attn, ffn, linear_res, mha,
+                                       monotonic_align)
     mods = {"ffn": ffn, "emformer_attn": emformer_attn,
             "linear_res": linear_res, "mha": mha, "conv_pos": conv_pos,
-            "ctc": ctc, "monotonic_align": monotonic_align}
+            "ctc": ctc, "monotonic_align": monotonic_align,
+            "cif_integrate": cif_integrate}
     return {name: getattr(mods[m], name) for name, (m, *_) in KERNELS.items()}
 
 
@@ -378,9 +438,9 @@ def plain_versions():
 def plain_training():
     """Route the training kernels' forward and backward entries to their
     plain versions (what the autograd Functions call), on the card."""
-    from simulst_tpu_torch.ops import (conv_pos, ctc, emformer_attn, ffn,
-                                       linear_res, mha, monotonic,
-                                       monotonic_align)
+    from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,
+                                       emformer_attn, ffn, linear_res, mha,
+                                       monotonic, monotonic_align)
     return patched([
         (mha, "fused_mha_forward",
          lambda *a: (mha.mha_plain(*a), None)),
@@ -402,7 +462,9 @@ def plain_training():
         (ctc, "ctc_alphas", ctc.alphas_plain),
         (ctc, "ctc_d_em", ctc.d_em_plain),
         (monotonic, "alignment_fwd", monotonic_align.alignment_fwd_plain),
-        (monotonic, "alignment_bwd", monotonic_align.alignment_bwd_plain)])
+        (monotonic, "alignment_bwd", monotonic_align.alignment_bwd_plain),
+        (cif_integrate, "cif_integrate_forward",
+         cif_integrate.cif_integrate_plain)])
 
 
 def phase_kernels(dev):
@@ -1470,6 +1532,254 @@ def stream_session(dev, model, feats, tag):
         fused_equals_stepwise=True, launches_in_session=session)
 
 
+def cif_inputs(dev, b, s, c, t, beta, fill):
+    """x (B, S, C) and weights alpha (B, S) on the card: seeded uniform
+    weights scaled so that each row integrates `fill` of its t buckets
+    (teacher forcing fills them all; fill < 1 leaves a tail), the frames
+    past a ragged length zero."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + b + s + t)
+    x = torch.randn(b, s, c, generator=g)
+    alpha = torch.rand(b, s, generator=g)
+    lengths = torch.randint(max(1, s * 3 // 4), s + 1, (b,), generator=g)
+    lengths[0] = s
+    alpha = torch.where(torch.arange(s)[None, :] < lengths[:, None], alpha,
+                        torch.zeros_like(alpha))
+    alpha = alpha * (fill * t * beta / alpha.sum(1, keepdim=True))
+    return x.to(dev), alpha.to(dev)
+
+
+def phase_cif_kernels(dev):
+    """The integrate-and-fire kernel vs its plain version at the cif-train
+    batch's shape, a streaming chunk (the carried tail + 16 encoder frames),
+    ragged, more than 128 buckets and a test-time beta; CUDA-event times
+    beside torch.bmm on the same (B, S, T) portion tensor, built
+    beforehand."""
+    import torch
+    from simulst_tpu_torch.ops import _build
+    from simulst_tpu_torch.ops import cif_integrate as ci
+
+    cases = {   # label -> (B, S, C, T, beta, fill)
+        "train (B,S,C,T)=(32,256,256,72)": (32, 256, 256, 72, 1.0, 0.97),
+        "stream (1,17,256,19)": (1, 17, 256, 19, 1.0, 0.45),
+        "ragged (32,29,256,1)": (32, 29, 256, 1, 1.0, 0.9),
+        "long (4,512,256,300)": (4, 512, 256, 300, 1.0, 0.97),
+        "beta 0.8 (32,256,256,80)": (32, 256, 256, 80, 0.8, 0.97)}
+    report = {"cif_integrate": {"max_abs_err": 0.0}}
+    entry = report["cif_integrate"]
+    for i, (label, (b, s, c, t, beta, fill)) in enumerate(cases.items()):
+        x, alpha = cif_inputs(dev, b, s, c, t, beta, fill)
+        out, delays = ci.cif_integrate(x, alpha, beta, t)
+        torch.cuda.synchronize()
+        want = ci.cif_integrate_plain(x, alpha, beta, t)
+        err = max(max_err_to_largest(f"cif_integrate {label} {w}", got, ref,
+                                     rtol=1e-5)
+                  for w, got, ref in zip(("out", "delays"), (out, delays),
+                                         want))
+        csum, cprev = ci.cumsums(alpha)
+        portion = ci.portions(csum, cprev, beta, t)
+        nnz = int((portion > 0).sum())
+        # bytes: x and alpha in, out and delays out; operations: one
+        # multiply-add per channel and one for the delay per non-zero
+        # portion
+        b_ms, by = bound(nbytes(x, alpha, out, delays), 2 * nnz * (c + 1))
+        pt = portion.transpose(1, 2).contiguous()
+        buf = (torch.empty_like(out), torch.empty_like(delays))
+
+        def c_entry():
+            """The C entry alone on the cumsums above: the kernel without
+            the wrapper's host work (cumsums, allocations, checks)."""
+            _build.launch("simulst_cif_integrate", x.data_ptr(),
+                          csum.data_ptr(), cprev.data_ptr(),
+                          buf[0].data_ptr(), buf[1].data_ptr(), b, s, t, c,
+                          float(beta), _build.stream_of(x))
+
+        t_case = dict(
+            max_abs_err=err, nonzero_portions=nnz,
+            ms=cuda_ms(lambda: ci.cif_integrate(x, alpha, beta, t)),
+            c_entry_ms=cuda_ms(c_entry),
+            plain_ms=cuda_ms(lambda: ci.cif_integrate_plain(x, alpha, beta,
+                                                            t)),
+            library_ms=cuda_ms(lambda: torch.bmm(pt, x)),
+            bound_ms=b_ms, bound_by=by)
+        log("phase12", case=label, **t_case)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if i == 0:
+            entry.update(shape=label, **{k: v for k, v in t_case.items()
+                                         if k != "max_abs_err"})
+        else:
+            entry[f"{label.split()[0]}_ms"] = t_case["ms"]
+    log("phase12", kernel="cif_integrate", **entry)
+    return report
+
+
+def phase_cif_train(dev, batch, asr_checkpoint, save_path):
+    """8 full-width CIF training steps with exp/3_cif.sh's options through
+    the CLI (the encoder loaded from phase 8's checkpoint), counting
+    launches; 3 profiled steps, after which the model is saved to
+    save_path for the serving phase; then kernels vs plain on one step from
+    the initial parameters."""
+    import torch
+    from simulst_tpu_torch import config as cfglib
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    args = cli.parse_args(CIF_ARGS + ["--load-pretrained-encoder-from",
+                                      asr_checkpoint])
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    asr, _ = load_checkpoint(asr_checkpoint)
+    if not all(torch.equal(v.cpu(), asr[k]) for k, v in
+               model.state_dict().items() if k.startswith("encoder.")):
+        raise AssertionError("the CIF encoder is not phase 8's encoder")
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    ntokens = int((batch["target"] != 1).sum())
+
+    initial = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses, parts = [], [], defaultdict(list)
+    for _ in range(CIF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n = float(metrics["sample_size"])
+        losses.append(float(metrics["loss"]) / n)
+        for k in ("ctc_loss", "quantity"):
+            parts[k].append(float(metrics[k]) / n)
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / CIF_STEPS for k in CIF_LAUNCHES_PER_STEP}
+    if per_step != CIF_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{CIF_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses + parts["ctc_loss"] + parts["quantity"])) \
+            or state.step != CIF_STEPS:
+        raise AssertionError(f"losses {losses}, {dict(parts)}, updates "
+                             f"{state.step}")
+    log("phase13", config="CIFConfig() " + " ".join(CIF_ARGS[6:16]),
+        utterances=ASR_UTT, frames=f"{ASR_MIN_FRAMES}-{ASR_FRAMES}",
+        target_tokens=ntokens, steps=CIF_STEPS, first_step_ms=step_ms[0],
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, ctc_loss_per_token=parts["ctc_loss"],
+        quantity_per_token=parts["quantity"], launches_per_step=per_step,
+        peak_memory_gib=peak_gib)
+
+    state = profile_steps(state, train_step, batch, generator, "phase13")
+    save_checkpoint(save_path, state.model.state_dict(),
+                    {"model": "cif", "config": cfglib.to_dict(model.cfg),
+                     "step": state.step})
+    del state
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase13",
+                       make_accum_train_step)
+    return launches
+
+
+def serve_vocab():
+    """A dictionary of ASR_VOCAB ids, each piece a word of its own, so that
+    every token is committed (and timed) as it is written."""
+    from simulst_tpu_torch.data.vocab import SPECIALS, Vocabulary
+    return Vocabulary(SPECIALS + [f"\u2581w{i}"
+                                  for i in range(ASR_VOCAB - len(SPECIALS))])
+
+
+def phase_serve(dev, workdir, checkpoints):
+    """The streaming evaluator over SERVE_UTT synthetic 1024-frame
+    utterances with fused CIF and MMA agents built from the checkpoints of
+    phases 13 and 10 (the main path: launches counted), then with their
+    step-wise sessions: tokens equal, session by session.  Each agent runs
+    as trained and with EOS's embedding row shrunk 10x, so that the briefly
+    trained models write more than EOS: many WRITEs, READs and rollbacks.
+    Returns the main path's launches."""
+    import torch
+    from simulst_tpu_torch.ops.fbank import fbank_batch
+    from simulst_tpu_torch.stream.build import build_agent
+    from simulst_tpu_torch.stream.evaluator import evaluate
+
+    rng = np.random.RandomState(SEED + 7)
+    wavs = np.clip(np.round(synthetic_audio(rng, SERVE_UTT, ASR_FRAMES)),
+                   -32768, 32767).astype(np.int16)
+    with torch.no_grad():
+        feats = fbank_batch(torch.from_numpy(wavs.astype(np.float32)))
+    gcmvn = os.path.join(workdir, "gcmvn.npz")
+    np.savez(gcmvn, mean=feats.mean(dim=(0, 1)).numpy(),
+             std=feats.std(dim=(0, 1)).numpy())
+    vocab = serve_vocab()
+    refs = [" ".join(f"w{k}" for k in range(i, i + 12))
+            for i in range(SERVE_UTT)]
+
+    def serve(kind, fused, eos_scale):
+        agent = build_agent(checkpoints[kind], vocab, agent_type=kind,
+                            global_cmvn_path=gcmvn, fused=fused, device=dev)
+        with torch.no_grad():
+            agent.model.decoder.embed_tokens.weight[agent.cfg.eos_idx] *= \
+                eos_scale
+        sessions, chunk_ms = [], []
+        make = agent.new_session
+
+        def new_session():
+            session = make()
+            sessions.append(session)
+            if fused:
+                step = session.process_chunk
+
+                def timed(samples, finished):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = step(samples, finished)
+                    torch.cuda.synchronize()
+                    chunk_ms.append((time.perf_counter() - t0) * 1e3)
+                    return out
+                session.process_chunk = timed
+            return session
+
+        agent.new_session = new_session
+        scores = evaluate(agent, list(wavs), refs)
+        tokens = [s.state.tokens[0, :int(s.state.n_tokens[0])].tolist()
+                  if fused else s.target_ids for s in sessions]
+        return scores, tokens, chunk_ms
+
+    runs = [(kind, eos_scale) for kind in ("cif", "mma")
+            for eos_scale in (1.0, 0.1)]
+    reset_launches()
+    fused = {run: serve(*run[:1], True, run[1]) for run in runs}
+    launches = read_launches()
+    missing = [k for k in CIF_SERVE_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"{missing} did not launch in the serving "
+                             f"path: {launches}")
+    for (kind, eos_scale), (scores, tokens, chunk_ms) in fused.items():
+        _, want, _ = serve(kind, False, eos_scale)
+        if tokens != want:
+            raise AssertionError(f"{kind}: fused session tokens {tokens} "
+                                 f"differ from the step-wise sessions' "
+                                 f"{want}")
+        if not all(np.isfinite(scores[k]) for k in ("AL", "AP", "DAL")):
+            raise AssertionError(f"{kind}: scores {scores}")
+        log("phase14", agent=kind, eos_row_scale=eos_scale,
+            utterances=SERVE_UTT, frames=ASR_FRAMES,
+            chunks=len(chunk_ms), median_ms_per_chunk=statistics.median(
+                chunk_ms), mean_ms_per_chunk=statistics.mean(chunk_ms),
+            max_chunk_ms=max(chunk_ms), tokens=[len(t) for t in tokens],
+            fused_equals_stepwise=True,
+            **{k: scores[k] for k in ("BLEU", "AL", "AP", "DAL", "AL_CA",
+                                      "truncated")})
+    log("phase14", launches=launches,
+        cif_launches_per_chunk=launches["cif_integrate"]
+        / sum(len(fused[run][2]) for run in runs if run[0] == "cif"))
+    return launches
+
+
 def run(dev):
     import torch
     from simulst_tpu_torch.cli.generate import decode_batch
@@ -1482,6 +1792,7 @@ def run(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_name_and_power_limit()
+    started = time.perf_counter()
 
     # 1. build
     t0 = time.perf_counter()
@@ -1612,16 +1923,35 @@ def run(dev):
 
     # 10. MMA training steps from the ASR encoder
     mma_training, mma_model = phase_mma_train(dev, asr, asr_checkpoint)
-    workdir.cleanup()
+    from simulst_tpu_torch import config as cfglib
+    from simulst_tpu_torch.train.checkpoint import save_checkpoint
+    checkpoints = {kind: os.path.join(workdir.name, f"{kind}_checkpoint")
+                   for kind in ("cif", "mma")}
+    save_checkpoint(checkpoints["mma"], mma_model.state_dict(),
+                    {"model": "mma", "config": cfglib.to_dict(mma_model.cfg)})
 
     # 11. MMA streaming on the first utterance of the batch
     with torch.no_grad():
         phase_mma_stream(dev, mma_model, asr["feats"][:1])
-    del mma_model, asr
+    del mma_model
 
-    # 12. report
+    # 12. the CIF kernel vs plain
+    with torch.no_grad():
+        report.update(phase_cif_kernels(dev))
+
+    # 13. CIF training steps from the ASR encoder
+    cif_training = phase_cif_train(dev, asr, asr_checkpoint,
+                                   checkpoints["cif"])
+    del asr
+
+    # 14. CIF and MMA through the streaming evaluator
+    cif_serving = phase_serve(dev, workdir.name, checkpoints)
+    workdir.cleanup()
+
+    # 15. report
     paths = {"serving": serving, "training": training,
-             "asr-training": asr_training, "mma-training": mma_training}
+             "asr-training": asr_training, "mma-training": mma_training,
+             "cif-training": cif_training, "cif-serving": cif_serving}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -1630,6 +1960,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
+    log("phase15", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

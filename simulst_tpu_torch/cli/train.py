@@ -22,6 +22,17 @@ and MMA with the latency loss from that encoder (--task st --model mma
       --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 40000 \\
       --update-freq 4 --patience 25 --save-dir checkpoints/mma
 
+and CIF from the same encoder (--task st --model cif --loss cif), the
+recipe exp/3_cif.sh:
+
+  python -m simulst_tpu_torch.cli.train --data DATA/en-de --task st \\
+      --model cif --loss cif --cmvn global --override cif_beta=1.0 \\
+      --override ctc_layer=true --loss-override ctc_factor=0.3 \\
+      --loss-override quant_factor=1.0 --loss-override quant_type=align \\
+      --load-pretrained-encoder-from checkpoints/asr/checkpoint_last \\
+      --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 40000 \\
+      --update-freq 4 --patience 25 --save-dir checkpoints/cif
+
 The manifests are <data>/{train,dev}_st.tsv (speech: id, audio, n_frames,
 src_text, tgt_text; text: src_text and tgt_text), the dictionary
 <data>/spm_*.txt (or --vocab), global CMVN stats <data>/gcmvn.npz.  asr
@@ -50,9 +61,11 @@ from simulst_tpu_torch.data.dataset import (BatcherConfig, SpeechDataset,
 from simulst_tpu_torch.data.manifest import filter_by_frames, load_tsv
 from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
 from simulst_tpu_torch.data.vocab import PAD, Vocabulary
+from simulst_tpu_torch.losses.cif_loss import CIFLossConfig, cif_loss
 from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
 from simulst_tpu_torch.losses.mma_loss import MMALossConfig, mma_loss
+from simulst_tpu_torch.models.cif import CIFConfig, CIFModel
 from simulst_tpu_torch.models.mma import MMAConfig, MMAModel
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
 from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
@@ -69,10 +82,12 @@ from simulst_tpu_torch.train.optim import OptimConfig
 PORTED = {("mt", "mt_transformer", "ce"),
           ("asr", "s2t_emformer", "joint_ctc"),
           ("st", "s2t_emformer", "joint_ctc"),
-          ("st", "mma", "mma")}
+          ("st", "mma", "mma"),
+          ("st", "cif", "cif")}
 MODELS = {"mt_transformer": (MTConfig, MTTransformerModel),
           "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel),
-          "mma": (MMAConfig, MMAModel)}
+          "mma": (MMAConfig, MMAModel),
+          "cif": (CIFConfig, CIFModel)}
 LABEL_SMOOTHING = 0.1
 
 
@@ -152,7 +167,7 @@ def _checkpoint_params(path: str):
 
 def build_model(args, vocab_size: int, device=None):
     """The model's default config (transformer_small, s2t_emformer_s, or
-    MMA on s2t_emformer_s) with --override applied; weights from a
+    MMA or CIF on s2t_emformer_s) with --override applied; weights from a
     generator seeded with --seed, then from --load-params and the
     --load-pretrained-*-from components."""
     config_cls, model_cls = MODELS[args.model]
@@ -178,7 +193,6 @@ def build_model(args, vocab_size: int, device=None):
 def build_loss(args, model):
     """loss_fn(model, batch, rngs) -> (summed loss, metrics); no dropout
     and no SpecAugment when rngs is None (validation)."""
-    del model
     if args.loss == "ce":
         def fn(model, batch, rngs):
             logits, _ = model(batch["src_tokens"], batch["prev_tokens"],
@@ -197,6 +211,13 @@ def build_loss(args, model):
 
         def criterion(logits, extra, batch):
             return mma_loss(logits, extra, batch["target"],
+                            batch["feat_lengths"], lcfg)
+    elif args.loss == "cif":
+        lcfg = cfglib.apply_overrides(
+            CIFLossConfig(cif_beta=model.cfg.cif_beta), args.loss_overrides)
+
+        def criterion(logits, extra, batch):
+            return cif_loss(logits, extra, batch["target"],
                             batch["feat_lengths"], lcfg)
     else:
         lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)

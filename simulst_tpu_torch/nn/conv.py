@@ -60,8 +60,11 @@ class ConvCache(NamedTuple):
 def causal_conv1d_step(p, cache: ConvCache, x, stride: int = 1
                        ) -> Tuple[torch.Tensor, ConvCache]:
     """Conv over [cache (k-1), chunk]; the cache becomes the last k-1 frames
-    of that concatenation.  x: (B, c, Cin), c % stride == 0."""
+    of that concatenation.  x: (B, c, Cin), c % stride == 0; an empty
+    chunk gives no frames and keeps the cache."""
     k = _kernel_size(p)
+    if x.shape[1] == 0:
+        return x.new_zeros(x.shape[0], 0, p.weight.shape[0]), cache
     full = torch.cat([cache.feat, x], dim=1)
     y = _conv1d(full, p.weight, stride) + p.bias.to(x.dtype)
     return y, ConvCache(feat=full[:, full.shape[1] - (k - 1):])

@@ -91,6 +91,8 @@ SIGNATURES = {
     "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
     # prefix, denom, alphas, g, d_prefix, d_denom, carry, N, U, S, stream
     "simulst_alignment_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    # x, csum, cprev, out, delays, B, S, T, C, beta, stream
+    "simulst_cif_integrate": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
 

@@ -16,6 +16,7 @@ NEG = -1e30 is a finite sentinel for impossible states, not -inf, so that
 logaddexp of two blocked states stays finite and the zero_infinity test
 (nll <= 1e30 / 2) holds.
 
+`ctc_loss_raw` is its nll alone (the CIF criterion's CTC term).
 `ctc_loss` (on log-probs, differentiable through autograd), `best_alignment`
 and `alignment_to_labels` are plain torch, as they are XLA in the JAX
 package.  Emissions are a gather of the label columns (the JAX one-hot
@@ -244,6 +245,14 @@ def ctc_raw_smoothed(logits, input_lengths, targets, target_lengths,
     return _CTCRawSmoothed.apply(logits, input_lengths, targets,
                                  target_lengths, blank, zero_infinity,
                                  with_smooth)
+
+
+def ctc_loss_raw(logits, input_lengths, targets, target_lengths,
+                 blank: int = 0, zero_infinity: bool = True):
+    """The CTC nll sum from RAW logits: ctc_loss(log_softmax(logits), ...)
+    through the alpha / d_em kernels, without the smoothing term."""
+    return ctc_raw_smoothed(logits, input_lengths, targets, target_lengths,
+                            blank, zero_infinity, False)[0]
 
 
 def ctc_loss(log_probs, input_lengths, targets, target_lengths,

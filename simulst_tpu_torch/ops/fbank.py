@@ -1,6 +1,7 @@
 """Kaldi-compliance 80-dim log-mel filterbank on tensors (counterpart of
-simulst_tpu/ops/fbank.py `fbank_batch_jax`), plus utterance CMVN
-(simulst_tpu/data/features.py `utterance_cmvn`).
+simulst_tpu/ops/fbank.py `fbank_batch_jax`), utterance CMVN
+(simulst_tpu/data/features.py `utterance_cmvn`) and the streaming agents'
+incremental `OnlineFbank`.
 
 Same spec as the JAX package: 16 kHz, 25 ms window / 10 ms shift,
 snip_edges, dither 0, DC offset removed, preemphasis 0.97, povey window,
@@ -97,3 +98,44 @@ def utterance_cmvn(feats):
     mean = feats.mean(dim=-2, keepdim=True)
     std = feats.std(dim=-2, unbiased=False, keepdim=True)
     return (feats - mean) / torch.clamp_min(std, 1e-10)
+
+
+class OnlineFbank:
+    """Incremental fbank for the streaming agents (a copy of the JAX
+    package's OnlineFbank over `fbank_batch` on the host): the samples
+    that do not fill another frame carry over to the next call, so that
+    chunked extraction equals the offline one.  Optional global CMVN
+    (mean, std)."""
+
+    def __init__(self, sample_rate: int = 16000, n_mels: int = 80,
+                 global_cmvn=None):
+        self.sample_rate = sample_rate
+        self.n_mels = n_mels
+        self.window_size, self.window_shift, _ = frame_params(sample_rate)
+        self.previous_residual = np.zeros((0,), np.float32)
+        self.global_cmvn = global_cmvn
+
+    def reset(self):
+        self.previous_residual = np.zeros((0,), np.float32)
+
+    def __call__(self, new_samples) -> np.ndarray:
+        """new_samples: a waveform in [-1, 1], or int16 PCM (converted by
+        the exact power-of-two scale); returns (t, n_mels) fp32."""
+        new_samples = np.asarray(new_samples)
+        if new_samples.dtype == np.int16:
+            new_samples = new_samples.astype(np.float32) / (2 ** 15)
+        samples = np.concatenate([self.previous_residual,
+                                  np.asarray(new_samples, np.float32)])
+        n = num_frames(len(samples), self.sample_rate)
+        if n == 0:
+            self.previous_residual = samples
+            return np.zeros((0, self.n_mels), np.float32)
+        consumed = n * self.window_shift
+        self.previous_residual = samples[consumed:]
+        wav = samples[: consumed + self.window_size - self.window_shift]
+        feats = fbank_batch(torch.from_numpy(wav * (2 ** 15))[None],
+                            self.sample_rate, self.n_mels)[0].numpy()
+        if self.global_cmvn is not None:
+            mean, std = self.global_cmvn
+            feats = ((feats - mean) / std).astype(np.float32)
+        return feats

@@ -1,0 +1,195 @@
+"""Streaming evaluator, a local SimulEval (counterpart of
+simulst_tpu/stream/evaluator.py).
+
+Drives an agent through the READ/WRITE protocol utterance by utterance,
+merges the BPE units into words (a word's delay is the ms of source read
+when the word is committed, i.e. when the next word-initial unit arrives),
+and scores BLEU and the AL / AP / DAL latencies, with computation-aware
+(_CA) variants from the wall clock.  A fused session (one call per chunk)
+commits the tokens of a chunk at that chunk.  The batched evaluation
+(`evaluate_batched`, the scanned sessions, `merge_honest_ca`) is not
+ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from simulst_tpu_torch.data.vocab import EOS
+from simulst_tpu_torch.decode.scoring import corpus_bleu
+from simulst_tpu_torch.stream.agents import BOW_PREFIX, READ
+
+SAMPLE_RATE = 16000
+
+
+def _latency(delays: List[float], src_ms: float, tgt_len: int, kind: str):
+    if not delays:
+        return 0.0
+    d = np.asarray(delays, np.float64)
+    n = len(d)
+    if kind == "AP":
+        return float(d.sum() / (src_ms * n))
+    gamma = n / src_ms
+    idx = np.arange(n)
+    if kind == "AL":
+        reached = d >= src_ms
+        tau = int(np.argmax(reached)) if reached.any() else n - 1
+        lag = d[: tau + 1] - idx[: tau + 1] / gamma
+        return float(lag.mean())
+    if kind == "DAL":
+        g = np.maximum.accumulate(d - idx / gamma) + idx / gamma
+        return float((g - idx / gamma).mean())
+    raise ValueError(kind)
+
+
+@dataclasses.dataclass
+class Instance:
+    index: int
+    prediction: str
+    reference: str
+    delays: List[float]
+    elapsed: List[float]
+    source_length_ms: float
+    truncated: bool = False   # a fixed buffer overflowed; output cut short
+
+    def metrics(self) -> Dict[str, float]:
+        n = max(len(self.delays), 1)
+        out = {}
+        for kind in ("AL", "AP", "DAL"):
+            out[kind] = _latency(self.delays, self.source_length_ms, n, kind)
+            out[kind + "_CA"] = _latency(self.elapsed, self.source_length_ms,
+                                         n, kind)
+        return out
+
+
+class _WordMerger:
+    """BPE units -> words, each with the delay at which it was committed."""
+
+    def __init__(self, symbols, t0: float):
+        self.symbols = symbols
+        self.t0 = t0
+        self.words: List[str] = []
+        self.delays: List[float] = []
+        self.elapsed: List[float] = []
+        self._buf: List[str] = []
+
+    def flush(self, consumed: int):
+        if self._buf:
+            w = "".join(self._buf).replace(BOW_PREFIX, "").strip()
+            if w:
+                delay = consumed / SAMPLE_RATE * 1000.0
+                self.words.append(w)
+                self.delays.append(delay)
+                self.elapsed.append((time.perf_counter() - self.t0) * 1000.0
+                                    + delay)
+            self._buf.clear()
+
+    def push(self, tok: int, consumed: int):
+        piece = self.symbols[tok]
+        if piece.startswith(BOW_PREFIX) and self._buf:
+            self.flush(consumed)
+        self._buf.append(piece)
+
+
+def run_session(agent, waveform: np.ndarray, max_actions: int = 10000
+                ) -> Tuple[List[str], List[float], List[float], bool]:
+    """Drive one utterance; returns (words, delays_ms, elapsed_ms,
+    truncated), truncated when a fixed streaming buffer overflowed."""
+    session = agent.new_session()
+    if hasattr(session, "process_chunk"):
+        return _run_fused(agent, session, waveform)
+    total = len(waveform)
+    consumed = 0
+    merger = _WordMerger(agent.vocab.symbols, time.perf_counter())
+    force_read = False
+    for _ in range(max_actions):
+        if session.finished:
+            break
+        action = READ if force_read else session.policy()
+        force_read = False
+        if action == READ:
+            if session.finished_read:
+                # nothing left to read; avoid a livelock
+                if session.policy() == READ:
+                    break
+                continue
+            n = int(session.next_chunk_ms / 1000.0 * SAMPLE_RATE)
+            chunk = waveform[consumed: consumed + n]
+            consumed = min(consumed + n, total)
+            session.push_audio(chunk, finished=consumed >= total)
+        else:
+            tok = session.predict()
+            if tok is None:
+                force_read = True
+                continue
+            if tok == EOS:
+                break
+            merger.push(tok, consumed)
+    merger.flush(consumed)
+    return merger.words, merger.delays, merger.elapsed, session.truncated
+
+
+def _run_fused(agent, session, waveform: np.ndarray):
+    """Chunk-level loop of a fused session: one call per chunk, the same
+    word and delay bookkeeping (tokens committed at the chunk that wrote
+    them)."""
+    total = len(waveform)
+    consumed = 0
+    merger = _WordMerger(agent.vocab.symbols, time.perf_counter())
+    while consumed < total and not session.finished:
+        n = int(session.next_chunk_ms / 1000.0 * SAMPLE_RATE)
+        chunk = waveform[consumed: consumed + n]
+        consumed = min(consumed + n, total)
+        for tok in session.process_chunk(chunk, finished=consumed >= total):
+            if tok == EOS:
+                break
+            merger.push(tok, consumed)
+    merger.flush(consumed)
+    return merger.words, merger.delays, merger.elapsed, session.truncated
+
+
+def evaluate(agent, utterances, references: Optional[List[str]] = None,
+             log_path: Optional[str] = None) -> Dict[str, float]:
+    """utterances: waveforms (fp32 in [-1, 1], or int16); returns the scores
+    (BLEU and the mean latencies), SimulEval's `scores` json."""
+    instances = []
+    for i, wav in enumerate(utterances):
+        words, delays, elapsed, trunc = run_session(agent, np.asarray(wav))
+        instances.append(Instance(
+            index=i, prediction=" ".join(words),
+            reference=references[i] if references else "", delays=delays,
+            elapsed=elapsed, source_length_ms=len(wav) / SAMPLE_RATE * 1e3,
+            truncated=trunc))
+    return _score_and_log(instances, bool(references), log_path,
+                          mode="stepwise")
+
+
+def _score_and_log(instances, have_refs: bool, log_path: Optional[str],
+                   mode: str) -> Dict[str, float]:
+    """Scores and the instances log; `mode` says how the _CA timings were
+    taken ("stepwise": per chunk, on the wall clock)."""
+    scores: Dict[str, float] = {"mode": mode}
+    n_trunc = sum(1 for x in instances if x.truncated)
+    scores["truncated"] = n_trunc
+    if n_trunc:
+        print(f"WARNING: {n_trunc}/{len(instances)} utterances overflowed a "
+              "fixed streaming buffer and were cut short: raise "
+              "--max-src-frames / --max-tgt-len (their scores are not "
+              "trustworthy; see 'truncated' in the log)", file=sys.stderr)
+    if have_refs:
+        scores["BLEU"] = corpus_bleu([x.reference for x in instances],
+                                     [x.prediction for x in instances])
+    for kind in ("AL", "AL_CA", "AP", "AP_CA", "DAL", "DAL_CA"):
+        vals = [inst.metrics()[kind] for inst in instances if inst.delays]
+        scores[kind] = float(np.mean(vals)) if vals else 0.0
+    if log_path:
+        with open(log_path, "w") as f:
+            for inst in instances:
+                f.write(json.dumps({**dataclasses.asdict(inst),
+                                    "mode": mode}) + "\n")
+    return scores

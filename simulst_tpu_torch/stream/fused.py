@@ -1,16 +1,20 @@
-"""Per-chunk streaming step of the MMA policy: READ + every WRITE of one
-audio chunk in one call (counterpart of the MMA part of
+"""Per-chunk streaming steps of the CIF and MMA policies: READ + every
+WRITE of one audio chunk in one call (counterpart of
 simulst_tpu/stream/fused.py).
 
 One call runs the incremental encoder on a chunk for B utterances in
-lock-step, appends the new frames to each example's encoder buffer, then
-keeps decoding until every example demands a READ (any monotonic head
-wants more source), emits EOS, or rejects a premature EOS (before the
-final chunk), with per-example rollback: an example that does not WRITE
-keeps its old KV caches and step and adopts only its advanced monotonic
-head positions.  The JAX step is one lax.while_loop on the device; here
-the loop is Python over `mma_decoder_step` calls, with one host read of
-"anyone still writing" per attempt.
+lock-step, then keeps decoding until every example's policy demands more
+source, emits EOS, or rejects a premature EOS (before the final chunk),
+with per-example rollback.  CIF: the new encoder frames go through the
+streaming CIF layer and its fired features are appended to each example's
+CIF buffer; an example WRITEs while its fired length exceeds its decoded
+length, or once the source is complete.  MMA: the frames are appended to
+each example's encoder buffer and the model decides (any monotonic head
+demanding source is a READ); an example that does not WRITE keeps its old
+KV caches and step and adopts only its advanced monotonic head positions.
+The JAX steps are one lax.while_loop on the device; here the loop is
+Python over `cif_decoder_step` / `mma_decoder_step` calls, with one host
+read of "anyone still writing" per attempt.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
 
@@ -51,6 +56,111 @@ def _append_rows(buf, buf_len, new, n_new):
     out = torch.where(take[:, :, None], gathered.to(buf.dtype), buf)
     want = buf_len + n_new.to(buf_len.dtype)
     return out, torch.clamp(want, max=tmax), want > tmax
+
+
+def _raise_on_n_valid(n_valid):
+    if n_valid is not None:
+        raise NotImplementedError(
+            "per-example n_valid needs encoder_step's feat_valid flush, "
+            "which is not yet ported (ROADMAP Queue 1 item 5)")
+
+
+def _prev_tokens(tokens, n_tok, eos: int):
+    """Each example's last written token, EOS before the first."""
+    last = tokens.gather(1, torch.clamp(n_tok - 1, min=0)[:, None])[:, 0]
+    return torch.where(n_tok > 0, last, torch.full_like(last, eos))
+
+
+class CIFFusedState(NamedTuple):
+    enc: s2t.EncoderStreamState
+    cif: cif_mod.CIFStreamState
+    dec: cif_mod.CIFDecoderState
+    cif_buf: torch.Tensor                # (B, Tmax, D) fired features
+    cif_len: torch.Tensor                # (B,) int64
+    tokens: torch.Tensor                 # (B, Tmax) int64 written so far
+    n_tokens: torch.Tensor               # (B,) int64
+    finished: torch.Tensor               # (B,) bool: EOS written
+    truncated: torch.Tensor              # (B,) bool: a buffer overflowed
+
+
+def cif_fused_init(model: cif_mod.CIFModel, cfg: cif_mod.CIFConfig,
+                   max_tokens: int, batch: int = 1, dtype=torch.float32,
+                   device=None) -> CIFFusedState:
+    device = device or next(model.parameters()).device
+    return CIFFusedState(
+        enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
+        cif=cif_mod.cif_layer_init_state(model.cif, cfg, batch, dtype,
+                                         device),
+        dec=cif_mod.cif_decoder_init_state(cfg, batch, max_tokens, dtype,
+                                           device),
+        cif_buf=torch.zeros(batch, max_tokens, cfg.embed_dim, dtype=dtype,
+                            device=device),
+        cif_len=torch.zeros(batch, dtype=torch.int64, device=device),
+        tokens=torch.full((batch, max_tokens), cfg.padding_idx,
+                          dtype=torch.int64, device=device),
+        n_tokens=torch.zeros(batch, dtype=torch.int64, device=device),
+        finished=torch.zeros(batch, dtype=torch.bool, device=device),
+        truncated=torch.zeros(batch, dtype=torch.bool, device=device))
+
+
+def make_cif_fused_step(model: cif_mod.CIFModel, cfg: cif_mod.CIFConfig,
+                        overshoot_weight: float = 1.0,
+                        max_writes_per_chunk: int = 64):
+    """Returns step(state, feats, finish=False) -> (state, n_new): the
+    encoder step on feats (B, f, F) (or None) and the streaming CIF layer
+    on its output, then the WRITE loop; at most max_writes_per_chunk
+    attempts mid-stream, up to the token buffer on the final chunk.  `cfg`
+    may differ from model.cfg (a test-time cif_beta).  A per-example count
+    of valid frames (the JAX step's n_valid) is not ported."""
+
+    @torch.no_grad()
+    def step(state: CIFFusedState, feats, finish: bool = False,
+             n_valid: Optional[torch.Tensor] = None
+             ) -> Tuple[CIFFusedState, torch.Tensor]:
+        _raise_on_n_valid(n_valid)
+        enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
+                                              feats, finish)
+        fired, n_emit, cif_state = cif_mod.cif_layer_step(
+            model.cif, cfg, state.cif, enc_out.encoder_out, finish)
+        cif_buf, cif_len, overflow = _append_rows(
+            state.cif_buf, state.cif_len, fired, n_emit)
+        b, tmax = state.tokens.shape
+        pos = torch.arange(tmax, device=cif_len.device)[None, :]
+        cap = (tmax - 1) if finish else max_writes_per_chunk
+
+        dec, tokens, n_tok, finished = (state.dec, state.tokens,
+                                        state.n_tokens, state.finished)
+        stopped = torch.zeros_like(finished)
+        for _ in range(cap):
+            # WRITE while the fired length exceeds the decoded length, or
+            # once the source is complete
+            want = (cif_len > n_tok) | finish
+            active = ~finished & ~stopped & want & (n_tok < tmax - 1)
+            if not bool(active.any()):
+                break
+            logits, new_dec = cif_mod.cif_decoder_step(
+                model.decoder, cfg, dec, _prev_tokens(tokens, n_tok,
+                                                      cfg.eos_idx),
+                cif_buf, cif_len, overshoot_weight=overshoot_weight)
+            tok = logits.argmax(-1)
+            is_eos = tok == cfg.eos_idx
+            # EOS before the final chunk: discard that example's attempt
+            reject = is_eos & (not finish)
+            accept = active & ~reject
+            dec = _where_b(accept, new_dec, dec)
+            tokens = torch.where((pos == n_tok[:, None]) & accept[:, None],
+                                 tok[:, None], tokens)
+            n_tok = n_tok + accept.long()
+            finished = finished | (accept & is_eos)
+            stopped = stopped | (active & reject)
+        trunc = state.truncated | overflow | (~finished & (n_tok >= tmax - 1))
+        new_state = CIFFusedState(enc=enc_state, cif=cif_state, dec=dec,
+                                  cif_buf=cif_buf, cif_len=cif_len,
+                                  tokens=tokens, n_tokens=n_tok,
+                                  finished=finished, truncated=trunc)
+        return new_state, n_tok - state.n_tokens
+
+    return step
 
 
 class MMAFusedState(NamedTuple):
@@ -95,10 +205,7 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
     def step(state: MMAFusedState, feats, finish: bool = False,
              n_valid: Optional[torch.Tensor] = None
              ) -> Tuple[MMAFusedState, torch.Tensor]:
-        if n_valid is not None:
-            raise NotImplementedError(
-                "per-example n_valid needs encoder_step's feat_valid flush, "
-                "which is not yet ported (ROADMAP Queue 1 item 5)")
+        _raise_on_n_valid(n_valid)
         enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
                                               feats, finish)
         enc_buf, src_len, overflow = _append_rows(
@@ -108,7 +215,6 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
         dev = state.tokens.device
         pos = torch.arange(tmax, device=dev)[None, :]
         cap = (tmax - 1) if finish else max_writes_per_chunk
-        eos = torch.full((b,), cfg.eos_idx, dtype=torch.int64, device=dev)
 
         dec, tokens, n_tok, finished = (state.dec, state.tokens,
                                         state.n_tokens, state.finished)
@@ -117,11 +223,10 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
             attempted = ~finished & ~stopped & (n_tok < tmax - 1)
             if not bool(attempted.any()):
                 break
-            prev = torch.where(n_tok > 0, tokens.gather(
-                1, torch.clamp(n_tok - 1, min=0)[:, None])[:, 0], eos)
             logits, action, new_dec = mma_mod.mma_decoder_step(
-                model.decoder, cfg, dec, prev, enc_buf, src_len,
-                online=not finish)
+                model.decoder, cfg, dec, _prev_tokens(tokens, n_tok,
+                                                      cfg.eos_idx),
+                enc_buf, src_len, online=not finish)
             tok = logits.argmax(-1)
             is_eos = tok == cfg.eos_idx
             read = attempted & (action == 0)

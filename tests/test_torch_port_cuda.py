@@ -12,13 +12,17 @@ sums.  Dropout cases run at rate 0.1 with one seed on both sides, which
 then draw the same Philox mask.  The CTC alphas and d_em hold their finite
 entries to atol 1e-4 and their -1e30 sentinels exactly.  The MMA alignment
 recursion holds its alphas to atol 1e-4 and d_prefix and d_denom to 1e-4
-of their largest entries (d_denom spans many orders of magnitude).
+of their largest entries (d_denom spans many orders of magnitude).  The
+CIF integrate-and-fire holds out and delays to 1e-5 of their largest
+entries (both sides take the same cumsums; only the order of the sums
+over frames differs).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from simulst_tpu_torch.ops import conv_pos, ctc, monotonic_align  # noqa: E402
+from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,  # noqa: E402
+                                   monotonic_align)
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
     AttnGeom, emformer_grouped_attention, emformer_grouped_attention_backward,
     grouped_attention_plain, grouped_attention_plain_backward)
@@ -325,3 +329,44 @@ def test_alignment_kernels_refuse_what_they_do_not_take(randn):
         monotonic_align.alignment_fwd(prefix, denom[:, :2])
     with pytest.raises(ValueError):
         monotonic_align.alignment_bwd(prefix, denom, prefix, g[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,c,t,beta", [
+    (32, 256, 256, 65, 1.0),      # the cif-train batch
+    (1, 17, 256, 19, 1.0),        # a streaming chunk: carry + 16 frames
+    (4, 29, 256, 1, 1.0),         # ragged, one bucket
+    (2, 512, 256, 300, 1.0),      # more than 128 buckets, two S tiles
+    (8, 256, 256, 80, 0.8),       # test-time beta
+    (3, 40, 300, 12, 1.0)])       # C above one block of threads
+def test_cif_integrate_matches_plain(randn, b, s, c, t, beta):
+    x = randn(b, s, c)
+    alpha = torch.sigmoid(randn(b, s))
+    alpha[0, s // 2:] = 0.0                          # padding
+    before = cif_integrate.cif_integrate.launches
+    out, delays = cif_integrate.cif_integrate(x, alpha, beta, t)
+    assert cif_integrate.cif_integrate.launches == before + 1
+    want = cif_integrate.cif_integrate_plain(x, alpha, beta, t)
+    for got, ref in zip((out, delays), want):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+    xg, ag = x.clone().requires_grad_(), alpha.clone().requires_grad_()
+    out, delays = cif_integrate.cif_integrate(xg, ag, beta, t)
+    ((out ** 2).sum() + delays.sum()).backward()
+    xp, ap = x.clone().requires_grad_(), alpha.clone().requires_grad_()
+    out, delays = cif_integrate.cif_integrate_plain(xp, ap, beta, t)
+    ((out ** 2).sum() + delays.sum()).backward()
+    for got, ref in ((xg.grad, xp.grad), (ag.grad, ap.grad)):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cif_integrate_refuses_what_it_does_not_take(randn):
+    x, alpha = randn(2, 8, 16), torch.sigmoid(randn(2, 8))
+    with pytest.raises(ValueError):
+        cif_integrate.cif_integrate(x, alpha[:, :5], 1.0, 4)
+    with pytest.raises(ValueError):
+        cif_integrate.cif_integrate(x, alpha, 0.0, 4)
+    with pytest.raises(ValueError):
+        cif_integrate.cif_integrate(x, alpha.cpu(), 1.0, 4)

@@ -10,6 +10,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from simulst_tpu_torch.models import s2t_emformer as s2t  # noqa: E402
+from simulst_tpu_torch.models.cif import CIFConfig, CIFModel  # noqa: E402
+from simulst_tpu_torch.models.mma import MMAConfig, MMAModel  # noqa: E402
 from simulst_tpu_torch.models.mt_transformer import (MTConfig,  # noqa: E402
                                                      MTTransformerModel)
 from simulst_tpu_torch.nn import transformer as tfm  # noqa: E402
@@ -44,8 +46,10 @@ def moves(monkeypatch):
                                           ffn_dim=64, num_layers=1,
                                           num_heads=2, encoder_embed_dim=32)),
     lambda: MTTransformerModel(MTConfig(**MT)),
+    lambda: MMAModel(MMAConfig(**S2T)),
+    lambda: CIFModel(CIFConfig(**S2T)),
 ], ids=["S2TEmformerModel", "S2TEmformerEncoder", "Decoder",
-        "MTTransformerModel"])
+        "MTTransformerModel", "MMAModel", "CIFModel"])
 def test_models_default_to_the_card(moves, entry):
     entry()
     assert moves and moves[-1].type == "cuda"
