@@ -4,7 +4,8 @@ s2t_emformer serving slice, the MT-teacher training slice, the
 s2t_emformer joint-CTC training slice, the MMA slice (training as
 exp/2_mma.sh from that encoder, and its streaming READ/WRITE step) and the
 CIF slice (training as exp/3_cif.sh from that encoder, and serving CIF and
-MMA through the streaming evaluator, as cli/stream_eval does).
+MMA through the streaming evaluator, as cli/stream_eval does) and the
+sequence-packed ASR training of cli/train --pack.
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -101,7 +102,21 @@ targets):
               and 10; the fused sessions' tokens must equal the step-wise
               sessions'; ms per chunk, AL / AP / DAL, CIF launches per
               chunk
- 15. report   a JSON line of per-kernel numbers with their bounds, the
+ 15. asr-pack  the grouped attention's example-id gate (forward and
+              backward kernels) vs the plain version with the gate, at the
+              packed plans of phase 7's batch and of a mixed 96-1024-frame
+              batch, at dropout 0 and 0.1; CUDA-event times beside the
+              ungated kernel at the same shapes and SDPA on the gathered
+              context with the gate in its mask; then 8 Adam steps of
+              s2t_emformer_s with joint CTC through cli/train's parse_args
+              (--pack), build_model, build_loss and attach_pack_plan on
+              phase 7's batch: losses finite, launches per step as the
+              layer count predicts (the gated kernels, not the dense
+              ones); 3 profiled steps; one step at dropout 0 without
+              SpecAugment, packed vs unpacked from the same parameters
+              (encoder output on valid frames, loss, every gradient); and
+              kernels vs plain versions on that packed step
+ 16. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -135,6 +150,13 @@ or when any phase fails.  Tolerances:
                          order of the sums over frames differs)
   CIF train step, kernels vs plain: as the ASR step
   CIF and MMA serving tokens, fused sessions vs step-wise sessions: equal
+  packed vs unpacked ASR step, fp32, dropout 0, no SpecAugment: encoder
+                         output on valid frames atol 1e-4, loss rtol
+                         1e-5, every gradient within 2e-4 of its largest
+                         entry (the layouts sum in other orders)
+  packed ASR step, kernels vs plain: as the ASR step, but the gradient
+                         norm is logged, not limited (its rounding floor
+                         on this model reaches 2.1e-5 relative)
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -236,6 +258,14 @@ KERNELS = {
                       "mma-training"),
     "cif_integrate": ("cif_integrate", "simulst_tpu_torch/csrc/cif.cu",
                       "simulst_tpu/ops/cif_pallas.py:61", "cif-training"),
+    # the has_eid branches of the grouped attention: the same wrappers with
+    # a gate, counted on their gated_launches
+    "emformer_grouped_attention_gated": (
+        "emformer_attn", "simulst_tpu_torch/csrc/emformer_attn.cu",
+        "simulst_tpu/ops/emformer_attn_pallas.py:224", "asr-pack"),
+    "emformer_grouped_attention_gated_backward": (
+        "emformer_attn", "simulst_tpu_torch/csrc/emformer_attn.cu",
+        "simulst_tpu/ops/emformer_attn_pallas.py:259", "asr-pack"),
 }
 SERVING_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
                    "fused_ffn", "fused_linear_res", "fused_mha")
@@ -252,10 +282,21 @@ ASR_LAUNCHES_PER_STEP = {
     "fused_ln_ffn_res": 12, "fused_ln_ffn_res_backward": 12,
     "emformer_grouped_attention": 12,
     "emformer_grouped_attention_backward": 12,
+    "emformer_grouped_attention_gated": 0,
+    "emformer_grouped_attention_gated_backward": 0,
     "fused_linear_res": 24, "fused_linear_res_backward": 24,
     "fused_mha": 12, "fused_mha_backward": 12,
     "fused_ffn": 6, "fused_ffn_backward": 6,
     "convpos_wgrad": 1, "ctc_alphas": 1, "ctc_d_em": 1}
+# launches per packed ASR training step: the ASR step's, with the 12
+# Emformer layers' attention cores in the gated kernels
+PACK_LAUNCHES_PER_STEP = {
+    **ASR_LAUNCHES_PER_STEP,
+    "emformer_grouped_attention": 0,
+    "emformer_grouped_attention_backward": 0,
+    "emformer_grouped_attention_gated": 12,
+    "emformer_grouped_attention_gated_backward": 12}
+PACK_MIXED_MIN_FRAMES = 96
 # launches per MMA training step: the encoder's as in ASR training but no
 # CTC head; 6 decoder layers, each one self-attention core, two epilogues
 # (self-attention and monotonic attention out-projections), one FFN and
@@ -390,7 +431,9 @@ def gpu_name_and_power_limit():
 
 
 def wrappers():
-    """name -> the wrapper function that carries the launch count."""
+    """name -> (the wrapper function that carries the launch count, the
+    attribute counting that kernel's launches: `launches`, or
+    `gated_launches` for the gated grouped-attention kernels)."""
     from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,
                                        emformer_attn, ffn, linear_res, mha,
                                        monotonic_align)
@@ -398,16 +441,22 @@ def wrappers():
             "linear_res": linear_res, "mha": mha, "conv_pos": conv_pos,
             "ctc": ctc, "monotonic_align": monotonic_align,
             "cif_integrate": cif_integrate}
-    return {name: getattr(mods[m], name) for name, (m, *_) in KERNELS.items()}
+    out = {}
+    for name, (m, *_) in KERNELS.items():
+        base = name.replace("_gated", "")
+        out[name] = (getattr(mods[m], base),
+                     "launches" if base == name else "gated_launches")
+    return out
 
 
 def reset_launches():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fn, attr in wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in wrappers().items()}
 
 
 @contextlib.contextmanager
@@ -552,7 +601,7 @@ def phase_kernels(dev):
                             nbytes(x, x, *ffn_w.values()),
                             4 * x.shape[0] * d * hid)
                     elif name == "emformer_grouped_attention":
-                        vis = grouped_visible_pairs(ea, geom, lengths)
+                        vis = grouped_visible_pairs(ea, geom, *args, lengths)
                         b_ms, by = bound(nbytes(*args, out), 4 * d * vis)
                         sd, mask = sdpa_on_context(ea, geom, *args, lengths)
                         report[name]["library_ms"] = cuda_ms(
@@ -566,25 +615,19 @@ def phase_kernels(dev):
     return report
 
 
-def grouped_visible_pairs(ea, geom, lengths):
+def grouped_visible_pairs(ea, geom, q3, k, v, lengths, gate=None):
     """(query row, key) pairs the grouped attention scores visibly, summed
-    over the batch and groups (every head scores each once)."""
-    import torch
-    dev = lengths.device
-    idx, valid, utt_col, allowed = (torch.as_tensor(a, device=dev) for a in
-                                    ea.group_gather_indices(
-                                        geom.U, geom.seg, geom.lc, geom.rc,
-                                        geom.max_mem, geom.G))
-    in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
-    key_valid = valid[None] & in_len                          # (B, ng, ctx)
-    return int((key_valid[:, :, None, :] & allowed[None, None]).sum())
+    over the batch and groups (every head scores each once), with the
+    sequence-packing gate when given."""
+    return int(ea._context(q3, k, v, lengths, geom, gate)[3].sum())
 
 
-def sdpa_on_context(ea, geom, q3, k, v, lengths):
+def sdpa_on_context(ea, geom, q3, k, v, lengths, gate=None):
     """The grouped attention's gathered context as SDPA takes it: per-head
     (B ng, heads, rows, 64) fp32 queries, keys and values, and the boolean
-    (B ng, 1, nq, ctx) mask; the library yardstick beside the kernel."""
-    qh, kh, vh, visible, _ = ea._context(q3, k, v, lengths, geom)
+    (B ng, 1, nq, ctx) mask (the gate's rule in it when given); the library
+    yardstick beside the kernel."""
+    qh, kh, vh, visible, _ = ea._context(q3, k, v, lengths, geom, gate)
     rows = q3.shape[0] * geom.ng
     sd = [t.reshape(rows, geom.num_heads, t.shape[-2], t.shape[-1])
           .contiguous() for t in (qh, kh, vh)]
@@ -898,8 +941,19 @@ def phase_train(dev, batch):
     return launches
 
 
+def grad_scale(grads, name):
+    """The largest gradient entry that a parameter's error is held against:
+    its own, but for a key bias, which adds one q.b to every score of a
+    query row; the softmax ignores that (and MMA's soft attention nearly
+    so), so its exact gradient is 0 and both sides hold rounding noise: its
+    weight's."""
+    if name.endswith(("k_proj.bias", "k_proj_soft.bias")):
+        name = name[:-len("bias")] + "weight"
+    return max(grads[name].abs().max().item(), 1e-30)
+
+
 def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
-                       make_accum_train_step):
+                       make_accum_train_step, gnorm_rtol=1e-5):
     """One step at dropout 0 (no generator: no SpecAugment either) with the
     kernels and through the plain versions, from the same params, optimizer
     state and batch; the same functions as the train step, split so that
@@ -911,7 +965,8 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     plain version).  One more plain step from the parameters scaled by
     (1 + 1e-7 N(0, 1)), about one fp32 rounding each, measures how far
     rounding alone moves these gradients: the floor under the comparison's
-    limits."""
+    limits.  gnorm_rtol None logs the gradient norms without holding them
+    to a limit."""
     import torch
     grad_step, apply_step = make_accum_train_step(loss_fn, optim_cfg)
     outs = []
@@ -936,18 +991,8 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     (g_k, sd_k, loss_k, gn_k), (g_p, sd_p, loss_p, gn_p), \
         (g_n, _, _, gn_n) = outs
 
-    def grad_scale(name):
-        """The largest gradient entry that a parameter's error is held
-        against: its own, but for a key bias, which adds one q.b to every
-        score of a query row; the softmax ignores that (and MMA's soft
-        attention nearly so), so its exact gradient is 0 and both sides
-        hold rounding noise: its weight's."""
-        if name.endswith(("k_proj.bias", "k_proj_soft.bias")):
-            name = name[:-len("bias")] + "weight"
-        return max(g_p[name].abs().max().item(), 1e-30)
-
     def rel_errors(grads):
-        return {n: (grads[n] - g_p[n]).abs().max().item() / grad_scale(n)
+        return {n: (grads[n] - g_p[n]).abs().max().item() / grad_scale(g_p, n)
                 for n in grads}
 
     grad_rel = rel_errors(g_k)
@@ -960,7 +1005,9 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     before = state.model.state_dict()
     diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
     moved = max((sd_k[k] - before[k]).abs().max().item() for k in sd_k)
-    if grad_rel[worst] > 1e-4 or abs(gn_k - gn_p) > 1e-5 * gn_p or \
+    gnorm_off = gnorm_rtol is not None and \
+        abs(gn_k - gn_p) > gnorm_rtol * gn_p
+    if grad_rel[worst] > 1e-4 or gnorm_off or \
             abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
         raise AssertionError(
             f"{tag} train step kernels vs plain: gradient of {worst} off by "
@@ -1105,7 +1152,7 @@ def phase_asr_kernels(dev, batch):
         sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
                                                 dropout_p=rate)
     sd_dout = torch.randn_like(sd_out)
-    vis = grouped_visible_pairs(ea, geom, lengths)
+    vis = grouped_visible_pairs(ea, geom, *args)
     shape = f"q3=({b},{geom.ng},{geom.nq},{d}) kv=({b},{geom.tk},{d}) rate 0.1"
     log("phase7", kernel="emformer_grouped_attention", shape=shape,
         ms=cuda_ms(lambda: ea.emformer_grouped_attention_forward(
@@ -1300,7 +1347,239 @@ def phase_asr_train(dev, batch, save_path):
     del state
     compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase8",
                        make_accum_train_step)
-    return launches
+    return launches, statistics.median(step_ms[1:])
+
+
+def packed_attention_inputs(ea, plan, dev, g):
+    """Seeded fp32 q3, k, v, dout of the packed rows' grouped attention,
+    with the full-row lengths, the geometry (s2t_emformer_s's, G from the
+    row length) and the gate, on the card."""
+    import torch
+    from simulst_tpu_torch.models.s2t_emformer import S2TEmformerConfig
+    from simulst_tpu_torch.nn import emformer as emf
+    ecfg = S2TEmformerConfig().emformer
+    rows, n_p = plan.seg_eid.shape
+    geom = ea.AttnGeom(U=n_p * ecfg.segment, seg=ecfg.segment,
+                       lc=ecfg.left_context, rc=ecfg.right_context,
+                       max_mem=ecfg.max_memory,
+                       G=emf._choose_group(n_p, n_p * ecfg.segment, ecfg),
+                       num_heads=ecfg.num_heads)
+    eids = emf.make_packed_eids(ecfg, torch.from_numpy(plan.frame_eid),
+                                torch.from_numpy(plan.seg_eid))
+    gate = ea.EidGate(eids.kid.to(dev), eids.seg_eid.to(dev))
+    d = ecfg.input_dim
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    q3, dout = (randn(rows, geom.ng, geom.nq, d) for _ in range(2))
+    k, v = randn(rows, geom.tk, d), randn(rows, geom.tk, d)
+    full = torch.full((rows,), geom.U, dtype=torch.int32, device=dev)
+    return (q3, k, v, full), dout, geom, gate
+
+
+def phase_pack_kernels(dev, plans):
+    """The gated grouped attention vs its plain version with the gate on
+    each plan's packed rows, forward and backward at dropout 0 and 0.1;
+    CUDA-event times at 0.1 beside the ungated kernel at the same shapes
+    and SDPA with the gate in its mask.  The report holds the first
+    plan's (the main path's)."""
+    import torch
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import emformer_attn as ea
+
+    g = torch.Generator().manual_seed(SEED + 8)
+    report = {}
+    for label, plan in plans.items():
+        args, dout, geom, gate = packed_attention_inputs(ea, plan, dev, g)
+        d = args[0].shape[-1]
+        errs = {}
+        for rate in (0.0, 0.1):
+            out = ea.emformer_grouped_attention_forward(*args, geom, rate, 29,
+                                                        gate)
+            torch.cuda.synchronize()
+            e_fwd = max_err(f"gated attention {label} rate {rate}", out,
+                            ea.grouped_attention_plain(*args, geom, rate, 29,
+                                                       gate), **F32_TOL)
+            got = ea.emformer_grouped_attention_backward(*args, dout, geom,
+                                                         rate, 29, gate)
+            want = ea.grouped_attention_plain_backward(*args, dout, geom,
+                                                       rate, 29, gate)
+            torch.cuda.synchronize()
+            e_bwd = max(max_err(f"gated attention backward {label} rate "
+                                f"{rate} d{w}", x_, y_, **F32_TOL)
+                        for w, x_, y_ in zip("qkv", got, want))
+            errs = {"fwd": max(errs.get("fwd", 0.0), e_fwd),
+                    "bwd": max(errs.get("bwd", 0.0), e_bwd)}
+        rate = 0.1
+        sd, mask = sdpa_on_context(ea, geom, *args, gate)
+        sd = [t.requires_grad_() for t in sd]
+        with torch.enable_grad():
+            sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                    dropout_p=rate)
+        sd_dout = torch.randn_like(sd_out)
+        vis = grouped_visible_pairs(ea, geom, *args, gate)
+        vis_dense = grouped_visible_pairs(ea, geom, *args)
+        shape = (f"q3=({args[0].shape[0]},{geom.ng},{geom.nq},{d}) "
+                 f"kv=({args[0].shape[0]},{geom.tk},{d}) G {geom.G} rate 0.1")
+        fwd = dict(
+            max_abs_err=errs["fwd"], shape=shape,
+            ms=cuda_ms(lambda: ea.emformer_grouped_attention_forward(
+                *args, geom, rate, 29, gate)),
+            ungated_ms=cuda_ms(lambda: ea.emformer_grouped_attention_forward(
+                *args, geom, rate, 29)),
+            plain_ms=cuda_ms(lambda: ea.grouped_attention_plain(
+                *args, geom, rate, 29, gate), samples=5, runs=5),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                *sd, attn_mask=mask, dropout_p=rate)),
+            visible_pairs=vis, visible_pairs_ungated=vis_dense,
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(*args, *gate, out), 4 * d * vis))))
+        bwd = dict(
+            max_abs_err=errs["bwd"], shape=shape,
+            ms=cuda_ms(lambda: ea.emformer_grouped_attention_backward(
+                *args, dout, geom, rate, 29, gate)),
+            ungated_ms=cuda_ms(lambda: ea.emformer_grouped_attention_backward(
+                *args, dout, geom, rate, 29)),
+            plain_ms=cuda_ms(lambda: ea.grouped_attention_plain_backward(
+                *args, dout, geom, rate, 29, gate), samples=5, runs=5),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                sd_out, sd, sd_dout, retain_graph=True)),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(*args, *gate, dout, *got), 10 * d * vis))))
+        del sd, sd_out
+        log("phase15", kernel="emformer_grouped_attention_gated", plan=label,
+            **fwd)
+        log("phase15", kernel="emformer_grouped_attention_gated_backward",
+            plan=label, **bwd)
+        if not report:
+            report = {"emformer_grouped_attention_gated": fwd,
+                      "emformer_grouped_attention_gated_backward": bwd}
+    return report
+
+
+def phase_asr_pack(dev, batch, unpacked_median_ms):
+    """The --pack path: its plans and the gated kernels at their shapes,
+    then 8 full-width packed ASR training steps through the CLI's
+    parse_args, model, loss and attach_pack_plan, counting launches; 3
+    profiled steps; one step packed vs unpacked from the same parameters;
+    kernels vs plain on one packed step."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.train import packing
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    args = cli.parse_args(ASR_ARGS + ["--pack"])
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+
+    def plan_of(b):
+        host = cli.attach_pack_plan(dict(b), model, {})
+        return packing.PackPlan(*(host[f"pack_{f}"]
+                                  for f in packing.PackPlan._fields))
+
+    rng = np.random.RandomState(SEED + 9)
+    mixed = rng.randint(PACK_MIXED_MIN_FRAMES, ASR_FRAMES + 1, ASR_UTT)
+    mixed[0] = ASR_FRAMES
+    plans = {"phase 7 batch": plan_of(batch), "mixed 96-1024": plan_of(
+        {"feats": batch["feats"], "feat_lengths": torch.from_numpy(mixed)})}
+    n0 = ASR_FRAMES // 4 // 16
+    for label, plan in plans.items():
+        rows, n_p = plan.seg_eid.shape
+        log("phase15", plan=label, rows=rows, n_p=n_p,
+            row_frames=n_p * 16, G=s2t.emf._choose_group(
+                n_p, n_p * 16, model.cfg.emformer),
+            slots=rows * n_p, unpacked_slots=ASR_UTT * n0,
+            live_segments=int((plan.seg_eid >= 0).sum()),
+            dead_rows=int((plan.seg_eid < 0).all(axis=1).sum()))
+    with torch.no_grad():
+        report = phase_pack_kernels(dev, plans)
+
+    packed = {k: torch.as_tensor(v, device=dev) for k, v in
+              cli.attach_pack_plan(dict(batch), model, {}).items()}
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    initial = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(ASR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, packed, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / ASR_STEPS for k in PACK_LAUNCHES_PER_STEP}
+    if per_step != PACK_LAUNCHES_PER_STEP:
+        raise AssertionError(f"packed launches per step {per_step}, "
+                             f"expected {PACK_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses)) or state.step != ASR_STEPS:
+        raise AssertionError(f"losses {losses}, updates {state.step}")
+    median = statistics.median(step_ms[1:])
+    log("phase15", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer, "
+        "--pack", utterances=ASR_UTT, rows=int(packed["pack_seg_eid"].shape[0]),
+        steps=ASR_STEPS, first_step_ms=step_ms[0], median_step_ms=median,
+        unpacked_median_step_ms=unpacked_median_ms,
+        packed_over_unpacked=median / unpacked_median_ms, step_ms=step_ms,
+        losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
+        ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
+    state = profile_steps(state, train_step, packed, generator, "phase15")
+    del state
+
+    # packed vs unpacked from the same parameters, at dropout 0 without
+    # SpecAugment (no generator)
+    grad_step, _ = make_accum_train_step(loss_fn, optim_cfg)
+    outs = []
+    for b in (batch, packed):
+        st = copy.deepcopy(initial)
+        m = grad_step(st, b, None)
+        outs.append(({n: p.grad.clone() for n, p in
+                      st.model.named_parameters()}, float(m["loss"])))
+        del st
+    (g_d, loss_d), (g_p, loss_p) = outs
+    plan = packing.PackPlan(*(packed[f"pack_{f}"]
+                              for f in packing.PackPlan._fields))
+    with torch.no_grad():
+        enc = s2t.encoder_forward(initial.model.encoder, model.cfg,
+                                  batch["feats"], batch["feat_lengths"])
+        enc_p = s2t.encoder_forward_packed(initial.model.encoder, model.cfg,
+                                           batch["feats"],
+                                           batch["feat_lengths"], plan)
+    valid = (torch.arange(enc.encoder_out.shape[1], device=dev)[None, :]
+             < enc.lengths[:, None])
+    enc_err = max_err("packed vs unpacked encoder output",
+                      enc_p.encoder_out[valid], enc.encoder_out[valid],
+                      atol=1e-4, rtol=0.0)
+    rel = {n: (g_p[n] - g_d[n]).abs().max().item() / grad_scale(g_d, n)
+           for n in g_d}
+    worst = max(rel, key=rel.get)
+    if rel[worst] > 2e-4 or abs(loss_p - loss_d) > 1e-5 * abs(loss_d):
+        raise AssertionError(
+            f"packed vs unpacked step: gradient of {worst} off by "
+            f"{rel[worst]:.3e} of its largest entry; loss {loss_p} vs "
+            f"{loss_d}")
+    log("phase15", packed_vs_unpacked_loss=[loss_p, loss_d],
+        encoder_out_max_abs_err=enc_err,
+        grads_max_err_to_largest=rel[worst], grads_worst_param=worst,
+        grads_top=sorted(rel.items(), key=lambda kv: -kv[1])[:6])
+    # every gradient within 1e-4 of its largest entry, the loss and the
+    # updated parameters as in phase 8; the gradient norm only logged: on
+    # this model a 1e-7 perturbation of the parameters moves it by up to
+    # 2.1e-5 relative, and kernels vs plain differ by -1.4e-5 to +1.6e-5
+    # over four such perturbations, packed or not (tools/gnorm_floor.py,
+    # PERF.md), so a 1e-5 limit would hold it to rounding
+    compare_plain_step(initial, loss_fn, optim_cfg, packed, "phase15",
+                       make_accum_train_step, gnorm_rtol=None)
+    return launches, report
 
 
 def alignment_panels(dev, n, u, s, waitk=False):
@@ -1915,7 +2194,7 @@ def run(dev):
     # 8. ASR training steps; the trained encoder is MMA's starting point
     workdir = tempfile.TemporaryDirectory()
     asr_checkpoint = os.path.join(workdir.name, "asr_checkpoint_last")
-    asr_training = phase_asr_train(dev, asr, asr_checkpoint)
+    asr_training, asr_median_ms = phase_asr_train(dev, asr, asr_checkpoint)
 
     # 9. the MMA alignment kernels vs plain
     with torch.no_grad():
@@ -1942,16 +2221,21 @@ def run(dev):
     # 13. CIF training steps from the ASR encoder
     cif_training = phase_cif_train(dev, asr, asr_checkpoint,
                                    checkpoints["cif"])
-    del asr
 
     # 14. CIF and MMA through the streaming evaluator
     cif_serving = phase_serve(dev, workdir.name, checkpoints)
     workdir.cleanup()
 
-    # 15. report
+    # 15. sequence-packed ASR training (cli/train --pack)
+    pack_training, pack_report = phase_asr_pack(dev, asr, asr_median_ms)
+    report.update(pack_report)
+    del asr
+
+    # 16. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
-             "cif-training": cif_training, "cif-serving": cif_serving}
+             "cif-training": cif_training, "cif-serving": cif_serving,
+             "asr-pack": pack_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -1960,7 +2244,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase15", total_s=time.perf_counter() - started)
+    log("phase16", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

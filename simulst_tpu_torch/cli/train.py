@@ -42,9 +42,13 @@ training batches, never the validation ones.  --load-params and
 component of them, from a checkpoint of this package (checkpoint_last, a
 best or averaged checkpoint, or checkpoint_resume): a component takes
 exactly the keys the model has, so an ASR encoder's CTC head is left
-behind.  The model trains on the card unless --device names another.
-Any other task, model or loss, and the --eval-metric, --pack and --mtl
-options, raise: those are not yet ported (ROADMAP Queue 1).
+behind.  --pack (s2t_emformer + joint_ctc only) trains the Emformer stack
+over sequence-packed rows (train/packing.py): each training batch gets a
+pack plan, whose row length is fixed per frame bucket by that bucket's
+first batch; validation stays unpacked.  The model trains on the card
+unless --device names another.  Any other task, model or loss, and the
+--eval-metric and --mtl options, raise: those are not yet ported (ROADMAP
+Queue 1).
 """
 from __future__ import annotations
 
@@ -70,11 +74,13 @@ from simulst_tpu_torch.models.mma import MMAConfig, MMAModel
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
 from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
                                                    S2TEmformerModel)
+from simulst_tpu_torch.nn.conv import subsampler_out_lengths
 from simulst_tpu_torch.ops.specaugment import spec_augment
 from simulst_tpu_torch.train.checkpoint import (conform_state,
                                                 load_checkpoint,
                                                 load_pretrained_component,
                                                 save_checkpoint)
+from simulst_tpu_torch.train import packing
 from simulst_tpu_torch.train.loop import LoopConfig, Trainer
 from simulst_tpu_torch.train.optim import OptimConfig
 
@@ -131,10 +137,13 @@ def parser() -> argparse.ArgumentParser:
                    help="loss config overrides key=value")
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda)")
+    p.add_argument("--pack", action="store_true",
+                   help="sequence packing: run the Emformer stack over "
+                        "segment-packed rows (train/packing.py); "
+                        "s2t_emformer + joint_ctc")
     # the JAX package's options that the port does not take yet
     p.add_argument("--eval-metric", default="none",
                    choices=["none", "bleu", "wer"])
-    p.add_argument("--pack", action="store_true")
     p.add_argument("--mtl", action="store_true")
     return p
 
@@ -143,7 +152,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = parser().parse_args(argv)
     path = (args.task, args.model, args.loss)
     unported = [f"--{k.replace('_', '-')}" for k, off in
-                (("eval_metric", "none"), ("pack", False), ("mtl", False))
+                (("eval_metric", "none"), ("mtl", False))
                 if getattr(args, k) != off]
     if path not in PORTED or unported:
         what = " ".join(unported) or \
@@ -152,6 +161,10 @@ def parse_args(argv=None) -> argparse.Namespace:
             f"{what} is not yet ported (ROADMAP Queue 1); the port trains "
             + ", ".join(f"--task {t} --model {m} --loss {l}"
                         for t, m, l in sorted(PORTED)))
+    if args.pack and (args.model, args.loss) != ("s2t_emformer",
+                                                 "joint_ctc"):
+        raise ValueError("--pack trains --model s2t_emformer --loss "
+                         "joint_ctc only, as the JAX package's")
     args.overrides = dict(cfglib.parse_override(s) for s in args.override)
     args.loss_overrides = dict(cfglib.parse_override(s)
                                for s in args.loss_override)
@@ -229,10 +242,42 @@ def build_loss(args, model):
         feats = batch["feats"]
         if specaugment and rngs is not None:
             feats = spec_augment(rngs.generator, feats, batch["feat_lengths"])
+        # a batch that carries a pack plan (attach_pack_plan) trains packed
+        packed = {} if "pack_frame_gather" not in batch else {
+            "pack_plan": packing.PackPlan(*(batch[f"pack_{f}"] for f in
+                                            packing.PackPlan._fields))}
         logits, extra = model(feats, batch["feat_lengths"],
-                              batch["prev_tokens"], rngs=rngs)
+                              batch["prev_tokens"], rngs=rngs, **packed)
         return criterion(logits, extra, batch)
     return fn
+
+
+def attach_pack_plan(batch, model, n_p_by_bucket):
+    """Add this batch's pack plan (train/packing.py) to it as pack_* int32
+    arrays: the post-subsample lengths' segments first-fit-decreasing into
+    rows of n_p segments, the row count rounded up to a multiple of 4.  n_p
+    is fixed per frame bucket by its first batch (`n_p_by_bucket`, kept by
+    the caller), among the row lengths from the bucket's to 4x it that keep
+    the grouped attention."""
+    cfg, ecfg = model.cfg, model.cfg.emformer
+    l4 = subsampler_out_lengths(
+        model.encoder.subsample,
+        torch.as_tensor(batch["feat_lengths"]).cpu()).numpy()
+    U4 = batch["feats"].shape[1] // cfg.stride
+    n0 = U4 // ecfg.segment
+    n_p = n_p_by_bucket.get(U4)
+    if n_p is None:
+        n_p = n_p_by_bucket[U4] = packing.choose_row_segments(
+            l4, ecfg.segment, packing.usable_row_segments(ecfg, n0, 4 * n0))
+    plan = packing.pack_plan(l4, U4, ecfg.segment, ecfg.right_context,
+                             row_segs=n_p)
+    rows = plan.frame_gather.shape[0]
+    if rows % 4:
+        plan = packing.pack_plan(l4, U4, ecfg.segment, ecfg.right_context,
+                                 n_rows=rows + 4 - rows % 4, row_segs=n_p)
+    for f in packing.PackPlan._fields:
+        batch[f"pack_{f}"] = getattr(plan, f)
+    return batch
 
 
 def optim_config(args) -> OptimConfig:
@@ -306,6 +351,13 @@ def main(argv=None):
     model = build_model(args, len(vocab), device=args.device)
     device = next(model.parameters()).device
     loss_fn = build_loss(args, model)
+    if args.pack:
+        unpacked, n_p_by_bucket = train_batches, {}
+
+        def train_batches(epoch):
+            for batch in unpacked(epoch):
+                yield attach_pack_plan(batch, model, n_p_by_bucket)
+
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
                           save_dir=args.save_dir, seed=args.seed)
     metadata = {"model": args.model, "config": cfglib.to_dict(model.cfg)}

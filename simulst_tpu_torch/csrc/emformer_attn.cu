@@ -3,14 +3,22 @@
 //
 // Replaces the Pallas kernel simulst_tpu/ops/emformer_attn_pallas.py
 // `emformer_grouped_attention` (_fwd_kernel and _bwd_kernel), with its
-// attention dropout and without the sequence-packing id gate.  Keys and
+// attention dropout and its sequence-packing example-id gate.  Keys and
 // values are the projected rows of [mems (n-1) | rc blocks (n*rc) |
 // utterance (U)]; queries are (B, ng, nq, D) with rows [G rc blocks | G
 // segments | G summaries] per group of G segments.  Row visibility follows
 // nn/emformer.py _group_gather_indices and the length rule: a query of
 // segment i sees at most max_mem memory slots (summary rows none), its own
-// rc block, and lc + seg utterance frames below the example's length.  A
-// row that sees no key outputs exact zeros, as the JAX softmax does.
+// rc block, and lc + seg utterance frames below the example's length.
+// With the gate (sequence-packed rows, the has_eid branches of the TPU
+// kernels) it also sees a key only where the key row's example id equals
+// its segment's: kid[b, key row] == seg_eid[b, segment].  The TPU kernel
+// read a dense (B, ng, nq, ctx) int8 mask and added (eid - 1) * 1e9 to the
+// scores (a Mosaic workaround); here the two small id vectors are read
+// directly and the rule is one more boolean term of `visible`, compiled
+// out of the ungated instantiation, so the dense path runs the same code
+// as without a gate.  A row that sees no key outputs exact zeros, as the
+// JAX softmax does.
 // Dropout on the probabilities draws Philox bits keyed by (seed, element
 // offset ((((b ng + g) heads + h) nq + row) ctx + col)), stream 0, in the
 // gathered-context layout, so the backward regenerates the forward's mask.
@@ -43,6 +51,7 @@
 //   sum:  one thread per key-row element adds, in group order, the partial
 //         of each group whose context holds that row (a static map: at most
 //         one column per group), and casts to the activation dtype.
+#include <climits>
 #include <math.h>
 
 #include "common.cuh"
@@ -62,6 +71,25 @@ constexpr int kWarps = kThreads / 32;
 struct Geom {
   int ng, nq, dim, heads, seg, lc, rc, max_mem, G, n, U, tk, m_slots, ctx,
       rows_per_block;
+};
+
+// The sequence-packing gate: kid (batch, tk) the example id of each key
+// row, seg_eid (batch, n) that of each segment; null in the dense path.
+struct Gate {
+  const int* kid;
+  const int* seg_eid;
+
+  // the query id of row segment i of group grp, batch b
+  __device__ __forceinline__ int query_id(const Geom& g, int b, int grp,
+                                          int i) const {
+    return seg_eid[(size_t)b * g.n + grp * g.G + i];
+  }
+  // whether key row `row` (-1: outside the sequence, never seen) belongs
+  // to example qid
+  __device__ __forceinline__ bool same(const Geom& g, int b, int row,
+                                       int qid) const {
+    return row >= 0 && __ldg(kid + (size_t)b * g.tk + row) == qid;
+  }
 };
 
 size_t smem_bytes(const Geom& g) {
@@ -108,10 +136,12 @@ __device__ __forceinline__ int row_segment(const Geom& g, int r, bool* is_sum) {
 }
 
 // whether query row (segment i, is_sum) sees context slot c holding key
-// row `row` (-1: outside the sequence); frame0 = frame of utterance slot 0
+// row `row` (-1: outside the sequence); frame0 = frame of utterance slot 0;
+// same_example: the gate's term (true without a gate)
 __device__ __forceinline__ bool visible(const Geom& g, int i, bool is_sum,
                                         int c, int row, int frame0,
-                                        int length) {
+                                        int length, bool same_example) {
+  if (!same_example) return false;
   const int utt0 = g.m_slots + g.G * g.rc;
   if (c < g.m_slots)
     return !is_sum && c >= i && c < i + g.max_mem && row >= 0;
@@ -147,12 +177,12 @@ __device__ void load_context(const T* __restrict__ k, const T* __restrict__ v,
   __syncthreads();
 }
 
-template <typename T>
+template <typename T, bool kGated>
 __global__ void __launch_bounds__(kThreads)
     grouped_attn_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                         const T* __restrict__ v,
-                        const int* __restrict__ lengths, T* __restrict__ out,
-                        Geom g, Dropout drop) {
+                        const int* __restrict__ lengths, Gate gate,
+                        T* __restrict__ out, Geom g, Dropout drop) {
   extern __shared__ float smem[];
   float* ks = smem;                          // [ctx][kKPad]
   float* vs = ks + g.ctx * kKPad;            // [ctx][kHeadDim]
@@ -185,11 +215,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     bool is_sum;
     const int i = row_segment(g, r, &is_sum);
+    const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
 
     float mx = -INFINITY;
     for (int c = lane; c < g.ctx; c += 32) {
       float s = -INFINITY;
-      if (visible(g, i, is_sum, c, slot_row[c], frame0, length)) {
+      const int row = slot_row[c];
+      if (visible(g, i, is_sum, c, row, frame0, length,
+                  !kGated || gate.same(g, b, row, qid))) {
         const float* kr = ks + c * kKPad;
         float acc = 0.f;
 #pragma unroll 16
@@ -228,12 +261,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // dq = ds K per query row; stats[row] = (log-sum-exp, Delta), the
 // log-sum-exp -inf for a row that sees no key
-template <typename T>
+template <typename T, bool kGated>
 __global__ void __launch_bounds__(kThreads)
     grouped_attn_dq_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ dout,
-                           const int* __restrict__ lengths, T* __restrict__ dq,
-                           float* __restrict__ stats, Geom g, Dropout drop) {
+                           const int* __restrict__ lengths, Gate gate,
+                           T* __restrict__ dq, float* __restrict__ stats,
+                           Geom g, Dropout drop) {
   extern __shared__ float smem[];
   float* ks = smem;                          // [ctx][kKPad]
   float* vs = ks + g.ctx * kKPad;            // [ctx][kKPad]
@@ -271,11 +305,14 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     bool is_sum;
     const int i = row_segment(g, r, &is_sum);
+    const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
 
     float mx = -INFINITY;
     for (int c = lane; c < g.ctx; c += 32) {
       float s = -INFINITY;
-      if (visible(g, i, is_sum, c, slot_row[c], frame0, length)) {
+      const int row = slot_row[c];
+      if (visible(g, i, is_sum, c, row, frame0, length,
+                  !kGated || gate.same(g, b, row, qid))) {
         const float* kr = ks + c * kKPad;
         float acc = 0.f;
 #pragma unroll 16
@@ -335,12 +372,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // dk / dv of each context slot of one (batch, group, head) into the fp32
 // partials (B, ng, ctx, dim); a slot outside the sequence gets zeros
-template <typename T>
+template <typename T, bool kGated>
 __global__ void __launch_bounds__(kThreads)
     grouped_attn_dkv_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                             const T* __restrict__ v,
                             const T* __restrict__ dout,
-                            const int* __restrict__ lengths,
+                            const int* __restrict__ lengths, Gate gate,
                             const float* __restrict__ stats,
                             float* __restrict__ dk_part,
                             float* __restrict__ dv_part, Geom g,
@@ -386,6 +423,10 @@ __global__ void __launch_bounds__(kThreads)
   const int c_end = min((int)(blockIdx.y + 1) * g.rows_per_block, g.ctx);
   for (int c = blockIdx.y * g.rows_per_block + warp; c < c_end; c += kWarps) {
     const int row = slot_to_row(g, grp, c);
+    // the gate: this column's example id, never equal where out of range
+    const int key_id = kGated && row >= 0
+                           ? __ldg(gate.kid + (size_t)b * g.tk + row)
+                           : INT_MIN;
     float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
     if (row >= 0) {
       const size_t off = kv_base + (size_t)row * g.dim;
@@ -399,7 +440,8 @@ __global__ void __launch_bounds__(kThreads)
         const int i = row_segment(g, r, &is_sum);
         float pd = 0.f, ds = 0.f;
         if (lse_s[r] != -INFINITY &&
-            visible(g, i, is_sum, c, row, frame0, length)) {
+            visible(g, i, is_sum, c, row, frame0, length,
+                    !kGated || key_id == gate.query_id(g, b, grp, i))) {
           const float* qr = qs + r * kKPad;
           const float* dr = dos + r * kKPad;
           float s = 0.f, dpd = 0.f;
@@ -474,54 +516,54 @@ __global__ void grouped_attn_dkv_sum_kernel(const float* __restrict__ dk_part,
   dv[idx] = from_f32<T>(sv);
 }
 
-template <typename T>
+template <typename T, bool kGated>
 int launch_attn(const void* q3, const void* k, const void* v,
-                const void* lengths, void* out, int batch, const Geom& g,
-                Dropout drop, cudaStream_t stream) {
+                const void* lengths, Gate gate, void* out, int batch,
+                const Geom& g, Dropout drop, cudaStream_t stream) {
   const size_t smem = smem_bytes(g);
   cudaError_t err = cudaFuncSetAttribute(
-      grouped_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      grouped_attn_kernel<T, kGated>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(batch * g.ng * g.heads,
                   simulst::ceil_div(g.nq, g.rows_per_block));
-  grouped_attn_kernel<T><<<grid, kThreads, smem, stream>>>(
+  grouped_attn_kernel<T, kGated><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q3), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
+      static_cast<const T*>(v), static_cast<const int*>(lengths), gate,
       static_cast<T*>(out), g, drop);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kGated>
 int launch_attn_bwd(const void* q3_, const void* k_, const void* v_,
-                    const void* dout_, const void* lengths_, void* dq,
-                    void* dk, void* dv, float* stats, float* dk_part,
-                    float* dv_part, int batch, const Geom& g, int col_chunk,
-                    Dropout drop, cudaStream_t s) {
+                    const void* dout_, const void* lengths_, Gate gate,
+                    void* dq, void* dk, void* dv, float* stats,
+                    float* dk_part, float* dv_part, int batch, const Geom& g,
+                    int col_chunk, Dropout drop, cudaStream_t s) {
   const T* q3 = static_cast<const T*>(q3_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   const T* dout = static_cast<const T*>(dout_);
   const int* lengths = static_cast<const int*>(lengths_);
   const size_t smem_dq = smem_bytes_dq(g), smem_dkv = smem_bytes_dkv(g);
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dq_kernel<T>,
+  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dq_kernel<T, kGated>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem_dq));
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dkv_kernel<T>,
+  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dkv_kernel<T, kGated>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem_dkv));
   const int blocks = batch * g.ng * g.heads;
-  grouped_attn_dq_kernel<T>
+  grouped_attn_dq_kernel<T, kGated>
       <<<dim3(blocks, simulst::ceil_div(g.nq, g.rows_per_block)), kThreads,
-         smem_dq, s>>>(q3, k, v, dout, lengths, static_cast<T*>(dq), stats,
-                       g, drop);
+         smem_dq, s>>>(q3, k, v, dout, lengths, gate, static_cast<T*>(dq),
+                       stats, g, drop);
   SIMULST_TRY(cudaGetLastError());
   Geom gc = g;
   gc.rows_per_block = col_chunk;  // context columns per block in dkv
-  grouped_attn_dkv_kernel<T>
+  grouped_attn_dkv_kernel<T, kGated>
       <<<dim3(blocks, simulst::ceil_div(g.ctx, col_chunk)), kThreads,
-         smem_dkv, s>>>(q3, k, v, dout, lengths, stats, dk_part, dv_part, gc,
-                        drop);
+         smem_dkv, s>>>(q3, k, v, dout, lengths, gate, stats, dk_part,
+                        dv_part, gc, drop);
   SIMULST_TRY(cudaGetLastError());
   const size_t total = (size_t)batch * g.tk * g.dim;
   grouped_attn_dkv_sum_kernel<T>
@@ -559,9 +601,12 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
 // q3, out: (batch, ng, nq, dim); k, v: (batch, tk, dim), all of `dtype`;
 // lengths: (batch,) int32 valid utterance frames.  dim = heads * 64,
 // nq = G * (rc + seg + 1), tk = (n - 1) + n * rc + n * seg with n = ng * G.
-// Dropout on the probabilities when drop_on.  Returns a cudaError_t.
+// kid (batch, tk) and seg_eid (batch, n), int32: the sequence-packing
+// gate, both null for none.  Dropout on the probabilities when drop_on.
+// Returns a cudaError_t.
 extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
                                      const void* v, const void* lengths,
+                                     const void* kid, const void* seg_eid,
                                      void* out, int batch, int ng, int nq,
                                      int dim, int heads, int seg, int lc,
                                      int rc, int max_mem, int G, int tk,
@@ -572,22 +617,31 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
   Geom g;
   if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
                  rows_per_block) ||
-      smem_bytes(g) > 227 * 1024)
+      smem_bytes(g) > 227 * 1024 || (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
+  const Gate gate{static_cast<const int*>(kid),
+                  static_cast<const int*>(seg_eid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SIMULST_DISPATCH(dtype, return launch_attn<scalar_t>(q3, k, v, lengths, out,
-                                                       batch, g, drop, s));
+  SIMULST_DISPATCH(dtype,
+                   return gate.kid ? launch_attn<scalar_t, true>(
+                                         q3, k, v, lengths, gate, out, batch,
+                                         g, drop, s)
+                                   : launch_attn<scalar_t, false>(
+                                         q3, k, v, lengths, gate, out, batch,
+                                         g, drop, s));
 }
 
 // The backward: dq (batch, ng, nq, dim), dk and dv (batch, tk, dim) of
-// `dtype` for upstream gradient dout (batch, ng, nq, dim).  Scratch, fp32:
+// `dtype` for upstream gradient dout (batch, ng, nq, dim), with the gate
+// (kid, seg_eid) as in the forward.  Scratch, fp32:
 // stats (batch, ng, heads, nq, 2), dk_part and dv_part (batch, ng, ctx,
 // dim).  rows_per_block slices the query rows of the dq kernel, col_chunk
 // the context columns of the dkv kernel.  Returns a cudaError_t.
 extern "C" int simulst_emformer_attn_bwd(
     int dtype, const void* q3, const void* k, const void* v,
-    const void* lengths, const void* dout, void* dq, void* dk, void* dv,
+    const void* lengths, const void* kid, const void* seg_eid,
+    const void* dout, void* dq, void* dk, void* dv,
     void* stats, void* dk_part, void* dv_part, int batch, int ng, int nq,
     int dim, int heads, int seg, int lc, int rc, int max_mem, int G, int tk,
     int rows_per_block, int col_chunk, int drop_on, unsigned long long seed,
@@ -596,13 +650,22 @@ extern "C" int simulst_emformer_attn_bwd(
   if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
                  rows_per_block) ||
       col_chunk <= 0 || smem_bytes_dq(g) > 227 * 1024 ||
-      smem_bytes_dkv(g) > 227 * 1024)
+      smem_bytes_dkv(g) > 227 * 1024 ||
+      (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
+  const Gate gate{static_cast<const int*>(kid),
+                  static_cast<const int*>(seg_eid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *st = static_cast<float*>(stats), *kp = static_cast<float*>(dk_part),
         *vp = static_cast<float*>(dv_part);
-  SIMULST_DISPATCH(dtype, return launch_attn_bwd<scalar_t>(
-                              q3, k, v, dout, lengths, dq, dk, dv, st, kp, vp,
-                              batch, g, col_chunk, drop, s));
+  SIMULST_DISPATCH(dtype,
+                   return gate.kid ? launch_attn_bwd<scalar_t, true>(
+                                         q3, k, v, dout, lengths, gate, dq,
+                                         dk, dv, st, kp, vp, batch, g,
+                                         col_chunk, drop, s)
+                                   : launch_attn_bwd<scalar_t, false>(
+                                         q3, k, v, dout, lengths, gate, dq,
+                                         dk, dv, st, kp, vp, batch, g,
+                                         col_chunk, drop, s));
 }

@@ -4,7 +4,9 @@ simulst_tpu/models/s2t_emformer.py.
 
 Offline and training: `encoder_forward` runs the whole utterance batch,
 with dropout at the config's rates when given an `RngStream` (after the
-conv-pos, in every Emformer layer and in the decoder).  Streaming:
+conv-pos, in every Emformer layer and in the decoder);
+`encoder_forward_packed` runs the Emformer stack over sequence-packed rows
+(train/packing.py) for training.  Streaming:
 `encoder_step` takes one chunk of new feature frames, featurizes it with
 the conv caches, and runs every complete segment+rc block through
 `emformer_step`; leftover frames stay in a carry buffer whose length is a
@@ -25,6 +27,7 @@ from simulst_tpu_torch.nn import transformer as tfm
 from simulst_tpu_torch.nn.core import (Linear, RngStream, dropout,
                                        lengths_to_mask, linear, next_seed,
                                        resolve_device)
+from simulst_tpu_torch.train import packing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,20 +133,45 @@ def _ctc(p: S2TEmformerEncoder, enc):
     return None if p.ctc_layer is None else linear(p.ctc_layer, enc)
 
 
-def encoder_forward(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, feats,
-                    feat_lengths, rngs: Optional[RngStream] = None
-                    ) -> EncoderOut:
-    """Offline / training forward. feats: (B, T, F); feat_lengths: (B,).
-    Dropout at the config's rates when rngs is given."""
-    ecfg = cfg.emformer
+def _frontend(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, feats,
+              feat_lengths, rngs: Optional[RngStream]):
+    """subsample -> scale -> + conv-pos -> dropout, zero beyond each
+    example's length: ((B, U, D), lengths (B,))."""
     x, lengths = cnv.subsampler_apply(p.subsample, feats, feat_lengths)
     x = cfg.embed_scale * x
     x = x + cnv.conv_pos_apply(p.conv_pos, x, cfg.conv_pos_groups)
     x = dropout(x, cfg.dropout, next_seed(rngs))
     x = torch.where(lengths_to_mask(lengths, x.shape[1])[:, :, None], x,
                     torch.zeros_like(x))
-    x = torch.nn.functional.pad(x, (0, 0, 0, ecfg.right_context))
-    enc = emf.emformer_forward(p.emformer, ecfg, x, lengths, rngs)
+    return x, lengths
+
+
+def encoder_forward(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, feats,
+                    feat_lengths, rngs: Optional[RngStream] = None
+                    ) -> EncoderOut:
+    """Offline / training forward. feats: (B, T, F); feat_lengths: (B,).
+    Dropout at the config's rates when rngs is given."""
+    x, lengths = _frontend(p, cfg, feats, feat_lengths, rngs)
+    x = torch.nn.functional.pad(x, (0, 0, 0, cfg.emformer.right_context))
+    enc = emf.emformer_forward(p.emformer, cfg.emformer, x, lengths, rngs)
+    return EncoderOut(encoder_out=enc, lengths=lengths, ctc_logits=_ctc(p, enc))
+
+
+def encoder_forward_packed(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
+                           feats, feat_lengths, plan: packing.PackPlan,
+                           rngs: Optional[RngStream] = None) -> EncoderOut:
+    """Training forward with sequence packing: the conv frontend runs on
+    the padded (B, T) layout as in `encoder_forward`, the Emformer stack
+    over the packed rows of `plan` (built for this batch's post-subsample
+    lengths) with example-id masking, then the output is unpacked for the
+    CTC head and the decoder.  Without dropout it equals `encoder_forward`
+    on every valid frame."""
+    x, lengths = _frontend(p, cfg, feats, feat_lengths, rngs)
+    packed, rc_blocks = packing.pack_frames(x, plan)
+    enc_p = emf.emformer_forward_packed(
+        p.emformer, cfg.emformer, packed, rc_blocks, plan.frame_eid,
+        plan.seg_eid, rngs)
+    enc = packing.unpack_frames(enc_p, plan)
     return EncoderOut(encoder_out=enc, lengths=lengths, ctc_logits=_ctc(p, enc))
 
 
@@ -264,12 +292,19 @@ class S2TEmformerModel(nn.Module):
                                    device=device)
 
     def forward(self, feats, feat_lengths, prev_tokens, *,
-                rngs: Optional[RngStream] = None):
+                rngs: Optional[RngStream] = None,
+                pack_plan: Optional[packing.PackPlan] = None):
         """Teacher-forced forward; dropout when `rngs` is given (the JAX
-        package's rng with deterministic=False).  Returns (logits (B, T, V),
-        extra)."""
-        enc = encoder_forward(self.encoder, self.cfg, feats, feat_lengths,
-                              rngs)
+        package's rng with deterministic=False).  `pack_plan`, a
+        train/packing.PackPlan of this batch's post-subsample lengths, runs
+        the Emformer stack over sequence-packed rows.  Returns (logits (B,
+        T, V), extra)."""
+        if pack_plan is None:
+            enc = encoder_forward(self.encoder, self.cfg, feats,
+                                  feat_lengths, rngs)
+        else:
+            enc = encoder_forward_packed(self.encoder, self.cfg, feats,
+                                         feat_lengths, pack_plan, rngs)
         enc_valid = lengths_to_mask(enc.lengths, enc.encoder_out.shape[1])
         logits = tfm.decoder_forward(self.decoder, self.cfg.decoder,
                                      prev_tokens, enc.encoder_out, enc_valid,

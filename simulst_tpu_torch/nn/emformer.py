@@ -13,6 +13,12 @@ its backward; with an `RngStream` each dropout site draws one seed (the
 JAX package's per-layer rng stream, in the same site order), and without
 one nothing is dropped.
 
+Sequence-packed training (`emformer_forward_packed`, train/packing.py):
+rows hold several examples at segment granularity, and the per-example
+length rule gives way to example-id equality (`make_packed_eids`): the
+grouped path hands the ids to the attention kernel as its gate, the
+segmented path folds them into the key validity.
+
 Streaming (`emformer_step`): per-layer state is fixed-size buffers (mems
 (B, M, D), left-context K/V (B, L, D)) valid at their end, plus
 past_length; validity is key masking.  Where the JAX package returns new
@@ -39,7 +45,7 @@ from torch import nn
 from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, dropout,
                                        layer_norm, linear, masked_softmax,
                                        next_seed)
-from simulst_tpu_torch.ops.emformer_attn import (AttnGeom,
+from simulst_tpu_torch.ops.emformer_attn import (AttnGeom, EidGate,
                                                  emformer_grouped_attention)
 from simulst_tpu_torch.ops.ffn import fused_ln_ffn_res
 from simulst_tpu_torch.ops.linear_res import fused_linear_res
@@ -211,6 +217,40 @@ def _segment_gather_indices(U: int, seg: int, lc: int, rc: int, max_mem: int,
     return idx, valid, utt_col
 
 
+# ---------------------------------------------------------------------------
+# sequence packing: example ids (train/packing.py supplies them)
+#
+# A packed row holds several examples at segment granularity; the length
+# rule generalizes to EXAMPLE-ID EQUALITY: a query of segment i (example e)
+# sees a memory summary, rc row or utterance frame only if it carries the
+# same id.  Dead frames and segments carry -1.
+# ---------------------------------------------------------------------------
+
+# the JAX package's PackedEids without its frame ids (they only build kid)
+# and its dense int8 kernel mask (the port's kernel reads the ids): the
+# grouped-attention kernel's gate itself
+PackedEids = EidGate
+
+
+def _build_kid(cfg: EmformerConfig, frame_eid, seg_eid):
+    """(B, U) + (B, n) -> (B, (n-1) + n*rc + U) per-key-row example ids in
+    the [mems | rc blocks | utterance] layout."""
+    mem_id = seg_eid[:, :-1] if cfg.use_mem else seg_eid[:, :0]
+    rc_id = seg_eid.repeat_interleave(cfg.right_context, dim=1)
+    return torch.cat([mem_id, rc_id, frame_eid], dim=1)
+
+
+def make_packed_eids(cfg: EmformerConfig, frame_eid, seg_eid) -> PackedEids:
+    """The layer-invariant example ids of packed rows (frame_eid (B, U),
+    seg_eid (B, n)): per key row and per segment, int32 on the ids'
+    device."""
+    frame_eid = torch.as_tensor(frame_eid).to(torch.int32)
+    seg_eid = torch.as_tensor(seg_eid, device=frame_eid.device).to(
+        torch.int32)
+    return PackedEids(kid=_build_kid(cfg, frame_eid, seg_eid),
+                      seg_eid=seg_eid)
+
+
 def _choose_group(n: int, U: int, cfg: EmformerConfig) -> int:
     """Largest G <= cfg.segment_group dividing n whose first group's
     utterance window fits ((n - G) * seg >= lc); 1 when none applies
@@ -230,12 +270,15 @@ def _choose_group(n: int, U: int, cfg: EmformerConfig) -> int:
 
 def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
                        rc_ln, mems, summary, lengths, rc_raw, utt_raw,
-                       rngs: Optional[RngStream] = None):
+                       rngs: Optional[RngStream] = None,
+                       eids: Optional[PackedEids] = None):
     """Grouped-segment attention with its epilogue: the attention core
     kernel (attention dropout inside), then out_proj + residual dropout +
     residual on the rc/utterance rows (summary rows get the plain
     projection) in one fused_linear_res kernel.  Returns (result (B,
-    rc_len+U, D) post-residual, summary_out (B, n, D))."""
+    rc_len+U, D) post-residual, summary_out (B, n, D)).  With `eids`
+    (sequence packing, whose rows are full: `lengths` U) the kernel's
+    example-id gate takes the place of the length rule."""
     b, U, d = utt_ln.shape
     seg, rc = cfg.segment, cfg.right_context
     n = U // seg
@@ -252,7 +295,8 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
     seed = next_seed(rngs)
     out = emformer_grouped_attention(
         q, k, v, lengths.to(torch.int32), geom,
-        cfg.attention_dropout if seed is not None else 0.0, seed or 0)
+        cfg.attention_dropout if seed is not None else 0.0, seed or 0,
+        gate=eids)
     # residual = raw (pre-LN) input in the grouped row layout, zeros under
     # the summary rows (which ignore it)
     res = torch.cat([rc_raw.reshape(b, ng, G * rc, d),
@@ -273,10 +317,14 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
 
 def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
                          mems, summary, lengths,
-                         rngs: Optional[RngStream] = None):
+                         rngs: Optional[RngStream] = None,
+                         eids: Optional[PackedEids] = None):
     """Per-segment batched attention in plain torch (ragged U), attention
     dropout included.  Returns (rc_utt_out (B, rc_len+U, D), summary_out
-    (B, n, D)) before the residual."""
+    (B, n, D)) before the residual.  With `eids` (sequence packing) a key
+    is valid where its example id equals the query segment's, in place of
+    the length rule (all query rows of a segment share one id, so the gate
+    folds into the key validity)."""
     b, U, d = utt_ln.shape
     n = _num_segs(U, cfg.segment)
     seg, rc = cfg.segment, cfg.right_context
@@ -294,8 +342,13 @@ def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
     ctx = idx.shape[1]
     k_ctx = k.index_select(1, idx.reshape(-1)).reshape(b, n, ctx, h, hd)
     v_ctx = v.index_select(1, idx.reshape(-1)).reshape(b, n, ctx, h, hd)
-    in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
-    key_valid = valid[None] & in_len                            # (B, n, ctx)
+    if eids is None:
+        in_len = (utt_col[None] < lengths[:, None, None]) | \
+            (utt_col[None] < 0)
+        key_valid = valid[None] & in_len                        # (B, n, ctx)
+    else:
+        kid = eids.kid.index_select(1, idx.reshape(-1)).reshape(b, n, ctx)
+        key_valid = valid[None] & (kid == eids.seg_eid[:, :, None])
 
     pad_u = n * seg - U
     utt_q = torch.nn.functional.pad(utt_ln, (0, 0, 0, pad_u)).reshape(
@@ -330,9 +383,11 @@ def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
 
 
 def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
-                   rc_blocks, mems, lengths, rngs: Optional[RngStream] = None):
+                   rc_blocks, mems, lengths, rngs: Optional[RngStream] = None,
+                   eids: Optional[PackedEids] = None):
     """One Emformer layer, offline or training.  Returns (utt_out, rc_out,
-    next_mems)."""
+    next_mems).  `eids` switches the masking to sequence-packed example-id
+    equality."""
     U = utterance.shape[1]
     rc_len = rc_blocks.shape[1]
     raw = torch.cat([rc_blocks, utterance], dim=1)
@@ -346,10 +401,10 @@ def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
     if G > 1:
         result, summary_out = _grouped_attention(
             p, cfg, G, utt_ln, rc_ln, mems, summary, lengths, rc_blocks,
-            utterance, rngs)
+            utterance, rngs, eids)
     else:
         rc_utt_out, summary_out = _segmented_attention(
-            p, cfg, utt_ln, rc_ln, mems, summary, lengths, rngs)
+            p, cfg, utt_ln, rc_ln, mems, summary, lengths, rngs, eids)
         result = dropout(rc_utt_out, cfg.dropout, next_seed(rngs)) + raw
     next_mems = (_mem_transform(summary_out, cfg)[:, :n - 1] if cfg.use_mem
                  else mems)
@@ -377,6 +432,36 @@ def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths,
     for layer in p.layers:
         out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
                                               mems, lengths, rngs)
+    return layer_norm(p.final_ln, out)
+
+
+def emformer_forward_packed(p: Emformer, cfg: EmformerConfig, utterance,
+                            rc_blocks, frame_eid, seg_eid,
+                            rngs: Optional[RngStream] = None):
+    """Training forward over SEQUENCE-PACKED rows (train/packing.py).
+
+    utterance: (R, Up, D) packed frontend features (dead frames zero);
+    rc_blocks: (R, n*rc, D), the right context gathered with ZERO rows at
+    example boundaries (packing.pack_frames); frame_eid (R, Up) and seg_eid
+    (R, n): example ids, -1 dead.  Without dropout the output at every
+    frame of every example equals the padded-batch `emformer_forward`'s;
+    with dropout the packed layout draws its own masks.  Returns (R, Up, D);
+    packing.unpack_frames puts it back in the batch's layout."""
+    U = utterance.shape[1]
+    n = _num_segs(U, cfg.segment)
+    if U != n * cfg.segment:
+        raise ValueError(f"packed rows must be whole segments, got {U} "
+                         f"frames of {cfg.segment}-frame segments")
+    eids = make_packed_eids(cfg, frame_eid, seg_eid)
+    mems = (_segment_means(utterance, cfg.segment)[:, :n - 1] if cfg.use_mem
+            else utterance[:, :0])
+    # packed rows are full: the frame < length rule never bites
+    lengths = torch.full((utterance.shape[0],), U, dtype=torch.int32,
+                         device=utterance.device)
+    out = utterance
+    for layer in p.layers:
+        out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
+                                              mems, lengths, rngs, eids)
     return layer_norm(p.final_ln, out)
 
 

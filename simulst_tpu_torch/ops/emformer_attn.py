@@ -1,12 +1,17 @@
 """Grouped-segment Emformer attention core (counterpart of
 simulst_tpu/ops/emformer_attn_pallas.py `emformer_grouped_attention`,
-forward and backward with attention dropout, without the sequence-packing
-id gate).
+forward and backward with attention dropout and the sequence-packing
+example-id gate).
 
 q3: (B, ng, nq, D) projected queries, rows [G rc blocks | G segments |
 G summaries] per group; k/v: (B, Tk, D) projected rows of [mems (n-1) |
 rc blocks (n*rc) | utterance (U)] at their exact Tk; lengths (B,) int32.
-Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
+`gate`, for sequence-packed rows, is an `EidGate` of two int32 tensors on
+q3's device: kid (B, Tk), the example id of each key row, and seg_eid
+(B, n), the example id of each segment; a query row of segment s then
+sees a key row only where seg_eid[b, s] == kid[b, row], besides the
+length rule.  Equality is the whole rule (dead frames and segments carry
+-1 and see each other).  Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
 csrc/emformer_attn.cu run; on a CPU tensor `grouped_attention_plain` and
 `grouped_attention_plain_backward`, the gathered-context formulation of
 nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
@@ -17,7 +22,7 @@ the (B, ng, heads, nq, ctx) probabilities in the gathered-context layout
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +69,26 @@ class AttnGeom(NamedTuple):
     @property
     def tk(self):
         return (self.n - 1) + self.n * self.rc + self.U
+
+
+class EidGate(NamedTuple):
+    """The sequence-packing gate: int32 example ids of the key rows, in the
+    [mems | rc blocks | utterance] layout (nn/emformer.py `_build_kid`),
+    and of the segments."""
+    kid: torch.Tensor       # (B, Tk)
+    seg_eid: torch.Tensor   # (B, n)
+
+
+@functools.lru_cache(maxsize=64)
+def group_row_seg(seg: int, rc: int, G: int) -> np.ndarray:
+    """(nq,) map: grouped query row -> its segment within the group (rows
+    are [G rc blocks | G segments | G summaries]); the JAX package's
+    nn/emformer.py `_group_row_seg`."""
+    nq = G * (rc + seg + 1)
+    rows = np.arange(nq)
+    return np.where(rows < G * rc, rows // rc,
+                    np.where(rows < G * (rc + seg), (rows - G * rc) // seg,
+                             rows - G * (rc + seg))).astype(np.int64)
 
 
 @functools.lru_cache(maxsize=64)
@@ -119,7 +144,8 @@ def group_gather_indices(U: int, seg: int, lc: int, rc: int, max_mem: int,
     return idx, valid, utt_col, allowed
 
 
-def _context(q3, k, v, lengths, geom: AttnGeom):
+def _context(q3, k, v, lengths, geom: AttnGeom,
+             gate: Optional[EidGate] = None):
     """Per-head fp32 queries (B, ng, h, nq, hd), gathered keys and values
     (B, ng, h, ctx, hd), the visibility (B, ng, 1, nq, ctx) and the gather
     indices (ng, ctx)."""
@@ -137,6 +163,15 @@ def _context(q3, k, v, lengths, geom: AttnGeom):
     in_len = (utt_col[None] < lengths[:, None, None]) | (utt_col[None] < 0)
     key_valid = valid[None] & in_len                              # (B,ng,ctx)
     visible = key_valid[:, :, None, None, :] & allowed[None, None, None]
+    if gate is not None:
+        kid = gate.kid.long().index_select(1, idx.reshape(-1)).reshape(
+            b, ng, ctx)
+        rows = (torch.arange(ng, device=dev)[:, None] * geom.G
+                + torch.as_tensor(group_row_seg(geom.seg, geom.rc, geom.G),
+                                  device=dev)[None])
+        qid = gate.seg_eid.long().index_select(1, rows.reshape(-1)).reshape(
+            b, ng, nq)
+        visible = visible & (kid[:, :, None, :] == qid[..., None])[:, :, None]
     qh = q3.float().reshape(b, ng, nq, h, hd).transpose(2, 3)
     return (qh, k_ctx.float().transpose(2, 3), v_ctx.float().transpose(2, 3),
             visible, idx)
@@ -158,24 +193,26 @@ def _merge(x):
 
 
 def grouped_attention_plain(q3, k, v, lengths, geom: AttnGeom,
-                            rate: float = 0.0, seed: int = 0):
+                            rate: float = 0.0, seed: int = 0,
+                            gate: Optional[EidGate] = None):
     """Gather each group's context, mask, fp32 softmax, dropout, probs
     rounded to the activation dtype, then P @ V (the kernel's rounding
     points)."""
-    qh, kh, vh, visible, _ = _context(q3, k, v, lengths, geom)
+    qh, kh, vh, visible, _ = _context(q3, k, v, lengths, geom, gate)
     p, mult = _probs(qh, kh, visible, rate, seed)
     pd = (p if mult is None else p * mult).to(q3.dtype).float()
     return _merge(pd @ vh).to(q3.dtype)
 
 
 def grouped_attention_plain_backward(q3, k, v, lengths, dout, geom: AttnGeom,
-                                     rate: float = 0.0, seed: int = 0):
+                                     rate: float = 0.0, seed: int = 0,
+                                     gate: Optional[EidGate] = None):
     """(dq, dk, dv) with the probabilities and the mask recomputed, as
     emformer_attn_pallas._bwd_kernel; dk and dv are the context gradients
     summed into their key rows in fp32."""
     dtype = q3.dtype
     b, ng, nq, d = q3.shape
-    qh, kh, vh, visible, idx = _context(q3, k, v, lengths, geom)
+    qh, kh, vh, visible, idx = _context(q3, k, v, lengths, geom, gate)
     p, mult = _probs(qh, kh, visible, rate, seed)
     pd = (p if mult is None else p * mult).to(dtype).float()
     do = dout.float().reshape(b, ng, nq, geom.num_heads, -1).transpose(2, 3)
@@ -211,26 +248,62 @@ def _check(name, q3, k, v, lengths, geom: AttnGeom):
                         f"{q3.device}")
 
 
+def _check_gate(name, q3, gate: Optional[EidGate], geom: AttnGeom):
+    """Raise unless `gate` is None or two int32 tensors on q3's device of
+    shapes (B, Tk) and (B, n)."""
+    if gate is None:
+        return
+    b = q3.shape[0]
+    kid, seg_eid = gate
+    for key, t, shape in (("kid", kid, (b, geom.tk)),
+                          ("seg_eid", seg_eid, (b, geom.n))):
+        if not isinstance(t, torch.Tensor) or t.shape != shape \
+                or t.dtype != torch.int32 or t.device != q3.device:
+            got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                   if isinstance(t, torch.Tensor) else type(t).__name__)
+            raise ValueError(f"{name}: gate.{key} must be an int32 tensor "
+                             f"{shape} on {q3.device}, got {got}")
+
+
 def _geom_args(q3, geom: AttnGeom):
     b, ng, nq, d = q3.shape
     return (b, ng, nq, d, geom.num_heads, geom.seg, geom.lc, geom.rc,
             geom.max_mem, geom.G, geom.tk, -(-nq // -(-nq // MAX_ROWS_PER_BLOCK)))
 
 
-def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed):
+def _gate_ptrs(gate: Optional[EidGate]):
+    """The gate's two pointers for the C entries, (None, None) without one
+    (the ungated kernels)."""
+    if gate is None:
+        return None, None
+    return tuple(t.contiguous().data_ptr() for t in gate)
+
+
+def _count(wrapper, gate):
+    """One launch on the wrapper's counter for the dense or the gated
+    kernels."""
+    if gate is None:
+        wrapper.launches += 1
+    else:
+        wrapper.gated_launches += 1
+
+
+def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed, gate=None):
     _check("emformer_grouped_attention", q3, k, v, lengths, geom)
     q3, k, v, lengths = (t.contiguous() for t in (q3, k, v, lengths))
     _build.check_cuda("emformer_grouped_attention", q3, k=k, v=v)
     out = torch.empty_like(q3)
     _build.launch("simulst_emformer_attn", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), *_geom_args(q3, geom),
-                  *_build.dropout_args(rate, seed), _build.stream_of(q3))
-    emformer_grouped_attention.launches += 1
+                  lengths.data_ptr(), *_gate_ptrs(gate), out.data_ptr(),
+                  *_geom_args(q3, geom), *_build.dropout_args(rate, seed),
+                  _build.stream_of(q3))
+    _count(emformer_grouped_attention, gate)
     return out
 
 
-def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed):
+def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
+                     gate=None):
     name = "emformer_grouped_attention_backward"
     _check(name, q3, k, v, lengths, geom)
     q3, k, v, lengths, dout = (t.contiguous() for t in
@@ -245,61 +318,73 @@ def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed):
     col_chunk = -(-geom.ctx // -(-geom.ctx // MAX_COLS_PER_BLOCK))
     _build.launch("simulst_emformer_attn_bwd", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                  dk_part.data_ptr(), dv_part.data_ptr(),
+                  lengths.data_ptr(), *_gate_ptrs(gate), dout.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  stats.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
                   *_geom_args(q3, geom), col_chunk,
                   *_build.dropout_args(rate, seed), _build.stream_of(q3))
-    emformer_grouped_attention_backward.launches += 1
+    _count(emformer_grouped_attention_backward, gate)
     return dq, dk, dv
 
 
 def emformer_grouped_attention_forward(q3, k, v, lengths, geom: AttnGeom,
-                                       rate: float = 0.0, seed: int = 0):
+                                       rate: float = 0.0, seed: int = 0,
+                                       gate: Optional[EidGate] = None):
     """The output without autograd: the CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor."""
+    _check_gate("emformer_grouped_attention", q3, gate, geom)
     if q3.device.type == "cpu":
-        return grouped_attention_plain(q3, k, v, lengths, geom, rate, seed)
-    return _launch(q3, k, v, lengths, geom, rate, seed)
+        return grouped_attention_plain(q3, k, v, lengths, geom, rate, seed,
+                                       gate)
+    return _launch(q3, k, v, lengths, geom, rate, seed, gate)
 
 
 def emformer_grouped_attention_backward(q3, k, v, lengths, dout,
                                         geom: AttnGeom, rate: float = 0.0,
-                                        seed: int = 0):
+                                        seed: int = 0,
+                                        gate: Optional[EidGate] = None):
     """(dq, dk, dv) for upstream gradient dout: the CUDA kernels on a CUDA
     tensor, the plain version on a CPU tensor."""
+    _check_gate("emformer_grouped_attention_backward", q3, gate, geom)
     if q3.device.type == "cpu":
         return grouped_attention_plain_backward(q3, k, v, lengths, dout, geom,
-                                                rate, seed)
-    return _launch_backward(q3, k, v, lengths, dout, geom, rate, seed)
+                                                rate, seed, gate)
+    return _launch_backward(q3, k, v, lengths, dout, geom, rate, seed, gate)
 
 
 class _GroupedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q3, k, v, lengths, geom, rate, seed):
-        ctx.save_for_backward(q3, k, v, lengths)
+    def forward(ctx, q3, k, v, lengths, geom, rate, seed, gate):
+        ctx.save_for_backward(q3, k, v, lengths,
+                              *(() if gate is None else gate))
         ctx.config = (geom, rate, seed)
         return emformer_grouped_attention_forward(q3, k, v, lengths, geom,
-                                                  rate, seed)
+                                                  rate, seed, gate)
 
     @staticmethod
     def backward(ctx, dout):
-        q3, k, v, lengths = ctx.saved_tensors
+        q3, k, v, lengths, *gate = ctx.saved_tensors
         dq, dk, dv = emformer_grouped_attention_backward(
-            q3, k, v, lengths, dout, *ctx.config)
-        return dq, dk, dv, None, None, None, None
+            q3, k, v, lengths, dout, *ctx.config,
+            EidGate(*gate) if gate else None)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def emformer_grouped_attention(q3, k, v, lengths, geom: AttnGeom,
-                               rate: float = 0.0, seed: int = 0):
+                               rate: float = 0.0, seed: int = 0,
+                               gate: Optional[EidGate] = None):
     """Differentiable in q3, k and v (the backward is
     `emformer_grouped_attention_backward`); seed keys the dropout mask on
-    the probabilities (ignored at rate 0)."""
+    the probabilities (ignored at rate 0); `gate` adds the example-id rule
+    of sequence-packed rows (no gradient flows to the ids).  Launches count
+    on `.launches`, those of the gated kernels on `.gated_launches`."""
     if not _build.needs_grad(q3, k, v):
         return emformer_grouped_attention_forward(q3, k, v, lengths, geom,
-                                                  rate, seed)
-    return _GroupedAttention.apply(q3, k, v, lengths, geom, rate, seed)
+                                                  rate, seed, gate)
+    return _GroupedAttention.apply(q3, k, v, lengths, geom, rate, seed, gate)
 
 
 emformer_grouped_attention.launches = 0
+emformer_grouped_attention.gated_launches = 0
 emformer_grouped_attention_backward.launches = 0
+emformer_grouped_attention_backward.gated_launches = 0

@@ -529,13 +529,21 @@ def test_cli_trains_asr_on_the_cpu(tmp_path):
     assert (save / "checkpoint_last").exists()
 
 
-@pytest.mark.parametrize("argv", [
-    ASR_ARGS + ["--eval-metric", "wer"], ASR_ARGS + ["--pack"],
-    ASR_ARGS + ["--mtl"],
-    ["--task", "asr", "--model", "s2t_emformer", "--loss", "mma"],
-    ["--task", "asr", "--model", "mma", "--loss", "joint_ctc"],
-    ["--task", "mt", "--model", "s2t_emformer", "--loss", "joint_ctc"],
+UNPORTED = (NotImplementedError, "ROADMAP Queue 1")
+
+
+@pytest.mark.parametrize("argv,error", [
+    (ASR_ARGS + ["--eval-metric", "wer"], UNPORTED),
+    # --pack is ported for s2t_emformer + joint_ctc, the one path the JAX
+    # package packs; elsewhere it raises, as the JAX package asserts
+    (["--task", "st", "--model", "mma", "--loss", "mma", "--pack"],
+     (ValueError, "--pack trains --model s2t_emformer --loss joint_ctc")),
+    (ASR_ARGS + ["--mtl"], UNPORTED),
+    (["--task", "asr", "--model", "s2t_emformer", "--loss", "mma"], UNPORTED),
+    (["--task", "asr", "--model", "mma", "--loss", "joint_ctc"], UNPORTED),
+    (["--task", "mt", "--model", "s2t_emformer", "--loss", "joint_ctc"],
+     UNPORTED),
 ], ids=["eval-metric", "pack", "mtl", "mma-loss", "mma-model", "mt-task"])
-def test_cli_rejects_unported_options(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+def test_cli_rejects_unported_options(argv, error):
+    with pytest.raises(error[0], match=error[1]):
         tcli.parse_args(argv)

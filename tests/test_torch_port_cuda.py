@@ -15,7 +15,9 @@ recursion holds its alphas to atol 1e-4 and d_prefix and d_denom to 1e-4
 of their largest entries (d_denom spans many orders of magnitude).  The
 CIF integrate-and-fire holds out and delays to 1e-5 of their largest
 entries (both sides take the same cumsums; only the order of the sums
-over frames differs).
+over frames differs).  The grouped attention's example-id gate
+(sequence-packed rows) holds its forward and backward to the dense
+kernels' tolerances.
 """
 import pytest
 
@@ -23,8 +25,11 @@ torch = pytest.importorskip("torch")
 
 from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,  # noqa: E402
                                    monotonic_align)
+from simulst_tpu_torch.nn.emformer import (EmformerConfig,  # noqa: E402
+                                           make_packed_eids)
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
-    AttnGeom, emformer_grouped_attention, emformer_grouped_attention_backward,
+    AttnGeom, EidGate, emformer_grouped_attention,
+    emformer_grouped_attention_backward, emformer_grouped_attention_forward,
     grouped_attention_plain, grouped_attention_plain_backward)
 from simulst_tpu_torch.ops.ffn import (  # noqa: E402
     ffn_plain, ffn_plain_backward, fused_ffn, fused_ffn_backward,
@@ -239,6 +244,91 @@ def test_ln_ffn_and_grouped_attention_take_bf16(randn):
             grouped_attention_plain_backward(q3, k, v, lengths, dout, geom,
                                              0.1, 8)):
         torch.testing.assert_close(gw, w, atol=3e-2, rtol=1e-2)
+
+
+# packed rows (train/packing.py) of s2t_emformer_s's geometry: rows of
+# n_p segments holding several examples, groups of G segments straddling
+# example boundaries, a row that ends in dead segments and one dead row
+PACKED = {7: ([256, 240, 180, 100, 77, 30], 256, 28, 4),
+          4: ([128, 70, 50, 33, 20, 9], 128, 8, 4)}
+
+
+def _packed(randn, G, dtype=torch.float32):
+    """(q3, k, v, full lengths, dout, geom, gate) of one packed batch."""
+    from simulst_tpu_torch.train.packing import pack_plan
+    lengths, u_src, n_p, n_rows = PACKED[G]
+    plan = pack_plan(lengths, u_src, 16, 8, n_rows=n_rows, row_segs=n_p)
+    assert (plan.seg_eid == -1).all(axis=1).any()
+    eids = make_packed_eids(EmformerConfig(), torch.from_numpy(
+        plan.frame_eid), torch.from_numpy(plan.seg_eid))
+    gate = EidGate(eids.kid.cuda(), eids.seg_eid.cuda())
+    geom = AttnGeom(U=n_p * 16, seg=16, lc=32, rc=8, max_mem=5, G=G,
+                    num_heads=4)
+    q3, dout = (randn(n_rows, geom.ng, geom.nq, 256).to(dtype)
+                for _ in range(2))
+    k, v = (randn(n_rows, geom.tk, 256).to(dtype) for _ in range(2))
+    full = torch.full((n_rows,), geom.U, dtype=torch.int32, device="cuda")
+    return q3, k, v, full, dout, geom, gate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("G", [7, 4])
+def test_gated_grouped_attention_matches_plain(randn, G, rate):
+    """The gated kernels, forward and backward, vs the plain version with
+    the gate; they count on gated_launches, not launches; and the gate
+    changes the output."""
+    q3, k, v, full, dout, geom, gate = _packed(randn, G)
+    args = (q3, k, v, full)
+    counts = [(f.launches, f.gated_launches) for f in (
+        emformer_grouped_attention, emformer_grouped_attention_backward)]
+    out = emformer_grouped_attention(*args, geom, rate, 21, gate=gate)
+    torch.testing.assert_close(
+        out, grouped_attention_plain(*args, geom, rate, 21, gate), **TOL)
+    got = emformer_grouped_attention_backward(*args, dout, geom, rate, 21,
+                                              gate)
+    want = grouped_attention_plain_backward(*args, dout, geom, rate, 21,
+                                            gate)
+    for gw, w in zip(got, want):
+        torch.testing.assert_close(gw, w, **TOL)
+    assert [(f.launches, f.gated_launches) for f in (
+        emformer_grouped_attention,
+        emformer_grouped_attention_backward)] == [(n, m + 1)
+                                                  for n, m in counts]
+    assert not torch.allclose(out, emformer_grouped_attention(
+        *args, geom, rate, 21), atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_gated_grouped_attention_takes_bf16(randn):
+    """bf16 at G 4, rate 0.1: atol 3e-2, rtol 1e-2 (as the dense bf16
+    case)."""
+    q3, k, v, full, dout, geom, gate = _packed(randn, 4, torch.bfloat16)
+    args = (q3, k, v, full)
+    torch.testing.assert_close(
+        emformer_grouped_attention(*args, geom, 0.1, 8, gate=gate),
+        grouped_attention_plain(*args, geom, 0.1, 8, gate),
+        atol=3e-2, rtol=1e-2)
+    for gw, w in zip(
+            emformer_grouped_attention_backward(*args, dout, geom, 0.1, 8,
+                                                gate),
+            grouped_attention_plain_backward(*args, dout, geom, 0.1, 8,
+                                             gate)):
+        torch.testing.assert_close(gw, w, atol=3e-2, rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_gated_grouped_attention_refuses_a_malformed_gate(randn):
+    q3, k, v, full, dout, geom, gate = _packed(randn, 4)
+    for bad in (EidGate(gate.kid.long(), gate.seg_eid),
+                EidGate(gate.kid, gate.seg_eid[:, :-1]),
+                EidGate(gate.kid.cpu(), gate.seg_eid)):
+        with pytest.raises(ValueError, match="gate"):
+            emformer_grouped_attention_forward(q3, k, v, full, geom,
+                                               gate=bad)
+        with pytest.raises(ValueError, match="gate"):
+            emformer_grouped_attention_backward(q3, k, v, full, dout, geom,
+                                                gate=bad)
 
 
 @pytest.mark.cuda
