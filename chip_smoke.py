@@ -64,9 +64,10 @@ targets):
               warmup 10000, clip 10, as exp/1a_pretrain_asr.sh) on 32
               utterances of 717-1024 frames with 38-64 target tokens;
               losses finite, launches per step as the layer count predicts;
-              3 profiled steps; then one step at dropout 0 without
-              SpecAugment, kernels vs plain versions from the same params
-              and batch
+              3 profiled steps (with the grouped attention's forward +
+              backward device ms per step); then one step at dropout 0
+              without SpecAugment, kernels vs plain versions from the same
+              params and batch
   9. mma-kernels  the MMA alignment recursion's forward and backward
               kernels vs their plain versions at the recipe's pooled shape
               (N = B H 128, U 72, S 32), unpooled (S 256), ragged (S 29,
@@ -112,7 +113,8 @@ targets):
               (--pack), build_model, build_loss and attach_pack_plan on
               phase 7's batch: losses finite, launches per step as the
               layer count predicts (the gated kernels, not the dense
-              ones); 3 profiled steps; one step at dropout 0 without
+              ones); 3 profiled steps (the gated attention's forward +
+              backward device ms per step); one step at dropout 0 without
               SpecAugment, packed vs unpacked from the same parameters
               (encoder output on valid frames, loss, every gradient); and
               kernels vs plain versions on that packed step
@@ -349,6 +351,10 @@ KERNEL_FAMILIES = (
         "gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
         "drop_grad_kernel")),
     *((k, "cuBLAS products") for k in ("gemm", "xmma", "cutlass")))
+# the grouped attention's families (forward; backward block kernel and
+# ordered sum), summed per step in each profile line
+ATTENTION_FAMILIES = ("emformer_grouped_attention",
+                      "emformer_grouped_attention_backward")
 
 
 def log(tag, **fields):
@@ -875,10 +881,13 @@ def profile_steps(state, train_step, batch, generator, tag):
         fam = by_family[kernel_family(e.key)]
         fam[0] += e.self_device_time_total / 1e3 / PROFILE_STEPS
         fam[1] += e.count / PROFILE_STEPS
+    attn = [by_family[fam][0] for fam in ATTENTION_FAMILIES
+            if fam in by_family]
     log(f"{tag}-profile", steps=PROFILE_STEPS,
         profiled_wall_ms_per_step=wall_ms / PROFILE_STEPS,
         device_ms_per_step=device_ms / PROFILE_STEPS,
         device_busy_share_of_profiled_wall=device_ms / wall_ms,
+        grouped_attention_fwd_bwd_device_ms_per_step=sum(attn),
         kernels_per_step=sum(e.count for e in kernels) / PROFILE_STEPS,
         families={name: {"device_ms_per_step": ms, "kernels_per_step": n}
                   for name, (ms, n) in sorted(by_family.items(),

@@ -15,7 +15,7 @@
 // its segment's: kid[b, key row] == seg_eid[b, segment].  The TPU kernel
 // read a dense (B, ng, nq, ctx) int8 mask and added (eid - 1) * 1e9 to the
 // scores (a Mosaic workaround); here the two small id vectors are read
-// directly and the rule is one more boolean term of `visible`, compiled
+// directly and the rule is one more boolean term of `unit_columns`, compiled
 // out of the ungated instantiation, so the dense path runs the same code
 // as without a gate.  A row that sees no key outputs exact zeros, as the
 // JAX softmax does.
@@ -23,35 +23,69 @@
 // offset ((((b ng + g) heads + h) nq + row) ctx + col)), stream 0, in the
 // gathered-context layout, so the backward regenerates the forward's mask.
 //
-// What bounds it on the H100: per (batch, group, head) the context is only
-// m_slots + G*rc + lc + G*seg rows (236 at the s2t_emformer_s geometry),
-// so the work is small (about 2 x 200 x 236 x 64 FMA per block) and the
-// cost is latency and shared-memory traffic, not device memory.  The
-// forward gives each block one (batch, group, head) and a slice of the
-// query rows (grid.y), gathers that head's K and V context rows straight
-// from the projected K/V once into dynamic shared memory (about 121 KB in
-// fp32, above the 48 KB static limit, hence cudaFuncSetAttribute) and
-// lets each warp own one query row at a time: lanes score 1/32 of the
-// context, the row max and sum are warp reductions, and each lane then
-// accumulates two of the 64 output features.  Unlike the TPU kernel there
-// are no 16-row aligned windows or padded Tk (a Mosaic slicing rule), and
-// the softmax uses the row max instead of a clamp at 80.
+// What bounds it on the H100: a segment's query rows see few of the
+// group's context slots.  At s2t_emformer_s's geometry (seg 16, lc 32,
+// rc 8, max_mem 5, G 8) the group context has 236 slots but the 25 rows
+// of a segment (8 rc, 16 frames, 1 summary) see at most 61 of them:
+// max_mem memory slots, the segment's own rc block and lc + seg utterance
+// frames, about a quarter of the (row, slot) pairs.  The work on those
+// pairs is small (about 0.7 GFLOP forward at the train shape, 10 us at the
+// fp32 CUDA-core peak), so the cost is what surrounds it: masked pairs,
+// shared-memory loads per FMA and how many blocks an SM holds.
 //
-// The backward cannot carry dK/dV across the groups in one accumulator as
-// the TPU kernel does (its grid runs in order; neighbouring groups' windows
-// overlap by lc frames and share memory slots), so it runs as three
-// kernels and sums nothing across blocks with atomics:
-//   dq:   the forward's layout, one warp per query row: recompute p, then
-//         dp = (dO . v) m, Delta = sum(dp p), ds = p (dp - Delta) / sqrt(64),
-//         dq = ds K; it also writes each row's log-sum-exp and Delta;
-//   dkv:  one block per (batch, group, head) holding that block's Q and dO
-//         rows in shared memory, one warp per context column: p from the
-//         row's log-sum-exp, dv_c = sum_r round(p m) dO_r,
-//         dk_c = sum_r ds_r q_r, written as an fp32 partial per (b, g);
-//   sum:  one thread per key-row element adds, in group order, the partial
-//         of each group whose context holds that row (a static map: at most
-//         one column per group), and casts to the activation dtype.
-#include <climits>
+// So the work unit is one segment of one (batch, group, head): its rows
+// are three runs of the group's query rows (rc rows [i rc, (i+1) rc),
+// frame rows [G rc + i seg, +seg), summary row G (rc+seg) + i) and its
+// columns three runs of the group context (memory [i, i+max_mem), rc
+// [m_slots + i rc, +rc), utterance [m_slots + G rc + i seg, +lc+seg)).
+// Only those K and V rows are staged into shared memory, by 16-byte
+// cp.async copies in fp32 (zero-filled for slots outside the sequence).
+// Products are register-blocked on the CUDA cores in fp32, as csrc/mha.cu:
+// each thread holds a micro-tile of a 32-row x 64-column tile and reads
+// operands as float4 from rows padded to 68 floats (16-byte aligned, and
+// eight neighbouring rows fall in eight distinct bank quads), so every
+// shared load feeds several FMAs.  Dropout keeps the global gathered-
+// context offset above (the group-context slot, never the unit's column).
+//
+// Sums run in the order of a computation over the whole group context,
+// whatever the tiling: the softmax's row sums and Delta lane-strided over
+// the context slots (lane l adds slots l, l + 32, ... in order, then the
+// shuffle tree; `for_lane_slots`), each product over a row's columns or a
+// column's rows in ascending order, as a sequential fp32 product does.  So
+// the results do not depend on how the context is cut into units, and the
+// kernels give the same bits as one warp per query row over the gathered
+// context would.
+//
+// Forward: one block of 128 threads per unit (B ng heads G blocks, 53 KB
+// of shared memory at the geometry above, four blocks per SM): scores into
+// shared memory, the row softmax by one warp per row (max and sum by
+// shuffles), the probabilities dropped and rounded to the activation
+// dtype, then P . V.
+//
+// Backward: one block of 256 threads per (batch, group, head).  A first
+// walk over its G segments recomputes each segment's probabilities once
+// over the segment's columns, forms dp = (dO . v) m, Delta = sum(dp p) and
+// ds = p (dp - Delta) / sqrt(64) and writes the segment's dq rows (each
+// query row belongs to one segment).  dK = ds^T Q and dV = round(p m)^T dO
+// add each slot's rows in the group's row order (rc rows, frame rows, then
+// summary rows, each by segment), which interleaves the segments, so the
+// first walk keeps each unit's ds and round(p m) in an fp32 scratch (26 MB
+// at the train shape) and three more walks add them, in that order, into
+// fp32 accumulators of the group's whole context in shared memory (121 KB
+// at the geometry above, 200 KB per block, one block per SM; neighbouring
+// segments share memory slots and lc frames, and the block owns them, so
+// nothing races).  At the end the block writes the group's (B, ng, ctx,
+// dim) fp32 partials, and the ordered sum kernel adds the groups' partials
+// into key rows (groups overlap by lc frames and share memory slots), in
+// group order, without atomics.
+//
+// What bounds them is latency, not bytes or operations: per block at the
+// train shape (tools/attn_phase_profile.py), the forward spends about half
+// of its cycles in the row softmax and a quarter staging; the backward,
+// one block of 8 warps per SM, about a third in the row softmax and ds, a
+// fifth in the three dK / dV walks, and the rest in the scores, staging
+// and dq.  A warp takes kRowTile / warps rows at once so that their chains
+// of shuffles, exp and Philox overlap.
 #include <math.h>
 
 #include "common.cuh"
@@ -61,16 +95,20 @@ namespace {
 using simulst::Dropout;
 using simulst::from_f32;
 using simulst::round_to;
-using simulst::to_f32;
 
 constexpr int kHeadDim = 64;
-constexpr int kKPad = kHeadDim + 1;  // padded rows: conflict-free scoring
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kLd = kHeadDim + 4;  // staged row stride (floats)
+constexpr int kRowTile = 32;       // unit rows per product tile
+constexpr int kColTile = 64;       // unit columns per product tile
+constexpr int kFwdThreads = 128;   // 8 x 16, a 4 x 4 micro-tile each
+constexpr int kBwdThreads = 256;   // 16 x 16, 2 x 4 (scores) or 4 x 4
+constexpr int kSmemLimit = 227 * 1024;
 
 struct Geom {
-  int ng, nq, dim, heads, seg, lc, rc, max_mem, G, n, U, tk, m_slots, ctx,
-      rows_per_block;
+  int ng, nq, dim, heads, seg, lc, rc, max_mem, G, n, U, tk, m_slots, ctx;
+  // a unit: R = rc + seg + 1 rows and C = max_mem + rc + lc + seg columns,
+  // padded to whole tiles (Rp, Cp); sld the row stride of its scores
+  int R, C, Rp, Cp, sld;
 };
 
 // The sequence-packing gate: kid (batch, tk) the example id of each key
@@ -92,24 +130,21 @@ struct Gate {
   }
 };
 
-size_t smem_bytes(const Geom& g) {
-  return (size_t)g.ctx * (kKPad + kHeadDim) * sizeof(float)  // K, V
-         + (size_t)kWarps * (kHeadDim + g.ctx) * sizeof(float)  // q, p
-         + (size_t)g.ctx * sizeof(int);                          // slot rows
+// Shared memory of a forward block: Q, K, V, the scores, and three ints
+// per column.  ops/emformer_attn.py `unit_shape` computes the same bytes.
+size_t fwd_smem_bytes(const Geom& g) {
+  return sizeof(float) * ((size_t)g.Rp * kLd + 2 * (size_t)g.Cp * kLd +
+                          (size_t)g.Rp * g.sld) +
+         3 * sizeof(int) * (size_t)g.Cp;
 }
 
-// backward dq kernel: K, V padded; per warp q, dO, p, dp
-size_t smem_bytes_dq(const Geom& g) {
-  return (size_t)g.ctx * 2 * kKPad * sizeof(float) +
-         (size_t)kWarps * (2 * kHeadDim + 2 * g.ctx) * sizeof(float) +
-         (size_t)g.ctx * sizeof(int);
-}
-
-// backward dkv kernel: Q, dO rows padded, row lse and Delta; per warp k, v
-// and the per-row scalars
-size_t smem_bytes_dkv(const Geom& g) {
-  return (size_t)g.nq * (2 * kKPad + 2) * sizeof(float) +
-         (size_t)kWarps * (2 * kHeadDim + 2 * g.nq) * sizeof(float);
+// ... of a backward block: Q, dO, K, V, three (row, column) matrices, the
+// group's dK and dV accumulators, and three ints per column
+size_t bwd_smem_bytes(const Geom& g) {
+  return sizeof(float) * (2 * (size_t)g.Rp * kLd + 2 * (size_t)g.Cp * kLd +
+                          3 * (size_t)g.Rp * g.sld +
+                          2 * (size_t)g.ctx * kHeadDim) +
+         3 * sizeof(int) * (size_t)g.Cp;
 }
 
 // context slot c of group grp -> key row, -1 where the slot lies outside
@@ -125,355 +160,617 @@ __device__ __forceinline__ int slot_to_row(const Geom& g, int grp, int c) {
   return (f >= 0 && f < g.U) ? (g.n - 1) + g.n * g.rc + f : -1;
 }
 
-// query row r of a group -> (segment within the group, is a summary row)
-__device__ __forceinline__ int row_segment(const Geom& g, int r, bool* is_sum) {
-  const int grc = g.G * g.rc;
-  *is_sum = false;
-  if (r < grc) return r / g.rc;
-  if (r < g.G * (g.rc + g.seg)) return (r - grc) / g.seg;
-  *is_sum = true;
-  return r - g.G * (g.rc + g.seg);
+// group-context slot of column j (< C) of segment i's unit
+__device__ __forceinline__ int unit_slot(const Geom& g, int i, int j) {
+  if (j < g.max_mem) return i + j;
+  j -= g.max_mem;
+  if (j < g.rc) return g.m_slots + i * g.rc + j;
+  return g.m_slots + g.G * g.rc + i * g.seg + (j - g.rc);
 }
 
-// whether query row (segment i, is_sum) sees context slot c holding key
-// row `row` (-1: outside the sequence); frame0 = frame of utterance slot 0;
-// same_example: the gate's term (true without a gate)
-__device__ __forceinline__ bool visible(const Geom& g, int i, bool is_sum,
-                                        int c, int row, int frame0,
-                                        int length, bool same_example) {
-  if (!same_example) return false;
+// group query row of row r (< R) of segment i's unit
+__device__ __forceinline__ int unit_row(const Geom& g, int i, int r) {
+  if (r < g.rc) return i * g.rc + r;
+  if (r < g.rc + g.seg) return g.G * g.rc + i * g.seg + (r - g.rc);
+  return g.G * (g.rc + g.seg) + i;
+}
+
+// Per column j < Cp of segment i's unit: its group-context slot (-1:
+// padding), its key row (-1: none, staged as zeros) and whether the
+// segment's rows see it: memory slots that exist, the own rc block,
+// utterance frames that exist below the length, and with the gate only
+// keys of the segment's example.
+template <bool kGated>
+__device__ void unit_columns(const Geom& g, const Gate& gate, int b, int grp,
+                             int i, int length, int* col_slot, int* col_row,
+                             int* col_ok) {
   const int utt0 = g.m_slots + g.G * g.rc;
-  if (c < g.m_slots)
-    return !is_sum && c >= i && c < i + g.max_mem && row >= 0;
-  if (c < utt0) return (c - g.m_slots) / g.rc == i;
-  const int j = c - utt0;
-  return j >= i * g.seg && j < i * g.seg + g.lc + g.seg && row >= 0 &&
-         frame0 + j < length;
-}
-
-// Gather one head's K and V context rows of group grp into shared memory
-// (row stride kKPad for K, vld for V), zeros for slots outside the
-// sequence; slot_row[c] receives the key row of each slot.
-template <typename T>
-__device__ void load_context(const T* __restrict__ k, const T* __restrict__ v,
-                             const Geom& g, int b, int grp, int head,
-                             float* ks, float* vs, int vld, int* slot_row) {
-  for (int c = threadIdx.x; c < g.ctx; c += blockDim.x)
-    slot_row[c] = slot_to_row(g, grp, c);
-  __syncthreads();
-  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
-  for (int idx = threadIdx.x; idx < g.ctx * kHeadDim; idx += blockDim.x) {
-    const int c = idx / kHeadDim, d = idx % kHeadDim;
-    const int row = slot_row[c];
-    float kk = 0.f, vv = 0.f;
-    if (row >= 0) {
-      const size_t off = kv_base + (size_t)row * g.dim + d;
-      kk = to_f32(k[off]);
-      vv = to_f32(v[off]);
+  const int frame0 = grp * g.G * g.seg - g.lc;  // frame of utterance slot 0
+  const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
+  for (int j = threadIdx.x; j < g.Cp; j += blockDim.x) {
+    int slot = -1, row = -1;
+    bool ok = false;
+    if (j < g.C) {
+      slot = unit_slot(g, i, j);
+      row = slot_to_row(g, grp, slot);
+      const bool own_rc = j >= g.max_mem && j < g.max_mem + g.rc;
+      ok = own_rc || (row >= 0 && (j < g.max_mem ||
+                                   frame0 + (slot - utt0) < length));
+      if (kGated) ok = ok && gate.same(g, b, row, qid);
     }
-    ks[c * kKPad + d] = kk;
-    vs[c * vld + d] = vv;
+    col_slot[j] = slot;
+    col_row[j] = row;
+    col_ok[j] = ok;
   }
+}
+
+// whether unit row r (< R) sees unit column j: the summary row (the last)
+// sees no memory slot
+__device__ __forceinline__ bool unit_visible(const Geom& g, const int* col_ok,
+                                             int r, int j) {
+  return col_ok[j] && !(r == g.R - 1 && j < g.max_mem);
+}
+
+// f(j) for the columns j of segment i's unit whose group-context slot is
+// lane mod 32, in ascending slot order (the unit's columns are three runs
+// of consecutive slots): a lane's share of a row sum taken in the order of
+// a warp reducing the whole group context lane-strided, so that row sums
+// do not depend on how the context is cut into units.
+template <class F>
+__device__ __forceinline__ void for_lane_slots(const Geom& g, int i, int lane,
+                                               F f) {
+  const int col0[3] = {0, g.max_mem, g.max_mem + g.rc};
+  const int slot0[3] = {i, g.m_slots + i * g.rc,
+                        g.m_slots + g.G * g.rc + i * g.seg};
+  const int len[3] = {g.max_mem, g.rc, g.lc + g.seg};
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    for (int d = (lane - slot0[k]) & 31; d < len[k]; d += 32) f(col0[k] + d);
+}
+
+template <int K>
+__device__ __forceinline__ void warp_max_k(float (&v)[K]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] = fmaxf(v[k], __shfl_xor_sync(0xffffffffu, v[k], o));
+}
+
+template <int K>
+__device__ __forceinline__ void warp_sum_k(float (&v)[K]) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+}
+
+// The softmax's max and sum of K rows of a unit at once, so that their
+// latency chains overlap (a warp owns the rows; src[k] null: no row):
+// mx[k] the row max (-inf: the row sees no key), dst[k][j] =
+// exp(src[k][j] - mx[k]) for j < C (0 off the mask), and sum[k] their sum
+// in the slot order of for_lane_slots.  Each row's arithmetic is that of
+// one row alone.
+template <int K>
+__device__ __forceinline__ void exp_rows(const Geom& g, int i, int lane,
+                                         float* const (&src)[K],
+                                         float* const (&dst)[K],
+                                         float (&mx)[K], float (&sum)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    mx[k] = -INFINITY;
+    if (src[k])
+      for (int j = lane; j < g.Cp; j += 32) mx[k] = fmaxf(mx[k], src[k][j]);
+  }
+  warp_max_k(mx);
+  for (int j = lane; j < g.C; j += 32)
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (src[k] && mx[k] != -INFINITY) dst[k][j] = expf(src[k][j] - mx[k]);
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < K; ++k) sum[k] = 0.f;
+  for_lane_slots(g, i, lane, [&](int j) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (src[k] && mx[k] != -INFINITY) sum[k] += dst[k][j];
+  });
+  warp_sum_k(sum);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Stage n rows of one head's 64 features into dst (row stride kLd): row r
+// from src + off(r), zeros where off(r) < 0.  fp32 rows go by 16-byte
+// cp.async (zero-filled through its source size), bf16 rows by 16-byte
+// loads widened to fp32.  stage_wait() completes them.
+template <typename T, class Off>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const T* __restrict__ src, int n,
+                                           Off off) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = kHeadDim / kVec;
+  for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, ch = idx % kChunks;
+    const long long o = off(r);
+    float* d = dst + r * kLd + ch * kVec;
+    if constexpr (sizeof(T) == sizeof(float)) {
+      cp_async16(d, o >= 0 ? src + o + ch * kVec : src, o >= 0);
+    } else {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (o >= 0)
+        raw = __ldg(reinterpret_cast<const uint4*>(src + o + ch * kVec));
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]),
+                   f2 = __bfloat1622float2(h[2]), f3 = __bfloat1622float2(h[3]);
+      reinterpret_cast<float4*>(d)[0] = make_float4(f0.x, f0.y, f1.x, f1.y);
+      reinterpret_cast<float4*>(d)[1] = make_float4(f2.x, f2.y, f3.x, f3.y);
+    }
+  }
+}
+
+// n floats (a multiple of 4) from src to dst, by 16-byte cp.async
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int n) {
+  for (int q = 4 * threadIdx.x; q < n; q += 4 * blockDim.x)
+    cp_async16(dst + q, src + q, true);
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_group 0;\n" ::
+                   : "memory");
   __syncthreads();
 }
 
+__device__ __forceinline__ const float4& at4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+__device__ __forceinline__ float dot4(const float4& a, const float4& b,
+                                      float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+
+__device__ __forceinline__ void store4(float* dst, const float4& v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4& v) {
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// acc[a][c] = x row (xr + kStep a) . y row (yr + 16 c) over the 64
+// features, for staged tiles x and y (row stride kLd)
+template <int kA, int kStep>
+__device__ __forceinline__ void tile_dots(const float* x, int xr,
+                                          const float* y, int yr,
+                                          float acc[kA][4]) {
+#pragma unroll
+  for (int a = 0; a < kA; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < kHeadDim; d += 4) {
+    float4 xa[kA], yc[4];
+#pragma unroll
+    for (int a = 0; a < kA; ++a) xa[a] = at4(x + (xr + kStep * a) * kLd + d);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) yc[c] = at4(y + (yr + 16 * c) * kLd + d);
+#pragma unroll
+    for (int a = 0; a < kA; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = dot4(xa[a], yc[c], acc[a][c]);
+  }
+}
+
+// acc[a] += sum over columns j < jn of p[row (r + kStep a)][j] * y[j][4 f..]:
+// rows of the probabilities (or ds; row stride sld) times a staged tile
+template <int kA, int kStep>
+__device__ __forceinline__ void tile_pv(const float* p, int sld, int r,
+                                        const float* y, int f, int jn,
+                                        float4 acc[kA]) {
+#pragma unroll 2
+  for (int j = 0; j < jn; j += 4) {
+    float4 pa[kA], yc[4];
+#pragma unroll
+    for (int a = 0; a < kA; ++a) pa[a] = at4(p + (r + kStep * a) * sld + j);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) yc[t] = at4(y + (j + t) * kLd + 4 * f);
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      fma4(acc[a], pa[a].x, yc[0]);
+      fma4(acc[a], pa[a].y, yc[1]);
+      fma4(acc[a], pa[a].z, yc[2]);
+      fma4(acc[a], pa[a].w, yc[3]);
+    }
+  }
+}
+
+// one forward block per unit: blockIdx.x = ((b ng + grp) heads + head) G + i
 template <typename T, bool kGated>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFwdThreads)
     grouped_attn_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, Gate gate,
                         T* __restrict__ out, Geom g, Dropout drop) {
-  extern __shared__ float smem[];
-  float* ks = smem;                          // [ctx][kKPad]
-  float* vs = ks + g.ctx * kKPad;            // [ctx][kHeadDim]
-  float* qs = vs + g.ctx * kHeadDim;         // [kWarps][kHeadDim]
-  float* ps = qs + kWarps * kHeadDim;        // [kWarps][ctx]
-  int* slot_row = reinterpret_cast<int*>(ps + kWarps * g.ctx);  // [ctx]
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [Rp][kLd]
+  float* ks = qs + g.Rp * kLd;                  // [Cp][kLd]
+  float* vs = ks + g.Cp * kLd;                  // [Cp][kLd]
+  float* ps = vs + g.Cp * kLd;                  // [Rp][sld] scores, probs
+  int* col_slot = reinterpret_cast<int*>(ps + g.Rp * g.sld);  // [Cp]
+  int* col_row = col_slot + g.Cp;                             // [Cp]
+  int* col_ok = col_row + g.Cp;                               // [Cp]
 
-  const int head = blockIdx.x % g.heads;
-  const int grp = (blockIdx.x / g.heads) % g.ng;
-  const int b = blockIdx.x / (g.heads * g.ng);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int frame0 = grp * g.G * g.seg - g.lc;  // frame of utterance slot 0
-  const int length = lengths[b];
-  load_context(k, v, g, b, grp, head, ks, vs, kHeadDim, slot_row);
+  const int i = blockIdx.x % g.G;
+  const int head = (blockIdx.x / g.G) % g.heads;
+  const int grp = (blockIdx.x / (g.G * g.heads)) % g.ng;
+  const int b = blockIdx.x / (g.G * g.heads * g.ng);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t q_base =
+      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * kHeadDim;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
+  const size_t row_base =
+      (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
 
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
-  const float keep_mult = drop.on ? drop.inv_keep : 1.f;
-  float* qw = qs + warp * kHeadDim;
-  float* pw = ps + warp * g.ctx;
-  const int r_end = min((int)(blockIdx.y + 1) * g.rows_per_block, g.nq);
-  for (int r = blockIdx.y * g.rows_per_block + warp; r < r_end; r += kWarps) {
-    const size_t q_off =
-        (((size_t)b * g.ng + grp) * g.nq + r) * g.dim + head * kHeadDim;
-    const unsigned long long drop_off =
-        ((((unsigned long long)b * g.ng + grp) * g.heads + head) * g.nq + r) *
-        g.ctx;
-    qw[lane] = to_f32(q3[q_off + lane]);
-    qw[lane + 32] = to_f32(q3[q_off + lane + 32]);
-    __syncwarp();
-    bool is_sum;
-    const int i = row_segment(g, r, &is_sum);
-    const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
-
-    float mx = -INFINITY;
-    for (int c = lane; c < g.ctx; c += 32) {
-      float s = -INFINITY;
-      const int row = slot_row[c];
-      if (visible(g, i, is_sum, c, row, frame0, length,
-                  !kGated || gate.same(g, b, row, qid))) {
-        const float* kr = ks + c * kKPad;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < kHeadDim; ++d) acc = fmaf(qw[d], kr[d], acc);
-        s = acc * scale;
-      }
-      pw[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = simulst::warp_max(mx);
-
-    float o0 = 0.f, o1 = 0.f;
-    if (mx != -INFINITY) {  // warp-uniform; no visible key -> zeros
-      float sum = 0.f;
-      for (int c = lane; c < g.ctx; c += 32) {
-        const float e = expf(pw[c] - mx);  // exp(-inf) == 0 off the mask
-        sum += e;
-        // a dropped entry is stored negated (e >= 0, so the sign says it)
-        pw[c] = drop.scale(drop_off + c, 0) != 0.f ? e : -e;
-      }
-      const float inv = 1.0f / simulst::warp_sum(sum);
-      __syncwarp();
-      for (int c = 0; c < g.ctx; ++c) {
-        const float e = pw[c];
-        // probs (dropped) in the act dtype
-        const float p = e > 0.f ? round_to<T>(e * inv * keep_mult) : 0.f;
-        o0 = fmaf(p, vs[c * kHeadDim + lane], o0);
-        o1 = fmaf(p, vs[c * kHeadDim + lane + 32], o1);
-      }
-    }
-    out[q_off + lane] = from_f32<T>(o0);
-    out[q_off + lane + 32] = from_f32<T>(o1);
-    __syncwarp();  // qw and pw are rewritten for the next row
-  }
-}
-
-// dq = ds K per query row; stats[row] = (log-sum-exp, Delta), the
-// log-sum-exp -inf for a row that sees no key
-template <typename T, bool kGated>
-__global__ void __launch_bounds__(kThreads)
-    grouped_attn_dq_kernel(const T* __restrict__ q3, const T* __restrict__ k,
-                           const T* __restrict__ v, const T* __restrict__ dout,
-                           const int* __restrict__ lengths, Gate gate,
-                           T* __restrict__ dq, float* __restrict__ stats,
-                           Geom g, Dropout drop) {
-  extern __shared__ float smem[];
-  float* ks = smem;                          // [ctx][kKPad]
-  float* vs = ks + g.ctx * kKPad;            // [ctx][kKPad]
-  float* qs = vs + g.ctx * kKPad;            // [kWarps][kHeadDim]
-  float* dos = qs + kWarps * kHeadDim;       // [kWarps][kHeadDim]
-  float* ps = dos + kWarps * kHeadDim;       // [kWarps][ctx]
-  float* dps = ps + kWarps * g.ctx;          // [kWarps][ctx]
-  int* slot_row = reinterpret_cast<int*>(dps + kWarps * g.ctx);  // [ctx]
-
-  const int head = blockIdx.x % g.heads;
-  const int grp = (blockIdx.x / g.heads) % g.ng;
-  const int b = blockIdx.x / (g.heads * g.ng);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int frame0 = grp * g.G * g.seg - g.lc;
-  const int length = lengths[b];
-  load_context(k, v, g, b, grp, head, ks, vs, kKPad, slot_row);
+  unit_columns<kGated>(g, gate, b, grp, i, lengths[b], col_slot, col_row,
+                       col_ok);
+  __syncthreads();
+  const auto q_off = [&](int r) -> long long {
+    return r < g.R ? (long long)(q_base + (size_t)unit_row(g, i, r) * g.dim)
+                   : -1;
+  };
+  const auto kv_off = [&](int j) -> long long {
+    return col_row[j] >= 0 ? (long long)(kv_base + (size_t)col_row[j] * g.dim)
+                           : -1;
+  };
+  stage_rows(qs, q3, g.Rp, q_off);
+  stage_rows(ks, k, g.Cp, kv_off);
+  stage_rows(vs, v, g.Cp, kv_off);
+  stage_wait();
 
   const float scale = 1.0f / sqrtf((float)kHeadDim);
-  float* qw = qs + warp * kHeadDim;
-  float* dow = dos + warp * kHeadDim;
-  float* pw = ps + warp * g.ctx;
-  float* dpw = dps + warp * g.ctx;
-  const int r_end = min((int)(blockIdx.y + 1) * g.rows_per_block, g.nq);
-  for (int r = blockIdx.y * g.rows_per_block + warp; r < r_end; r += kWarps) {
-    const size_t q_off =
-        (((size_t)b * g.ng + grp) * g.nq + r) * g.dim + head * kHeadDim;
-    const size_t row_id =
-        (((size_t)b * g.ng + grp) * g.heads + head) * g.nq + r;
-    const unsigned long long drop_off = (unsigned long long)row_id * g.ctx;
-    qw[lane] = to_f32(q3[q_off + lane]);
-    qw[lane + 32] = to_f32(q3[q_off + lane + 32]);
-    dow[lane] = to_f32(dout[q_off + lane]);
-    dow[lane + 32] = to_f32(dout[q_off + lane + 32]);
-    __syncwarp();
-    bool is_sum;
-    const int i = row_segment(g, r, &is_sum);
-    const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
-
-    float mx = -INFINITY;
-    for (int c = lane; c < g.ctx; c += 32) {
-      float s = -INFINITY;
-      const int row = slot_row[c];
-      if (visible(g, i, is_sum, c, row, frame0, length,
-                  !kGated || gate.same(g, b, row, qid))) {
-        const float* kr = ks + c * kKPad;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < kHeadDim; ++d) acc = fmaf(qw[d], kr[d], acc);
-        s = acc * scale;
-      }
-      pw[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = simulst::warp_max(mx);
-
-    float g0 = 0.f, g1 = 0.f, lse = -INFINITY, delta = 0.f;
-    if (mx != -INFINITY) {  // warp-uniform; no visible key -> zeros
-      float sum = 0.f;
-      for (int c = lane; c < g.ctx; c += 32) {
-        const float e = expf(pw[c] - mx);
-        pw[c] = e;
-        sum += e;
-      }
-      sum = simulst::warp_sum(sum);
-      const float inv = 1.0f / sum;
-      lse = mx + logf(sum);
-      float dsum = 0.f;
-      for (int c = lane; c < g.ctx; c += 32) {
-        const float p = pw[c] * inv;
-        float dp = 0.f;
-        if (p > 0.f) {
-          const float* vr = vs + c * kKPad;
-          float acc = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < kHeadDim; ++d) acc = fmaf(dow[d], vr[d], acc);
-          dp = acc * drop.scale(drop_off + c, 0);
+  for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
+    for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
+      float s[4][4];
+      tile_dots<4, 8>(qs, r0 + ty, ks, c0 + tx, s);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = r0 + ty + 8 * a;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = c0 + tx + 16 * c;
+          ps[r * g.sld + j] =
+              r >= g.R ? 0.f
+              : unit_visible(g, col_ok, r, j) ? s[a][c] * scale
+                                              : -INFINITY;
         }
-        pw[c] = p;
-        dpw[c] = dp;
-        dsum += dp * p;
-      }
-      delta = simulst::warp_sum(dsum);
-      for (int c = lane; c < g.ctx; c += 32)
-        dpw[c] = round_to<T>(pw[c] * (dpw[c] - delta) * scale);
-      __syncwarp();
-      for (int c = 0; c < g.ctx; ++c) {
-        const float ds = dpw[c];
-        g0 = fmaf(ds, ks[c * kKPad + lane], g0);
-        g1 = fmaf(ds, ks[c * kKPad + lane + 32], g1);
       }
     }
-    dq[q_off + lane] = from_f32<T>(g0);
-    dq[q_off + lane + 32] = from_f32<T>(g1);
-    if (lane == 0) {
-      stats[2 * row_id] = lse;
-      stats[2 * row_id + 1] = delta;
+  __syncthreads();
+
+  // the row softmax, a warp on kFwdRows rows at once; dropped and rounded
+  // to the activation dtype (a row that sees no key: zeros)
+  const float keep_mult = drop.on ? drop.inv_keep : 1.f;
+  constexpr int kWarps = kFwdThreads / 32, kFwdRows = kRowTile / kWarps;
+  for (int rb = warp; rb < g.R; rb += kRowTile) {
+    float* pr[kFwdRows];
+#pragma unroll
+    for (int k = 0; k < kFwdRows; ++k)
+      pr[k] = rb + k * kWarps < g.R ? ps + (rb + k * kWarps) * g.sld : nullptr;
+    float mx[kFwdRows], sum[kFwdRows], inv[kFwdRows];
+    unsigned long long off[kFwdRows];
+    exp_rows(g, i, lane, pr, pr, mx, sum);
+#pragma unroll
+    for (int k = 0; k < kFwdRows; ++k) {
+      inv[k] = mx[k] != -INFINITY ? 1.0f / sum[k] : 0.f;
+      off[k] = (unsigned long long)(row_base +
+                                    unit_row(g, i, rb + k * kWarps)) *
+               g.ctx;
     }
-    __syncwarp();
-  }
-}
-
-// dk / dv of each context slot of one (batch, group, head) into the fp32
-// partials (B, ng, ctx, dim); a slot outside the sequence gets zeros
-template <typename T, bool kGated>
-__global__ void __launch_bounds__(kThreads)
-    grouped_attn_dkv_kernel(const T* __restrict__ q3, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
-                            const int* __restrict__ lengths, Gate gate,
-                            const float* __restrict__ stats,
-                            float* __restrict__ dk_part,
-                            float* __restrict__ dv_part, Geom g,
-                            Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [nq][kKPad]
-  float* dos = qs + g.nq * kKPad;            // [nq][kKPad]
-  float* lse_s = dos + g.nq * kKPad;         // [nq]
-  float* delta_s = lse_s + g.nq;             // [nq]
-  float* kvs = delta_s + g.nq;               // [kWarps][2 * kHeadDim]
-  float* rs = kvs + kWarps * 2 * kHeadDim;   // [kWarps][2 * nq]
-
-  const int head = blockIdx.x % g.heads;
-  const int grp = (blockIdx.x / g.heads) % g.ng;
-  const int b = blockIdx.x / (g.heads * g.ng);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int frame0 = grp * g.G * g.seg - g.lc;
-  const int length = lengths[b];
-  const size_t q_base = ((size_t)b * g.ng + grp) * g.nq * g.dim +
-                        head * kHeadDim;
-  const size_t row_base = (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
-  for (int idx = threadIdx.x; idx < g.nq * kHeadDim; idx += blockDim.x) {
-    const int r = idx / kHeadDim, d = idx % kHeadDim;
-    qs[r * kKPad + d] = to_f32(q3[q_base + (size_t)r * g.dim + d]);
-    dos[r * kKPad + d] = to_f32(dout[q_base + (size_t)r * g.dim + d]);
-  }
-  for (int r = threadIdx.x; r < g.nq; r += blockDim.x) {
-    lse_s[r] = stats[2 * (row_base + r)];
-    delta_s[r] = stats[2 * (row_base + r) + 1];
+    for (int j = lane; j < g.Cp; j += 32)
+#pragma unroll
+      for (int k = 0; k < kFwdRows; ++k) {
+        if (!pr[k]) continue;
+        const float e = mx[k] != -INFINITY ? pr[k][j] : 0.f;
+        pr[k][j] = e > 0.f && drop.scale(off[k] + col_slot[j], 0) != 0.f
+                       ? round_to<T>(e * inv[k] * keep_mult)
+                       : 0.f;
+      }
   }
   __syncthreads();
 
+  const int jn = (g.C + 3) & ~3;  // columns past C hold zeros
+  for (int r0 = 0; r0 < g.Rp; r0 += kRowTile) {
+    float4 o[4] = {};
+    tile_pv<4, 8>(ps, g.sld, r0 + ty, vs, tx, jn, o);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = r0 + ty + 8 * a;
+      if (r < g.R) store4(out + q_off(r) + 4 * tx, o[a]);
+    }
+  }
+}
+
+// One backward block per (batch, group, head).  A first walk over the G
+// segments recomputes each segment's probabilities once, forms ds for dq
+// and writes the segment's dq rows, and keeps ds and round(p m) for dK / dV
+// in the block's slice of `probs` (G units of R x Cp each, two matrices).
+// Three more walks add dK = ds^T Q and dV = round(p m)^T dO into the
+// group's accumulators over the rc rows, then the frame rows, then the
+// summary rows of the segments in order: the group's row order, so each
+// slot's sum runs over the rows in the order of a product over all nq rows,
+// whatever the tiling.  The accumulators end in the (B, ng, ctx, dim) fp32
+// partials (zeros for slots no row sees).
+//
+// dq takes p = e / sum, and Delta = sum(dp p) over the columns with
+// p > 0, dp = (dO . v) m; dK and dV take p = exp(s - lse) with
+// lse = max + log(sum).  The two agree to rounding.
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    grouped_attn_bwd_kernel(const T* __restrict__ q3, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const int* __restrict__ lengths, Gate gate,
+                            T* __restrict__ dq, float* __restrict__ probs,
+                            float* __restrict__ dk_part,
+                            float* __restrict__ dv_part, Geom g,
+                            Dropout drop) {
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);  // [Rp][kLd]
+  float* dos = qs + g.Rp * kLd;                 // [Rp][kLd]
+  float* ks = dos + g.Rp * kLd;                 // [Cp][kLd]
+  float* vs = ks + g.Cp * kLd;                  // [Cp][kLd]
+  float* as = vs + g.Cp * kLd;                  // [Rp][sld] scores, ds (dq)
+  float* ts = as + g.Rp * g.sld;                // [Rp][sld] dO . v, round(p m)
+  float* xs = ts + g.Rp * g.sld;                // [Rp][sld] e, ds (dK)
+  float* dk_acc = xs + g.Rp * g.sld;            // [ctx][kHeadDim]
+  float* dv_acc = dk_acc + g.ctx * kHeadDim;    // [ctx][kHeadDim]
+  int* col_slot = reinterpret_cast<int*>(dv_acc + g.ctx * kHeadDim);  // [Cp]
+  int* col_row = col_slot + g.Cp;                                     // [Cp]
+  int* col_ok = col_row + g.Cp;                                       // [Cp]
+
+  const int head = blockIdx.x % g.heads;
+  const int grp = (blockIdx.x / g.heads) % g.ng;
+  const int b = blockIdx.x / (g.heads * g.ng);
+  const int length = lengths[b];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t q_base =
+      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * kHeadDim;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
+  const size_t row_base =
+      (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
   const float scale = 1.0f / sqrtf((float)kHeadDim);
   const float keep_mult = drop.on ? drop.inv_keep : 1.f;
-  float* kw = kvs + warp * 2 * kHeadDim;
-  float* vw = kw + kHeadDim;
-  float* pdw = rs + warp * 2 * g.nq;
-  float* dsw = pdw + g.nq;
-  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
-  const size_t part_base = ((size_t)b * g.ng + grp) * g.ctx * g.dim +
-                           head * kHeadDim;
-  const int c_end = min((int)(blockIdx.y + 1) * g.rows_per_block, g.ctx);
-  for (int c = blockIdx.y * g.rows_per_block + warp; c < c_end; c += kWarps) {
-    const int row = slot_to_row(g, grp, c);
-    // the gate: this column's example id, never equal where out of range
-    const int key_id = kGated && row >= 0
-                           ? __ldg(gate.kid + (size_t)b * g.tk + row)
-                           : INT_MIN;
-    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-    if (row >= 0) {
-      const size_t off = kv_base + (size_t)row * g.dim;
-      kw[lane] = to_f32(k[off + lane]);
-      kw[lane + 32] = to_f32(k[off + lane + 32]);
-      vw[lane] = to_f32(v[off + lane]);
-      vw[lane + 32] = to_f32(v[off + lane + 32]);
-      __syncwarp();
-      for (int r = lane; r < g.nq; r += 32) {
-        bool is_sum;
-        const int i = row_segment(g, r, &is_sum);
-        float pd = 0.f, ds = 0.f;
-        if (lse_s[r] != -INFINITY &&
-            visible(g, i, is_sum, c, row, frame0, length,
-                    !kGated || key_id == gate.query_id(g, b, grp, i))) {
-          const float* qr = qs + r * kKPad;
-          const float* dr = dos + r * kKPad;
-          float s = 0.f, dpd = 0.f;
-#pragma unroll 16
-          for (int d = 0; d < kHeadDim; ++d) {
-            s = fmaf(qr[d], kw[d], s);
-            dpd = fmaf(dr[d], vw[d], dpd);
+  const int jn = (g.C + 3) & ~3;
+  const size_t unit_probs = 2 * (size_t)g.R * g.Cp;  // round(p m), then ds
+  probs += (size_t)blockIdx.x * g.G * unit_probs;
+
+  for (int idx = threadIdx.x; idx < 2 * g.ctx * kHeadDim; idx += kBwdThreads)
+    dk_acc[idx] = 0.f;  // and dv_acc, which follows it
+
+  for (int i = 0; i < g.G; ++i) {
+    unit_columns<kGated>(g, gate, b, grp, i, length, col_slot, col_row,
+                         col_ok);
+    __syncthreads();
+    const auto q_off = [&](int r) -> long long {
+      return r < g.R
+                 ? (long long)(q_base + (size_t)unit_row(g, i, r) * g.dim)
+                 : -1;
+    };
+    const auto kv_off = [&](int j) -> long long {
+      return col_row[j] >= 0
+                 ? (long long)(kv_base + (size_t)col_row[j] * g.dim)
+                 : -1;
+    };
+    stage_rows(qs, q3, g.Rp, q_off);
+    stage_rows(dos, dout, g.Rp, q_off);
+    stage_rows(ks, k, g.Cp, kv_off);
+    stage_rows(vs, v, g.Cp, kv_off);
+    stage_wait();
+
+    // scores and dO . v
+    for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
+      for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
+        float s[2][4], t[2][4];
+        tile_dots<2, 16>(qs, r0 + ty, ks, c0 + tx, s);
+        tile_dots<2, 16>(dos, r0 + ty, vs, c0 + tx, t);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const int r = r0 + ty + 16 * a;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = c0 + tx + 16 * c;
+            as[r * g.sld + j] =
+                r >= g.R ? 0.f
+                : unit_visible(g, col_ok, r, j) ? s[a][c] * scale
+                                                : -INFINITY;
+            ts[r * g.sld + j] = r >= g.R ? 0.f : t[a][c];
           }
-          const float p = expf(s * scale - lse_s[r]);
-          const float m =
-              drop.scale((unsigned long long)(row_base + r) * g.ctx + c, 0);
-          pd = m != 0.f ? round_to<T>(p * keep_mult) : 0.f;
-          ds = round_to<T>(p * (dpd * m - delta_s[r]) * scale);
         }
-        pdw[r] = pd;
-        dsw[r] = ds;
       }
+    __syncthreads();
+
+    // per row, a warp on kBwdRows rows at once: the softmax, the dropout
+    // mask, Delta, then ds for dq (in `as`), round(p m) (in `ts`) and ds
+    // for dK (in `xs`); a row that sees no key: zeros
+    constexpr int kWarps = kBwdThreads / 32, kBwdRows = kRowTile / kWarps;
+    for (int rb = warp; rb < g.R; rb += kRowTile) {
+      int r[kBwdRows];
+      float *ar[kBwdRows], *tr[kBwdRows], *xr[kBwdRows];
+#pragma unroll
+      for (int k = 0; k < kBwdRows; ++k) {
+        r[k] = rb + k * kWarps;
+        const bool row = r[k] < g.R;
+        ar[k] = row ? as + r[k] * g.sld : nullptr;
+        tr[k] = row ? ts + r[k] * g.sld : nullptr;
+        xr[k] = row ? xs + r[k] * g.sld : nullptr;
+      }
+      float mx[kBwdRows], sum[kBwdRows], inv[kBwdRows], lse[kBwdRows],
+          dsum[kBwdRows];
+      bool live[kBwdRows];
+      unsigned long long off[kBwdRows];
+      exp_rows(g, i, lane, ar, xr, mx, sum);
+#pragma unroll
+      for (int k = 0; k < kBwdRows; ++k) {
+        live[k] = ar[k] && mx[k] != -INFINITY;
+        inv[k] = live[k] ? 1.0f / sum[k] : 0.f;
+        lse[k] = live[k] ? mx[k] + logf(sum[k]) : 0.f;
+        off[k] = (unsigned long long)(row_base + unit_row(g, i, r[k])) * g.ctx;
+        dsum[k] = 0.f;
+      }
+      for (int j = lane; j < g.C; j += 32)  // the sign keeps the mask (-0 too)
+#pragma unroll
+        for (int k = 0; k < kBwdRows; ++k)
+          if (live[k] && unit_visible(g, col_ok, r[k], j) &&
+              drop.scale(off[k] + col_slot[j], 0) == 0.f)
+            xr[k][j] = -xr[k][j];
       __syncwarp();
-      for (int r = 0; r < g.nq; ++r) {
-        const float pd = pdw[r], ds = dsw[r];
-        v0 = fmaf(pd, dos[r * kKPad + lane], v0);
-        v1 = fmaf(pd, dos[r * kKPad + lane + 32], v1);
-        k0 = fmaf(ds, qs[r * kKPad + lane], k0);
-        k1 = fmaf(ds, qs[r * kKPad + lane + 32], k1);
+      for_lane_slots(g, i, lane, [&](int j) {  // Delta in exp_rows' order
+#pragma unroll
+        for (int k = 0; k < kBwdRows; ++k) {
+          if (!live[k]) continue;
+          const float xe = xr[k][j], p = fabsf(xe) * inv[k];
+          const float dp =
+              p > 0.f ? __fmul_rn(tr[k][j], signbit(xe) ? 0.f : keep_mult)
+                      : 0.f;
+          dsum[k] += dp * p;
+        }
+      });
+      warp_sum_k(dsum);  // Delta
+      __syncwarp();
+      for (int j = lane; j < g.Cp; j += 32)
+#pragma unroll
+        for (int k = 0; k < kBwdRows; ++k) {
+          if (!ar[k]) continue;
+          float ds_q = 0.f, pd = 0.f, ds_k = 0.f;
+          if (live[k] && unit_visible(g, col_ok, r[k], j)) {
+            const float xe = xr[k][j], t = tr[k][j], delta = dsum[k];
+            const float m = signbit(xe) ? 0.f : keep_mult;
+            const float p = fabsf(xe) * inv[k];
+            const float dp = p > 0.f ? __fmul_rn(t, m) : 0.f;
+            ds_q = round_to<T>(p * (dp - delta) * scale);
+            const float pl = expf(ar[k][j] - lse[k]);
+            pd = m != 0.f ? round_to<T>(pl * keep_mult) : 0.f;
+            ds_k = round_to<T>(pl * (t * m - delta) * scale);
+          }
+          ar[k][j] = ds_q;
+          tr[k][j] = pd;
+          xr[k][j] = ds_k;
+        }
+    }
+    __syncthreads();
+
+    // dq = ds K, straight into the segment's rows; round(p m) and ds to
+    // the unit's probs
+    for (int r0 = 0; r0 < g.Rp; r0 += kRowTile) {
+      float4 acc[2] = {};
+      tile_pv<2, 16>(as, g.sld, r0 + ty, ks, tx, jn, acc);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int r = r0 + ty + 16 * a;
+        if (r < g.R) store4(dq + q_off(r) + 4 * tx, acc[a]);
       }
     }
-    const size_t po = part_base + (size_t)c * g.dim;
-    dk_part[po + lane] = k0;
-    dk_part[po + lane + 32] = k1;
-    dv_part[po + lane] = v0;
-    dv_part[po + lane + 32] = v1;
-    __syncwarp();  // kw, vw and the row scalars are rewritten
+    float* up = probs + i * unit_probs;
+    for (int idx = threadIdx.x; idx < g.R * g.Cp / 4; idx += kBwdThreads) {
+      const int r = idx / (g.Cp / 4), q = 4 * (idx % (g.Cp / 4));
+      store4(up + r * g.Cp + q, at4(ts + r * g.sld + q));
+      store4(up + (g.R + r) * g.Cp + q, at4(xs + r * g.sld + q));
+    }
+    __syncthreads();  // the next segment restages the tiles and columns
+  }
+
+  // dK and dV over the rc rows, the frame rows, then the summary rows.
+  // The tiles' space (Q through xs) holds the rows of as many segments as
+  // fit: Q and dO rows (stride kLd), round(p m) and ds rows (stride Cp).
+  // Columns no row sees carry exact zeros, so every column of a unit adds.
+  float* const space = qs;
+  const int space_floats =
+      2 * g.Rp * kLd + 2 * g.Cp * kLd + 3 * g.Rp * g.sld;
+  const int run_rows[4] = {0, g.rc, g.rc + g.seg, g.R};
+  for (int run = 0; run < 3; ++run) {
+    const int r0 = run_rows[run], n = run_rows[run + 1] - r0;
+    const int per_seg = n * (2 * kLd + 2 * g.Cp);
+    const int batch = max(1, min(g.G, space_floats / per_seg));
+    float* qb = space;                   // [batch n][kLd]
+    float* db = qb + batch * n * kLd;    // [batch n][kLd]
+    float* pb = db + batch * n * kLd;    // [batch n][Cp] round(p m)
+    float* sb = pb + batch * n * g.Cp;   // [batch n][Cp] ds
+    for (int i0 = 0; i0 < g.G; i0 += batch) {
+      const int nseg = min(batch, g.G - i0);
+      const auto q_off = [&](int r) -> long long {
+        return (long long)(q_base +
+                           (size_t)unit_row(g, i0 + r / n, r0 + r % n) * g.dim);
+      };
+      stage_rows(qb, q3, nseg * n, q_off);
+      stage_rows(db, dout, nseg * n, q_off);
+      for (int u = 0; u < nseg; ++u) {
+        const float* up = probs + (i0 + u) * unit_probs + r0 * g.Cp;
+        stage_f32(pb + u * n * g.Cp, up, n * g.Cp);
+        stage_f32(sb + u * n * g.Cp, up + g.R * g.Cp, n * g.Cp);
+      }
+      stage_wait();
+      for (int u = 0; u < nseg; ++u) {
+        const int i = i0 + u;
+        // thread (ty, tx): columns c0 + 4 ty .. +3, features 4 tx .. +3
+        for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
+          const int j0 = c0 + 4 * ty;
+          int o[4];
+          float4 ak[4], av[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            o[c] = j0 + c < g.C ? unit_slot(g, i, j0 + c) * kHeadDim + 4 * tx
+                                : -1;
+            ak[c] = o[c] >= 0 ? at4(dk_acc + o[c]) : make_float4(0, 0, 0, 0);
+            av[c] = o[c] >= 0 ? at4(dv_acc + o[c]) : make_float4(0, 0, 0, 0);
+          }
+          for (int r = u * n; r < (u + 1) * n; ++r) {
+            const float4 dsr = at4(sb + r * g.Cp + j0);
+            const float4 pdr = at4(pb + r * g.Cp + j0);
+            const float4 qv = at4(qb + r * kLd + 4 * tx);
+            const float4 ov = at4(db + r * kLd + 4 * tx);
+            fma4(ak[0], dsr.x, qv);
+            fma4(ak[1], dsr.y, qv);
+            fma4(ak[2], dsr.z, qv);
+            fma4(ak[3], dsr.w, qv);
+            fma4(av[0], pdr.x, ov);
+            fma4(av[1], pdr.y, ov);
+            fma4(av[2], pdr.z, ov);
+            fma4(av[3], pdr.w, ov);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (o[c] >= 0) {
+              store4(dk_acc + o[c], ak[c]);
+              store4(dv_acc + o[c], av[c]);
+            }
+        }
+        __syncthreads();  // the next segment's columns overlap this one's
+      }
+    }
+  }
+
+  const size_t part_base =
+      ((size_t)b * g.ng + grp) * g.ctx * g.dim + head * kHeadDim;
+  for (int idx = threadIdx.x; idx < g.ctx * kHeadDim / 4; idx += kBwdThreads) {
+    const size_t o = part_base + (size_t)(idx / 16) * g.dim + 4 * (idx % 16);
+    store4(dk_part + o, at4(dk_acc + 4 * idx));
+    store4(dv_part + o, at4(dv_acc + 4 * idx));
   }
 }
 
@@ -519,51 +816,34 @@ __global__ void grouped_attn_dkv_sum_kernel(const float* __restrict__ dk_part,
 template <typename T, bool kGated>
 int launch_attn(const void* q3, const void* k, const void* v,
                 const void* lengths, Gate gate, void* out, int batch,
-                const Geom& g, Dropout drop, cudaStream_t stream) {
-  const size_t smem = smem_bytes(g);
-  cudaError_t err = cudaFuncSetAttribute(
-      grouped_attn_kernel<T, kGated>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * g.ng * g.heads,
-                  simulst::ceil_div(g.nq, g.rows_per_block));
-  grouped_attn_kernel<T, kGated><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q3), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths), gate,
-      static_cast<T*>(out), g, drop);
+                const Geom& g, size_t smem, Dropout drop,
+                cudaStream_t stream) {
+  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_kernel<T, kGated>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem));
+  grouped_attn_kernel<T, kGated>
+      <<<batch * g.ng * g.heads * g.G, kFwdThreads, smem, stream>>>(
+          static_cast<const T*>(q3), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(lengths), gate,
+          static_cast<T*>(out), g, drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kGated>
-int launch_attn_bwd(const void* q3_, const void* k_, const void* v_,
-                    const void* dout_, const void* lengths_, Gate gate,
-                    void* dq, void* dk, void* dv, float* stats,
+int launch_attn_bwd(const void* q3, const void* k, const void* v,
+                    const void* dout, const void* lengths, Gate gate,
+                    void* dq, void* dk, void* dv, float* probs,
                     float* dk_part, float* dv_part, int batch, const Geom& g,
-                    int col_chunk, Dropout drop, cudaStream_t s) {
-  const T* q3 = static_cast<const T*>(q3_);
-  const T* k = static_cast<const T*>(k_);
-  const T* v = static_cast<const T*>(v_);
-  const T* dout = static_cast<const T*>(dout_);
-  const int* lengths = static_cast<const int*>(lengths_);
-  const size_t smem_dq = smem_bytes_dq(g), smem_dkv = smem_bytes_dkv(g);
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dq_kernel<T, kGated>,
+                    size_t smem, Dropout drop, cudaStream_t s) {
+  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_bwd_kernel<T, kGated>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_dq));
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_dkv_kernel<T, kGated>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem_dkv));
-  const int blocks = batch * g.ng * g.heads;
-  grouped_attn_dq_kernel<T, kGated>
-      <<<dim3(blocks, simulst::ceil_div(g.nq, g.rows_per_block)), kThreads,
-         smem_dq, s>>>(q3, k, v, dout, lengths, gate, static_cast<T*>(dq),
-                       stats, g, drop);
-  SIMULST_TRY(cudaGetLastError());
-  Geom gc = g;
-  gc.rows_per_block = col_chunk;  // context columns per block in dkv
-  grouped_attn_dkv_kernel<T, kGated>
-      <<<dim3(blocks, simulst::ceil_div(g.ctx, col_chunk)), kThreads,
-         smem_dkv, s>>>(q3, k, v, dout, lengths, gate, stats, dk_part,
-                        dv_part, gc, drop);
+                                   (int)smem));
+  grouped_attn_bwd_kernel<T, kGated>
+      <<<batch * g.ng * g.heads, kBwdThreads, smem, s>>>(
+          static_cast<const T*>(q3), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const int*>(lengths), gate, static_cast<T*>(dq),
+          probs, dk_part, dv_part, g, drop);
   SIMULST_TRY(cudaGetLastError());
   const size_t total = (size_t)batch * g.tk * g.dim;
   grouped_attn_dkv_sum_kernel<T>
@@ -573,9 +853,10 @@ int launch_attn_bwd(const void* q3_, const void* k_, const void* v_,
   return (int)cudaGetLastError();
 }
 
+// unit_cols: the columns of a segment's unit, max_mem + rc + lc + seg
 bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
                int seg, int lc, int rc, int max_mem, int G, int tk,
-               int rows_per_block) {
+               int unit_cols) {
   g->ng = ng;
   g->nq = nq;
   g->dim = dim;
@@ -590,10 +871,15 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
   g->tk = tk;
   g->m_slots = max_mem + G - 1;
   g->ctx = g->m_slots + G * rc + lc + G * seg;
-  g->rows_per_block = rows_per_block;
+  g->R = rc + seg + 1;
+  g->C = unit_cols;
+  g->Rp = simulst::ceil_div(g->R, kRowTile) * kRowTile;
+  g->Cp = simulst::ceil_div(g->C, kColTile) * kColTile;
+  g->sld = g->Cp + 4;
   return batch > 0 && dim == heads * kHeadDim && rc > 0 && seg > 0 &&
-         nq == G * (rc + seg + 1) && tk == (g->n - 1) + g->n * rc + g->U &&
-         rows_per_block > 0;
+         max_mem >= 0 && lc >= 0 && nq == G * (rc + seg + 1) &&
+         tk == (g->n - 1) + g->n * rc + g->U &&
+         unit_cols == max_mem + rc + lc + seg;
 }
 
 }  // namespace
@@ -602,22 +888,26 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
 // lengths: (batch,) int32 valid utterance frames.  dim = heads * 64,
 // nq = G * (rc + seg + 1), tk = (n - 1) + n * rc + n * seg with n = ng * G.
 // kid (batch, tk) and seg_eid (batch, n), int32: the sequence-packing
-// gate, both null for none.  Dropout on the probabilities when drop_on.
-// Returns a cudaError_t.
+// gate, both null for none.  unit_cols = max_mem + rc + lc + seg and
+// smem_bytes, the shared memory of one block, come from
+// ops/emformer_attn.py `unit_shape`; a mismatch or more than 227 KB is
+// refused.  Dropout on the probabilities when drop_on.  Returns a
+// cudaError_t.
 extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
                                      const void* v, const void* lengths,
                                      const void* kid, const void* seg_eid,
                                      void* out, int batch, int ng, int nq,
                                      int dim, int heads, int seg, int lc,
                                      int rc, int max_mem, int G, int tk,
-                                     int rows_per_block, int drop_on,
-                                     unsigned long long seed,
+                                     int unit_cols, int smem_bytes,
+                                     int drop_on, unsigned long long seed,
                                      unsigned threshold, float inv_keep,
                                      void* stream) {
   Geom g;
   if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
-                 rows_per_block) ||
-      smem_bytes(g) > 227 * 1024 || (kid == nullptr) != (seg_eid == nullptr))
+                 unit_cols) ||
+      fwd_smem_bytes(g) != (size_t)smem_bytes || smem_bytes > kSmemLimit ||
+      (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
   const Gate gate{static_cast<const int*>(kid),
@@ -626,46 +916,46 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
   SIMULST_DISPATCH(dtype,
                    return gate.kid ? launch_attn<scalar_t, true>(
                                          q3, k, v, lengths, gate, out, batch,
-                                         g, drop, s)
+                                         g, smem_bytes, drop, s)
                                    : launch_attn<scalar_t, false>(
                                          q3, k, v, lengths, gate, out, batch,
-                                         g, drop, s));
+                                         g, smem_bytes, drop, s));
 }
 
 // The backward: dq (batch, ng, nq, dim), dk and dv (batch, tk, dim) of
 // `dtype` for upstream gradient dout (batch, ng, nq, dim), with the gate
-// (kid, seg_eid) as in the forward.  Scratch, fp32:
-// stats (batch, ng, heads, nq, 2), dk_part and dv_part (batch, ng, ctx,
-// dim).  rows_per_block slices the query rows of the dq kernel, col_chunk
-// the context columns of the dkv kernel.  Returns a cudaError_t.
+// (kid, seg_eid), unit_cols and smem_bytes (the backward block's) as in
+// the forward.  Scratch, fp32: probs (batch, ng, heads, G, 2, R, Cp) with
+// R = rc + seg + 1 and Cp = unit_cols rounded up to 64, dk_part and
+// dv_part (batch, ng, ctx, dim).  Two launches: the segment-walking block
+// kernel and the ordered sum.  Returns a cudaError_t.
 extern "C" int simulst_emformer_attn_bwd(
     int dtype, const void* q3, const void* k, const void* v,
     const void* lengths, const void* kid, const void* seg_eid,
-    const void* dout, void* dq, void* dk, void* dv,
-    void* stats, void* dk_part, void* dv_part, int batch, int ng, int nq,
-    int dim, int heads, int seg, int lc, int rc, int max_mem, int G, int tk,
-    int rows_per_block, int col_chunk, int drop_on, unsigned long long seed,
+    const void* dout, void* dq, void* dk, void* dv, void* probs,
+    void* dk_part, void* dv_part, int batch, int ng, int nq, int dim,
+    int heads, int seg, int lc, int rc, int max_mem, int G, int tk,
+    int unit_cols, int smem_bytes, int drop_on, unsigned long long seed,
     unsigned threshold, float inv_keep, void* stream) {
   Geom g;
   if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
-                 rows_per_block) ||
-      col_chunk <= 0 || smem_bytes_dq(g) > 227 * 1024 ||
-      smem_bytes_dkv(g) > 227 * 1024 ||
+                 unit_cols) ||
+      bwd_smem_bytes(g) != (size_t)smem_bytes || smem_bytes > kSmemLimit ||
       (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
   const Gate gate{static_cast<const int*>(kid),
                   static_cast<const int*>(seg_eid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *st = static_cast<float*>(stats), *kp = static_cast<float*>(dk_part),
+  float *pp = static_cast<float*>(probs), *kp = static_cast<float*>(dk_part),
         *vp = static_cast<float*>(dv_part);
   SIMULST_DISPATCH(dtype,
                    return gate.kid ? launch_attn_bwd<scalar_t, true>(
                                          q3, k, v, dout, lengths, gate, dq,
-                                         dk, dv, st, kp, vp, batch, g,
-                                         col_chunk, drop, s)
+                                         dk, dv, pp, kp, vp, batch, g,
+                                         smem_bytes, drop, s)
                                    : launch_attn_bwd<scalar_t, false>(
                                          q3, k, v, dout, lengths, gate, dq,
-                                         dk, dv, st, kp, vp, batch, g,
-                                         col_chunk, drop, s));
+                                         dk, dv, pp, kp, vp, batch, g,
+                                         smem_bytes, drop, s));
 }

@@ -70,14 +70,13 @@ SIGNATURES = {
     "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 16 + [_I] * 4 + _DROP
                           + _DROP[1:] + [_P],
     # dtype, q3, k, v, lengths, kid, seg_eid, out, batch, ng, nq, dim,
-    # heads, seg, lc, rc, max_mem, G, tk, rows_per_block, dropout, seed,
-    # threshold, inv_keep, stream
-    "simulst_emformer_attn": [_I] + [_P] * 7 + [_I] * 12 + _DROP[1:2]
+    # heads, seg, lc, rc, max_mem, G, tk, unit_cols, smem_bytes, dropout,
+    # seed, threshold, inv_keep, stream
+    "simulst_emformer_attn": [_I] + [_P] * 7 + [_I] * 13 + _DROP[1:2]
                              + _DROP[:1] + _DROP[2:] + [_P],
-    # dtype, q3, k, v, lengths, kid, seg_eid, dout, dq, dk, dv, stats,
+    # dtype, q3, k, v, lengths, kid, seg_eid, dout, dq, dk, dv, probs,
     # dk_part, dv_part, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G,
-    # tk, rows_per_block, col_chunk, dropout, seed, threshold, inv_keep,
-    # stream
+    # tk, unit_cols, smem_bytes, dropout, seed, threshold, inv_keep, stream
     "simulst_emformer_attn_bwd": [_I] + [_P] * 13 + [_I] * 13 + _DROP[1:2]
                                  + _DROP[:1] + _DROP[2:] + [_P],
     # dtype, xp, dy, dw, partial, batch, t_out, taps, dim, groups, splits,

@@ -31,9 +31,10 @@ from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
-HEAD_DIM = 64            # csrc/emformer_attn.cu kHeadDim
-MAX_ROWS_PER_BLOCK = 64  # query rows one block takes (grid.y splits nq)
-MAX_COLS_PER_BLOCK = 120  # context columns one backward dk/dv block takes
+HEAD_DIM = 64         # csrc/emformer_attn.cu kHeadDim
+ROW_TILE, COL_TILE = 32, 64  # kRowTile, kColTile: a unit's padded tiles
+STAGED_LD = HEAD_DIM + 4     # kLd: floats per staged K / V / Q row
+SMEM_LIMIT = 227 * 1024      # shared memory one block may take on sm_90
 
 
 class AttnGeom(NamedTuple):
@@ -77,6 +78,48 @@ class EidGate(NamedTuple):
     and of the segments."""
     kid: torch.Tensor       # (B, Tk)
     seg_eid: torch.Tensor   # (B, n)
+
+
+class UnitShape(NamedTuple):
+    """The kernels' work unit: one segment of one (batch, group, head)."""
+    rows: int      # the segment's query rows: rc + seg + 1
+    cols: int      # the context slots they see at most: max_mem + rc + lc + seg
+    fwd_smem: int  # shared-memory bytes of a forward block (one unit)
+    bwd_smem: int  # ... of a backward block (the group's G units)
+    probs: int     # fp32 scratch of a backward block: G x 2 x rows x cols_pad
+
+
+def unit_shape(geom: AttnGeom) -> UnitShape:
+    """The unit's rows and columns and the shared memory of a block, laid
+    out as csrc/emformer_attn.cu `fwd_smem_bytes` / `bwd_smem_bytes`: Q
+    (and dO) over the rows and K, V over the columns padded to whole
+    tiles, rows of STAGED_LD floats; one (two more in the backward)
+    row-by-column matrix with a row stride of the padded columns + 4;
+    three ints per column; the backward adds fp32 dK and dV accumulators
+    over the whole group context."""
+    rows = geom.rc + geom.seg + 1
+    cols = geom.max_mem + geom.rc + geom.lc + geom.seg
+    rp = -(-rows // ROW_TILE) * ROW_TILE
+    cp = -(-cols // COL_TILE) * COL_TILE
+    tiles = rp * STAGED_LD + 2 * cp * STAGED_LD + rp * (cp + 4)
+    return UnitShape(
+        rows, cols, 4 * (tiles + 3 * cp),
+        4 * (tiles + rp * STAGED_LD + 2 * rp * (cp + 4)
+             + 2 * geom.ctx * HEAD_DIM + 3 * cp),
+        2 * geom.G * rows * cp)
+
+
+def _fitting_unit(name, geom: AttnGeom, backward: bool = False):
+    """(unit_shape, the block's shared-memory bytes), raising where a block
+    would need more shared memory than the card has."""
+    unit = unit_shape(geom)
+    smem = unit.bwd_smem if backward else unit.fwd_smem
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"{name}: {geom} needs {smem} bytes of shared memory per block, "
+            f"above the {SMEM_LIMIT} a block may take (the backward holds "
+            f"dK and dV of the group context's {geom.ctx} slots)")
+    return unit, smem
 
 
 @functools.lru_cache(maxsize=64)
@@ -265,10 +308,10 @@ def _check_gate(name, q3, gate: Optional[EidGate], geom: AttnGeom):
                              f"{shape} on {q3.device}, got {got}")
 
 
-def _geom_args(q3, geom: AttnGeom):
+def _geom_args(q3, geom: AttnGeom, unit: UnitShape, smem: int):
     b, ng, nq, d = q3.shape
     return (b, ng, nq, d, geom.num_heads, geom.seg, geom.lc, geom.rc,
-            geom.max_mem, geom.G, geom.tk, -(-nq // -(-nq // MAX_ROWS_PER_BLOCK)))
+            geom.max_mem, geom.G, geom.tk, unit.cols, smem)
 
 
 def _gate_ptrs(gate: Optional[EidGate]):
@@ -290,13 +333,15 @@ def _count(wrapper, gate):
 
 def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed, gate=None):
     _check("emformer_grouped_attention", q3, k, v, lengths, geom)
+    unit, smem = _fitting_unit("emformer_grouped_attention", geom)
     q3, k, v, lengths = (t.contiguous() for t in (q3, k, v, lengths))
     _build.check_cuda("emformer_grouped_attention", q3, k=k, v=v)
     out = torch.empty_like(q3)
     _build.launch("simulst_emformer_attn", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), *_gate_ptrs(gate), out.data_ptr(),
-                  *_geom_args(q3, geom), *_build.dropout_args(rate, seed),
+                  *_geom_args(q3, geom, unit, smem),
+                  *_build.dropout_args(rate, seed),
                   _build.stream_of(q3))
     _count(emformer_grouped_attention, gate)
     return out
@@ -306,22 +351,22 @@ def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
                      gate=None):
     name = "emformer_grouped_attention_backward"
     _check(name, q3, k, v, lengths, geom)
+    unit, smem = _fitting_unit(name, geom, backward=True)
     q3, k, v, lengths, dout = (t.contiguous() for t in
                                (q3, k, v, lengths, dout))
     _build.check_cuda(name, q3, k=k, v=v, dout=dout)
     b, ng, nq, d = q3.shape
-    f32 = dict(dtype=torch.float32, device=q3.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k, v))
-    stats = torch.empty(b, ng, geom.num_heads, nq, 2, **f32)
+    f32 = dict(dtype=torch.float32, device=q3.device)
+    probs = torch.empty(b * ng * geom.num_heads * unit.probs, **f32)
     dk_part, dv_part = (torch.empty(b, ng, geom.ctx, d, **f32)
                         for _ in range(2))
-    col_chunk = -(-geom.ctx // -(-geom.ctx // MAX_COLS_PER_BLOCK))
     _build.launch("simulst_emformer_attn_bwd", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), *_gate_ptrs(gate), dout.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  stats.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-                  *_geom_args(q3, geom), col_chunk,
+                  probs.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+                  *_geom_args(q3, geom, unit, smem),
                   *_build.dropout_args(rate, seed), _build.stream_of(q3))
     _count(emformer_grouped_attention_backward, gate)
     return dq, dk, dv

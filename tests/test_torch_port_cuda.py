@@ -80,16 +80,38 @@ def test_linear_res_kernel_matches_plain(randn, period, res_rows):
         linear_res_plain(h, w, b, res, period, res_rows), **TOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("U,G", [(256, 8), (128, 4)])
-def test_grouped_attention_kernel_matches_plain(randn, U, G):
-    geom = AttnGeom(U=U, seg=16, lc=32, rc=8, max_mem=5, G=G, num_heads=4)
-    q3 = randn(3, geom.ng, geom.nq, 256)
-    k, v = randn(3, geom.tk, 256), randn(3, geom.tk, 256)
+# geometries (U, seg, lc, rc, max_mem, G) of the kernels' segment units:
+# s2t_emformer_s's, rc > seg, lc not a multiple of seg, one memory slot,
+# G 2 and 3; every batch holds a 5-frame utterance, whose later segments
+# see no utterance key
+GEOMS = {"U256-G8": (256, 16, 32, 8, 5, 8), "U128-G4": (128, 16, 32, 8, 5, 4),
+         "rc12-seg8-G2": (48, 8, 16, 12, 5, 2),
+         "lc20-G3": (96, 16, 20, 8, 5, 3), "mem1-G4": (128, 16, 32, 8, 1, 4)}
+# fp32 as TOL; bf16 atol 3e-2, rtol 1e-2 (a flip of the last bf16 rounding)
+DTYPES = {"fp32": (torch.float32, TOL),
+          "bf16": (torch.bfloat16, dict(atol=3e-2, rtol=1e-2))}
+
+
+def _dense(randn, geom_id, dtype):
+    """(q3, k, v, lengths, dout, geom) of a 3-row batch of GEOMS[geom_id]."""
+    U, seg, lc, rc, max_mem, G = GEOMS[geom_id]
+    geom = AttnGeom(U=U, seg=seg, lc=lc, rc=rc, max_mem=max_mem, G=G,
+                    num_heads=4)
+    q3, dout = (randn(3, geom.ng, geom.nq, 256).to(dtype) for _ in range(2))
+    k, v = (randn(3, geom.tk, 256).to(dtype) for _ in range(2))
     lengths = torch.tensor([U, U - 37, 5], dtype=torch.int32, device="cuda")
+    return q3, k, v, lengths, dout, geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom_id", GEOMS)
+def test_grouped_attention_kernel_matches_plain(randn, geom_id, dtype):
+    dt, tol = DTYPES[dtype]
+    q3, k, v, lengths, _, geom = _dense(randn, geom_id, dt)
     torch.testing.assert_close(
         emformer_grouped_attention(q3, k, v, lengths, geom),
-        grouped_attention_plain(q3, k, v, lengths, geom), **TOL)
+        grouped_attention_plain(q3, k, v, lengths, geom), **tol)
 
 
 def _close_to_largest(got, want, rtol=1e-4):
@@ -194,20 +216,25 @@ def test_ln_ffn_backward_matches_plain(randn, rows, activation, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("U,G", [(256, 8), (128, 4)])
-def test_grouped_attention_backward_matches_plain(randn, U, G, rate):
-    geom = AttnGeom(U=U, seg=16, lc=32, rc=8, max_mem=5, G=G, num_heads=4)
-    q3, dout = (randn(3, geom.ng, geom.nq, 256) for _ in range(2))
-    k, v = randn(3, geom.tk, 256), randn(3, geom.tk, 256)
-    lengths = torch.tensor([U, U - 37, 5], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("geom_id", GEOMS)
+def test_grouped_attention_backward_matches_plain(randn, geom_id, dtype,
+                                                  rate):
+    dt, tol = DTYPES[dtype]
+    q3, k, v, lengths, dout, geom = _dense(randn, geom_id, dt)
     args = (q3, k, v, lengths)
+    counts = (emformer_grouped_attention.launches,
+              emformer_grouped_attention_backward.launches)
     torch.testing.assert_close(
         emformer_grouped_attention(*args, geom, rate, 21),
-        grouped_attention_plain(*args, geom, rate, 21), **TOL)
+        grouped_attention_plain(*args, geom, rate, 21), **tol)
     got = emformer_grouped_attention_backward(*args, dout, geom, rate, 21)
     want = grouped_attention_plain_backward(*args, dout, geom, rate, 21)
     for gw, w in zip(got, want):
-        torch.testing.assert_close(gw, w, **TOL)
+        torch.testing.assert_close(gw, w, **tol)
+    assert (emformer_grouped_attention.launches,
+            emformer_grouped_attention_backward.launches) == \
+        (counts[0] + 1, counts[1] + 1)
 
 
 @pytest.mark.cuda
@@ -246,24 +273,31 @@ def test_ln_ffn_and_grouped_attention_take_bf16(randn):
         torch.testing.assert_close(gw, w, atol=3e-2, rtol=1e-2)
 
 
-# packed rows (train/packing.py) of s2t_emformer_s's geometry: rows of
-# n_p segments holding several examples, groups of G segments straddling
-# example boundaries, a row that ends in dead segments and one dead row
-PACKED = {7: ([256, 240, 180, 100, 77, 30], 256, 28, 4),
-          4: ([128, 70, 50, 33, 20, 9], 128, 8, 4)}
+# packed rows (train/packing.py): rows of n_p segments holding several
+# examples, groups of G segments straddling example boundaries, a row that
+# ends in dead segments and one dead row; s2t_emformer_s's geometry at G 7
+# and 4, and the stressed unit geometries of GEOMS: (lengths, source U,
+# n_p, rows, (seg, lc, rc, max_mem))
+PACKED = {7: ([256, 240, 180, 100, 77, 30], 256, 28, 4, (16, 32, 8, 5)),
+          4: ([128, 70, 50, 33, 20, 9], 128, 8, 4, (16, 32, 8, 5)),
+          "rc12-seg8-G2": ([64, 40, 30, 17, 9, 5], 64, 10, 4, (8, 16, 12, 5)),
+          "lc20-G3": ([128, 70, 50, 33, 20, 9], 128, 9, 4, (16, 20, 8, 5)),
+          "mem1-G4": ([128, 70, 50, 33, 20, 9], 128, 8, 4, (16, 32, 8, 1))}
 
 
 def _packed(randn, G, dtype=torch.float32):
     """(q3, k, v, full lengths, dout, geom, gate) of one packed batch."""
     from simulst_tpu_torch.train.packing import pack_plan
-    lengths, u_src, n_p, n_rows = PACKED[G]
-    plan = pack_plan(lengths, u_src, 16, 8, n_rows=n_rows, row_segs=n_p)
+    lengths, u_src, n_p, n_rows, (seg, lc, rc, max_mem) = PACKED[G]
+    group = G if isinstance(G, int) else GEOMS[G][-1]
+    plan = pack_plan(lengths, u_src, seg, rc, n_rows=n_rows, row_segs=n_p)
     assert (plan.seg_eid == -1).all(axis=1).any()
-    eids = make_packed_eids(EmformerConfig(), torch.from_numpy(
-        plan.frame_eid), torch.from_numpy(plan.seg_eid))
+    eids = make_packed_eids(
+        EmformerConfig(right_context=rc, max_memory=max_mem),
+        torch.from_numpy(plan.frame_eid), torch.from_numpy(plan.seg_eid))
     gate = EidGate(eids.kid.cuda(), eids.seg_eid.cuda())
-    geom = AttnGeom(U=n_p * 16, seg=16, lc=32, rc=8, max_mem=5, G=G,
-                    num_heads=4)
+    geom = AttnGeom(U=n_p * seg, seg=seg, lc=lc, rc=rc, max_mem=max_mem,
+                    G=group, num_heads=4)
     q3, dout = (randn(n_rows, geom.ng, geom.nq, 256).to(dtype)
                 for _ in range(2))
     k, v = (randn(n_rows, geom.tk, 256).to(dtype) for _ in range(2))
@@ -273,24 +307,26 @@ def _packed(randn, G, dtype=torch.float32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("G", [7, 4])
-def test_gated_grouped_attention_matches_plain(randn, G, rate):
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G", list(PACKED))
+def test_gated_grouped_attention_matches_plain(randn, G, dtype, rate):
     """The gated kernels, forward and backward, vs the plain version with
     the gate; they count on gated_launches, not launches; and the gate
     changes the output."""
-    q3, k, v, full, dout, geom, gate = _packed(randn, G)
+    dt, tol = DTYPES[dtype]
+    q3, k, v, full, dout, geom, gate = _packed(randn, G, dt)
     args = (q3, k, v, full)
     counts = [(f.launches, f.gated_launches) for f in (
         emformer_grouped_attention, emformer_grouped_attention_backward)]
     out = emformer_grouped_attention(*args, geom, rate, 21, gate=gate)
     torch.testing.assert_close(
-        out, grouped_attention_plain(*args, geom, rate, 21, gate), **TOL)
+        out, grouped_attention_plain(*args, geom, rate, 21, gate), **tol)
     got = emformer_grouped_attention_backward(*args, dout, geom, rate, 21,
                                               gate)
     want = grouped_attention_plain_backward(*args, dout, geom, rate, 21,
                                             gate)
     for gw, w in zip(got, want):
-        torch.testing.assert_close(gw, w, **TOL)
+        torch.testing.assert_close(gw, w, **tol)
     assert [(f.launches, f.gated_launches) for f in (
         emformer_grouped_attention,
         emformer_grouped_attention_backward)] == [(n, m + 1)

@@ -28,9 +28,9 @@ from simulst_tpu.ops.ffn_pallas import (ffn_reference,  # noqa: E402
                                         ln_ffn_res_reference)
 from simulst_tpu.ops.linear_res_pallas import fused_linear_drop_res  # noqa: E402
 from simulst_tpu_torch.ops import fbank as tfb  # noqa: E402
-from simulst_tpu_torch.ops.emformer_attn import (AttnGeom,  # noqa: E402
-                                                 emformer_grouped_attention,
-                                                 grouped_attention_plain)
+from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
+    SMEM_LIMIT, AttnGeom, _fitting_unit, emformer_grouped_attention,
+    group_gather_indices, group_row_seg, grouped_attention_plain, unit_shape)
 from simulst_tpu_torch.ops.ffn import (ffn_plain, fused_ffn,  # noqa: E402
                                        fused_ln_ffn_res, ln_ffn_res_plain)
 from simulst_tpu_torch.ops.linear_res import (fused_linear_res,  # noqa: E402
@@ -104,6 +104,44 @@ def test_grouped_attention_plain_matches_pallas_interpret():
     for fn in (grouped_attention_plain, emformer_grouped_attention):
         np.testing.assert_allclose(fn(*args, tg).numpy(), np.asarray(ref),
                                    atol=ATOL, rtol=1e-5)
+
+
+# (U, seg, lc, rc, max_mem, G): s2t_emformer_s's geometry, its packed
+# rows (28 segments, G 7), and the card tests' stressed segment units (rc >
+# seg, lc not a multiple of seg, one memory slot, G 2 and 3)
+UNIT_GEOMS = [(256, 16, 32, 8, 5, 8), (448, 16, 32, 8, 5, 7),
+              (128, 16, 32, 8, 5, 4), (48, 8, 16, 12, 5, 2),
+              (96, 16, 20, 8, 5, 3), (128, 16, 32, 8, 1, 4)]
+
+
+@pytest.mark.parametrize("U,seg,lc,rc,max_mem,G", UNIT_GEOMS)
+def test_unit_shape_holds_every_segment_s_context(U, seg, lc, rc, max_mem,
+                                                  G):
+    """The kernels size a segment unit's tiles and shared memory from
+    unit_shape: its columns must hold every slot a segment's rows see
+    (group_gather_indices' `allowed`), and the most any one row sees; its
+    rows those of a segment; and both blocks fit the card."""
+    geom = AttnGeom(U=U, seg=seg, lc=lc, rc=rc, max_mem=max_mem, G=G,
+                    num_heads=4)
+    unit = unit_shape(geom)
+    allowed = group_gather_indices(U, seg, lc, rc, max_mem, G)[3]
+    row_seg = group_row_seg(seg, rc, G)
+    assert unit.cols == allowed.sum(axis=1).max()
+    assert np.bincount(row_seg).tolist() == [unit.rows] * G
+    for i in range(G):
+        assert allowed[row_seg == i].any(axis=0).sum() == unit.cols
+    assert max(unit.fwd_smem, unit.bwd_smem) <= SMEM_LIMIT
+    assert _fitting_unit("attn", geom, backward=True) == (unit,
+                                                          unit.bwd_smem)
+
+
+def test_unit_shape_refuses_a_block_beyond_shared_memory():
+    """G 16 puts 436 context slots in a group: the backward's dK / dV
+    accumulators no longer fit a block, and the wrapper says so."""
+    geom = AttnGeom(U=512, seg=16, lc=32, rc=8, max_mem=5, G=16, num_heads=4)
+    assert _fitting_unit("attn", geom)[1] <= SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        _fitting_unit("attn", geom, backward=True)
 
 
 def test_fbank_batch_matches_np():
