@@ -58,7 +58,9 @@ targets):
               the shapes of a 32 x 1024-frame batch, at dropout 0 and 0.1
               with one seed, bf16 cases of the LN-FFN and the attention;
               CUDA-event times beside one PyTorch call of the same function
-              (SDPA on the gathered context, conv1d_weight, F.ctc_loss)
+              (SDPA on the gathered context, conv1d_weight, F.ctc_loss), and
+              the LN-FFN backward beside its five products through
+              torch.matmul (fp32, TF32 off) and its share of the fp32 peak
   8. asr-train  8 Adam steps of s2t_emformer_s with joint CTC through
               cli/train's model and loss and train/state's step (lr 1e-3,
               warmup 10000, clip 10, as exp/1a_pretrain_asr.sh) on 32
@@ -88,7 +90,9 @@ targets):
               at the train batch's shape (B 32, S 256, C 256, T 72), a
               streaming chunk (1, 17, 256, T 19), ragged (S 29, T 1), more
               than 128 buckets (S 512, T 300) and beta 0.8; CUDA-event
-              times beside torch.bmm on a pre-built portion tensor
+              times (the wrapper and the C entry alone) beside torch.bmm on
+              a pre-built portion tensor, and the host time per call of the
+              wrapper and of torch.bmm
  13. cif-train  8 Adam steps of CIFConfig() with exp/3_cif.sh's options
               through cli/train's parse_args, build_model and build_loss,
               the encoder loaded from phase 8's through
@@ -169,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -333,6 +338,7 @@ PROFILE_STEPS = 3
 # (the port's kernels of csrc/*.cu and the backward products of common.cuh
 # before cuBLAS, whose names also hold "gemm")
 KERNEL_FAMILIES = (
+    ("tile_product_kernel", "fused_ln_ffn_res_backward products"),
     ("mha_fwd_kernel", "fused_mha"), ("mha_bwd_", "fused_mha_backward"),
     ("grouped_attn_kernel", "emformer_grouped_attention"),
     ("grouped_attn_", "emformer_grouped_attention_backward"),
@@ -401,6 +407,20 @@ def cuda_ms(fn, samples=7, runs=10, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / runs)
     return statistics.median(times)
+
+
+def host_ms(fn, calls=200):
+    """Host time per call of fn() (what the host spends to enqueue it),
+    the device synchronised before and after but not inside."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
 
 
 def bound(nbytes, flops):
@@ -1121,14 +1141,34 @@ def phase_asr_kernels(dev, batch):
                          samples=5, runs=5),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes(x, y, *lnw),
                                                    2 * flops))))
+    bwd_ms = cuda_ms(lambda: ffn.fused_ln_ffn_res_backward(
+        x, *lnw[:5], dy, *cfg), samples=5, runs=5)
+    # a yardstick, not a library time (no PyTorch call computes the fused
+    # backward): its five products through torch.matmul on fp32 operands of
+    # the same shapes, TF32 off (run() sets allow_tf32 False)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gm = torch.Generator(device=dev).manual_seed(SEED + 9)
+    du_m, hd_m = (torch.randn(n, hid, device=dev, generator=gm)
+                  for _ in range(2))
+    w1, w2 = lnw[2], lnw[4]
+
+    def products():
+        torch.matmul(x, w1)
+        torch.matmul(dy, w2.T)
+        torch.matmul(du_m, w1.T)
+        torch.matmul(x.T, du_m)
+        torch.matmul(hd_m.T, dy)
+
     record("fused_ln_ffn_res_backward", max_abs_err=0.0,
-           shape=f"x=({n},{d}) gelu rate 0.1",
-           ms=cuda_ms(lambda: ffn.fused_ln_ffn_res_backward(
-               x, *lnw[:5], dy, *cfg), samples=5, runs=5),
+           shape=f"x=({n},{d}) gelu rate 0.1", ms=bwd_ms,
            plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain_backward(
                x, *lnw[:5], dy, *cfg), samples=5, runs=5),
-           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+           library_ms=None,
+           products_matmul_ms=cuda_ms(products, samples=5, runs=5),
+           fp32_peak_share=5 * flops / (bwd_ms * 1e-3) / FP32_FLOP_PER_S,
+           **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(x, dy, *lnw[:5], *got), 5 * flops))))
+    del du_m, hd_m
 
     # grouped attention: the Emformer layer's core
     geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
@@ -1874,21 +1914,25 @@ def phase_cif_kernels(dev):
         pt = portion.transpose(1, 2).contiguous()
         buf = (torch.empty_like(out), torch.empty_like(delays))
 
-        def c_entry():
-            """The C entry alone on the cumsums above: the kernel without
-            the wrapper's host work (cumsums, allocations, checks)."""
-            _build.launch("simulst_cif_integrate", x.data_ptr(),
-                          csum.data_ptr(), cprev.data_ptr(),
-                          buf[0].data_ptr(), buf[1].data_ptr(), b, s, t, c,
-                          float(beta), _build.stream_of(x))
+        # the C entry alone on the cumsum above, its arguments bound: the
+        # kernel without the wrapper's host work (cumsum, allocations,
+        # checks)
+        c_entry = functools.partial(
+            _build.library().simulst_cif_integrate, x.data_ptr(),
+            csum.data_ptr(), alpha.data_ptr(), buf[0].data_ptr(),
+            buf[1].data_ptr(), b, s, t, c, float(beta), _build.stream_of(x))
+        if c_entry() != 0:
+            raise AssertionError("simulst_cif_integrate: CUDA error")
 
         t_case = dict(
             max_abs_err=err, nonzero_portions=nnz,
             ms=cuda_ms(lambda: ci.cif_integrate(x, alpha, beta, t)),
+            host_ms=host_ms(lambda: ci.cif_integrate(x, alpha, beta, t)),
             c_entry_ms=cuda_ms(c_entry),
             plain_ms=cuda_ms(lambda: ci.cif_integrate_plain(x, alpha, beta,
                                                             t)),
             library_ms=cuda_ms(lambda: torch.bmm(pt, x)),
+            library_host_ms=host_ms(lambda: torch.bmm(pt, x)),
             bound_ms=b_ms, bound_by=by)
         log("phase12", case=label, **t_case)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)

@@ -9,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace simulst {
 
 // dtype codes passed from Python (ops/_build.py DTYPE_CODES)
@@ -55,6 +57,32 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// cp.async from global to shared memory: 16 or 4 bytes, zero-filled when
+// `valid` is false (src is then not read, but must be a mapped address).
+__device__ __forceinline__ void async_copy16(float* dst, const void* src,
+                                             bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void async_copy4(float* dst, const void* src,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
 
 // ---------------------------------------------------------------------------
 // dropout masks: Philox4x32-10 keyed by (seed, element offset)
@@ -220,6 +248,335 @@ struct PartialStore {
     p[(size_t)z * split_stride + offset + (size_t)m * ld + n] = v;
   }
 };
+
+// ---------------------------------------------------------------------------
+// tile_product: gemm's function and sums, fed for Hopper's CUDA cores
+// ---------------------------------------------------------------------------
+// The same function as gemm (C(m, n) = sum_k A(m, k) B(k, n) over the z-th
+// K slice, handed to store(m, n, z, value) once per output) and the same
+// sums: each output is acc = 0, then acc = fmaf(A(m, k), B(k, n), acc) for
+// k ascending through its slice, whose bounds are gemm's (k_chunk a
+// multiple of kGemmBK), with zeros past its end.  So the two templates give
+// the same bits whatever their tiles.  What differs is the feed:
+//  - a 128 x kBN output tile per block (kBN 128: 256 threads; 64: 128
+//    threads), 8 x 8 outputs per thread in four 4 x 4 quadrants, so that a
+//    k step reads 2 float4 of A and 2 of B from shared memory for 64 FMAs
+//    (gemm: 8 scalar reads for 16);
+//  - K in steps of kTileBK through a ring of kTileStages shared tiles, both
+//    operands k-major ([k][row], rows padded by 4 floats, which keeps the
+//    float4 reads aligned and the transposed stores at two-way bank
+//    conflicts): the loads of step t + kTileStages - 1 are in flight while
+//    step t computes;
+//  - 16-byte global loads: an fp32 operand whose row index is contiguous
+//    goes by cp.async straight into its tile; one whose k index is
+//    contiguous, and any bf16 operand (8-byte loads of 4 values, widened to
+//    fp32 exactly), goes through registers: loaded before the step's
+//    products and stored (transposed where k is contiguous) after them;
+//  - with kStaged, the tile reaches the store functor through shared
+//    memory, so that its per-output reads and writes of device memory
+//    coalesce (worth its barriers only for a heavy functor);
+//  - registers capped for two blocks of 256 threads per SM, or three of
+//    128 (tile_min_blocks).
+// A and B are RowMajor / Transposed views, whose layout picks the path.
+// Every pointer must be 16-byte aligned and every leading dimension a
+// multiple of 4, an operand loaded by rows (Transposed A, RowMajor B) must
+// have a multiple of 4 rows, and K must be a multiple of 4 where an operand
+// is loaded along k; tile_product returns cudaErrorInvalidValue otherwise.
+constexpr int kTileBM = 128;
+constexpr int kTileBK = 16;
+constexpr int kTileStages = 2;
+constexpr int kTilePad = 4;
+
+__host__ __device__ constexpr int tile_threads(int bn) {
+  return (kTileBM / 8) * (bn / 8);
+}
+
+template <int kBN>
+constexpr int tile_smem_bytes() {
+  return kTileStages * (kTileBM + kBN + 2 * kTilePad) * kTileBK *
+         (int)sizeof(float);
+}
+
+template <class F>
+struct TileOperand;
+template <typename T>
+struct TileOperand<RowMajor<T>> {
+  using type = T;
+  static constexpr bool kRowMajor = true;
+};
+template <typename T>
+struct TileOperand<Transposed<T>> {
+  using type = T;
+  static constexpr bool kRowMajor = false;
+};
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// One operand's part of a kRows x kTileBK tile, in chunks of 4 values per
+// thread: element (i, k) (i its output row or column) lies at p[i ld + k]
+// when kKFast, else at p[k ld + i], and goes to s[k (kRows + kTilePad) + i];
+// zeros where i >= rows or k >= k_end.
+template <int kRows, int kThreads, bool kKFast, typename T>
+struct TileFeed {
+  static constexpr int kLd = kRows + kTilePad;
+  static constexpr int kChunks = kRows * kTileBK / 4 / kThreads;
+  static constexpr bool kAsync = !kKFast && sizeof(T) == sizeof(float);
+  static_assert(kChunks * kThreads * 4 == kRows * kTileBK, "whole chunks");
+  float4 r[kChunks];
+
+  static __device__ __forceinline__ void coords(int q, int& i, int& k) {
+    const int idx = (int)threadIdx.x + q * kThreads;
+    if (kKFast) {
+      i = idx / (kTileBK / 4);
+      k = idx % (kTileBK / 4) * 4;
+    } else {
+      k = idx / (kRows / 4);
+      i = idx % (kRows / 4) * 4;
+    }
+  }
+
+  __device__ __forceinline__ void load(const T* p, int ld, int rows, int i0,
+                                       int k0, int k_end, float* s) {
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      int i, k;
+      coords(q, i, k);
+      const bool ok = i0 + i < rows && k0 + k < k_end;
+      const T* src = kKFast ? p + (size_t)(i0 + i) * ld + k0 + k
+                            : p + (size_t)(k0 + k) * ld + i0 + i;
+      if constexpr (kAsync)
+        async_copy16(s + k * kLd + i, ok ? src : p, ok);
+      else
+        r[q] = ok ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  // the register path's second half: write what load() read into tile s
+  __device__ __forceinline__ void store(float* s) const {
+    if constexpr (!kAsync) {
+#pragma unroll
+      for (int q = 0; q < kChunks; ++q) {
+        int i, k;
+        coords(q, i, k);
+        if (kKFast) {
+          s[(k + 0) * kLd + i] = r[q].x;
+          s[(k + 1) * kLd + i] = r[q].y;
+          s[(k + 2) * kLd + i] = r[q].z;
+          s[(k + 3) * kLd + i] = r[q].w;
+        } else {
+          *reinterpret_cast<float4*>(s + k * kLd + i) = r[q];
+        }
+      }
+    }
+  }
+};
+
+template <class A, class B, class Store>
+struct TileProblem {
+  using OpA = TileOperand<A>;
+  using OpB = TileOperand<B>;
+  int M, N, K, k_chunk, tiles_m, tiles_n, blocks;
+  bool ok;
+  A a;
+  B b;
+  Store store;
+};
+
+// the second problem of a one-problem launch
+struct TileNone {
+  int blocks = 0;
+  bool ok = true;
+};
+
+template <class F>
+bool tile_operand_ok(const F& f, bool by_rows, int rows, int K) {
+  return reinterpret_cast<size_t>(f.p) % 16 == 0 && f.ld % 4 == 0 &&
+         (by_rows ? rows % 4 == 0 : K % 4 == 0);
+}
+
+// C = A B over `splits` K slices cut as gemm cuts them
+template <int kBN, class A, class B, class Store>
+TileProblem<A, B, Store> tile_problem(int M, int N, int K, int splits, A a,
+                                      B b, Store store) {
+  const int k_chunk = ceil_div(ceil_div(K, splits), kGemmBK) * kGemmBK;
+  const int tm = ceil_div(M, kTileBM), tn = ceil_div(N, kBN);
+  const bool ok = M > 0 && N > 0 && K > 0 && splits > 0 &&
+                  tile_operand_ok(a, !TileOperand<A>::kRowMajor, M, K) &&
+                  tile_operand_ok(b, TileOperand<B>::kRowMajor, N, K);
+  return {M, N, K, k_chunk, tm, tn, ok ? tm * tn * ceil_div(K, k_chunk) : 0,
+          ok, a, b, store};
+}
+
+template <int kBN, bool kStaged, class P>
+__device__ __forceinline__ void tile_block(const P& p, int bid,
+                                           float* smem) {
+  constexpr int kThreads = tile_threads(kBN);
+  using OpA = typename P::OpA;
+  using OpB = typename P::OpB;
+  TileFeed<kTileBM, kThreads, OpA::kRowMajor, typename OpA::type> fa;
+  TileFeed<kBN, kThreads, !OpB::kRowMajor, typename OpB::type> fb;
+  constexpr int kALd = kTileBM + kTilePad, kBLd = kBN + kTilePad;
+  constexpr int kStage = (kALd + kBLd) * kTileBK;
+
+  const int tn = bid % p.tiles_n;
+  const int tm = bid / p.tiles_n % p.tiles_m;
+  const int z = bid / (p.tiles_n * p.tiles_m);
+  const int m0 = tm * kTileBM, n0 = tn * kBN;
+  const int k_begin = z * p.k_chunk;
+  const int k_end = min(p.K, k_begin + p.k_chunk);
+  const int steps = (k_end - k_begin + kTileBK - 1) / kTileBK;
+
+  // warps of 4 x 8 threads; thread (ty, tx) owns rows 4 ty + {0..3} and
+  // 64 + 4 ty + {0..3}, columns 4 tx + {0..3} and kBN / 2 + 4 tx + {0..3}
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = warp / (kBN / 64) * 4 + lane / 8;
+  const int tx = warp % (kBN / 64) * 8 + lane % 8;
+
+  auto load = [&](int step) {
+    float* s = smem + step % kTileStages * kStage;
+    const int k0 = k_begin + step * kTileBK;
+    fa.load(p.a.p, p.a.ld, p.M, m0, k0, k_end, s);
+    fb.load(p.b.p, p.b.ld, p.N, n0, k0, k_end, s + kALd * kTileBK);
+  };
+  auto store = [&](int step) {
+    float* s = smem + step % kTileStages * kStage;
+    fa.store(s);
+    fb.store(s + kALd * kTileBK);
+  };
+
+  float acc[8][8] = {};
+#pragma unroll
+  for (int step = 0; step < kTileStages - 1; ++step) {
+    if (step < steps) {
+      load(step);
+      store(step);
+    }
+    async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    async_wait<kTileStages - 2>();
+    __syncthreads();   // step's tile is in; step - 1's is free
+    const int next = step + kTileStages - 1;
+    if (next < steps) load(next);
+    async_commit();
+    const float* as = smem + step % kTileStages * kStage;
+    const float* bs = as + kALd * kTileBK;
+#pragma unroll
+    for (int k = 0; k < kTileBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * kALd + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          as + k * kALd + kTileBM / 2 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(bs + k * kBLd + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(
+          bs + k * kBLd + kBN / 2 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (next < steps) store(next);
+  }
+  if constexpr (!kStaged) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? 4 * ty + i : kTileBM / 2 + 4 * ty + i - 4);
+      if (m >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + (j < 4 ? 4 * tx + j : kBN / 2 + 4 * tx + j - 4);
+        if (n < p.N) p.store(m, n, z, acc[i][j]);
+      }
+    }
+    return;
+  }
+  // kStaged: the tile passes through the ring's memory in two halves of 64
+  // rows, so that neighbouring threads store neighbouring columns
+  constexpr int kHalf = kTileBM / 2, kELd = kBN + kTilePad;
+  static_assert(kHalf * kELd <= kTileStages * kStage, "a half tile fits");
+  async_wait<0>();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    __syncthreads();   // the ring, or the previous half, has been read
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * h + i;
+      float* row = smem + (4 * ty + i) * kELd;
+      *reinterpret_cast<float4*>(row + 4 * tx) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      *reinterpret_cast<float4*>(row + kBN / 2 + 4 * tx) =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+    __syncthreads();
+    const int mh = m0 + h * kHalf;
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < kHalf * kBN; idx += kThreads) {
+      const int m = mh + idx / kBN, n = n0 + idx % kBN;
+      if (m < p.M && n < p.N)
+        p.store(m, n, z, smem[idx / kBN * kELd + idx % kBN]);
+    }
+  }
+}
+
+// blocks per SM that the register budget must allow: two of 256 threads
+// (128 x 128 tiles) or three of 128 (128 x 64), at most 128 or 170
+// registers a thread
+__host__ __device__ constexpr int tile_min_blocks(int bn) {
+  return bn == 128 ? 2 : 3;
+}
+
+// blocks [0, p0.blocks) compute p0's tiles, the rest p1's
+template <int kBN, bool kStaged, class P0, class P1>
+__global__ void __launch_bounds__(tile_threads(kBN), tile_min_blocks(kBN))
+    tile_product_kernel(P0 p0, P1 p1) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int bid = blockIdx.x;
+  if (bid < p0.blocks) {
+    tile_block<kBN, kStaged>(p0, bid, tile_smem);
+  } else {
+    if constexpr (!std::is_same<P1, TileNone>::value)
+      tile_block<kBN, kStaged>(p1, bid - p0.blocks, tile_smem);
+  }
+}
+
+template <int kBN, bool kStaged, class P0, class P1>
+cudaError_t tile_launch(const P0& p0, const P1& p1, cudaStream_t stream) {
+  static_assert(tile_smem_bytes<kBN>() <= 48 * 1024,
+                "the ring needs no opt-in to more shared memory");
+  if (!p0.ok || !p1.ok) return cudaErrorInvalidValue;
+  tile_product_kernel<kBN, kStaged>
+      <<<p0.blocks + p1.blocks, tile_threads(kBN), tile_smem_bytes<kBN>(),
+         stream>>>(p0, p1);
+  return cudaGetLastError();
+}
+
+// gemm's call on the tile_product kernel; returns cudaGetLastError().
+// kStaged for a store functor that reads and writes device memory per
+// output (HiddenGradStore): the tile reaches it through shared memory.
+template <int kBN, bool kStaged = false, class A, class B, class Store>
+cudaError_t tile_product(int M, int N, int K, int splits, A a, B b,
+                         Store store, cudaStream_t stream) {
+  return tile_launch<kBN, kStaged>(
+      tile_problem<kBN>(M, N, K, splits, a, b, store), TileNone{}, stream);
+}
+
+// two products (from tile_problem) in one launch, so that two small grids
+// fill the card together
+template <int kBN, class P0, class P1>
+cudaError_t tile_product_pair(const P0& p0, const P1& p1,
+                              cudaStream_t stream) {
+  return tile_launch<kBN, false>(p0, p1, stream);
+}
 
 // Column sums of an fp32 row-major (rows, cols) matrix, one partial per row
 // split: out[z * split_stride + offset + c] = sum of rows in split z.

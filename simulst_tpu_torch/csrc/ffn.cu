@@ -26,8 +26,10 @@
 //
 // The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
 // LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
-// the hidden and both masks and run as five fp32 tiled products
-// (common.cuh gemm) with fused epilogues:
+// the hidden and both masks and run as five fp32 tiled products with fused
+// epilogues (common.cuh: gemm for the FFN backward, tile_product, its
+// 128-row tiles of 8 x 8 outputs per thread fed by cp.async, for the LN-FFN
+// backward; both sum in the same order, so they give the same bits):
 //   u  = x W1 + b1                                 (the recompute)
 //   dh = g W2^T, g = drop_o(dy); epilogue du = dh act'(u) m_a, and u is
 //        overwritten with h_d = act(u) m_a
@@ -436,21 +438,26 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
       x, ln_g, static_cast<const T*>(be_), xn, stats, n);
   SIMULST_TRY(cudaGetLastError());
   SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
-  SIMULST_TRY((simulst::gemm<false, true>(
+  SIMULST_TRY((simulst::tile_product<128>(
       n, hidden, d, 1, RowMajor<float>{xn, d}, RowMajor<T>{w1, hidden},
       BiasStore<T>{u, static_cast<const T*>(b1_), hidden}, s)));
-  SIMULST_TRY((simulst::gemm<false, false>(
+  SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
       HiddenGradStore<T, kAct>{u, du, hidden, act_drop}, s)));
-  SIMULST_TRY((simulst::gemm<false, false>(
+  // N = 256: 128 x 64 tiles, so that the grid spreads over the SMs
+  SIMULST_TRY((simulst::tile_product<64>(
       n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
       F32Store{dn, d}, s)));
-  SIMULST_TRY((simulst::gemm<true, true>(
-      d, hidden, n, splits, Transposed<float>{xn, d},
-      RowMajor<float>{du, hidden}, PartialStore{partial, len, 0, hidden}, s)));
-  SIMULST_TRY((simulst::gemm<true, true>(
-      hidden, d, n, splits, Transposed<float>{u, hidden}, RowMajor<float>{g, d},
-      PartialStore{partial, len, o_dw2, d}, s)));
+  // dW1 and dW2 (K = rows in `splits` slices) in one launch
+  SIMULST_TRY((simulst::tile_product_pair<64>(
+      simulst::tile_problem<64>(d, hidden, n, splits, Transposed<float>{xn, d},
+                                RowMajor<float>{du, hidden},
+                                PartialStore{partial, len, 0, hidden}),
+      simulst::tile_problem<64>(hidden, d, n, splits,
+                                Transposed<float>{u, hidden},
+                                RowMajor<float>{g, d},
+                                PartialStore{partial, len, o_dw2, d}),
+      s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
                                       o_db1, s));
   SIMULST_TRY(simulst::colsum_partial(g, n, d, splits, partial, len, o_db2, s));

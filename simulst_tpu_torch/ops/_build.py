@@ -91,7 +91,7 @@ SIGNATURES = {
     "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
     # prefix, denom, alphas, g, d_prefix, d_denom, carry, N, U, S, stream
     "simulst_alignment_bwd": [_P] * 7 + [_I] * 3 + [_P],
-    # x, csum, cprev, out, delays, B, S, T, C, beta, stream
+    # x, csum, alpha, out, delays, B, S, T, C, beta, stream
     "simulst_cif_integrate": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
 }
 
@@ -106,27 +106,28 @@ def _nvcc() -> str:
     return path
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libsimulst_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libsimulst_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile csrc/*.cu unless a library of the same sources exists."""
-    out = library_path()
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    """Compile csrc/*.cu unless a library of the same sources exists
+    (another source tree into another directory: tools/kernel_bitcheck.py)."""
+    out = library_path(csrc, build_dir)
     if out.exists():
         return out
     objdir = out.with_suffix("")
     objdir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    sources = sorted(CSRC.glob("*.cu"))
+    sources = sorted(csrc.glob("*.cu"))
     objs = [objdir / f"{src.stem}.o" for src in sources]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
@@ -150,14 +151,19 @@ def build() -> Path:
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C entries' signatures."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    return open_library(build())
 
 
 def launch(name: str, *args) -> None:
@@ -184,6 +190,12 @@ def dropout_args(rate: float, seed: int):
     if rate <= 0.0:
         return 0, 0, 0, 1.0
     return 1, seed & (2 ** 64 - 1), keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it whose data starts on a 16-byte boundary, which
+    the kernels' 16-byte loads need (a view may start anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def needs_grad(*tensors) -> bool:

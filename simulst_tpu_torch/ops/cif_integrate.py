@@ -2,8 +2,9 @@
 simulst_tpu/ops/cif_pallas.py).
 
 With csum = cumsum(alpha) and cprev = csum - alpha over the S source frames
-(fp32, computed here with torch.cumsum as the JAX package computes them
-outside its kernel), output bucket t of width beta integrates
+(fp32; csum computed here with torch.cumsum as the JAX package computes it
+outside its kernel, cprev by the kernel with the same single rounding),
+output bucket t of width beta integrates
 
     portion[b, s, t] = max(min(csum_s, (t + 1) beta) - max(cprev_s, t beta), 0)
     out[b, t, :]     = sum_s portion[b, s, t] x[b, s, :]
@@ -61,15 +62,21 @@ def cif_integrate_forward(x, alpha, beta: float, t: int):
                          f"{tuple(x.shape)}, {tuple(alpha.shape)}, t {t}")
     if not beta > 0.0:
         raise ValueError(f"cif_integrate: beta must be positive, got {beta}")
-    x = x.float().contiguous()
-    csum, cprev = cumsums(alpha)
-    csum, cprev = csum.contiguous(), cprev.contiguous()
-    _build.check_cuda("cif_integrate", x, csum=csum, cprev=cprev)
+    # the host work of a call at serving shapes is most of its time: copy
+    # nothing that is already fp32 and contiguous
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.float().contiguous()
+    if alpha.dtype != torch.float32:
+        alpha = alpha.float()
+    csum = torch.cumsum(alpha, dim=1)   # the plain version's, cumsums()
+    if not alpha.is_contiguous():
+        alpha, csum = alpha.contiguous(), csum.contiguous()
+    _build.check_cuda("cif_integrate", x, alpha=alpha)
     b, s, c = x.shape
     out = torch.empty(b, t, c, dtype=torch.float32, device=x.device)
     delays = torch.empty(b, t, dtype=torch.float32, device=x.device)
     _build.launch("simulst_cif_integrate", x.data_ptr(), csum.data_ptr(),
-                  cprev.data_ptr(), out.data_ptr(), delays.data_ptr(), b, s,
+                  alpha.data_ptr(), out.data_ptr(), delays.data_ptr(), b, s,
                   t, c, float(beta), _build.stream_of(x))
     cif_integrate.launches += 1
     return out, delays

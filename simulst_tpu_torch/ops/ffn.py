@@ -33,7 +33,7 @@ from simulst_tpu_torch.ops.philox import drop_scale
 KERNEL_DIM = 256     # the width csrc/ffn.cu is built for
 HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cu kChunk)
 ROWS_PER_BLOCK = 32  # csrc/ffn.cu kRows
-GEMM_TILE = 64       # output tile of the backward products (common.cuh)
+GEMM_TILE = 64       # output tile of common.cuh gemm; k_splits counts these
 ACTIVATION_CODES = {"gelu": 0, "relu": 1}
 
 
@@ -169,7 +169,9 @@ def _splits(n_rows: int, hidden: int, device) -> int:
 def k_splits(rows: int, out_tiles: int, device) -> int:
     """Slices of the row (K) axis for a weight-gradient product with
     `out_tiles` 64 x 64 output tiles: about two blocks per SM, and at least
-    256 rows per slice."""
+    256 rows per slice.  The LN-FFN backward's tile_product keeps these
+    slices whatever its own tile: each weight gradient is the sum of its
+    slices' partials, so the slices fix its bits."""
     want = -(-2 * _sm_count(device.index) // out_tiles)
     return max(1, min(want, rows // 256))
 
@@ -257,6 +259,7 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
     d, hidden = _check_shapes(name, x, w1, w2)
     x2 = x.reshape(-1, d).contiguous()
     dy2 = dy.reshape(-1, d).contiguous()
+    w1, w2 = _build.aligned(w1), _build.aligned(w2)   # the products' operands
     _build.check_cuda(name, x2, ln_g=ln_g, ln_b=ln_b, w1=w1, b1=b1, w2=w2,
                       dy=dy2)
     n = x2.shape[0]

@@ -194,9 +194,17 @@ def test_linear_res_backward_matches_plain(randn, period, res_rows, rate):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("activation", ["relu", "gelu"])
-@pytest.mark.parametrize("rows", [1, 300])
+@pytest.mark.parametrize("rows,activation", [
+    (1, "relu"), (1, "gelu"), (300, "relu"), (300, "gelu"),
+    (4133, "gelu"), (12325, "gelu")])
 def test_ln_ffn_backward_matches_plain(randn, rows, activation, rate):
+    """1 and 300 rows: one K slice of the weight products; 4,133 and
+    12,325: three slices (ops/ffn.py k_splits), the last one short, and
+    row tiles cut short at the end.  The larger row counts run gelu: over
+    thousands of rows some u lies within a rounding of 0, where relu's
+    derivative flips between the kernel's sum and cuBLAS's, and moves that
+    row of dx far beyond the tolerance (tools/kernel_bitcheck.py holds
+    relu there to the previous kernels' bits)."""
     x, dy = randn(rows, 256), randn(rows, 256)
     g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
     w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
@@ -243,20 +251,23 @@ def test_ln_ffn_and_grouped_attention_take_bf16(randn):
     activation gradients (a flip of the last bf16 rounding is 2^-8
     relative), 1e-2 of the largest entry on weight gradients."""
     bf = torch.bfloat16
-    x, dy = randn(300, 256).to(bf), randn(300, 256).to(bf)
     ws = [(1 + randn(256, scale=0.1)), randn(256, scale=0.1),
           randn(256, 2048, scale=0.03), randn(2048, scale=0.02),
           randn(2048, 256, scale=0.03), randn(256, scale=0.02)]
     ws = [w.to(bf) for w in ws]
-    cfg = ("gelu", 0.1, 0.1, 3)
-    torch.testing.assert_close(fused_ln_ffn_res(x, *ws, *cfg),
-                               ln_ffn_res_plain(x, *ws, *cfg),
-                               atol=3e-2, rtol=1e-2)
-    got = fused_ln_ffn_res_backward(x, *ws[:5], dy, *cfg)
-    want = ln_ffn_res_plain_backward(x, *ws[:5], dy, *cfg)
-    torch.testing.assert_close(got[0], want[0], atol=3e-2, rtol=1e-2)
-    for gw, w in zip(got[1:], want[1:]):
-        _close_to_largest(gw, w, 1e-2)
+    # 4,133 rows: three K slices of the weight products, with bf16 weights
+    # that are 2-byte rows for the products' 8-byte loads
+    for rows, act in ((300, "gelu"), (4133, "gelu")):
+        x, dy = randn(rows, 256).to(bf), randn(rows, 256).to(bf)
+        cfg = (act, 0.1, 0.1, 3)
+        torch.testing.assert_close(fused_ln_ffn_res(x, *ws, *cfg),
+                                   ln_ffn_res_plain(x, *ws, *cfg),
+                                   atol=3e-2, rtol=1e-2)
+        got = fused_ln_ffn_res_backward(x, *ws[:5], dy, *cfg)
+        want = ln_ffn_res_plain_backward(x, *ws[:5], dy, *cfg)
+        torch.testing.assert_close(got[0], want[0], atol=3e-2, rtol=1e-2)
+        for gw, w in zip(got[1:], want[1:]):
+            _close_to_largest(gw, w, 1e-2)
     geom = AttnGeom(U=128, seg=16, lc=32, rc=8, max_mem=5, G=4, num_heads=4)
     q3, dout = (randn(2, geom.ng, geom.nq, 256).to(bf) for _ in range(2))
     k, v = (randn(2, geom.tk, 256).to(bf) for _ in range(2))
@@ -458,17 +469,29 @@ def test_alignment_kernels_refuse_what_they_do_not_take(randn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,s,c,t,beta", [
-    (32, 256, 256, 65, 1.0),      # the cif-train batch
-    (1, 17, 256, 19, 1.0),        # a streaming chunk: carry + 16 frames
-    (4, 29, 256, 1, 1.0),         # ragged, one bucket
-    (2, 512, 256, 300, 1.0),      # more than 128 buckets, two S tiles
-    (8, 256, 256, 80, 0.8),       # test-time beta
-    (3, 40, 300, 12, 1.0)])       # C above one block of threads
-def test_cif_integrate_matches_plain(randn, b, s, c, t, beta):
+@pytest.mark.parametrize("b,s,c,t,beta,how", [
+    (32, 256, 256, 65, 1.0, ""),      # the cif-train batch
+    (1, 17, 256, 19, 1.0, ""),        # a streaming chunk: carry + 16 frames
+    (4, 29, 256, 1, 1.0, ""),         # ragged, one bucket
+    (2, 512, 256, 300, 1.0, ""),      # more than 128 buckets, one scan pass
+    (8, 256, 256, 80, 0.8, ""),       # test-time beta
+    (3, 40, 300, 12, 1.0, ""),        # C above one block's 256 channels
+    (4, 64, 256, 40, 1.0, "wide"),    # frames spanning three buckets
+    (2, 12, 256, 40, 1.0, "wide"),    # T > S: every frame that wide
+    (4, 128, 256, 48, 1.0, "zeros"),  # zero-weight runs and a zero row
+    (2, 1100, 256, 300, 1.0, ""),     # three scan passes of 512 frames
+    (3, 40, 130, 12, 1.0, "")])       # C not a multiple of 4: 4-byte copies
+def test_cif_integrate_matches_plain(randn, b, s, c, t, beta, how):
     x = randn(b, s, c)
     alpha = torch.sigmoid(randn(b, s))
     alpha[0, s // 2:] = 0.0                          # padding
+    if how == "wide":
+        alpha[:, 3::3] = 2.0 + alpha[:, 3::3]
+        if s < t:
+            alpha = 2.5 + alpha
+    elif how == "zeros":
+        alpha[:, 10:30] = 0.0
+        alpha[-1] = 0.0
     before = cif_integrate.cif_integrate.launches
     out, delays = cif_integrate.cif_integrate(x, alpha, beta, t)
     assert cif_integrate.cif_integrate.launches == before + 1
@@ -485,6 +508,52 @@ def test_cif_integrate_matches_plain(randn, b, s, c, t, beta):
     for got, ref in ((xg.grad, xp.grad), (ag.grad, ap.grad)):
         err = (got - ref).abs().max().item()
         assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_cif_integrate_c_entry_takes_a_csum_that_dips(randn):
+    """An fp32 cumsum on the card need not be monotone to the last ulp:
+    the C entry, given a csum that falls by one ulp at a few frames, agrees
+    with the plain portion product on that csum."""
+    from simulst_tpu_torch.ops import _build
+    b, s, c, t, beta = 2, 64, 256, 24, 1.0
+    x = randn(b, s, c)
+    alpha = torch.sigmoid(randn(b, s))
+    csum = torch.cumsum(alpha, dim=1)
+    for row, k in ((0, 5), (1, 20), (1, 41)):
+        csum[row, k] = torch.nextafter(csum[row, k - 1],
+                                       torch.tensor(-1.0, device="cuda"))
+    assert (csum[:, 1:] < csum[:, :-1]).any()
+    out = torch.empty(b, t, c, device="cuda")
+    delays = torch.empty(b, t, device="cuda")
+    _build.launch("simulst_cif_integrate", x.data_ptr(), csum.data_ptr(),
+                  alpha.data_ptr(), out.data_ptr(), delays.data_ptr(), b, s,
+                  t, c, beta, _build.stream_of(x))
+    portion = cif_integrate.portions(csum, csum - alpha, beta, t)
+    want = (torch.einsum("bst,bsc->btc", portion, x),
+            torch.einsum("bst,s->bt", portion, torch.arange(
+                1, s + 1, dtype=torch.float32, device="cuda")) / beta)
+    for got, ref in zip((out, delays), want):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_ln_ffn_backward_takes_misaligned_weights(randn):
+    """Weights whose data does not start on a 16-byte boundary (a view
+    at an odd offset) are copied to one for the products' 16-byte loads."""
+    x, dy = randn(300, 256), randn(300, 256)
+    g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
+    w1 = randn(256 * 2048 + 1, scale=0.03)[1:].view(256, 2048)
+    b1 = randn(2048, scale=0.02)
+    w2 = randn(2048 * 256 + 1, scale=0.03)[1:].view(2048, 256)
+    assert w1.data_ptr() % 16 and w2.data_ptr() % 16
+    cfg = ("gelu", 0.1, 0.1, 5)
+    got = fused_ln_ffn_res_backward(x, g, b, w1, b1, w2, dy, *cfg)
+    want = ln_ffn_res_plain_backward(x, g, b, w1, b1, w2, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for gw, w in zip(got[1:], want[1:]):
+        _close_to_largest(gw, w)
 
 
 @pytest.mark.cuda

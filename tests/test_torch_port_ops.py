@@ -27,6 +27,7 @@ from simulst_tpu.ops.emformer_attn_pallas import \
 from simulst_tpu.ops.ffn_pallas import (ffn_reference,  # noqa: E402
                                         ln_ffn_res_reference)
 from simulst_tpu.ops.linear_res_pallas import fused_linear_drop_res  # noqa: E402
+from simulst_tpu_torch.ops import _build, ffn  # noqa: E402
 from simulst_tpu_torch.ops import fbank as tfb  # noqa: E402
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
     SMEM_LIMIT, AttnGeom, _fitting_unit, emformer_grouped_attention,
@@ -175,3 +176,31 @@ def test_port_imports_no_jax():
             "       ('jax', 'jaxlib', 'simulst_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+
+
+# rows, 64 x 64 output tiles, K slices on a 132-SM H100: the weight-gradient
+# products sum each slice apart and then add the slices, so these slices fix
+# the backwards' bits, whatever tiles the products compute in
+@pytest.mark.parametrize("rows,tiles,splits", [
+    (8192, 128, 3),     # the MT decoder FFN backward (chip_smoke phase 5)
+    (8192, 16, 17),     # the MT linear-res backward, 256 x 256 (phase 5)
+    (12288, 128, 3),    # the ASR LN-FFN backward, 32 x 384 rows (phase 7)
+    (10752, 128, 3),    # packed: 16 rows of 28 x (8 + 16) (phase 15)
+    (7488, 128, 3),     # packed mixed batch: 8 rows of 39 x 24 (phase 15)
+    (12325, 128, 3),    # the card tests' ragged row counts
+    (4133, 128, 3),
+    (300, 128, 1),
+    (1, 128, 1)])
+def test_k_splits_keep_the_weight_products_slices(monkeypatch, rows, tiles,
+                                                  splits):
+    monkeypatch.setattr(ffn, "_sm_count", lambda index: 132)
+    assert ffn.k_splits(rows, tiles, torch.device("cpu")) == splits
+
+
+def test_aligned_copies_only_a_misaligned_view():
+    base = torch.arange(65, dtype=torch.float32)
+    assert _build.aligned(base) is base
+    view = base[1:].view(8, 8)
+    assert view.data_ptr() % 16
+    out = _build.aligned(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
