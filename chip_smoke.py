@@ -40,8 +40,9 @@ targets):
               fused_linear_res, forward and backward) vs their plain
               versions at the MT shapes (64 x 128 tokens), at dropout 0 and
               at 0.1 with one seed (both sides then draw the same Philox
-              mask); CUDA-event times, and SDPA's time beside fused_mha;
-              one bf16 case of each
+              mask); CUDA-event times, and SDPA's time beside fused_mha,
+              the FFN forward and backward beside their products through
+              torch.matmul (fp32, TF32 off); one bf16 case of each
   6. train    8 Adam steps of mt_transformer through cli/train's loss and
               train/state's train step (lr 5e-4, warmup 4000, clip 10, as
               exp/0_mt.sh) on 64 sentence pairs of 96-128 tokens; losses
@@ -58,9 +59,10 @@ targets):
               the shapes of a 32 x 1024-frame batch, at dropout 0 and 0.1
               with one seed, bf16 cases of the LN-FFN and the attention;
               CUDA-event times beside one PyTorch call of the same function
-              (SDPA on the gathered context, conv1d_weight, F.ctc_loss), and
-              the LN-FFN backward beside its five products through
-              torch.matmul (fp32, TF32 off) and its share of the fp32 peak
+              (SDPA on the gathered context, conv1d_weight, F.ctc_loss), the
+              LN-FFN forward and backward beside their two and five
+              products through torch.matmul (fp32, TF32 off), and the
+              backward's share of the fp32 peak
   8. asr-train  8 Adam steps of s2t_emformer_s with joint CTC through
               cli/train's model and loss and train/state's step (lr 1e-3,
               warmup 10000, clip 10, as exp/1a_pretrain_asr.sh) on 32
@@ -335,14 +337,20 @@ CIF_LAUNCHES_PER_STEP = {
 CIF_SERVE_KERNELS = ("fused_ln_ffn_res", "fused_ffn", "cif_integrate")
 PROFILE_STEPS = 3
 # kernel-name fragments -> family in phase 6's profile, first match wins
-# (the port's kernels of csrc/*.cu and the backward products of common.cuh
-# before cuBLAS, whose names also hold "gemm")
+# (the port's kernels of csrc/*.cu and the products of common.cuh before
+# cuBLAS, whose names also hold "gemm"; csrc/ffn.cu's tile_products by the
+# store functor or caller tag in their names)
 KERNEL_FAMILIES = (
-    ("tile_product_kernel", "fused_ln_ffn_res_backward products"),
+    ("HiddenStore<", "FFN forwards' hidden products"),
+    ("TagFfnFwd", "FFN forwards' output products"),
+    ("TagLnFfnBwd", "fused_ln_ffn_res_backward products"),
+    ("F32Store", "fused_ln_ffn_res_backward products"),
+    ("TagFfnBwd", "fused_ffn_backward products"),
+    ("CastStore<", "fused_ffn_backward products"),
     ("mha_fwd_kernel", "fused_mha"), ("mha_bwd_", "fused_mha_backward"),
     ("grouped_attn_kernel", "emformer_grouped_attention"),
     ("grouped_attn_", "emformer_grouped_attention_backward"),
-    ("ln_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
+    ("ln_rows_kernel", "LN-FFN LN rows (forward and backward)"),
     ("ln_bwd_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
     ("convpos_wgrad", "convpos_wgrad"), ("ctc_alpha_kernel", "ctc_alphas"),
     ("ctc_d_em_kernel", "ctc_d_em"),
@@ -353,9 +361,9 @@ KERNEL_FAMILIES = (
     ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
     ("linear_res_kernel", "fused_linear_res"),
-    *((k, "ffn/ln-ffn/linear_res backward products") for k in (
-        "gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
-        "drop_grad_kernel")),
+    *((k, "linear_res backward products, the backwards' sums")
+      for k in ("gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
+                "drop_grad_kernel")),
     *((k, "cuBLAS products") for k in ("gemm", "xmma", "cutlass")))
 # the grouped attention's families (forward; backward block kernel and
 # ordered sum), summed per step in each profile line
@@ -433,6 +441,31 @@ def bound(nbytes, flops):
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def matmul_yardstick(x, w1, w2, dy=None):
+    """ms of an FFN's products through torch.matmul on fp32 operands of the
+    kernel's shapes, TF32 off (run() sets allow_tf32 False): the forward's
+    two (x W1, h W2), or with dy the backward's five.  A yardstick, not a
+    library time: no PyTorch call computes the fused function."""
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gm = torch.Generator(device=x.device).manual_seed(SEED + 9)
+    a, b = (torch.randn(x.shape[0], w1.shape[1], device=x.device,
+                        generator=gm) for _ in range(2))
+
+    def forward():
+        torch.matmul(x, w1)
+        torch.matmul(a, w2)
+
+    def backward():
+        torch.matmul(x, w1)
+        torch.matmul(dy, w2.T)
+        torch.matmul(a, w1.T)
+        torch.matmul(x.T, a)
+        torch.matmul(b.T, dy)
+
+    return cuda_ms(forward if dy is None else backward, samples=5, runs=5)
 
 
 def synthetic_audio(rng, n_utt, n_frames):
@@ -777,7 +810,8 @@ def phase_train_kernels(dev, batch):
     record("fused_ffn", max_abs_err=0.0, shape=f"x=({n},{d}) relu rate 0.1",
            ms=cuda_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, *cfg)),
            plain_ms=cuda_ms(lambda: ffn.ffn_plain(x, w1, b1, w2, b2, *cfg)),
-           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+           library_ms=None, products_matmul_ms=matmul_yardstick(x, w1, w2),
+           **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(x, y, w1, b1, w2, b2), 2 * flops))))
     record("fused_ffn_backward", max_abs_err=0.0,
            shape=f"x=({n},{d}) relu rate 0.1",
@@ -785,7 +819,9 @@ def phase_train_kernels(dev, batch):
                       samples=5, runs=5),
            plain_ms=cuda_ms(lambda: ffn.ffn_plain_backward(
                x, w1, b1, w2, dy, *cfg), samples=5, runs=5),
-           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+           library_ms=None,
+           products_matmul_ms=matmul_yardstick(x, w1, w2, dy),
+           **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(x, dy, w1, b1, w2, *got), 5 * flops))))
 
     # fused_linear_res: the decoder attention epilogue, 8192 rows
@@ -1134,41 +1170,26 @@ def phase_asr_kernels(dev, batch):
             fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
         record("fused_ln_ffn_res_backward", max_abs_err=e_bwd)
     flops = 2 * n * d * hid
+    w1, w2 = lnw[2], lnw[4]
     log("phase7", kernel="fused_ln_ffn_res", shape=f"x=({n},{d}) gelu rate "
         "0.1", ms=cuda_ms(lambda: ffn.fused_ln_ffn_res_forward(x, *lnw,
                                                                *cfg)),
         plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain(x, *lnw, *cfg),
                          samples=5, runs=5),
+        products_matmul_ms=matmul_yardstick(x, w1, w2),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes(x, y, *lnw),
                                                    2 * flops))))
     bwd_ms = cuda_ms(lambda: ffn.fused_ln_ffn_res_backward(
         x, *lnw[:5], dy, *cfg), samples=5, runs=5)
-    # a yardstick, not a library time (no PyTorch call computes the fused
-    # backward): its five products through torch.matmul on fp32 operands of
-    # the same shapes, TF32 off (run() sets allow_tf32 False)
-    assert not torch.backends.cuda.matmul.allow_tf32
-    gm = torch.Generator(device=dev).manual_seed(SEED + 9)
-    du_m, hd_m = (torch.randn(n, hid, device=dev, generator=gm)
-                  for _ in range(2))
-    w1, w2 = lnw[2], lnw[4]
-
-    def products():
-        torch.matmul(x, w1)
-        torch.matmul(dy, w2.T)
-        torch.matmul(du_m, w1.T)
-        torch.matmul(x.T, du_m)
-        torch.matmul(hd_m.T, dy)
-
     record("fused_ln_ffn_res_backward", max_abs_err=0.0,
            shape=f"x=({n},{d}) gelu rate 0.1", ms=bwd_ms,
            plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain_backward(
                x, *lnw[:5], dy, *cfg), samples=5, runs=5),
            library_ms=None,
-           products_matmul_ms=cuda_ms(products, samples=5, runs=5),
+           products_matmul_ms=matmul_yardstick(x, w1, w2, dy),
            fp32_peak_share=5 * flops / (bwd_ms * 1e-3) / FP32_FLOP_PER_S,
            **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(x, dy, *lnw[:5], *got), 5 * flops))))
-    del du_m, hd_m
 
     # grouped attention: the Emformer layer's core
     geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,

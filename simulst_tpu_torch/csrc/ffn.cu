@@ -5,31 +5,42 @@
 // `fused_ln_ffn_res` (_ln_ffn_fwd_kernel and _ln_ffn_bwd_kernel; the Emformer
 // pos_ff block with its pre-LN and residual) and `fused_ffn` (_fwd_kernel
 // and _bwd_kernel; the decoder FFN), each with relu or gelu and both
-// dropouts.  One forward source serves both: the LN prologue and the
+// dropouts.  One forward entry serves both: the LN prologue and the
 // residual epilogue are template flags.
 //
-// What bounds it on the H100: at the offline shape (3072 rows x 256 x 2048)
-// it is compute, 6.4 GFLOP per layer, run here on the CUDA cores in fp32
-// (TF32 tensor cores would miss the fp32 tolerance); at the streaming and
-// decoder shapes (1..40 rows) it is reading W1 and W2 (2 x 2 MB in fp32).
-// The forward keeps the (rows x 2048) hidden out of device memory, as the
-// TPU kernel did: a block owns a 32-row tile, normalises it once into
-// shared memory, then walks its share of the hidden in 64-column chunks,
-// computing drop_a(act(x W1[:, c] + b1)) into shared memory and accumulating
-// h_c W2[c, :] into fp32 registers.  So that a few rows still spread over
-// the SMs, the hidden is split across `splits` blocks (grid.y); each writes
-// an fp32 partial (rows x 256) and a second small kernel sums the partials
-// and adds b2, the output dropout and the residual.  GELU is the exact erf
-// form (the TPU kernel used tanh only because Mosaic has no erf).  Dropout
-// draws Philox bits keyed by (seed, row * hidden + column) for the hidden
-// (stream 0) and (seed, row * 256 + column) for the output (stream 1).
+// What bounds it on the H100: at the training and offline shapes (3072 to
+// 12,288 rows x 256 x 2048) it is compute, 6.4 GFLOP per 3072 rows, run
+// here on the CUDA cores in fp32 (TF32 tensor cores would miss the fp32
+// tolerance); at the streaming and decoder shapes (1..40 rows) it is
+// reading W1 and W2 (2 x 2 MB in fp32).  So the forward has two paths, which
+// give the same bits; the wrapper picks one by the row count
+// (ops/ffn.py slice_plan):
+//  - few rows: one fused kernel keeps the (rows x 2048) hidden out of
+//    device memory, as the TPU kernel did: a block owns a 32-row tile,
+//    normalises it once into shared memory, then walks its share of the
+//    hidden in 64-column chunks, computing drop_a(act(x W1[:, c] + b1)) into
+//    shared memory and accumulating h_c W2[c, :] into fp32 registers.  So
+//    that a few rows still spread over the SMs, the hidden is split across
+//    `splits` blocks (grid.y);
+//  - many rows: the LN row pass (ln_res 1), then two tile_products
+//    (common.cuh: 128-row tiles, 8 x 8 outputs per thread, cp.async): the
+//    hidden product writes h = drop_a(act(x W1 + b1)) to device memory, and
+//    the output product h W2 sums the same `splits` slices of the hidden.
+//    The hidden makes one round trip through device memory (2 x 100 MB at
+//    12,288 rows, about 0.06 ms at 3.35 TB/s): the price of tiles that
+//    read each weight tile once per 128 rows instead of once per 32.
+// Either path writes an fp32 partial (rows x 256) per split, and a second
+// small kernel sums the partials in order and adds b2, the output dropout
+// and the residual.  Each output is one fmaf chain over k ascending within
+// its split, in both paths, so they agree bit for bit.  GELU is the exact
+// erf form (the TPU kernel used tanh only because Mosaic has no erf).
+// Dropout draws Philox bits keyed by (seed, row * hidden + column) for the
+// hidden (stream 0) and (seed, row * 256 + column) for the output (stream 1).
 //
 // The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
 // LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
-// the hidden and both masks and run as five fp32 tiled products with fused
-// epilogues (common.cuh: gemm for the FFN backward, tile_product, its
-// 128-row tiles of 8 x 8 outputs per thread fed by cp.async, for the LN-FFN
-// backward; both sum in the same order, so they give the same bits):
+// the hidden and both masks and run as five fp32 tile_products with fused
+// epilogues:
 //   u  = x W1 + b1                                 (the recompute)
 //   dh = g W2^T, g = drop_o(dy); epilogue du = dh act'(u) m_a, and u is
 //        overwritten with h_d = act(u) m_a
@@ -37,17 +48,20 @@
 //   dW1 = x^T du, dW2 = h_d^T g                    (K = rows, split across
 //                                                   blocks, fp32 partials)
 // plus column sums for db1 and db2 and one pass that adds the partials, so
-// every weight gradient is summed in fp32 without atomics.  Unlike the
-// forward, u and du make one round trip through device memory (2 x 64 MB at
-// the MT shape, about an eighth of the compute bound).  The LN-FFN backward
-// adds two row passes around the products: the first normalises x into an
-// fp32 buffer (the fc1 input, rounded to the activation dtype, and each
-// row's mean and 1/sigma); the product du W1^T then yields dnormed in fp32,
-// and the second row pass takes LN's backward along each row (two warp
-// reductions: mean(dnormed gamma) and mean(dnormed gamma xhat)), adds the
-// residual's dy and writes dx; it also leaves dnormed xhat in the first
-// buffer, whose column sums (split like the weight products) give dgamma,
-// and those of dnormed dbeta.
+// every weight gradient is summed in fp32 without atomics.  u and du make
+// one round trip through device memory (2 x 64 MB at the MT shape, about an
+// eighth of the compute bound).  The LN-FFN backward adds two row passes
+// around the products: the first normalises x into an fp32 buffer (the fc1
+// input, rounded to the activation dtype, and each row's mean and 1/sigma);
+// the product du W1^T then yields dnormed in fp32, and the second row pass
+// takes LN's backward along each row (two warp reductions: mean(dnormed
+// gamma) and mean(dnormed gamma xhat)), adds the residual's dy and writes
+// dx; it also leaves dnormed xhat in the first buffer, whose column sums
+// (split like the weight products) give dgamma, and those of dnormed dbeta.
+//
+// Every store functor of a tile_product names its caller (a tag type), so
+// that a profile's kernel names tell the forward's products and those of
+// the two backwards apart.
 #include "common.cuh"
 
 namespace {
@@ -222,29 +236,122 @@ __global__ void ffn_epilogue_kernel(const float* __restrict__ partial,
   y[idx] = from_f32<T>(s);
 }
 
-template <typename T, bool kFusedBlock, int kAct>
-int launch_ffn(const void* x, const void* ln_g, const void* ln_b,
-               const void* w1, const void* b1, const void* w2, const void* b2,
-               void* y, float* partial, int n_rows, int hidden, int splits,
-               Dropout act_drop, Dropout out_drop, cudaStream_t stream) {
-  auto partial_kernel = ffn_partial_kernel<T, kFusedBlock, kAct>;
-  cudaError_t err = cudaFuncSetAttribute(
-      partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(simulst::ceil_div(n_rows, kRows), splits);
-  partial_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(ln_g),
-      static_cast<const T*>(ln_b), static_cast<const T*>(w1),
-      static_cast<const T*>(b1), static_cast<const T*>(w2), partial, n_rows,
-      hidden, hidden / splits, act_drop);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
+
+// xn = round_T(LN(x) gamma + beta) in fp32 (the expression of
+// ffn_partial_kernel's prologue), stats = (mean, 1/sigma) per row unless null
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
+                   const T* __restrict__ ln_b, float* __restrict__ xn,
+                   float* __restrict__ stats, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  float v[kDim / 32];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    v[i] = to_f32(x[(size_t)row * kDim + lane + 32 * i]);
+    s += v[i];
+  }
+  const float mean = simulst::warp_sum(s) / kDim;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const float c = v[i] - mean;
+    q += c * c;
+  }
+  const float inv = rsqrtf(simulst::warp_sum(q) / kDim + 1e-5f);
+#pragma unroll
+  for (int i = 0; i < kDim / 32; ++i) {
+    const int col = lane + 32 * i;
+    xn[(size_t)row * kDim + col] =
+        round_to<T>((v[i] - mean) * inv * to_f32(ln_g[col]) + to_f32(ln_b[col]));
+  }
+  if (stats != nullptr && lane == 0) {
+    stats[2 * row] = mean;
+    stats[2 * row + 1] = inv;
+  }
+}
+
+// callers of the tile_products, the tags of their shared store functors
+struct TagFfnFwd {};
+struct TagFfnBwd {};
+struct TagLnFfnBwd {};
+
+// simulst::PartialStore under its caller's name
+template <class Caller>
+struct Partials : simulst::PartialStore {};
+
+// h = round_T(act(acc + b1) m_a) into the fp32 hidden buffer: the fused
+// kernel's hidden chunk, for the whole hidden
+template <typename T, int kAct>
+struct HiddenStore {
+  float* h;
+  const T* b1;
+  int hidden;
+  Dropout act_drop;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    const size_t off = (size_t)m * hidden + n;
+    const float uu = v + to_f32(b1[n]);
+    h[off] = round_to<T>(act_fn<kAct>(uu) * act_drop.scale(off, 0));
+  }
+};
+
+// h == nullptr: the fused row-block kernel; else the LN row pass into xn
+// (kLayerNorm), the hidden product into h and the output product into the
+// split partials.  Then the epilogue.
+template <typename T, bool kLayerNorm, int kAct>
+int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
+               const void* w1_, const void* b1_, const void* w2_,
+               const void* b2, void* y, float* partial, float* xn, float* h,
+               int n_rows, int hidden, int splits, Dropout act_drop,
+               Dropout out_drop, cudaStream_t stream) {
+  using simulst::RowMajor;
+  const T* x = static_cast<const T*>(x_);
+  const T* ln_g = static_cast<const T*>(ln_g_);
+  const T* ln_b = static_cast<const T*>(ln_b_);
+  const T* w1 = static_cast<const T*>(w1_);
+  const T* b1 = static_cast<const T*>(b1_);
+  const T* w2 = static_cast<const T*>(w2_);
+  if (h == nullptr) {
+    auto partial_kernel = ffn_partial_kernel<T, kLayerNorm, kAct>;
+    SIMULST_TRY(cudaFuncSetAttribute(
+        partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)kSmemBytes));
+    const dim3 grid(simulst::ceil_div(n_rows, kRows), splits);
+    partial_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+        x, ln_g, ln_b, w1, b1, w2, partial, n_rows, hidden, hidden / splits,
+        act_drop);
+    SIMULST_TRY(cudaGetLastError());
+  } else {
+    const HiddenStore<T, kAct> store{h, b1, hidden, act_drop};
+    if constexpr (kLayerNorm) {
+      ln_rows_kernel<T><<<simulst::ceil_div(n_rows, kRowThreads / 32),
+                          kRowThreads, 0, stream>>>(x, ln_g, ln_b, xn,
+                                                    nullptr, n_rows);
+      SIMULST_TRY(cudaGetLastError());
+      SIMULST_TRY((simulst::tile_product<128, true>(
+          n_rows, hidden, kDim, 1, RowMajor<float>{xn, kDim},
+          RowMajor<T>{w1, hidden}, store, stream)));
+    } else {
+      SIMULST_TRY((simulst::tile_product<128, true>(
+          n_rows, hidden, kDim, 1, RowMajor<T>{x, kDim},
+          RowMajor<T>{w1, hidden}, store, stream)));
+    }
+    // the fused kernel's hidden splits, as K slices: the same sums
+    SIMULST_TRY((simulst::tile_product<64>(
+        n_rows, kDim, hidden, splits, RowMajor<float>{h, hidden},
+        RowMajor<T>{w2, kDim},
+        Partials<TagFfnFwd>{{partial, (size_t)n_rows * kDim, 0, kDim}},
+        stream)));
+  }
   const int total = n_rows * kDim;
-  ffn_epilogue_kernel<T, kFusedBlock>
+  ffn_epilogue_kernel<T, kLayerNorm>
       <<<simulst::ceil_div(total, 256), 256, 0, stream>>>(
-          partial, splits, static_cast<const T*>(b2),
-          static_cast<const T*>(x), static_cast<T*>(y), n_rows, out_drop);
+          partial, splits, static_cast<const T*>(b2), x, static_cast<T*>(y),
+          n_rows, out_drop);
   return (int)cudaGetLastError();
 }
 
@@ -253,7 +360,7 @@ int launch_ffn(const void* x, const void* ln_g, const void* ln_b,
 // ---------------------------------------------------------------------------
 
 // u = acc + b1 into the fp32 hidden buffer
-template <typename T>
+template <typename T, class Caller>
 struct BiasStore {
   float* u;
   const T* b1;
@@ -264,7 +371,7 @@ struct BiasStore {
 };
 
 // dh -> du = round_T(dh act'(u) m_a); u -> h_d = round_T(act(u) m_a)
-template <typename T, int kAct>
+template <typename T, int kAct, class Caller>
 struct HiddenGradStore {
   float* u;   // in: u, out: h_d
   float* du;
@@ -296,7 +403,7 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
                    cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
-  using simulst::PartialStore;
+  using Store = Partials<TagFfnBwd>;
   const T* x = static_cast<const T*>(x_);
   const T* w1 = static_cast<const T*>(w1_);
   const T* w2 = static_cast<const T*>(w2_);
@@ -306,21 +413,26 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
   const size_t o_dw2 = (size_t)d * hidden, o_db1 = 2 * o_dw2,
                o_db2 = o_db1 + hidden;
   SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
-  SIMULST_TRY((simulst::gemm<false, true>(
+  SIMULST_TRY((simulst::tile_product<128>(
       n, hidden, d, 1, RowMajor<T>{x, d}, RowMajor<T>{w1, hidden},
-      BiasStore<T>{u, static_cast<const T*>(b1_), hidden}, s)));
-  SIMULST_TRY((simulst::gemm<false, false>(
+      BiasStore<T, TagFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
+  SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct>{u, du, hidden, act_drop}, s)));
-  SIMULST_TRY((simulst::gemm<false, false>(
+      HiddenGradStore<T, kAct, TagFfnBwd>{u, du, hidden, act_drop}, s)));
+  // N = 256: 128 x 64 tiles, so that the grid spreads over the SMs
+  SIMULST_TRY((simulst::tile_product<64>(
       n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
       CastStore<T>{static_cast<T*>(dx_), d}, s)));
-  SIMULST_TRY((simulst::gemm<true, true>(
-      d, hidden, n, splits, Transposed<T>{x, d}, RowMajor<float>{du, hidden},
-      PartialStore{partial, len, 0, hidden}, s)));
-  SIMULST_TRY((simulst::gemm<true, true>(
-      hidden, d, n, splits, Transposed<float>{u, hidden}, RowMajor<float>{g, d},
-      PartialStore{partial, len, o_dw2, d}, s)));
+  // dW1 and dW2 (K = rows in `splits` slices) in one launch
+  SIMULST_TRY((simulst::tile_product_pair<64>(
+      simulst::tile_problem<64>(d, hidden, n, splits, Transposed<T>{x, d},
+                                RowMajor<float>{du, hidden},
+                                Store{{partial, len, 0, hidden}}),
+      simulst::tile_problem<64>(hidden, d, n, splits,
+                                Transposed<float>{u, hidden},
+                                RowMajor<float>{g, d},
+                                Store{{partial, len, o_dw2, d}}),
+      s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
                                       o_db1, s));
   SIMULST_TRY(simulst::colsum_partial(g, n, d, splits, partial, len, o_db2, s));
@@ -331,44 +443,6 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
 // ---------------------------------------------------------------------------
 // LN-FFN backward
 // ---------------------------------------------------------------------------
-
-constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
-
-// xn = round_T(LN(x) gamma + beta) in fp32, stats = (mean, 1/sigma) per row
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-    ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
-                   const T* __restrict__ ln_b, float* __restrict__ xn,
-                   float* __restrict__ stats, int n_rows) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
-  if (row >= n_rows) return;
-  float v[kDim / 32];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kDim / 32; ++i) {
-    v[i] = to_f32(x[(size_t)row * kDim + lane + 32 * i]);
-    s += v[i];
-  }
-  const float mean = simulst::warp_sum(s) / kDim;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < kDim / 32; ++i) {
-    const float c = v[i] - mean;
-    q += c * c;
-  }
-  const float inv = rsqrtf(simulst::warp_sum(q) / kDim + 1e-5f);
-#pragma unroll
-  for (int i = 0; i < kDim / 32; ++i) {
-    const int col = lane + 32 * i;
-    xn[(size_t)row * kDim + col] =
-        round_to<T>((v[i] - mean) * inv * to_f32(ln_g[col]) + to_f32(ln_b[col]));
-  }
-  if (lane == 0) {
-    stats[2 * row] = mean;
-    stats[2 * row + 1] = inv;
-  }
-}
 
 // dx = inv (gg - mean(gg) - xhat mean(gg xhat)) + dy with gg = dn gamma;
 // xn is overwritten with dn xhat (the per-row terms of dgamma)
@@ -419,9 +493,9 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
                       float* stats, float* u, float* du, float* g, float* dn,
                       float* partial, int n, int hidden, int splits,
                       Dropout act_drop, Dropout out_drop, cudaStream_t s) {
-  using simulst::PartialStore;
   using simulst::RowMajor;
   using simulst::Transposed;
+  using Store = Partials<TagLnFfnBwd>;
   const T* x = static_cast<const T*>(x_);
   const T* ln_g = static_cast<const T*>(g_);
   const T* w1 = static_cast<const T*>(w1_);
@@ -440,10 +514,10 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
   SIMULST_TRY((simulst::tile_product<128>(
       n, hidden, d, 1, RowMajor<float>{xn, d}, RowMajor<T>{w1, hidden},
-      BiasStore<T>{u, static_cast<const T*>(b1_), hidden}, s)));
+      BiasStore<T, TagLnFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
   SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct>{u, du, hidden, act_drop}, s)));
+      HiddenGradStore<T, kAct, TagLnFfnBwd>{u, du, hidden, act_drop}, s)));
   // N = 256: 128 x 64 tiles, so that the grid spreads over the SMs
   SIMULST_TRY((simulst::tile_product<64>(
       n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
@@ -452,11 +526,11 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   SIMULST_TRY((simulst::tile_product_pair<64>(
       simulst::tile_problem<64>(d, hidden, n, splits, Transposed<float>{xn, d},
                                 RowMajor<float>{du, hidden},
-                                PartialStore{partial, len, 0, hidden}),
+                                Store{{partial, len, 0, hidden}}),
       simulst::tile_problem<64>(hidden, d, n, splits,
                                 Transposed<float>{u, hidden},
                                 RowMajor<float>{g, d},
-                                PartialStore{partial, len, o_dw2, d}),
+                                Store{{partial, len, o_dw2, d}}),
       s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
                                       o_db1, s));
@@ -479,41 +553,46 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
 //             unused)
 // x, y: (n_rows, dim); w1: (dim, hidden); w2: (hidden, dim), all of `dtype`;
 // partial: fp32 scratch of (splits, n_rows, dim); act 0 gelu, 1 relu; each
-// dropout site is on when its flag is set.  Returns a cudaError_t.
+// dropout site is on when its flag is set.  h null: the fused row-block
+// kernel; else the tiled path, with fp32 scratch h (n_rows, hidden) and, for
+// ln_res = 1, xn (n_rows, dim), and x, w1, w2 16-byte aligned.  Both paths
+// give the same bits.  Returns a cudaError_t.
 extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            const void* ln_g, const void* ln_b, const void* w1,
                            const void* b1, const void* w2, const void* b2,
-                           void* y, void* partial, int n_rows, int dim,
-                           int hidden, int splits, unsigned long long seed,
-                           int act_on, unsigned act_threshold,
-                           float act_inv_keep, int out_on,
-                           unsigned out_threshold, float out_inv_keep,
-                           void* stream) {
+                           void* y, void* partial, void* xn, void* h,
+                           int n_rows, int dim, int hidden, int splits,
+                           unsigned long long seed, int act_on,
+                           unsigned act_threshold, float act_inv_keep,
+                           int out_on, unsigned out_threshold,
+                           float out_inv_keep, void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 ||
-      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu))
+      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu) ||
+      (h != nullptr && ln_res && xn == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partial);
+  float *p = static_cast<float*>(partial), *xf = static_cast<float*>(xn),
+        *hf = static_cast<float*>(h);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
   const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
   if (ln_res && act == kRelu) {
     SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kRelu>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                                hidden, splits, act_drop, out_drop, s));
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                                n_rows, hidden, splits, act_drop, out_drop, s));
   }
   if (ln_res) {
     SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kGelu>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                                hidden, splits, act_drop, out_drop, s));
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                                n_rows, hidden, splits, act_drop, out_drop, s));
   }
   if (act == kRelu) {
     SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kRelu>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                                hidden, splits, act_drop, out_drop, s));
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                                n_rows, hidden, splits, act_drop, out_drop, s));
   }
   SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kGelu>(
-                              x, ln_g, ln_b, w1, b1, w2, b2, y, p, n_rows,
-                              hidden, splits, act_drop, out_drop, s));
+                              x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                              n_rows, hidden, splits, act_drop, out_drop, s));
 }
 
 // The backward of simulst_ffn (ln_res = 0): dx (n_rows, dim) of `dtype` and

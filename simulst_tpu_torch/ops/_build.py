@@ -40,10 +40,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # a dropout site: seed (uint64), on flag, keep threshold (uint32), 1 / keep
 _DROP = [ctypes.c_uint64, _I, ctypes.c_uint32, ctypes.c_float]
 SIGNATURES = {
-    # dtype, ln_res, act, x, ln_g, ln_b, w1, b1, w2, b2, y, partial,
+    # dtype, ln_res, act, x, ln_g, ln_b, w1, b1, w2, b2, y, partial, xn, h,
     # n_rows, dim, hidden, splits, seed, act_on, act_threshold, act_inv_keep,
     # out_on, out_threshold, out_inv_keep, stream
-    "simulst_ffn": [_I] * 3 + [_P] * 9 + [_I] * 4 + _DROP + _DROP[1:] + [_P],
+    "simulst_ffn": [_I] * 3 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:] + [_P],
     # dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g, partial,
     # n_rows, dim, hidden, splits, seed, act site, out site, stream
     "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:]

@@ -23,6 +23,7 @@ not autograd.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +35,11 @@ KERNEL_DIM = 256     # the width csrc/ffn.cu is built for
 HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cu kChunk)
 ROWS_PER_BLOCK = 32  # csrc/ffn.cu kRows
 GEMM_TILE = 64       # output tile of common.cuh gemm; k_splits counts these
+# the forward runs on tile_product from this many rows up, below it as the
+# fused row-block kernel: both give the same bits, and on an H100 the two
+# take the same time at 384-512 rows, where the fused kernel still has 16
+# hidden splits; from 513 rows it has 8 (PERF.md)
+TILED_MIN_ROWS = 512
 ACTIVATION_CODES = {"gelu": 0, "relu": 1}
 
 
@@ -155,25 +161,48 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _splits(n_rows: int, hidden: int, device) -> int:
-    """Hidden splits (grid.y) so that a few rows still fill the SMs."""
-    sms = _sm_count(device.index)
-    tiles = -(-n_rows // ROWS_PER_BLOCK)
+class SlicePlan(NamedTuple):
+    """How the FFN kernels of csrc/ffn.cu cut one call of `rows` rows.
+
+    tiled: the forward runs on tile_product (the LN row pass, the hidden
+        product, the output product), else as the fused row-block kernel;
+    splits: the forward's hidden splits (grid.y of the fused kernel, so
+        that a few rows still fill the SMs), which the tiled path's output
+        product takes as its K slices: each output is summed split by split
+        in either path, so these fix the forward's bits;
+    bwd_splits: the row (K) slices of the backwards' weight products,
+        k_splits of their 64 x 64 output tiles, which fix their bits.
+    """
+    tiled: bool
+    splits: int
+    bwd_splits: int
+
+
+def slice_plan(rows: int, hidden: int, sms: int) -> SlicePlan:
+    """The FFN kernels' plan for `rows` rows of hidden width `hidden` on a
+    card of `sms` SMs; hidden / splits is a multiple of HIDDEN_CHUNK."""
+    tiles = -(-rows // ROWS_PER_BLOCK)
     chunks = hidden // HIDDEN_CHUNK
     splits = 1
     while tiles * splits < sms and chunks % (2 * splits) == 0:
         splits *= 2
-    return splits
+    out_tiles = -(-KERNEL_DIM // GEMM_TILE) * -(-hidden // GEMM_TILE)
+    return SlicePlan(rows >= TILED_MIN_ROWS, splits,
+                     _row_slices(rows, out_tiles, sms))
+
+
+def _row_slices(rows: int, out_tiles: int, sms: int) -> int:
+    want = -(-2 * sms // out_tiles)
+    return max(1, min(want, rows // 256))
 
 
 def k_splits(rows: int, out_tiles: int, device) -> int:
     """Slices of the row (K) axis for a weight-gradient product with
     `out_tiles` 64 x 64 output tiles: about two blocks per SM, and at least
-    256 rows per slice.  The LN-FFN backward's tile_product keeps these
-    slices whatever its own tile: each weight gradient is the sum of its
+    256 rows per slice.  The backwards' tile_products keep these slices
+    whatever their own tile: each weight gradient is the sum of its
     slices' partials, so the slices fix its bits."""
-    want = -(-2 * _sm_count(device.index) // out_tiles)
-    return max(1, min(want, rows // 256))
+    return _row_slices(rows, out_tiles, _sm_count(device.index))
 
 
 def _check_shapes(name, x, w1, w2):
@@ -195,6 +224,10 @@ def _dropout_sites(act_rate, out_rate, seed):
     return (seed & (2 ** 64 - 1), a_on, a_thr, a_inv, o_on, o_thr, o_inv)
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
             act_rate=0.0, out_rate=0.0, seed=0):
     name = "fused_ln_ffn_res" if ln_res else "fused_ffn"
@@ -208,15 +241,22 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
     y = torch.empty_like(x2)
     if n == 0:
         return y.reshape(x.shape)
-    splits = _splits(n, hidden, x.device)
-    partial = torch.empty(splits, n, d, dtype=torch.float32, device=x.device)
+    plan = slice_plan(n, hidden, _sm_count(x.device.index))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty(plan.splits, n, d, **f32)
+    xn = h = None
+    if plan.tiled:
+        x2, w1, w2 = (_build.aligned(t) for t in (x2, w1, w2))  # operands
+        h = torch.empty(n, hidden, **f32)
+        xn = torch.empty(n, d, **f32) if ln_res else None
     _build.launch(
         "simulst_ffn", _build.dtype_code(x2), int(ln_res),
         ACTIVATION_CODES[activation], x2.data_ptr(),
         ln_g.data_ptr() if ln_res else None, ln_b.data_ptr() if ln_res else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), partial.data_ptr(), n, d, hidden, splits,
-        *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
+        y.data_ptr(), partial.data_ptr(), _ptr(xn), _ptr(h), n, d, hidden,
+        plan.splits, *_dropout_sites(act_rate, out_rate, seed),
+        _build.stream_of(x2))
     (fused_ln_ffn_res if ln_res else fused_ffn).launches += 1
     return y.reshape(x.shape)
 
@@ -225,6 +265,8 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     d, hidden = _check_shapes("fused_ffn_backward", x, w1, w2)
     x2 = x.reshape(-1, d).contiguous()
     dy2 = dy.reshape(-1, d).contiguous()
+    # the products' operands
+    x2, w1, w2 = (_build.aligned(t) for t in (x2, w1, w2))
     _build.check_cuda("fused_ffn_backward", x2, w1=w1, b1=b1, w2=w2, dy=dy2)
     n = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -232,8 +274,7 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     grads = torch.zeros(length, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        tiles = -(-d // GEMM_TILE) * -(-hidden // GEMM_TILE)
-        splits = k_splits(n, tiles, x.device)
+        splits = slice_plan(n, hidden, _sm_count(x.device.index)).bwd_splits
         u = torch.empty(n, hidden, **f32)
         du = torch.empty(n, hidden, **f32)
         g = torch.empty(n, d, **f32)
@@ -269,8 +310,7 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
     grads = torch.zeros(o_db2 + 3 * d, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        tiles = -(-d // GEMM_TILE) * -(-hidden // GEMM_TILE)
-        splits = k_splits(n, tiles, x.device)
+        splits = slice_plan(n, hidden, _sm_count(x.device.index)).bwd_splits
         xn, g, dn = (torch.empty(n, d, **f32) for _ in range(3))
         u, du = (torch.empty(n, hidden, **f32) for _ in range(2))
         stats = torch.empty(n, 2, **f32)

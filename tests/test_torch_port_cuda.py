@@ -32,9 +32,9 @@ from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
     emformer_grouped_attention_backward, emformer_grouped_attention_forward,
     grouped_attention_plain, grouped_attention_plain_backward)
 from simulst_tpu_torch.ops.ffn import (  # noqa: E402
-    ffn_plain, ffn_plain_backward, fused_ffn, fused_ffn_backward,
-    fused_ln_ffn_res, fused_ln_ffn_res_backward, ln_ffn_res_plain,
-    ln_ffn_res_plain_backward)
+    TILED_MIN_ROWS, ffn_plain, ffn_plain_backward, fused_ffn,
+    fused_ffn_backward, fused_ln_ffn_res, fused_ln_ffn_res_backward,
+    ln_ffn_res_plain, ln_ffn_res_plain_backward)
 from simulst_tpu_torch.ops.linear_res import (  # noqa: E402
     fused_linear_res, fused_linear_res_backward, linear_res_plain,
     linear_res_plain_backward)
@@ -55,8 +55,11 @@ def randn():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 33, 300])
+@pytest.mark.parametrize("rows", [1, 33, 300, 4133, TILED_MIN_ROWS - 1,
+                                  TILED_MIN_ROWS])
 def test_ffn_kernels_match_plain(randn, rows):
+    """Below TILED_MIN_ROWS the fused row-block kernel, from it on the
+    tiled path (4,133: a short last 128-row tile)."""
     x = randn(rows, 256)
     g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
     w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
@@ -160,9 +163,12 @@ def test_mha_kernels_take_bf16(randn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("activation", ["relu", "gelu"])
-@pytest.mark.parametrize("rows", [1, 300])
+@pytest.mark.parametrize("rows,activation", [
+    (1, "relu"), (1, "gelu"), (300, "relu"), (300, "gelu"), (4133, "gelu")])
 def test_ffn_backward_matches_plain(randn, rows, activation, rate):
+    """4,133 rows: three K slices of the weight products, the last one
+    short, and a short last row tile; gelu there for the reason
+    test_ln_ffn_backward_matches_plain gives."""
     x, dy = randn(rows, 256), randn(rows, 256)
     w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
     w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
@@ -551,6 +557,49 @@ def test_ln_ffn_backward_takes_misaligned_weights(randn):
     cfg = ("gelu", 0.1, 0.1, 5)
     got = fused_ln_ffn_res_backward(x, g, b, w1, b1, w2, dy, *cfg)
     want = ln_ffn_res_plain_backward(x, g, b, w1, b1, w2, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for gw, w in zip(got[1:], want[1:]):
+        _close_to_largest(gw, w)
+
+
+def _misaligned(randn, *shape, scale=1.0):
+    """A view whose data does not start on a 16-byte boundary."""
+    n = 1
+    for k in shape:
+        n *= k
+    t = randn(n + 1, scale=scale)[1:].view(*shape)
+    assert t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ln_res", [True, False])
+def test_ffn_takes_misaligned_operands(randn, ln_res):
+    """The tiled forward's operands x, W1 and W2, given as views at an odd
+    offset, are copied to a 16-byte boundary for the products' loads."""
+    rows = max(300, TILED_MIN_ROWS)
+    x = _misaligned(randn, rows, 256)
+    g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
+    w1, b1 = _misaligned(randn, 256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = _misaligned(randn, 2048, 256, scale=0.03), randn(256, scale=0.02)
+    cfg = ("gelu", 0.1, 0.1, 5)
+    if ln_res:
+        got = fused_ln_ffn_res(x, g, b, w1, b1, w2, b2, *cfg)
+        want = ln_ffn_res_plain(x, g, b, w1, b1, w2, b2, *cfg)
+    else:
+        got = fused_ffn(x, w1, b1, w2, b2, *cfg)
+        want = ffn_plain(x, w1, b1, w2, b2, *cfg)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+def test_ffn_backward_takes_misaligned_operands(randn):
+    x, dy = _misaligned(randn, 300, 256), randn(300, 256)
+    w1, b1 = _misaligned(randn, 256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2 = _misaligned(randn, 2048, 256, scale=0.03)
+    cfg = ("gelu", 0.1, 0.1, 5)
+    got = fused_ffn_backward(x, w1, b1, w2, dy, *cfg)
+    want = ffn_plain_backward(x, w1, b1, w2, dy, *cfg)
     torch.testing.assert_close(got[0], want[0], **TOL)
     for gw, w in zip(got[1:], want[1:]):
         _close_to_largest(gw, w)

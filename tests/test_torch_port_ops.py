@@ -197,6 +197,38 @@ def test_k_splits_keep_the_weight_products_slices(monkeypatch, rows, tiles,
     assert ffn.k_splits(rows, tiles, torch.device("cpu")) == splits
 
 
+# rows, hidden, SMs, and the forward's hidden splits as the fused row-block
+# kernel took them before the tiled path existed: the tiled path's output
+# product sums the same K slices, so both paths give those bits; the
+# backwards keep k_splits
+@pytest.mark.parametrize("rows,hidden,sms,splits", [
+    (1, 2048, 132, 32),      # decoder step, one utterance
+    (24, 2048, 132, 32),     # streaming chunk (rc 8 + seg 16)
+    (40, 2048, 132, 32),     # decoder step, 8 utterances x beam 5
+    (300, 2048, 132, 16),
+    (511, 2048, 132, 16),    # either side of TILED_MIN_ROWS
+    (512, 2048, 132, 16),
+    (513, 2048, 132, 8),
+    (3072, 2048, 132, 2),    # offline encoder, 8 x 384 rows
+    (4133, 2048, 132, 2),
+    (8192, 2048, 132, 1),    # the MT decoder FFN
+    (12288, 2048, 132, 1),   # the ASR LN-FFN, 32 x 384 rows
+    (1, 1024, 132, 16),
+    (40, 192, 132, 1),       # 3 chunks: no even split
+    (3072, 2048, 78, 1),
+    (300, 2048, 114, 16)])
+def test_ffn_slice_plan_keeps_the_kernels_slices(monkeypatch, rows, hidden,
+                                                 sms, splits):
+    plan = ffn.slice_plan(rows, hidden, sms)
+    assert plan.splits == splits
+    assert (hidden // plan.splits) % ffn.HIDDEN_CHUNK == 0
+    assert plan.splits * (hidden // plan.splits) == hidden
+    assert plan.tiled == (rows >= ffn.TILED_MIN_ROWS)
+    monkeypatch.setattr(ffn, "_sm_count", lambda index: sms)
+    tiles = (ffn.KERNEL_DIM // ffn.GEMM_TILE) * (hidden // ffn.GEMM_TILE)
+    assert plan.bwd_splits == ffn.k_splits(rows, tiles, torch.device("cpu"))
+
+
 def test_aligned_copies_only_a_misaligned_view():
     base = torch.arange(65, dtype=torch.float32)
     assert _build.aligned(base) is base

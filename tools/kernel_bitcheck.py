@@ -7,11 +7,19 @@ are built, with the same nvcc flags, into
 libraries are loaded, the same C entries of both run on the same seeded
 inputs, and each output is compared with torch.equal:
 
-  simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2 (through
-                         ops/ffn.py's wrapper, whose C interface both builds
-                         share); fp32 and bf16, gelu and relu, dropout 0 and
-                         0.1, at 1, 300, 4,133 and 12,288 rows (D 256,
-                         FFN 2048)
+  simulst_ffn            y of ln_res 1 (fused_ln_ffn_res) and ln_res 0
+                         (fused_ffn), this checkout's entry called twice,
+                         on its fused row-block path and on its tiled path
+                         (each call with its own build's C signature: a
+                         revision without the tiled path takes no xn / h);
+                         fp32 and bf16, gelu and relu, dropout 0 and 0.1, at
+                         1, 24, 40, 300, 3072, 4,133, 8192 and 12,288 rows
+                         (D 256, FFN 2048)
+  simulst_ffn_bwd        dx, dW1, db1, dW2, db2 through ops/ffn.py's
+                         wrapper, at the same cases
+  simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2 through the
+                         wrapper; fp32 and bf16, gelu and relu, dropout 0
+                         and 0.1, at 1, 300, 4,133 and 12,288 rows
   simulst_cif_integrate  out and delays at the shapes of
                          tests/test_torch_port_cuda.py's CIF cases (a
                          revision whose entry takes cprev gets csum - alpha
@@ -19,9 +27,15 @@ inputs, and each output is compared with torch.equal:
                          it)
 
 With --time it also times both builds in one process, in turns (revision,
-this checkout, this checkout, revision): the LN-FFN backward at 12,288 rows
-(gelu, rate 0.1) and the CIF C entry at (32, 256, 256, 72), with CUDA
-events, then each build's device time per call by kernel (torch.profiler).
+this checkout, this checkout, revision), with CUDA events: the LN-FFN
+forward at 12,288 rows (gelu, rate 0.1) and the FFN forward at 8192 rows
+(relu, rate 0.1), the revision's C entry against this checkout's on the
+path its wrapper takes; the FFN backward at 8192 rows (relu, rate 0.1)
+and the LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the
+wrappers; the CIF C entry at (32, 256, 256, 72).  Then each build's
+device time per call by kernel (torch.profiler), and this checkout's
+forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
+serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS.
 
 On a machine with the card, from the repository root:
 
@@ -48,6 +62,8 @@ sys.path.insert(0, str(ROOT))
 
 CSRC = "simulst_tpu_torch/csrc"
 LN_ROWS = (1, 300, 4133, 12288)
+FFN_ROWS = (1, 24, 40, 300, 3072, 4133, 8192, 12288)
+CROSSOVER_ROWS = (24, 40, 128, 256, 384, 512, 544, 768, 1024, 3072)
 # (label, B, S, C, T, beta, how alpha is made)
 CIF_CASES = (
     ("cif-train (32,256,256,65)", 32, 256, 256, 65, 1.0, "sigmoid"),
@@ -119,6 +135,7 @@ def library_of(_build, lib):
 
 
 def ln_ffn_inputs(torch, rows, dtype, seed):
+    """x, (ln_g, ln_b, w1, b1, w2, b2), dy on the card, seeded."""
     g = torch.Generator().manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -127,8 +144,34 @@ def ln_ffn_inputs(torch, rows, dtype, seed):
     x, dy = randn(rows, 256), randn(rows, 256)
     ws = (1 + randn(256, scale=0.1), randn(256, scale=0.1),
           randn(256, 2048, scale=0.03), randn(2048, scale=0.02),
-          randn(2048, 256, scale=0.03))
+          randn(2048, 256, scale=0.03), randn(256, scale=0.02))
     return x, ws, dy
+
+
+def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
+              rate, tiled):
+    """simulst_ffn of `lib` bound to its arguments and called once, with
+    its build's signature (takes_scratch: xn and h, null for the fused
+    path); `.y` is the output.  A call costs the host little beside the
+    launch, so that CUDA events time the kernels."""
+    n = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    plan = ffn.slice_plan(n, 2048, ffn._sm_count(x.device.index))
+    y = torch.empty_like(x)
+    partial = torch.empty(plan.splits, n, 256, **f32)
+    xn = torch.empty(n, 256, **f32) if tiled and ln_res else None
+    h = torch.empty(n, 2048, **f32) if tiled else None
+    scratch = (ffn._ptr(xn), ffn._ptr(h)) if takes_scratch else ()
+    call = functools.partial(
+        lib.simulst_ffn, _build.dtype_code(x), ln_res,
+        ffn.ACTIVATION_CODES[act], x.data_ptr(),
+        *(w.data_ptr() for w in ws), y.data_ptr(), partial.data_ptr(),
+        *scratch, n, 256, 2048, plan.splits,
+        *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
+    call.y, call.keep = y, (partial, xn, h)
+    if call():
+        raise RuntimeError("simulst_ffn: CUDA error")
+    return call
 
 
 def device_ms(torch, fn, calls):
@@ -143,7 +186,7 @@ def device_ms(torch, fn, calls):
     def short(key):
         for noise in ("void ", "simulst::", "(anonymous namespace)::"):
             key = key.replace(noise, "")
-        return key[:90]
+        return key[:200]
 
     return {short(e.key): e.self_device_time_total / 1e3 / calls
             for e in prof.key_averages()
@@ -186,6 +229,13 @@ def main():
             "this": _build.open_library(cur_path)}
     ref_takes_cprev = "const void* cprev" in \
         (ref_csrc / "cif.cu").read_text()
+    ref_takes_scratch = "void* xn, void* h" in \
+        (ref_csrc / "ffn.cu").read_text()
+    if not ref_takes_scratch:    # simulst_ffn before the tiled path
+        _P, _I = _build._P, _build._I
+        libs["rev"].simulst_ffn.argtypes = (
+            [_I] * 3 + [_P] * 9 + [_I] * 4 + _build._DROP
+            + _build._DROP[1:] + [_P])
     summary = {}
 
     def report(entry, case, equal):
@@ -196,8 +246,41 @@ def main():
         print(json.dumps({"entry": entry, "case": case, "equal": equal}),
               flush=True)
 
+    def ffn_fwd(key, ln_res, act, x, ws, rate, tiled):
+        takes = ref_takes_scratch if key == "rev" else True
+        return ffn_entry(torch, _build, ffn, libs[key], takes, ln_res, act,
+                         x, ws, rate, tiled)
+
+    dtypes = (torch.float32, torch.bfloat16)
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    for dtype in dtypes:
+        for act in ("gelu", "relu"):
+            for rate in (0.0, 0.1):
+                for rows in FFN_ROWS:
+                    case = f"{str(dtype)[6:]} {act} rate {rate} rows {rows}"
+                    x, ws, dy = ln_ffn_inputs(torch, rows, dtype, rows + 1)
+                    for ln_res in (1, 0):
+                        want = ffn_fwd("rev", ln_res, act, x, ws, rate,
+                                       ref_takes_scratch).y
+                        got = {path: ffn_fwd("this", ln_res, act, x, ws, rate,
+                                             path == "tiled").y
+                               for path in ("fused", "tiled")}
+                        torch.cuda.synchronize()
+                        report(f"simulst_ffn ln_res {ln_res}", case,
+                               {f"y {p}": torch.equal(want, y)
+                                for p, y in got.items()})
+                    outs = {}
+                    for key, lib in libs.items():
+                        with library_of(_build, lib):
+                            outs[key] = ffn.fused_ffn_backward(
+                                x, *ws[2:5], dy, act, rate, rate, 29)
+                    torch.cuda.synchronize()
+                    report("simulst_ffn_bwd", case,
+                           {n: torch.equal(a, b) for n, a, b in
+                            zip(names, outs["rev"], outs["this"])})
+
     names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for act in ("gelu", "relu"):
             for rate in (0.0, 0.1):
                 for rows in LN_ROWS:
@@ -206,7 +289,7 @@ def main():
                     for key, lib in libs.items():
                         with library_of(_build, lib):
                             outs[key] = ffn.fused_ln_ffn_res_backward(
-                                x, *ws, dy, act, rate, rate, 29)
+                                x, *ws[:5], dy, act, rate, rate, 29)
                     torch.cuda.synchronize()
                     report("simulst_ln_ffn_bwd",
                            f"{str(dtype)[6:]} {act} rate {rate} rows {rows}",
@@ -244,27 +327,48 @@ def main():
     if args.time:
         times = {}
         x, ws, dy = ln_ffn_inputs(torch, 12288, torch.float32, 12288)
+        xm, wm, dym = ln_ffn_inputs(torch, 8192, torch.float32, 8192)
         xc, alpha, csum = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
         out = torch.empty(32, 72, 256, device="cuda")
         delays = torch.empty(32, 72, device="cuda")
+
+        def entries(key):
+            """The calls timed for one build: name -> fn()."""
+            lib, tiled = libs[key], key == "this" or ref_takes_scratch
+
+            def wrapped(fn, *a):
+                def call():
+                    with library_of(_build, lib):
+                        fn(*a)
+                return call
+            return {
+                "ln_ffn_fwd_ms": ffn_fwd(key, 1, "gelu", x, ws, 0.1, tiled),
+                "ffn_fwd_ms": ffn_fwd(key, 0, "relu", xm, wm, 0.1, tiled),
+                "ffn_bwd_ms": wrapped(ffn.fused_ffn_backward, xm, *wm[2:5],
+                                      dym, "relu", 0.1, 0.1, 29),
+                "ln_ffn_bwd_ms": wrapped(ffn.fused_ln_ffn_res_backward, x,
+                                         *ws[:5], dy, "gelu", 0.1, 0.1, 29),
+                "cif_c_entry_ms": cif_entry(lib, xc, alpha, csum, 72, 1.0,
+                                            out, delays)}
+
         for key in ("rev", "this", "this", "rev"):
-            lib = libs[key]
-            with library_of(_build, lib):
-                ln = cs.cuda_ms(lambda: ffn.fused_ln_ffn_res_backward(
-                    x, *ws, dy, "gelu", 0.1, 0.1, 29), samples=5, runs=5)
-            ci = cs.cuda_ms(cif_entry(lib, xc, alpha, csum, 72, 1.0, out,
-                                      delays))
             times.setdefault(key, []).append(
-                {"ln_ffn_bwd_ms": ln, "cif_c_entry_ms": ci})
+                {name: cs.cuda_ms(fn, samples=5, runs=5)
+                 for name, fn in entries(key).items()})
         print("times " + json.dumps(times), flush=True)
-        for key, lib in libs.items():
-            with library_of(_build, lib):
-                ln = device_ms(torch, lambda: ffn.fused_ln_ffn_res_backward(
-                    x, *ws, dy, "gelu", 0.1, 0.1, 29), calls=3)
-            ci = device_ms(torch, cif_entry(lib, xc, alpha, csum, 72, 1.0,
-                                            out, delays), calls=20)
+        for key in libs:
             print(f"device_ms {key} " + json.dumps(
-                {"ln_ffn_bwd": ln, "cif_c_entry": ci}), flush=True)
+                {name[:-3]: device_ms(torch, fn, calls=3)
+                 for name, fn in entries(key).items()}), flush=True)
+        crossover = {}
+        for rows in CROSSOVER_ROWS:
+            for ln_res, act in ((1, "gelu"), (0, "relu")):
+                xs, wss, _ = ln_ffn_inputs(torch, rows, torch.float32, rows)
+                crossover[f"ln_res {ln_res} rows {rows}"] = {
+                    path: cs.cuda_ms(ffn_fwd("this", ln_res, act, xs, wss,
+                                             0.0, path == "tiled"))
+                    for path in ("fused", "tiled")}
+        print("crossover_ms " + json.dumps(crossover), flush=True)
 
     ok = all(s["all_equal"] for s in summary.values())
     print(json.dumps({"bitcheck": {"rev": args.rev, **summary}}), flush=True)
