@@ -40,9 +40,12 @@ targets):
               fused_linear_res, forward and backward) vs their plain
               versions at the MT shapes (64 x 128 tokens), at dropout 0 and
               at 0.1 with one seed (both sides then draw the same Philox
-              mask); CUDA-event times, and SDPA's time beside fused_mha,
-              the FFN forward and backward beside their products through
-              torch.matmul (fp32, TF32 off); one bf16 case of each
+              mask); CUDA-event times, and SDPA's time beside fused_mha
+              and its backward, the FFN and linear-res forward and
+              backward beside their products through torch.matmul (fp32,
+              TF32 off); the linear-res and MHA backwards also at the ASR
+              step's shapes (12,800 gated and 2,304 rows; (32, 72, 72)
+              causal and (32, 72, 256)); one bf16 case of each
   6. train    8 Adam steps of mt_transformer through cli/train's loss and
               train/state's train step (lr 5e-4, warmup 4000, clip 10, as
               exp/0_mt.sh) on 64 sentence pairs of 96-128 tokens; losses
@@ -338,16 +341,19 @@ CIF_SERVE_KERNELS = ("fused_ln_ffn_res", "fused_ffn", "cif_integrate")
 PROFILE_STEPS = 3
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the products of common.cuh before
-# cuBLAS, whose names also hold "gemm"; csrc/ffn.cu's tile_products by the
-# store functor or caller tag in their names)
+# cuBLAS, whose names hold "gemm"; the tile_products of csrc/ffn.cu and
+# csrc/linear_res.cu by the store functor or caller tag in their names)
 KERNEL_FAMILIES = (
     ("HiddenStore<", "FFN forwards' hidden products"),
     ("TagFfnFwd", "FFN forwards' output products"),
     ("TagLnFfnBwd", "fused_ln_ffn_res_backward products"),
     ("F32Store", "fused_ln_ffn_res_backward products"),
+    ("TagLinearResBwd", "linear_res backward products, the backwards' sums"),
     ("TagFfnBwd", "fused_ffn_backward products"),
     ("CastStore<", "fused_ffn_backward products"),
-    ("mha_fwd_kernel", "fused_mha"), ("mha_bwd_", "fused_mha_backward"),
+    ("mha_fwd_kernel", "fused_mha"),
+    *((k, "fused_mha_backward") for k in (
+        "mha_bwd_delta_kernel", "mha_bwd_dkdv_kernel", "mha_bwd_dq_kernel")),
     ("grouped_attn_kernel", "emformer_grouped_attention"),
     ("grouped_attn_", "emformer_grouped_attention_backward"),
     ("ln_rows_kernel", "LN-FFN LN rows (forward and backward)"),
@@ -362,7 +368,7 @@ KERNEL_FAMILIES = (
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
     ("linear_res_kernel", "fused_linear_res"),
     *((k, "linear_res backward products, the backwards' sums")
-      for k in ("gemm_kernel", "colsum_partial_kernel", "sum_splits_kernel",
+      for k in ("colsum_partial_kernel", "sum_splits_kernel",
                 "drop_grad_kernel")),
     *((k, "cuBLAS products") for k in ("gemm", "xmma", "cutlass")))
 # the grouped attention's families (forward; backward block kernel and
@@ -466,6 +472,46 @@ def matmul_yardstick(x, w1, w2, dy=None):
         torch.matmul(b.T, dy)
 
     return cuda_ms(forward if dy is None else backward, samples=5, runs=5)
+
+
+def linear_res_yardstick(h, w, dy=None):
+    """ms of the linear-res products through torch.matmul on fp32 operands
+    of the kernel's shapes, TF32 off: the forward's h W, or with dy the
+    backward's dy W^T and h^T dy.  A yardstick, not a library time: no
+    PyTorch call computes the fused function."""
+    import torch
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+    def forward():
+        torch.matmul(h, w)
+
+    def backward():
+        torch.matmul(dy, w.T)
+        torch.matmul(h.T, dy)
+
+    return cuda_ms(forward if dy is None else backward, samples=5, runs=5)
+
+
+def sdpa_backward_ms(q, k, v, kmask, dout, heads, causal, rate):
+    """ms of SDPA's backward (autograd.grad through
+    F.scaled_dot_product_attention) on fused_mha's inputs, the key mask and
+    causal rule as its boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    mask = (kmask != 0)[:, None, None, :]
+    if causal:
+        mask = mask & (torch.arange(tk, device=q.device)[None, :] <=
+                       torch.arange(tq, device=q.device)[:, None])[None, None]
+    sd = [x.view(b, x.shape[1], heads, d // heads).transpose(1, 2).detach()
+          .clone().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=rate)
+    sd_dout = dout.view(b, tq, heads, d // heads).transpose(1, 2)
+    return cuda_ms(lambda: torch.autograd.grad(sd_out, sd, sd_dout,
+                                               retain_graph=True))
 
 
 def synthetic_audio(rng, n_utt, n_frames):
@@ -755,11 +801,6 @@ def phase_train_kernels(dev, batch):
                      torch.arange(t, device=dev)[:, None])[None, None])
             heads_view = [x.view(b, t, heads, d // heads).transpose(1, 2)
                           for x in (q, k, v)]
-            sd = [x.detach().clone().requires_grad_() for x in heads_view]
-            with torch.enable_grad():
-                sd_out = F.scaled_dot_product_attention(
-                    *sd, attn_mask=mask, dropout_p=rate)
-            sd_dout = dout.view(b, t, heads, d // heads).transpose(1, 2)
             record("fused_mha", max_abs_err=0.0,
                    shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d}) causal rate 0.1",
                    ms=cuda_ms(lambda: mha.fused_mha_forward(q, k, v, kmask,
@@ -776,11 +817,39 @@ def phase_train_kernels(dev, batch):
                        q, k, v, kmask, out, lse, dout, *cfg)),
                    plain_ms=cuda_ms(lambda: mha.mha_plain_backward(
                        q, k, v, kmask, dout, *cfg)),
-                   library_ms=cuda_ms(lambda: torch.autograd.grad(
-                       sd_out, sd, sd_dout, retain_graph=True)),
+                   library_ms=sdpa_backward_ms(q, k, v, kmask, dout,
+                                               *cfg[:3]),
                    **dict(zip(("bound_ms", "bound_by"), bound(
                        nbytes(q, k, v, kmask, out, lse, dout, *got),
                        10 * d * vis))))
+
+    # fused_mha_backward at the ASR step's decoder shapes (targets padded
+    # to 72; 256 encoder frames), ragged masks; rate 0.1
+    asr_shapes = {}
+    for case, bq, tq, tk, causal in (
+            ("decoder self (32,72,72) causal", 32, 72, 72, True),
+            ("cross (32,72,256)", 32, 72, 256, False)):
+        q, dout = randn(bq, tq, d), randn(bq, tq, d)
+        k, v = randn(bq, tk, d), randn(bq, tk, d)
+        lengths = torch.randint(tk // 2, tk + 1, (bq,), generator=g).to(dev)
+        kmask = (torch.arange(tk, device=dev)[None, :] <
+                 lengths[:, None]).to(torch.int32)
+        cfg = (heads, causal, 0.1, 4321)
+        out, lse = mha.fused_mha_forward(q, k, v, kmask, *cfg)
+        got = mha.fused_mha_backward(q, k, v, kmask, out, lse, dout, *cfg)
+        want = mha.mha_plain_backward(q, k, v, kmask, dout, *cfg)
+        torch.cuda.synchronize()
+        err = max(max_err(f"fused_mha_backward {case} {w}", x, y, **F32_TOL)
+                  for w, x, y in zip("qkv", got, want))
+        record("fused_mha_backward", max_abs_err=err)
+        asr_shapes[case] = dict(
+            ms=cuda_ms(lambda: mha.fused_mha_backward(
+                q, k, v, kmask, out, lse, dout, *cfg)),
+            library_ms=sdpa_backward_ms(q, k, v, kmask, dout, *cfg[:3]),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(q, k, v, kmask, out, lse, dout, *got),
+                10 * d * mha_visible_pairs(kmask, tq, causal)))))
+    record("fused_mha_backward", max_abs_err=0.0, asr_shapes=asr_shapes)
 
     # fused_ffn: the decoder FFN, relu, 8192 rows
     xav = (6.0 / (d + hid)) ** 0.5
@@ -852,7 +921,8 @@ def phase_train_kernels(dev, batch):
                h, w, bias, res, *cfg)),
            plain_ms=cuda_ms(lambda: linear_res.linear_res_plain(
                h, w, bias, res, *cfg)),
-           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+           library_ms=None, products_matmul_ms=linear_res_yardstick(h, w),
+           **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(h, w, bias, res, y), flops))))
     record("fused_linear_res_backward", max_abs_err=0.0,
            shape=f"h=({n},{d}) rate 0.1",
@@ -860,8 +930,36 @@ def phase_train_kernels(dev, batch):
                h, w, dy, *cfg)),
            plain_ms=cuda_ms(lambda: linear_res.linear_res_plain_backward(
                h, w, dy, *cfg)),
-           library_ms=None, **dict(zip(("bound_ms", "bound_by"), bound(
+           library_ms=None,
+           products_matmul_ms=linear_res_yardstick(h, w, dy),
+           **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(h, w, dy, *got), 2 * flops))))
+    # the backward at the ASR step's shapes: the Emformer out-projection
+    # (32 x 2 groups of 200 rows, the gate: 192 residual rows each) and the
+    # decoder's epilogues (32 x 72 rows); rate 0.1
+    asr_shapes = {}
+    for case, rows, period, res_rows in (
+            ("encoder h=(12800,256) period 200 gate 192", 12800, 200, 192),
+            ("decoder h=(2304,256)", 2304, 0, 0)):
+        ha, dya = randn(rows, d), randn(rows, d)
+        cfga = (period, res_rows, 0.1, 7)
+        got = linear_res.fused_linear_res_backward(ha, w, dya, *cfga)
+        want = linear_res.linear_res_plain_backward(ha, w, dya, *cfga)
+        torch.cuda.synchronize()
+        err = max([max_err(f"fused_linear_res_backward {case} dh", got[0],
+                           want[0], **F32_TOL)] +
+                  [max_err_to_largest(f"fused_linear_res_backward {case} {nm}",
+                                      gw, ww)
+                   for nm, gw, ww in zip(("dw", "db"), got[1:], want[1:])])
+        record("fused_linear_res_backward", max_abs_err=err)
+        asr_shapes[case] = dict(
+            ms=cuda_ms(lambda: linear_res.fused_linear_res_backward(
+                ha, w, dya, *cfga)),
+            products_matmul_ms=linear_res_yardstick(ha, w, dya),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(ha, w, dya, *got), 4 * rows * d * d))))
+    record("fused_linear_res_backward", max_abs_err=0.0,
+           asr_shapes=asr_shapes)
     # bf16: the kernels take it too (the MT path runs fp32); one case each
     bf = torch.bfloat16
     qb, kb, vb, dob = (randn(b, t, d).to(bf) for _ in range(4))

@@ -132,90 +132,13 @@ struct Dropout {
 };
 
 // ---------------------------------------------------------------------------
-// a plain fp32 tiled matrix product for the backward passes
+// operands and partial stores of the tiled products
 // ---------------------------------------------------------------------------
-// C(m, n) = sum_k A(m, k) B(k, n) over the z-th slice of K (grid.z), handed
-// to store(m, n, z, value).  A, B and store are functors, so transposes,
-// dropout multipliers and epilogues cost no extra pass.  64 x 64 output tile
-// per block, K in steps of 32 through shared memory, 4 x 4 outputs per
-// thread on the CUDA cores.  kAMFast / kBNFast say which index of A / B is
-// contiguous in memory, so that the tile loads coalesce.
-constexpr int kGemmBM = 64;
-constexpr int kGemmBN = 64;
-constexpr int kGemmBK = 32;
-constexpr int kGemmThreads = 256;
-
-template <bool kAMFast, bool kBNFast, class A, class B, class Store>
-__global__ void __launch_bounds__(kGemmThreads)
-    gemm_kernel(int M, int N, int K, int k_chunk, A a, B b, Store store) {
-  __shared__ float as[kGemmBK][kGemmBM + 1];
-  __shared__ float bs[kGemmBK][kGemmBN + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * kGemmBM;
-  const int n0 = blockIdx.y * kGemmBN;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kGemmBK) {
-    for (int idx = tid; idx < kGemmBM * kGemmBK; idx += kGemmThreads) {
-      const int m = kAMFast ? idx % kGemmBM : idx / kGemmBK;
-      const int k = kAMFast ? idx / kGemmBM : idx % kGemmBK;
-      const int gm = m0 + m, gk = k0 + k;
-      as[k][m] = (gm < M && gk < k_end) ? a(gm, gk) : 0.f;
-    }
-    for (int idx = tid; idx < kGemmBN * kGemmBK; idx += kGemmThreads) {
-      const int n = kBNFast ? idx % kGemmBN : idx / kGemmBK;
-      const int k = kBNFast ? idx / kGemmBN : idx % kGemmBK;
-      const int gn = n0 + n, gk = k0 + k;
-      bs[k][n] = (gn < N && gk < k_end) ? b(gk, gn) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kGemmBK; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) store(m, n, (int)blockIdx.z, acc[i][j]);
-    }
-  }
-}
-
-// Launch gemm_kernel with K cut into `splits` slices (a multiple of the K
-// step each); returns cudaGetLastError().
-template <bool kAMFast, bool kBNFast, class A, class B, class Store>
-cudaError_t gemm(int M, int N, int K, int splits, A a, B b, Store store,
-                 cudaStream_t stream) {
-  const int k_chunk = ceil_div(ceil_div(K, splits), kGemmBK) * kGemmBK;
-  const dim3 grid(ceil_div(M, kGemmBM), ceil_div(N, kGemmBN),
-                  ceil_div(K, k_chunk));
-  gemm_kernel<kAMFast, kBNFast>
-      <<<grid, kGemmThreads, 0, stream>>>(M, N, K, k_chunk, a, b, store);
-  return cudaGetLastError();
-}
+// A weight gradient's K (rows) axis is cut into slices whose length is a
+// multiple of this step; each slice's partial is summed apart, then the
+// slices in order, so the slices fix the gradient's bits
+// (ops/ffn.py:k_splits picks their count).
+constexpr int kSliceStep = 32;
 
 // element (r, c) of a row-major matrix with leading dimension ld
 template <typename T>
@@ -237,7 +160,10 @@ struct Transposed {
   }
 };
 
-// fp32 partial of split z at p[z * split_stride + offset + m * ld + n]
+// fp32 partial of split z at p[z * split_stride + offset + m * ld + n];
+// Caller, a tag type, names the product's caller in the kernel's name, so
+// that a profile tells the callers of one template apart
+template <class Caller>
 struct PartialStore {
   float* p;
   size_t split_stride;
@@ -250,18 +176,17 @@ struct PartialStore {
 };
 
 // ---------------------------------------------------------------------------
-// tile_product: gemm's function and sums, fed for Hopper's CUDA cores
+// tile_product: fp32 tiled matrix products for Hopper's CUDA cores
 // ---------------------------------------------------------------------------
-// The same function as gemm (C(m, n) = sum_k A(m, k) B(k, n) over the z-th
-// K slice, handed to store(m, n, z, value) once per output) and the same
-// sums: each output is acc = 0, then acc = fmaf(A(m, k), B(k, n), acc) for
-// k ascending through its slice, whose bounds are gemm's (k_chunk a
-// multiple of kGemmBK), with zeros past its end.  So the two templates give
-// the same bits whatever their tiles.  What differs is the feed:
+// C(m, n) = sum_k A(m, k) B(k, n) over the z-th K slice, handed to
+// store(m, n, z, value) once per output, so that transposes, dropout
+// multipliers and epilogues cost no extra pass.  Each output is acc = 0,
+// then acc = fmaf(A(m, k), B(k, n), acc) for k ascending through its slice
+// (k_chunk a multiple of kSliceStep), with zeros past its end: the bits
+// depend on the slices and on nothing else, whatever the tiles.  The feed:
 //  - a 128 x kBN output tile per block (kBN 128: 256 threads; 64: 128
 //    threads), 8 x 8 outputs per thread in four 4 x 4 quadrants, so that a
-//    k step reads 2 float4 of A and 2 of B from shared memory for 64 FMAs
-//    (gemm: 8 scalar reads for 16);
+//    k step reads 2 float4 of A and 2 of B from shared memory for 64 FMAs;
 //  - K in steps of kTileBK through a ring of kTileStages shared tiles, both
 //    operands k-major ([k][row], rows padded by 4 floats, which keeps the
 //    float4 reads aligned and the transposed stores at two-way bank
@@ -403,11 +328,11 @@ bool tile_operand_ok(const F& f, bool by_rows, int rows, int K) {
          (by_rows ? rows % 4 == 0 : K % 4 == 0);
 }
 
-// C = A B over `splits` K slices cut as gemm cuts them
+// C = A B over `splits` K slices of k_chunk, a multiple of kSliceStep
 template <int kBN, class A, class B, class Store>
 TileProblem<A, B, Store> tile_problem(int M, int N, int K, int splits, A a,
                                       B b, Store store) {
-  const int k_chunk = ceil_div(ceil_div(K, splits), kGemmBK) * kGemmBK;
+  const int k_chunk = ceil_div(ceil_div(K, splits), kSliceStep) * kSliceStep;
   const int tm = ceil_div(M, kTileBM), tn = ceil_div(N, kBN);
   const bool ok = M > 0 && N > 0 && K > 0 && splits > 0 &&
                   tile_operand_ok(a, !TileOperand<A>::kRowMajor, M, K) &&
@@ -560,7 +485,7 @@ cudaError_t tile_launch(const P0& p0, const P1& p1, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// gemm's call on the tile_product kernel; returns cudaGetLastError().
+// C = A B over `splits` K slices in one launch; returns cudaGetLastError().
 // kStaged for a store functor that reads and writes device memory per
 // output (HiddenGradStore): the tile reaches it through shared memory.
 template <int kBN, bool kStaged = false, class A, class B, class Store>

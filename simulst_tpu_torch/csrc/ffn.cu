@@ -280,10 +280,6 @@ struct TagFfnFwd {};
 struct TagFfnBwd {};
 struct TagLnFfnBwd {};
 
-// simulst::PartialStore under its caller's name
-template <class Caller>
-struct Partials : simulst::PartialStore {};
-
 // h = round_T(act(acc + b1) m_a) into the fp32 hidden buffer: the fused
 // kernel's hidden chunk, for the whole hidden
 template <typename T, int kAct>
@@ -344,7 +340,8 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
     SIMULST_TRY((simulst::tile_product<64>(
         n_rows, kDim, hidden, splits, RowMajor<float>{h, hidden},
         RowMajor<T>{w2, kDim},
-        Partials<TagFfnFwd>{{partial, (size_t)n_rows * kDim, 0, kDim}},
+        simulst::PartialStore<TagFfnFwd>{partial, (size_t)n_rows * kDim, 0,
+                                         kDim},
         stream)));
   }
   const int total = n_rows * kDim;
@@ -403,7 +400,7 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
                    cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
-  using Store = Partials<TagFfnBwd>;
+  using Store = simulst::PartialStore<TagFfnBwd>;
   const T* x = static_cast<const T*>(x_);
   const T* w1 = static_cast<const T*>(w1_);
   const T* w2 = static_cast<const T*>(w2_);
@@ -427,11 +424,11 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
   SIMULST_TRY((simulst::tile_product_pair<64>(
       simulst::tile_problem<64>(d, hidden, n, splits, Transposed<T>{x, d},
                                 RowMajor<float>{du, hidden},
-                                Store{{partial, len, 0, hidden}}),
+                                Store{partial, len, 0, hidden}),
       simulst::tile_problem<64>(hidden, d, n, splits,
                                 Transposed<float>{u, hidden},
                                 RowMajor<float>{g, d},
-                                Store{{partial, len, o_dw2, d}}),
+                                Store{partial, len, o_dw2, d}),
       s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
                                       o_db1, s));
@@ -495,7 +492,7 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
                       Dropout act_drop, Dropout out_drop, cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
-  using Store = Partials<TagLnFfnBwd>;
+  using Store = simulst::PartialStore<TagLnFfnBwd>;
   const T* x = static_cast<const T*>(x_);
   const T* ln_g = static_cast<const T*>(g_);
   const T* w1 = static_cast<const T*>(w1_);
@@ -526,11 +523,11 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   SIMULST_TRY((simulst::tile_product_pair<64>(
       simulst::tile_problem<64>(d, hidden, n, splits, Transposed<float>{xn, d},
                                 RowMajor<float>{du, hidden},
-                                Store{{partial, len, 0, hidden}}),
+                                Store{partial, len, 0, hidden}),
       simulst::tile_problem<64>(hidden, d, n, splits,
                                 Transposed<float>{u, hidden},
                                 RowMajor<float>{g, d},
-                                Store{{partial, len, o_dw2, d}}),
+                                Store{partial, len, o_dw2, d}),
       s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, hidden, splits, partial, len,
                                       o_db1, s));

@@ -19,10 +19,12 @@
 // never makes a separate round trip through device memory before the
 // residual add.  Dropout draws Philox bits keyed by (seed, row * D_out +
 // column).  The backward materialises du = drop(dy) on residual rows once
-// (fp32), then runs dh = du W^T and dW = h^T du (K = rows, split across
-// blocks into fp32 partials) as common.cuh tiled products, and db as
-// column sums of du; one pass adds the partials, so dW and db are summed in
-// fp32 without atomics.  d(res) is dy on residual rows and is formed by the
+// (fp32), then runs dh = du W^T (128 x 64 tiles: N = D_in = 256 spreads
+// over the SMs) and dW = h^T du (K = rows, split across blocks into fp32
+// partials) as common.cuh tile_products, and db as column sums of du; one
+// pass adds the partials, so dW and db are summed in fp32 without atomics.
+// dW's K slices are ops/linear_res.py's (k_splits of its 64 x 64 tiles):
+// they fix its bits.  d(res) is dy on residual rows and is formed by the
 // caller, as in the JAX package's _flr_bwd.
 #include "common.cuh"
 
@@ -112,7 +114,11 @@ int launch_linear_res(const void* h, const void* w, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// the caller tag of the backward's store functors, so that a profile tells
+// its tile_products from the FFN backwards'
+struct TagLinearResBwd {};
+
+template <typename T, class Caller>
 struct CastStore {
   T* y;
   int ld;
@@ -126,7 +132,6 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
                           void* dh, float* grads, float* du, float* partial,
                           int n, int din, int dout, int period, int res_rows,
                           int splits, Dropout drop, cudaStream_t s) {
-  using simulst::PartialStore;
   using simulst::RowMajor;
   using simulst::Transposed;
   const T* h = static_cast<const T*>(h_);
@@ -135,12 +140,12 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
   const size_t len = (size_t)din * dout + dout;
   SIMULST_TRY((simulst::drop_grad<T>(dy, du, n, dout, drop, 0, period,
                                      res_rows, s)));
-  SIMULST_TRY((simulst::gemm<false, false>(
+  SIMULST_TRY((simulst::tile_product<64>(
       n, din, dout, 1, RowMajor<float>{du, dout}, Transposed<T>{w, dout},
-      CastStore<T>{static_cast<T*>(dh), din}, s)));
-  SIMULST_TRY((simulst::gemm<true, true>(
+      CastStore<T, TagLinearResBwd>{static_cast<T*>(dh), din}, s)));
+  SIMULST_TRY((simulst::tile_product<64>(
       din, dout, n, splits, Transposed<T>{h, din}, RowMajor<float>{du, dout},
-      PartialStore{partial, len, 0, dout}, s)));
+      simulst::PartialStore<TagLinearResBwd>{partial, len, 0, dout}, s)));
   SIMULST_TRY(simulst::colsum_partial(du, n, dout, splits, partial, len,
                                       (size_t)din * dout, s));
   return (int)simulst::sum_splits(partial, splits, len, grads, s);
@@ -169,7 +174,8 @@ extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
 // The backward of simulst_linear_res: dh (n_rows, din) of `dtype` and
 // grads = [dW (din, dout) | db (dout)] in fp32 from h, w and dy (n_rows,
 // dout).  Scratch, fp32: du (n_rows, dout) and partial (splits, len(grads))
-// zero-filled.  Returns a cudaError_t.
+// zero-filled.  h and w start on a 16-byte boundary and din, dout are
+// multiples of 4 (tile_product's loads).  Returns a cudaError_t.
 extern "C" int simulst_linear_res_bwd(int dtype, const void* h, const void* w,
                                       const void* dy, void* dh, void* grads,
                                       void* du, void* partial, int n_rows,

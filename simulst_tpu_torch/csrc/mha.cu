@@ -18,9 +18,11 @@
 // row) walks 64-key tiles through shared memory with a running max and sum,
 // so the (Tq, Tk) probabilities never reach device memory; the forward
 // keeps the per-row log-sum-exp as the backward's residual.  The backward
-// runs one kernel per 64-key tile (dK, dV, walking the q tiles) and one per
-// 64-row q tile (dQ, walking the k tiles), so nothing is summed across
-// blocks and no atomics are needed.  A query row that sees no key returns
+// (about 2 GFLOP at the MT shape, causal: 30 us at the peak) runs a row
+// pass for delta = dO . O, one kernel per 64-key tile (dK, dV, walking the
+// q tiles; it also writes dS to an fp32 scratch) and one per 64-row q tile
+// (dQ = dS K, walking the k tiles), so nothing is summed across blocks and
+// no atomics are needed.  A query row that sees no key returns
 // exact zeros (as the JAX kernel's -1e9 bias with its 1e-30 denominator
 // does); the TPU kernel's exp(min(s, 80)) clamp is not copied: the running
 // max keeps every exponent <= 0.  Products run in fp32 on the CUDA cores.
@@ -212,223 +214,360 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// delta[r] = sum_d dout[r, h, d] out[r, h, d] and lse of rows [q0, q0 + 64):
-// the softmax backward's row term sum_k p dp (= dO . O, dropout included)
-template <typename T>
-__device__ __forceinline__ void load_row_terms(float* delta, float* lse_s,
-                                               const T* out, const T* dout,
-                                               const float* lse, int b, int h,
-                                               int q0, const Geometry& g) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int D = g.D();
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int qr = q0 + r;
-    float s = 0.f;
-    if (qr < g.Tq) {
-      const size_t base = ((size_t)b * g.Tq + qr) * D + h * kHD;
-      s = to_f32(dout[base + lane]) * to_f32(out[base + lane]) +
-          to_f32(dout[base + lane + 32]) * to_f32(out[base + lane + 32]);
-    }
-    s = simulst::warp_sum(s);
-    if (lane == 0) {
-      delta[r] = s;
-      lse_s[r] = qr < g.Tq ? lse[((size_t)b * g.H + h) * g.Tq + qr] : INFINITY;
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+// Three kernels, each output summed as the first design summed it, so that
+// the results are bit for bit the same:
+//  - delta: delta[b, h, q] = sum_d dO . O, the softmax backward's row term
+//    (dropout included), once per row (B H Tq rows, one warp each);
+//  - dK / dV: grid (ceil(Tk / 64), H, B), 256 threads in two groups of
+//    128, walking the q tiles.  Per q tile, group 0 computes s = Q K^T and
+//    the probabilities while group 1 computes dp = dO V^T; then group 0
+//    forms the dropped probabilities P and group 1 dS, which also goes to a
+//    scratch (B, H, Tq, Tk64) for the dQ kernel; then group 0 adds P^T dO
+//    into dV and group 1 dS^T Q into dK: four 64 x 64 x 64 products per
+//    (q tile, k tile) pair;
+//  - dQ: grid (ceil(Tq / 64), H, B), 128 threads, dQ = dS K over the k
+//    tiles from the scratch through a two-stage cp.async ring: one product
+//    per pair, as s, dp and dS are computed once, in the dK / dV kernel.
+// Every product gives each thread 8 x 4 outputs and reads its operands as
+// float4 from rows padded to 68 floats (16-byte aligned, and eight
+// neighbouring rows on eight distinct bank groups): three 16-byte shared
+// reads per 32 FMAs.  The shared tiles hold fp32 (bf16 widened exactly on
+// load); fp32 tiles arrive by 16-byte cp.async, bf16 through registers.
+// The dK / dV kernel's six tiles (104 KB, and 4 KB of dropout codes) let
+// two blocks share an SM: one block's loads overlap the other's products
+// (a ring would not fit; its q loop runs 1-2 times at the path's shapes).
+// Each pair's dropout multiplier is drawn once, half of them by each group
+// (a pair's ten Philox rounds cost about as many issue slots as its 256
+// FMAs).
+constexpr int kBwdLd = kHD + 4;
+constexpr int kBwdTile = kTile * kBwdLd;
+constexpr int kGroup = 128;   // threads per product: 8 x 16, 8 x 4 outputs each
+
+// rows [0, 64) of a (rows, 64) tile of T, row r at src + r ld, into fp32
+// dst[r kBwdLd + c]; rows >= valid are zero.  fp32 by cp.async (the caller
+// commits and waits), bf16 through registers.
+template <int kN, typename T>
+__device__ __forceinline__ void stage_tile(float* dst, const T* src,
+                                           size_t ld, int valid) {
+  const int t = threadIdx.x % kN;
+#pragma unroll
+  for (int q = 0; q < kTile * kHD / 4 / kN; ++q) {
+    const int idx = t + q * kN, r = idx / (kHD / 4), c = idx % (kHD / 4) * 4;
+    const bool ok = r < valid;
+    const T* p = src + (ok ? (size_t)r * ld + c : 0);
+    if constexpr (sizeof(T) == sizeof(float)) {
+      simulst::async_copy16(dst + r * kBwdLd + c, p, ok);
+    } else {
+      *reinterpret_cast<float4*>(dst + r * kBwdLd + c) =
+          ok ? simulst::load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
 
-// p and dS of one (q tile, k tile) pair, q rows ty + 16 i, keys tx + 16 j:
-// p = exp(s - lse) where visible; pd = p * mult; dS = p (dp - delta) scale
-// with dp = (dO . v) * mult.  Both are rounded to T where the JAX kernel
-// casts them.
-template <typename T>
-__device__ __forceinline__ void probs_and_dscores(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const int* kflags, const float* delta, const float* lse_s, int b, int h,
-    int q0, int k0, const Geometry& g, const Dropout& drop, float pd[4][4],
-    float ds[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float s[4][4], dpd[4][4];
-  tile_dots(qs, ks, s);
-  tile_dots(dos, vs, dpd);
+// s[i][j] = sum_d x[r_i][d] y[c_j][d] for d ascending, rows r_i = tr + 8 i
+// of tile x, rows c_j = tc + 16 j of tile y; rows r_i >= n are left 0
+__device__ __forceinline__ void row_dots(const float* x, const float* y,
+                                         int n, int tr, int tc,
+                                         float s[8][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, qr = q0 + r;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      float p = 0.f, mult = 1.f;
-      if (visible(g, kflags, qr, k0 + c, c)) {
-        p = expf(s[i][j] * g.scale - lse_s[r]);
-        mult = drop.scale(prob_offset(g, b, h, qr, k0 + c), 0);
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kHD; d += 4) {
+    float4 yv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      yv[j] = *reinterpret_cast<const float4*>(y + (tc + 16 * j) * kBwdLd + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (tr + 8 * i >= n) break;
+      const float4 xv =
+          *reinterpret_cast<const float4*>(x + (tr + 8 * i) * kBwdLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(xv.x, yv[j].x, s[i][j]);
+        s[i][j] = fmaf(xv.y, yv[j].y, s[i][j]);
+        s[i][j] = fmaf(xv.z, yv[j].z, s[i][j]);
+        s[i][j] = fmaf(xv.w, yv[j].w, s[i][j]);
       }
-      pd[i][j] = round_to<T>(p * mult);
-      ds[i][j] = round_to<T>(p * (dpd[i][j] * mult - delta[r]) * g.scale);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward, dK and dV: grid (ceil(Tk / 64), H, B)
-// ---------------------------------------------------------------------------
+// acc[i][j] += sum_r a[r][8 tr + i] b[r][4 tc + j] for r ascending over
+// rows [r0, n) of the tile (the others hold zeros in a's columns
+// 8 tr .. 8 tr + 7)
+__device__ __forceinline__ void rank_update(const float* a, const float* b,
+                                            int r0, int n, int tr, int tc,
+                                            float acc[8][4]) {
+#pragma unroll 4
+  for (int r = r0; r < n; ++r) {
+    const float4 a0 = *reinterpret_cast<const float4*>(a + r * kBwdLd + 8 * tr);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(a + r * kBwdLd + 8 * tr + 4);
+    const float4 bv = *reinterpret_cast<const float4*>(b + r * kBwdLd + 4 * tc);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  p[0] = __float2bfloat16(a);
+  p[1] = __float2bfloat16(b);
+  p[2] = __float2bfloat16(c);
+  p[3] = __float2bfloat16(d);
+}
+
+// rows 8 tr + i < n_valid of an 8 x 4 accumulator into dst (row stride D,
+// columns 4 tc .. 4 tc + 3)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void store_rows(T* dst, size_t ld, int n_valid,
+                                           int tr, int tc,
+                                           const float acc[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (8 * tr + i < n_valid)
+      store4(dst + (size_t)(8 * tr + i) * ld + 4 * tc, acc[i][0], acc[i][1],
+             acc[i][2], acc[i][3]);
+}
+
+// delta[(b H + h) Tq + q] = sum_d dout[b, q, h, d] out[b, q, h, d]: each
+// lane's two products, then the warp's xor tree.  Grid ceil(B H Tq / 8),
+// 256 threads.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    mha_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                         float* __restrict__ delta, Geometry g, int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int qr = row % g.Tq, bh = row / g.Tq;
+  const int h = bh % g.H, b = bh / g.H;
+  const size_t base = ((size_t)b * g.Tq + qr) * g.D() + h * kHD;
+  float s = to_f32(dout[base + lane]) * to_f32(out[base + lane]) +
+            to_f32(dout[base + lane + 32]) * to_f32(out[base + lane + 32]);
+  s = simulst::warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(2 * kGroup, 2)
     mha_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kmask,
-                        const T* __restrict__ out, const float* __restrict__ lse,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
                         const T* __restrict__ dout, T* __restrict__ dk,
-                        T* __restrict__ dv, Geometry g, Dropout drop) {
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTileFloats;
-  float* qs = vs + kTileFloats;
-  float* dos = qs + kTileFloats;
-  float* ps = dos + kTileFloats;   // dropped probabilities [q][k]
-  float* dss = ps + kTileFloats;   // score gradients [q][k]
+                        T* __restrict__ dv, float* __restrict__ ds_out,
+                        int tk64, Geometry g, Dropout drop) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* ks = bwd_smem;
+  float* vs = ks + kBwdTile;
+  float* qs = vs + kBwdTile;
+  float* dos = qs + kBwdTile;
+  float* ps = dos + kBwdTile;    // dropped probabilities [q][k], rounded to T
+  float* dss = ps + kBwdTile;    // p, then the score gradients [q][k]
   __shared__ int kflags[kTile];
-  __shared__ float delta[kTile], lse_s[kTile];
+  __shared__ unsigned char keep[kTile][kTile];
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int D = g.D();
+  const int group = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
+  const int tr = t / 16, tc = t % 16;
+  const size_t head = (size_t)(b * g.H + h) * g.Tq;   // row 0 of lse / delta
 
-  load_tile(ks, k, b, k0, g.Tk, D, h);
-  load_tile(vs, v, b, k0, g.Tk, D, h);
+  stage_tile<2 * kGroup>(ks, k + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
+                         g.Tk - k0);
+  stage_tile<2 * kGroup>(vs, v + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
+                         g.Tk - k0);
   load_key_flags(kflags, kmask, b, k0, g.Tk);
-  float dk_acc[4][4], dv_acc[4][4];  // keys ty + 16 i, dims tx + 16 j
+  float acc[8][4];   // group 0: dV, group 1: dK; keys 8 tr + i, dims 4 tc + j
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   // causal: q tiles that end before k0 see none of these keys
   const int q_begin = g.causal ? (k0 / kTile) * kTile : 0;
   for (int q0 = q_begin; q0 < g.Tq; q0 += kTile) {
-    __syncthreads();  // the previous q tile's ps / dss / qs / dos are read
-    load_tile(qs, q, b, q0, g.Tq, D, h);
-    load_tile(dos, dout, b, q0, g.Tq, D, h);
-    load_row_terms(delta, lse_s, out, dout, lse, b, h, q0, g);
-    __syncthreads();
-    float pd[4][4], ds[4][4];
-    probs_and_dscores<T>(qs, dos, ks, vs, kflags, delta, lse_s, b, h, q0, k0,
-                         g, drop, pd, ds);
+    __syncthreads();   // the previous q tile's tiles are read
+    stage_tile<2 * kGroup>(qs, q + ((size_t)b * g.Tq + q0) * D + h * kHD, D,
+                           g.Tq - q0);
+    stage_tile<2 * kGroup>(dos, dout + ((size_t)b * g.Tq + q0) * D + h * kHD,
+                           D, g.Tq - q0);
+    simulst::async_commit();
+    // the rows' lse (group 0) or delta (group 1), loaded while the tiles
+    // arrive; 0 past Tq
+    float row_term[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const int qr = q0 + tr + 8 * i;
+      row_term[i] = qr < g.Tq ? (group ? delta : lse)[head + qr] : 0.f;
+    }
+    simulst::async_wait<0>();
+    __syncthreads();
+    // group 0: s and p; group 1: dpd = dO . v (q rows tr + 8 i, keys
+    // tc + 16 j); rows past Tq hold zeros, and their sums are skipped
+    const int q_rows = min(kTile, g.Tq - q0);
+    float st[8][4];
+    row_dots(group ? dos : qs, group ? vs : ks, q_rows, tr, tc, st);
+    // each pair's dropout multiplier is drawn once, group 0 drawing rows
+    // tr + 8 i for i < 4 and group 1 for i >= 4, into keep[q][k]: 0
+    // dropped, 1 kept (1 / keep), 2 a multiplier of 1 (an invisible pair,
+    // or no dropout)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = tr + 8 * (i + 4 * group), qr = q0 + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ps[(ty + 16 * i) * kLd + tx + 16 * j] = pd[i][j];
-        dss[(ty + 16 * i) * kLd + tx + 16 * j] = ds[i][j];
+        const int c = tc + 16 * j;
+        const float m = visible(g, kflags, qr, k0 + c, c)
+                            ? drop.scale(prob_offset(g, b, h, qr, k0 + c), 0)
+                            : 1.f;
+        keep[r][c] = m == 1.f ? 2 : m != 0.f;
       }
-    __syncthreads();
-    // dV[k][d] += sum_q pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float pv[4], sv[4], dov[4], qv[4];
+    }
+    if (group == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ps[r * kLd + ty + 16 * i];
-        sv[i] = dss[r * kLd + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dov[j] = dos[r * kLd + tx + 16 * j];
-        qv[j] = qs[r * kLd + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        const int r = tr + 8 * i, qr = q0 + r;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], dov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i], qv[j], dk_acc[i][j]);
+          const int c = tc + 16 * j;
+          float p = 0.f;
+          if (visible(g, kflags, qr, k0 + c, c))
+            p = expf(st[i][j] * g.scale - row_term[i]);
+          st[i][j] = p;
+          dss[r * kBwdLd + c] = p;
         }
+      }
     }
-  }
+    __syncthreads();
+    // pd = p mult (group 0) and dS = p (dpd mult - delta) scale (group 1),
+    // rounded to T where the JAX kernel casts them
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= g.Tk) continue;
+    for (int i = 0; i < 8; ++i) {
+      const int r = tr + 8 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const size_t off = ((size_t)b * g.Tk + kr) * D + h * kHD + tx + 16 * j;
-      dk[off] = from_f32<T>(dk_acc[i][j]);
-      dv[off] = from_f32<T>(dv_acc[i][j]);
+      for (int j = 0; j < 4; ++j) {
+        const int c = tc + 16 * j;
+        const int code = keep[r][c];
+        const float mult = code == 2 ? 1.f : code ? drop.inv_keep : 0.f;
+        if (group == 0) {
+          ps[r * kBwdLd + c] = round_to<T>(st[i][j] * mult);
+        } else {
+          const float p = dss[r * kBwdLd + c];
+          dss[r * kBwdLd + c] =
+              round_to<T>(p * (st[i][j] * mult - row_term[i]) * g.scale);
+        }
+      }
     }
+    __syncthreads();
+    // dS rows q0 .. into the scratch, for the dQ kernel
+    for (int idx = threadIdx.x; idx < kTile * kTile / 4; idx += 2 * kGroup) {
+      const int r = idx / (kTile / 4), c = idx % (kTile / 4) * 4;
+      if (q0 + r < g.Tq)
+        *reinterpret_cast<float4*>(ds_out + (head + q0 + r) * tk64 + k0 + c) =
+            *reinterpret_cast<const float4*>(dss + r * kBwdLd + c);
+    }
+    // dV[k][d] += sum_q pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
+    // on a causal diagonal tile, rows before this thread's first key see
+    // none of its keys: their P and dS columns are zero
+    rank_update(group ? dss : ps, group ? qs : dos,
+                g.causal && q0 == k0 ? 8 * tr : 0, q_rows, tr, tc, acc);
   }
+  const size_t row0 = ((size_t)b * g.Tk + k0) * D + h * kHD;
+  store_rows(group ? dk + row0 : dv + row0, D, g.Tk - k0, tr, tc, acc);
 }
 
-// ---------------------------------------------------------------------------
-// backward, dQ: grid (ceil(Tq / 64), H, B)
-// ---------------------------------------------------------------------------
+// dQ[q][d] = sum over k ascending of dS[q][k] K[k][d]: grid (ceil(Tq / 64),
+// H, B), kGroup threads; q rows tr + 8 i, dims 4 tc + j
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mha_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ kmask,
-                      const T* __restrict__ out, const float* __restrict__ lse,
-                      const T* __restrict__ dout, T* __restrict__ dq,
-                      Geometry g, Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTileFloats;
-  float* ks = dos + kTileFloats;
-  float* vs = ks + kTileFloats;
-  float* dss = vs + kTileFloats;
-  __shared__ int kflags[kTile];
-  __shared__ float delta[kTile], lse_s[kTile];
+__global__ void __launch_bounds__(kGroup, 3)
+    mha_bwd_dq_kernel(const T* __restrict__ k, const float* __restrict__ ds,
+                      T* __restrict__ dq, int tk64, Geometry g) {
+  extern __shared__ __align__(16) float bwd_smem[];
+  float* const ring = bwd_smem;   // 2 stages of [dS | K]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int D = g.D();
-
-  load_tile(qs, q, b, q0, g.Tq, D, h);
-  load_tile(dos, dout, b, q0, g.Tq, D, h);
-  load_row_terms(delta, lse_s, out, dout, lse, b, h, q0, g);
-  float dq_acc[4][4];  // q rows ty + 16 i, dims tx + 16 j
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq_acc[i][j] = 0.f;
-
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const float* ds_rows = ds + ((size_t)(b * g.H + h) * g.Tq + q0) * tk64;
   const int k_end = g.causal ? min(g.Tk, q0 + kTile) : g.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous k tile and its dS are read
-    load_tile(ks, k, b, k0, g.Tk, D, h);
-    load_tile(vs, v, b, k0, g.Tk, D, h);
-    load_key_flags(kflags, kmask, b, k0, g.Tk);
-    __syncthreads();
-    float pd[4][4], ds[4][4];
-    probs_and_dscores<T>(qs, dos, ks, vs, kflags, delta, lse_s, b, h, q0, k0,
-                         g, drop, pd, ds);
+  const int steps = (k_end + kTile - 1) / kTile;
+  auto load = [&](int step) {
+    float* s = ring + step % 2 * 2 * kBwdTile;
+    const int k0 = step * kTile;
+    stage_tile<kGroup>(s, ds_rows + k0, tk64, g.Tq - q0);
+    stage_tile<kGroup>(s + kBwdTile,
+                       k + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
+                       g.Tk - k0);
+    simulst::async_commit();
+  };
+  float acc[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dss[(ty + 16 * i) * kLd + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float sv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dss[(ty + 16 * i) * kLd + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[c * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dq_acc[i][j] = fmaf(sv[i], kv[j], dq_acc[i][j]);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  load(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      load(step + 1);   // its stage was read in step - 1
+      simulst::async_wait<1>();
+    } else {
+      simulst::async_wait<0>();
     }
+    __syncthreads();
+    const float* dss = ring + step % 2 * 2 * kBwdTile;
+    const float* ks = dss + kBwdTile;
+    // keys past Tk add zeros: stop at the first whole step of 4 past it
+    const int n = min(kTile, (g.Tk - step * kTile + 3) / 4 * 4);
+#pragma unroll 2
+    for (int c = 0; c < n; c += 4) {
+      float4 kv[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        kv[kk] = *reinterpret_cast<const float4*>(ks + (c + kk) * kBwdLd +
+                                                  4 * tc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 sv =
+            *reinterpret_cast<const float4*>(dss + (tr + 8 * i) * kBwdLd + c);
+        const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          acc[i][0] = fmaf(s4[kk], kv[kk].x, acc[i][0]);
+          acc[i][1] = fmaf(s4[kk], kv[kk].y, acc[i][1]);
+          acc[i][2] = fmaf(s4[kk], kv[kk].z, acc[i][2]);
+          acc[i][3] = fmaf(s4[kk], kv[kk].w, acc[i][3]);
+        }
+      }
+    }
+    __syncthreads();   // this stage is free for step + 2's loads
   }
+  // rows tr + 8 i
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= g.Tq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dq[((size_t)b * g.Tq + qr) * D + h * kHD + tx + 16 * j] =
-          from_f32<T>(dq_acc[i][j]);
+  for (int i = 0; i < 8; ++i) {
+    const int qr = q0 + tr + 8 * i;
+    if (qr < g.Tq)
+      store4(dq + ((size_t)b * g.Tq + qr) * D + h * kHD + 4 * tc, acc[i][0],
+             acc[i][1], acc[i][2], acc[i][3]);
   }
 }
 
 constexpr size_t kFwdSmem = 3 * kTileFloats * sizeof(float);
-constexpr size_t kDkdvSmem = 6 * kTileFloats * sizeof(float);
-constexpr size_t kDqSmem = 5 * kTileFloats * sizeof(float);
+constexpr size_t kDkdvSmem = 6 * kBwdTile * sizeof(float);
+constexpr size_t kDqSmem = 4 * kBwdTile * sizeof(float);
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -461,25 +600,30 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* kmask,
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const int* kmask,
                const void* out, const float* lse, const void* dout, void* dq,
-               void* dk, void* dv, int B, int Tq, int Tk, int H, int causal,
-               Dropout drop, cudaStream_t s) {
+               void* dk, void* dv, float* delta, float* ds, int B, int Tq,
+               int Tk, int H, int causal, Dropout drop, cudaStream_t s) {
   const Geometry g = make_geometry(Tq, Tk, H, causal);
+  const int rows = B * H * Tq;
+  const int tk64 = simulst::ceil_div(Tk, kTile) * kTile;
+  mha_bwd_delta_kernel<T><<<simulst::ceil_div(rows, 8), 256, 0, s>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, g, rows);
+  SIMULST_TRY(cudaGetLastError());
   SIMULST_TRY(allow_smem(mha_bwd_dkdv_kernel<T>, kDkdvSmem));
   SIMULST_TRY(allow_smem(mha_bwd_dq_kernel<T>, kDqSmem));
   mha_bwd_dkdv_kernel<T>
-      <<<dim3(simulst::ceil_div(Tk, kTile), H, B), kThreads, kDkdvSmem, s>>>(
+      <<<dim3(simulst::ceil_div(Tk, kTile), H, B), 2 * kGroup, kDkdvSmem, s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), kmask, static_cast<const T*>(out), lse,
+          static_cast<const T*>(v), kmask, lse, delta,
           static_cast<const T*>(dout), static_cast<T*>(dk),
-          static_cast<T*>(dv), g, drop);
+          static_cast<T*>(dv), ds, tk64, g, drop);
   SIMULST_TRY(cudaGetLastError());
   mha_bwd_dq_kernel<T>
-      <<<dim3(simulst::ceil_div(Tq, kTile), H, B), kThreads, kDqSmem, s>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), kmask, static_cast<const T*>(out), lse,
-          static_cast<const T*>(dout), static_cast<T*>(dq), g, drop);
+      <<<dim3(simulst::ceil_div(Tq, kTile), H, B), kGroup, kDqSmem, s>>>(
+          static_cast<const T*>(k), ds, static_cast<T*>(dq), tk64, g);
   return (int)cudaGetLastError();
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -503,21 +647,28 @@ extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
 }
 
 // The backward of simulst_mha_fwd: dq (B, Tq, D), dk and dv (B, Tk, D) from
-// the forward's inputs, its out and lse, and dout (B, Tq, D).
+// the forward's inputs, its out and lse, and dout (B, Tq, D).  Scratch,
+// fp32: delta (B, heads, Tq) and ds (B, heads, Tq, Tk rounded up to 64).
+// q, k, v, dout, dq, dk and dv start on a 16-byte boundary.  Returns a
+// cudaError_t.
 extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* kmask,
                                const void* out, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
-                               int B, int Tq, int Tk, int D, int heads,
-                               int causal, int dropout, unsigned long long seed,
-                               unsigned threshold, float inv_keep,
-                               void* stream) {
-  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0)
+                               void* delta, void* ds, int B, int Tq, int Tk,
+                               int D, int heads, int causal, int dropout,
+                               unsigned long long seed, unsigned threshold,
+                               float inv_keep, void* stream) {
+  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
+      !aligned16(dk) || !aligned16(dv) || !aligned16(ds))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SIMULST_DISPATCH(dtype, return launch_bwd<scalar_t>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<const float*>(lse), dout, dq, dk,
-                              dv, B, Tq, Tk, heads, causal, drop, s));
+                              dv, static_cast<float*>(delta),
+                              static_cast<float*>(ds), B, Tq, Tk, heads,
+                              causal, drop, s));
 }

@@ -60,9 +60,9 @@ SIGNATURES = {
     # dropout, seed, threshold, inv_keep, stream
     "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
-    # dtype, q, k, v, kmask, out, lse, dout, dq, dk, dv, B, Tq, Tk, D, heads,
-    # causal, dropout, seed, threshold, inv_keep, stream
-    "simulst_mha_bwd": [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
+    # dtype, q, k, v, kmask, out, lse, dout, dq, dk, dv, delta, ds, B, Tq,
+    # Tk, D, heads, causal, dropout, seed, threshold, inv_keep, stream
+    "simulst_mha_bwd": [_I] + [_P] * 12 + [_I] * 7 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads, xn, stats, u,
     # du, g, dn, partial, n_rows, dim, hidden, splits, seed, act site, out

@@ -34,7 +34,7 @@ from simulst_tpu_torch.ops.philox import drop_scale
 KERNEL_DIM = 256     # the width csrc/ffn.cu is built for
 HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cu kChunk)
 ROWS_PER_BLOCK = 32  # csrc/ffn.cu kRows
-GEMM_TILE = 64       # output tile of common.cuh gemm; k_splits counts these
+WGRAD_TILE = 64      # k_splits counts weight-gradient tiles of 64 x 64
 # the forward runs on tile_product from this many rows up, below it as the
 # fused row-block kernel: both give the same bits, and on an H100 the two
 # take the same time at 384-512 rows, where the fused kernel still has 16
@@ -186,7 +186,7 @@ def slice_plan(rows: int, hidden: int, sms: int) -> SlicePlan:
     splits = 1
     while tiles * splits < sms and chunks % (2 * splits) == 0:
         splits *= 2
-    out_tiles = -(-KERNEL_DIM // GEMM_TILE) * -(-hidden // GEMM_TILE)
+    out_tiles = -(-KERNEL_DIM // WGRAD_TILE) * -(-hidden // WGRAD_TILE)
     return SlicePlan(rows >= TILED_MIN_ROWS, splits,
                      _row_slices(rows, out_tiles, sms))
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from simulst_tpu_torch.ops import _build
-from simulst_tpu_torch.ops.ffn import GEMM_TILE, k_splits
+from simulst_tpu_torch.ops.ffn import WGRAD_TILE, k_splits
 from simulst_tpu_torch.ops.philox import drop_scale
 
 K_STEP = 32      # csrc/linear_res.cu kBK: D_in must be a multiple
@@ -100,14 +100,16 @@ def _launch_backward(h, w, dy, period, res_rows, rate, seed):
     din, dout = _check("fused_linear_res_backward", h, w, period=period)
     h2 = h.reshape(-1, din).contiguous()
     dy2 = dy.reshape(-1, dout).contiguous()
+    h2, w = _build.aligned(h2), _build.aligned(w)   # the products' operands
     _build.check_cuda("fused_linear_res_backward", h2, w=w, dy=dy2)
     n = h2.shape[0]
     f32 = dict(dtype=torch.float32, device=h.device)
     length = din * dout + dout
-    grads = torch.zeros(length, **f32)
-    dh = torch.zeros_like(h2)
+    alloc = torch.empty if n else torch.zeros   # the kernels write each entry
+    grads = alloc(length, **f32)
+    dh = alloc(h2.shape, dtype=h2.dtype, device=h.device)
     if n:
-        tiles = -(-din // GEMM_TILE) * -(-dout // GEMM_TILE)
+        tiles = -(-din // WGRAD_TILE) * -(-dout // WGRAD_TILE)
         splits = k_splits(n, tiles, h.device)
         du = torch.empty(n, dout, **f32)
         partial = torch.zeros(splits, length, **f32)

@@ -24,6 +24,7 @@ from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
 HEAD_DIM = 64    # csrc/mha.cu kHD
+KEY_TILE = 64    # csrc/mha.cu kTile: the dS scratch's rows are whole tiles
 
 
 def _heads(x, num_heads):
@@ -110,6 +111,14 @@ def _check_lse(lse, qp, num_heads):
                          f"tensor on {qp.device}")
 
 
+def backward_scratch_shapes(b: int, num_heads: int, tq: int, tk: int):
+    """Shapes of the backward kernels' fp32 scratch: delta = dO . O per
+    query row (B, H, Tq), and dS (B, H, Tq, Tk rounded up to KEY_TILE),
+    which the dK / dV kernel writes and the dQ kernel reads."""
+    return ((b, num_heads, tq),
+            (b, num_heads, tq, -(-tk // KEY_TILE) * KEY_TILE))
+
+
 def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
     _check("fused_mha", qp, kp, vp, kmask, num_heads)
     qp, kp, vp, kmask = (t.contiguous() for t in (qp, kp, vp, kmask))
@@ -136,18 +145,26 @@ def _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads, causal,
     _check_lse(lse, qp, num_heads)
     qp, kp, vp, kmask, out, dout = (t.contiguous() for t in
                                     (qp, kp, vp, kmask, out, dout))
+    # the kernels' 16-byte tile loads
+    qp, kp, vp, dout = (_build.aligned(t) for t in (qp, kp, vp, dout))
     _build.check_cuda("fused_mha_backward", qp, kp=kp, vp=vp, out=out,
                       dout=dout)
     b, tq, d = qp.shape
     tk = kp.shape[1]
-    dq, dk, dv = (torch.zeros_like(t) for t in (qp, kp, vp))
+    # the kernels write each entry
+    alloc = torch.empty_like if b and tq and tk else torch.zeros_like
+    dq, dk, dv = (alloc(t) for t in (qp, kp, vp))
     if b and tq and tk:
         on, seed64, thr, inv = _build.dropout_args(rate, seed)
+        delta, ds = (torch.empty(shape, dtype=torch.float32, device=qp.device)
+                     for shape in backward_scratch_shapes(b, num_heads, tq,
+                                                          tk))
         _build.launch("simulst_mha_bwd", _build.dtype_code(qp), qp.data_ptr(),
                       kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk,
-                      d, num_heads, int(causal), on, seed64, thr, inv,
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                      delta.data_ptr(), ds.data_ptr(), b, tq, tk, d,
+                      num_heads, int(causal), on, seed64, thr, inv,
                       _build.stream_of(qp))
         fused_mha_backward.launches += 1
     return dq, dk, dv

@@ -606,6 +606,45 @@ def test_ffn_backward_takes_misaligned_operands(randn):
 
 
 @pytest.mark.cuda
+def test_linear_res_backward_takes_a_misaligned_ragged_view(randn):
+    """301 rows (not a multiple of 4) with the Emformer gate; h and w as
+    views at an odd offset, copied to a 16-byte boundary for the
+    products' loads."""
+    h, dy = _misaligned(randn, 301, 256), randn(301, 256)
+    w = _misaligned(randn, 256, 256, scale=0.06)
+    cfg = (25, 24, 0.1, 3)
+    got = fused_linear_res_backward(h, w, dy, *cfg)
+    want = linear_res_plain_backward(h, w, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w_ in zip(got[1:], want[1:]):
+        _close_to_largest(g, w_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_backward_takes_ragged_causal_shapes(randn, dtype):
+    """Tq 50 != Tk 77 (neither a multiple of the 64-row tiles), causal,
+    ragged key masks and one example whose keys are all masked; fp32 as
+    views at an odd offset (copied to a 16-byte boundary), bf16 at the
+    bf16 tolerance of test_mha_kernels_take_bf16."""
+    q, dout = (_misaligned(randn, 3, 50, 256) for _ in range(2))
+    k, v = (_misaligned(randn, 3, 77, 256) for _ in range(2))
+    if dtype == torch.bfloat16:
+        q, k, v, dout = (t.to(dtype) for t in (q, k, v, dout))
+    kmask = torch.ones(3, 77, dtype=torch.int32, device="cuda")
+    kmask[0, 40:] = 0
+    kmask[1] = 0
+    args = (q, k, v, kmask, 4, True, 0.1, 8)
+    out, lse = fused_mha_forward(*args)
+    got = fused_mha_backward(q, k, v, kmask, out, lse, dout, *args[4:])
+    want = mha_plain_backward(q, k, v, kmask, dout, *args[4:])
+    tol = TOL if dtype == torch.float32 else dict(atol=3e-2, rtol=1e-2)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **tol)
+    assert not got[0][1].any()       # rows that see no key: dq is zero
+
+
+@pytest.mark.cuda
 def test_cif_integrate_refuses_what_it_does_not_take(randn):
     x, alpha = randn(2, 8, 16), torch.sigmoid(randn(2, 8))
     with pytest.raises(ValueError):

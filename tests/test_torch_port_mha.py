@@ -16,8 +16,9 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from simulst_tpu.ops.mha_pallas import fused_mha as j_fused_mha  # noqa: E402
-from simulst_tpu_torch.ops.mha import (fused_mha, fused_mha_backward,  # noqa: E402
-                                       mha_plain)
+from simulst_tpu_torch.ops.mha import (  # noqa: E402
+    KEY_TILE, backward_scratch_shapes, fused_mha, fused_mha_backward,
+    mha_plain)
 
 H, D = 2, 32
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -73,3 +74,19 @@ def test_fused_mha_backward_entry_matches_autograd():
         torch.testing.assert_close(g, x.grad, atol=0, rtol=0)
     torch.testing.assert_close(out, mha_plain(*t, km, H, True, 0.1, 321),
                                atol=0, rtol=0)
+
+
+# (B, heads, Tq, Tk) -> the dS scratch's last axis: Tk rounded up to whole
+# 64-key tiles, which the dK / dV kernel writes in full and the dQ kernel
+# reads as aligned 16-byte rows
+@pytest.mark.parametrize("b,heads,tq,tk,tk64", [
+    (64, 4, 128, 128, 128),   # MT decoder self-attention
+    (32, 4, 72, 256, 256),    # ASR decoder cross-attention
+    (32, 4, 72, 72, 128),     # ASR decoder self-attention
+    (3, 4, 50, 77, 128),
+    (1, 4, 1, 1, 64)])        # a decoder step
+def test_backward_scratch_shapes(b, heads, tq, tk, tk64):
+    delta, ds = backward_scratch_shapes(b, heads, tq, tk)
+    assert delta == (b, heads, tq)
+    assert ds == (b, heads, tq, tk64)
+    assert ds[-1] % KEY_TILE == 0 and ds[-1] - tk < KEY_TILE

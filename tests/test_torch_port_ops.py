@@ -184,6 +184,9 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("rows,tiles,splits", [
     (8192, 128, 3),     # the MT decoder FFN backward (chip_smoke phase 5)
     (8192, 16, 17),     # the MT linear-res backward, 256 x 256 (phase 5)
+    (12800, 16, 17),    # the ASR Emformer out-projection's, 32 x 2 x 200
+    (2304, 16, 9),      # the ASR decoder's linear-res backward, 32 x 72
+    (437, 16, 1),       # the card tests' linear-res backward
     (12288, 128, 3),    # the ASR LN-FFN backward, 32 x 384 rows (phase 7)
     (10752, 128, 3),    # packed: 16 rows of 28 x (8 + 16) (phase 15)
     (7488, 128, 3),     # packed mixed batch: 8 rows of 39 x 24 (phase 15)
@@ -225,7 +228,7 @@ def test_ffn_slice_plan_keeps_the_kernels_slices(monkeypatch, rows, hidden,
     assert plan.splits * (hidden // plan.splits) == hidden
     assert plan.tiled == (rows >= ffn.TILED_MIN_ROWS)
     monkeypatch.setattr(ffn, "_sm_count", lambda index: sms)
-    tiles = (ffn.KERNEL_DIM // ffn.GEMM_TILE) * (hidden // ffn.GEMM_TILE)
+    tiles = (ffn.KERNEL_DIM // ffn.WGRAD_TILE) * (hidden // ffn.WGRAD_TILE)
     assert plan.bwd_splits == ffn.k_splits(rows, tiles, torch.device("cpu"))
 
 

@@ -25,6 +25,24 @@ inputs, and each output is compared with torch.equal:
                          revision whose entry takes cprev gets csum - alpha
                          from torch, one rounding, as its wrapper computed
                          it)
+  simulst_linear_res_bwd dh, dW, db through ops/linear_res.py's wrapper;
+                         fp32 and bf16, dropout 0 and 0.1, every row a
+                         residual row and the Emformer out-projection's
+                         gate (period 200, 192 residual rows), at 1, 24,
+                         300, 2,304, 8192 and 12,800 rows (256 x 256)
+  simulst_mha_bwd        dq, dk, dv, each revision's entry called with its
+                         own C signature (a revision without the delta / dS
+                         scratch takes none), on this checkout's forward;
+                         fp32 and bf16, dropout 0 and 0.1, at the MT shapes
+                         (B 64, Tq = Tk = 128: causal decoder self, encoder
+                         self, cross with ragged key masks), the ASR
+                         decoder's (32, 72, 72) causal and (32, 72, 256),
+                         and (3, 50, 77) causal and not, with one row's keys
+                         all masked
+
+Then a determinism check of this checkout alone: every C entry, through
+its wrapper, runs twice on the same inputs at a train shape, and each
+output of the second call must equal the first's (torch.equal).
 
 With --time it also times both builds in one process, in turns (revision,
 this checkout, this checkout, revision), with CUDA events: the LN-FFN
@@ -32,7 +50,11 @@ forward at 12,288 rows (gelu, rate 0.1) and the FFN forward at 8192 rows
 (relu, rate 0.1), the revision's C entry against this checkout's on the
 path its wrapper takes; the FFN backward at 8192 rows (relu, rate 0.1)
 and the LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the
-wrappers; the CIF C entry at (32, 256, 256, 72).  Then each build's
+wrappers; the CIF C entry at (32, 256, 256, 72); the linear-res backward
+through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
+2,304 rows (rate 0.1); the MHA backward's C entry at the MT shape (64,
+128, 128) causal and the ASR decoder's (32, 72, 72) causal and (32, 72,
+256), rate 0.1.  Then each build's
 device time per call by kernel (torch.profiler), and this checkout's
 forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
 serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS.
@@ -45,11 +67,12 @@ A copy without git (the card machine's) reads the sources that
 `python3 tools/kernel_bitcheck.py --rev REV --export` wrote there
 beforehand, in a git checkout, without building.  Prints the card's name
 and power limit, one JSON line per case and a summary line; exits 1 if
-any output differs.
+any output differs or any C entry is not deterministic.
 """
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import functools
 import json
 import os
@@ -80,6 +103,26 @@ CIF_CASES = (
     ("C 130 (3,40,130,12)", 3, 40, 130, 12, 1.0, "sigmoid"),
     ("csum dips one ulp (2,64,256,24)", 2, 64, 256, 24, 1.0, "dip"),
 )
+
+
+LR_ROWS = (1, 24, 300, 2304, 8192, 12800)
+# (period, residual rows): every row a residual row (the decoder), and the
+# Emformer out-projection's gate at s2t_emformer_s (groups of 8 segments:
+# 8 x (rc 8 + seg 16) residual rows, then 8 summary rows)
+LR_GATES = ((0, 0), (200, 192))
+# (label, B, Tq, Tk, causal, key mask): "full", "ragged" (lengths from Tk /
+# 2 to Tk) or "masked row" (ragged, and example 1 sees no key)
+MHA_CASES = (
+    ("MT decoder self (64,128,128) causal", 64, 128, 128, True, "ragged"),
+    ("MT encoder self (64,128,128)", 64, 128, 128, False, "full"),
+    ("MT cross (64,128,128) ragged", 64, 128, 128, False, "masked row"),
+    ("ASR decoder self (32,72,72) causal", 32, 72, 72, True, "ragged"),
+    ("ASR cross (32,72,256)", 32, 72, 256, False, "ragged"),
+    ("odd (3,50,77) causal", 3, 50, 77, True, "masked row"),
+    ("odd (3,50,77)", 3, 50, 77, False, "masked row"),
+)
+MHA_TIMED = {"mha_bwd_mt_ms": 0, "mha_bwd_asr_self_ms": 3,
+             "mha_bwd_asr_cross_ms": 4}
 
 
 def cif_inputs(torch, b, s, c, how, seed):
@@ -174,6 +217,128 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
     return call
 
 
+def mha_inputs(torch, b, tq, tk, mask, dtype, seed):
+    """q, k, v, dout (D 256, 4 heads) and the int32 key mask on the card,
+    seeded."""
+    g = torch.Generator().manual_seed(seed)
+    q, dout = (torch.randn(b, tq, 256, generator=g) for _ in range(2))
+    k, v = (torch.randn(b, tk, 256, generator=g) for _ in range(2))
+    kmask = torch.ones(b, tk, dtype=torch.int32)
+    if mask != "full":
+        lengths = torch.randint(tk // 2, tk + 1, (b,), generator=g)
+        kmask = (torch.arange(tk)[None, :] < lengths[:, None]).to(torch.int32)
+    if mask == "masked row":
+        kmask[1] = 0
+    return [t.to(dtype).cuda() for t in (q, k, v, dout)] + [kmask.cuda()]
+
+
+def mha_bwd_entry(torch, _build, mha, lib, takes_scratch, q, k, v, kmask,
+                  out, lse, dout, causal, rate):
+    """simulst_mha_bwd of `lib` bound to its arguments and called once,
+    with its build's signature (takes_scratch: the delta and dS scratch);
+    `.outs` is (dq, dk, dv)."""
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    outs = tuple(torch.empty_like(t) for t in (q, k, v))
+    scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                    for shape in mha.backward_scratch_shapes(b, 4, tq, tk)) \
+        if takes_scratch else ()
+    call = functools.partial(
+        lib.simulst_mha_bwd, _build.dtype_code(q),
+        *(t.data_ptr() for t in (q, k, v, kmask, out, lse, dout, *outs,
+                                 *scratch)),
+        b, tq, tk, d, 4, int(causal), *_build.dropout_args(rate, 4321),
+        _build.stream_of(q))
+    call.outs, call.keep = outs, scratch
+    if call():
+        raise RuntimeError("simulst_mha_bwd: CUDA error")
+    return call
+
+
+def determinism_calls(torch):
+    """C entry -> a call of its wrapper at a train shape, on seeded
+    inputs, returning its outputs."""
+    import chip_smoke as cs
+    from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc, ffn,
+                                       linear_res, mha, monotonic_align)
+    from simulst_tpu_torch.ops import emformer_attn as ea
+
+    g = torch.Generator().manual_seed(3)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).cuda()
+
+    d, hid = 256, 2048
+    x, dy = randn(12288, d), randn(12288, d)
+    lnw = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, hid, scale=0.03), randn(hid, scale=0.02),
+           randn(hid, d, scale=0.03), randn(d, scale=0.02))
+    h, res, dyl = randn(12800, d), randn(12800, d), randn(12800, d)
+    wl, bl = randn(d, d, scale=0.06), randn(d, scale=0.02)
+    q, k, v, dout, kmask = mha_inputs(torch, 64, 128, 128, "ragged",
+                                      torch.float32, 5)
+    geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=4)
+    lengths = torch.randint(192, 257, (32,), generator=g).to(torch.int32)
+    attn = (randn(32, geom.ng, geom.nq, d), randn(32, geom.tk, d),
+            randn(32, geom.tk, d), lengths.cuda())
+    attn_dout = randn(32, geom.ng, geom.nq, d)
+    xp, dyc = randn(32, 319, d), randn(32, 256, d)
+    targets = torch.randint(4, 4100, (32, 64), generator=g)
+    tl = torch.randint(38, 65, (32,), generator=g)
+    targets = torch.where(torch.arange(64)[None] < tl[:, None], targets,
+                          torch.ones_like(targets)).cuda()
+    tl = tl.cuda()
+    labels, can_skip = ctc._ctc_masks(targets, 0)
+    logits = randn(32, 256, 4100)
+    em = (ctc._emissions(logits, labels) -
+          torch.logsumexp(logits, -1).T[:, :, None]).contiguous()
+    alphas = ctc.alphas_plain(em, can_skip, lengths.cuda(), tl)
+    nll = ctc._nll_from_alpha(alphas[-1], tl)
+    scale = -torch.ones(32, device="cuda")
+    prefix, denom, ga = cs.alignment_panels("cuda", 128, 72, 32)
+    al = monotonic_align.alignment_fwd_plain(prefix, denom)
+    xc, alpha, _ = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
+    with torch.no_grad():
+        out, lse = mha.fused_mha_forward(q, k, v, kmask, 4, True, 0.1, 9)
+    return {
+        "simulst_ffn (fused path, 300 rows)": lambda: (
+            ffn.fused_ln_ffn_res_forward(x[:300], *lnw, "gelu", 0.1, 0.1,
+                                         29),),
+        "simulst_ffn (tiled path)": lambda: (ffn.fused_ffn_forward(
+            x, *lnw[2:], "relu", 0.1, 0.1, 29),),
+        "simulst_ffn_bwd": lambda: ffn.fused_ffn_backward(
+            x[:8192], *lnw[2:5], dy[:8192], "relu", 0.1, 0.1, 29),
+        "simulst_ln_ffn_bwd": lambda: ffn.fused_ln_ffn_res_backward(
+            x, *lnw[:5], dy, "gelu", 0.1, 0.1, 29),
+        "simulst_linear_res": lambda: (linear_res.fused_linear_res_forward(
+            h, wl, bl, res, 200, 192, 0.1, 7),),
+        "simulst_linear_res_bwd": lambda: linear_res.fused_linear_res_backward(
+            h, wl, dyl, 200, 192, 0.1, 7),
+        "simulst_mha_fwd": lambda: mha.fused_mha_forward(
+            q, k, v, kmask, 4, True, 0.1, 9),
+        "simulst_mha_bwd": lambda: mha.fused_mha_backward(
+            q, k, v, kmask, out, lse, dout, 4, True, 0.1, 9),
+        "simulst_emformer_attn": lambda: (
+            ea.emformer_grouped_attention_forward(*attn, geom, 0.1, 23),),
+        "simulst_emformer_attn_bwd": lambda: (
+            ea.emformer_grouped_attention_backward(*attn, attn_dout, geom,
+                                                   0.1, 23)),
+        "simulst_convpos_wgrad": lambda: (
+            conv_pos.convpos_wgrad(xp, dyc, 64, 16),),
+        "simulst_ctc_alpha": lambda: (ctc.ctc_alphas(
+            em, can_skip, lengths.cuda(), tl),),
+        "simulst_ctc_d_em": lambda: (ctc.ctc_d_em(
+            em, alphas, can_skip, lengths.cuda(), tl, scale, nll),),
+        "simulst_alignment_fwd": lambda: (
+            monotonic_align.alignment_fwd(prefix, denom),),
+        "simulst_alignment_bwd": lambda: monotonic_align.alignment_bwd(
+            prefix, denom, al, ga),
+        "simulst_cif_integrate": lambda: cif_integrate.cif_integrate_forward(
+            xc, alpha, 1.0, 72),
+    }
+
+
 def device_ms(torch, fn, calls):
     """Device time per call of fn() by kernel, from torch.profiler."""
     fn()
@@ -215,7 +380,7 @@ def main():
 
     import torch
     import chip_smoke as cs
-    from simulst_tpu_torch.ops import ffn
+    from simulst_tpu_torch.ops import ffn, linear_res, mha
 
     if not torch.cuda.is_available():
         print("kernel_bitcheck: needs an NVIDIA GPU", file=sys.stderr)
@@ -231,11 +396,17 @@ def main():
         (ref_csrc / "cif.cu").read_text()
     ref_takes_scratch = "void* xn, void* h" in \
         (ref_csrc / "ffn.cu").read_text()
+    _P, _I = _build._P, _build._I
     if not ref_takes_scratch:    # simulst_ffn before the tiled path
-        _P, _I = _build._P, _build._I
         libs["rev"].simulst_ffn.argtypes = (
             [_I] * 3 + [_P] * 9 + [_I] * 4 + _build._DROP
             + _build._DROP[1:] + [_P])
+    ref_mha_scratch = "void* delta, void* ds" in \
+        (ref_csrc / "mha.cu").read_text()
+    if not ref_mha_scratch:      # simulst_mha_bwd before the dS scratch
+        libs["rev"].simulst_mha_bwd.argtypes = (
+            [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
+            + _build._DROP[2:] + [_P])
     summary = {}
 
     def report(entry, case, equal):
@@ -324,6 +495,63 @@ def main():
                {n: torch.equal(a, b_) for n, a, b_ in
                 zip(("out", "delays"), outs["rev"], outs["this"])})
 
+    names = ("dh", "dw", "db")
+    for dtype in dtypes:
+        for rate in (0.0, 0.1):
+            for period, res_rows in LR_GATES:
+                for rows in LR_ROWS:
+                    g = torch.Generator().manual_seed(rows + period)
+                    h, dy = (torch.randn(rows, 256, generator=g).to(
+                        dtype).cuda() for _ in range(2))
+                    w = (torch.randn(256, 256, generator=g) * 0.06).to(
+                        dtype).cuda()
+                    outs = {}
+                    for key, lib in libs.items():
+                        with library_of(_build, lib):
+                            outs[key] = linear_res.fused_linear_res_backward(
+                                h, w, dy, period, res_rows, rate, 7)
+                    torch.cuda.synchronize()
+                    report("simulst_linear_res_bwd",
+                           f"{str(dtype)[6:]} rate {rate} period {period} "
+                           f"rows {rows}",
+                           {n: torch.equal(a, b) for n, a, b in
+                            zip(names, outs["rev"], outs["this"])})
+
+    def mha_bwd(key, q, k, v, kmask, out, lse, dout, causal, rate):
+        takes = ref_mha_scratch if key == "rev" else True
+        return mha_bwd_entry(torch, _build, mha, libs[key], takes, q, k, v,
+                             kmask, out, lse, dout, causal, rate)
+
+    def mha_case(i, dtype, rate):
+        """Inputs and this checkout's forward of MHA_CASES[i]."""
+        label, b, tq, tk, causal, mask = MHA_CASES[i]
+        q, k, v, dout, kmask = mha_inputs(torch, b, tq, tk, mask, dtype, i)
+        with library_of(_build, libs["this"]):
+            out, lse = mha.fused_mha_forward(q, k, v, kmask, 4, causal, rate,
+                                             4321)
+        return q, k, v, kmask, out, lse, dout, causal, rate
+
+    for dtype in dtypes:
+        for rate in (0.0, 0.1):
+            for i, case in enumerate(MHA_CASES):
+                inputs = mha_case(i, dtype, rate)
+                outs = {key: mha_bwd(key, *inputs).outs for key in libs}
+                torch.cuda.synchronize()
+                report("simulst_mha_bwd",
+                       f"{str(dtype)[6:]} rate {rate} {case[0]}",
+                       {n: torch.equal(a, b) for n, a, b in
+                        zip(("dq", "dk", "dv"), outs["rev"], outs["this"])})
+
+    # determinism: this checkout's entries, twice on the same inputs
+    with library_of(_build, libs["this"]):
+        for entry, call in determinism_calls(torch).items():
+            first = [t.clone() for t in call()]
+            second = call()
+            torch.cuda.synchronize()
+            report("determinism", entry,
+                   {f"output {j}": torch.equal(a, b)
+                    for j, (a, b) in enumerate(zip(first, second))})
+
     if args.time:
         times = {}
         x, ws, dy = ln_ffn_inputs(torch, 12288, torch.float32, 12288)
@@ -331,6 +559,12 @@ def main():
         xc, alpha, csum = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
         out = torch.empty(32, 72, 256, device="cuda")
         delays = torch.empty(32, 72, device="cuda")
+        gl = torch.Generator().manual_seed(11)
+        lr = {rows: [torch.randn(rows, 256, generator=gl).cuda()
+                     for _ in range(2)] for rows in (2304, 8192, 12800)}
+        wl = (torch.randn(256, 256, generator=gl) * 0.06).cuda()
+        mha_timed = {name: mha_case(i, torch.float32, 0.1)
+                     for name, i in MHA_TIMED.items()}
 
         def entries(key):
             """The calls timed for one build: name -> fn()."""
@@ -349,7 +583,18 @@ def main():
                 "ln_ffn_bwd_ms": wrapped(ffn.fused_ln_ffn_res_backward, x,
                                          *ws[:5], dy, "gelu", 0.1, 0.1, 29),
                 "cif_c_entry_ms": cif_entry(lib, xc, alpha, csum, 72, 1.0,
-                                            out, delays)}
+                                            out, delays),
+                "linear_res_bwd_8192_ms": wrapped(
+                    linear_res.fused_linear_res_backward, lr[8192][0], wl,
+                    lr[8192][1], 0, 0, 0.1, 7),
+                "linear_res_bwd_12800_gate_ms": wrapped(
+                    linear_res.fused_linear_res_backward, lr[12800][0], wl,
+                    lr[12800][1], 200, 192, 0.1, 7),
+                "linear_res_bwd_2304_ms": wrapped(
+                    linear_res.fused_linear_res_backward, lr[2304][0], wl,
+                    lr[2304][1], 0, 0, 0.1, 7),
+                **{name: mha_bwd(key, *inputs)
+                   for name, inputs in mha_timed.items()}}
 
         for key in ("rev", "this", "this", "rev"):
             times.setdefault(key, []).append(
