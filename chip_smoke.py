@@ -28,7 +28,11 @@ targets):
               print the build time and the card's name and power limit
   2. kernels  each serving kernel vs its plain PyTorch version on the card,
               at the serving shapes (encoder and decoder step), in fp32 and
-              bf16, with CUDA-event times
+              bf16, with CUDA-event times; the decoder step's fused_mha
+              and fused_linear_res and the offline encoder's gated
+              fused_linear_res also with their bound, the path their plan
+              picks, and SDPA's forward / the product through
+              torch.matmul beside them
   3. offline  decode_batch on 8 utterances of 1024 fbank frames, beam 5,
               max_len 64; every serving kernel must have launched;
               encoder_out with kernels vs the same encoder through the
@@ -45,7 +49,10 @@ targets):
               backward beside their products through torch.matmul (fp32,
               TF32 off); the linear-res and MHA backwards also at the ASR
               step's shapes (12,800 gated and 2,304 rows; (32, 72, 72)
-              causal and (32, 72, 256)); one bf16 case of each
+              causal and (32, 72, 256)); one bf16 case of each; the
+              MHA forward also at the encoder's self-attention, each MHA
+              forward beside SDPA's and the linear-res forward beside its
+              product through torch.matmul, with their bounds
   6. train    8 Adam steps of mt_transformer through cli/train's loss and
               train/state's train step (lr 5e-4, warmup 4000, clip 10, as
               exp/0_mt.sh) on 64 sentence pairs of 96-128 tokens; losses
@@ -65,7 +72,10 @@ targets):
               (SDPA on the gathered context, conv1d_weight, F.ctc_loss), the
               LN-FFN forward and backward beside their two and five
               products through torch.matmul (fp32, TF32 off), and the
-              backward's share of the fp32 peak
+              backward's share of the fp32 peak; the linear-res and MHA
+              forwards at the step's shapes (12,800 gated and 2,304 rows;
+              (32, 72, 72) causal and (32, 72, 256), rate 0.1) vs plain,
+              beside their product through torch.matmul / SDPA's forward
   8. asr-train  8 Adam steps of s2t_emformer_s with joint CTC through
               cli/train's model and loss and train/state's step (lr 1e-3,
               warmup 10000, clip 10, as exp/1a_pretrain_asr.sh) on 32
@@ -348,10 +358,11 @@ KERNEL_FAMILIES = (
     ("TagFfnFwd", "FFN forwards' output products"),
     ("TagLnFfnBwd", "fused_ln_ffn_res_backward products"),
     ("F32Store", "fused_ln_ffn_res_backward products"),
+    ("TagLinearResFwd", "fused_linear_res"),
     ("TagLinearResBwd", "linear_res backward products, the backwards' sums"),
     ("TagFfnBwd", "fused_ffn_backward products"),
     ("CastStore<", "fused_ffn_backward products"),
-    ("mha_fwd_kernel", "fused_mha"),
+    ("mha_fwd_kernel", "fused_mha"), ("mha_decode_kernel", "fused_mha"),
     *((k, "fused_mha_backward") for k in (
         "mha_bwd_delta_kernel", "mha_bwd_dkdv_kernel", "mha_bwd_dq_kernel")),
     ("grouped_attn_kernel", "emformer_grouped_attention"),
@@ -366,7 +377,7 @@ KERNEL_FAMILIES = (
     ("ffn_partial_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
-    ("linear_res_kernel", "fused_linear_res"),
+    ("linear_res_rows_kernel", "fused_linear_res"),
     *((k, "linear_res backward products, the backwards' sums")
       for k in ("colsum_partial_kernel", "sum_splits_kernel",
                 "drop_grad_kernel")),
@@ -492,6 +503,55 @@ def linear_res_yardstick(h, w, dy=None):
     return cuda_ms(forward if dy is None else backward, samples=5, runs=5)
 
 
+def sdpa_mask(q, k, kmask, causal):
+    """fused_mha's key mask and causal rule as SDPA's boolean mask."""
+    import torch
+    tq, tk = q.shape[1], k.shape[1]
+    mask = (kmask != 0)[:, None, None, :]
+    if causal:
+        mask = mask & (torch.arange(tk, device=q.device)[None, :] <=
+                       torch.arange(tq, device=q.device)[:, None])[None, None]
+    return mask
+
+
+def mha_forward_case(q, k, v, kmask, heads, causal, rate):
+    """fused_mha_forward's time on these inputs beside SDPA's forward on the
+    same heads and mask, and its bound (visible pairs)."""
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import mha
+    b, tq, d = q.shape
+    out, lse = mha.fused_mha_forward(q, k, v, kmask, heads, causal, rate,
+                                     4321)
+    heads_view = [x.view(b, x.shape[1], heads, d // heads).transpose(1, 2)
+                  for x in (q, k, v)]
+    mask = sdpa_mask(q, k, kmask, causal)
+    return dict(
+        path=mha.fwd_plan(tq),
+        ms=cuda_ms(lambda: mha.fused_mha_forward(q, k, v, kmask, heads,
+                                                 causal, rate, 4321)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            *heads_view, attn_mask=mask, dropout_p=rate)),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes(q, k, v, kmask, out, lse),
+            4 * d * mha_visible_pairs(kmask, tq, causal)))))
+
+
+def linear_res_forward_case(h, w, bias, res, period, res_rows, rate):
+    """fused_linear_res_forward's time on these inputs beside its product
+    through torch.matmul, and its bound."""
+    from simulst_tpu_torch.ops import linear_res
+    n = h.reshape(-1, h.shape[-1]).shape[0]
+    cfg = (period, res_rows, rate, 7)
+    y = linear_res.fused_linear_res_forward(h, w, bias, res, *cfg)
+    return dict(
+        path=linear_res.fwd_plan(n),
+        ms=cuda_ms(lambda: linear_res.fused_linear_res_forward(
+            h, w, bias, res, *cfg)),
+        products_matmul_ms=linear_res_yardstick(h.reshape(n, -1), w),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes(h, w, bias, res, y), 2 * n * w.shape[0] * w.shape[1]))))
+
+
 def sdpa_backward_ms(q, k, v, kmask, dout, heads, causal, rate):
     """ms of SDPA's backward (autograd.grad through
     F.scaled_dot_product_attention) on fused_mha's inputs, the key mask and
@@ -499,11 +559,7 @@ def sdpa_backward_ms(q, k, v, kmask, dout, heads, causal, rate):
     import torch
     import torch.nn.functional as F
     b, tq, d = q.shape
-    tk = k.shape[1]
-    mask = (kmask != 0)[:, None, None, :]
-    if causal:
-        mask = mask & (torch.arange(tk, device=q.device)[None, :] <=
-                       torch.arange(tq, device=q.device)[:, None])[None, None]
+    mask = sdpa_mask(q, k, kmask, causal)
     sd = [x.view(b, x.shape[1], heads, d // heads).transpose(1, 2).detach()
           .clone().requires_grad_() for x in (q, k, v)]
     with torch.enable_grad():
@@ -712,11 +768,26 @@ def phase_kernels(dev):
                         report[name]["library_ms"] = cuda_ms(
                             lambda: torch.nn.functional.
                             scaled_dot_product_attention(*sd, attn_mask=mask))
+                    elif name == "fused_mha (decoder step)":
+                        case = mha_forward_case(*args, enc_valid, 4, False,
+                                                0.0)
+                        b_ms, by = case["bound_ms"], case["bound_by"]
+                        report[name].update(path=case["path"],
+                                            library_ms=case["library_ms"])
+                    elif name.startswith("fused_linear_res"):
+                        gate = (200, 192) if "period" in label else (0, 0)
+                        case = linear_res_forward_case(*args, *gate, 0.0)
+                        b_ms, by = case["bound_ms"], case["bound_by"]
+                        report[name].update(
+                            path=case["path"],
+                            products_matmul_ms=case["products_matmul_ms"])
                     else:
                         continue
                     report[name].update(bound_ms=b_ms, bound_by=by)
                 if i == 0 and dtype == torch.bfloat16 and name in report:
                     report[name]["bf16_max_abs_err"] = err
+    for name, entry in report.items():
+        log("phase2", kernel=name, **entry)
     return report
 
 
@@ -793,6 +864,10 @@ def phase_train_kernels(dev, batch):
                 fwd_max_abs_err=e_fwd, bwd_max_abs_err=e_bwd)
             record("fused_mha", max_abs_err=e_fwd)
             record("fused_mha_backward", max_abs_err=e_bwd)
+            if rate > 0.0:
+                log("phase5", kernel="fused_mha", case=case, rate=rate,
+                    shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d})",
+                    **mha_forward_case(q, k, v, kmask, heads, causal, rate))
             if case != "self causal" or rate == 0.0:
                 continue
             vis = mha_visible_pairs(kmask, t, causal)
@@ -822,6 +897,19 @@ def phase_train_kernels(dev, batch):
                    **dict(zip(("bound_ms", "bound_by"), bound(
                        nbytes(q, k, v, kmask, out, lse, dout, *got),
                        10 * d * vis))))
+
+    # the encoder's self-attention (source mask, not causal): its forward,
+    # on inputs of their own generator (the draws above and below stay
+    # those of earlier revisions)
+    ge = torch.Generator().manual_seed(SEED + 12)
+    q, k, v = (torch.randn(b, t, d, generator=ge).to(dev) for _ in range(3))
+    cfg = (heads, False, 0.1, 4321)
+    err = max_err("fused_mha encoder self rate 0.1", mha.fused_mha_forward(
+        q, k, v, src_mask, *cfg)[0], mha.mha_plain(q, k, v, src_mask, *cfg),
+        **F32_TOL)
+    log("phase5", kernel="fused_mha", case="encoder self", rate=0.1,
+        fwd_max_abs_err=err, shape=f"(B,Tq,Tk,D)=({b},{t},{t},{d})",
+        **mha_forward_case(q, k, v, src_mask, heads, False, 0.1))
 
     # fused_mha_backward at the ASR step's decoder shapes (targets padded
     # to 72; 256 encoder frames), ragged masks; rate 0.1
@@ -916,6 +1004,8 @@ def phase_train_kernels(dev, batch):
         record("fused_linear_res", max_abs_err=e_fwd)
         record("fused_linear_res_backward", max_abs_err=e_bwd)
     flops = 2 * n * d * d
+    log("phase5", kernel="fused_linear_res", shape=f"h=({n},{d}) rate 0.1",
+        **linear_res_forward_case(h, w, bias, res, 0, 0, 0.1))
     record("fused_linear_res", max_abs_err=0.0, shape=f"h=({n},{d}) rate 0.1",
            ms=cuda_ms(lambda: linear_res.fused_linear_res_forward(
                h, w, bias, res, *cfg)),
@@ -1450,6 +1540,49 @@ def phase_asr_kernels(dev, batch):
                                                  0.1, 23))])
     for name, err in errs.items():
         report[name]["bf16_max_abs_err"] = err
+
+    # the linear-res and MHA forwards at the step's shapes (rate 0.1), on
+    # inputs of their own generator: the Emformer out-projection (32 x 2
+    # groups of 200 rows, 192 residual rows each) and the decoder's
+    # epilogues (32 x 72 rows); the decoder's causal self-attention (its
+    # target mask) and cross-attention (the encoder's frames)
+    from simulst_tpu_torch.ops import linear_res, mha
+    ge = torch.Generator().manual_seed(SEED + 13)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=ge) * scale).to(dev)
+
+    w, bias = rand(d, d, scale=d ** -0.5), rand(d, scale=0.02)
+    for case, rows, period, res_rows in (
+            ("encoder h=(12800,256) period 200 gate 192", 12800, 200, 192),
+            ("decoder h=(2304,256)", 2304, 0, 0)):
+        h, res = rand(rows, d), rand(rows, d)
+        cfg = (period, res_rows, 0.1, 7)
+        err = max_err(f"fused_linear_res {case}",
+                      linear_res.fused_linear_res_forward(h, w, bias, res,
+                                                          *cfg),
+                      linear_res.linear_res_plain(h, w, bias, res, *cfg),
+                      **F32_TOL)
+        log("phase7", kernel="fused_linear_res", case=case, rate=0.1,
+            max_abs_err=err,
+            **linear_res_forward_case(h, w, bias, res, period, res_rows,
+                                      0.1))
+    t_len = batch["prev_tokens"].shape[1]
+    tgt_mask = (batch["prev_tokens"] != 1).to(torch.int32)
+    enc_mask = (torch.arange(256, device=dev)[None, :] <
+                lengths[:, None]).to(torch.int32)
+    for case, kmask, causal in (
+            (f"decoder self ({b},{t_len},{t_len}) causal", tgt_mask, True),
+            (f"cross ({b},{t_len},256)", enc_mask, False)):
+        q = rand(b, t_len, d)
+        k, v = rand(b, kmask.shape[1], d), rand(b, kmask.shape[1], d)
+        cfg = (heads, causal, 0.1, 4321)
+        err = max_err(f"fused_mha {case}",
+                      mha.fused_mha_forward(q, k, v, kmask, *cfg)[0],
+                      mha.mha_plain(q, k, v, kmask, *cfg), **F32_TOL)
+        log("phase7", kernel="fused_mha", case=case, rate=0.1,
+            max_abs_err=err,
+            **mha_forward_case(q, k, v, kmask, heads, causal, 0.1))
     for name, entry in report.items():
         log("phase7", kernel=name, **entry)
     return report

@@ -246,6 +246,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
                      __uint_as_float(u.y & 0xffff0000u));
 }
 
+// four values of T at src into fp32 dst (16-byte aligned): fp32 by a
+// 16-byte cp.async (the caller commits and waits), bf16 through registers,
+// widened exactly; zeros when !ok (src is then not read, but must be a
+// mapped address)
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool ok) {
+  if constexpr (sizeof(T) == sizeof(float)) {
+    async_copy16(dst, src, ok);
+  } else {
+    *reinterpret_cast<float4*>(dst) =
+        ok ? load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // One operand's part of a kRows x kTileBK tile, in chunks of 4 values per
 // thread: element (i, k) (i its output row or column) lies at p[i ld + k]
 // when kKFast, else at p[k ld + i], and goes to s[k (kRows + kTilePad) + i];

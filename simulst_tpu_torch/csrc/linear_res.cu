@@ -13,12 +13,25 @@
 // What bounds it on the H100: at the MT decoder shape (8192 x 256 x 256,
 // 1.07 GFLOP forward, 2.1 GFLOP backward) it is a small fp32 matrix product
 // on the CUDA cores plus one read of h and res and one write of y (about
-// 25 MB in fp32).  The forward tiles the output 64 x 64 per block (4 x 4
-// per thread, K in steps of 32 through shared memory) and folds bias,
-// dropout, residual gate and the cast into the store, so the projection
-// never makes a separate round trip through device memory before the
-// residual add.  Dropout draws Philox bits keyed by (seed, row * D_out +
-// column).  The backward materialises du = drop(dy) on residual rows once
+// 25 MB in fp32).  The forward has three paths, which give the same bits
+// (each output is one fmaf chain from 0 over k ascending, then the same
+// epilogue expression) and which ops/linear_res.py:fwd_plan picks by row
+// count:
+//  - from TILED_MIN_ROWS rows, common.cuh's tile_product (one K slice;
+//    128 x 64 output tiles, 128 x 128 from WIDE_MIN_ROWS, where the
+//    narrower tiles would leave a second wave almost empty) with a store
+//    functor that folds bias, dropout, residual gate and the cast into the
+//    store, so the projection never makes a separate round trip through
+//    device memory before the residual add.  ptxas: 153 and 127 registers
+//    (bf16 157 and 127), no spills;
+//  - below it (the decoder step's 40 rows, the streaming step's 1), a
+//    row kernel that spreads the output columns over many blocks: one
+//    output per thread, 8 rows x 32 columns per block, h and W staged 64 k
+//    at a time through a two-stage cp.async ring (h rows broadcast from
+//    shared memory), so that 40 rows take 40 blocks instead of 4.  ptxas:
+//    48 registers (bf16 40), no spills.
+// Dropout draws Philox bits keyed by (seed, row * D_out + column).  The
+// backward materialises du = drop(dy) on residual rows once
 // (fp32), then runs dh = du W^T (128 x 64 tiles: N = D_in = 256 spreads
 // over the SMs) and dW = h^T du (K = rows, split across blocks into fp32
 // partials) as common.cuh tile_products, and db as column sums of du; one
@@ -32,91 +45,150 @@ namespace {
 
 using simulst::Dropout;
 using simulst::from_f32;
+using simulst::stage4;
 using simulst::to_f32;
 
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kBK = 32;   // D_in must be a multiple
+constexpr int kBN = 64;   // D_out must be a multiple
 
+// the forward's paths (ops/linear_res.py FWD_PATHS)
+constexpr int kPathRows = 0;
+constexpr int kPathTiled = 1;   // tile_product<64>: 128 x 64 output tiles
+constexpr int kPathWide = 2;    // tile_product<128>: 128 x 128
+
+// y of one output from its product acc: bias, then on residual rows
+// (row % period < res_rows, every row when period == 0) dropout and the
+// residual; rounded to T
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    linear_res_kernel(const T* __restrict__ h, const T* __restrict__ w,
-                      const T* __restrict__ b, const T* __restrict__ res,
-                      T* __restrict__ y, int n_rows, int din, int dout,
-                      int period, int res_rows, Dropout drop) {
-  __shared__ float as[kBK][kBM + 4];  // h tile, transposed: as[k][m]
-  __shared__ float bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.x * kBM;
-  const int col0 = blockIdx.y * kBN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < din; k0 += kBK) {
-    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-      const int m = idx / kBK, k = idx % kBK;
-      const int row = row0 + m;
-      as[k][m] = row < n_rows ? to_f32(h[(size_t)row * din + k0 + k]) : 0.f;
-    }
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int k = idx / kBN, c = idx % kBN;
-      bs[k][c] = to_f32(w[(size_t)(k0 + k) * dout + col0 + c]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kBK; ++k) {
-      float a[4], bb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = as[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty + 16 * i;
-    if (row >= n_rows) continue;
-    const bool is_res = period == 0 || (row % period) < res_rows;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      const size_t off = (size_t)row * dout + col;
-      float u = acc[i][j] + to_f32(b[col]);
-      if (is_res) u = u * drop.scale(off, 0) + to_f32(res[off]);
-      y[off] = from_f32<T>(u);
-    }
-  }
+__device__ __forceinline__ T linear_res_out(float acc, int row, int col,
+                                            const T* __restrict__ b,
+                                            const T* __restrict__ res,
+                                            int dout, int period,
+                                            int res_rows, const Dropout& drop) {
+  const bool is_res = period == 0 || (row % period) < res_rows;
+  const size_t off = (size_t)row * dout + col;
+  float u = acc + to_f32(b[col]);
+  if (is_res) u = u * drop.scale(off, 0) + to_f32(res[off]);
+  return from_f32<T>(u);
 }
 
-template <typename T>
-int launch_linear_res(const void* h, const void* w, const void* b,
-                      const void* res, void* y, int n_rows, int din, int dout,
-                      int period, int res_rows, Dropout drop,
-                      cudaStream_t stream) {
-  const dim3 grid(simulst::ceil_div(n_rows, kBM), dout / kBN);
-  linear_res_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(h), static_cast<const T*>(w),
-      static_cast<const T*>(b), static_cast<const T*>(res), static_cast<T*>(y),
-      n_rows, din, dout, period, res_rows, drop);
-  return (int)cudaGetLastError();
-}
-
-// the caller tag of the backward's store functors, so that a profile tells
-// its tile_products from the FFN backwards'
+// the callers' tags of the store functors, so that a profile tells the
+// forward's tile_product from the backward's and the FFN's
+struct TagLinearResFwd {};
 struct TagLinearResBwd {};
+
+template <typename T, class Caller>
+struct ResidualStore {
+  const T* b;
+  const T* res;
+  T* y;
+  int dout, period, res_rows;
+  Dropout drop;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    y[(size_t)m * dout + n] =
+        linear_res_out(v, m, n, b, res, dout, period, res_rows, drop);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// the row kernel: grid (D_out / 32, ceil(rows / 8)), 256 threads
+// ---------------------------------------------------------------------------
+// Thread (r, c) = (tid / 32, tid % 32) computes output (row0 + r, col0 + c)
+// as one chain over k; a warp shares its row, so its h reads are
+// broadcasts and its W reads 32 neighbouring floats.
+constexpr int kRowRows = 8;
+constexpr int kRowCols = 32;
+constexpr int kRowK = 64;                          // k per ring stage
+constexpr int kRowThreads = kRowRows * kRowCols;   // one output each
+constexpr int kRowHLd = kRowK + 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    linear_res_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
+                           const T* __restrict__ b, const T* __restrict__ res,
+                           T* __restrict__ y, int n_rows, int din, int dout,
+                           int period, int res_rows, Dropout drop) {
+  __shared__ __align__(16) float ws[2][kRowK][kRowCols];
+  __shared__ __align__(16) float hs[2][kRowRows][kRowHLd];
+  const int c = threadIdx.x % kRowCols, r = threadIdx.x / kRowCols;
+  const int col0 = blockIdx.x * kRowCols, row0 = blockIdx.y * kRowRows;
+  const int rows = min(kRowRows, n_rows - row0);
+  const int steps = (din + kRowK - 1) / kRowK;
+  auto load = [&](int step) {
+    const int k0 = step * kRowK, k_len = min(kRowK, din - k0);
+    for (int idx = threadIdx.x; idx < kRowK * kRowCols / 4;
+         idx += kRowThreads) {
+      const int k = idx / (kRowCols / 4), cc = idx % (kRowCols / 4) * 4;
+      const bool ok = k < k_len;
+      stage4(&ws[step % 2][k][cc],
+             w + (ok ? (size_t)(k0 + k) * dout + col0 + cc : 0), ok);
+    }
+    for (int idx = threadIdx.x; idx < kRowRows * kRowK / 4;
+         idx += kRowThreads) {
+      const int rr = idx / (kRowK / 4), kk = idx % (kRowK / 4) * 4;
+      const bool ok = rr < rows && kk < k_len;
+      stage4(&hs[step % 2][rr][kk],
+             h + (ok ? (size_t)(row0 + rr) * din + k0 + kk : 0), ok);
+    }
+  };
+
+  float acc = 0.f;
+  load(0);
+  simulst::async_commit();
+  for (int step = 0; step < steps; ++step) {
+    simulst::async_wait<0>();
+    __syncthreads();   // step's stage is in; step - 1's is free
+    if (step + 1 < steps) load(step + 1);
+    simulst::async_commit();
+    const int k_len = min(kRowK, din - step * kRowK);
+    const float* hr = hs[step % 2][r];
+    const float(*wk)[kRowCols] = ws[step % 2];
+    if (r < rows) {   // warp-uniform
+#pragma unroll 4
+      for (int k = 0; k < k_len; k += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(hr + k);
+        acc = fmaf(hv.x, wk[k][c], acc);
+        acc = fmaf(hv.y, wk[k + 1][c], acc);
+        acc = fmaf(hv.z, wk[k + 2][c], acc);
+        acc = fmaf(hv.w, wk[k + 3][c], acc);
+      }
+    }
+  }
+  if (r < rows)
+    y[(size_t)(row0 + r) * dout + col0 + c] = linear_res_out(
+        acc, row0 + r, col0 + c, b, res, dout, period, res_rows, drop);
+}
+
+template <typename T>
+int launch_linear_res(const void* h_, const void* w_, const void* b_,
+                      const void* res_, void* y_, int n_rows, int din,
+                      int dout, int period, int res_rows, int path,
+                      Dropout drop, cudaStream_t stream) {
+  using simulst::RowMajor;
+  const T* h = static_cast<const T*>(h_);
+  const T* w = static_cast<const T*>(w_);
+  const T* b = static_cast<const T*>(b_);
+  const T* res = static_cast<const T*>(res_);
+  T* y = static_cast<T*>(y_);
+  if (path == kPathRows) {
+    const dim3 grid(dout / kRowCols, simulst::ceil_div(n_rows, kRowRows));
+    linear_res_rows_kernel<T><<<grid, kRowThreads, 0, stream>>>(
+        h, w, b, res, y, n_rows, din, dout, period, res_rows, drop);
+    return (int)cudaGetLastError();
+  }
+  const ResidualStore<T, TagLinearResFwd> store{b, res, y, dout, period,
+                                                res_rows, drop};
+  const RowMajor<T> a{h, din}, bw{w, dout};
+  switch (path) {
+    case kPathTiled:
+      return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
+                                            store, stream);
+    case kPathWide:
+      return (int)simulst::tile_product<128>(n_rows, dout, din, 1, a, bw,
+                                             store, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 template <typename T, class Caller>
 struct CastStore {
@@ -154,21 +226,26 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
 }  // namespace
 
 // h: (n_rows, din); w: (din, dout); b: (dout,); res, y: (n_rows, dout), all
-// of `dtype`.  din % 32 == 0 and dout % 64 == 0; dropout on residual rows
-// when dropout != 0.  Returns a cudaError_t.
+// of `dtype`; h and w start on a 16-byte boundary.  din % 32 == 0 and
+// dout % 64 == 0; dropout on residual rows when dropout != 0.  path: the
+// row kernel (0), the tiled product with 128 x 64 tiles (1) or 128 x 128
+// (2), as ops/linear_res.py:fwd_plan picks; all give the same bits.
+// Returns a cudaError_t.
 extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
                                   const void* b, const void* res, void* y,
                                   int n_rows, int din, int dout, int period,
-                                  int res_rows, int dropout,
+                                  int res_rows, int path, int dropout,
                                   unsigned long long seed, unsigned threshold,
                                   float inv_keep, void* stream) {
-  if (n_rows <= 0 || din % kBK != 0 || dout % kBN != 0 || period < 0)
+  if (n_rows <= 0 || din % kBK != 0 || dout % kBN != 0 || period < 0 ||
+      reinterpret_cast<size_t>(h) % 16 != 0 ||
+      reinterpret_cast<size_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, inv_keep, dropout};
   SIMULST_DISPATCH(dtype, return launch_linear_res<scalar_t>(
                               h, w, b, res, y, n_rows, din, dout, period,
-                              res_rows, drop, s));
+                              res_rows, path, drop, s));
 }
 
 // The backward of simulst_linear_res: dh (n_rows, din) of `dtype` and

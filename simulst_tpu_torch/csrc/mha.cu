@@ -13,11 +13,14 @@
 //
 // What bounds it on the H100: at the MT shape (B 64, Tq = Tk = 128, D 256,
 // 4 heads) the forward is 2 products of 64 x 4 x 128 x 128 x 64, about
-// 1.07 GFLOP (16 us at the fp32 CUDA-core peak), and reads 25 MB.  The
-// design is flash-attention's: one block per (64-row q tile, head, batch
-// row) walks 64-key tiles through shared memory with a running max and sum,
-// so the (Tq, Tk) probabilities never reach device memory; the forward
-// keeps the per-row log-sum-exp as the backward's residual.  The backward
+// 1.07 GFLOP (16 us at the fp32 CUDA-core peak), and reads 25 MB; at the
+// decoder step (Tq = 1 over 256 encoder frames, B 40) it reads K and V
+// (21 MB) for 0.02 GFLOP.  The design is flash-attention's: a block walks
+// 64-key tiles through shared memory with a running max and sum, so the
+// (Tq, Tk) probabilities never reach device memory; the forward keeps the
+// per-row log-sum-exp as the backward's residual.  It has two kernels
+// with the same sums (below): one per 64-row q tile for training, one per
+// few q rows of a head for decoding.  The backward
 // (about 2 GFLOP at the MT shape, causal: 30 us at the peak) runs a row
 // pass for delta = dO . O, one kernel per 64-key tile (dK, dV, walking the
 // q tiles; it also writes dS to an fp32 scratch) and one per 64-row q tile
@@ -39,10 +42,6 @@ using simulst::to_f32;
 
 constexpr int kHD = 64;       // head dim the kernels are built for
 constexpr int kTile = 64;     // query rows / keys per tile
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 tile entries each
-constexpr int kLd = kHD + 1;  // padded shared row: row and column reads
-                              // both avoid bank conflicts
-constexpr int kTileFloats = kTile * kLd;
 
 struct Geometry {
   int Tq, Tk, H, causal;
@@ -63,48 +62,12 @@ __device__ __forceinline__ float row_max(float v) {
   return v;
 }
 
-// rows [r0, r0 + 64) of head h of a (B, T, D) tensor into a padded tile
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
-                                          int r0, int T_len, int D, int h) {
-  for (int idx = threadIdx.x; idx < kTile * kHD; idx += kThreads) {
-    const int r = idx / kHD, d = idx % kHD;
-    const int row = r0 + r;
-    dst[r * kLd + d] =
-        row < T_len ? to_f32(src[((size_t)b * T_len + row) * D + h * kHD + d])
-                    : 0.f;
-  }
-}
-
 // key-valid flags of keys [k0, k0 + 64)
 __device__ __forceinline__ void load_key_flags(int* flags, const int* kmask,
                                                int b, int k0, int Tk) {
-  for (int c = threadIdx.x; c < kTile; c += kThreads) {
+  for (int c = threadIdx.x; c < kTile; c += blockDim.x) {
     const int k = k0 + c;
     flags[c] = k < Tk && kmask[(size_t)b * Tk + k] != 0;
-  }
-}
-
-// s[i][j] = sum_d x[r_i][d] y[c_j][d], rows r_i = ty + 16 i of tile x, rows
-// c_j = tx + 16 j of tile y
-__device__ __forceinline__ void tile_dots(const float* x, const float* y,
-                                          float s[4][4]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < kHD; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = x[(ty + 16 * i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = y[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
   }
 }
 
@@ -117,101 +80,6 @@ __device__ __forceinline__ unsigned long long prob_offset(const Geometry& g,
                                                           int b, int h, int q,
                                                           int k) {
   return (((unsigned long long)b * g.H + h) * g.Tq + q) * g.Tk + k;
-}
-
-// ---------------------------------------------------------------------------
-// forward: grid (ceil(Tq / 64), H, B)
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ kmask,
-                   T* __restrict__ out, float* __restrict__ lse, Geometry g,
-                   Dropout drop) {
-  extern __shared__ float smem[];
-  float* qs = smem;               // q tile
-  float* ks = qs + kTileFloats;   // k tile, then the tile's probabilities
-  float* vs = ks + kTileFloats;   // v tile
-  __shared__ int kflags[kTile];
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int D = g.D();
-
-  load_tile(qs, q, b, q0, g.Tq, D, h);
-  float m_run[4], l_run[4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const int k_end = g.causal ? min(g.Tk, q0 + kTile) : g.Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's probabilities and v are read
-    load_tile(ks, k, b, k0, g.Tk, D, h);
-    load_tile(vs, v, b, k0, g.Tk, D, h);
-    load_key_flags(kflags, kmask, b, k0, g.Tk);
-    __syncthreads();
-    float s[4][4];
-    tile_dots(qs, ks, s);
-    __syncthreads();  // ks is overwritten with probabilities below
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        s[i][j] = visible(g, kflags, qr, k0 + c, c) ? s[i][j] * g.scale
-                                                    : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m_run[i], row_max(mx));
-      // rows with nothing visible yet keep m = -inf, p = 0 and acc = 0
-      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
-        psum += p;
-        const float pd =
-            p == 0.f ? 0.f : p * drop.scale(prob_offset(g, b, h, qr, k0 + c), 0);
-        ks[(ty + 16 * i) * kLd + c] = round_to<T>(pd);
-      }
-      l_run[i] = l_run[i] * alpha + row_sum(psum);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < kTile; ++c) {
-      float p[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ks[(ty + 16 * i) * kLd + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = vs[c * kLd + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], w[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= g.Tq) continue;
-    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[((size_t)b * g.Tq + qr) * D + h * kHD + tx + 16 * j] =
-          from_f32<T>(acc[i][j] * inv);
-    if (tx == 0)
-      lse[((size_t)b * g.H + h) * g.Tq + qr] =
-          l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : INFINITY;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -257,23 +125,21 @@ __device__ __forceinline__ void stage_tile(float* dst, const T* src,
   for (int q = 0; q < kTile * kHD / 4 / kN; ++q) {
     const int idx = t + q * kN, r = idx / (kHD / 4), c = idx % (kHD / 4) * 4;
     const bool ok = r < valid;
-    const T* p = src + (ok ? (size_t)r * ld + c : 0);
-    if constexpr (sizeof(T) == sizeof(float)) {
-      simulst::async_copy16(dst + r * kBwdLd + c, p, ok);
-    } else {
-      *reinterpret_cast<float4*>(dst + r * kBwdLd + c) =
-          ok ? simulst::load4(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+    simulst::stage4(dst + r * kBwdLd + c,
+                    src + (ok ? (size_t)r * ld + c : 0), ok);
   }
 }
 
-// s[i][j] = sum_d x[r_i][d] y[c_j][d] for d ascending, rows r_i = tr + 8 i
-// of tile x, rows c_j = tc + 16 j of tile y; rows r_i >= n are left 0
+// s[i][j] = sum_d x[r_i][d] y[c_j][d] for d ascending, rows r_i = tr +
+// (64 / kR) i of tile x, rows c_j = tc + 16 j of tile y; rows r_i >= n are
+// left 0
+template <int kR>
 __device__ __forceinline__ void row_dots(const float* x, const float* y,
                                          int n, int tr, int tc,
-                                         float s[8][4]) {
+                                         float (&s)[kR][4]) {
+  constexpr int kStride = kTile / kR;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 2
@@ -283,10 +149,10 @@ __device__ __forceinline__ void row_dots(const float* x, const float* y,
     for (int j = 0; j < 4; ++j)
       yv[j] = *reinterpret_cast<const float4*>(y + (tc + 16 * j) * kBwdLd + d);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (tr + 8 * i >= n) break;
-      const float4 xv =
-          *reinterpret_cast<const float4*>(x + (tr + 8 * i) * kBwdLd + d);
+    for (int i = 0; i < kR; ++i) {
+      if (tr + kStride * i >= n) break;
+      const float4 xv = *reinterpret_cast<const float4*>(
+          x + (tr + kStride * i) * kBwdLd + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         s[i][j] = fmaf(xv.x, yv[j].x, s[i][j]);
@@ -316,6 +182,38 @@ __device__ __forceinline__ void rank_update(const float* a, const float* b,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] = fmaf(a[r_i][c], b[c][4 tc + j], acc[i][j]) for c ascending
+// over [0, n) (n a multiple of 4), rows r_i = tr + (64 / kR) i < rows (the
+// others are left as they are)
+template <int kR>
+__device__ __forceinline__ void rows_times_tile(const float* a,
+                                                const float* b, int n,
+                                                int rows, int tr, int tc,
+                                                float (&acc)[kR][4]) {
+  constexpr int kStride = kTile / kR;
+#pragma unroll 2
+  for (int c = 0; c < n; c += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      bv[kk] = *reinterpret_cast<const float4*>(b + (c + kk) * kBwdLd + 4 * tc);
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      if (tr + kStride * i >= rows) break;
+      const float4 av = *reinterpret_cast<const float4*>(
+          a + (tr + kStride * i) * kBwdLd + c);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc[i][0] = fmaf(a4[kk], bv[kk].x, acc[i][0]);
+        acc[i][1] = fmaf(a4[kk], bv[kk].y, acc[i][1]);
+        acc[i][2] = fmaf(a4[kk], bv[kk].z, acc[i][2]);
+        acc[i][3] = fmaf(a4[kk], bv[kk].w, acc[i][3]);
+      }
+    }
   }
 }
 
@@ -565,7 +463,285 @@ __global__ void __launch_bounds__(kGroup, 3)
   }
 }
 
-constexpr size_t kFwdSmem = 3 * kTileFloats * sizeof(float);
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+// Two kernels, which sum every output as the first design's one block of
+// 256 threads per 64-row q tile summed it, so that the results are bit for
+// bit the same.  Per 64-key tile, the tiles in ascending order:
+//  - s = fmaf chain of q . k over d ascending from 0, times scale; -inf
+//    where the pair is not visible;
+//  - the running max m_new = max(m, the tile's max), alpha = expf(m -
+//    m_new), once per tile;
+//  - p = expf(s - m_new); psum as a tree: lane l of 16 sums the p of
+//    columns l, l + 16, l + 32, l + 48 in that order from 0, then a
+//    butterfly over xor 8, 4, 2, 1; l = l alpha + psum;
+//  - acc = acc alpha, then acc = fmaf(round_T(p mult), v, acc) over the 64
+//    columns ascending (mult the dropout multiplier, drawn once where p
+//    != 0);
+// then out = acc (1 / l) and lse = m + log l; a row that sees no key gives
+// zeros and lse +inf.
+//  - mha_fwd_kernel (training, Tq > ops/mha.py DECODE_MAX_TQ): grid (H,
+//    B, ceil(Tq / 64)), the last q tiles first (under the causal rule they
+//    walk the most keys), 256 threads; thread (tr, tc) = (t / 16, t % 16)
+//    owns q rows tr + 16 i (i < 4): s of key columns tc + 16 j, so that
+//    each half-warp holds its row's tree, then out dims 4 tc + j.  K and V
+//    tiles arrive by 16-byte cp.async in a two-stage ring (bf16 through
+//    registers), one barrier per tile before the products and one between
+//    them; rows padded to 68 floats, read as float4: 8 shared reads per 64
+//    FMAs in both products.  Rows past Tq are skipped in the products;
+//    tiles past the causal diagonal are not read.  102 KB of shared
+//    memory: two blocks per SM.  ptxas: 91 registers (bf16 87), no spills.
+//  - mha_decode_kernel (decoding, Tq <= DECODE_MAX_TQ, the decoder step's
+//    Tq = 1): grid (ceil(Tq / 2), H, B), 64 threads for up to 2 q rows of
+//    one (b, h), which share the staged K and V tiles (a three-stage
+//    ring); thread t owns key column t for s and out dim t for the
+//    product, so that no dot product is computed for a row that does not
+//    exist; the tile's p goes through shared memory, where each half-warp
+//    forms the 16-lane tree.  104 KB: two blocks per SM.  ptxas: 128
+//    registers (bf16 120), no spills.
+constexpr int kFwdRows = 4;                         // q rows per thread
+constexpr int kFwdThreads = 16 * (kTile / kFwdRows);  // 256
+constexpr int kDecRows = 2;
+constexpr int kDecStages = 3;
+constexpr int kDecThreads = kTile;
+
+// the K and V rows [k0, k0 + 64) of head h and their key flags into a ring
+// stage [K | V] (kN threads); the caller commits
+template <int kN, typename T>
+__device__ __forceinline__ void stage_kv(float* stage, int* flags,
+                                         const T* k, const T* v,
+                                         const int* kmask, const Geometry& g,
+                                         int b, int h, int k0) {
+  const size_t row0 = ((size_t)b * g.Tk + k0) * g.D() + h * kHD;
+  stage_tile<kN>(stage, k + row0, g.D(), g.Tk - k0);
+  stage_tile<kN>(stage + kBwdTile, v + row0, g.D(), g.Tk - k0);
+  load_key_flags(flags, kmask, b, k0, g.Tk);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+    mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ kmask,
+                   T* __restrict__ out, float* __restrict__ lse, Geometry g,
+                   Dropout drop) {
+  constexpr int kR = kFwdRows, kN = kFwdThreads, kStride = kTile / kR;
+  extern __shared__ __align__(16) float fwd_smem[];
+  float* qs = fwd_smem;
+  float* ps = qs + kBwdTile;     // the tile's round_T(p mult) [q][k]
+  float* ring = ps + kBwdTile;   // 2 stages of [K | V]
+  __shared__ int kflags[2][kTile];
+  // the last q tiles first: under the causal rule they walk the most keys
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
+  const int D = g.D();
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int q_rows = min(kTile, g.Tq - q0);
+  const int k_end = g.causal ? min(g.Tk, q0 + kTile) : g.Tk;
+  const int steps = (k_end + kTile - 1) / kTile;
+  auto load = [&](int step) {
+    stage_kv<kN>(ring + step % 2 * 2 * kBwdTile, kflags[step % 2], k, v,
+                 kmask, g, b, h, step * kTile);
+  };
+  stage_tile<kN>(qs, q + ((size_t)b * g.Tq + q0) * D + h * kHD, D, q_rows);
+  load(0);   // q arrives with tile 0
+  simulst::async_commit();
+
+  float m_run[kR], l_run[kR], acc[kR][4];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  for (int step = 0; step < steps; ++step) {
+    simulst::async_wait<0>();
+    __syncthreads();   // tile step is in; step - 1's stage and ps are free
+    if (step + 1 < steps) load(step + 1);
+    simulst::async_commit();
+    const int k0 = step * kTile;
+    const float* ks = ring + step % 2 * 2 * kBwdTile;
+    const float* vs = ks + kBwdTile;
+    const int* flags = kflags[step % 2];
+    float st[kR][4];
+    row_dots(qs, ks, q_rows, tr, tc, st);
+    // every row, past Tq too, so that the half-warp's shuffles see all
+    // lanes (those rows' pairs are not visible: p = 0)
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int r = tr + kStride * i, qr = q0 + r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tc + 16 * j;
+        st[i][j] = visible(g, flags, qr, k0 + c, c) ? st[i][j] * g.scale
+                                                    : -INFINITY;
+        mx = fmaxf(mx, st[i][j]);
+      }
+      const float m_new = fmaxf(m_run[i], row_max(mx));
+      // rows with nothing visible yet keep m = -inf, p = 0 and acc = 0
+      const float alpha = m_new == -INFINITY ? 1.f : expf(m_run[i] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tc + 16 * j;
+        const float p = st[i][j] == -INFINITY ? 0.f : expf(st[i][j] - m_new);
+        psum += p;
+        const float pd =
+            p == 0.f ? 0.f : p * drop.scale(prob_offset(g, b, h, qr, k0 + c), 0);
+        ps[r * kBwdLd + c] = round_to<T>(pd);
+      }
+      l_run[i] = l_run[i] * alpha + row_sum(psum);
+      m_run[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+    rows_times_tile(ps, vs, kTile, q_rows, tr, tc, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int qr = q0 + tr + kStride * i;
+    if (qr >= g.Tq) break;
+    const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
+    store4(out + ((size_t)b * g.Tq + qr) * D + h * kHD + 4 * tc,
+           acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
+           acc[i][3] * inv);
+    if (tc == 0)
+      lse[((size_t)b * g.H + h) * g.Tq + qr] =
+          l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : INFINITY;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDecThreads)
+    mha_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ kmask,
+                      T* __restrict__ out, float* __restrict__ lse,
+                      Geometry g, Dropout drop) {
+  extern __shared__ __align__(16) float dec_smem[];   // stages of [K | V]
+  __shared__ __align__(16) float qs[kDecRows][kHD];
+  __shared__ __align__(16) float pr[kDecRows][kTile];   // p
+  __shared__ __align__(16) float ps[kDecRows][kTile];   // round_T(p mult)
+  __shared__ float warp_mx[kDecRows][kTile / 32];
+  __shared__ int kflags[kDecStages][kTile];
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kDecRows;
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int D = g.D();
+  const int rows = min(kDecRows, g.Tq - q0);
+  // the training kernel's 64-row q tile holding these rows sets k_end
+  const int k_end = g.causal ? min(g.Tk, q0 / kTile * kTile + kTile) : g.Tk;
+  const int steps = (k_end + kTile - 1) / kTile;
+  auto load = [&](int step) {
+    stage_kv<kDecThreads>(dec_smem + step % kDecStages * 2 * kBwdTile,
+                          kflags[step % kDecStages], k, v, kmask, g, b, h,
+                          step * kTile);
+  };
+  for (int idx = t; idx < kDecRows * kHD / 4; idx += kDecThreads) {
+    const int r = idx / (kHD / 4), d = idx % (kHD / 4) * 4;
+    const bool ok = r < rows;
+    simulst::stage4(
+        &qs[r][d],
+        q + (ok ? ((size_t)b * g.Tq + q0 + r) * D + h * kHD + d : 0), ok);
+  }
+  // q arrives with tile 0
+#pragma unroll
+  for (int step = 0; step < kDecStages - 1; ++step) {
+    if (step < steps) load(step);
+    simulst::async_commit();
+  }
+
+  float m_run[kDecRows], l_run[kDecRows], acc[kDecRows], alpha[kDecRows];
+  float s[kDecRows];
+#pragma unroll
+  for (int r = 0; r < kDecRows; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+    acc[r] = 0.f;
+  }
+  for (int step = 0; step < steps; ++step) {
+    simulst::async_wait<kDecStages - 2>();
+    __syncthreads();   // tile step is in; step - 1's stage, pr, ps are free
+    if (step + kDecStages - 1 < steps) load(step + kDecStages - 1);
+    simulst::async_commit();
+    const int k0 = step * kTile;
+    const float* ks = dec_smem + step % kDecStages * 2 * kBwdTile;
+    const float* vs = ks + kBwdTile;
+    const int* flags = kflags[step % kDecStages];
+    // s of key column t for each row (rows is uniform over the block)
+#pragma unroll
+    for (int r = 0; r < kDecRows; ++r) s[r] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < kHD; d += 4) {
+      const float4 kv = *reinterpret_cast<const float4*>(ks + t * kBwdLd + d);
+#pragma unroll
+      for (int r = 0; r < kDecRows; ++r) {
+        if (r >= rows) break;
+        const float4 qv = *reinterpret_cast<const float4*>(&qs[r][d]);
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kDecRows; ++r) {
+      if (r >= rows) break;
+      s[r] = visible(g, flags, q0 + r, k0 + t, t) ? s[r] * g.scale : -INFINITY;
+      const float mx = simulst::warp_max(s[r]);
+      if (lane == 0) warp_mx[r][warp] = mx;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kDecRows; ++r) {
+      if (r >= rows) break;
+      const int qr = q0 + r;
+      const float m_new = fmaxf(m_run[r], fmaxf(warp_mx[r][0], warp_mx[r][1]));
+      alpha[r] = m_new == -INFINITY ? 1.f : expf(m_run[r] - m_new);
+      const float p = s[r] == -INFINITY ? 0.f : expf(s[r] - m_new);
+      const float pd =
+          p == 0.f ? 0.f : p * drop.scale(prob_offset(g, b, h, qr, k0 + t), 0);
+      pr[r][t] = p;
+      ps[r][t] = round_to<T>(pd);
+      m_run[r] = m_new;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kDecRows; ++r) {
+      if (r >= rows) break;
+      // lane t % 16 of each half-warp: columns t % 16 + 16 j, then the
+      // butterfly (every half-warp forms the same tree)
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) psum += pr[r][t % 16 + 16 * j];
+      l_run[r] = l_run[r] * alpha[r] + row_sum(psum);
+      acc[r] *= alpha[r];
+#pragma unroll 2
+      for (int c = 0; c < kTile; c += 4) {
+        const float4 pv = *reinterpret_cast<const float4*>(&ps[r][c]);
+        acc[r] = fmaf(pv.x, vs[(c + 0) * kBwdLd + t], acc[r]);
+        acc[r] = fmaf(pv.y, vs[(c + 1) * kBwdLd + t], acc[r]);
+        acc[r] = fmaf(pv.z, vs[(c + 2) * kBwdLd + t], acc[r]);
+        acc[r] = fmaf(pv.w, vs[(c + 3) * kBwdLd + t], acc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kDecRows; ++r) {
+    if (r >= rows) break;
+    const int qr = q0 + r;
+    const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
+    out[((size_t)b * g.Tq + qr) * D + h * kHD + t] = from_f32<T>(acc[r] * inv);
+    if (t == 0)
+      lse[((size_t)b * g.H + h) * g.Tq + qr] =
+          l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : INFINITY;
+  }
+}
+
+constexpr size_t kFwdSmem = 6 * kBwdTile * sizeof(float);
+
+constexpr size_t kDecSmem = 2 * kDecStages * kBwdTile * sizeof(float);
 constexpr size_t kDkdvSmem = 6 * kBwdTile * sizeof(float);
 constexpr size_t kDqSmem = 4 * kBwdTile * sizeof(float);
 
@@ -584,17 +760,48 @@ Dropout make_dropout(int on, unsigned long long seed, unsigned threshold,
   return Dropout{seed, threshold, inv_keep, on};
 }
 
+// the forward's kernels (ops/mha.py FWD_PATHS)
+constexpr int kPathDecode = 0;
+constexpr int kPathTiles = 1;
+
 template <typename T>
-int launch_fwd(const void* q, const void* k, const void* v, const int* kmask,
-               void* out, float* lse, int B, int Tq, int Tk, int H,
-               int causal, Dropout drop, cudaStream_t s) {
-  SIMULST_TRY(allow_smem(mha_fwd_kernel<T>, kFwdSmem));
-  const dim3 grid(simulst::ceil_div(Tq, kTile), H, B);
-  mha_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), kmask, static_cast<T*>(out), lse,
-      make_geometry(Tq, Tk, H, causal), drop);
+int launch_decode(const T* q, const T* k, const T* v, const int* kmask,
+                  T* out, float* lse, int B, const Geometry& g, Dropout drop,
+                  cudaStream_t s) {
+  SIMULST_TRY(allow_smem(mha_decode_kernel<T>, kDecSmem));
+  mha_decode_kernel<T>
+      <<<dim3(simulst::ceil_div(g.Tq, kDecRows), g.H, B), kDecThreads,
+         kDecSmem, s>>>(q, k, v, kmask, out, lse, g, drop);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_tiles(const T* q, const T* k, const T* v, const int* kmask,
+                 T* out, float* lse, int B, const Geometry& g, Dropout drop,
+                 cudaStream_t s) {
+  SIMULST_TRY(allow_smem(mha_fwd_kernel<T>, kFwdSmem));
+  mha_fwd_kernel<T>
+      <<<dim3(g.H, B, simulst::ceil_div(g.Tq, kTile)), kFwdThreads, kFwdSmem,
+         s>>>(q, k, v, kmask, out, lse, g, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd(const void* q_, const void* k_, const void* v_,
+               const int* kmask, void* out_, float* lse, int B, int Tq, int Tk,
+               int H, int causal, int path, Dropout drop, cudaStream_t s) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  T* out = static_cast<T*>(out_);
+  const Geometry g = make_geometry(Tq, Tk, H, causal);
+  switch (path) {
+    case kPathDecode:
+      return launch_decode<T>(q, k, v, kmask, out, lse, B, g, drop, s);
+    case kPathTiles:
+      return launch_tiles<T>(q, k, v, kmask, out, lse, B, g, drop, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -627,23 +834,27 @@ bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * 64;
-// kmask: (B, Tk) int32; out: (B, Tq, D); lse: (B, heads, Tq) fp32.
-// Dropout on the probabilities when dropout != 0.  Returns a cudaError_t.
+// q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * 64, each
+// starting on a 16-byte boundary; kmask: (B, Tk) int32; out: (B, Tq, D);
+// lse: (B, heads, Tq) fp32.  Dropout on the probabilities when dropout !=
+// 0.  path: the decode kernel (0) or the training kernel (1), as
+// ops/mha.py:fwd_plan picks; both give the same bits.  Returns a
+// cudaError_t.
 extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
                                const void* v, const void* kmask, void* out,
                                void* lse, int B, int Tq, int Tk, int D,
-                               int heads, int causal, int dropout,
+                               int heads, int causal, int path, int dropout,
                                unsigned long long seed, unsigned threshold,
                                float inv_keep, void* stream) {
-  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0)
+  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SIMULST_DISPATCH(dtype, return launch_fwd<scalar_t>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<float*>(lse), B, Tq, Tk, heads,
-                              causal, drop, s));
+                              causal, path, drop, s));
 }
 
 // The backward of simulst_mha_fwd: dq (B, Tq, D), dk and dv (B, Tk, D) from

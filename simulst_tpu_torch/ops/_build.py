@@ -48,17 +48,17 @@ SIGNATURES = {
     # n_rows, dim, hidden, splits, seed, act site, out site, stream
     "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:]
                        + [_P],
-    # dtype, h, w, b, res, y, n_rows, din, dout, period, res_rows,
+    # dtype, h, w, b, res, y, n_rows, din, dout, period, res_rows, path,
     # dropout, seed, threshold, inv_keep, stream
-    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 5 + _DROP[1:2] + _DROP[:1]
+    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 6 + _DROP[1:2] + _DROP[:1]
                           + _DROP[2:] + [_P],
     # dtype, h, w, dy, dh, grads, du, partial, n_rows, din, dout, period,
     # res_rows, splits, dropout, seed, threshold, inv_keep, stream
     "simulst_linear_res_bwd": [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_uint64]
                               + _DROP[2:] + [_P],
-    # dtype, q, k, v, kmask, out, lse, B, Tq, Tk, D, heads, causal,
+    # dtype, q, k, v, kmask, out, lse, B, Tq, Tk, D, heads, causal, path,
     # dropout, seed, threshold, inv_keep, stream
-    "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64]
+    "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 8 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, q, k, v, kmask, out, lse, dout, dq, dk, dv, delta, ds, B, Tq,
     # Tk, D, heads, causal, dropout, seed, threshold, inv_keep, stream

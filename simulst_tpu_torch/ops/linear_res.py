@@ -7,8 +7,9 @@ backward).
 
 Rows are counted in the flattened row-major order of h's leading axes;
 period = 0 makes every row a residual row.  On a CUDA tensor the CUDA
-kernels of csrc/linear_res.cu run; on a CPU tensor `linear_res_plain` and
-`linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
+kernels of csrc/linear_res.cu run (the forward on one of two paths that
+give the same bits, as `fwd_plan` picks by row count); on a CPU tensor
+`linear_res_plain` and `linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
 dropout mask is ops/philox.py's, stream 0 at offset row * D_out + column,
 keyed by the call's seed; d(res) is the upstream gradient on residual rows
 and zero elsewhere, as in the JAX package's _flr_bwd.
@@ -23,6 +24,13 @@ from simulst_tpu_torch.ops.philox import drop_scale
 
 K_STEP = 32      # csrc/linear_res.cu kBK: D_in must be a multiple
 COL_TILE = 64    # csrc/linear_res.cu kBN: D_out must be a multiple
+# the forward's paths, which give the same bits: the row kernel (8 rows x
+# 32 columns per block) below TILED_MIN_ROWS, tile_product with 128 x 64
+# output tiles from it, with 128 x 128 tiles from WIDE_MIN_ROWS (H100
+# times in PERF.md, from tools/kernel_bitcheck.py --time)
+TILED_MIN_ROWS = 1536
+WIDE_MIN_ROWS = 8192
+FWD_PATHS = {"rows": 0, "tiled": 1, "wide": 2}   # csrc/linear_res.cu kPath*
 
 
 def _residual_rows(n: int, period: int, res_rows: int, device):
@@ -67,6 +75,14 @@ def linear_res_plain_backward(h, w, dy, period: int = 0, res_rows: int = 0,
     return dh, h2.float().T @ du, du.sum(0)
 
 
+def fwd_plan(rows: int) -> str:
+    """The forward's path at `rows` rows: "rows" (the row kernel) below
+    TILED_MIN_ROWS, "tiled" from it, "wide" from WIDE_MIN_ROWS."""
+    if rows >= WIDE_MIN_ROWS:
+        return "wide"
+    return "tiled" if rows >= TILED_MIN_ROWS else "rows"
+
+
 def _check(name, h, w, res=None, period=0):
     din, dout = w.shape
     if h.shape[-1] != din or din % K_STEP or dout % COL_TILE or period < 0 \
@@ -83,6 +99,7 @@ def _launch(h, w, b, res, period, res_rows, rate, seed):
     din, dout = _check("fused_linear_res", h, w, res, period)
     h2 = h.reshape(-1, din).contiguous()
     res2 = res.reshape(-1, dout).contiguous()
+    h2, w = _build.aligned(h2), _build.aligned(w)   # the 16-byte loads
     _build.check_cuda("fused_linear_res", h2, w=w, b=b, res=res2)
     n = h2.shape[0]
     y = torch.empty(n, dout, dtype=h.dtype, device=h.device)
@@ -91,7 +108,8 @@ def _launch(h, w, b, res, period, res_rows, rate, seed):
         _build.launch("simulst_linear_res", _build.dtype_code(h2),
                       h2.data_ptr(), w.data_ptr(), b.data_ptr(),
                       res2.data_ptr(), y.data_ptr(), n, din, dout, period,
-                      res_rows, on, seed64, thr, inv, _build.stream_of(h2))
+                      res_rows, FWD_PATHS[fwd_plan(n)], on, seed64, thr, inv,
+                      _build.stream_of(h2))
         fused_linear_res.launches += 1
     return y.reshape(*h.shape[:-1], dout)
 

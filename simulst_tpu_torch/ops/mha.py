@@ -6,7 +6,8 @@ qp (B, Tq, D), kp / vp (B, Tk, D), heads are column slices of D;
 kmask (B, Tk) int32, nonzero where the key may be attended; `causal` adds
 key <= query; dropout at `rate` on the probabilities.  Returns the merged
 (B, Tq, D) output.  On a CUDA tensor the CUDA kernels of csrc/mha.cu run
-(head dim 64, any Tq and Tk); on a CPU tensor `mha_plain` and
+(head dim 64, any Tq and Tk; the forward on one of two kernels that give
+the same bits, as `fwd_plan` picks by Tq); on a CPU tensor `mha_plain` and
 `mha_plain_backward`.  The softmax is the running-max form in fp32; a
 query row that sees no key returns exact zeros, as the JAX kernel's -1e9
 bias with its 1e-30 denominator does.  Probabilities are rounded to the
@@ -25,6 +26,18 @@ from simulst_tpu_torch.ops.philox import drop_scale
 
 HEAD_DIM = 64    # csrc/mha.cu kHD
 KEY_TILE = 64    # csrc/mha.cu kTile: the dS scratch's rows are whole tiles
+# the forward runs the decode kernel (up to 2 query rows of a head per
+# block) up to this many query rows, the training kernel (64-row q tiles)
+# above: both give the same bits (H100 times in PERF.md, from
+# tools/kernel_bitcheck.py --time)
+DECODE_MAX_TQ = 2
+FWD_PATHS = {"decode": 0, "tiles": 1}   # csrc/mha.cu kPathDecode, ...
+
+
+def fwd_plan(tq: int) -> str:
+    """The forward's kernel at tq query rows: "decode" up to
+    DECODE_MAX_TQ, "tiles" above."""
+    return "decode" if tq <= DECODE_MAX_TQ else "tiles"
 
 
 def _heads(x, num_heads):
@@ -122,6 +135,8 @@ def backward_scratch_shapes(b: int, num_heads: int, tq: int, tk: int):
 def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
     _check("fused_mha", qp, kp, vp, kmask, num_heads)
     qp, kp, vp, kmask = (t.contiguous() for t in (qp, kp, vp, kmask))
+    # the kernels' 16-byte tile loads
+    qp, kp, vp = (_build.aligned(t) for t in (qp, kp, vp))
     _build.check_cuda("fused_mha", qp, kp=kp, vp=vp)
     b, tq, d = qp.shape
     tk = kp.shape[1]
@@ -132,7 +147,8 @@ def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
         _build.launch("simulst_mha_fwd", _build.dtype_code(qp), qp.data_ptr(),
                       kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), b, tq, tk, d, num_heads,
-                      int(causal), on, seed64, thr, inv, _build.stream_of(qp))
+                      int(causal), FWD_PATHS[fwd_plan(tq)], on, seed64, thr,
+                      inv, _build.stream_of(qp))
         fused_mha.launches += 1
     else:
         out.zero_()

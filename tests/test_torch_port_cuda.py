@@ -8,7 +8,8 @@ fp32 at the slices' widths (D 256, FFN 2048, 4 heads of 64) with ragged
 row counts and lengths; tolerance atol 1e-4, rtol 1e-4 on outputs and
 activation gradients, and 1e-4 of the largest entry on weight gradients:
 the kernels and the plain versions differ only in the order of the fp32
-sums.  Dropout cases run at rate 0.1 with one seed on both sides, which
+sums.  The linear-res and MHA forwards run each listed shape on both of
+their paths (the plan forced to each), bf16 at atol 3e-2, rtol 1e-2.  Dropout cases run at rate 0.1 with one seed on both sides, which
 then draw the same Philox mask.  The CTC alphas and d_em hold their finite
 entries to atol 1e-4 and their -1e30 sentinels exactly.  The MMA alignment
 recursion holds its alphas to atol 1e-4 and d_prefix and d_denom to 1e-4
@@ -24,7 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,  # noqa: E402
-                                   monotonic_align)
+                                   linear_res, mha, monotonic_align)
 from simulst_tpu_torch.nn.emformer import (EmformerConfig,  # noqa: E402
                                            make_packed_eids)
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
@@ -653,3 +654,104 @@ def test_cif_integrate_refuses_what_it_does_not_take(randn):
         cif_integrate.cif_integrate(x, alpha, 0.0, 4)
     with pytest.raises(ValueError):
         cif_integrate.cif_integrate(x, alpha.cpu(), 1.0, 4)
+
+
+# the linear-res forward's shapes: (rows, period, residual rows)
+LR_FWD_SHAPES = {"step-1": (1, 0, 0), "step-40": (40, 0, 0),
+                 "asr-decoder-2304": (2304, 0, 0),
+                 "offline-encoder-3200-gate": (3200, 200, 192),
+                 "mt-8192": (8192, 0, 0),
+                 "asr-encoder-12800-gate": (12800, 200, 192)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("path", list(linear_res.FWD_PATHS))
+@pytest.mark.parametrize("shape", LR_FWD_SHAPES)
+def test_linear_res_forward_paths_match_plain(randn, monkeypatch, shape,
+                                              path, dtype):
+    """Each path at each shape the main paths run (rate 0.1); one launch
+    per call whichever path runs."""
+    dt, tol = DTYPES[dtype]
+    rows, period, res_rows = LR_FWD_SHAPES[shape]
+    h, res = randn(rows, 256).to(dt), randn(rows, 256).to(dt)
+    w, b = randn(256, 256, scale=0.06).to(dt), randn(256, scale=0.06).to(dt)
+    monkeypatch.setattr(linear_res, "fwd_plan", lambda n: path)
+    cfg = (period, res_rows, 0.1, 21)
+    before = fused_linear_res.launches
+    torch.testing.assert_close(fused_linear_res(h, w, b, res, *cfg),
+                               linear_res_plain(h, w, b, res, *cfg), **tol)
+    assert fused_linear_res.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(linear_res.FWD_PATHS))
+def test_linear_res_forward_takes_a_misaligned_view(randn, monkeypatch,
+                                                    path):
+    """h and w as views at an odd offset, copied to a 16-byte boundary for
+    the kernels' loads; 301 rows with the Emformer gate."""
+    h, res = _misaligned(randn, 301, 256), randn(301, 256)
+    w, b = _misaligned(randn, 256, 256, scale=0.06), randn(256, scale=0.06)
+    monkeypatch.setattr(linear_res, "fwd_plan", lambda n: path)
+    cfg = (25, 24, 0.1, 3)
+    torch.testing.assert_close(fused_linear_res(h, w, b, res, *cfg),
+                               linear_res_plain(h, w, b, res, *cfg), **TOL)
+
+
+# the MHA forward's shapes: (B, Tq, Tk, causal, key mask: "full", "ragged"
+# or "masked row", ragged with example 1 seeing no key)
+MHA_FWD_SHAPES = {
+    "mt-self-causal": (64, 128, 128, True, "ragged"),
+    "mt-encoder-self": (64, 128, 128, False, "full"),
+    "mt-cross": (64, 128, 128, False, "masked row"),
+    "asr-self-causal": (32, 72, 72, True, "ragged"),
+    "asr-cross": (32, 72, 256, False, "ragged"),
+    "step-cross": (40, 1, 256, False, "masked row"),
+    "step-self-cache": (40, 1, 64, False, "ragged"),
+    "decode-rows-causal": (5, 6, 77, True, "masked row")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("path", list(mha.FWD_PATHS))
+@pytest.mark.parametrize("shape", MHA_FWD_SHAPES)
+def test_mha_forward_paths_match_plain(randn, monkeypatch, shape, path,
+                                       dtype):
+    """Each kernel at each shape the main paths run (rate 0.1); rows that
+    see no key give exact zeros; one launch per call."""
+    dt, tol = DTYPES[dtype]
+    b, tq, tk, causal, mask = MHA_FWD_SHAPES[shape]
+    q = randn(b, tq, 256).to(dt)
+    k, v = randn(b, tk, 256).to(dt), randn(b, tk, 256).to(dt)
+    lengths = torch.arange(b, device="cuda") * 7 % (tk - tk // 2 + 1) \
+        + tk // 2
+    kmask = (torch.arange(tk, device="cuda")[None, :] < lengths[:, None]
+             if mask != "full" else torch.ones(b, tk, device="cuda") > 0)
+    kmask = kmask.to(torch.int32)
+    if mask == "masked row":
+        kmask[1] = 0
+    monkeypatch.setattr(mha, "fwd_plan", lambda n: path)
+    args = (q, k, v, kmask, 4, causal, 0.1, 17)
+    before = mha.fused_mha.launches
+    out, lse = fused_mha_forward(*args)
+    assert mha.fused_mha.launches == before + 1
+    torch.testing.assert_close(out, mha_plain(*args), **tol)
+    assert lse.shape == (b, 4, tq) and not torch.isnan(lse).any()
+    if mask == "masked row":
+        assert not out[1].any() and torch.isinf(lse[1]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", list(mha.FWD_PATHS))
+def test_mha_forward_takes_misaligned_views(randn, monkeypatch, path):
+    """q, k and v as views at an odd offset (copied to a 16-byte
+    boundary), the decoder step's Tq = 1 and a causal Tq = 50."""
+    for tq, causal in ((1, False), (50, True)):
+        q = _misaligned(randn, 3, tq, 256)
+        k, v = (_misaligned(randn, 3, 77, 256) for _ in range(2))
+        kmask = torch.ones(3, 77, dtype=torch.int32, device="cuda")
+        kmask[0, 40:] = 0
+        monkeypatch.setattr(mha, "fwd_plan", lambda n: path)
+        args = (q, k, v, kmask, 4, causal, 0.1, 8)
+        torch.testing.assert_close(fused_mha_forward(*args)[0],
+                                   mha_plain(*args), **TOL)

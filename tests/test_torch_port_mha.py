@@ -60,6 +60,30 @@ def test_fused_mha_plain_matches_pallas_interpret(causal, tq, tk, empty_row):
         assert not out[-1].any()
 
 
+@pytest.mark.parametrize("causal,tk", [(False, 23), (False, 64),
+                                       (True, 9)])
+def test_fused_mha_decoder_step_matches_pallas_interpret(causal, tk):
+    """Tq = 1, the decoder step's cross-attention, which the CUDA forward
+    runs on its decode kernel: 5 rows (a beam) with ragged key masks and
+    one row whose keys are all masked (exact zeros)."""
+    q, k, v, kmask, do = _inputs(70 + tk, 5, 1, tk, True)
+    seed = jnp.array([0], jnp.int32)
+
+    def jf(q_, k_, v_):
+        return j_fused_mha(q_, k_, v_, jnp.asarray(kmask), seed, H, causal,
+                           0.0, True)
+
+    ref, vjp = jax.vjp(jf, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp(jnp.asarray(do))
+    tq_, tk_, tv_ = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = fused_mha(tq_, tk_, tv_, torch.from_numpy(kmask), H, causal)
+    out.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    for got, want in zip((tq_.grad, tk_.grad, tv_.grad), ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not out[-1].any()
+
+
 def test_fused_mha_backward_entry_matches_autograd():
     """fused_mha_backward (the entry the CUDA kernel serves) gives what
     autograd through fused_mha gives, with dropout on."""

@@ -27,7 +27,7 @@ from simulst_tpu.ops.emformer_attn_pallas import \
 from simulst_tpu.ops.ffn_pallas import (ffn_reference,  # noqa: E402
                                         ln_ffn_res_reference)
 from simulst_tpu.ops.linear_res_pallas import fused_linear_drop_res  # noqa: E402
-from simulst_tpu_torch.ops import _build, ffn  # noqa: E402
+from simulst_tpu_torch.ops import _build, ffn, linear_res, mha  # noqa: E402
 from simulst_tpu_torch.ops import fbank as tfb  # noqa: E402
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
     SMEM_LIMIT, AttnGeom, _fitting_unit, emformer_grouped_attention,
@@ -87,6 +87,62 @@ def test_linear_res_plain_matches_pallas_interpret(period, res_rows):
     for fn in (linear_res_plain, fused_linear_res):
         np.testing.assert_allclose(fn(*args, period, res_rows).numpy(),
                                    np.asarray(ref), atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,period,res_rows", [
+    (1, 0, 0),       # the streaming step's decoder epilogue
+    (40, 0, 0),      # the decoder step's, 8 utterances x beam 5
+    (40, 25, 24)])   # a gate inside 40 rows
+def test_linear_res_plain_matches_pallas_interpret_at_step_rows(
+        rows, period, res_rows):
+    """The decoder steps' row counts, which the CUDA forward runs on its
+    row kernel (fwd_plan), against the Pallas kernel in interpret mode."""
+    rng = np.random.RandomState(100 + rows + period)
+    h, res = _rand(rng, rows, 128), _rand(rng, rows, 128)
+    w, b = _rand(rng, 128, 128, scale=0.05), _rand(rng, 128, scale=0.05)
+    ref = fused_linear_drop_res(jnp.asarray(h), jnp.asarray(w), jnp.asarray(b),
+                                jnp.asarray(res), jnp.array([0], jnp.int32),
+                                0.0, period, res_rows, True)
+    args = [torch.from_numpy(a) for a in (h, w, b, res)]
+    for fn in (linear_res_plain, fused_linear_res):
+        np.testing.assert_allclose(fn(*args, period, res_rows).numpy(),
+                                   np.asarray(ref), atol=ATOL, rtol=1e-5)
+
+
+# rows -> the CUDA forward's path: the decoder and streaming steps on the
+# row kernel, the ASR decoder's and the offline encoder's on 128 x 64
+# tiles, the MT and ASR encoder's train shapes on 128 x 128 tiles
+@pytest.mark.parametrize("rows,path", [
+    (1, "rows"),       # streaming decoder step
+    (24, "rows"),
+    (40, "rows"),      # offline decoder step, 8 utterances x beam 5
+    (linear_res.TILED_MIN_ROWS - 1, "rows"),
+    (linear_res.TILED_MIN_ROWS, "tiled"),
+    (2304, "tiled"),   # ASR decoder epilogues, 32 x 72
+    (3200, "tiled"),   # offline encoder out-projection, 8 x 2 x 200
+    (linear_res.WIDE_MIN_ROWS - 1, "tiled"),
+    (8192, "wide"),    # MT decoder epilogues, 64 x 128
+    (12800, "wide")])  # ASR encoder out-projection, 32 x 2 x 200
+def test_linear_res_fwd_plan(rows, path):
+    assert (linear_res.TILED_MIN_ROWS, linear_res.WIDE_MIN_ROWS) == \
+        (1536, 8192)
+    assert linear_res.fwd_plan(rows) == path
+    assert sorted(linear_res.FWD_PATHS.values()) == [0, 1, 2]
+
+
+# Tq -> the CUDA forward's kernel: the decoder step's one query row on the
+# decode kernel, every teacher-forced shape on the 64-row tiles
+@pytest.mark.parametrize("tq,path", [
+    (1, "decode"),     # decoder step cross-attention (and a cache's)
+    (mha.DECODE_MAX_TQ, "decode"),
+    (mha.DECODE_MAX_TQ + 1, "tiles"),
+    (50, "tiles"),
+    (72, "tiles"),     # ASR decoder, 64-token targets padded to 72
+    (128, "tiles")])   # MT, 128 tokens
+def test_mha_fwd_plan(tq, path):
+    assert mha.DECODE_MAX_TQ == 2
+    assert mha.fwd_plan(tq) == path
+    assert mha.FWD_PATHS[path] in (0, 1)
 
 
 def test_grouped_attention_plain_matches_pallas_interpret():

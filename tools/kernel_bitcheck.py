@@ -30,6 +30,21 @@ inputs, and each output is compared with torch.equal:
                          residual row and the Emformer out-projection's
                          gate (period 200, 192 residual rows), at 1, 24,
                          300, 2,304, 8192 and 12,800 rows (256 x 256)
+  simulst_linear_res     y, this checkout's entry called on both of its
+                         paths (the row kernel and tile_product) and the
+                         revision's with its own C signature (one without
+                         the path argument takes none); fp32 and bf16,
+                         dropout 0 and 0.1, period 0 and the Emformer gate
+                         200 / 192, at 1, 24, 40, 300, 2,304, 3,200, 8192
+                         and 12,800 rows (256 x 256)
+  simulst_mha_fwd        out and lse, this checkout's entry on both of its
+                         kernels (decode and training tiles), the
+                         revision's with its own signature; fp32 and bf16,
+                         dropout 0 and 0.1, at the MHA_CASES below and the
+                         decoder step's Tq = 1 cross-attention (40, 1, 256,
+                         ragged, one row all masked), the self-attention
+                         cache's (40, 1, 64) and a multi-row decode (5, 6,
+                         77) causal
   simulst_mha_bwd        dq, dk, dv, each revision's entry called with its
                          own C signature (a revision without the delta / dS
                          scratch takes none), on this checkout's forward;
@@ -41,14 +56,21 @@ inputs, and each output is compared with torch.equal:
                          all masked
 
 Then a determinism check of this checkout alone: every C entry, through
-its wrapper, runs twice on the same inputs at a train shape, and each
+its wrapper, runs twice on the same inputs at a train shape (the two
+forwards also at a decoder-step shape, on their other path), and each
 output of the second call must equal the first's (torch.equal).
+--only ENTRY[,ENTRY...] restricts the bit check to those entries.
 
 With --time it also times both builds in one process, in turns (revision,
 this checkout, this checkout, revision), with CUDA events: the LN-FFN
 forward at 12,288 rows (gelu, rate 0.1) and the FFN forward at 8192 rows
 (relu, rate 0.1), the revision's C entry against this checkout's on the
-path its wrapper takes; the FFN backward at 8192 rows (relu, rate 0.1)
+path its wrapper takes; the linear-res forward's C entry at 8192 rows,
+12,800 and 3,200 rows with the Emformer gate, 2,304, 40 and 1 rows, and
+the MHA forward's at the MT shapes (64, 128, 128) causal, self and cross,
+the ASR decoder's (32, 72, 72) causal and (32, 72, 256), the decoder
+step's (40, 1, 256) and the self-cache (40, 1, 64), all rate 0.1 (the
+decoder step 0), this checkout's on the path its plan picks; the FFN backward at 8192 rows (relu, rate 0.1)
 and the LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the
 wrappers; the CIF C entry at (32, 256, 256, 72); the linear-res backward
 through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
@@ -57,11 +79,16 @@ through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
 256), rate 0.1.  Then each build's
 device time per call by kernel (torch.profiler), and this checkout's
 forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
-serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS.
+serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS,
+the linear-res forward on each path from 1 to 12,800 rows (fp32, rate
+0.1), which places ops/linear_res.py's TILED_MIN_ROWS and WIDE_MIN_ROWS,
+and the MHA forward on both kernels at Tq 1 to 64 over 256 keys (B 40,
+rate 0) and at the timed shapes, which places ops/mha.py's
+DECODE_MAX_TQ.
 
 On a machine with the card, from the repository root:
 
-    python3 tools/kernel_bitcheck.py --rev REV [--time]
+    python3 tools/kernel_bitcheck.py --rev REV [--time] [--only ENTRIES]
 
 A copy without git (the card machine's) reads the sources that
 `python3 tools/kernel_bitcheck.py --rev REV --export` wrote there
@@ -123,6 +150,31 @@ MHA_CASES = (
 )
 MHA_TIMED = {"mha_bwd_mt_ms": 0, "mha_bwd_asr_self_ms": 3,
              "mha_bwd_asr_cross_ms": 4}
+# the forward's further cases: the decoder step (Tq 1), cross-attention
+# over 256 encoder frames and self-attention over a 64-slot cache, and
+# rows of one head shared by a decode block
+MHA_FWD_CASES = MHA_CASES + (
+    ("decoder step cross (40,1,256)", 40, 1, 256, False, "masked row"),
+    ("decoder step self cache (40,1,64)", 40, 1, 64, False, "ragged"),
+    ("decode rows (5,6,77) causal", 5, 6, 77, True, "masked row"),
+)
+# name -> (index in MHA_FWD_CASES, rate)
+MHA_FWD_TIMED = {"mha_fwd_mt_ms": (0, 0.1), "mha_fwd_mt_self_ms": (1, 0.1),
+                 "mha_fwd_mt_cross_ms": (2, 0.1),
+                 "mha_fwd_asr_self_ms": (3, 0.1),
+                 "mha_fwd_asr_cross_ms": (4, 0.1),
+                 "mha_fwd_step_cross_ms": (7, 0.0),
+                 "mha_fwd_step_self_ms": (8, 0.0)}
+LR_FWD_ROWS = (1, 24, 40, 300, 2304, 3200, 8192, 12800)
+# name -> (rows, period, residual rows)
+LR_FWD_TIMED = {"linear_res_8192_ms": (8192, 0, 0),
+                "linear_res_12800_gate_ms": (12800, 200, 192),
+                "linear_res_3200_gate_ms": (3200, 200, 192),
+                "linear_res_2304_ms": (2304, 0, 0),
+                "linear_res_40_ms": (40, 0, 0), "linear_res_1_ms": (1, 0, 0)}
+LR_CROSSOVER_ROWS = (1, 24, 40, 64, 128, 256, 512, 1024, 1536, 2048, 2304,
+                     3200, 8192, 12800)
+MHA_CROSSOVER_TQ = (1, 2, 4, 8, 12, 16, 32, 64)
 
 
 def cif_inputs(torch, b, s, c, how, seed):
@@ -232,6 +284,43 @@ def mha_inputs(torch, b, tq, tk, mask, dtype, seed):
     return [t.to(dtype).cuda() for t in (q, k, v, dout)] + [kmask.cuda()]
 
 
+def linear_res_entry(torch, _build, lib, takes_path, h, w, b, res, period,
+                     res_rows, rate, path):
+    """simulst_linear_res of `lib` bound to its arguments and called once,
+    with its build's signature (takes_path: the path argument); `.y` is
+    the output (NaN where the kernel writes nothing)."""
+    n, dout = res.shape
+    y = torch.full_like(res, float("nan"))
+    call = functools.partial(
+        lib.simulst_linear_res, _build.dtype_code(h), h.data_ptr(),
+        w.data_ptr(), b.data_ptr(), res.data_ptr(), y.data_ptr(), n,
+        h.shape[1], dout, period, res_rows, *((path,) if takes_path else ()),
+        *_build.dropout_args(rate, 7), _build.stream_of(h))
+    call.y = y
+    if call():
+        raise RuntimeError("simulst_linear_res: CUDA error")
+    return call
+
+
+def mha_fwd_entry(torch, _build, lib, takes_path, q, k, v, kmask, causal,
+                  rate, path):
+    """simulst_mha_fwd of `lib` bound to its arguments and called once,
+    with its build's signature (takes_path: the path argument); `.outs` is
+    (out, lse), NaN where the kernel writes nothing."""
+    b, tq, d = q.shape
+    out = torch.full_like(q, float("nan"))
+    lse = torch.full((b, 4, tq), float("nan"), device=q.device)
+    call = functools.partial(
+        lib.simulst_mha_fwd, _build.dtype_code(q),
+        *(t.data_ptr() for t in (q, k, v, kmask, out, lse)), b, tq,
+        k.shape[1], d, 4, int(causal), *((path,) if takes_path else ()),
+        *_build.dropout_args(rate, 4321), _build.stream_of(q))
+    call.outs = (out, lse)
+    if call():
+        raise RuntimeError("simulst_mha_fwd: CUDA error")
+    return call
+
+
 def mha_bwd_entry(torch, _build, mha, lib, takes_scratch, q, k, v, kmask,
                   out, lse, dout, causal, rate):
     """simulst_mha_bwd of `lib` bound to its arguments and called once,
@@ -315,8 +404,13 @@ def determinism_calls(torch):
             h, wl, bl, res, 200, 192, 0.1, 7),),
         "simulst_linear_res_bwd": lambda: linear_res.fused_linear_res_backward(
             h, wl, dyl, 200, 192, 0.1, 7),
+        "simulst_linear_res (rows path, 40 rows)": lambda: (
+            linear_res.fused_linear_res_forward(h[:40], wl, bl, res[:40], 0,
+                                                0, 0.1, 7),),
         "simulst_mha_fwd": lambda: mha.fused_mha_forward(
             q, k, v, kmask, 4, True, 0.1, 9),
+        "simulst_mha_fwd (decode, Tq 1)": lambda: mha.fused_mha_forward(
+            q[:40, :1], k[:40], v[:40], kmask[:40], 4, False, 0.1, 9),
         "simulst_mha_bwd": lambda: mha.fused_mha_backward(
             q, k, v, kmask, out, lse, dout, 4, True, 0.1, 9),
         "simulst_emformer_attn": lambda: (
@@ -366,6 +460,8 @@ def main():
                     help="only write the revision's sources under _build/")
     ap.add_argument("--time", action="store_true",
                     help="also time both builds in turns")
+    ap.add_argument("--only", default="",
+                    help="comma-separated C entries to bit-check (all)")
     args = ap.parse_args()
 
     from simulst_tpu_torch.ops import _build
@@ -407,6 +503,22 @@ def main():
         libs["rev"].simulst_mha_bwd.argtypes = (
             [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
             + _build._DROP[2:] + [_P])
+    ref_lr_path = "int res_rows, int path" in \
+        (ref_csrc / "linear_res.cu").read_text()
+    if not ref_lr_path:          # simulst_linear_res before its two paths
+        libs["rev"].simulst_linear_res.argtypes = (
+            [_I] + [_P] * 5 + [_I] * 6 + [ctypes.c_uint64] + _build._DROP[2:]
+            + [_P])
+    ref_mha_path = "int causal, int path" in (ref_csrc / "mha.cu").read_text()
+    if not ref_mha_path:         # simulst_mha_fwd before its two kernels
+        libs["rev"].simulst_mha_fwd.argtypes = (
+            [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64] + _build._DROP[2:]
+            + [_P])
+    only = set(filter(None, args.only.split(",")))
+
+    def wanted(entry):
+        return not only or entry in only
+
     summary = {}
 
     def report(entry, case, equal):
@@ -422,9 +534,19 @@ def main():
         return ffn_entry(torch, _build, ffn, libs[key], takes, ln_res, act,
                          x, ws, rate, tiled)
 
+    def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
+        takes = ref_lr_path if key == "rev" else True
+        return linear_res_entry(torch, _build, libs[key], takes, h, w, b,
+                                res, period, res_rows, rate, path)
+
+    def mha_fwd(key, q, k, v, kmask, causal, rate, path):
+        takes = ref_mha_path if key == "rev" else True
+        return mha_fwd_entry(torch, _build, libs[key], takes, q, k, v, kmask,
+                             causal, rate, path)
+
     dtypes = (torch.float32, torch.bfloat16)
     names = ("dx", "dw1", "db1", "dw2", "db2")
-    for dtype in dtypes:
+    for dtype in dtypes if wanted("simulst_ffn") else ():
         for act in ("gelu", "relu"):
             for rate in (0.0, 0.1):
                 for rows in FFN_ROWS:
@@ -451,7 +573,7 @@ def main():
                             zip(names, outs["rev"], outs["this"])})
 
     names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
-    for dtype in dtypes:
+    for dtype in dtypes if wanted("simulst_ln_ffn_bwd") else ():
         for act in ("gelu", "relu"):
             for rate in (0.0, 0.1):
                 for rows in LN_ROWS:
@@ -482,7 +604,8 @@ def main():
             raise RuntimeError("simulst_cif_integrate: CUDA error")
         return call
 
-    for i, (label, b, s, c, t, beta, how) in enumerate(CIF_CASES):
+    for i, (label, b, s, c, t, beta, how) in enumerate(
+            CIF_CASES if wanted("simulst_cif_integrate") else ()):
         x, alpha, csum = cif_inputs(torch, b, s, c, how, 100 + i)
         outs = {}
         for key, lib in libs.items():
@@ -495,8 +618,34 @@ def main():
                {n: torch.equal(a, b_) for n, a, b_ in
                 zip(("out", "delays"), outs["rev"], outs["this"])})
 
+    def lr_inputs(rows, dtype, seed):
+        """h, w, b, res on the card, seeded."""
+        g = torch.Generator().manual_seed(seed)
+        h, res = (torch.randn(rows, 256, generator=g).to(dtype).cuda()
+                  for _ in range(2))
+        w = (torch.randn(256, 256, generator=g) * 0.06).to(dtype).cuda()
+        b = (torch.randn(256, generator=g) * 0.02).to(dtype).cuda()
+        return h, w, b, res
+
+    for dtype in dtypes if wanted("simulst_linear_res") else ():
+        for rate in (0.0, 0.1):
+            for period, res_rows in LR_GATES:
+                for rows in LR_FWD_ROWS:
+                    h, w, b, res = lr_inputs(rows, dtype, rows + period)
+                    want = lr_fwd("rev", h, w, b, res, period, res_rows,
+                                  rate, linear_res.FWD_PATHS["tiled"]).y
+                    got = {p: lr_fwd("this", h, w, b, res, period, res_rows,
+                                     rate, code).y
+                           for p, code in linear_res.FWD_PATHS.items()}
+                    torch.cuda.synchronize()
+                    report("simulst_linear_res",
+                           f"{str(dtype)[6:]} rate {rate} period {period} "
+                           f"rows {rows}",
+                           {f"y {p}": torch.equal(want, y)
+                            for p, y in got.items()})
+
     names = ("dh", "dw", "db")
-    for dtype in dtypes:
+    for dtype in dtypes if wanted("simulst_linear_res_bwd") else ():
         for rate in (0.0, 0.1):
             for period, res_rows in LR_GATES:
                 for rows in LR_ROWS:
@@ -531,7 +680,25 @@ def main():
                                              4321)
         return q, k, v, kmask, out, lse, dout, causal, rate
 
-    for dtype in dtypes:
+    for dtype in dtypes if wanted("simulst_mha_fwd") else ():
+        for rate in (0.0, 0.1):
+            for i, (label, b, tq, tk, causal, mask) in enumerate(
+                    MHA_FWD_CASES):
+                q, k, v, _, kmask = mha_inputs(torch, b, tq, tk, mask, dtype,
+                                               i)
+                want = mha_fwd("rev", q, k, v, kmask, causal, rate,
+                               mha.FWD_PATHS["tiles"]).outs
+                got = {p: mha_fwd("this", q, k, v, kmask, causal, rate,
+                                  code).outs
+                       for p, code in mha.FWD_PATHS.items()}
+                torch.cuda.synchronize()
+                report("simulst_mha_fwd", f"{str(dtype)[6:]} rate {rate} "
+                       f"{label}",
+                       {f"{n} {p}": torch.equal(a, b_) for p, outs in
+                        got.items() for n, a, b_ in zip(("out", "lse"),
+                                                        want, outs)})
+
+    for dtype in dtypes if wanted("simulst_mha_bwd") else ():
         for rate in (0.0, 0.1):
             for i, case in enumerate(MHA_CASES):
                 inputs = mha_case(i, dtype, rate)
@@ -545,6 +712,8 @@ def main():
     # determinism: this checkout's entries, twice on the same inputs
     with library_of(_build, libs["this"]):
         for entry, call in determinism_calls(torch).items():
+            if not wanted(entry.split()[0]):
+                continue
             first = [t.clone() for t in call()]
             second = call()
             torch.cuda.synchronize()
@@ -565,6 +734,18 @@ def main():
         wl = (torch.randn(256, 256, generator=gl) * 0.06).cuda()
         mha_timed = {name: mha_case(i, torch.float32, 0.1)
                      for name, i in MHA_TIMED.items()}
+        lr_timed = {name: (lr_inputs(rows, torch.float32, rows), period,
+                           res_rows, linear_res.FWD_PATHS[
+                               linear_res.fwd_plan(rows)])
+                    for name, (rows, period, res_rows) in
+                    LR_FWD_TIMED.items()}
+        mha_fwd_timed = {}
+        for name, (i, rate) in MHA_FWD_TIMED.items():
+            _, b, tq, tk, causal, mask = MHA_FWD_CASES[i]
+            q, k, v, _, kmask = mha_inputs(torch, b, tq, tk, mask,
+                                           torch.float32, i)
+            mha_fwd_timed[name] = (q, k, v, kmask, causal, rate,
+                                   mha.FWD_PATHS[mha.fwd_plan(tq)])
 
         def entries(key):
             """The calls timed for one build: name -> fn()."""
@@ -594,7 +775,12 @@ def main():
                     linear_res.fused_linear_res_backward, lr[2304][0], wl,
                     lr[2304][1], 0, 0, 0.1, 7),
                 **{name: mha_bwd(key, *inputs)
-                   for name, inputs in mha_timed.items()}}
+                   for name, inputs in mha_timed.items()},
+                **{name: lr_fwd(key, *args, period, res_rows, 0.1, path)
+                   for name, (args, period, res_rows, path) in
+                   lr_timed.items()},
+                **{name: mha_fwd(key, *args)
+                   for name, args in mha_fwd_timed.items()}}
 
         for key in ("rev", "this", "this", "rev"):
             times.setdefault(key, []).append(
@@ -614,6 +800,25 @@ def main():
                                              0.0, path == "tiled"))
                     for path in ("fused", "tiled")}
         print("crossover_ms " + json.dumps(crossover), flush=True)
+        crossover = {}
+        for rows in LR_CROSSOVER_ROWS:
+            lr_args = lr_inputs(rows, torch.float32, rows)
+            crossover[f"linear_res rows {rows}"] = {
+                p: cs.cuda_ms(lr_fwd("this", *lr_args, 0, 0, 0.1, code))
+                for p, code in linear_res.FWD_PATHS.items()}
+        for tq in MHA_CROSSOVER_TQ:
+            q, k, v, _, kmask = mha_inputs(torch, 40, tq, 256, "ragged",
+                                           torch.float32, tq)
+            crossover[f"mha_fwd Tq {tq}"] = {
+                p: cs.cuda_ms(mha_fwd("this", q, k, v, kmask, False, 0.0,
+                                      code))
+                for p, code in mha.FWD_PATHS.items()}
+        for name, (q, k, v, kmask, causal, rate, _) in mha_fwd_timed.items():
+            crossover[name] = {
+                p: cs.cuda_ms(mha_fwd("this", q, k, v, kmask, causal,
+                                      rate, code))
+                for p, code in mha.FWD_PATHS.items()}
+        print("forward_paths_ms " + json.dumps(crossover), flush=True)
 
     ok = all(s["all_equal"] for s in summary.values())
     print(json.dumps({"bitcheck": {"rev": args.rev, **summary}}), flush=True)
