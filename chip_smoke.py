@@ -88,7 +88,10 @@ targets):
   9. mma-kernels  the MMA alignment recursion's forward and backward
               kernels vs their plain versions at the recipe's pooled shape
               (N = B H 128, U 72, S 32), unpooled (S 256), ragged (S 29,
-              U 1) and on wait-k's one-hot rows; CUDA-event times
+              U 1), S 33 and S 257 (the edges of a 32-position group and
+              of a 256-position tile) and on wait-k's one-hot rows;
+              CUDA-event times, ms per dependent step (ms / U) and each
+              kernel's registers and spills from nvcc's ptxas report
  10. mma-train  8 Adam steps of MMAConfig() with exp/2_mma.sh's options
               through cli/train's parse_args, build_model and build_loss,
               the encoder loaded from phase 8's trained encoder through
@@ -191,6 +194,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import tempfile
@@ -386,6 +390,7 @@ KERNEL_FAMILIES = (
 # ordered sum), summed per step in each profile line
 ATTENTION_FAMILIES = ("emformer_grouped_attention",
                       "emformer_grouped_attention_backward")
+ALIGNMENT_FAMILIES = ("alignment_fwd", "alignment_bwd")
 
 
 def log(tag, **fields):
@@ -1125,13 +1130,16 @@ def profile_steps(state, train_step, batch, generator, tag):
         fam = by_family[kernel_family(e.key)]
         fam[0] += e.self_device_time_total / 1e3 / PROFILE_STEPS
         fam[1] += e.count / PROFILE_STEPS
-    attn = [by_family[fam][0] for fam in ATTENTION_FAMILIES
-            if fam in by_family]
+    def family_ms(families):
+        return sum(by_family[fam][0] for fam in families if fam in by_family)
+
     log(f"{tag}-profile", steps=PROFILE_STEPS,
         profiled_wall_ms_per_step=wall_ms / PROFILE_STEPS,
         device_ms_per_step=device_ms / PROFILE_STEPS,
         device_busy_share_of_profiled_wall=device_ms / wall_ms,
-        grouped_attention_fwd_bwd_device_ms_per_step=sum(attn),
+        grouped_attention_fwd_bwd_device_ms_per_step=family_ms(
+            ATTENTION_FAMILIES),
+        alignment_fwd_bwd_device_ms_per_step=family_ms(ALIGNMENT_FAMILIES),
         kernels_per_step=sum(e.count for e in kernels) / PROFILE_STEPS,
         families={name: {"device_ms_per_step": ms, "kernels_per_step": n}
                   for name, (ms, n) in sorted(by_family.items(),
@@ -1902,18 +1910,68 @@ def alignment_panels(dev, n, u, s, waitk=False):
         torch.randn(n, u, s, generator=g))]
 
 
+def kernel_name(mangled, fragment):
+    """The name from `fragment` on in a mangled kernel name, a template's
+    integer arguments written <1,4>."""
+    rest = mangled[mangled.index(fragment):]
+    name = re.match(r"[a-z0-9_]+", rest).group(0)
+    args = re.match(r"I((?:Li\d+E)+)E", rest[len(name):])
+    if args:
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(fragment):
+    """{kernel: {"registers", "spill_bytes"}} from the ptxas report of the
+    library's build (nvcc -Xptxas -v), for every entry function whose name
+    holds `fragment`; {} without a report."""
+    from simulst_tpu_torch.ops import _build
+    path = _build.library_path().with_suffix(".log")
+    if not path.exists():
+        return {}
+    report, name = {}, None
+    for line in path.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_name(m.group(1), fragment) \
+                if fragment in m.group(1) else None
+            if name:
+                report[name] = {}
+            continue
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spills:
+            report[name]["spill_bytes"] = sum(map(int, spills.groups()))
+        if name and regs:
+            report[name]["registers"] = int(regs.group(1))
+    return report
+
+
+def alignment_kernel(report, half, s):
+    """The ptxas report's entry for the alignment kernel that runs S
+    positions: ceil(S / 32) groups up to 256, tiles above."""
+    if s > 256:
+        return report.get(f"alignment_{half}_tiles_kernel")
+    return report.get(f"alignment_{half}_kernel<{-(-s // 32)}>")
+
+
 def phase_mma_kernels(dev):
     """The alignment recursion's kernels vs their plain versions at the
     recipe's pooled shape (32 utterances x 4 heads, 72 target steps, 256
-    frames pooled by 8), unpooled, ragged (S 29, U 1) and on wait-k's
-    one-hot rows.  No single PyTorch call computes the recursion: no
-    library time."""
+    frames pooled by 8), unpooled, ragged (S 29, U 1), S 33 and S 257 and
+    on wait-k's one-hot rows.  No single PyTorch call computes the
+    recursion: no library time."""
     from simulst_tpu_torch.ops import monotonic_align as ma
 
     cases = {"pooled (N,U,S)=(128,72,32)": (128, 72, 32, False),
              "unpooled (N,U,S)=(128,72,256)": (128, 72, 256, False),
              "ragged (N,U,S)=(128,1,29)": (128, 1, 29, False),
+             "S 33 (N,U,S)=(128,72,33)": (128, 72, 33, False),
+             "S 257 (N,U,S)=(128,72,257)": (128, 72, 257, False),
              "waitk one-hot (N,U,S)=(128,72,32)": (128, 72, 32, True)}
+    ptxas = ptxas_report("alignment_")
+    log("phase9", ptxas=ptxas)
     report = {}
     for i, (label, (n, u, s, waitk)) in enumerate(cases.items()):
         prefix, denom, g = alignment_panels(dev, n, u, s, waitk)
@@ -1940,6 +1998,9 @@ def phase_mma_kernels(dev):
                                                        g)),
                    plain_ms=cuda_ms(lambda: ma.alignment_bwd_plain(
                        prefix, denom, alphas, g), samples=3, runs=3))
+        for half, t in (("fwd", fwd), ("bwd", bwd)):
+            t.update(ms_per_step=t["ms"] / u,
+                     ptxas=alignment_kernel(ptxas, half, s))
         log("phase9", case=label, fwd_max_abs_err=err_f,
             bwd_max_abs_err=err_b, bwd_largest_entry=largest, fwd=fwd,
             bwd=bwd)

@@ -89,8 +89,8 @@ SIGNATURES = {
     "simulst_ctc_d_em": [_P] * 8 + [_I] * 3 + [_P],
     # prefix, denom, alphas, N, U, S, stream
     "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
-    # prefix, denom, alphas, g, d_prefix, d_denom, carry, N, U, S, stream
-    "simulst_alignment_bwd": [_P] * 7 + [_I] * 3 + [_P],
+    # prefix, denom, alphas, g, d_prefix, d_denom, N, U, S, stream
+    "simulst_alignment_bwd": [_P] * 6 + [_I] * 3 + [_P],
     # x, csum, alpha, out, delays, B, S, T, C, beta, stream
     "simulst_cif_integrate": [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P],
 }

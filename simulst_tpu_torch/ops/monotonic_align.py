@@ -9,9 +9,10 @@ Over (N, U, S) fp32 panels, N = B H rows, sequential in u:
 with alpha_{-1} one-hot at s = 0, and its hand-derived reverse recursion
 (the JAX package's `_step_bwd`): the gate is a hard zero at both clip
 boundaries.  `alignment_fwd` and `alignment_bwd` run the CUDA kernels of
-csrc/monotonic.cu on a CUDA tensor (one block per row, any U >= 1 and
-S >= 1) and their plain versions `alignment_fwd_plain` /
-`alignment_bwd_plain`, loops over U in the same formulas, on a CPU tensor.
+csrc/monotonic.cu on a CUDA tensor (one warp per row up to S 128, a
+block of ceil(S / 32) warps up to 256, any U >= 1 and S >= 1) and their
+plain versions `alignment_fwd_plain` / `alignment_bwd_plain`, loops over U
+in the same formulas, on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -99,11 +100,10 @@ def alignment_bwd(prefix, denom, alphas, g):
                                             alphas, g)
     n, u, s = prefix.shape
     d_prefix, d_denom = torch.empty_like(prefix), torch.empty_like(prefix)
-    carry = torch.empty(n, s, dtype=torch.float32, device=prefix.device)
     _build.launch("simulst_alignment_bwd", prefix.data_ptr(),
                   denom.data_ptr(), alphas.data_ptr(), g.data_ptr(),
-                  d_prefix.data_ptr(), d_denom.data_ptr(), carry.data_ptr(),
-                  n, u, s, _build.stream_of(prefix))
+                  d_prefix.data_ptr(), d_denom.data_ptr(), n, u, s,
+                  _build.stream_of(prefix))
     alignment_bwd.launches += 1
     return d_prefix, d_denom
 

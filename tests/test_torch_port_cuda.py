@@ -442,12 +442,17 @@ def _alignment_panels(n, u, s, waitk=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,u,s,waitk", [
     (128, 72, 32, False), (128, 72, 256, False), (128, 1, 29, False),
-    (7, 5, 700, False), (128, 72, 32, True)],
-    ids=["pooled", "unpooled", "ragged-U1", "S>block", "waitk"])
+    (7, 5, 700, False), (128, 72, 32, True), (128, 72, 1, False),
+    (128, 72, 33, False), (128, 72, 200, False), (128, 72, 257, False),
+    (128, 2, 32, False)],
+    ids=["pooled", "unpooled", "ragged-U1", "S>block", "waitk", "S1", "S33",
+         "S200", "S257", "U2"])
 def test_alignment_kernels_match_plain(randn, n, u, s, waitk):
     """The recipe's pooled shape (N 128, U 72, S 32), the unpooled one (S
-    256), a ragged one (S 29, U 1), S above the block (three tiles) and
-    wait-k's one-hot rows."""
+    256), a ragged one (S 29, U 1), S above 256 (three tiles), wait-k's
+    one-hot rows, and the edges of the layout: S 1, S 33 (two groups of
+    32, one lane of the second), S 200 (7 groups), S 257 (two tiles, one
+    position in the second) and U 2."""
     prefix, denom, g = _alignment_panels(n, u, s, waitk)
     before = (monotonic_align.alignment_fwd.launches,
               monotonic_align.alignment_bwd.launches)
@@ -462,6 +467,39 @@ def test_alignment_kernels_match_plain(randn, n, u, s, waitk):
     assert (monotonic_align.alignment_fwd.launches,
             monotonic_align.alignment_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_alignment_kernels_divide_as_the_plain_versions_at_s1(randn):
+    """At S 1 no cumsum adds anything, so the kernels and the plain
+    versions run the same fp32 operations in the same order: their outputs
+    are equal, bit for bit, when the kernels' quotients are correctly
+    rounded as torch's division rounds them.  Operands over wide magnitudes
+    (prefix 2^-149 .. 1 and zeros, denom +-2^-20 .. 2^40, g +-2^-149 ..
+    2^10 and zeros) give zero, subnormal and tiny quotients and
+    dividends, which take the slow path of CUDA's own fp32 division."""
+    g = torch.Generator().manual_seed(12)
+    n, u = 1 << 18, 4
+
+    def magnitudes(lo, hi, signed, zeros):
+        e = torch.randint(lo, hi + 1, (n, u, 1), generator=g)
+        x = torch.ldexp(1 + torch.rand(n, u, 1, generator=g), e)
+        if signed:
+            x = torch.where(torch.rand(n, u, 1, generator=g) < 0.5, -x, x)
+        x[torch.rand(n, u, 1, generator=g) < zeros] = 0.0
+        return x.float().cuda()
+
+    prefix = magnitudes(-150, -1, False, 0.1)
+    denom = magnitudes(-21, 39, True, 0.0)
+    grad = magnitudes(-150, 9, True, 0.1)
+    alphas = monotonic_align.alignment_fwd(prefix, denom)
+    assert torch.equal(alphas,
+                       monotonic_align.alignment_fwd_plain(prefix, denom))
+    assert (alphas != 0).any() and (alphas < 2.0 ** -126).any()
+    got = monotonic_align.alignment_bwd(prefix, denom, alphas, grad)
+    want = monotonic_align.alignment_bwd_plain(prefix, denom, alphas, grad)
+    for gw, w in zip(got, want):
+        assert torch.isfinite(w).all() and torch.equal(gw, w)
 
 
 @pytest.mark.cuda

@@ -106,11 +106,16 @@ def _check_alignment(prefix, denom, g, fwd, bwd):
 
 @pytest.mark.parametrize("n,u,s,waitk", [
     (4, 6, 32, False), (3, 5, 29, False), (2, 4, 256, False),
-    (3, 1, 29, False), (3, 1, 32, False), (4, 6, 32, True)],
-    ids=["S32", "S29", "S256", "U1-S29", "U1-S32", "waitk-S32"])
+    (3, 1, 29, False), (3, 1, 32, False), (4, 6, 32, True),
+    (3, 4, 1, False), (3, 4, 33, False), (2, 3, 257, False)],
+    ids=["S32", "S29", "S256", "U1-S29", "U1-S32", "waitk-S32", "S1", "S33",
+         "S257"])
 def test_alignment_plain_matches_jax_scan(n, u, s, waitk):
     """alignment_{fwd,bwd}_plain vs alignment_{fwd,bwd}_scan (bit-exact to
-    the TPU kernel): alphas rtol 1e-5, gradients 1e-5 of the largest."""
+    the TPU kernel): alphas rtol 1e-5, gradients 1e-5 of the largest.  S 1,
+    33 and 257 are the edges of the CUDA kernels' 32-position groups and
+    256-position tiles, where the card holds them to these plain
+    versions."""
     _check_alignment(*_panels(n, u, s, seed=s + u, waitk=waitk),
                      jmp.alignment_fwd_scan, jmp.alignment_bwd_scan)
 

@@ -54,12 +54,24 @@ inputs, and each output is compared with torch.equal:
                          decoder's (32, 72, 72) causal and (32, 72, 256),
                          and (3, 50, 77) causal and not, with one row's keys
                          all masked
+  simulst_alignment_fwd  alphas, each revision's C entry on the same
+                         seeded panels (chip_smoke.alignment_panels): the
+                         MMA recipe's pooled (N, U, S) = (128, 72, 32),
+                         unpooled (128, 72, 256), ragged (128, 1, 29), S 1,
+                         S 33 (two groups, one lane of the second), S 200,
+                         S 257 and (7, 5, 700) (more than one 256-wide
+                         tile), U 2 and wait-k's one-hot rows (128, 72, 32)
+  simulst_alignment_bwd  d_prefix and d_denom at the same cases, on the
+                         revision's alphas, each revision's C entry called
+                         with its own signature (a revision with the (N, S)
+                         carry scratch takes it)
 
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
 forwards also at a decoder-step shape, on their other path), and each
 output of the second call must equal the first's (torch.equal).
---only ENTRY[,ENTRY...] restricts the bit check to those entries.
+--only ENTRY[,ENTRY...] restricts the bit check, and --time, to those
+entries.
 
 With --time it also times both builds in one process, in turns (revision,
 this checkout, this checkout, revision), with CUDA events: the LN-FFN
@@ -76,7 +88,9 @@ wrappers; the CIF C entry at (32, 256, 256, 72); the linear-res backward
 through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
 2,304 rows (rate 0.1); the MHA backward's C entry at the MT shape (64,
 128, 128) causal and the ASR decoder's (32, 72, 72) causal and (32, 72,
-256), rate 0.1.  Then each build's
+256), rate 0.1; the alignment forward's and backward's C entries at the
+pooled (128, 72, 32), unpooled (128, 72, 256) and S 257 (two tiles)
+shapes.  Then each build's
 device time per call by kernel (torch.profiler), and this checkout's
 forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
 serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS,
@@ -175,6 +189,32 @@ LR_FWD_TIMED = {"linear_res_8192_ms": (8192, 0, 0),
 LR_CROSSOVER_ROWS = (1, 24, 40, 64, 128, 256, 512, 1024, 1536, 2048, 2304,
                      3200, 8192, 12800)
 MHA_CROSSOVER_TQ = (1, 2, 4, 8, 12, 16, 32, 64)
+# (label, N, U, S, wait-k's one-hot rows)
+ALIGN_CASES = (
+    ("pooled (128,72,32)", 128, 72, 32, False),
+    ("unpooled (128,72,256)", 128, 72, 256, False),
+    ("ragged (128,1,29)", 128, 1, 29, False),
+    ("S 1 (128,72,1)", 128, 72, 1, False),
+    ("S 33 (128,72,33)", 128, 72, 33, False),
+    ("S 200 (128,72,200)", 128, 72, 200, False),
+    ("S 257 (128,72,257)", 128, 72, 257, False),
+    ("S 700 (7,5,700)", 7, 5, 700, False),
+    ("U 2 (128,2,32)", 128, 2, 32, False),
+    ("waitk one-hot (128,72,32)", 128, 72, 32, True),
+)
+ALIGN_TIMED = {"alignment_{}_pooled_ms": 0, "alignment_{}_unpooled_ms": 1,
+               "alignment_{}_s257_ms": 6}
+# timed name prefix -> the C entry it times (first match)
+TIMED_ENTRIES = (("ln_ffn_fwd", "simulst_ffn"), ("ffn_fwd", "simulst_ffn"),
+                 ("ffn_bwd", "simulst_ffn_bwd"),
+                 ("ln_ffn_bwd", "simulst_ln_ffn_bwd"),
+                 ("cif", "simulst_cif_integrate"),
+                 ("linear_res_bwd", "simulst_linear_res_bwd"),
+                 ("linear_res", "simulst_linear_res"),
+                 ("mha_bwd", "simulst_mha_bwd"),
+                 ("mha_fwd", "simulst_mha_fwd"),
+                 ("alignment_fwd", "simulst_alignment_fwd"),
+                 ("alignment_bwd", "simulst_alignment_bwd"))
 
 
 def cif_inputs(torch, b, s, c, how, seed):
@@ -342,6 +382,33 @@ def mha_bwd_entry(torch, _build, mha, lib, takes_scratch, q, k, v, kmask,
     if call():
         raise RuntimeError("simulst_mha_bwd: CUDA error")
     return call
+
+
+def alignment_entries(torch, _build, lib, takes_carry, prefix, denom, g,
+                      alphas=None):
+    """(forward, backward): simulst_alignment_fwd and _bwd of `lib` bound
+    to their arguments and called once, each with its build's signature
+    (takes_carry: the (N, S) carry scratch); `.outs` are (alphas,) and
+    (d_prefix, d_denom), NaN where the kernel writes nothing.  The
+    backward takes `alphas`, or else the forward's."""
+    n, u, s = prefix.shape
+    stream = _build.stream_of(prefix)
+    out = torch.full_like(prefix, float("nan"))
+    fwd = functools.partial(lib.simulst_alignment_fwd, prefix.data_ptr(),
+                            denom.data_ptr(), out.data_ptr(), n, u, s, stream)
+    fwd.outs = (out,)
+    alphas = out if alphas is None else alphas
+    grads = tuple(torch.full_like(prefix, float("nan")) for _ in range(2))
+    carry = torch.empty(n, s, device=prefix.device) if takes_carry else None
+    bwd = functools.partial(
+        lib.simulst_alignment_bwd, prefix.data_ptr(), denom.data_ptr(),
+        alphas.data_ptr(), g.data_ptr(), *(t.data_ptr() for t in grads),
+        *((carry.data_ptr(),) if takes_carry else ()), n, u, s, stream)
+    bwd.outs, bwd.keep = grads, carry
+    for call, name in ((fwd, "fwd"), (bwd, "bwd")):
+        if call():
+            raise RuntimeError(f"simulst_alignment_{name}: CUDA error")
+    return fwd, bwd
 
 
 def determinism_calls(torch):
@@ -514,6 +581,11 @@ def main():
         libs["rev"].simulst_mha_fwd.argtypes = (
             [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64] + _build._DROP[2:]
             + [_P])
+    ref_align_carry = "void* carry" in \
+        (ref_csrc / "monotonic.cu").read_text()
+    if ref_align_carry:          # simulst_alignment_bwd with the carry
+        libs["rev"].simulst_alignment_bwd.argtypes = (
+            [_P] * 7 + [_I] * 3 + [_P])
     only = set(filter(None, args.only.split(",")))
 
     def wanted(entry):
@@ -709,6 +781,26 @@ def main():
                        {n: torch.equal(a, b) for n, a, b in
                         zip(("dq", "dk", "dv"), outs["rev"], outs["this"])})
 
+    def align(key, prefix, denom, g, alphas=None):
+        takes = ref_align_carry if key == "rev" else False
+        return alignment_entries(torch, _build, libs[key], takes, prefix,
+                                 denom, g, alphas)
+
+    for label, n, u, s_, waitk in ALIGN_CASES if (
+            wanted("simulst_alignment_fwd")
+            or wanted("simulst_alignment_bwd")) else ():
+        panels = cs.alignment_panels("cuda", n, u, s_, waitk)
+        want = align("rev", *panels)
+        got = align("this", *panels, want[0].outs[0])
+        torch.cuda.synchronize()
+        for entry, names, i in (("simulst_alignment_fwd", ("alphas",), 0),
+                                ("simulst_alignment_bwd",
+                                 ("d_prefix", "d_denom"), 1)):
+            if wanted(entry):
+                report(entry, label, {n_: torch.equal(a, b) for n_, a, b in
+                                      zip(names, got[i].outs,
+                                          want[i].outs)})
+
     # determinism: this checkout's entries, twice on the same inputs
     with library_of(_build, libs["this"]):
         for entry, call in determinism_calls(torch).items():
@@ -739,6 +831,9 @@ def main():
                                linear_res.fwd_plan(rows)])
                     for name, (rows, period, res_rows) in
                     LR_FWD_TIMED.items()}
+        align_timed = {name: cs.alignment_panels("cuda",
+                                                 *ALIGN_CASES[i][1:])
+                       for name, i in ALIGN_TIMED.items()}
         mha_fwd_timed = {}
         for name, (i, rate) in MHA_FWD_TIMED.items():
             _, b, tq, tk, causal, mask = MHA_FWD_CASES[i]
@@ -780,19 +875,28 @@ def main():
                    for name, (args, period, res_rows, path) in
                    lr_timed.items()},
                 **{name: mha_fwd(key, *args)
-                   for name, args in mha_fwd_timed.items()}}
+                   for name, args in mha_fwd_timed.items()},
+                **{name.format(half): call
+                   for name, args in align_timed.items()
+                   for half, call in zip(("fwd", "bwd"),
+                                         align(key, *args))}}
+
+        def timed(key):
+            return {name: fn for name, fn in entries(key).items()
+                    if wanted(next(e for p, e in TIMED_ENTRIES
+                                   if name.startswith(p)))}
 
         for key in ("rev", "this", "this", "rev"):
             times.setdefault(key, []).append(
                 {name: cs.cuda_ms(fn, samples=5, runs=5)
-                 for name, fn in entries(key).items()})
+                 for name, fn in timed(key).items()})
         print("times " + json.dumps(times), flush=True)
         for key in libs:
             print(f"device_ms {key} " + json.dumps(
                 {name[:-3]: device_ms(torch, fn, calls=3)
-                 for name, fn in entries(key).items()}), flush=True)
+                 for name, fn in timed(key).items()}), flush=True)
         crossover = {}
-        for rows in CROSSOVER_ROWS:
+        for rows in CROSSOVER_ROWS if wanted("simulst_ffn") else ():
             for ln_res, act in ((1, "gelu"), (0, "relu")):
                 xs, wss, _ = ln_ffn_inputs(torch, rows, torch.float32, rows)
                 crossover[f"ln_res {ln_res} rows {rows}"] = {
@@ -801,19 +905,20 @@ def main():
                     for path in ("fused", "tiled")}
         print("crossover_ms " + json.dumps(crossover), flush=True)
         crossover = {}
-        for rows in LR_CROSSOVER_ROWS:
+        for rows in LR_CROSSOVER_ROWS if wanted("simulst_linear_res") else ():
             lr_args = lr_inputs(rows, torch.float32, rows)
             crossover[f"linear_res rows {rows}"] = {
                 p: cs.cuda_ms(lr_fwd("this", *lr_args, 0, 0, 0.1, code))
                 for p, code in linear_res.FWD_PATHS.items()}
-        for tq in MHA_CROSSOVER_TQ:
+        for tq in MHA_CROSSOVER_TQ if wanted("simulst_mha_fwd") else ():
             q, k, v, _, kmask = mha_inputs(torch, 40, tq, 256, "ragged",
                                            torch.float32, tq)
             crossover[f"mha_fwd Tq {tq}"] = {
                 p: cs.cuda_ms(mha_fwd("this", q, k, v, kmask, False, 0.0,
                                       code))
                 for p, code in mha.FWD_PATHS.items()}
-        for name, (q, k, v, kmask, causal, rate, _) in mha_fwd_timed.items():
+        for name, (q, k, v, kmask, causal, rate, _) in (
+                mha_fwd_timed.items() if wanted("simulst_mha_fwd") else ()):
             crossover[name] = {
                 p: cs.cuda_ms(mha_fwd("this", q, k, v, kmask, causal,
                                       rate, code))
