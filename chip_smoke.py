@@ -353,6 +353,10 @@ CIF_LAUNCHES_PER_STEP = {
 # kernels the streaming evaluator's fused CIF and MMA sessions must launch
 CIF_SERVE_KERNELS = ("fused_ln_ffn_res", "fused_ffn", "cif_integrate")
 PROFILE_STEPS = 3
+# ctc_d_em's posterior pass, launched while the beta kernel runs (PDL): the
+# profiler times it from its launch, the wait for the beta kernel included,
+# so its family stands apart and the device time per step leaves it out
+POSTERIOR_FAMILY = "ctc_d_em posterior (timed from launch, its wait included)"
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the products of common.cuh before
 # cuBLAS, whose names hold "gemm"; the tile_products of csrc/ffn.cu and
@@ -374,7 +378,8 @@ KERNEL_FAMILIES = (
     ("ln_rows_kernel", "LN-FFN LN rows (forward and backward)"),
     ("ln_bwd_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
     ("convpos_wgrad", "convpos_wgrad"), ("ctc_alpha_kernel", "ctc_alphas"),
-    ("ctc_d_em_kernel", "ctc_d_em"),
+    ("ctc_beta_kernel", "ctc_d_em"),
+    ("ctc_posterior_kernel", POSTERIOR_FAMILY),
     ("alignment_fwd_kernel", "alignment_fwd"),
     ("alignment_bwd_kernel", "alignment_bwd"),
     ("cif_integrate_kernel", "cif_integrate"),
@@ -1124,7 +1129,8 @@ def profile_steps(state, train_step, batch, generator, tag):
                and e.self_device_time_total > 0]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device kernels")
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    device_ms = sum(e.self_device_time_total for e in kernels
+                    if kernel_family(e.key) != POSTERIOR_FAMILY) / 1e3
     by_family = defaultdict(lambda: [0.0, 0])
     for e in kernels:
         fam = by_family[kernel_family(e.key)]
@@ -1453,6 +1459,7 @@ def phase_asr_kernels(dev, batch):
     err = max_err_to_largest("convpos_wgrad", got, want)
     max_err_to_largest("conv1d_weight vs the plain wgrad", lib, want)
     record("convpos_wgrad", max_abs_err=err,
+           ptxas=ptxas_report("convpos_wgrad"),
            shape=f"xp=({b},{t_out + taps - 1},{d}) dy=({b},{t_out},{d}) "
                  f"-> dw ({taps},{d // groups},{d})",
            ms=cuda_ms(lambda: conv_pos.convpos_wgrad(xp, dyc, taps, groups)),
@@ -1504,9 +1511,12 @@ def phase_asr_kernels(dev, batch):
            **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(em, can_skip, lengths, tl, got),
                12 * em.numel()))))
-    record("ctc_d_em", max_abs_err=err_d, shape=shape,
-           ms=cuda_ms(lambda: ctc.ctc_d_em(em, want, can_skip, lengths, tl,
-                                           scale, nll)),
+    d_em_ms = cuda_ms(lambda: ctc.ctc_d_em(em, want, can_skip, lengths, tl,
+                                           scale, nll))
+    record("ctc_d_em", max_abs_err=err_d, shape=shape, ms=d_em_ms,
+           us_per_step=d_em_ms * 1e3 / t_len,
+           ptxas={**ptxas_report("ctc_beta_kernel"),
+                  **ptxas_report("ctc_posterior_kernel")},
            plain_ms=cuda_ms(lambda: ctc.d_em_plain(
                em, want, can_skip, lengths, tl, scale, nll), samples=3,
                runs=3),
@@ -1912,12 +1922,17 @@ def alignment_panels(dev, n, u, s, waitk=False):
 
 def kernel_name(mangled, fragment):
     """The name from `fragment` on in a mangled kernel name, a template's
-    integer arguments written <1,4>."""
+    integer and bool arguments written <1,4>, a float or bf16 type argument
+    <float>."""
     rest = mangled[mangled.index(fragment):]
     name = re.match(r"[a-z0-9_]+", rest).group(0)
-    args = re.match(r"I((?:Li\d+E)+)E", rest[len(name):])
-    if args:
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    args = re.match(r"I((?:L[ib]\d+E)*)(f|13__nv_bfloat16)?E",
+                    rest[len(name):])
+    if args and args.group(0) != "IE":
+        name += "<" + ",".join(
+            re.findall(r"L[ib](\d+)E", args.group(1))
+            + ([{"f": "float"}.get(args.group(2), "bf16")]
+               if args.group(2) else [])) + ">"
     return name
 
 

@@ -13,96 +13,165 @@
 //
 // What bounds it on the H100: 2 B T K D 16 operations (4.3 GFLOP at 32 x
 // 256 frames, 64 taps, D 256), about 64 us on the fp32 CUDA cores; the
-// inputs (17 MB) are read from L2 many times over.  The TPU kernel formed
+// inputs (17 MB) are read from L2 a few times over.  The TPU kernel formed
 // each tap's dense (D, D) product on the MXU and masked its block diagonal
 // away, 16x the work; here only the 16 diagonal 16 x 16 blocks are
-// computed.  A block owns (group, 16 taps, a slice of the batch) and 256
-// threads, one per (tap, output channel), each summing its 16 input
-// channels in fp32 registers over time tiles of dy and xp staged in shared
-// memory.  The batch slices write fp32 partials that a second kernel adds
-// in a fixed order and transposes into the conv layout: no atomics.
+// computed.
+//
+// Design: a block owns (group, 64 taps, a slice of the batch); each thread
+// a register tile of Kr taps x Or output channels x Cr input channels.  A
+// time step reads the step's Or dy values and one new x row of Cr values
+// from shared memory, one vector load each, into a window of the Kr x rows
+// its taps need: Kr Or Cr fused multiply-adds for two loads.  The loop is
+// unrolled by Kr, so the window turns by renaming registers.  Tiles of 64
+// time steps of dy and x (with the taps' 63 rows of halo) come by cp.async
+// into a ring of two stages, the next tile's copies in flight while the
+// block works on this one: one barrier per tile.
+//
+// The sums are bit for bit the first design's: each output starts at 0 and
+// takes fmaf(x, dy, acc) over b ascending within its batch slice, t
+// ascending within b; steps past T multiply a zero dy (x + 0 = x, the
+// accumulator never being -0) and stop at the next multiple of Kr.  The
+// batch slices write fp32 partials in dw's layout, which a second kernel
+// adds in slice order from 0: no atomics.
 #include "common.cuh"
 
 namespace {
 
-using simulst::to_f32;
+constexpr int kCg = 16;       // channels per group the kernel is built for
+constexpr int kTapBlock = 64;  // taps per block
+constexpr int kTile = 64;      // time steps per shared-memory tile
+constexpr int kRows = kTile + kTapBlock - 1;  // x rows a tile's steps read
 
-constexpr int kCg = 16;      // channels per group the kernel is built for
-constexpr int kTaps = 16;    // taps per block
-constexpr int kTile = 64;    // time steps per shared-memory tile
-constexpr int kThreads = kTaps * kCg;
+// a thread's register tile: Kr taps x Or output x Cr input channels (on
+// the H100 at the ASR shape 4 x 4 x 4 ran as fast as 8 x 4 x 2 and 8 x 2 x
+// 4, and faster than the tiles of 32 accumulators, 512 threads a block)
+constexpr int Kr = 4, Or = 4, Cr = 4;
+constexpr int kThreads = (kTapBlock / Kr) * (kCg / Or) * (kCg / Cr);
+static_assert(kTile % Kr == 0 && kTapBlock % Kr == 0, "whole windows");
 
+// four consecutive fp32 values of shared memory (16-byte aligned)
+__device__ __forceinline__ void lds(float (&v)[4], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+}
+
+// partial[split][o][ci][k], dw's layout per batch slice
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     convpos_wgrad_kernel(const T* __restrict__ xp, const T* __restrict__ dy,
                          float* __restrict__ partial, int batch, int t_out,
                          int taps, int dim, int batch_per_split) {
-  __shared__ float dys[kTile][kCg];
-  __shared__ float xs[kTile + kTaps - 1][kCg];
+  __shared__ __align__(16) float dys[2][kTile][kCg];
+  __shared__ __align__(16) float xs[2][kRows][kCg];
   const int grp = blockIdx.x;
-  const int k0 = blockIdx.y * kTaps;
-  const int b_begin = blockIdx.z * batch_per_split;
+  const int b_begin = blockIdx.y * batch_per_split;
   const int b_end = min(batch, b_begin + batch_per_split);
-  const int kk = threadIdx.x / kCg;    // tap within the block
-  const int o = threadIdx.x % kCg;     // output channel within the group
+  const int k_base = blockIdx.z * kTapBlock;
+  const int tid = threadIdx.x;
+  const int c0 = tid % (kCg / Cr) * Cr;              // first input channel
+  const int o0 = tid / (kCg / Cr) % (kCg / Or) * Or;  // first output channel
+  const int kl = tid / ((kCg / Cr) * (kCg / Or)) * Kr;  // first tap, in block
   const int t_in = t_out + taps - 1;
   const int ch0 = grp * kCg;
+  const int tiles_per_b = (t_out + kTile - 1) / kTile;
+  const int n_tiles = max(b_end - b_begin, 0) * tiles_per_b;
 
-  float acc[kCg];
-#pragma unroll
-  for (int ci = 0; ci < kCg; ++ci) acc[ci] = 0.f;
+  // tile i (example b_begin + i / tiles_per_b, steps from t0) into stage
+  // buf: dy rows t0.., x rows t0 + k_base..; zeros past the ends
+  auto stage = [&](int i, int buf) {
+    const int b = b_begin + i / tiles_per_b, t0 = i % tiles_per_b * kTile;
+    const T* yb = dy + (size_t)b * t_out * dim + ch0;
+    const T* xb = xp + (size_t)b * t_in * dim + ch0;
+    for (int q = tid; q < kTile * kCg / 4; q += kThreads) {
+      const int r = q / (kCg / 4), c = q % (kCg / 4) * 4;
+      const bool ok = t0 + r < t_out;
+      simulst::stage4(&dys[buf][r][c], ok ? yb + (size_t)(t0 + r) * dim + c
+                                          : yb, ok);
+    }
+    for (int q = tid; q < kRows * kCg / 4; q += kThreads) {
+      const int r = q / (kCg / 4), c = q % (kCg / 4) * 4;
+      const int row = t0 + k_base + r;
+      const bool ok = row < t_in;
+      simulst::stage4(&xs[buf][r][c], ok ? xb + (size_t)row * dim + c : xb,
+                      ok);
+    }
+    simulst::async_commit();
+  };
 
-  for (int b = b_begin; b < b_end; ++b) {
-    const size_t x_base = (size_t)b * t_in * dim + ch0;
-    const size_t y_base = (size_t)b * t_out * dim + ch0;
-    for (int t0 = 0; t0 < t_out; t0 += kTile) {
-      for (int idx = threadIdx.x; idx < kTile * kCg; idx += kThreads) {
-        const int t = idx / kCg, c = idx % kCg;
-        dys[t][c] = t0 + t < t_out
-                        ? to_f32(dy[y_base + (size_t)(t0 + t) * dim + c])
-                        : 0.f;
-      }
-      for (int idx = threadIdx.x; idx < (kTile + kTaps - 1) * kCg;
-           idx += kThreads) {
-        const int i = idx / kCg, c = idx % kCg;
-        const int row = t0 + k0 + i;
-        xs[i][c] = row < t_in
-                       ? to_f32(xp[x_base + (size_t)row * dim + c])
-                       : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int t = 0; t < kTile; ++t) {
-        const float g = dys[t][o];
-        const float* xr = xs[t + kk];
+  float acc[Kr][Or][Cr];
 #pragma unroll
-        for (int ci = 0; ci < kCg; ++ci) acc[ci] = fmaf(xr[ci], g, acc[ci]);
+  for (int kk = 0; kk < Kr; ++kk)
+#pragma unroll
+    for (int oi = 0; oi < Or; ++oi)
+#pragma unroll
+      for (int ci = 0; ci < Cr; ++ci) acc[kk][oi][ci] = 0.f;
+
+  if (n_tiles > 0) stage(0, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    simulst::async_wait<0>();
+    __syncthreads();
+    if (i + 1 < n_tiles) stage(i + 1, (i + 1) & 1);
+    const float(*xr)[kCg] = xs[i & 1];
+    const float(*yr)[kCg] = dys[i & 1];
+    const int steps = min(kTile, t_out - i % tiles_per_b * kTile);
+    // the window: x row kl + tt + j + kk (tap kk at step tt + j) in
+    // xw[(j + kk) % Kr]
+    float xw[Kr][Cr];
+#pragma unroll
+    for (int j = 0; j < Kr - 1; ++j) lds(xw[j], &xr[kl + j][c0]);
+    for (int tt = 0; tt < steps; tt += Kr) {
+#pragma unroll
+      for (int j = 0; j < Kr; ++j) {
+        lds(xw[(j + Kr - 1) % Kr], &xr[kl + tt + j + Kr - 1][c0]);
+        float g[Or];
+        lds(g, &yr[tt + j][o0]);
+#pragma unroll
+        for (int kk = 0; kk < Kr; ++kk)
+#pragma unroll
+          for (int oi = 0; oi < Or; ++oi)
+#pragma unroll
+            for (int ci = 0; ci < Cr; ++ci)
+              acc[kk][oi][ci] =
+                  fmaf(xw[(j + kk) % Kr][ci], g[oi], acc[kk][oi][ci]);
       }
-      __syncthreads();
     }
   }
-  const int k = k0 + kk;
-  if (k >= taps) return;
-  // partial[split][k][ci][channel]
-  float* out = partial + ((size_t)blockIdx.z * taps + k) * kCg * dim;
+
+  float* out = partial + (size_t)blockIdx.y * dim * kCg * taps;
+  const int k0 = k_base + kl;
 #pragma unroll
-  for (int ci = 0; ci < kCg; ++ci) out[(size_t)ci * dim + ch0 + o] = acc[ci];
+  for (int oi = 0; oi < Or; ++oi)
+#pragma unroll
+    for (int ci = 0; ci < Cr; ++ci) {
+      float* row = out + ((size_t)(ch0 + o0 + oi) * kCg + c0 + ci) * taps;
+      if (taps % 4 == 0) {  // a float4, 16-byte aligned
+        if (k0 < taps)
+          *reinterpret_cast<float4*>(row + k0) =
+              make_float4(acc[0][oi][ci], acc[1][oi][ci], acc[2][oi][ci],
+                          acc[3][oi][ci]);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < Kr; ++kk)
+          if (k0 + kk < taps) row[k0 + kk] = acc[kk][oi][ci];
+      }
+    }
 }
 
-// dw[o][ci][k] = sum over splits (in order) of partial[z][k][ci][o]
-__global__ void convpos_wgrad_sum_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ dw, int splits,
-                                         int taps, int dim) {
-  const size_t total = (size_t)dim * kCg * taps;
+// dw = sum over splits (in order, from 0) of partial[z], 4 values a thread
+__global__ void convpos_wgrad_sum_kernel(const float4* __restrict__ partial,
+                                         float4* __restrict__ dw, int splits,
+                                         size_t total4) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int k = (int)(idx % taps);
-  const int ci = (int)((idx / taps) % kCg);
-  const int o = (int)(idx / ((size_t)taps * kCg));
-  const size_t split_len = (size_t)taps * kCg * dim;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z)
-    s += partial[z * split_len + ((size_t)k * kCg + ci) * dim + o];
+  if (idx >= total4) return;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float4 p = __ldg(partial + z * total4 + idx);
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
   dw[idx] = s;
 }
 
@@ -111,24 +180,25 @@ int launch_wgrad(const void* xp, const void* dy, float* dw, float* partial,
                  int batch, int t_out, int taps, int dim, int splits,
                  cudaStream_t s) {
   const int per = simulst::ceil_div(batch, splits);
-  const dim3 grid(dim / kCg, simulst::ceil_div(taps, kTaps),
-                  simulst::ceil_div(batch, per));
+  const dim3 grid(dim / kCg, simulst::ceil_div(batch, per),
+                  simulst::ceil_div(taps, kTapBlock));
   convpos_wgrad_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(dy), partial, batch,
-      t_out, taps, dim, per);
+          static_cast<const T*>(xp), static_cast<const T*>(dy), partial,
+          batch, t_out, taps, dim, per);
   SIMULST_TRY(cudaGetLastError());
-  const size_t total = (size_t)dim * kCg * taps;
-  convpos_wgrad_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      partial, dw, (int)grid.z, taps, dim);
+  const size_t total4 = (size_t)dim * kCg * taps / 4;  // dim: 16 a group
+  convpos_wgrad_sum_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, s>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dw),
+      (int)grid.y, total4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // xp: (batch, t_out + taps - 1, dim) left-padded conv input; dy: (batch,
-// t_out, dim), both of `dtype`; groups = dim / 16.  dw: (dim, 16, taps)
-// fp32; partial: fp32 scratch (splits, taps, 16, dim).  Returns a
-// cudaError_t.
+// t_out, dim), both of `dtype`, 16-byte aligned; groups = dim / 16.  dw:
+// (dim, 16, taps) fp32; partial: fp32 scratch (splits, dim, 16, taps).
+// Returns a cudaError_t.
 extern "C" int simulst_convpos_wgrad(int dtype, const void* xp,
                                      const void* dy, void* dw, void* partial,
                                      int batch, int t_out, int taps, int dim,

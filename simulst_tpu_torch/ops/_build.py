@@ -87,6 +87,8 @@ SIGNATURES = {
     # em, alphas, can_skip, input_lengths, target_lengths, scale, nll, d_em,
     # T, B, S, stream
     "simulst_ctc_d_em": [_P] * 8 + [_I] * 3 + [_P],
+    # mismatches (one int64), stream
+    "simulst_ctc_log1p_check": [_P, _P],
     # prefix, denom, alphas, N, U, S, stream
     "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
     # prefix, denom, alphas, g, d_prefix, d_denom, N, U, S, stream
@@ -151,10 +153,13 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
-def open_library(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare its C entries' signatures."""
+def open_library(path: Path, every_entry: bool = True) -> ctypes.CDLL:
+    """Load a built library and declare its C entries' signatures; unless
+    every_entry, skip those it lacks (another revision's build)."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
+        if not every_entry and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

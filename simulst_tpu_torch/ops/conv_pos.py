@@ -51,11 +51,12 @@ def _launch(xp, dy, taps: int, groups: int):
             f"{groups} groups")
     xp, dy = xp.contiguous(), dy.contiguous()
     _build.check_cuda("convpos_wgrad", xp, dy=dy)
+    xp, dy = _build.aligned(xp), _build.aligned(dy)   # the 16-byte copies
     f32 = dict(dtype=torch.float32, device=xp.device)
     splits = min(BATCH_SPLITS, b)
     splits = -(-b // -(-b // splits))        # the slices the kernel forms
     dw = torch.empty(d, CHANNELS_PER_GROUP, taps, **f32)
-    partial = torch.empty(splits, taps, CHANNELS_PER_GROUP, d, **f32)
+    partial = torch.empty(splits, d, CHANNELS_PER_GROUP, taps, **f32)
     _build.launch("simulst_convpos_wgrad", _build.dtype_code(xp),
                   xp.data_ptr(), dy.data_ptr(), dw.data_ptr(),
                   partial.data_ptr(), b, t, taps, d, groups, splits,

@@ -177,6 +177,16 @@ def ctc_d_em(em, alphas, can_skip, input_lengths, target_lengths, scale, nll):
     return d_em
 
 
+def d_em_log1p_mismatches(device) -> int:
+    """The fp32 inputs, of all 2^32 bit patterns, at which the d_em kernel's
+    branch-free log1p differs from the CUDA math library's log1pf in any
+    bit (csrc/ctc.cu log1p_select); 0 for the kernel to be bit for bit."""
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _build.launch("simulst_ctc_log1p_check", count.data_ptr(),
+                  _build.stream_of(count))
+    return int(count.item())
+
+
 def _nll_from_alpha(alpha_last, target_lengths):
     """-log P(target) per example from the last alphas (B, S)."""
     end = 2 * target_lengths.long()

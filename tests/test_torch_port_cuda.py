@@ -386,13 +386,28 @@ def test_gated_grouped_attention_refuses_a_malformed_gate(randn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,frames", [(3, 50), (32, 256)])
+@pytest.mark.parametrize("batch,frames", [(3, 50), (32, 256), (33, 1),
+                                          (13, 300)])
 def test_convpos_wgrad_matches_plain(randn, batch, frames):
+    """Batches of 3 and 13 (slices of 1 and 2: not a multiple of 8) and 33
+    (7 slices of 5, the last of 3); 50, 1 and 300 frames, not a multiple of
+    the kernel's 64-step tiles."""
     xp, dy = randn(batch, frames + 63, 256), randn(batch, frames, 256)
     before = conv_pos.convpos_wgrad.launches
     got = conv_pos.convpos_wgrad(xp, dy, 64, 16)
     assert conv_pos.convpos_wgrad.launches == before + 1
     assert got.shape == (256, 16, 64)
+    _close_to_largest(got, conv_pos.convpos_wgrad_plain(xp, dy, 64, 16))
+
+
+@pytest.mark.cuda
+def test_convpos_wgrad_takes_bf16(randn):
+    """bf16 xp and dy, widened exactly: the kernel's fp32 sums against the
+    plain version's on the same bf16 values, 1e-4 of the largest entry."""
+    xp = randn(5, 300 + 63, 256).to(torch.bfloat16)
+    dy = randn(5, 300, 256).to(torch.bfloat16)
+    got = conv_pos.convpos_wgrad(xp, dy, 64, 16)
+    assert got.dtype == torch.float32 and got.shape == (256, 16, 64)
     _close_to_largest(got, conv_pos.convpos_wgrad_plain(xp, dy, 64, 16))
 
 
@@ -420,6 +435,45 @@ def test_ctc_kernels_match_plain(randn):
     torch.testing.assert_close(got, ctc.d_em_plain(em, want, can_skip, il, tl,
                                                    scale, nll), **TOL)
     assert not got[5:, 2].any() and not got[41:, 1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,s", [(60, 33), (60, 65), (60, 129), (60, 257),
+                                 (120, 1023), (1, 17)])
+def test_ctc_d_em_paths_match_plain(randn, t, s):
+    """d_em at S 33, 65, 129 and 257 (2 to 11 beta warps refreshing halo
+    states every 4 steps), at S 1023 (32 warps exchanging border states
+    every step) and at T 1, S 17 (one beta warp), each followed by the
+    posterior kernel, on the kernel's alphas: finite entries atol 1e-4,
+    zero past each input length.  The first two targets fit their frames
+    (up to t / 2 and t / 3 labels), the third cannot, the fourth is
+    empty."""
+    b, L = 4, (s - 1) // 2
+    em = torch.log_softmax(randn(t, b, s), dim=-1)
+    g = torch.Generator().manual_seed(s)
+    targets = torch.randint(3, 9, (b, L), generator=g).cuda()
+    targets[1, 3] = targets[1, 2]
+    _, can_skip = ctc._ctc_masks(targets, 0)
+    il = torch.tensor([t, max(t - 19, 1), min(5, t), t], device="cuda")
+    tl = torch.tensor([min(L, t // 2), min(L // 2, t // 3), L, 0],
+                      device="cuda")
+    alphas = ctc.ctc_alphas(em, can_skip, il, tl)
+    nll = ctc._nll_from_alpha(alphas[-1], tl)
+    scale = torch.tensor([-1.0, -0.5, 0.0, -2.0], device="cuda")
+    before = ctc.ctc_d_em.launches
+    got = ctc.ctc_d_em(em, alphas, can_skip, il, tl, scale, nll)
+    assert ctc.ctc_d_em.launches == before + 1
+    torch.testing.assert_close(got, ctc.d_em_plain(em, alphas, can_skip, il,
+                                                   tl, scale, nll), **TOL)
+    for k in range(b):
+        assert not got[int(il[k]):, k].any()
+
+
+@pytest.mark.cuda
+def test_ctc_d_em_log1p_is_log1pf_at_every_input(randn):
+    """The d_em kernel's branch-free log1p equals the math library's log1pf
+    in every bit at all 2^32 fp32 inputs."""
+    assert ctc.d_em_log1p_mismatches(randn(1).device) == 0
 
 
 def _alignment_panels(n, u, s, waitk=False):

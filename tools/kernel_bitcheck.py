@@ -65,6 +65,20 @@ inputs, and each output is compared with torch.equal:
                          revision's alphas, each revision's C entry called
                          with its own signature (a revision with the (N, S)
                          carry scratch takes it)
+  simulst_convpos_wgrad  dw through ops/conv_pos.py's wrapper; fp32 and
+                         bf16, K 64, D 256, at (B, T) = (32, 256), (3, 50),
+                         (33, 1) (7 batch slices of 5, the last of 3) and
+                         (5, 300)
+  simulst_ctc_alpha      alphas, each revision's C entry, at CTC_CASES: the
+                         ASR recipe's (T, B, S) = (256, 32, 129) with
+                         lengths 192-256, the card test's (60, 4, 17) with
+                         an example whose target cannot fit its frames and
+                         frames past the input length, S 33, 65, 257 and
+                         1023, and T 1
+  simulst_ctc_d_em       d_em at the same cases on the revision's alphas
+                         (one beta warp at S 17; halo warps, one exchange
+                         every 4 steps, at S 33-257; an exchange every step
+                         at S 1023)
 
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
@@ -90,7 +104,9 @@ through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
 128, 128) causal and the ASR decoder's (32, 72, 72) causal and (32, 72,
 256), rate 0.1; the alignment forward's and backward's C entries at the
 pooled (128, 72, 32), unpooled (128, 72, 256) and S 257 (two tiles)
-shapes.  Then each build's
+shapes; the conv-pos weight gradient's C entry at xp (32, 319, 256), dy
+(32, 256, 256); the CTC alpha's and d_em's C entries at the ASR shape
+(256, 32, 129).  Then each build's
 device time per call by kernel (torch.profiler), and this checkout's
 forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
 serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS,
@@ -98,7 +114,8 @@ the linear-res forward on each path from 1 to 12,800 rows (fp32, rate
 0.1), which places ops/linear_res.py's TILED_MIN_ROWS and WIDE_MIN_ROWS,
 and the MHA forward on both kernels at Tq 1 to 64 over 256 keys (B 40,
 rate 0) and at the timed shapes, which places ops/mha.py's
-DECODE_MAX_TQ.
+DECODE_MAX_TQ; and d_em's C entry of both builds, in turns, at S 33,
+65, 129, 257 and 1023 (T 256, B 32).
 
 On a machine with the card, from the repository root:
 
@@ -204,6 +221,19 @@ ALIGN_CASES = (
 )
 ALIGN_TIMED = {"alignment_{}_pooled_ms": 0, "alignment_{}_unpooled_ms": 1,
                "alignment_{}_s257_ms": 6}
+# (B, T) of the conv-pos weight gradient at K 64, D 256
+CONVPOS_CASES = ((32, 256), (3, 50), (33, 1), (5, 300))
+# (label, T, B, S, how the lengths are made)
+CTC_CASES = (
+    ("ASR (256,32,129)", 256, 32, 129, "asr"),
+    ("card test (60,4,17)", 60, 4, 17, "card"),
+    ("S 33 (100,8,33)", 100, 8, 33, "ragged"),
+    ("S 65 (100,8,65)", 100, 8, 65, "ragged"),
+    ("S 257 (300,4,257)", 300, 4, 257, "ragged"),
+    ("S 1023 (600,2,1023)", 600, 2, 1023, "ragged"),
+    ("T 1 (1,4,17)", 1, 4, 17, "ragged"),
+)
+D_EM_TIMED_S = (33, 65, 129, 257, 1023)
 # timed name prefix -> the C entry it times (first match)
 TIMED_ENTRIES = (("ln_ffn_fwd", "simulst_ffn"), ("ffn_fwd", "simulst_ffn"),
                  ("ffn_bwd", "simulst_ffn_bwd"),
@@ -214,7 +244,10 @@ TIMED_ENTRIES = (("ln_ffn_fwd", "simulst_ffn"), ("ffn_fwd", "simulst_ffn"),
                  ("mha_bwd", "simulst_mha_bwd"),
                  ("mha_fwd", "simulst_mha_fwd"),
                  ("alignment_fwd", "simulst_alignment_fwd"),
-                 ("alignment_bwd", "simulst_alignment_bwd"))
+                 ("alignment_bwd", "simulst_alignment_bwd"),
+                 ("convpos", "simulst_convpos_wgrad"),
+                 ("ctc_alpha", "simulst_ctc_alpha"),
+                 ("ctc_d_em", "simulst_ctc_d_em"))
 
 
 def cif_inputs(torch, b, s, c, how, seed):
@@ -411,6 +444,93 @@ def alignment_entries(torch, _build, lib, takes_carry, prefix, denom, g,
     return fwd, bwd
 
 
+def ctc_inputs(torch, ctc, t, b, s, how, seed):
+    """(em, can_skip, input_lengths, target_lengths, scale) on the card,
+    seeded: em the label scores of log_softmax'd random logits over a
+    4100-word vocabulary ("asr": targets of 38 to 64 labels, S 129, 192-256
+    frames) or log_softmax'd (T, B, S) noise (as the card test makes it;
+    "card": its lengths, one example whose target cannot fit its frames,
+    one with an empty target; "ragged": lengths from half to all of T and
+    of the labels); some labels repeat their predecessor (no skip)."""
+    g = torch.Generator().manual_seed(seed)
+    L = (s - 1) // 2
+    targets = torch.randint(4, 4100 if how == "asr" else 9, (b, L),
+                            generator=g)
+    if how == "asr":
+        tl = torch.randint(38, L + 1, (b,), generator=g)
+        il = torch.randint(192, t + 1, (b,), generator=g)
+    elif how == "card":
+        tl, il = torch.tensor([8, 5, 8, 0]), torch.tensor([60, 41, 5, 60])
+        targets[1, 3] = targets[1, 2]
+    else:
+        tl = torch.randint(L // 2, L + 1, (b,), generator=g)
+        il = torch.randint(max(t // 2, 1), t + 1, (b,), generator=g)
+    targets = torch.where(torch.arange(L)[None] < tl[:, None], targets,
+                          torch.ones_like(targets)).cuda()
+    _, can_skip = ctc._ctc_masks(targets, 0)
+    if how == "asr":
+        logits = torch.randn(b, t, 4100, generator=g).cuda()
+        labels = ctc.ctc_labels(targets, 0)
+        em = (ctc._emissions(logits, labels) -
+              torch.logsumexp(logits, -1).T[:, :, None]).contiguous()
+    else:
+        em = torch.log_softmax(torch.randn(t, b, s, generator=g), -1).cuda()
+    scale = -torch.rand(b, generator=g)
+    scale[0] = 0.0
+    return em, can_skip.to(torch.int32), il.to(torch.int32).cuda(), \
+        tl.to(torch.int32).cuda(), scale.cuda()
+
+
+def ctc_entries(torch, _build, lib, em, skip, il, tl, scale, alphas=None,
+                nll=None):
+    """(alpha, d_em): simulst_ctc_alpha and simulst_ctc_d_em of `lib` bound
+    to their arguments and called once; `.outs` are (alphas,) and (d_em,), NaN where the
+    kernel writes nothing.  d_em takes `alphas` and `nll`, or else the alpha
+    entry's and the nll it gives."""
+    t, b, s = em.shape
+    stream = _build.stream_of(em)
+    out = torch.full_like(em, float("nan"))
+    alpha = functools.partial(lib.simulst_ctc_alpha, em.data_ptr(),
+                              skip.data_ptr(), il.data_ptr(), tl.data_ptr(),
+                              out.data_ptr(), t, b, s, stream)
+    alpha.outs = (out,)
+    if alpha():
+        raise RuntimeError("simulst_ctc_alpha: CUDA error")
+    if alphas is None:
+        from simulst_tpu_torch.ops import ctc
+        alphas, nll = out, ctc._nll_from_alpha(out[-1], tl)
+    d = torch.full_like(em, float("nan"))
+    d_em = functools.partial(
+        lib.simulst_ctc_d_em, em.data_ptr(), alphas.data_ptr(),
+        skip.data_ptr(), il.data_ptr(), tl.data_ptr(), scale.data_ptr(),
+        nll.data_ptr(), d.data_ptr(), t, b, s, stream)
+    d_em.outs, d_em.keep = (d,), (alphas, nll)
+    if d_em():
+        raise RuntimeError("simulst_ctc_d_em: CUDA error")
+    return alpha, d_em
+
+
+def convpos_entry(torch, _build, lib, xp, dy):
+    """simulst_convpos_wgrad of `lib` bound to its arguments (K 64, 16
+    groups, the wrapper's batch slices) and called once; `.dw` is the
+    output."""
+    from simulst_tpu_torch.ops import conv_pos
+    b, t_in, d = xp.shape
+    t = dy.shape[1]
+    splits = min(conv_pos.BATCH_SPLITS, b)
+    splits = -(-b // -(-b // splits))
+    dw = torch.empty(d, 16, 64, device=xp.device)
+    partial = torch.empty(splits, d, 16, 64, device=xp.device)
+    call = functools.partial(
+        lib.simulst_convpos_wgrad, _build.dtype_code(xp), xp.data_ptr(),
+        dy.data_ptr(), dw.data_ptr(), partial.data_ptr(), b, t, 64, d, 16,
+        splits, _build.stream_of(xp))
+    call.dw, call.keep = dw, partial
+    if call():
+        raise RuntimeError("simulst_convpos_wgrad: CUDA error")
+    return call
+
+
 def determinism_calls(torch):
     """C entry -> a call of its wrapper at a train shape, on seeded
     inputs, returning its outputs."""
@@ -553,7 +673,7 @@ def main():
         paths = [pool.submit(_build.build, *where) for where in
                  ((ref_csrc, ref_dir), (_build.CSRC, _build.BUILD_DIR))]
         ref_path, cur_path = (p.result() for p in paths)
-    libs = {"rev": _build.open_library(ref_path),
+    libs = {"rev": _build.open_library(ref_path, every_entry=False),
             "this": _build.open_library(cur_path)}
     ref_takes_cprev = "const void* cprev" in \
         (ref_csrc / "cif.cu").read_text()
@@ -801,6 +921,36 @@ def main():
                                       zip(names, got[i].outs,
                                           want[i].outs)})
 
+    from simulst_tpu_torch.ops import conv_pos, ctc
+    for dtype in dtypes if wanted("simulst_convpos_wgrad") else ():
+        for b, t in CONVPOS_CASES:
+            g = torch.Generator().manual_seed(b * 1000 + t)
+            xp = torch.randn(b, t + 63, 256, generator=g).to(dtype).cuda()
+            dy = torch.randn(b, t, 256, generator=g).to(dtype).cuda()
+            outs = {}
+            for key, lib in libs.items():
+                with library_of(_build, lib):
+                    outs[key] = conv_pos.convpos_wgrad(xp, dy, 64, 16)
+            torch.cuda.synchronize()
+            report("simulst_convpos_wgrad", f"{str(dtype)[6:]} (B, T) = "
+                   f"({b}, {t})", {"dw": torch.equal(outs["rev"],
+                                                     outs["this"])})
+
+    for i, (label, t, b, s_, how) in enumerate(
+            CTC_CASES if wanted("simulst_ctc_alpha")
+            or wanted("simulst_ctc_d_em") else ()):
+        inputs = ctc_inputs(torch, ctc, t, b, s_, how, 50 + i)
+        want = ctc_entries(torch, _build, libs["rev"], *inputs)
+        got = ctc_entries(torch, _build, libs["this"], *inputs,
+                          *want[1].keep)
+        torch.cuda.synchronize()
+        if wanted("simulst_ctc_alpha"):
+            report("simulst_ctc_alpha", label, {"alphas": torch.equal(
+                want[0].outs[0], got[0].outs[0])})
+        if wanted("simulst_ctc_d_em"):
+            report("simulst_ctc_d_em", label, {"d_em": torch.equal(
+                want[1].outs[0], got[1].outs[0])})
+
     # determinism: this checkout's entries, twice on the same inputs
     with library_of(_build, libs["this"]):
         for entry, call in determinism_calls(torch).items():
@@ -834,6 +984,12 @@ def main():
         align_timed = {name: cs.alignment_panels("cuda",
                                                  *ALIGN_CASES[i][1:])
                        for name, i in ALIGN_TIMED.items()}
+        gc = torch.Generator().manual_seed(13)
+        conv_timed = (torch.randn(32, 319, 256, generator=gc).cuda(),
+                      torch.randn(32, 256, 256, generator=gc).cuda())
+        ctc_timed = ctc_inputs(torch, ctc, *CTC_CASES[0][1:], 50)
+        d_em_timed = {s_: ctc_inputs(torch, ctc, 256, 32, s_, "ragged", s_)
+                      for s_ in D_EM_TIMED_S}
         mha_fwd_timed = {}
         for name, (i, rate) in MHA_FWD_TIMED.items():
             _, b, tq, tk, causal, mask = MHA_FWD_CASES[i]
@@ -879,7 +1035,14 @@ def main():
                 **{name.format(half): call
                    for name, args in align_timed.items()
                    for half, call in zip(("fwd", "bwd"),
-                                         align(key, *args))}}
+                                         align(key, *args))},
+                "convpos_wgrad_ms": convpos_entry(torch, _build, lib,
+                                                  *conv_timed),
+                **dict(zip(("ctc_alpha_ms", "ctc_d_em_ms"), ctc_entries(
+                    torch, _build, lib, *ctc_timed))),
+                **{f"ctc_d_em_s{s_}_ms": ctc_entries(
+                    torch, _build, lib, *inputs)[1]
+                   for s_, inputs in d_em_timed.items()}}
 
         def timed(key):
             return {name: fn for name, fn in entries(key).items()
