@@ -4,8 +4,9 @@ s2t_emformer serving slice, the MT-teacher training slice, the
 s2t_emformer joint-CTC training slice, the MMA slice (training as
 exp/2_mma.sh from that encoder, and its streaming READ/WRITE step) and the
 CIF slice (training as exp/3_cif.sh from that encoder, and serving CIF and
-MMA through the streaming evaluator, as cli/stream_eval does) and the
-sequence-packed ASR training of cli/train --pack.
+MMA through the streaming evaluator, as cli/stream_eval does), the
+offline decoding of the MMA and CIF students and the MT teacher
+(cli/generate) and the sequence-packed ASR training of cli/train --pack.
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -68,6 +69,10 @@ targets):
               gradient, the CTC alphas and d_em) vs their plain versions at
               the shapes of a 32 x 1024-frame batch, at dropout 0 and 0.1
               with one seed, bf16 cases of the LN-FFN and the attention;
+              the CTC alphas also at S 33, 257 and 1023 (T 256, B 32: the
+              kernel's one-warp, halo and every-step-exchange blocks), its
+              registers and spills, and the CTC recursions' chain floor
+              (one warp's dependent LSE pairs on registers, ms per step);
               CUDA-event times beside one PyTorch call of the same function
               (SDPA on the gathered context, conv1d_weight, F.ctc_loss), the
               LN-FFN forward and backward beside their two and five
@@ -125,7 +130,19 @@ targets):
               and 10; the fused sessions' tokens must equal the step-wise
               sessions'; ms per chunk, AL / AP / DAL, CIF launches per
               chunk
- 15. asr-pack  the grouped attention's example-id gate (forward and
+ 15. offline-decode  cli/generate's offline decoding of the trained
+              students and teacher, beam 5, max_len 64: decode_batch for
+              MMA (phase 10's weights) and CIF (phase 13's) on phase 3's 8
+              x 1024-frame batch, decode_batch_mt for the MT teacher
+              (phase 6's) on phase 6's 64 sources; for each the kernels
+              that must launch (counters), ms per batch, and the best
+              hypotheses, each repeated per beam (the decode's own B x 5
+              rows), fed back through the decoder step with the kernels
+              and through the plain versions, logits compared at every
+              step; then cli/generate.main on a synthetic manifest
+              (phase 13's checkpoint, --task asr --scoring wer), its SCORE
+              line printed
+ 16. asr-pack  the grouped attention's example-id gate (forward and
               backward kernels) vs the plain version with the gate, at the
               packed plans of phase 7's batch and of a mixed 96-1024-frame
               batch, at dropout 0 and 0.1; CUDA-event times beside the
@@ -140,7 +157,7 @@ targets):
               SpecAugment, packed vs unpacked from the same parameters
               (encoder output on valid frames, loss, every gradient); and
               kernels vs plain versions on that packed step
- 16. report   a JSON line of per-kernel numbers with their bounds, the
+ 17. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -169,6 +186,8 @@ or when any phase fails.  Tolerances:
                          dropout 0 without SpecAugment (gelu throughout),
                          the MMA step at dropout 0 without p_choose noise
   MMA streaming tokens, fused step vs step-wise loop: equal
+  offline decode (MMA, CIF, MT) logits along the best hypotheses,
+                         kernels vs plain, fp32: atol 1e-4, rtol 1e-4
   CIF integrate-and-fire out and delays within 1e-5 of their largest
                          entries (the same cumsums on both sides; only the
                          order of the sums over frames differs)
@@ -1158,11 +1177,14 @@ def profile_steps(state, train_step, batch, generator, tag):
     return state
 
 
-def phase_train(dev, batch):
+def phase_train(dev, batch, save_path):
     """8 full-width MT training steps through the CLI's loss and the train
-    step, counting launches; then kernels vs plain on one step."""
+    step, counting launches, the trained teacher saved to save_path for the
+    offline-decode phase; then kernels vs plain on one step."""
     import torch
+    from simulst_tpu_torch import config as cfglib
     from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.checkpoint import save_checkpoint
     from simulst_tpu_torch.train.state import (create_train_state,
                                                make_accum_train_step,
                                                make_train_step)
@@ -1203,6 +1225,10 @@ def phase_train(dev, batch):
         peak_memory_gib=peak_gib)
 
     state = profile_steps(state, train_step, batch, generator, "phase6")
+    save_checkpoint(save_path, state.model.state_dict(),
+                    {"model": "mt_transformer",
+                     "config": cfglib.to_dict(model.cfg),
+                     "step": state.step})
     compare_plain_step(state, loss_fn, optim_cfg, batch, "phase6",
                        make_accum_train_step)
     return launches
@@ -1511,6 +1537,37 @@ def phase_asr_kernels(dev, batch):
            **dict(zip(("bound_ms", "bound_by"), bound(
                nbytes(em, can_skip, lengths, tl, got),
                12 * em.numel()))))
+    # the alpha kernel on its other block shapes (halo warps at S 257, an
+    # exchange every step at S 1023), T 256, B 32, ragged lengths
+    gs, alpha_wide = torch.Generator().manual_seed(SEED + 19), {}
+    for s_ in CTC_ALPHA_WIDE_S:
+        Ls = (s_ - 1) // 2
+        tls = torch.randint(Ls // 2, Ls + 1, (b,), generator=gs)
+        ils = torch.randint(t_len // 2, t_len + 1, (b,), generator=gs)
+        tgs = torch.randint(4, 9, (b, Ls), generator=gs)
+        tgs = torch.where(torch.arange(Ls)[None] < tls[:, None], tgs,
+                          torch.ones_like(tgs))
+        _, skips = ctc._ctc_masks(tgs.to(dev), 0)
+        ems = torch.log_softmax(torch.randn(t_len, b, s_, generator=gs),
+                                -1).to(dev)
+        args_s = (ems, skips, ils.to(dev), tls.to(dev))
+        got_s = ctc.ctc_alphas(*args_s)
+        torch.cuda.synchronize()
+        want_s = ctc.alphas_plain(*args_s)
+        sent_s = want_s <= ctc.NEG / 2
+        if not torch.equal(got_s <= ctc.NEG / 2, sent_s) or \
+                not torch.equal(got_s[sent_s], want_s[sent_s]):
+            raise AssertionError(f"ctc_alphas S {s_}: the sentinels differ")
+        ms_s = cuda_ms(lambda: ctc.ctc_alphas(*args_s))
+        alpha_wide[f"S {s_}"] = {
+            "max_abs_err": max_err(f"ctc_alphas S {s_}", got_s[~sent_s],
+                                   want_s[~sent_s], **F32_TOL),
+            "ms": ms_s, "us_per_step": ms_s * 1e3 / t_len}
+    record("ctc_alphas", max_abs_err=max(
+        v["max_abs_err"] for v in alpha_wide.values()),
+        us_per_step=report["ctc_alphas"]["ms"] * 1e3 / t_len,
+        ptxas=ptxas_report("ctc_alpha_kernel"), shapes=alpha_wide,
+        chain_floor=ctc_chain_floor(dev))
     d_em_ms = cuda_ms(lambda: ctc.ctc_d_em(em, want, can_skip, lengths, tl,
                                            scale, nll))
     record("ctc_d_em", max_abs_err=err_d, shape=shape, ms=d_em_ms,
@@ -1767,9 +1824,9 @@ def phase_pack_kernels(dev, plans):
             **dict(zip(("bound_ms", "bound_by"), bound(
                 nbytes(*args, *gate, dout, *got), 10 * d * vis))))
         del sd, sd_out
-        log("phase15", kernel="emformer_grouped_attention_gated", plan=label,
+        log("phase16", kernel="emformer_grouped_attention_gated", plan=label,
             **fwd)
-        log("phase15", kernel="emformer_grouped_attention_gated_backward",
+        log("phase16", kernel="emformer_grouped_attention_gated_backward",
             plan=label, **bwd)
         if not report:
             report = {"emformer_grouped_attention_gated": fwd,
@@ -1809,7 +1866,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     n0 = ASR_FRAMES // 4 // 16
     for label, plan in plans.items():
         rows, n_p = plan.seg_eid.shape
-        log("phase15", plan=label, rows=rows, n_p=n_p,
+        log("phase16", plan=label, rows=rows, n_p=n_p,
             row_frames=n_p * 16, G=s2t.emf._choose_group(
                 n_p, n_p * 16, model.cfg.emformer),
             slots=rows * n_p, unpacked_slots=ASR_UTT * n0,
@@ -1844,14 +1901,14 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     if not all(np.isfinite(losses)) or state.step != ASR_STEPS:
         raise AssertionError(f"losses {losses}, updates {state.step}")
     median = statistics.median(step_ms[1:])
-    log("phase15", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer, "
+    log("phase16", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer, "
         "--pack", utterances=ASR_UTT, rows=int(packed["pack_seg_eid"].shape[0]),
         steps=ASR_STEPS, first_step_ms=step_ms[0], median_step_ms=median,
         unpacked_median_step_ms=unpacked_median_ms,
         packed_over_unpacked=median / unpacked_median_ms, step_ms=step_ms,
         losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
         ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
-    state = profile_steps(state, train_step, packed, generator, "phase15")
+    state = profile_steps(state, train_step, packed, generator, "phase16")
     del state
 
     # packed vs unpacked from the same parameters, at dropout 0 without
@@ -1886,7 +1943,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
             f"packed vs unpacked step: gradient of {worst} off by "
             f"{rel[worst]:.3e} of its largest entry; loss {loss_p} vs "
             f"{loss_d}")
-    log("phase15", packed_vs_unpacked_loss=[loss_p, loss_d],
+    log("phase16", packed_vs_unpacked_loss=[loss_p, loss_d],
         encoder_out_max_abs_err=enc_err,
         grads_max_err_to_largest=rel[worst], grads_worst_param=worst,
         grads_top=sorted(rel.items(), key=lambda kv: -kv[1])[:6])
@@ -1896,7 +1953,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     # 2.1e-5 relative, and kernels vs plain differ by -1.4e-5 to +1.6e-5
     # over four such perturbations, packed or not (tools/gnorm_floor.py,
     # PERF.md), so a 1e-5 limit would hold it to rounding
-    compare_plain_step(initial, loss_fn, optim_cfg, packed, "phase15",
+    compare_plain_step(initial, loss_fn, optim_cfg, packed, "phase16",
                        make_accum_train_step, gnorm_rtol=None)
     return launches, report
 
@@ -1961,6 +2018,38 @@ def ptxas_report(fragment):
         if name and regs:
             report[name]["registers"] = int(regs.group(1))
     return report
+
+
+CHAIN_PROBE_STEPS = (256, 65536)
+CTC_ALPHA_WIDE_S = (33, 257, 1023)   # phase 7's alpha shapes beside S 129
+
+
+def ctc_chain_floor(dev):
+    """The CTC recursions' chain floor: one warp runs T dependent steps of
+    alpha = e + LSE(LSE(alpha, a1), a2) on registers, no memory traffic,
+    its neighbours fixed or taken by the two shuffles the kernels take
+    (csrc/ctc.cu ctc_chain_probe_kernel).  {"shuffles N": {"ms_T<T>",
+    "us_per_step"}}, us_per_step from the longest T."""
+    import torch
+    from simulst_tpu_torch.ops import _build
+    g = torch.Generator().manual_seed(SEED + 17)
+    seed = torch.cat([-10 * torch.rand(32, generator=g),
+                      -torch.rand(32, generator=g),
+                      -10 * torch.rand(32, generator=g)]).to(dev)
+    out = torch.empty(32, device=dev)
+    floor = {}
+    for shuffles in (0, 1):
+        ms = {t: cuda_ms(functools.partial(
+            _build.launch, "simulst_ctc_chain_probe", seed.data_ptr(),
+            out.data_ptr(), t, shuffles, _build.stream_of(seed)),
+            samples=5, runs=5) for t in CHAIN_PROBE_STEPS}
+        if not torch.isfinite(out).all():
+            raise AssertionError("ctc chain probe: non-finite alphas")
+        floor[f"shuffles {shuffles}"] = {
+            **{f"ms_T{t}": v for t, v in ms.items()},
+            "us_per_step": ms[CHAIN_PROBE_STEPS[-1]] * 1e3
+            / CHAIN_PROBE_STEPS[-1]}
+    return floor
 
 
 def alignment_kernel(report, half, s):
@@ -2345,6 +2434,129 @@ def phase_cif_train(dev, batch, asr_checkpoint, save_path):
     return launches
 
 
+# kernels each offline decode must launch: the speech encoder's (LN-FFN,
+# grouped attention and its epilogue) and the decoder FFN for MMA and CIF,
+# whose decoder steps run their self- and cross-attention in plain torch,
+# and CIF's integrate-and-fire; the text encoder's attention cores and the
+# decoder step's cross-attention (core and epilogue) and FFN for MT
+OFFLINE_DECODE_KERNELS = {
+    "mma": ("fused_ln_ffn_res", "emformer_grouped_attention",
+            "fused_linear_res", "fused_ffn"),
+    "cif": ("fused_ln_ffn_res", "emformer_grouped_attention",
+            "fused_linear_res", "fused_ffn", "cif_integrate"),
+    "mt": ("fused_mha", "fused_linear_res", "fused_ffn")}
+
+
+def hypothesis_logits(build, model, batch, tokens):
+    """(B * BEAM, L, V) logits of the decoder step fed the hypotheses tokens
+    (B, L), each row's repeated BEAM times, one token at a time after EOS
+    (no search): the scores the search saw along its best hypotheses, at
+    the decode's own N = B * BEAM rows."""
+    import torch
+    from simulst_tpu_torch.decode.beam import BeamConfig
+    step_fn, state, _ = build(model, batch, BeamConfig(
+        beam_size=BEAM, max_len=tokens.shape[1]))
+    tokens = tokens.repeat_interleave(BEAM, dim=0)
+    prev = torch.full_like(tokens[:, 0], 2)
+    out = []
+    for t in range(tokens.shape[1]):
+        logits, state = step_fn(state, prev)
+        out.append(logits.float())
+        prev = tokens[:, t]
+    return torch.stack(out, dim=1)
+
+
+def phase_offline_decode(dev, workdir, checkpoints, speech, mt_src):
+    """cli/generate's offline decoding of phase 10's MMA and phase 13's
+    CIF on phase 3's batch and of phase 6's MT teacher on its sources,
+    beam 5: launches counted per decode, ms per batch, the best hypotheses
+    rescored through the plain versions; then cli/generate.main on a
+    synthetic manifest.  Returns the decodes' launches."""
+    import torch
+    from simulst_tpu_torch.cli import generate
+    from simulst_tpu_torch.data import manifest as mf
+    from simulst_tpu_torch.data.synthetic import mustc_like_rows
+    from simulst_tpu_torch.decode.beam import BeamConfig
+
+    beam_cfg = BeamConfig(beam_size=BEAM, max_len=MAX_LEN)
+    runs = {"mma": (generate._build_mma, generate.decode_batch, speech),
+            "cif": (generate._build_cif, generate.decode_batch, speech),
+            "mt": (generate._build_mt, generate.decode_batch_mt,
+                   {"src_tokens": mt_src})}
+    launches = {}
+    for kind, (build, decode, batch) in runs.items():
+        model = generate.load_model(checkpoints[kind], ASR_VOCAB if
+                                    kind != "mt" else 8000, device=dev)
+        n = len(next(iter(batch.values())))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, lengths = decode(model, batch, beam_cfg)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        launched = read_launches()
+        missing = [k for k in OFFLINE_DECODE_KERNELS[kind]
+                   if not launched[k]]
+        if missing:
+            raise AssertionError(f"{kind}: {missing} did not launch in the "
+                                 f"offline decode: {launched}")
+        launches = {k: launches.get(k, 0) + v for k, v in launched.items()}
+        if tokens.shape != (n, MAX_LEN) or not (
+                (lengths >= 1) & (lengths <= MAX_LEN)).all():
+            raise AssertionError(f"{kind}: decode output "
+                                 f"{tuple(tokens.shape)}, lengths "
+                                 f"{lengths.tolist()}")
+        t0 = time.perf_counter()
+        decode(model, batch, beam_cfg)
+        torch.cuda.synchronize()
+        steady_ms = (time.perf_counter() - t0) * 1e3
+        got = hypothesis_logits(build, model, batch, tokens)
+        with plain_training():
+            want = hypothesis_logits(build, model, batch, tokens)
+        live = (torch.arange(MAX_LEN, device=dev)[None, :]
+                < lengths.repeat_interleave(BEAM)[:, None])
+        err = max_err(f"{kind} offline decode logits along the best "
+                      "hypotheses, kernels vs plain", got[live], want[live],
+                      **F32_TOL)
+        log("phase15", model=kind, batch=n, beam=BEAM, max_len=MAX_LEN,
+            first_ms_per_batch=first_ms, steady_ms_per_batch=steady_ms,
+            token_lengths=lengths.tolist(), launches=launched,
+            logits_max_abs_err=err)
+        del model
+
+    # cli/generate main: phase 13's CIF checkpoint on a synthetic manifest
+    root = os.path.join(workdir, "generate")
+    os.makedirs(root)
+    rows = mustc_like_rows(N_UTT, seed=SEED, tmpdir=root,
+                           feat_dim=80)
+    rng = np.random.RandomState(SEED + 23)
+    specs = mf.create_feature_zip(
+        {r["id"]: rng.randn(int(r["n_frames"]), 80).astype(np.float32)
+         for r in rows}, os.path.join(root, "feats.zip"))
+    for r in rows:
+        r["audio"] = specs[r["id"]]
+    mf.save_tsv(rows, os.path.join(root, "tst-COMMON_st.tsv"))
+    with open(os.path.join(root, "spm_serve.txt"), "w") as f:
+        f.writelines(f"{w} 1\n" for w in serve_vocab().symbols[4:])
+    out = os.path.join(root, "generate.txt")
+    t0 = time.perf_counter()
+    score = generate.main(["--data", root, "--checkpoint", checkpoints["cif"],
+                           "--task", "asr", "--scoring", "wer", "--beam",
+                           str(BEAM), "--max-len", str(MAX_LEN), "--output",
+                           out])
+    with open(out) as f:
+        lines = f.read().splitlines()
+    if sum(line.startswith("D-") for line in lines) != N_UTT or \
+            not lines[-1].startswith("SCORE\twer\t") or \
+            not np.isfinite(score):
+        raise AssertionError(f"cli/generate main wrote {lines[-3:]}")
+    print(f"phase15 generate: {lines[-1]}", flush=True)
+    log("phase15", generate_main="cif --task asr --scoring wer",
+        utterances=N_UTT, frames=[int(r["n_frames"]) for r in rows],
+        wer=score, s=time.perf_counter() - t0)
+    return launches
+
+
 def serve_vocab():
     """A dictionary of ASR_VOCAB ids, each piece a word of its own, so that
     every token is committed (and timed) as it is written."""
@@ -2563,8 +2775,12 @@ def run(dev):
     with torch.no_grad():
         report.update(phase_train_kernels(dev, mt_batch))
 
-    # 6. MT training steps
-    training = phase_train(dev, mt_batch)
+    # 6. MT training steps; the trained teacher is decoded in phase 15
+    workdir = tempfile.TemporaryDirectory()
+    checkpoints = {kind: os.path.join(workdir.name, f"{kind}_checkpoint")
+                   for kind in ("cif", "mma", "mt")}
+    training = phase_train(dev, mt_batch, checkpoints["mt"])
+    mt_src = mt_batch["src_tokens"]
     del mt_batch
 
     # 7. ASR training kernels vs plain at the 32 x 1024-frame shapes
@@ -2573,7 +2789,6 @@ def run(dev):
         report.update(phase_asr_kernels(dev, asr))
 
     # 8. ASR training steps; the trained encoder is MMA's starting point
-    workdir = tempfile.TemporaryDirectory()
     asr_checkpoint = os.path.join(workdir.name, "asr_checkpoint_last")
     asr_training, asr_median_ms = phase_asr_train(dev, asr, asr_checkpoint)
 
@@ -2585,8 +2800,6 @@ def run(dev):
     mma_training, mma_model = phase_mma_train(dev, asr, asr_checkpoint)
     from simulst_tpu_torch import config as cfglib
     from simulst_tpu_torch.train.checkpoint import save_checkpoint
-    checkpoints = {kind: os.path.join(workdir.name, f"{kind}_checkpoint")
-                   for kind in ("cif", "mma")}
     save_checkpoint(checkpoints["mma"], mma_model.state_dict(),
                     {"model": "mma", "config": cfglib.to_dict(mma_model.cfg)})
 
@@ -2605,18 +2818,25 @@ def run(dev):
 
     # 14. CIF and MMA through the streaming evaluator
     cif_serving = phase_serve(dev, workdir.name, checkpoints)
+
+    # 15. offline decoding of MMA, CIF and MT; cli/generate main
+    with torch.no_grad():
+        offline_decode = phase_offline_decode(
+            dev, workdir.name, checkpoints,
+            {"feats": feats, "feat_lengths": lengths}, mt_src)
+    del feats, lengths, mt_src
     workdir.cleanup()
 
-    # 15. sequence-packed ASR training (cli/train --pack)
+    # 16. sequence-packed ASR training (cli/train --pack)
     pack_training, pack_report = phase_asr_pack(dev, asr, asr_median_ms)
     report.update(pack_report)
     del asr
 
-    # 16. report
+    # 17. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
-             "asr-pack": pack_training}
+             "offline-decode": offline_decode, "asr-pack": pack_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -2625,7 +2845,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase16", total_s=time.perf_counter() - started)
+    log("phase17", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

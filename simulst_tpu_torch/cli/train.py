@@ -45,10 +45,15 @@ exactly the keys the model has, so an ASR encoder's CTC head is left
 behind.  --pack (s2t_emformer + joint_ctc only) trains the Emformer stack
 over sequence-packed rows (train/packing.py): each training batch gets a
 pack plan, whose row length is fixed per frame bucket by that bucket's
-first batch; validation stays unpacked.  The model trains on the card
-unless --device names another.  Any other task, model or loss, and the
---eval-metric and --mtl options, raise: those are not yet ported (ROADMAP
-Queue 1).
+first batch; validation stays unpacked.  --eval-metric bleu|wer adds the
+inline decode's corpus BLEU or WER to each validation (greedy, or beam
+--eval-beam, up to --eval-max-len tokens, through cli/generate's
+decode_batch), and the best checkpoints follow --best-metric (by default
+that metric; BLEU kept by maximum, loss and WER by minimum); as in the
+JAX package, --task mt never decodes, so with --eval-metric bleu it
+writes no best checkpoint and never counts patience.  The model trains on
+the card unless --device names another.  Any other task, model or loss,
+and the --mtl option, raise: those are not yet ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -60,11 +65,14 @@ import numpy as np
 import torch
 
 from simulst_tpu_torch import config as cfglib
+from simulst_tpu_torch.cli.generate import decode_batch
 from simulst_tpu_torch.data.dataset import (BatcherConfig, SpeechDataset,
                                             make_batches)
 from simulst_tpu_torch.data.manifest import filter_by_frames, load_tsv
 from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
-from simulst_tpu_torch.data.vocab import PAD, Vocabulary
+from simulst_tpu_torch.data.vocab import EOS, PAD, Vocabulary
+from simulst_tpu_torch.decode.beam import BeamConfig
+from simulst_tpu_torch.decode.scoring import corpus_bleu, wer
 from simulst_tpu_torch.losses.cif_loss import CIFLossConfig, cif_loss
 from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
@@ -141,9 +149,16 @@ def parser() -> argparse.ArgumentParser:
                    help="sequence packing: run the Emformer stack over "
                         "segment-packed rows (train/packing.py); "
                         "s2t_emformer + joint_ctc")
-    # the JAX package's options that the port does not take yet
     p.add_argument("--eval-metric", default="none",
-                   choices=["none", "bleu", "wer"])
+                   choices=["none", "bleu", "wer"],
+                   help="inline validation metric (the reference's "
+                        "inference config)")
+    p.add_argument("--eval-beam", type=int, default=1)
+    p.add_argument("--eval-max-len", type=int, default=96)
+    p.add_argument("--best-metric", default=None,
+                   help="metric for best-checkpoint selection (default: "
+                        "the eval metric if set, else loss)")
+    # the JAX package's options that the port does not take yet
     p.add_argument("--mtl", action="store_true")
     return p
 
@@ -151,9 +166,7 @@ def parser() -> argparse.ArgumentParser:
 def parse_args(argv=None) -> argparse.Namespace:
     args = parser().parse_args(argv)
     path = (args.task, args.model, args.loss)
-    unported = [f"--{k.replace('_', '-')}" for k, off in
-                (("eval_metric", "none"), ("mtl", False))
-                if getattr(args, k) != off]
+    unported = ["--mtl"] if args.mtl else []
     if path not in PORTED or unported:
         what = " ".join(unported) or \
             f"--task {args.task} --model {args.model} --loss {args.loss}"
@@ -171,26 +184,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def _checkpoint_params(path: str):
-    """The parameters of a checkpoint: its state_dict, or a resumable
-    checkpoint's params."""
-    state, _ = load_checkpoint(path)
+def checkpoint_params(state):
+    """The parameters of a restored checkpoint: its state_dict, or a
+    resumable checkpoint's params."""
     return state["params"] if "params" in state else state
 
 
-def build_model(args, vocab_size: int, device=None):
+def _checkpoint_params(path: str):
+    return checkpoint_params(load_checkpoint(path)[0])
+
+
+def build_model(args, vocab_size: int, device=None, params=None):
     """The model's default config (transformer_small, s2t_emformer_s, or
     MMA or CIF on s2t_emformer_s) with --override applied; weights from a
-    generator seeded with --seed, then from --load-params and the
-    --load-pretrained-*-from components."""
+    generator seeded with --seed, then from `params` (a restored
+    checkpoint's) or --load-params and the --load-pretrained-*-from
+    components."""
     config_cls, model_cls = MODELS[args.model]
     cfg = cfglib.apply_overrides(config_cls(vocab_size=vocab_size),
                                  args.overrides)
     model = model_cls(cfg, generator=torch.Generator().manual_seed(args.seed),
                       device=device)
-    if args.load_params:
-        model.load_state_dict(conform_state(
-            model.state_dict(), _checkpoint_params(args.load_params)))
+    if params is None and args.load_params:
+        params = _checkpoint_params(args.load_params)
+    if params is not None:
+        model.load_state_dict(conform_state(model.state_dict(), params))
     for comp, path in (("encoder", args.load_pretrained_encoder_from),
                        ("decoder", args.load_pretrained_decoder_from)):
         if path:
@@ -285,19 +303,42 @@ def optim_config(args) -> OptimConfig:
                        clip_norm=args.clip_norm)
 
 
-def build_valid_fn(loss_fn, batches_fn, device):
-    """Validation loss per sample_size unit, no dropout."""
+def build_valid_fn(args, vocab, loss_fn, batches_fn, device):
+    """Validation loss per sample_size unit, no dropout; with --eval-metric
+    also the corpus BLEU or WER of the inline decode (greedy or beam
+    --eval-beam through cli/generate's decode_batch), except for --task mt,
+    which validates on the loss alone, as the JAX package's does."""
+    decode = args.eval_metric != "none" and args.task != "mt"
+    beam_cfg = BeamConfig(beam_size=args.eval_beam,
+                          max_len=args.eval_max_len)
+
     def valid_fn(model):
         total, n = 0.0, 0.0
+        refs, hyps = [], []
         for batch in batches_fn():
-            for key in ("ids", "n_real", "indices"):
-                batch.pop(key, None)
+            ids, n_real = batch.pop("ids", None), batch.pop("n_real", None)
+            batch.pop("indices", None)
             batch = {k: torch.as_tensor(v, device=device)
                      for k, v in batch.items()}
             _, metrics = loss_fn(model, batch, None)
             total += float(metrics["loss"])
             n += float(metrics["sample_size"])
-        return {"loss": total / max(n, 1.0)}
+            if not decode or ids is None:
+                continue
+            tokens, lengths = decode_batch(model, batch, beam_cfg)
+            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            target = batch["target"].cpu().numpy()
+            for j in range(tokens.shape[0] if n_real is None else n_real):
+                hyps.append(vocab.decode_ids(
+                    [int(t) for t in tokens[j][:int(lengths[j])]
+                     if t != EOS]))
+                refs.append(vocab.decode_ids(
+                    [int(t) for t in target[j] if t not in (PAD, EOS)]))
+        out = {"loss": total / max(n, 1.0)}
+        if refs:
+            score = corpus_bleu if args.eval_metric == "bleu" else wer
+            out[args.eval_metric] = score(refs, hyps)
+        return out
     return valid_fn
 
 
@@ -358,13 +399,18 @@ def main(argv=None):
             for batch in unpacked(epoch):
                 yield attach_pack_plan(batch, model, n_p_by_bucket)
 
+    best_metric = args.best_metric or (
+        args.eval_metric if args.eval_metric != "none" else "loss")
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
-                          save_dir=args.save_dir, seed=args.seed)
+                          save_dir=args.save_dir, seed=args.seed,
+                          best_metric=best_metric,
+                          maximize_metric=best_metric == "bleu")
     metadata = {"model": args.model, "config": cfglib.to_dict(model.cfg)}
     if args.task != "mt":
         metadata["cmvn"] = args.cmvn
     trainer = Trainer(loss_fn, optim_config(args), loop_cfg, model,
-                      valid_fn=build_valid_fn(loss_fn, valid_batches, device),
+                      valid_fn=build_valid_fn(args, vocab, loss_fn,
+                                              valid_batches, device),
                       update_freq=args.update_freq, metadata=metadata,
                       device=device)
     if args.resume:

@@ -23,6 +23,18 @@ def load_tsv(path: str) -> List[Dict[str, str]]:
         return [dict(r) for r in reader]
 
 
+def save_tsv(rows: List[Dict[str, str]], path: str):
+    if not rows:
+        raise ValueError("empty manifest")
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0].keys()), delimiter="\t",
+                           quotechar=None, doublequote=False,
+                           quoting=csv.QUOTE_NONE)
+        w.writeheader()
+        for r in rows:
+            w.writerow(r)
+
+
 def filter_by_frames(rows, min_frames: int = 5, max_frames: int = 3000):
     return [r for r in rows
             if min_frames <= int(r["n_frames"]) <= max_frames]

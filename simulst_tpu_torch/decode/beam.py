@@ -26,7 +26,10 @@ class BeamConfig:
     len_penalty: float = 1.0
     pad_idx: int = 1
     eos_idx: int = 2
+    # fairseq's generation options:
     min_len: int = 1           # EOS blocked while fewer tokens than this
+    unk_penalty: float = 0.0   # subtracted from the unk log-prob
+    unk_idx: int = 3
 
 
 class BeamResult(NamedTuple):
@@ -41,12 +44,25 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _forced(prefix_tokens, t: int, pad_idx: int):
+    """(forced token (B,), has a prefix token at step t (B,)) of a PAD-padded
+    (B, P) prefix."""
+    p = prefix_tokens.shape[1]
+    forced = prefix_tokens[:, min(t, p - 1)].long()
+    if t >= p:
+        forced = torch.full_like(forced, pad_idx)
+    return forced, forced != pad_idx
+
+
 def beam_search(step_fn: Callable, init_state, batch_size: int,
-                cfg: BeamConfig, reorder_fn: Callable,
+                cfg: BeamConfig, reorder_fn: Callable, prefix_tokens=None,
                 device=None) -> BeamResult:
     """step_fn(state, tokens (N,)) -> (logits (N, V), state) with
     N = batch * beam, seeded with EOS (the fairseq convention);
-    reorder_fn(state, idx (N,)) -> state gathered along the batch axis."""
+    reorder_fn(state, idx (N,)) -> state gathered along the batch axis.
+    prefix_tokens: (B, P) PAD-padded; each hypothesis starts with its row's prefix (fairseq's --prefix-size: the
+    prefix token keeps its model score, every other continuation is
+    masked)."""
     bsz, beam, L = batch_size, cfg.beam_size, cfg.max_len
     n = bsz * beam
     ar_b = torch.arange(bsz, device=device)[:, None]
@@ -68,8 +84,15 @@ def beam_search(step_fn: Callable, init_state, batch_size: int,
         v = lprobs.shape[-1]
         lprobs = lprobs.reshape(bsz, beam, v)
         lprobs[:, :, cfg.pad_idx] = NEG            # never produce PAD
+        if cfg.unk_penalty:
+            lprobs[:, :, cfg.unk_idx] -= cfg.unk_penalty
         if t < cfg.min_len:                        # block EOS until min_len
             lprobs[:, :, cfg.eos_idx] = NEG
+        if prefix_tokens is not None:
+            forced, has = _forced(prefix_tokens, t, cfg.pad_idx)
+            keep = torch.nn.functional.one_hot(forced, v).bool()[:, None]
+            masked = torch.where(keep, lprobs, torch.full_like(lprobs, NEG))
+            lprobs = torch.where(has[:, None, None], masked, lprobs)
 
         cand = scores[:, :, None] + lprobs                      # (B, beam, V)
         k2 = min(2 * beam, beam * v)
@@ -117,9 +140,9 @@ def beam_search(step_fn: Callable, init_state, batch_size: int,
 
 
 def greedy_decode(step_fn: Callable, init_state, batch_size: int,
-                  cfg: BeamConfig, device=None):
-    """Greedy (beam 1) decode seeded with EOS.  Returns (tokens
-    (B, max_len), lengths (B,))."""
+                  cfg: BeamConfig, prefix_tokens=None, device=None):
+    """Greedy (beam 1) decode seeded with EOS; prefix_tokens (B, P),
+    PAD-padded, forces each row's first tokens.  Returns (tokens (B, max_len), lengths (B,))."""
     tokens = torch.full((batch_size, cfg.max_len), cfg.pad_idx,
                         dtype=torch.int64, device=device)
     prev = torch.full((batch_size,), cfg.eos_idx, dtype=torch.int64,
@@ -129,9 +152,14 @@ def greedy_decode(step_fn: Callable, init_state, batch_size: int,
     for t in range(cfg.max_len):
         logits, state = step_fn(state, prev)
         lg = logits.float()
+        if cfg.unk_penalty:
+            lg[:, cfg.unk_idx] -= cfg.unk_penalty
         if t < cfg.min_len:
             lg[:, cfg.eos_idx] = NEG
         nxt = lg.argmax(dim=-1)
+        if prefix_tokens is not None:
+            forced, has = _forced(prefix_tokens, t, cfg.pad_idx)
+            nxt = torch.where(has, forced, nxt)
         nxt = torch.where(done, torch.full_like(nxt, cfg.pad_idx), nxt)
         tokens[:, t] = nxt
         done = done | (nxt == cfg.eos_idx)

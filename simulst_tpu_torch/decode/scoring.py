@@ -1,14 +1,17 @@
 """Corpus scoring: WER and BLEU (a copy of simulst_tpu/decode/scoring.py
 without sacrebleu, which the port does not depend on).
 
-BLEU is computed from summable n-gram statistics over whitespace tokens,
-with sacrebleu's default exponential smoothing; it equals sacrebleu's
-corpus_bleu wherever sacrebleu's 13a tokenizer splits as whitespace does
-(text without punctuation, or text already tokenized).
+BLEU is sacrebleu's corpus_bleu with its defaults, written out: each
+segment tokenized by the 13a tokenizer (mteval-v13a, `tokenize_13a`),
+summable n-gram statistics over the tokens, exponential smoothing, 0
+where no n-gram matches.  The JAX package calls sacrebleu where it is
+installed, so both score the same text alike, punctuation and the
+decoder's "<unk>" included.
 """
 from __future__ import annotations
 
 import math
+import re
 from collections import Counter
 from typing import List, Sequence, Tuple
 
@@ -56,28 +59,57 @@ def bleu_stats(refs: List[str], hyps: List[str], order: int = 4):
     return counts, totals, sys_len, ref_len
 
 
-def bleu_from_stats(counts, totals, sys_len, ref_len, smooth: str = "exp"):
+def bleu_from_stats(counts, totals, sys_len, ref_len):
     """BLEU from the statistics, as sacrebleu's compute_bleu with its
-    default smooth_method 'exp': each order with no match doubles an
-    accumulator m and scores 1 / (m total)."""
-    precisions = []
+    default smooth_method 'exp' (each order with no match doubles an
+    accumulator m and scores 100 / (m total)), in its order of
+    operations."""
+    bp = 1.0
+    if sys_len < ref_len:
+        bp = math.exp(1 - ref_len / sys_len) if sys_len > 0 else 0.0
+    precisions = [0.0] * 4
+    if not any(int(c) for c in counts):
+        return 0.0
     smooth_mteval = 1.0
     for n in range(4):
         c, t = int(counts[n]), int(totals[n])
         if t == 0:
-            return 0.0
+            break
         if c == 0:
-            if smooth != "exp":
-                return 0.0
-            smooth_mteval *= 2.0
-            precisions.append(1.0 / (smooth_mteval * t))
+            smooth_mteval *= 2
+            precisions[n] = 100.0 / (smooth_mteval * t)
         else:
-            precisions.append(c / t)
-    log_p = sum(math.log(p) for p in precisions) / 4
-    bp = 1.0 if sys_len > ref_len else (
-        math.exp(1 - ref_len / sys_len) if sys_len > 0 else 0.0)
-    return 100.0 * bp * math.exp(log_p)
+            precisions[n] = 100.0 * c / t
+    # sacrebleu's floored log: an order left at 0 scores exp(-huge) = 0
+    return bp * math.exp(
+        sum([math.log(p) if p != 0.0 else -9999999999
+             for p in precisions]) / 4)
+
+
+# mteval-v13a's language-independent rules, as sacrebleu's Tokenizer13a
+_RULES_13A = (
+    (re.compile(r"([\{-\~\[-\` -\&\(-\+\:-\@\/])"), r" \1 "),
+    (re.compile(r"([^0-9])([\.,])"), r"\1 \2 "),      # . , not after a digit
+    (re.compile(r"([\.,])([^0-9])"), r" \1 \2"),      # . , not before one
+    (re.compile(r"([0-9])(-)"), r"\1 \2 "),           # - after a digit
+)
+
+
+def tokenize_13a(line: str) -> str:
+    """sacrebleu's 13a tokenization of one segment."""
+    line = line.replace("<skipped>", "").replace("-\n", "")
+    line = line.replace("\n", " ")
+    if "&" in line:
+        line = line.replace("&quot;", '"').replace("&amp;", "&")
+        line = line.replace("&lt;", "<").replace("&gt;", ">")
+    line = f" {line} "
+    for rule, repl in _RULES_13A:
+        line = rule.sub(repl, line)
+    return " ".join(line.split())
 
 
 def corpus_bleu(refs: List[str], hyps: List[str]) -> float:
-    return bleu_from_stats(*bleu_stats(refs, hyps))
+    """sacrebleu.corpus_bleu(hyps, [refs]).score."""
+    return bleu_from_stats(*bleu_stats(
+        [tokenize_13a(r.rstrip()) for r in refs],
+        [tokenize_13a(h.rstrip()) for h in hyps]))

@@ -89,6 +89,8 @@ SIGNATURES = {
     "simulst_ctc_d_em": [_P] * 8 + [_I] * 3 + [_P],
     # mismatches (one int64), stream
     "simulst_ctc_log1p_check": [_P, _P],
+    # seed (96 floats), out (32 floats), steps, shuffles, stream
+    "simulst_ctc_chain_probe": [_P, _P, _I, _I, _P],
     # prefix, denom, alphas, N, U, S, stream
     "simulst_alignment_fwd": [_P] * 3 + [_I] * 3 + [_P],
     # prefix, denom, alphas, g, d_prefix, d_denom, N, U, S, stream

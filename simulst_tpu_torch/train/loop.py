@@ -4,9 +4,10 @@ validation loss in the file name, patience early stopping, jsonl logging.
 
 The JAX loop's tensorboard and wandb sinks and its profiler hook are not
 ported; the jsonl log (<save_dir>/train_log.jsonl, echoed to stdout) is
-the one sink.  Its BLEU/WER best-checkpoint selection waits for a task
-that computes them (ROADMAP Queue 1): the best checkpoint is the lowest
-validation loss.
+the one sink.  The best checkpoints follow `best_metric` of the
+validation metrics (loss, or the inline decode's BLEU or WER), kept by
+maximum where `maximize_metric`; a validation without that metric saves
+nothing and counts no patience, as in the JAX loop.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ class LoopConfig:
     log_interval: int = 100
     validate_interval_updates: int = 1000
     keep_best: int = 5
+    best_metric: str = "loss"     # "loss" | "wer" | "bleu"
+    maximize_metric: bool = False
     patience: int = 0
     save_dir: str = "checkpoints"
     seed: int = 1
@@ -109,9 +112,13 @@ class Trainer:
     def _maybe_save_best(self, metrics: Dict[str, float],
                          count_patience: bool = False):
         cfg = self.loop_cfg
-        value = metrics["loss"]
-        better = self.best is None or value < self.best
-        name = f"checkpoint.best_loss_{value:.4f}"
+        value = metrics.get(cfg.best_metric)
+        if value is None:
+            return
+        better = self.best is None or (value > self.best if
+                                       cfg.maximize_metric else
+                                       value < self.best)
+        name = f"checkpoint.best_{cfg.best_metric}_{value:.4f}"
         save_checkpoint(os.path.join(cfg.save_dir, name),
                         self.state.model.state_dict(),
                         metadata={**self.metadata, "step": self.state.step})
@@ -123,7 +130,7 @@ class Trainer:
             # improvement; mid-epoch validations checkpoint only
             self.bad_epochs += 1
         keep = set(find_best_checkpoints(cfg.save_dir, cfg.keep_best,
-                                         maximize=False))
+                                         maximize=cfg.maximize_metric))
         for f in os.listdir(cfg.save_dir):
             p = os.path.join(cfg.save_dir, f)
             if re.match(r"checkpoint\.best_", f) and p not in keep:

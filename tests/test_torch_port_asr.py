@@ -538,8 +538,18 @@ def test_cli_trains_asr_on_the_cpu(tmp_path):
 UNPORTED = (NotImplementedError, "ROADMAP Queue 1")
 
 
+def test_cli_parses_and_validates_eval_metric():
+    """--eval-metric wer parses with its decode options; an unknown metric
+    is refused by the parser."""
+    args = tcli.parse_args(ASR_ARGS + ["--eval-metric", "wer",
+                                       "--eval-beam", "3"])
+    assert (args.eval_metric, args.eval_beam, args.eval_max_len,
+            args.best_metric) == ("wer", 3, 96, None)
+    with pytest.raises(SystemExit):
+        tcli.parse_args(ASR_ARGS + ["--eval-metric", "ter"])
+
+
 @pytest.mark.parametrize("argv,error", [
-    (ASR_ARGS + ["--eval-metric", "wer"], UNPORTED),
     # --pack is ported for s2t_emformer + joint_ctc, the one path the JAX
     # package packs; elsewhere it raises, as the JAX package asserts
     (["--task", "st", "--model", "mma", "--loss", "mma", "--pack"],
@@ -549,7 +559,7 @@ UNPORTED = (NotImplementedError, "ROADMAP Queue 1")
     (["--task", "asr", "--model", "mma", "--loss", "joint_ctc"], UNPORTED),
     (["--task", "mt", "--model", "s2t_emformer", "--loss", "joint_ctc"],
      UNPORTED),
-], ids=["eval-metric", "pack", "mtl", "mma-loss", "mma-model", "mt-task"])
+], ids=["pack", "mtl", "mma-loss", "mma-model", "mt-task"])
 def test_cli_rejects_unported_options(argv, error):
     with pytest.raises(error[0], match=error[1]):
         tcli.parse_args(argv)

@@ -438,6 +438,32 @@ def test_ctc_kernels_match_plain(randn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t,s", [(60, 33), (60, 257), (120, 1023)])
+def test_ctc_alpha_paths_match_plain(randn, t, s):
+    """Alphas at S 33 and 257 (2 and 11 warps refreshing halo states every
+    4 steps) and at S 1023 (32 warps exchanging border states every step):
+    finite entries atol 1e-4, the -1e30 sentinels equal.  The first two
+    targets fit their frames, the third cannot, the fourth is empty."""
+    b, L = 4, (s - 1) // 2
+    em = torch.log_softmax(randn(t, b, s), dim=-1)
+    g = torch.Generator().manual_seed(s + 1)
+    targets = torch.randint(3, 9, (b, L), generator=g).cuda()
+    targets[1, 3] = targets[1, 2]
+    _, can_skip = ctc._ctc_masks(targets, 0)
+    il = torch.tensor([t, t - 19, 5, t], device="cuda")
+    tl = torch.tensor([min(L, t // 2), min(L // 2, t // 3), L, 0],
+                      device="cuda")
+    before = ctc.ctc_alphas.launches
+    got = ctc.ctc_alphas(em, can_skip, il, tl)
+    assert ctc.ctc_alphas.launches == before + 1
+    want = ctc.alphas_plain(em, can_skip, il, tl)
+    sentinel = want <= ctc.NEG / 2
+    assert torch.equal(got <= ctc.NEG / 2, sentinel)
+    assert torch.equal(got[sentinel], want[sentinel])
+    torch.testing.assert_close(got[~sentinel], want[~sentinel], **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("t,s", [(60, 33), (60, 65), (60, 129), (60, 257),
                                  (120, 1023), (1, 17)])
 def test_ctc_d_em_paths_match_plain(randn, t, s):

@@ -74,11 +74,11 @@ inputs, and each output is compared with torch.equal:
                          lengths 192-256, the card test's (60, 4, 17) with
                          an example whose target cannot fit its frames and
                          frames past the input length, S 33, 65, 257 and
-                         1023, and T 1
-  simulst_ctc_d_em       d_em at the same cases on the revision's alphas
-                         (one beta warp at S 17; halo warps, one exchange
-                         every 4 steps, at S 33-257; an exchange every step
-                         at S 1023)
+                         1023, and T 1 (one warp at S 17; halo warps, one
+                         exchange every 4 steps, at S 33-257; an exchange
+                         every step at S 1023)
+  simulst_ctc_d_em       d_em at the same cases on the revision's alphas,
+                         on the same block shapes
 
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
@@ -114,8 +114,10 @@ the linear-res forward on each path from 1 to 12,800 rows (fp32, rate
 0.1), which places ops/linear_res.py's TILED_MIN_ROWS and WIDE_MIN_ROWS,
 and the MHA forward on both kernels at Tq 1 to 64 over 256 keys (B 40,
 rate 0) and at the timed shapes, which places ops/mha.py's
-DECODE_MAX_TQ; and d_em's C entry of both builds, in turns, at S 33,
-65, 129, 257 and 1023 (T 256, B 32).
+DECODE_MAX_TQ; the alpha's and d_em's C entries of both builds, in
+turns, at S 33, 65, 129, 257 and 1023 (T 256, B 32); and the CTC
+recursions' chain floor (chip_smoke.ctc_chain_floor: one warp's T
+dependent LSE pairs on registers, with and without the two shuffles).
 
 On a machine with the card, from the repository root:
 
@@ -1040,9 +1042,10 @@ def main():
                                                   *conv_timed),
                 **dict(zip(("ctc_alpha_ms", "ctc_d_em_ms"), ctc_entries(
                     torch, _build, lib, *ctc_timed))),
-                **{f"ctc_d_em_s{s_}_ms": ctc_entries(
-                    torch, _build, lib, *inputs)[1]
-                   for s_, inputs in d_em_timed.items()}}
+                **{f"ctc_{half}_s{s_}_ms": call
+                   for s_, inputs in d_em_timed.items()
+                   for half, call in zip(("alpha", "d_em"), ctc_entries(
+                       torch, _build, lib, *inputs))}}
 
         def timed(key):
             return {name: fn for name, fn in entries(key).items()
@@ -1087,6 +1090,10 @@ def main():
                                       rate, code))
                 for p, code in mha.FWD_PATHS.items()}
         print("forward_paths_ms " + json.dumps(crossover), flush=True)
+        if wanted("simulst_ctc_alpha") or wanted("simulst_ctc_d_em"):
+            with library_of(_build, libs["this"]):
+                print("ctc_chain_floor " + json.dumps(
+                    cs.ctc_chain_floor("cuda")), flush=True)
 
     ok = all(s["all_equal"] for s in summary.values())
     print(json.dumps({"bitcheck": {"rev": args.rev, **summary}}), flush=True)
