@@ -4,8 +4,8 @@ s2t_emformer serving slice, the MT-teacher training slice, the
 s2t_emformer joint-CTC training slice, the MMA slice (training as
 exp/2_mma.sh from that encoder, and its streaming READ/WRITE step) and the
 CIF slice (training as exp/3_cif.sh from that encoder, and serving CIF and
-MMA through the streaming evaluator, as cli/stream_eval does), the
-offline decoding of the MMA and CIF students and the MT teacher
+MMA through the streaming evaluator, as cli/stream_eval does, one
+utterance at a time and batched), the offline decoding of the MMA and CIF students and the MT teacher
 (cli/generate) and the sequence-packed ASR training of cli/train --pack.
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
@@ -130,7 +130,27 @@ targets):
               and 10; the fused sessions' tokens must equal the step-wise
               sessions'; ms per chunk, AL / AP / DAL, CIF launches per
               chunk
- 15. offline-decode  cli/generate's offline decoding of the trained
+ 15. batched-serve  stream/evaluator.evaluate_batched (cli/stream_eval
+              --fused --batch-size / --scan-sessions) with fused CIF and
+              MMA agents from the checkpoints of phases 13 and 10 (EOS's
+              row shrunk 10x) over 72 synthetic int16 utterances: 64 of one
+              16-chunk bucket (9.94-10.58 s, every final chunk of its own
+              size, one with no new fbank frame) and 8 of a 7-chunk bucket
+              (4.2-4.8 s), global CMVN from their own fbank; `evaluate` at
+              B = 1 over a subset of 16 (both buckets, the shortest and
+              longest final chunks), `evaluate_batched` at B 8 step-wise
+              over it, at B 64 scanned over all 72 and its step-wise _CA
+              pass; every batched example's tokens equal its B = 1 tokens
+              but for proven argmax ties (the B = 1 top-two logit gap at
+              the first differing token under 1e-4, replayed; outside the
+              subset, where B 64 scanned and step-wise differ); the B 64
+              encoder_step with feat_valid vs each example's offline
+              encoder alone; LN-FFN at 192 and 1,536 streaming rows, the
+              FFN at 8 and 64 rows and cif_integrate at the B 64 chunk and
+              ragged-flush shapes vs their plain versions; ms per chunk,
+              utterances per second and launches per chunk at B 1, 8 and
+              64, the device's busy share of one profiled B 64 chunk
+ 16. offline-decode  cli/generate's offline decoding of the trained
               students and teacher, beam 5, max_len 64: decode_batch for
               MMA (phase 10's weights) and CIF (phase 13's) on phase 3's 8
               x 1024-frame batch, decode_batch_mt for the MT teacher
@@ -142,7 +162,7 @@ targets):
               step; then cli/generate.main on a synthetic manifest
               (phase 13's checkpoint, --task asr --scoring wer), its SCORE
               line printed
- 16. asr-pack  the grouped attention's example-id gate (forward and
+ 17. asr-pack  the grouped attention's example-id gate (forward and
               backward kernels) vs the plain version with the gate, at the
               packed plans of phase 7's batch and of a mixed 96-1024-frame
               batch, at dropout 0 and 0.1; CUDA-event times beside the
@@ -157,7 +177,7 @@ targets):
               SpecAugment, packed vs unpacked from the same parameters
               (encoder output on valid frames, loss, every gradient); and
               kernels vs plain versions on that packed step
- 17. report   a JSON line of per-kernel numbers with their bounds, the
+ 18. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -193,6 +213,10 @@ or when any phase fails.  Tolerances:
                          order of the sums over frames differs)
   CIF train step, kernels vs plain: as the ASR step
   CIF and MMA serving tokens, fused sessions vs step-wise sessions: equal
+  batched serving tokens (B 8, B 64 scanned and step-wise) vs B = 1: equal
+                         but for argmax ties (top-two gap under 1e-4 on
+                         the B = 1 state); the B 64 encoder with
+                         feat_valid vs each example alone: atol 1e-4
   packed vs unpacked ASR step, fp32, dropout 0, no SpecAugment: encoder
                          output on valid frames atol 1e-4, loss rtol
                          1e-5, every gradient within 2e-4 of its largest
@@ -1824,9 +1848,9 @@ def phase_pack_kernels(dev, plans):
             **dict(zip(("bound_ms", "bound_by"), bound(
                 nbytes(*args, *gate, dout, *got), 10 * d * vis))))
         del sd, sd_out
-        log("phase16", kernel="emformer_grouped_attention_gated", plan=label,
+        log("phase17", kernel="emformer_grouped_attention_gated", plan=label,
             **fwd)
-        log("phase16", kernel="emformer_grouped_attention_gated_backward",
+        log("phase17", kernel="emformer_grouped_attention_gated_backward",
             plan=label, **bwd)
         if not report:
             report = {"emformer_grouped_attention_gated": fwd,
@@ -1866,7 +1890,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     n0 = ASR_FRAMES // 4 // 16
     for label, plan in plans.items():
         rows, n_p = plan.seg_eid.shape
-        log("phase16", plan=label, rows=rows, n_p=n_p,
+        log("phase17", plan=label, rows=rows, n_p=n_p,
             row_frames=n_p * 16, G=s2t.emf._choose_group(
                 n_p, n_p * 16, model.cfg.emformer),
             slots=rows * n_p, unpacked_slots=ASR_UTT * n0,
@@ -1901,14 +1925,14 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     if not all(np.isfinite(losses)) or state.step != ASR_STEPS:
         raise AssertionError(f"losses {losses}, updates {state.step}")
     median = statistics.median(step_ms[1:])
-    log("phase16", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer, "
+    log("phase17", config="S2TEmformerConfig() s2t_emformer_s, ctc_layer, "
         "--pack", utterances=ASR_UTT, rows=int(packed["pack_seg_eid"].shape[0]),
         steps=ASR_STEPS, first_step_ms=step_ms[0], median_step_ms=median,
         unpacked_median_step_ms=unpacked_median_ms,
         packed_over_unpacked=median / unpacked_median_ms, step_ms=step_ms,
         losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
         ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
-    state = profile_steps(state, train_step, packed, generator, "phase16")
+    state = profile_steps(state, train_step, packed, generator, "phase17")
     del state
 
     # packed vs unpacked from the same parameters, at dropout 0 without
@@ -1943,7 +1967,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
             f"packed vs unpacked step: gradient of {worst} off by "
             f"{rel[worst]:.3e} of its largest entry; loss {loss_p} vs "
             f"{loss_d}")
-    log("phase16", packed_vs_unpacked_loss=[loss_p, loss_d],
+    log("phase17", packed_vs_unpacked_loss=[loss_p, loss_d],
         encoder_out_max_abs_err=enc_err,
         grads_max_err_to_largest=rel[worst], grads_worst_param=worst,
         grads_top=sorted(rel.items(), key=lambda kv: -kv[1])[:6])
@@ -1953,7 +1977,7 @@ def phase_asr_pack(dev, batch, unpacked_median_ms):
     # 2.1e-5 relative, and kernels vs plain differ by -1.4e-5 to +1.6e-5
     # over four such perturbations, packed or not (tools/gnorm_floor.py,
     # PERF.md), so a 1e-5 limit would hold it to rounding
-    compare_plain_step(initial, loss_fn, optim_cfg, packed, "phase16",
+    compare_plain_step(initial, loss_fn, optim_cfg, packed, "phase17",
                        make_accum_train_step, gnorm_rtol=None)
     return launches, report
 
@@ -2518,7 +2542,7 @@ def phase_offline_decode(dev, workdir, checkpoints, speech, mt_src):
         err = max_err(f"{kind} offline decode logits along the best "
                       "hypotheses, kernels vs plain", got[live], want[live],
                       **F32_TOL)
-        log("phase15", model=kind, batch=n, beam=BEAM, max_len=MAX_LEN,
+        log("phase16", model=kind, batch=n, beam=BEAM, max_len=MAX_LEN,
             first_ms_per_batch=first_ms, steady_ms_per_batch=steady_ms,
             token_lengths=lengths.tolist(), launches=launched,
             logits_max_abs_err=err)
@@ -2550,8 +2574,8 @@ def phase_offline_decode(dev, workdir, checkpoints, speech, mt_src):
             not lines[-1].startswith("SCORE\twer\t") or \
             not np.isfinite(score):
         raise AssertionError(f"cli/generate main wrote {lines[-3:]}")
-    print(f"phase15 generate: {lines[-1]}", flush=True)
-    log("phase15", generate_main="cif --task asr --scoring wer",
+    print(f"phase16 generate: {lines[-1]}", flush=True)
+    log("phase16", generate_main="cif --task asr --scoring wer",
         utterances=N_UTT, frames=[int(r["n_frames"]) for r in rows],
         wer=score, s=time.perf_counter() - t0)
     return launches
@@ -2650,6 +2674,546 @@ def phase_serve(dev, workdir, checkpoints):
         cif_launches_per_chunk=launches["cif_integrate"]
         / sum(len(fused[run][2]) for run in runs if run[0] == "cif"))
     return launches
+
+
+# the batched-serve traffic: 64 utterances of one 16-chunk bucket (975 ms,
+# then 640 ms chunks: 158,961-169,200 samples, 9.94-10.58 s), one of them
+# with no new fbank frame in its final chunk, and 8 of one 7-chunk bucket
+# (66,801-77,040 samples, 4.18-4.82 s)
+BATCH_LONG, BATCH_SHORT = 64, 8
+BATCH_LONG_SAMPLES = (158961, 169200)
+BATCH_ZERO_FRAME_SAMPLES = 159000        # num_frames == that of 158,960
+BATCH_SHORT_SAMPLES = (66801, 77040)
+BATCH_B1_SUBSET = 16
+BATCH_B1_EXTRA = 4            # long-bucket rows outside it, seeded
+# CIF, and a test-time wait-k agent on phase 10's MMA weights (its learned
+# heads write nothing before the source ends), EOS's row scaled.  That
+# briefly trained decoder settles EOS at its first decision: at 0.86 about
+# half of the utterances write from the second chunk on (and fill their
+# tokens), while the others READ on a rejected early EOS, so the lock-step
+# batch diverges, and end on EOS
+BATCH_WAITK = 3
+BATCH_EOS_SCALE = {"cif": 0.1, "waitk": 0.86}
+BATCH_MAX_TGT = {"cif": 256, "waitk": 64}
+TIE_GAP = 1e-4
+
+
+def batched_serve_audio(rng):
+    """The 72 utterances (int16) of the batched-serve phase, seeded tones +
+    noise: the long bucket's lengths spread evenly over its range (so that
+    every final chunk differs), the first one at the zero-frame length."""
+    lengths = np.linspace(*BATCH_LONG_SAMPLES, BATCH_LONG).astype(int)
+    lengths[0] = BATCH_ZERO_FRAME_SAMPLES
+    lengths = list(lengths) + list(np.linspace(
+        *BATCH_SHORT_SAMPLES, BATCH_SHORT).astype(int))
+    t = np.arange(max(lengths)) / 16000.0
+    wavs = []
+    for n in lengths:
+        freqs = rng.uniform(100.0, 3000.0, size=3)
+        amps = rng.uniform(0.05, 0.3, size=3)
+        wav = sum(a * np.sin(2 * np.pi * f * t[:n])
+                  for a, f in zip(amps, freqs)) + 0.05 * rng.randn(n)
+        wavs.append(np.clip(np.round(wav * 2 ** 15), -32768,
+                            32767).astype(np.int16))
+    return wavs
+
+
+def batch_groups(agent, wavs, batch_size):
+    """evaluate_batched's groups: (chunk count, utterance indices) per
+    batch, buckets by chunk count in ascending order."""
+    from simulst_tpu_torch.stream.agents import chunk_count
+    n_first, n_steady = chunk_geometry(agent)
+    buckets = defaultdict(list)
+    for i, w in enumerate(wavs):
+        buckets[chunk_count(len(w), n_first, n_steady)].append(i)
+    return [(k, idxs[lo:lo + batch_size]) for k, idxs in
+            sorted(buckets.items()) for lo in range(0, len(idxs), batch_size)]
+
+
+def served_tokens(sessions, groups):
+    """utterance index -> tokens written, from the batched sessions of
+    evaluate_batched in the order they were made."""
+    out = {}
+    for session, (_, group) in zip(sessions, groups):
+        toks = session.state.tokens.cpu().numpy()
+        n = session.state.n_tokens.cpu().numpy()
+        for row, i in enumerate(group):
+            out[i] = toks[row, :n[row]].tolist()
+    return out
+
+
+def b1_gap(agent, kind, wav, index):
+    """The top-two logit gap of the B = 1 session's decoder call that
+    decided its token `index`, replayed: the last call with step == index
+    that chose the token written there (the accepted one); for EOS the
+    largest gap of its calls there that chose EOS (a rejected early EOS
+    may be the deciding one).  None where the session wrote no token
+    `index`."""
+    import torch
+    from simulst_tpu_torch.models import cif as cif_mod
+    from simulst_tpu_torch.models import mma as mma_mod
+    from simulst_tpu_torch.stream.evaluator import run_session
+    mod, name = ((cif_mod, "cif_decoder_step") if kind == "cif"
+                 else (mma_mod, "mma_decoder_step"))
+    real, calls = getattr(mod, name), []
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        top = out[0][0].float().topk(2)
+        calls.append((int(args[2].step[0]), int(top.indices[0]),
+                      float(top.values[0] - top.values[1])))
+        return out
+
+    sessions = []
+    make = agent.new_session
+
+    def new_session():
+        sessions.append(make())
+        return sessions[-1]
+
+    agent.new_session = new_session
+    try:
+        with patched([(mod, name, recorded)]), torch.no_grad():
+            run_session(agent, wav)
+    finally:
+        agent.new_session = make
+    state = sessions[0].state
+    tokens = state.tokens[0, :int(state.n_tokens[0])].tolist()
+    if index >= len(tokens):
+        return None, tokens
+    chose = tokens[index]
+    gaps = [g for step, tok, g in calls if step == index and tok == chose]
+    if not gaps:
+        return None, tokens
+    return (max(gaps) if chose == agent.cfg.eos_idx else gaps[-1]), tokens
+
+
+def phase_batched_serve(dev, workdir, checkpoints):
+    """The batched streaming evaluator (stream/evaluator.evaluate_batched,
+    as cli/stream_eval --fused --batch-size / --scan-sessions runs it) with
+    a fused CIF agent from phase 13's checkpoint and a fused test-time
+    wait-k agent from phase 10's MMA checkpoint (EOS's row scaled by
+    BATCH_EOS_SCALE): B = 1 `evaluate` over a fixed subset, B 8 step-wise
+    over that subset, B 64 scanned over all 72 utterances and its step-wise
+    _CA pass.  Each agent must write before the source ends (AP < 1), end
+    some utterances on EOS and diverge mid-stream within a B 64 chunk.
+    Tokens of every batched run equal the B = 1 tokens (the subset and
+    BATCH_B1_EXTRA replayed rows), but for proven argmax ties (the B = 1
+    top-two gap at the first differing token under TIE_GAP); the B 64
+    encoder with feat_valid equals each example's offline encoder alone;
+    the serving kernels at the batched shapes vs their plain versions; ms
+    per chunk, utterances per second and the device's busy share of one
+    profiled B 64 chunk.  Returns the main path's launches."""
+    import torch
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.ops import cif_integrate as ci
+    from simulst_tpu_torch.ops import ffn
+    from simulst_tpu_torch.ops.fbank import fbank_batch
+    from simulst_tpu_torch.stream import agents as agents_mod
+    from simulst_tpu_torch.stream.build import build_agent
+    from simulst_tpu_torch.stream.evaluator import (evaluate,
+                                                    evaluate_batched,
+                                                    merge_honest_ca)
+
+    t_phase = time.perf_counter()
+    wavs = batched_serve_audio(np.random.RandomState(SEED + 15))
+    long_idx = list(range(BATCH_LONG))
+    with torch.no_grad():
+        feats = torch.cat([fbank_batch(torch.from_numpy(
+            w.astype(np.float32)).to(dev)[None])[0] for w in wavs])
+    gcmvn = os.path.join(workdir, "gcmvn_batched.npz")
+    np.savez(gcmvn, mean=feats.mean(dim=0).cpu().numpy(),
+             std=feats.std(dim=0).cpu().numpy())
+    del feats
+    vocab = serve_vocab()
+    refs = [" ".join(f"w{k}" for k in range(i, i + 12))
+            for i in range(len(wavs))]
+    final_samples = [len(w) - 15600 - 14 * 10240 for w in wavs[:BATCH_LONG]]
+    # B = 1 subset: the shortest and longest final chunks of the long
+    # bucket, evenly spaced others, and the whole short bucket
+    subset = sorted(set(np.linspace(
+        0, BATCH_LONG - 1, BATCH_B1_SUBSET - BATCH_SHORT).round().astype(
+            int).tolist())) + list(range(BATCH_LONG,
+                                         BATCH_LONG + BATCH_SHORT))
+
+    def build(kind):
+        waitk = {}
+        if kind == "waitk":
+            waitk = dict(waitk=BATCH_WAITK, overrides={
+                "simul_attn_type": "waitk_fixed_pre_decision"})
+        agent = build_agent(
+            checkpoints["mma" if kind == "waitk" else kind], vocab,
+            agent_type=kind, global_cmvn_path=gcmvn, fused=True, device=dev,
+            max_src_frames=1024, max_tgt_len=BATCH_MAX_TGT[kind], **waitk)
+        with torch.no_grad():
+            agent.model.decoder.embed_tokens.weight[agent.cfg.eos_idx] *= \
+                BATCH_EOS_SCALE[kind]
+        return agent
+
+    def timed_batched(agent, chunk_ms, diverged=None):
+        """Record the batched sessions and time each chunk call; count in
+        `diverged` the mid-stream chunks whose examples wrote different
+        numbers of tokens (some WRITE while others READ)."""
+        sessions = []
+        make = agent.new_batched_session
+
+        def new_batched_session(batch):
+            session = make(batch)
+            sessions.append(session)
+            step = session.process_chunk_batch
+
+            def timed(chunks, finished):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(chunks, finished)
+                torch.cuda.synchronize()
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+                if diverged is not None and not finished:
+                    diverged.append(len({len(t) for t in out}) > 1)
+                return out
+            session.process_chunk_batch = timed
+            return session
+
+        agent.new_batched_session = new_batched_session
+        return sessions
+
+    results, runs_log = {}, {}
+    reset_launches()
+    for kind in ("cif", "waitk"):
+        agent = build(kind)
+        r = results[kind] = {}
+        # B = 1 over the subset
+        b1_sessions, b1_ms = [], []
+        make = agent.new_session
+
+        def new_session():
+            session = make()
+            b1_sessions.append(session)
+            step = session.process_chunk
+
+            def timed(samples, finished):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(samples, finished)
+                torch.cuda.synchronize()
+                b1_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            session.process_chunk = timed
+            return session
+
+        agent.new_session = new_session
+        before = read_launches()
+        t0 = time.perf_counter()
+        evaluate(agent, [wavs[i] for i in subset], [refs[i] for i in subset])
+        r["b1"] = dict(wall_s=time.perf_counter() - t0, chunk_ms=b1_ms,
+                       utterances=len(subset),
+                       launches=launch_delta(before))
+        agent.new_session = make
+        b1_tokens = {}
+        for i, session in zip(subset, b1_sessions):
+            st = session.state
+            b1_tokens[i] = st.tokens[0, :int(st.n_tokens[0])].tolist()
+        r["b1_tokens"] = b1_tokens
+
+        # B 8 step-wise over the subset
+        sub_wavs = [wavs[i] for i in subset]
+        b8_ms = []
+        sessions = timed_batched(agent, b8_ms)
+        before = read_launches()
+        t0 = time.perf_counter()
+        evaluate_batched(agent, sub_wavs, [refs[i] for i in subset],
+                         batch_size=8)
+        r["b8"] = dict(wall_s=time.perf_counter() - t0, chunk_ms=b8_ms,
+                       utterances=len(subset), launches=launch_delta(before))
+        groups = [(k, [subset[j] for j in g])
+                  for k, g in batch_groups(agent, sub_wavs, 8)]
+        r["b8_tokens"] = served_tokens(sessions, groups)
+        del agent.new_batched_session
+
+        # B 64 scanned over all 72, then its step-wise _CA pass (as
+        # cli/stream_eval --batch-size 64 --scan-sessions runs them)
+        sessions = []
+        make_b = agent.new_batched_session
+
+        def record(batch):
+            sessions.append(make_b(batch))
+            return sessions[-1]
+
+        agent.new_batched_session = record
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan_scores = evaluate_batched(agent, wavs, refs, batch_size=64,
+                                       scan=True)
+        torch.cuda.synchronize()
+        groups = batch_groups(agent, wavs, 64)
+        r["b64_scan"] = dict(wall_s=time.perf_counter() - t0,
+                             chunk_calls=sum(k for k, _ in groups),
+                             utterances=len(wavs),
+                             launches=launch_delta(before))
+        r["b64_scan_tokens"] = served_tokens(sessions, groups)
+        del agent.new_batched_session
+        b64_ms, diverged = [], []
+        sessions = timed_batched(agent, b64_ms, diverged)
+        before = read_launches()
+        t0 = time.perf_counter()
+        ca_scores = evaluate_batched(agent, wavs, refs, batch_size=64)
+        r["b64"] = dict(wall_s=time.perf_counter() - t0, chunk_ms=b64_ms,
+                        utterances=len(wavs), launches=launch_delta(before))
+        r["b64_tokens"] = served_tokens(sessions, groups)
+        del agent.new_batched_session
+        scores = merge_honest_ca(scan_scores, ca_scores)
+        if not all(np.isfinite(scores[k]) for k in ("AL", "AP", "DAL",
+                                                    "AL_CA")):
+            raise AssertionError(f"{kind}: scores {scores}")
+        # the traffic must stream: writes before the source ends, examples
+        # that diverge mid-stream, and utterances that end on EOS
+        # (diverging writes are writes before the source ends)
+        if not (scores["AP"] < 1 and scores["truncated"] < len(wavs)
+                and any(diverged)):
+            raise AssertionError(
+                f"{kind}: degenerate traffic (AP {scores['AP']}, "
+                f"{scores['truncated']} of {len(wavs)} truncated, "
+                f"{sum(diverged)} of {len(diverged)} mid-stream B 64 chunks "
+                "with diverging writes)")
+        r["diverged_chunks"] = [sum(diverged), len(diverged)]
+        r["scores"] = scores
+        r["agent"] = agent
+    launches = read_launches()
+    missing = [k for k in CIF_SERVE_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"{missing} did not launch in the batched "
+                             f"serving path: {launches}")
+    main_s = time.perf_counter() - t_phase
+
+    # tokens: every batched run vs B = 1, ties proven on the B = 1 state;
+    # B = 1 replays of a seeded sample of the long-bucket rows outside the
+    # subset join it
+    extra = sorted(np.random.RandomState(SEED + 17).choice(
+        [i for i in long_idx if i not in subset], BATCH_B1_EXTRA,
+        replace=False).tolist())
+    for kind, r in results.items():
+        for i in extra:
+            r["b1_tokens"][i] = b1_gap(r["agent"], kind, wavs[i], 0)[1]
+        flips, compared = [], 0
+        for run in ("b8_tokens", "b64_scan_tokens", "b64_tokens"):
+            for i, got in sorted(r[run].items()):
+                want = r["b1_tokens"].get(i)
+                if want is None:
+                    # outside the B = 1 subset: B 64 scanned vs step-wise,
+                    # and a B = 1 replay where they differ
+                    other = r["b64_tokens" if run == "b64_scan_tokens"
+                              else "b64_scan_tokens"][i]
+                    if got == other:
+                        continue
+                    want = r["b1_tokens"][i] = b1_gap(r["agent"], kind,
+                                                      wavs[i], 0)[1]
+                compared += 1
+                if got == want:
+                    continue
+                j = next((k for k, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+                gap, replay = b1_gap(r["agent"], kind, wavs[i], j)
+                if replay != want:
+                    raise AssertionError(f"{kind} utt {i}: the B = 1 replay "
+                                         "differs from the B = 1 run")
+                if gap is None or not gap < TIE_GAP:
+                    raise AssertionError(
+                        f"{kind} {run} utt {i}: tokens differ from B = 1 at "
+                        f"{j} ({got[j:j + 3]} vs {want[j:j + 3]}), top-two "
+                        f"gap {gap} not under {TIE_GAP}")
+                flips.append(dict(run=run, utt=i, index=j, gap=gap))
+        lens = [len(t) for t in r["b64_tokens"].values()]
+        log("phase15", agent=kind, compared_with_b1=compared,
+            tie_flips=len(flips), flips=flips,
+            tokens_b64_min_mean_max=[min(lens), statistics.mean(lens),
+                                     max(lens)],
+            b1_subset=subset, b1_replayed=extra,
+            b64_diverged_midstream_chunks=r["diverged_chunks"],
+            long_bucket_final_samples_min_max=[
+                min(final_samples), max(final_samples)],
+            **{k: r["scores"][k] for k in ("mode", "BLEU", "AL", "AP",
+                                           "DAL", "AL_CA", "truncated")})
+
+    # the B 64 encoder with feat_valid vs each example's offline encoder
+    agent = results["cif"]["agent"]
+    model, cfg = agent.model, agent.cfg
+    long_wavs = [wavs[i] for i in long_idx]
+    staged = agents_mod.stage_session_wavs(agent, long_wavs)
+    n_first, n_steady, n_chunks, sched = agents_mod._session_schedule(
+        cfg, long_wavs)
+    from simulst_tpu_torch.ops.fbank import num_frames
+    c0 = num_frames(n_first)
+    cs = num_frames(n_first + n_steady) - c0
+    mx = num_frames(sched) - num_frames(n_first + (n_chunks - 2) * n_steady)
+    first, mid, last = agents_mod.featurize(
+        staged.wav_mat, agent.global_cmvn, c0, cs, n_chunks - 2, mx)
+    n_valid = staged.n_valid
+    if n_valid is None or int(n_valid.min()) != 0:
+        raise AssertionError(f"the long bucket's final counts {n_valid}: "
+                             "want ragged, with a zero")
+    with torch.no_grad():
+        state = s2t.encoder_init_state(model.encoder, cfg, BATCH_LONG,
+                                       device=dev)
+        outs = []
+        for k, x in enumerate([first] + list(mid) + [last]):
+            finish = k == n_chunks - 1
+            out, state = s2t.encoder_step(model.encoder, cfg, state, x,
+                                          finish, n_valid if finish else None)
+            outs.append((out.encoder_out, out.lengths))
+        enc_err = 0.0
+        for i in range(BATCH_LONG):
+            mine = torch.cat([o[i, :int(n[i])] for o, n in outs])
+            own = torch.cat([first[i], mid[:, i].reshape(-1, first.shape[-1]),
+                             last[i, :int(n_valid[i])]])[None]
+            alone = s2t.encoder_forward(
+                model.encoder, cfg, own,
+                torch.tensor([own.shape[1]], device=dev)).encoder_out[0]
+            enc_err = max(enc_err, max_err(
+                f"batched encoder utt {i}", mine, alone, atol=1e-4, rtol=0))
+
+    # the serving kernels at the batched shapes vs their plain versions
+    g = torch.Generator().manual_seed(SEED + 16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    layer = model.encoder.emformer.layers[0].pos_ff
+    ln_w = (layer.ln.scale, layer.ln.bias, layer.fc1.weight, layer.fc1.bias,
+            layer.fc2.weight, layer.fc2.bias)
+    act = cfg.emformer.activation
+    dec = model.decoder.layers[0]
+    ffn_w = (dec.fc1.weight, dec.fc1.bias, dec.fc2.weight, dec.fc2.bias)
+    seg, rc = cfg.emformer.segment, cfg.emformer.right_context
+    kernel_report = {}
+    with torch.no_grad():
+        for b in (8, 64):
+            x = randn(b, rc + seg, cfg.embed_dim)
+            case = f"fused_ln_ffn_res rows={b * (rc + seg)}"
+            err = max_err(case, ffn.fused_ln_ffn_res(x, *ln_w, act),
+                          ffn.ln_ffn_res_plain(x, *ln_w, act), **F32_TOL)
+            kernel_report[case] = dict(
+                max_abs_err=err, tiled=b * (rc + seg) >= ffn.TILED_MIN_ROWS,
+                ms=cuda_ms(lambda: ffn.fused_ln_ffn_res(x, *ln_w, act)),
+                plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain(x, *ln_w,
+                                                              act)),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    nbytes(x, x, *ln_w),
+                    4 * b * (rc + seg) * cfg.embed_dim * ln_w[2].shape[1]))))
+            x = randn(b, 1, cfg.embed_dim)
+            case = f"fused_ffn rows={b}"
+            dact = cfg.decoder.activation
+            err = max_err(case, ffn.fused_ffn(x, *ffn_w, dact),
+                          ffn.ffn_plain(x, *ffn_w, dact), **F32_TOL)
+            kernel_report[case] = dict(
+                max_abs_err=err,
+                ms=cuda_ms(lambda: ffn.fused_ffn(x, *ffn_w, dact)),
+                plain_ms=cuda_ms(lambda: ffn.ffn_plain(x, *ffn_w, dact)),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    nbytes(x, x, *ffn_w),
+                    4 * b * cfg.embed_dim * ffn_w[0].shape[1]))))
+        # cif_integrate at the B 64 steady chunk (the carried tail + 16
+        # frames) and the flush (tail + up to rc + seg frames), the flush's
+        # frames past each example's x_valid at zero weight
+        for label, s_len, ragged in (("chunk", seg + 1, False),
+                                     ("flush", rc + seg + 1, True)):
+            x, alpha = cif_inputs(dev, 64, s_len, cfg.embed_dim, s_len + 2,
+                                  cfg.cif_beta, 0.45)
+            if ragged:
+                keep = torch.arange(64, device=dev) % s_len
+                alpha = torch.where(torch.arange(s_len, device=dev)[None, :]
+                                    <= keep[:, None], alpha,
+                                    torch.zeros_like(alpha))
+            t = s_len + 2
+            out, delays = ci.cif_integrate(x, alpha, cfg.cif_beta, t)
+            want = ci.cif_integrate_plain(x, alpha, cfg.cif_beta, t)
+            err = max(max_err_to_largest(f"cif_integrate B 64 {label} {w}",
+                                         got, ref, rtol=1e-5)
+                      for w, got, ref in zip(("out", "delays"),
+                                             (out, delays), want))
+            nnz = int((ci.portions(*ci.cumsums(alpha), cfg.cif_beta, t)
+                       > 0).sum())
+            kernel_report[f"cif_integrate (64,{s_len},256,{t}) {label}"] = \
+                dict(max_abs_err=err, nonzero_portions=nnz,
+                     ms=cuda_ms(lambda: ci.cif_integrate(
+                         x, alpha, cfg.cif_beta, t)),
+                     plain_ms=cuda_ms(lambda: ci.cif_integrate_plain(
+                         x, alpha, cfg.cif_beta, t)),
+                     **dict(zip(("bound_ms", "bound_by"), bound(
+                         nbytes(x, alpha, out, delays),
+                         2 * nnz * (cfg.embed_dim + 1)))))
+    for case, entry in kernel_report.items():
+        log("phase15", kernel=case, **entry)
+
+    # one B 64 steady chunk under torch.profiler
+    session = agent.new_batched_session(BATCH_LONG)
+    first_n = int(chunk_geometry(agent)[0])
+    steady_n = int(chunk_geometry(agent)[1])
+    session.process_chunk_batch([w[:first_n] for w in long_wavs], False)
+    chunk = [w[first_n:first_n + steady_n] for w in long_wavs]
+    wall_ms, device_ms, n_kernels = profile_chunk(session, chunk)
+
+    gpu = gpu_name_and_power_limit()
+    for kind, r in results.items():
+        line = {"agent": kind, "gpu": gpu}
+        for run in ("b1", "b8", "b64", "b64_scan"):
+            x = r[run]
+            calls = (len(x["chunk_ms"]) if "chunk_ms" in x
+                     else x["chunk_calls"])
+            line[run] = dict(
+                utterances=x["utterances"], chunk_calls=calls,
+                utterances_per_s=x["utterances"] / x["wall_s"],
+                wall_s=x["wall_s"],
+                launches_per_chunk={k: x["launches"][k] / calls
+                                    for k in CIF_SERVE_KERNELS})
+            if "chunk_ms" in x:
+                line[run].update(
+                    median_ms_per_chunk=statistics.median(x["chunk_ms"]),
+                    mean_ms_per_chunk=statistics.mean(x["chunk_ms"]))
+            else:
+                line[run]["mean_ms_per_chunk"] = x["wall_s"] * 1e3 / calls
+        log("phase15", **line)
+    log("phase15", launches=launches, main_path_s=main_s,
+        encoder_feat_valid_vs_alone_max_abs_err=enc_err,
+        long_bucket_final_frames=n_valid.tolist(),
+        profiled_b64_chunk=dict(wall_ms=wall_ms, device_ms=device_ms,
+                                device_busy_share=device_ms / wall_ms,
+                                kernels=n_kernels),
+        gpu=gpu, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def profile_chunk(session, chunk):
+    """One lock-step chunk call of a batched session under torch.profiler:
+    (wall ms, device kernel ms, kernels)."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        session.process_chunk_batch(chunk, False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    return (wall_ms, sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def launch_delta(before):
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def chunk_geometry(agent):
+    """(first, steady) chunk sizes in samples."""
+    from simulst_tpu_torch.stream.agents import chunk_geometry_ms
+    first_ms, steady_ms = chunk_geometry_ms(agent.cfg)
+    return int(first_ms / 1000.0 * 16000), int(steady_ms / 1000.0 * 16000)
 
 
 def run(dev):
@@ -2775,7 +3339,7 @@ def run(dev):
     with torch.no_grad():
         report.update(phase_train_kernels(dev, mt_batch))
 
-    # 6. MT training steps; the trained teacher is decoded in phase 15
+    # 6. MT training steps; the trained teacher is decoded in phase 16
     workdir = tempfile.TemporaryDirectory()
     checkpoints = {kind: os.path.join(workdir.name, f"{kind}_checkpoint")
                    for kind in ("cif", "mma", "mt")}
@@ -2819,7 +3383,10 @@ def run(dev):
     # 14. CIF and MMA through the streaming evaluator
     cif_serving = phase_serve(dev, workdir.name, checkpoints)
 
-    # 15. offline decoding of MMA, CIF and MT; cli/generate main
+    # 15. the batched streaming evaluator (B 1, 8 and 64, scanned)
+    batched_serving = phase_batched_serve(dev, workdir.name, checkpoints)
+
+    # 16. offline decoding of MMA, CIF and MT; cli/generate main
     with torch.no_grad():
         offline_decode = phase_offline_decode(
             dev, workdir.name, checkpoints,
@@ -2827,15 +3394,16 @@ def run(dev):
     del feats, lengths, mt_src
     workdir.cleanup()
 
-    # 16. sequence-packed ASR training (cli/train --pack)
+    # 17. sequence-packed ASR training (cli/train --pack)
     pack_training, pack_report = phase_asr_pack(dev, asr, asr_median_ms)
     report.update(pack_report)
     del asr
 
-    # 17. report
+    # 18. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
+             "batched-serving": batched_serving,
              "offline-decode": offline_decode, "asr-pack": pack_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2845,7 +3413,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase17", total_s=time.perf_counter() - started)
+    log("phase18", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,9 +9,13 @@ runs it per checkpoint and split, e.g.
       --vocab DATA/spm_unigram4096_st.txt --agent cif --cif-beta 1.0 \\
       --global-cmvn DATA/gcmvn.npz --fused --output simul_results/cif/dev
 
-The agent runs on the card unless --device names another.  --agent
-transducer, --scan-sessions, --batch-size > 1 and --profile raise: those
-are not yet ported (ROADMAP Queue 1 items 9 and 10).
+With --fused, --batch-size B streams B utterances of one chunk-count
+bucket lock-step through one step per chunk (exp/4_simuleval.sh's EXTRA
+"--fused --batch-size 8"), and --scan-sessions runs each bucket's whole
+session in one call, then a chunk-by-chunk pass for the _CA metrics
+(skipped with --no-ca-pass).  --profile DIR writes a torch.profiler
+trace of one streaming session.  The agent runs on the card unless
+--device names another; --agent transducer raises (not yet ported).
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from simulst_tpu_torch import config as cfglib
 from simulst_tpu_torch.data.wav import read_wav
 from simulst_tpu_torch.stream.build import (auto_buffer_sizes, build_agent,
                                             load_vocab)
-from simulst_tpu_torch.stream.evaluator import evaluate
+from simulst_tpu_torch.stream.evaluator import (evaluate, evaluate_batched,
+                                                merge_honest_ca, run_session)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -55,13 +60,19 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--fused", action="store_true",
                    help="one fused step per chunk (READ and every WRITE)")
     p.add_argument("--scan-sessions", action="store_true",
-                   help="not yet ported")
+                   help="run each chunk-count bucket's whole session in one "
+                        "call (requires --fused); the _CA metrics come from "
+                        "a chunk-by-chunk pass unless --no-ca-pass")
     p.add_argument("--no-ca-pass", action="store_true",
-                   help="with --scan-sessions, which is not yet ported")
+                   help="with --scan-sessions: skip the chunk-by-chunk "
+                        "pass; _CA is then the whole session's wall clock, "
+                        "an upper bound (stamped mode 'scan')")
     p.add_argument("--batch-size", type=int, default=1,
-                   help="only 1: batched sessions are not yet ported")
+                   help="> 1 streams B utterances per step (requires "
+                        "--fused; lock-step within a chunk-count bucket)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="not yet ported")
+                   help="write a torch.profiler trace of one streaming "
+                        "session of the first utterance")
     p.add_argument("--override", action="append", default=[])
     p.add_argument("--device", default=None,
                    help="torch device (default: the card, cuda)")
@@ -70,14 +81,9 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    unported = [flag for flag, on in (
-        ("--scan-sessions", args.scan_sessions),
-        ("--batch-size > 1", args.batch_size > 1),
-        ("--profile", args.profile is not None)) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{', '.join(unported)}: not yet ported (ROADMAP Queue 1 item 9: "
-            "FusedBatchSession, evaluate_batched and the scanned sessions)")
+    batched = args.scan_sessions or args.batch_size > 1
+    if batched and not args.fused:
+        raise SystemExit("--scan-sessions / --batch-size > 1 require --fused")
 
     with open(args.source) as f:
         wav_paths = [line.strip() for line in f if line.strip()]
@@ -107,13 +113,52 @@ def main(argv=None):
               f"{agent.acfg.max_src_frames} max_tgt_len="
               f"{agent.acfg.max_tgt_len}")
 
+    if args.profile:
+        profile(agent, utts[0], args.profile)
+
     os.makedirs(args.output, exist_ok=True)
-    scores = evaluate(agent, utts, refs,
-                      log_path=os.path.join(args.output, "instances.log"))
+    log = os.path.join(args.output, "instances.log")
+    if batched:
+        # --scan-sessions at the default --batch-size 1 runs the batched
+        # evaluator at B = 1
+        scores = evaluate_batched(agent, utts, refs,
+                                  batch_size=args.batch_size, log_path=log,
+                                  scan=args.scan_sessions)
+        if args.scan_sessions and not args.no_ca_pass:
+            # a whole-session call cannot time its chunks: the _CA metrics
+            # come from a chunk-by-chunk pass of the same batches
+            ca = evaluate_batched(
+                agent, utts, refs, batch_size=args.batch_size,
+                log_path=os.path.join(args.output, "instances_ca.log"))
+            scores = merge_honest_ca(scores, ca)
+    else:
+        scores = evaluate(agent, utts, refs, log_path=log)
     with open(os.path.join(args.output, "scores"), "w") as f:
         json.dump(scores, f, indent=2)
     print(json.dumps(scores, indent=2))
     return scores
+
+
+def profile(agent, wav, out_dir: str):
+    """A torch.profiler trace (Chrome JSON) of one streaming session of
+    `wav`, after one untraced session to warm up."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    run_session(agent, wav)
+    activities = [ProfilerActivity.CPU]
+    if agent.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with torch_profile(activities=activities) as prof:
+        run_session(agent, wav)
+        if agent.device.type == "cuda":
+            torch.cuda.synchronize()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+    return path
 
 
 if __name__ == "__main__":

@@ -106,16 +106,21 @@ def cif_layer_init_state(p: CIFLayer, cfg: CIFConfig, batch: int,
 
 
 def cif_layer_step(p: CIFLayer, cfg: CIFConfig, state: CIFStreamState, x,
-                   finish: bool
+                   finish: bool, x_valid: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, CIFStreamState]:
     """Streaming CIF on a chunk of new encoder frames x (B, c, D), c >= 0:
     the carried tail is prepended as one frame of its own weight.  Returns
     (fired (B, c + 3, D), n_emitted (B,), state): mid-stream the last,
     incomplete bucket is carried, not emitted; on finish everything is.
-    (The JAX step's x_valid, per-example valid frames of batched sessions,
-    comes with them.)"""
+    x_valid: optional (B,) count of each example's valid frames in x (the
+    final chunk of a batch whose utterances end at different offsets);
+    the frames past it add zero alpha, as if absent."""
     b, c, d = x.shape
     alpha, conv_cache = _alpha_from_x(p, cfg, x, conv_cache=state.conv)
+    if x_valid is not None:
+        keep = torch.arange(c, device=x.device)[None, :] < \
+            x_valid.to(x.device)[:, None]
+        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
     a = torch.cat([state.prev_weight, alpha], dim=1)
     xx = torch.cat([state.prev_feat, x], dim=1)
     res = cif_function(xx, a, beta=cfg.cif_beta,

@@ -210,14 +210,36 @@ def _featurize_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, sub_cache,
     return x + pos, sub_cache, pos_cache
 
 
+def _subsample_valid_len(cfg: S2TEmformerConfig, n):
+    """Per-example valid subsampled length for n (B,) valid input frames:
+    0 stays 0, else the causal convs' stride formula."""
+    m = n.long()
+    for _ in cfg.conv_kernel_sizes:
+        m = torch.where(m > 0, (m - 1) // 2 + 1, torch.zeros_like(m))
+    return m
+
+
 def encoder_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
                  state: EncoderStreamState, feats: Optional[torch.Tensor],
-                 finish: bool = False) -> Tuple[EncoderOut, EncoderStreamState]:
+                 finish: bool = False,
+                 feat_valid: Optional[torch.Tensor] = None
+                 ) -> Tuple[EncoderOut, EncoderStreamState]:
     """Process one chunk of NEW feature frames (B, f, F), f % stride == 0
     unless finish, or None.  The reference's carry protocol
     (s2t_emformer.py:199-260): prepend the carry, run every complete
     segment + rc block, keep the rest as carry; on finish, right-pad rc
-    zeros and flush what is left.  All real frames are reported."""
+    zeros and flush what is left.  All real frames are reported.
+
+    feat_valid, on the finish call only: (B,) the count of real frames in
+    each example's feats, for a batch whose utterances end at different
+    offsets (zero-padded by the caller).  The convs are causal, so each
+    example's first valid outputs equal an unpadded run's; its frames past
+    the valid ones are zeroed (the reference's zero right-pad) before any
+    block runs, its blocks past them run with 0 valid frames, and
+    `lengths` reports its valid outputs.  What those blocks write into the
+    state in place (the memory bank, the left-context keys, past_length)
+    touches only that example's later, invalid blocks of the same call:
+    the state dies with the finish."""
     ecfg = cfg.emformer
     seg, rc = ecfg.segment, ecfg.right_context
     B = state.carry.shape[0]
@@ -230,25 +252,38 @@ def encoder_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
         x_new = state.carry[:, :0]
     v = state.carry_len + x_new.shape[1]       # real post-subsample frames
     x = torch.cat([state.carry[:, :state.carry_len], x_new], dim=1)
+    v_b = None
+    if feat_valid is not None:
+        if not finish:
+            raise ValueError("per-example feat_valid is only defined on the "
+                             "finish call")
+        v_b = state.carry_len + _subsample_valid_len(
+            cfg, feat_valid.to(x.device))                           # (B,)
+        keep = torch.arange(x.shape[1], device=x.device)[None, :] < \
+            v_b[:, None]
+        x = torch.where(keep[:, :, None], x, torch.zeros_like(x))
     if finish:
         x = torch.nn.functional.pad(x, (0, 0, 0, rc))
     size = x.shape[1]
 
-    def run_block(xb, uvc):
+    def run_block(xb, uvc, offset):
         """xb: (B, uvc + rc, D), utterance frames then the rc slot."""
         utt = torch.nn.functional.pad(xb[:, :uvc], (0, 0, 0, seg - uvc))
         blk = torch.cat([utt, xb[:, uvc:]], dim=1)
-        uv = torch.full((B,), uvc, dtype=torch.int32, device=x.device)
+        if v_b is None:
+            uv = torch.full((B,), uvc, dtype=torch.int32, device=x.device)
+        else:
+            uv = torch.clamp(v_b - offset, 0, uvc).to(torch.int32)
         return emf.emformer_step(p.emformer, ecfg, state.emf, blk, uv)[:, :uvc]
 
     outputs = []
     o = 0
     while (size - o) >= seg + rc and (v - o) >= seg:
-        outputs.append(run_block(x[:, o:o + seg + rc], seg))
+        outputs.append(run_block(x[:, o:o + seg + rc], seg, o))
         o += seg
     if finish and v - o > 0:
         rem = v - o                             # < seg real frames left
-        outputs.append(run_block(x[:, o:o + rem + rc], rem))
+        outputs.append(run_block(x[:, o:o + rem + rc], rem, o))
         o += rem
     enc = torch.cat(outputs, dim=1) if outputs else x[:, :0]
 
@@ -257,17 +292,22 @@ def encoder_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
     carry[:, :carry_len] = x[:, o:o + carry_len]
     new_state = EncoderStreamState(sub=sub_cache, pos=pos_cache, emf=state.emf,
                                    carry=carry, carry_len=carry_len)
-    lengths = torch.full((B,), enc.shape[1], dtype=torch.int64,
-                         device=x.device)
+    if v_b is None:
+        lengths = torch.full((B,), enc.shape[1], dtype=torch.int64,
+                             device=x.device)
+    else:
+        lengths = torch.clamp(v_b, max=enc.shape[1])
     return EncoderOut(encoder_out=enc, lengths=lengths,
                       ctc_logits=_ctc(p, enc)), new_state
 
 
 def make_encoder_stepper(p: S2TEmformerEncoder, cfg: S2TEmformerConfig):
-    """step(state, feats, finish=False) -> (EncoderOut, state): the
-    streaming session's per-chunk call with the weights bound."""
-    def step(state: EncoderStreamState, feats, finish: bool = False):
-        return encoder_step(p, cfg, state, feats, finish)
+    """step(state, feats, finish=False, feat_valid=None) -> (EncoderOut,
+    state): the streaming session's per-chunk call with the weights
+    bound."""
+    def step(state: EncoderStreamState, feats, finish: bool = False,
+             feat_valid: Optional[torch.Tensor] = None):
+        return encoder_step(p, cfg, state, feats, finish, feat_valid)
 
     return step
 

@@ -14,15 +14,17 @@ window, each later READ segment x 10 ms.
   * with force_finish, an EOS predicted before the source is complete is
     discarded and the agent READs instead.
 A fused agent (`fused=True`) runs READ and every WRITE of a chunk in one
-call of stream/fused.py's step through `FusedChunkSession`.  The batched
-sessions (`FusedBatchSession`) are not ported.  Every session builds its
-own state: the KV caches and the Emformer memory are written in place, so
-sessions cannot share one.
+call of stream/fused.py's step through `FusedChunkSession`, and streams
+B utterances of one chunk-count bucket lock-step through one step per
+chunk through `FusedBatchSession` (`new_batched_session`), or runs their
+whole session from the waveforms in one call (`process_session_wavs`).
+Every session builds its own state: the KV caches and the Emformer memory
+are written in place, so sessions cannot share one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from simulst_tpu_torch.data.vocab import EOS, Vocabulary
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
-from simulst_tpu_torch.ops.fbank import OnlineFbank
+from simulst_tpu_torch.ops.fbank import OnlineFbank, fbank_batch, num_frames
 from simulst_tpu_torch.stream import fused as fused_steps
 
 READ, WRITE = 0, 1
@@ -148,20 +150,11 @@ class SpeechAgent:
                                      self._fused_step)
         return self.session_cls(self)
 
-
-def _drain_writes(state, step_fn, max_rounds: int = 64):
-    """WRITEs still pending after the final chunk (each step caps its
-    attempts): step again with no new features until every example is
-    finished or full, or a round writes nothing."""
-    for _ in range(max_rounds):
-        n_tok = state.n_tokens.cpu().numpy()
-        fin = state.finished.cpu().numpy()
-        if (fin | (n_tok >= state.tokens.shape[1] - 1)).all():
-            break
-        state, n_new = step_fn(state, None, finish=True)
-        if int(n_new.sum()) == 0:
-            break
-    return state
+    def new_batched_session(self, batch: int) -> "FusedBatchSession":
+        if not self.fused:
+            raise ValueError("batched streaming requires fused=True")
+        return FusedBatchSession(self, self._fused_init(batch),
+                                 self._fused_step, batch)
 
 
 class FusedChunkSession:
@@ -184,7 +177,7 @@ class FusedChunkSession:
         n_before = int(self.state.n_tokens[0])
         self.state, _ = self.step_fn(self.state, x, finish=finished)
         if finished:
-            self.state = _drain_writes(self.state, self.step_fn)
+            self.state = fused_steps.drain_writes(self.state, self.step_fn)
         self.next_chunk_ms = self.chunk_ms
         n_after = int(self.state.n_tokens[0])
         self.finished = bool(self.state.finished[0]) or \
@@ -194,6 +187,196 @@ class FusedChunkSession:
     @property
     def truncated(self) -> bool:
         return bool(self.state.truncated[0])
+
+
+def chunk_count(n_samples: int, first: int, steady: int) -> int:
+    """Chunks that stream n_samples: the first of `first` samples, then
+    `steady` at a time."""
+    consumed, k = 0, 0
+    while consumed < n_samples:
+        consumed = min(consumed + (first if k == 0 else steady), n_samples)
+        k += 1
+    return k
+
+
+def _session_schedule(cfg, wavs):
+    """The lock-step schedule of a bucket: (n_first, n_steady, n_chunks,
+    sched_samples).  Every wav must have the same chunk count."""
+    first_ms, steady_ms = chunk_geometry_ms(cfg)
+    n_first = int(first_ms / 1000.0 * 16000)
+    n_steady = int(steady_ms / 1000.0 * 16000)
+    n_chunks = chunk_count(len(wavs[0]), n_first, n_steady)
+    if any(chunk_count(len(w), n_first, n_steady) != n_chunks for w in wavs):
+        raise ValueError("a lock-step bucket must share the chunk count")
+    return n_first, n_steady, n_chunks, n_first + (n_chunks - 1) * n_steady
+
+
+class StagedWavs(NamedTuple):
+    wav_mat: torch.Tensor            # (B, sched) fp32 or int16, on the device
+    n_valid: Optional[torch.Tensor]  # (B,) final-chunk frame counts, or None
+
+
+def stage_session_wavs(agent, wavs) -> Optional[StagedWavs]:
+    """The (B, sched) sample matrix of a bucket, zero-padded, and the
+    per-example final-chunk frame counts, on the agent's device.  int16 PCM
+    stays int16 (a quarter of fp32's bytes; the featurizer's cast is
+    exact); a bucket that mixes int16 and float wavs is staged as fp32 in
+    [-1, 1].  n_valid is None when every final count is the schedule's.
+    A single-chunk bucket needs no staging (None)."""
+    n_first, n_steady, n_chunks, sched = _session_schedule(agent.cfg, wavs)
+    if n_chunks < 2:
+        return None
+    dt = (np.int16 if all(np.asarray(w).dtype == np.int16 for w in wavs)
+          else np.float32)
+    wav_mat = np.zeros((len(wavs), sched), dt)
+    for i, w in enumerate(wavs):
+        w = np.asarray(w)
+        if dt == np.float32 and w.dtype == np.int16:
+            # the featurizer scales float input by 2**15: int16 members of
+            # a mixed bucket drop to [-1, 1] here
+            w = w.astype(np.float32) / 32768.0
+        wav_mat[i, :len(w)] = w
+    before_last = n_first + (n_chunks - 2) * n_steady
+    last_counts = np.array([num_frames(min(sched, len(w)))
+                            - num_frames(min(before_last, len(w)))
+                            for w in wavs])
+    mx_last = num_frames(sched) - num_frames(before_last)
+    dev = agent.device
+    n_valid = (torch.from_numpy(last_counts).to(dev)
+               if (last_counts != mx_last).any() else None)
+    return StagedWavs(wav_mat=torch.from_numpy(wav_mat).to(dev),
+                      n_valid=n_valid)
+
+
+def _stack_feats(feats: List[np.ndarray], n_feat: int, device):
+    """Per-example (t_i, F) features -> ((B, max t, F) zero-padded on the
+    device, or None when empty; the counts t_i)."""
+    counts = np.array([f.shape[0] for f in feats])
+    mx = int(counts.max())
+    if mx == 0:
+        return None, counts
+    x = np.zeros((len(feats), mx, n_feat), np.float32)
+    for i, f in enumerate(feats):
+        x[i, :f.shape[0]] = f
+    return torch.from_numpy(x).to(device), counts
+
+
+def featurize(wav_mat, global_cmvn, c0: int, cs: int, n_mid: int, mx: int):
+    """(first, mid, last): the fbank of a (B, samples) matrix on its device
+    (ops/fbank.fbank_batch; int16 PCM cast there), global CMVN, sliced
+    into the first chunk's c0 frames, n_mid steady chunks of cs (n_mid, B,
+    cs, F), or None, and the final chunk's mx."""
+    w = wav_mat.float()
+    if wav_mat.dtype != torch.int16:
+        w = w * (2 ** 15)        # int16 PCM already is wav x 2**15
+    feats = fbank_batch(w)
+    if global_cmvn is not None:
+        mean, std = (torch.as_tensor(np.asarray(a, np.float32),
+                                     device=feats.device)
+                     for a in global_cmvn)
+        feats = (feats - mean) / std
+    b, f = feats.shape[0], feats.shape[-1]
+    mid = None
+    if n_mid > 0:
+        mid = feats[:, c0:c0 + n_mid * cs].reshape(
+            b, n_mid, cs, f).transpose(0, 1)
+    end = c0 + n_mid * cs
+    return feats[:, :c0], mid, feats[:, end:end + mx]
+
+
+class FusedBatchSession:
+    """B utterances of one chunk-count bucket streamed lock-step through
+    one fused step per chunk (stream/evaluator.evaluate_batched makes the
+    buckets); on the final chunk each example passes its own count of
+    valid frames.  The reference's agents take one utterance at a time."""
+
+    def __init__(self, agent, state, step_fn, batch: int):
+        self.agent = agent
+        self.batch = batch
+        self.fbanks = [OnlineFbank(global_cmvn=agent.global_cmvn)
+                       for _ in range(batch)]
+        self.state = state
+        self.step_fn = step_fn
+        self.first_chunk_ms, self.chunk_ms = chunk_geometry_ms(agent.cfg)
+        self.next_chunk_ms = self.first_chunk_ms
+
+    @property
+    def truncated(self) -> np.ndarray:
+        """(B,) bool: a fixed buffer filled and output was cut short."""
+        return self.state.truncated.cpu().numpy()
+
+    def process_chunk_batch(self, chunks: List[np.ndarray], finished: bool
+                            ) -> List[List[int]]:
+        """chunks: each example's NEW samples (of one size but on the final
+        chunk).  Returns each example's newly written tokens."""
+        feats = [fb(c) for fb, c in zip(self.fbanks, chunks)]
+        x, counts = _stack_feats(feats, self.agent.cfg.input_feat,
+                                 self.agent.device)
+        n_valid = None
+        if finished and x is not None and (counts != counts.max()).any():
+            n_valid = torch.from_numpy(counts).to(self.agent.device)
+        elif not finished and (counts != counts.max()).any():
+            raise ValueError("mid-stream chunks must align across the batch")
+        n_before = self.state.n_tokens.cpu().numpy()
+        self.state, _ = self.step_fn(self.state, x, finish=finished,
+                                     n_valid=n_valid)
+        if finished:
+            self.state = fused_steps.drain_writes(self.state, self.step_fn)
+        self.next_chunk_ms = self.chunk_ms
+        n_after = self.state.n_tokens.cpu().numpy()
+        toks = self.state.tokens.cpu().numpy()
+        return [toks[i, n_before[i]:n_after[i]].tolist()
+                for i in range(self.batch)]
+
+    def _unpack_counts(self, n_before, counts, n_chunks):
+        """Each example's tokens per chunk from the (n_chunks, B) written
+        counts: one cumsum, then numpy slices."""
+        counts = counts.cpu().numpy()
+        toks = self.state.tokens.cpu().numpy()
+        ends = n_before[None, :] + np.cumsum(counts, axis=0)
+        starts = ends - counts
+        return [[toks[i, starts[k, i]:ends[k, i]].tolist()
+                 for k in range(n_chunks)] for i in range(self.batch)]
+
+    def process_session_wavs(self, wavs: List[np.ndarray]
+                             ) -> List[List[List[int]]]:
+        """The whole session from raw waveforms (fp32 in [-1, 1] or int16
+        PCM) in one call: the bucket staged on the device
+        (`stage_session_wavs`), the fbank of its (B, sched) sample matrix
+        there (ops/fbank.fbank_batch, global CMVN) sliced at the chunks'
+        frame boundaries, then the first, steady and final chunks and the
+        drain (fused.make_scanned_runner).  Framing is by global sample
+        position, so the frame count after c samples is num_frames(c)
+        however they were chunked, and the slices are the frames that
+        chunked extraction gives; a shorter example's zero-padded tail
+        gives rows that the final chunk's n_valid masks.  Token for token
+        the process_chunk_batch loop.  Returns each example's newly
+        written tokens per chunk."""
+        if any(fb.previous_residual.size for fb in self.fbanks):
+            raise ValueError("process_session_wavs needs a fresh session")
+        if len(wavs) != self.batch:
+            raise ValueError(f"{len(wavs)} wavs for a batch of {self.batch}")
+        n_first, n_steady, n_chunks, sched = _session_schedule(
+            self.agent.cfg, wavs)
+        if n_chunks < 2:
+            out = self.process_chunk_batch([np.asarray(w) for w in wavs],
+                                           finished=True)
+            return [[toks] for toks in out]
+        # frames emitted by each chunk boundary: the first n_chunks - 1
+        # boundaries are every example's; only the final chunk differs
+        fcum = [num_frames(n_first + k * n_steady) for k in range(n_chunks - 1)]
+        c0 = fcum[0]
+        cs = fcum[1] - fcum[0] if n_chunks > 2 else 0
+        # padded to the schedule, not the batch's longest
+        mx_last = num_frames(sched) - fcum[-1]
+        staged = stage_session_wavs(self.agent, wavs)
+        first, mid, last = featurize(staged.wav_mat, self.agent.global_cmvn,
+                                     c0, cs, n_chunks - 2, mx_last)
+        runner = fused_steps.make_scanned_runner(self.step_fn)
+        n_before = self.state.n_tokens.cpu().numpy()
+        self.state, counts = runner(self.state, first, mid, last,
+                                    staged.n_valid)
+        return self._unpack_counts(n_before, counts, n_chunks)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ merges the BPE units into words (a word's delay is the ms of source read
 when the word is committed, i.e. when the next word-initial unit arrives),
 and scores BLEU and the AL / AP / DAL latencies, with computation-aware
 (_CA) variants from the wall clock.  A fused session (one call per chunk)
-commits the tokens of a chunk at that chunk.  The batched evaluation
-(`evaluate_batched`, the scanned sessions, `merge_honest_ca`) is not
-ported.
+commits the tokens of a chunk at that chunk.  `evaluate_batched` buckets
+the utterances by chunk count and streams B at a time lock-step through
+a fused agent's batched session, chunk by chunk or (scan=True) each
+bucket's whole session in one call; `merge_honest_ca` takes the _CA
+metrics of a step-wise pass into the scanned scores.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import numpy as np
 
 from simulst_tpu_torch.data.vocab import EOS
 from simulst_tpu_torch.decode.scoring import corpus_bleu
-from simulst_tpu_torch.stream.agents import BOW_PREFIX, READ
+from simulst_tpu_torch.stream.agents import (BOW_PREFIX, READ, chunk_count,
+                                             chunk_geometry_ms)
 
 SAMPLE_RATE = 16000
 
@@ -68,7 +71,10 @@ class Instance:
 
 
 class _WordMerger:
-    """BPE units -> words, each with the delay at which it was committed."""
+    """BPE units -> words, each with the delay at which it was committed.
+    A word's elapsed time is the wall clock since t0 when it is committed,
+    or `wall_ms` where the caller took it (the batched sessions: one
+    reading per chunk, or per session when scanned), plus its delay."""
 
     def __init__(self, symbols, t0: float):
         self.symbols = symbols
@@ -77,23 +83,33 @@ class _WordMerger:
         self.delays: List[float] = []
         self.elapsed: List[float] = []
         self._buf: List[str] = []
+        self.done = False          # EOS written
 
-    def flush(self, consumed: int):
+    def flush(self, consumed: int, wall_ms: Optional[float] = None):
         if self._buf:
             w = "".join(self._buf).replace(BOW_PREFIX, "").strip()
             if w:
                 delay = consumed / SAMPLE_RATE * 1000.0
+                if wall_ms is None:
+                    wall_ms = (time.perf_counter() - self.t0) * 1000.0
                 self.words.append(w)
                 self.delays.append(delay)
-                self.elapsed.append((time.perf_counter() - self.t0) * 1000.0
-                                    + delay)
+                self.elapsed.append(wall_ms + delay)
             self._buf.clear()
 
-    def push(self, tok: int, consumed: int):
+    def push(self, tok: int, consumed: int, wall_ms: Optional[float] = None):
         piece = self.symbols[tok]
         if piece.startswith(BOW_PREFIX) and self._buf:
-            self.flush(consumed)
+            self.flush(consumed, wall_ms)
         self._buf.append(piece)
+
+    def push_chunk(self, tokens, consumed: int, wall_ms: float):
+        """A chunk's written tokens, up to EOS."""
+        for tok in tokens:
+            if tok == EOS:
+                self.done = True
+                break
+            self.push(tok, consumed, wall_ms)
 
 
 def run_session(agent, waveform: np.ndarray, max_actions: int = 10000
@@ -172,7 +188,10 @@ def evaluate(agent, utterances, references: Optional[List[str]] = None,
 def _score_and_log(instances, have_refs: bool, log_path: Optional[str],
                    mode: str) -> Dict[str, float]:
     """Scores and the instances log; `mode` says how the _CA timings were
-    taken ("stepwise": per chunk, on the wall clock)."""
+    taken ("stepwise": per chunk, on the wall clock; "scan": the whole
+    session's wall clock for every chunk, an upper bound), in the scores
+    and in every instance, so that the two are never compared as
+    equals."""
     scores: Dict[str, float] = {"mode": mode}
     n_trunc = sum(1 for x in instances if x.truncated)
     scores["truncated"] = n_trunc
@@ -193,3 +212,108 @@ def _score_and_log(instances, have_refs: bool, log_path: Optional[str],
                 f.write(json.dumps({**dataclasses.asdict(inst),
                                     "mode": mode}) + "\n")
     return scores
+
+
+def merge_honest_ca(scan_scores: Dict[str, float],
+                    stepwise_scores: Dict[str, float]) -> Dict[str, float]:
+    """BLEU, AL, AP and DAL from the scanned run, the _CA metrics from the
+    chunk-by-chunk run: computation-aware latency that a whole-session
+    call cannot time, with the scanned run's throughput."""
+    merged = dict(scan_scores)
+    for k, v in stepwise_scores.items():
+        if k.endswith("_CA"):
+            merged[k] = v
+    merged["mode"] = "scan+stepwise_ca"
+    return merged
+
+
+# ---------------------------------------------------------------------------
+# batched evaluation (B utterances per step)
+# ---------------------------------------------------------------------------
+
+def _run_fused_batch(agent, wavs: List[np.ndarray], n_chunks: int,
+                     scan: bool = False):
+    """Stream len(wavs) utterances of n_chunks chunks each lock-step
+    through one batched session.  Returns each example's (words, delays,
+    elapsed, truncated).
+
+    scan=True runs the whole session in one call
+    (FusedBatchSession.process_session_wavs, which stages the samples on
+    the device first): the same tokens and delays, but no chunk can be
+    timed, so every word's elapsed time carries the whole session's wall
+    clock, the staging included (the _CA metrics are an upper bound)."""
+    first_ms, steady_ms = chunk_geometry_ms(agent.cfg)
+    n_first = int(first_ms / 1000.0 * SAMPLE_RATE)
+    n_steady = int(steady_ms / 1000.0 * SAMPLE_RATE)
+    B = len(wavs)
+    t0 = time.perf_counter()
+    session = agent.new_batched_session(B)
+    mergers = [_WordMerger(agent.vocab.symbols, t0) for _ in range(B)]
+
+    if scan:
+        out = session.process_session_wavs(wavs)
+        wall = (time.perf_counter() - t0) * 1000.0
+        for merger, wav, chunks in zip(mergers, wavs, out):
+            consumed = 0
+            for c, toks in enumerate(chunks):
+                consumed = min(consumed + (n_first if c == 0 else n_steady),
+                               len(wav))
+                if merger.done:
+                    break
+                merger.push_chunk(toks, consumed, wall)
+            merger.flush(min(n_first + (n_chunks - 1) * n_steady, len(wav)),
+                         wall)
+    else:
+        consumed = [0] * B
+        for c in range(n_chunks):
+            n = n_first if c == 0 else n_steady
+            chunks = []
+            for i, wav in enumerate(wavs):
+                chunks.append(wav[consumed[i]: consumed[i] + n])
+                consumed[i] = min(consumed[i] + n, len(wav))
+            out = session.process_chunk_batch(chunks,
+                                              finished=c == n_chunks - 1)
+            wall = (time.perf_counter() - t0) * 1000.0
+            for merger, toks, done in zip(mergers, out, consumed):
+                if not merger.done:
+                    merger.push_chunk(toks, done, wall)
+        for merger, done in zip(mergers, consumed):
+            merger.flush(done)
+    trunc = session.truncated
+    return [(m.words, m.delays, m.elapsed, bool(trunc[i]))
+            for i, m in enumerate(mergers)]
+
+
+def evaluate_batched(agent, utterances, references: Optional[List[str]] = None,
+                     batch_size: int = 8, log_path: Optional[str] = None,
+                     scan: bool = False) -> Dict[str, float]:
+    """`evaluate` with B utterances per step: the utterances are bucketed
+    by chunk count (a batch shares one chunk schedule) and streamed
+    `batch_size` at a time through the agent's batched session (the agent
+    must be fused).  Each example's words and delays are those of its
+    B = 1 session; the _CA metrics time the batched run.  scan=True runs
+    each group's whole session in one call, its samples staged just
+    before it runs (the staging time counted in its _CA clock)."""
+    first_ms, steady_ms = chunk_geometry_ms(agent.cfg)
+    n_first = int(first_ms / 1000.0 * SAMPLE_RATE)
+    n_steady = int(steady_ms / 1000.0 * SAMPLE_RATE)
+    wavs = [np.asarray(w) for w in utterances]
+    buckets: Dict[int, List[int]] = {}
+    for i, w in enumerate(wavs):
+        buckets.setdefault(chunk_count(len(w), n_first, n_steady),
+                           []).append(i)
+    instances: List[Optional[Instance]] = [None] * len(wavs)
+    for k, idxs in sorted(buckets.items()):
+        for lo in range(0, len(idxs), batch_size):
+            group = idxs[lo: lo + batch_size]
+            results = _run_fused_batch(agent, [wavs[i] for i in group], k,
+                                       scan=scan)
+            for i, (words, delays, elapsed, trunc) in zip(group, results):
+                instances[i] = Instance(
+                    index=i, prediction=" ".join(words),
+                    reference=references[i] if references else "",
+                    delays=delays, elapsed=elapsed,
+                    source_length_ms=len(wavs[i]) / SAMPLE_RATE * 1e3,
+                    truncated=trunc)
+    return _score_and_log(instances, bool(references), log_path,
+                          mode="scan" if scan else "stepwise")

@@ -15,6 +15,14 @@ KV caches and step and adopts only its advanced monotonic head positions.
 The JAX steps are one lax.while_loop on the device; here the loop is
 Python over `cif_decoder_step` / `mma_decoder_step` calls, with one host
 read of "anyone still writing" per attempt.
+
+Batches: the utterances of a chunk-count bucket run lock-step on one chunk
+schedule; on the final chunk each example passes its own count of valid
+feature frames (`n_valid`; the shorter ones zero-padded by the caller).
+For evaluation, where the whole audio is known, `make_scanned_runner`
+runs a bucket's whole session in one call: the JAX package's lax.scan
+over the steady chunks is a Python loop over the same step here, token
+for token the per-chunk loop's.
 """
 from __future__ import annotations
 
@@ -56,13 +64,6 @@ def _append_rows(buf, buf_len, new, n_new):
     out = torch.where(take[:, :, None], gathered.to(buf.dtype), buf)
     want = buf_len + n_new.to(buf_len.dtype)
     return out, torch.clamp(want, max=tmax), want > tmax
-
-
-def _raise_on_n_valid(n_valid):
-    if n_valid is not None:
-        raise NotImplementedError(
-            "per-example n_valid needs encoder_step's feat_valid flush, "
-            "which is not yet ported (ROADMAP Queue 1 item 5)")
 
 
 def _prev_tokens(tokens, n_tok, eos: int):
@@ -110,18 +111,20 @@ def make_cif_fused_step(model: cif_mod.CIFModel, cfg: cif_mod.CIFConfig,
     encoder step on feats (B, f, F) (or None) and the streaming CIF layer
     on its output, then the WRITE loop; at most max_writes_per_chunk
     attempts mid-stream, up to the token buffer on the final chunk.  `cfg`
-    may differ from model.cfg (a test-time cif_beta).  A per-example count
-    of valid frames (the JAX step's n_valid) is not ported."""
+    may differ from model.cfg (a test-time cif_beta).  n_valid, on the
+    final chunk only: (B,) each example's count of valid frames in feats;
+    its frames past them reach neither the encoder's state nor the CIF
+    layer's alphas."""
 
     @torch.no_grad()
     def step(state: CIFFusedState, feats, finish: bool = False,
              n_valid: Optional[torch.Tensor] = None
              ) -> Tuple[CIFFusedState, torch.Tensor]:
-        _raise_on_n_valid(n_valid)
         enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
-                                              feats, finish)
+                                              feats, finish, n_valid)
         fired, n_emit, cif_state = cif_mod.cif_layer_step(
-            model.cif, cfg, state.cif, enc_out.encoder_out, finish)
+            model.cif, cfg, state.cif, enc_out.encoder_out, finish,
+            x_valid=enc_out.lengths if n_valid is not None else None)
         cif_buf, cif_len, overflow = _append_rows(
             state.cif_buf, state.cif_len, fired, n_emit)
         b, tmax = state.tokens.shape
@@ -198,16 +201,16 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
     encoder step on feats (B, f, F) (or None), then the WRITE loop until
     every example READs, emits EOS or rejects a premature EOS; at most
     max_writes_per_chunk attempts mid-stream, up to the token buffer on
-    the final chunk.  A per-example count of valid frames (the JAX step's
-    n_valid) is not ported: utterances of a batch share one chunk plan."""
+    the final chunk.  n_valid, on the final chunk only: (B,) each
+    example's count of valid frames in feats; only its valid encoder
+    frames reach its buffer."""
 
     @torch.no_grad()
     def step(state: MMAFusedState, feats, finish: bool = False,
              n_valid: Optional[torch.Tensor] = None
              ) -> Tuple[MMAFusedState, torch.Tensor]:
-        _raise_on_n_valid(n_valid)
         enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
-                                              feats, finish)
+                                              feats, finish, n_valid)
         enc_buf, src_len, overflow = _append_rows(
             state.enc_buf, state.src_len, enc_out.encoder_out,
             enc_out.lengths)
@@ -253,3 +256,48 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
         return new_state, n_tok - state.n_tokens
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# whole sessions
+# ---------------------------------------------------------------------------
+
+def drain_writes(state, step_fn, max_rounds: int = 64):
+    """WRITEs still pending after the final chunk (each step caps its
+    attempts): step again with no new features until every example is
+    finished or full, or a round writes nothing."""
+    for _ in range(max_rounds):
+        full = state.n_tokens >= state.tokens.shape[1] - 1
+        if bool((state.finished | full).all()):
+            break
+        state, n_new = step_fn(state, None, finish=True)
+        if int(n_new.sum()) == 0:
+            break
+    return state
+
+
+def make_scanned_runner(step_fn):
+    """run(state, first, mid, last, last_valid=None) -> (state, counts):
+    first (B, c0, F) the first chunk's features; mid (N, B, c, F) the
+    steady chunks (N may be 0, or mid None); last (B, cl, F) the final
+    chunk (or None: a flush with no new features), with `last_valid` its
+    per-example valid counts; then the drain.  Returns the final state and
+    the per-chunk written-token counts (N + 2, B), the drained tokens
+    counted with the final chunk.  Token for token the per-chunk loop's
+    (the same step)."""
+
+    def run(state, first, mid, last, last_valid=None):
+        counts = []
+        state, n = step_fn(state, first)
+        counts.append(n)
+        for feats in (mid if mid is not None else ()):
+            state, n = step_fn(state, feats)
+            counts.append(n)
+        before = state.n_tokens
+        state, _ = step_fn(state, last, finish=True, n_valid=last_valid)
+        state = drain_writes(state, step_fn)
+        counts.append(state.n_tokens - before)
+        return state, torch.stack(counts)
+
+    return run
+

@@ -873,3 +873,50 @@ def test_mha_forward_takes_misaligned_views(randn, monkeypatch, path):
         args = (q, k, v, kmask, 4, causal, 0.1, 8)
         torch.testing.assert_close(fused_mha_forward(*args)[0],
                                    mha_plain(*args), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [8, 64])
+def test_ffn_kernels_at_the_batched_stream_rows(randn, batch):
+    """The batched streaming evaluator's shapes: the Emformer block's
+    LN-FFN on (B, rc 8 + segment 16, 256), 192 rows (the fused kernel) at
+    B 8 and 1,536 (the tiled path) at B 64, and the decoder step's FFN on
+    (B, 1, 256)."""
+    x = randn(batch, 24, 256)
+    g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
+    w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
+    assert (batch * 24 >= TILED_MIN_ROWS) == (batch == 64)
+    before = (fused_ln_ffn_res.launches, fused_ffn.launches)
+    torch.testing.assert_close(fused_ln_ffn_res(x, g, b, w1, b1, w2, b2),
+                               ln_ffn_res_plain(x, g, b, w1, b1, w2, b2), **TOL)
+    step = randn(batch, 1, 256)
+    torch.testing.assert_close(fused_ffn(step, w1, b1, w2, b2),
+                               ffn_plain(step, w1, b1, w2, b2), **TOL)
+    assert (fused_ln_ffn_res.launches, fused_ffn.launches) == \
+        (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,valid", [
+    (17, None),                        # a steady chunk: carry + 16 frames
+    (25, "ragged")])                   # the flush: carry + up to 24 frames
+def test_cif_integrate_at_the_batched_stream_shapes(randn, s, valid):
+    """cif_integrate at B 64 as the batched CIF step calls it (T = S + 2):
+    a steady chunk, and the final flush whose frames past each example's
+    x_valid (0 to 24, the carried tail always valid) weigh zero."""
+    b, c, t, beta = 64, 256, s + 2, 1.0
+    x = randn(b, s, c)
+    alpha = torch.sigmoid(randn(b, s))
+    if valid:
+        x_valid = torch.arange(b, device="cuda") % s
+        alpha = torch.where(torch.arange(s, device="cuda")[None, :]
+                            <= x_valid[:, None], alpha,
+                            torch.zeros_like(alpha))
+    before = cif_integrate.cif_integrate.launches
+    out, delays = cif_integrate.cif_integrate(x, alpha, beta, t)
+    assert cif_integrate.cif_integrate.launches == before + 1
+    want = cif_integrate.cif_integrate_plain(x, alpha, beta, t)
+    for got, ref in zip((out, delays), want):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-5 * ref.abs().max().item(), err

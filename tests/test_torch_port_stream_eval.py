@@ -359,7 +359,8 @@ def test_cli_trains_cif_and_stream_evaluates_cif_and_mma(tmp_path):
     with a CTC head, two updates; an MMA student the same way; then
     cli/stream_eval --agent cif and --agent mma, each fused and step-wise
     with the same predictions and delays, writing `scores` and
-    `instances.log`; the unported options raise."""
+    `instances.log`; then CIF with --batch-size 2 and with
+    --scan-sessions, each with the fused B = 1 predictions and delays."""
     _write_data(tmp_path)
     asr = ts2t.S2TEmformerModel(
         ts2t.S2TEmformerConfig(vocab_size=14, ctc_layer=True, **CLI_SMALL),
@@ -381,14 +382,13 @@ def test_cli_trains_cif_and_stream_evaluates_cif_and_mma(tmp_path):
         "--override", "fixed_pre_decision_ratio=2",
         "--override", "waitk_lagging=2"])
 
-    fused = _stream_eval(tmp_path, cif, "cif", "--agent", "cif", "--fused",
-                         "--cif-beta", "1.0")
-    assert fused == _stream_eval(tmp_path, cif, "cif_stepwise", "--agent",
-                                 "cif")
+    fused_cif = _stream_eval(tmp_path, cif, "cif", "--agent", "cif",
+                             "--fused", "--cif-beta", "1.0")
+    assert fused_cif == _stream_eval(tmp_path, cif, "cif_stepwise",
+                                     "--agent", "cif")
     fused = _stream_eval(tmp_path, mma, "mma", "--agent", "mma", "--fused")
     assert fused == _stream_eval(tmp_path, mma, "mma_stepwise", "--agent",
                                  "waitk", "--waitk", "2")
     for extra in (["--batch-size", "2"], ["--scan-sessions"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            _stream_eval(tmp_path, cif, "x", "--agent", "cif", "--fused",
-                         *extra)
+        assert _stream_eval(tmp_path, cif, extra[0][2:], "--agent", "cif",
+                            "--fused", *extra) == fused_cif
