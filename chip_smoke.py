@@ -6,7 +6,9 @@ exp/2_mma.sh from that encoder, and its streaming READ/WRITE step) and the
 CIF slice (training as exp/3_cif.sh from that encoder, and serving CIF and
 MMA through the streaming evaluator, as cli/stream_eval does, one
 utterance at a time and batched), the offline decoding of the MMA and CIF students and the MT teacher
-(cli/generate) and the sequence-packed ASR training of cli/train --pack.
+(cli/generate), the sequence-packed ASR training of cli/train --pack and
+the Transformer-Transducer (exp/6_transducer.sh: training, offline decode
+and streaming).
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -177,7 +179,36 @@ targets):
               SpecAugment, packed vs unpacked from the same parameters
               (encoder output on valid frames, loss, every gradient); and
               kernels vs plain versions on that packed step
- 18. report   a JSON line of per-kernel numbers with their bounds, the
+ 18. transducer  rows 5 / 5b and 2 / 2b vs their plain versions at the
+              label encoder's shapes ((16, 73, 73) causal; 1,168 rows;
+              the decode step's 40 and 8 rows) with CUDA-event times,
+              SDPA / the products through torch.matmul and bounds; then 8
+              Adam steps of TransducerConfig() with exp/6_transducer.sh's
+              options (FastEmit 0.01, offline factor 1, lr 5e-4, warmup
+              4000, clip 10) through cli/train, the encoder from phase
+              8's checkpoint, on 16 of phase 7's utterances (what
+              --max-tokens 20000 takes): losses finite, launches per step
+              as the layer count predicts, peak memory per step, 3
+              profiled steps (the lattice's log-softmax and the RNN-T
+              loop's logaddexp named apart), the loss side of a step by
+              part (the joiner, the log-softmax, the RNN-T loss, the
+              criterion; CUDA events) and one step at dropout 0 kernels
+              vs plain; decode_batch greedy and at beam 5 on phase 3's
+              batch, the best hypotheses fed back through the
+              decode step with the kernels and the plain versions; then
+              the trained checkpoint served through build_agent: test-time
+              scales of the blank's and EOS's probabilities (searched on
+              the first utterance: it writes before its source ends and,
+              where it can, ends on EOS; logged), one utterance fused ==
+              step-wise, evaluate at B = 1 and evaluate_batched at B 8
+              step-wise and scanned over 16 utterances (tones under an
+              on / off envelope), tokens == B = 1 but for proven ties (a
+              top-two gap or a blank-vs-non-blank frame margin under
+              1e-4, replayed at B = 1); fails on AP 1, on every utterance
+              truncated, or on no B 8 mid-stream chunk whose examples
+              write different counts; ms per chunk and utterances per
+              second
+ 19. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -224,6 +255,11 @@ or when any phase fails.  Tolerances:
   packed ASR step, kernels vs plain: as the ASR step, but the gradient
                          norm is logged, not limited (its rounding floor
                          on this model reaches 2.1e-5 relative)
+  transducer train step, kernels vs plain: as the ASR step; its offline
+                         decode logits along the best hypotheses as
+                         phase 16's; its streaming tokens, fused vs
+                         step-wise: equal; B 8 vs B = 1: equal but for
+                         argmax ties (top-two gap under 1e-4, replayed)
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
@@ -1149,15 +1185,17 @@ def phase_train_kernels(dev, batch):
     return report
 
 
-def kernel_family(name):
-    return next((fam for frag, fam in KERNEL_FAMILIES if frag in name),
+def kernel_family(name, families=KERNEL_FAMILIES):
+    return next((fam for frag, fam in families if frag in name),
                 "other PyTorch kernels")
 
 
-def profile_steps(state, train_step, batch, generator, tag):
+def profile_steps(state, train_step, batch, generator, tag,
+                  families=KERNEL_FAMILIES):
     """PROFILE_STEPS training steps under torch.profiler: the device busy
     share of the profiled wall (which the profiler stretches), the device
-    time by kernel family and the top kernels, per step."""
+    time by kernel family (`families`: name fragment -> family, the first
+    match) and the top kernels, per step."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1173,10 +1211,11 @@ def profile_steps(state, train_step, batch, generator, tag):
     if not kernels:
         raise AssertionError("torch.profiler recorded no device kernels")
     device_ms = sum(e.self_device_time_total for e in kernels
-                    if kernel_family(e.key) != POSTERIOR_FAMILY) / 1e3
+                    if kernel_family(e.key, families)
+                    != POSTERIOR_FAMILY) / 1e3
     by_family = defaultdict(lambda: [0.0, 0])
     for e in kernels:
-        fam = by_family[kernel_family(e.key)]
+        fam = by_family[kernel_family(e.key, families)]
         fam[0] += e.self_device_time_total / 1e3 / PROFILE_STEPS
         fam[1] += e.count / PROFILE_STEPS
     def family_ms(families):
@@ -2471,17 +2510,18 @@ OFFLINE_DECODE_KERNELS = {
     "mt": ("fused_mha", "fused_linear_res", "fused_ffn")}
 
 
-def hypothesis_logits(build, model, batch, tokens):
-    """(B * BEAM, L, V) logits of the decoder step fed the hypotheses tokens
-    (B, L), each row's repeated BEAM times, one token at a time after EOS
-    (no search): the scores the search saw along its best hypotheses, at
-    the decode's own N = B * BEAM rows."""
+def hypothesis_logits(build, model, batch, tokens, beam=BEAM):
+    """(B * beam, L, V) logits of the decoder step fed the hypotheses tokens
+    (B, L), each row's repeated beam times, one token at a time after the
+    builder's seed, EOS or the transducer's blank (no search): the scores
+    the search saw along its best hypotheses, at the decode's own
+    N = B * beam rows."""
     import torch
     from simulst_tpu_torch.decode.beam import BeamConfig
-    step_fn, state, _ = build(model, batch, BeamConfig(
-        beam_size=BEAM, max_len=tokens.shape[1]))
-    tokens = tokens.repeat_interleave(BEAM, dim=0)
-    prev = torch.full_like(tokens[:, 0], 2)
+    step_fn, state, _, seed = build(model, batch, BeamConfig(
+        beam_size=beam, max_len=tokens.shape[1]))
+    tokens = tokens.repeat_interleave(beam, dim=0)
+    prev = torch.full_like(tokens[:, 0], 2 if seed is None else seed)
     out = []
     for t in range(tokens.shape[1]):
         logits, state = step_fn(state, prev)
@@ -2742,26 +2782,65 @@ def served_tokens(sessions, groups):
     return out
 
 
+def frame_margin(cfg, lattice, args, kwargs, out):
+    """The smallest |blank - best non-blank| logit margin over the frames
+    that decided a transducer decode_step call (args, kwargs -> out) whose
+    joiner gave `lattice` (S, V): from prev_emit to the chosen frame, or
+    to the last visible frame where the call READ, less the last visible
+    frame where the offline step forces an emit there.  inf where no frame
+    decided."""
+    import torch
+    from simulst_tpu_torch.models import transducer as tr_mod
+    state, src_buf, src_len = args[2], args[4], args[5]
+    online = args[6] if len(args) > 6 else kwargs.get("online", False)
+    n = int(tr_mod.downsample_pool(src_buf, src_len, cfg.downsample)[1][0])
+    lo = int(state.prev_emit[0])
+    hi = int(out[2].prev_emit[0]) if bool(out[1][0]) else n - 1
+    if not online:
+        hi = min(hi, n - 2)
+    rows = lattice[lo:hi + 1].float()
+    if not len(rows):
+        return float("inf")
+    blank = rows[:, cfg.blank_idx].clone()
+    rows[:, cfg.blank_idx] = float("-inf")
+    return float((rows.max(dim=-1).values - blank).abs().min())
+
+
 def b1_gap(agent, kind, wav, index):
     """The top-two logit gap of the B = 1 session's decoder call that
     decided its token `index`, replayed: the last call with step == index
     that chose the token written there (the accepted one); for EOS the
     largest gap of its calls there that chose EOS (a rejected early EOS
     may be the deciding one).  None where the session wrote no token
-    `index`."""
+    `index`.  For the transducer, whose calls also decide at which frame
+    to emit, the smaller of that gap and the blank's margin at every frame
+    that decided a call with step <= index (`frame_margin`; READ calls'
+    frames too: equal tokens emitted at other frames part the sessions
+    later, and the margin is defined where no token `index` was
+    written)."""
     import torch
     from simulst_tpu_torch.models import cif as cif_mod
     from simulst_tpu_torch.models import mma as mma_mod
     from simulst_tpu_torch.stream.evaluator import run_session
-    mod, name = ((cif_mod, "cif_decoder_step") if kind == "cif"
-                 else (mma_mod, "mma_decoder_step"))
-    real, calls = getattr(mod, name), []
+    from simulst_tpu_torch.models import transducer as tr_mod
+    mod, name = {"cif": (cif_mod, "cif_decoder_step"),
+                 "transducer": (tr_mod, "decode_step")}.get(
+        kind, (mma_mod, "mma_decoder_step"))
+    real, calls, lattices = getattr(mod, name), [], []
+    real_joiner = tr_mod.joiner_forward
+
+    def joiner(*args, **kwargs):
+        out = real_joiner(*args, **kwargs)
+        lattices.append(out[0, :, 0])
+        return out
 
     def recorded(*args, **kwargs):
         out = real(*args, **kwargs)
         top = out[0][0].float().topk(2)
+        margin = (frame_margin(agent.cfg, lattices.pop(), args, kwargs, out)
+                  if kind == "transducer" else float("inf"))
         calls.append((int(args[2].step[0]), int(top.indices[0]),
-                      float(top.values[0] - top.values[1])))
+                      float(top.values[0] - top.values[1]), margin))
         return out
 
     sessions = []
@@ -2771,21 +2850,25 @@ def b1_gap(agent, kind, wav, index):
         sessions.append(make())
         return sessions[-1]
 
+    patches = [(mod, name, recorded)]
+    if kind == "transducer":
+        patches.append((tr_mod, "joiner_forward", joiner))
     agent.new_session = new_session
     try:
-        with patched([(mod, name, recorded)]), torch.no_grad():
+        with patched(patches), torch.no_grad():
             run_session(agent, wav)
     finally:
         agent.new_session = make
     state = sessions[0].state
     tokens = state.tokens[0, :int(state.n_tokens[0])].tolist()
-    if index >= len(tokens):
-        return None, tokens
-    chose = tokens[index]
-    gaps = [g for step, tok, g in calls if step == index and tok == chose]
+    margin = min((m for step, _, _, m in calls if step <= index),
+                 default=float("inf"))
+    chose = tokens[index] if index < len(tokens) else None
+    gaps = [g for step, tok, g, _ in calls if step == index and tok == chose]
     if not gaps:
-        return None, tokens
-    return (max(gaps) if chose == agent.cfg.eos_idx else gaps[-1]), tokens
+        return (margin if margin < float("inf") else None), tokens
+    gap = max(gaps) if chose == agent.cfg.eos_idx else gaps[-1]
+    return min(gap, margin), tokens
 
 
 def phase_batched_serve(dev, workdir, checkpoints):
@@ -3183,6 +3266,640 @@ def phase_batched_serve(dev, workdir, checkpoints):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the Transformer-Transducer (exp/6_transducer.sh)
+# ---------------------------------------------------------------------------
+
+# exp/6's --max-tokens 20000 takes 16 utterances of the 1024-frame bucket
+TRANSDUCER_UTT, TRANSDUCER_STEPS = 16, 8
+TRANSDUCER_ARGS = ["--task", "st", "--model", "transducer", "--loss", "rnnt",
+                   "--loss-override", "fastemit_lambda=0.01",
+                   "--loss-override", "offline_factor=1.0",
+                   "--lr", "5e-4", "--warmup-updates", "4000",
+                   "--clip-norm", "10", "--seed", str(SEED)]
+# launches per transducer training step: the encoder's as in MMA training
+# (no CTC head); 6 label-encoder layers, each one causal self-attention
+# core, its out-projection epilogue and one FFN
+TRANSDUCER_LAUNCHES_PER_STEP = {
+    "fused_ln_ffn_res": 12, "fused_ln_ffn_res_backward": 12,
+    "emformer_grouped_attention": 12,
+    "emformer_grouped_attention_backward": 12,
+    "emformer_grouped_attention_gated": 0,
+    "emformer_grouped_attention_gated_backward": 0,
+    "fused_linear_res": 18, "fused_linear_res_backward": 18,
+    "fused_mha": 6, "fused_mha_backward": 6,
+    "fused_ffn": 6, "fused_ffn_backward": 6,
+    "convpos_wgrad": 1, "ctc_alphas": 0, "ctc_d_em": 0,
+    "alignment_fwd": 0, "alignment_bwd": 0, "cif_integrate": 0}
+# the offline decode: the encoder's forward kernels, the label step's FFN
+TRANSDUCER_DECODE_KERNELS = ("fused_ln_ffn_res", "emformer_grouped_attention",
+                             "fused_linear_res", "fused_ffn")
+TRANSDUCER_STREAM_KERNELS = ("fused_ln_ffn_res", "fused_ffn")
+# the search for the blank's and EOS's test-time scales
+# (transducer_test_time_scales): eight steps do not train the blank's
+# probability into place
+TRANSDUCER_SCALE_DOUBLINGS, TRANSDUCER_SCALE_BISECTIONS = 6, 5
+TRANSDUCER_STREAM_MAX_TGT = 64
+# the transducer step's own kernels in its profile, before the shared
+# families: the lattice's log-softmax (and the offline CE column's), the
+# RNN-T diagonal loop's logaddexp, the joiner's tanh
+TRANSDUCER_FAMILIES = (("SoftMax", "log-softmax (lattice and CE column)"),
+                       ("logaddexp", "RNN-T diagonal loop: logaddexp"),
+                       ("tanh", "joiner tanh"))
+TRANSDUCER_B1_LONG = 8        # long-bucket utterances beside the 8 short
+
+
+def transducer_audio(rng):
+    """The transducer's streaming utterances (int16): TRANSDUCER_B1_LONG of
+    the long bucket and BATCH_SHORT of the short one (batched-serve's
+    lengths, each final chunk its own size), tones under a 1.5 Hz on / off
+    envelope over a little noise, so that the encoder's frames differ
+    between sound and pause."""
+    lengths = list(np.linspace(*BATCH_LONG_SAMPLES, TRANSDUCER_B1_LONG)
+                   .astype(int)) + list(np.linspace(
+                       *BATCH_SHORT_SAMPLES, BATCH_SHORT).astype(int))
+    wavs = []
+    for n in lengths:
+        t = np.arange(n) / 16000.0
+        env = np.sin(2 * np.pi * 1.5 * t + rng.uniform(0, 2 * np.pi)) > 0
+        tone = sum(a * np.sin(2 * np.pi * f * t) for a, f in
+                   zip(rng.uniform(0.05, 0.3, 3), rng.uniform(100, 3000, 3)))
+        wav = env * tone + 0.01 * rng.randn(n)
+        wavs.append(np.clip(np.round(wav * 2 ** 15), -32768,
+                            32767).astype(np.int16))
+    return wavs
+
+
+def phase_transducer_kernels(dev):
+    """Rows 5 / 5b and 2 / 2b at the transducer's label-encoder shapes vs
+    their plain versions: the causal self-attention on the train batch's
+    (16, 73, 73) labels, its FFN on their 1,168 rows (gelu, rate 0.1),
+    and the decode step's FFN on B x beam 40 and B 8 rows; CUDA-event
+    times beside SDPA / the products through torch.matmul, with bounds."""
+    import torch
+    from simulst_tpu_torch.ops import ffn, mha
+    g = torch.Generator().manual_seed(SEED + 18)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    b, t, d, hid, heads = TRANSDUCER_UTT, ASR_TOKEN_BUCKET + 1, 256, 2048, 4
+    lengths = torch.randint(ASR_MIN_TOKENS + 2, t + 1, (b,), generator=g)
+    kmask = (torch.arange(t)[None, :] < lengths[:, None]).to(
+        torch.int32).to(dev)
+    q, k, v, dout = (randn(b, t, d) for _ in range(4))
+    cfg = (heads, True, 0.1, 4321)
+    out, lse = mha.fused_mha_forward(q, k, v, kmask, *cfg)
+    e_fwd = max_err("fused_mha label encoder", out,
+                    mha.mha_plain(q, k, v, kmask, *cfg), **F32_TOL)
+    got = mha.fused_mha_backward(q, k, v, kmask, out, lse, dout, *cfg)
+    want = mha.mha_plain_backward(q, k, v, kmask, dout, *cfg)
+    e_bwd = max(max_err(f"fused_mha_backward label encoder {w}", x, y,
+                        **F32_TOL) for w, x, y in zip("qkv", got, want))
+    vis = mha_visible_pairs(kmask, t, True)
+    shape = f"(B,Tq,Tk,D)=({b},{t},{t},{d}) causal rate 0.1"
+    log("phase18-kernels", kernel="fused_mha", shape=shape,
+        max_abs_err=e_fwd,
+        plain_ms=cuda_ms(lambda: mha.mha_plain(q, k, v, kmask, *cfg)),
+        **mha_forward_case(q, k, v, kmask, heads, True, 0.1))
+    log("phase18-kernels", kernel="fused_mha_backward", shape=shape,
+        max_abs_err=e_bwd,
+        ms=cuda_ms(lambda: mha.fused_mha_backward(q, k, v, kmask, out, lse,
+                                                  dout, *cfg)),
+        plain_ms=cuda_ms(lambda: mha.mha_plain_backward(q, k, v, kmask,
+                                                        dout, *cfg)),
+        library_ms=sdpa_backward_ms(q, k, v, kmask, dout, *cfg[:3]),
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            nbytes(q, k, v, kmask, out, lse, dout, *got), 10 * d * vis))))
+
+    xav = (6.0 / (d + hid)) ** 0.5
+    w1, b1 = randn(d, hid, scale=xav), randn(hid, scale=0.02)
+    w2, b2 = randn(hid, d, scale=xav), randn(d, scale=0.02)
+    for rows, rate in ((b * t, 0.1), (BEAM * N_UTT, 0.0), (N_UTT, 0.0)):
+        x, dy = randn(rows, d), randn(rows, d)
+        fcfg = ("gelu", rate, rate, 99)
+        y = ffn.fused_ffn_forward(x, w1, b1, w2, b2, *fcfg)
+        err = max_err(f"fused_ffn {rows} rows", y,
+                      ffn.ffn_plain(x, w1, b1, w2, b2, *fcfg), **F32_TOL)
+        flops = 2 * rows * d * hid
+        log("phase18-kernels", kernel="fused_ffn",
+            shape=f"x=({rows},{d}) gelu rate {rate}", max_abs_err=err,
+            ms=cuda_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2,
+                                                     *fcfg)),
+            plain_ms=cuda_ms(lambda: ffn.ffn_plain(x, w1, b1, w2, b2, *fcfg)),
+            library_ms=None, products_matmul_ms=matmul_yardstick(x, w1, w2),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(x, y, w1, b1, w2, b2), 2 * flops))))
+        if rows != b * t:
+            continue
+        got = ffn.fused_ffn_backward(x, w1, b1, w2, dy, *fcfg)
+        want = ffn.ffn_plain_backward(x, w1, b1, w2, dy, *fcfg)
+        err = max([max_err("fused_ffn_backward label encoder dx", got[0],
+                           want[0], **F32_TOL)] +
+                  [max_err_to_largest(f"fused_ffn_backward label encoder "
+                                      f"{w}", gw, ww)
+                   for w, gw, ww in zip(("dw1", "db1", "dw2", "db2"),
+                                        got[1:], want[1:])])
+        log("phase18-kernels", kernel="fused_ffn_backward",
+            shape=f"x=({rows},{d}) gelu rate {rate}", max_abs_err=err,
+            ms=cuda_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy,
+                                                      *fcfg),
+                       samples=5, runs=5),
+            plain_ms=cuda_ms(lambda: ffn.ffn_plain_backward(
+                x, w1, b1, w2, dy, *fcfg), samples=5, runs=5),
+            library_ms=None,
+            products_matmul_ms=matmul_yardstick(x, w1, w2, dy),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(x, dy, w1, b1, w2, *got), 5 * flops))))
+
+
+def lattice_breakdown(model, batch, lcfg):
+    """The loss side of one transducer step on this batch, forward and
+    backward, in CUDA-event ms by part: the joiner (its products and tanh
+    over the (B, S, U+1, V) lattice), the lattice's log-softmax, the RNN-T
+    loss on the log-probs (its gathers and the diagonal loop) and the
+    whole criterion; and the RNN-T loss's kernel launches (torch.profiler),
+    with the lattice's size."""
+    import torch
+    from simulst_tpu_torch.losses.rnnt_loss import rnnt_criterion
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.models import transducer as tr
+    from simulst_tpu_torch.ops.rnnt import rnnt_loss
+    cfg = model.cfg
+    with torch.no_grad():
+        lat, extra = model(batch["feats"], batch["feat_lengths"],
+                           batch["prev_tokens"])
+        enc = s2t.encoder_forward(model.encoder, cfg, batch["feats"],
+                                  batch["feat_lengths"])
+        tgt = tr.label_features(model.decoder, cfg, extra["label_tokens"])
+    src = enc.encoder_out.requires_grad_()
+    tgt = tgt.requires_grad_()
+    weights = [model.decoder.embed_tokens.weight,
+               model.decoder.joiner.source_projection.weight,
+               model.decoder.joiner.target_projection.weight]
+    dlat = torch.randn(lat.shape, device=lat.device,
+                       generator=torch.Generator(device=lat.device)
+                       .manual_seed(SEED))
+
+    def joiner():
+        with torch.enable_grad():
+            out = tr.joiner_forward(model.decoder, src, tgt)
+            torch.autograd.grad(out, [src, tgt] + weights, dlat)
+
+    x = lat.detach().requires_grad_()
+
+    def log_softmax():
+        with torch.enable_grad():
+            torch.autograd.grad(torch.log_softmax(x, dim=-1), x, dlat)
+
+    lp = torch.log_softmax(lat, dim=-1).requires_grad_()
+    targets = extra["label_tokens"][:, 1:]
+    args = (targets, extra["encoder_lengths"], extra["label_lengths"] - 1, 0,
+            lcfg.fastemit_lambda)
+
+    def loss():
+        with torch.enable_grad():
+            torch.autograd.grad(rnnt_loss(lp, *args), lp)
+
+    def criterion():
+        with torch.enable_grad():
+            torch.autograd.grad(rnnt_criterion(x, extra, lcfg)[0], x)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    loss()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        loss()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    b, s, u1, v = lat.shape
+    out = dict(lattice_shape=[b, s, u1, v],
+               lattice_gib=lat.numel() * 4 / 2 ** 30,
+               diagonal_steps=s + u1 - 2,
+               rnnt_loss_kernels_fwd_bwd=sum(e.count for e in kernels),
+               rnnt_loss_device_ms=sum(e.self_device_time_total
+                                       for e in kernels) / 1e3)
+    for name, fn in (("joiner", joiner), ("log_softmax", log_softmax),
+                     ("rnnt_loss", loss), ("criterion", criterion)):
+        out[f"{name}_fwd_bwd_ms"] = cuda_ms(fn, samples=3, runs=1,
+                                            warmup=1)
+    return out
+
+
+def phase_transducer(dev, asr, asr_checkpoint, speech, workdir):
+    """exp/6_transducer.sh on the card: (train) 8 Adam steps of
+    TransducerConfig() through cli/train with exp/6's options, the encoder
+    from phase 8's checkpoint, on 16 of phase 7's utterances; launches per
+    step, peak memory per step, 3 profiled steps, the loss side of a step
+    by part, and one step at dropout 0 kernels vs plain; (offline)
+    decode_batch greedy and beam 5 on phase 3's batch, the best
+    hypotheses fed back through the decode step with the kernels and the
+    plain versions; (streaming) the trained model served through
+    stream/build.build_agent: the blank's test-time scale, one utterance
+    fused == step-wise, then evaluate at B = 1 and evaluate_batched at B 8
+    step-wise and scanned over 16 utterances, tokens == B = 1 but for
+    proven ties.  Returns the main path's launches."""
+    import torch
+    from simulst_tpu_torch import config as cfglib
+    from simulst_tpu_torch.cli import generate
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.decode.beam import BeamConfig
+    from simulst_tpu_torch.losses.rnnt_loss import RNNTLossConfig
+    from simulst_tpu_torch.models import transducer as tr
+    from simulst_tpu_torch.ops.fbank import fbank_batch
+    from simulst_tpu_torch.stream.agents import TransducerAgent
+    from simulst_tpu_torch.stream.build import build_agent
+    from simulst_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                    save_checkpoint)
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    t_phase = time.perf_counter()
+    batch = {k: v[:TRANSDUCER_UTT] for k, v in asr.items()}
+    args = cli.parse_args(TRANSDUCER_ARGS + ["--load-pretrained-encoder-from",
+                                             asr_checkpoint])
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    pre, _ = load_checkpoint(asr_checkpoint)
+    if not all(torch.equal(v.cpu(), pre[k]) for k, v in
+               model.state_dict().items() if k.startswith("encoder.")):
+        raise AssertionError("the transducer's encoder is not phase 8's")
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    generator = torch.Generator().manual_seed(SEED)
+    initial = copy.deepcopy(state)
+    reset_launches()
+    step_ms, losses, rnnt, peak = [], [], [], []
+    for _ in range(TRANSDUCER_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        peak.append(torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+        rnnt.append(float(metrics["rnnt_loss"])
+                    / float(metrics["sample_size"]))
+    train_launches = read_launches()
+    per_step = {k: train_launches[k] / TRANSDUCER_STEPS
+                for k in TRANSDUCER_LAUNCHES_PER_STEP}
+    if per_step != TRANSDUCER_LAUNCHES_PER_STEP:
+        raise AssertionError(f"launches per step {per_step}, expected "
+                             f"{TRANSDUCER_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses + rnnt)) or \
+            state.step != TRANSDUCER_STEPS:
+        raise AssertionError(f"losses {losses}, RNN-T terms {rnnt}, "
+                             f"updates {state.step}")
+    log("phase18", config="TransducerConfig() " + " ".join(
+            TRANSDUCER_ARGS[6:10]), utterances=TRANSDUCER_UTT,
+        frames=f"{ASR_MIN_FRAMES}-{ASR_FRAMES}",
+        target_tokens=int((batch["target"] != 1).sum()),
+        steps=TRANSDUCER_STEPS, first_step_ms=step_ms[0],
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, rnnt_loss_per_token=rnnt,
+        launches_per_step=per_step, peak_memory_gib_per_step=peak)
+    state = profile_steps(state, train_step, batch, generator, "phase18",
+                          TRANSDUCER_FAMILIES + KERNEL_FAMILIES)
+    log("phase18", loss_side_of_a_step=lattice_breakdown(
+        state.model, batch, cfglib.apply_overrides(RNNTLossConfig(),
+                                                   args.loss_overrides)))
+    trained = state.model.eval()
+    del state
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase18",
+                       make_accum_train_step)
+    del initial
+    train_s = time.perf_counter() - t_phase
+
+    # offline decode, greedy and beam 5, on phase 3's batch
+    t0_off = time.perf_counter()
+    decode_launches = {}
+    with torch.no_grad():
+        for beam in (1, BEAM):
+            beam_cfg = BeamConfig(beam_size=beam, max_len=MAX_LEN)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens, lengths = generate.decode_batch(
+                trained, speech, beam_cfg)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            launched = read_launches()
+            missing = [k for k in TRANSDUCER_DECODE_KERNELS
+                       if not launched[k]]
+            if missing:
+                raise AssertionError(f"beam {beam}: {missing} did not launch "
+                                     f"in the offline decode: {launched}")
+            decode_launches = {k: decode_launches.get(k, 0) + n
+                               for k, n in launched.items()}
+            if tokens.shape != (N_UTT, MAX_LEN) or not (
+                    (lengths >= 1) & (lengths <= MAX_LEN)).all():
+                raise AssertionError(f"beam {beam}: decode output "
+                                     f"{tuple(tokens.shape)}, lengths "
+                                     f"{lengths.tolist()}")
+            t0 = time.perf_counter()
+            generate.decode_batch(trained, speech, beam_cfg)
+            torch.cuda.synchronize()
+            steady_ms = (time.perf_counter() - t0) * 1e3
+            got = hypothesis_logits(generate._build_transducer, trained,
+                                    speech, tokens, beam)
+            with plain_training():
+                want = hypothesis_logits(generate._build_transducer, trained,
+                                         speech, tokens, beam)
+            live = (torch.arange(MAX_LEN, device=dev)[None, :]
+                    < lengths.repeat_interleave(beam)[:, None])
+            err = max_err(f"transducer beam {beam} decode logits along the "
+                          "best hypotheses, kernels vs plain", got[live],
+                          want[live], **F32_TOL)
+            log("phase18", offline_beam=beam, batch=N_UTT, max_len=MAX_LEN,
+                first_ms_per_batch=first_ms, steady_ms_per_batch=steady_ms,
+                token_lengths=lengths.tolist(),
+                distinct_tokens=len(set(tokens.flatten().tolist())),
+                launches=launched, logits_max_abs_err=err)
+    offline_s = time.perf_counter() - t0_off
+
+    # streaming: the trained checkpoint through build_agent, as
+    # cli/stream_eval --agent transducer loads it
+    t0_stream = time.perf_counter()
+    ckpt = os.path.join(workdir, "transducer_checkpoint")
+    save_checkpoint(ckpt, trained.state_dict(),
+                    {"model": "transducer",
+                     "config": cfglib.to_dict(trained.cfg), "cmvn": "global"})
+    del trained
+    wavs = transducer_audio(np.random.RandomState(SEED + 18))
+    with torch.no_grad():
+        feats = torch.cat([fbank_batch(torch.from_numpy(
+            w.astype(np.float32)).to(dev)[None])[0] for w in wavs])
+    gcmvn = os.path.join(workdir, "gcmvn_transducer.npz")
+    np.savez(gcmvn, mean=feats.mean(dim=0).cpu().numpy(),
+             std=feats.std(dim=0).cpu().numpy())
+    del feats
+    vocab = serve_vocab()
+    refs = [" ".join(f"w{k}" for k in range(i, i + 12))
+            for i in range(len(wavs))]
+    agent = build_agent(ckpt, vocab, agent_type="transducer",
+                        global_cmvn_path=gcmvn, fused=True, device=dev,
+                        max_src_frames=1024,
+                        max_tgt_len=TRANSDUCER_STREAM_MAX_TGT)
+    stepwise = TransducerAgent(agent.model, vocab, agent.acfg,
+                               global_cmvn=agent.global_cmvn)
+    scales = transducer_test_time_scales(dev, agent, wavs[0])
+    with patched([(tr, "joiner_forward", scaled_joiner(scales))]):
+        stream_launches = transducer_stream(dev, agent, stepwise, wavs, refs,
+                                            scales)
+
+    log("phase18", train_s=train_s, offline_s=offline_s,
+        stream_s=time.perf_counter() - t0_stream,
+        total_s=time.perf_counter() - t_phase)
+    return {k: train_launches[k] + decode_launches.get(k, 0)
+            + stream_launches[k] for k in train_launches}
+
+
+def scaled_joiner(log_scales):
+    """models/transducer.joiner_forward with some tokens' probabilities
+    scaled at test time: log_scales {token id: log-scale}, each added to
+    that token's logit."""
+    from simulst_tpu_torch.models import transducer as tr
+    real = tr.joiner_forward
+
+    def joiner(p, src_feats, tgt_feats):
+        out = real(p, src_feats, tgt_feats)
+        for token, log_scale in log_scales.items():
+            out[..., token] += log_scale
+        return out
+    return joiner
+
+
+def transducer_test_time_scales(dev, agent, wav):
+    """The test-time log-scales of the blank's and EOS's probabilities
+    under which `wav` streams.  At 0 a briefly trained transducer writes
+    at its first frame until its token buffer fills; with the blank's
+    large enough, every visible frame is blank and it READs until the
+    source ends.  The blank's: doubling from the largest margin of its
+    frames at the start state (the best non-blank logit over the blank's,
+    the offline encoder over the whole utterance) to a scale at which it
+    writes nothing before the source ends, then bisecting towards the last
+    at which it does.  Then, where that still fills the buffer, EOS's:
+    doubling from 1 to a scale at which the session ends on EOS (an early
+    EOS is rejected, a READ), then bisecting towards the first.  Of the
+    pairs tried, the one that writes before the source ends and ends on
+    EOS with the most words, else the one with the most chunks that wrote
+    before the source ended.  Fails when none writes before the source
+    ends."""
+    import torch
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.models import transducer as tr
+    from simulst_tpu_torch.ops.fbank import fbank_batch
+    from simulst_tpu_torch.stream.evaluator import run_session
+    model, cfg = agent.model, agent.cfg
+    mean, std = (torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                 for a in agent.global_cmvn)
+    with torch.no_grad():
+        feats = (fbank_batch(torch.from_numpy(wav.astype(np.float32)).to(
+            dev)[None]) - mean) / std
+        enc = s2t.encoder_forward(model.encoder, cfg, feats, torch.tensor(
+            [feats.shape[1]], device=dev))
+        start = tr.label_features(model.decoder, cfg, torch.full(
+            (1, 1), cfg.blank_idx, dtype=torch.int64, device=dev))
+        lat = tr.joiner_forward(model.decoder, enc.encoder_out, start)[0, :, 0]
+        blank = lat[:, cfg.blank_idx].clone()
+        lat[:, cfg.blank_idx] = float("-inf")
+        margins = lat.max(dim=-1).values - blank
+    length_ms = len(wav) / 16.0
+    tried = []
+
+    def outcome(blank_ls, eos_ls):
+        scales = {cfg.blank_idx: blank_ls, cfg.eos_idx: eos_ls}
+        with patched([(tr, "joiner_forward", scaled_joiner(scales))]):
+            words, delays, _, trunc = run_session(agent, wav)
+        mid = {d for d in delays if d < length_ms}
+        tried.append(dict(blank_log_scale=blank_ls, eos_log_scale=eos_ls,
+                          words=len(words), midstream_chunks=len(mid),
+                          first_write_ms=min(mid) if mid else None,
+                          truncated=trunc))
+        return tried[-1]
+
+    def search(start_hi, grows):
+        """Doubling from start_hi while grows(outcome), then bisecting the
+        last step: the boundary of grows."""
+        lo, hi = 0.0, start_hi
+        for _ in range(TRANSDUCER_SCALE_DOUBLINGS):
+            if not grows(hi):
+                break
+            lo, hi = hi, 2 * hi
+        for _ in range(TRANSDUCER_SCALE_BISECTIONS):
+            mid = (lo + hi) / 2
+            if grows(mid):
+                lo = mid
+            else:
+                hi = mid
+        return lo
+
+    blank_ls = search(max(float(margins.max()), 1e-3),
+                      lambda x: outcome(x, 0.0)["midstream_chunks"] > 0)
+    if outcome(blank_ls, 0.0)["truncated"]:
+        search(1.0, lambda x: outcome(blank_ls, x)["truncated"])
+    best = max(tried, key=lambda r: (
+        r["midstream_chunks"] > 0 and not r["truncated"],
+        r["words"] if not r["truncated"] else r["midstream_chunks"]))
+    if not best["midstream_chunks"]:
+        raise AssertionError("no test-time scale makes the transducer write "
+                             f"before the source ends: {tried}")
+    log("phase18", test_time_log_scales=[best["blank_log_scale"],
+                                         best["eos_log_scale"]],
+        frame_margins_min_median_max=[float(margins.min()),
+                                      float(margins.median()),
+                                      float(margins.max())], tried=tried)
+    return {cfg.blank_idx: best["blank_log_scale"],
+            cfg.eos_idx: best["eos_log_scale"]}
+
+
+def transducer_stream(dev, agent, stepwise, wavs, refs, scales):
+    """Phase 18's streaming runs (the test-time scales in place):
+    one utterance through the fused step vs the step-wise session, then
+    B = 1 over all, B 8 step-wise and scanned, tokens == B = 1 but for
+    proven ties; the traffic must write mid-stream, not fill every buffer
+    and part ways within a B 8 chunk.  Returns the fused session's
+    launches."""
+    import torch
+    from simulst_tpu_torch.stream.evaluator import (evaluate,
+                                                    evaluate_batched,
+                                                    run_session)
+    length_ms = len(wavs[0]) / 16.0
+
+    # one utterance: the fused step vs the step-wise session
+    make = agent.new_session
+
+    def timed_sessions(chunk_ms, sessions):
+        """agent.new_session, each session recorded and its chunk calls
+        timed."""
+        def new_session():
+            session = make()
+            sessions.append(session)
+            step = session.process_chunk
+
+            def timed(samples, finished):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(samples, finished)
+                torch.cuda.synchronize()
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            session.process_chunk = timed
+            return session
+        return new_session
+
+    chunk_ms = []
+    agent.new_session = timed_sessions(chunk_ms, [])
+    reset_launches()
+    fused_run = run_session(agent, wavs[0])
+    stream_launches = read_launches()
+    missing = [k for k in TRANSDUCER_STREAM_KERNELS
+               if not stream_launches[k]]
+    if missing:
+        raise AssertionError(f"{missing} did not launch in the transducer "
+                             f"streaming session: {stream_launches}")
+    step_run = run_session(stepwise, wavs[0])
+    if fused_run[0] != step_run[0] or fused_run[1] != step_run[1]:
+        raise AssertionError(f"transducer fused session {fused_run[:2]} "
+                             f"differs from the step-wise {step_run[:2]}")
+    log("phase18", stream_utterance_ms=length_ms, words=len(fused_run[0]),
+        delays_ms=fused_run[1], chunks=len(chunk_ms),
+        median_ms_per_chunk=statistics.median(chunk_ms),
+        chunk_ms=chunk_ms, fused_equals_stepwise=True,
+        launches_in_session=stream_launches)
+
+    if not any(d < length_ms for d in fused_run[1]):
+        raise AssertionError("the transducer wrote nothing before the "
+                             f"source ended: {fused_run[:2]}")
+
+    # B = 1 over the 16, then B 8 step-wise and scanned
+    b1_ms, b1_sessions = [], []
+    agent.new_session = timed_sessions(b1_ms, b1_sessions)
+    t0 = time.perf_counter()
+    b1_scores = evaluate(agent, wavs, refs)
+    b1_s = time.perf_counter() - t0
+    agent.new_session = make
+    b1_tokens = {i: s.state.tokens[0, :int(s.state.n_tokens[0])].tolist()
+                 for i, s in enumerate(b1_sessions)}
+    runs, diverged = {}, []
+    for scan in (False, True):
+        sessions, b8_ms = [], []
+        make_b = agent.new_batched_session
+
+        def record(n):
+            session = make_b(n)
+            sessions.append(session)
+            step = session.process_chunk_batch
+
+            def timed(chunks, finished):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(chunks, finished)
+                torch.cuda.synchronize()
+                b8_ms.append((time.perf_counter() - t0) * 1e3)
+                if not finished:
+                    diverged.append(len({len(t) for t in out}) > 1)
+                return out
+            session.process_chunk_batch = timed
+            return session
+
+        agent.new_batched_session = record
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = evaluate_batched(agent, wavs, refs, batch_size=8, scan=scan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del agent.new_batched_session
+        tokens = served_tokens(sessions, batch_groups(agent, wavs, 8))
+        flips = []
+        for i, got in sorted(tokens.items()):
+            want = b1_tokens[i]
+            if got == want:
+                continue
+            j = next((k for k, (a, b) in enumerate(zip(got, want))
+                      if a != b), min(len(got), len(want)))
+            gap, replay = b1_gap(agent, "transducer", wavs[i], j)
+            if replay != want:
+                raise AssertionError(f"transducer utt {i}: the B = 1 replay "
+                                     "differs from the B = 1 run")
+            if gap is None or not gap < TIE_GAP:
+                raise AssertionError(
+                    f"transducer B 8 {'scanned' if scan else 'step-wise'} "
+                    f"utt {i}: tokens differ from B = 1 at {j} "
+                    f"({got[j:j + 3]} vs {want[j:j + 3]}), top-two gap "
+                    f"{gap} not under {TIE_GAP}")
+            flips.append(dict(utt=i, index=j, gap=gap))
+        runs["scanned" if scan else "stepwise"] = dict(
+            wall_s=wall, utterances_per_s=len(wavs) / wall,
+            median_ms_per_chunk=(statistics.median(b8_ms) if b8_ms
+                                 else None),
+            tie_flips=flips, AP=scores["AP"], AL=scores["AL"])
+    # the traffic must write mid-stream, part ways within a B 8 chunk
+    # (some examples WRITE while others READ) and not only fill buffers
+    if not (b1_scores["AP"] < 1 and b1_scores["truncated"] < len(wavs)
+            and any(diverged)):
+        raise AssertionError(
+            f"degenerate transducer traffic (AP {b1_scores['AP']}, "
+            f"{b1_scores['truncated']} of {len(wavs)} truncated, "
+            f"{sum(diverged)} of {len(diverged)} mid-stream B 8 chunks with "
+            "diverging writes)")
+    log("phase18", streaming_utterances=len(wavs),
+        b1=dict(wall_s=b1_s, utterances_per_s=len(wavs) / b1_s,
+                median_ms_per_chunk=statistics.median(b1_ms),
+                **{k: b1_scores[k] for k in ("AP", "AL", "DAL",
+                                             "truncated")}),
+        b8=runs, b8_diverged_midstream_chunks=[sum(diverged), len(diverged)],
+        test_time_log_scales=scales,
+        tokens_per_utterance=[len(t) for t in b1_tokens.values()])
+    return stream_launches
+
+
 def profile_chunk(session, chunk):
     """One lock-step chunk call of a batched session under torch.profiler:
     (wall ms, device kernel ms, kernels)."""
@@ -3387,24 +4104,32 @@ def run(dev):
     batched_serving = phase_batched_serve(dev, workdir.name, checkpoints)
 
     # 16. offline decoding of MMA, CIF and MT; cli/generate main
+    speech = {"feats": feats, "feat_lengths": lengths}
     with torch.no_grad():
-        offline_decode = phase_offline_decode(
-            dev, workdir.name, checkpoints,
-            {"feats": feats, "feat_lengths": lengths}, mt_src)
-    del feats, lengths, mt_src
-    workdir.cleanup()
+        offline_decode = phase_offline_decode(dev, workdir.name, checkpoints,
+                                              speech, mt_src)
+    del mt_src
 
     # 17. sequence-packed ASR training (cli/train --pack)
     pack_training, pack_report = phase_asr_pack(dev, asr, asr_median_ms)
     report.update(pack_report)
-    del asr
 
-    # 18. report
+    # 18. the transducer: its label-encoder kernels vs plain, then exp/6's
+    # training from phase 8's encoder, offline decode and streaming
+    with torch.no_grad():
+        phase_transducer_kernels(dev)
+    transducer = phase_transducer(dev, asr, asr_checkpoint, speech,
+                                  workdir.name)
+    del asr, speech, feats, lengths
+    workdir.cleanup()
+
+    # 19. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
              "batched-serving": batched_serving,
-             "offline-decode": offline_decode, "asr-pack": pack_training}
+             "offline-decode": offline_decode, "asr-pack": pack_training,
+             "transducer": transducer}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -3413,7 +4138,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase18", total_s=time.perf_counter() - started)
+    log("phase19", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,14 @@
 beam, and runs `beam_search` (or `greedy_decode` at beam 1) over the
 model's incremental decoder step: `decoder_step` for s2t_emformer,
 `mma_decoder_step` offline (wait-k clipped to the source's end, READ
-ignored) for MMA, `cif_decoder_step` over the fired CIF features for CIF.
-`decode_batch_mt` decodes the MT teacher's text, and
-`decode_batch_ensemble` averages N checkpoints' per-step probabilities
-(fairseq's EnsembleModel).  `main` is fairseq-generate: S-/T-/D- lines,
-parsed by data/kd.py for distillation, and a corpus BLEU or WER line:
+ignored) for MMA, `cif_decoder_step` over the fired CIF features for CIF,
+and for the transducer the offline `decode_step` (the emit at the source's
+last frame forced), seeded with the blank, each hypothesis with its own
+emit cursor (`_build_transducer`).  `decode_batch_mt` decodes the MT
+teacher's text, and `decode_batch_ensemble` averages N checkpoints'
+per-step probabilities (fairseq's EnsembleModel; not the transducer's).
+`main` is fairseq-generate: S-/T-/D- lines, parsed by data/kd.py for
+distillation, and a corpus BLEU or WER line:
 
   python -m simulst_tpu_torch.cli.generate --data DATA/en-de \\
       --gen-subset tst-COMMON --checkpoint SAVE/checkpoint_avg \\
@@ -16,8 +19,8 @@ parsed by data/kd.py for distillation, and a corpus BLEU or WER line:
 
 A colon-separated --checkpoint decodes an ensemble.  The model is built
 from each checkpoint's metadata (cli/train's MODELS) and runs on the card
-unless --device names another.  The transducer is not ported (ROADMAP
-Queue 1 step 5).
+unless --device names another.  exp/6_transducer.sh decodes its
+transducer with --model transducer --beam 1.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from simulst_tpu_torch.decode.scoring import corpus_bleu, wer
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
+from simulst_tpu_torch.models import transducer as tr
 from simulst_tpu_torch.models.mt_transformer import (MTTransformerModel,
                                                      text_encoder_forward)
 from simulst_tpu_torch.nn import attention as attn_mod
@@ -51,15 +55,16 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _run_search(step_fn, dstate, reorder_fn, b, beam_cfg: BeamConfig, device,
-                prefix_tokens=None):
+def _run_search(step_fn, dstate, reorder_fn, bos, b, beam_cfg: BeamConfig,
+                device, prefix_tokens=None):
     if prefix_tokens is not None:
         prefix_tokens = torch.as_tensor(prefix_tokens, device=device)
     if beam_cfg.beam_size == 1:
         return greedy_decode(step_fn, dstate, b, beam_cfg,
-                             prefix_tokens=prefix_tokens, device=device)
+                             prefix_tokens=prefix_tokens, device=device,
+                             bos=bos)
     res = beam_search(step_fn, dstate, b, beam_cfg, reorder_fn,
-                      prefix_tokens=prefix_tokens, device=device)
+                      prefix_tokens=prefix_tokens, device=device, bos=bos)
     return res.tokens[:, 0], res.lengths[:, 0]
 
 
@@ -78,8 +83,9 @@ def _encode(model, batch):
 
 
 def _build_std(model: s2t.S2TEmformerModel, batch, beam_cfg: BeamConfig):
-    """(step_fn, decoder state, reorder_fn) for one batch: the encoder runs
-    once, its output repeated per beam."""
+    """(step_fn, decoder state, reorder_fn, seed) for one batch: the
+    encoder runs once, its output repeated per beam; the search is seeded
+    with EOS (seed None), the fairseq convention."""
     cfg = model.cfg
     enc = _encode(model, batch)
     b, beam = enc.encoder_out.shape[0], beam_cfg.beam_size
@@ -98,7 +104,7 @@ def _build_std(model: s2t.S2TEmformerModel, batch, beam_cfg: BeamConfig):
         return tfm.DecoderState(caches=_reorder_caches(state.caches, idx),
                                 step=state.step[idx])
 
-    return step_fn, dstate, reorder_fn
+    return step_fn, dstate, reorder_fn, None
 
 
 def _build_cif(model: cif_mod.CIFModel, batch, beam_cfg: BeamConfig):
@@ -129,7 +135,7 @@ def _build_cif(model: cif_mod.CIFModel, batch, beam_cfg: BeamConfig):
             cross_caches=_reorder_caches(state.cross_caches, idx),
             step=state.step[idx])
 
-    return step_fn, dstate, reorder_fn
+    return step_fn, dstate, reorder_fn, None
 
 
 def _build_mma(model: mma_mod.MMAModel, batch, beam_cfg: BeamConfig):
@@ -158,7 +164,36 @@ def _build_mma(model: mma_mod.MMAModel, batch, beam_cfg: BeamConfig):
                 for m in state.monotonic),
             step=state.step[idx])
 
-    return step_fn, dstate, reorder_fn
+    return step_fn, dstate, reorder_fn, None
+
+
+def _build_transducer(model: tr.TransducerModel, batch,
+                      beam_cfg: BeamConfig):
+    """Offline transducer decoding: the offline `decode_step` over the raw
+    encoder frames (it pools them itself when downsample > 1), the emit at
+    each source's last frame forced.  Each beam hypothesis carries its own
+    emit cursor, prev_emit, gathered on reorder like the KV caches.  The
+    search is seeded with the blank (the reference replaces the front EOS
+    by bos == blank)."""
+    cfg = model.cfg
+    enc = _encode(model, batch)
+    b, beam = enc.encoder_out.shape[0], beam_cfg.beam_size
+    src = enc.encoder_out.repeat_interleave(beam, dim=0)
+    src_len = enc.lengths.repeat_interleave(beam, dim=0)
+    dstate = tr.init_decode_state(cfg, b * beam, beam_cfg.max_len + 1,
+                                  device=_device(model))
+
+    def step_fn(state, tokens):
+        logits, _, state = tr.decode_step(model.decoder, cfg, state, tokens,
+                                          src, src_len, online=False)
+        return logits, state
+
+    def reorder_fn(state, idx):
+        return tr.TransducerState(caches=_reorder_caches(state.caches, idx),
+                                  prev_emit=state.prev_emit[idx],
+                                  step=state.step[idx])
+
+    return step_fn, dstate, reorder_fn, cfg.blank_idx
 
 
 def _build_mt(model: MTTransformerModel, batch, beam_cfg: BeamConfig):
@@ -181,7 +216,7 @@ def _build_mt(model: MTTransformerModel, batch, beam_cfg: BeamConfig):
         return tfm.DecoderState(caches=_reorder_caches(state.caches, idx),
                                 step=state.step[idx])
 
-    return step_fn, dstate, reorder_fn
+    return step_fn, dstate, reorder_fn, None
 
 
 def decode_batch_mt(model, batch, beam_cfg: BeamConfig, prefix_tokens=None):
@@ -193,19 +228,19 @@ def decode_batch_mt(model, batch, beam_cfg: BeamConfig, prefix_tokens=None):
 
 
 def _builder(model):
-    """The (step_fn, state, reorder_fn) builder of a speech model."""
+    """The (step_fn, state, reorder_fn, seed) builder of a speech model."""
+    if isinstance(model, tr.TransducerModel):
+        return _build_transducer
     if isinstance(model, cif_mod.CIFModel):
         return _build_cif
     if isinstance(model, mma_mod.MMAModel):
         return _build_mma
     if isinstance(model, s2t.S2TEmformerModel):
         return _build_std
-    if type(model).__name__ == "TransducerModel":
-        raise NotImplementedError(
-            "the transducer is not ported yet (ROADMAP Queue 1 step 5)")
     raise NotImplementedError(
         f"{type(model).__name__} is not ported yet: the port decodes "
-        "s2t_emformer, MMA, CIF and (decode_batch_mt) the MT teacher")
+        "s2t_emformer, MMA, CIF, the transducer and (decode_batch_mt) the MT "
+        "teacher")
 
 
 def decode_batch(model, batch, beam_cfg: BeamConfig, prefix_tokens=None):
@@ -219,11 +254,12 @@ def decode_batch(model, batch, beam_cfg: BeamConfig, prefix_tokens=None):
 
 
 def build_ensemble(builders):
-    """One (step_fn, state, reorder_fn) from N models' triples: per-step
-    log-probs averaged in probability (logsumexp - log N), fairseq's
-    EnsembleModel.  log_softmax is idempotent, so the search's own
-    normalisation of the averaged log-probs changes nothing."""
-    step_fns, states, reorder_fns = zip(*builders)
+    """One (step_fn, state, reorder_fn, seed) from N models' builders, each
+    seeded with EOS: per-step log-probs averaged in probability
+    (logsumexp - log N), fairseq's EnsembleModel.  log_softmax is
+    idempotent, so the search's own normalisation of the averaged log-probs
+    changes nothing."""
+    step_fns, states, reorder_fns, _ = zip(*builders)
 
     def step_fn(states, tokens):
         outs = [f(s, tokens) for f, s in zip(step_fns, states)]
@@ -235,13 +271,16 @@ def build_ensemble(builders):
     def reorder_fn(states, idx):
         return tuple(r(s, idx) for r, s in zip(reorder_fns, states))
 
-    return step_fn, tuple(states), reorder_fn
+    return step_fn, tuple(states), reorder_fn, None
 
 
 def decode_batch_ensemble(models, batch, beam_cfg: BeamConfig,
                           task: str = "st"):
     """Ensemble decoding over N checkpoints sharing one vocabulary (model
-    families may mix)."""
+    families may mix, but for the transducer, as in the JAX package)."""
+    if any(isinstance(m, tr.TransducerModel) for m in models):
+        raise ValueError("ensemble decoding is not defined for the "
+                         "transducer's emit-scan path")
     builders = [(_build_mt if task == "mt" else _builder(model))(
         model, batch, beam_cfg) for model in models]
     b = len(batch["src_tokens"] if task == "mt" else batch["feats"])

@@ -14,8 +14,9 @@ bucket lock-step through one step per chunk (exp/4_simuleval.sh's EXTRA
 "--fused --batch-size 8"), and --scan-sessions runs each bucket's whole
 session in one call, then a chunk-by-chunk pass for the _CA metrics
 (skipped with --no-ca-pass).  --profile DIR writes a torch.profiler
-trace of one streaming session.  The agent runs on the card unless
---device names another; --agent transducer raises (not yet ported).
+trace of one streaming session.  --agent transducer streams a
+transducer checkpoint (exp/6_transducer.sh's last command).  The agent
+runs on the card unless --device names another.
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ and MMA with the latency loss from that encoder (--task st --model mma
       --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 40000 \\
       --update-freq 4 --patience 25 --save-dir checkpoints/mma
 
-and CIF from the same encoder (--task st --model cif --loss cif), the
+CIF from the same encoder (--task st --model cif --loss cif), the
 recipe exp/3_cif.sh:
 
   python -m simulst_tpu_torch.cli.train --data DATA/en-de --task st \\
@@ -32,6 +32,18 @@ recipe exp/3_cif.sh:
       --load-pretrained-encoder-from checkpoints/asr/checkpoint_last \\
       --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 40000 \\
       --update-freq 4 --patience 25 --save-dir checkpoints/cif
+
+and the Transformer-Transducer with the RNN-T loss from that encoder
+(--task asr|st --model transducer --loss rnnt), the recipe
+exp/6_transducer.sh:
+
+  python -m simulst_tpu_torch.cli.train --data DATA/en-de --task st \\
+      --model transducer --loss rnnt --cmvn global \\
+      --loss-override fastemit_lambda=0.01 \\
+      --loss-override offline_factor=1.0 \\
+      --load-pretrained-encoder-from checkpoints/asr/checkpoint_last \\
+      --lr 5e-4 --warmup-updates 4000 --clip-norm 10 --max-tokens 20000 \\
+      --update-freq 8 --patience 25 --save-dir checkpoints/transducer
 
 The manifests are <data>/{train,dev}_st.tsv (speech: id, audio, n_frames,
 src_text, tgt_text; text: src_text and tgt_text), the dictionary
@@ -77,11 +89,14 @@ from simulst_tpu_torch.losses.cif_loss import CIFLossConfig, cif_loss
 from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
 from simulst_tpu_torch.losses.mma_loss import MMALossConfig, mma_loss
+from simulst_tpu_torch.losses.rnnt_loss import RNNTLossConfig, rnnt_criterion
 from simulst_tpu_torch.models.cif import CIFConfig, CIFModel
 from simulst_tpu_torch.models.mma import MMAConfig, MMAModel
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
 from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
                                                    S2TEmformerModel)
+from simulst_tpu_torch.models.transducer import (TransducerConfig,
+                                                 TransducerModel)
 from simulst_tpu_torch.nn.conv import subsampler_out_lengths
 from simulst_tpu_torch.ops.specaugment import spec_augment
 from simulst_tpu_torch.train.checkpoint import (conform_state,
@@ -97,11 +112,14 @@ PORTED = {("mt", "mt_transformer", "ce"),
           ("asr", "s2t_emformer", "joint_ctc"),
           ("st", "s2t_emformer", "joint_ctc"),
           ("st", "mma", "mma"),
-          ("st", "cif", "cif")}
+          ("st", "cif", "cif"),
+          ("asr", "transducer", "rnnt"),
+          ("st", "transducer", "rnnt")}
 MODELS = {"mt_transformer": (MTConfig, MTTransformerModel),
           "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel),
           "mma": (MMAConfig, MMAModel),
-          "cif": (CIFConfig, CIFModel)}
+          "cif": (CIFConfig, CIFModel),
+          "transducer": (TransducerConfig, TransducerModel)}
 LABEL_SMOOTHING = 0.1
 
 
@@ -196,10 +214,10 @@ def _checkpoint_params(path: str):
 
 def build_model(args, vocab_size: int, device=None, params=None):
     """The model's default config (transformer_small, s2t_emformer_s, or
-    MMA or CIF on s2t_emformer_s) with --override applied; weights from a
-    generator seeded with --seed, then from `params` (a restored
-    checkpoint's) or --load-params and the --load-pretrained-*-from
-    components."""
+    MMA, CIF or the transducer on s2t_emformer_s) with --override applied;
+    weights from a generator seeded with --seed, then from `params` (a
+    restored checkpoint's) or --load-params and the
+    --load-pretrained-*-from components."""
     config_cls, model_cls = MODELS[args.model]
     cfg = cfglib.apply_overrides(config_cls(vocab_size=vocab_size),
                                  args.overrides)
@@ -250,6 +268,11 @@ def build_loss(args, model):
         def criterion(logits, extra, batch):
             return cif_loss(logits, extra, batch["target"],
                             batch["feat_lengths"], lcfg)
+    elif args.loss == "rnnt":
+        lcfg = cfglib.apply_overrides(RNNTLossConfig(), args.loss_overrides)
+
+        def criterion(logits, extra, batch):
+            return rnnt_criterion(logits, extra, lcfg)
     else:
         lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)
 

@@ -12,7 +12,7 @@ jax.lax.top_k does, so both packages pick the same candidates.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -56,9 +56,10 @@ def _forced(prefix_tokens, t: int, pad_idx: int):
 
 def beam_search(step_fn: Callable, init_state, batch_size: int,
                 cfg: BeamConfig, reorder_fn: Callable, prefix_tokens=None,
-                device=None) -> BeamResult:
+                device=None, bos: Optional[int] = None) -> BeamResult:
     """step_fn(state, tokens (N,)) -> (logits (N, V), state) with
-    N = batch * beam, seeded with EOS (the fairseq convention);
+    N = batch * beam, seeded with EOS (the fairseq convention) or with
+    `bos` (the transducer's blank);
     reorder_fn(state, idx (N,)) -> state gathered along the batch axis.
     prefix_tokens: (B, P) PAD-padded; each hypothesis starts with its row's prefix (fairseq's --prefix-size: the
     prefix token keeps its model score, every other continuation is
@@ -69,7 +70,7 @@ def beam_search(step_fn: Callable, init_state, batch_size: int,
 
     tokens = torch.full((bsz, beam, L + 1), cfg.pad_idx, dtype=torch.int64,
                         device=device)
-    tokens[:, :, 0] = cfg.eos_idx
+    tokens[:, :, 0] = cfg.eos_idx if bos is None else bos
     scores = torch.where(torch.arange(beam, device=device) == 0, 0.0, NEG)
     scores = scores[None].expand(bsz, beam).contiguous()
     bank_tokens = torch.full((bsz, beam, L), cfg.pad_idx, dtype=torch.int64,
@@ -140,13 +141,15 @@ def beam_search(step_fn: Callable, init_state, batch_size: int,
 
 
 def greedy_decode(step_fn: Callable, init_state, batch_size: int,
-                  cfg: BeamConfig, prefix_tokens=None, device=None):
-    """Greedy (beam 1) decode seeded with EOS; prefix_tokens (B, P),
-    PAD-padded, forces each row's first tokens.  Returns (tokens (B, max_len), lengths (B,))."""
+                  cfg: BeamConfig, prefix_tokens=None, device=None,
+                  bos: Optional[int] = None):
+    """Greedy (beam 1) decode seeded with EOS, or with `bos`;
+    prefix_tokens (B, P), PAD-padded, forces each row's first tokens.
+    Returns (tokens (B, max_len), lengths (B,))."""
     tokens = torch.full((batch_size, cfg.max_len), cfg.pad_idx,
                         dtype=torch.int64, device=device)
-    prev = torch.full((batch_size,), cfg.eos_idx, dtype=torch.int64,
-                      device=device)
+    prev = torch.full((batch_size,), cfg.eos_idx if bos is None else bos,
+                      dtype=torch.int64, device=device)
     done = torch.zeros(batch_size, dtype=torch.bool, device=device)
     state = init_state
     for t in range(cfg.max_len):

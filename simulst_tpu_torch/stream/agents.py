@@ -11,6 +11,10 @@ window, each later READ segment x 10 ms.
     monotonic head demanding source is a READ);
   * CIF: WRITE iff the fired CIF length exceeds the decoded length, or the
     source is complete;
+  * transducer: each attempt scans the visible frames from the last emit
+    for the first non-blank prediction; all blank is a READ (the attempt
+    is not adopted), and once the source is complete the emit at its last
+    frame is forced;
   * with force_finish, an EOS predicted before the source is complete is
     discarded and the agent READs instead.
 A fused agent (`fused=True`) runs READ and every WRITE of a chunk in one
@@ -33,6 +37,7 @@ from simulst_tpu_torch.data.vocab import EOS, Vocabulary
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
+from simulst_tpu_torch.models import transducer as tr
 from simulst_tpu_torch.ops.fbank import OnlineFbank, fbank_batch, num_frames
 from simulst_tpu_torch.stream import fused as fused_steps
 
@@ -514,3 +519,65 @@ class CIFAgent(SpeechAgent):
         return fused_steps.cif_fused_init(self.model, self.cfg,
                                           self.acfg.max_tgt_len, batch=batch,
                                           device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# transducer agent
+# ---------------------------------------------------------------------------
+
+class TransducerSession(StreamingSession):
+    """Streaming greedy transducer: each WRITE attempt runs `decode_step`
+    over the visible encoder frames (raw; pooled there when downsample >
+    1) from the last emit position; all blank is a READ, and the attempt's
+    label-encoder state is not adopted."""
+
+    def __init__(self, agent):
+        super().__init__(agent)
+        self.dec_state = tr.init_decode_state(
+            agent.cfg, 1, agent.acfg.max_tgt_len, device=agent.device)
+        self._attempt = None
+
+    @torch.no_grad()
+    def policy(self) -> int:
+        if not self._got_first:
+            return READ
+        dev, cfg = self.agent.device, self.agent.cfg
+        prev = torch.tensor([self.target_ids[-1] if self.target_ids
+                             else cfg.blank_idx], device=dev)
+        logits, emitted, new_state = tr.decode_step(
+            self.agent.model.decoder, cfg, self.dec_state, prev,
+            self.enc_buf, torch.tensor([self.src_len], device=dev),
+            online=not self.finished_read)
+        if not bool(emitted[0]):
+            self._attempt = None
+            return READ
+        self._attempt = (logits, new_state)
+        return WRITE
+
+    def predict(self) -> Optional[int]:
+        logits, new_state = self._attempt
+        idx = int(logits[0].argmax())
+        if (self.agent.acfg.force_finish and idx == EOS
+                and not self.finished_read):
+            self._attempt = None   # discard the attempt entirely
+            return None
+        self.dec_state = new_state
+        self._commit(idx)
+        return idx
+
+
+class TransducerAgent(SpeechAgent):
+    session_cls = TransducerSession
+
+    def __init__(self, model, vocab, acfg=None, global_cmvn=None,
+                 fused: bool = False):
+        super().__init__(model, vocab, acfg, global_cmvn)
+        self.fused = fused
+        if fused:
+            self._fused_step = fused_steps.make_transducer_fused_step(
+                model, self.cfg)
+
+    def _fused_init(self, batch: int):
+        return fused_steps.transducer_fused_init(
+            self.model, self.cfg, self.acfg.max_src_frames,
+            self.acfg.max_tgt_len, batch=batch, device=self.device)

@@ -17,10 +17,12 @@ from simulst_tpu_torch import config as cfglib
 from simulst_tpu_torch.cli.train import MODELS
 from simulst_tpu_torch.data.vocab import Vocabulary
 from simulst_tpu_torch.stream.agents import (AgentConfig, CIFAgent, MMAAgent,
-                                             SpeechAgent)
+                                             SpeechAgent, TransducerAgent)
 from simulst_tpu_torch.train.checkpoint import conform_state, load_checkpoint
 
-STREAMED = ("mma", "cif")   # the models an agent of the port streams
+# the models an agent of the port streams
+STREAMED = ("mma", "cif", "transducer")
+AGENTS = ("mma", "waitk", "cif", "transducer")
 
 
 def load_vocab(path: str) -> Vocabulary:
@@ -49,21 +51,23 @@ def build_agent(checkpoint: str, vocab: Vocabulary, agent_type: str = "mma",
                 max_tgt_len: Optional[int] = None, warn=print,
                 device=None) -> SpeechAgent:
     """Restore a checkpoint of cli/train and wire the agent: "mma" and
-    "waitk" (waitk: the test-time lagging), or "cif" (cif_beta: the
-    test-time beta).  The model runs on `device`, the card unless the
-    caller names another."""
-    if agent_type not in ("mma", "waitk", "cif"):
-        raise NotImplementedError(
-            f"--agent {agent_type} is not yet ported (ROADMAP Queue 1 item "
-            "10); the port streams mma, waitk and cif")
+    "waitk" (waitk: the test-time lagging), "cif" (cif_beta: the test-time
+    beta) or "transducer".  Without a model name in the checkpoint's
+    metadata, the cif and transducer agents take their own model, the
+    others MMA.  The model runs on `device`, the card unless the caller
+    names another."""
+    if agent_type not in AGENTS:
+        raise ValueError(f"unknown agent {agent_type!r}; the agents are "
+                         + ", ".join(AGENTS))
     state, meta = load_checkpoint(checkpoint)
     meta = meta or {}
     params = state["params"] if "params" in state else state
-    name = model_name or meta.get("model") or (
-        "cif" if agent_type == "cif" else "mma")
+    name = model_name or meta.get("model") or {
+        "cif": "cif", "transducer": "transducer"}.get(agent_type, "mma")
     if name not in STREAMED:
         raise NotImplementedError(f"streaming a {name!r} model is not yet "
-                                  "ported; the port streams mma and cif")
+                                  "ported; the port streams "
+                                  + ", ".join(STREAMED))
     config_cls, model_cls = MODELS[name]
     overrides = dict(overrides or {})
     if waitk is not None:
@@ -97,5 +101,8 @@ def build_agent(checkpoint: str, vocab: Vocabulary, agent_type: str = "mma",
     acfg = AgentConfig(overshoot_weight=overshoot_weight, **sizes)
     if agent_type in ("mma", "waitk"):
         return MMAAgent(model, vocab, acfg, global_cmvn=gcmvn, fused=fused)
+    if agent_type == "transducer":
+        return TransducerAgent(model, vocab, acfg, global_cmvn=gcmvn,
+                               fused=fused)
     return CIFAgent(model, vocab, acfg, global_cmvn=gcmvn, cif_beta=cif_beta,
                     fused=fused)

@@ -74,16 +74,20 @@ class _WordMerger:
     """BPE units -> words, each with the delay at which it was committed.
     A word's elapsed time is the wall clock since t0 when it is committed,
     or `wall_ms` where the caller took it (the batched sessions: one
-    reading per chunk, or per session when scanned), plus its delay."""
+    reading per chunk, or per session when scanned), plus its delay.
+    `cap`, for the batched sessions: the token buffer's room; the chunk
+    that fills it ends the utterance, as a B = 1 session stops there."""
 
-    def __init__(self, symbols, t0: float):
+    def __init__(self, symbols, t0: float, cap: Optional[int] = None):
         self.symbols = symbols
         self.t0 = t0
+        self.cap = cap
+        self.n_tokens = 0
         self.words: List[str] = []
         self.delays: List[float] = []
         self.elapsed: List[float] = []
         self._buf: List[str] = []
-        self.done = False          # EOS written
+        self.done = False          # EOS written, or the buffer full
 
     def flush(self, consumed: int, wall_ms: Optional[float] = None):
         if self._buf:
@@ -104,12 +108,18 @@ class _WordMerger:
         self._buf.append(piece)
 
     def push_chunk(self, tokens, consumed: int, wall_ms: float):
-        """A chunk's written tokens, up to EOS."""
+        """A chunk's written tokens, up to EOS; a chunk that fills the
+        token buffer flushes the last word at its own delay."""
         for tok in tokens:
+            self.n_tokens += 1
             if tok == EOS:
                 self.done = True
                 break
             self.push(tok, consumed, wall_ms)
+        if not self.done and self.cap is not None and \
+                self.n_tokens >= self.cap:
+            self.flush(consumed, wall_ms)
+            self.done = True
 
 
 def run_session(agent, waveform: np.ndarray, max_actions: int = 10000
@@ -248,7 +258,8 @@ def _run_fused_batch(agent, wavs: List[np.ndarray], n_chunks: int,
     B = len(wavs)
     t0 = time.perf_counter()
     session = agent.new_batched_session(B)
-    mergers = [_WordMerger(agent.vocab.symbols, t0) for _ in range(B)]
+    room = session.state.tokens.shape[1] - 1
+    mergers = [_WordMerger(agent.vocab.symbols, t0, room) for _ in range(B)]
 
     if scan:
         out = session.process_session_wavs(wavs)

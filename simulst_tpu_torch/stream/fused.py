@@ -1,5 +1,5 @@
-"""Per-chunk streaming steps of the CIF and MMA policies: READ + every
-WRITE of one audio chunk in one call (counterpart of
+"""Per-chunk streaming steps of the CIF, MMA and transducer policies: READ
++ every WRITE of one audio chunk in one call (counterpart of
 simulst_tpu/stream/fused.py).
 
 One call runs the incremental encoder on a chunk for B utterances in
@@ -12,9 +12,13 @@ length, or once the source is complete.  MMA: the frames are appended to
 each example's encoder buffer and the model decides (any monotonic head
 demanding source is a READ); an example that does not WRITE keeps its old
 KV caches and step and adopts only its advanced monotonic head positions.
+Transducer: the frames are appended to each example's encoder buffer, and
+each attempt scans the visible frames from the last emit for the first
+non-blank prediction; an all-blank attempt is a READ and is not adopted.
 The JAX steps are one lax.while_loop on the device; here the loop is
-Python over `cif_decoder_step` / `mma_decoder_step` calls, with one host
-read of "anyone still writing" per attempt.
+Python over `cif_decoder_step` / `mma_decoder_step` / the transducer's
+`decode_step` calls, with one host read of "anyone still writing" per
+attempt.
 
 Batches: the utterances of a chunk-count bucket run lock-step on one chunk
 schedule; on the final chunk each example passes its own count of valid
@@ -33,6 +37,7 @@ import torch
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
+from simulst_tpu_torch.models import transducer as tr
 
 
 def _where_b(mask, new, old):
@@ -66,10 +71,11 @@ def _append_rows(buf, buf_len, new, n_new):
     return out, torch.clamp(want, max=tmax), want > tmax
 
 
-def _prev_tokens(tokens, n_tok, eos: int):
-    """Each example's last written token, EOS before the first."""
+def _prev_tokens(tokens, n_tok, start: int):
+    """Each example's last written token, `start` (EOS; the transducer's
+    blank) before the first."""
     last = tokens.gather(1, torch.clamp(n_tok - 1, min=0)[:, None])[:, 0]
-    return torch.where(n_tok > 0, last, torch.full_like(last, eos))
+    return torch.where(n_tok > 0, last, torch.full_like(last, start))
 
 
 class CIFFusedState(NamedTuple):
@@ -253,6 +259,96 @@ def make_mma_fused_step(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
                                   src_len=src_len, tokens=tokens,
                                   n_tokens=n_tok, finished=finished,
                                   truncated=trunc)
+        return new_state, n_tok - state.n_tokens
+
+    return step
+
+
+class TransducerFusedState(NamedTuple):
+    enc: s2t.EncoderStreamState
+    dec: tr.TransducerState
+    enc_buf: torch.Tensor                # (B, Smax, D) raw encoder frames
+    src_len: torch.Tensor                # (B,) int64
+    tokens: torch.Tensor                 # (B, Tmax) int64
+    n_tokens: torch.Tensor               # (B,) int64
+    finished: torch.Tensor               # (B,) bool
+    truncated: torch.Tensor              # (B,) bool: a buffer overflowed
+
+
+def transducer_fused_init(model: tr.TransducerModel,
+                          cfg: tr.TransducerConfig, max_src: int,
+                          max_tokens: int, batch: int = 1,
+                          dtype=torch.float32,
+                          device=None) -> TransducerFusedState:
+    device = device or next(model.parameters()).device
+    return TransducerFusedState(
+        enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
+        dec=tr.init_decode_state(cfg, batch, max_tokens, dtype, device),
+        enc_buf=torch.zeros(batch, max_src, cfg.embed_dim, dtype=dtype,
+                            device=device),
+        src_len=torch.zeros(batch, dtype=torch.int64, device=device),
+        tokens=torch.full((batch, max_tokens), cfg.padding_idx,
+                          dtype=torch.int64, device=device),
+        n_tokens=torch.zeros(batch, dtype=torch.int64, device=device),
+        finished=torch.zeros(batch, dtype=torch.bool, device=device),
+        truncated=torch.zeros(batch, dtype=torch.bool, device=device))
+
+
+def make_transducer_fused_step(model: tr.TransducerModel,
+                               cfg: tr.TransducerConfig,
+                               max_writes_per_chunk: int = 64):
+    """Returns step(state, feats, finish=False) -> (state, n_new): the
+    encoder step on feats (B, f, F) (or None), then the greedy emit loop
+    until every example READs (every visible frame blank), emits EOS or
+    rejects a premature EOS; neither a READ nor a rejected EOS is adopted.
+    At most max_writes_per_chunk attempts mid-stream, up to the token
+    buffer on the final chunk, where the emit at the source's last frame
+    is forced.  n_valid, on the final chunk only: (B,) each example's count
+    of valid frames in feats; only its valid encoder frames reach its
+    buffer."""
+
+    @torch.no_grad()
+    def step(state: TransducerFusedState, feats, finish: bool = False,
+             n_valid: Optional[torch.Tensor] = None
+             ) -> Tuple[TransducerFusedState, torch.Tensor]:
+        enc_out, enc_state = s2t.encoder_step(model.encoder, cfg, state.enc,
+                                              feats, finish, n_valid)
+        enc_buf, src_len, overflow = _append_rows(
+            state.enc_buf, state.src_len, enc_out.encoder_out,
+            enc_out.lengths)
+        b, tmax = state.tokens.shape
+        dev = state.tokens.device
+        pos = torch.arange(tmax, device=dev)[None, :]
+        cap = (tmax - 1) if finish else max_writes_per_chunk
+
+        dec, tokens, n_tok, finished = (state.dec, state.tokens,
+                                        state.n_tokens, state.finished)
+        stopped = torch.zeros(b, dtype=torch.bool, device=dev)
+        for _ in range(cap):
+            attempted = ~finished & ~stopped & (n_tok < tmax - 1)
+            if not bool(attempted.any()):
+                break
+            logits, emitted, new_dec = tr.decode_step(
+                model.decoder, cfg, dec,
+                _prev_tokens(tokens, n_tok, cfg.blank_idx), enc_buf,
+                src_len, online=not finish)
+            tok = logits.argmax(-1)
+            is_eos = tok == cfg.eos_idx
+            read = attempted & ~emitted
+            premature = is_eos & (not finish)
+            reject = attempted & emitted & premature
+            write = attempted & emitted & ~premature
+            dec = _where_b(write, new_dec, dec)
+            tokens = torch.where((pos == n_tok[:, None]) & write[:, None],
+                                 tok[:, None], tokens)
+            n_tok = n_tok + write.long()
+            finished = finished | (write & is_eos)
+            stopped = stopped | read | reject | (write & is_eos)
+        trunc = state.truncated | overflow | (~finished & (n_tok >= tmax - 1))
+        new_state = TransducerFusedState(
+            enc=enc_state, dec=dec, enc_buf=enc_buf, src_len=src_len,
+            tokens=tokens, n_tokens=n_tok, finished=finished,
+            truncated=trunc)
         return new_state, n_tok - state.n_tokens
 
     return step

@@ -13,7 +13,8 @@ The protocol of the reference's agent (default_agent.py:97-477):
   * `segment_to_units` passes raw samples on (the fbank runs in the
     session's OnlineFbank on READ);
   * `policy` drives the step-wise session: MMA / wait-k decide by their
-    monotonic heads, CIF compares the fired and the decoded lengths;
+    monotonic heads, CIF compares the fired and the decoded lengths, the
+    transducer READs when every visible frame predicts blank;
   * `predict` returns the argmax token id, or None for a rejected early
     EOS (force-finish);
   * `units_to_segment` merges BPE units into words at the "▁" boundary
@@ -63,7 +64,7 @@ class SimulSTAgent(_SimulEvalSpeechAgent):
         parser.add_argument("--tgt-splitter-path", type=str, required=True,
                             help="target vocabulary (.model SPM or .txt)")
         parser.add_argument("--agent-type", type=str, default="mma",
-                            choices=["mma", "waitk", "cif"])
+                            choices=["mma", "waitk", "cif", "transducer"])
         parser.add_argument("--model", type=str, default=None,
                             help="model registry name override")
         parser.add_argument("--global-stats", type=str, default=None,

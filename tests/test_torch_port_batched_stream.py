@@ -5,7 +5,10 @@ alone, unpadded, one of them with no new frames in its final chunk),
 `cif_layer_step` with `x_valid`, the fused CIF and MMA steps with
 `n_valid`, and `evaluate_batched` (B = 3, lock-step within chunk-count
 buckets) against the port's B = 1 `evaluate` and JAX's
-`evaluate_batched` on the same weights.
+`evaluate_batched` on the same weights; with a token buffer that fills,
+against JAX's B = 1 `evaluate` (JAX's batched evaluator gives the last
+word of a full buffer the bucket's end, the port the filling chunk's
+delay, as both B = 1 sessions do).
 
 Small models: width 16, 1 encoder and 2 decoder layers, 2 heads, FFN 32,
 vocab 24, 80 fbank features, segment 4 / left context 8 / right context 2
@@ -59,6 +62,8 @@ SMALL = dict(vocab_size=24, input_feat=80, conv_channels=16, embed_dim=16,
              activation_dropout=0.0, no_scale_embedding=True)
 WAITK = dict(simul_attn_type="waitk_fixed_pre_decision",
              fixed_pre_decision_ratio=2, waitk_lagging=2)
+# MMA's learned heads: infinite lookback, p_choose from the energies
+MMA_KINDS = {"waitk": WAITK, "ilk": dict(simul_attn_type="infinite_lookback")}
 # 0.5 s (a bucket of its own), 0.9 and 1.0 s (one bucket, final chunks of
 # other sizes, one with no new fbank frame), 1.3 s, 1.0 s
 SECONDS = [0.5, 0.9, 1.0, 1.3, 1.0]
@@ -86,8 +91,9 @@ def _pair(kind, seed=0, eos_scale=0.1):
         jmodel = jcif.CIFModel(jcif.CIFConfig(**SMALL))
         tmodel = tcif.CIFModel(tcif.CIFConfig(**SMALL), device="cpu")
     else:
-        jmodel = jmma.MMAModel(jmma.MMAConfig(**SMALL, **WAITK))
-        tmodel = tmma.MMAModel(tmma.MMAConfig(**SMALL, **WAITK), device="cpu")
+        kw = MMA_KINDS[kind]
+        jmodel = jmma.MMAModel(jmma.MMAConfig(**SMALL, **kw))
+        tmodel = tmma.MMAModel(tmma.MMAConfig(**SMALL, **kw), device="cpu")
     jp = jmodel.init(jax.random.PRNGKey(seed))
     dec = jp["decoder"]
     dec["embed_tokens"]["weight"] = dec["embed_tokens"]["weight"].at[
@@ -310,27 +316,110 @@ def _same(got, want):
         assert tg == tw, i
 
 
-@pytest.mark.parametrize("kind", ["cif", "waitk"])
-def test_evaluate_batched_matches_b1_and_jax(kind, tmp_path):
+def mma_gaps(monkeypatch):
+    """Record the top-two logit gap of every MMA decoder call's WRITE rows
+    (the tokens it would write)."""
+    gaps, real = [], tmma.mma_decoder_step
+
+    def recorded(*args, **kwargs):
+        out = real(*args, **kwargs)
+        top = out[0].float().topk(2, dim=-1).values
+        gaps.extend((top[:, 0] - top[:, 1])[out[1] == 1].tolist())
+        return out
+
+    monkeypatch.setattr(tmma, "mma_decoder_step", recorded)
+    return gaps
+
+
+def parting_mid_stream(log, wavs, bucket=(1, 2, 4)):
+    """The words each utterance of the 3-utterance bucket wrote before its
+    source ended, by delay: some, and not the same for all three."""
+    mid = [tuple(d for d in log[i][1] if d < len(wavs[i]) / 16.0)
+           for i in bucket]
+    return any(mid) and len(set(mid)) > 1
+
+
+# (model, agent config, seed) of each evaluate_batched case.  MMA's learned
+# heads ("ilk", infinite lookback): seed 3, under which the examples write
+# from the first chunks and part ways within a bucket.  "cif_full": room
+# for 16 tokens, which four of the five utterances fill, the 1.3 s one at
+# 1215 ms, before its source ends.
+CASES = {"cif": ("cif", None, 0), "waitk": ("waitk", None, 0),
+         "ilk": ("ilk", None, 3),
+         "cif_full": ("cif", dict(max_src_frames=64, max_tgt_len=16), 0)}
+
+
+def case_agents(kind):
+    model, acfg, seed = CASES[kind]
+    return _agents(model, acfg, seed=seed)
+
+
+def _same_but_full_buffers(got, want):
+    """`_same`, but for the last delay of each truncated utterance: JAX's
+    batched evaluator gives the last word of a full token buffer the end of
+    the bucket's source, where both B = 1 sessions and the port's batched
+    one give it the delay of the chunk that filled the buffer."""
+    for i, ((pg, dg, tg, _), (pw, dw, tw, _)) in enumerate(zip(got, want)):
+        assert pg == pw and tg == tw, f"utt {i}: {pg!r} != {pw!r}"
+        n = len(dg) - 1 if tg else len(dg)
+        np.testing.assert_allclose(dg[:n], dw[:n], atol=1e-6,
+                                   err_msg=f"utt {i}")
+
+
+def filled_mid_stream(log, wavs):
+    """Some utterance filled its token buffer before its source ended."""
+    return any(x[2] and x[1] and x[1][-1] < len(w) / 16.0
+               for x, w in zip(log, wavs))
+
+
+def hold_against_b1_and_jax(kind, jagent, wavs, refs, paths, got, scan):
+    """The batched run's log (paths[mode]) against the port's B = 1 log
+    (paths["b1"]) and JAX's batched evaluator (paths["jax"]); with a full
+    token buffer ("cif_full") against JAX's B = 1 evaluate, JAX's batched
+    one differing only as `_same_but_full_buffers` says.  BLEU and the
+    latencies equal JAX's."""
+    mode = "scan" if scan else "stepwise"
+    log = _log(paths[mode])
+    _same(log, _log(paths["b1"]))
+    want = jeval.evaluate_batched(jagent, wavs, refs, batch_size=3,
+                                  log_path=paths["jax"], scan=scan)
+    assert {x[3] for x in log} == {mode} and got["mode"] == mode
+    if kind == "cif_full":
+        _same_but_full_buffers(log, _log(paths["jax"]))
+        want = jeval.evaluate(jagent, wavs, refs, log_path=paths["jax_b1"])
+        _same(log, _log(paths["jax_b1"]))
+        assert filled_mid_stream(log, wavs), log
+        assert not all(x[2] for x in log), log
+    else:
+        _same(log, _log(paths["jax"]))
+        assert set(got) == set(want)
+    if kind == "ilk":
+        assert parting_mid_stream(log, wavs), log
+    for key in ("BLEU", "AL", "AP", "DAL"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-12)
+    return log
+
+
+@pytest.mark.parametrize("kind", ["cif", "waitk", "ilk", "cif_full"])
+def test_evaluate_batched_matches_b1_and_jax(kind, tmp_path, monkeypatch):
     """evaluate_batched at batch_size 3 over 0.5 / 0.9 / 1.0 / 1.3 / 1.0 s
     (buckets of 1, 3 and 1 utterances): each utterance's words, delays and
     truncated flag equal the port's B = 1 evaluate (fused) and JAX's
     evaluate_batched on the same weights; BLEU and the latencies equal
-    JAX's."""
-    jagent, agent = _agents(kind)
+    JAX's.  MMA's learned heads ("ilk"): the bucket's examples write
+    mid-stream and part ways, and every token the B = 1 run writes leads
+    its runner-up by more than 1e-4 (no argmax tie).  A full token buffer
+    ("cif_full"): as `hold_against_b1_and_jax` says."""
+    jagent, agent = case_agents(kind)
     wavs = _audios()
     refs = ["the cats sat", "a dog ran far", "home", "big cats", "and back"]
-    paths = {k: str(tmp_path / f"{k}.log") for k in ("b1", "b3", "jax")}
+    paths = {k: str(tmp_path / f"{k}.log")
+             for k in ("b1", "stepwise", "jax", "jax_b1")}
+    gaps = mma_gaps(monkeypatch) if kind == "ilk" else [1.0]
     teval.evaluate(agent, wavs, refs, log_path=paths["b1"])
+    assert min(gaps) > 1e-4
     got = teval.evaluate_batched(agent, wavs, refs, batch_size=3,
-                                 log_path=paths["b3"])
-    want = jeval.evaluate_batched(jagent, wavs, refs, batch_size=3,
-                                  log_path=paths["jax"])
-    b3 = _log(paths["b3"])
-    _same(b3, _log(paths["b1"]))
-    _same(b3, _log(paths["jax"]))
-    assert {x[3] for x in b3} == {"stepwise"} and got["mode"] == "stepwise"
-    assert set(got) == set(want)
-    for key in ("BLEU", "AL", "AP", "DAL"):
-        np.testing.assert_allclose(got[key], want[key], rtol=1e-12)
+                                 log_path=paths["stepwise"])
+    b3 = hold_against_b1_and_jax(kind, jagent, wavs, refs, paths, got,
+                                 scan=False)
     assert sum(len(x[0].split()) for x in b3) > 5, b3

@@ -920,3 +920,39 @@ def test_cif_integrate_at_the_batched_stream_shapes(randn, s, valid):
     for got, ref in zip((out, delays), want):
         err = (got - ref).abs().max().item()
         assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_label_encoder_kernels_at_the_transducer_shapes(randn, rate):
+    """The transducer's label encoder at exp/6's train batch: its causal
+    self-attention on (16, 73, 256), 4 heads, label lengths 40 to 73, and
+    its FFN on the 1,168 rows, forward and backward; then the decode
+    step's FFN on B x beam = 40 rows and B = 8."""
+    b, t = 16, 73
+    q, k, v, dout = (randn(b, t, 256) for _ in range(4))
+    lengths = torch.linspace(40, t, b, device="cuda").long()
+    kmask = (torch.arange(t, device="cuda")[None, :]
+             < lengths[:, None]).to(torch.int32)
+    args = (q, k, v, kmask, 4, True, rate, 4321)
+    out, lse = fused_mha_forward(*args)
+    torch.testing.assert_close(out, mha_plain(*args), **TOL)
+    got = fused_mha_backward(q, k, v, kmask, out, lse, dout, *args[4:])
+    want = mha_plain_backward(q, k, v, kmask, dout, *args[4:])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+    x, dy = randn(b * t, 256), randn(b * t, 256)
+    w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
+    cfg = ("gelu", rate, rate, 99)
+    torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2, *cfg),
+                               ffn_plain(x, w1, b1, w2, b2, *cfg), **TOL)
+    got = fused_ffn_backward(x, w1, b1, w2, dy, *cfg)
+    want = ffn_plain_backward(x, w1, b1, w2, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w in zip(got[1:], want[1:]):
+        _close_to_largest(g, w)
+    for rows in (40, 8):
+        step = randn(rows, 1, 256)
+        torch.testing.assert_close(fused_ffn(step, w1, b1, w2, b2),
+                                   ffn_plain(step, w1, b1, w2, b2), **TOL)

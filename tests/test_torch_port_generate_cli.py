@@ -163,7 +163,7 @@ def test_distillation_manifest_matches_jax(tmp_path):
 
 def test_main_rejects_an_unported_model(manifest, tmp_path):
     ckpt = tmp_path / "checkpoint_last"
-    save_checkpoint(str(ckpt), {}, {"model": "transducer", "config": {}})
+    save_checkpoint(str(ckpt), {}, {"model": "s2t_convpos", "config": {}})
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tgen.main(["--data", str(manifest), "--checkpoint", str(ckpt),
                    "--device", "cpu"])
