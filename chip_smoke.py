@@ -8,7 +8,9 @@ MMA through the streaming evaluator, as cli/stream_eval does, one
 utterance at a time and batched), the offline decoding of the MMA and CIF students and the MT teacher
 (cli/generate), the sequence-packed ASR training of cli/train --pack and
 the Transformer-Transducer (exp/6_transducer.sh: training, offline decode
-and streaming).
+and streaming), and the path from a MuST-C folder to a score (data
+preparation, the remaining train options, s2t_transformer_convpos, the
+fairseq loader, interactive and visualize).
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -208,7 +210,34 @@ targets):
               truncated, or on no B 8 mid-stream chunk whose examples
               write different counts; ms per chunk and utterances per
               second
- 19. report   a JSON line of per-kernel numbers with their bounds, the
+ 19. data     data to score: a seeded synthetic MuST-C tree (two talks
+              per split, 96 train and 8 dev segments of 2-12 s of int16
+              tones, the segment list, transcripts and translations)
+              prepared by cli/prep_mustc (fbank on the card, the native
+              unigram SPM with the sentencepiece package blocked, gcmvn.npz,
+              the data config); cli/train --task
+              st --model s2t_emformer --loss joint_ctc --mtl
+              --encoder-freezing-updates 2 --tensorboard --profile for 4
+              updates at full width through the native batch loader (the
+              encoder unchanged after updates 1-2 and moved by update 3,
+              the events and the trace written); fused_mha forward and
+              backward vs plain at s2t_transformer_convpos's encoder
+              shape ((32, 256, 256) with the key mask, rate 0.1) with
+              CUDA-event times, SDPA's and bounds; one
+              s2t_transformer_convpos train step on phase 7's batch
+              (launches per step as the layer count predicts, 3 profiled
+              steps, one step at dropout 0 kernels vs plain) and a beam-5
+              decode of phase 3's batch, its logits along the best
+              hypotheses kernels vs plain; a fairseq state dict of each of
+              s2t_emformer, MMA, CIF and the transducer at full width
+              written with torch.save, loaded by compat/fairseq_converter
+              into a model of other weights: every parameter equal and
+              the beam-5 tokens on phase 3's batch equal; cli/interactive
+              on two dev segments with the trained checkpoint and
+              cli/visualize on a CIF checkpoint (`python3
+              tools/data_smoke.py`: this phase with phases 3 and 7's
+              batches only)
+ 20. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -255,6 +284,10 @@ or when any phase fails.  Tolerances:
   packed ASR step, kernels vs plain: as the ASR step, but the gradient
                          norm is logged, not limited (its rounding floor
                          on this model reaches 2.1e-5 relative)
+  s2t_transformer_convpos train step, kernels vs plain: as the ASR
+                         step; its decode logits as phase 16's
+  fairseq-loaded models: every parameter equal (torch.equal) to the
+                         weights it was written from; decode tokens equal
   transducer train step, kernels vs plain: as the ASR step; its offline
                          decode logits along the best hypotheses as
                          phase 16's; its streaming tokens, fused vs
@@ -279,6 +312,7 @@ import subprocess
 import tempfile
 import time
 from collections import defaultdict
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -3933,6 +3967,396 @@ def chunk_geometry(agent):
     return int(first_ms / 1000.0 * 16000), int(steady_ms / 1000.0 * 16000)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data to score (MuST-C preparation, the remaining train options,
+# s2t_transformer_convpos, the fairseq loader, interactive and visualize)
+# ---------------------------------------------------------------------------
+
+DATA_TRAIN_SEGMENTS, DATA_DEV_SEGMENTS = 96, 8
+DATA_STEPS = 4
+DATA_ARGS = ["--task", "st", "--model", "s2t_emformer", "--loss",
+             "joint_ctc", "--override", "ctc_layer=true", "--mtl",
+             "--encoder-freezing-updates", "2", "--tensorboard", "--lr",
+             "1e-3", "--warmup-updates", "10000", "--clip-norm", "10",
+             "--seed", str(SEED)]
+CONVPOS_ARGS = ["--task", "asr", "--model", "s2t_transformer_convpos",
+                "--loss", "joint_ctc", "--lr", "1e-3", "--warmup-updates",
+                "10000", "--clip-norm", "10", "--seed", str(SEED)]
+# launches per s2t_transformer_convpos training step: 12 encoder
+# self-attention cores (their out-projection and residual plain torch, as in
+# the JAX package), 6 decoder layers as in ASR training; no LN-FFN, grouped
+# attention, conv-pos weight gradient (the non-causal conv-pos is a plain
+# grouped conv) or CTC
+CONVPOS_LAUNCHES_PER_STEP = {
+    "fused_ln_ffn_res": 0, "fused_ln_ffn_res_backward": 0,
+    "emformer_grouped_attention": 0,
+    "emformer_grouped_attention_backward": 0,
+    "fused_linear_res": 12, "fused_linear_res_backward": 12,
+    "fused_mha": 24, "fused_mha_backward": 24,
+    "fused_ffn": 6, "fused_ffn_backward": 6,
+    "convpos_wgrad": 0, "ctc_alphas": 0, "ctc_d_em": 0}
+FAIRSEQ_MODELS = ("s2t_emformer", "mma", "cif", "transducer")
+# the reference checkpoints' configurations: CTC heads on s2t_emformer and
+# CIF, exp/2_mma.sh's monotonic attention (with its soft projections)
+FAIRSEQ_OVERRIDES = {
+    "s2t_emformer": {"ctc_layer": True}, "cif": {"ctc_layer": True},
+    "mma": {"simul_attn_type": "infinite_lookback_fixed_pre_decision",
+            "fixed_pre_decision_ratio": 8, "mass_preservation": True}}
+
+
+def to_fairseq(name, model):
+    """The reference's fairseq state dict of a port model's weights (numpy):
+    Linear weights transposed, LayerNorm scale as weight, CIF's alpha conv
+    as ConvTBC (K, Cin, Cout), the CIF CTC head under its legacy
+    decoder.ctc_layer; the names as the reference's modules give them."""
+    rules = [(r"^encoder\.subsample\.layers\.", "encoder.subsample."
+              "conv_layers."),
+             (r"^encoder\.conv_pos\.g$", "encoder.embed_positions.conv."
+              "weight_g"),
+             (r"^encoder\.conv_pos\.v$", "encoder.embed_positions.conv."
+              "weight_v"),
+             (r"^encoder\.conv_pos\.bias$", "encoder.embed_positions.conv."
+              "bias"),
+             (r"^encoder\.emformer\.layers\.(\d+)\.pos_ff\.ln\.",
+              r"encoder.emformer_blocks.emformer_layers.\1.pos_ff.0."),
+             (r"^encoder\.emformer\.layers\.(\d+)\.pos_ff\.fc1\.",
+              r"encoder.emformer_blocks.emformer_layers.\1.pos_ff.1."),
+             (r"^encoder\.emformer\.layers\.(\d+)\.pos_ff\.fc2\.",
+              r"encoder.emformer_blocks.emformer_layers.\1.pos_ff.4."),
+             (r"^encoder\.emformer\.layers\.(\d+)\.ln_input\.",
+              r"encoder.emformer_blocks.emformer_layers.\1."
+              "layer_norm_input."),
+             (r"^encoder\.emformer\.layers\.", "encoder.emformer_blocks."
+              "emformer_layers."),
+             (r"^encoder\.emformer\.final_ln\.", "encoder.emformer_blocks."
+              "final_layer_norm."),
+             (r"\.self_attn_ln\.", ".self_attn_layer_norm."),
+             (r"\.encoder_attn_ln\.", ".encoder_attn_layer_norm."),
+             (r"\.final_ln\.", ".final_layer_norm."),
+             (r"^cif\.conv\.", "encoder.cif_layer.alpha_proj.0."),
+             (r"^cif\.ln\.", "encoder.cif_layer.alpha_proj.1."),
+             (r"^cif\.proj\.", "encoder.cif_layer.alpha_proj.4.")]
+    sd = {}
+    for key, value in model.state_dict().items():
+        a = value.detach().cpu().numpy()
+        fkey = key
+        for pat, rep in rules:
+            fkey = re.sub(pat, rep, fkey)
+        if fkey.endswith(".scale"):
+            fkey = fkey[:-len("scale")] + "weight"
+        if key == "cif.conv.weight":
+            a = np.transpose(a, (2, 1, 0))
+        elif a.ndim == 2 and key != "decoder.embed_tokens.weight":
+            a = a.T
+        if name == "cif" and key == "encoder.ctc_layer.weight":
+            fkey = "decoder.ctc_layer.weight"
+        sd[fkey] = np.ascontiguousarray(a)
+    return sd
+
+
+def write_data_tree(root):
+    """The synthetic MuST-C tree: a train split of 96 segments and a dev
+    split of 8, 2-12 s each, two talks per split, int16 tones."""
+    from simulst_tpu_torch.data.synthetic import write_mustc_tree
+    write_mustc_tree(root, "train", DATA_TRAIN_SEGMENTS, seed=SEED + 40)
+    write_mustc_tree(root, "dev", DATA_DEV_SEGMENTS, seed=SEED + 41)
+
+
+def phase_data(dev, workdir, asr, speech, report):
+    """Phase 19: prep a synthetic MuST-C tree, train 4 updates with --mtl,
+    encoder freezing, tensorboard and the profiler through the native
+    loader, one s2t_transformer_convpos step kernels vs plain, fairseq
+    checkpoints of the four served models decoded, interactive and
+    visualize.  Returns the launches of the data-to-score path."""
+    import io
+    import sys
+    import glob
+    import torch
+    from scipy.io import wavfile
+    from simulst_tpu_torch import config as cfglib
+    from simulst_tpu_torch.cli import generate, interactive, prep_mustc
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.cli import visualize
+    from simulst_tpu_torch.compat import fairseq_converter
+    from simulst_tpu_torch.data import manifest as mf
+    from simulst_tpu_torch.data import mustc, native
+    from simulst_tpu_torch.data.vocab import Vocabulary
+    from simulst_tpu_torch.decode.beam import BeamConfig
+    from simulst_tpu_torch.ops import mha
+    from simulst_tpu_torch.train import state as state_mod
+    from simulst_tpu_torch.train.checkpoint import save_checkpoint
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "mustc")
+    data = os.path.join(workdir, "data")
+
+    # (a) the tree and cli/prep_mustc: fbank on the card, the native SPM
+    t0 = time.perf_counter()
+    write_data_tree(root)
+    tree_s = time.perf_counter() - t0
+    # the sentencepiece package, where the machine has it, is blocked so
+    # that the native trainer and reader (data/spm.py) run
+    spm_package = sys.modules.get("sentencepiece")
+    sys.modules["sentencepiece"] = None
+    try:
+        t0 = time.perf_counter()
+        prep_mustc.main(["--data-root", root, "--out-dir", data, "--splits",
+                         "train", "dev", "--device", str(dev)])
+        prep_s = time.perf_counter() - t0
+        vocab_path = glob.glob(os.path.join(data,
+                                            "spm_unigram*_st.model"))[0]
+        vocab = Vocabulary.from_spm(vocab_path)
+    finally:
+        if spm_package is None:
+            del sys.modules["sentencepiece"]
+        else:
+            sys.modules["sentencepiece"] = spm_package
+    rows = mf.load_tsv(os.path.join(data, "train_st.tsv"))
+    with np.load(os.path.join(data, "gcmvn.npz")) as f:
+        gstd = f["std"]
+    if len(rows) != DATA_TRAIN_SEGMENTS or not np.isfinite(gstd).all() or \
+            type(vocab.spm).__module__ != "simulst_tpu_torch.data.spm":
+        raise AssertionError(f"prep: {len(rows)} train rows, gcmvn finite "
+                             f"{np.isfinite(gstd).all()}, spm "
+                             f"{type(vocab.spm)}")
+    log("phase19", step="prep", segments=[DATA_TRAIN_SEGMENTS,
+                                          DATA_DEV_SEGMENTS],
+        audio_s=sum(int(r["n_frames"]) for r in rows) / 100,
+        frames=[min(int(r["n_frames"]) for r in rows),
+                max(int(r["n_frames"]) for r in rows)],
+        vocab=len(vocab), tree_s=tree_s, prep_s=prep_s)
+
+    # (b) cli/train --mtl --encoder-freezing-updates 2 --tensorboard
+    # --profile through the native loader; the encoder after each update
+    real_apply, real_load = state_mod.apply_update, native.load_feature_batch
+    snap, frozen, loads = {}, [], []
+
+    def apply_update(state, metrics, optim_cfg, freeze_until=None):
+        params = dict(state.model.named_parameters())
+        if not snap:
+            snap.update({n: p.detach().clone() for n, p in params.items()})
+        out = real_apply(state, metrics, optim_cfg, freeze_until)
+        frozen.append({part: all(torch.equal(params[n], snap[n])
+                                 for n in snap if n.startswith(part + "."))
+                       for part in ("encoder", "decoder")})
+        return out
+
+    def load_feature_batch(specs, *a, **kw):
+        loads.append(len(specs))
+        return real_load(specs, *a, **kw)
+
+    save = os.path.join(workdir, "data_ckpt")
+    prof = os.path.join(workdir, "data_profile")
+    reset_launches()
+    t0 = time.perf_counter()
+    with patched([(state_mod, "apply_update", apply_update),
+                  (native, "load_feature_batch", load_feature_batch)]):
+        st = cli.main(DATA_ARGS + ["--data", data, "--save-dir", save,
+                                   "--max-updates", str(DATA_STEPS),
+                                   "--profile", prof, "--device", str(dev)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    events = glob.glob(os.path.join(save, "tb", "events.out.tfevents.*"))
+    want = [{"encoder": True, "decoder": False}] * 2 + \
+        [{"encoder": False, "decoder": False}] * (DATA_STEPS - 2)
+    missing = [k for k, n in ASR_LAUNCHES_PER_STEP.items()
+               if n and not train_launches[k]]
+    with open(os.path.join(save, "train_log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if "valid_update" in r]
+    if st.step != DATA_STEPS or frozen != want or missing or not loads or \
+            len(events) != 1 or os.path.getsize(events[0]) < 100 or \
+            not os.path.exists(os.path.join(prof, "trace.json")) or \
+            not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"train --mtl: updates {st.step}, unchanged "
+                             f"after each update {frozen} (want {want}), "
+                             f"kernels not launched {missing}, native loads "
+                             f"{loads}, events {events}, valid losses "
+                             f"{losses}")
+    log("phase19", step="train --mtl --encoder-freezing-updates 2 "
+        "--tensorboard --profile", updates=DATA_STEPS, s=train_s,
+        unchanged_after_each_update=frozen, native_batch_loads=loads,
+        valid_losses=losses, launches=train_launches,
+        event_bytes=os.path.getsize(events[0]),
+        trace_bytes=os.path.getsize(os.path.join(prof, "trace.json")))
+    del st
+
+    # (c) s2t_transformer_convpos: rows 5 / 5b at its encoder's shape, one
+    # train step kernels vs plain, its device time, a beam-5 decode
+    b = asr["feats"].shape[0]
+    u = int(subsampled(torch.tensor(asr["feats"].shape[1])))
+    kmask = (torch.arange(u, device=dev)[None, :] <
+             subsampled(asr["feat_lengths"])[:, None]).to(torch.int32)
+    g = torch.Generator().manual_seed(SEED + 43)
+    q, k, v, dout = (torch.randn(b, u, 256, generator=g).to(dev)
+                     for _ in range(4))
+    cfg = (4, False, 0.1, 4321)
+    with torch.no_grad():
+        out, lse = mha.fused_mha_forward(q, k, v, kmask, *cfg)
+        torch.cuda.synchronize()
+        e_fwd = max_err("fused_mha convpos encoder", out,
+                        mha.mha_plain(q, k, v, kmask, *cfg), **F32_TOL)
+        got = mha.fused_mha_backward(q, k, v, kmask, out, lse, dout, *cfg)
+        want_g = mha.mha_plain_backward(q, k, v, kmask, dout, *cfg)
+        torch.cuda.synchronize()
+        e_bwd = max(max_err(f"fused_mha_backward convpos encoder d{w}", x, y,
+                            **F32_TOL) for w, x, y in zip("qkv", got, want_g))
+        vis = mha_visible_pairs(kmask, u, False)
+        shape = f"(B,Tq,Tk,D)=({b},{u},{u},256) key mask rate 0.1"
+        fwd_case = mha_forward_case(q, k, v, kmask, 4, False, 0.1)
+        fwd_case["plain_ms"] = cuda_ms(lambda: mha.mha_plain(q, k, v, kmask,
+                                                             *cfg))
+        bwd_case = dict(
+            ms=cuda_ms(lambda: mha.fused_mha_backward(
+                q, k, v, kmask, out, lse, dout, *cfg)),
+            plain_ms=cuda_ms(lambda: mha.mha_plain_backward(
+                q, k, v, kmask, dout, *cfg)),
+            library_ms=sdpa_backward_ms(q, k, v, kmask, dout, *cfg[:3]),
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                nbytes(q, k, v, kmask, out, lse, dout, *got),
+                10 * 256 * vis))))
+    for name, err, case in (("fused_mha", e_fwd, fwd_case),
+                            ("fused_mha_backward", e_bwd, bwd_case)):
+        log("phase19", kernel=name, shape=shape, max_abs_err=err,
+            visible_pairs=vis, **case)
+        entry = report.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry.setdefault("shapes", {})["convpos encoder " + shape] = \
+            {"max_abs_err": err, **case}
+    del q, k, v, dout, out, lse, got, want_g
+
+    args = cli.parse_args(CONVPOS_ARGS)
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    cstate = create_train_state(model, optim_cfg)
+    initial = copy.deepcopy(cstate)
+    generator = torch.Generator().manual_seed(SEED)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cstate, metrics = train_step(cstate, asr, generator)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    per_step = {k: launches[k] for k in CONVPOS_LAUNCHES_PER_STEP}
+    loss = float(metrics["loss"]) / float(metrics["sample_size"])
+    if per_step != CONVPOS_LAUNCHES_PER_STEP or not np.isfinite(loss):
+        raise AssertionError(f"convpos step launches {per_step}, expected "
+                             f"{CONVPOS_LAUNCHES_PER_STEP}; loss {loss}")
+    log("phase19", step="s2t_transformer_convpos train",
+        config="S2TConvPosConfig() (s2t_emformer_s widths, conv_pos 128 "
+        "taps non-causal)", utterances=b, first_step_ms=first_ms, loss=loss,
+        launches_per_step=per_step)
+    cstate = profile_steps(cstate, train_step, asr, generator,
+                           "phase19-convpos")
+    del cstate
+    compare_plain_step(initial, loss_fn, optim_cfg, asr, "phase19-convpos",
+                       make_accum_train_step)
+    model = initial.model.eval()
+    beam_cfg = BeamConfig(beam_size=BEAM, max_len=MAX_LEN)
+    with torch.no_grad():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, lengths = generate.decode_batch(model, speech, beam_cfg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        decode_launches = read_launches()
+        kern = hypothesis_logits(generate._build_std, model, speech, tokens)
+        with plain_training():
+            plain = hypothesis_logits(generate._build_std, model, speech,
+                                      tokens)
+    live = (torch.arange(MAX_LEN, device=dev)[None, :]
+            < lengths.repeat_interleave(BEAM)[:, None])
+    err = max_err("convpos decode logits along the best hypotheses, "
+                  "kernels vs plain", kern[live], plain[live], **F32_TOL)
+    if tokens.shape != (N_UTT, MAX_LEN) or not decode_launches["fused_mha"]:
+        raise AssertionError(f"convpos decode {tuple(tokens.shape)}, "
+                             f"launches {decode_launches}")
+    log("phase19", step="s2t_transformer_convpos decode", beam=BEAM,
+        ms_per_batch=decode_ms, token_lengths=lengths.tolist(),
+        logits_max_abs_err=err, launches=decode_launches)
+    del initial, model, kern, plain
+
+    # (d) fairseq checkpoints of the four served models at full width
+    fairseq = {}
+    for name in FAIRSEQ_MODELS:
+        over = FAIRSEQ_OVERRIDES.get(name, {})
+        fargs = SimpleNamespace(
+            model=name, seed=SEED + 44, load_params=None,
+            load_pretrained_encoder_from=None,
+            load_pretrained_decoder_from=None, overrides=over)
+        src = cli.build_model(fargs, ASR_VOCAB, device=dev).eval()
+        path = os.path.join(workdir, f"{name}_fairseq.pt")
+        torch.save({"cfg": None, "model": {
+            k: torch.from_numpy(a) for k, a in to_fairseq(name, src).items()}},
+            path)
+        fargs.seed = SEED + 45
+        dst = cli.build_model(fargs, ASR_VOCAB, device=dev).eval()
+        fairseq_converter.convert(name, dst, path)
+        differ = [k for k, v in src.state_dict().items()
+                  if not torch.equal(v, dst.state_dict()[k])]
+        with torch.no_grad():
+            toks = [generate.decode_batch(m, speech, beam_cfg)
+                    for m in (src, dst)]
+        same = all(torch.equal(x, y) for x, y in zip(*toks))
+        if differ or not same:
+            raise AssertionError(f"fairseq {name}: parameters differ "
+                                 f"{differ[:5]}, tokens equal {same}")
+        fairseq[name] = {"parameters": len(src.state_dict()),
+                         "token_lengths": toks[1][1].tolist()}
+        del src, dst
+    log("phase19", step="fairseq loader, decode beam 5", models=fairseq)
+
+    # (e) cli/interactive on two dev segments, cli/visualize on a CIF model
+    dev_rows = mustc.parse_segments(root, "dev", "en", "de")
+    wavs = []
+    for i, (uid, wav) in enumerate(mustc.iter_segment_audio(dev_rows[:2])):
+        wavs.append(os.path.join(workdir, f"{uid}.wav"))
+        wavfile.write(wavs[-1], 16000, (wav * 32767).astype(np.int16))
+    vocab_txt = vocab_path[:-len(".model")] + ".txt"
+    stdin, buf = sys.stdin, io.StringIO()
+    sys.stdin = io.StringIO("\n".join(wavs) + "\n")
+    try:
+        with contextlib.redirect_stdout(buf):
+            interactive.main(["--checkpoint", os.path.join(
+                save, "checkpoint_last"), "--vocab", vocab_txt, "--beam",
+                str(BEAM), "--max-len", str(MAX_LEN), "--device", str(dev)])
+    finally:
+        sys.stdin = stdin
+    hyps = [x for x in buf.getvalue().splitlines() if x.startswith("H-")]
+    cif_args = SimpleNamespace(
+        model="cif", seed=SEED + 46, load_params=None,
+        load_pretrained_encoder_from=None, load_pretrained_decoder_from=None,
+        overrides=FAIRSEQ_OVERRIDES["cif"])
+    cif = cli.build_model(cif_args, len(vocab), device=dev)
+    cif_path = os.path.join(workdir, "visualize_cif")
+    save_checkpoint(cif_path, cif.state_dict(),
+                    {"model": "cif", "config": cfglib.to_dict(cif.cfg)})
+    del cif
+    viz = os.path.join(workdir, "viz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        visualize.main(["--data", data, "--subset", "dev", "--checkpoint",
+                        cif_path, "--vocab", vocab_txt, "--n", "2", "--out",
+                        viz, "--device", str(dev)])
+    npz = sorted(glob.glob(os.path.join(viz, "*.npz")))
+    finite = all(np.isfinite(np.load(p)["alpha"]).all() for p in npz)
+    if len(hyps) != 2 or len(npz) != 2 or not finite:
+        raise AssertionError(f"interactive {hyps}, visualize {npz} "
+                             f"(alphas finite {finite})")
+    log("phase19", step="interactive, visualize", hypotheses=hyps,
+        timelines=buf.getvalue().count("== "),
+        s=time.perf_counter() - t_phase)
+    return {k: train_launches[k] + per_step.get(k, 0) + decode_launches[k]
+            for k in train_launches}
+
+
 def run(dev):
     import torch
     from simulst_tpu_torch.cli.generate import decode_batch
@@ -4120,16 +4544,21 @@ def run(dev):
         phase_transducer_kernels(dev)
     transducer = phase_transducer(dev, asr, asr_checkpoint, speech,
                                   workdir.name)
+
+    # 19. data to score: MuST-C preparation, train --mtl with encoder
+    # freezing, tensorboard and the profiler, s2t_transformer_convpos, the
+    # fairseq loader, interactive and visualize
+    data_to_score = phase_data(dev, workdir.name, asr, speech, report)
     del asr, speech, feats, lengths
     workdir.cleanup()
 
-    # 19. report
+    # 20. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
              "batched-serving": batched_serving,
              "offline-decode": offline_decode, "asr-pack": pack_training,
-             "transducer": transducer}
+             "transducer": transducer, "data-to-score": data_to_score}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -4138,7 +4567,7 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase19", total_s=time.perf_counter() - started)
+    log("phase20", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 `decode_batch` encodes a whole batch once, repeats the encoder output per
 beam, and runs `beam_search` (or `greedy_decode` at beam 1) over the
-model's incremental decoder step: `decoder_step` for s2t_emformer,
+model's incremental decoder step: `decoder_step` for s2t_emformer and
+s2t_transformer_convpos,
 `mma_decoder_step` offline (wait-k clipped to the source's end, READ
 ignored) for MMA, `cif_decoder_step` over the fired CIF features for CIF,
 and for the transducer the offline `decode_step` (the emit at the source's
@@ -41,6 +42,7 @@ from simulst_tpu_torch.decode.beam import BeamConfig, beam_search, greedy_decode
 from simulst_tpu_torch.decode.scoring import corpus_bleu, wer
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
+from simulst_tpu_torch.models import s2t_convpos as convpos
 from simulst_tpu_torch.models import s2t_emformer as s2t
 from simulst_tpu_torch.models import transducer as tr
 from simulst_tpu_torch.models.mt_transformer import (MTTransformerModel,
@@ -76,13 +78,15 @@ def _reorder_caches(caches, idx):
 def _encode(model, batch):
     """The speech encoder over the whole batch (no dropout)."""
     device = _device(model)
-    return s2t.encoder_forward(
-        model.encoder, model.cfg, torch.as_tensor(batch["feats"],
-                                                  device=device),
-        torch.as_tensor(batch["feat_lengths"], device=device))
+    forward = (convpos.encoder_forward
+               if isinstance(model, convpos.S2TConvPosModel)
+               else s2t.encoder_forward)
+    return forward(model.encoder, model.cfg,
+                   torch.as_tensor(batch["feats"], device=device),
+                   torch.as_tensor(batch["feat_lengths"], device=device))
 
 
-def _build_std(model: s2t.S2TEmformerModel, batch, beam_cfg: BeamConfig):
+def _build_std(model, batch, beam_cfg: BeamConfig):
     """(step_fn, decoder state, reorder_fn, seed) for one batch: the
     encoder runs once, its output repeated per beam; the search is seeded
     with EOS (seed None), the fairseq convention."""
@@ -235,12 +239,12 @@ def _builder(model):
         return _build_cif
     if isinstance(model, mma_mod.MMAModel):
         return _build_mma
-    if isinstance(model, s2t.S2TEmformerModel):
+    if isinstance(model, (s2t.S2TEmformerModel, convpos.S2TConvPosModel)):
         return _build_std
     raise NotImplementedError(
         f"{type(model).__name__} is not ported yet: the port decodes "
-        "s2t_emformer, MMA, CIF, the transducer and (decode_batch_mt) the MT "
-        "teacher")
+        "s2t_emformer, s2t_transformer_convpos, MMA, CIF, the transducer and "
+        "(decode_batch_mt) the MT teacher")
 
 
 def decode_batch(model, batch, beam_cfg: BeamConfig, prefix_tokens=None):
@@ -300,9 +304,8 @@ def load_model(path: str, vocab_size: int, model_name=None, overrides=None,
     meta = meta or {}
     name = model_name or meta.get("model", "s2t_emformer")
     if name not in MODELS:
-        raise NotImplementedError(
-            f"--model {name} is not ported yet; the port decodes "
-            + ", ".join(sorted(MODELS)))
+        raise ValueError(f"unknown model {name!r}; the models are "
+                         + ", ".join(sorted(MODELS)))
     args = SimpleNamespace(
         model=name, seed=1, load_params=None,
         load_pretrained_encoder_from=None, load_pretrained_decoder_from=None,

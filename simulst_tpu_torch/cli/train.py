@@ -63,9 +63,21 @@ inline decode's corpus BLEU or WER to each validation (greedy, or beam
 decode_batch), and the best checkpoints follow --best-metric (by default
 that metric; BLEU kept by maximum, loss and WER by minimum); as in the
 JAX package, --task mt never decodes, so with --eval-metric bleu it
-writes no best checkpoint and never counts patience.  The model trains on
-the card unless --device names another.  Any other task, model or loss,
-and the --mtl option, raise: those are not yet ported (ROADMAP Queue 1).
+writes no best checkpoint and never counts patience.  --mtl (--task st)
+trains the CE on the translations and the joint loss's CTC on the
+transcripts (each batch's `src_target`); --encoder-freezing-updates N
+zeroes the encoder's gradients for the first N updates; --tensorboard
+logs the scalars to <save-dir>/tb, --wandb-project to wandb (skipped
+where the package is missing); --profile DIR writes a torch.profiler
+trace of one update after two warm-up updates.  The JAX package's
+--rng-impl picks JAX's PRNG and has no counterpart here: dropout draws
+Philox masks from seeds of a torch.Generator.
+
+The offline S2T transformer with the non-causal conv-pos,
+s2t_transformer_convpos (the ASR model before the Emformer), trains with
+--task asr|st --loss joint_ctc, the CE alone (it has no CTC head).  The
+model trains on the card unless --device names another.  Any other task,
+model or loss raises: those are not ported (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -93,6 +105,8 @@ from simulst_tpu_torch.losses.rnnt_loss import RNNTLossConfig, rnnt_criterion
 from simulst_tpu_torch.models.cif import CIFConfig, CIFModel
 from simulst_tpu_torch.models.mma import MMAConfig, MMAModel
 from simulst_tpu_torch.models.mt_transformer import MTConfig, MTTransformerModel
+from simulst_tpu_torch.models.s2t_convpos import (S2TConvPosConfig,
+                                                  S2TConvPosModel)
 from simulst_tpu_torch.models.s2t_emformer import (S2TEmformerConfig,
                                                    S2TEmformerModel)
 from simulst_tpu_torch.models.transducer import (TransducerConfig,
@@ -114,12 +128,15 @@ PORTED = {("mt", "mt_transformer", "ce"),
           ("st", "mma", "mma"),
           ("st", "cif", "cif"),
           ("asr", "transducer", "rnnt"),
-          ("st", "transducer", "rnnt")}
+          ("st", "transducer", "rnnt"),
+          ("asr", "s2t_transformer_convpos", "joint_ctc"),
+          ("st", "s2t_transformer_convpos", "joint_ctc")}
 MODELS = {"mt_transformer": (MTConfig, MTTransformerModel),
           "s2t_emformer": (S2TEmformerConfig, S2TEmformerModel),
           "mma": (MMAConfig, MMAModel),
           "cif": (CIFConfig, CIFModel),
-          "transducer": (TransducerConfig, TransducerModel)}
+          "transducer": (TransducerConfig, TransducerModel),
+          "s2t_transformer_convpos": (S2TConvPosConfig, S2TConvPosModel)}
 LABEL_SMOOTHING = 0.1
 
 
@@ -176,20 +193,29 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--best-metric", default=None,
                    help="metric for best-checkpoint selection (default: "
                         "the eval metric if set, else loss)")
-    # the JAX package's options that the port does not take yet
-    p.add_argument("--mtl", action="store_true")
+    p.add_argument("--mtl", action="store_true",
+                   help="multi-task: CE on translations + CTC on "
+                        "transcripts (--task st)")
+    p.add_argument("--encoder-freezing-updates", type=int, default=0,
+                   help="zero the encoder's gradients for the first N "
+                        "updates")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also log scalars to <save-dir>/tb")
+    p.add_argument("--wandb-project", default=None,
+                   help="wandb project (skipped if wandb is not installed)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of one update after "
+                        "warm-up to DIR/trace.json")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     args = parser().parse_args(argv)
     path = (args.task, args.model, args.loss)
-    unported = ["--mtl"] if args.mtl else []
-    if path not in PORTED or unported:
-        what = " ".join(unported) or \
-            f"--task {args.task} --model {args.model} --loss {args.loss}"
+    if path not in PORTED:
         raise NotImplementedError(
-            f"{what} is not yet ported (ROADMAP Queue 1); the port trains "
+            f"--task {args.task} --model {args.model} --loss {args.loss} is "
+            "not yet ported (ROADMAP Queue 1); the port trains "
             + ", ".join(f"--task {t} --model {m} --loss {l}"
                         for t, m, l in sorted(PORTED)))
     if args.pack and (args.model, args.loss) != ("s2t_emformer",
@@ -277,7 +303,9 @@ def build_loss(args, model):
         lcfg = cfglib.apply_overrides(JointCTCConfig(), args.loss_overrides)
 
         def criterion(logits, extra, batch):
-            return joint_ctc_loss(logits, extra, batch["target"], lcfg)
+            # --mtl batches carry the transcripts for the CTC
+            return joint_ctc_loss(logits, extra, batch["target"], lcfg,
+                                  ctc_target=batch.get("src_target"))
 
     def fn(model, batch, rngs):
         feats = batch["feats"]
@@ -395,10 +423,11 @@ def _datasets(args, vocab, bcfg):
         with np.load(os.path.join(args.data, "gcmvn.npz")) as f:
             stats = {"mean": f["mean"], "std": f["std"]}
     field = "src_text" if args.task == "asr" else "tgt_text"
+    mtl = args.mtl and args.task == "st"
     train_ds = SpeechDataset(filter_by_frames(rows(args.train_split)), vocab,
-                             bcfg, field, global_stats=stats)
+                             bcfg, field, global_stats=stats, mtl_src=mtl)
     valid_ds = SpeechDataset(rows(args.valid_split), vocab, valid_cfg, field,
-                             global_stats=stats)
+                             global_stats=stats, mtl_src=mtl)
     return (lambda epoch: make_batches(train_ds, epoch=epoch),
             lambda: make_batches(valid_ds))
 
@@ -427,13 +456,19 @@ def main(argv=None):
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
                           save_dir=args.save_dir, seed=args.seed,
                           best_metric=best_metric,
-                          maximize_metric=best_metric == "bleu")
+                          maximize_metric=best_metric == "bleu",
+                          tensorboard=args.tensorboard,
+                          wandb_project=args.wandb_project,
+                          profile_dir=args.profile)
     metadata = {"model": args.model, "config": cfglib.to_dict(model.cfg)}
     if args.task != "mt":
         metadata["cmvn"] = args.cmvn
     trainer = Trainer(loss_fn, optim_config(args), loop_cfg, model,
                       valid_fn=build_valid_fn(args, vocab, loss_fn,
                                               valid_batches, device),
+                      freeze_until=({"encoder": args.encoder_freezing_updates}
+                                    if args.encoder_freezing_updates > 0
+                                    else None),
                       update_freq=args.update_freq, metadata=metadata,
                       device=device)
     if args.resume:

@@ -11,9 +11,13 @@ is an nn.ModuleList here).  Layouts:
   conv-pos v (K, Cin/groups, Cout)    -> (Cout, Cin/groups, K)
   conv-pos g (K, 1, 1)                -> (1, 1, K)
 
-Every 3-D leaf of a JAX s2t_emformer tree is one of the conv tensors
-above, so the rule is: 3-D leaves reverse their axes, the rest copy.  The
-inverse of compat/fairseq_converter.py's `_conv` in the JAX package.
+Every 3-D leaf of a JAX s2t_emformer, MMA, CIF, transducer or
+s2t_transformer_convpos tree is one of the conv tensors above (the
+convpos model's non-causal conv-pos keeps all conv_pos taps; CIF's alpha
+conv is (K, Cin, Cout)), so the rule is: 3-D leaves reverse their axes,
+the rest copy.  The inverse of the JAX package's fairseq converter's
+`_conv`; this package's compat/fairseq_converter.py loads fairseq
+checkpoints straight into the port's names.
 
 The mt_transformer tree's encoder.embed_tokens and decoder.embed_tokens
 are two leaves (one array at init, apart once trained); the port keeps two

@@ -7,9 +7,11 @@ after the stride-4 subsampler, so the grouped-attention kernel's path
 always applies.  Batches are cut on the fully sorted order (frames, then
 target length within a frame bucket) at `batch_multiple` boundaries, the
 remainder carried into the next batch, and the batch list is shuffled per
-epoch.  The JAX package loads a batch's features with a threaded C++
-reader when it is built (native/dataloader.cpp); this copy reads them with
-numpy, which gives the same arrays.
+epoch.  A batch whose features are all zip members (`zip:offset:length`)
+loads in one threaded C++ call with the CMVN in C++ (data/native.py); a
+plain .npy path loads with numpy.  With `mtl_src` each batch also carries
+`src_target`, the transcripts' token ids, for a CTC on transcripts beside
+the CE on translations (cli/train --mtl).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from simulst_tpu_torch.data import native
 from simulst_tpu_torch.data.features import global_cmvn, utterance_cmvn
 from simulst_tpu_torch.data.manifest import read_feature
 from simulst_tpu_torch.data.vocab import EOS, PAD, Vocabulary
@@ -56,12 +59,13 @@ class SpeechDataset:
 
     def __init__(self, rows: List[Dict[str, str]], vocab: Vocabulary,
                  cfg: BatcherConfig, target_field: str = "tgt_text",
-                 global_stats=None):
+                 global_stats=None, mtl_src: bool = False):
         self.rows = rows
         self.vocab = vocab
         self.cfg = cfg
         self.target_field = target_field
         self.global_stats = global_stats
+        self.mtl_src = mtl_src
         self._feat_dim = None
 
     def __len__(self):
@@ -111,12 +115,19 @@ def make_batches(dataset: SpeechDataset, cfg: Optional[BatcherConfig] = None,
 
 
 def _load_feats(dataset: SpeechDataset, rows, feats, cfg: BatcherConfig):
-    """Fill feats[:len(rows)] and return the per-example lengths."""
+    """Fill feats[:len(rows)] and return the per-example lengths: zip-member
+    specs through the native loader, one call per batch."""
     tb = feats.shape[1]
     lengths = np.zeros((feats.shape[0],), np.int32)
     mode = cfg.cmvn
     if mode == "global" and dataset.global_stats is None:
         mode = "none"
+    specs = [r["audio"] for r in rows]
+    if all(native.is_zip_spec(s) for s in specs):
+        got = native.load_feature_batch(specs, feats[:len(rows)], cmvn=mode,
+                                        global_stats=dataset.global_stats)
+        lengths[:len(rows)] = np.minimum(got, tb)
+        return lengths
     for j, r in enumerate(rows):
         f = read_feature(r["audio"])
         if mode == "utterance":
@@ -133,6 +144,8 @@ def _collate(dataset: SpeechDataset, idxs, cfg: BatcherConfig):
     rows = [dataset.rows[i] for i in idxs]
     targets = [np.asarray(dataset.vocab.encode(r[dataset.target_field]),
                           np.int32) for r in rows]
+    srcs = ([np.asarray(dataset.vocab.encode(r["src_text"]), np.int32)
+             for r in rows] if dataset.mtl_src else None)
     tb = _bucket(max(int(r["n_frames"]) for r in rows), cfg.frame_buckets)
     lb = _bucket(max(len(t) for t in targets), cfg.token_buckets)
     bsz = len(rows)
@@ -152,5 +165,15 @@ def _collate(dataset: SpeechDataset, idxs, cfg: BatcherConfig):
         ids.append(r["id"])
     # padded rows keep feat_lengths 0 and all-PAD targets: they add nothing
     # to the summed losses or the sample size
-    return {"feats": feats, "feat_lengths": feat_lengths, "target": target,
-            "prev_tokens": prev, "ids": ids, "n_real": bsz}
+    batch = {"feats": feats, "feat_lengths": feat_lengths, "target": target,
+             "prev_tokens": prev, "ids": ids, "n_real": bsz}
+    if srcs is not None:
+        sb = _bucket(max(len(s) for s in srcs), cfg.token_buckets)
+        src_target = np.full((b_pad, sb), PAD, np.int32)
+        for j, s in enumerate(srcs):
+            L = min(len(s), sb)
+            ss = s[:L].copy()
+            ss[-1] = EOS
+            src_target[j, :L] = ss
+        batch["src_target"] = src_target
+    return batch

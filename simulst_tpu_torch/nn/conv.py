@@ -135,13 +135,15 @@ def subsampler_step(p, cache: SubsamplerCache, x
 # ---------------------------------------------------------------------------
 
 class ConvPos(nn.Module):
-    """Kernel (conv_pos+1)//2, grouped; weight norm per tap over
+    """Kernel (conv_pos+1)//2 (the causal conv-pos), or `kernel` taps (the
+    non-causal one's full conv_pos), grouped; weight norm per tap over
     (Cout, Cin/g), i.e. torch weight_norm dim=2 on (Cout, Cin/g, K)."""
 
     def __init__(self, embed_dim: int, conv_pos: int, groups: int, *,
+                 kernel: Optional[int] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        k = (conv_pos + 1) // 2
+        k = (conv_pos + 1) // 2 if kernel is None else kernel
         v = normal((embed_dim, embed_dim // groups, k),
                    math.sqrt(4.0 / (conv_pos * embed_dim)), generator)
         self.v = nn.Parameter(v)

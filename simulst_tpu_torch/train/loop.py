@@ -2,9 +2,13 @@
 iteration, the train step, validation, best-loss checkpoints with the
 validation loss in the file name, patience early stopping, jsonl logging.
 
-The JAX loop's tensorboard and wandb sinks and its profiler hook are not
-ported; the jsonl log (<save_dir>/train_log.jsonl, echoed to stdout) is
-the one sink.  The best checkpoints follow `best_metric` of the
+Every record goes to <save_dir>/train_log.jsonl and stdout, and to the
+sinks the config asks for: TensorBoard scalars under <save_dir>/tb
+(train/events.py writes the event files, so neither TensorFlow nor the
+tensorboard package is needed) and wandb, which prints "wandb
+unavailable; skipping sink" where the package is missing, as in the JAX
+loop.  `profile_dir` writes a torch.profiler trace (Chrome JSON) of one
+update after `PROFILE_WARMUP` warm-up updates.  The best checkpoints follow `best_metric` of the
 validation metrics (loss, or the inline decode's BLEU or WER), kept by
 maximum where `maximize_metric`; a validation without that metric saves
 nothing and counts no patience, as in the JAX loop.
@@ -22,6 +26,7 @@ import torch
 from torch import nn
 
 from simulst_tpu_torch.nn.core import resolve_device
+from simulst_tpu_torch.train.events import EventWriter
 from simulst_tpu_torch.train.checkpoint import (find_best_checkpoints,
                                                 load_checkpoint,
                                                 save_checkpoint)
@@ -43,6 +48,14 @@ class LoopConfig:
     patience: int = 0
     save_dir: str = "checkpoints"
     seed: int = 1
+    tensorboard: bool = False
+    wandb_project: Optional[str] = None
+    profile_dir: Optional[str] = None
+
+
+# updates before the profiled one: the first builds the kernels and fills
+# the allocator's cache
+PROFILE_WARMUP = 2
 
 
 # criterion metrics summed per sentence (normalised by nsentences); every
@@ -74,6 +87,47 @@ def summarize_metrics(metrics: Dict) -> Dict[str, float]:
     return out
 
 
+def make_sinks(cfg: LoopConfig):
+    """The metric sinks behind the jsonl log: tensorboard and / or wandb."""
+    sinks = []
+    if cfg.tensorboard:
+        writer = EventWriter(os.path.join(cfg.save_dir, "tb"))
+
+        def tb_sink(record):
+            step = int(record.get("update", record.get("valid_update", 0)))
+            writer.add_scalars({k: v for k, v in record.items()
+                                if isinstance(v, (int, float))
+                                and k not in ("update", "valid_update",
+                                              "epoch")}, step)
+        sinks.append(tb_sink)
+    if cfg.wandb_project:
+        try:
+            import wandb
+            wandb.init(project=cfg.wandb_project, dir=cfg.save_dir,
+                       resume="allow")
+            sinks.append(lambda record: wandb.log(record))
+        except ImportError:
+            print("wandb unavailable; skipping sink")
+    return sinks
+
+
+def profile_update(step_fn, device, out_dir: str):
+    """Run step_fn() under torch.profiler (CUDA activity on the card) and
+    write out_dir/trace.json.  Returns (step_fn's result, the path)."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        out = step_fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return out, path
+
+
 class Trainer:
     def __init__(self, loss_fn: Callable, optim_cfg: OptimConfig,
                  loop_cfg: LoopConfig, model: nn.Module,
@@ -101,6 +155,7 @@ class Trainer:
         self.bad_epochs = 0
         os.makedirs(loop_cfg.save_dir, exist_ok=True)
         self.log_path = os.path.join(loop_cfg.save_dir, "train_log.jsonl")
+        self.sinks = make_sinks(loop_cfg)
 
     def log(self, record: Dict):
         record = {k: (float(v) if isinstance(v, torch.Tensor) else v)
@@ -108,6 +163,8 @@ class Trainer:
         with open(self.log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         print(json.dumps(record), flush=True)
+        for sink in self.sinks:
+            sink(record)
 
     def _maybe_save_best(self, metrics: Dict[str, float],
                          count_patience: bool = False):
@@ -146,7 +203,16 @@ class Trainer:
         generator = torch.Generator().manual_seed(cfg.seed)
         t0 = time.time()
         updates = self.state.step             # nonzero after resume()
+        profile_at = updates + PROFILE_WARMUP if cfg.profile_dir else -1
         accum, n_accum = None, 0
+
+        def run_update(fn, *args):
+            if updates != profile_at:
+                return fn(*args)
+            out, path = profile_update(lambda: fn(*args), self.device,
+                                       cfg.profile_dir)
+            self.log({"profile_trace": path, "update": updates + 1})
+            return out
         for epoch in range(cfg.max_epochs):
             for batch in batch_iter_fn(epoch):
                 for key in ("ids", "n_real", "indices"):
@@ -158,11 +224,12 @@ class Trainer:
                     n_accum += 1
                     if n_accum < self.update_freq:
                         continue
-                    self.state, metrics = self.apply_step(self.state, accum)
+                    self.state, metrics = run_update(self.apply_step,
+                                                     self.state, accum)
                     accum, n_accum = None, 0
                 else:
-                    self.state, metrics = self.train_step(self.state, batch,
-                                                          generator)
+                    self.state, metrics = run_update(
+                        self.train_step, self.state, batch, generator)
                 updates += 1
                 if updates % cfg.log_interval == 0:
                     m = {k: float(v) for k, v in metrics.items()}

@@ -21,6 +21,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 import jax.numpy as jnp  # noqa: E402
 
 from simulst_tpu.data import dataset as jds  # noqa: E402
@@ -554,12 +555,16 @@ def test_cli_parses_and_validates_eval_metric():
     # package packs; elsewhere it raises, as the JAX package asserts
     (["--task", "st", "--model", "mma", "--loss", "mma", "--pack"],
      (ValueError, "--pack trains --model s2t_emformer --loss joint_ctc")),
-    (ASR_ARGS + ["--mtl"], UNPORTED),
+    # --mtl is ported: it parses (and trains the CTC on the transcripts)
+    (["--task", "st"] + ASR_ARGS[2:] + ["--mtl"], None),
     (["--task", "asr", "--model", "s2t_emformer", "--loss", "mma"], UNPORTED),
     (["--task", "asr", "--model", "mma", "--loss", "joint_ctc"], UNPORTED),
     (["--task", "mt", "--model", "s2t_emformer", "--loss", "joint_ctc"],
      UNPORTED),
 ], ids=["pack", "mtl", "mma-loss", "mma-model", "mt-task"])
 def test_cli_rejects_unported_options(argv, error):
+    if error is None:
+        assert tcli.parse_args(argv).mtl
+        return
     with pytest.raises(error[0], match=error[1]):
         tcli.parse_args(argv)

@@ -23,6 +23,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 
 from simulst_tpu.cli import latency_bleu as jlb  # noqa: E402
 from simulst_tpu.cli import stream_eval as jstream_cli  # noqa: E402

@@ -24,6 +24,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 import jax.numpy as jnp  # noqa: E402
 
 from simulst_tpu import config as jcfglib  # noqa: E402
@@ -162,8 +163,10 @@ def test_distillation_manifest_matches_jax(tmp_path):
 
 
 def test_main_rejects_an_unported_model(manifest, tmp_path):
+    """Every model of the JAX registry is ported: a name outside it (the
+    JAX module's file name, not its registry name) is refused."""
     ckpt = tmp_path / "checkpoint_last"
     save_checkpoint(str(ckpt), {}, {"model": "s2t_convpos", "config": {}})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="unknown model 's2t_convpos'"):
         tgen.main(["--data", str(manifest), "--checkpoint", str(ckpt),
                    "--device", "cpu"])

@@ -20,6 +20,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 import jax.numpy as jnp  # noqa: E402
 
 from simulst_tpu.models import mma as jmma  # noqa: E402

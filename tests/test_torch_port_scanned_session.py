@@ -18,6 +18,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 
 from simulst_tpu.stream import evaluator as jeval  # noqa: E402
 from simulst_tpu_torch.stream import agents as tagents  # noqa: E402

@@ -25,6 +25,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # xdist runs several workers: one intra-op thread each
 
 from simulst_tpu.decode import scoring as jscoring  # noqa: E402
 from simulst_tpu.ops import fbank as jfbank  # noqa: E402
