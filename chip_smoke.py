@@ -10,7 +10,10 @@ utterance at a time and batched), the offline decoding of the MMA and CIF studen
 the Transformer-Transducer (exp/6_transducer.sh: training, offline decode
 and streaming), and the path from a MuST-C folder to a score (data
 preparation, the remaining train options, s2t_transformer_convpos, the
-fairseq loader, interactive and visualize).
+fairseq loader, interactive and visualize), and bf16 compute with
+per-layer remat and the remaining model options (post-LN, silu and tanh
+FFNs, the VGG frontend; segmented_attention=False computes the segmented
+attention, which the CPU tests hold against JAX's dense one).
 
 Drives the PyTorch + CUDA port's main paths once at full width with random
 weights from a seeded generator: serving at s2t_emformer_s width (conv
@@ -237,7 +240,27 @@ targets):
               cli/visualize on a CIF checkpoint (`python3
               tools/data_smoke.py`: this phase with phases 3 and 7's
               batches only)
- 20. report   a JSON line of per-kernel numbers with their bounds, the
+ 20. bf16     bf16 compute and the model options: fused_ffn and
+              fused_ln_ffn_res with silu and tanh (and gelu beside
+              them), forward and backward, fp32 and bf16, vs plain
+              at 12,288 and 40 rows with CUDA-event times; rows 1-6 in
+              bf16 at asr-train's shapes (times, plain, bounds, SDPA or
+              the products' torch.matmul); asr-train with --override
+              compute_dtype=bfloat16 through cli/train's config path for
+              8 steps (launches per step as phase 8's, median, 3 profiled
+              steps, peak memory beside phase 8's fp32 numbers), one step
+              at dropout 0 kernels vs plain, and the same step with
+              --override remat=true vs without under PyTorch's
+              deterministic algorithms (both peaks); s2t_emformer_s in
+              bf16 served: the offline batch at beam 5 (its tokens beside
+              phase 3's fp32 tokens) and the streaming chunk at B = 1,
+              streaming vs offline; one bf16 and one fp32 step each of
+              MMA, CIF and the transducer (device ms, peak memory); a
+              4-layer post-LN and silu Emformer, a post-LN decoder
+              and the VGG frontend, forward and backward, kernels vs plain
+              (`python3 tools/bf16_smoke.py`: this phase with phases 3, 7
+              and 8 only)
+ 21. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -293,10 +316,21 @@ or when any phase fails.  Tolerances:
                          phase 16's; its streaming tokens, fused vs
                          step-wise: equal; B 8 vs B = 1: equal but for
                          argmax ties (top-two gap under 1e-4, replayed)
+  bf16 train step (asr-train, dropout 0), kernels vs plain: the loss
+                         finite, every gradient within 5e-2 of its
+                         largest entry (BF16_STEP_TOL)
+  bf16 remat vs no remat: bit for bit under deterministic algorithms,
+                         else within BF16_STEP_TOL
+  bf16 streaming vs the bf16 offline encoder output: atol 0.1
+                         (BF16_STREAM_ATOL)
+  model options (post-LN, silu, post-LN decoder), fp32: outputs
+                         atol 1e-4, gradients within 1e-4 of their largest
+                         entry; VGG on the card vs the CPU atol 1e-4
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
-run's visible pairs, for attention) over the 67 TFLOP/s fp32 CUDA-core
-peak of an H100 SXM at 700 W.
+run's visible pairs, for attention) over the peak of an H100 SXM at 700 W
+for its inputs' type: 67 TFLOP/s on fp32 (CUDA cores), 989 TFLOP/s on
+bf16 (dense tensor cores).
 """
 from __future__ import annotations
 
@@ -353,6 +387,7 @@ F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=3e-2, rtol=1e-2)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM
 FP32_FLOP_PER_S = 67e12        # H100 SXM, CUDA cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM, dense tensor cores
 
 # name -> (module, source, the TPU kernel it replaces (the function that
 # reaches pl.pallas_call), the slice whose main path reports it)
@@ -498,6 +533,8 @@ KERNEL_FAMILIES = (
     ("cif_integrate_kernel", "cif_integrate"),
     ("ffn_partial_kernel<float, true", "fused_ln_ffn_res"),
     ("ffn_epilogue_kernel<float, true", "fused_ln_ffn_res"),
+    ("ffn_partial_kernel<__nv_bfloat16, true", "fused_ln_ffn_res"),
+    ("ffn_epilogue_kernel<__nv_bfloat16, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
     ("linear_res_rows_kernel", "fused_linear_res"),
     *((k, "linear_res backward products, the backwards' sums")
@@ -571,10 +608,15 @@ def host_ms(fn, calls=200):
     return elapsed / calls * 1e3
 
 
-def bound(nbytes, flops):
-    """(least ms, what bounds it) for moving nbytes and doing fp32 flops."""
+def bound(nbytes, flops, dtype=None):
+    """(least ms, what bounds it) for moving nbytes and doing flops on
+    inputs of `dtype`: at the bf16 / fp16 peak for 16-bit inputs, else at
+    the fp32 one."""
+    peak = BF16_FLOP_PER_S if str(dtype) in ("torch.bfloat16",
+                                             "torch.float16") \
+        else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -866,8 +908,10 @@ def phase_kernels(dev):
             args32 = make()
             for dtype, tol in ((torch.float32, F32_TOL),
                                (torch.bfloat16, BF16_TOL)):
-                args = [a.to(dtype) if a.is_floating_point() else a
-                        for a in args32]
+                # the LN parameters stay fp32
+                keep = (1, 2) if name == "fused_ln_ffn_res" else ()
+                args = [a.to(dtype) if a.is_floating_point() and j not in keep
+                        else a for j, a in enumerate(args32)]
                 out = kernel(*args)
                 torch.cuda.synchronize()
                 err = max_err(f"{name} {label} {dtype}", out, plain(*args),
@@ -1225,11 +1269,12 @@ def kernel_family(name, families=KERNEL_FAMILIES):
 
 
 def profile_steps(state, train_step, batch, generator, tag,
-                  families=KERNEL_FAMILIES):
+                  families=KERNEL_FAMILIES, out=None):
     """PROFILE_STEPS training steps under torch.profiler: the device busy
     share of the profiled wall (which the profiler stretches), the device
     time by kernel family (`families`: name fragment -> family, the first
-    match) and the top kernels, per step."""
+    match) and the top kernels, per step; the device ms per step and the
+    busy share also into the dict `out` when given."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1254,6 +1299,10 @@ def profile_steps(state, train_step, batch, generator, tag,
         fam[1] += e.count / PROFILE_STEPS
     def family_ms(families):
         return sum(by_family[fam][0] for fam in families if fam in by_family)
+
+    if out is not None:
+        out.update(device_ms_per_step=device_ms / PROFILE_STEPS,
+                   busy_share=device_ms / wall_ms)
 
     log(f"{tag}-profile", steps=PROFILE_STEPS,
         profiled_wall_ms_per_step=wall_ms / PROFILE_STEPS,
@@ -1683,7 +1732,7 @@ def phase_asr_kernels(dev, batch):
     # bf16: the LN-FFN and the attention take it (the ASR path runs fp32)
     bf = torch.bfloat16
     xb, dyb = x.to(bf), dy.to(bf)
-    lnb = [w.to(bf) for w in lnw]
+    lnb = list(lnw[:2]) + [w.to(bf) for w in lnw[2:]]   # LN params fp32
     cfg = ("gelu", 0.1, 0.1, 17)
     errs = {"fused_ln_ffn_res_backward": max(
         [max_err("fused_ln_ffn_res bf16", ffn.fused_ln_ffn_res_forward(
@@ -1765,7 +1814,8 @@ def phase_asr_train(dev, batch, save_path):
     through the CLI's model and loss and the train step, counting
     launches; 3 profiled steps, after which the trained parameters are
     saved to save_path (the MMA phase's encoder); then kernels vs plain on
-    one step."""
+    one step.  Returns (launches, median step ms, {median_step_ms,
+    peak_memory_gib, device_ms_per_step, busy_share})."""
     import torch
     from simulst_tpu_torch.cli import train as cli
     from simulst_tpu_torch.train.checkpoint import save_checkpoint
@@ -1814,13 +1864,16 @@ def phase_asr_train(dev, batch, save_path):
         losses=losses, launches_per_step=per_step, peak_memory_gib=peak_gib,
         ctc_loss=float(metrics["ctc_loss"]) / float(metrics["sample_size"]))
 
-    state = profile_steps(state, train_step, batch, generator, "phase8")
+    summary = dict(median_step_ms=statistics.median(step_ms[1:]),
+                   peak_memory_gib=peak_gib)
+    state = profile_steps(state, train_step, batch, generator, "phase8",
+                          out=summary)
     save_checkpoint(save_path, state.model.state_dict(),
                     {"model": "s2t_emformer", "step": state.step})
     del state
     compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase8",
                        make_accum_train_step)
-    return launches, statistics.median(step_ms[1:])
+    return launches, statistics.median(step_ms[1:]), summary
 
 
 def packed_attention_inputs(ea, plan, dev, g):
@@ -4357,6 +4410,701 @@ def phase_data(dev, workdir, asr, speech, report):
             for k in train_launches}
 
 
+# ---------------------------------------------------------------------------
+# 20. bf16 compute (compute_dtype), remat and the model options
+# ---------------------------------------------------------------------------
+
+BF16_OVERRIDE = ["--override", "compute_dtype=bfloat16"]
+# a bf16 train step, kernels vs plain: every gradient within this share of
+# its largest entry (bf16 rounds at 2^-8; the two sides round the same
+# intermediates, but sums in another order flip some of those roundings,
+# and a flip moves everything downstream by about 2^-8 of it)
+BF16_STEP_TOL = 5e-2
+# bf16 streaming vs the bf16 offline encoder output (final-LN'd, O(1)
+# entries; about 8 bf16 ulps at 2)
+BF16_STREAM_ATOL = 0.1
+# the FFN activations timed against gelu, at asr-train's LN-FFN rows and
+# the decoder step's (beam 5 x 8 utterances)
+ACTIVATION_ROWS = (12288, 40)
+VARIANT_LAYERS = 4          # the variants' Emformer depth (full width)
+
+
+def phase_activations(dev):
+    """silu and tanh (and gelu, their yardstick) in both FFN kernels,
+    forward and backward, fp32 and bf16, against their plain versions at
+    ACTIVATION_ROWS rows, rate 0.1, the LN parameters fp32; CUDA-event
+    times of each kernel with each activation at each row count and dtype,
+    beside their bound.  relu, unchanged here, is held to the parent's bits
+    by tools/kernel_bitcheck.py (against its plain version over thousands
+    of rows some u lies within a rounding of 0, where relu's derivative
+    flips).  Returns {kernel: {case: entry}} for the report."""
+    import torch
+    from simulst_tpu_torch.ops import ffn
+    g = torch.Generator().manual_seed(SEED + 31)
+    d, hid = 256, 2048
+    xav = (6.0 / (d + hid)) ** 0.5
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    w32 = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, hid, scale=xav), randn(hid, scale=0.02),
+           randn(hid, d, scale=xav), randn(d, scale=0.02))
+    out = defaultdict(dict)
+    for rows in ACTIVATION_ROWS:
+        x32, dy32 = randn(rows, d), randn(rows, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf = dtype == torch.bfloat16
+            tol, wtol = (BF16_TOL, 1e-2) if bf else (F32_TOL, 1e-4)
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            g_, b_ = w32[:2]            # LN parameters stay fp32
+            w1, b1, w2, b2 = (w.to(dtype) for w in w32[2:])
+            tag = f"{rows} rows {'bf16' if bf else 'fp32'}"
+            for act in ("gelu", "silu", "tanh"):
+                cfg = (act, 0.1, 0.1, 29)
+                cases = {
+                    "fused_ln_ffn_res": (
+                        lambda: ffn.fused_ln_ffn_res_forward(
+                            x, g_, b_, w1, b1, w2, b2, *cfg),
+                        lambda: ffn.ln_ffn_res_plain(
+                            x, g_, b_, w1, b1, w2, b2, *cfg),
+                        nbytes(x, x, g_, b_, w1, b1, w2, b2), 2),
+                    "fused_ln_ffn_res_backward": (
+                        lambda: ffn.fused_ln_ffn_res_backward(
+                            x, g_, b_, w1, b1, w2, dy, *cfg),
+                        lambda: ffn.ln_ffn_res_plain_backward(
+                            x, g_, b_, w1, b1, w2, dy, *cfg),
+                        nbytes(x, dy, x, g_, b_, w1, b1, w2) +
+                        4 * (2 * d * hid + hid + 3 * d), 5),
+                    "fused_ffn": (
+                        lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2,
+                                                      *cfg),
+                        lambda: ffn.ffn_plain(x, w1, b1, w2, b2, *cfg),
+                        nbytes(x, x, w1, b1, w2, b2), 2),
+                    "fused_ffn_backward": (
+                        lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy,
+                                                       *cfg),
+                        lambda: ffn.ffn_plain_backward(x, w1, b1, w2, dy,
+                                                       *cfg),
+                        nbytes(x, dy, x, w1, b1, w2) +
+                        4 * (2 * d * hid + hid + d), 5)}
+                for name, (kern, plain, moved, products) in cases.items():
+                    got, want = kern(), plain()
+                    torch.cuda.synchronize()
+                    if isinstance(got, torch.Tensor):
+                        err = max_err(f"{name} {act} {tag}", got, want,
+                                      **tol)
+                    else:
+                        err = max([max_err(f"{name} {act} {tag} dx", got[0],
+                                           want[0], **tol)] +
+                                  [max_err_to_largest(
+                                      f"{name} {act} {tag} grad {i}", a, b,
+                                      wtol)
+                                   for i, (a, b) in enumerate(
+                                       zip(got[1:], want[1:]))])
+                    fl = products * 2 * rows * d * hid
+                    out[name][f"{act} {tag}"] = dict(
+                        max_abs_err=err, ms=cuda_ms(kern, samples=5, runs=5),
+                        **dict(zip(("bound_ms", "bound_by"),
+                                   bound(moved, fl, dtype))))
+                    if act in ("silu", "tanh") and rows == ACTIVATION_ROWS[0]:
+                        out[name][f"{act} {tag}"]["plain_ms"] = cuda_ms(
+                            plain, samples=3, runs=3)
+    for name, cases in out.items():
+        for case, entry in cases.items():
+            act, _, rest = case.partition(" ")
+            gelu = cases[f"gelu {rest}"]["ms"]
+            entry["vs_gelu"] = entry["ms"] / gelu
+        log("phase20", kernel=name, activations=cases)
+    return out
+
+
+def phase_bf16_kernels(dev, batch):
+    """Rows 1-6 in bf16 at asr-train's shapes (phase 7's, the inputs cast
+    to bf16), rate 0.1: each kernel against its plain version (BF16_TOL;
+    weight gradients 1e-2 of the largest entry), its CUDA-event time, the
+    plain version's, the bound of its bf16 bytes and fp32 operations and
+    the library call or the products' torch.matmul yardstick in bf16.
+    Rows 7 and 8 (the CTC DP) take fp32 emissions in a bf16 model, as in
+    the JAX package: phase 7's times are theirs.  Returns {kernel:
+    entry}."""
+    import torch
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import conv_pos, linear_res, mha
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    from simulst_tpu_torch.ops import ffn
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 37)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev).to(bf)
+
+    b, d, hid, heads = ASR_UTT, 256, 2048, 4
+    lengths = subsampled(batch["feat_lengths"]).to(torch.int32)
+    xav = (6.0 / (d + hid)) ** 0.5
+    out = {}
+
+    def entry(name, shape, kern, plain, moved, flops, library=None,
+              err=0.0, library_ms=None, **extra):
+        out[name] = dict(
+            shape=shape, max_abs_err=err, ms=cuda_ms(kern, samples=5,
+                                                     runs=5),
+            plain_ms=cuda_ms(plain, samples=3, runs=3),
+            library_ms=library_ms if library is None else cuda_ms(
+                library, samples=5, runs=5),
+            **dict(zip(("bound_ms", "bound_by"), bound(moved, flops, bf))),
+            **extra)
+        log("phase20", kernel=name, bf16=out[name])
+
+    def grads_err(name, got, want):
+        return max([max_err(f"{name} bf16 d0", got[0], want[0], **BF16_TOL)]
+                   + [max_err_to_largest(f"{name} bf16 grad {i}", a, c, 1e-2)
+                      for i, (a, c) in enumerate(zip(got[1:], want[1:]))])
+
+    def yardstick(x, w1, w2, dy=None):
+        a, c = (torch.randn(x.shape[0], w1.shape[1], device=dev,
+                            dtype=bf) for _ in range(2))
+        if dy is None:
+            return lambda: (x @ w1, a @ w2)
+        return lambda: (x @ w1, dy @ w2.T, a @ w1.T, x.T @ a, c.T @ dy)
+
+    # rows 1 / 1b: every Emformer layer's 12,288 LN-FFN rows
+    n = b * (8 * 16 + 256)
+    x, dy = randn(n, d), randn(n, d)
+    lnw = ((1 + randn(d, scale=0.1)).float(), randn(d, scale=0.1).float(),
+           randn(d, hid, scale=xav), randn(hid, scale=0.02),
+           randn(hid, d, scale=xav), randn(d, scale=0.02))   # LN params fp32
+    cfg = ("gelu", 0.1, 0.1, 17)
+    y = ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg)
+    flops = 2 * n * d * hid
+    entry("fused_ln_ffn_res", f"x=({n},{d}) bf16 gelu rate 0.1",
+          lambda: ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg),
+          lambda: ffn.ln_ffn_res_plain(x, *lnw, *cfg), nbytes(x, y, *lnw),
+          2 * flops, err=max_err("fused_ln_ffn_res bf16", y,
+                                 ffn.ln_ffn_res_plain(x, *lnw, *cfg),
+                                 **BF16_TOL),
+          products_matmul_ms=cuda_ms(yardstick(x, lnw[2], lnw[4]),
+                                     samples=5, runs=5))
+    got = ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy, *cfg)
+    entry("fused_ln_ffn_res_backward", f"x=({n},{d}) bf16 gelu rate 0.1",
+          lambda: ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy, *cfg),
+          lambda: ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy, *cfg),
+          nbytes(x, dy, *lnw[:5], *got), 5 * flops,
+          err=grads_err("fused_ln_ffn_res_backward", got,
+                        ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy,
+                                                      *cfg)),
+          products_matmul_ms=cuda_ms(yardstick(x, lnw[2], lnw[4], dy),
+                                     samples=5, runs=5))
+
+    # rows 2 / 2b: the decoder FFN at 32 x 72 rows
+    n = b * batch["prev_tokens"].shape[1]
+    x, dy = randn(n, d), randn(n, d)
+    w = lnw[2:]
+    y = ffn.fused_ffn_forward(x, *w, *cfg)
+    flops = 2 * n * d * hid
+    entry("fused_ffn", f"x=({n},{d}) bf16 gelu rate 0.1",
+          lambda: ffn.fused_ffn_forward(x, *w, *cfg),
+          lambda: ffn.ffn_plain(x, *w, *cfg), nbytes(x, y, *w), 2 * flops,
+          err=max_err("fused_ffn bf16", y, ffn.ffn_plain(x, *w, *cfg),
+                      **BF16_TOL),
+          products_matmul_ms=cuda_ms(yardstick(x, w[0], w[2]), samples=5,
+                                     runs=5))
+    got = ffn.fused_ffn_backward(x, *w[:3], dy, *cfg)
+    entry("fused_ffn_backward", f"x=({n},{d}) bf16 gelu rate 0.1",
+          lambda: ffn.fused_ffn_backward(x, *w[:3], dy, *cfg),
+          lambda: ffn.ffn_plain_backward(x, *w[:3], dy, *cfg),
+          nbytes(x, dy, *w[:3], *got), 5 * flops,
+          err=grads_err("fused_ffn_backward", got,
+                        ffn.ffn_plain_backward(x, *w[:3], dy, *cfg)),
+          products_matmul_ms=cuda_ms(yardstick(x, w[0], w[2], dy),
+                                     samples=5, runs=5))
+
+    # rows 3 / 3b: the grouped attention, (32, 2, 200, 256)
+    geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=heads)
+    q3, dout = randn(b, geom.ng, geom.nq, d), randn(b, geom.ng, geom.nq, d)
+    k, v = randn(b, geom.tk, d), randn(b, geom.tk, d)
+    args = (q3, k, v, lengths)
+    o = ea.emformer_grouped_attention_forward(*args, geom, 0.1, 23)
+    vis = grouped_visible_pairs(ea, geom, *args)
+    sd, mask = sdpa_on_context(ea, geom, *args)
+    sd = [t.requires_grad_() for t in sd]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=0.1)
+    sd_dout = torch.randn_like(sd_out)
+    shape = f"q3=({b},{geom.ng},{geom.nq},{d}) bf16 rate 0.1"
+    entry("emformer_grouped_attention", shape,
+          lambda: ea.emformer_grouped_attention_forward(*args, geom, 0.1, 23),
+          lambda: ea.grouped_attention_plain(*args, geom, 0.1, 23),
+          nbytes(*args, o), 4 * d * vis,
+          library=lambda: F.scaled_dot_product_attention(
+              *sd, attn_mask=mask, dropout_p=0.1),
+          err=max_err("emformer_grouped_attention bf16", o,
+                      ea.grouped_attention_plain(*args, geom, 0.1, 23),
+                      **BF16_TOL))
+    got = ea.emformer_grouped_attention_backward(*args, dout, geom, 0.1, 23)
+    want = ea.grouped_attention_plain_backward(*args, dout, geom, 0.1, 23)
+    entry("emformer_grouped_attention_backward", shape,
+          lambda: ea.emformer_grouped_attention_backward(*args, dout, geom,
+                                                         0.1, 23),
+          lambda: ea.grouped_attention_plain_backward(*args, dout, geom,
+                                                      0.1, 23),
+          nbytes(*args, dout, *got), 10 * d * vis,
+          library=lambda: torch.autograd.grad(sd_out, sd, sd_dout,
+                                              retain_graph=True),
+          err=max(max_err(f"grouped attention backward bf16 d{c}", a, w_,
+                          **BF16_TOL) for c, a, w_ in zip("qkv", got, want)))
+    del sd, sd_out
+
+    # rows 4 / 4b: the Emformer out-projection, 12,800 rows, gate 200 / 192
+    w_, bias = randn(d, d, scale=d ** -0.5), randn(d, scale=0.02)
+    h, res, dyl = randn(12800, d), randn(12800, d), randn(12800, d)
+    lcfg = (200, 192, 0.1, 7)
+    y = linear_res.fused_linear_res_forward(h, w_, bias, res, *lcfg)
+    entry("fused_linear_res", "h=(12800,256) bf16 period 200 gate 192",
+          lambda: linear_res.fused_linear_res_forward(h, w_, bias, res,
+                                                      *lcfg),
+          lambda: linear_res.linear_res_plain(h, w_, bias, res, *lcfg),
+          nbytes(h, w_, bias, res, y), 2 * 12800 * d * d,
+          err=max_err("fused_linear_res bf16", y, linear_res.linear_res_plain(
+              h, w_, bias, res, *lcfg), **BF16_TOL),
+          products_matmul_ms=cuda_ms(lambda: h @ w_, samples=5, runs=5))
+    got = linear_res.fused_linear_res_backward(h, w_, dyl, *lcfg)
+    entry("fused_linear_res_backward",
+          "h=(12800,256) bf16 period 200 gate 192",
+          lambda: linear_res.fused_linear_res_backward(h, w_, dyl, *lcfg),
+          lambda: linear_res.linear_res_plain_backward(h, w_, dyl, *lcfg),
+          nbytes(h, w_, dyl, *got), 4 * 12800 * d * d,
+          err=grads_err("fused_linear_res_backward", got,
+                        linear_res.linear_res_plain_backward(h, w_, dyl,
+                                                             *lcfg)),
+          products_matmul_ms=cuda_ms(lambda: (dyl @ w_.T, h.T @ dyl),
+                                     samples=5, runs=5))
+
+    # rows 5 / 5b: the decoder's causal self-attention, (32, 72, 72)
+    t_len = batch["prev_tokens"].shape[1]
+    kmask = (batch["prev_tokens"] != 1).to(torch.int32)
+    q, km, vm, do = (randn(b, t_len, d) for _ in range(4))
+    mcfg = (heads, True, 0.1, 4321)
+    o, lse = mha.fused_mha_forward(q, km, vm, kmask, *mcfg)
+    heads_view = [t.view(b, t_len, heads, d // heads).transpose(1, 2)
+                  for t in (q, km, vm)]
+    smask = sdpa_mask(q, km, kmask, True)
+    pairs = mha_visible_pairs(kmask, t_len, True)
+    shape = f"({b},{t_len},{t_len}) causal bf16 rate 0.1"
+    entry("fused_mha", shape,
+          lambda: mha.fused_mha_forward(q, km, vm, kmask, *mcfg),
+          lambda: mha.mha_plain(q, km, vm, kmask, *mcfg),
+          nbytes(q, km, vm, kmask, o, lse), 4 * d * pairs,
+          library=lambda: F.scaled_dot_product_attention(
+              *heads_view, attn_mask=smask, dropout_p=0.1),
+          err=max_err("fused_mha bf16", o, mha.mha_plain(q, km, vm, kmask,
+                                                         *mcfg), **BF16_TOL))
+    got = mha.fused_mha_backward(q, km, vm, kmask, o, lse, do, *mcfg)
+    entry("fused_mha_backward", shape,
+          lambda: mha.fused_mha_backward(q, km, vm, kmask, o, lse, do,
+                                         *mcfg),
+          lambda: mha.mha_plain_backward(q, km, vm, kmask, do, *mcfg),
+          nbytes(q, km, vm, kmask, o, lse, do, *got), 10 * d * pairs,
+          err=max(max_err(f"fused_mha_backward bf16 d{c}", a, w2, **BF16_TOL)
+                  for c, a, w2 in zip("qkv", got, mha.mha_plain_backward(
+                      q, km, vm, kmask, do, *mcfg))),
+          library_ms=sdpa_backward_ms(q, km, vm, kmask, do, heads, True,
+                                      0.1))
+
+    # row 6: the conv-pos weight gradient, xp (32, 319, 256)
+    taps, groups, t_out = 64, 16, 256
+    xp, dyc = randn(b, t_out + taps - 1, d), randn(b, t_out, d)
+    got = conv_pos.convpos_wgrad(xp, dyc, taps, groups)
+    xt, dyt = xp.transpose(1, 2).contiguous(), dyc.transpose(1, 2).contiguous()
+    entry("convpos_wgrad", f"xp=({b},{t_out + taps - 1},{d}) bf16",
+          lambda: conv_pos.convpos_wgrad(xp, dyc, taps, groups),
+          lambda: conv_pos.convpos_wgrad_plain(xp, dyc, taps, groups),
+          nbytes(xp, dyc, got), 2 * b * t_out * taps * d * (d // groups),
+          library=lambda: torch.nn.grad.conv1d_weight(
+              xt, (d, d // groups, taps), dyt, groups=groups),
+          err=max_err_to_largest("convpos_wgrad bf16", got,
+                                 conv_pos.convpos_wgrad_plain(
+                                     xp, dyc, taps, groups), 1e-2))
+    return out
+
+
+def one_step_profile(train_step, state, batch, generator):
+    """(state, device ms, wall ms, peak GiB) of one train step after a
+    warm-up step: the device time summed over the kernels torch.profiler
+    records, the peak memory from a reset before the measured step."""
+    import torch
+    state, _ = train_step(state, batch, generator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel_family(e.key) != POSTERIOR_FAMILY) / 1e3
+    if not device or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"no device time ({device}) or a non-finite "
+                             f"loss {float(metrics['loss'])}")
+    return state, device, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def hold_grads(tag, got, want, tol):
+    """max over parameters of |got - want| / the largest |want| entry (a
+    key bias against its weight's, as grad_scale); raise beyond tol."""
+    rel = {n: (got[n] - want[n]).abs().max().item() / grad_scale(want, n)
+           for n in want}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= tol:
+        raise AssertionError(f"{tag}: gradient of {worst} off by "
+                             f"{rel[worst]:.3e} of its largest entry, "
+                             f"beyond {tol}")
+    return rel[worst], worst
+
+
+def phase_bf16_train(dev, batch, fp32):
+    """asr-train in bf16: phase 8's batch and exp/1a's options with
+    --override compute_dtype=bfloat16 through the CLI's config path, 8
+    steps (launches per step as phase 8's), 3 profiled steps, beside phase
+    8's fp32 numbers `fp32`; one step at dropout 0 with the kernels and with
+    the plain versions from the initial parameters (loss finite, every
+    gradient within BF16_STEP_TOL of its largest entry); then the same
+    step with --override remat=true against it without remat under
+    PyTorch's deterministic algorithms, at dropout 0.1 from one seed, both
+    peaks printed.  Returns the 8 steps' launches."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+
+    args = cli.parse_args(ASR_ARGS + BF16_OVERRIDE)
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    if model.cfg.compute_dtype != "bfloat16":
+        raise AssertionError(f"compute_dtype {model.cfg.compute_dtype}")
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    state = create_train_state(model, optim_cfg)
+    initial = copy.deepcopy(state)
+    generator = torch.Generator().manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(ASR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, generator)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]) / float(metrics["sample_size"]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    per_step = {k: launches[k] / ASR_STEPS for k in ASR_LAUNCHES_PER_STEP}
+    if per_step != ASR_LAUNCHES_PER_STEP:
+        raise AssertionError(f"bf16 launches per step {per_step}, expected "
+                             f"{ASR_LAUNCHES_PER_STEP}")
+    if not all(np.isfinite(losses)) or state.step != ASR_STEPS:
+        raise AssertionError(f"bf16 losses {losses}, updates {state.step}")
+    summary = {}
+    state = profile_steps(state, train_step, batch, generator, "phase20-asr",
+                          out=summary)
+    log("phase20", cell="asr-train bf16", steps=ASR_STEPS,
+        median_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms,
+        losses=losses, launches_per_step=per_step, peak_memory_gib=peak,
+        device_ms_per_step=summary["device_ms_per_step"],
+        busy_share=summary["busy_share"], fp32=fp32,
+        bf16_over_fp32={
+            "median_step_ms": statistics.median(step_ms[1:]) /
+            fp32["median_step_ms"],
+            "device_ms_per_step": summary["device_ms_per_step"] /
+            fp32["device_ms_per_step"],
+            "peak_memory_gib": peak / fp32["peak_memory_gib"]})
+    del state
+
+    # kernels vs plain, one step at dropout 0 from the initial parameters
+    grad_step, _ = make_accum_train_step(loss_fn, optim_cfg)
+    runs = {}
+    for use_plain in (False, True):
+        st = copy.deepcopy(initial)
+        with plain_training() if use_plain else contextlib.nullcontext():
+            m = grad_step(st, batch, None)
+        runs[use_plain] = (float(m["loss"]), grads_of(st.model))
+        del st
+    (loss_k, g_k), (loss_p, g_p) = runs[False], runs[True]
+    if not (np.isfinite(loss_k) and np.isfinite(loss_p)):
+        raise AssertionError(f"bf16 losses {loss_k} / {loss_p}")
+    err, worst = hold_grads("asr-train bf16 kernels vs plain", g_k, g_p,
+                            BF16_STEP_TOL)
+    log("phase20", cell="asr-train bf16 kernels vs plain",
+        loss=[loss_k, loss_p], loss_rel=abs(loss_k - loss_p) / abs(loss_p),
+        grads_max_err_to_largest=err, worst_param=worst,
+        tolerance=BF16_STEP_TOL)
+
+    # remat: the same step with --override remat=true
+    remat_args = cli.parse_args(ASR_ARGS + BF16_OVERRIDE +
+                                ["--override", "remat=true"])
+    remat_model = cli.build_model(remat_args, ASR_VOCAB, device=dev)
+    if not remat_model.cfg.emformer.remat:
+        raise AssertionError("--override remat=true did not reach the model")
+    remat_model.load_state_dict(initial.model.state_dict())
+    remat_state = create_train_state(remat_model, optim_cfg)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        outs, ran = {}, {}
+        for tag, st in (("no remat", copy.deepcopy(initial)),
+                        ("remat", remat_state)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = read_launches()
+            m = grad_step(st, batch, torch.Generator().manual_seed(SEED + 1))
+            torch.cuda.synchronize()
+            outs[tag] = (float(m["loss"]), grads_of(st.model),
+                         torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+            ran[tag] = {k: v - before[k] for k, v in read_launches().items()
+                        if v != before[k]}
+            del st
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (l0, g0, peak0), (l1, g1, peak1) = outs["no remat"], outs["remat"]
+    bitwise = l0 == l1 and all(torch.equal(g0[n], g1[n]) for n in g0)
+    err, worst = hold_grads("asr-train bf16 remat vs no remat", g1, g0,
+                            0.0 if bitwise else BF16_STEP_TOL)
+    log("phase20", cell="asr-train bf16 remat", dropout=0.1,
+        deterministic_algorithms=True, bit_for_bit=bitwise,
+        grads_max_err_to_largest=err, worst_param=worst, loss=[l0, l1],
+        peak_memory_gib={"no remat": peak0, "remat": peak1},
+        remat_over_no_remat=peak1 / peak0,
+        launches=ran)   # remat recomputes: the encoder's forwards twice
+    return launches
+
+
+def phase_bf16_serve(dev, speech, fp32_tokens):
+    """s2t_emformer_s in bf16 (phase 3's seed, so phase 3's weights):
+    the streaming session at B = 1 on the first utterance (encoder step +
+    a greedy decoder step per chunk, both in bf16) against the bf16
+    offline encoder output (BF16_STREAM_ATOL); the offline batch at beam
+    5, ms per batch, its tokens against phase 3's fp32 tokens."""
+    import torch
+    from simulst_tpu_torch.cli.generate import decode_batch
+    from simulst_tpu_torch.decode.beam import BeamConfig
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.nn import transformer as tfm
+
+    cfg = s2t.S2TEmformerConfig(compute_dtype="bfloat16")
+    model = s2t.S2TEmformerModel(
+        cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    model.eval()
+    feats, lengths = speech["feats"], speech["feat_lengths"]
+    beam_cfg = BeamConfig(beam_size=BEAM, max_len=MAX_LEN)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens, tok_lengths = decode_batch(model, speech, beam_cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    same = (tokens == fp32_tokens).float().mean().item()
+
+    ecfg = cfg.emformer
+    first = (ecfg.segment + ecfg.right_context) * cfg.stride
+    steady = ecfg.segment * cfg.stride
+    plan = [first] + [steady] * ((N_FRAMES - first) // steady)
+    plan.append(N_FRAMES - sum(plan))
+    stepper = s2t.make_encoder_stepper(model.encoder, cfg)
+    state = s2t.encoder_init_state(model.encoder, cfg, 1, device=dev)
+    dstate = tfm.decoder_init_state(cfg.decoder, 1, MAX_LEN, device=dev)
+    if state.carry.dtype != torch.bfloat16 or \
+            dstate.caches[0].k.dtype != torch.bfloat16:
+        raise AssertionError("the bf16 session's state is not bf16")
+    token = torch.full((1,), cfg.eos_idx, dtype=torch.int64, device=dev)
+    outs, chunk_ms, t = [], [], 0
+    for i, c in enumerate(plan):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, state = stepper(state, feats[:1, t:t + c],
+                             finish=i == len(plan) - 1)
+        outs.append(out.encoder_out)
+        enc = torch.cat(outs, dim=1)
+        valid = torch.ones(1, enc.shape[1], dtype=torch.bool, device=dev)
+        logits, dstate = tfm.decoder_step(model.decoder, cfg.decoder, dstate,
+                                          token, enc, valid)
+        token = logits.argmax(dim=-1)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        t += c
+    stream = torch.cat(outs, dim=1)
+    off = s2t.encoder_forward(model.encoder, cfg, feats[:1], lengths[:1])
+    if stream.dtype != torch.bfloat16 or logits.dtype != torch.bfloat16:
+        raise AssertionError(f"streaming dtypes {stream.dtype} / "
+                             f"{logits.dtype}")
+    err = max_err("bf16 streaming vs offline encoder output", stream,
+                  off.encoder_out, atol=BF16_STREAM_ATOL, rtol=0.0)
+    log("phase20", cell="serving bf16", beam=BEAM, ms_per_batch=times,
+        token_lengths=tok_lengths.tolist(),
+        tokens_equal_to_fp32_share=same,
+        tokens_equal_to_fp32_rows=[bool(r) for r in
+                                   (tokens == fp32_tokens).all(1).tolist()],
+        median_ms_per_chunk=statistics.median(chunk_ms),
+        streaming_vs_offline_max_abs_err=err, tolerance=BF16_STREAM_ATOL)
+
+
+def phase_bf16_students(dev, batch):
+    """One bf16 train step each of MMA (exp/2's options), CIF (exp/3's)
+    and the transducer (exp/6's, on TRANSDUCER_UTT utterances), built
+    through the CLI with --override compute_dtype=bfloat16, beside the
+    same model's fp32 step (its config switched back, the same weights):
+    device ms and peak memory of one step after a warm-up step."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_train_step)
+    for name, argv, rows in (("mma", MMA_ARGS, ASR_UTT),
+                             ("cif", CIF_ARGS, ASR_UTT),
+                             ("transducer", TRANSDUCER_ARGS,
+                              TRANSDUCER_UTT)):
+        args = cli.parse_args(argv + BF16_OVERRIDE)
+        model = cli.build_model(args, ASR_VOCAB, device=dev)
+        loss_fn = cli.build_loss(args, model)
+        optim_cfg = cli.optim_config(args)
+        sub = {k: v[:rows] for k, v in batch.items()}
+        cells = {}
+        for dtype in ("bfloat16", "float32"):
+            model.cfg = dataclasses.replace(model.cfg, compute_dtype=dtype)
+            state = create_train_state(model, optim_cfg)
+            _, device, wall, peak = one_step_profile(
+                make_train_step(loss_fn, optim_cfg), state, sub,
+                torch.Generator().manual_seed(SEED))
+            cells[dtype] = dict(device_ms=device, wall_ms=wall,
+                                peak_memory_gib=peak)
+            del state
+        log("phase20", cell=f"{name}-train", utterances=rows, **cells,
+            bf16_over_fp32={k: cells["bfloat16"][k] / cells["float32"][k]
+                            for k in cells["float32"]})
+        del model
+
+
+def phase_variants(dev, batch):
+    """The model options at full width, one forward and backward each with
+    the kernels against the plain versions (fp32, dropout 0; the output
+    atol 1e-4, every gradient within 1e-4 of its largest entry): a
+    VARIANT_LAYERS-layer Emformer post-LN and with silu, on asr-train's
+    32 x 256 frames; a 2-layer post-LN decoder on its targets over that encoder
+    output; the VGG frontend (F.conv2d, no kernel of the port) on the
+    card against the CPU on two utterances (atol 1e-4)."""
+    import torch
+    from simulst_tpu_torch.nn import conv as cnv
+    from simulst_tpu_torch.nn import emformer as emf
+    from simulst_tpu_torch.nn import transformer as tfm
+    g = torch.Generator().manual_seed(SEED + 41)
+    lengths = subsampled(batch["feat_lengths"])
+    u = int(lengths.max())
+    nodrop = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
+    x = (torch.randn(ASR_UTT, u + 8, 256, generator=g)).to(dev)
+    valid = (torch.arange(u, device=dev)[None] < lengths[:, None])[..., None]
+    wts = torch.randn(ASR_UTT, u, 256, generator=g).to(dev) * valid
+
+    def run_twice(model, fn):
+        outs = []
+        for use_plain in (False, True):
+            model.zero_grad()
+            with plain_training() if use_plain else contextlib.nullcontext():
+                with torch.enable_grad():
+                    y = fn()
+                    (y.float() * wts[:, :y.shape[1]]).sum().backward() \
+                        if y.dim() == 3 and y.shape[-1] == 256 else \
+                        y.float().sum().backward()
+            outs.append((y.detach(), {n: p.grad.clone() for n, p in
+                                      model.named_parameters()
+                                      if p.grad is not None}))
+        (y_k, g_k), (y_p, g_p) = outs
+        return max_err("variant output", y_k, y_p, **F32_TOL), g_k, g_p
+
+    results = {}
+    for name, over in (("post-LN", dict(normalize_before=False)),
+                       ("silu", dict(activation="silu"))):
+        cfg = emf.EmformerConfig(num_layers=VARIANT_LAYERS, **nodrop, **over)
+        model = emf.Emformer(cfg, generator=torch.Generator().manual_seed(
+            SEED)).to(dev)
+        before = read_launches()
+        err, g_k, g_p = run_twice(model, lambda: emf.emformer_forward(
+            model, cfg, x, lengths))
+        ran = {k: v - before[k] for k, v in read_launches().items()
+               if v != before[k]}
+        gerr, worst = hold_grads(f"{name} Emformer", g_k, g_p, 1e-4)
+        results[name] = dict(layers=VARIANT_LAYERS, output_max_abs_err=err,
+                             grads_max_err_to_largest=gerr, worst=worst,
+                             launches=ran)
+        if dev.type == "cuda" and not ran.get("fused_ln_ffn_res_backward"):
+            raise AssertionError(f"{name}: the LN-FFN kernels did not run")
+        del model
+    dcfg = tfm.DecoderConfig(vocab_size=ASR_VOCAB, num_layers=2,
+                             normalize_before=False, **nodrop)
+    dec = tfm.Decoder(dcfg, generator=torch.Generator().manual_seed(SEED),
+                      device=dev)
+    enc = torch.randn(ASR_UTT, u, 256, generator=g).to(dev)
+    err, g_k, g_p = run_twice(dec, lambda: tfm.decoder_forward(
+        dec, dcfg, batch["prev_tokens"], enc, valid[..., 0]))
+    gerr, worst = hold_grads("post-LN decoder", g_k, g_p, 1e-4)
+    results["post-LN decoder"] = dict(layers=2, output_max_abs_err=err,
+                                      grads_max_err_to_largest=gerr,
+                                      worst=worst)
+    del dec
+    vgg = cnv.VGGBlock(80, 1, 256, 256, generator=torch.Generator()
+                       .manual_seed(SEED)).to(dev)
+    feats = batch["feats"][:2, :256].contiguous()
+    with torch.enable_grad():
+        fx = feats.clone().requires_grad_()
+        y, out_len = cnv.vgg_block_apply(vgg, fx, batch["feat_lengths"][:2])
+        y.square().sum().backward()
+    vgg_cpu = copy.deepcopy(vgg).cpu()
+    with torch.enable_grad():
+        fc = feats.cpu().clone().requires_grad_()
+        yc, _ = cnv.vgg_block_apply(vgg_cpu, fc, batch["feat_lengths"][:2]
+                                    .cpu())
+        yc.square().sum().backward()
+    results["VGG"] = dict(
+        shape=list(y.shape), out_lengths=out_len.tolist(),
+        output_max_abs_err=max_err("VGG card vs CPU", y, yc.to(dev),
+                                   **F32_TOL),
+        input_grad_max_err_to_largest=max_err_to_largest(
+            "VGG input gradient card vs CPU", fx.grad, fc.grad.to(dev)))
+    log("phase20", variants=results)
+
+
+def phase_bf16(dev, batch, speech, fp32_tokens, fp32_asr):
+    """Phase 20: the new FFN activations, rows 1-6 in bf16, asr-train in
+    bf16 (the main path: its launches are returned) with remat, serving,
+    the students' steps and the model options.  Returns (the bf16
+    asr-train steps' launches, {kernel: report fields})."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        activations = phase_activations(dev)
+        bf16 = phase_bf16_kernels(dev, batch)
+    launches = phase_bf16_train(dev, batch, fp32_asr)
+    with torch.no_grad():   # as cli/generate and the agents serve
+        phase_bf16_serve(dev, speech, fp32_tokens)
+    phase_bf16_students(dev, batch)
+    phase_variants(dev, batch)
+    report = {name: {"activations": activations.get(name),
+                     "bf16": bf16.get(name)}
+              for name in set(activations) | set(bf16)}
+    log("phase20", phase_s=time.perf_counter() - t0)
+    return launches, report
+
+
 def run(dev):
     import torch
     from simulst_tpu_torch.cli.generate import decode_batch
@@ -4495,7 +5243,8 @@ def run(dev):
 
     # 8. ASR training steps; the trained encoder is MMA's starting point
     asr_checkpoint = os.path.join(workdir.name, "asr_checkpoint_last")
-    asr_training, asr_median_ms = phase_asr_train(dev, asr, asr_checkpoint)
+    asr_training, asr_median_ms, asr_fp32 = phase_asr_train(dev, asr,
+                                                            asr_checkpoint)
 
     # 9. the MMA alignment kernels vs plain
     with torch.no_grad():
@@ -4549,25 +5298,35 @@ def run(dev):
     # freezing, tensorboard and the profiler, s2t_transformer_convpos, the
     # fairseq loader, interactive and visualize
     data_to_score = phase_data(dev, workdir.name, asr, speech, report)
+
+    # 20. bf16 compute (--override compute_dtype=bfloat16), remat and the
+    # model options: the FFN kernels' silu and tanh, rows 1-6 in bf16,
+    # asr-train in bf16 (its launches are this path's) with remat, bf16
+    # serving, MMA, CIF and transducer bf16 steps, post-LN and VGG
+    bf16_training, bf16_report = phase_bf16(dev, asr, speech, tokens,
+                                            asr_fp32)
+    for name, fields in bf16_report.items():
+        report.setdefault(name, {}).update(fields)
     del asr, speech, feats, lengths
     workdir.cleanup()
 
-    # 20. report
+    # 21. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
              "batched-serving": batched_serving,
              "offline-decode": offline_decode, "asr-pack": pack_training,
-             "transducer": transducer, "data-to-score": data_to_score}
+             "transducer": transducer, "data-to-score": data_to_score,
+             "bf16-training": bf16_training}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
          "launches_by_path": {p: counts[name] for p, counts in paths.items()},
          **{key: report[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape")}}
+             "library_ms", "shape", "bf16", "activations")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase20", total_s=time.perf_counter() - started)
+    log("phase21", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ is an nn.ModuleList here).  Layouts:
   conv weight (K, Cin/groups, Cout)   -> torch (Cout, Cin/groups, K)
   conv-pos v (K, Cin/groups, Cout)    -> (Cout, Cin/groups, K)
   conv-pos g (K, 1, 1)                -> (1, 1, K)
+  VGG conv weight (Kt, Kf, Cin, Cout) -> torch (Cout, Cin, Kt, Kf)
 
 Every 3-D leaf of a JAX s2t_emformer, MMA, CIF, transducer or
 s2t_transformer_convpos tree is one of the conv tensors above (the
@@ -55,5 +56,7 @@ def load_jax_params(tree: Any) -> Dict[str, torch.Tensor]:
     for key, a in flatten_tree(tree).items():
         if a.ndim == 3:
             a = np.transpose(a, (2, 1, 0))
+        elif a.ndim == 4:
+            a = np.transpose(a, (3, 2, 0, 1))
         sd[key] = torch.tensor(np.asarray(a, np.float32))
     return sd

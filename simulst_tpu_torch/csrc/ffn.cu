@@ -4,9 +4,11 @@
 // Replaces the Pallas kernels simulst_tpu/ops/ffn_pallas.py
 // `fused_ln_ffn_res` (_ln_ffn_fwd_kernel and _ln_ffn_bwd_kernel; the Emformer
 // pos_ff block with its pre-LN and residual) and `fused_ffn` (_fwd_kernel
-// and _bwd_kernel; the decoder FFN), each with relu or gelu and both
-// dropouts.  One forward entry serves both: the LN prologue and the
-// residual epilogue are template flags.
+// and _bwd_kernel; the decoder FFN), each with gelu, relu, silu or tanh
+// (the JAX package takes silu and tanh to XLA) and both dropouts.  One
+// forward entry serves both: the LN prologue and the residual epilogue are
+// template flags.  The LN parameters are fp32 whatever the activation dtype,
+// as the JAX package passes them, and their gradients come back in fp32.
 //
 // What bounds it on the H100: at the training and offline shapes (3072 to
 // 12,288 rows x 256 x 2048) it is compute, 6.4 GFLOP per 3072 rows, run
@@ -87,9 +89,13 @@ static_assert(kChunk == 64, "thread tiling assumes 2 hidden columns per lane");
 // activation codes passed from Python (ops/ffn.py ACTIVATION_CODES)
 constexpr int kGelu = 0;
 constexpr int kRelu = 1;
+constexpr int kSilu = 2;
+constexpr int kTanh = 3;
 
 template <int kAct>
 __device__ __forceinline__ float act_fn(float u) {
+  if (kAct == kSilu) return u / (1.0f + expf(-u));  // u sigmoid(u)
+  if (kAct == kTanh) return tanhf(u);
   return kAct == kRelu ? fmaxf(u, 0.f) : gelu_erf(u);
 }
 
@@ -97,14 +103,33 @@ __device__ __forceinline__ float act_fn(float u) {
 template <int kAct>
 __device__ __forceinline__ float act_grad(float u) {
   if (kAct == kRelu) return u > 0.f ? 1.f : 0.f;
+  if (kAct == kSilu) {
+    const float sg = 1.0f / (1.0f + expf(-u));
+    return sg * (1.0f + u * (1.0f - sg));
+  }
+  if (kAct == kTanh) {
+    const float t = tanhf(u);
+    return 1.0f - t * t;
+  }
   return 0.5f * (1.0f + erff(u * 0.7071067811865476f)) +
          u * 0.3989422804014327f * expf(-0.5f * u * u);
 }
 
+// runs the statement with kA bound to the activation code `act` as a
+// constant; an unknown code returns cudaErrorInvalidValue
+#define FFN_ACT_DISPATCH(act, ...)                          \
+  switch (act) {                                            \
+    case kGelu: { constexpr int kA = kGelu; __VA_ARGS__; }  \
+    case kRelu: { constexpr int kA = kRelu; __VA_ARGS__; }  \
+    case kSilu: { constexpr int kA = kSilu; __VA_ARGS__; }  \
+    case kTanh: { constexpr int kA = kTanh; __VA_ARGS__; }  \
+    default: return (int)cudaErrorInvalidValue;             \
+  }
+
 template <typename T, bool kLayerNorm, int kAct>
 __global__ void __launch_bounds__(kThreads)
-    ffn_partial_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
-                       const T* __restrict__ ln_b, const T* __restrict__ w1,
+    ffn_partial_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                       const float* __restrict__ ln_b, const T* __restrict__ w1,
                        const T* __restrict__ b1, const T* __restrict__ w2,
                        float* __restrict__ partial, int n_rows, int hidden,
                        int hidden_per_split, Dropout act_drop) {
@@ -141,7 +166,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < kDim / 32; ++i) {
         const int col = lane + 32 * i;
-        v[i] = (v[i] - mean) * inv * to_f32(ln_g[col]) + to_f32(ln_b[col]);
+        v[i] = (v[i] - mean) * inv * ln_g[col] + ln_b[col];
       }
     }
 #pragma unroll
@@ -242,8 +267,8 @@ constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
 // ffn_partial_kernel's prologue), stats = (mean, 1/sigma) per row unless null
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-    ln_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
-                   const T* __restrict__ ln_b, float* __restrict__ xn,
+    ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
+                   const float* __restrict__ ln_b, float* __restrict__ xn,
                    float* __restrict__ stats, int n_rows) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
@@ -267,7 +292,7 @@ __global__ void __launch_bounds__(kRowThreads)
   for (int i = 0; i < kDim / 32; ++i) {
     const int col = lane + 32 * i;
     xn[(size_t)row * kDim + col] =
-        round_to<T>((v[i] - mean) * inv * to_f32(ln_g[col]) + to_f32(ln_b[col]));
+        round_to<T>((v[i] - mean) * inv * ln_g[col] + ln_b[col]);
   }
   if (stats != nullptr && lane == 0) {
     stats[2 * row] = mean;
@@ -306,8 +331,8 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
                Dropout out_drop, cudaStream_t stream) {
   using simulst::RowMajor;
   const T* x = static_cast<const T*>(x_);
-  const T* ln_g = static_cast<const T*>(ln_g_);
-  const T* ln_b = static_cast<const T*>(ln_b_);
+  const float* ln_g = static_cast<const float*>(ln_g_);
+  const float* ln_b = static_cast<const float*>(ln_b_);
   const T* w1 = static_cast<const T*>(w1_);
   const T* b1 = static_cast<const T*>(b1_);
   const T* w2 = static_cast<const T*>(w2_);
@@ -445,7 +470,7 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
 // xn is overwritten with dn xhat (the per-row terms of dgamma)
 template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
-    ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ ln_g,
+    ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                        const float* __restrict__ stats,
                        const float* __restrict__ dn, const T* __restrict__ dy,
                        T* __restrict__ dx, float* __restrict__ xn,
@@ -461,7 +486,7 @@ __global__ void __launch_bounds__(kRowThreads)
     const size_t off = (size_t)row * kDim + lane + 32 * i;
     xh[i] = (to_f32(x[off]) - mean) * inv;
     const float d = dn[off];
-    gg[i] = d * to_f32(ln_g[lane + 32 * i]);
+    gg[i] = d * ln_g[lane + 32 * i];
     s1 += gg[i];
     s2 += gg[i] * xh[i];
     xn[off] = d * xh[i];
@@ -494,7 +519,7 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   using simulst::Transposed;
   using Store = simulst::PartialStore<TagLnFfnBwd>;
   const T* x = static_cast<const T*>(x_);
-  const T* ln_g = static_cast<const T*>(g_);
+  const float* ln_g = static_cast<const float*>(g_);
   const T* w1 = static_cast<const T*>(w1_);
   const T* w2 = static_cast<const T*>(w2_);
   const T* dy = static_cast<const T*>(dy_);
@@ -506,7 +531,7 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
                len = o_dbe + d;
   const int row_blocks = simulst::ceil_div(n, kRowThreads / 32);
   ln_rows_kernel<T><<<row_blocks, kRowThreads, 0, s>>>(
-      x, ln_g, static_cast<const T*>(be_), xn, stats, n);
+      x, ln_g, static_cast<const float*>(be_), xn, stats, n);
   SIMULST_TRY(cudaGetLastError());
   SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
   SIMULST_TRY((simulst::tile_product<128>(
@@ -549,8 +574,9 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
 // ln_res = 0: y = drop_o(fc2(drop_a(act(fc1(x)))))  (fused_ffn; ln_g/ln_b
 //             unused)
 // x, y: (n_rows, dim); w1: (dim, hidden); w2: (hidden, dim), all of `dtype`;
-// partial: fp32 scratch of (splits, n_rows, dim); act 0 gelu, 1 relu; each
-// dropout site is on when its flag is set.  h null: the fused row-block
+// ln_g, ln_b: (dim) fp32 whatever `dtype` (the LN is computed in fp32);
+// partial: fp32 scratch of (splits, n_rows, dim); act 0 gelu, 1 relu,
+// 2 silu, 3 tanh; each dropout site is on when its flag is set.  h null: the fused row-block
 // kernel; else the tiled path, with fp32 scratch h (n_rows, hidden) and, for
 // ln_res = 1, xn (n_rows, dim), and x, w1, w2 16-byte aligned.  Both paths
 // give the same bits.  Returns a cudaError_t.
@@ -564,7 +590,7 @@ extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            int out_on, unsigned out_threshold,
                            float out_inv_keep, void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 ||
-      hidden % (splits * kChunk) != 0 || (act != kGelu && act != kRelu) ||
+      hidden % (splits * kChunk) != 0 || act < kGelu || act > kTanh ||
       (h != nullptr && ln_res && xn == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -572,24 +598,14 @@ extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
         *hf = static_cast<float*>(h);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
   const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
-  if (ln_res && act == kRelu) {
-    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kRelu>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                                n_rows, hidden, splits, act_drop, out_drop, s));
-  }
   if (ln_res) {
-    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kGelu>(
+    FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kA>(
                                 x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                                n_rows, hidden, splits, act_drop, out_drop, s));
+                                n_rows, hidden, splits, act_drop, out_drop, s)));
   }
-  if (act == kRelu) {
-    SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kRelu>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                                n_rows, hidden, splits, act_drop, out_drop, s));
-  }
-  SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kGelu>(
+  FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kA>(
                               x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                              n_rows, hidden, splits, act_drop, out_drop, s));
+                              n_rows, hidden, splits, act_drop, out_drop, s)));
 }
 
 // The backward of simulst_ffn (ln_res = 0): dx (n_rows, dim) of `dtype` and
@@ -606,7 +622,7 @@ extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
                                int out_on, unsigned out_threshold,
                                float out_inv_keep, void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
-      (act != kGelu && act != kRelu))
+      act < kGelu || act > kTanh)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
@@ -614,18 +630,13 @@ extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
   float *gr = static_cast<float*>(grads), *uf = static_cast<float*>(u),
         *duf = static_cast<float*>(du), *gf = static_cast<float*>(g),
         *pf = static_cast<float*>(partial);
-  if (act == kRelu) {
-    SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kRelu>(
-                                x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
-                                n_rows, hidden, splits, act_drop, out_drop, s));
-  }
-  SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kGelu>(
+  FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kA>(
                               x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
-                              n_rows, hidden, splits, act_drop, out_drop, s));
+                              n_rows, hidden, splits, act_drop, out_drop, s)));
 }
 
-// The backward of simulst_ffn with ln_res = 1: dx (n_rows, dim) of `dtype`
-// and grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) |
+// The backward of simulst_ffn with ln_res = 1 (ln_g, ln_b fp32): dx
+// (n_rows, dim) of `dtype` and grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) |
 // db2 (dim) | dgamma (dim) | dbeta (dim)] in fp32.  Scratch, all fp32: xn,
 // g and dn (n_rows, dim), stats (n_rows, 2), u and du (n_rows, hidden),
 // partial (splits, len(grads)) zero-filled.  Returns a cudaError_t.
@@ -641,7 +652,7 @@ extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
                                   int out_on, unsigned out_threshold,
                                   float out_inv_keep, void* stream) {
   if (dim != kDim || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
-      (act != kGelu && act != kRelu))
+      act < kGelu || act > kTanh)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
@@ -650,14 +661,8 @@ extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
         *st = static_cast<float*>(stats), *uf = static_cast<float*>(u),
         *duf = static_cast<float*>(du), *gf = static_cast<float*>(g),
         *dnf = static_cast<float*>(dn), *pf = static_cast<float*>(partial);
-  if (act == kRelu) {
-    SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kRelu>(
-                                x, ln_g, ln_b, w1, b1, w2, dy, dx, gr, xf, st,
-                                uf, duf, gf, dnf, pf, n_rows, hidden, splits,
-                                act_drop, out_drop, s));
-  }
-  SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kGelu>(
+  FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kA>(
                               x, ln_g, ln_b, w1, b1, w2, dy, dx, gr, xf, st,
                               uf, duf, gf, dnf, pf, n_rows, hidden, splits,
-                              act_drop, out_drop, s));
+                              act_drop, out_drop, s)));
 }

@@ -25,9 +25,9 @@ from simulst_tpu_torch.models import s2t_emformer as s2t
 from simulst_tpu_torch.nn import attention as attn
 from simulst_tpu_torch.nn import conv as cnv
 from simulst_tpu_torch.nn import transformer as tfm
-from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, dropout,
-                                       gelu, layer_norm, linear, next_seed,
-                                       resolve_device)
+from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, cast,
+                                       dropout, gelu, layer_norm, linear,
+                                       next_seed, resolve_device)
 from simulst_tpu_torch.ops.cif import CifOut, cif_function
 from simulst_tpu_torch.ops.linear_res import fused_linear_res
 
@@ -95,7 +95,10 @@ class CIFStreamState(NamedTuple):
 
 
 def cif_layer_init_state(p: CIFLayer, cfg: CIFConfig, batch: int,
-                         dtype=torch.float32, device=None) -> CIFStreamState:
+                         dtype=None, device=None) -> CIFStreamState:
+    """`dtype` defaults to the config's compute dtype (prev_weight, a sum
+    of alphas, stays fp32)."""
+    dtype = cfg.dtype if dtype is None else dtype
     k = p.conv.weight.shape[-1]
     return CIFStreamState(
         conv=cnv.ConvCache(feat=torch.zeros(batch, k - 1, cfg.embed_dim,
@@ -211,8 +214,8 @@ def cif_decoder_forward(p: tfm.Decoder, cfg: CIFConfig, prev_tokens,
             h = _fake_hidden(ea, layer_norm(layer.encoder_attn_ln, x), cif)
             seed = next_seed(rngs)
             d = h.dtype
-            x = fused_linear_res(h, ea.out_proj.weight.to(d),
-                                 ea.out_proj.bias.to(d), x,
+            x = fused_linear_res(h, cast(ea.out_proj.weight, d),
+                                 cast(ea.out_proj.bias, d), x,
                                  rate=dcfg.dropout if seed is not None
                                  else 0.0, seed=seed or 0)
         x = tfm._ffn(layer, dcfg, x, rngs)
@@ -229,9 +232,10 @@ class CIFDecoderState(NamedTuple):
 
 
 def cif_decoder_init_state(cfg: CIFConfig, batch: int, max_len: int,
-                           dtype=torch.float32, device=None
+                           dtype=None, device=None
                            ) -> CIFDecoderState:
     dcfg = cfg.decoder
+    dtype = cfg.dtype if dtype is None else dtype
     hd = dcfg.embed_dim // dcfg.num_heads
 
     def caches():

@@ -34,7 +34,7 @@ from torch import nn
 from simulst_tpu_torch.models import s2t_emformer as s2t
 from simulst_tpu_torch.nn import attention as attn
 from simulst_tpu_torch.nn import transformer as tfm
-from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream,
+from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, cast,
                                        layer_norm, linear, neg_inf,
                                        next_seed)
 from simulst_tpu_torch.ops import monotonic as mono
@@ -260,8 +260,9 @@ def mma_attention_forward(p: MonotonicAttention, cfg: MMAConfig, query, key,
     out = (beta_h.to(v.dtype) @ v).transpose(1, 2).reshape(b, tq, d)
     if epilogue is not None:
         res, rate, seed = epilogue
-        y = fused_linear_res(out, p.out_proj.weight.to(out.dtype),
-                             p.out_proj.bias.to(out.dtype), res.to(out.dtype),
+        y = fused_linear_res(out, cast(p.out_proj.weight, out.dtype),
+                             cast(p.out_proj.bias, out.dtype),
+                             res.to(out.dtype),
                              rate=rate if seed is not None else 0.0,
                              seed=seed or 0)
     else:
@@ -431,9 +432,10 @@ class MMADecoderState(NamedTuple):
 
 
 def mma_decoder_init_state(cfg: MMAConfig, batch: int, max_len: int,
-                           dtype=torch.float32, device=None
+                           dtype=None, device=None
                            ) -> MMADecoderState:
     dcfg = cfg.decoder
+    dtype = cfg.dtype if dtype is None else dtype
     hd = dcfg.embed_dim // dcfg.num_heads
     return MMADecoderState(
         caches=tuple(attn.kv_cache_init(batch, dcfg.num_heads, max_len, hd,

@@ -28,9 +28,9 @@ from simulst_tpu_torch.nn import attention as attn
 from simulst_tpu_torch.nn import conv as cnv
 from simulst_tpu_torch.nn import transformer as tfm
 from simulst_tpu_torch.nn.core import (ACTIVATIONS, LayerNorm, Linear,
-                                       RngStream, dropout, gelu, layer_norm,
-                                       lengths_to_mask, linear, next_seed,
-                                       resolve_device)
+                                       RngStream, cast, dropout, gelu,
+                                       layer_norm, lengths_to_mask, linear,
+                                       next_seed, resolve_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +75,7 @@ def conv_pos_noncausal(p: cnv.ConvPos, x, groups: int):
     w = cnv._conv_pos_weight(p).to(x.dtype)
     k = w.shape[-1]
     y = cnv._conv1d(F.pad(x, (0, 0, k // 2, k // 2)), w, 1, groups)
-    y = y + p.bias.to(x.dtype)
+    y = y + cast(p.bias, x.dtype)
     if k % 2 == 0:
         y = y[:, :-1]
     return gelu(y)
@@ -85,8 +85,12 @@ def encoder_forward(p: S2TConvPosEncoder, cfg: S2TConvPosConfig, feats,
                     feat_lengths, rngs: Optional[RngStream] = None
                     ) -> EncoderOut:
     """Offline / training forward. feats: (B, T, F); feat_lengths: (B,).
-    Dropout at the config's rates when rngs is given."""
-    x, lengths = cnv.subsampler_apply(p.subsample, feats, feat_lengths)
+    Dropout at the config's rates when rngs is given.  The features are
+    cast to the compute dtype, as s2t_emformer's are (the JAX package casts
+    only s2t_emformer's and lets its bf16 decoder promote against an fp32
+    encoder output; the port's attention takes one dtype)."""
+    x, lengths = cnv.subsampler_apply(p.subsample, feats.to(cfg.dtype),
+                                      feat_lengths)
     x = cfg.embed_scale * x
     x = x + conv_pos_noncausal(p.conv_pos, x, cfg.conv_pos_groups)
     x = dropout(x, cfg.dropout, next_seed(rngs))

@@ -24,9 +24,9 @@ from torch import nn
 from simulst_tpu_torch.nn import conv as cnv
 from simulst_tpu_torch.nn import emformer as emf
 from simulst_tpu_torch.nn import transformer as tfm
-from simulst_tpu_torch.nn.core import (Linear, RngStream, dropout,
-                                       lengths_to_mask, linear, next_seed,
-                                       resolve_device)
+from simulst_tpu_torch.nn.core import (Linear, RngStream, compute_dtype,
+                                       dropout, lengths_to_mask, linear,
+                                       next_seed, resolve_device)
 from simulst_tpu_torch.train import packing
 
 
@@ -54,6 +54,9 @@ class S2TEmformerConfig:
     right_context: int = 32
     max_memory: int = 5
     tanh_on_mem: bool = True
+    # rematerialise each encoder layer in the backward pass (less activation
+    # memory on long utterances for one more forward per layer)
+    remat: bool = False
     ctc_layer: bool = False
     no_scale_embedding: bool = False
     decoder_layers: int = 6
@@ -63,6 +66,10 @@ class S2TEmformerConfig:
     max_target_positions: int = 1024
     padding_idx: int = 1
     eos_idx: int = 2
+    blank_idx: int = 0
+    # activation dtype ("float32" or "bfloat16"); parameters stay fp32 and
+    # are cast per op, LayerNorm and softmax statistics are fp32
+    compute_dtype: str = "float32"
 
     @property
     def stride(self) -> int:
@@ -71,6 +78,10 @@ class S2TEmformerConfig:
     @property
     def embed_scale(self) -> float:
         return 1.0 if self.no_scale_embedding else math.sqrt(self.embed_dim)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return compute_dtype(self.compute_dtype)
 
     @property
     def emformer(self) -> emf.EmformerConfig:
@@ -83,7 +94,7 @@ class S2TEmformerConfig:
             activation=self.activation, left_context=self.left_context // s,
             right_context=self.right_context // s,
             segment=self.segment_length // s, max_memory=self.max_memory,
-            tanh_on_mem=self.tanh_on_mem)
+            tanh_on_mem=self.tanh_on_mem, remat=self.remat)
 
     @property
     def decoder(self) -> tfm.DecoderConfig:
@@ -98,7 +109,8 @@ class S2TEmformerConfig:
             padding_idx=self.padding_idx, eos_idx=self.eos_idx,
             encoder_embed_dim=self.embed_dim,
             max_target_positions=self.max_target_positions,
-            no_scale_embedding=self.no_scale_embedding)
+            no_scale_embedding=self.no_scale_embedding,
+            compute_dtype=self.compute_dtype)
 
 
 class EncoderOut(NamedTuple):
@@ -135,9 +147,11 @@ def _ctc(p: S2TEmformerEncoder, enc):
 
 def _frontend(p: S2TEmformerEncoder, cfg: S2TEmformerConfig, feats,
               feat_lengths, rngs: Optional[RngStream]):
-    """subsample -> scale -> + conv-pos -> dropout, zero beyond each
-    example's length: ((B, U, D), lengths (B,))."""
-    x, lengths = cnv.subsampler_apply(p.subsample, feats, feat_lengths)
+    """features cast to the compute dtype -> subsample -> scale -> +
+    conv-pos -> dropout, zero beyond each example's length: ((B, U, D),
+    lengths (B,))."""
+    x, lengths = cnv.subsampler_apply(p.subsample, feats.to(cfg.dtype),
+                                      feat_lengths)
     x = cfg.embed_scale * x
     x = x + cnv.conv_pos_apply(p.conv_pos, x, cfg.conv_pos_groups)
     x = dropout(x, cfg.dropout, next_seed(rngs))
@@ -188,9 +202,12 @@ class EncoderStreamState(NamedTuple):
 
 
 def encoder_init_state(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
-                       batch: int = 1, dtype=torch.float32,
+                       batch: int = 1, dtype=None,
                        device=None) -> EncoderStreamState:
+    """The zero state of a session; `dtype` defaults to the config's
+    compute dtype."""
     ecfg = cfg.emformer
+    dtype = cfg.dtype if dtype is None else dtype
     return EncoderStreamState(
         sub=cnv.subsampler_init_cache(p.subsample, batch, dtype, device),
         pos=cnv.conv_pos_init_cache(p.conv_pos, batch, cfg.embed_dim, dtype,
@@ -225,7 +242,8 @@ def encoder_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
                  feat_valid: Optional[torch.Tensor] = None
                  ) -> Tuple[EncoderOut, EncoderStreamState]:
     """Process one chunk of NEW feature frames (B, f, F), f % stride == 0
-    unless finish, or None.  The reference's carry protocol
+    unless finish, or None; they are cast to the state's dtype.  The
+    reference's carry protocol
     (s2t_emformer.py:199-260): prepend the carry, run every complete
     segment + rc block, keep the rest as carry; on finish, right-pad rc
     zeros and flush what is left.  All real frames are reported.
@@ -246,8 +264,8 @@ def encoder_step(p: S2TEmformerEncoder, cfg: S2TEmformerConfig,
 
     sub_cache, pos_cache = state.sub, state.pos
     if feats is not None and feats.shape[1] > 0:
-        x_new, sub_cache, pos_cache = _featurize_step(p, cfg, sub_cache,
-                                                      pos_cache, feats)
+        x_new, sub_cache, pos_cache = _featurize_step(
+            p, cfg, sub_cache, pos_cache, feats.to(state.carry.dtype))
     else:
         x_new = state.carry[:, :0]
     v = state.carry_len + x_new.shape[1]       # real post-subsample frames

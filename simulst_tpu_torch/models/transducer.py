@@ -31,7 +31,7 @@ from simulst_tpu_torch.models import s2t_emformer as s2t
 from simulst_tpu_torch.nn import attention as attn
 from simulst_tpu_torch.nn import transformer as tfm
 from simulst_tpu_torch.nn.core import (Embedding, LayerNorm, Linear,
-                                       RngStream, layer_norm, linear,
+                                       RngStream, cast, layer_norm, linear,
                                        resolve_device)
 
 
@@ -127,9 +127,9 @@ def label_features(p: TransducerDecoder, cfg: TransducerConfig, tokens,
 def joiner_forward(p: TransducerDecoder, src_feats, tgt_feats):
     """(B, S, D) x (B, U, D) -> (B, S, U, V) logits."""
     s = linear(p.joiner.source_projection, src_feats)[:, :, None, :]
-    t = tgt_feats @ p.joiner.target_projection.weight.to(tgt_feats.dtype)
+    t = tgt_feats @ cast(p.joiner.target_projection.weight, tgt_feats.dtype)
     join = torch.tanh(s + t[:, None, :, :])
-    return join @ p.embed_tokens.weight.to(join.dtype).T
+    return join @ cast(p.embed_tokens.weight, join.dtype).T
 
 
 def downsample_pool(x, lengths, k: int):
@@ -164,8 +164,9 @@ class TransducerState(NamedTuple):
 
 
 def init_decode_state(cfg: TransducerConfig, batch: int, max_len: int,
-                      dtype=torch.float32, device=None) -> TransducerState:
+                      dtype=None, device=None) -> TransducerState:
     dcfg = cfg.decoder
+    dtype = cfg.dtype if dtype is None else dtype
     hd = dcfg.embed_dim // dcfg.num_heads
     zeros = torch.zeros(batch, dtype=torch.int64, device=device)
     return TransducerState(

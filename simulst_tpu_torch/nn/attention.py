@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from simulst_tpu_torch.nn.core import Linear, dropout, linear, neg_inf
+from simulst_tpu_torch.nn.core import Linear, cast, dropout, linear, neg_inf
 from simulst_tpu_torch.ops.linear_res import fused_linear_res
 from simulst_tpu_torch.ops.mha import fused_mha
 
@@ -80,8 +80,8 @@ def attend(q, k, v, *, bias=None, key_valid=None, dropout_rate: float = 0.0,
 def _merged_linear(parts, x):
     """One product for several same-input projections: x @ [W1|W2|...] +
     [b1|b2|...], split afterwards."""
-    w = torch.cat([q.weight for q in parts], dim=1).to(x.dtype)
-    b = torch.cat([q.bias for q in parts]).to(x.dtype)
+    w = torch.cat([cast(q.weight, x.dtype) for q in parts], dim=1)
+    b = torch.cat([cast(q.bias, x.dtype) for q in parts])
     return (x @ w + b).split([q.weight.shape[1] for q in parts], dim=-1)
 
 
@@ -125,8 +125,8 @@ def mha_forward(p: MultiheadAttention, query, key, value, num_heads: int, *,
     if epilogue is not None:
         res, ep_rate, ep_seed = epilogue
         d = merged.dtype
-        y = fused_linear_res(merged, p.out_proj.weight.to(d),
-                             p.out_proj.bias.to(d), res.to(d),
+        y = fused_linear_res(merged, cast(p.out_proj.weight, d),
+                             cast(p.out_proj.bias, d), res.to(d),
                              rate=ep_rate if ep_seed is not None else 0.0,
                              seed=ep_seed or 0)
         return y, probs

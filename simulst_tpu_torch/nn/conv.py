@@ -20,8 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simulst_tpu_torch.nn.core import gelu, glu, normal, uniform
-from simulst_tpu_torch.ops.conv_pos import grouped_conv_fast_wgrad
+from simulst_tpu_torch.nn.core import (Linear, cast, gelu, glu, linear, normal,
+                                       uniform)
+from simulst_tpu_torch.ops.conv_pos import conv1d, grouped_conv_fast_wgrad
 
 
 class CausalConv1d(nn.Module):
@@ -38,7 +39,8 @@ class CausalConv1d(nn.Module):
 
 def _conv1d(x, w, stride: int = 1, groups: int = 1):
     """x: (B, T, Cin); w: (Cout, Cin/groups, K) -> (B, T', Cout), VALID."""
-    y = F.conv1d(x.transpose(1, 2), w.to(x.dtype), stride=stride, groups=groups)
+    y = conv1d(x.transpose(1, 2), cast(w, x.dtype), stride=stride,
+               groups=groups)
     return y.transpose(1, 2)
 
 
@@ -49,7 +51,7 @@ def _kernel_size(p) -> int:
 def causal_conv1d(p, x, stride: int = 1):
     k = _kernel_size(p)
     return _conv1d(F.pad(x, (0, 0, k - 1, 0)), p.weight, stride) + \
-        p.bias.to(x.dtype)
+        cast(p.bias, x.dtype)
 
 
 class ConvCache(NamedTuple):
@@ -66,7 +68,7 @@ def causal_conv1d_step(p, cache: ConvCache, x, stride: int = 1
     if x.shape[1] == 0:
         return x.new_zeros(x.shape[0], 0, p.weight.shape[0]), cache
     full = torch.cat([cache.feat, x], dim=1)
-    y = _conv1d(full, p.weight, stride) + p.bias.to(x.dtype)
+    y = _conv1d(full, p.weight, stride) + cast(p.bias, x.dtype)
     return y, ConvCache(feat=full[:, full.shape[1] - (k - 1):])
 
 
@@ -163,7 +165,7 @@ def conv_pos_apply(p, x, groups: int):
     w = _conv_pos_weight(p).to(x.dtype)
     k = w.shape[-1]
     y = grouped_conv_fast_wgrad(F.pad(x, (0, 0, k - 1, 0)), w, groups)
-    return gelu(y + p.bias.to(x.dtype))
+    return gelu(y + cast(p.bias, x.dtype))
 
 
 def conv_pos_init_cache(p, batch: int, embed_dim: int, dtype=torch.float32,
@@ -178,5 +180,57 @@ def conv_pos_step(p, cache: ConvCache, x, groups: int
     w = _conv_pos_weight(p)
     k = w.shape[-1]
     full = torch.cat([cache.feat, x], dim=1)
-    y = _conv1d(full, w, 1, groups) + p.bias.to(x.dtype)
+    y = _conv1d(full, w, 1, groups) + cast(p.bias, x.dtype)
     return gelu(y), ConvCache(feat=full[:, full.shape[1] - (k - 1):])
+
+
+# ---------------------------------------------------------------------------
+# CausalVGGBlock: the alternative ConvTransformer pre-net (reference
+# causal_conv.py:165-228; no shipped recipe uses it).  The JAX package
+# computes it in XLA with no Pallas kernel; F.conv2d here.
+# ---------------------------------------------------------------------------
+
+class VGGConv(nn.Module):
+    """One 2-D conv of the block: weight (Cout, Cin, Kt, Kf), torch's
+    layout (the bridge permutes JAX's (Kt, Kf, Cin, Cout))."""
+
+    def __init__(self, cin: int, cout: int, k: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        bound = math.sqrt(1.0 / (cin * k * k))
+        self.weight = nn.Parameter(uniform((cout, cin, k, k), bound,
+                                           generator))
+        self.bias = nn.Parameter(uniform((cout,), bound, generator))
+
+
+class VGGBlock(nn.Module):
+    """Stride-2 k x k convs + ReLU over (time, frequency), then a linear
+    from the flattened (frequency, channel) axis to out_channels."""
+
+    def __init__(self, input_dim: int = 80, in_channels: int = 1,
+                 mid_channels: int = 256, out_channels: int = 256,
+                 kernel_sizes: Sequence[int] = (3, 3), *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        f = input_dim
+        layers = []
+        for i, k in enumerate(kernel_sizes):
+            layers.append(VGGConv(in_channels if i == 0 else mid_channels,
+                                  mid_channels, k, generator=generator))
+            f = (f + 2 * (k // 2) - k) // 2 + 1   # SAME pad in frequency
+        self.layers = nn.ModuleList(layers)
+        self.out = Linear(f * mid_channels, out_channels, generator=generator)
+        self.kernel_sizes = tuple(kernel_sizes)
+
+
+def vgg_block_apply(p: VGGBlock, x, lengths):
+    """x: (B, T, F) -> ((B, T', D), lengths'): causal in time (left pad
+    k-1), SAME in frequency, stride 2 in both."""
+    h = x[:, None]                                         # (B, 1, T, F)
+    for layer, k in zip(p.layers, p.kernel_sizes):
+        h = F.pad(h, (k // 2, k // 2, k - 1, 0))
+        h = torch.relu(F.conv2d(h, cast(layer.weight, h.dtype),
+                                cast(layer.bias, h.dtype), stride=2))
+        lengths = conv_out_length(lengths, k, 2)
+    b, c, t, f = h.shape
+    return linear(p.out, h.permute(0, 2, 3, 1).reshape(b, t, f * c)), lengths

@@ -24,7 +24,16 @@ Streaming (`emformer_step`): per-layer state is fixed-size buffers (mems
 past_length; validity is key masking.  Where the JAX package returns new
 buffers, `_shift_append` writes the shifted buffer back in place.
 
-Layers are pre-LN (normalize_before, the only form s2t_emformer uses).
+Layers are pre-LN by default (`normalize_before`); post-LN drops the
+attention's input LN, normalises each layer's output with `ln_input`
+after the pos_ff block and skips `final_ln` (which stays a parameter).
+`segmented_attention=False` names the JAX package's dense O(T^2) training
+attention, which equals the segmented one up to rounding: the port computes
+the segmented (or grouped) attention for either value, and only the packed
+forward refuses False, as JAX asserts.  `remat` recomputes each layer in
+the backward (torch.utils.checkpoint); a layer's dropout seeds are recorded on its
+first run and replayed by the recomputation, which so redraws the same
+masks (its kernels' forward launches count twice).
 Semantics notes (reference torchaudio emformer.py): summaries are the
 ceil-mode mean over the pre-attention-LN utterance (layer 0 pools the raw
 utterance); memory outputs pass tanh (or clamp to [-10, 10]); a summary
@@ -41,10 +50,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, dropout,
-                                       layer_norm, linear, masked_softmax,
-                                       next_seed)
+from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, cast,
+                                       dropout, layer_norm, linear,
+                                       masked_softmax, next_seed)
 from simulst_tpu_torch.ops.emformer_attn import (AttnGeom, EidGate,
                                                  emformer_grouped_attention)
 from simulst_tpu_torch.ops.ffn import fused_ln_ffn_res
@@ -66,6 +76,12 @@ class EmformerConfig:
     segment: int = 16          # 64 / 4
     max_memory: int = 5
     tanh_on_mem: bool = True
+    normalize_before: bool = True
+    # recompute each layer in the backward pass (activation memory)
+    remat: bool = False
+    # JAX's choice of per-segment (True) or dense O(T^2) training attention,
+    # equal up to rounding; the port computes the per-segment one for both
+    segmented_attention: bool = True
     # G consecutive segments per attention block over their union context
     segment_group: int = 8
 
@@ -150,13 +166,15 @@ def _mem_transform(x, cfg: EmformerConfig):
 def _pos_ff_res(p: PosFF, cfg: EmformerConfig, x,
                 rngs: Optional[RngStream] = None):
     """x + drop(fc2(drop(act(fc1(LN(x)))))): one fused_ln_ffn_res kernel on
-    the card; one seed keys both dropout sites."""
+    the card; one seed keys both dropout sites.  The linear parameters
+    are cast to the activation dtype; the LN's stay fp32, as the JAX
+    package passes them."""
     d = x.dtype
     seed = next_seed(rngs)
     on = seed is not None
-    return fused_ln_ffn_res(x, p.ln.scale, p.ln.bias, p.fc1.weight.to(d),
-                            p.fc1.bias.to(d), p.fc2.weight.to(d),
-                            p.fc2.bias.to(d), cfg.activation,
+    return fused_ln_ffn_res(x, p.ln.scale, p.ln.bias, cast(p.fc1.weight, d),
+                            cast(p.fc1.bias, d), cast(p.fc2.weight, d),
+                            cast(p.fc2.bias, d), cfg.activation,
                             cfg.activation_dropout if on else 0.0,
                             cfg.dropout if on else 0.0, seed or 0)
 
@@ -304,8 +322,8 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
                      torch.zeros(b, ng, G, d, dtype=out.dtype,
                                  device=out.device)], dim=2)
     seed = next_seed(rngs)
-    y = fused_linear_res(out, ap.out_proj.weight.to(out.dtype),
-                         ap.out_proj.bias.to(out.dtype), res,
+    y = fused_linear_res(out, cast(ap.out_proj.weight, out.dtype),
+                         cast(ap.out_proj.bias, out.dtype), res,
                          period=geom.nq, res_rows=G * (rc + seg),
                          rate=cfg.dropout if seed is not None else 0.0,
                          seed=seed or 0)
@@ -391,7 +409,7 @@ def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
     U = utterance.shape[1]
     rc_len = rc_blocks.shape[1]
     raw = torch.cat([rc_blocks, utterance], dim=1)
-    ln = layer_norm(p.ln_input, raw)
+    ln = layer_norm(p.ln_input, raw) if cfg.normalize_before else raw
     rc_ln, utt_ln = ln[:, :rc_len], ln[:, rc_len:]
     summary = (_segment_means(utt_ln, cfg.segment) if cfg.use_mem
                else utt_ln[:, :0])
@@ -409,7 +427,51 @@ def _layer_forward(p: EmformerLayer, cfg: EmformerConfig, utterance,
     next_mems = (_mem_transform(summary_out, cfg)[:, :n - 1] if cfg.use_mem
                  else mems)
     result = _pos_ff_res(p.pos_ff, cfg, result, rngs)
+    if not cfg.normalize_before:
+        result = layer_norm(p.ln_input, result)
     return result[:, rc_len:], result[:, :rc_len], next_mems
+
+
+class _SeedRecord:
+    """A layer's dropout seeds for torch.utils.checkpoint: the first run
+    draws them from `rngs` in the layer's own order and records them; a
+    run after `rewind()` (the backward's recomputation) replays them, so
+    it redraws the same masks."""
+
+    def __init__(self, rngs: RngStream):
+        self.rngs, self.seeds, self.i = rngs, [], 0
+
+    def rewind(self):
+        self.i = 0
+
+    def next(self) -> int:
+        if self.i == len(self.seeds):
+            self.seeds.append(self.rngs.next())
+        self.i += 1
+        return self.seeds[self.i - 1]
+
+
+def _run_layers(p: Emformer, cfg: EmformerConfig, out, rc_blocks, mems,
+                lengths, rngs: Optional[RngStream],
+                eids: Optional[PackedEids] = None):
+    """Every layer in turn; with cfg.remat each one under
+    torch.utils.checkpoint (non-reentrant), its seeds recorded."""
+    for layer in p.layers:
+        if not cfg.remat or not torch.is_grad_enabled():
+            out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
+                                                  mems, lengths, rngs, eids)
+            continue
+        record = None if rngs is None else _SeedRecord(rngs)
+
+        def one_layer(out, rc_blocks, mems, layer=layer, record=record):
+            if record is not None:
+                record.rewind()
+            return _layer_forward(layer, cfg, out, rc_blocks, mems, lengths,
+                                  record, eids)
+
+        out, rc_blocks, mems = checkpoint(one_layer, out, rc_blocks, mems,
+                                          use_reentrant=False)
+    return out, rc_blocks, mems
 
 
 def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths,
@@ -428,11 +490,8 @@ def emformer_forward(p: Emformer, cfg: EmformerConfig, x, lengths,
         mems = _segment_means(utterance, cfg.segment)[:, :n - 1]
     else:
         mems = utterance[:, :0]
-    out = utterance
-    for layer in p.layers:
-        out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
-                                              mems, lengths, rngs)
-    return layer_norm(p.final_ln, out)
+    out, _, _ = _run_layers(p, cfg, utterance, rc_blocks, mems, lengths, rngs)
+    return layer_norm(p.final_ln, out) if cfg.normalize_before else out
 
 
 def emformer_forward_packed(p: Emformer, cfg: EmformerConfig, utterance,
@@ -447,6 +506,8 @@ def emformer_forward_packed(p: Emformer, cfg: EmformerConfig, utterance,
     frame of every example equals the padded-batch `emformer_forward`'s;
     with dropout the packed layout draws its own masks.  Returns (R, Up, D);
     packing.unpack_frames puts it back in the batch's layout."""
+    if not cfg.segmented_attention:
+        raise ValueError("sequence packing requires segmented_attention=True")
     U = utterance.shape[1]
     n = _num_segs(U, cfg.segment)
     if U != n * cfg.segment:
@@ -458,11 +519,9 @@ def emformer_forward_packed(p: Emformer, cfg: EmformerConfig, utterance,
     # packed rows are full: the frame < length rule never bites
     lengths = torch.full((utterance.shape[0],), U, dtype=torch.int32,
                          device=utterance.device)
-    out = utterance
-    for layer in p.layers:
-        out, rc_blocks, mems = _layer_forward(layer, cfg, out, rc_blocks,
-                                              mems, lengths, rngs, eids)
-    return layer_norm(p.final_ln, out)
+    out, _, _ = _run_layers(p, cfg, utterance, rc_blocks, mems, lengths, rngs,
+                            eids)
+    return layer_norm(p.final_ln, out) if cfg.normalize_before else out
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +577,7 @@ def _layer_step(p: EmformerLayer, cfg: EmformerConfig,
     dev = utterance.device
 
     raw = torch.cat([rc, utterance], dim=1)
-    ln = layer_norm(p.ln_input, raw)
+    ln = layer_norm(p.ln_input, raw) if cfg.normalize_before else raw
     rc_ln, utt_ln = ln[:, :R], ln[:, R:]
     utt_ok = torch.arange(S, device=dev)[None, :] < utt_valid[:, None]
     if cfg.use_mem:
@@ -555,6 +614,8 @@ def _layer_step(p: EmformerLayer, cfg: EmformerConfig,
     mems_out = (_mem_transform(out[:, R + S:], cfg) if cfg.use_mem
                 else out[:, :0])
     result = _pos_ff_res(p.pos_ff, cfg, out[:, :R + S] + raw)
+    if not cfg.normalize_before:
+        result = layer_norm(p.ln_input, result)
 
     if cfg.use_mem:
         _shift_append(lstate.mems, in_mems, torch.ones_like(utt_valid))
@@ -582,4 +643,4 @@ def emformer_step(p: Emformer, cfg: EmformerConfig, state: EmformerState, x,
         out, rc, mems = _layer_step(layer, cfg, lstate, out, rc, mems,
                                     utt_valid, state.past_length)
     state.past_length.add_(utt_valid.to(state.past_length.dtype))
-    return layer_norm(p.final_ln, out)
+    return layer_norm(p.final_ln, out) if cfg.normalize_before else out

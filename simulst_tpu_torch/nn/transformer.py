@@ -2,8 +2,11 @@
 simulst_tpu/nn/transformer.py).
 
 fairseq semantics as configured by s2t_emformer_s and transformer_small:
-pre-LN (the only form the port builds), sinusoidal positions with the
-padding_idx offset, GELU or ReLU FFN, shared input/output embedding.  On
+pre-LN (or post-LN with normalize_before=False), sinusoidal positions with
+the padding_idx offset, a GELU, ReLU, SiLU or tanh FFN, shared
+input/output embedding.  The token embedding comes out in the config's
+`compute_dtype`, and every later op computes in its input's dtype with
+the parameters cast per op.  On
 the card every layer runs its attention cores through `fused_mha`, its
 attention epilogues through `fused_linear_res` and its FFN through
 `fused_ffn`.  The teacher-forced forward takes an `RngStream`: each
@@ -21,9 +24,10 @@ from torch import nn
 
 from simulst_tpu_torch.nn import attention as attn
 from simulst_tpu_torch.nn.core import (Embedding, LayerNorm, Linear, RngStream,
-                                       dropout, embedding, layer_norm, linear,
-                                       next_seed, resolve_device)
-from simulst_tpu_torch.ops.ffn import ACTIVATION_CODES, fused_ffn
+                                       cast, compute_dtype, dropout, embedding,
+                                       layer_norm, linear, next_seed,
+                                       resolve_device)
+from simulst_tpu_torch.ops.ffn import fused_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,18 +41,18 @@ class DecoderConfig:
     attention_dropout: float = 0.1
     activation_dropout: float = 0.1
     activation: str = "gelu"
+    normalize_before: bool = True
     share_input_output_embed: bool = True
     padding_idx: int = 1
     eos_idx: int = 2
     encoder_embed_dim: int = 256
     max_target_positions: int = 1024
     no_scale_embedding: bool = False
+    compute_dtype: str = "float32"
 
-    def __post_init__(self):
-        if self.activation not in ACTIVATION_CODES:
-            raise NotImplementedError(
-                f"the port's FFN kernel computes {sorted(ACTIVATION_CODES)}, "
-                f"not {self.activation!r}")
+    @property
+    def dtype(self) -> torch.dtype:
+        return compute_dtype(self.compute_dtype)
 
     @property
     def embed_scale(self) -> float:
@@ -121,40 +125,49 @@ class Decoder(nn.Module):
 
 def _ffn(p: DecoderLayer, cfg: DecoderConfig, x,
          rngs: Optional[RngStream] = None):
-    """x + drop_o(fc2(drop_a(act(fc1(LN(x)))))): one fused_ffn pass; one
-    seed keys both dropout sites."""
-    h = layer_norm(p.final_ln, x)
+    """x + drop_o(fc2(drop_a(act(fc1(LN(x)))))) (post-LN: LN(x + ...(x))):
+    one fused_ffn pass; one seed keys both dropout sites."""
+    h = layer_norm(p.final_ln, x) if cfg.normalize_before else x
     d = h.dtype
     seed = next_seed(rngs)
     on = seed is not None
-    return x + fused_ffn(h, p.fc1.weight.to(d), p.fc1.bias.to(d),
-                         p.fc2.weight.to(d), p.fc2.bias.to(d), cfg.activation,
-                         cfg.activation_dropout if on else 0.0,
-                         cfg.dropout if on else 0.0, seed or 0)
+    y = x + fused_ffn(h, cast(p.fc1.weight, d), cast(p.fc1.bias, d),
+                      cast(p.fc2.weight, d), cast(p.fc2.bias, d),
+                      cfg.activation,
+                      cfg.activation_dropout if on else 0.0,
+                      cfg.dropout if on else 0.0, seed or 0)
+    return y if cfg.normalize_before else layer_norm(p.final_ln, y)
 
 
 def _sublayer(p_attn, p_ln, cfg: DecoderConfig, x, key_value, *,
-              key_valid=None, causal=False, rngs: Optional[RngStream] = None):
-    """x + dropout(attention(LN(x))); self-attention when key_value is None.
-    The residual add and its dropout are the fused_linear_res epilogue."""
-    h = layer_norm(p_ln, x)
+              key_valid=None, causal=False, rngs: Optional[RngStream] = None,
+              normalize_before: bool = True):
+    """x + dropout(attention(LN(x))) (post-LN: LN(x + dropout(attention(
+    x)))); self-attention when key_value is None.  The residual add and its
+    dropout are the fused_linear_res epilogue.  Only the decoder layer
+    passes cfg.normalize_before: the MMA, CIF and label-encoder layers are
+    pre-LN in their attention sublayers whatever the config, as in the JAX
+    package."""
+    h = layer_norm(p_ln, x) if normalize_before else x
     kv = h if key_value is None else key_value
     y, _ = attn.mha_forward(p_attn, h, kv, kv, cfg.num_heads,
                             key_valid=key_valid, causal=causal,
                             dropout_rate=cfg.attention_dropout,
                             seed=next_seed(rngs),
                             epilogue=(x, cfg.dropout, next_seed(rngs)))
-    return y
+    return y if normalize_before else layer_norm(p_ln, y)
 
 
 def decoder_layer_forward(p: DecoderLayer, cfg: DecoderConfig, x, encoder_out,
                           encoder_valid, *, self_attn_valid=None,
                           rngs: Optional[RngStream] = None):
     """Teacher-forced layer. x: (B, T, D); encoder_out: (B, S, De)."""
+    pre = cfg.normalize_before
     x = _sublayer(p.self_attn, p.self_attn_ln, cfg, x, None,
-                  key_valid=self_attn_valid, causal=True, rngs=rngs)
+                  key_valid=self_attn_valid, causal=True, rngs=rngs,
+                  normalize_before=pre)
     x = _sublayer(p.encoder_attn, p.encoder_attn_ln, cfg, x, encoder_out,
-                  key_valid=encoder_valid, rngs=rngs)
+                  key_valid=encoder_valid, rngs=rngs, normalize_before=pre)
     return _ffn(p, cfg, x, rngs)
 
 
@@ -162,23 +175,27 @@ def decoder_layer_step(p: DecoderLayer, cfg: DecoderConfig,
                        cache: attn.KVCache, x_step, encoder_out,
                        encoder_valid) -> Tuple[torch.Tensor, attn.KVCache]:
     """Incremental step (no dropout). x_step: (B, 1, D)."""
-    out, cache = attn.mha_step(p.self_attn, cache,
-                               layer_norm(p.self_attn_ln, x_step),
-                               cfg.num_heads)
-    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, cfg, x_step + out,
-                  encoder_out, key_valid=encoder_valid)
+    pre = cfg.normalize_before
+    out, cache = attn.mha_step(
+        p.self_attn, cache,
+        layer_norm(p.self_attn_ln, x_step) if pre else x_step, cfg.num_heads)
+    x = x_step + out
+    if not pre:
+        x = layer_norm(p.self_attn_ln, x)
+    x = _sublayer(p.encoder_attn, p.encoder_attn_ln, cfg, x, encoder_out,
+                  key_valid=encoder_valid, normalize_before=pre)
     return _ffn(p, cfg, x), cache
 
 
 def output_layer(p: Decoder, cfg: DecoderConfig, x):
     if cfg.share_input_output_embed:
-        return x @ p.embed_tokens.weight.to(x.dtype).T
+        return x @ cast(p.embed_tokens.weight, x.dtype).T
     return linear(p.output_projection, x)
 
 
 def decoder_embed(p: Decoder, cfg: DecoderConfig, tokens, positions,
                   rngs: Optional[RngStream] = None):
-    x = cfg.embed_scale * embedding(p.embed_tokens, tokens)
+    x = cfg.embed_scale * embedding(p.embed_tokens, tokens, cfg.dtype)
     x = x + p.pos_table[positions].to(x.dtype)
     return dropout(x, cfg.dropout, next_seed(rngs))
 
@@ -204,7 +221,9 @@ class DecoderState(NamedTuple):
 
 
 def decoder_init_state(cfg: DecoderConfig, batch: int, max_len: int,
-                       dtype=torch.float32, device=None) -> DecoderState:
+                       dtype=None, device=None) -> DecoderState:
+    """The KV caches in `dtype`, by default the config's compute dtype."""
+    dtype = cfg.dtype if dtype is None else dtype
     hd = cfg.embed_dim // cfg.num_heads
     caches = tuple(attn.kv_cache_init(batch, cfg.num_heads, max_len, hd,
                                       dtype, device)

@@ -49,7 +49,9 @@ def cif_function(x, alpha, beta: float = 1.0, tail_thres: float = 0.5,
     else:
         fires = torch.floor(alpha_sum / beta).long()
 
-    out, delays = cif_integrate(x, alpha, float(beta), t)
+    # the integration runs in fp32 whatever x's dtype, as the JAX package's
+    # (its reference and its Pallas call take x as fp32)
+    out, delays = cif_integrate(x.float(), alpha, float(beta), t)
     out = out.to(x.dtype)
 
     if target_lengths is not None:

@@ -62,12 +62,13 @@ def cif_integrate_forward(x, alpha, beta: float, t: int):
                          f"{tuple(x.shape)}, {tuple(alpha.shape)}, t {t}")
     if not beta > 0.0:
         raise ValueError(f"cif_integrate: beta must be positive, got {beta}")
+    if x.dtype != torch.float32 or alpha.dtype != torch.float32:
+        raise TypeError(f"cif_integrate: kernel takes fp32 x and alpha, got "
+                        f"{x.dtype} and {alpha.dtype}")
     # the host work of a call at serving shapes is most of its time: copy
-    # nothing that is already fp32 and contiguous
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        x = x.float().contiguous()
-    if alpha.dtype != torch.float32:
-        alpha = alpha.float()
+    # nothing that is already contiguous
+    if not x.is_contiguous():
+        x = x.contiguous()
     csum = torch.cumsum(alpha, dim=1)   # the plain version's, cumsums()
     if not alpha.is_contiguous():
         alpha, csum = alpha.contiguous(), csum.contiguous()

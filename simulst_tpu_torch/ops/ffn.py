@@ -4,7 +4,9 @@
                     Emformer pos_ff block
   fused_ffn:        y = drop_o(fc2(drop_a(act(fc1(x)))))   the decoder FFN
 
-Both take relu or gelu and both dropout sites, forward and backward.  Both
+Both take gelu, relu, silu or tanh and both dropout sites, forward and
+backward (the JAX package computes silu and tanh in XLA; the port runs
+every activation through its kernel).  Both
 run the CUDA kernels of csrc/ffn.cu on a CUDA tensor, at any row count,
 and their plain PyTorch versions (`ln_ffn_res_plain`,
 `ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`) on a CPU
@@ -13,7 +15,9 @@ H), w2 (H, D).  The plain versions round to the activation dtype where the
 kernel does (fc1 input, hidden, the gradients the JAX kernel casts), so
 bf16 compares like with like; in fp32 they are the JAX package's
 ln_ffn_res_reference and ffn_reference at dropout 0.  LN statistics and the
-residual are fp32, eps 1e-5.  Dropout masks come from ops/philox.py: the
+residual are fp32, eps 1e-5; on the card the LN parameters are fp32
+whatever the activation dtype (the kernel raises on others), as the JAX
+package passes them, and their gradients are fp32.  Dropout masks come from ops/philox.py: the
 hidden site is stream 0 at offset row * H + column, the output site stream
 1 at row * D + column, both keyed by the call's seed, so the plain version,
 the kernel and the backward all drop the same elements.  The plain
@@ -40,16 +44,28 @@ WGRAD_TILE = 64      # k_splits counts weight-gradient tiles of 64 x 64
 # take the same time at 384-512 rows, where the fused kernel still has 16
 # hidden splits; from 513 rows it has 8 (PERF.md)
 TILED_MIN_ROWS = 512
-ACTIVATION_CODES = {"gelu": 0, "relu": 1}
+ACTIVATION_CODES = {"gelu": 0, "relu": 1, "silu": 2, "tanh": 3}
 
 
 def _act(name: str, u):
-    return torch.relu(u) if name == "relu" else gelu(u)
+    if name == "relu":
+        return torch.relu(u)
+    if name == "silu":
+        return u * torch.sigmoid(u)
+    if name == "tanh":
+        return torch.tanh(u)
+    return gelu(u)
 
 
 def _act_grad(name: str, u):
     if name == "relu":
         return (u > 0).to(u.dtype)
+    if name == "silu":
+        s = torch.sigmoid(u)
+        return s * (1.0 + u * (1.0 - s))
+    if name == "tanh":
+        t = torch.tanh(u)
+        return 1.0 - t * t
     cdf = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
     return cdf + u * 0.3989422804014327 * torch.exp(-0.5 * u * u)
 
@@ -228,15 +244,22 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _check_ln(name, x, ln_g, ln_b):
+    """The LN parameters: fp32 CUDA vectors on x's device."""
+    _build.check_cuda(name, ln_g, ln_g=ln_g, ln_b=ln_b)
+    if ln_g.dtype != torch.float32 or ln_g.device != x.device:
+        raise TypeError(f"{name}: ln_g and ln_b must be float32 on "
+                        f"{x.device}, got {ln_g.dtype} on {ln_g.device}")
+
+
 def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
             act_rate=0.0, out_rate=0.0, seed=0):
     name = "fused_ln_ffn_res" if ln_res else "fused_ffn"
     d, hidden = _check_shapes(name, x, w1, w2)
     x2 = x.reshape(-1, d).contiguous()
-    vecs = dict(b1=b1, w1=w1, w2=w2, b2=b2)
+    _build.check_cuda(name, x2, b1=b1, w1=w1, w2=w2, b2=b2)
     if ln_res:
-        vecs.update(ln_g=ln_g, ln_b=ln_b)
-    _build.check_cuda(name, x2, **vecs)
+        _check_ln(name, x2, ln_g, ln_b)
     n = x2.shape[0]
     y = torch.empty_like(x2)
     if n == 0:
@@ -301,8 +324,8 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
     x2 = x.reshape(-1, d).contiguous()
     dy2 = dy.reshape(-1, d).contiguous()
     w1, w2 = _build.aligned(w1), _build.aligned(w2)   # the products' operands
-    _build.check_cuda(name, x2, ln_g=ln_g, ln_b=ln_b, w1=w1, b1=b1, w2=w2,
-                      dy=dy2)
+    _build.check_cuda(name, x2, w1=w1, b1=b1, w2=w2, dy=dy2)
+    _check_ln(name, x2, ln_g, ln_b)
     n = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     o_dw2, o_db1 = d * hidden, 2 * d * hidden

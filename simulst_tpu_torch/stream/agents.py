@@ -51,6 +51,7 @@ class AgentConfig:
     max_tgt_len: int = 256
     force_finish: bool = True
     overshoot_weight: float = 1.0   # CIF's EOS overshoot bias
+    max_len_factor: float = 10.0    # unread, as in the JAX package
 
 
 def chunk_geometry_ms(cfg) -> tuple:
@@ -73,7 +74,7 @@ class StreamingSession:
         self.enc_state = s2t.encoder_init_state(agent.model.encoder, cfg, 1,
                                                 device=dev)
         self.enc_buf = torch.zeros(1, agent.acfg.max_src_frames,
-                                   cfg.embed_dim, device=dev)
+                                   cfg.embed_dim, dtype=cfg.dtype, device=dev)
         self.src_len = 0
         self.finished_read = False
         self.finished = False
@@ -457,7 +458,7 @@ class CIFSession(StreamingSession):
         self.cif_state = cif_mod.cif_layer_init_state(agent.model.cif, cfg, 1,
                                                       device=dev)
         self.cif_buf = torch.zeros(1, agent.acfg.max_tgt_len, cfg.embed_dim,
-                                   device=dev)
+                                   dtype=cfg.dtype, device=dev)
         self.cif_len = 0
 
     def _consume_encoder_extra(self, out):

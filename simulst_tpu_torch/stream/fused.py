@@ -91,9 +91,10 @@ class CIFFusedState(NamedTuple):
 
 
 def cif_fused_init(model: cif_mod.CIFModel, cfg: cif_mod.CIFConfig,
-                   max_tokens: int, batch: int = 1, dtype=torch.float32,
+                   max_tokens: int, batch: int = 1, dtype=None,
                    device=None) -> CIFFusedState:
     device = device or next(model.parameters()).device
+    dtype = cfg.dtype if dtype is None else dtype
     return CIFFusedState(
         enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
         cif=cif_mod.cif_layer_init_state(model.cif, cfg, batch, dtype,
@@ -185,8 +186,9 @@ class MMAFusedState(NamedTuple):
 
 def mma_fused_init(model: mma_mod.MMAModel, cfg: mma_mod.MMAConfig,
                    max_src: int, max_tokens: int, batch: int = 1,
-                   dtype=torch.float32, device=None) -> MMAFusedState:
+                   dtype=None, device=None) -> MMAFusedState:
     device = device or next(model.parameters()).device
+    dtype = cfg.dtype if dtype is None else dtype
     return MMAFusedState(
         enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
         dec=mma_mod.mma_decoder_init_state(cfg, batch, max_tokens, dtype,
@@ -278,9 +280,10 @@ class TransducerFusedState(NamedTuple):
 def transducer_fused_init(model: tr.TransducerModel,
                           cfg: tr.TransducerConfig, max_src: int,
                           max_tokens: int, batch: int = 1,
-                          dtype=torch.float32,
+                          dtype=None,
                           device=None) -> TransducerFusedState:
     device = device or next(model.parameters()).device
+    dtype = cfg.dtype if dtype is None else dtype
     return TransducerFusedState(
         enc=s2t.encoder_init_state(model.encoder, cfg, batch, dtype, device),
         dec=tr.init_decode_state(cfg, batch, max_tokens, dtype, device),

@@ -18,7 +18,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from simulst_tpu_torch.nn.core import RngStream
+from simulst_tpu_torch.nn.core import RngStream, step_casts
 from simulst_tpu_torch.train.optim import (Adam, OptimConfig,
                                            clip_by_global_norm_, global_norm)
 
@@ -44,8 +44,10 @@ def sum_metrics(acc: Optional[Dict], m: Dict) -> Dict:
 def accumulate_grads(state: TrainState, loss_fn: Callable, batch: Dict,
                      rngs: Optional[RngStream]) -> Dict:
     """One microbatch: loss_fn(model, batch, rngs) -> (loss, metrics); the
-    loss's gradient is added to each parameter's .grad."""
-    loss, metrics = loss_fn(state.model, batch, rngs)
+    loss's gradient is added to each parameter's .grad; the parameters'
+    casts to a compute dtype are made together (`step_casts`)."""
+    with step_casts(state.model):
+        loss, metrics = loss_fn(state.model, batch, rngs)
     loss.backward()
     return sum_metrics(None, metrics)
 

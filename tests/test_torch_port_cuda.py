@@ -18,7 +18,8 @@ CIF integrate-and-fire holds out and delays to 1e-5 of their largest
 entries (both sides take the same cumsums; only the order of the sums
 over frames differs).  The grouped attention's example-id gate
 (sequence-packed rows) holds its forward and backward to the dense
-kernels' tolerances.
+kernels' tolerances.  The FFN kernels' silu and tanh run fp32 and bf16
+at these tolerances.
 """
 import pytest
 
@@ -253,15 +254,51 @@ def test_grouped_attention_backward_matches_plain(randn, geom_id, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype_id", list(DTYPES))
+@pytest.mark.parametrize("rows", [1, 40, 300, TILED_MIN_ROWS, 4133])
+@pytest.mark.parametrize("activation", ["silu", "tanh"])
+def test_ffn_kernels_take_silu_and_tanh(randn, activation, rows, dtype_id):
+    """silu and tanh in both FFN kernels, forward and backward, at dropout
+    0.1, on the fused (below TILED_MIN_ROWS) and the tiled path: fp32 at
+    TOL and 1e-4 of the largest entry on weight gradients; bf16 at atol
+    3e-2, rtol 1e-2 and 1e-2 of the largest entry."""
+    dtype, tol = DTYPES[dtype_id]
+    wtol = 1e-4 if dtype == torch.float32 else 1e-2
+    x, dy = randn(rows, 256).to(dtype), randn(rows, 256).to(dtype)
+    g, b = 1 + randn(256, scale=0.1), randn(256, scale=0.1)
+    w1, b1 = randn(256, 2048, scale=0.03), randn(2048, scale=0.02)
+    w2, b2 = randn(2048, 256, scale=0.03), randn(256, scale=0.02)
+    w1, b1, w2, b2 = (t.to(dtype) for t in (w1, b1, w2, b2))  # LN fp32
+    cfg = (activation, 0.1, 0.1, 41)
+    torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2, *cfg),
+                               ffn_plain(x, w1, b1, w2, b2, *cfg), **tol)
+    torch.testing.assert_close(
+        fused_ln_ffn_res(x, g, b, w1, b1, w2, b2, *cfg),
+        ln_ffn_res_plain(x, g, b, w1, b1, w2, b2, *cfg), **tol)
+    for got, want in (
+            (fused_ffn_backward(x, w1, b1, w2, dy, *cfg),
+             ffn_plain_backward(x, w1, b1, w2, dy, *cfg)),
+            (fused_ln_ffn_res_backward(x, g, b, w1, b1, w2, dy, *cfg),
+             ln_ffn_res_plain_backward(x, g, b, w1, b1, w2, dy, *cfg))):
+        torch.testing.assert_close(got[0], want[0], **tol)
+        for gw, w in zip(got[1:], want[1:]):
+            _close_to_largest(gw, w, wtol)
+
+
+@pytest.mark.cuda
 def test_ln_ffn_and_grouped_attention_take_bf16(randn):
     """bf16 in, fp32 sums; tolerance atol 3e-2, rtol 1e-2 on outputs and
     activation gradients (a flip of the last bf16 rounding is 2^-8
-    relative), 1e-2 of the largest entry on weight gradients."""
+    relative), 1e-2 of the largest entry on weight gradients.  The LN
+    parameters are fp32 (bf16 ones raise)."""
     bf = torch.bfloat16
     ws = [(1 + randn(256, scale=0.1)), randn(256, scale=0.1),
           randn(256, 2048, scale=0.03), randn(2048, scale=0.02),
           randn(2048, 256, scale=0.03), randn(256, scale=0.02)]
-    ws = [w.to(bf) for w in ws]
+    ws = ws[:2] + [w.to(bf) for w in ws[2:]]
+    with pytest.raises(TypeError, match="float32"):
+        fused_ln_ffn_res(randn(8, 256).to(bf), ws[0].to(bf), ws[1].to(bf),
+                         *ws[2:])
     # 4,133 rows: three K slices of the weight products, with bf16 weights
     # that are 2-byte rows for the products' 8-byte loads
     for rows, act in ((300, "gelu"), (4133, "gelu")):
@@ -772,6 +809,8 @@ def test_cif_integrate_refuses_what_it_does_not_take(randn):
         cif_integrate.cif_integrate(x, alpha, 0.0, 4)
     with pytest.raises(ValueError):
         cif_integrate.cif_integrate(x, alpha.cpu(), 1.0, 4)
+    with pytest.raises(TypeError):   # fp32 only; the caller casts
+        cif_integrate.cif_integrate(x.bfloat16(), alpha, 1.0, 4)
 
 
 # the linear-res forward's shapes: (rows, period, residual rows)

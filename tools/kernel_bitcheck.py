@@ -20,6 +20,9 @@ inputs, and each output is compared with torch.equal:
   simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2 through the
                          wrapper; fp32 and bf16, gelu and relu, dropout 0
                          and 0.1, at 1, 300, 4,133 and 12,288 rows
+                         (bf16 LN parameters: each build takes them in its
+                         own dtype, fp32 from the build whose LN-FFN reads
+                         fp32 ones, with the same values)
   simulst_cif_integrate  out and delays at the shapes of
                          tests/test_torch_port_cuda.py's CIF cases (a
                          revision whose entry takes cprev gets csum - alpha
@@ -293,6 +296,31 @@ def export(rev, dest):
     return out
 
 
+def takes_f32_ln(csrc):
+    """Whether the build of `csrc` reads the LN-FFN's LN parameters in
+    fp32 whatever the activation dtype (before that, in its dtype)."""
+    return "const float* __restrict__ ln_g" in (csrc / "ffn.cu").read_text()
+
+
+def ln_params_for(f32_ln, ws):
+    """(ln_g, ln_b, w1, b1, w2, b2) with the LN parameters in the dtype a
+    build takes: fp32 (the same values) for one that reads fp32."""
+    return (ws[0].float(), ws[1].float(), *ws[2:]) if f32_ln else ws
+
+
+@contextlib.contextmanager
+def ln_check_of(ffn, f32_ln):
+    """For a build whose LN-FFN takes its LN parameters in the activation
+    dtype, the wrapper's fp32 check is lifted."""
+    saved = ffn._check_ln
+    if not f32_ln:
+        ffn._check_ln = lambda *a: None
+    try:
+        yield
+    finally:
+        ffn._check_ln = saved
+
+
 @contextlib.contextmanager
 def library_of(_build, lib):
     """Route the wrappers' launches to `lib`."""
@@ -338,7 +366,7 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
         *(w.data_ptr() for w in ws), y.data_ptr(), partial.data_ptr(),
         *scratch, n, 256, 2048, plan.splits,
         *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
-    call.y, call.keep = y, (partial, xn, h)
+    call.y, call.keep = y, (partial, xn, h, ws)
     if call():
         raise RuntimeError("simulst_ffn: CUDA error")
     return call
@@ -681,6 +709,7 @@ def main():
         (ref_csrc / "cif.cu").read_text()
     ref_takes_scratch = "void* xn, void* h" in \
         (ref_csrc / "ffn.cu").read_text()
+    f32_ln = {"rev": takes_f32_ln(ref_csrc), "this": True}
     _P, _I = _build._P, _build._I
     if not ref_takes_scratch:    # simulst_ffn before the tiled path
         libs["rev"].simulst_ffn.argtypes = (
@@ -726,7 +755,7 @@ def main():
     def ffn_fwd(key, ln_res, act, x, ws, rate, tiled):
         takes = ref_takes_scratch if key == "rev" else True
         return ffn_entry(torch, _build, ffn, libs[key], takes, ln_res, act,
-                         x, ws, rate, tiled)
+                         x, ln_params_for(f32_ln[key], ws), rate, tiled)
 
     def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
         takes = ref_lr_path if key == "rev" else True
@@ -774,9 +803,11 @@ def main():
                     x, ws, dy = ln_ffn_inputs(torch, rows, dtype, rows)
                     outs = {}
                     for key, lib in libs.items():
-                        with library_of(_build, lib):
+                        with library_of(_build, lib), \
+                                ln_check_of(ffn, f32_ln[key]):
                             outs[key] = ffn.fused_ln_ffn_res_backward(
-                                x, *ws[:5], dy, act, rate, rate, 29)
+                                x, *ln_params_for(f32_ln[key], ws)[:5], dy,
+                                act, rate, rate, 29)
                     torch.cuda.synchronize()
                     report("simulst_ln_ffn_bwd",
                            f"{str(dtype)[6:]} {act} rate {rate} rows {rows}",
