@@ -260,7 +260,25 @@ targets):
               and the VGG frontend, forward and backward, kernels vs plain
               (`python3 tools/bf16_smoke.py`: this phase with phases 3, 7
               and 8 only)
- 21. report   a JSON line of per-kernel numbers with their bounds, the
+ 21. parallel  two ranks spawned by comm.spawn (each on its own
+              card over NCCL; where the machine has one card, both share
+              it over gloo, which the phase prints first, with the
+              ranks and the card count): the dry run's cases at its tiny
+              width (multichip.dryrun_rank: data-parallel updates with a
+              NaN skip, seq-sharded and pipelined Emformer, sharded BLEU /
+              WER, sharded CIF streaming, multi-host input), then at full
+              width: a data-parallel asr-train step on phase 7's batch
+              (16 utterances per rank) against the one-process step from
+              the same parameters, the same with fc1 / fc2 /
+              emb_to_key_value split over 2 model ranks, the 12 layers in 2
+              pipeline stages through pipelined_train_loss on that batch,
+              the seq-sharded encoder on the 1024-frame bucket (U 256 = 2
+              ranks x 8 segments of 16), and fused CIF serving of 8
+              sessions over the 2 ranks; each rank's kernel launches
+              (`python3 tools/parallel_smoke.py`: this phase with phase
+              7's batch only).  Two ranks on one card are no scaling
+              figure: the phase proves equality, not speed
+ 22. report   a JSON line of per-kernel numbers with their bounds, the
               nvidia-smi line, and {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
@@ -326,6 +344,18 @@ or when any phase fails.  Tolerances:
   model options (post-LN, silu, post-LN decoder), fp32: outputs
                          atol 1e-4, gradients within 1e-4 of their largest
                          entry; VGG on the card vs the CPU atol 1e-4
+  parallel, fp32, dropout 0, against the one-process path from the same
+                         parameters: losses rtol 1e-5, every gradient and
+                         the seq-sharded output within 1e-4 of its largest
+                         entry (of its weight's for a key bias), the
+                         data-parallel ranks' parameters bit for bit equal
+                         after the update, an update's loss and norm rtol
+                         1e-4 and its parameters within twice its learning
+                         rate (Adam moves an entry whose gradient is
+                         rounding noise by up to that, either way); the
+                         sharded serving tokens and the sharded BLEU / WER
+                         statistics equal; the dry run's own limits
+                         (multichip.dryrun_rank)
 The bound of a kernel is the larger of its bytes (each input read once,
 each output written once) over 3.35 TB/s and its operations (on this
 run's visible pairs, for attention) over the peak of an H100 SXM at 700 W
@@ -5105,6 +5135,158 @@ def phase_bf16(dev, batch, speech, fp32_tokens, fp32_asr):
     return launches, report
 
 
+PARALLEL_RANKS = 2
+PARALLEL_SEQ_SEGMENTS = 8          # per rank: U 256 on the 1024-frame bucket
+PARALLEL_SERVE_SESSIONS = 8
+PARALLEL_SERVE_EOS_SCALE = 0.1     # as phase 15's CIF: a random model writes
+PARALLEL_UPDATE_RTOL = 1e-4        # an update's loss and norm, full width
+
+
+def parallel_launches_ok(tag, launches, kernels):
+    missing = [k for k in kernels if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"{tag}: {missing} did not launch: {launches}")
+
+
+def phase_parallel(dev, batch):
+    """21. Two ranks: the dry run's cases, then the full-width
+    data-parallel, tensor-parallel, pipelined and seq-sharded training
+    paths and sharded CIF serving, each against the one-process path on
+    rank 0 (simulst_tpu_torch/multichip.py).  Returns the kernel launches
+    of every rank and case, summed."""
+    import torch
+    from simulst_tpu_torch import multichip as mc
+    from simulst_tpu_torch.models.cif import CIFConfig
+    from simulst_tpu_torch.models.s2t_emformer import S2TEmformerConfig
+    from simulst_tpu_torch import comm
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    backend = ("nccl" if cards >= PARALLEL_RANKS else
+               "gloo: the ranks share one card, collectives staged through "
+               "the host")
+    print(f"phase21 parallel: {PARALLEL_RANKS} ranks, {cards} card(s), "
+          f"backend {backend}", flush=True)
+    no_drop = dict(dropout=0.0, attention_dropout=0.0,
+                   activation_dropout=0.0)
+    cfg = S2TEmformerConfig(vocab_size=ASR_VOCAB, ctc_layer=True, **no_drop)
+    ecfg = cfg.emformer
+    asr = {k: v.cpu().numpy() for k, v in batch.items()}
+    piped = {"feats": asr["feats"], "lengths": asr["feat_lengths"],
+             "prev": asr["prev_tokens"], "target": asr["target"]}
+    U = PARALLEL_RANKS * PARALLEL_SEQ_SEGMENTS * ecfg.segment
+    rs = np.random.RandomState(SEED + 21)
+    lengths = np.minimum(subsampled(asr["feat_lengths"]), U)
+    x = rs.randn(len(lengths), U + ecfg.right_context,
+                 cfg.embed_dim).astype(np.float32)
+    valid = np.arange(U)[None, :] < lengths[:, None]
+    x[:, :U] *= valid[:, :, None]
+    w = rs.randn(len(lengths), U, cfg.embed_dim).astype(np.float32)
+    w *= valid[:, :, None]
+    scfg = CIFConfig(**no_drop)
+    torch.cuda.empty_cache()          # the ranks share this card
+    with tempfile.TemporaryDirectory() as root:
+        cases = [
+            ("dryrun", "dryrun_rank",
+             {"data": mc.dryrun_data(root, PARALLEL_RANKS)}),
+            ("dp", "train_steps", dict(cfg=cfg, params=None, batch=asr)),
+            ("tp", "train_steps", dict(cfg=cfg, params=None, batch=asr,
+                                       n_data=1, n_model=PARALLEL_RANKS)),
+            ("pp", "pipeline_train", dict(cfg=cfg, params=None, batch=piped,
+                                          n_micro=2)),
+            ("sp", "seq_sharded", dict(ecfg=ecfg, params=None, x=x,
+                                       lengths=lengths, weight=w)),
+            ("serve", "sharded_streaming", dict(
+                kind="cif", cfg=scfg, params=None,
+                chunks=mc.streaming_chunks(scfg, PARALLEL_SERVE_SESSIONS,
+                                           n_mid=6),
+                max_tokens=64, eos_scale=PARALLEL_SERVE_EOS_SCALE))]
+        t0 = time.perf_counter()
+        ranks = comm.spawn(mc.run_cases, PARALLEL_RANKS, (cases,),
+                           dev.type)
+        spawn_s = time.perf_counter() - t0
+    for line in ranks[0]["dryrun"]["lines"]:
+        print(f"phase21 dryrun {line}", flush=True)
+    first = ranks[0]
+    lines = []
+    # data parallel: 16 utterances per rank; tensor parallel: the whole
+    # batch on both model ranks, the slices' gradients gathered
+    for tag in ("dp", "tp"):
+        mc.check(f"{tag} loss", abs(first[tag]["loss"] /
+                                    first[tag]["ref_loss"] - 1), 1e-5, lines)
+        mc.check_grads(f"{tag} gradients", first[tag], 1e-4, lines)
+        for r in ranks[1:]:
+            for k, v in first[tag]["params"].items():
+                if not np.array_equal(r[tag]["params"][k], v):
+                    raise AssertionError(f"{tag}: rank {r[tag]['rank']}'s "
+                                         f"{k} differs from rank 0's")
+        mc.check_updates(first[tag], [0.0], lines, tag,
+                         rtol=PARALLEL_UPDATE_RTOL)
+    for r in ranks:
+        per_rank = {k: r["dp"]["launches"].get(k)
+                    for k in ASR_LAUNCHES_PER_STEP}
+        if per_rank != ASR_LAUNCHES_PER_STEP:
+            raise AssertionError(f"dp rank {r['dp']['rank']} launches "
+                                 f"{per_rank}, expected "
+                                 f"{ASR_LAUNCHES_PER_STEP}")
+    # pipeline: 6 layers a stage, 2 microbatches of 16
+    pp = first["pp"]
+    mc.check("pp loss", abs(pp["loss"] / pp["ref_loss"] - 1), 1e-5, lines)
+    mc.check_grads("pp gradients", pp, 1e-4, lines)
+    mc.check_updates(dict(history=[pp["update"]],
+                          ref_history=[pp["ref_update"]],
+                          params=pp["params"], ref_params=pp["ref_params"]),
+                     [0.0], lines, "pp", rtol=PARALLEL_UPDATE_RTOL)
+    stage_kernels = ("fused_ln_ffn_res", "fused_ln_ffn_res_backward",
+                     "emformer_grouped_attention",
+                     "emformer_grouped_attention_backward")
+    parallel_launches_ok("pp stage 0", ranks[0]["pp"]["launches"],
+                         stage_kernels + ("convpos_wgrad",))
+    parallel_launches_ok("pp stage 1", ranks[1]["pp"]["launches"],
+                         stage_kernels + ("fused_mha", "fused_ffn",
+                                          "ctc_alphas", "ctc_d_em"))
+    # seq-sharded encoder
+    sp = first["sp"]
+    mc.check("sp output", mc.rel_err(sp["out"], sp["ref_out"]), 1e-4, lines)
+    mc.check_grads("sp gradients", sp, 1e-4, lines)
+    # sharded serving
+    serve = first["serve"]
+    if not (np.array_equal(serve["tokens"], serve["ref_tokens"]) and
+            np.array_equal(serve["n_tokens"], serve["ref_n_tokens"])):
+        raise AssertionError("sharded CIF serving tokens differ from the "
+                             "one-process batch's")
+    if serve["n_tokens"].sum() == 0:
+        raise AssertionError("sharded CIF serving wrote no token")
+    for r in ranks:
+        parallel_launches_ok(f"rank {r['dp']['rank']} tp",
+                             r["tp"]["update_launches"],
+                             [k for k, n in ASR_LAUNCHES_PER_STEP.items()
+                              if n])
+        parallel_launches_ok(f"rank {r['dp']['rank']} sp",
+                             r["sp"]["launches"],
+                             ("fused_ln_ffn_res", "fused_ln_ffn_res_backward"))
+        parallel_launches_ok(f"rank {r['dp']['rank']} serve",
+                             r["serve"]["launches"],
+                             ("fused_ln_ffn_res", "fused_ffn",
+                              "cif_integrate"))
+    launches = defaultdict(int)
+    for r in ranks:
+        for res in r.values():
+            for key in ("launches", "update_launches", "train_launches",
+                        "seq_launches"):
+                for k, v in (res.get(key) or {}).items():
+                    launches[k] += v
+    log("phase21", ranks=PARALLEL_RANKS, cards=cards, backend=backend,
+        gpu=gpu_name_and_power_limit(), checks=lines,
+        dryrun_checks=ranks[0]["dryrun"]["lines"],
+        case_s={name: res.get("s") for name, res in first.items()
+                if isinstance(res, dict) and "s" in res},
+        serve_tokens=int(serve["n_tokens"].sum()), spawn_s=spawn_s,
+        phase_s=time.perf_counter() - t_phase,
+        launches={k: v for k, v in launches.items() if v})
+    return {name: launches.get(name, 0) for name in KERNELS}
+
+
 def run(dev):
     import torch
     from simulst_tpu_torch.cli.generate import decode_batch
@@ -5307,17 +5489,21 @@ def run(dev):
                                             asr_fp32)
     for name, fields in bf16_report.items():
         report.setdefault(name, {}).update(fields)
+
+    # 21. parallel: two ranks (the dry run, then the full-width data-,
+    # tensor-, pipeline- and sequence-parallel paths and sharded serving)
+    parallel = phase_parallel(dev, asr)
     del asr, speech, feats, lengths
     workdir.cleanup()
 
-    # 21. report
+    # 22. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
              "batched-serving": batched_serving,
              "offline-decode": offline_decode, "asr-pack": pack_training,
              "transducer": transducer, "data-to-score": data_to_score,
-             "bf16-training": bf16_training}
+             "bf16-training": bf16_training, "parallel": parallel}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -5326,7 +5512,8 @@ def run(dev):
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "bf16", "activations")}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
-    log("phase21", total_s=time.perf_counter() - started)
+    # the whole run's time (logged as "phase21" until phase 21 existed)
+    log("total", total_s=time.perf_counter() - started)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

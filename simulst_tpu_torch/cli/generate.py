@@ -22,6 +22,13 @@ A colon-separated --checkpoint decodes an ensemble.  The model is built
 from each checkpoint's metadata (cli/train's MODELS) and runs on the card
 unless --device names another.  exp/6_transducer.sh decodes its
 transducer with --model transducer --beam 1.
+
+Under torchrun (`torchrun --standalone --nproc-per-node N -m
+simulst_tpu_torch.cli.generate ...`) rank r of N decodes shard r of the
+subset (every N-th utterance of the length order, the reference's
+distributed generate), the BLEU / WER sufficient statistics are summed
+over the ranks (decode/scoring.score_stats), and rank 0 writes every
+rank's lines, by utterance, and the corpus score.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch import config as cfglib
 from simulst_tpu_torch.data.dataset import (BatcherConfig, SpeechDataset,
                                             make_batches)
@@ -39,7 +47,7 @@ from simulst_tpu_torch.data.manifest import load_tsv
 from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
 from simulst_tpu_torch.data.vocab import EOS, Vocabulary
 from simulst_tpu_torch.decode.beam import BeamConfig, beam_search, greedy_decode
-from simulst_tpu_torch.decode.scoring import corpus_bleu, wer
+from simulst_tpu_torch.decode.scoring import score_stats, scores_from_stats
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_convpos as convpos
@@ -356,10 +364,15 @@ def _find_vocab(data: str, path=None) -> Vocabulary:
 
 def main(argv=None) -> float:
     args = parser().parse_args(argv)
+    mesh, device = None, args.device
+    if comm.init_from_environment(args.device) is not None:
+        mesh = comm.make_mesh()
+        device = mesh.device
+    n_shards, shard = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     vocab = _find_vocab(args.data, args.vocab)
     overrides = dict(cfglib.parse_override(s) for s in args.override)
     models = [load_model(ckpt, len(vocab), args.model, overrides,
-                         device=args.device)
+                         device=device)
               for ckpt in args.checkpoint.split(":")]
 
     target_field = "src_text" if args.task == "asr" else "tgt_text"
@@ -376,13 +389,15 @@ def main(argv=None) -> float:
     if args.task == "mt":
         for i, r in enumerate(rows):
             r.setdefault("id", str(i))
+        mine = rows[shard::n_shards]
         batches = []
-        for b in make_text_batches(TextDataset(rows, vocab), bcfg):
-            b["ids"] = [rows[i]["id"] for i in b["indices"]]
+        for b in make_text_batches(TextDataset(mine, vocab), bcfg):
+            b["ids"] = [mine[i]["id"] for i in b["indices"]]
             batches.append(b)
     else:
         batches = make_batches(SpeechDataset(rows, vocab, bcfg,
-                                             target_field))
+                                             target_field),
+                               num_shards=n_shards, shard_id=shard)
 
     refs, hyps, lines = [], [], []
     id2row = {r["id"]: i for i, r in enumerate(rows)}
@@ -409,13 +424,21 @@ def main(argv=None) -> float:
                 ref = rows[i][target_field]
                 refs.append(ref)
                 hyps.append(hyp)
-                lines.append(f"S-{i}\t{rows[i].get('src_text', '')}")
-                lines.append(f"T-{i}\t{ref}")
-                lines.append(f"D-{i}\t0.0\t{hyp}")
+                lines.append((i, f"S-{i}\t{rows[i].get('src_text', '')}\n"
+                                 f"T-{i}\t{ref}\nD-{i}\t0.0\t{hyp}"))
 
-    score = (corpus_bleu(refs, hyps) if args.scoring == "bleu"
-             else wer(refs, hyps))
+    stats = score_stats(refs, hyps)
+    if mesh is not None:
+        comm.all_reduce_(mesh, stats, ["data"])
+        every = [None] * mesh.world
+        torch.distributed.all_gather_object(every, lines)
+        lines = sorted(line for part in every for line in part)
+    score = scores_from_stats(stats)[args.scoring]
+    lines = [text for _, text in lines]
     lines.append(f"SCORE\t{args.scoring}\t{score:.2f}")
+    if mesh is not None and mesh.rank != 0:
+        comm.shutdown(mesh)
+        return score
     text = "\n".join(lines)
     if args.output:
         with open(args.output, "w") as f:
@@ -423,6 +446,7 @@ def main(argv=None) -> float:
     else:
         print(text)
     print(f"{args.scoring}: {score:.2f}")
+    comm.shutdown(mesh)
     return score
 
 

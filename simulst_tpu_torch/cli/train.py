@@ -78,16 +78,32 @@ s2t_transformer_convpos (the ASR model before the Emformer), trains with
 --task asr|st --loss joint_ctc, the CE alone (it has no CTC head).  The
 model trains on the card unless --device names another.  Any other task,
 model or loss raises: those are not ported (ROADMAP Queue 1).
+
+Data parallelism on N cards of one node (the reference's fairseq DDP):
+
+  torchrun --standalone --nproc-per-node N -m simulst_tpu_torch.cli.train ...
+
+Every rank reads its node's manifest shard (make_batches shards by
+torchrun's node, as the JAX package shards by process) and trains on its
+rows of each batch; the gradients and metrics are summed over the ranks
+and divided by the global sample size (train/state.py), the validation
+loss and the inline BLEU / WER statistics are summed over the ranks, and
+only rank 0 writes checkpoints, logs, tensorboard and wandb.  Each rank
+runs on its own card over NCCL; --device cpu runs the ranks on the CPU
+over gloo.  --pack with more than one rank raises, as the JAX CLI
+asserts.  Without torchrun's environment nothing of this applies.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 
 import numpy as np
 import torch
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch import config as cfglib
 from simulst_tpu_torch.cli.generate import decode_batch
 from simulst_tpu_torch.data.dataset import (BatcherConfig, SpeechDataset,
@@ -96,7 +112,7 @@ from simulst_tpu_torch.data.manifest import filter_by_frames, load_tsv
 from simulst_tpu_torch.data.text_dataset import TextDataset, make_text_batches
 from simulst_tpu_torch.data.vocab import EOS, PAD, Vocabulary
 from simulst_tpu_torch.decode.beam import BeamConfig
-from simulst_tpu_torch.decode.scoring import corpus_bleu, wer
+from simulst_tpu_torch.decode.scoring import score_stats, scores_from_stats
 from simulst_tpu_torch.losses.cif_loss import CIFLossConfig, cif_loss
 from simulst_tpu_torch.losses.joint_ctc import JointCTCConfig, joint_ctc_loss
 from simulst_tpu_torch.losses.label_smoothed_ce import ce_loss
@@ -117,6 +133,7 @@ from simulst_tpu_torch.train.checkpoint import (conform_state,
                                                 load_checkpoint,
                                                 load_pretrained_component,
                                                 save_checkpoint)
+from simulst_tpu_torch.train import mesh as mesh_lib
 from simulst_tpu_torch.train import packing
 from simulst_tpu_torch.train.loop import LoopConfig, Trainer
 from simulst_tpu_torch.train.optim import OptimConfig
@@ -158,6 +175,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-updates", type=int, default=4000)
     p.add_argument("--clip-norm", type=float, default=10.0)
     p.add_argument("--patience", type=int, default=0)
+    p.add_argument("--log-interval", type=int, default=100,
+                   help="updates between train_log.jsonl records "
+                        "(fairseq's option)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--cmvn", default="utterance",
                    choices=["utterance", "global", "none"],
@@ -354,21 +374,27 @@ def optim_config(args) -> OptimConfig:
                        clip_norm=args.clip_norm)
 
 
-def build_valid_fn(args, vocab, loss_fn, batches_fn, device):
+def build_valid_fn(args, vocab, loss_fn, batches_fn, device, mesh=None):
     """Validation loss per sample_size unit, no dropout; with --eval-metric
     also the corpus BLEU or WER of the inline decode (greedy or beam
     --eval-beam through cli/generate's decode_batch), except for --task mt,
-    which validates on the loss alone, as the JAX package's does."""
+    which validates on the loss alone, as the JAX package's does.  With a
+    data-parallel `mesh` each rank validates its rows of every batch and
+    the loss sums and the score's statistics are summed over the ranks."""
     decode = args.eval_metric != "none" and args.task != "mt"
     beam_cfg = BeamConfig(beam_size=args.eval_beam,
                           max_len=args.eval_max_len)
+    parallel = mesh is not None and mesh.size("data") > 1
 
     def valid_fn(model):
         total, n = 0.0, 0.0
         refs, hyps = [], []
         for batch in batches_fn():
-            ids, n_real = batch.pop("ids", None), batch.pop("n_real", None)
+            ids = batch.pop("ids", None)
             batch.pop("indices", None)
+            if parallel:
+                batch = mesh_lib.shard_batch(mesh, batch)
+            n_real = batch.pop("n_real", None)
             batch = {k: torch.as_tensor(v, device=device)
                      for k, v in batch.items()}
             _, metrics = loss_fn(model, batch, None)
@@ -385,10 +411,16 @@ def build_valid_fn(args, vocab, loss_fn, batches_fn, device):
                      if t != EOS]))
                 refs.append(vocab.decode_ids(
                     [int(t) for t in target[j] if t not in (PAD, EOS)]))
-        out = {"loss": total / max(n, 1.0)}
-        if refs:
-            score = corpus_bleu if args.eval_metric == "bleu" else wer
-            out[args.eval_metric] = score(refs, hyps)
+        sums = torch.tensor([total, n], dtype=torch.float64)
+        stats = score_stats(refs, hyps) if decode else None
+        if parallel:
+            comm.all_reduce_(mesh, sums, ["data"])
+            if stats is not None:
+                stats = comm.all_reduce_(mesh, stats, ["data"])
+        out = {"loss": float(sums[0]) / max(float(sums[1]), 1.0)}
+        if stats is not None and float(stats[-1]) > 0:
+            out[args.eval_metric] = scores_from_stats(stats)[
+                args.eval_metric]
         return out
     return valid_fn
 
@@ -428,21 +460,40 @@ def _datasets(args, vocab, bcfg):
                              bcfg, field, global_stats=stats, mtl_src=mtl)
     valid_ds = SpeechDataset(rows(args.valid_split), vocab, valid_cfg, field,
                              global_stats=stats, mtl_src=mtl)
-    return (lambda epoch: make_batches(train_ds, epoch=epoch),
-            lambda: make_batches(valid_ds))
+    # one manifest shard per node; the node's ranks split its batches' rows
+    nodes, node = comm.node_shards()
+    return (lambda epoch: make_batches(train_ds, epoch=epoch,
+                                       num_shards=nodes, shard_id=node),
+            lambda: make_batches(valid_ds, num_shards=nodes, shard_id=node))
 
 
 def main(argv=None):
     args = parse_args(argv)
     if not args.data:
         raise SystemExit("--data is required")
+    mesh, device = None, args.device
+    if comm.init_from_environment(args.device) is not None:
+        mesh = comm.make_mesh()
+        device = mesh.device
+        print(f"data-parallel: rank {mesh.rank} of {mesh.world} on "
+              f"{device} over {mesh.backend}", flush=True)
+        if args.pack and mesh.size("data") > 1:
+            raise ValueError("--pack with data parallelism needs per-rank "
+                             "pack plans, which the JAX CLI refuses too")
     vocab = _find_vocab(args)
     bcfg = BatcherConfig(max_tokens=args.max_tokens, seed=args.seed,
                          cmvn=args.cmvn)
+    if mesh is not None:
+        # every batch splits evenly over the node's data ranks
+        nodes, _ = comm.node_shards()
+        bcfg = dataclasses.replace(bcfg, batch_multiple=math.lcm(
+            bcfg.batch_multiple, max(mesh.size("data") // nodes, 1)))
     train_batches, valid_batches = _datasets(args, vocab, bcfg)
 
-    model = build_model(args, len(vocab), device=args.device)
+    model = build_model(args, len(vocab), device=device)
     device = next(model.parameters()).device
+    if mesh is not None:
+        comm.replicate(mesh, model)
     loss_fn = build_loss(args, model)
     if args.pack:
         unpacked, n_p_by_bucket = train_batches, {}
@@ -454,6 +505,7 @@ def main(argv=None):
     best_metric = args.best_metric or (
         args.eval_metric if args.eval_metric != "none" else "loss")
     loop_cfg = LoopConfig(max_updates=args.max_updates, patience=args.patience,
+                          log_interval=args.log_interval,
                           save_dir=args.save_dir, seed=args.seed,
                           best_metric=best_metric,
                           maximize_metric=best_metric == "bleu",
@@ -465,20 +517,22 @@ def main(argv=None):
         metadata["cmvn"] = args.cmvn
     trainer = Trainer(loss_fn, optim_config(args), loop_cfg, model,
                       valid_fn=build_valid_fn(args, vocab, loss_fn,
-                                              valid_batches, device),
+                                              valid_batches, device, mesh),
                       freeze_until=({"encoder": args.encoder_freezing_updates}
                                     if args.encoder_freezing_updates > 0
                                     else None),
                       update_freq=args.update_freq, metadata=metadata,
-                      device=device)
+                      device=device, mesh=mesh)
     if args.resume:
         print(f"resumed from {args.resume} at update "
               f"{trainer.resume(args.resume)}")
 
     state = trainer.fit(train_batches)
-    save_checkpoint(os.path.join(args.save_dir, "checkpoint_last"),
-                    state.model.state_dict(),
-                    metadata={**metadata, "step": state.step})
+    if comm.is_main():
+        save_checkpoint(os.path.join(args.save_dir, "checkpoint_last"),
+                        state.model.state_dict(),
+                        metadata={**metadata, "step": state.step})
+    comm.shutdown(mesh)
     return state
 
 

@@ -78,11 +78,18 @@ class SpeechDataset:
 
 
 def make_batches(dataset: SpeechDataset, cfg: Optional[BatcherConfig] = None,
-                 epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+                 epoch: int = 0, num_shards: int = 1, shard_id: int = 0
+                 ) -> Iterator[Dict[str, np.ndarray]]:
     """Padded batches with bucketed shapes: feats (B, Tb, F), feat_lengths,
-    target (B, Lb) with EOS, prev_tokens, ids, n_real."""
+    target (B, Lb) with EOS, prev_tokens, ids, n_real.  Shard `shard_id`
+    of `num_shards` takes every num_shards-th utterance of the length
+    order (the reference's distributed eval sharding,
+    eval/generate.py:151-152); cli/train reads one shard per node of a
+    torchrun run, as the JAX package reads one per process."""
     cfg = cfg or dataset.cfg
     order = np.argsort([int(r["n_frames"]) for r in dataset.rows])
+    if num_shards > 1:
+        order = order[shard_id::num_shards]
     if cfg.tgt_sort and len(order):
         # character length stands in for the token count; lexsort is
         # stable, so equal lengths keep the frame order

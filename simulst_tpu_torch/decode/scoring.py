@@ -113,3 +113,25 @@ def corpus_bleu(refs: List[str], hyps: List[str]) -> float:
     return bleu_from_stats(*bleu_stats(
         [tokenize_13a(r.rstrip()) for r in refs],
         [tokenize_13a(h.rstrip()) for h in hyps]))
+
+
+def score_stats(refs: List[str], hyps: List[str]):
+    """The sufficient statistics of corpus BLEU (on 13a tokens, as
+    `corpus_bleu`) and WER as one float64 tensor, summable over shards of
+    the corpus: [matched n-grams (4), hypothesis n-grams (4), hypothesis
+    length, reference length, word errors, reference words, segments]."""
+    import torch
+    counts, totals, sys_len, ref_len = bleu_stats(
+        [tokenize_13a(r.rstrip()) for r in refs],
+        [tokenize_13a(h.rstrip()) for h in hyps])
+    err, words = wer_counts(refs, hyps)
+    return torch.tensor([*counts, *totals, sys_len, ref_len, err, words,
+                         len(refs)], dtype=torch.float64)
+
+
+def scores_from_stats(stats) -> dict:
+    """{"bleu": corpus BLEU, "wer": WER} of `score_stats` statistics
+    (summed over shards: the scores of the whole corpus)."""
+    s = [int(v) for v in stats.tolist()]
+    return {"bleu": bleu_from_stats(s[0:4], s[4:8], s[8], s[9]),
+            "wer": 100.0 * s[10] / max(s[11], 1)}

@@ -52,6 +52,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, cast,
                                        dropout, layer_norm, linear,
                                        masked_softmax, next_seed)
@@ -644,3 +645,322 @@ def emformer_step(p: Emformer, cfg: EmformerConfig, state: EmformerState, x,
                                     utt_valid, state.past_length)
     state.past_length.add_(utt_valid.to(state.past_length.dtype))
     return layer_norm(p.final_ln, out) if cfg.normalize_before else out
+
+
+# ---------------------------------------------------------------------------
+# sequence-parallel training forward: segments sharded over a "seq" axis
+#
+# The reference has no sequence parallelism (SURVEY.md §2.6).  Each rank of
+# the seq axis takes a contiguous block of whole segments; per layer it
+# needs only small halos from its left neighbour (lc layer-normed frames
+# and M memory summaries) and, once at input, rc lookahead frames from its
+# right neighbour: three shifts (comm.shift), everything else local.
+# Math identical to emformer_forward.  The attention is plain torch, as the
+# JAX package's is XLA here; the pos_ff block is the LN-FFN kernel.
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _segment_gather_indices_local(n_loc: int, seg: int, lc: int, rc: int,
+                                  max_mem: int):
+    """Gather indices of one shard's segments into its key rows
+    [mems_ext (M + n_loc) | rc (n_loc * rc) | utt_ext (lc + n_loc * seg)].
+
+    Returns (idx, kind, gpos), each (n_loc, ctx): kind 0 memory, 1 rc,
+    2 utterance; gpos the shard-relative global position (memory slots:
+    the segment index less the shard's first segment; utterance slots: the
+    frame index less the shard's first frame), from which the validity
+    follows once the shard's offset is known."""
+    M = max_mem
+    ctx = M + rc + lc + seg
+    idx = np.zeros((n_loc, ctx), np.int64)
+    kind = np.zeros((n_loc, ctx), np.int64)
+    gpos = np.zeros((n_loc, ctx), np.int64)
+    rc_base = M + n_loc
+    utt_base = rc_base + n_loc * rc
+    for i in range(n_loc):
+        col = 0
+        for jj in range(M):
+            # mems_ext[t] holds the summary of segment o_seg - M + t; slot
+            # jj of segment i wants segment i - M + jj
+            idx[i, col], kind[i, col], gpos[i, col] = i + jj, 0, i - M + jj
+            col += 1
+        for j in range(rc):
+            idx[i, col], kind[i, col] = rc_base + i * rc + j, 1
+            col += 1
+        for j in range(lc + seg):
+            # utt_ext[t] holds frame o_frames - lc + t
+            idx[i, col], kind[i, col] = utt_base + i * seg + j, 2
+            gpos[i, col] = i * seg - lc + j
+            col += 1
+    return idx, kind, gpos
+
+
+def _shard_rngs(rngs: Optional[RngStream], *indices: int):
+    """A stream of this shard's own: one seed drawn from `rngs` with the
+    shard's indices folded in (each rank draws the same base seed)."""
+    if rngs is None:
+        return None
+    base = rngs.next()
+    return RngStream(torch.Generator().manual_seed(
+        comm.fold_seed(base, *indices)))
+
+
+def emformer_forward_seq_sharded(p: Emformer, cfg: EmformerConfig, x,
+                                 lengths, mesh: comm.Mesh,
+                                 seq_axis: str = "seq",
+                                 rngs: Optional[RngStream] = None,
+                                 data_axis: Optional[str] = None):
+    """Sequence-parallel training / offline forward (JAX's
+    emformer_forward_seq_sharded).  Every rank passes the whole x (B, U +
+    rc, D) and lengths (B,); U must be a multiple of S * segment for the
+    axis's S ranks, with at least max_memory segments per rank.  Returns
+    this rank's block of emformer_forward's output: frames
+    [i * U / S, (i + 1) * U / S) of rank i of the seq axis, and with
+    `data_axis` (dp x sp) only its data rank's rows of the batch.  Equal to
+    emformer_forward without dropout; with `rngs` each shard folds its
+    index into its seeds (a different valid draw than one process's)."""
+    S = mesh.size(seq_axis)
+    seg, lc, rc, M = (cfg.segment, cfg.left_context, cfg.right_context,
+                      cfg.max_memory)
+    U = x.shape[1] - rc
+    if U % (S * seg):
+        raise ValueError(f"U {U} is not a multiple of {S} shards x "
+                         f"{seg}-frame segments")
+    n_loc = U // S // seg
+    if not cfg.use_mem or n_loc < M:
+        raise ValueError("the seq-sharded forward needs the memory bank and "
+                         f">= max_memory ({M}) segments per shard")
+    if lc > n_loc * seg:
+        raise ValueError(f"left context {lc} exceeds a shard's "
+                         f"{n_loc * seg} frames")
+    if data_axis is not None:
+        x = comm.shard_rows(mesh, x, data_axis)
+        lengths = comm.shard_rows(mesh, lengths, data_axis)
+    ax = mesh.index(seq_axis)
+    u_loc, rc_len = n_loc * seg, n_loc * rc
+    o_frames, o_seg = ax * u_loc, ax * n_loc
+    x_loc, tail = x[:, o_frames:o_frames + u_loc], x[:, U:]
+    b, _, d = x_loc.shape
+    h = cfg.num_heads
+    hd = d // h
+    dev = x.device
+    rngs = _shard_rngs(rngs, ax + 1)
+
+    # the rc blocks: the input's right halo (the last shard's is the tail)
+    halo_r = comm.shift_from_right(mesh, x_loc[:, :rc], seq_axis)
+    if ax == S - 1:
+        # every rank runs each shift's backward, in one order
+        halo_r = comm.depend(tail, halo_r) if halo_r.requires_grad \
+            else tail
+    ext0 = torch.cat([x_loc, halo_r], dim=1)
+    rc_rows = np.concatenate([np.arange((i + 1) * seg, (i + 1) * seg + rc)
+                              for i in range(n_loc)])
+    rc_blocks = ext0.index_select(1, torch.as_tensor(rc_rows, device=dev))
+    mems_loc = _segment_means(x_loc, seg)
+    out = x_loc
+
+    idx, kind, gpos = (torch.as_tensor(a, device=dev) for a in
+                       _segment_gather_indices_local(n_loc, seg, lc, rc, M))
+    utt_g = o_frames + gpos[None]
+    key_valid = (((kind == 0) & (o_seg + gpos >= 0))[None]
+                 | (kind == 1)[None]
+                 | ((kind == 2)[None] & (utt_g >= 0)
+                    & (utt_g < lengths[:, None, None])))   # (B, n_loc, ctx)
+    ctx = idx.shape[1]
+    nq = rc + seg + 1
+    # summary rows do not attend the memory slots
+    block = ((torch.arange(nq, device=dev) == nq - 1)[:, None]
+             & (torch.arange(ctx, device=dev) < M)[None, :])
+    visible = key_valid[:, :, None, None, :] & ~block
+
+    for layer in p.layers:
+        raw = torch.cat([rc_blocks, out], dim=1)
+        ln = layer_norm(layer.ln_input, raw) if cfg.normalize_before else raw
+        rc_ln, utt_ln = ln[:, :rc_len], ln[:, rc_len:]
+        summary = _segment_means(utt_ln, seg)
+        halo_utt = comm.shift_from_left(mesh, utt_ln[:, u_loc - lc:],
+                                        seq_axis)
+        halo_mem = comm.shift_from_left(mesh, mems_loc[:, n_loc - M:],
+                                        seq_axis)
+        ap = layer.attention
+        kv = linear(ap.emb_to_key_value, torch.cat(
+            [halo_mem, mems_loc, rc_ln, halo_utt, utt_ln], dim=1))
+        k, v = kv.chunk(2, dim=-1)
+        k_ctx = k.index_select(1, idx.reshape(-1)).reshape(b, n_loc, ctx, h,
+                                                           hd)
+        v_ctx = v.index_select(1, idx.reshape(-1)).reshape(b, n_loc, ctx, h,
+                                                           hd)
+        q = linear(ap.emb_to_query, torch.cat(
+            [rc_ln.reshape(b, n_loc, rc, d), utt_ln.reshape(b, n_loc, seg, d),
+             summary[:, :, None]], dim=2))
+        qh = q.reshape(b, n_loc, nq, h, hd).transpose(2, 3) * (hd ** -0.5)
+        scores = (qh @ k_ctx.permute(0, 1, 3, 4, 2)).float()
+        probs = masked_softmax(scores, visible).to(q.dtype)
+        probs = dropout(probs, cfg.attention_dropout, next_seed(rngs))
+        o = (probs @ v_ctx.transpose(2, 3)).transpose(2, 3).reshape(
+            b, n_loc, nq, d)
+        o = linear(ap.out_proj, o)
+        rc_out = o[:, :, :rc].reshape(b, rc_len, d)
+        utt_out = o[:, :, rc:rc + seg].reshape(b, u_loc, d)
+        mems_loc = _mem_transform(o[:, :, rc + seg:].reshape(b, n_loc, d),
+                                  cfg)
+        result = dropout(torch.cat([rc_out, utt_out], dim=1), cfg.dropout,
+                         next_seed(rngs)) + raw
+        result = _pos_ff_res(layer.pos_ff, cfg, result, rngs)
+        if not cfg.normalize_before:
+            result = layer_norm(layer.ln_input, result)
+        out, rc_blocks = result[:, rc_len:], result[:, :rc_len]
+    return layer_norm(p.final_ln, out) if cfg.normalize_before else out
+
+
+# ---------------------------------------------------------------------------
+# pipeline-parallel training forward (GPipe schedule over a "pipe" axis)
+# ---------------------------------------------------------------------------
+
+def keep_stage_layers(p: Emformer, mesh: comm.Mesh,
+                      pipe_axis: str = "pipe") -> None:
+    """Drop every layer but this rank's stage's (num_layers / P contiguous
+    layers), in place: `layers` becomes a ModuleDict keyed by the global
+    layer index, so the parameter names stay those of the whole model."""
+    n_stage, stage = mesh.size(pipe_axis), mesh.index(pipe_axis)
+    if n_stage == 1:
+        return
+    lpp = len(p.layers) // n_stage
+    p.layers = nn.ModuleDict({str(stage * lpp + i): p.layers[stage * lpp + i]
+                              for i in range(lpp)})
+
+
+def stage_layers(p: Emformer, cfg: EmformerConfig, mesh: comm.Mesh,
+                 pipe_axis: str = "pipe"):
+    """[(global index, layer)] of this rank's stage."""
+    n_stage, stage = mesh.size(pipe_axis), mesh.index(pipe_axis)
+    if cfg.num_layers % n_stage:
+        raise ValueError(f"{cfg.num_layers} layers do not split into "
+                         f"{n_stage} stages")
+    lpp = cfg.num_layers // n_stage
+    if isinstance(p.layers, nn.ModuleDict):
+        return [(int(k), layer) for k, layer in p.layers.items()]
+    return [(stage * lpp + i, p.layers[stage * lpp + i]) for i in range(lpp)]
+
+
+def microbatch_rows(B: int, n_micro: int, n_data: int, d: int) -> np.ndarray:
+    """The batch rows a pipeline's data rank d takes: its block of each of
+    the n_micro microbatches, in microbatch order (JAX's P(None, data)
+    split of the (n_micro, B / n_micro) reshape)."""
+    if B % n_micro or (B // n_micro) % n_data:
+        raise ValueError(f"{B} rows do not split into {n_micro} "
+                         f"microbatches over {n_data} data ranks")
+    mbs = B // n_micro
+    loc = mbs // n_data
+    return np.concatenate([m * mbs + d * loc + np.arange(loc)
+                           for m in range(n_micro)])
+
+
+class _StageLayers(NamedTuple):
+    layers: tuple
+
+
+def run_stage(layers, cfg: EmformerConfig, out, rc_blocks, mems, lengths,
+              seeds: Optional[Tuple[int, int]]):
+    """A stage's layers over one microbatch; `seeds` (base seed,
+    microbatch) gives each (layer, microbatch) its own dropout stream."""
+    for gi, layer in layers:
+        rngs = None if seeds is None else RngStream(torch.Generator(
+        ).manual_seed(comm.fold_seed(seeds[0], gi + 1, seeds[1] + 1)))
+        out, rc_blocks, mems = _run_layers(_StageLayers((layer,)), cfg, out,
+                                           rc_blocks, mems, lengths, rngs)
+    return out, rc_blocks, mems
+
+
+def pipeline_ticks(mesh: comm.Mesh, pipe_axis: str, n_micro: int,
+                   inject, stage_fn, finish, like: torch.Tensor):
+    """The GPipe schedule of n_micro + P - 1 ticks.  At tick t the rank of
+    stage s holds microbatch m = t - s (none outside [0, n_micro)): stage 0
+    takes inject(m) for its input, the others what the previous stage sent
+    at tick t - 1; stage_fn(act, m) runs the stage; the last stage passes
+    its output to finish(act, m).  The activation (a tensor shaped like
+    `like`) then hops to the next stage by a cyclic shift whose backward
+    is the reverse pipeline; each shift is chained to the previous one, so
+    every rank runs the shifts' backward in one order.  Returns the last
+    shift's output, the anchor of this rank's chain."""
+    n_stage, stage = mesh.size(pipe_axis), mesh.index(pipe_axis)
+    recv = None
+    # the chain's first link: a stage whose first ticks hold nothing still
+    # records its shifts, so that every rank runs each one's backward
+    token = (torch.zeros((), device=like.device, requires_grad=True)
+             if torch.is_grad_enabled() else None)
+    for t in range(n_micro + n_stage - 1):
+        m = t - stage
+        if 0 <= m < n_micro:
+            act = inject(m) if stage == 0 else recv
+            act = stage_fn(act, m)
+            if stage == n_stage - 1:
+                finish(act, m)
+        else:
+            act = recv if recv is not None else torch.zeros_like(like)
+        if n_stage > 1:
+            recv = token = comm.shift(mesh, act, pipe_axis, 1,
+                                      cyclic=True, token=token)
+    return token
+
+
+def _pack(out, rc_blocks, mems):
+    return torch.cat([out, rc_blocks, mems], dim=1)
+
+
+def _unpack(act, U: int, rc_len: int):
+    return act[:, :U], act[:, U:U + rc_len], act[:, U + rc_len:]
+
+
+def emformer_forward_pipelined(p: Emformer, cfg: EmformerConfig, x, lengths,
+                               mesh: comm.Mesh, pipe_axis: str = "pipe",
+                               n_micro: Optional[int] = None,
+                               rngs: Optional[RngStream] = None,
+                               data_axis: Optional[str] = None):
+    """Pipeline-parallel training / offline forward (JAX's
+    emformer_forward_pipelined).  The layers split into P contiguous
+    stages over the pipe axis (a stage's rank needs only its layers:
+    `keep_stage_layers`); the batch into n_micro microbatches (default P)
+    that flow through the stages on the GPipe schedule, the (utterance, rc
+    blocks, mems) activation hopping stage to stage.  Every rank passes
+    the whole x (B, U + rc, D) and lengths; with `data_axis` (dp x pp)
+    each microbatch's rows split over it.  Returns, on every rank of the
+    pipe axis, the output rows `microbatch_rows` names (all B rows
+    without a data axis, in order), equal to emformer_forward's without
+    dropout; with `rngs` each (layer, microbatch) draws its own masks.
+    Differentiable: the backward runs the reverse pipeline."""
+    n_stage = mesh.size(pipe_axis)
+    layers = stage_layers(p, cfg, mesh, pipe_axis)
+    B = x.shape[0]
+    n_micro = n_micro or n_stage
+    n_data = mesh.size(data_axis) if data_axis else 1
+    rows = torch.as_tensor(microbatch_rows(
+        B, n_micro, n_data, mesh.index(data_axis) if data_axis else 0),
+        device=x.device)
+    loc = rows.numel() // n_micro
+    U = x.shape[1] - cfg.right_context
+    idx = torch.as_tensor(_rc_gather_indices(U, cfg.segment,
+                                             cfg.right_context),
+                          device=x.device)
+    n = _num_segs(U, cfg.segment)
+    x, lengths = x.index_select(0, rows), lengths.index_select(0, rows)
+    utterance = x[:, :U]
+    mems0 = (_segment_means(utterance, cfg.segment)[:, :n - 1] if cfg.use_mem
+             else utterance[:, :0])
+    act0 = _pack(utterance, x.index_select(1, idx), mems0)
+    base = None if rngs is None else rngs.next()
+    outs = []
+
+    def stage_fn(act, m):
+        lens = lengths[m * loc:(m + 1) * loc]
+        out = run_stage(layers, cfg, *_unpack(act, U, idx.numel()), lens,
+                        None if base is None else (base, m))
+        return _pack(*out)
+
+    anchor = pipeline_ticks(
+        mesh, pipe_axis, n_micro, lambda m: act0[m * loc:(m + 1) * loc],
+        stage_fn, lambda act, m: outs.append(act[:, :U]), act0[:loc])
+    final = torch.cat(outs) if outs else torch.zeros_like(utterance)
+    final = comm.replicate_from(mesh, final, pipe_axis, n_stage - 1,
+                                anchor)
+    return layer_norm(p.final_ln, final) if cfg.normalize_before else final

@@ -13,11 +13,15 @@ rebuilds and an unchanged one loads the library already built.  nvcc's
 output (with ptxas' register and shared-memory report) is kept beside the
 library as `<name>.log`.  Every C entry returns `cudaGetLastError()` after
 its launches; `launch` raises on anything but 0.  Nothing here runs at
-import time.
+import time.  Several processes may call `build` at once (the ranks of a
+parallel run): the first takes an exclusive lock on `<name>.lock` and
+builds, the others wait for it and load its library (the lock goes with
+its process, so a build that was cut off leaves none behind).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -128,6 +132,15 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     out = library_path(csrc, build_dir)
     if out.exists():
         return out
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():      # another process built it meanwhile
+            _compile(csrc, out)
+    return out
+
+
+def _compile(csrc: Path, out: Path) -> None:
     objdir = out.with_suffix("")
     objdir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -152,7 +165,6 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
         raise RuntimeError(f"nvcc failed on {failed or 'the link'}:\n"
                            + "\n".join(logs)[-6000:])
     os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
-    return out
 
 
 def open_library(path: Path, every_entry: bool = True) -> ctypes.CDLL:

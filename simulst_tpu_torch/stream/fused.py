@@ -27,6 +27,12 @@ For evaluation, where the whole audio is known, `make_scanned_runner`
 runs a bucket's whole session in one call: the JAX package's lax.scan
 over the steady chunks is a Python loop over the same step here, token
 for token the per-chunk loop's.
+
+Several cards (`sharded_sessions`): the B sessions of a batch split over
+the data ranks of a mesh (comm.py), each rank streaming its B / W
+sessions, and the tokens and counts are gathered; the JAX package shards
+the same batch over a data mesh axis.  The sessions never interact, so
+each one's tokens are those of the single-process batch.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch.models import cif as cif_mod
 from simulst_tpu_torch.models import mma as mma_mod
 from simulst_tpu_torch.models import s2t_emformer as s2t
@@ -400,3 +407,17 @@ def make_scanned_runner(step_fn):
 
     return run
 
+
+
+def sharded_sessions(mesh: comm.Mesh, run_local, tensors):
+    """B sessions over the data ranks: run_local(*local) -> the final
+    fused state (CIF, MMA or transducer) of this rank's rows of every
+    batch-leading tensor in `tensors` (feature chunks, valid counts).
+    Returns (tokens (B, Tmax), n_tokens, finished, truncated), gathered in
+    batch order on every rank."""
+    local = [None if t is None else comm.shard_rows(mesh, t, "data")
+             for t in tensors]
+    state = run_local(*local)
+    return tuple(comm.all_gather_nograd(mesh, t, "data") for t in
+                 (state.tokens, state.n_tokens, state.finished,
+                  state.truncated))

@@ -12,6 +12,15 @@ update after `PROFILE_WARMUP` warm-up updates.  The best checkpoints follow `bes
 validation metrics (loss, or the inline decode's BLEU or WER), kept by
 maximum where `maximize_metric`; a validation without that metric saves
 nothing and counts no patience, as in the JAX loop.
+
+Data parallelism (`mesh`, train/mesh.py): every rank reads the same
+batches (its node's manifest shard) and trains on its rows of each
+(`shard_batch`); train/state.py sums the gradients and metrics over the
+data ranks.  Each rank's dropout generator folds in its data index.  The
+validation function is expected to sum its statistics over the ranks,
+so that every rank takes the same best-checkpoint and patience
+decisions; only the first rank writes the log, the sinks, the profile
+and the checkpoints, and the others wait for it at a barrier.
 """
 from __future__ import annotations
 
@@ -25,7 +34,9 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch import nn
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch.nn.core import resolve_device
+from simulst_tpu_torch.train import mesh as mesh_lib
 from simulst_tpu_torch.train.events import EventWriter
 from simulst_tpu_torch.train.checkpoint import (find_best_checkpoints,
                                                 load_checkpoint,
@@ -134,16 +145,23 @@ class Trainer:
                  valid_fn: Optional[Callable] = None,
                  freeze_until: Optional[Dict[str, int]] = None,
                  update_freq: int = 1, metadata: Optional[Dict] = None,
-                 device=None):
+                 device=None, mesh: Optional[comm.Mesh] = None):
         """loss_fn(model, batch, rngs) -> (loss, metrics); valid_fn(model)
         -> dict of metrics, "loss" among them.  The model moves
         to `device`, the card unless the caller names another; batches
-        follow it.  metadata is stamped into every checkpoint."""
+        follow it.  metadata is stamped into every checkpoint.  `mesh`
+        trains data-parallel over its data ranks."""
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        if not comm.is_main():
+            loop_cfg = dataclasses.replace(loop_cfg, tensorboard=False,
+                                           wandb_project=None,
+                                           profile_dir=None)
         self.loop_cfg = loop_cfg
         self.update_freq = update_freq
         self.metadata = dict(metadata or {})
         self.device = resolve_device(device)
-        self.state = create_train_state(model.to(self.device), optim_cfg)
+        self.state = create_train_state(model.to(self.device), optim_cfg,
+                                        mesh=self.mesh)
         if update_freq > 1:
             self.grad_step, self.apply_step = make_accum_train_step(
                 loss_fn, optim_cfg, freeze_until)
@@ -158,6 +176,8 @@ class Trainer:
         self.sinks = make_sinks(loop_cfg)
 
     def log(self, record: Dict):
+        if not comm.is_main():
+            return
         record = {k: (float(v) if isinstance(v, torch.Tensor) else v)
                   for k, v in record.items()}
         with open(self.log_path, "a") as f:
@@ -176,9 +196,11 @@ class Trainer:
                                        cfg.maximize_metric else
                                        value < self.best)
         name = f"checkpoint.best_{cfg.best_metric}_{value:.4f}"
-        save_checkpoint(os.path.join(cfg.save_dir, name),
-                        self.state.model.state_dict(),
-                        metadata={**self.metadata, "step": self.state.step})
+        if comm.is_main():
+            save_checkpoint(os.path.join(cfg.save_dir, name),
+                            self.state.model.state_dict(),
+                            metadata={**self.metadata,
+                                      "step": self.state.step})
         if better:
             self.best = value
             self.bad_epochs = 0
@@ -186,21 +208,26 @@ class Trainer:
             # fairseq --patience counts epoch-end validations without
             # improvement; mid-epoch validations checkpoint only
             self.bad_epochs += 1
-        keep = set(find_best_checkpoints(cfg.save_dir, cfg.keep_best,
-                                         maximize=cfg.maximize_metric))
-        for f in os.listdir(cfg.save_dir):
-            p = os.path.join(cfg.save_dir, f)
-            if re.match(r"checkpoint\.best_", f) and p not in keep:
-                os.remove(p)
+        if comm.is_main():
+            keep = set(find_best_checkpoints(cfg.save_dir, cfg.keep_best,
+                                             maximize=cfg.maximize_metric))
+            for f in os.listdir(cfg.save_dir):
+                p = os.path.join(cfg.save_dir, f)
+                if re.match(r"checkpoint\.best_", f) and p not in keep:
+                    os.remove(p)
+        comm.barrier()
 
     def _to_device(self, batch: Dict) -> Dict:
+        if self.mesh is not None:
+            batch = mesh_lib.shard_batch(self.mesh, batch)
         return {k: torch.as_tensor(v, device=self.device)
                 for k, v in batch.items()}
 
     def fit(self, batch_iter_fn: Callable[[int], Iterable[Dict]]):
         """batch_iter_fn(epoch) -> iterator of batches (arrays or tensors)."""
         cfg = self.loop_cfg
-        generator = torch.Generator().manual_seed(cfg.seed)
+        generator = torch.Generator().manual_seed(comm.fold_seed(
+            cfg.seed, 0 if self.mesh is None else self.mesh.index("data")))
         t0 = time.time()
         updates = self.state.step             # nonzero after resume()
         profile_at = updates + PROFILE_WARMUP if cfg.profile_dir else -1
@@ -266,15 +293,23 @@ class Trainer:
     def save_last(self):
         """Resumable state (params + optimizer + step), fairseq's
         checkpoint_last."""
-        save_checkpoint(
-            os.path.join(self.loop_cfg.save_dir, "checkpoint_resume"),
-            {"params": self.state.model.state_dict(),
-             "opt_state": self.state.opt.state_dict(),
-             "step": self.state.step}, metadata=self.metadata)
+        if comm.is_main():
+            save_checkpoint(
+                os.path.join(self.loop_cfg.save_dir, "checkpoint_resume"),
+                {"params": self.state.model.state_dict(),
+                 "opt_state": self.state.opt.state_dict(),
+                 "step": self.state.step}, metadata=self.metadata)
+        comm.barrier()
 
     def resume(self, path: str) -> int:
+        """Every rank reads the checkpoint; the first rank's parameters and
+        moments are then broadcast, so that the ranks start equal."""
         restored, _ = load_checkpoint(path, map_location=self.device)
         self.state.model.load_state_dict(restored["params"])
         self.state.opt.load_state_dict(restored["opt_state"])
         self.state.step = int(restored["step"])
+        if self.mesh is not None:
+            comm.replicate(self.mesh, self.state.model)
+            comm.replicate(self.mesh, self.state.opt.mu +
+                           self.state.opt.nu)
         return self.state.step

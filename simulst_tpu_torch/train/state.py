@@ -9,6 +9,20 @@ global-norm clip, Adam and the learning rate follow; a non-finite gradient
 norm skips the whole update, so params, Adam moments and step stay put.
 Gradients accumulate in each parameter's .grad and the update is made in
 place; the decision to skip reads the norm on the host once per update.
+
+Data parallelism (a `mesh` with data ranks, comm.py): each rank
+accumulates the gradients of its rows, and `apply_update` SUMS the
+gradients and every metric over the data ranks (one collective each per
+update, whatever update_freq) before dividing by the global
+'sample_size', as fairseq and the JAX package do (DistributedDataParallel
+would average instead).  The norm, the clip and the non-finite skip then
+read the same summed gradients on every rank, which so take the same
+decision and stay bit for bit equal.  `split` names the parameters whose
+ranks of an axis each hold a different part (tensor-parallel slices over
+`model`, train/sharding.py; pipeline stages over `pipe`,
+train/pipeline.py): their squares are summed over that axis for the
+norm, so that each parameter counts once; the others' gradients are
+averaged over the axis, which keeps them equal on its ranks.
 """
 from __future__ import annotations
 
@@ -18,6 +32,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
+from simulst_tpu_torch import comm
 from simulst_tpu_torch.nn.core import RngStream, step_casts
 from simulst_tpu_torch.train.optim import (Adam, OptimConfig,
                                            clip_by_global_norm_, global_norm)
@@ -28,11 +43,18 @@ class TrainState:
     model: nn.Module        # the parameters
     opt: Adam               # the optimizer's moments and count
     step: int = 0           # updates made (skipped ones not counted)
+    mesh: Optional[comm.Mesh] = None    # data ranks sum the gradients
+    split: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
-def create_train_state(model: nn.Module, optim_cfg: OptimConfig) -> TrainState:
+def create_train_state(model: nn.Module, optim_cfg: OptimConfig,
+                       mesh: Optional[comm.Mesh] = None,
+                       split: Optional[Dict[str, str]] = None) -> TrainState:
+    """`split` maps a parameter name to the mesh axis whose ranks each
+    hold a different part of it (the others are whole on every rank)."""
     return TrainState(model=model,
-                      opt=Adam(list(model.parameters()), optim_cfg), step=0)
+                      opt=Adam(list(model.parameters()), optim_cfg), step=0,
+                      mesh=mesh, split=dict(split or {}))
 
 
 def sum_metrics(acc: Optional[Dict], m: Dict) -> Dict:
@@ -52,14 +74,71 @@ def accumulate_grads(state: TrainState, loss_fn: Callable, batch: Dict,
     return sum_metrics(None, metrics)
 
 
+def sum_over(mesh: comm.Mesh, metrics: Dict, axes=("data",)) -> Dict:
+    """Every metric summed over the ranks of `axes`, in one collective
+    (float64, so that counts stay exact), each in its own dtype."""
+    if all(mesh.size(a) == 1 for a in axes):
+        return metrics
+    keys = list(metrics)
+    vals = [torch.as_tensor(metrics[k]).detach() for k in keys]
+    flat = torch.stack([v.to(device=mesh.device, dtype=torch.float64)
+                        .reshape(()) for v in vals])
+    comm.all_reduce_(mesh, flat, axes)
+    return {k: s.to(dtype=v.dtype, device=v.device)
+            for k, v, s in zip(keys, vals, flat)}
+
+
+def _reduce_grads(state: TrainState, named, grads) -> None:
+    """Sum every gradient over the data ranks; over each other axis,
+    average the gradients of the parameters that are not split on it: the
+    ranks there computed them alike, and an average makes them bit for bit
+    equal where kernels sum in an order of their own (cuDNN's)."""
+    mesh = state.mesh
+    for axis in mesh.shape:
+        if mesh.size(axis) == 1:
+            continue
+        gs = [g for (name, _), g in zip(named, grads)
+              if axis == "data" or state.split.get(name) != axis]
+        by_dtype: Dict[torch.dtype, list] = {}
+        for g in gs:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for part in by_dtype.values():
+            comm.all_reduce_flat_(mesh, part, [axis])
+            if axis != "data":
+                torch._foreach_div_(part, float(mesh.size(axis)))
+
+
+def _global_norm(state: TrainState, named, grads) -> torch.Tensor:
+    """The gradients' global norm; a parameter split over an axis sums its
+    squares over that axis's ranks, so each parameter counts once."""
+    if not state.split:
+        return global_norm(grads)
+    by_axis: Dict[Optional[str], list] = {}
+    for (name, _), g in zip(named, grads):
+        by_axis.setdefault(state.split.get(name), []).append(g)
+    total = None
+    for axis, gs in by_axis.items():
+        sq = global_norm(gs) ** 2
+        if axis is not None:
+            sq = comm.all_reduce_(state.mesh, sq.clone(), [axis])
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
 def apply_update(state: TrainState, metrics: Dict, optim_cfg: OptimConfig,
                  freeze_until: Optional[Dict[str, int]] = None):
     """Normalise the accumulated gradients, freeze, clip, Adam; skip on a
-    non-finite norm.  Clears the gradients.  Returns (state, metrics)."""
+    non-finite norm.  Clears the gradients.  With data ranks the
+    gradients and metrics are first summed over them.  Returns (state,
+    metrics)."""
     named = list(state.model.named_parameters())
     params = [p for _, p in named]
     grads = [p.grad if p.grad is not None else torch.zeros_like(p)
              for p in params]
+    mesh = state.mesh
+    if mesh is not None:
+        _reduce_grads(state, named, grads)
+        metrics = sum_over(mesh, metrics)
     denom = max(float(metrics["sample_size"]), 1.0)
     torch._foreach_div_(grads, denom)
     if freeze_until:
@@ -67,7 +146,7 @@ def apply_update(state: TrainState, metrics: Dict, optim_cfg: OptimConfig,
             n = freeze_until.get(name.split(".")[0])
             if n is not None and state.step < n:
                 g.zero_()
-    gnorm = global_norm(grads)
+    gnorm = _global_norm(state, named, grads)
     ok = bool(torch.isfinite(gnorm))
     if ok:
         if optim_cfg.clip_norm > 0:
