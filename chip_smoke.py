@@ -144,7 +144,7 @@ targets):
               16-chunk bucket (9.94-10.58 s, every final chunk of its own
               size, one with no new fbank frame) and 8 of a 7-chunk bucket
               (4.2-4.8 s), global CMVN from their own fbank; `evaluate` at
-              B = 1 over a subset of 16 (both buckets, the shortest and
+              B = 1 over a subset of 12 (both buckets, the shortest and
               longest final chunks), `evaluate_batched` at B 8 step-wise
               over it, at B 64 scanned over all 72 and its step-wise _CA
               pass; every batched example's tokens equal its B = 1 tokens
@@ -278,8 +278,24 @@ targets):
               (`python3 tools/parallel_smoke.py`: this phase with phase
               7's batch only).  Two ranks on one card are no scaling
               figure: the phase proves equality, not speed
- 22. report   a JSON line of per-kernel numbers with their bounds, the
-              nvidia-smi line, and {"ok": true, "device": {...}} last
+ 22. widths   the kernels at every width the JAX package trains: rows
+              1-6 against their plain versions at the corners (D 64 /
+              128 / 512 / 1024, head dims 16 / 32 / 64 / 128, hidden up
+              to 4096, conv-pos 4 / 64 / 1 channels a group; training
+              and decode rows, fp32 and bf16, dropout 0 and 0.1), their
+              times at D 512 / 8 heads / FFN 2048 on phase 7's shapes
+              beside bound, plain and library call, one s2t_emformer
+              step at embed_dim 512 (launches counted: every
+              width-dependent kernel must launch; kernels vs plain at
+              phase 8's bounds), tools/synthetic_smoke.py's CIF leg
+              through the CLIs (BLEU > 20, AL > 0) and the kernel
+              convergence trajectory (30 Adam steps, kernels vs plain:
+              both losses under 0.8 of the first, deviation under 0.03,
+              pre-softmax scores under 40) (`python3
+              tools/widths_smoke.py`: this phase with phase 7's batch)
+ 23. report   a JSON line of per-kernel numbers with their bounds (and
+              each width kernel's D 512 times), the nvidia-smi line, and
+              {"ok": true, "device": {...}} last
 
 Run from the repository root:  python3 chip_smoke.py
 It exits non-zero without a CUDA device, without the package beside it,
@@ -373,6 +389,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from collections import defaultdict
@@ -429,7 +446,7 @@ KERNELS = {
         "simulst_tpu/ops/emformer_attn_pallas.py:336", "serving"),
     "fused_ffn": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
                   "simulst_tpu/ops/ffn_pallas.py:202", "training"),
-    "fused_ffn_backward": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+    "fused_ffn_backward": ("ffn", "simulst_tpu_torch/csrc/ffn_bwd.cu",
                            "simulst_tpu/ops/ffn_pallas.py:230", "training"),
     "fused_linear_res": ("linear_res", "simulst_tpu_torch/csrc/linear_res.cu",
                          "simulst_tpu/ops/linear_res_pallas.py:102",
@@ -441,7 +458,7 @@ KERNELS = {
                   "simulst_tpu/ops/mha_pallas.py:192", "training"),
     "fused_mha_backward": ("mha", "simulst_tpu_torch/csrc/mha.cu",
                            "simulst_tpu/ops/mha_pallas.py:208", "training"),
-    "fused_ln_ffn_res_backward": ("ffn", "simulst_tpu_torch/csrc/ffn.cu",
+    "fused_ln_ffn_res_backward": ("ffn", "simulst_tpu_torch/csrc/ln_ffn_bwd.cu",
                                   "simulst_tpu/ops/ffn_pallas.py:466",
                                   "asr-training"),
     "emformer_grouped_attention_backward": (
@@ -537,7 +554,7 @@ PROFILE_STEPS = 3
 POSTERIOR_FAMILY = "ctc_d_em posterior (timed from launch, its wait included)"
 # kernel-name fragments -> family in phase 6's profile, first match wins
 # (the port's kernels of csrc/*.cu and the products of common.cuh before
-# cuBLAS, whose names hold "gemm"; the tile_products of csrc/ffn.cu and
+# cuBLAS, whose names hold "gemm"; the tile_products of csrc/ffn*.cu and
 # csrc/linear_res.cu by the store functor or caller tag in their names)
 KERNEL_FAMILIES = (
     ("HiddenStore<", "FFN forwards' hidden products"),
@@ -2841,8 +2858,8 @@ BATCH_LONG, BATCH_SHORT = 64, 8
 BATCH_LONG_SAMPLES = (158961, 169200)
 BATCH_ZERO_FRAME_SAMPLES = 159000        # num_frames == that of 158,960
 BATCH_SHORT_SAMPLES = (66801, 77040)
-BATCH_B1_SUBSET = 16
-BATCH_B1_EXTRA = 4            # long-bucket rows outside it, seeded
+BATCH_B1_SUBSET = 12          # 4 of the long bucket and the 8 short
+BATCH_B1_EXTRA = 2            # long-bucket rows outside it, seeded
 # CIF, and a test-time wait-k agent on phase 10's MMA weights (its learned
 # heads write nothing before the source ends), EOS's row scaled.  That
 # briefly trained decoder settles EOS at its first decision: at 0.86 about
@@ -5287,6 +5304,498 @@ def phase_parallel(dev, batch):
     return {name: launches.get(name, 0) for name in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# 22. widths
+# ---------------------------------------------------------------------------
+# (D, heads, hidden) at the corners of the widths the kernels take: head
+# dims 16, 32, 64, 128 and 128, hidden up to 4096
+WIDTH_CORNERS = ((64, 4, 256), (128, 4, 512), (512, 8, 2048),
+                 (512, 4, 2048), (1024, 8, 4096))
+# (D, conv_pos_groups): 4, 64 and 1 channels a group
+WIDTH_CONVPOS = ((64, 16), (1024, 16), (256, 256))
+# the corners' training rows: the offline encoder's 8 x 384 LN-FFN rows
+# (the tiled forward), and a decoder step's 40; the attentions' batches
+WIDTH_ROWS = {"train": 8 * (8 * 16 + 256), "decode": 40}
+WIDTH_BATCH = 8
+WIDTH_MODEL = ["--override", "embed_dim=512", "--override",
+               "encoder_heads=8", "--override", "decoder_heads=8",
+               "--override", "ffn_dim=2048", "--override",
+               "decoder_ffn_dim=2048"]
+WIDTH_KERNELS = ("fused_ln_ffn_res", "fused_ln_ffn_res_backward",
+                 "fused_ffn", "fused_ffn_backward", "fused_mha",
+                 "fused_mha_backward", "emformer_grouped_attention",
+                 "emformer_grouped_attention_backward", "fused_linear_res",
+                 "fused_linear_res_backward", "convpos_wgrad")
+# the kernel convergence trajectory (exp/kernel_convergence_check.py)
+TRAJ_B, TRAJ_T, TRAJ_U, TRAJ_VOCAB, TRAJ_STEPS = 8, 1024, 24, 128, 30
+SCORE_MARGIN = 40.0    # JAX's SCORE_CLAMP / 2
+
+
+def width_geoms():
+    """kind -> (batch, AttnGeom without its heads) of the grouped
+    attention: asr-train's 1024-frame geometry, and one streaming
+    segment's."""
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    return {"train": (WIDTH_BATCH, dict(U=256, seg=16, lc=32, rc=8,
+                                        max_mem=5, G=8)),
+            "decode": (1, dict(U=16, seg=16, lc=32, rc=8, max_mem=5, G=1))}
+
+
+def phase_width_kernels(dev):
+    """Rows 1-6 against their plain versions on the card at the corners of
+    the widths the kernels take (WIDTH_CORNERS, WIDTH_CONVPOS), at
+    training rows (WIDTH_ROWS, 8 utterances of the ASR shapes) and decode
+    rows, fp32 and bf16, dropout 0 and 0.1, forward
+    and backward: fp32 atol 1e-4, gradients within 1e-4 of their largest
+    entry; bf16 BF16_TOL, gradients within 1e-2 of their largest entry (as
+    phase 20).  Returns the largest error per kernel."""
+    import torch
+    from simulst_tpu_torch.ops import conv_pos, ffn, linear_res, mha
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    g = torch.Generator().manual_seed(SEED + 41)
+    errs, corner = {}, {}
+
+    def randn(dtype, *shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev).to(dtype)
+
+    def hold(name, got, want, dtype, grads=()):
+        """got / want: tuples; the entries named in `grads` are weight
+        gradients (held to their largest entry)."""
+        f32 = dtype == torch.float32
+        err = 0.0
+        for i, (a, b) in enumerate(zip(got, want)):
+            tag = f"{name} output {i}"
+            if i in grads:
+                err = max(err, max_err_to_largest(tag, a, b,
+                                                  1e-4 if f32 else 1e-2))
+            else:
+                err = max(err, max_err(tag, a, b,
+                                       **(F32_TOL if f32 else BF16_TOL)))
+        key = name.split(" ")[0]
+        for table in (errs, corner):
+            table[key] = max(table.get(key, 0.0), err)
+        return err
+
+    for d, heads, hid in WIDTH_CORNERS:
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            corner.clear()
+            xav = (6.0 / (d + hid)) ** 0.5
+            lnw = (1 + randn(torch.float32, d, scale=0.1),
+                   randn(torch.float32, d, scale=0.1),
+                   randn(dtype, d, hid, scale=xav),
+                   randn(dtype, hid, scale=0.02),
+                   randn(dtype, hid, d, scale=xav),
+                   randn(dtype, d, scale=0.02))
+            for kind, rows in WIDTH_ROWS.items():
+                x, dy = randn(dtype, rows, d), randn(dtype, rows, d)
+                for rate in (0.0, 0.1):
+                    cfg = ("gelu", rate, rate, 17)
+                    case = f"D {d} hidden {hid} {kind} {rows} rows {dt} " \
+                           f"rate {rate}"
+                    hold(f"fused_ln_ffn_res {case}", (
+                        ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg),),
+                        (ffn.ln_ffn_res_plain(x, *lnw, *cfg),), dtype)
+                    hold(f"fused_ln_ffn_res_backward {case}",
+                         ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy, *cfg),
+                         ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy,
+                                                       *cfg),
+                         dtype, grads=range(1, 7))
+                    hold(f"fused_ffn {case}", (
+                        ffn.fused_ffn_forward(x, *lnw[2:], *cfg),),
+                        (ffn.ffn_plain(x, *lnw[2:], *cfg),), dtype)
+                    hold(f"fused_ffn_backward {case}",
+                         ffn.fused_ffn_backward(x, *lnw[2:5], dy, *cfg),
+                         ffn.ffn_plain_backward(x, *lnw[2:5], dy, *cfg),
+                         dtype, grads=range(1, 5))
+                # the attention out-projection's linear-res (rows 4 / 4b)
+                w, bias = randn(dtype, d, d, scale=d ** -0.5), \
+                    randn(dtype, d, scale=0.02)
+                res = randn(dtype, rows, d)
+                hold(f"fused_linear_res D {d} {kind} {dt}", (
+                    linear_res.fused_linear_res_forward(
+                        x, w, bias, res, 0, 0, 0.1, 7),),
+                    (linear_res.linear_res_plain(x, w, bias, res, 0, 0, 0.1,
+                                                 7),), dtype)
+                hold(f"fused_linear_res_backward D {d} {kind} {dt}",
+                     linear_res.fused_linear_res_backward(x, w, dy, 0, 0,
+                                                          0.1, 7),
+                     linear_res.linear_res_plain_backward(x, w, dy, 0, 0,
+                                                          0.1, 7),
+                     dtype, grads=(1, 2))
+            # fused_mha: the decoder's causal self- and cross-attention at
+            # the ASR decoder's shapes, and the decoder step's
+            for b, tq, tk, causal in ((WIDTH_BATCH, 72, 72, True),
+                                      (WIDTH_BATCH, 72, 256, False),
+                                      (40, 1, 256, False)):
+                q, do = randn(dtype, b, tq, d), randn(dtype, b, tq, d)
+                k, v = randn(dtype, b, tk, d), randn(dtype, b, tk, d)
+                lengths = torch.randint(tk // 2, tk + 1, (b,), generator=g)
+                kmask = (torch.arange(tk)[None] < lengths[:, None]).to(
+                    torch.int32).to(dev)
+                for rate in (0.0, 0.1) if tq > 1 else (0.0,):
+                    case = (f"head dim {d // heads} ({b},{tq},{tk}) {dt} "
+                            f"rate {rate}")
+                    out, lse = mha.fused_mha_forward(q, k, v, kmask, heads,
+                                                     causal, rate, 9)
+                    hold(f"fused_mha {case}", (out,), (mha.mha_plain(
+                        q, k, v, kmask, heads, causal, rate, 9),), dtype)
+                    hold(f"fused_mha_backward {case}",
+                         mha.fused_mha_backward(q, k, v, kmask, out, lse, do,
+                                                heads, causal, rate, 9),
+                         mha.mha_plain_backward(q, k, v, kmask, do, heads,
+                                                causal, rate, 9), dtype)
+            # the grouped attention at asr-train's and a streaming
+            # segment's geometry
+            for kind, (b, gd) in width_geoms().items():
+                geom = ea.AttnGeom(**gd, num_heads=heads)
+                q3 = randn(dtype, b, geom.ng, geom.nq, d)
+                do = randn(dtype, b, geom.ng, geom.nq, d)
+                k, v = randn(dtype, b, geom.tk, d), randn(dtype, b, geom.tk,
+                                                          d)
+                lengths = torch.full((b,), geom.U, dtype=torch.int32,
+                                     device=dev)
+                lengths[0] = geom.U - 5
+                args = (q3, k, v, lengths)
+                for rate in (0.0, 0.1):
+                    case = f"head dim {d // heads} {kind} {dt} rate {rate}"
+                    hold(f"emformer_grouped_attention {case}", (
+                        ea.emformer_grouped_attention_forward(
+                            *args, geom, rate, 23),),
+                        (ea.grouped_attention_plain(*args, geom, rate, 23),),
+                        dtype)
+                    hold(f"emformer_grouped_attention_backward {case}",
+                         ea.emformer_grouped_attention_backward(
+                             *args, do, geom, rate, 23),
+                         ea.grouped_attention_plain_backward(
+                             *args, do, geom, rate, 23), dtype)
+            torch.cuda.synchronize()
+            log("phase22", corner=f"D {d} heads {heads} hidden {hid} {dt}",
+                max_abs_err=dict(corner))
+    for d, groups in WIDTH_CONVPOS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, t in ((ASR_UTT, 256), (3, 50)):
+                xp, dyc = randn(dtype, b, t + 63, d), randn(dtype, b, t, d)
+                hold(f"convpos_wgrad {d // groups} channels ({b},{t}) "
+                     f"{str(dtype)[6:]}",
+                     (conv_pos.convpos_wgrad(xp, dyc, 64, groups),),
+                     (conv_pos.convpos_wgrad_plain(xp, dyc, 64, groups),),
+                     dtype, grads=(0,))
+    torch.cuda.synchronize()
+    log("phase22", corners=[f"D {d} heads {h} hidden {f}"
+                            for d, h, f in WIDTH_CORNERS],
+        convpos_channels=[d // gr for d, gr in WIDTH_CONVPOS],
+        max_abs_err=errs)
+    return errs
+
+
+def phase_width_times(dev, batch):
+    """Rows 1-6 at D 512, 8 heads, hidden 2048 on asr-train's 32 x
+    1024-frame shapes, fp32, rate 0.1: CUDA-event ms of each kernel, its
+    bound, its plain version's ms and the one PyTorch call of the same
+    work (SDPA, the products through torch.matmul with TF32 off,
+    conv1d_weight).  Returns {kernel: entry}."""
+    import torch
+    import torch.nn.functional as F
+    from simulst_tpu_torch.ops import conv_pos, ffn, linear_res, mha
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    g = torch.Generator().manual_seed(SEED + 43)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    b, d, hid, heads = ASR_UTT, 512, 2048, 8
+    xav = (6.0 / (d + hid)) ** 0.5
+    out = {}
+
+    def entry(name, shape, kern, plain, moved, flops, library):
+        out[name] = dict(shape=shape, ms=cuda_ms(kern, samples=5, runs=5),
+                         plain_ms=cuda_ms(plain, samples=3, runs=3),
+                         library_ms=cuda_ms(library, samples=5, runs=5),
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    bound(moved, flops))))
+        log("phase22", kernel=name, d512=out[name])
+
+    def products(x, w1, w2, dy=None):
+        a, c = (torch.randn(x.shape[0], w1.shape[1], device=dev)
+                for _ in range(2))
+        if dy is None:
+            return lambda: (x @ w1, a @ w2)
+        return lambda: (x @ w1, dy @ w2.T, a @ w1.T, x.T @ a, c.T @ dy)
+
+    lnw = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+           randn(d, hid, scale=xav), randn(hid, scale=0.02),
+           randn(hid, d, scale=xav), randn(d, scale=0.02))
+    cfg = ("gelu", 0.1, 0.1, 17)
+    for name, n, ln in (("fused_ln_ffn_res", b * (8 * 16 + 256), True),
+                        ("fused_ffn", b * batch["prev_tokens"].shape[1],
+                         False)):
+        x, dy = randn(n, d), randn(n, d)
+        ws = lnw if ln else lnw[2:]
+        fwd = ffn.fused_ln_ffn_res_forward if ln else ffn.fused_ffn_forward
+        bwd = ffn.fused_ln_ffn_res_backward if ln else ffn.fused_ffn_backward
+        pfwd = ffn.ln_ffn_res_plain if ln else ffn.ffn_plain
+        pbwd = (ffn.ln_ffn_res_plain_backward if ln
+                else ffn.ffn_plain_backward)
+        bws = ws[:5] if ln else ws[:3]
+        y = fwd(x, *ws, *cfg)
+        flops = 2 * n * d * hid
+        shape = f"x=({n},{d}) hidden {hid} gelu rate 0.1"
+        entry(name, shape, lambda: fwd(x, *ws, *cfg),
+              lambda: pfwd(x, *ws, *cfg), nbytes(x, y, *ws), 2 * flops,
+              products(x, lnw[2], lnw[4]))
+        got = bwd(x, *bws, dy, *cfg)
+        entry(f"{name}_backward", shape, lambda: bwd(x, *bws, dy, *cfg),
+              lambda: pbwd(x, *bws, dy, *cfg), nbytes(x, dy, *bws, *got),
+              5 * flops, products(x, lnw[2], lnw[4], dy))
+
+    geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=heads)
+    lengths = subsampled(batch["feat_lengths"]).to(torch.int32)
+    q3, dout = randn(b, geom.ng, geom.nq, d), randn(b, geom.ng, geom.nq, d)
+    args = (q3, randn(b, geom.tk, d), randn(b, geom.tk, d), lengths)
+    o = ea.emformer_grouped_attention_forward(*args, geom, 0.1, 23)
+    sd, mask = sdpa_on_context(ea, geom, *args)
+    sd = [t.requires_grad_() for t in sd]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=0.1)
+    sd_dout = torch.randn_like(sd_out)
+    vis = grouped_visible_pairs(ea, geom, *args)
+    shape = f"q3=({b},{geom.ng},{geom.nq},{d}) {heads} heads rate 0.1"
+    entry("emformer_grouped_attention", shape,
+          lambda: ea.emformer_grouped_attention_forward(*args, geom, 0.1, 23),
+          lambda: ea.grouped_attention_plain(*args, geom, 0.1, 23),
+          nbytes(*args, o), 4 * d * vis,
+          lambda: F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                 dropout_p=0.1))
+    got = ea.emformer_grouped_attention_backward(*args, dout, geom, 0.1, 23)
+    entry("emformer_grouped_attention_backward", shape,
+          lambda: ea.emformer_grouped_attention_backward(*args, dout, geom,
+                                                         0.1, 23),
+          lambda: ea.grouped_attention_plain_backward(*args, dout, geom, 0.1,
+                                                      23),
+          nbytes(*args, dout, *got), 10 * d * vis,
+          lambda: torch.autograd.grad(sd_out, sd, sd_dout,
+                                      retain_graph=True))
+    del sd, sd_out
+
+    tq = batch["prev_tokens"].shape[1]
+    q, do = randn(b, tq, d), randn(b, tq, d)
+    k, v = randn(b, tq, d), randn(b, tq, d)
+    kmask = torch.ones(b, tq, dtype=torch.int32, device=dev)
+    case = mha_forward_case(q, k, v, kmask, heads, True, 0.1)
+    o, lse = mha.fused_mha_forward(q, k, v, kmask, heads, True, 0.1, 4321)
+    out["fused_mha"] = dict(
+        shape=f"({b},{tq},{tq}) causal {heads} heads rate 0.1",
+        plain_ms=cuda_ms(lambda: mha.mha_plain(q, k, v, kmask, heads, True,
+                                               0.1, 4321), samples=3,
+                         runs=3), **case)
+    log("phase22", kernel="fused_mha", d512=out["fused_mha"])
+    vis = mha_visible_pairs(kmask, tq, True)
+    entry("fused_mha_backward", out["fused_mha"]["shape"],
+          lambda: mha.fused_mha_backward(q, k, v, kmask, o, lse, do, heads,
+                                         True, 0.1, 4321),
+          lambda: mha.mha_plain_backward(q, k, v, kmask, do, heads, True,
+                                         0.1, 4321),
+          nbytes(q, k, v, kmask, o, lse, do, q, k, v), 10 * d * vis,
+          _sdpa_backward_call(q, k, v, kmask, do, heads, True, 0.1))
+
+    n = b * 400          # the Emformer out-projection's rows, 200 / 192 gate
+    h, res, dy = randn(n, d), randn(n, d), randn(n, d)
+    w, bias = randn(d, d, scale=d ** -0.5), randn(d, scale=0.02)
+    cfg = (200, 192, 0.1, 7)
+    y = linear_res.fused_linear_res_forward(h, w, bias, res, *cfg)
+    shape = f"({n},{d}) x ({d},{d}) gate 200 / 192 rate 0.1"
+    entry("fused_linear_res", shape,
+          lambda: linear_res.fused_linear_res_forward(h, w, bias, res, *cfg),
+          lambda: linear_res.linear_res_plain(h, w, bias, res, *cfg),
+          nbytes(h, w, bias, res, y), 2 * n * d * d, lambda: h @ w)
+    got = linear_res.fused_linear_res_backward(h, w, dy, *cfg)
+    entry("fused_linear_res_backward", shape,
+          lambda: linear_res.fused_linear_res_backward(h, w, dy, *cfg),
+          lambda: linear_res.linear_res_plain_backward(h, w, dy, *cfg),
+          nbytes(h, w, dy, *got), 4 * n * d * d,
+          lambda: (dy @ w.T, h.T @ dy))
+
+    taps, groups, t_out = 64, 16, 256
+    xp, dyc = randn(b, t_out + taps - 1, d), randn(b, t_out, d)
+    got = conv_pos.convpos_wgrad(xp, dyc, taps, groups)
+    xt, dyt = xp.transpose(1, 2).contiguous(), dyc.transpose(1, 2).contiguous()
+    entry("convpos_wgrad",
+          f"xp=({b},{t_out + taps - 1},{d}) {groups} groups ({d // groups} "
+          "channels)",
+          lambda: conv_pos.convpos_wgrad(xp, dyc, taps, groups),
+          lambda: conv_pos.convpos_wgrad_plain(xp, dyc, taps, groups),
+          nbytes(xp, dyc, got), 2 * b * t_out * taps * d * (d // groups),
+          lambda: torch.nn.grad.conv1d_weight(xt, (d, d // groups, taps),
+                                              dyt, groups=groups))
+    return out
+
+
+def _sdpa_backward_call(q, k, v, kmask, dout, heads, causal, rate):
+    """SDPA's backward on fused_mha's inputs, as one call (for timing)."""
+    import torch
+    import torch.nn.functional as F
+    b, tq, d = q.shape
+    mask = sdpa_mask(q, k, kmask, causal)
+    sd = [x.view(b, x.shape[1], heads, d // heads).transpose(1, 2).detach()
+          .clone().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=rate)
+    sd_dout = dout.view(b, tq, heads, d // heads).transpose(1, 2)
+    return lambda: torch.autograd.grad(sd_out, sd, sd_dout,
+                                       retain_graph=True)
+
+
+def phase_width_train(dev, batch):
+    """One train step of s2t_emformer at embed_dim 512, 8 encoder and
+    decoder heads, FFN 2048 (dropout 0.1 and SpecAugment, launches
+    counted), then compare_plain_step at phase 8's bounds from the same
+    initial parameters and batch.  Returns the step's launches (the
+    comparison's are not counted)."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+    args = cli.parse_args(ASR_ARGS + WIDTH_MODEL)
+    model = cli.build_model(args, ASR_VOCAB, device=dev)
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    state = create_train_state(model, optim_cfg)
+    initial = copy.deepcopy(state)
+    train_step = make_train_step(loss_fn, optim_cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, batch, torch.Generator().manual_seed(
+        SEED))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss = float(metrics["loss"]) / float(metrics["sample_size"])
+    if not np.isfinite(loss) or state.step != 1:
+        raise AssertionError(f"512-wide step: loss {loss}, {state.step}")
+    log("phase22", train="s2t_emformer embed_dim 512, 8 heads, FFN 2048",
+        step_ms=(time.perf_counter() - t0) * 1e3, loss=loss,
+        params=sum(p.numel() for p in model.parameters()))
+    del state
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase22",
+                       make_accum_train_step)
+    return launches
+
+
+def phase_convergence(dev):
+    """exp/kernel_convergence_check.py on the port: 30 Adam steps (lr
+    1e-3) of s2t_emformer_s with joint CTC (B 8, T 1024, U 24, vocab 128,
+    bf16, dropout 0), once with the kernels and once through the plain
+    versions, from the same initial parameters and batch.  Both final
+    losses must fall under 0.8 of the first and the largest relative
+    deviation of the two trajectories stay under 0.03; the plain run
+    records its largest pre-softmax Emformer score, printed against JAX's
+    margin SCORE_CLAMP / 2."""
+    import torch
+    from simulst_tpu_torch.losses.joint_ctc import (JointCTCConfig,
+                                                    joint_ctc_loss)
+    from simulst_tpu_torch.models import s2t_emformer as s2t
+    from simulst_tpu_torch.nn import emformer as emf
+    cfg = s2t.S2TEmformerConfig(vocab_size=TRAJ_VOCAB, ctc_layer=True,
+                                compute_dtype="bfloat16")
+    init = s2t.S2TEmformerModel(
+        cfg, generator=torch.Generator().manual_seed(SEED), device=dev)
+    g = torch.Generator().manual_seed(SEED + 1)
+    feats = torch.randn(TRAJ_B, TRAJ_T, 80, generator=g).to(dev)
+    lengths = torch.full((TRAJ_B,), TRAJ_T, dtype=torch.int64, device=dev)
+    tokens = torch.randint(4, TRAJ_VOCAB, (TRAJ_B, TRAJ_U),
+                           generator=g).to(dev)
+    lcfg = JointCTCConfig()
+
+    def trajectory():
+        model = copy.deepcopy(init)
+        opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+        losses = []
+        for _ in range(TRAJ_STEPS):
+            opt.zero_grad(set_to_none=True)
+            logits, extra = model(feats, lengths, tokens)
+            loss = joint_ctc_loss(logits, extra, tokens, lcfg)[0] / (
+                TRAJ_B * TRAJ_U)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses
+
+    t0 = time.perf_counter()
+    scores = emf.enable_score_monitor()
+    try:
+        with plain_training():
+            plain = trajectory()
+    finally:
+        emf.disable_score_monitor()
+    kernels = trajectory()
+    rel = [abs(a - b) / max(abs(a), 1e-6) for a, b in zip(plain, kernels)]
+    max_score = max(scores) if scores else float("nan")
+    log("phase22", trajectory="s2t_emformer_s joint CTC bf16 dropout 0",
+        steps=TRAJ_STEPS, plain_losses=plain, kernel_losses=kernels,
+        max_rel_deviation=max(rel), max_pre_softmax_score=max_score,
+        score_margin=SCORE_MARGIN, seconds=time.perf_counter() - t0)
+    if not (plain[-1] < 0.8 * plain[0] and kernels[-1] < 0.8 * kernels[0]):
+        raise AssertionError(f"trajectory not converging: plain {plain[0]} "
+                             f"-> {plain[-1]}, kernels {kernels[0]} -> "
+                             f"{kernels[-1]}")
+    if not max(rel) < 0.03:
+        raise AssertionError(f"kernel trajectory departs from plain: "
+                             f"{max(rel)}")
+    if not (scores and max_score < SCORE_MARGIN):
+        raise AssertionError(f"pre-softmax scores {max_score} reach the "
+                             f"margin {SCORE_MARGIN}")
+
+
+def phase_synthetic(workdir):
+    """tools/synthetic_smoke.py's CIF leg (the tone-language corpus, 1000
+    bf16 updates of CIF at embed_dim 64, checkpoint averaging, fused
+    scanned batched streaming under global CMVN), its CLIs run as a user
+    runs them, each in a process of its own; BLEU > 20, AL > 0."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import synthetic_smoke as smoke
+    t0 = time.perf_counter()
+    data = smoke.build_corpus(os.path.join(workdir, "tones"))
+    corpus_s = time.perf_counter() - t0
+    scores = smoke.run_leg(workdir, data, "cif")
+    log("phase22", synthetic="cif", corpus_s=corpus_s,
+        seconds=time.perf_counter() - t0, BLEU=scores["BLEU"],
+        AL=scores["AL"], AP=scores.get("AP"), DAL=scores.get("DAL"))
+
+
+def phase_widths(dev, batch, workdir):
+    """Phase 22: the kernels at every width the JAX package trains.  The
+    corners vs plain (22a), the times at D 512 (22b), the path of this
+    slice: a 512-wide train step (22c, its launches counted: every
+    width-dependent kernel must launch) and the tone-language CIF leg
+    through the CLIs (22d); then the kernel convergence trajectory.
+    Returns (the step's launches, the D 512 times)."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        phase_width_kernels(dev)
+        t1 = time.perf_counter()
+        times = phase_width_times(dev, batch)
+    t2 = time.perf_counter()
+    launches = phase_width_train(dev, batch)
+    missing = [k for k in WIDTH_KERNELS if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 22: {missing} did not launch at the "
+                             f"new widths: {launches}")
+    log("phase22", launches=launches)
+    t3 = time.perf_counter()
+    phase_synthetic(workdir)
+    log("phase22", kernels_s=t1 - t0, times_s=t2 - t1, train_s=t3 - t2,
+        synthetic_s=time.perf_counter() - t3)
+    phase_convergence(dev)
+    return launches, times
+
+
 def run(dev):
     import torch
     from simulst_tpu_torch.cli.generate import decode_batch
@@ -5301,6 +5810,10 @@ def run(dev):
     gpu = gpu_name_and_power_limit()
     started = time.perf_counter()
 
+    def mark(phase):
+        """The run's seconds when `phase` (and the ones before it) ended."""
+        log("elapsed", after_phase=phase, s=time.perf_counter() - started)
+
     # 1. build
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -5312,9 +5825,11 @@ def run(dev):
     print(f"phase1 gpu: {gpu}", flush=True)
 
     with torch.inference_mode():
+        mark(1)
         # 2. serving kernels vs plain
         report = phase_kernels(dev)
 
+        mark(2)
         # 3. offline decode
         cfg = s2t.S2TEmformerConfig()
         model = s2t.S2TEmformerModel(
@@ -5347,6 +5862,7 @@ def run(dev):
         torch.cuda.synchronize()
         steady_ms = (time.perf_counter() - t0) * 1e3
 
+        mark(3)
         # 4. streaming session on the first utterance
         stepper = s2t.make_encoder_stepper(model.encoder, cfg)
         ecfg = cfg.emformer
@@ -5402,6 +5918,7 @@ def run(dev):
             stream_err, launches_in_session=session)
         del model, enc_k, enc_p, off1
 
+    mark(4)
     # 5. training kernels vs plain at the MT shapes
     from simulst_tpu_torch.data.synthetic import synthetic_pairs
     mt_batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_pairs(
@@ -5410,6 +5927,7 @@ def run(dev):
     with torch.no_grad():
         report.update(phase_train_kernels(dev, mt_batch))
 
+    mark(5)
     # 6. MT training steps; the trained teacher is decoded in phase 16
     workdir = tempfile.TemporaryDirectory()
     checkpoints = {kind: os.path.join(workdir.name, f"{kind}_checkpoint")
@@ -5418,20 +5936,24 @@ def run(dev):
     mt_src = mt_batch["src_tokens"]
     del mt_batch
 
+    mark(6)
     # 7. ASR training kernels vs plain at the 32 x 1024-frame shapes
     asr = asr_batch(dev)
     with torch.no_grad():
         report.update(phase_asr_kernels(dev, asr))
 
+    mark(7)
     # 8. ASR training steps; the trained encoder is MMA's starting point
     asr_checkpoint = os.path.join(workdir.name, "asr_checkpoint_last")
     asr_training, asr_median_ms, asr_fp32 = phase_asr_train(dev, asr,
                                                             asr_checkpoint)
 
+    mark(8)
     # 9. the MMA alignment kernels vs plain
     with torch.no_grad():
         report.update(phase_mma_kernels(dev))
 
+    mark(9)
     # 10. MMA training steps from the ASR encoder
     mma_training, mma_model = phase_mma_train(dev, asr, asr_checkpoint)
     from simulst_tpu_torch import config as cfglib
@@ -5439,25 +5961,31 @@ def run(dev):
     save_checkpoint(checkpoints["mma"], mma_model.state_dict(),
                     {"model": "mma", "config": cfglib.to_dict(mma_model.cfg)})
 
+    mark(10)
     # 11. MMA streaming on the first utterance of the batch
     with torch.no_grad():
         phase_mma_stream(dev, mma_model, asr["feats"][:1])
     del mma_model
 
+    mark(11)
     # 12. the CIF kernel vs plain
     with torch.no_grad():
         report.update(phase_cif_kernels(dev))
 
+    mark(12)
     # 13. CIF training steps from the ASR encoder
     cif_training = phase_cif_train(dev, asr, asr_checkpoint,
                                    checkpoints["cif"])
 
+    mark(13)
     # 14. CIF and MMA through the streaming evaluator
     cif_serving = phase_serve(dev, workdir.name, checkpoints)
 
+    mark(14)
     # 15. the batched streaming evaluator (B 1, 8 and 64, scanned)
     batched_serving = phase_batched_serve(dev, workdir.name, checkpoints)
 
+    mark(15)
     # 16. offline decoding of MMA, CIF and MT; cli/generate main
     speech = {"feats": feats, "feat_lengths": lengths}
     with torch.no_grad():
@@ -5465,10 +5993,12 @@ def run(dev):
                                               speech, mt_src)
     del mt_src
 
+    mark(16)
     # 17. sequence-packed ASR training (cli/train --pack)
     pack_training, pack_report = phase_asr_pack(dev, asr, asr_median_ms)
     report.update(pack_report)
 
+    mark(17)
     # 18. the transducer: its label-encoder kernels vs plain, then exp/6's
     # training from phase 8's encoder, offline decode and streaming
     with torch.no_grad():
@@ -5476,11 +6006,13 @@ def run(dev):
     transducer = phase_transducer(dev, asr, asr_checkpoint, speech,
                                   workdir.name)
 
+    mark(18)
     # 19. data to score: MuST-C preparation, train --mtl with encoder
     # freezing, tensorboard and the profiler, s2t_transformer_convpos, the
     # fairseq loader, interactive and visualize
     data_to_score = phase_data(dev, workdir.name, asr, speech, report)
 
+    mark(19)
     # 20. bf16 compute (--override compute_dtype=bfloat16), remat and the
     # model options: the FFN kernels' silu and tanh, rows 1-6 in bf16,
     # asr-train in bf16 (its launches are this path's) with remat, bf16
@@ -5490,27 +6022,37 @@ def run(dev):
     for name, fields in bf16_report.items():
         report.setdefault(name, {}).update(fields)
 
+    mark(20)
     # 21. parallel: two ranks (the dry run, then the full-width data-,
     # tensor-, pipeline- and sequence-parallel paths and sharded serving)
     parallel = phase_parallel(dev, asr)
+
+    mark(21)
+    # 22. widths: the kernels at the corners of the widths the JAX package
+    # trains, their times at D 512, a 512-wide train step, the
+    # tone-language CIF leg and the kernel convergence trajectory
+    widths, width_times = phase_widths(dev, asr, workdir.name)
     del asr, speech, feats, lengths
     workdir.cleanup()
 
-    # 22. report
+    mark(22)
+    # 23. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
              "batched-serving": batched_serving,
              "offline-decode": offline_decode, "asr-pack": pack_training,
              "transducer": transducer, "data-to-score": data_to_score,
-             "bf16-training": bf16_training, "parallel": parallel}
+             "bf16-training": bf16_training, "parallel": parallel,
+             "widths": widths}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
          "launches_by_path": {p: counts[name] for p, counts in paths.items()},
          **{key: report[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms", "shape", "bf16", "activations")}}
+             "library_ms", "shape", "bf16", "activations")},
+         **({"d512": width_times[name]} if name in width_times else {})}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
     # the whole run's time (logged as "phase21" until phase 21 existed)
     log("total", total_s=time.perf_counter() - started)

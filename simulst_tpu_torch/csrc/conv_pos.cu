@@ -4,12 +4,14 @@
 // `convpos_wgrad_pallas` (_wgrad_kernel), reached through the conv-pos
 // custom VJP (simulst_tpu/nn/conv.py _grouped_conv_fast_wgrad).  The
 // forward and the data gradient stay ordinary convolutions, as they stay
-// XLA in the JAX package.  For tap k, group gr and channels of 16:
+// XLA in the JAX package.  For tap k, group gr and cg channels a group:
 //
-//   dw[o, ci, k] = sum over (b, t) of xp[b, t + k, gr*16 + ci] dy[b, t, o]
+//   dw[o, ci, k] = sum over (b, t) of xp[b, t + k, gr*cg + ci] dy[b, t, o]
 //
 // for output channel o of group gr (xp the left-padded input (B, T+K-1, D),
-// dy (B, T, D)); dw in torch's (D, 16, K) conv layout, fp32.
+// dy (B, T, D)); dw in torch's (D, cg, K) conv layout, fp32.  cg is a
+// multiple of 4 (s2t_transformer_convpos: D / 16 groups, 4 to 64 channels
+// at D 64 to 1024) or 1 (a depthwise conv).
 //
 // What bounds it on the H100: 2 B T K D 16 operations (4.3 GFLOP at 32 x
 // 256 frames, 64 taps, D 256), about 64 us on the fp32 CUDA cores; the
@@ -18,8 +20,11 @@
 // away, 16x the work; here only the 16 diagonal 16 x 16 blocks are
 // computed.
 //
-// Design: a block owns (group, 64 taps, a slice of the batch); each thread
-// a register tile of Kr taps x Or output channels x Cr input channels.  A
+// Design: a block owns (group, a 16 x 16 slice of its (output, input)
+// channel block, 64 taps, a slice of the batch); each thread a register
+// tile of Kr taps x Or output channels x Cr input channels.  A group of cg
+// channels has ceil(cg / 16)^2 slices; channels past cg are staged as zeros
+// and not stored (at cg 16, the ASR model's, one slice, nothing padded).  A
 // time step reads the step's Or dy values and one new x row of Cr values
 // from shared memory, one vector load each, into a window of the Kr x rows
 // its taps need: Kr Or Cr fused multiply-adds for two loads.  The loop is
@@ -34,11 +39,15 @@
 // accumulator never being -0) and stop at the next multiple of Kr.  The
 // batch slices write fp32 partials in dw's layout, which a second kernel
 // adds in slice order from 0: no atomics.
+//
+// cg 1 (depthwise) has its own kernel: a block owns 32 channels x 64 taps
+// of a batch slice, a thread one channel and 8 taps, over the same tiles of
+// 64 time steps; each output is the same fmaf chain over (b, t).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCg = 16;       // channels per group the kernel is built for
+constexpr int kCg = 16;       // output and input channels of a block's slice
 constexpr int kTapBlock = 64;  // taps per block
 constexpr int kTile = 64;      // time steps per shared-memory tile
 constexpr int kRows = kTile + kTapBlock - 1;  // x rows a tile's steps read
@@ -57,14 +66,20 @@ __device__ __forceinline__ void lds(float (&v)[4], const float* p) {
 }
 
 // partial[split][o][ci][k], dw's layout per batch slice
-template <typename T>
+// kCgFixed: the channels a group as a constant (16, whose block is one
+// unpadded slice: its offsets and checks fold away), or 0 for cg_arg
+template <typename T, int kCgFixed>
 __global__ void __launch_bounds__(kThreads, 1)
     convpos_wgrad_kernel(const T* __restrict__ xp, const T* __restrict__ dy,
                          float* __restrict__ partial, int batch, int t_out,
-                         int taps, int dim, int batch_per_split) {
+                         int taps, int dim, int cg_arg, int batch_per_split) {
+  const int cg = kCgFixed ? kCgFixed : cg_arg;
   __shared__ __align__(16) float dys[2][kTile][kCg];
   __shared__ __align__(16) float xs[2][kRows][kCg];
-  const int grp = blockIdx.x;
+  const int slices = (cg + kCg - 1) / kCg;   // per side of a group's block
+  const int grp = blockIdx.x / (slices * slices);
+  const int so = blockIdx.x / slices % slices * kCg;  // output channel slice
+  const int si = blockIdx.x % slices * kCg;           // input channel slice
   const int b_begin = blockIdx.y * batch_per_split;
   const int b_end = min(batch, b_begin + batch_per_split);
   const int k_base = blockIdx.z * kTapBlock;
@@ -73,7 +88,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int o0 = tid / (kCg / Cr) % (kCg / Or) * Or;  // first output channel
   const int kl = tid / ((kCg / Cr) * (kCg / Or)) * Kr;  // first tap, in block
   const int t_in = t_out + taps - 1;
-  const int ch0 = grp * kCg;
+  const int ych0 = grp * cg + so, xch0 = grp * cg + si;
+  const int ycols = min(kCg, cg - so), xcols = min(kCg, cg - si);
   const int tiles_per_b = (t_out + kTile - 1) / kTile;
   const int n_tiles = max(b_end - b_begin, 0) * tiles_per_b;
 
@@ -81,18 +97,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   // buf: dy rows t0.., x rows t0 + k_base..; zeros past the ends
   auto stage = [&](int i, int buf) {
     const int b = b_begin + i / tiles_per_b, t0 = i % tiles_per_b * kTile;
-    const T* yb = dy + (size_t)b * t_out * dim + ch0;
-    const T* xb = xp + (size_t)b * t_in * dim + ch0;
+    const T* yb = dy + (size_t)b * t_out * dim + ych0;
+    const T* xb = xp + (size_t)b * t_in * dim + xch0;
     for (int q = tid; q < kTile * kCg / 4; q += kThreads) {
       const int r = q / (kCg / 4), c = q % (kCg / 4) * 4;
-      const bool ok = t0 + r < t_out;
+      const bool ok = t0 + r < t_out && c < ycols;
       simulst::stage4(&dys[buf][r][c], ok ? yb + (size_t)(t0 + r) * dim + c
                                           : yb, ok);
     }
     for (int q = tid; q < kRows * kCg / 4; q += kThreads) {
       const int r = q / (kCg / 4), c = q % (kCg / 4) * 4;
       const int row = t0 + k_base + r;
-      const bool ok = row < t_in;
+      const bool ok = row < t_in && c < xcols;
       simulst::stage4(&xs[buf][r][c], ok ? xb + (size_t)row * dim + c : xb,
                       ok);
     }
@@ -138,13 +154,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  float* out = partial + (size_t)blockIdx.y * dim * kCg * taps;
+  float* out = partial + (size_t)blockIdx.y * dim * cg * taps;
   const int k0 = k_base + kl;
 #pragma unroll
   for (int oi = 0; oi < Or; ++oi)
 #pragma unroll
     for (int ci = 0; ci < Cr; ++ci) {
-      float* row = out + ((size_t)(ch0 + o0 + oi) * kCg + c0 + ci) * taps;
+      if (o0 + oi >= ycols || c0 + ci >= xcols) continue;
+      float* row = out + ((size_t)(ych0 + o0 + oi) * cg + si + c0 + ci) * taps;
       if (taps % 4 == 0) {  // a float4, 16-byte aligned
         if (k0 < taps)
           *reinterpret_cast<float4*>(row + k0) =
@@ -156,6 +173,69 @@ __global__ void __launch_bounds__(kThreads, 1)
           if (k0 + kk < taps) row[k0 + kk] = acc[kk][oi][ci];
       }
     }
+}
+
+// cg 1: partial[split][c][k] = sum over the slice's (b, t) of xp[b, t + k, c]
+// dy[b, t, c].  Block (32 channels, 64 taps): thread (c, kq) owns channel
+// c and taps 8 kq .. 8 kq + 7; tiles of 64 steps of dy and their 127 x
+// rows through shared memory, as the grouped kernel's.
+constexpr int kDwChannels = 32;
+constexpr int kDwTaps = 8;   // taps per thread
+constexpr int kDwThreads = kDwChannels * (kTapBlock / kDwTaps);
+
+template <typename T>
+__global__ void __launch_bounds__(kDwThreads)
+    convpos_wgrad_depthwise_kernel(const T* __restrict__ xp,
+                                   const T* __restrict__ dy,
+                                   float* __restrict__ partial, int batch,
+                                   int t_out, int taps, int dim,
+                                   int batch_per_split) {
+  __shared__ float dys[kTile][kDwChannels];
+  __shared__ float xs[kRows][kDwChannels];
+  const int c = threadIdx.x % kDwChannels;
+  const int kl = threadIdx.x / kDwChannels * kDwTaps;
+  const int ch = blockIdx.x * kDwChannels + c;
+  const int k_base = blockIdx.z * kTapBlock;
+  const int b_begin = blockIdx.y * batch_per_split;
+  const int b_end = min(batch, b_begin + batch_per_split);
+  const int t_in = t_out + taps - 1;
+  float acc[kDwTaps];
+#pragma unroll
+  for (int kk = 0; kk < kDwTaps; ++kk) acc[kk] = 0.f;
+  for (int b = b_begin; b < b_end; ++b)
+    for (int t0 = 0; t0 < t_out; t0 += kTile) {
+      __syncthreads();   // the previous tile is read
+      for (int q = threadIdx.x; q < kTile * kDwChannels; q += kDwThreads) {
+        const int r = q / kDwChannels, cc = blockIdx.x * kDwChannels +
+                                             q % kDwChannels;
+        dys[r][q % kDwChannels] =
+            t0 + r < t_out && cc < dim
+                ? simulst::to_f32(dy[((size_t)b * t_out + t0 + r) * dim + cc])
+                : 0.f;
+      }
+      for (int q = threadIdx.x; q < kRows * kDwChannels; q += kDwThreads) {
+        const int r = q / kDwChannels, cc = blockIdx.x * kDwChannels +
+                                             q % kDwChannels;
+        const int row = t0 + k_base + r;
+        xs[r][q % kDwChannels] =
+            row < t_in && cc < dim
+                ? simulst::to_f32(xp[((size_t)b * t_in + row) * dim + cc])
+                : 0.f;
+      }
+      __syncthreads();
+      const int steps = min(kTile, t_out - t0);
+      for (int tt = 0; tt < steps; ++tt) {
+        const float g = dys[tt][c];
+#pragma unroll
+        for (int kk = 0; kk < kDwTaps; ++kk)
+          acc[kk] = fmaf(xs[tt + kl + kk][c], g, acc[kk]);
+      }
+    }
+  if (ch >= dim) return;
+  float* row = partial + (size_t)blockIdx.y * dim * taps + (size_t)ch * taps;
+#pragma unroll
+  for (int kk = 0; kk < kDwTaps; ++kk)
+    if (k_base + kl + kk < taps) row[k_base + kl + kk] = acc[kk];
 }
 
 // dw = sum over splits (in order, from 0) of partial[z], 4 values a thread
@@ -177,38 +257,55 @@ __global__ void convpos_wgrad_sum_kernel(const float4* __restrict__ partial,
 
 template <typename T>
 int launch_wgrad(const void* xp, const void* dy, float* dw, float* partial,
-                 int batch, int t_out, int taps, int dim, int splits,
-                 cudaStream_t s) {
+                 int batch, int t_out, int taps, int dim, int groups,
+                 int splits, cudaStream_t s) {
   const int per = simulst::ceil_div(batch, splits);
-  const dim3 grid(dim / kCg, simulst::ceil_div(batch, per),
-                  simulst::ceil_div(taps, kTapBlock));
-  convpos_wgrad_kernel<T><<<grid, kThreads, 0, s>>>(
-          static_cast<const T*>(xp), static_cast<const T*>(dy), partial,
-          batch, t_out, taps, dim, per);
+  const int cg = dim / groups;
+  const int n_splits = simulst::ceil_div(batch, per);
+  const int tap_blocks = simulst::ceil_div(taps, kTapBlock);
+  if (cg == 1) {
+    convpos_wgrad_depthwise_kernel<T>
+        <<<dim3(simulst::ceil_div(dim, kDwChannels), n_splits, tap_blocks),
+           kDwThreads, 0, s>>>(static_cast<const T*>(xp),
+                               static_cast<const T*>(dy), partial, batch,
+                               t_out, taps, dim, per);
+  } else {
+    const int slices = simulst::ceil_div(cg, kCg);
+    const dim3 grid(groups * slices * slices, n_splits, tap_blocks);
+    auto kernel = cg == kCg ? convpos_wgrad_kernel<T, kCg>
+                            : convpos_wgrad_kernel<T, 0>;
+    kernel<<<grid, kThreads, 0, s>>>(static_cast<const T*>(xp),
+                                     static_cast<const T*>(dy), partial,
+                                     batch, t_out, taps, dim, cg, per);
+  }
   SIMULST_TRY(cudaGetLastError());
-  const size_t total4 = (size_t)dim * kCg * taps / 4;  // dim: 16 a group
+  const size_t total4 = (size_t)dim * cg * taps / 4;  // dim: 64 a step
   convpos_wgrad_sum_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, s>>>(
       reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dw),
-      (int)grid.y, total4);
+      n_splits, total4);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // xp: (batch, t_out + taps - 1, dim) left-padded conv input; dy: (batch,
-// t_out, dim), both of `dtype`, 16-byte aligned; groups = dim / 16.  dw:
-// (dim, 16, taps) fp32; partial: fp32 scratch (splits, dim, 16, taps).
-// Returns a cudaError_t.
+// t_out, dim), both of `dtype`, 16-byte aligned; cg = dim / groups a
+// multiple of 4 or 1, dim * cg * taps a multiple of 4.  dw: (dim, cg, taps)
+// fp32; partial: fp32 scratch (splits, dim, cg, taps).  Returns a
+// cudaError_t.
 extern "C" int simulst_convpos_wgrad(int dtype, const void* xp,
                                      const void* dy, void* dw, void* partial,
                                      int batch, int t_out, int taps, int dim,
                                      int groups, int splits, void* stream) {
   if (batch <= 0 || t_out <= 0 || taps <= 0 || groups <= 0 ||
-      dim != groups * kCg || splits <= 0 || splits > batch)
+      dim % groups != 0 || splits <= 0 || splits > batch)
+    return (int)cudaErrorInvalidValue;
+  const int cg = dim / groups;
+  if ((cg != 1 && cg % 4 != 0) || (size_t)dim * cg * taps % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SIMULST_DISPATCH(dtype, return launch_wgrad<scalar_t>(
                               xp, dy, static_cast<float*>(dw),
                               static_cast<float*>(partial), batch, t_out,
-                              taps, dim, splits, s));
+                              taps, dim, groups, splits, s));
 }

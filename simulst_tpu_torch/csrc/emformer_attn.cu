@@ -86,6 +86,17 @@
 // fifth in the three dK / dV walks, and the rest in the scores, staging
 // and dq.  A warp takes kRowTile / warps rows at once so that their chains
 // of shuffles, exp and Philox overlap.
+//
+// Head dims: any multiple of 8 from 8 to 128.  The kernels are templates on
+// the staged head dim kHeadDim, 64 or 128 (the next at or above hd): rows
+// are staged kHeadDim wide with the features past hd zero-filled, so every
+// score adds exact zeros past hd, and only the hd real features of an
+// output are stored; products along the features run in blocks of 64.
+// The backward's dK / dV accumulators hold F features of every context
+// slot, F the largest of 64 (the walks' thread map: 16 threads of 4
+// features), 32 and 16 with which the block fits the card's shared memory;
+// the three walks run once per block of F features.  Each output's sum is
+// the same whatever F.
 #include <math.h>
 
 #include "common.cuh"
@@ -96,8 +107,10 @@ using simulst::Dropout;
 using simulst::from_f32;
 using simulst::round_to;
 
-constexpr int kHeadDim = 64;
-constexpr int kLd = kHeadDim + 4;  // staged row stride (floats)
+constexpr int kMaxHeadDim = 128;   // head dims: multiples of kHeadDimStep
+constexpr int kHeadDimStep = 8;
+constexpr int kMaxAccFeatures = 64;  // the dK / dV walks' features a pass
+constexpr int kMinAccFeatures = 16;  // ... at the least
 constexpr int kRowTile = 32;       // unit rows per product tile
 constexpr int kColTile = 64;       // unit columns per product tile
 constexpr int kFwdThreads = 128;   // 8 x 16, a 4 x 4 micro-tile each
@@ -109,7 +122,13 @@ struct Geom {
   // a unit: R = rc + seg + 1 rows and C = max_mem + rc + lc + seg columns,
   // padded to whole tiles (Rp, Cp); sld the row stride of its scores
   int R, C, Rp, Cp, sld;
+  // the head dim, the staged head dim (64 or 128) and the features of the
+  // backward's dK / dV accumulators
+  int hd, shd, F;
 };
+
+// staged row stride (floats) of a kHD-wide row
+__host__ __device__ constexpr int staged_ld(int khd) { return khd + 4; }
 
 // The sequence-packing gate: kid (batch, tk) the example id of each key
 // row, seg_eid (batch, n) that of each segment; null in the dense path.
@@ -133,18 +152,30 @@ struct Gate {
 // Shared memory of a forward block: Q, K, V, the scores, and three ints
 // per column.  ops/emformer_attn.py `unit_shape` computes the same bytes.
 size_t fwd_smem_bytes(const Geom& g) {
-  return sizeof(float) * ((size_t)g.Rp * kLd + 2 * (size_t)g.Cp * kLd +
+  const size_t ld = staged_ld(g.shd);
+  return sizeof(float) * ((size_t)g.Rp * ld + 2 * (size_t)g.Cp * ld +
                           (size_t)g.Rp * g.sld) +
          3 * sizeof(int) * (size_t)g.Cp;
 }
 
 // ... of a backward block: Q, dO, K, V, three (row, column) matrices, the
-// group's dK and dV accumulators, and three ints per column
-size_t bwd_smem_bytes(const Geom& g) {
-  return sizeof(float) * (2 * (size_t)g.Rp * kLd + 2 * (size_t)g.Cp * kLd +
-                          3 * (size_t)g.Rp * g.sld +
-                          2 * (size_t)g.ctx * kHeadDim) +
+// group's dK and dV accumulators (F features a slot), and three ints per
+// column
+size_t bwd_smem_bytes(const Geom& g, int F) {
+  const size_t ld = staged_ld(g.shd);
+  return sizeof(float) * (2 * (size_t)g.Rp * ld + 2 * (size_t)g.Cp * ld +
+                          3 * (size_t)g.Rp * g.sld + 2 * (size_t)g.ctx * F) +
          3 * sizeof(int) * (size_t)g.Cp;
+}
+
+// the backward's accumulator features: the largest of kMaxAccFeatures,
+// its half, ..., kMinAccFeatures with which a block fits, else
+// kMinAccFeatures
+int acc_features(const Geom& g) {
+  int F = kMaxAccFeatures;
+  while (F > kMinAccFeatures && bwd_smem_bytes(g, F) > (size_t)kSmemLimit)
+    F /= 2;
+  return F;
 }
 
 // context slot c of group grp -> key row, -1 where the slot lies outside
@@ -285,19 +316,21 @@ __device__ __forceinline__ void cp_async16(float* dst, const void* src,
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Stage n rows of one head's 64 features into dst (row stride kLd): row r
-// from src + off(r), zeros where off(r) < 0.  fp32 rows go by 16-byte
-// cp.async (zero-filled through its source size), bf16 rows by 16-byte
-// loads widened to fp32.  stage_wait() completes them.
-template <typename T, class Off>
+// Stage n rows of one head's kHeadDim features into dst (row stride
+// staged_ld): row r from src + off(r), zeros where off(r) < 0 and in the
+// features from hd on.  fp32 rows go by 16-byte cp.async (zero-filled
+// through its source size), bf16 rows by 16-byte loads widened to fp32.
+// stage_wait() completes them.
+template <int kHeadDim, typename T, class Off>
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const T* __restrict__ src, int n,
-                                           Off off) {
+                                           int hd, Off off) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kChunks = kHeadDim / kVec;
+  constexpr int kLd = staged_ld(kHeadDim);
   for (int idx = threadIdx.x; idx < n * kChunks; idx += blockDim.x) {
     const int r = idx / kChunks, ch = idx % kChunks;
-    const long long o = off(r);
+    const long long o = ch * kVec < hd ? off(r) : -1;
     float* d = dst + r * kLd + ch * kVec;
     if constexpr (sizeof(T) == sizeof(float)) {
       cp_async16(d, o >= 0 ? src + o + ch * kVec : src, o >= 0);
@@ -351,12 +384,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, const float4& v) {
   reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
-// acc[a][c] = x row (xr + kStep a) . y row (yr + 16 c) over the 64
-// features, for staged tiles x and y (row stride kLd)
-template <int kA, int kStep>
+// acc[a][c] = x row (xr + kStep a) . y row (yr + 16 c) over the kHeadDim
+// staged features, for staged tiles x and y (row stride staged_ld)
+template <int kA, int kStep, int kHeadDim>
 __device__ __forceinline__ void tile_dots(const float* x, int xr,
                                           const float* y, int yr,
                                           float acc[kA][4]) {
+  constexpr int kLd = staged_ld(kHeadDim);
 #pragma unroll
   for (int a = 0; a < kA; ++a)
 #pragma unroll
@@ -377,10 +411,12 @@ __device__ __forceinline__ void tile_dots(const float* x, int xr,
 
 // acc[a] += sum over columns j < jn of p[row (r + kStep a)][j] * y[j][4 f..]:
 // rows of the probabilities (or ds; row stride sld) times a staged tile
-template <int kA, int kStep>
+// (row stride staged_ld)
+template <int kA, int kStep, int kHeadDim>
 __device__ __forceinline__ void tile_pv(const float* p, int sld, int r,
                                         const float* y, int f, int jn,
                                         float4 acc[kA]) {
+  constexpr int kLd = staged_ld(kHeadDim);
 #pragma unroll 2
   for (int j = 0; j < jn; j += 4) {
     float4 pa[kA], yc[4];
@@ -399,12 +435,14 @@ __device__ __forceinline__ void tile_pv(const float* p, int sld, int r,
 }
 
 // one forward block per unit: blockIdx.x = ((b ng + grp) heads + head) G + i
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kHeadDim, bool kExact>
 __global__ void __launch_bounds__(kFwdThreads)
     grouped_attn_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths, Gate gate,
                         T* __restrict__ out, Geom g, Dropout drop) {
+  constexpr int kLd = staged_ld(kHeadDim);
+  const int hd = kExact ? kHeadDim : g.hd;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [Rp][kLd]
   float* ks = qs + g.Rp * kLd;                  // [Cp][kLd]
@@ -421,8 +459,8 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t q_base =
-      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * kHeadDim;
-  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
+      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * hd;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * hd;
   const size_t row_base =
       (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
 
@@ -437,16 +475,16 @@ __global__ void __launch_bounds__(kFwdThreads)
     return col_row[j] >= 0 ? (long long)(kv_base + (size_t)col_row[j] * g.dim)
                            : -1;
   };
-  stage_rows(qs, q3, g.Rp, q_off);
-  stage_rows(ks, k, g.Cp, kv_off);
-  stage_rows(vs, v, g.Cp, kv_off);
+  stage_rows<kHeadDim>(qs, q3, g.Rp, hd, q_off);
+  stage_rows<kHeadDim>(ks, k, g.Cp, hd, kv_off);
+  stage_rows<kHeadDim>(vs, v, g.Cp, hd, kv_off);
   stage_wait();
 
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
+  const float scale = 1.0f / sqrtf((float)hd);
   for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
     for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
       float s[4][4];
-      tile_dots<4, 8>(qs, r0 + ty, ks, c0 + tx, s);
+      tile_dots<4, 8, kHeadDim>(qs, r0 + ty, ks, c0 + tx, s);
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int r = r0 + ty + 8 * a;
@@ -494,15 +532,17 @@ __global__ void __launch_bounds__(kFwdThreads)
   __syncthreads();
 
   const int jn = (g.C + 3) & ~3;  // columns past C hold zeros
-  for (int r0 = 0; r0 < g.Rp; r0 += kRowTile) {
-    float4 o[4] = {};
-    tile_pv<4, 8>(ps, g.sld, r0 + ty, vs, tx, jn, o);
+  for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
+    for (int fb = 0; fb < hd; fb += 64) {   // features fb + 4 tx ..
+      float4 o[4] = {};
+      tile_pv<4, 8, kHeadDim>(ps, g.sld, r0 + ty, vs + fb, tx, jn, o);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = r0 + ty + 8 * a;
-      if (r < g.R) store4(out + q_off(r) + 4 * tx, o[a]);
+      for (int a = 0; a < 4; ++a) {
+        const int r = r0 + ty + 8 * a;
+        if (r < g.R && fb + 4 * tx < hd)
+          store4(out + q_off(r) + fb + 4 * tx, o[a]);
+      }
     }
-  }
 }
 
 // One backward block per (batch, group, head).  A first walk over the G
@@ -519,7 +559,7 @@ __global__ void __launch_bounds__(kFwdThreads)
 // dq takes p = e / sum, and Delta = sum(dp p) over the columns with
 // p > 0, dp = (dO . v) m; dK and dV take p = exp(s - lse) with
 // lse = max + log(sum).  The two agree to rounding.
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kHeadDim, bool kExact>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     grouped_attn_bwd_kernel(const T* __restrict__ q3, const T* __restrict__ k,
                             const T* __restrict__ v,
@@ -529,6 +569,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                             float* __restrict__ dk_part,
                             float* __restrict__ dv_part, Geom g,
                             Dropout drop) {
+  constexpr int kLd = staged_ld(kHeadDim);
+  const int hd = kExact ? kHeadDim : g.hd;
+  const int F = kExact ? kHeadDim : g.F;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [Rp][kLd]
   float* dos = qs + g.Rp * kLd;                 // [Rp][kLd]
@@ -537,9 +580,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float* as = vs + g.Cp * kLd;                  // [Rp][sld] scores, ds (dq)
   float* ts = as + g.Rp * g.sld;                // [Rp][sld] dO . v, round(p m)
   float* xs = ts + g.Rp * g.sld;                // [Rp][sld] e, ds (dK)
-  float* dk_acc = xs + g.Rp * g.sld;            // [ctx][kHeadDim]
-  float* dv_acc = dk_acc + g.ctx * kHeadDim;    // [ctx][kHeadDim]
-  int* col_slot = reinterpret_cast<int*>(dv_acc + g.ctx * kHeadDim);  // [Cp]
+  float* dk_acc = xs + g.Rp * g.sld;            // [ctx][F]
+  float* dv_acc = dk_acc + g.ctx * F;         // [ctx][F]
+  int* col_slot = reinterpret_cast<int*>(dv_acc + g.ctx * F);  // [Cp]
   int* col_row = col_slot + g.Cp;                                     // [Cp]
   int* col_ok = col_row + g.Cp;                                       // [Cp]
 
@@ -550,18 +593,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const size_t q_base =
-      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * kHeadDim;
-  const size_t kv_base = (size_t)b * g.tk * g.dim + head * kHeadDim;
+      ((size_t)b * g.ng + grp) * g.nq * g.dim + head * hd;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * hd;
   const size_t row_base =
       (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
-  const float scale = 1.0f / sqrtf((float)kHeadDim);
+  const float scale = 1.0f / sqrtf((float)hd);
   const float keep_mult = drop.on ? drop.inv_keep : 1.f;
   const int jn = (g.C + 3) & ~3;
   const size_t unit_probs = 2 * (size_t)g.R * g.Cp;  // round(p m), then ds
   probs += (size_t)blockIdx.x * g.G * unit_probs;
-
-  for (int idx = threadIdx.x; idx < 2 * g.ctx * kHeadDim; idx += kBwdThreads)
-    dk_acc[idx] = 0.f;  // and dv_acc, which follows it
 
   for (int i = 0; i < g.G; ++i) {
     unit_columns<kGated>(g, gate, b, grp, i, length, col_slot, col_row,
@@ -577,18 +617,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
                  ? (long long)(kv_base + (size_t)col_row[j] * g.dim)
                  : -1;
     };
-    stage_rows(qs, q3, g.Rp, q_off);
-    stage_rows(dos, dout, g.Rp, q_off);
-    stage_rows(ks, k, g.Cp, kv_off);
-    stage_rows(vs, v, g.Cp, kv_off);
+    stage_rows<kHeadDim>(qs, q3, g.Rp, hd, q_off);
+    stage_rows<kHeadDim>(dos, dout, g.Rp, hd, q_off);
+    stage_rows<kHeadDim>(ks, k, g.Cp, hd, kv_off);
+    stage_rows<kHeadDim>(vs, v, g.Cp, hd, kv_off);
     stage_wait();
 
     // scores and dO . v
     for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
       for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
         float s[2][4], t[2][4];
-        tile_dots<2, 16>(qs, r0 + ty, ks, c0 + tx, s);
-        tile_dots<2, 16>(dos, r0 + ty, vs, c0 + tx, t);
+        tile_dots<2, 16, kHeadDim>(qs, r0 + ty, ks, c0 + tx, s);
+        tile_dots<2, 16, kHeadDim>(dos, r0 + ty, vs, c0 + tx, t);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
           const int r = r0 + ty + 16 * a;
@@ -677,15 +717,17 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
     // dq = ds K, straight into the segment's rows; round(p m) and ds to
     // the unit's probs
-    for (int r0 = 0; r0 < g.Rp; r0 += kRowTile) {
-      float4 acc[2] = {};
-      tile_pv<2, 16>(as, g.sld, r0 + ty, ks, tx, jn, acc);
+    for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
+      for (int fb = 0; fb < hd; fb += 64) {   // features fb + 4 tx ..
+        float4 acc[2] = {};
+        tile_pv<2, 16, kHeadDim>(as, g.sld, r0 + ty, ks + fb, tx, jn, acc);
 #pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int r = r0 + ty + 16 * a;
-        if (r < g.R) store4(dq + q_off(r) + 4 * tx, acc[a]);
+        for (int a = 0; a < 2; ++a) {
+          const int r = r0 + ty + 16 * a;
+          if (r < g.R && fb + 4 * tx < hd)
+            store4(dq + q_off(r) + fb + 4 * tx, acc[a]);
+        }
       }
-    }
     float* up = probs + i * unit_probs;
     for (int idx = threadIdx.x; idx < g.R * g.Cp / 4; idx += kBwdThreads) {
       const int r = idx / (g.Cp / 4), q = 4 * (idx % (g.Cp / 4));
@@ -695,7 +737,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     __syncthreads();  // the next segment restages the tiles and columns
   }
 
-  // dK and dV over the rc rows, the frame rows, then the summary rows.
+  // dK and dV over the rc rows, the frame rows, then the summary rows,
+  // once per block of F features (f0 ..).
   // The tiles' space (Q through xs) holds the rows of as many segments as
   // fit: Q and dO rows (stride kLd), round(p m) and ds rows (stride Cp).
   // Columns no row sees carry exact zeros, so every column of a unit adds.
@@ -703,74 +746,84 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const int space_floats =
       2 * g.Rp * kLd + 2 * g.Cp * kLd + 3 * g.Rp * g.sld;
   const int run_rows[4] = {0, g.rc, g.rc + g.seg, g.R};
-  for (int run = 0; run < 3; ++run) {
-    const int r0 = run_rows[run], n = run_rows[run + 1] - r0;
-    const int per_seg = n * (2 * kLd + 2 * g.Cp);
-    const int batch = max(1, min(g.G, space_floats / per_seg));
-    float* qb = space;                   // [batch n][kLd]
-    float* db = qb + batch * n * kLd;    // [batch n][kLd]
-    float* pb = db + batch * n * kLd;    // [batch n][Cp] round(p m)
-    float* sb = pb + batch * n * g.Cp;   // [batch n][Cp] ds
-    for (int i0 = 0; i0 < g.G; i0 += batch) {
-      const int nseg = min(batch, g.G - i0);
-      const auto q_off = [&](int r) -> long long {
-        return (long long)(q_base +
-                           (size_t)unit_row(g, i0 + r / n, r0 + r % n) * g.dim);
-      };
-      stage_rows(qb, q3, nseg * n, q_off);
-      stage_rows(db, dout, nseg * n, q_off);
-      for (int u = 0; u < nseg; ++u) {
-        const float* up = probs + (i0 + u) * unit_probs + r0 * g.Cp;
-        stage_f32(pb + u * n * g.Cp, up, n * g.Cp);
-        stage_f32(sb + u * n * g.Cp, up + g.R * g.Cp, n * g.Cp);
-      }
-      stage_wait();
-      for (int u = 0; u < nseg; ++u) {
-        const int i = i0 + u;
-        // thread (ty, tx): columns c0 + 4 ty .. +3, features 4 tx .. +3
-        for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
-          const int j0 = c0 + 4 * ty;
-          int o[4];
-          float4 ak[4], av[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            o[c] = j0 + c < g.C ? unit_slot(g, i, j0 + c) * kHeadDim + 4 * tx
-                                : -1;
-            ak[c] = o[c] >= 0 ? at4(dk_acc + o[c]) : make_float4(0, 0, 0, 0);
-            av[c] = o[c] >= 0 ? at4(dv_acc + o[c]) : make_float4(0, 0, 0, 0);
-          }
-          for (int r = u * n; r < (u + 1) * n; ++r) {
-            const float4 dsr = at4(sb + r * g.Cp + j0);
-            const float4 pdr = at4(pb + r * g.Cp + j0);
-            const float4 qv = at4(qb + r * kLd + 4 * tx);
-            const float4 ov = at4(db + r * kLd + 4 * tx);
-            fma4(ak[0], dsr.x, qv);
-            fma4(ak[1], dsr.y, qv);
-            fma4(ak[2], dsr.z, qv);
-            fma4(ak[3], dsr.w, qv);
-            fma4(av[0], pdr.x, ov);
-            fma4(av[1], pdr.y, ov);
-            fma4(av[2], pdr.z, ov);
-            fma4(av[3], pdr.w, ov);
-          }
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (o[c] >= 0) {
-              store4(dk_acc + o[c], ak[c]);
-              store4(dv_acc + o[c], av[c]);
-            }
+  const size_t part_base =
+      ((size_t)b * g.ng + grp) * g.ctx * g.dim + head * hd;
+  // thread (ty, tx) adds features f0 + 4 tx .. +3 where 4 tx < F
+  const bool feat_ok = 4 * tx < F;
+  for (int f0 = 0; f0 < hd; f0 += F) {
+    for (int idx = threadIdx.x; idx < 2 * g.ctx * F; idx += kBwdThreads)
+      dk_acc[idx] = 0.f;  // and dv_acc, which follows it
+    for (int run = 0; run < 3; ++run) {
+      const int r0 = run_rows[run], n = run_rows[run + 1] - r0;
+      const int per_seg = n * (2 * kLd + 2 * g.Cp);
+      const int batch = max(1, min(g.G, space_floats / per_seg));
+      float* qb = space;                   // [batch n][kLd]
+      float* db = qb + batch * n * kLd;    // [batch n][kLd]
+      float* pb = db + batch * n * kLd;    // [batch n][Cp] round(p m)
+      float* sb = pb + batch * n * g.Cp;   // [batch n][Cp] ds
+      for (int i0 = 0; i0 < g.G; i0 += batch) {
+        const int nseg = min(batch, g.G - i0);
+        const auto q_off = [&](int r) -> long long {
+          return (long long)(q_base + (size_t)unit_row(g, i0 + r / n,
+                                                       r0 + r % n) *
+                                          g.dim);
+        };
+        stage_rows<kHeadDim>(qb, q3, nseg * n, hd, q_off);
+        stage_rows<kHeadDim>(db, dout, nseg * n, hd, q_off);
+        for (int u = 0; u < nseg; ++u) {
+          const float* up = probs + (i0 + u) * unit_probs + r0 * g.Cp;
+          stage_f32(pb + u * n * g.Cp, up, n * g.Cp);
+          stage_f32(sb + u * n * g.Cp, up + g.R * g.Cp, n * g.Cp);
         }
-        __syncthreads();  // the next segment's columns overlap this one's
+        stage_wait();
+        for (int u = 0; u < nseg; ++u) {
+          const int i = i0 + u;
+          // thread (ty, tx): columns c0 + 4 ty .. +3, features f0 + 4 tx ..
+          for (int c0 = 0; c0 < g.Cp && feat_ok; c0 += kColTile) {
+            const int j0 = c0 + 4 * ty;
+            int o[4];
+            float4 ak[4], av[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              o[c] = j0 + c < g.C ? unit_slot(g, i, j0 + c) * F + 4 * tx
+                                  : -1;
+              ak[c] = o[c] >= 0 ? at4(dk_acc + o[c]) : make_float4(0, 0, 0, 0);
+              av[c] = o[c] >= 0 ? at4(dv_acc + o[c]) : make_float4(0, 0, 0, 0);
+            }
+            for (int r = u * n; r < (u + 1) * n; ++r) {
+              const float4 dsr = at4(sb + r * g.Cp + j0);
+              const float4 pdr = at4(pb + r * g.Cp + j0);
+              const float4 qv = at4(qb + r * kLd + f0 + 4 * tx);
+              const float4 ov = at4(db + r * kLd + f0 + 4 * tx);
+              fma4(ak[0], dsr.x, qv);
+              fma4(ak[1], dsr.y, qv);
+              fma4(ak[2], dsr.z, qv);
+              fma4(ak[3], dsr.w, qv);
+              fma4(av[0], pdr.x, ov);
+              fma4(av[1], pdr.y, ov);
+              fma4(av[2], pdr.z, ov);
+              fma4(av[3], pdr.w, ov);
+            }
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (o[c] >= 0) {
+                store4(dk_acc + o[c], ak[c]);
+                store4(dv_acc + o[c], av[c]);
+              }
+          }
+          __syncthreads();  // the next segment's columns overlap this one's
+        }
       }
     }
-  }
-
-  const size_t part_base =
-      ((size_t)b * g.ng + grp) * g.ctx * g.dim + head * kHeadDim;
-  for (int idx = threadIdx.x; idx < g.ctx * kHeadDim / 4; idx += kBwdThreads) {
-    const size_t o = part_base + (size_t)(idx / 16) * g.dim + 4 * (idx % 16);
-    store4(dk_part + o, at4(dk_acc + 4 * idx));
-    store4(dv_part + o, at4(dv_acc + 4 * idx));
+    // this block's features of the group's (ctx, dim) fp32 partials
+    for (int idx = threadIdx.x; idx < g.ctx * F / 4; idx += kBwdThreads) {
+      const int f = f0 + 4 * (idx % (F / 4));
+      if (f >= hd) continue;
+      const size_t o = part_base + (size_t)(idx / (F / 4)) * g.dim + f;
+      store4(dk_part + o, at4(dk_acc + 4 * idx));
+      store4(dv_part + o, at4(dv_acc + 4 * idx));
+    }
+    __syncthreads();  // the accumulators are read before the next block
   }
 }
 
@@ -813,15 +866,15 @@ __global__ void grouped_attn_dkv_sum_kernel(const float* __restrict__ dk_part,
   dv[idx] = from_f32<T>(sv);
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kHeadDim, bool kExact>
 int launch_attn(const void* q3, const void* k, const void* v,
                 const void* lengths, Gate gate, void* out, int batch,
                 const Geom& g, size_t smem, Dropout drop,
                 cudaStream_t stream) {
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_kernel<T, kGated>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem));
-  grouped_attn_kernel<T, kGated>
+  SIMULST_TRY(cudaFuncSetAttribute(
+      grouped_attn_kernel<T, kGated, kHeadDim, kExact>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  grouped_attn_kernel<T, kGated, kHeadDim, kExact>
       <<<batch * g.ng * g.heads * g.G, kFwdThreads, smem, stream>>>(
           static_cast<const T*>(q3), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(lengths), gate,
@@ -829,16 +882,16 @@ int launch_attn(const void* q3, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kGated>
+template <typename T, bool kGated, int kHeadDim, bool kExact>
 int launch_attn_bwd(const void* q3, const void* k, const void* v,
                     const void* dout, const void* lengths, Gate gate,
                     void* dq, void* dk, void* dv, float* probs,
                     float* dk_part, float* dv_part, int batch, const Geom& g,
                     size_t smem, Dropout drop, cudaStream_t s) {
-  SIMULST_TRY(cudaFuncSetAttribute(grouped_attn_bwd_kernel<T, kGated>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem));
-  grouped_attn_bwd_kernel<T, kGated>
+  SIMULST_TRY(cudaFuncSetAttribute(
+      grouped_attn_bwd_kernel<T, kGated, kHeadDim, kExact>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  grouped_attn_bwd_kernel<T, kGated, kHeadDim, kExact>
       <<<batch * g.ng * g.heads, kBwdThreads, smem, s>>>(
           static_cast<const T*>(q3), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const T*>(dout),
@@ -876,16 +929,41 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
   g->Rp = simulst::ceil_div(g->R, kRowTile) * kRowTile;
   g->Cp = simulst::ceil_div(g->C, kColTile) * kColTile;
   g->sld = g->Cp + 4;
-  return batch > 0 && dim == heads * kHeadDim && rc > 0 && seg > 0 &&
-         max_mem >= 0 && lc >= 0 && nq == G * (rc + seg + 1) &&
+  g->hd = heads > 0 && dim % heads == 0 ? dim / heads : 0;
+  g->shd = g->hd <= 64 ? 64 : 128;
+  g->F = acc_features(*g);
+  return batch > 0 && g->hd > 0 && g->hd % kHeadDimStep == 0 &&
+         g->hd <= kMaxHeadDim && rc > 0 && seg > 0 && max_mem >= 0 &&
+         lc >= 0 && nq == G * (rc + seg + 1) &&
          tk == (g->n - 1) + g->n * rc + g->U &&
          unit_cols == max_mem + rc + lc + seg;
 }
 
+// runs the statement with kH bound to the staged head dim g.shd and kE to
+// whether the head is 64 wide with 64 accumulator features (its offsets and
+// walks then fold to constants)
+#define ATTN_HD_DISPATCH(g, ...)                    \
+  do {                                              \
+    if ((g).hd == 64 && (g).F == 64) {              \
+      constexpr int kH = 64;                        \
+      constexpr bool kE = true;                     \
+      __VA_ARGS__;                                  \
+    } else if ((g).shd == 64) {                     \
+      constexpr int kH = 64;                        \
+      constexpr bool kE = false;                    \
+      __VA_ARGS__;                                  \
+    } else {                                        \
+      constexpr int kH = 128;                       \
+      constexpr bool kE = false;                    \
+      __VA_ARGS__;                                  \
+    }                                               \
+  } while (0)
+
 }  // namespace
 
 // q3, out: (batch, ng, nq, dim); k, v: (batch, tk, dim), all of `dtype`;
-// lengths: (batch,) int32 valid utterance frames.  dim = heads * 64,
+// lengths: (batch,) int32 valid utterance frames.  dim = heads * hd with hd
+// a multiple of 8 up to 128,
 // nq = G * (rc + seg + 1), tk = (n - 1) + n * rc + n * seg with n = ng * G.
 // kid (batch, tk) and seg_eid (batch, n), int32: the sequence-packing
 // gate, both null for none.  unit_cols = max_mem + rc + lc + seg and
@@ -913,13 +991,13 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
   const Gate gate{static_cast<const int*>(kid),
                   static_cast<const int*>(seg_eid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SIMULST_DISPATCH(dtype,
-                   return gate.kid ? launch_attn<scalar_t, true>(
+  ATTN_HD_DISPATCH(g, SIMULST_DISPATCH(dtype,
+                   return gate.kid ? launch_attn<scalar_t, true, kH, kE>(
                                          q3, k, v, lengths, gate, out, batch,
                                          g, smem_bytes, drop, s)
-                                   : launch_attn<scalar_t, false>(
+                                   : launch_attn<scalar_t, false, kH, kE>(
                                          q3, k, v, lengths, gate, out, batch,
-                                         g, smem_bytes, drop, s));
+                                         g, smem_bytes, drop, s)));
 }
 
 // The backward: dq (batch, ng, nq, dim), dk and dv (batch, tk, dim) of
@@ -940,7 +1018,8 @@ extern "C" int simulst_emformer_attn_bwd(
   Geom g;
   if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
                  unit_cols) ||
-      bwd_smem_bytes(g) != (size_t)smem_bytes || smem_bytes > kSmemLimit ||
+      bwd_smem_bytes(g, g.F) != (size_t)smem_bytes ||
+      smem_bytes > kSmemLimit ||
       (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
@@ -949,13 +1028,13 @@ extern "C" int simulst_emformer_attn_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *pp = static_cast<float*>(probs), *kp = static_cast<float*>(dk_part),
         *vp = static_cast<float*>(dv_part);
-  SIMULST_DISPATCH(dtype,
-                   return gate.kid ? launch_attn_bwd<scalar_t, true>(
+  ATTN_HD_DISPATCH(g, SIMULST_DISPATCH(dtype,
+                   return gate.kid ? launch_attn_bwd<scalar_t, true, kH, kE>(
                                          q3, k, v, dout, lengths, gate, dq,
                                          dk, dv, pp, kp, vp, batch, g,
                                          smem_bytes, drop, s)
-                                   : launch_attn_bwd<scalar_t, false>(
+                                   : launch_attn_bwd<scalar_t, false, kH, kE>(
                                          q3, k, v, dout, lengths, gate, dq,
                                          dk, dv, pp, kp, vp, batch, g,
-                                         smem_bytes, drop, s));
+                                         smem_bytes, drop, s)));
 }

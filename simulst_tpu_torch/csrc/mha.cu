@@ -6,7 +6,7 @@
 // Replaces the Pallas kernels simulst_tpu/ops/mha_pallas.py `fused_mha`
 // (_fwd_kernel via _fwd_call, _bwd_kernel via _bwd_call): the decoder's
 // causal self-attention and cross-attention and the MT encoder's
-// self-attention.  Heads are 64-column slices of D, so no head transpose is
+// self-attention.  Heads are hd-column slices of D, so no head transpose is
 // ever written; the key mask is an int32 (B, Tk) row plus an optional
 // causal rule; dropout on the probabilities draws Philox bits keyed by
 // (seed, ((b H + h) Tq + q) Tk + k), so the backward regenerates the mask.
@@ -29,6 +29,15 @@
 // exact zeros (as the JAX kernel's -1e9 bias with its 1e-30 denominator
 // does); the TPU kernel's exp(min(s, 80)) clamp is not copied: the running
 // max keeps every exponent <= 0.  Products run in fp32 on the CUDA cores.
+//
+// Head dims: any multiple of 8 from 8 to 128.  The kernels are templates on
+// the staged head dim kHD, 64 or 128 (the next at or above hd): a head's
+// rows are staged into kHD-wide shared tiles whose features past hd are
+// zero-filled, so every dot product over d adds exact zeros past hd, and
+// only the hd real features of an output are stored.  At hd 64 and 128
+// nothing is padded.  kHD 128 doubles each thread's outputs along d (two
+// 64-feature column blocks); its blocks take more shared memory (one block
+// per SM instead of two).
 #include <math.h>
 
 #include "common.cuh"
@@ -40,14 +49,22 @@ using simulst::from_f32;
 using simulst::round_to;
 using simulst::to_f32;
 
-constexpr int kHD = 64;       // head dim the kernels are built for
 constexpr int kTile = 64;     // query rows / keys per tile
+constexpr int kMaxHD = 128;   // head dims: multiples of kHDStep up to kMaxHD
+constexpr int kHDStep = 8;
 
 struct Geometry {
   int Tq, Tk, H, causal;
+  int hd;        // the head dim; features [hd, kHD) of a staged row are 0
   float scale;
-  __device__ __forceinline__ int D() const { return H * kHD; }
 };
+
+// the head dim of a kernel staged kHD wide: kHD itself unless it pads the
+// head (kPad), so that an unpadded head's offsets fold to constants
+template <int kHD, bool kPad>
+__device__ __forceinline__ int head_dim_of(const Geometry& g) {
+  return kPad ? g.hd : kHD;
+}
 
 // sums / maxima over the 16 lanes that share a row (one half-warp)
 __device__ __forceinline__ float row_sum(float v) {
@@ -99,10 +116,10 @@ __device__ __forceinline__ unsigned long long prob_offset(const Geometry& g,
 //  - dQ: grid (ceil(Tq / 64), H, B), 128 threads, dQ = dS K over the k
 //    tiles from the scratch through a two-stage cp.async ring: one product
 //    per pair, as s, dp and dS are computed once, in the dK / dV kernel.
-// Every product gives each thread 8 x 4 outputs and reads its operands as
-// float4 from rows padded to 68 floats (16-byte aligned, and eight
-// neighbouring rows on eight distinct bank groups): three 16-byte shared
-// reads per 32 FMAs.  The shared tiles hold fp32 (bf16 widened exactly on
+// Every product gives each thread 8 x 4 outputs per 64 features (kHD / 64
+// column blocks) and reads its operands as float4 from rows padded by 4
+// floats (68 at kHD 64: 16-byte aligned, and eight neighbouring rows on
+// eight distinct bank groups): three 16-byte shared reads per 32 FMAs.  The shared tiles hold fp32 (bf16 widened exactly on
 // load); fp32 tiles arrive by 16-byte cp.async, bf16 through registers.
 // The dK / dV kernel's six tiles (104 KB, and 4 KB of dropout codes) let
 // two blocks share an SM: one block's loads overlap the other's products
@@ -110,34 +127,42 @@ __device__ __forceinline__ unsigned long long prob_offset(const Geometry& g,
 // Each pair's dropout multiplier is drawn once, half of them by each group
 // (a pair's ten Philox rounds cost about as many issue slots as its 256
 // FMAs).
-constexpr int kBwdLd = kHD + 4;
-constexpr int kBwdTile = kTile * kBwdLd;
+// a (q, k) tile's row stride, and a head tile's (kTile rows of kHD
+// features); at kHD 64 the two are the same
+constexpr int kPLd = kTile + 4;
+constexpr int kProbTile = kTile * kPLd;
+template <int kHD>
+__host__ __device__ constexpr int head_ld() { return kHD + 4; }
+template <int kHD>
+__host__ __device__ constexpr int head_tile() { return kTile * head_ld<kHD>(); }
 constexpr int kGroup = 128;   // threads per product: 8 x 16, 8 x 4 outputs each
 
-// rows [0, 64) of a (rows, 64) tile of T, row r at src + r ld, into fp32
-// dst[r kBwdLd + c]; rows >= valid are zero.  fp32 by cp.async (the caller
-// commits and waits), bf16 through registers.
-template <int kN, typename T>
+// rows [0, 64) of a (rows, kCols) tile of T, row r at src + r ld, into fp32
+// dst[r (kCols + 4) + c]; rows >= valid and columns >= cols are zero.
+// fp32 by cp.async (the caller commits and waits), bf16 through registers.
+template <int kN, int kCols, typename T>
 __device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           size_t ld, int valid) {
+                                           size_t ld, int valid,
+                                           int cols = kCols) {
   const int t = threadIdx.x % kN;
 #pragma unroll
-  for (int q = 0; q < kTile * kHD / 4 / kN; ++q) {
-    const int idx = t + q * kN, r = idx / (kHD / 4), c = idx % (kHD / 4) * 4;
-    const bool ok = r < valid;
-    simulst::stage4(dst + r * kBwdLd + c,
+  for (int q = 0; q < kTile * kCols / 4 / kN; ++q) {
+    const int idx = t + q * kN, r = idx / (kCols / 4),
+              c = idx % (kCols / 4) * 4;
+    const bool ok = r < valid && c < cols;
+    simulst::stage4(dst + r * (kCols + 4) + c,
                     src + (ok ? (size_t)r * ld + c : 0), ok);
   }
 }
 
 // s[i][j] = sum_d x[r_i][d] y[c_j][d] for d ascending, rows r_i = tr +
-// (64 / kR) i of tile x, rows c_j = tc + 16 j of tile y; rows r_i >= n are
-// left 0
-template <int kR>
+// (64 / kR) i of head tile x, rows c_j = tc + 16 j of head tile y; rows
+// r_i >= n are left 0
+template <int kR, int kHD>
 __device__ __forceinline__ void row_dots(const float* x, const float* y,
                                          int n, int tr, int tc,
                                          float (&s)[kR][4]) {
-  constexpr int kStride = kTile / kR;
+  constexpr int kStride = kTile / kR, kBwdLd = head_ld<kHD>();
 #pragma unroll
   for (int i = 0; i < kR; ++i)
 #pragma unroll
@@ -164,55 +189,68 @@ __device__ __forceinline__ void row_dots(const float* x, const float* y,
   }
 }
 
-// acc[i][j] += sum_r a[r][8 tr + i] b[r][4 tc + j] for r ascending over
-// rows [r0, n) of the tile (the others hold zeros in a's columns
-// 8 tr .. 8 tr + 7)
+// acc[i][4 cb + j] += sum_r a[r][8 tr + i] b[r][64 cb + 4 tc + j] for r
+// ascending over rows [r0, n) of (q, k) tile a and head tile b (the others
+// hold zeros in a's columns 8 tr .. 8 tr + 7)
+template <int kHD>
 __device__ __forceinline__ void rank_update(const float* a, const float* b,
                                             int r0, int n, int tr, int tc,
-                                            float acc[8][4]) {
+                                            float (&acc)[8][kHD / 16]) {
+  constexpr int kBLd = head_ld<kHD>();
 #pragma unroll 4
   for (int r = r0; r < n; ++r) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + r * kBwdLd + 8 * tr);
+    const float4 a0 = *reinterpret_cast<const float4*>(a + r * kPLd + 8 * tr);
     const float4 a1 =
-        *reinterpret_cast<const float4*>(a + r * kBwdLd + 8 * tr + 4);
-    const float4 bv = *reinterpret_cast<const float4*>(b + r * kBwdLd + 4 * tc);
+        *reinterpret_cast<const float4*>(a + r * kPLd + 8 * tr + 4);
     const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int cb = 0; cb < kHD / 64; ++cb) {
+      const float4 bv =
+          *reinterpret_cast<const float4*>(b + r * kBLd + 64 * cb + 4 * tc);
+      const float bw[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bw[j], acc[i][j]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][4 * cb + j] = fmaf(av[i], bw[j], acc[i][4 * cb + j]);
+    }
   }
 }
 
-// acc[i][j] = fmaf(a[r_i][c], b[c][4 tc + j], acc[i][j]) for c ascending
-// over [0, n) (n a multiple of 4), rows r_i = tr + (64 / kR) i < rows (the
-// others are left as they are)
-template <int kR>
+// acc[i][4 cb + j] = fmaf(a[r_i][c], b[c][64 cb + 4 tc + j], ...) for c
+// ascending over [0, n) (n a multiple of 4), rows r_i = tr + (64 / kR) i <
+// rows of (q, k) tile a (the others are left as they are), head tile b
+template <int kR, int kHD>
 __device__ __forceinline__ void rows_times_tile(const float* a,
                                                 const float* b, int n,
                                                 int rows, int tr, int tc,
-                                                float (&acc)[kR][4]) {
-  constexpr int kStride = kTile / kR;
+                                                float (&acc)[kR][kHD / 16]) {
+  constexpr int kStride = kTile / kR, kCB = kHD / 64, kBLd = head_ld<kHD>();
 #pragma unroll 2
   for (int c = 0; c < n; c += 4) {
-    float4 bv[4];
+    float4 bv[kCB][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      bv[kk] = *reinterpret_cast<const float4*>(b + (c + kk) * kBwdLd + 4 * tc);
+    for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        bv[cb][kk] = *reinterpret_cast<const float4*>(
+            b + (c + kk) * kBLd + 64 * cb + 4 * tc);
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       if (tr + kStride * i >= rows) break;
       const float4 av = *reinterpret_cast<const float4*>(
-          a + (tr + kStride * i) * kBwdLd + c);
+          a + (tr + kStride * i) * kPLd + c);
       const float a4[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc[i][0] = fmaf(a4[kk], bv[kk].x, acc[i][0]);
-        acc[i][1] = fmaf(a4[kk], bv[kk].y, acc[i][1]);
-        acc[i][2] = fmaf(a4[kk], bv[kk].z, acc[i][2]);
-        acc[i][3] = fmaf(a4[kk], bv[kk].w, acc[i][3]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int cb = 0; cb < kCB; ++cb) {
+          float* o = acc[i] + 4 * cb;
+          o[0] = fmaf(a4[kk], bv[cb][kk].x, o[0]);
+          o[1] = fmaf(a4[kk], bv[cb][kk].y, o[1]);
+          o[2] = fmaf(a4[kk], bv[cb][kk].z, o[2]);
+          o[3] = fmaf(a4[kk], bv[cb][kk].w, o[3]);
+        }
     }
   }
 }
@@ -229,23 +267,27 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   p[3] = __float2bfloat16(d);
 }
 
-// rows 8 tr + i < n_valid of an 8 x 4 accumulator into dst (row stride D,
-// columns 4 tc .. 4 tc + 3)
-template <typename T>
+// rows 8 tr + i < n_valid of an 8 x (kHD / 16) accumulator into dst (row
+// stride ld, columns 64 cb + 4 tc .. + 3 below hd)
+template <int kHD, typename T>
 __device__ __forceinline__ void store_rows(T* dst, size_t ld, int n_valid,
-                                           int tr, int tc,
-                                           const float acc[8][4]) {
+                                           int tr, int tc, int hd,
+                                           const float (&acc)[8][kHD / 16]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     if (8 * tr + i < n_valid)
-      store4(dst + (size_t)(8 * tr + i) * ld + 4 * tc, acc[i][0], acc[i][1],
-             acc[i][2], acc[i][3]);
+#pragma unroll
+      for (int cb = 0; cb < kHD / 64; ++cb)
+        if (64 * cb + 4 * tc < hd)
+          store4(dst + (size_t)(8 * tr + i) * ld + 64 * cb + 4 * tc,
+                 acc[i][4 * cb], acc[i][4 * cb + 1], acc[i][4 * cb + 2],
+                 acc[i][4 * cb + 3]);
 }
 
 // delta[(b H + h) Tq + q] = sum_d dout[b, q, h, d] out[b, q, h, d]: each
-// lane's two products, then the warp's xor tree.  Grid ceil(B H Tq / 8),
-// 256 threads.
-template <typename T>
+// lane's kHD / 32 products (features past hd read as 0), then the warp's
+// xor tree.  Grid ceil(B H Tq / 8), 256 threads.
+template <typename T, int kHD, bool kPad>
 __global__ void __launch_bounds__(256)
     mha_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                          float* __restrict__ delta, Geometry g, int rows) {
@@ -254,15 +296,26 @@ __global__ void __launch_bounds__(256)
   if (row >= rows) return;
   const int qr = row % g.Tq, bh = row / g.Tq;
   const int h = bh % g.H, b = bh / g.H;
-  const size_t base = ((size_t)b * g.Tq + qr) * g.D() + h * kHD;
-  float s = to_f32(dout[base + lane]) * to_f32(out[base + lane]) +
-            to_f32(dout[base + lane + 32]) * to_f32(out[base + lane + 32]);
+  const int hd = head_dim_of<kHD, kPad>(g);
+  const size_t base = ((size_t)b * g.Tq + qr) * (g.H * hd) + h * hd;
+  float x[kHD / 32], y[kHD / 32];
+#pragma unroll
+  for (int i = 0; i < kHD / 32; ++i) {
+    const int c = lane + 32 * i;
+    x[i] = c < hd ? to_f32(dout[base + c]) : 0.f;
+    y[i] = c < hd ? to_f32(out[base + c]) : 0.f;
+  }
+  float s = x[0] * y[0] + x[1] * y[1];
+  if constexpr (kHD == 128) s = s + x[2] * y[2] + x[3] * y[3];
   s = simulst::warp_sum(s);
   if (lane == 0) delta[row] = s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(2 * kGroup, 2)
+template <int kHD>
+__host__ __device__ constexpr int dkdv_min_blocks() { return kHD == 64 ? 2 : 1; }
+
+template <typename T, int kHD, bool kPad>
+__global__ void __launch_bounds__(2 * kGroup, dkdv_min_blocks<kHD>())
     mha_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ kmask,
                         const float* __restrict__ lse,
@@ -270,40 +323,43 @@ __global__ void __launch_bounds__(2 * kGroup, 2)
                         const T* __restrict__ dout, T* __restrict__ dk,
                         T* __restrict__ dv, float* __restrict__ ds_out,
                         int tk64, Geometry g, Dropout drop) {
+  constexpr int kHT = head_tile<kHD>();
   extern __shared__ __align__(16) float bwd_smem[];
   float* ks = bwd_smem;
-  float* vs = ks + kBwdTile;
-  float* qs = vs + kBwdTile;
-  float* dos = qs + kBwdTile;
-  float* ps = dos + kBwdTile;    // dropped probabilities [q][k], rounded to T
-  float* dss = ps + kBwdTile;    // p, then the score gradients [q][k]
+  float* vs = ks + kHT;
+  float* qs = vs + kHT;
+  float* dos = qs + kHT;
+  float* ps = dos + kHT;         // dropped probabilities [q][k], rounded to T
+  float* dss = ps + kProbTile;   // p, then the score gradients [q][k]
   __shared__ int kflags[kTile];
   __shared__ unsigned char keep[kTile][kTile];
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kTile;
-  const int D = g.D();
+  const int hd = head_dim_of<kHD, kPad>(g), D = g.H * hd;
   const int group = threadIdx.x / kGroup, t = threadIdx.x % kGroup;
   const int tr = t / 16, tc = t % 16;
   const size_t head = (size_t)(b * g.H + h) * g.Tq;   // row 0 of lse / delta
 
-  stage_tile<2 * kGroup>(ks, k + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
-                         g.Tk - k0);
-  stage_tile<2 * kGroup>(vs, v + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
-                         g.Tk - k0);
+  stage_tile<2 * kGroup, kHD>(ks, k + ((size_t)b * g.Tk + k0) * D + h * hd,
+                              D, g.Tk - k0, hd);
+  stage_tile<2 * kGroup, kHD>(vs, v + ((size_t)b * g.Tk + k0) * D + h * hd,
+                              D, g.Tk - k0, hd);
   load_key_flags(kflags, kmask, b, k0, g.Tk);
-  float acc[8][4];   // group 0: dV, group 1: dK; keys 8 tr + i, dims 4 tc + j
+  // group 0: dV, group 1: dK; keys 8 tr + i, dims 64 cb + 4 tc + j
+  float acc[8][kHD / 16];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kHD / 16; ++j) acc[i][j] = 0.f;
 
   // causal: q tiles that end before k0 see none of these keys
   const int q_begin = g.causal ? (k0 / kTile) * kTile : 0;
   for (int q0 = q_begin; q0 < g.Tq; q0 += kTile) {
     __syncthreads();   // the previous q tile's tiles are read
-    stage_tile<2 * kGroup>(qs, q + ((size_t)b * g.Tq + q0) * D + h * kHD, D,
-                           g.Tq - q0);
-    stage_tile<2 * kGroup>(dos, dout + ((size_t)b * g.Tq + q0) * D + h * kHD,
-                           D, g.Tq - q0);
+    stage_tile<2 * kGroup, kHD>(qs, q + ((size_t)b * g.Tq + q0) * D + h * hd,
+                                D, g.Tq - q0, hd);
+    stage_tile<2 * kGroup, kHD>(
+        dos, dout + ((size_t)b * g.Tq + q0) * D + h * hd, D, g.Tq - q0,
+        hd);
     simulst::async_commit();
     // the rows' lse (group 0) or delta (group 1), loaded while the tiles
     // arrive; 0 past Tq
@@ -319,7 +375,7 @@ __global__ void __launch_bounds__(2 * kGroup, 2)
     // tc + 16 j); rows past Tq hold zeros, and their sums are skipped
     const int q_rows = min(kTile, g.Tq - q0);
     float st[8][4];
-    row_dots(group ? dos : qs, group ? vs : ks, q_rows, tr, tc, st);
+    row_dots<8, kHD>(group ? dos : qs, group ? vs : ks, q_rows, tr, tc, st);
     // each pair's dropout multiplier is drawn once, group 0 drawing rows
     // tr + 8 i for i < 4 and group 1 for i >= 4, into keep[q][k]: 0
     // dropped, 1 kept (1 / keep), 2 a multiplier of 1 (an invisible pair,
@@ -347,7 +403,7 @@ __global__ void __launch_bounds__(2 * kGroup, 2)
           if (visible(g, kflags, qr, k0 + c, c))
             p = expf(st[i][j] * g.scale - row_term[i]);
           st[i][j] = p;
-          dss[r * kBwdLd + c] = p;
+          dss[r * kPLd + c] = p;
         }
       }
     }
@@ -363,10 +419,10 @@ __global__ void __launch_bounds__(2 * kGroup, 2)
         const int code = keep[r][c];
         const float mult = code == 2 ? 1.f : code ? drop.inv_keep : 0.f;
         if (group == 0) {
-          ps[r * kBwdLd + c] = round_to<T>(st[i][j] * mult);
+          ps[r * kPLd + c] = round_to<T>(st[i][j] * mult);
         } else {
-          const float p = dss[r * kBwdLd + c];
-          dss[r * kBwdLd + c] =
+          const float p = dss[r * kPLd + c];
+          dss[r * kPLd + c] =
               round_to<T>(p * (st[i][j] * mult - row_term[i]) * g.scale);
         }
       }
@@ -377,46 +433,49 @@ __global__ void __launch_bounds__(2 * kGroup, 2)
       const int r = idx / (kTile / 4), c = idx % (kTile / 4) * 4;
       if (q0 + r < g.Tq)
         *reinterpret_cast<float4*>(ds_out + (head + q0 + r) * tk64 + k0 + c) =
-            *reinterpret_cast<const float4*>(dss + r * kBwdLd + c);
+            *reinterpret_cast<const float4*>(dss + r * kPLd + c);
     }
     // dV[k][d] += sum_q pd[q][k] dO[q][d];  dK[k][d] += sum_q dS[q][k] Q[q][d]
     // on a causal diagonal tile, rows before this thread's first key see
     // none of its keys: their P and dS columns are zero
-    rank_update(group ? dss : ps, group ? qs : dos,
-                g.causal && q0 == k0 ? 8 * tr : 0, q_rows, tr, tc, acc);
+    rank_update<kHD>(group ? dss : ps, group ? qs : dos,
+                     g.causal && q0 == k0 ? 8 * tr : 0, q_rows, tr, tc, acc);
   }
-  const size_t row0 = ((size_t)b * g.Tk + k0) * D + h * kHD;
-  store_rows(group ? dk + row0 : dv + row0, D, g.Tk - k0, tr, tc, acc);
+  const size_t row0 = ((size_t)b * g.Tk + k0) * D + h * hd;
+  store_rows<kHD>(group ? dk + row0 : dv + row0, D, g.Tk - k0, tr, tc, hd,
+                  acc);
 }
 
 // dQ[q][d] = sum over k ascending of dS[q][k] K[k][d]: grid (ceil(Tq / 64),
-// H, B), kGroup threads; q rows tr + 8 i, dims 4 tc + j
-template <typename T>
+// H, B), kGroup threads; q rows tr + 8 i, dims 64 cb + 4 tc + j
+template <typename T, int kHD, bool kPad>
 __global__ void __launch_bounds__(kGroup, 3)
     mha_bwd_dq_kernel(const T* __restrict__ k, const float* __restrict__ ds,
                       T* __restrict__ dq, int tk64, Geometry g) {
+  constexpr int kHT = head_tile<kHD>(), kKLd = head_ld<kHD>(),
+                kCB = kHD / 64;
   extern __shared__ __align__(16) float bwd_smem[];
   float* const ring = bwd_smem;   // 2 stages of [dS | K]
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
-  const int D = g.D();
+  const int hd = head_dim_of<kHD, kPad>(g), D = g.H * hd;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const float* ds_rows = ds + ((size_t)(b * g.H + h) * g.Tq + q0) * tk64;
   const int k_end = g.causal ? min(g.Tk, q0 + kTile) : g.Tk;
   const int steps = (k_end + kTile - 1) / kTile;
   auto load = [&](int step) {
-    float* s = ring + step % 2 * 2 * kBwdTile;
+    float* s = ring + step % 2 * (kProbTile + kHT);
     const int k0 = step * kTile;
-    stage_tile<kGroup>(s, ds_rows + k0, tk64, g.Tq - q0);
-    stage_tile<kGroup>(s + kBwdTile,
-                       k + ((size_t)b * g.Tk + k0) * D + h * kHD, D,
-                       g.Tk - k0);
+    stage_tile<kGroup, kTile>(s, ds_rows + k0, tk64, g.Tq - q0);
+    stage_tile<kGroup, kHD>(s + kProbTile,
+                            k + ((size_t)b * g.Tk + k0) * D + h * hd, D,
+                            g.Tk - k0, hd);
     simulst::async_commit();
   };
-  float acc[8][4];
+  float acc[8][kHD / 16];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kHD / 16; ++j) acc[i][j] = 0.f;
   load(0);
   for (int step = 0; step < steps; ++step) {
     if (step + 1 < steps) {
@@ -426,29 +485,34 @@ __global__ void __launch_bounds__(kGroup, 3)
       simulst::async_wait<0>();
     }
     __syncthreads();
-    const float* dss = ring + step % 2 * 2 * kBwdTile;
-    const float* ks = dss + kBwdTile;
+    const float* dss = ring + step % 2 * (kProbTile + kHT);
+    const float* ks = dss + kProbTile;
     // keys past Tk add zeros: stop at the first whole step of 4 past it
     const int n = min(kTile, (g.Tk - step * kTile + 3) / 4 * 4);
 #pragma unroll 2
     for (int c = 0; c < n; c += 4) {
-      float4 kv[4];
+      float4 kv[kCB][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        kv[kk] = *reinterpret_cast<const float4*>(ks + (c + kk) * kBwdLd +
-                                                  4 * tc);
+      for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          kv[cb][kk] = *reinterpret_cast<const float4*>(
+              ks + (c + kk) * kKLd + 64 * cb + 4 * tc);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const float4 sv =
-            *reinterpret_cast<const float4*>(dss + (tr + 8 * i) * kBwdLd + c);
+            *reinterpret_cast<const float4*>(dss + (tr + 8 * i) * kPLd + c);
         const float s4[4] = {sv.x, sv.y, sv.z, sv.w};
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          acc[i][0] = fmaf(s4[kk], kv[kk].x, acc[i][0]);
-          acc[i][1] = fmaf(s4[kk], kv[kk].y, acc[i][1]);
-          acc[i][2] = fmaf(s4[kk], kv[kk].z, acc[i][2]);
-          acc[i][3] = fmaf(s4[kk], kv[kk].w, acc[i][3]);
-        }
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int cb = 0; cb < kCB; ++cb) {
+            float* o = acc[i] + 4 * cb;
+            o[0] = fmaf(s4[kk], kv[cb][kk].x, o[0]);
+            o[1] = fmaf(s4[kk], kv[cb][kk].y, o[1]);
+            o[2] = fmaf(s4[kk], kv[cb][kk].z, o[2]);
+            o[3] = fmaf(s4[kk], kv[cb][kk].w, o[3]);
+          }
       }
     }
     __syncthreads();   // this stage is free for step + 2's loads
@@ -458,8 +522,13 @@ __global__ void __launch_bounds__(kGroup, 3)
   for (int i = 0; i < 8; ++i) {
     const int qr = q0 + tr + 8 * i;
     if (qr < g.Tq)
-      store4(dq + ((size_t)b * g.Tq + qr) * D + h * kHD + 4 * tc, acc[i][0],
-             acc[i][1], acc[i][2], acc[i][3]);
+#pragma unroll
+      for (int cb = 0; cb < kCB; ++cb)
+        if (64 * cb + 4 * tc < hd)
+          store4(dq + ((size_t)b * g.Tq + qr) * D + h * hd + 64 * cb +
+                     4 * tc,
+                 acc[i][4 * cb], acc[i][4 * cb + 1], acc[i][4 * cb + 2],
+                 acc[i][4 * cb + 3]);
   }
 }
 
@@ -508,52 +577,58 @@ constexpr int kDecThreads = kTile;
 
 // the K and V rows [k0, k0 + 64) of head h and their key flags into a ring
 // stage [K | V] (kN threads); the caller commits
-template <int kN, typename T>
+template <int kN, int kHD, typename T>
 __device__ __forceinline__ void stage_kv(float* stage, int* flags,
                                          const T* k, const T* v,
                                          const int* kmask, const Geometry& g,
-                                         int b, int h, int k0) {
-  const size_t row0 = ((size_t)b * g.Tk + k0) * g.D() + h * kHD;
-  stage_tile<kN>(stage, k + row0, g.D(), g.Tk - k0);
-  stage_tile<kN>(stage + kBwdTile, v + row0, g.D(), g.Tk - k0);
+                                         int hd, int b, int h, int k0) {
+  const int D = g.H * hd;
+  const size_t row0 = ((size_t)b * g.Tk + k0) * D + h * hd;
+  stage_tile<kN, kHD>(stage, k + row0, D, g.Tk - k0, hd);
+  stage_tile<kN, kHD>(stage + head_tile<kHD>(), v + row0, D, g.Tk - k0, hd);
   load_key_flags(flags, kmask, b, k0, g.Tk);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+template <int kHD>
+__host__ __device__ constexpr int fwd_min_blocks() { return kHD == 64 ? 2 : 1; }
+
+template <typename T, int kHD, bool kPad>
+__global__ void __launch_bounds__(kFwdThreads, fwd_min_blocks<kHD>())
     mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ kmask,
                    T* __restrict__ out, float* __restrict__ lse, Geometry g,
                    Dropout drop) {
   constexpr int kR = kFwdRows, kN = kFwdThreads, kStride = kTile / kR;
+  constexpr int kHT = head_tile<kHD>(), kCB = kHD / 64;
   extern __shared__ __align__(16) float fwd_smem[];
   float* qs = fwd_smem;
-  float* ps = qs + kBwdTile;     // the tile's round_T(p mult) [q][k]
-  float* ring = ps + kBwdTile;   // 2 stages of [K | V]
+  float* ps = qs + kHT;          // the tile's round_T(p mult) [q][k]
+  float* ring = ps + kProbTile;  // 2 stages of [K | V]
   __shared__ int kflags[2][kTile];
   // the last q tiles first: under the causal rule they walk the most keys
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kTile;
-  const int D = g.D();
+  const int hd = head_dim_of<kHD, kPad>(g), D = g.H * hd;
   const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
   const int q_rows = min(kTile, g.Tq - q0);
   const int k_end = g.causal ? min(g.Tk, q0 + kTile) : g.Tk;
   const int steps = (k_end + kTile - 1) / kTile;
   auto load = [&](int step) {
-    stage_kv<kN>(ring + step % 2 * 2 * kBwdTile, kflags[step % 2], k, v,
-                 kmask, g, b, h, step * kTile);
+    stage_kv<kN, kHD>(ring + step % 2 * 2 * kHT, kflags[step % 2], k, v,
+                      kmask, g, hd, b, h, step * kTile);
   };
-  stage_tile<kN>(qs, q + ((size_t)b * g.Tq + q0) * D + h * kHD, D, q_rows);
+  stage_tile<kN, kHD>(qs, q + ((size_t)b * g.Tq + q0) * D + h * hd, D,
+                      q_rows, hd);
   load(0);   // q arrives with tile 0
   simulst::async_commit();
 
-  float m_run[kR], l_run[kR], acc[kR][4];
+  float m_run[kR], l_run[kR], acc[kR][kHD / 16];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     m_run[i] = -INFINITY;
     l_run[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kHD / 16; ++j) acc[i][j] = 0.f;
   }
   for (int step = 0; step < steps; ++step) {
     simulst::async_wait<0>();
@@ -561,11 +636,11 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
     if (step + 1 < steps) load(step + 1);
     simulst::async_commit();
     const int k0 = step * kTile;
-    const float* ks = ring + step % 2 * 2 * kBwdTile;
-    const float* vs = ks + kBwdTile;
+    const float* ks = ring + step % 2 * 2 * kHT;
+    const float* vs = ks + kHT;
     const int* flags = kflags[step % 2];
     float st[kR][4];
-    row_dots(qs, ks, q_rows, tr, tc, st);
+    row_dots<kR, kHD>(qs, ks, q_rows, tr, tc, st);
     // every row, past Tq too, so that the half-warp's shuffles see all
     // lanes (those rows' pairs are not visible: p = 0)
 #pragma unroll
@@ -590,36 +665,42 @@ __global__ void __launch_bounds__(kFwdThreads, 2)
         psum += p;
         const float pd =
             p == 0.f ? 0.f : p * drop.scale(prob_offset(g, b, h, qr, k0 + c), 0);
-        ps[r * kBwdLd + c] = round_to<T>(pd);
+        ps[r * kPLd + c] = round_to<T>(pd);
       }
       l_run[i] = l_run[i] * alpha + row_sum(psum);
       m_run[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < kHD / 16; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-    rows_times_tile(ps, vs, kTile, q_rows, tr, tc, acc);
+    rows_times_tile<kR, kHD>(ps, vs, kTile, q_rows, tr, tc, acc);
   }
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
     const int qr = q0 + tr + kStride * i;
     if (qr >= g.Tq) break;
     const float inv = l_run[i] > 0.f ? 1.f / l_run[i] : 0.f;
-    store4(out + ((size_t)b * g.Tq + qr) * D + h * kHD + 4 * tc,
-           acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
-           acc[i][3] * inv);
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb)
+      if (64 * cb + 4 * tc < hd)
+        store4(out + ((size_t)b * g.Tq + qr) * D + h * hd + 64 * cb +
+                   4 * tc,
+               acc[i][4 * cb] * inv, acc[i][4 * cb + 1] * inv,
+               acc[i][4 * cb + 2] * inv, acc[i][4 * cb + 3] * inv);
     if (tc == 0)
       lse[((size_t)b * g.H + h) * g.Tq + qr] =
           l_run[i] > 0.f ? m_run[i] + logf(l_run[i]) : INFINITY;
   }
 }
 
-template <typename T>
+template <typename T, int kHD, bool kPad>
 __global__ void __launch_bounds__(kDecThreads)
     mha_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ kmask,
                       T* __restrict__ out, float* __restrict__ lse,
                       Geometry g, Dropout drop) {
+  constexpr int kHT = head_tile<kHD>(), kKLd = head_ld<kHD>(),
+                kCB = kHD / 64;
   extern __shared__ __align__(16) float dec_smem[];   // stages of [K | V]
   __shared__ __align__(16) float qs[kDecRows][kHD];
   __shared__ __align__(16) float pr[kDecRows][kTile];   // p
@@ -628,22 +709,22 @@ __global__ void __launch_bounds__(kDecThreads)
   __shared__ int kflags[kDecStages][kTile];
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kDecRows;
   const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-  const int D = g.D();
+  const int hd = head_dim_of<kHD, kPad>(g), D = g.H * hd;
   const int rows = min(kDecRows, g.Tq - q0);
   // the training kernel's 64-row q tile holding these rows sets k_end
   const int k_end = g.causal ? min(g.Tk, q0 / kTile * kTile + kTile) : g.Tk;
   const int steps = (k_end + kTile - 1) / kTile;
   auto load = [&](int step) {
-    stage_kv<kDecThreads>(dec_smem + step % kDecStages * 2 * kBwdTile,
-                          kflags[step % kDecStages], k, v, kmask, g, b, h,
-                          step * kTile);
+    stage_kv<kDecThreads, kHD>(dec_smem + step % kDecStages * 2 * kHT,
+                               kflags[step % kDecStages], k, v, kmask, g, hd,
+                               b, h, step * kTile);
   };
   for (int idx = t; idx < kDecRows * kHD / 4; idx += kDecThreads) {
     const int r = idx / (kHD / 4), d = idx % (kHD / 4) * 4;
-    const bool ok = r < rows;
+    const bool ok = r < rows && d < hd;
     simulst::stage4(
         &qs[r][d],
-        q + (ok ? ((size_t)b * g.Tq + q0 + r) * D + h * kHD + d : 0), ok);
+        q + (ok ? ((size_t)b * g.Tq + q0 + r) * D + h * hd + d : 0), ok);
   }
   // q arrives with tile 0
 #pragma unroll
@@ -652,13 +733,15 @@ __global__ void __launch_bounds__(kDecThreads)
     simulst::async_commit();
   }
 
-  float m_run[kDecRows], l_run[kDecRows], acc[kDecRows], alpha[kDecRows];
+  float m_run[kDecRows], l_run[kDecRows], acc[kDecRows][kCB],
+      alpha[kDecRows];
   float s[kDecRows];
 #pragma unroll
   for (int r = 0; r < kDecRows; ++r) {
     m_run[r] = -INFINITY;
     l_run[r] = 0.f;
-    acc[r] = 0.f;
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb) acc[r][cb] = 0.f;
   }
   for (int step = 0; step < steps; ++step) {
     simulst::async_wait<kDecStages - 2>();
@@ -666,15 +749,15 @@ __global__ void __launch_bounds__(kDecThreads)
     if (step + kDecStages - 1 < steps) load(step + kDecStages - 1);
     simulst::async_commit();
     const int k0 = step * kTile;
-    const float* ks = dec_smem + step % kDecStages * 2 * kBwdTile;
-    const float* vs = ks + kBwdTile;
+    const float* ks = dec_smem + step % kDecStages * 2 * kHT;
+    const float* vs = ks + kHT;
     const int* flags = kflags[step % kDecStages];
     // s of key column t for each row (rows is uniform over the block)
 #pragma unroll
     for (int r = 0; r < kDecRows; ++r) s[r] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < kHD; d += 4) {
-      const float4 kv = *reinterpret_cast<const float4*>(ks + t * kBwdLd + d);
+      const float4 kv = *reinterpret_cast<const float4*>(ks + t * kKLd + d);
 #pragma unroll
       for (int r = 0; r < kDecRows; ++r) {
         if (r >= rows) break;
@@ -716,14 +799,19 @@ __global__ void __launch_bounds__(kDecThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) psum += pr[r][t % 16 + 16 * j];
       l_run[r] = l_run[r] * alpha[r] + row_sum(psum);
-      acc[r] *= alpha[r];
+#pragma unroll
+      for (int cb = 0; cb < kCB; ++cb) {
+        const float* vc = vs + 64 * cb + t;   // out dim 64 cb + t
+        float a = acc[r][cb] * alpha[r];
 #pragma unroll 2
-      for (int c = 0; c < kTile; c += 4) {
-        const float4 pv = *reinterpret_cast<const float4*>(&ps[r][c]);
-        acc[r] = fmaf(pv.x, vs[(c + 0) * kBwdLd + t], acc[r]);
-        acc[r] = fmaf(pv.y, vs[(c + 1) * kBwdLd + t], acc[r]);
-        acc[r] = fmaf(pv.z, vs[(c + 2) * kBwdLd + t], acc[r]);
-        acc[r] = fmaf(pv.w, vs[(c + 3) * kBwdLd + t], acc[r]);
+        for (int c = 0; c < kTile; c += 4) {
+          const float4 pv = *reinterpret_cast<const float4*>(&ps[r][c]);
+          a = fmaf(pv.x, vc[(c + 0) * kKLd], a);
+          a = fmaf(pv.y, vc[(c + 1) * kKLd], a);
+          a = fmaf(pv.z, vc[(c + 2) * kKLd], a);
+          a = fmaf(pv.w, vc[(c + 3) * kKLd], a);
+        }
+        acc[r][cb] = a;
       }
     }
   }
@@ -732,18 +820,34 @@ __global__ void __launch_bounds__(kDecThreads)
     if (r >= rows) break;
     const int qr = q0 + r;
     const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;
-    out[((size_t)b * g.Tq + qr) * D + h * kHD + t] = from_f32<T>(acc[r] * inv);
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb)
+      if (64 * cb + t < hd)
+        out[((size_t)b * g.Tq + qr) * D + h * hd + 64 * cb + t] =
+            from_f32<T>(acc[r][cb] * inv);
     if (t == 0)
       lse[((size_t)b * g.H + h) * g.Tq + qr] =
           l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : INFINITY;
   }
 }
 
-constexpr size_t kFwdSmem = 6 * kBwdTile * sizeof(float);
-
-constexpr size_t kDecSmem = 2 * kDecStages * kBwdTile * sizeof(float);
-constexpr size_t kDkdvSmem = 6 * kBwdTile * sizeof(float);
-constexpr size_t kDqSmem = 4 * kBwdTile * sizeof(float);
+// dynamic shared memory of each kernel, in bytes
+template <int kHD>
+constexpr size_t fwd_smem() {
+  return (5 * (size_t)head_tile<kHD>() + kProbTile) * sizeof(float);
+}
+template <int kHD>
+constexpr size_t dec_smem() {
+  return 2 * kDecStages * (size_t)head_tile<kHD>() * sizeof(float);
+}
+template <int kHD>
+constexpr size_t dkdv_smem() {
+  return (4 * (size_t)head_tile<kHD>() + 2 * kProbTile) * sizeof(float);
+}
+template <int kHD>
+constexpr size_t dq_smem() {
+  return 2 * ((size_t)head_tile<kHD>() + kProbTile) * sizeof(float);
+}
 
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -751,8 +855,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-Geometry make_geometry(int Tq, int Tk, int H, int causal) {
-  return Geometry{Tq, Tk, H, causal, 1.0f / sqrtf((float)kHD)};
+Geometry make_geometry(int Tq, int Tk, int H, int hd, int causal) {
+  return Geometry{Tq, Tk, H, causal, hd, 1.0f / sqrtf((float)hd)};
 }
 
 Dropout make_dropout(int on, unsigned long long seed, unsigned threshold,
@@ -764,78 +868,109 @@ Dropout make_dropout(int on, unsigned long long seed, unsigned threshold,
 constexpr int kPathDecode = 0;
 constexpr int kPathTiles = 1;
 
-template <typename T>
+template <typename T, int kHD, bool kPad>
 int launch_decode(const T* q, const T* k, const T* v, const int* kmask,
                   T* out, float* lse, int B, const Geometry& g, Dropout drop,
                   cudaStream_t s) {
-  SIMULST_TRY(allow_smem(mha_decode_kernel<T>, kDecSmem));
-  mha_decode_kernel<T>
+  SIMULST_TRY(allow_smem(mha_decode_kernel<T, kHD, kPad>, dec_smem<kHD>()));
+  mha_decode_kernel<T, kHD, kPad>
       <<<dim3(simulst::ceil_div(g.Tq, kDecRows), g.H, B), kDecThreads,
-         kDecSmem, s>>>(q, k, v, kmask, out, lse, g, drop);
+         dec_smem<kHD>(), s>>>(q, k, v, kmask, out, lse, g, drop);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kHD, bool kPad>
 int launch_tiles(const T* q, const T* k, const T* v, const int* kmask,
                  T* out, float* lse, int B, const Geometry& g, Dropout drop,
                  cudaStream_t s) {
-  SIMULST_TRY(allow_smem(mha_fwd_kernel<T>, kFwdSmem));
-  mha_fwd_kernel<T>
-      <<<dim3(g.H, B, simulst::ceil_div(g.Tq, kTile)), kFwdThreads, kFwdSmem,
-         s>>>(q, k, v, kmask, out, lse, g, drop);
+  SIMULST_TRY(allow_smem(mha_fwd_kernel<T, kHD, kPad>, fwd_smem<kHD>()));
+  mha_fwd_kernel<T, kHD, kPad>
+      <<<dim3(g.H, B, simulst::ceil_div(g.Tq, kTile)), kFwdThreads,
+         fwd_smem<kHD>(), s>>>(q, k, v, kmask, out, lse, g, drop);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int kHD, bool kPad>
 int launch_fwd(const void* q_, const void* k_, const void* v_,
                const int* kmask, void* out_, float* lse, int B, int Tq, int Tk,
-               int H, int causal, int path, Dropout drop, cudaStream_t s) {
+               int H, int hd, int causal, int path, Dropout drop,
+               cudaStream_t s) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   T* out = static_cast<T*>(out_);
-  const Geometry g = make_geometry(Tq, Tk, H, causal);
+  const Geometry g = make_geometry(Tq, Tk, H, hd, causal);
   switch (path) {
     case kPathDecode:
-      return launch_decode<T>(q, k, v, kmask, out, lse, B, g, drop, s);
+      return launch_decode<T, kHD, kPad>(q, k, v, kmask, out, lse, B, g, drop, s);
     case kPathTiles:
-      return launch_tiles<T>(q, k, v, kmask, out, lse, B, g, drop, s);
+      return launch_tiles<T, kHD, kPad>(q, k, v, kmask, out, lse, B, g, drop, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, int kHD, bool kPad>
 int launch_bwd(const void* q, const void* k, const void* v, const int* kmask,
                const void* out, const float* lse, const void* dout, void* dq,
                void* dk, void* dv, float* delta, float* ds, int B, int Tq,
-               int Tk, int H, int causal, Dropout drop, cudaStream_t s) {
-  const Geometry g = make_geometry(Tq, Tk, H, causal);
+               int Tk, int H, int hd, int causal, Dropout drop,
+               cudaStream_t s) {
+  const Geometry g = make_geometry(Tq, Tk, H, hd, causal);
   const int rows = B * H * Tq;
   const int tk64 = simulst::ceil_div(Tk, kTile) * kTile;
-  mha_bwd_delta_kernel<T><<<simulst::ceil_div(rows, 8), 256, 0, s>>>(
+  mha_bwd_delta_kernel<T, kHD, kPad><<<simulst::ceil_div(rows, 8), 256, 0, s>>>(
       static_cast<const T*>(out), static_cast<const T*>(dout), delta, g, rows);
   SIMULST_TRY(cudaGetLastError());
-  SIMULST_TRY(allow_smem(mha_bwd_dkdv_kernel<T>, kDkdvSmem));
-  SIMULST_TRY(allow_smem(mha_bwd_dq_kernel<T>, kDqSmem));
-  mha_bwd_dkdv_kernel<T>
-      <<<dim3(simulst::ceil_div(Tk, kTile), H, B), 2 * kGroup, kDkdvSmem, s>>>(
+  SIMULST_TRY(allow_smem(mha_bwd_dkdv_kernel<T, kHD, kPad>, dkdv_smem<kHD>()));
+  SIMULST_TRY(allow_smem(mha_bwd_dq_kernel<T, kHD, kPad>, dq_smem<kHD>()));
+  mha_bwd_dkdv_kernel<T, kHD, kPad>
+      <<<dim3(simulst::ceil_div(Tk, kTile), H, B), 2 * kGroup,
+         dkdv_smem<kHD>(), s>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), kmask, lse, delta,
           static_cast<const T*>(dout), static_cast<T*>(dk),
           static_cast<T*>(dv), ds, tk64, g, drop);
   SIMULST_TRY(cudaGetLastError());
-  mha_bwd_dq_kernel<T>
-      <<<dim3(simulst::ceil_div(Tq, kTile), H, B), kGroup, kDqSmem, s>>>(
-          static_cast<const T*>(k), ds, static_cast<T*>(dq), tk64, g);
+  mha_bwd_dq_kernel<T, kHD, kPad>
+      <<<dim3(simulst::ceil_div(Tq, kTile), H, B), kGroup, dq_smem<kHD>(),
+         s>>>(static_cast<const T*>(k), ds, static_cast<T*>(dq), tk64, g);
   return (int)cudaGetLastError();
 }
+
+// the head dim of D over `heads`, 0 unless a multiple of kHDStep up to
+// kMaxHD
+int head_dim(int D, int heads) {
+  if (heads <= 0 || D % heads != 0) return 0;
+  const int hd = D / heads;
+  return hd % kHDStep == 0 && hd <= kMaxHD ? hd : 0;
+}
+
+// runs the statement with kH bound to the staged head dim of hd and kP to
+// whether it pads the head: (64, false) at hd 64, (64, true) below, (128,
+// true) above
+#define MHA_HD_DISPATCH(hd, ...)                                  \
+  do {                                                            \
+    if ((hd) == 64) {                                             \
+      constexpr int kH = 64;                                      \
+      constexpr bool kP = false;                                  \
+      __VA_ARGS__;                                                \
+    } else if ((hd) < 64) {                                       \
+      constexpr int kH = 64;                                      \
+      constexpr bool kP = true;                                   \
+      __VA_ARGS__;                                                \
+    } else {                                                      \
+      constexpr int kH = 128;                                     \
+      constexpr bool kP = true;                                   \
+      __VA_ARGS__;                                                \
+    }                                                             \
+  } while (0)
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * 64, each
-// starting on a 16-byte boundary; kmask: (B, Tk) int32; out: (B, Tq, D);
+// q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * hd with hd
+// a multiple of 8 up to 128, each starting on a 16-byte boundary; kmask: (B, Tk) int32; out: (B, Tq, D);
 // lse: (B, heads, Tq) fp32.  Dropout on the probabilities when dropout !=
 // 0.  path: the decode kernel (0) or the training kernel (1), as
 // ops/mha.py:fwd_plan picks; both give the same bits.  Returns a
@@ -846,15 +981,16 @@ extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
                                int heads, int causal, int path, int dropout,
                                unsigned long long seed, unsigned threshold,
                                float inv_keep, void* stream) {
-  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+  const int hd = head_dim(D, heads);
+  if (hd == 0 || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
       !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SIMULST_DISPATCH(dtype, return launch_fwd<scalar_t>(
+  MHA_HD_DISPATCH(hd, SIMULST_DISPATCH(dtype, return launch_fwd<scalar_t, kH, kP>(
                               q, k, v, static_cast<const int*>(kmask), out,
-                              static_cast<float*>(lse), B, Tq, Tk, heads,
-                              causal, path, drop, s));
+                              static_cast<float*>(lse), B, Tq, Tk, heads, hd,
+                              causal, path, drop, s)));
 }
 
 // The backward of simulst_mha_fwd: dq (B, Tq, D), dk and dv (B, Tk, D) from
@@ -870,16 +1006,17 @@ extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
                                int D, int heads, int causal, int dropout,
                                unsigned long long seed, unsigned threshold,
                                float inv_keep, void* stream) {
-  if (D != heads * kHD || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+  const int hd = head_dim(D, heads);
+  if (hd == 0 || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
       !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
       !aligned16(dk) || !aligned16(dv) || !aligned16(ds))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SIMULST_DISPATCH(dtype, return launch_bwd<scalar_t>(
+  MHA_HD_DISPATCH(hd, SIMULST_DISPATCH(dtype, return launch_bwd<scalar_t, kH, kP>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<const float*>(lse), dout, dq, dk,
                               dv, static_cast<float*>(delta),
-                              static_cast<float*>(ds), B, Tq, Tk, heads,
-                              causal, drop, s));
+                              static_cast<float*>(ds), B, Tq, Tk, heads, hd,
+                              causal, drop, s)));
 }

@@ -50,12 +50,12 @@ NO_DROPOUT = dict(dropout=0.0, attention_dropout=0.0, activation_dropout=0.0)
 
 def tiny_config(**overrides):
     """The JAX dry run's tiny s2t_emformer (s2t_emformer_s geometry, 2 + 2
-    layers, vocab 64) at the width the hand-written kernels take (256,
-    head dim 64; JAX's is 64 wide), without dropout unless overridden."""
+    layers, 64 wide, 2 heads of 32, FFN 128, vocab 64), without dropout
+    unless overridden."""
     from simulst_tpu_torch.models.s2t_emformer import S2TEmformerConfig
-    kw = dict(vocab_size=64, input_feat=80, conv_channels=64, embed_dim=256,
-              ffn_dim=512, encoder_layers=2, encoder_heads=4,
-              decoder_layers=2, decoder_heads=4, decoder_ffn_dim=512,
+    kw = dict(vocab_size=64, input_feat=80, conv_channels=64, embed_dim=64,
+              ffn_dim=128, encoder_layers=2, encoder_heads=2,
+              decoder_layers=2, decoder_heads=2, decoder_ffn_dim=128,
               segment_length=16, left_context=32, right_context=8,
               max_memory=2, ctc_layer=True, **NO_DROPOUT)
     kw.update(overrides)
@@ -712,13 +712,14 @@ def dryrun_batch(cfg, n_rows: int, T: int = 128, L: int = 8, seed: int = 0):
 
 
 def streaming_config():
-    """The JAX dry run's tiny CIF model (1 + 1 layers, vocab 24) at the
-    kernels' width (256, head dim 64)."""
+    """The JAX dry run's tiny CIF model (1 + 1 layers, 2 heads, vocab 24)
+    at 64 wide, FFN 128 (JAX's is 16 wide, below the FFN kernels' least
+    width of 64)."""
     from simulst_tpu_torch.models.cif import CIFConfig
     return CIFConfig(vocab_size=24, input_feat=8, conv_channels=16,
-                     embed_dim=256, ffn_dim=512, encoder_layers=1,
-                     encoder_heads=4, decoder_layers=1, decoder_heads=4,
-                     decoder_ffn_dim=512, segment_length=16, left_context=32,
+                     embed_dim=64, ffn_dim=128, encoder_layers=1,
+                     encoder_heads=2, decoder_layers=1, decoder_heads=2,
+                     decoder_ffn_dim=128, segment_length=16, left_context=32,
                      right_context=8, max_memory=2, **NO_DROPOUT)
 
 

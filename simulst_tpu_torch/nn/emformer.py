@@ -57,7 +57,8 @@ from simulst_tpu_torch.nn.core import (LayerNorm, Linear, RngStream, cast,
                                        dropout, layer_norm, linear,
                                        masked_softmax, next_seed)
 from simulst_tpu_torch.ops.emformer_attn import (AttnGeom, EidGate,
-                                                 emformer_grouped_attention)
+                                                 emformer_grouped_attention,
+                                                 max_visible_score)
 from simulst_tpu_torch.ops.ffn import fused_ln_ffn_res
 from simulst_tpu_torch.ops.linear_res import fused_linear_res
 
@@ -311,6 +312,9 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
                       utt_ln.reshape(b, ng, G * seg, d),
                       summary.reshape(b, ng, G, d)], dim=2)
     q = linear(ap.emb_to_query, q_in)
+    if _score_monitor is not None:
+        _record_score(max_visible_score(q, k, v, lengths.to(torch.int32),
+                                        geom, eids))
     seed = next_seed(rngs)
     out = emformer_grouped_attention(
         q, k, v, lengths.to(torch.int32), geom,
@@ -332,6 +336,37 @@ def _grouped_attention(p: EmformerLayer, cfg: EmformerConfig, G: int, utt_ln,
     utt_res = y[:, :, G * rc:G * (rc + seg)].reshape(b, U, d)
     summary_out = y[:, :, G * (rc + seg):].reshape(b, n, d)
     return torch.cat([rc_res, utt_res], dim=1), summary_out
+
+
+# The attention-score monitor of the JAX package's convergence gates: its
+# XLA attention takes exp(min(s, SCORE_CLAMP)), so a score near the clamp
+# would flatten the softmax silently.  The port's kernels and plain
+# versions subtract the row max and have no clamp; a gate records the
+# largest pre-softmax score of every attention pass (scaled by 1 / sqrt
+# hd, visible pairs only) while the monitor is on, and holds it to JAX's
+# margin, SCORE_CLAMP / 2, so that a model trained here stays one the JAX
+# package computes the same.  Recording reads the scores back to the host.
+SCORE_CLAMP = 80.0
+_score_monitor = None
+
+
+def enable_score_monitor():
+    """Start recording the largest pre-softmax attention score of each
+    pass into a host list, which is returned; disable_score_monitor()
+    stops."""
+    global _score_monitor
+    _score_monitor = []
+    return _score_monitor
+
+
+def disable_score_monitor():
+    global _score_monitor
+    _score_monitor = None
+
+
+def _record_score(m):
+    if _score_monitor is not None:
+        _score_monitor.append(float(m.detach()))
 
 
 def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
@@ -390,6 +425,8 @@ def _segmented_attention(p: EmformerLayer, cfg: EmformerConfig, utt_ln, rc_ln,
         row_is_summary = torch.arange(nq, device=dev) == nq - 1
         col_is_mem = torch.arange(ctx, device=dev) < m_slots
         visible = visible & ~(row_is_summary[:, None] & col_is_mem[None, :])
+    if _score_monitor is not None:
+        _record_score(scores.masked_fill(~visible, -math.inf).max())
     probs = masked_softmax(scores, visible).to(q.dtype)
     probs = dropout(probs, cfg.attention_dropout, next_seed(rngs))
     out = (probs @ vh).transpose(2, 3).reshape(b, n, nq, d)

@@ -9,8 +9,9 @@ torch's conv layout (the JAX package keeps (K, D / groups, D)).  Its
 forward and its input gradient are ordinary convolutions (`F.conv1d`,
 `torch.nn.grad.conv1d_input`), as they are XLA convolutions in the JAX
 package; its weight gradient is `convpos_wgrad`: the CUDA kernel of
-csrc/conv_pos.cu on a CUDA tensor (16 channels per group), the plain
-version `convpos_wgrad_plain` on a CPU tensor.  Both sum in fp32 and
+csrc/conv_pos.cu on a CUDA tensor (D / groups channels per group, a
+multiple of 4 up to 64 or 1: `check_channels`), the plain version
+`convpos_wgrad_plain` on a CPU tensor.  Both sum in fp32 and
 compute only the block-diagonal part of each tap's product.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from simulst_tpu_torch.ops import _build
 
-CHANNELS_PER_GROUP = 16   # csrc/conv_pos.cu kCg
+MAX_CHANNELS = 64   # channels per group: 1 or a multiple of 4 up to this
 BATCH_SPLITS = 8          # batch slices the kernel sums as fp32 partials
 
 
@@ -39,24 +40,35 @@ def convpos_wgrad_plain(xp, dy, taps: int, groups: int):
     return dw
 
 
+def check_channels(name: str, d: int, groups: int) -> int:
+    """The channels per group D / groups; a ValueError naming them unless
+    the kernel takes them (1, or a multiple of 4 up to MAX_CHANNELS)."""
+    cg = d // groups if groups > 0 else 0
+    if groups <= 0 or cg * groups != d or \
+            not (cg == 1 or (cg % 4 == 0 and 4 <= cg <= MAX_CHANNELS)):
+        raise ValueError(
+            f"{name}: kernel takes 1 channel per group or a multiple of 4 up "
+            f"to {MAX_CHANNELS}; got D {d} in {groups} groups")
+    return cg
+
+
 def _launch(xp, dy, taps: int, groups: int):
     b, t_in, d = xp.shape
     t = dy.shape[1]
-    if d != groups * CHANNELS_PER_GROUP or dy.shape != (b, t, d) or \
-            t_in != t + taps - 1:
+    if dy.shape != (b, t, d) or t_in != t + taps - 1:
         raise ValueError(
-            f"convpos_wgrad: kernel takes {CHANNELS_PER_GROUP} channels per "
-            f"group and xp (B, T + K - 1, D), dy (B, T, D); got xp "
-            f"{tuple(xp.shape)}, dy {tuple(dy.shape)}, {taps} taps, "
-            f"{groups} groups")
+            f"convpos_wgrad: kernel takes xp (B, T + K - 1, D), dy (B, T, "
+            f"D); got xp {tuple(xp.shape)}, dy {tuple(dy.shape)}, {taps} "
+            f"taps")
+    cg = check_channels("convpos_wgrad", d, groups)
     xp, dy = xp.contiguous(), dy.contiguous()
     _build.check_cuda("convpos_wgrad", xp, dy=dy)
     xp, dy = _build.aligned(xp), _build.aligned(dy)   # the 16-byte copies
     f32 = dict(dtype=torch.float32, device=xp.device)
     splits = min(BATCH_SPLITS, b)
     splits = -(-b // -(-b // splits))        # the slices the kernel forms
-    dw = torch.empty(d, CHANNELS_PER_GROUP, taps, **f32)
-    partial = torch.empty(splits, d, CHANNELS_PER_GROUP, taps, **f32)
+    dw = torch.empty(d, cg, taps, **f32)
+    partial = torch.empty(splits, d, cg, taps, **f32)
     _build.launch("simulst_convpos_wgrad", _build.dtype_code(xp),
                   xp.data_ptr(), dy.data_ptr(), dw.data_ptr(),
                   partial.data_ptr(), b, t, taps, d, groups, splits,

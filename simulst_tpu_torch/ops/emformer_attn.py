@@ -12,7 +12,8 @@ q3's device: kid (B, Tk), the example id of each key row, and seg_eid
 sees a key row only where seg_eid[b, s] == kid[b, row], besides the
 length rule.  Equality is the whole rule (dead frames and segments carry
 -1 and see each other).  Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
-csrc/emformer_attn.cu run; on a CPU tensor `grouped_attention_plain` and
+csrc/emformer_attn.cu run, at any head dim D / heads that is a multiple of
+8 from 8 to 128 (`check_head_dim`); on a CPU tensor `grouped_attention_plain` and
 `grouped_attention_plain_backward`, the gathered-context formulation of
 nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
 ops/philox.py's mask, stream 0, at the row-major offset of each element of
@@ -29,12 +30,19 @@ import torch
 
 from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
+from simulst_tpu_torch.ops.mha import check_head_dim
 from simulst_tpu_torch.ops.philox import drop_scale
 
-HEAD_DIM = 64         # csrc/emformer_attn.cu kHeadDim
+MAX_ACC_FEATURES = 64  # kMaxAccFeatures: the dK / dV walks' features a pass
+MIN_ACC_FEATURES = 16  # kMinAccFeatures: ... at the least
 ROW_TILE, COL_TILE = 32, 64  # kRowTile, kColTile: a unit's padded tiles
-STAGED_LD = HEAD_DIM + 4     # kLd: floats per staged K / V / Q row
 SMEM_LIMIT = 227 * 1024      # shared memory one block may take on sm_90
+
+
+def staged_head_dim(hd: int) -> int:
+    """The kernels' staged head dim for head dim hd: 64 up to 64, else 128
+    (features past hd are staged as zeros)."""
+    return 64 if hd <= 64 else 128
 
 
 class AttnGeom(NamedTuple):
@@ -87,38 +95,50 @@ class UnitShape(NamedTuple):
     fwd_smem: int  # shared-memory bytes of a forward block (one unit)
     bwd_smem: int  # ... of a backward block (the group's G units)
     probs: int     # fp32 scratch of a backward block: G x 2 x rows x cols_pad
+    acc_features: int  # features of the backward's dK / dV accumulators
 
 
-def unit_shape(geom: AttnGeom) -> UnitShape:
+def unit_shape(geom: AttnGeom, head_dim: int) -> UnitShape:
     """The unit's rows and columns and the shared memory of a block, laid
     out as csrc/emformer_attn.cu `fwd_smem_bytes` / `bwd_smem_bytes`: Q
     (and dO) over the rows and K, V over the columns padded to whole
-    tiles, rows of STAGED_LD floats; one (two more in the backward)
-    row-by-column matrix with a row stride of the padded columns + 4;
-    three ints per column; the backward adds fp32 dK and dV accumulators
-    over the whole group context."""
+    tiles, rows of the staged head dim + 4 floats; one (two more in the
+    backward) row-by-column matrix with a row stride of the padded columns
+    + 4; three ints per column; the backward adds fp32 dK and dV
+    accumulators of F features over the whole group context, F the
+    largest of MAX_ACC_FEATURES, its half, ... down to MIN_ACC_FEATURES
+    with which the block fits (`acc_features`)."""
     rows = geom.rc + geom.seg + 1
     cols = geom.max_mem + geom.rc + geom.lc + geom.seg
     rp = -(-rows // ROW_TILE) * ROW_TILE
     cp = -(-cols // COL_TILE) * COL_TILE
-    tiles = rp * STAGED_LD + 2 * cp * STAGED_LD + rp * (cp + 4)
-    return UnitShape(
-        rows, cols, 4 * (tiles + 3 * cp),
-        4 * (tiles + rp * STAGED_LD + 2 * rp * (cp + 4)
-             + 2 * geom.ctx * HEAD_DIM + 3 * cp),
-        2 * geom.G * rows * cp)
+    shd = staged_head_dim(head_dim)
+    ld = shd + 4
+    tiles = rp * ld + 2 * cp * ld + rp * (cp + 4)
+
+    def bwd(f):
+        return 4 * (tiles + rp * ld + 2 * rp * (cp + 4) + 2 * geom.ctx * f
+                    + 3 * cp)
+
+    f = MAX_ACC_FEATURES
+    while f > MIN_ACC_FEATURES and bwd(f) > SMEM_LIMIT:
+        f //= 2
+    return UnitShape(rows, cols, 4 * (tiles + 3 * cp), bwd(f),
+                     2 * geom.G * rows * cp, f)
 
 
-def _fitting_unit(name, geom: AttnGeom, backward: bool = False):
+def _fitting_unit(name, geom: AttnGeom, head_dim: int,
+                  backward: bool = False):
     """(unit_shape, the block's shared-memory bytes), raising where a block
     would need more shared memory than the card has."""
-    unit = unit_shape(geom)
+    unit = unit_shape(geom, head_dim)
     smem = unit.bwd_smem if backward else unit.fwd_smem
     if smem > SMEM_LIMIT:
         raise ValueError(
-            f"{name}: {geom} needs {smem} bytes of shared memory per block, "
-            f"above the {SMEM_LIMIT} a block may take (the backward holds "
-            f"dK and dV of the group context's {geom.ctx} slots)")
+            f"{name}: {geom} at head dim {head_dim} needs {smem} bytes of "
+            f"shared memory per block, above the {SMEM_LIMIT} a block may "
+            f"take (the backward holds dK and dV of the group context's "
+            f"{geom.ctx} slots, at least {MIN_ACC_FEATURES} features each)")
     return unit, smem
 
 
@@ -229,6 +249,16 @@ def _probs(qh, kh, visible, rate, seed):
     return p, mult
 
 
+def max_visible_score(q3, k, v, lengths, geom: AttnGeom,
+                      gate: Optional[EidGate] = None):
+    """The largest pre-softmax score q . k / sqrt(hd) over the visible
+    pairs (a 0-d fp32 tensor; -inf where nothing is visible), on the
+    gathered context: what nn/emformer.py's score monitor records."""
+    qh, kh, _, visible, _ = _context(q3, k, v, lengths, geom, gate)
+    scores = (qh @ kh.transpose(-1, -2)) * (qh.shape[-1] ** -0.5)
+    return scores.masked_fill(~visible, -float("inf")).max()
+
+
 def _merge(x):
     """(B, ng, h, rows, hd) -> (B, ng, rows, h * hd)."""
     b, ng, h, rows, hd = x.shape
@@ -278,17 +308,20 @@ def grouped_attention_plain_backward(q3, k, v, lengths, dout, geom: AttnGeom,
 
 
 def _check(name, q3, k, v, lengths, geom: AttnGeom):
+    """The head dim, after raising unless the kernels take these inputs."""
     b, ng, nq, d = q3.shape
-    if (ng, nq) != (geom.ng, geom.nq) or d != geom.num_heads * HEAD_DIM \
-            or geom.rc <= 0 or k.shape != (b, geom.tk, d) \
-            or v.shape != k.shape or lengths.shape != (b,):
+    if (ng, nq) != (geom.ng, geom.nq) or geom.rc <= 0 \
+            or k.shape != (b, geom.tk, d) or v.shape != k.shape \
+            or lengths.shape != (b,):
         raise ValueError(
-            f"{name}: kernel takes head dim {HEAD_DIM}, rc > 0 and exact "
-            f"shapes; got q3 {tuple(q3.shape)}, k {tuple(k.shape)}, lengths "
+            f"{name}: kernel takes rc > 0 and exact shapes; got q3 "
+            f"{tuple(q3.shape)}, k {tuple(k.shape)}, lengths "
             f"{tuple(lengths.shape)} for {geom}")
+    hd = check_head_dim(name, d, geom.num_heads)
     if lengths.dtype != torch.int32 or lengths.device != q3.device:
         raise TypeError(f"{name}: lengths must be an int32 tensor on "
                         f"{q3.device}")
+    return hd
 
 
 def _check_gate(name, q3, gate: Optional[EidGate], geom: AttnGeom):
@@ -332,8 +365,8 @@ def _count(wrapper, gate):
 
 
 def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed, gate=None):
-    _check("emformer_grouped_attention", q3, k, v, lengths, geom)
-    unit, smem = _fitting_unit("emformer_grouped_attention", geom)
+    hd = _check("emformer_grouped_attention", q3, k, v, lengths, geom)
+    unit, smem = _fitting_unit("emformer_grouped_attention", geom, hd)
     q3, k, v, lengths = (t.contiguous() for t in (q3, k, v, lengths))
     _build.check_cuda("emformer_grouped_attention", q3, k=k, v=v)
     out = torch.empty_like(q3)
@@ -350,8 +383,8 @@ def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed, gate=None):
 def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
                      gate=None):
     name = "emformer_grouped_attention_backward"
-    _check(name, q3, k, v, lengths, geom)
-    unit, smem = _fitting_unit(name, geom, backward=True)
+    hd = _check(name, q3, k, v, lengths, geom)
+    unit, smem = _fitting_unit(name, geom, hd, backward=True)
     q3, k, v, lengths, dout = (t.contiguous() for t in
                                (q3, k, v, lengths, dout))
     _build.check_cuda(name, q3, k=k, v=v, dout=dout)

@@ -7,8 +7,12 @@
 Both take gelu, relu, silu or tanh and both dropout sites, forward and
 backward (the JAX package computes silu and tanh in XLA; the port runs
 every activation through its kernel).  Both
-run the CUDA kernels of csrc/ffn.cu on a CUDA tensor, at any row count,
-and their plain PyTorch versions (`ln_ffn_res_plain`,
+run the CUDA kernels of csrc/ffn.cu (the forward), ffn_bwd.cu and
+ln_ffn_bwd.cu (the backwards; ffn.cuh what they share) on a CUDA tensor,
+at any row count,
+any width D that is a multiple of 64 from 64 to 1024 and any hidden width
+that is a multiple of 64 (`check_widths`; another width raises), and
+their plain PyTorch versions (`ln_ffn_res_plain`,
 `ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`) on a CPU
 tensor.  GELU is the exact erf form.  Weights keep the JAX layout: w1 (D,
 H), w2 (H, D).  The plain versions round to the activation dtype where the
@@ -35,9 +39,14 @@ from simulst_tpu_torch.nn.core import gelu
 from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
-KERNEL_DIM = 256     # the width csrc/ffn.cu is built for
-HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cu kChunk)
-ROWS_PER_BLOCK = 32  # csrc/ffn.cu kRows
+DIM_STEP = 64        # D: a multiple of it (csrc/ffn.cuh kDimStep) ...
+MAX_DIM = 1024       # ... up to this (kMaxDim)
+# the widths the fused row-block kernel is built for (FFN_FUSED_DIM_DISPATCH:
+# its shared memory grows with D); the forward runs its tiled path at every
+# row count at the others
+FUSED_DIMS = (64, 128, 256, 512)
+HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cuh kChunk)
+ROWS_PER_BLOCK = 32  # csrc/ffn.cuh kRows
 WGRAD_TILE = 64      # k_splits counts weight-gradient tiles of 64 x 64
 # the forward runs on tile_product from this many rows up, below it as the
 # fused row-block kernel: both give the same bits, and on an H100 the two
@@ -178,7 +187,7 @@ def _sm_count(device_index: int) -> int:
 
 
 class SlicePlan(NamedTuple):
-    """How the FFN kernels of csrc/ffn.cu cut one call of `rows` rows.
+    """How the FFN kernels cut one call of `rows` rows.
 
     tiled: the forward runs on tile_product (the LN row pass, the hidden
         product, the output product), else as the fused row-block kernel;
@@ -194,16 +203,18 @@ class SlicePlan(NamedTuple):
     bwd_splits: int
 
 
-def slice_plan(rows: int, hidden: int, sms: int) -> SlicePlan:
-    """The FFN kernels' plan for `rows` rows of hidden width `hidden` on a
-    card of `sms` SMs; hidden / splits is a multiple of HIDDEN_CHUNK."""
+def slice_plan(rows: int, hidden: int, sms: int, dim: int) -> SlicePlan:
+    """The FFN kernels' plan for `rows` rows of width `dim` and hidden
+    width `hidden` on a card of `sms` SMs; hidden / splits is a multiple of
+    HIDDEN_CHUNK.  The forward is tiled from TILED_MIN_ROWS rows, and at
+    every row count at a width outside FUSED_DIMS."""
     tiles = -(-rows // ROWS_PER_BLOCK)
     chunks = hidden // HIDDEN_CHUNK
     splits = 1
     while tiles * splits < sms and chunks % (2 * splits) == 0:
         splits *= 2
-    out_tiles = -(-KERNEL_DIM // WGRAD_TILE) * -(-hidden // WGRAD_TILE)
-    return SlicePlan(rows >= TILED_MIN_ROWS, splits,
+    out_tiles = -(-dim // WGRAD_TILE) * -(-hidden // WGRAD_TILE)
+    return SlicePlan(rows >= TILED_MIN_ROWS or dim not in FUSED_DIMS, splits,
                      _row_slices(rows, out_tiles, sms))
 
 
@@ -221,14 +232,26 @@ def k_splits(rows: int, out_tiles: int, device) -> int:
     return _row_slices(rows, out_tiles, _sm_count(device.index))
 
 
+def check_widths(name: str, d: int, hidden: int) -> None:
+    """Raise a ValueError naming the width unless the kernels take it: D a
+    multiple of DIM_STEP from DIM_STEP to MAX_DIM, the hidden a positive
+    multiple of HIDDEN_CHUNK."""
+    if d % DIM_STEP or not DIM_STEP <= d <= MAX_DIM:
+        raise ValueError(f"{name}: kernel takes D a multiple of {DIM_STEP} "
+                         f"from {DIM_STEP} to {MAX_DIM}; got D={d}")
+    if hidden <= 0 or hidden % HIDDEN_CHUNK:
+        raise ValueError(f"{name}: kernel takes a hidden width that is a "
+                         f"multiple of {HIDDEN_CHUNK}; got {hidden}")
+
+
 def _check_shapes(name, x, w1, w2):
     d = x.shape[-1]
     hidden = w1.shape[1]
-    if d != KERNEL_DIM or tuple(w1.shape) != (d, hidden) or \
-            tuple(w2.shape) != (hidden, d) or hidden % HIDDEN_CHUNK:
-        raise ValueError(f"{name}: kernel takes D={KERNEL_DIM} and a hidden "
-                         f"multiple of {HIDDEN_CHUNK}; got x {tuple(x.shape)}, "
-                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if tuple(w1.shape) != (d, hidden) or tuple(w2.shape) != (hidden, d):
+        raise ValueError(f"{name}: got x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}; expected "
+                         f"w1 (D, hidden), w2 (hidden, D)")
+    check_widths(name, d, hidden)
     return d, hidden
 
 
@@ -264,7 +287,7 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
     y = torch.empty_like(x2)
     if n == 0:
         return y.reshape(x.shape)
-    plan = slice_plan(n, hidden, _sm_count(x.device.index))
+    plan = slice_plan(n, hidden, _sm_count(x.device.index), d)
     f32 = dict(dtype=torch.float32, device=x.device)
     partial = torch.empty(plan.splits, n, d, **f32)
     xn = h = None
@@ -297,7 +320,8 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     grads = torch.zeros(length, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        splits = slice_plan(n, hidden, _sm_count(x.device.index)).bwd_splits
+        splits = slice_plan(n, hidden, _sm_count(x.device.index),
+                            d).bwd_splits
         u = torch.empty(n, hidden, **f32)
         du = torch.empty(n, hidden, **f32)
         g = torch.empty(n, d, **f32)
@@ -333,7 +357,8 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
     grads = torch.zeros(o_db2 + 3 * d, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        splits = slice_plan(n, hidden, _sm_count(x.device.index)).bwd_splits
+        splits = slice_plan(n, hidden, _sm_count(x.device.index),
+                            d).bwd_splits
         xn, g, dn = (torch.empty(n, d, **f32) for _ in range(3))
         u, du = (torch.empty(n, hidden, **f32) for _ in range(2))
         stats = torch.empty(n, 2, **f32)

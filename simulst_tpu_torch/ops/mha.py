@@ -6,9 +6,10 @@ qp (B, Tq, D), kp / vp (B, Tk, D), heads are column slices of D;
 kmask (B, Tk) int32, nonzero where the key may be attended; `causal` adds
 key <= query; dropout at `rate` on the probabilities.  Returns the merged
 (B, Tq, D) output.  On a CUDA tensor the CUDA kernels of csrc/mha.cu run
-(head dim 64, any Tq and Tk; the forward on one of two kernels that give
-the same bits, as `fwd_plan` picks by Tq); on a CPU tensor `mha_plain` and
-`mha_plain_backward`.  The softmax is the running-max form in fp32; a
+(any head dim D / heads that is a multiple of 8 from 8 to 128,
+`check_head_dim`, and any Tq and Tk; the forward on one of two kernels
+that give the same bits, as `fwd_plan` picks by Tq); on a CPU tensor
+`mha_plain` and `mha_plain_backward`.  The softmax is the running-max form in fp32; a
 query row that sees no key returns exact zeros, as the JAX kernel's -1e9
 bias with its 1e-30 denominator does.  Probabilities are rounded to the
 activation dtype before the product with v, as in the JAX kernel.  The
@@ -24,7 +25,8 @@ from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
-HEAD_DIM = 64    # csrc/mha.cu kHD
+HEAD_DIM_STEP = 8    # the head dim: a multiple of it (csrc/mha.cu kHDStep)
+MAX_HEAD_DIM = 128   # ... up to this (kMaxHD)
 KEY_TILE = 64    # csrc/mha.cu kTile: the dS scratch's rows are whole tiles
 # the forward runs the decode kernel (up to 2 query rows of a head per
 # block) up to this many query rows, the training kernel (64-row q tiles)
@@ -100,16 +102,28 @@ def mha_plain_backward(qp, kp, vp, kmask, dout, num_heads: int,
     return tuple(_merge(t).to(dtype) for t in (dq, dk, dv))
 
 
+def check_head_dim(name: str, d: int, num_heads: int) -> int:
+    """The head dim D / num_heads; a ValueError naming it unless the
+    kernels take it (a multiple of HEAD_DIM_STEP up to MAX_HEAD_DIM)."""
+    hd = d // num_heads if num_heads > 0 else 0
+    if num_heads <= 0 or hd * num_heads != d or hd % HEAD_DIM_STEP or \
+            not HEAD_DIM_STEP <= hd <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: kernel takes a head dim that is a multiple of "
+            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM}; got D "
+            f"{d} over {num_heads} heads")
+    return hd
+
+
 def _check(name, qp, kp, vp, kmask, num_heads):
     b, tq, d = qp.shape
-    if d != num_heads * HEAD_DIM or kp.ndim != 3 or kp.shape[0] != b or \
-            kp.shape[2] != d or vp.shape != kp.shape or \
-            kmask.shape != kp.shape[:2]:
+    if kp.ndim != 3 or kp.shape[0] != b or kp.shape[2] != d or \
+            vp.shape != kp.shape or kmask.shape != kp.shape[:2]:
         raise ValueError(
-            f"{name}: kernel takes head dim {HEAD_DIM} and qp (B, Tq, D), "
-            f"kp = vp (B, Tk, D), kmask (B, Tk); got qp {tuple(qp.shape)}, kp "
-            f"{tuple(kp.shape)}, vp {tuple(vp.shape)}, kmask "
-            f"{tuple(kmask.shape)} with {num_heads} heads")
+            f"{name}: kernel takes qp (B, Tq, D), kp = vp (B, Tk, D), kmask "
+            f"(B, Tk); got qp {tuple(qp.shape)}, kp {tuple(kp.shape)}, vp "
+            f"{tuple(vp.shape)}, kmask {tuple(kmask.shape)}")
+    check_head_dim(name, d, num_heads)
     if kmask.dtype != torch.int32 or kmask.device != qp.device:
         raise TypeError(f"{name}: kmask must be an int32 tensor on {qp.device}")
 

@@ -995,3 +995,96 @@ def test_label_encoder_kernels_at_the_transducer_shapes(randn, rate):
         step = randn(rows, 1, 256)
         torch.testing.assert_close(fused_ffn(step, w1, b1, w2, b2),
                                    ffn_plain(step, w1, b1, w2, b2), **TOL)
+
+
+# the corners of the widths the kernels take: (D, heads, hidden), head
+# dims 16, 32, 96 and 128, D 64 to 1024, hidden up to 4096
+WIDTH_CORNERS = [(64, 4, 256), (128, 4, 512), (384, 4, 1536),
+                 (512, 4, 2048), (1024, 8, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,heads,hidden", WIDTH_CORNERS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_kernels_take_every_width(randn, d, heads, hidden, rate):
+    """At each corner: the FFN and LN-FFN forward and backward at 300 and
+    40 rows (the fused and the tiled forward where D has a fused kernel),
+    fused_mha at (8, 40, 40) causal and a decoder step's Tq 1 over 77 keys,
+    the grouped attention at a two-group geometry (rc 4, seg 8, lc 16, 3
+    memory slots) with a ragged length, each against its plain version at
+    TOL, weight gradients within 1e-4 of their largest entry."""
+    xav = (6.0 / (d + hidden)) ** 0.5
+    ln_g, ln_b = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
+    w1, b1 = randn(d, hidden, scale=xav), randn(hidden, scale=0.02)
+    w2, b2 = randn(hidden, d, scale=xav), randn(d, scale=0.02)
+    cfg = ("gelu", rate, rate, 31)
+    for rows in (300, 40):
+        x, dy = randn(rows, d), randn(rows, d)
+        torch.testing.assert_close(
+            fused_ln_ffn_res(x, ln_g, ln_b, w1, b1, w2, b2, *cfg),
+            ln_ffn_res_plain(x, ln_g, ln_b, w1, b1, w2, b2, *cfg), **TOL)
+        torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2, *cfg),
+                                   ffn_plain(x, w1, b1, w2, b2, *cfg), **TOL)
+        got = fused_ln_ffn_res_backward(x, ln_g, ln_b, w1, b1, w2, dy, *cfg)
+        want = ln_ffn_res_plain_backward(x, ln_g, ln_b, w1, b1, w2, dy, *cfg)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        for g, w in zip(got[1:], want[1:]):
+            _close_to_largest(g, w)
+        got = fused_ffn_backward(x, w1, b1, w2, dy, *cfg)
+        want = ffn_plain_backward(x, w1, b1, w2, dy, *cfg)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        for g, w in zip(got[1:], want[1:]):
+            _close_to_largest(g, w)
+    for b, tq, tk, causal in ((8, 40, 40, True), (8, 1, 77, False)):
+        q, dout = randn(b, tq, d), randn(b, tq, d)
+        k, v = randn(b, tk, d), randn(b, tk, d)
+        lengths = torch.linspace(tk // 2, tk, b, device="cuda").long()
+        kmask = (torch.arange(tk, device="cuda")[None, :]
+                 < lengths[:, None]).to(torch.int32)
+        args = (q, k, v, kmask, heads, causal, rate, 4321)
+        out, lse = fused_mha_forward(*args)
+        torch.testing.assert_close(out, mha_plain(*args), **TOL)
+        got = fused_mha_backward(q, k, v, kmask, out, lse, dout, *args[4:])
+        want = mha_plain_backward(q, k, v, kmask, dout, *args[4:])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+    geom = AttnGeom(U=32, seg=8, lc=16, rc=4, max_mem=3, G=2,
+                    num_heads=heads)
+    q3, dout = (randn(2, geom.ng, geom.nq, d) for _ in range(2))
+    k, v = randn(2, geom.tk, d), randn(2, geom.tk, d)
+    lengths = torch.tensor([32, 21], dtype=torch.int32, device="cuda")
+    args = (q3, k, v, lengths, geom, rate, 77)
+    torch.testing.assert_close(emformer_grouped_attention_forward(*args),
+                               grouped_attention_plain(*args), **TOL)
+    got = emformer_grouped_attention_backward(q3, k, v, lengths, dout,
+                                              *args[4:])
+    want = grouped_attention_plain_backward(q3, k, v, lengths, dout,
+                                            *args[4:])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,groups", [(64, 16), (512, 16), (1024, 16),
+                                      (256, 256)])
+def test_convpos_wgrad_takes_every_channel_count(randn, d, groups):
+    """4, 32, 64 and 1 channels a group, K 64, (B, T) (5, 70): within 1e-4
+    of the largest entry."""
+    xp, dy = randn(5, 70 + 63, d), randn(5, 70, d)
+    _close_to_largest(conv_pos.convpos_wgrad(xp, dy, 64, groups),
+                      conv_pos.convpos_wgrad_plain(xp, dy, 64, groups))
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_outside_the_widths(randn):
+    """A CUDA tensor outside the widths gives a ValueError naming them,
+    never the plain version."""
+    x = randn(4, 96)
+    with pytest.raises(ValueError, match="D=96"):
+        fused_ffn(x, randn(96, 128), randn(128), randn(128, 96), randn(96))
+    q = randn(2, 3, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        fused_mha_forward(q, q, q, torch.ones(2, 3, dtype=torch.int32,
+                                              device="cuda"), 4)
+    with pytest.raises(ValueError, match="channel"):
+        conv_pos.convpos_wgrad(randn(2, 20, 96), randn(2, 5, 96), 16, 16)

@@ -180,7 +180,7 @@ def test_unit_shape_holds_every_segment_s_context(U, seg, lc, rc, max_mem,
     rows those of a segment; and both blocks fit the card."""
     geom = AttnGeom(U=U, seg=seg, lc=lc, rc=rc, max_mem=max_mem, G=G,
                     num_heads=4)
-    unit = unit_shape(geom)
+    unit = unit_shape(geom, 64)
     allowed = group_gather_indices(U, seg, lc, rc, max_mem, G)[3]
     row_seg = group_row_seg(seg, rc, G)
     assert unit.cols == allowed.sum(axis=1).max()
@@ -188,17 +188,21 @@ def test_unit_shape_holds_every_segment_s_context(U, seg, lc, rc, max_mem,
     for i in range(G):
         assert allowed[row_seg == i].any(axis=0).sum() == unit.cols
     assert max(unit.fwd_smem, unit.bwd_smem) <= SMEM_LIMIT
-    assert _fitting_unit("attn", geom, backward=True) == (unit,
-                                                          unit.bwd_smem)
+    assert _fitting_unit("attn", geom, 64, backward=True) == (unit,
+                                                              unit.bwd_smem)
 
 
 def test_unit_shape_refuses_a_block_beyond_shared_memory():
     """G 16 puts 436 context slots in a group: the backward's dK / dV
-    accumulators no longer fit a block, and the wrapper says so."""
+    accumulators of 64 features no longer fit a block, so they hold 32 and
+    the walks run twice; G 64 (1,636 slots) does not fit even at the
+    smallest split, and the wrapper says so."""
     geom = AttnGeom(U=512, seg=16, lc=32, rc=8, max_mem=5, G=16, num_heads=4)
-    assert _fitting_unit("attn", geom)[1] <= SMEM_LIMIT
+    assert _fitting_unit("attn", geom, 64)[1] <= SMEM_LIMIT
+    assert _fitting_unit("attn", geom, 64, backward=True)[0].acc_features == 32
+    big = AttnGeom(U=2048, seg=16, lc=32, rc=8, max_mem=5, G=64, num_heads=4)
     with pytest.raises(ValueError, match="shared memory"):
-        _fitting_unit("attn", geom, backward=True)
+        _fitting_unit("attn", big, 64, backward=True)
 
 
 def test_fbank_batch_matches_np():
@@ -278,13 +282,13 @@ def test_k_splits_keep_the_weight_products_slices(monkeypatch, rows, tiles,
     (300, 2048, 114, 16)])
 def test_ffn_slice_plan_keeps_the_kernels_slices(monkeypatch, rows, hidden,
                                                  sms, splits):
-    plan = ffn.slice_plan(rows, hidden, sms)
+    plan = ffn.slice_plan(rows, hidden, sms, 256)
     assert plan.splits == splits
     assert (hidden // plan.splits) % ffn.HIDDEN_CHUNK == 0
     assert plan.splits * (hidden // plan.splits) == hidden
     assert plan.tiled == (rows >= ffn.TILED_MIN_ROWS)
     monkeypatch.setattr(ffn, "_sm_count", lambda index: sms)
-    tiles = (ffn.KERNEL_DIM // ffn.WGRAD_TILE) * (hidden // ffn.WGRAD_TILE)
+    tiles = (256 // ffn.WGRAD_TILE) * (hidden // ffn.WGRAD_TILE)
     assert plan.bwd_splits == ffn.k_splits(rows, tiles, torch.device("cpu"))
 
 

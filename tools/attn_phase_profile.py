@@ -41,7 +41,7 @@ namespace {
 # (text in csrc/emformer_attn.cu, text to put before it); each must occur once
 MARKS = [
     ("  __syncthreads();\n  const auto q_off", "  PHASE_T0\n"),
-    ("  const float scale = 1.0f / sqrtf((float)kHeadDim);\n  for (int r0",
+    ("  const float scale = 1.0f / sqrtf((float)g.hd);\n  for (int r0",
      "  PHASE(0);\n"),
     ("  // the row softmax, a warp on", "  PHASE(1);\n"),
     ("  const int jn = (g.C + 3) & ~3;  // columns past C hold zeros",
@@ -52,10 +52,12 @@ MARKS = [
     ("    // dq = ds K, straight into", "    PHASE(6);\n"),
     ("    __syncthreads();  // the next segment restages the tiles",
      "    PHASE(7);\n"),
-    ("  const size_t part_base =", "  PHASE(8);\n"),
+    # (one block of dK / dV features at head dim 64: one walk per block)
+    ("    // this block's features of the group's (ctx, dim) fp32 partials",
+     "    PHASE(8);\n"),
 ]
-FWD_END = ("      if (r < g.R) store4(out + q_off(r) + 4 * tx, o[a]);\n"
-           "    }\n  }\n}")
+FWD_END = ("          store4(out + q_off(r) + fb + 4 * tx, o[a]);\n"
+           "      }\n    }\n}")
 NAMES = {0: "forward staging", 1: "forward scores",
          2: "forward row softmax", 3: "forward P.V",
          4: "backward staging", 5: "backward scores and dO.v",

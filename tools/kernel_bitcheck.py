@@ -68,6 +68,10 @@ inputs, and each output is compared with torch.equal:
                          revision's alphas, each revision's C entry called
                          with its own signature (a revision with the (N, S)
                          carry scratch takes it)
+  simulst_emformer_attn  the grouped attention's out and (simulst_emformer_
+  _bwd                   attn_bwd) dq, dk, dv through ops/emformer_attn.py's
+                         wrappers; fp32 and bf16, dropout 0 and 0.1, with
+                         and without the example-id gate, at ATTN_CASES
   simulst_convpos_wgrad  dw through ops/conv_pos.py's wrapper; fp32 and
                          bf16, K 64, D 256, at (B, T) = (32, 256), (3, 50),
                          (33, 1) (7 batch slices of 5, the last of 3) and
@@ -86,7 +90,15 @@ inputs, and each output is compared with torch.equal:
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
 forwards also at a decoder-step shape, on their other path), and each
-output of the second call must equal the first's (torch.equal).
+output of the second call must equal the first's (torch.equal).  Then the
+widths the revision may not take (WIDTH_CASES), this checkout alone: the
+FFN forward's fused and tiled paths at D 64, 128 and 512 (1, 40 and 300
+rows, both ln_res, fp32 and bf16, rate 0.1) and the MHA forward's decode
+and training kernels at head dims 16, 32, 96 and 128 (Tq 1 and 2 over 77
+keys, causal and not) must give the same bits, and the FFN, LN-FFN, MHA,
+grouped-attention and conv-pos entries the same bits twice at D 64 to
+1024, head dims 16 to 128 (the grouped backward's split dK / dV walks at
+128) and 4, 64 and 1 channels per group.
 --only ENTRY[,ENTRY...] restricts the bit check, and --time, to those
 entries.
 
@@ -96,7 +108,9 @@ forward at 12,288 rows (gelu, rate 0.1) and the FFN forward at 8192 rows
 (relu, rate 0.1), the revision's C entry against this checkout's on the
 path its wrapper takes; the linear-res forward's C entry at 8192 rows,
 12,800 and 3,200 rows with the Emformer gate, 2,304, 40 and 1 rows, and
-the MHA forward's at the MT shapes (64, 128, 128) causal, self and cross,
+the grouped attention forward and backward through the wrappers at
+chip_smoke.py's ASR shape (q3 (32, 2, 200, 256), rate 0.1), the MHA
+forward's at the MT shapes (64, 128, 128) causal, self and cross,
 the ASR decoder's (32, 72, 72) causal and (32, 72, 256), the decoder
 step's (40, 1, 256) and the self-cache (40, 1, 64), all rate 0.1 (the
 decoder step 0), this checkout's on the path its plan picks; the FFN backward at 8192 rows (relu, rate 0.1)
@@ -228,6 +242,13 @@ ALIGN_TIMED = {"alignment_{}_pooled_ms": 0, "alignment_{}_unpooled_ms": 1,
                "alignment_{}_s257_ms": 6}
 # (B, T) of the conv-pos weight gradient at K 64, D 256
 CONVPOS_CASES = ((32, 256), (3, 50), (33, 1), (5, 300))
+# (B, AttnGeom fields) of the grouped attention's bit check (4 heads of
+# 64): s2t_emformer_s's geometry and a small one (rc 4, seg 8, 3 memory
+# slots)
+ATTN_CASES = ((8, dict(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=4)),
+              (3, dict(U=32, seg=8, lc=16, rc=4, max_mem=3, G=2,
+                       num_heads=4)))
 # (label, T, B, S, how the lengths are made)
 CTC_CASES = (
     ("ASR (256,32,129)", 256, 32, 129, "asr"),
@@ -248,6 +269,8 @@ TIMED_ENTRIES = (("ln_ffn_fwd", "simulst_ffn"), ("ffn_fwd", "simulst_ffn"),
                  ("linear_res", "simulst_linear_res"),
                  ("mha_bwd", "simulst_mha_bwd"),
                  ("mha_fwd", "simulst_mha_fwd"),
+                 ("emformer_attn_fwd", "simulst_emformer_attn"),
+                 ("emformer_attn_bwd", "simulst_emformer_attn_bwd"),
                  ("alignment_fwd", "simulst_alignment_fwd"),
                  ("alignment_bwd", "simulst_alignment_bwd"),
                  ("convpos", "simulst_convpos_wgrad"),
@@ -354,7 +377,7 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
     launch, so that CUDA events time the kernels."""
     n = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
-    plan = ffn.slice_plan(n, 2048, ffn._sm_count(x.device.index))
+    plan = ffn.slice_plan(n, 2048, ffn._sm_count(x.device.index), 256)
     y = torch.empty_like(x)
     partial = torch.empty(plan.splits, n, 256, **f32)
     xn = torch.empty(n, 256, **f32) if tiled and ln_res else None
@@ -648,6 +671,134 @@ def determinism_calls(torch):
         "simulst_cif_integrate": lambda: cif_integrate.cif_integrate_forward(
             xc, alpha, 1.0, 72),
     }
+
+
+# (D, hidden) of the FFN paths' bit check at the new widths; (D, heads) of
+# the MHA kernels'
+WIDTH_FFN = ((64, 256), (128, 512), (512, 2048))
+WIDTH_MHA = ((64, 4), (128, 4), (384, 4), (512, 4))
+
+
+def width_cases(torch):
+    """(entry, case, fn) at the new widths: fn returns {name: (a, b)}, two
+    results that must be equal bit for bit (two paths, or two calls)."""
+    from simulst_tpu_torch.ops import conv_pos, ffn, mha
+    from simulst_tpu_torch.ops import emformer_attn as ea
+
+    g = torch.Generator().manual_seed(17)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g) * scale).to(dtype).cuda()
+
+    def twice(fn):
+        def run():
+            first = [t.clone() for t in fn()]
+            torch.cuda.synchronize()
+            return {f"output {j}": (a, b) for j, (a, b) in
+                    enumerate(zip(first, fn()))}
+        return run
+
+    def ffn_paths(ln_res, x, ws):
+        def run():
+            outs = {}
+            for path, min_rows in (("fused", 10 ** 9), ("tiled", 0)):
+                saved, ffn.TILED_MIN_ROWS = ffn.TILED_MIN_ROWS, min_rows
+                try:
+                    outs[path] = (ffn.fused_ln_ffn_res_forward(
+                        x, *ws, "gelu", 0.1, 0.1, 29) if ln_res else
+                        ffn.fused_ffn_forward(x, *ws[2:], "relu", 0.1, 0.1,
+                                              29))
+                finally:
+                    ffn.TILED_MIN_ROWS = saved
+            return {"y fused vs tiled": (outs["fused"], outs["tiled"])}
+        return run
+
+    def mha_paths(q, k, v, kmask, heads, causal):
+        def run():
+            outs = {}
+            for path, max_tq in (("decode", 2), ("tiles", 0)):
+                saved, mha.DECODE_MAX_TQ = mha.DECODE_MAX_TQ, max_tq
+                try:
+                    outs[path] = mha.fused_mha_forward(q, k, v, kmask, heads,
+                                                       causal, 0.1, 9)
+                finally:
+                    mha.DECODE_MAX_TQ = saved
+            return {f"{n} decode vs tiles": (a, b) for n, a, b in
+                    zip(("out", "lse"), outs["decode"], outs["tiles"])}
+        return run
+
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for d, hid in WIDTH_FFN:
+            for rows in (1, 40, 300):
+                x = randn(rows, d, dtype=dtype)
+                ws = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+                      randn(d, hid, scale=d ** -0.5, dtype=dtype),
+                      randn(hid, scale=0.02, dtype=dtype),
+                      randn(hid, d, scale=hid ** -0.5, dtype=dtype),
+                      randn(d, scale=0.02, dtype=dtype))
+                for ln_res in (1, 0):
+                    cases.append((f"simulst_ffn ln_res {ln_res} paths",
+                                  f"{str(dtype)[6:]} D {d} rows {rows}",
+                                  ffn_paths(ln_res, x, ws)))
+        for d, heads in WIDTH_MHA:
+            for tq, causal in ((1, False), (2, True)):
+                q = randn(5, tq, d, dtype=dtype)
+                k, v = (randn(5, 77, d, dtype=dtype) for _ in range(2))
+                kmask = torch.ones(5, 77, dtype=torch.int32, device="cuda")
+                kmask[1, 50:] = 0
+                cases.append(("simulst_mha_fwd paths",
+                              f"{str(dtype)[6:]} head dim {d // heads} Tq "
+                              f"{tq}", mha_paths(q, k, v, kmask, heads,
+                                                 causal)))
+    for d, hid, rows in ((64, 256, 12288), (512, 2048, 4133),
+                         (1024, 4096, 1000)):
+        x, dy = randn(rows, d), randn(rows, d)
+        ws = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+              randn(d, hid, scale=d ** -0.5), randn(hid, scale=0.02),
+              randn(hid, d, scale=hid ** -0.5), randn(d, scale=0.02))
+        case = f"D {d} hidden {hid} rows {rows}"
+        cases += [
+            ("simulst_ffn", case, twice(lambda x=x, ws=ws: (
+                ffn.fused_ln_ffn_res_forward(x, *ws, "gelu", 0.1, 0.1, 29),))),
+            ("simulst_ffn_bwd", case, twice(
+                lambda x=x, ws=ws, dy=dy: ffn.fused_ffn_backward(
+                    x, *ws[2:5], dy, "relu", 0.1, 0.1, 29))),
+            ("simulst_ln_ffn_bwd", case, twice(
+                lambda x=x, ws=ws, dy=dy: ffn.fused_ln_ffn_res_backward(
+                    x, *ws[:5], dy, "gelu", 0.1, 0.1, 29)))]
+    for d, heads in ((64, 4), (512, 4), (1024, 8)):
+        q, dout = (randn(32, 72, d) for _ in range(2))
+        k, v = (randn(32, 72, d) for _ in range(2))
+        kmask = torch.ones(32, 72, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            out, lse = mha.fused_mha_forward(q, k, v, kmask, heads, True,
+                                             0.1, 9)
+        cases.append(("simulst_mha_bwd", f"head dim {d // heads}", twice(
+            lambda q=q, k=k, v=v, km=kmask, o=out, l=lse, do=dout, h=heads:
+            mha.fused_mha_backward(q, k, v, km, o, l, do, h, True, 0.1, 9))))
+    geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                       num_heads=4)
+    for d in (64, 512):
+        lengths = torch.randint(192, 257, (8,), generator=g).to(
+            torch.int32).cuda()
+        attn = (randn(8, geom.ng, geom.nq, d), randn(8, geom.tk, d),
+                randn(8, geom.tk, d), lengths)
+        dout = randn(8, geom.ng, geom.nq, d)
+        case = f"head dim {d // 4}"
+        cases += [
+            ("simulst_emformer_attn", case, twice(lambda a=attn: (
+                ea.emformer_grouped_attention_forward(*a, geom, 0.1, 23),))),
+            ("simulst_emformer_attn_bwd", case, twice(
+                lambda a=attn, do=dout: ea.emformer_grouped_attention_backward(
+                    *a, do, geom, 0.1, 23)))]
+    for d, groups in ((64, 16), (1024, 16), (256, 256)):
+        xp, dy = randn(32, 319, d), randn(32, 256, d)
+        cases.append(("simulst_convpos_wgrad",
+                      f"{d // groups} channels a group", twice(
+                          lambda xp=xp, dy=dy, gr=groups: (
+                              conv_pos.convpos_wgrad(xp, dy, 64, gr),))))
+    return cases
 
 
 def device_ms(torch, fn, calls):
@@ -969,6 +1120,43 @@ def main():
                    f"({b}, {t})", {"dw": torch.equal(outs["rev"],
                                                      outs["this"])})
 
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    for dtype in dtypes if (wanted("simulst_emformer_attn") or
+                            wanted("simulst_emformer_attn_bwd")) else ():
+        for b, fields in ATTN_CASES:
+            geom = ea.AttnGeom(**fields)
+            for rate in (0.0, 0.1):
+                for gated in (False, True):
+                    g = torch.Generator().manual_seed(b + geom.U)
+                    q3, dout = (torch.randn(b, geom.ng, geom.nq, 256,
+                                            generator=g).to(dtype).cuda()
+                                for _ in range(2))
+                    k, v = (torch.randn(b, geom.tk, 256, generator=g).to(
+                        dtype).cuda() for _ in range(2))
+                    lengths = torch.randint(geom.U // 2, geom.U + 1, (b,),
+                                            generator=g).to(torch.int32)
+                    gate = ea.EidGate(*(torch.randint(
+                        0, 2, shape, generator=g).to(torch.int32).cuda()
+                        for shape in ((b, geom.tk), (b, geom.n)))) \
+                        if gated else None
+                    attn_args = (q3, k, v, lengths.cuda())
+                    outs = {}
+                    for key, lib in libs.items():
+                        with library_of(_build, lib):
+                            outs[key] = (
+                                ea.emformer_grouped_attention_forward(
+                                    *attn_args, geom, rate, 23, gate),
+                                *ea.emformer_grouped_attention_backward(
+                                    *attn_args, dout, geom, rate, 23, gate))
+                    torch.cuda.synchronize()
+                    case = (f"{str(dtype)[6:]} B {b} U {geom.U} G {geom.G} "
+                            f"rate {rate}{' gated' if gated else ''}")
+                    same = [torch.equal(a, c) for a, c in
+                            zip(outs["rev"], outs["this"])]
+                    report("simulst_emformer_attn", case, {"out": same[0]})
+                    report("simulst_emformer_attn_bwd", case,
+                           dict(zip(("dq", "dk", "dv"), same[1:])))
+
     for i, (label, t, b, s_, how) in enumerate(
             CTC_CASES if wanted("simulst_ctc_alpha")
             or wanted("simulst_ctc_d_em") else ()):
@@ -996,9 +1184,31 @@ def main():
                    {f"output {j}": torch.equal(a, b)
                     for j, (a, b) in enumerate(zip(first, second))})
 
+    # the new widths, this checkout alone: two paths, or two calls
+    with library_of(_build, libs["this"]):
+        for entry, case, fn in width_cases(torch):
+            if not wanted(entry.split()[0]):
+                continue
+            pairs = fn()
+            torch.cuda.synchronize()
+            report(f"widths {entry}", case,
+                   {n: torch.equal(a, b) for n, (a, b) in pairs.items()})
+
     if args.time:
+        from simulst_tpu_torch.ops import emformer_attn as ea
         times = {}
         x, ws, dy = ln_ffn_inputs(torch, 12288, torch.float32, 12288)
+        ga = torch.Generator().manual_seed(19)
+        attn_geom = ea.AttnGeom(U=256, seg=16, lc=32, rc=8, max_mem=5, G=8,
+                                num_heads=4)
+        attn_timed = (
+            *(torch.randn(shape, generator=ga).cuda() for shape in (
+                (32, attn_geom.ng, attn_geom.nq, 256),
+                (32, attn_geom.tk, 256), (32, attn_geom.tk, 256))),
+            torch.randint(192, 257, (32,), generator=ga).to(
+                torch.int32).cuda())
+        attn_dout = torch.randn(32, attn_geom.ng, attn_geom.nq, 256,
+                                generator=ga).cuda()
         xm, wm, dym = ln_ffn_inputs(torch, 8192, torch.float32, 8192)
         xc, alpha, csum = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
         out = torch.empty(32, 72, 256, device="cuda")
@@ -1058,6 +1268,12 @@ def main():
                 "linear_res_bwd_2304_ms": wrapped(
                     linear_res.fused_linear_res_backward, lr[2304][0], wl,
                     lr[2304][1], 0, 0, 0.1, 7),
+                "emformer_attn_fwd_ms": wrapped(
+                    ea.emformer_grouped_attention_forward, *attn_timed,
+                    attn_geom, 0.1, 23),
+                "emformer_attn_bwd_ms": wrapped(
+                    ea.emformer_grouped_attention_backward, *attn_timed,
+                    attn_dout, attn_geom, 0.1, 23),
                 **{name: mha_bwd(key, *inputs)
                    for name, inputs in mha_timed.items()},
                 **{name: lr_fwd(key, *args, period, res_rows, 0.1, path)
