@@ -1439,7 +1439,8 @@ def grad_scale(grads, name):
 
 
 def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
-                       make_accum_train_step, gnorm_rtol=1e-5):
+                       make_accum_train_step, gnorm_rtol=1e-5,
+                       floor_margin=None):
     """One step at dropout 0 (no generator: no SpecAugment either) with the
     kernels and through the plain versions, from the same params, optimizer
     state and batch; the same functions as the train step, split so that
@@ -1452,7 +1453,10 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     (1 + 1e-7 N(0, 1)), about one fp32 rounding each, measures how far
     rounding alone moves these gradients: the floor under the comparison's
     limits.  gnorm_rtol None logs the gradient norms without holding them
-    to a limit."""
+    to a limit.  floor_margin: where that floor reaches a limit / margin
+    (the gradients' 1e-4 of their largest entry, gnorm_rtol), the limit
+    becomes margin x the floor, so that a step whose own rounding moves its
+    gradients past phase 8's limits is held at its resolution."""
     import torch
     grad_step, apply_step = make_accum_train_step(loss_fn, optim_cfg)
     outs = []
@@ -1485,15 +1489,23 @@ def compare_plain_step(state, loss_fn, optim_cfg, batch, tag,
     worst = max(grad_rel, key=grad_rel.get)
     noise_rel = rel_errors(g_n)
     worst_n = max(noise_rel, key=noise_rel.get)
+    gnorm_floor = abs(gn_n - gn_p) / gn_p
     log(tag, rounding_floor_grads_max_err_to_largest=noise_rel[worst_n],
         rounding_floor_worst_param=worst_n,
-        rounding_floor_gnorm_rel=abs(gn_n - gn_p) / gn_p)
+        rounding_floor_gnorm_rel=gnorm_floor)
+    grad_limit = 1e-4
+    if floor_margin is not None:
+        grad_limit = max(grad_limit, floor_margin * noise_rel[worst_n])
+        if gnorm_rtol is not None:
+            gnorm_rtol = max(gnorm_rtol, floor_margin * gnorm_floor)
+        log(tag, limits_at_the_rounding_floor={
+            "grads_max_err_to_largest": grad_limit, "gnorm_rel": gnorm_rtol})
     before = state.model.state_dict()
     diff = max((sd_k[k] - sd_p[k]).abs().max().item() for k in sd_k)
     moved = max((sd_k[k] - before[k]).abs().max().item() for k in sd_k)
     gnorm_off = gnorm_rtol is not None and \
         abs(gn_k - gn_p) > gnorm_rtol * gn_p
-    if grad_rel[worst] > 1e-4 or gnorm_off or \
+    if grad_rel[worst] > grad_limit or gnorm_off or \
             abs(loss_k - loss_p) > 1e-5 * abs(loss_p) or diff > 1e-5:
         raise AssertionError(
             f"{tag} train step kernels vs plain: gradient of {worst} off by "
@@ -5313,6 +5325,23 @@ WIDTH_CORNERS = ((64, 4, 256), (128, 4, 512), (512, 8, 2048),
                  (512, 4, 2048), (1024, 8, 4096))
 # (D, conv_pos_groups): 4, 64 and 1 channels a group
 WIDTH_CONVPOS = ((64, 16), (1024, 16), (256, 256))
+# widths the kernels take zero-padded (the wrappers pad them to the next
+# width a kernel takes and pass the real width beside it): (D, heads,
+# hidden), D 16 / 32 / 48 / 200, hidden 32 / 48 / 100 / 800, head dims 4,
+# 8, 12, 50 and 100; fp32, and bf16 at PADDED_BF16
+PADDED_CORNERS = ((16, 4, 32), (16, 2, 48), (32, 4, 100), (48, 4, 48),
+                  (200, 4, 800), (200, 2, 100))
+PADDED_BF16 = (200, 4, 800)
+# (D_in, D_out) of the linear-res at the padded widths, bf16 at the first
+PADDED_LINEAR = ((48, 200), (16, 16), (16, 48), (200, 16), (200, 200))
+# (D, conv_pos_groups): 2, 3, 6 and 50 channels a group, bf16 at the last
+PADDED_CONVPOS = ((32, 16), (48, 16), (96, 16), (800, 16))
+# (D, heads, hidden, conv_pos_groups) of the timed widths: D 512 (8 heads
+# of 64, FFN 2048, 32 channels a group), JAX's 16-wide dry-run model (4
+# heads of 4, FFN 32, 2 channels) and D 200 (4 heads of 50, FFN 800, 50
+# channels)
+WIDTH_TIMED = {"d512": (512, 8, 2048, 16), "d16": (16, 4, 32, 8),
+               "d200": (200, 4, 800, 4)}
 # the corners' training rows: the offline encoder's 8 x 384 LN-FFN rows
 # (the tiled forward), and a decoder step's 40; the attentions' batches
 WIDTH_ROWS = {"train": 8 * (8 * 16 + 256), "decode": 40}
@@ -5341,14 +5370,17 @@ def width_geoms():
             "decode": (1, dict(U=16, seg=16, lc=32, rc=8, max_mem=5, G=1))}
 
 
-def phase_width_kernels(dev):
+def phase_width_kernels(dev, padded=False):
     """Rows 1-6 against their plain versions on the card at the corners of
     the widths the kernels take (WIDTH_CORNERS, WIDTH_CONVPOS), at
     training rows (WIDTH_ROWS, 8 utterances of the ASR shapes) and decode
     rows, fp32 and bf16, dropout 0 and 0.1, forward
     and backward: fp32 atol 1e-4, gradients within 1e-4 of their largest
     entry; bf16 BF16_TOL, gradients within 1e-2 of their largest entry (as
-    phase 20).  Returns the largest error per kernel."""
+    phase 20).  padded: the widths the wrappers pad (PADDED_CORNERS,
+    PADDED_LINEAR, PADDED_CONVPOS), fp32 and one bf16 case per row, the
+    grouped attention also with the example-id gate (rows 3g / 3bg), each
+    wrapper's launches counted.  Returns the largest error per kernel."""
     import torch
     from simulst_tpu_torch.ops import conv_pos, ffn, linear_res, mha
     from simulst_tpu_torch.ops import emformer_attn as ea
@@ -5376,8 +5408,14 @@ def phase_width_kernels(dev):
             table[key] = max(table.get(key, 0.0), err)
         return err
 
-    for d, heads, hid in WIDTH_CORNERS:
+    from simulst_tpu_torch.nn.emformer import EmformerConfig, make_packed_eids
+    corners = PADDED_CORNERS if padded else WIDTH_CORNERS
+    before = read_launches()
+    for d, heads, hid in corners:
         for dtype in (torch.float32, torch.bfloat16):
+            if padded and dtype != torch.float32 and \
+                    (d, heads, hid) != PADDED_BF16:
+                continue
             dt = str(dtype)[6:]
             corner.clear()
             xav = (6.0 / (d + hid)) ** 0.5
@@ -5408,6 +5446,8 @@ def phase_width_kernels(dev):
                          ffn.fused_ffn_backward(x, *lnw[2:5], dy, *cfg),
                          ffn.ffn_plain_backward(x, *lnw[2:5], dy, *cfg),
                          dtype, grads=range(1, 5))
+                if padded:      # the linear-res: PADDED_LINEAR below
+                    continue
                 # the attention out-projection's linear-res (rows 4 / 4b)
                 w, bias = randn(dtype, d, d, scale=d ** -0.5), \
                     randn(dtype, d, scale=0.02)
@@ -5457,23 +5497,62 @@ def phase_width_kernels(dev):
                                      device=dev)
                 lengths[0] = geom.U - 5
                 args = (q3, k, v, lengths)
+                # rows 3g / 3bg: two examples packed into each row
+                gates = (None,)
+                if padded and kind == "train":
+                    ecfg = EmformerConfig(right_context=gd["rc"],
+                                          max_memory=gd["max_mem"])
+                    seg_eid = (torch.arange(geom.n, device=dev)
+                               >= geom.n // 2).to(torch.int32)
+                    frame_eid = seg_eid.repeat_interleave(geom.seg)
+                    eids = make_packed_eids(ecfg, frame_eid[None].expand(
+                        b, -1), seg_eid[None].expand(b, -1))
+                    gates += (ea.EidGate(eids.kid.contiguous(),
+                                         eids.seg_eid.contiguous()),)
                 for rate in (0.0, 0.1):
-                    case = f"head dim {d // heads} {kind} {dt} rate {rate}"
-                    hold(f"emformer_grouped_attention {case}", (
-                        ea.emformer_grouped_attention_forward(
-                            *args, geom, rate, 23),),
-                        (ea.grouped_attention_plain(*args, geom, rate, 23),),
-                        dtype)
-                    hold(f"emformer_grouped_attention_backward {case}",
-                         ea.emformer_grouped_attention_backward(
-                             *args, do, geom, rate, 23),
-                         ea.grouped_attention_plain_backward(
-                             *args, do, geom, rate, 23), dtype)
+                    for gate in gates:
+                        case = (f"head dim {d // heads} {kind} {dt} rate "
+                                f"{rate}{'' if gate is None else ' gated'}")
+                        hold(f"emformer_grouped_attention {case}", (
+                            ea.emformer_grouped_attention_forward(
+                                *args, geom, rate, 23, gate),),
+                            (ea.grouped_attention_plain(*args, geom, rate,
+                                                        23, gate),), dtype)
+                        hold(f"emformer_grouped_attention_backward {case}",
+                             ea.emformer_grouped_attention_backward(
+                                 *args, do, geom, rate, 23, gate),
+                             ea.grouped_attention_plain_backward(
+                                 *args, do, geom, rate, 23, gate), dtype)
             torch.cuda.synchronize()
             log("phase22", corner=f"D {d} heads {heads} hidden {hid} {dt}",
                 max_abs_err=dict(corner))
-    for d, groups in WIDTH_CONVPOS:
+    for din, dout in PADDED_LINEAR if padded else ():
         for dtype in (torch.float32, torch.bfloat16):
+            if dtype != torch.float32 and (din, dout) != PADDED_LINEAR[0]:
+                continue
+            dt = str(dtype)[6:]
+            w, bias = randn(dtype, din, dout, scale=din ** -0.5), \
+                randn(dtype, dout, scale=0.02)
+            for kind, rows in WIDTH_ROWS.items():
+                h = randn(dtype, rows, din)
+                res, dy = randn(dtype, rows, dout), randn(dtype, rows, dout)
+                for cfg in ((0, 0, 0.0, 7), (200, 192, 0.1, 7)):
+                    case = f"D_in {din} D_out {dout} {kind} {dt} rate {cfg[2]}"
+                    hold(f"fused_linear_res {case}", (
+                        linear_res.fused_linear_res_forward(h, w, bias, res,
+                                                            *cfg),),
+                        (linear_res.linear_res_plain(h, w, bias, res,
+                                                     *cfg),), dtype)
+                    hold(f"fused_linear_res_backward {case}",
+                         linear_res.fused_linear_res_backward(h, w, dy, *cfg),
+                         linear_res.linear_res_plain_backward(h, w, dy,
+                                                              *cfg),
+                         dtype, grads=(1, 2))
+    for d, groups in PADDED_CONVPOS if padded else WIDTH_CONVPOS:
+        for dtype in (torch.float32, torch.bfloat16):
+            if padded and dtype != torch.float32 and \
+                    (d, groups) != PADDED_CONVPOS[-1]:
+                continue
             for b, t in ((ASR_UTT, 256), (3, 50)):
                 xp, dyc = randn(dtype, b, t + 63, d), randn(dtype, b, t, d)
                 hold(f"convpos_wgrad {d // groups} channels ({b},{t}) "
@@ -5482,19 +5561,32 @@ def phase_width_kernels(dev):
                      (conv_pos.convpos_wgrad_plain(xp, dyc, 64, groups),),
                      dtype, grads=(0,))
     torch.cuda.synchronize()
-    log("phase22", corners=[f"D {d} heads {h} hidden {f}"
-                            for d, h, f in WIDTH_CORNERS],
-        convpos_channels=[d // gr for d, gr in WIDTH_CONVPOS],
-        max_abs_err=errs)
+    after = read_launches()
+    launched = {k: after[k] - before[k] for k in WIDTH_KERNELS + (
+        "emformer_grouped_attention_gated",
+        "emformer_grouped_attention_gated_backward")}
+    log("phase22", padded=padded, corners=[f"D {d} heads {h} hidden {f}"
+                                           for d, h, f in corners],
+        convpos_channels=[d // gr for d, gr in (
+            PADDED_CONVPOS if padded else WIDTH_CONVPOS)],
+        linear_res=list(PADDED_LINEAR) if padded else "D x D",
+        max_abs_err=errs, launches=launched)
+    missing = [k for k, n in launched.items() if not n and (
+        padded or "gated" not in k)]
+    if missing:
+        raise AssertionError(f"phase 22: {missing} did not launch at "
+                             f"{'the padded ' if padded else ''}widths")
     return errs
 
 
-def phase_width_times(dev, batch):
-    """Rows 1-6 at D 512, 8 heads, hidden 2048 on asr-train's 32 x
-    1024-frame shapes, fp32, rate 0.1: CUDA-event ms of each kernel, its
-    bound, its plain version's ms and the one PyTorch call of the same
-    work (SDPA, the products through torch.matmul with TF32 off,
-    conv1d_weight).  Returns {kernel: entry}."""
+def phase_width_times(dev, batch, key="d512"):
+    """Rows 1-6 at one of WIDTH_TIMED's widths (D 512, 8 heads, hidden
+    2048 by default) on asr-train's 32 x 1024-frame shapes, fp32, rate
+    0.1: CUDA-event ms of each kernel (through its wrapper, the padding of
+    a padded width included), its bound (on the real widths), its plain
+    version's ms and the one PyTorch call of the same work (SDPA, the
+    products through torch.matmul with TF32 off, conv1d_weight).  Returns
+    {kernel: entry}."""
     import torch
     import torch.nn.functional as F
     from simulst_tpu_torch.ops import conv_pos, ffn, linear_res, mha
@@ -5504,7 +5596,8 @@ def phase_width_times(dev, batch):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
-    b, d, hid, heads = ASR_UTT, 512, 2048, 8
+    d, heads, hid, groups = WIDTH_TIMED[key]
+    b = ASR_UTT
     xav = (6.0 / (d + hid)) ** 0.5
     out = {}
 
@@ -5514,7 +5607,7 @@ def phase_width_times(dev, batch):
                          library_ms=cuda_ms(library, samples=5, runs=5),
                          **dict(zip(("bound_ms", "bound_by"),
                                     bound(moved, flops))))
-        log("phase22", kernel=name, d512=out[name])
+        log("phase22", kernel=name, **{key: out[name]})
 
     def products(x, w1, w2, dy=None):
         a, c = (torch.randn(x.shape[0], w1.shape[1], device=dev)
@@ -5591,7 +5684,7 @@ def phase_width_times(dev, batch):
         plain_ms=cuda_ms(lambda: mha.mha_plain(q, k, v, kmask, heads, True,
                                                0.1, 4321), samples=3,
                          runs=3), **case)
-    log("phase22", kernel="fused_mha", d512=out["fused_mha"])
+    log("phase22", kernel="fused_mha", **{key: out["fused_mha"]})
     vis = mha_visible_pairs(kmask, tq, True)
     entry("fused_mha_backward", out["fused_mha"]["shape"],
           lambda: mha.fused_mha_backward(q, k, v, kmask, o, lse, do, heads,
@@ -5618,7 +5711,7 @@ def phase_width_times(dev, batch):
           nbytes(h, w, dy, *got), 4 * n * d * d,
           lambda: (dy @ w.T, h.T @ dy))
 
-    taps, groups, t_out = 64, 16, 256
+    taps, t_out = 64, 256
     xp, dyc = randn(b, t_out + taps - 1, d), randn(b, t_out, d)
     got = conv_pos.convpos_wgrad(xp, dyc, taps, groups)
     xt, dyt = xp.transpose(1, 2).contiguous(), dyc.transpose(1, 2).contiguous()
@@ -5683,6 +5776,77 @@ def phase_width_train(dev, batch):
     del state
     compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase22",
                        make_accum_train_step)
+    return launches
+
+
+def phase_width_streaming_cif(dev):
+    """JAX's 16-wide dry-run CIF model (multichip.streaming_config: 1 + 1
+    layers, 2 heads of 8, FFN 32, vocab 24), which every width kernel takes
+    padded: one cli/train CIF-loss step (dropout 0, no SpecAugment) on the
+    dry run's 8-row batch with its launches counted (every width kernel
+    must launch), kernels vs plain on that step at phase 8's bounds; then 8
+    fused streaming sessions over the dry run's 5 chunks (EOS's embedding
+    row x 0.1, as the dry run) with the kernels and through the plain
+    versions: tokens equal.  Returns the step's launches."""
+    import torch
+    from simulst_tpu_torch import multichip
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.models.cif import CIFModel
+    from simulst_tpu_torch.stream import fused
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+    cfg = multichip.streaming_config()
+    model = CIFModel(cfg, generator=torch.Generator().manual_seed(SEED),
+                     device=dev)
+    args = cli.parse_args(["--task", "st", "--model", "cif", "--loss", "cif",
+                           "--no-specaugment", "--seed", str(SEED)])
+    loss_fn = cli.build_loss(args, model)
+    optim_cfg = cli.optim_config(args)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in multichip.dryrun_batch(cfg, 8).items()}
+    state = create_train_state(model, optim_cfg)
+    initial = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    reset_launches()
+    state, metrics = make_train_step(loss_fn, optim_cfg)(state, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    loss = float(metrics["loss"]) / float(metrics["sample_size"])
+    missing = [k for k in WIDTH_KERNELS + ("cif_integrate",)
+               if not launches[k]]
+    if missing or not np.isfinite(loss):
+        raise AssertionError(f"16-wide CIF step: loss {loss}, {missing} did "
+                             f"not launch: {launches}")
+    log("phase22", train="the dry run's CIF model: embed_dim 16, 2 heads, "
+        "FFN 32", loss=loss, launches={k: v for k, v in launches.items()
+                                       if v})
+    compare_plain_step(initial, loss_fn, optim_cfg, batch, "phase22",
+                       make_accum_train_step)
+    model = initial.model
+    model.eval()
+    with torch.no_grad():
+        model.decoder.embed_tokens.weight[cfg.eos_idx] *= 0.1
+    chunks = [torch.as_tensor(c, device=dev)
+              for c in multichip.streaming_chunks(cfg, 8)]
+
+    def session():
+        step = fused.make_cif_fused_step(model, cfg)
+        st = fused.cif_fused_init(model, cfg, 32, batch=8)
+        with torch.no_grad():
+            for i, ch in enumerate(chunks):
+                st, _ = step(st, ch, finish=i == len(chunks) - 1)
+        return st.tokens.cpu(), st.n_tokens.cpu()
+
+    got = session()
+    with plain_training():
+        want = session()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"16-wide CIF streaming: kernel tokens "
+                             f"{got[1].tolist()} differ from plain "
+                             f"{want[1].tolist()}")
+    log("phase22", streaming="the dry run's CIF model, 8 fused sessions",
+        tokens=int(got[1].sum()), n_tokens=got[1].tolist())
     return launches
 
 
@@ -5770,17 +5934,22 @@ def phase_synthetic(workdir):
 
 def phase_widths(dev, batch, workdir):
     """Phase 22: the kernels at every width the JAX package trains.  The
-    corners vs plain (22a), the times at D 512 (22b), the path of this
-    slice: a 512-wide train step (22c, its launches counted: every
-    width-dependent kernel must launch) and the tone-language CIF leg
-    through the CLIs (22d); then the kernel convergence trajectory.
-    Returns (the step's launches, the D 512 times)."""
+    corners vs plain (22a; the widths the wrappers pad too), the times at
+    D 512, 16 and 200 (22b), the path of this slice: a 512-wide train step
+    (22c, its launches counted: every width-dependent kernel must launch),
+    JAX's 16-wide dry-run CIF model through a train step and fused
+    streaming (22d, launches counted the same way) and the tone-language
+    CIF leg through the CLIs (22e); then the kernel convergence
+    trajectory.  Returns (the launches of the 512- and 16-wide steps, the
+    times by width)."""
     import torch
     t0 = time.perf_counter()
     with torch.no_grad():
         phase_width_kernels(dev)
+        phase_width_kernels(dev, padded=True)
         t1 = time.perf_counter()
-        times = phase_width_times(dev, batch)
+        times = {key: phase_width_times(dev, batch, key)
+                 for key in WIDTH_TIMED}
     t2 = time.perf_counter()
     launches = phase_width_train(dev, batch)
     missing = [k for k in WIDTH_KERNELS if not launches[k]]
@@ -5789,11 +5958,111 @@ def phase_widths(dev, batch, workdir):
                              f"new widths: {launches}")
     log("phase22", launches=launches)
     t3 = time.perf_counter()
+    narrow = phase_width_streaming_cif(dev)
+    launches = {k: launches[k] + narrow[k] for k in launches}
+    t4 = time.perf_counter()
     phase_synthetic(workdir)
     log("phase22", kernels_s=t1 - t0, times_s=t2 - t1, train_s=t3 - t2,
-        synthetic_s=time.perf_counter() - t3)
+        narrow_s=t4 - t3, synthetic_s=time.perf_counter() - t4)
     phase_convergence(dev)
     return launches, times
+
+
+# ---------------------------------------------------------------------------
+# 23. triples
+# ---------------------------------------------------------------------------
+TRIPLE_UTT, TRIPLE_STEPS = 16, 2
+# the model options of exp/2_mma.sh and exp/3_cif.sh (MMA_ARGS, CIF_ARGS)
+MMA_MODEL_ARGS = MMA_ARGS[6:12]
+CIF_MODEL_ARGS = CIF_ARGS[6:10]
+# their optimizer options
+MMA_OPTIM_ARGS = MMA_ARGS[MMA_ARGS.index("--lr"):]
+CIF_OPTIM_ARGS = CIF_ARGS[CIF_ARGS.index("--lr"):]
+# the six (task, model, loss) triples the JAX package's cli/train trains
+# besides the s2t_emformer, transducer, convpos and MT ones: argv, and the
+# launches per step the layer count predicts (the MMA pairings' 6 decoder
+# layers each run one alignment recursion; the CIF pairings one
+# integrate-and-fire; the joint-CTC pairings and the CIF loss at
+# exp/3_cif.sh's ctc_factor 0.3 one CTC loss on the encoder's CTC head)
+TRIPLES = {
+    "asr cif cif": (["--task", "asr", "--model", "cif", "--loss", "cif"]
+                    + CIF_ARGS[6:], CIF_LAUNCHES_PER_STEP),
+    "asr mma mma": (["--task", "asr"] + MMA_ARGS[2:],
+                    MMA_LAUNCHES_PER_STEP),
+    **{f"{task} mma joint_ctc": (
+        ["--task", task, "--model", "mma", "--loss", "joint_ctc",
+         "--override", "ctc_layer=true"] + MMA_MODEL_ARGS + MMA_OPTIM_ARGS,
+        {**MMA_LAUNCHES_PER_STEP, "ctc_alphas": 1, "ctc_d_em": 1})
+       for task in ("asr", "st")},
+    **{f"{task} cif joint_ctc": (
+        ["--task", task, "--model", "cif", "--loss", "joint_ctc"]
+        + CIF_MODEL_ARGS + CIF_OPTIM_ARGS,
+        CIF_LAUNCHES_PER_STEP) for task in ("asr", "st")}}
+# the triples whose one step is held to the plain versions'
+TRIPLES_COMPARED = ("st mma joint_ctc", "st cif joint_ctc")
+
+
+def phase_triples(dev, batch, asr_checkpoint):
+    """Each of TRIPLES through cli/train's parse_args, build_model (full
+    width: MMAConfig() / CIFConfig(), s2t_emformer_s's widths, the encoder
+    loaded from phase 8's checkpoint through --load-pretrained-encoder-from,
+    as exp/2_mma.sh and exp/3_cif.sh load it), build_loss and train step:
+    TRIPLE_STEPS updates on the first TRIPLE_UTT of phase 7's utterances,
+    every loss finite and the launches per step as predicted; then, for
+    TRIPLES_COMPARED, one step at dropout 0 without SpecAugment kernels vs
+    plain on phase 7's batch (compare_plain_step): within phase 8's bounds,
+    or twice the rounding floor measured beside them where that floor
+    reaches half a bound (`mma joint_ctc`'s did on the H100: its gradients
+    moved 8.0e-5 to 1.4e-4 of their largest entries and its gradient norm
+    9.5e-6 to 2.8e-5 under one rounding of the parameters, against phase
+    8's 1e-4 and 1e-5).  Returns the launches of all the triples'
+    steps."""
+    import torch
+    from simulst_tpu_torch.cli import train as cli
+    from simulst_tpu_torch.train.state import (create_train_state,
+                                               make_accum_train_step,
+                                               make_train_step)
+    sub = {k: v[:TRIPLE_UTT] for k, v in batch.items()}
+    total = {}
+    for name, (argv, predicted) in TRIPLES.items():
+        t0 = time.perf_counter()
+        args = cli.parse_args(argv + ["--load-pretrained-encoder-from",
+                                      asr_checkpoint])
+        model = cli.build_model(args, ASR_VOCAB, device=dev)
+        loss_fn = cli.build_loss(args, model)
+        optim_cfg = cli.optim_config(args)
+        state = create_train_state(model, optim_cfg)
+        initial = copy.deepcopy(state) if name in TRIPLES_COMPARED else None
+        generator = torch.Generator().manual_seed(SEED)
+        train_step = make_train_step(loss_fn, optim_cfg)
+        torch.cuda.synchronize()
+        reset_launches()
+        losses = []
+        for _ in range(TRIPLE_STEPS):
+            state, metrics = train_step(state, sub, generator)
+            losses.append(float(metrics["loss"])
+                          / float(metrics["sample_size"]))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        per_step = {k: launches[k] / TRIPLE_STEPS for k in predicted}
+        log("phase23", triple=name, argv=" ".join(argv[:6]),
+            config=type(model.cfg).__name__, embed_dim=model.cfg.embed_dim,
+            utterances=TRIPLE_UTT, losses=losses, launches_per_step=per_step,
+            s=time.perf_counter() - t0)
+        if per_step != predicted:
+            raise AssertionError(f"{name}: launches per step {per_step}, "
+                                 f"expected {predicted}")
+        if not all(np.isfinite(losses)) or state.step != TRIPLE_STEPS:
+            raise AssertionError(f"{name}: losses {losses}, updates "
+                                 f"{state.step}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        del state
+        if initial is not None:
+            compare_plain_step(initial, loss_fn, optim_cfg, batch,
+                               "phase23", make_accum_train_step,
+                               floor_margin=2.0)
+            del initial
+    return total
 
 
 def run(dev):
@@ -6032,11 +6301,16 @@ def run(dev):
     # trains, their times at D 512, a 512-wide train step, the
     # tone-language CIF leg and the kernel convergence trajectory
     widths, width_times = phase_widths(dev, asr, workdir.name)
+
+    mark(22)
+    # 23. the six (task, model, loss) triples that the JAX package trains
+    # besides the ones above, full width from phase 8's encoder
+    triples = phase_triples(dev, asr, asr_checkpoint)
     del asr, speech, feats, lengths
     workdir.cleanup()
 
-    mark(22)
-    # 23. report
+    mark(23)
+    # 24. report
     paths = {"serving": serving, "training": training,
              "asr-training": asr_training, "mma-training": mma_training,
              "cif-training": cif_training, "cif-serving": cif_serving,
@@ -6044,7 +6318,7 @@ def run(dev):
              "offline-decode": offline_decode, "asr-pack": pack_training,
              "transducer": transducer, "data-to-score": data_to_score,
              "bf16-training": bf16_training, "parallel": parallel,
-             "widths": widths}
+             "widths": widths, "triples": triples}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": paths[path][name],
@@ -6052,7 +6326,7 @@ def run(dev):
          **{key: report[name].get(key) for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "bf16", "activations")},
-         **({"d512": width_times[name]} if name in width_times else {})}
+         **{key: t[name] for key, t in width_times.items() if name in t}}
         for name, (_, src, tpu, path) in KERNELS.items()]}), flush=True)
     # the whole run's time (logged as "phase21" until phase 21 existed)
     log("total", total_s=time.perf_counter() - started)

@@ -76,8 +76,12 @@ Philox masks from seeds of a torch.Generator.
 The offline S2T transformer with the non-causal conv-pos,
 s2t_transformer_convpos (the ASR model before the Emformer), trains with
 --task asr|st --loss joint_ctc, the CE alone (it has no CTC head).  The
-model trains on the card unless --device names another.  Any other task,
-model or loss raises: those are not ported (ROADMAP Queue 1).
+model trains on the card unless --device names another.  MMA and CIF
+also train on --task asr (the transcripts) and under --loss joint_ctc
+(their decoder's CE with the encoder's CTC), as the JAX package's
+build_loss pairs them.  Any other task, model or loss raises
+NotImplementedError: the JAX package's cli/train does not train those
+either.
 
 Data parallelism on N cards of one node (the reference's fairseq DDP):
 
@@ -138,12 +142,20 @@ from simulst_tpu_torch.train import packing
 from simulst_tpu_torch.train.loop import LoopConfig, Trainer
 from simulst_tpu_torch.train.optim import OptimConfig
 
-# (task, model, loss) combinations the port trains
+# (task, model, loss) combinations the port trains: every one the JAX
+# package's cli/train trains (its build_loss pairs any model with any loss,
+# and the other speech pairings fail there)
 PORTED = {("mt", "mt_transformer", "ce"),
           ("asr", "s2t_emformer", "joint_ctc"),
           ("st", "s2t_emformer", "joint_ctc"),
+          ("asr", "mma", "mma"),
           ("st", "mma", "mma"),
+          ("asr", "mma", "joint_ctc"),
+          ("st", "mma", "joint_ctc"),
+          ("asr", "cif", "cif"),
           ("st", "cif", "cif"),
+          ("asr", "cif", "joint_ctc"),
+          ("st", "cif", "joint_ctc"),
           ("asr", "transducer", "rnnt"),
           ("st", "transducer", "rnnt"),
           ("asr", "s2t_transformer_convpos", "joint_ctc"),
@@ -235,7 +247,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if path not in PORTED:
         raise NotImplementedError(
             f"--task {args.task} --model {args.model} --loss {args.loss} is "
-            "not yet ported (ROADMAP Queue 1); the port trains "
+            "not trained by the JAX package either: its cli/train fails on "
+            "it (on the speech tasks KeyError 'attn_list' under the mma "
+            "loss, no cif_beta under the cif loss, an unpacking error under "
+            "rnnt, a shape error for the transducer under joint_ctc or mma; "
+            "ROADMAP.md lists them); the port trains "
             + ", ".join(f"--task {t} --model {m} --loss {l}"
                         for t, m, l in sorted(PORTED)))
     if args.pack and (args.model, args.loss) != ("s2t_emformer",

@@ -131,6 +131,21 @@ struct Dropout {
   }
 };
 
+// The dropout offset of element i of a row-major array `cols` wide whose
+// first `real` columns hold a (rows, real) tensor zero-padded to `cols`
+// (the wrappers pad widths the kernels do not take): row * real + column,
+// the unpadded tensor's offset, so that a padded call drops what the
+// unpadded plain version drops; i itself when nothing is padded.  A padded
+// column's offset is another element's, which does not matter: its value
+// is zero.  For the elementwise kernels; the products' store functors,
+// which know the row and column, compute row * real + column themselves
+// (a 64-bit division there costs the surrounding tile its registers).
+__device__ __forceinline__ unsigned long long unpadded_offset(size_t i,
+                                                              int cols,
+                                                              int real) {
+  return real == cols ? i : (i / cols) * real + i % cols;
+}
+
 // ---------------------------------------------------------------------------
 // operands and partial stores of the tiled products
 // ---------------------------------------------------------------------------
@@ -571,31 +586,33 @@ static inline cudaError_t sum_splits(const float* partial, int splits, size_t le
 }
 
 // g[i] = round_T(dy[i] * mult) with mult the dropout multiplier of element
-// i (offset i, `stream`) on gated rows (row % period < res_rows, or every
-// row when period == 0) and 1 elsewhere; g is fp32.  The upstream gradient
-// of a dropout site, materialised once for the products that read it.
+// i (offset unpadded_offset(i, cols, real_cols), `stream`) on gated rows
+// (row % period < res_rows, or every row when period == 0) and 1
+// elsewhere; g is fp32.  The upstream gradient of a dropout site,
+// materialised once for the products that read it.
 template <typename T>
 __global__ void drop_grad_kernel(const T* __restrict__ dy,
                                  float* __restrict__ g, int rows, int cols,
-                                 Dropout drop, unsigned stream, int period,
-                                 int res_rows) {
+                                 int real_cols, Dropout drop, unsigned stream,
+                                 int period, int res_rows) {
   const size_t total = (size_t)rows * cols;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   const int row = (int)(i / cols);
   const bool gated = period == 0 || row % period < res_rows;
-  const float m = gated ? drop.scale(i, stream) : 1.f;
+  const float m =
+      gated ? drop.scale(unpadded_offset(i, cols, real_cols), stream) : 1.f;
   g[i] = round_to<T>(to_f32(dy[i]) * m);
 }
 
 template <typename T>
 cudaError_t drop_grad(const void* dy, float* g, int rows, int cols,
-                      Dropout drop, unsigned stream, int period, int res_rows,
-                      cudaStream_t s) {
+                      int real_cols, Dropout drop, unsigned stream,
+                      int period, int res_rows, cudaStream_t s) {
   const size_t total = (size_t)rows * cols;
   drop_grad_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(dy), g, rows, cols, drop, stream, period,
-      res_rows);
+      static_cast<const T*>(dy), g, rows, cols, real_cols, drop, stream,
+      period, res_rows);
   return cudaGetLastError();
 }
 

@@ -96,7 +96,11 @@
 // slot, F the largest of 64 (the walks' thread map: 16 threads of 4
 // features), 32 and 16 with which the block fits the card's shared memory;
 // the three walks run once per block of F features.  Each output's sum is
-// the same whatever F.
+// the same whatever F.  Any other head dim up to 128 reaches the kernels
+// zero-padded to the next multiple of 8 (ops/emformer_attn.py), with the
+// real head dim beside it for the scale 1 / sqrt(hd_real): the padded
+// features add exact zeros to every score, and their outputs (zero) are
+// sliced away.
 #include <math.h>
 
 #include "common.cuh"
@@ -123,8 +127,9 @@ struct Geom {
   // padded to whole tiles (Rp, Cp); sld the row stride of its scores
   int R, C, Rp, Cp, sld;
   // the head dim, the staged head dim (64 or 128) and the features of the
-  // backward's dK / dV accumulators
-  int hd, shd, F;
+  // backward's dK / dV accumulators; the real head dim of a call padded to
+  // hd, whose 1 / sqrt scales the scores
+  int hd, shd, F, hd_real;
 };
 
 // staged row stride (floats) of a kHD-wide row
@@ -480,7 +485,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   stage_rows<kHeadDim>(vs, v, g.Cp, hd, kv_off);
   stage_wait();
 
-  const float scale = 1.0f / sqrtf((float)hd);
+  const float scale = 1.0f / sqrtf((float)(kExact ? kHeadDim : g.hd_real));
   for (int r0 = 0; r0 < g.Rp; r0 += kRowTile)
     for (int c0 = 0; c0 < g.Cp; c0 += kColTile) {
       float s[4][4];
@@ -597,7 +602,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   const size_t kv_base = (size_t)b * g.tk * g.dim + head * hd;
   const size_t row_base =
       (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
-  const float scale = 1.0f / sqrtf((float)hd);
+  const float scale = 1.0f / sqrtf((float)(kExact ? kHeadDim : g.hd_real));
   const float keep_mult = drop.on ? drop.inv_keep : 1.f;
   const int jn = (g.C + 3) & ~3;
   const size_t unit_probs = 2 * (size_t)g.R * g.Cp;  // round(p m), then ds
@@ -908,8 +913,8 @@ int launch_attn_bwd(const void* q3, const void* k, const void* v,
 
 // unit_cols: the columns of a segment's unit, max_mem + rc + lc + seg
 bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
-               int seg, int lc, int rc, int max_mem, int G, int tk,
-               int unit_cols) {
+               int hd_real, int seg, int lc, int rc, int max_mem, int G,
+               int tk, int unit_cols) {
   g->ng = ng;
   g->nq = nq;
   g->dim = dim;
@@ -932,7 +937,9 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
   g->hd = heads > 0 && dim % heads == 0 ? dim / heads : 0;
   g->shd = g->hd <= 64 ? 64 : 128;
   g->F = acc_features(*g);
+  g->hd_real = hd_real;
   return batch > 0 && g->hd > 0 && g->hd % kHeadDimStep == 0 &&
+         hd_real <= g->hd && hd_real > g->hd - kHeadDimStep && hd_real > 0 &&
          g->hd <= kMaxHeadDim && rc > 0 && seg > 0 && max_mem >= 0 &&
          lc >= 0 && nq == G * (rc + seg + 1) &&
          tk == (g->n - 1) + g->n * rc + g->U &&
@@ -940,30 +947,32 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
 }
 
 // runs the statement with kH bound to the staged head dim g.shd and kE to
-// whether the head is 64 wide with 64 accumulator features (its offsets and
-// walks then fold to constants)
-#define ATTN_HD_DISPATCH(g, ...)                    \
-  do {                                              \
-    if ((g).hd == 64 && (g).F == 64) {              \
-      constexpr int kH = 64;                        \
-      constexpr bool kE = true;                     \
-      __VA_ARGS__;                                  \
-    } else if ((g).shd == 64) {                     \
-      constexpr int kH = 64;                        \
-      constexpr bool kE = false;                    \
-      __VA_ARGS__;                                  \
-    } else {                                        \
-      constexpr int kH = 128;                       \
-      constexpr bool kE = false;                    \
-      __VA_ARGS__;                                  \
-    }                                               \
+// whether the head is 64 wide, unpadded, with 64 accumulator features (its
+// offsets, scale and walks then fold to constants)
+#define ATTN_HD_DISPATCH(g, ...)                            \
+  do {                                                      \
+    if ((g).hd == 64 && (g).hd_real == 64 && (g).F == 64) { \
+      constexpr int kH = 64;                                \
+      constexpr bool kE = true;                             \
+      __VA_ARGS__;                                          \
+    } else if ((g).shd == 64) {                             \
+      constexpr int kH = 64;                                \
+      constexpr bool kE = false;                            \
+      __VA_ARGS__;                                          \
+    } else {                                                \
+      constexpr int kH = 128;                               \
+      constexpr bool kE = false;                            \
+      __VA_ARGS__;                                          \
+    }                                                       \
   } while (0)
 
 }  // namespace
 
 // q3, out: (batch, ng, nq, dim); k, v: (batch, tk, dim), all of `dtype`;
 // lengths: (batch,) int32 valid utterance frames.  dim = heads * hd with hd
-// a multiple of 8 up to 128,
+// a multiple of 8 up to 128; hd_real the head dim of a call zero-padded to
+// hd (hd itself when nothing is padded; less than 8 below it), whose
+// 1 / sqrt scales the scores;
 // nq = G * (rc + seg + 1), tk = (n - 1) + n * rc + n * seg with n = ng * G.
 // kid (batch, tk) and seg_eid (batch, n), int32: the sequence-packing
 // gate, both null for none.  unit_cols = max_mem + rc + lc + seg and
@@ -975,15 +984,15 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
                                      const void* v, const void* lengths,
                                      const void* kid, const void* seg_eid,
                                      void* out, int batch, int ng, int nq,
-                                     int dim, int heads, int seg, int lc,
-                                     int rc, int max_mem, int G, int tk,
+                                     int dim, int heads, int hd_real, int seg,
+                                     int lc, int rc, int max_mem, int G, int tk,
                                      int unit_cols, int smem_bytes,
                                      int drop_on, unsigned long long seed,
                                      unsigned threshold, float inv_keep,
                                      void* stream) {
   Geom g;
-  if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
-                 unit_cols) ||
+  if (!make_geom(&g, batch, ng, nq, dim, heads, hd_real, seg, lc, rc,
+                 max_mem, G, tk, unit_cols) ||
       fwd_smem_bytes(g) != (size_t)smem_bytes || smem_bytes > kSmemLimit ||
       (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1012,12 +1021,12 @@ extern "C" int simulst_emformer_attn_bwd(
     const void* lengths, const void* kid, const void* seg_eid,
     const void* dout, void* dq, void* dk, void* dv, void* probs,
     void* dk_part, void* dv_part, int batch, int ng, int nq, int dim,
-    int heads, int seg, int lc, int rc, int max_mem, int G, int tk,
-    int unit_cols, int smem_bytes, int drop_on, unsigned long long seed,
+    int heads, int hd_real, int seg, int lc, int rc, int max_mem, int G,
+    int tk, int unit_cols, int smem_bytes, int drop_on, unsigned long long seed,
     unsigned threshold, float inv_keep, void* stream) {
   Geom g;
-  if (!make_geom(&g, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G, tk,
-                 unit_cols) ||
+  if (!make_geom(&g, batch, ng, nq, dim, heads, hd_real, seg, lc, rc,
+                 max_mem, G, tk, unit_cols) ||
       bwd_smem_bytes(g, g.F) != (size_t)smem_bytes ||
       smem_bytes > kSmemLimit ||
       (kid == nullptr) != (seg_eid == nullptr))

@@ -27,7 +27,8 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ ln_b, const T* __restrict__ w1,
                        const T* __restrict__ b1, const T* __restrict__ w2,
                        float* __restrict__ partial, int n_rows, int hidden,
-                       int hidden_per_split, Dropout act_drop) {
+                       int hidden_per_split, int d_real, int hidden_real,
+                       Dropout act_drop) {
   extern __shared__ float smem[];
   float* xs = smem;                  // [kRows][kDim] fc1 input, rounded to T
   float* hs = xs + kRows * kDim;     // [kRows][kChunk] drop_a(act(u)), rounded to T
@@ -39,7 +40,8 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = blockIdx.x * kRows;
   const int h_begin = blockIdx.y * hidden_per_split;
 
-  // prologue: LayerNorm in fp32 (statistics over the full row, eps 1e-5)
+  // prologue: LayerNorm in fp32 (statistics over the row's d_real real
+  // columns, eps 1e-5)
   for (int r = warp; r < kRows; r += kWarps) {
     const int row = row0 + r;
     float v[kDim / 32];
@@ -50,14 +52,14 @@ __global__ void __launch_bounds__(kThreads)
       float s = 0.f;
 #pragma unroll
       for (int i = 0; i < kDim / 32; ++i) s += v[i];
-      const float mean = simulst::warp_sum(s) / kDim;
+      const float mean = simulst::warp_sum(s) / d_real;
       float q = 0.f;
 #pragma unroll
       for (int i = 0; i < kDim / 32; ++i) {
-        const float c = v[i] - mean;
+        const float c = lane + 32 * i < d_real ? v[i] - mean : 0.f;
         q += c * c;
       }
-      const float inv = rsqrtf(simulst::warp_sum(q) / kDim + 1e-5f);
+      const float inv = rsqrtf(simulst::warp_sum(q) / d_real + 1e-5f);
 #pragma unroll
       for (int i = 0; i < kDim / 32; ++i) {
         const int col = lane + 32 * i;
@@ -103,7 +105,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 2; ++j) {
         const int c = lane + 32 * j;
         const float uu = u[r][j] + to_f32(b1[h0 + c]);
-        const size_t off = (size_t)(row0 + r_base + r) * hidden + h0 + c;
+        const size_t off =
+            (size_t)(row0 + r_base + r) * hidden_real + h0 + c;
         hs[(r_base + r) * kChunk + c] =
             round_to<T>(act_fn<kAct>(uu) * act_drop.scale(off, 0));
       }
@@ -139,35 +142,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// y = drop_o(sum of the split partials + b2) [+ x], residual added in fp32
+// y = drop_o(sum of the split partials + b2) [+ x], residual added in fp32;
+// the mask at the offsets of rows d_real wide
 template <typename T, bool kResidual>
 __global__ void ffn_epilogue_kernel(const float* __restrict__ partial,
                                     int splits, const T* __restrict__ b2,
                                     const T* __restrict__ x, T* __restrict__ y,
-                                    int n_rows, int dim, Dropout out_drop) {
+                                    int n_rows, int dim, int d_real,
+                                    Dropout out_drop) {
   const size_t total = (size_t)n_rows * dim;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   float s = 0.f;
   for (int sp = 0; sp < splits; ++sp) s += partial[sp * total + idx];
   s += to_f32(b2[idx % dim]);
-  s *= out_drop.scale(idx, 1);
+  s *= out_drop.scale(simulst::unpadded_offset(idx, dim, d_real), 1);
   if (kResidual) s += to_f32(x[idx]);
   y[idx] = from_f32<T>(s);
 }
 
 // h = round_T(act(acc + b1) m_a) into the fp32 hidden buffer: the fused
-// kernel's hidden chunk, for the whole hidden
+// kernel's hidden chunk, for the whole hidden (the mask at the offsets of
+// a hidden hidden_real wide)
 template <typename T, int kAct>
 struct HiddenStore {
   float* h;
   const T* b1;
-  int hidden;
+  int hidden, hidden_real;
   Dropout act_drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     const size_t off = (size_t)m * hidden + n;
     const float uu = v + to_f32(b1[n]);
-    h[off] = round_to<T>(act_fn<kAct>(uu) * act_drop.scale(off, 0));
+    h[off] = round_to<T>(act_fn<kAct>(uu) *
+                         act_drop.scale((size_t)m * hidden_real + n, 0));
   }
 };
 
@@ -179,8 +186,9 @@ template <typename T, bool kLayerNorm, int kAct>
 int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
                const void* w1_, const void* b1_, const void* w2_,
                const void* b2, void* y, float* partial, float* xn, float* h,
-               int n_rows, int dim, int hidden, int splits, Dropout act_drop,
-               Dropout out_drop, cudaStream_t stream) {
+               int n_rows, int dim, int hidden, int splits, int dim_real,
+               int hidden_real, Dropout act_drop, Dropout out_drop,
+               cudaStream_t stream) {
   using simulst::RowMajor;
   const T* x = static_cast<const T*>(x_);
   const float* ln_g = static_cast<const float*>(ln_g_);
@@ -198,17 +206,17 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
       const dim3 grid(simulst::ceil_div(n_rows, kRows), splits);
       partial_kernel<<<grid, kThreads, smem, stream>>>(
           x, ln_g, ln_b, w1, b1, w2, partial, n_rows, hidden,
-          hidden / splits, act_drop);
+          hidden / splits, dim_real, hidden_real, act_drop);
       SIMULST_TRY(cudaGetLastError());
       break;
     });
   } else {
-    const HiddenStore<T, kAct> store{h, b1, hidden, act_drop};
+    const HiddenStore<T, kAct> store{h, b1, hidden, hidden_real, act_drop};
     if constexpr (kLayerNorm) {
       FFN_DIM_DISPATCH(dim, {
         ln_rows_kernel<T, kD><<<simulst::ceil_div(n_rows, kRowThreads / 32),
-                                kRowThreads, 0, stream>>>(x, ln_g, ln_b, xn,
-                                                          nullptr, n_rows);
+                                kRowThreads, 0, stream>>>(
+            x, ln_g, ln_b, xn, nullptr, n_rows, dim_real);
         break;
       });
       SIMULST_TRY(cudaGetLastError());
@@ -232,7 +240,7 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
   ffn_epilogue_kernel<T, kLayerNorm>
       <<<simulst::ceil_div(total, 256), 256, 0, stream>>>(
           partial, splits, static_cast<const T*>(b2), x, static_cast<T*>(y),
-          n_rows, dim, out_drop);
+          n_rows, dim, dim_real, out_drop);
   return (int)cudaGetLastError();
 }
 
@@ -250,19 +258,24 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
 // kernel (dim 64, 128, 256 or 512); else the tiled path, with fp32 scratch
 // h (n_rows, hidden) and, for
 // ln_res = 1, xn (n_rows, dim), and x, w1, w2 16-byte aligned.  Both paths
-// give the same bits.  Returns a cudaError_t.
+// give the same bits.  dim_real and hidden_real: the widths of a call
+// zero-padded to dim and hidden (equal to them when nothing is padded; less
+// than 64 below them), over which LN takes its statistics and the dropout
+// sites their offsets.  Returns a cudaError_t.
 extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            const void* ln_g, const void* ln_b, const void* w1,
                            const void* b1, const void* w2, const void* b2,
                            void* y, void* partial, void* xn, void* h,
                            int n_rows, int dim, int hidden, int splits,
+                           int dim_real, int hidden_real,
                            unsigned long long seed, int act_on,
                            unsigned act_threshold, float act_inv_keep,
                            int out_on, unsigned out_threshold,
                            float out_inv_keep, void* stream) {
   if (!ffn_dim_ok(dim) || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
       hidden % (splits * kChunk) != 0 || act < kGelu || act > kTanh ||
-      (h != nullptr && ln_res && xn == nullptr))
+      (h != nullptr && ln_res && xn == nullptr) ||
+      !ffn_real_ok(dim, hidden, dim_real, hidden_real))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *p = static_cast<float*>(partial), *xf = static_cast<float*>(xn),
@@ -272,11 +285,11 @@ extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
   if (ln_res) {
     FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kA>(
                                 x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                                n_rows, dim, hidden, splits, act_drop, out_drop,
-                                s)));
+                                n_rows, dim, hidden, splits, dim_real,
+                                hidden_real, act_drop, out_drop, s)));
   }
   FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kA>(
                               x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
-                              n_rows, dim, hidden, splits, act_drop, out_drop,
-                              s)));
+                              n_rows, dim, hidden, splits, dim_real,
+                              hidden_real, act_drop, out_drop, s)));
 }

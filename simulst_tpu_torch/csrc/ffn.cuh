@@ -45,7 +45,15 @@
 // width the row kernels take, and for 64, 128, 256 and 512 in the fused
 // kernel, whose 32-row tile and W1 / W2 chunks take 200 KB of shared
 // memory at 512); the tile_products take any width.  At the other widths
-// the forward runs its tiled path at every row count (same bits).
+// the forward runs its tiled path at every row count (same bits).  Any
+// other D up to 1024 and any other hidden reach the kernels zero-padded to
+// the next multiple of 64 (ops/ffn.py), with the real widths beside the
+// padded ones: LN's mean and variance and its backward's row means are
+// over the real D (a padded column adds nothing to them), and both dropout
+// sites draw the unpadded offsets (common.cuh unpadded_offset).  The
+// padded columns stay zero through every step (zero LN parameters, zero
+// weights and biases, act(0) = 0 for every activation), so the real
+// columns are those of the unpadded call.
 //
 // The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
 // LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
@@ -170,12 +178,13 @@ __device__ __forceinline__ float act_grad(float u) {
 constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
 
 // xn = round_T(LN(x) gamma + beta) in fp32 (the expression of
-// ffn_partial_kernel's prologue), stats = (mean, 1/sigma) per row unless null
+// ffn_partial_kernel's prologue), stats = (mean, 1/sigma) per row unless
+// null; the statistics over the first d_real columns (the rest padding)
 template <typename T, int kDim>
 __global__ void __launch_bounds__(kRowThreads)
     ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                    const float* __restrict__ ln_b, float* __restrict__ xn,
-                   float* __restrict__ stats, int n_rows) {
+                   float* __restrict__ stats, int n_rows, int d_real) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
   if (row >= n_rows) return;
@@ -186,14 +195,14 @@ __global__ void __launch_bounds__(kRowThreads)
     v[i] = to_f32(x[(size_t)row * kDim + lane + 32 * i]);
     s += v[i];
   }
-  const float mean = simulst::warp_sum(s) / kDim;
+  const float mean = simulst::warp_sum(s) / d_real;
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kDim / 32; ++i) {
-    const float c = v[i] - mean;
+    const float c = lane + 32 * i < d_real ? v[i] - mean : 0.f;
     q += c * c;
   }
-  const float inv = rsqrtf(simulst::warp_sum(q) / kDim + 1e-5f);
+  const float inv = rsqrtf(simulst::warp_sum(q) / d_real + 1e-5f);
 #pragma unroll
   for (int i = 0; i < kDim / 32; ++i) {
     const int col = lane + 32 * i;
@@ -222,17 +231,18 @@ struct BiasStore {
   }
 };
 
-// dh -> du = round_T(dh act'(u) m_a); u -> h_d = round_T(act(u) m_a)
+// dh -> du = round_T(dh act'(u) m_a); u -> h_d = round_T(act(u) m_a); the
+// mask at the offsets of a hidden hidden_real wide
 template <typename T, int kAct, class Caller>
 struct HiddenGradStore {
   float* u;   // in: u, out: h_d
   float* du;
-  int hidden;
+  int hidden, hidden_real;
   Dropout act_drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     const size_t off = (size_t)m * hidden + n;
     const float uu = u[off];
-    const float mult = act_drop.scale(off, 0);
+    const float mult = act_drop.scale((size_t)m * hidden_real + n, 0);
     du[off] = round_to<T>(v * act_grad<kAct>(uu) * mult);
     u[off] = round_to<T>(act_fn<kAct>(uu) * mult);
   }
@@ -240,6 +250,14 @@ struct HiddenGradStore {
 
 inline bool ffn_dim_ok(int dim) {
   return dim >= kDimStep && dim <= kMaxDim && dim % kDimStep == 0;
+}
+
+// the real widths of a padded call: at most the padded ones, and less than
+// one step below them
+inline bool ffn_real_ok(int dim, int hidden, int dim_real, int hidden_real) {
+  return dim_real > dim - kDimStep && dim_real <= dim &&
+         hidden_real > hidden - kChunk && hidden_real <= hidden &&
+         dim_real > 0 && hidden_real > 0;
 }
 
 }  // namespace

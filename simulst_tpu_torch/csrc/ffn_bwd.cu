@@ -16,8 +16,9 @@ template <typename T, int kAct>
 int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
                    const void* w2_, const void* dy, void* dx_, float* grads,
                    float* u, float* du, float* g, float* partial, int n,
-                   int d, int hidden, int splits, Dropout act_drop,
-                   Dropout out_drop, cudaStream_t s) {
+                   int d, int hidden, int splits, int d_real,
+                   int hidden_real, Dropout act_drop, Dropout out_drop,
+                   cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
   using Store = simulst::PartialStore<TagFfnBwd>;
@@ -28,13 +29,16 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
   const size_t len = 2 * (size_t)d * hidden + hidden + d;
   const size_t o_dw2 = (size_t)d * hidden, o_db1 = 2 * o_dw2,
                o_db2 = o_db1 + hidden;
-  SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
+  SIMULST_TRY(
+      (simulst::drop_grad<T>(dy, g, n, d, d_real, out_drop, 1, 0, 0, s)));
   SIMULST_TRY((simulst::tile_product<128>(
       n, hidden, d, 1, RowMajor<T>{x, d}, RowMajor<T>{w1, hidden},
       BiasStore<T, TagFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
   SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct, TagFfnBwd>{u, du, hidden, act_drop}, s)));
+      HiddenGradStore<T, kAct, TagFfnBwd>{u, du, hidden, hidden_real,
+                                          act_drop},
+      s)));
   // N = d: 128 x 64 tiles, so that the grid spreads over the SMs
   SIMULST_TRY((simulst::tile_product<64>(
       n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
@@ -60,18 +64,21 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
 // The backward of simulst_ffn (ln_res = 0): dx (n_rows, dim) of `dtype` and
 // grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) | db2 (dim)]
 // in fp32.  Scratch, all fp32: u and du (n_rows, hidden), g (n_rows, dim),
-// partial (splits, len(grads)) zero-filled.  Returns a cudaError_t.
+// partial (splits, len(grads)) zero-filled.  dim_real and hidden_real as
+// simulst_ffn's (the dropout sites' offsets).  Returns a cudaError_t.
 extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
                                const void* w1, const void* b1, const void* w2,
                                const void* dy, void* dx, void* grads, void* u,
                                void* du, void* g, void* partial, int n_rows,
                                int dim, int hidden, int splits,
+                               int dim_real, int hidden_real,
                                unsigned long long seed, int act_on,
                                unsigned act_threshold, float act_inv_keep,
                                int out_on, unsigned out_threshold,
                                float out_inv_keep, void* stream) {
   if (!ffn_dim_ok(dim) || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
-      hidden % kChunk != 0 || act < kGelu || act > kTanh)
+      hidden % kChunk != 0 || act < kGelu || act > kTanh ||
+      !ffn_real_ok(dim, hidden, dim_real, hidden_real))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
@@ -81,6 +88,6 @@ extern "C" int simulst_ffn_bwd(int dtype, int act, const void* x,
         *pf = static_cast<float*>(partial);
   FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn_bwd<scalar_t, kA>(
                               x, w1, b1, w2, dy, dx, gr, uf, duf, gf, pf,
-                              n_rows, dim, hidden, splits, act_drop, out_drop,
-                              s)));
+                              n_rows, dim, hidden, splits, dim_real,
+                              hidden_real, act_drop, out_drop, s)));
 }

@@ -30,7 +30,12 @@
 //    at a time through a two-stage cp.async ring (h rows broadcast from
 //    shared memory), so that 40 rows take 40 blocks instead of 4.  ptxas:
 //    48 registers (bf16 40), no spills.
-// Dropout draws Philox bits keyed by (seed, row * D_out + column).  The
+// Dropout draws Philox bits keyed by (seed, row * D_out + column).  Any
+// other D_in and D_out up to 1024 reach the kernels zero-padded to the
+// next multiples of 32 and 64 (ops/linear_res.py), with the real D_out
+// beside the padded one for the dropout offsets (common.cuh
+// unpadded_offset); padded columns of W, b and res are zero, so the real
+// outputs are those of the unpadded call.  The
 // backward materialises du = drop(dy) on residual rows once
 // (fp32), then runs dh = du W^T (128 x 64 tiles: N = D_in = 256 spreads
 // over the SMs) and dW = h^T du (K = rows, split across blocks into fp32
@@ -56,19 +61,19 @@ constexpr int kPathRows = 0;
 constexpr int kPathTiled = 1;   // tile_product<64>: 128 x 64 output tiles
 constexpr int kPathWide = 2;    // tile_product<128>: 128 x 128
 
-// y of one output from its product acc: bias, then on residual rows
-// (row % period < res_rows, every row when period == 0) dropout and the
-// residual; rounded to T
+// y of one output (row, col) from its product acc: bias, then on residual
+// rows (row % period < res_rows, every row when period == 0) dropout at
+// mask offset `moff` and the residual res[off]; rounded to T
 template <typename T>
 __device__ __forceinline__ T linear_res_out(float acc, int row, int col,
                                             const T* __restrict__ b,
                                             const T* __restrict__ res,
-                                            int dout, int period,
-                                            int res_rows, const Dropout& drop) {
+                                            size_t off, size_t moff,
+                                            int period, int res_rows,
+                                            const Dropout& drop) {
   const bool is_res = period == 0 || (row % period) < res_rows;
-  const size_t off = (size_t)row * dout + col;
   float u = acc + to_f32(b[col]);
-  if (is_res) u = u * drop.scale(off, 0) + to_f32(res[off]);
+  if (is_res) u = u * drop.scale(moff, 0) + to_f32(res[off]);
   return from_f32<T>(u);
 }
 
@@ -77,16 +82,21 @@ __device__ __forceinline__ T linear_res_out(float acc, int row, int col,
 struct TagLinearResFwd {};
 struct TagLinearResBwd {};
 
-template <typename T, class Caller>
+// kPadded: D_out is padded, and the mask offsets are those of rows
+// dout_real wide; else they are the outputs' own (the code of an unpadded
+// call stays that of a kernel without padding)
+template <typename T, class Caller, bool kPadded>
 struct ResidualStore {
   const T* b;
   const T* res;
   T* y;
-  int dout, period, res_rows;
+  int dout, dout_real, period, res_rows;
   Dropout drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
-    y[(size_t)m * dout + n] =
-        linear_res_out(v, m, n, b, res, dout, period, res_rows, drop);
+    const size_t off = (size_t)m * dout + n;
+    y[off] = linear_res_out(v, m, n, b, res, off,
+                            kPadded ? (size_t)m * dout_real + n : off, period,
+                            res_rows, drop);
   }
 };
 
@@ -107,7 +117,8 @@ __global__ void __launch_bounds__(kRowThreads)
     linear_res_rows_kernel(const T* __restrict__ h, const T* __restrict__ w,
                            const T* __restrict__ b, const T* __restrict__ res,
                            T* __restrict__ y, int n_rows, int din, int dout,
-                           int period, int res_rows, Dropout drop) {
+                           int dout_real, int period, int res_rows,
+                           Dropout drop) {
   __shared__ __align__(16) float ws[2][kRowK][kRowCols];
   __shared__ __align__(16) float hs[2][kRowRows][kRowHLd];
   const int c = threadIdx.x % kRowCols, r = threadIdx.x / kRowCols;
@@ -154,16 +165,19 @@ __global__ void __launch_bounds__(kRowThreads)
       }
     }
   }
-  if (r < rows)
-    y[(size_t)(row0 + r) * dout + col0 + c] = linear_res_out(
-        acc, row0 + r, col0 + c, b, res, dout, period, res_rows, drop);
+  if (r < rows) {
+    const size_t off = (size_t)(row0 + r) * dout + col0 + c;
+    y[off] = linear_res_out(acc, row0 + r, col0 + c, b, res, off,
+                            (size_t)(row0 + r) * dout_real + col0 + c, period,
+                            res_rows, drop);
+  }
 }
 
 template <typename T>
 int launch_linear_res(const void* h_, const void* w_, const void* b_,
                       const void* res_, void* y_, int n_rows, int din,
-                      int dout, int period, int res_rows, int path,
-                      Dropout drop, cudaStream_t stream) {
+                      int dout, int dout_real, int period, int res_rows,
+                      int path, Dropout drop, cudaStream_t stream) {
   using simulst::RowMajor;
   const T* h = static_cast<const T*>(h_);
   const T* w = static_cast<const T*>(w_);
@@ -173,12 +187,21 @@ int launch_linear_res(const void* h_, const void* w_, const void* b_,
   if (path == kPathRows) {
     const dim3 grid(dout / kRowCols, simulst::ceil_div(n_rows, kRowRows));
     linear_res_rows_kernel<T><<<grid, kRowThreads, 0, stream>>>(
-        h, w, b, res, y, n_rows, din, dout, period, res_rows, drop);
+        h, w, b, res, y, n_rows, din, dout, dout_real, period, res_rows,
+        drop);
     return (int)cudaGetLastError();
   }
-  const ResidualStore<T, TagLinearResFwd> store{b, res, y, dout, period,
-                                                res_rows, drop};
   const RowMajor<T> a{h, din}, bw{w, dout};
+  if (dout_real != dout) {   // a padded call: its tiled paths on 128 x 64
+    if (path != kPathTiled && path != kPathWide)
+      return (int)cudaErrorInvalidValue;
+    const ResidualStore<T, TagLinearResFwd, true> padded{
+        b, res, y, dout, dout_real, period, res_rows, drop};
+    return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
+                                          padded, stream);
+  }
+  const ResidualStore<T, TagLinearResFwd, false> store{
+      b, res, y, dout, dout_real, period, res_rows, drop};
   switch (path) {
     case kPathTiled:
       return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
@@ -202,16 +225,17 @@ struct CastStore {
 template <typename T>
 int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
                           void* dh, float* grads, float* du, float* partial,
-                          int n, int din, int dout, int period, int res_rows,
-                          int splits, Dropout drop, cudaStream_t s) {
+                          int n, int din, int dout, int dout_real,
+                          int period, int res_rows, int splits, Dropout drop,
+                          cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
   const T* h = static_cast<const T*>(h_);
   const T* w = static_cast<const T*>(w_);
   // grads / partial layout: [dW (din, dout) | db (dout)]
   const size_t len = (size_t)din * dout + dout;
-  SIMULST_TRY((simulst::drop_grad<T>(dy, du, n, dout, drop, 0, period,
-                                     res_rows, s)));
+  SIMULST_TRY((simulst::drop_grad<T>(dy, du, n, dout, dout_real, drop, 0,
+                                     period, res_rows, s)));
   SIMULST_TRY((simulst::tile_product<64>(
       n, din, dout, 1, RowMajor<float>{du, dout}, Transposed<T>{w, dout},
       CastStore<T, TagLinearResBwd>{static_cast<T*>(dh), din}, s)));
@@ -227,41 +251,49 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
 
 // h: (n_rows, din); w: (din, dout); b: (dout,); res, y: (n_rows, dout), all
 // of `dtype`; h and w start on a 16-byte boundary.  din % 32 == 0 and
-// dout % 64 == 0; dropout on residual rows when dropout != 0.  path: the
+// dout % 64 == 0; dout_real: the D_out of a call zero-padded to dout (dout
+// itself when nothing is padded; less than 64 below it), the row length
+// of the dropout offsets; dropout on residual rows when dropout != 0.  path: the
 // row kernel (0), the tiled product with 128 x 64 tiles (1) or 128 x 128
-// (2), as ops/linear_res.py:fwd_plan picks; all give the same bits.
+// (2, 128 x 64 when padded), as ops/linear_res.py:fwd_plan picks; all give
+// the same bits.
 // Returns a cudaError_t.
 extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
                                   const void* b, const void* res, void* y,
-                                  int n_rows, int din, int dout, int period,
-                                  int res_rows, int path, int dropout,
+                                  int n_rows, int din, int dout,
+                                  int dout_real, int period, int res_rows,
+                                  int path, int dropout,
                                   unsigned long long seed, unsigned threshold,
                                   float inv_keep, void* stream) {
   if (n_rows <= 0 || din % kBK != 0 || dout % kBN != 0 || period < 0 ||
+      dout_real <= dout - kBN || dout_real > dout ||
       reinterpret_cast<size_t>(h) % 16 != 0 ||
       reinterpret_cast<size_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, inv_keep, dropout};
   SIMULST_DISPATCH(dtype, return launch_linear_res<scalar_t>(
-                              h, w, b, res, y, n_rows, din, dout, period,
-                              res_rows, path, drop, s));
+                              h, w, b, res, y, n_rows, din, dout, dout_real,
+                              period, res_rows, path, drop, s));
 }
 
 // The backward of simulst_linear_res: dh (n_rows, din) of `dtype` and
 // grads = [dW (din, dout) | db (dout)] in fp32 from h, w and dy (n_rows,
 // dout).  Scratch, fp32: du (n_rows, dout) and partial (splits, len(grads))
 // zero-filled.  h and w start on a 16-byte boundary and din, dout are
-// multiples of 4 (tile_product's loads).  Returns a cudaError_t.
+// multiples of 4 (tile_product's loads); dout_real as simulst_linear_res's
+// (at most dout).  Returns a cudaError_t.
 extern "C" int simulst_linear_res_bwd(int dtype, const void* h, const void* w,
                                       const void* dy, void* dh, void* grads,
                                       void* du, void* partial, int n_rows,
-                                      int din, int dout, int period,
-                                      int res_rows, int splits, int dropout,
+                                      int din, int dout, int dout_real,
+                                      int period, int res_rows, int splits,
+                                      int dropout,
                                       unsigned long long seed,
                                       unsigned threshold, float inv_keep,
                                       void* stream) {
-  if (n_rows <= 0 || din <= 0 || dout <= 0 || period < 0 || splits <= 0)
+  if (n_rows <= 0 || din <= 0 || dout <= 0 || period < 0 || splits <= 0 ||
+      dout_real <= 0 || dout_real > dout)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, inv_keep, dropout};
@@ -269,5 +301,5 @@ extern "C" int simulst_linear_res_bwd(int dtype, const void* h, const void* w,
                               h, w, dy, dh, static_cast<float*>(grads),
                               static_cast<float*>(du),
                               static_cast<float*>(partial), n_rows, din, dout,
-                              period, res_rows, splits, drop, s));
+                              dout_real, period, res_rows, splits, drop, s));
 }

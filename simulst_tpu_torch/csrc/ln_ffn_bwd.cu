@@ -7,7 +7,8 @@ namespace {
 // LN-FFN backward
 // ---------------------------------------------------------------------------
 
-// dx = inv (gg - mean(gg) - xhat mean(gg xhat)) + dy with gg = dn gamma;
+// dx = inv (gg - mean(gg) - xhat mean(gg xhat)) + dy with gg = dn gamma,
+// the means over the first d_real columns (a padded column's gg is zero);
 // xn is overwritten with dn xhat (the per-row terms of dgamma)
 template <typename T, int kDim>
 __global__ void __launch_bounds__(kRowThreads)
@@ -15,7 +16,7 @@ __global__ void __launch_bounds__(kRowThreads)
                        const float* __restrict__ stats,
                        const float* __restrict__ dn, const T* __restrict__ dy,
                        T* __restrict__ dx, float* __restrict__ xn,
-                       int n_rows) {
+                       int n_rows, int d_real) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
   if (row >= n_rows) return;
@@ -32,8 +33,8 @@ __global__ void __launch_bounds__(kRowThreads)
     s2 += gg[i] * xh[i];
     xn[off] = d * xh[i];
   }
-  const float m1 = simulst::warp_sum(s1) / kDim;
-  const float m2 = simulst::warp_sum(s2) / kDim;
+  const float m1 = simulst::warp_sum(s1) / d_real;
+  const float m2 = simulst::warp_sum(s2) / d_real;
 #pragma unroll
   for (int i = 0; i < kDim / 32; ++i) {
     const size_t off = (size_t)row * kDim + lane + 32 * i;
@@ -55,7 +56,8 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
                       const void* dy_, void* dx_, float* grads, float* xn,
                       float* stats, float* u, float* du, float* g, float* dn,
                       float* partial, int n, int d, int hidden, int splits,
-                      Dropout act_drop, Dropout out_drop, cudaStream_t s) {
+                      int d_real, int hidden_real, Dropout act_drop,
+                      Dropout out_drop, cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
   using Store = simulst::PartialStore<TagLnFfnBwd>;
@@ -72,17 +74,20 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   const int row_blocks = simulst::ceil_div(n, kRowThreads / 32);
   FFN_DIM_DISPATCH(d, {
     ln_rows_kernel<T, kD><<<row_blocks, kRowThreads, 0, s>>>(
-        x, ln_g, static_cast<const float*>(be_), xn, stats, n);
+        x, ln_g, static_cast<const float*>(be_), xn, stats, n, d_real);
     break;
   });
   SIMULST_TRY(cudaGetLastError());
-  SIMULST_TRY((simulst::drop_grad<T>(dy, g, n, d, out_drop, 1, 0, 0, s)));
+  SIMULST_TRY(
+      (simulst::drop_grad<T>(dy, g, n, d, d_real, out_drop, 1, 0, 0, s)));
   SIMULST_TRY((simulst::tile_product<128>(
       n, hidden, d, 1, RowMajor<float>{xn, d}, RowMajor<T>{w1, hidden},
       BiasStore<T, TagLnFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
   SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct, TagLnFfnBwd>{u, du, hidden, act_drop}, s)));
+      HiddenGradStore<T, kAct, TagLnFfnBwd>{u, du, hidden, hidden_real,
+                                            act_drop},
+      s)));
   // N = d: 128 x 64 tiles, so that the grid spreads over the SMs
   SIMULST_TRY((simulst::tile_product<64>(
       n, d, hidden, 1, RowMajor<float>{du, hidden}, Transposed<T>{w1, hidden},
@@ -102,7 +107,7 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   SIMULST_TRY(simulst::colsum_partial(g, n, d, splits, partial, len, o_db2, s));
   FFN_DIM_DISPATCH(d, {
     ln_bwd_rows_kernel<T, kD><<<row_blocks, kRowThreads, 0, s>>>(
-        x, ln_g, stats, dn, dy, static_cast<T*>(dx_), xn, n);
+        x, ln_g, stats, dn, dy, static_cast<T*>(dx_), xn, n, d_real);
     break;
   });
   SIMULST_TRY(cudaGetLastError());
@@ -119,7 +124,9 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
 // (n_rows, dim) of `dtype` and grads = [dW1 (dim, hidden) | dW2 (hidden, dim) | db1 (hidden) |
 // db2 (dim) | dgamma (dim) | dbeta (dim)] in fp32.  Scratch, all fp32: xn,
 // g and dn (n_rows, dim), stats (n_rows, 2), u and du (n_rows, hidden),
-// partial (splits, len(grads)) zero-filled.  Returns a cudaError_t.
+// partial (splits, len(grads)) zero-filled.  dim_real and hidden_real as
+// simulst_ffn's (LN's statistics and row means, the dropout sites'
+// offsets).  Returns a cudaError_t.
 extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
                                   const void* ln_g, const void* ln_b,
                                   const void* w1, const void* b1,
@@ -127,12 +134,14 @@ extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
                                   void* grads, void* xn, void* stats, void* u,
                                   void* du, void* g, void* dn, void* partial,
                                   int n_rows, int dim, int hidden, int splits,
+                                  int dim_real, int hidden_real,
                                   unsigned long long seed, int act_on,
                                   unsigned act_threshold, float act_inv_keep,
                                   int out_on, unsigned out_threshold,
                                   float out_inv_keep, void* stream) {
   if (!ffn_dim_ok(dim) || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
-      hidden % kChunk != 0 || act < kGelu || act > kTanh)
+      hidden % kChunk != 0 || act < kGelu || act > kTanh ||
+      !ffn_real_ok(dim, hidden, dim_real, hidden_real))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
@@ -144,5 +153,6 @@ extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
   FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kA>(
                               x, ln_g, ln_b, w1, b1, w2, dy, dx, gr, xf, st,
                               uf, duf, gf, dnf, pf, n_rows, dim, hidden,
-                              splits, act_drop, out_drop, s)));
+                              splits, dim_real, hidden_real, act_drop,
+                              out_drop, s)));
 }

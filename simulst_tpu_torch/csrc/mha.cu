@@ -37,7 +37,10 @@
 // only the hd real features of an output are stored.  At hd 64 and 128
 // nothing is padded.  kHD 128 doubles each thread's outputs along d (two
 // 64-feature column blocks); its blocks take more shared memory (one block
-// per SM instead of two).
+// per SM instead of two).  Any other head dim up to 128 reaches the kernels
+// zero-padded to the next multiple of 8 (ops/mha.py), with the real head
+// dim beside it for the scale 1 / sqrt(hd): the padded features add exact
+// zeros to every score, and their outputs (zero) are sliced away.
 #include <math.h>
 
 #include "common.cuh"
@@ -855,8 +858,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-Geometry make_geometry(int Tq, int Tk, int H, int hd, int causal) {
-  return Geometry{Tq, Tk, H, causal, hd, 1.0f / sqrtf((float)hd)};
+// hd_real: the head dim of a call zero-padded to hd, whose 1 / sqrt scales
+// the scores
+Geometry make_geometry(int Tq, int Tk, int H, int hd, int hd_real,
+                       int causal) {
+  return Geometry{Tq, Tk, H, causal, hd, 1.0f / sqrtf((float)hd_real)};
 }
 
 Dropout make_dropout(int on, unsigned long long seed, unsigned threshold,
@@ -893,13 +899,13 @@ int launch_tiles(const T* q, const T* k, const T* v, const int* kmask,
 template <typename T, int kHD, bool kPad>
 int launch_fwd(const void* q_, const void* k_, const void* v_,
                const int* kmask, void* out_, float* lse, int B, int Tq, int Tk,
-               int H, int hd, int causal, int path, Dropout drop,
+               int H, int hd, int hd_real, int causal, int path, Dropout drop,
                cudaStream_t s) {
   const T* q = static_cast<const T*>(q_);
   const T* k = static_cast<const T*>(k_);
   const T* v = static_cast<const T*>(v_);
   T* out = static_cast<T*>(out_);
-  const Geometry g = make_geometry(Tq, Tk, H, hd, causal);
+  const Geometry g = make_geometry(Tq, Tk, H, hd, hd_real, causal);
   switch (path) {
     case kPathDecode:
       return launch_decode<T, kHD, kPad>(q, k, v, kmask, out, lse, B, g, drop, s);
@@ -913,9 +919,9 @@ template <typename T, int kHD, bool kPad>
 int launch_bwd(const void* q, const void* k, const void* v, const int* kmask,
                const void* out, const float* lse, const void* dout, void* dq,
                void* dk, void* dv, float* delta, float* ds, int B, int Tq,
-               int Tk, int H, int hd, int causal, Dropout drop,
+               int Tk, int H, int hd, int hd_real, int causal, Dropout drop,
                cudaStream_t s) {
-  const Geometry g = make_geometry(Tq, Tk, H, hd, causal);
+  const Geometry g = make_geometry(Tq, Tk, H, hd, hd_real, causal);
   const int rows = B * H * Tq;
   const int tk64 = simulst::ceil_div(Tk, kTile) * kTile;
   mha_bwd_delta_kernel<T, kHD, kPad><<<simulst::ceil_div(rows, 8), 256, 0, s>>>(
@@ -967,10 +973,19 @@ int head_dim(int D, int heads) {
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
+// the real head dim of a call padded to hd: at most hd, less than one step
+// below it
+bool hd_real_ok(int hd, int hd_real) {
+  return hd_real <= hd && hd_real > hd - kHDStep && hd_real > 0;
+}
+
 }  // namespace
 
 // q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * hd with hd
-// a multiple of 8 up to 128, each starting on a 16-byte boundary; kmask: (B, Tk) int32; out: (B, Tq, D);
+// a multiple of 8 up to 128, each starting on a 16-byte boundary; hd_real
+// the head dim of a call zero-padded to hd (hd itself when nothing is
+// padded; less than 8 below it), whose 1 / sqrt scales the scores; kmask:
+// (B, Tk) int32; out: (B, Tq, D);
 // lse: (B, heads, Tq) fp32.  Dropout on the probabilities when dropout !=
 // 0.  path: the decode kernel (0) or the training kernel (1), as
 // ops/mha.py:fwd_plan picks; both give the same bits.  Returns a
@@ -978,11 +993,13 @@ bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
                                const void* v, const void* kmask, void* out,
                                void* lse, int B, int Tq, int Tk, int D,
-                               int heads, int causal, int path, int dropout,
-                               unsigned long long seed, unsigned threshold,
-                               float inv_keep, void* stream) {
+                               int heads, int hd_real, int causal, int path,
+                               int dropout, unsigned long long seed,
+                               unsigned threshold, float inv_keep,
+                               void* stream) {
   const int hd = head_dim(D, heads);
-  if (hd == 0 || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+  if (hd == 0 || !hd_real_ok(hd, hd_real) || B <= 0 || Tq <= 0 || Tk <= 0 ||
+      !aligned16(q) ||
       !aligned16(k) || !aligned16(v))
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
@@ -990,24 +1007,26 @@ extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
   MHA_HD_DISPATCH(hd, SIMULST_DISPATCH(dtype, return launch_fwd<scalar_t, kH, kP>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<float*>(lse), B, Tq, Tk, heads, hd,
-                              causal, path, drop, s)));
+                              hd_real, causal, path, drop, s)));
 }
 
 // The backward of simulst_mha_fwd: dq (B, Tq, D), dk and dv (B, Tk, D) from
 // the forward's inputs, its out and lse, and dout (B, Tq, D).  Scratch,
 // fp32: delta (B, heads, Tq) and ds (B, heads, Tq, Tk rounded up to 64).
-// q, k, v, dout, dq, dk and dv start on a 16-byte boundary.  Returns a
-// cudaError_t.
+// q, k, v, dout, dq, dk and dv start on a 16-byte boundary; hd_real as the
+// forward's.  Returns a cudaError_t.
 extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* kmask,
                                const void* out, const void* lse,
                                const void* dout, void* dq, void* dk, void* dv,
                                void* delta, void* ds, int B, int Tq, int Tk,
-                               int D, int heads, int causal, int dropout,
-                               unsigned long long seed, unsigned threshold,
-                               float inv_keep, void* stream) {
+                               int D, int heads, int hd_real, int causal,
+                               int dropout, unsigned long long seed,
+                               unsigned threshold, float inv_keep,
+                               void* stream) {
   const int hd = head_dim(D, heads);
-  if (hd == 0 || B <= 0 || Tq <= 0 || Tk <= 0 || !aligned16(q) ||
+  if (hd == 0 || !hd_real_ok(hd, hd_real) || B <= 0 || Tq <= 0 || Tk <= 0 ||
+      !aligned16(q) ||
       !aligned16(k) || !aligned16(v) || !aligned16(dout) || !aligned16(dq) ||
       !aligned16(dk) || !aligned16(dv) || !aligned16(ds))
     return (int)cudaErrorInvalidValue;
@@ -1018,5 +1037,5 @@ extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
                               static_cast<const float*>(lse), dout, dq, dk,
                               dv, static_cast<float*>(delta),
                               static_cast<float*>(ds), B, Tq, Tk, heads, hd,
-                              causal, drop, s)));
+                              hd_real, causal, drop, s)));
 }

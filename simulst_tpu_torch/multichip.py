@@ -712,14 +712,14 @@ def dryrun_batch(cfg, n_rows: int, T: int = 128, L: int = 8, seed: int = 0):
 
 
 def streaming_config():
-    """The JAX dry run's tiny CIF model (1 + 1 layers, 2 heads, vocab 24)
-    at 64 wide, FFN 128 (JAX's is 16 wide, below the FFN kernels' least
-    width of 64)."""
+    """The JAX dry run's tiny CIF model: 1 + 1 layers, 16 wide, 2 heads of
+    8, FFN 32, vocab 24 (the kernels take it padded: D and the hidden to
+    64)."""
     from simulst_tpu_torch.models.cif import CIFConfig
     return CIFConfig(vocab_size=24, input_feat=8, conv_channels=16,
-                     embed_dim=64, ffn_dim=128, encoder_layers=1,
+                     embed_dim=16, ffn_dim=32, encoder_layers=1,
                      encoder_heads=2, decoder_layers=1, decoder_heads=2,
-                     decoder_ffn_dim=128, segment_length=16, left_context=32,
+                     decoder_ffn_dim=32, segment_length=16, left_context=32,
                      right_context=8, max_memory=2, **NO_DROPOUT)
 
 

@@ -45,43 +45,47 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _DROP = [ctypes.c_uint64, _I, ctypes.c_uint32, ctypes.c_float]
 SIGNATURES = {
     # dtype, ln_res, act, x, ln_g, ln_b, w1, b1, w2, b2, y, partial, xn, h,
-    # n_rows, dim, hidden, splits, seed, act_on, act_threshold, act_inv_keep,
-    # out_on, out_threshold, out_inv_keep, stream
-    "simulst_ffn": [_I] * 3 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:] + [_P],
+    # n_rows, dim, hidden, splits, dim_real, hidden_real, seed, act_on,
+    # act_threshold, act_inv_keep, out_on, out_threshold, out_inv_keep,
+    # stream
+    "simulst_ffn": [_I] * 3 + [_P] * 11 + [_I] * 6 + _DROP + _DROP[1:] + [_P],
     # dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g, partial,
-    # n_rows, dim, hidden, splits, seed, act site, out site, stream
-    "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 4 + _DROP + _DROP[1:]
+    # n_rows, dim, hidden, splits, dim_real, hidden_real, seed, act site,
+    # out site, stream
+    "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 6 + _DROP + _DROP[1:]
                        + [_P],
-    # dtype, h, w, b, res, y, n_rows, din, dout, period, res_rows, path,
-    # dropout, seed, threshold, inv_keep, stream
-    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 6 + _DROP[1:2] + _DROP[:1]
+    # dtype, h, w, b, res, y, n_rows, din, dout, dout_real, period,
+    # res_rows, path, dropout, seed, threshold, inv_keep, stream
+    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 7 + _DROP[1:2] + _DROP[:1]
                           + _DROP[2:] + [_P],
-    # dtype, h, w, dy, dh, grads, du, partial, n_rows, din, dout, period,
-    # res_rows, splits, dropout, seed, threshold, inv_keep, stream
-    "simulst_linear_res_bwd": [_I] + [_P] * 7 + [_I] * 7 + [ctypes.c_uint64]
+    # dtype, h, w, dy, dh, grads, du, partial, n_rows, din, dout, dout_real,
+    # period, res_rows, splits, dropout, seed, threshold, inv_keep, stream
+    "simulst_linear_res_bwd": [_I] + [_P] * 7 + [_I] * 8 + [ctypes.c_uint64]
                               + _DROP[2:] + [_P],
-    # dtype, q, k, v, kmask, out, lse, B, Tq, Tk, D, heads, causal, path,
-    # dropout, seed, threshold, inv_keep, stream
-    "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 8 + [ctypes.c_uint64]
+    # dtype, q, k, v, kmask, out, lse, B, Tq, Tk, D, heads, hd_real, causal,
+    # path, dropout, seed, threshold, inv_keep, stream
+    "simulst_mha_fwd": [_I] + [_P] * 6 + [_I] * 9 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, q, k, v, kmask, out, lse, dout, dq, dk, dv, delta, ds, B, Tq,
-    # Tk, D, heads, causal, dropout, seed, threshold, inv_keep, stream
-    "simulst_mha_bwd": [_I] + [_P] * 12 + [_I] * 7 + [ctypes.c_uint64]
+    # Tk, D, heads, hd_real, causal, dropout, seed, threshold, inv_keep,
+    # stream
+    "simulst_mha_bwd": [_I] + [_P] * 12 + [_I] * 8 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads, xn, stats, u,
-    # du, g, dn, partial, n_rows, dim, hidden, splits, seed, act site, out
-    # site, stream
-    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 16 + [_I] * 4 + _DROP
+    # du, g, dn, partial, n_rows, dim, hidden, splits, dim_real,
+    # hidden_real, seed, act site, out site, stream
+    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 16 + [_I] * 6 + _DROP
                           + _DROP[1:] + [_P],
     # dtype, q3, k, v, lengths, kid, seg_eid, out, batch, ng, nq, dim,
-    # heads, seg, lc, rc, max_mem, G, tk, unit_cols, smem_bytes, dropout,
-    # seed, threshold, inv_keep, stream
-    "simulst_emformer_attn": [_I] + [_P] * 7 + [_I] * 13 + _DROP[1:2]
+    # heads, hd_real, seg, lc, rc, max_mem, G, tk, unit_cols, smem_bytes,
+    # dropout, seed, threshold, inv_keep, stream
+    "simulst_emformer_attn": [_I] + [_P] * 7 + [_I] * 14 + _DROP[1:2]
                              + _DROP[:1] + _DROP[2:] + [_P],
     # dtype, q3, k, v, lengths, kid, seg_eid, dout, dq, dk, dv, probs,
-    # dk_part, dv_part, batch, ng, nq, dim, heads, seg, lc, rc, max_mem, G,
-    # tk, unit_cols, smem_bytes, dropout, seed, threshold, inv_keep, stream
-    "simulst_emformer_attn_bwd": [_I] + [_P] * 13 + [_I] * 13 + _DROP[1:2]
+    # dk_part, dv_part, batch, ng, nq, dim, heads, hd_real, seg, lc, rc,
+    # max_mem, G, tk, unit_cols, smem_bytes, dropout, seed, threshold,
+    # inv_keep, stream
+    "simulst_emformer_attn_bwd": [_I] + [_P] * 13 + [_I] * 14 + _DROP[1:2]
                                  + _DROP[:1] + _DROP[2:] + [_P],
     # dtype, xp, dy, dw, partial, batch, t_out, taps, dim, groups, splits,
     # stream
@@ -209,6 +213,53 @@ def dropout_args(rate: float, seed: int):
     if rate <= 0.0:
         return 0, 0, 0, 1.0
     return 1, seed & (2 ** 64 - 1), keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def round_up(n: int, step: int) -> int:
+    """The least multiple of `step` at or above n."""
+    return -(-n // step) * step
+
+
+def padded(t: torch.Tensor, *widths: int) -> torch.Tensor:
+    """t zero-padded at the end of each of its last len(widths) axes to
+    `widths` (how the wrappers hand the kernels a width they do not take:
+    the next one they do, the real width passed beside it); t itself where
+    nothing pads."""
+    pad = []
+    for size, want in zip(reversed(t.shape[t.ndim - len(widths):]),
+                          reversed(widths)):
+        pad += [0, want - size]
+    return torch.nn.functional.pad(t, pad) if any(pad) else t
+
+
+def unpadded(t: torch.Tensor, *widths: int) -> torch.Tensor:
+    """The leading `widths` of t's last len(widths) axes, contiguous: what
+    `padded` added, cut away; t itself where nothing was padded."""
+    if tuple(t.shape[t.ndim - len(widths):]) == widths:
+        return t
+    return t[(..., *(slice(0, w) for w in widths))].contiguous()
+
+
+def padded_groups(t: torch.Tensor, groups: int,
+                  width: int) -> torch.Tensor:
+    """(..., groups * w) -> (..., groups * width): each of the last axis'
+    `groups` equal slices (attention heads, conv groups) zero-padded from w
+    to `width`; t itself when w == width."""
+    w = t.shape[-1] // groups
+    if w == width:
+        return t
+    t = padded(t.reshape(*t.shape[:-1], groups, w), width)
+    return t.reshape(*t.shape[:-2], groups * width)
+
+
+def unpadded_groups(t: torch.Tensor, groups: int, w: int) -> torch.Tensor:
+    """The inverse of `padded_groups`, contiguous: the first w entries of
+    each of the last axis' `groups` slices; t itself where nothing was
+    padded."""
+    if t.shape[-1] == groups * w:
+        return t
+    t = unpadded(t.reshape(*t.shape[:-1], groups, t.shape[-1] // groups), w)
+    return t.reshape(*t.shape[:-2], groups * w)
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

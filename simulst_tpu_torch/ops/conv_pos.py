@@ -9,8 +9,10 @@ torch's conv layout (the JAX package keeps (K, D / groups, D)).  Its
 forward and its input gradient are ordinary convolutions (`F.conv1d`,
 `torch.nn.grad.conv1d_input`), as they are XLA convolutions in the JAX
 package; its weight gradient is `convpos_wgrad`: the CUDA kernel of
-csrc/conv_pos.cu on a CUDA tensor (D / groups channels per group, a
-multiple of 4 up to 64 or 1: `check_channels`), the plain version
+csrc/conv_pos.cu on a CUDA tensor (D / groups channels per group from 1
+to 64: `check_channels`; a count other than 1 that is not a multiple of 4
+reaches it with each group zero-padded to the next multiple of 4, and the
+gradient is sliced back), the plain version
 `convpos_wgrad_plain` on a CPU tensor.  Both sum in fp32 and
 compute only the block-diagonal part of each tap's product.
 """
@@ -21,7 +23,8 @@ import torch.nn.functional as F
 
 from simulst_tpu_torch.ops import _build
 
-MAX_CHANNELS = 64   # channels per group: 1 or a multiple of 4 up to this
+MAX_CHANNELS = 64   # channels per group up to this (the kernel's: 1 or a
+CHANNEL_STEP = 4    # multiple of this; others are padded)
 BATCH_SPLITS = 8          # batch slices the kernel sums as fp32 partials
 
 
@@ -42,14 +45,20 @@ def convpos_wgrad_plain(xp, dy, taps: int, groups: int):
 
 def check_channels(name: str, d: int, groups: int) -> int:
     """The channels per group D / groups; a ValueError naming them unless
-    the kernel takes them (1, or a multiple of 4 up to MAX_CHANNELS)."""
+    the kernel takes them (from 1 to MAX_CHANNELS, D a whole number of
+    groups)."""
     cg = d // groups if groups > 0 else 0
-    if groups <= 0 or cg * groups != d or \
-            not (cg == 1 or (cg % 4 == 0 and 4 <= cg <= MAX_CHANNELS)):
+    if groups <= 0 or cg * groups != d or not 1 <= cg <= MAX_CHANNELS:
         raise ValueError(
-            f"{name}: kernel takes 1 channel per group or a multiple of 4 up "
-            f"to {MAX_CHANNELS}; got D {d} in {groups} groups")
+            f"{name}: kernel takes 1 to {MAX_CHANNELS} channels per group; "
+            f"got D {d} in {groups} groups")
     return cg
+
+
+def padded_channels(cg: int) -> int:
+    """The channels per group the kernel takes for cg: 1, or the next
+    multiple of CHANNEL_STEP."""
+    return 1 if cg == 1 else _build.round_up(cg, CHANNEL_STEP)
 
 
 def _launch(xp, dy, taps: int, groups: int):
@@ -60,9 +69,12 @@ def _launch(xp, dy, taps: int, groups: int):
             f"convpos_wgrad: kernel takes xp (B, T + K - 1, D), dy (B, T, "
             f"D); got xp {tuple(xp.shape)}, dy {tuple(dy.shape)}, {taps} "
             f"taps")
-    cg = check_channels("convpos_wgrad", d, groups)
+    cg_real = check_channels("convpos_wgrad", d, groups)
     xp, dy = xp.contiguous(), dy.contiguous()
     _build.check_cuda("convpos_wgrad", xp, dy=dy)
+    cg = padded_channels(cg_real)
+    xp, dy = (_build.padded_groups(t, groups, cg) for t in (xp, dy))
+    d = groups * cg
     xp, dy = _build.aligned(xp), _build.aligned(dy)   # the 16-byte copies
     f32 = dict(dtype=torch.float32, device=xp.device)
     splits = min(BATCH_SPLITS, b)
@@ -74,7 +86,11 @@ def _launch(xp, dy, taps: int, groups: int):
                   partial.data_ptr(), b, t, taps, d, groups, splits,
                   _build.stream_of(xp))
     convpos_wgrad.launches += 1
-    return dw
+    if cg == cg_real:
+        return dw
+    # dw[g cg + o, i] of the padded groups: keep o, i < cg_real
+    dw = dw.view(groups, cg, cg, taps)[:, :cg_real, :cg_real]
+    return dw.reshape(groups * cg_real, cg_real, taps)
 
 
 def convpos_wgrad(xp, dy, taps: int, groups: int):

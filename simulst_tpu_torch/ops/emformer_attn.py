@@ -12,8 +12,10 @@ q3's device: kid (B, Tk), the example id of each key row, and seg_eid
 sees a key row only where seg_eid[b, s] == kid[b, row], besides the
 length rule.  Equality is the whole rule (dead frames and segments carry
 -1 and see each other).  Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
-csrc/emformer_attn.cu run, at any head dim D / heads that is a multiple of
-8 from 8 to 128 (`check_head_dim`); on a CPU tensor `grouped_attention_plain` and
+csrc/emformer_attn.cu run, at any head dim D / heads from 1 to 128
+(`check_head_dim`; one that is not a multiple of 8 reaches them with each
+head zero-padded to the next one, the real head dim beside it for the
+scale, and the outputs are sliced back); on a CPU tensor `grouped_attention_plain` and
 `grouped_attention_plain_backward`, the gathered-context formulation of
 nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
 ops/philox.py's mask, stream 0, at the row-major offset of each element of
@@ -30,7 +32,7 @@ import torch
 
 from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
-from simulst_tpu_torch.ops.mha import check_head_dim
+from simulst_tpu_torch.ops.mha import check_head_dim, padded_head_dim
 from simulst_tpu_torch.ops.philox import drop_scale
 
 MAX_ACC_FEATURES = 64  # kMaxAccFeatures: the dK / dV walks' features a pass
@@ -341,9 +343,11 @@ def _check_gate(name, q3, gate: Optional[EidGate], geom: AttnGeom):
                              f"{shape} on {q3.device}, got {got}")
 
 
-def _geom_args(q3, geom: AttnGeom, unit: UnitShape, smem: int):
+def _geom_args(q3, geom: AttnGeom, hd: int, unit: UnitShape, smem: int):
+    """The C entries' geometry arguments for q3 padded to its kernels'
+    head dim, hd the real one."""
     b, ng, nq, d = q3.shape
-    return (b, ng, nq, d, geom.num_heads, geom.seg, geom.lc, geom.rc,
+    return (b, ng, nq, d, geom.num_heads, hd, geom.seg, geom.lc, geom.rc,
             geom.max_mem, geom.G, geom.tk, unit.cols, smem)
 
 
@@ -366,28 +370,34 @@ def _count(wrapper, gate):
 
 def _launch(q3, k, v, lengths, geom: AttnGeom, rate, seed, gate=None):
     hd = _check("emformer_grouped_attention", q3, k, v, lengths, geom)
-    unit, smem = _fitting_unit("emformer_grouped_attention", geom, hd)
+    hdp = padded_head_dim(hd)
+    unit, smem = _fitting_unit("emformer_grouped_attention", geom, hdp)
     q3, k, v, lengths = (t.contiguous() for t in (q3, k, v, lengths))
     _build.check_cuda("emformer_grouped_attention", q3, k=k, v=v)
+    q3, k, v = (_build.padded_groups(t, geom.num_heads, hdp)
+                for t in (q3, k, v))
     out = torch.empty_like(q3)
     _build.launch("simulst_emformer_attn", _build.dtype_code(q3),
                   q3.data_ptr(), k.data_ptr(), v.data_ptr(),
                   lengths.data_ptr(), *_gate_ptrs(gate), out.data_ptr(),
-                  *_geom_args(q3, geom, unit, smem),
+                  *_geom_args(q3, geom, hd, unit, smem),
                   *_build.dropout_args(rate, seed),
                   _build.stream_of(q3))
     _count(emformer_grouped_attention, gate)
-    return out
+    return _build.unpadded_groups(out, geom.num_heads, hd)
 
 
 def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
                      gate=None):
     name = "emformer_grouped_attention_backward"
     hd = _check(name, q3, k, v, lengths, geom)
-    unit, smem = _fitting_unit(name, geom, hd, backward=True)
+    hdp = padded_head_dim(hd)
+    unit, smem = _fitting_unit(name, geom, hdp, backward=True)
     q3, k, v, lengths, dout = (t.contiguous() for t in
                                (q3, k, v, lengths, dout))
     _build.check_cuda(name, q3, k=k, v=v, dout=dout)
+    q3, k, v, dout = (_build.padded_groups(t, geom.num_heads, hdp)
+                      for t in (q3, k, v, dout))
     b, ng, nq, d = q3.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k, v))
     f32 = dict(dtype=torch.float32, device=q3.device)
@@ -399,10 +409,11 @@ def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
                   lengths.data_ptr(), *_gate_ptrs(gate), dout.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   probs.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-                  *_geom_args(q3, geom, unit, smem),
+                  *_geom_args(q3, geom, hd, unit, smem),
                   *_build.dropout_args(rate, seed), _build.stream_of(q3))
     _count(emformer_grouped_attention_backward, gate)
-    return dq, dk, dv
+    return tuple(_build.unpadded_groups(t, geom.num_heads, hd)
+                 for t in (dq, dk, dv))
 
 
 def emformer_grouped_attention_forward(q3, k, v, lengths, geom: AttnGeom,

@@ -9,9 +9,11 @@ backward (the JAX package computes silu and tanh in XLA; the port runs
 every activation through its kernel).  Both
 run the CUDA kernels of csrc/ffn.cu (the forward), ffn_bwd.cu and
 ln_ffn_bwd.cu (the backwards; ffn.cuh what they share) on a CUDA tensor,
-at any row count,
-any width D that is a multiple of 64 from 64 to 1024 and any hidden width
-that is a multiple of 64 (`check_widths`; another width raises), and
+at any row count, any width D from 1 to 1024 and any hidden width
+(`check_widths`; a wider D raises): a D or hidden that is not a multiple of
+64 reaches the kernels zero-padded to the next one, with the real widths
+beside them (LN's statistics over the real D, the dropout offsets of the
+unpadded tensors), and the outputs are sliced back; and
 their plain PyTorch versions (`ln_ffn_res_plain`,
 `ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`) on a CPU
 tensor.  GELU is the exact erf form.  Weights keep the JAX layout: w1 (D,
@@ -39,8 +41,8 @@ from simulst_tpu_torch.nn.core import gelu
 from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
-DIM_STEP = 64        # D: a multiple of it (csrc/ffn.cuh kDimStep) ...
-MAX_DIM = 1024       # ... up to this (kMaxDim)
+DIM_STEP = 64        # the kernels' D: a multiple of it (csrc/ffn.cuh
+MAX_DIM = 1024       # kDimStep) up to this (kMaxDim); others are padded
 # the widths the fused row-block kernel is built for (FFN_FUSED_DIM_DISPATCH:
 # its shared memory grows with D); the forward runs its tiled path at every
 # row count at the others
@@ -233,15 +235,27 @@ def k_splits(rows: int, out_tiles: int, device) -> int:
 
 
 def check_widths(name: str, d: int, hidden: int) -> None:
-    """Raise a ValueError naming the width unless the kernels take it: D a
-    multiple of DIM_STEP from DIM_STEP to MAX_DIM, the hidden a positive
-    multiple of HIDDEN_CHUNK."""
-    if d % DIM_STEP or not DIM_STEP <= d <= MAX_DIM:
-        raise ValueError(f"{name}: kernel takes D a multiple of {DIM_STEP} "
-                         f"from {DIM_STEP} to {MAX_DIM}; got D={d}")
-    if hidden <= 0 or hidden % HIDDEN_CHUNK:
-        raise ValueError(f"{name}: kernel takes a hidden width that is a "
-                         f"multiple of {HIDDEN_CHUNK}; got {hidden}")
+    """Raise a ValueError naming the width unless the kernels take it: D
+    from 1 to MAX_DIM, a positive hidden."""
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"{name}: kernel takes D from 1 to {MAX_DIM}; got "
+                         f"D={d}")
+    if hidden <= 0:
+        raise ValueError(f"{name}: kernel takes a positive hidden width; "
+                         f"got {hidden}")
+
+
+def padded_widths(d: int, hidden: int):
+    """(D, hidden) as the kernels take them: each rounded up to a multiple
+    of DIM_STEP (= HIDDEN_CHUNK); the call pads to them with zeros."""
+    return _build.round_up(d, DIM_STEP), _build.round_up(hidden, HIDDEN_CHUNK)
+
+
+def _padded_weights(dp, hp, w1, b1, w2, b2=None):
+    """w1 (D, H), b1, w2 (H, D) [and b2] zero-padded to (dp, hp)."""
+    out = (_build.padded(w1, dp, hp), _build.padded(b1, hp),
+           _build.padded(w2, hp, dp))
+    return out if b2 is None else out + (_build.padded(b2, dp),)
 
 
 def _check_shapes(name, x, w1, w2):
@@ -278,15 +292,20 @@ def _check_ln(name, x, ln_g, ln_b):
 def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
             act_rate=0.0, out_rate=0.0, seed=0):
     name = "fused_ln_ffn_res" if ln_res else "fused_ffn"
-    d, hidden = _check_shapes(name, x, w1, w2)
-    x2 = x.reshape(-1, d).contiguous()
+    d_real, h_real = _check_shapes(name, x, w1, w2)
+    x2 = x.reshape(-1, d_real).contiguous()
     _build.check_cuda(name, x2, b1=b1, w1=w1, w2=w2, b2=b2)
     if ln_res:
         _check_ln(name, x2, ln_g, ln_b)
     n = x2.shape[0]
-    y = torch.empty_like(x2)
     if n == 0:
-        return y.reshape(x.shape)
+        return torch.empty_like(x)
+    d, hidden = padded_widths(d_real, h_real)
+    x2 = _build.padded(x2, d)
+    w1, b1, w2, b2 = _padded_weights(d, hidden, w1, b1, w2, b2)
+    if ln_res:
+        ln_g, ln_b = _build.padded(ln_g, d), _build.padded(ln_b, d)
+    y = torch.empty_like(x2)
     plan = slice_plan(n, hidden, _sm_count(x.device.index), d)
     f32 = dict(dtype=torch.float32, device=x.device)
     partial = torch.empty(plan.splits, n, d, **f32)
@@ -301,19 +320,22 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
         ln_g.data_ptr() if ln_res else None, ln_b.data_ptr() if ln_res else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         y.data_ptr(), partial.data_ptr(), _ptr(xn), _ptr(h), n, d, hidden,
-        plan.splits, *_dropout_sites(act_rate, out_rate, seed),
-        _build.stream_of(x2))
+        plan.splits, d_real, h_real,
+        *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
     (fused_ln_ffn_res if ln_res else fused_ffn).launches += 1
-    return y.reshape(x.shape)
+    return _build.unpadded(y, d_real).reshape(x.shape)
 
 
 def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
-    d, hidden = _check_shapes("fused_ffn_backward", x, w1, w2)
-    x2 = x.reshape(-1, d).contiguous()
-    dy2 = dy.reshape(-1, d).contiguous()
+    d_real, h_real = _check_shapes("fused_ffn_backward", x, w1, w2)
+    x2 = x.reshape(-1, d_real).contiguous()
+    dy2 = dy.reshape(-1, d_real).contiguous()
+    _build.check_cuda("fused_ffn_backward", x2, w1=w1, b1=b1, w2=w2, dy=dy2)
+    d, hidden = padded_widths(d_real, h_real)
+    x2, dy2 = _build.padded(x2, d), _build.padded(dy2, d)
+    w1, b1, w2 = _padded_weights(d, hidden, w1, b1, w2)
     # the products' operands
     x2, w1, w2 = (_build.aligned(t) for t in (x2, w1, w2))
-    _build.check_cuda("fused_ffn_backward", x2, w1=w1, b1=b1, w2=w2, dy=dy2)
     n = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     length = 2 * d * hidden + hidden + d
@@ -331,25 +353,32 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
             ACTIVATION_CODES[activation], x2.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
             grads.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), n, d, hidden, splits,
+            partial.data_ptr(), n, d, hidden, splits, d_real, h_real,
             *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
         fused_ffn_backward.launches += 1
-    dw1 = grads[:d * hidden].view(d, hidden)
-    dw2 = grads[d * hidden:2 * d * hidden].view(hidden, d)
-    db1 = grads[2 * d * hidden:2 * d * hidden + hidden]
-    db2 = grads[2 * d * hidden + hidden:]
-    return dx.reshape(x.shape), dw1, db1, dw2, db2
+    dw1 = _build.unpadded(grads[:d * hidden].view(d, hidden), d_real,
+                          h_real)
+    dw2 = _build.unpadded(grads[d * hidden:2 * d * hidden].view(hidden, d),
+                          h_real, d_real)
+    db1 = grads[2 * d * hidden:2 * d * hidden + h_real]
+    db2 = grads[2 * d * hidden + hidden:2 * d * hidden + hidden + d_real]
+    return (_build.unpadded(dx, d_real).reshape(x.shape), dw1, db1, dw2,
+            db2)
 
 
 def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
                         out_rate, seed):
     name = "fused_ln_ffn_res_backward"
-    d, hidden = _check_shapes(name, x, w1, w2)
-    x2 = x.reshape(-1, d).contiguous()
-    dy2 = dy.reshape(-1, d).contiguous()
-    w1, w2 = _build.aligned(w1), _build.aligned(w2)   # the products' operands
+    d_real, h_real = _check_shapes(name, x, w1, w2)
+    x2 = x.reshape(-1, d_real).contiguous()
+    dy2 = dy.reshape(-1, d_real).contiguous()
     _build.check_cuda(name, x2, w1=w1, b1=b1, w2=w2, dy=dy2)
     _check_ln(name, x2, ln_g, ln_b)
+    d, hidden = padded_widths(d_real, h_real)
+    x2, dy2 = _build.padded(x2, d), _build.padded(dy2, d)
+    ln_g, ln_b = _build.padded(ln_g, d), _build.padded(ln_b, d)
+    w1, b1, w2 = _padded_weights(d, hidden, w1, b1, w2)
+    w1, w2 = _build.aligned(w1), _build.aligned(w2)   # the products' operands
     n = x2.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     o_dw2, o_db1 = d * hidden, 2 * d * hidden
@@ -369,13 +398,18 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
             ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), xn.data_ptr(),
             stats.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
-            dn.data_ptr(), partial.data_ptr(), n, d, hidden, splits,
-            *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
+            dn.data_ptr(), partial.data_ptr(), n, d, hidden, splits, d_real,
+            h_real, *_dropout_sites(act_rate, out_rate, seed),
+            _build.stream_of(x2))
         fused_ln_ffn_res_backward.launches += 1
-    return (dx.reshape(x.shape), grads[o_db2 + d:o_db2 + 2 * d],
-            grads[o_db2 + 2 * d:], grads[:o_dw2].view(d, hidden),
-            grads[o_db1:o_db2], grads[o_dw2:o_db1].view(hidden, d),
-            grads[o_db2:o_db2 + d])
+    return (_build.unpadded(dx, d_real).reshape(x.shape),
+            grads[o_db2 + d:o_db2 + d + d_real],
+            grads[o_db2 + 2 * d:o_db2 + 2 * d + d_real],
+            _build.unpadded(grads[:o_dw2].view(d, hidden), d_real, h_real),
+            grads[o_db1:o_db1 + h_real],
+            _build.unpadded(grads[o_dw2:o_db1].view(hidden, d), h_real,
+                            d_real),
+            grads[o_db2:o_db2 + d_real])
 
 
 def fused_ln_ffn_res_forward(x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",

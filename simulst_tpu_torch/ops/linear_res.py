@@ -8,7 +8,11 @@ backward).
 Rows are counted in the flattened row-major order of h's leading axes;
 period = 0 makes every row a residual row.  On a CUDA tensor the CUDA
 kernels of csrc/linear_res.cu run (the forward on one of two paths that
-give the same bits, as `fwd_plan` picks by row count); on a CPU tensor
+give the same bits, as `fwd_plan` picks by row count) at any D_in and D_out
+from 1 to 1024 (`check_widths`; a D_in not a multiple of 32 or a D_out not
+a multiple of 64 reaches them zero-padded to the next one, the real D_out
+beside it for the dropout offsets, and the output is sliced back); on a
+CPU tensor
 `linear_res_plain` and `linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
 dropout mask is ops/philox.py's, stream 0 at offset row * D_out + column,
 keyed by the call's seed; d(res) is the upstream gradient on residual rows
@@ -22,8 +26,9 @@ from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.ffn import WGRAD_TILE, k_splits
 from simulst_tpu_torch.ops.philox import drop_scale
 
-K_STEP = 32      # csrc/linear_res.cu kBK: D_in must be a multiple
-COL_TILE = 64    # csrc/linear_res.cu kBN: D_out must be a multiple
+K_STEP = 32      # csrc/linear_res.cu kBK: the kernels' D_in a multiple
+COL_TILE = 64    # csrc/linear_res.cu kBN: the kernels' D_out a multiple
+MAX_DIM = 1024   # D_in and D_out up to this
 # the forward's paths, which give the same bits: the row kernel (8 rows x
 # 32 columns per block) below TILED_MIN_ROWS, tile_product with 128 x 64
 # output tiles from it, with 128 x 128 tiles from WIDE_MIN_ROWS (H100
@@ -83,43 +88,65 @@ def fwd_plan(rows: int) -> str:
     return "tiled" if rows >= TILED_MIN_ROWS else "rows"
 
 
+def check_widths(name: str, din: int, dout: int) -> None:
+    """Raise a ValueError naming the widths unless the kernels take them:
+    D_in and D_out from 1 to MAX_DIM."""
+    if not (1 <= din <= MAX_DIM and 1 <= dout <= MAX_DIM):
+        raise ValueError(f"{name}: kernel takes D_in and D_out from 1 to "
+                         f"{MAX_DIM}; got D_in={din}, D_out={dout}")
+
+
 def _check(name, h, w, res=None, period=0):
     din, dout = w.shape
-    if h.shape[-1] != din or din % K_STEP or dout % COL_TILE or period < 0 \
+    if h.shape[-1] != din or period < 0 \
             or (res is not None and res.shape != (*h.shape[:-1], dout)):
         raise ValueError(
-            f"{name}: kernel takes D_in % {K_STEP} == 0 and D_out % "
-            f"{COL_TILE} == 0; got h {tuple(h.shape)}, w {tuple(w.shape)}, "
-            f"res {None if res is None else tuple(res.shape)}, "
-            f"period {period}")
+            f"{name}: kernel takes h (..., D_in), w (D_in, D_out), res "
+            f"(..., D_out) and period >= 0; got h {tuple(h.shape)}, w "
+            f"{tuple(w.shape)}, res "
+            f"{None if res is None else tuple(res.shape)}, period {period}")
+    check_widths(name, din, dout)
     return din, dout
 
 
+def padded_widths(din: int, dout: int):
+    """(D_in, D_out) as the kernels take them: rounded up to multiples of
+    K_STEP and COL_TILE; the call pads to them with zeros."""
+    return _build.round_up(din, K_STEP), _build.round_up(dout, COL_TILE)
+
+
 def _launch(h, w, b, res, period, res_rows, rate, seed):
-    din, dout = _check("fused_linear_res", h, w, res, period)
-    h2 = h.reshape(-1, din).contiguous()
-    res2 = res.reshape(-1, dout).contiguous()
-    h2, w = _build.aligned(h2), _build.aligned(w)   # the 16-byte loads
+    din_real, dout_real = _check("fused_linear_res", h, w, res, period)
+    h2 = h.reshape(-1, din_real).contiguous()
+    res2 = res.reshape(-1, dout_real).contiguous()
     _build.check_cuda("fused_linear_res", h2, w=w, b=b, res=res2)
+    din, dout = padded_widths(din_real, dout_real)
+    h2, res2 = _build.padded(h2, din), _build.padded(res2, dout)
+    w, b = _build.padded(w, din, dout), _build.padded(b, dout)
+    h2, w = _build.aligned(h2), _build.aligned(w)   # the 16-byte loads
     n = h2.shape[0]
     y = torch.empty(n, dout, dtype=h.dtype, device=h.device)
     if n:
         on, seed64, thr, inv = _build.dropout_args(rate, seed)
         _build.launch("simulst_linear_res", _build.dtype_code(h2),
                       h2.data_ptr(), w.data_ptr(), b.data_ptr(),
-                      res2.data_ptr(), y.data_ptr(), n, din, dout, period,
-                      res_rows, FWD_PATHS[fwd_plan(n)], on, seed64, thr, inv,
-                      _build.stream_of(h2))
+                      res2.data_ptr(), y.data_ptr(), n, din, dout, dout_real,
+                      period, res_rows, FWD_PATHS[fwd_plan(n)], on, seed64,
+                      thr, inv, _build.stream_of(h2))
         fused_linear_res.launches += 1
-    return y.reshape(*h.shape[:-1], dout)
+    return _build.unpadded(y, dout_real).reshape(*h.shape[:-1], dout_real)
 
 
 def _launch_backward(h, w, dy, period, res_rows, rate, seed):
-    din, dout = _check("fused_linear_res_backward", h, w, period=period)
-    h2 = h.reshape(-1, din).contiguous()
-    dy2 = dy.reshape(-1, dout).contiguous()
-    h2, w = _build.aligned(h2), _build.aligned(w)   # the products' operands
+    din_real, dout_real = _check("fused_linear_res_backward", h, w,
+                                 period=period)
+    h2 = h.reshape(-1, din_real).contiguous()
+    dy2 = dy.reshape(-1, dout_real).contiguous()
     _build.check_cuda("fused_linear_res_backward", h2, w=w, dy=dy2)
+    din, dout = padded_widths(din_real, dout_real)
+    h2, dy2 = _build.padded(h2, din), _build.padded(dy2, dout)
+    w = _build.padded(w, din, dout)
+    h2, w = _build.aligned(h2), _build.aligned(w)   # the products' operands
     n = h2.shape[0]
     f32 = dict(dtype=torch.float32, device=h.device)
     length = din * dout + dout
@@ -135,11 +162,14 @@ def _launch_backward(h, w, dy, period, res_rows, rate, seed):
         _build.launch("simulst_linear_res_bwd", _build.dtype_code(h2),
                       h2.data_ptr(), w.data_ptr(), dy2.data_ptr(),
                       dh.data_ptr(), grads.data_ptr(), du.data_ptr(),
-                      partial.data_ptr(), n, din, dout, period, res_rows,
-                      splits, on, seed64, thr, inv, _build.stream_of(h2))
+                      partial.data_ptr(), n, din, dout, dout_real, period,
+                      res_rows, splits, on, seed64, thr, inv,
+                      _build.stream_of(h2))
         fused_linear_res_backward.launches += 1
-    return (dh.reshape(h.shape), grads[:din * dout].view(din, dout),
-            grads[din * dout:])
+    return (_build.unpadded(dh, din_real).reshape(h.shape),
+            _build.unpadded(grads[:din * dout].view(din, dout), din_real,
+                            dout_real),
+            grads[din * dout:din * dout + dout_real])
 
 
 def fused_linear_res_forward(h, w, b, res, period: int = 0, res_rows: int = 0,

@@ -6,8 +6,10 @@ qp (B, Tq, D), kp / vp (B, Tk, D), heads are column slices of D;
 kmask (B, Tk) int32, nonzero where the key may be attended; `causal` adds
 key <= query; dropout at `rate` on the probabilities.  Returns the merged
 (B, Tq, D) output.  On a CUDA tensor the CUDA kernels of csrc/mha.cu run
-(any head dim D / heads that is a multiple of 8 from 8 to 128,
-`check_head_dim`, and any Tq and Tk; the forward on one of two kernels
+(any head dim D / heads from 1 to 128, `check_head_dim`, and any Tq and
+Tk; a head dim that is not a multiple of 8 reaches them with each head
+zero-padded to the next one, the real head dim beside it for the scale,
+and the outputs are sliced back; the forward on one of two kernels
 that give the same bits, as `fwd_plan` picks by Tq); on a CPU tensor
 `mha_plain` and `mha_plain_backward`.  The softmax is the running-max form in fp32; a
 query row that sees no key returns exact zeros, as the JAX kernel's -1e9
@@ -25,8 +27,8 @@ from simulst_tpu_torch.nn.core import masked_softmax
 from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
-HEAD_DIM_STEP = 8    # the head dim: a multiple of it (csrc/mha.cu kHDStep)
-MAX_HEAD_DIM = 128   # ... up to this (kMaxHD)
+HEAD_DIM_STEP = 8    # the kernels' head dim: a multiple of it (csrc/mha.cu
+MAX_HEAD_DIM = 128   # kHDStep) up to this (kMaxHD); others are padded
 KEY_TILE = 64    # csrc/mha.cu kTile: the dS scratch's rows are whole tiles
 # the forward runs the decode kernel (up to 2 query rows of a head per
 # block) up to this many query rows, the training kernel (64-row q tiles)
@@ -104,15 +106,20 @@ def mha_plain_backward(qp, kp, vp, kmask, dout, num_heads: int,
 
 def check_head_dim(name: str, d: int, num_heads: int) -> int:
     """The head dim D / num_heads; a ValueError naming it unless the
-    kernels take it (a multiple of HEAD_DIM_STEP up to MAX_HEAD_DIM)."""
+    kernels take it (from 1 to MAX_HEAD_DIM, D a whole number of heads)."""
     hd = d // num_heads if num_heads > 0 else 0
-    if num_heads <= 0 or hd * num_heads != d or hd % HEAD_DIM_STEP or \
-            not HEAD_DIM_STEP <= hd <= MAX_HEAD_DIM:
+    if num_heads <= 0 or hd * num_heads != d or \
+            not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(
-            f"{name}: kernel takes a head dim that is a multiple of "
-            f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} to {MAX_HEAD_DIM}; got D "
-            f"{d} over {num_heads} heads")
+            f"{name}: kernel takes a head dim from 1 to {MAX_HEAD_DIM}; got "
+            f"D {d} over {num_heads} heads")
     return hd
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernels take for head dim hd: the next multiple of
+    HEAD_DIM_STEP (its 16-byte loads of fp32 and bf16 rows)."""
+    return _build.round_up(hd, HEAD_DIM_STEP)
 
 
 def _check(name, qp, kp, vp, kmask, num_heads):
@@ -123,9 +130,10 @@ def _check(name, qp, kp, vp, kmask, num_heads):
             f"{name}: kernel takes qp (B, Tq, D), kp = vp (B, Tk, D), kmask "
             f"(B, Tk); got qp {tuple(qp.shape)}, kp {tuple(kp.shape)}, vp "
             f"{tuple(vp.shape)}, kmask {tuple(kmask.shape)}")
-    check_head_dim(name, d, num_heads)
+    hd = check_head_dim(name, d, num_heads)
     if kmask.dtype != torch.int32 or kmask.device != qp.device:
         raise TypeError(f"{name}: kmask must be an int32 tensor on {qp.device}")
+    return hd
 
 
 def _check_lse(lse, qp, num_heads):
@@ -147,11 +155,14 @@ def backward_scratch_shapes(b: int, num_heads: int, tq: int, tk: int):
 
 
 def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
-    _check("fused_mha", qp, kp, vp, kmask, num_heads)
+    hd = _check("fused_mha", qp, kp, vp, kmask, num_heads)
     qp, kp, vp, kmask = (t.contiguous() for t in (qp, kp, vp, kmask))
+    _build.check_cuda("fused_mha", qp, kp=kp, vp=vp)
+    hdp = padded_head_dim(hd)
+    qp, kp, vp = (_build.padded_groups(t, num_heads, hdp)
+                  for t in (qp, kp, vp))
     # the kernels' 16-byte tile loads
     qp, kp, vp = (_build.aligned(t) for t in (qp, kp, vp))
-    _build.check_cuda("fused_mha", qp, kp=kp, vp=vp)
     b, tq, d = qp.shape
     tk = kp.shape[1]
     out = torch.empty_like(qp)
@@ -161,24 +172,27 @@ def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
         _build.launch("simulst_mha_fwd", _build.dtype_code(qp), qp.data_ptr(),
                       kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), b, tq, tk, d, num_heads,
-                      int(causal), FWD_PATHS[fwd_plan(tq)], on, seed64, thr,
-                      inv, _build.stream_of(qp))
+                      hd, int(causal), FWD_PATHS[fwd_plan(tq)], on, seed64,
+                      thr, inv, _build.stream_of(qp))
         fused_mha.launches += 1
     else:
         out.zero_()
-    return out, lse
+    return _build.unpadded_groups(out, num_heads, hd), lse
 
 
 def _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads, causal,
                      rate, seed):
-    _check("fused_mha_backward", qp, kp, vp, kmask, num_heads)
+    hd = _check("fused_mha_backward", qp, kp, vp, kmask, num_heads)
     _check_lse(lse, qp, num_heads)
     qp, kp, vp, kmask, out, dout = (t.contiguous() for t in
                                     (qp, kp, vp, kmask, out, dout))
-    # the kernels' 16-byte tile loads
-    qp, kp, vp, dout = (_build.aligned(t) for t in (qp, kp, vp, dout))
     _build.check_cuda("fused_mha_backward", qp, kp=kp, vp=vp, out=out,
                       dout=dout)
+    hdp = padded_head_dim(hd)
+    qp, kp, vp, out, dout = (_build.padded_groups(t, num_heads, hdp)
+                             for t in (qp, kp, vp, out, dout))
+    # the kernels' 16-byte tile loads
+    qp, kp, vp, dout = (_build.aligned(t) for t in (qp, kp, vp, dout))
     b, tq, d = qp.shape
     tk = kp.shape[1]
     # the kernels write each entry
@@ -194,10 +208,11 @@ def _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads, causal,
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                       delta.data_ptr(), ds.data_ptr(), b, tq, tk, d,
-                      num_heads, int(causal), on, seed64, thr, inv,
+                      num_heads, hd, int(causal), on, seed64, thr, inv,
                       _build.stream_of(qp))
         fused_mha_backward.launches += 1
-    return dq, dk, dv
+    return tuple(_build.unpadded_groups(t, num_heads, hd)
+                 for t in (dq, dk, dv))
 
 
 def fused_mha_backward(qp, kp, vp, kmask, out, lse, dout, num_heads: int,

@@ -998,9 +998,12 @@ def test_label_encoder_kernels_at_the_transducer_shapes(randn, rate):
 
 
 # the corners of the widths the kernels take: (D, heads, hidden), head
-# dims 16, 32, 96 and 128, D 64 to 1024, hidden up to 4096
+# dims 16, 32, 96 and 128, D 64 to 1024, hidden up to 4096; then widths
+# that reach the kernels zero-padded: D 16, 48 and 200, hidden 32, 48, 100
+# and 800, head dims 4, 8, 12, 50 and 100
 WIDTH_CORNERS = [(64, 4, 256), (128, 4, 512), (384, 4, 1536),
-                 (512, 4, 2048), (1024, 8, 4096)]
+                 (512, 4, 2048), (1024, 8, 4096), (16, 4, 32), (16, 2, 48),
+                 (48, 4, 100), (200, 4, 800), (200, 2, 48)]
 
 
 @pytest.mark.cuda
@@ -1012,7 +1015,13 @@ def test_kernels_take_every_width(randn, d, heads, hidden, rate):
     fused_mha at (8, 40, 40) causal and a decoder step's Tq 1 over 77 keys,
     the grouped attention at a two-group geometry (rc 4, seg 8, lc 16, 3
     memory slots) with a ragged length, each against its plain version at
-    TOL, weight gradients within 1e-4 of their largest entry."""
+    TOL, weight gradients within 1e-4 of their largest entry; every one
+    of the eight wrappers launches its kernel."""
+    counted = (fused_ln_ffn_res, fused_ln_ffn_res_backward, fused_ffn,
+               fused_ffn_backward, mha.fused_mha, fused_mha_backward,
+               emformer_grouped_attention,
+               emformer_grouped_attention_backward)
+    before = [f.launches for f in counted]
     xav = (6.0 / (d + hidden)) ** 0.5
     ln_g, ln_b = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
     w1, b1 = randn(d, hidden, scale=xav), randn(hidden, scale=0.02)
@@ -1062,29 +1071,65 @@ def test_kernels_take_every_width(randn, d, heads, hidden, rate):
                                             *args[4:])
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, **TOL)
+    assert all(f.launches > n for f, n in zip(counted, before))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,groups", [(64, 16), (512, 16), (1024, 16),
-                                      (256, 256)])
+                                      (256, 256), (32, 16), (48, 16),
+                                      (96, 16), (800, 16)])
 def test_convpos_wgrad_takes_every_channel_count(randn, d, groups):
-    """4, 32, 64 and 1 channels a group, K 64, (B, T) (5, 70): within 1e-4
-    of the largest entry."""
+    """4, 32, 64 and 1 channels a group, and 2, 3, 6 and 50 (padded to
+    4, 4, 8 and 52), K 64, (B, T) (5, 70): within 1e-4 of the largest
+    entry, through the kernel (its launch counted)."""
     xp, dy = randn(5, 70 + 63, d), randn(5, 70, d)
+    before = conv_pos.convpos_wgrad.launches
     _close_to_largest(conv_pos.convpos_wgrad(xp, dy, 64, groups),
                       conv_pos.convpos_wgrad_plain(xp, dy, 64, groups))
+    assert conv_pos.convpos_wgrad.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("din,dout", [(16, 16), (48, 200), (200, 48),
+                                      (200, 200), (256, 256)])
+@pytest.mark.parametrize("rows", [40, 300, 2304])
+def test_linear_res_takes_every_width(randn, din, dout, rows):
+    """D_in and D_out of 16, 48 and 200 (padded to multiples of 32 and
+    64) and 256, rate 0.1 with the Emformer gate, on the row kernel (40,
+    300 rows) and the tiled path (2,304): the forward and backward against
+    the plain versions at TOL, weight gradients within 1e-4 of their
+    largest entry, each call a launch."""
+    h, res, dy = randn(rows, din), randn(rows, dout), randn(rows, dout)
+    w, b = randn(din, dout, scale=din ** -0.5), randn(dout, scale=0.02)
+    cfg = (20, 12, 0.1, 7)
+    before = (fused_linear_res.launches, fused_linear_res_backward.launches)
+    torch.testing.assert_close(
+        linear_res.fused_linear_res_forward(h, w, b, res, *cfg),
+        linear_res_plain(h, w, b, res, *cfg), **TOL)
+    got = fused_linear_res_backward(h, w, dy, *cfg)
+    want = linear_res_plain_backward(h, w, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **TOL)
+    for g, w_ in zip(got[1:], want[1:]):
+        _close_to_largest(g, w_)
+    assert (fused_linear_res.launches, fused_linear_res_backward.launches) \
+        == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.cuda
 def test_wrappers_raise_outside_the_widths(randn):
-    """A CUDA tensor outside the widths gives a ValueError naming them,
-    never the plain version."""
-    x = randn(4, 96)
-    with pytest.raises(ValueError, match="D=96"):
-        fused_ffn(x, randn(96, 128), randn(128), randn(128, 96), randn(96))
-    q = randn(2, 3, 48)
+    """A CUDA tensor above the widths' maxima (D 1088, head dim 136, 68
+    channels a group) gives a ValueError naming them, never the plain
+    version."""
+    x = randn(4, 1088)
+    with pytest.raises(ValueError, match="D=1088"):
+        fused_ffn(x, randn(1088, 128), randn(128), randn(128, 1088),
+                  randn(1088))
+    with pytest.raises(ValueError, match="D_in=1088"):
+        linear_res.fused_linear_res_forward(x, randn(1088, 64), randn(64),
+                                            randn(4, 64))
+    q = randn(2, 3, 4 * 136)
     with pytest.raises(ValueError, match="head dim"):
         fused_mha_forward(q, q, q, torch.ones(2, 3, dtype=torch.int32,
                                               device="cuda"), 4)
     with pytest.raises(ValueError, match="channel"):
-        conv_pos.convpos_wgrad(randn(2, 20, 96), randn(2, 5, 96), 16, 16)
+        conv_pos.convpos_wgrad(randn(2, 20, 1088), randn(2, 5, 1088), 16, 16)

@@ -99,6 +99,12 @@ keys, causal and not) must give the same bits, and the FFN, LN-FFN, MHA,
 grouped-attention and conv-pos entries the same bits twice at D 64 to
 1024, head dims 16 to 128 (the grouped backward's split dK / dV walks at
 128) and 4, 64 and 1 channels per group.
+A revision whose C entries take no real widths (the widths of a call
+zero-padded to the kernels' widths: `REAL_WIDTH_ARGS`) is called with
+this checkout's argument lists less those arguments, which equal the
+padded widths at every width such a revision takes.  The width cases add
+D 16, 48 and 200 (hidden 32, 48 and 800) and head dims 4, 12, 50 and
+100, which reach the kernels padded.
 --only ENTRY[,ENTRY...] restricts the bit check, and --time, to those
 entries.
 
@@ -370,11 +376,12 @@ def ln_ffn_inputs(torch, rows, dtype, seed):
 
 
 def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
-              rate, tiled):
+              rate, tiled, takes_real=True):
     """simulst_ffn of `lib` bound to its arguments and called once, with
     its build's signature (takes_scratch: xn and h, null for the fused
-    path); `.y` is the output.  A call costs the host little beside the
-    launch, so that CUDA events time the kernels."""
+    path; takes_real: the real widths); `.y` is the output.  A call costs
+    the host little beside the launch, so that CUDA events time the
+    kernels."""
     n = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     plan = ffn.slice_plan(n, 2048, ffn._sm_count(x.device.index), 256)
@@ -388,6 +395,7 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
         ffn.ACTIVATION_CODES[act], x.data_ptr(),
         *(w.data_ptr() for w in ws), y.data_ptr(), partial.data_ptr(),
         *scratch, n, 256, 2048, plan.splits,
+        *((256, 2048) if takes_real else ()),
         *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
     call.y, call.keep = y, (partial, xn, h, ws)
     if call():
@@ -411,16 +419,18 @@ def mha_inputs(torch, b, tq, tk, mask, dtype, seed):
 
 
 def linear_res_entry(torch, _build, lib, takes_path, h, w, b, res, period,
-                     res_rows, rate, path):
+                     res_rows, rate, path, takes_real=True):
     """simulst_linear_res of `lib` bound to its arguments and called once,
-    with its build's signature (takes_path: the path argument); `.y` is
-    the output (NaN where the kernel writes nothing)."""
+    with its build's signature (takes_path: the path argument; takes_real:
+    the real D_out); `.y` is the output (NaN where the kernel writes
+    nothing)."""
     n, dout = res.shape
     y = torch.full_like(res, float("nan"))
     call = functools.partial(
         lib.simulst_linear_res, _build.dtype_code(h), h.data_ptr(),
         w.data_ptr(), b.data_ptr(), res.data_ptr(), y.data_ptr(), n,
-        h.shape[1], dout, period, res_rows, *((path,) if takes_path else ()),
+        h.shape[1], dout, *((dout,) if takes_real else ()), period,
+        res_rows, *((path,) if takes_path else ()),
         *_build.dropout_args(rate, 7), _build.stream_of(h))
     call.y = y
     if call():
@@ -429,17 +439,19 @@ def linear_res_entry(torch, _build, lib, takes_path, h, w, b, res, period,
 
 
 def mha_fwd_entry(torch, _build, lib, takes_path, q, k, v, kmask, causal,
-                  rate, path):
+                  rate, path, takes_real=True):
     """simulst_mha_fwd of `lib` bound to its arguments and called once,
-    with its build's signature (takes_path: the path argument); `.outs` is
-    (out, lse), NaN where the kernel writes nothing."""
+    with its build's signature (takes_path: the path argument; takes_real:
+    the real head dim); `.outs` is (out, lse), NaN where the kernel writes
+    nothing."""
     b, tq, d = q.shape
     out = torch.full_like(q, float("nan"))
     lse = torch.full((b, 4, tq), float("nan"), device=q.device)
     call = functools.partial(
         lib.simulst_mha_fwd, _build.dtype_code(q),
         *(t.data_ptr() for t in (q, k, v, kmask, out, lse)), b, tq,
-        k.shape[1], d, 4, int(causal), *((path,) if takes_path else ()),
+        k.shape[1], d, 4, *((d // 4,) if takes_real else ()), int(causal),
+        *((path,) if takes_path else ()),
         *_build.dropout_args(rate, 4321), _build.stream_of(q))
     call.outs = (out, lse)
     if call():
@@ -448,10 +460,10 @@ def mha_fwd_entry(torch, _build, lib, takes_path, q, k, v, kmask, causal,
 
 
 def mha_bwd_entry(torch, _build, mha, lib, takes_scratch, q, k, v, kmask,
-                  out, lse, dout, causal, rate):
+                  out, lse, dout, causal, rate, takes_real=True):
     """simulst_mha_bwd of `lib` bound to its arguments and called once,
-    with its build's signature (takes_scratch: the delta and dS scratch);
-    `.outs` is (dq, dk, dv)."""
+    with its build's signature (takes_scratch: the delta and dS scratch;
+    takes_real: the real head dim); `.outs` is (dq, dk, dv)."""
     b, tq, d = q.shape
     tk = k.shape[1]
     outs = tuple(torch.empty_like(t) for t in (q, k, v))
@@ -462,8 +474,8 @@ def mha_bwd_entry(torch, _build, mha, lib, takes_scratch, q, k, v, kmask,
         lib.simulst_mha_bwd, _build.dtype_code(q),
         *(t.data_ptr() for t in (q, k, v, kmask, out, lse, dout, *outs,
                                  *scratch)),
-        b, tq, tk, d, 4, int(causal), *_build.dropout_args(rate, 4321),
-        _build.stream_of(q))
+        b, tq, tk, d, 4, *((d // 4,) if takes_real else ()), int(causal),
+        *_build.dropout_args(rate, 4321), _build.stream_of(q))
     call.outs, call.keep = outs, scratch
     if call():
         raise RuntimeError("simulst_mha_bwd: CUDA error")
@@ -675,8 +687,39 @@ def determinism_calls(torch):
 
 # (D, hidden) of the FFN paths' bit check at the new widths; (D, heads) of
 # the MHA kernels'
-WIDTH_FFN = ((64, 256), (128, 512), (512, 2048))
-WIDTH_MHA = ((64, 4), (128, 4), (384, 4), (512, 4))
+WIDTH_FFN = ((64, 256), (128, 512), (512, 2048), (16, 32), (48, 48),
+             (200, 800))
+WIDTH_MHA = ((64, 4), (128, 4), (384, 4), (512, 4), (16, 4), (48, 4),
+             (200, 4), (100, 1))
+# C entry -> (index, count) of the real-width arguments in its argument
+# list (ops/_build.py SIGNATURES)
+REAL_WIDTH_ARGS = {"simulst_ffn": (18, 2), "simulst_ffn_bwd": (17, 2),
+                   "simulst_ln_ffn_bwd": (22, 2),
+                   "simulst_linear_res": (9, 1),
+                   "simulst_linear_res_bwd": (11, 1),
+                   "simulst_mha_fwd": (12, 1), "simulst_mha_bwd": (18, 1),
+                   "simulst_emformer_attn": (13, 1),
+                   "simulst_emformer_attn_bwd": (19, 1)}
+
+
+class WithoutRealWidths:
+    """A build whose C entries take no real-width arguments, called with
+    this checkout's argument lists (through the wrappers): each call of
+    an entry of REAL_WIDTH_ARGS drops them.  Declares those entries'
+    argument types without them on the build's library."""
+
+    def __init__(self, _build, lib):
+        self.lib = lib
+        for name, (at, count) in REAL_WIDTH_ARGS.items():
+            types = _build.SIGNATURES[name]
+            getattr(lib, name).argtypes = types[:at] + types[at + count:]
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name not in REAL_WIDTH_ARGS:
+            return fn
+        at, count = REAL_WIDTH_ARGS[name]
+        return lambda *args: fn(*args[:at], *args[at + count:])
 
 
 def width_cases(torch):
@@ -883,6 +926,11 @@ def main():
         libs["rev"].simulst_mha_fwd.argtypes = (
             [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64] + _build._DROP[2:]
             + [_P])
+    ref_real = "int dim_real" in (ref_csrc / "ffn.cu").read_text()
+    # the builds as the wrappers call them: a revision without the real
+    # widths through WithoutRealWidths (which declares its signatures)
+    apis = {"rev": libs["rev"] if ref_real else
+            WithoutRealWidths(_build, libs["rev"]), "this": libs["this"]}
     ref_align_carry = "void* carry" in \
         (ref_csrc / "monotonic.cu").read_text()
     if ref_align_carry:          # simulst_alignment_bwd with the carry
@@ -903,20 +951,24 @@ def main():
         print(json.dumps({"entry": entry, "case": case, "equal": equal}),
               flush=True)
 
+    def real(key):
+        return ref_real if key == "rev" else True
+
     def ffn_fwd(key, ln_res, act, x, ws, rate, tiled):
         takes = ref_takes_scratch if key == "rev" else True
         return ffn_entry(torch, _build, ffn, libs[key], takes, ln_res, act,
-                         x, ln_params_for(f32_ln[key], ws), rate, tiled)
+                         x, ln_params_for(f32_ln[key], ws), rate, tiled,
+                         real(key))
 
     def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
         takes = ref_lr_path if key == "rev" else True
         return linear_res_entry(torch, _build, libs[key], takes, h, w, b,
-                                res, period, res_rows, rate, path)
+                                res, period, res_rows, rate, path, real(key))
 
     def mha_fwd(key, q, k, v, kmask, causal, rate, path):
         takes = ref_mha_path if key == "rev" else True
         return mha_fwd_entry(torch, _build, libs[key], takes, q, k, v, kmask,
-                             causal, rate, path)
+                             causal, rate, path, real(key))
 
     dtypes = (torch.float32, torch.bfloat16)
     names = ("dx", "dw1", "db1", "dw2", "db2")
@@ -937,7 +989,7 @@ def main():
                                {f"y {p}": torch.equal(want, y)
                                 for p, y in got.items()})
                     outs = {}
-                    for key, lib in libs.items():
+                    for key, lib in apis.items():
                         with library_of(_build, lib):
                             outs[key] = ffn.fused_ffn_backward(
                                 x, *ws[2:5], dy, act, rate, rate, 29)
@@ -953,7 +1005,7 @@ def main():
                 for rows in LN_ROWS:
                     x, ws, dy = ln_ffn_inputs(torch, rows, dtype, rows)
                     outs = {}
-                    for key, lib in libs.items():
+                    for key, lib in apis.items():
                         with library_of(_build, lib), \
                                 ln_check_of(ffn, f32_ln[key]):
                             outs[key] = ffn.fused_ln_ffn_res_backward(
@@ -1031,7 +1083,7 @@ def main():
                     w = (torch.randn(256, 256, generator=g) * 0.06).to(
                         dtype).cuda()
                     outs = {}
-                    for key, lib in libs.items():
+                    for key, lib in apis.items():
                         with library_of(_build, lib):
                             outs[key] = linear_res.fused_linear_res_backward(
                                 h, w, dy, period, res_rows, rate, 7)
@@ -1045,7 +1097,7 @@ def main():
     def mha_bwd(key, q, k, v, kmask, out, lse, dout, causal, rate):
         takes = ref_mha_scratch if key == "rev" else True
         return mha_bwd_entry(torch, _build, mha, libs[key], takes, q, k, v,
-                             kmask, out, lse, dout, causal, rate)
+                             kmask, out, lse, dout, causal, rate, real(key))
 
     def mha_case(i, dtype, rate):
         """Inputs and this checkout's forward of MHA_CASES[i]."""
@@ -1112,7 +1164,7 @@ def main():
             xp = torch.randn(b, t + 63, 256, generator=g).to(dtype).cuda()
             dy = torch.randn(b, t, 256, generator=g).to(dtype).cuda()
             outs = {}
-            for key, lib in libs.items():
+            for key, lib in apis.items():
                 with library_of(_build, lib):
                     outs[key] = conv_pos.convpos_wgrad(xp, dy, 64, 16)
             torch.cuda.synchronize()
@@ -1141,7 +1193,7 @@ def main():
                         if gated else None
                     attn_args = (q3, k, v, lengths.cuda())
                     outs = {}
-                    for key, lib in libs.items():
+                    for key, lib in apis.items():
                         with library_of(_build, lib):
                             outs[key] = (
                                 ea.emformer_grouped_attention_forward(
@@ -1247,7 +1299,7 @@ def main():
 
             def wrapped(fn, *a):
                 def call():
-                    with library_of(_build, lib):
+                    with library_of(_build, apis[key]):
                         fn(*a)
                 return call
             return {

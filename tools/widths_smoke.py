@@ -1,11 +1,13 @@
 """chip_smoke.py's phase 22 (widths) with only phase 7's batch before it:
 the kernels at the corners of the widths they take against their plain
-versions, their times at D 512, a 512-wide train step, the tone-language
-CIF leg and the kernel convergence trajectory.  Needs the card; from the
-repository root:
+versions (kernels), at the widths the wrappers pad (padded), their times
+at D 512, 16 and 200 (times), a 512-wide train step (train), JAX's
+16-wide dry-run CIF model through a train step and fused streaming
+(narrow), the tone-language CIF leg and the kernel convergence
+trajectory.  Needs the card; from the repository root:
 
-    python3 tools/widths_smoke.py [--parts kernels,times,train,synthetic,
-                                           trajectory]
+    python3 tools/widths_smoke.py [--parts kernels,padded,times,train,
+                                           narrow,synthetic,trajectory]
 
 --parts runs only those parts (all by default, when the 512-wide step
 must launch every width-dependent kernel).  Prints the
@@ -20,7 +22,8 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PARTS = ("kernels", "times", "train", "synthetic", "trajectory")
+PARTS = ("kernels", "padded", "times", "train", "narrow", "synthetic",
+         "trajectory")
 
 
 def main():
@@ -49,10 +52,15 @@ def main():
             with torch.no_grad():
                 if "kernels" in parts:
                     cs.phase_width_kernels(dev)
+                if "padded" in parts:
+                    cs.phase_width_kernels(dev, padded=True)
                 if "times" in parts:
-                    cs.phase_width_times(dev, batch)
+                    for key in cs.WIDTH_TIMED:
+                        cs.phase_width_times(dev, batch, key)
             if "train" in parts:
                 cs.phase_width_train(dev, batch)
+            if "narrow" in parts:
+                cs.phase_width_streaming_cif(dev)
             if "synthetic" in parts:
                 cs.phase_synthetic(work)
             if "trajectory" in parts:
