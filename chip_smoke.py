@@ -243,9 +243,14 @@ targets):
  20. bf16     bf16 compute and the model options: fused_ffn and
               fused_ln_ffn_res with silu and tanh (and gelu beside
               them), forward and backward, fp32 and bf16, vs plain
-              at 12,288 and 40 rows with CUDA-event times; rows 1-6 in
-              bf16 at asr-train's shapes (times, plain, bounds, SDPA or
-              the products' torch.matmul); asr-train with --override
+              at 12,288 and 40 rows with CUDA-event times; rows 1 / 1b
+              in bf16 on the tensor cores (their wgmma kernels' SASS
+              holds HGMMA, no other kernel's does; asr-train's shape at
+              every activation and rates 0 / 0.1, D 200 and D 512, vs
+              plain, each twice bit for bit); rows 1-6 in bf16 at
+              asr-train's shapes (times, plain, bounds at the dense bf16
+              peak, SDPA or the products' torch.matmul); asr-train with
+              --override
               compute_dtype=bfloat16 through cli/train's config path for
               8 steps (launches per step as phase 8's, median, 3 profiled
               steps, peak memory beside phase 8's fp32 numbers), one step
@@ -280,15 +285,17 @@ targets):
               figure: the phase proves equality, not speed
  22. widths   the kernels at every width the JAX package trains: rows
               1-6 against their plain versions at the corners (D 64 /
-              128 / 512 / 1024, head dims 16 / 32 / 64 / 128, hidden up
-              to 4096, conv-pos 4 / 64 / 1 channels a group; training
+              128 / 512 / 1024 / 1280 / 2048, head dims 16 / 32 / 64 /
+              128 / 160 / 256, hidden up to 4096, conv-pos 4 / 64 / 1 /
+              96 / 128 channels a group; training
               and decode rows, fp32 and bf16, dropout 0 and 0.1), their
               times at D 512 / 8 heads / FFN 2048 on phase 7's shapes
               beside bound, plain and library call, one s2t_emformer
               step at embed_dim 512 (launches counted: every
               width-dependent kernel must launch; kernels vs plain at
               phase 8's bounds), tools/synthetic_smoke.py's CIF leg
-              through the CLIs (BLEU > 20, AL > 0) and the kernel
+              through the CLIs at 400 updates (BLEU > 20, AL > 0) and
+              the kernel
               convergence trajectory (30 Adam steps, kernels vs plain:
               both losses under 0.8 of the first, deviation under 0.03,
               pre-softmax scores under 40) (`python3
@@ -306,7 +313,12 @@ or when any phase fails.  Tolerances:
   bf16 kernel vs plain   atol 3e-2, rtol 1e-2 (LN-scale outputs rounded to
                          bf16: a flip of the last rounding is 2^-8 relative);
                          bf16 weight gradients within 1e-2 of their largest
-                         entry
+                         entry; the bf16 LN-FFN backward with relu against
+                         the plain backward under the kernel's relu mask
+                         (relu' jumps at 0, where the two sides' roundings
+                         of u may fall either way); in bf16 the tiled FFN
+                         forward (tensor cores) and the fused one (CUDA
+                         cores) agree within these, not bit for bit
   CTC alphas           finite entries atol 1e-4, the -1e30 sentinels
                          equal
   MMA alignment        alphas atol 1e-4; d_prefix and d_denom within 1e-4
@@ -4789,6 +4801,131 @@ def phase_bf16_kernels(dev, batch):
     return out
 
 
+# rows 1 / 1b in bf16 on the tensor cores (csrc/wgmma.cuh): asr-train's
+# 12,288 rows x 256 x 2048 at every activation, and a padded width and D
+# 512 (gelu); (rows, D, hidden)
+BF16_TC_SHAPES = {"asr": (12288, 256, 2048), "d200": (3000, 200, 800),
+                  "d512": (3000, 512, 2048)}
+BF16_TC_ACTIVATIONS = ("gelu", "relu", "silu", "tanh")
+def kernel_relu_mask(x, lnw, cfg):
+    """(rows, hidden) bool: where the LN-FFN kernels take relu's derivative
+    as 1, h > 0 of the tiled forward's hidden (the forward forced onto its
+    tiled path, its hidden read from the wrapper's scratch; the backward
+    recomputes u with the same products, the same bits).  relu' jumps
+    at u = 0, where the kernels' and torch's roundings (LN in fp32, the
+    fc1 input rounded to bf16, sums in other orders) fall on either side
+    of 0 for some entries, so the plain backward is held to the kernel
+    under the kernel's own mask (`plain_ln_ffn_backward_under`)."""
+    import torch
+    from simulst_tpu_torch.ops import ffn
+    rows, hid = x.shape[0], lnw[2].shape[1]
+    captured, empty = [], torch.empty
+
+    def capture(*shape, **kw):
+        t = empty(*shape, **kw)
+        if t.dim() == 2 and t.shape[0] == rows and t.shape[1] >= hid \
+                and t.dtype == x.dtype:
+            captured.append(t)
+        return t
+    with patched([(torch, "empty", capture), (ffn, "TILED_MIN_ROWS", 0),
+                  (ffn, "BF16_TILED_MIN_ROWS", 0)]):
+        ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg)
+    return captured[-1][:, :hid] > 0
+
+
+def plain_ln_ffn_backward_under(x, lnw, dy, cfg, mask):
+    """ln_ffn_res_plain_backward with relu's derivative taken from `mask`
+    (the kernel's: kernel_relu_mask) instead of u > 0."""
+    from simulst_tpu_torch.ops import ffn
+    with patched([(ffn, "_act_grad", lambda name, u: mask.to(u.dtype))]):
+        return ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy, *cfg)
+
+
+def sass_hgmma():
+    """{wgmma kernel: its HGMMA instructions} in the built library's SASS
+    (cuobjdump --dump-sass), and the HGMMA count of every other kernel
+    (0 expected)."""
+    import shutil
+    import subprocess
+    from simulst_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {name: body.count("HGMMA") for name, body in
+              _build.sass_functions(sass).items()}
+    wgmma = {n: c for n, c in counts.items() if "wgmma_product_kernel" in n}
+    return wgmma, sum(c for n, c in counts.items() if n not in wgmma)
+
+
+def phase_bf16_tensor_cores(dev):
+    """Rows 1 / 1b in bf16 through the wrappers (the LN-FFN forward's tiled
+    path and its backward on wgmma_product) at BF16_TC_SHAPES, rates 0 and
+    0.1: against the plain versions (BF16_TOL; weight and LN gradients
+    within 1e-2 of their largest entry; with relu, the plain backward
+    under the kernel's relu mask: `kernel_relu_mask`), each
+    called twice (the same bits: no atomics, fixed split sums), the
+    decoder FFN's forward (the same tiled path) too; and the SASS of the
+    wgmma kernels holds HGMMA.  Returns {kernel: largest error}."""
+    import torch
+    from simulst_tpu_torch.ops import ffn
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 53)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    wgmma, elsewhere = sass_hgmma()
+    log("phase20", wgmma_kernels=len(wgmma),
+        hgmma_per_kernel=sorted(wgmma.values()), hgmma_elsewhere=elsewhere)
+    if not wgmma or not all(wgmma.values()) or elsewhere:
+        raise AssertionError("phase 20: the wgmma kernels' SASS lacks HGMMA "
+                             "(or another kernel has it)")
+    errs = {}
+    for shape, (rows, d, hid) in BF16_TC_SHAPES.items():
+        xav = (6.0 / (d + hid)) ** 0.5
+        x, dy = randn(rows, d).to(bf), randn(rows, d).to(bf)
+        lnw = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+               randn(d, hid, scale=xav).to(bf), randn(hid, scale=0.02).to(bf),
+               randn(hid, d, scale=xav).to(bf), randn(d, scale=0.02).to(bf))
+        assert ffn.slice_plan(rows, hid, 132, d, bf).tiled
+        for act in BF16_TC_ACTIVATIONS if shape == "asr" else ("gelu",):
+            for rate in (0.0, 0.1):
+                cfg = (act, rate, rate, 5)
+                case = f"{shape} ({rows},{d},{hid}) {act} rate {rate}"
+                y = ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg)
+                e_f = max_err(f"fused_ln_ffn_res bf16 {case}", y,
+                              ffn.ln_ffn_res_plain(x, *lnw, *cfg),
+                              **BF16_TOL)
+                yd = ffn.fused_ffn_forward(x, *lnw[2:], *cfg)
+                e_d = max_err(f"fused_ffn bf16 {case}", yd,
+                              ffn.ffn_plain(x, *lnw[2:], *cfg), **BF16_TOL)
+                got = ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy, *cfg)
+                want = plain_ln_ffn_backward_under(
+                    x, lnw, dy, cfg, kernel_relu_mask(x, lnw, cfg)) \
+                    if act == "relu" else \
+                    ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy, *cfg)
+                e_b = max([max_err(
+                    f"fused_ln_ffn_res_backward bf16 {case} dx", got[0],
+                    want[0], **BF16_TOL)] + [max_err_to_largest(
+                    f"fused_ln_ffn_res_backward bf16 {case} grad {i}", a, c,
+                    1e-2) for i, (a, c) in enumerate(zip(got[1:], want[1:]))])
+                again = (ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg),
+                         ffn.fused_ffn_forward(x, *lnw[2:], *cfg),
+                         *ffn.fused_ln_ffn_res_backward(x, *lnw[:5], dy,
+                                                        *cfg))
+                same = all(torch.equal(a, c) for a, c in
+                           zip((y, yd, *got), again))
+                log("phase20", tensor_cores=case, ln_ffn_err=e_f,
+                    ffn_err=e_d, ln_ffn_bwd_err=e_b, twice_bit_for_bit=same)
+                if not same:
+                    raise AssertionError(f"phase 20: {case} gave other bits "
+                                         "the second time")
+                for k, e in (("fused_ln_ffn_res", e_f), ("fused_ffn", e_d),
+                             ("fused_ln_ffn_res_backward", e_b)):
+                    errs[k] = max(errs.get(k, 0.0), e)
+    return errs
+
+
 def one_step_profile(train_step, state, batch, generator):
     """(state, device ms, wall ms, peak GiB) of one train step after a
     warm-up step: the device time summed over the kernels torch.profiler
@@ -5151,7 +5288,10 @@ def phase_bf16(dev, batch, speech, fp32_tokens, fp32_asr):
     t0 = time.perf_counter()
     with torch.no_grad():
         activations = phase_activations(dev)
+        tensor_cores = phase_bf16_tensor_cores(dev)
         bf16 = phase_bf16_kernels(dev, batch)
+    for name, err in tensor_cores.items():
+        bf16[name]["tensor_core_max_abs_err"] = err
     launches = phase_bf16_train(dev, batch, fp32_asr)
     with torch.no_grad():   # as cli/generate and the agents serve
         phase_bf16_serve(dev, speech, fp32_tokens)
@@ -5322,9 +5462,15 @@ def phase_parallel(dev, batch):
 # (D, heads, hidden) at the corners of the widths the kernels take: head
 # dims 16, 32, 64, 128 and 128, hidden up to 4096
 WIDTH_CORNERS = ((64, 4, 256), (128, 4, 512), (512, 8, 2048),
-                 (512, 4, 2048), (1024, 8, 4096))
-# (D, conv_pos_groups): 4, 64 and 1 channels a group
-WIDTH_CONVPOS = ((64, 16), (1024, 16), (256, 256))
+                 (512, 4, 2048), (1024, 8, 4096),
+                 # above the old maxima (D 1024, head dim 128): D 1280 and
+                 # 2048, head dims 160 and 256 (the LN row passes walking
+                 # each row, the wide attention kernels)
+                 (1280, 8, 2560), (2048, 8, 2048))
+# (D, conv_pos_groups): 4, 64 and 1 channels a group, and 96 and 128 above
+# the old maximum of 64
+WIDTH_CONVPOS = ((64, 16), (1024, 16), (256, 256), (1536, 16),
+                 (2048, 16))
 # widths the kernels take zero-padded (the wrappers pad them to the next
 # width a kernel takes and pass the real width beside it): (D, heads,
 # hidden), D 16 / 32 / 48 / 200, hidden 32 / 48 / 100 / 800, head dims 4,
@@ -5915,18 +6061,25 @@ def phase_convergence(dev):
                              f"margin {SCORE_MARGIN}")
 
 
+# the tone-language CIF leg's updates here: tools/synthetic_smoke.py runs
+# 1000, as the JAX script does; 400 keep the run inside its time (on an
+# H100 the leg read BLEU 92.6 at 400 updates, 98.1 at 600, 100 at 1000)
+SYNTHETIC_UPDATES = 400
+
+
 def phase_synthetic(workdir):
-    """tools/synthetic_smoke.py's CIF leg (the tone-language corpus, 1000
-    bf16 updates of CIF at embed_dim 64, checkpoint averaging, fused
-    scanned batched streaming under global CMVN), its CLIs run as a user
-    runs them, each in a process of its own; BLEU > 20, AL > 0."""
+    """tools/synthetic_smoke.py's CIF leg (the tone-language corpus,
+    SYNTHETIC_UPDATES bf16 updates of CIF at embed_dim 64, checkpoint
+    averaging, fused scanned batched streaming under global CMVN), its
+    CLIs run as a user runs them, each in a process of its own; BLEU > 20,
+    AL > 0."""
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tools"))
     import synthetic_smoke as smoke
     t0 = time.perf_counter()
     data = smoke.build_corpus(os.path.join(workdir, "tones"))
     corpus_s = time.perf_counter() - t0
-    scores = smoke.run_leg(workdir, data, "cif")
+    scores = smoke.run_leg(workdir, data, "cif", updates=SYNTHETIC_UPDATES)
     log("phase22", synthetic="cif", corpus_s=corpus_s,
         seconds=time.perf_counter() - t0, BLEU=scores["BLEU"],
         AL=scores["AL"], AP=scores.get("AP"), DAL=scores.get("DAL"))

@@ -38,6 +38,15 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// two neighbouring values of T at p (8-byte aligned for fp32, 4 for bf16)
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // exact GELU, torch.nn.GELU's default: 0.5 u (1 + erf(u / sqrt 2))
 __device__ __forceinline__ float gelu_erf(float u) {
   return 0.5f * u * (1.0f + erff(u * 0.7071067811865476f));
@@ -532,38 +541,44 @@ cudaError_t tile_product_pair(const P0& p0, const P1& p1,
   return tile_launch<kBN, false>(p0, p1, stream);
 }
 
-// Column sums of an fp32 row-major (rows, cols) matrix, one partial per row
-// split: out[z * split_stride + offset + c] = sum of rows in split z.
-// Block (32, 8), grid (ceil(cols / 32), splits).
-static __global__ void colsum_partial_kernel(const float* __restrict__ src, int rows,
-                                      int cols, int rows_per_split,
-                                      float* __restrict__ out,
-                                      size_t split_stride, size_t offset) {
-  __shared__ float part[8][33];
+// Column sums of a row-major (rows, cols) matrix of S (fp32 or bf16,
+// summed in fp32), one partial per row split: out[z * split_stride +
+// offset + c] = sum of rows in split z.  Block (32, kLanes): lane y of a
+// column adds rows y, y + kLanes, ... of the split, then the kLanes sums
+// in order.  Grid (ceil(cols / 32), splits).  kLanes 8 is the fp32
+// paths' (it fixes their bits); the bf16 LN-FFN backward takes 32, four
+// times the rows in flight.
+template <int kLanes, typename S>
+__global__ void __launch_bounds__(32 * kLanes)
+    colsum_partial_kernel(const S* __restrict__ src, int rows, int cols,
+                          int rows_per_split, float* __restrict__ out,
+                          size_t split_stride, size_t offset) {
+  __shared__ float part[kLanes][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(rows, r_begin + rows_per_split);
   float s = 0.f;
   if (c < cols)
-    for (int r = r_begin + threadIdx.y; r < r_end; r += 8)
-      s += src[(size_t)r * cols + c];
+    for (int r = r_begin + threadIdx.y; r < r_end; r += kLanes)
+      s += to_f32(src[(size_t)r * cols + c]);
   part[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && c < cols) {
     float t = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) t += part[i][threadIdx.x];
+    for (int i = 0; i < kLanes; ++i) t += part[i][threadIdx.x];
     out[(size_t)blockIdx.y * split_stride + offset + c] = t;
   }
 }
 
-static inline cudaError_t colsum_partial(const float* src, int rows, int cols,
-                                  int splits, float* out, size_t split_stride,
-                                  size_t offset, cudaStream_t stream) {
+template <int kLanes = 8, typename S>
+cudaError_t colsum_partial(const S* src, int rows, int cols, int splits,
+                           float* out, size_t split_stride, size_t offset,
+                           cudaStream_t stream) {
   const int per = ceil_div(rows, splits);
-  colsum_partial_kernel<<<dim3(ceil_div(cols, 32), splits), dim3(32, 8), 0,
-                          stream>>>(src, rows, cols, per, out, split_stride,
-                                    offset);
+  colsum_partial_kernel<kLanes, S>
+      <<<dim3(ceil_div(cols, 32), splits), dim3(32, kLanes), 0, stream>>>(
+          src, rows, cols, per, out, split_stride, offset);
   return cudaGetLastError();
 }
 
@@ -588,11 +603,12 @@ static inline cudaError_t sum_splits(const float* partial, int splits, size_t le
 // g[i] = round_T(dy[i] * mult) with mult the dropout multiplier of element
 // i (offset unpadded_offset(i, cols, real_cols), `stream`) on gated rows
 // (row % period < res_rows, or every row when period == 0) and 1
-// elsewhere; g is fp32.  The upstream gradient of a dropout site,
-// materialised once for the products that read it.
-template <typename T>
+// elsewhere, stored as G (fp32, or T itself where the products read T).
+// The upstream gradient of a dropout site, materialised once for the
+// products that read it.
+template <typename T, typename G>
 __global__ void drop_grad_kernel(const T* __restrict__ dy,
-                                 float* __restrict__ g, int rows, int cols,
+                                 G* __restrict__ g, int rows, int cols,
                                  int real_cols, Dropout drop, unsigned stream,
                                  int period, int res_rows) {
   const size_t total = (size_t)rows * cols;
@@ -602,15 +618,15 @@ __global__ void drop_grad_kernel(const T* __restrict__ dy,
   const bool gated = period == 0 || row % period < res_rows;
   const float m =
       gated ? drop.scale(unpadded_offset(i, cols, real_cols), stream) : 1.f;
-  g[i] = round_to<T>(to_f32(dy[i]) * m);
+  g[i] = from_f32<G>(round_to<T>(to_f32(dy[i]) * m));
 }
 
-template <typename T>
-cudaError_t drop_grad(const void* dy, float* g, int rows, int cols,
+template <typename T, typename G = float>
+cudaError_t drop_grad(const void* dy, G* g, int rows, int cols,
                       int real_cols, Dropout drop, unsigned stream,
                       int period, int res_rows, cudaStream_t s) {
   const size_t total = (size_t)rows * cols;
-  drop_grad_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  drop_grad_kernel<T, G><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       static_cast<const T*>(dy), g, rows, cols, real_cols, drop, stream,
       period, res_rows);
   return cudaGetLastError();

@@ -9,9 +9,10 @@
 //   dw[o, ci, k] = sum over (b, t) of xp[b, t + k, gr*cg + ci] dy[b, t, o]
 //
 // for output channel o of group gr (xp the left-padded input (B, T+K-1, D),
-// dy (B, T, D)); dw in torch's (D, cg, K) conv layout, fp32.  cg is a
+// dy (B, T, D)); dw in torch's (D, cg, K) conv layout, fp32.  cg is any
 // multiple of 4 (s2t_transformer_convpos: D / 16 groups, 4 to 64 channels
-// at D 64 to 1024) or 1 (a depthwise conv).
+// at D 64 to 1024, and more above; the grid holds ceil(cg / 16)^2 slices a
+// group, whatever cg) or 1 (a depthwise conv).
 //
 // What bounds it on the H100: 2 B T K D 16 operations (4.3 GFLOP at 32 x
 // 256 frames, 64 taps, D 256), about 64 us on the fp32 CUDA cores; the

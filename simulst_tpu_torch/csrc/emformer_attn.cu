@@ -87,7 +87,7 @@
 // and dq.  A warp takes kRowTile / warps rows at once so that their chains
 // of shuffles, exp and Philox overlap.
 //
-// Head dims: any multiple of 8 from 8 to 128.  The kernels are templates on
+// Head dims: any multiple of 8.  Up to 128 the kernels are templates on
 // the staged head dim kHeadDim, 64 or 128 (the next at or above hd): rows
 // are staged kHeadDim wide with the features past hd zero-filled, so every
 // score adds exact zeros past hd, and only the hd real features of an
@@ -96,11 +96,18 @@
 // slot, F the largest of 64 (the walks' thread map: 16 threads of 4
 // features), 32 and 16 with which the block fits the card's shared memory;
 // the three walks run once per block of F features.  Each output's sum is
-// the same whatever F.  Any other head dim up to 128 reaches the kernels
-// zero-padded to the next multiple of 8 (ops/emformer_attn.py), with the
-// real head dim beside it for the scale 1 / sqrt(hd_real): the padded
-// features add exact zeros to every score, and their outputs (zero) are
-// sliced away.
+// the same whatever F.  Any other head dim reaches the kernels zero-padded
+// to the next multiple of 8 (ops/emformer_attn.py), with the real head dim
+// beside it for the scale 1 / sqrt(hd_real): the padded features add exact
+// zeros to every score, and their outputs (zero) are sliced away.  Above
+// 128 (a 256-wide staged unit would not fit the backward's block at
+// s2t_emformer_s's geometry) the "wide" kernels run, correct rather than
+// fast: the same units, with only the unit's (row, column) matrices in
+// shared memory and the rows read from device memory (each score one
+// thread's dot product over hd); the backward writes dq per unit and the
+// unit's ds and round(p m) to `probs` as the tiled backward does, then one
+// block per (batch, group, head) sums dK and dV of every context slot into
+// the same partials, and the ordered sum kernel adds them into key rows.
 #include <math.h>
 
 #include "common.cuh"
@@ -110,8 +117,9 @@ namespace {
 using simulst::Dropout;
 using simulst::from_f32;
 using simulst::round_to;
+using simulst::to_f32;
 
-constexpr int kMaxHeadDim = 128;   // head dims: multiples of kHeadDimStep
+constexpr int kMaxHeadDim = 128;   // staged head dims; the wide kernels above
 constexpr int kHeadDimStep = 8;
 constexpr int kMaxAccFeatures = 64;  // the dK / dV walks' features a pass
 constexpr int kMinAccFeatures = 16;  // ... at the least
@@ -911,6 +919,301 @@ int launch_attn_bwd(const void* q3, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// head dims above kMaxHeadDim: the wide kernels
+// ---------------------------------------------------------------------------
+constexpr int kWideThreads = 128;
+
+// shared memory of a wide forward block (the scores, three ints per
+// column) and of a wide backward unit block (three matrices)
+size_t wide_fwd_smem_bytes(const Geom& g) {
+  return sizeof(float) * (size_t)g.Rp * g.sld + 3 * sizeof(int) * (size_t)g.Cp;
+}
+size_t wide_bwd_smem_bytes(const Geom& g) {
+  return sizeof(float) * 3 * (size_t)g.Rp * g.sld +
+         3 * sizeof(int) * (size_t)g.Cp;
+}
+
+// x . y over hd features, both rows of T in device memory
+template <typename T>
+__device__ __forceinline__ float dot_rows(const T* x, const T* y, int hd) {
+  float s = 0.f;
+  for (int d = 0; d < hd; ++d) s = fmaf(to_f32(x[d]), to_f32(y[d]), s);
+  return s;
+}
+
+// the column of segment i's unit holding group-context slot c, -1 if none
+__device__ __forceinline__ int slot_column(const Geom& g, int i, int c) {
+  if (c < g.m_slots) return c - i >= 0 && c - i < g.max_mem ? c - i : -1;
+  const int rc0 = g.m_slots + i * g.rc;
+  if (c < g.m_slots + g.G * g.rc)
+    return c >= rc0 && c < rc0 + g.rc ? g.max_mem + (c - rc0) : -1;
+  const int u0 = g.m_slots + g.G * g.rc + i * g.seg;
+  return c >= u0 && c < u0 + g.lc + g.seg ? g.max_mem + g.rc + (c - u0) : -1;
+}
+
+// out = softmax(q k^T scale) dropped, rounded to T, times v, one block per
+// unit (grouped_attn_kernel's), its scores in shared memory
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kWideThreads)
+    grouped_attn_wide_kernel(const T* __restrict__ q3,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const int* __restrict__ lengths, Gate gate,
+                             T* __restrict__ out, Geom g, Dropout drop) {
+  extern __shared__ float4 smem4[];
+  float* ps = reinterpret_cast<float*>(smem4);                // [Rp][sld]
+  int* col_slot = reinterpret_cast<int*>(ps + g.Rp * g.sld);  // [Cp]
+  int* col_row = col_slot + g.Cp;                             // [Cp]
+  int* col_ok = col_row + g.Cp;                               // [Cp]
+  const int i = blockIdx.x % g.G;
+  const int head = (blockIdx.x / g.G) % g.heads;
+  const int grp = (blockIdx.x / (g.G * g.heads)) % g.ng;
+  const int b = blockIdx.x / (g.G * g.heads * g.ng);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hd = g.hd;
+  const size_t q_base = ((size_t)b * g.ng + grp) * g.nq * g.dim + head * hd;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * hd;
+  const size_t row_base =
+      (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
+  const float scale = 1.0f / sqrtf((float)g.hd_real);
+  unit_columns<kGated>(g, gate, b, grp, i, lengths[b], col_slot, col_row,
+                       col_ok);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g.R * g.Cp; idx += kWideThreads) {
+    const int r = idx / g.Cp, j = idx % g.Cp;
+    float s = -INFINITY;
+    if (j < g.C && unit_visible(g, col_ok, r, j))
+      s = dot_rows(q3 + q_base + (size_t)unit_row(g, i, r) * g.dim,
+                   k + kv_base + (size_t)col_row[j] * g.dim, hd) *
+          scale;
+    ps[r * g.sld + j] = s;
+  }
+  __syncthreads();
+  const float keep_mult = drop.on ? drop.inv_keep : 1.f;
+  for (int r = warp; r < g.R; r += kWideThreads / 32) {
+    float* pr = ps + r * g.sld;
+    float mx = -INFINITY;
+    for (int j = lane; j < g.Cp; j += 32) mx = fmaxf(mx, pr[j]);
+    mx = simulst::warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < g.C; j += 32)
+      if (mx != -INFINITY && pr[j] != -INFINITY) sum += expf(pr[j] - mx);
+    sum = simulst::warp_sum(sum);
+    const unsigned long long off =
+        (unsigned long long)(row_base + unit_row(g, i, r)) * g.ctx;
+    for (int j = lane; j < g.Cp; j += 32) {
+      const float e = mx != -INFINITY && pr[j] != -INFINITY
+                          ? expf(pr[j] - mx) : 0.f;
+      pr[j] = e > 0.f && drop.scale(off + col_slot[j], 0) != 0.f
+                  ? round_to<T>(e * (1.0f / sum) * keep_mult)
+                  : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g.R * hd; idx += kWideThreads) {
+    const int r = idx / hd, d = idx % hd;
+    const float* pr = ps + r * g.sld;
+    float acc = 0.f;
+    for (int j = 0; j < g.C; ++j)
+      if (pr[j] != 0.f)
+        acc = fmaf(pr[j], to_f32(v[kv_base + (size_t)col_row[j] * g.dim + d]),
+                   acc);
+    out[q_base + (size_t)unit_row(g, i, r) * g.dim + d] = from_f32<T>(acc);
+  }
+}
+
+// the backward's first pass, one block per unit: the probabilities
+// recomputed, dq written, round(p m) and ds (for dK) into the unit's
+// `probs` (grouped_attn_bwd_kernel's layout and formulas)
+template <typename T, bool kGated>
+__global__ void __launch_bounds__(kWideThreads)
+    grouped_attn_wide_bwd_kernel(const T* __restrict__ q3,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const T* __restrict__ dout,
+                                 const int* __restrict__ lengths, Gate gate,
+                                 T* __restrict__ dq,
+                                 float* __restrict__ probs, Geom g,
+                                 Dropout drop) {
+  extern __shared__ float4 smem4[];
+  float* as = reinterpret_cast<float*>(smem4);   // scores, then ds (dq)
+  float* ts = as + g.Rp * g.sld;                 // dO . v, then round(p m)
+  float* xs = ts + g.Rp * g.sld;                 // ds (dK)
+  int* col_slot = reinterpret_cast<int*>(xs + g.Rp * g.sld);
+  int* col_row = col_slot + g.Cp;
+  int* col_ok = col_row + g.Cp;
+  const int i = blockIdx.x % g.G;
+  const int head = (blockIdx.x / g.G) % g.heads;
+  const int grp = (blockIdx.x / (g.G * g.heads)) % g.ng;
+  const int b = blockIdx.x / (g.G * g.heads * g.ng);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int hd = g.hd;
+  const size_t q_base = ((size_t)b * g.ng + grp) * g.nq * g.dim + head * hd;
+  const size_t kv_base = (size_t)b * g.tk * g.dim + head * hd;
+  const size_t row_base =
+      (((size_t)b * g.ng + grp) * g.heads + head) * g.nq;
+  const float scale = 1.0f / sqrtf((float)g.hd_real);
+  const float keep_mult = drop.on ? drop.inv_keep : 1.f;
+  unit_columns<kGated>(g, gate, b, grp, i, lengths[b], col_slot, col_row,
+                       col_ok);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g.R * g.Cp; idx += kWideThreads) {
+    const int r = idx / g.Cp, j = idx % g.Cp;
+    float s = -INFINITY, t = 0.f;
+    if (j < g.C && unit_visible(g, col_ok, r, j)) {
+      const size_t qo = q_base + (size_t)unit_row(g, i, r) * g.dim;
+      const size_t ko = kv_base + (size_t)col_row[j] * g.dim;
+      s = dot_rows(q3 + qo, k + ko, hd) * scale;
+      t = dot_rows(dout + qo, v + ko, hd);
+    }
+    as[r * g.sld + j] = s;
+    ts[r * g.sld + j] = t;
+  }
+  __syncthreads();
+  for (int r = warp; r < g.R; r += kWideThreads / 32) {
+    float *ar = as + r * g.sld, *tr = ts + r * g.sld, *xr = xs + r * g.sld;
+    float mx = -INFINITY;
+    for (int j = lane; j < g.Cp; j += 32) mx = fmaxf(mx, ar[j]);
+    mx = simulst::warp_max(mx);
+    const bool live = mx != -INFINITY;
+    float sum = 0.f;
+    for (int j = lane; j < g.C; j += 32)
+      if (live && ar[j] != -INFINITY) sum += expf(ar[j] - mx);
+    sum = simulst::warp_sum(sum);
+    const float inv = live ? 1.0f / sum : 0.f;
+    const float lse = live ? mx + logf(sum) : 0.f;
+    const unsigned long long off =
+        (unsigned long long)(row_base + unit_row(g, i, r)) * g.ctx;
+    // Delta = sum over the visible columns of (dO . v) m p
+    float delta = 0.f;
+    for (int j = lane; j < g.C; j += 32)
+      if (live && ar[j] != -INFINITY) {
+        const float m =
+            drop.scale(off + col_slot[j], 0) != 0.f ? keep_mult : 0.f;
+        delta += __fmul_rn(tr[j], m) * (expf(ar[j] - mx) * inv);
+      }
+    delta = simulst::warp_sum(delta);
+    for (int j = lane; j < g.Cp; j += 32) {
+      float ds_q = 0.f, pd = 0.f, ds_k = 0.f;
+      if (live && j < g.C && ar[j] != -INFINITY) {
+        const float m =
+            drop.scale(off + col_slot[j], 0) != 0.f ? keep_mult : 0.f;
+        const float p = expf(ar[j] - mx) * inv, t = tr[j];
+        ds_q = round_to<T>(p * (__fmul_rn(t, m) - delta) * scale);
+        const float pl = expf(ar[j] - lse);
+        pd = m != 0.f ? round_to<T>(pl * keep_mult) : 0.f;
+        ds_k = round_to<T>(pl * (t * m - delta) * scale);
+      }
+      ar[j] = ds_q;
+      tr[j] = pd;
+      xr[j] = ds_k;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < g.R * hd; idx += kWideThreads) {
+    const int r = idx / hd, d = idx % hd;
+    const float* ar = as + r * g.sld;
+    float acc = 0.f;
+    for (int j = 0; j < g.C; ++j)
+      if (ar[j] != 0.f)
+        acc = fmaf(ar[j], to_f32(k[kv_base + (size_t)col_row[j] * g.dim + d]),
+                   acc);
+    dq[q_base + (size_t)unit_row(g, i, r) * g.dim + d] = from_f32<T>(acc);
+  }
+  float* up = probs + (size_t)blockIdx.x * 2 * g.R * g.Cp;
+  for (int idx = threadIdx.x; idx < g.R * g.Cp; idx += kWideThreads) {
+    const int r = idx / g.Cp, j = idx % g.Cp;
+    up[idx] = ts[r * g.sld + j];
+    up[g.R * g.Cp + idx] = xs[r * g.sld + j];
+  }
+}
+
+// the backward's second pass, one block per (batch, group, head): dK and
+// dV of every context slot of the group over the units' rows (segments,
+// then rows, ascending) into the (batch, ng, ctx, dim) partials
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    grouped_attn_wide_dkv_kernel(const T* __restrict__ q3,
+                                 const T* __restrict__ dout,
+                                 const float* __restrict__ probs,
+                                 float* __restrict__ dk_part,
+                                 float* __restrict__ dv_part, Geom g) {
+  const int head = blockIdx.x % g.heads;
+  const int grp = (blockIdx.x / g.heads) % g.ng;
+  const int b = blockIdx.x / (g.heads * g.ng);
+  const int hd = g.hd;
+  const size_t q_base = ((size_t)b * g.ng + grp) * g.nq * g.dim + head * hd;
+  const size_t part_base =
+      ((size_t)b * g.ng + grp) * g.ctx * g.dim + head * hd;
+  const size_t unit_probs = 2 * (size_t)g.R * g.Cp;
+  const float* bp = probs + (size_t)blockIdx.x * g.G * unit_probs;
+  for (int idx = threadIdx.x; idx < g.ctx * hd; idx += kWideThreads) {
+    const int c = idx / hd, d = idx % hd;
+    float sk = 0.f, sv = 0.f;
+    for (int i = 0; i < g.G; ++i) {
+      const int j = slot_column(g, i, c);
+      if (j < 0) continue;
+      const float* up = bp + i * unit_probs;
+      for (int r = 0; r < g.R; ++r) {
+        const float pd = up[r * g.Cp + j], ds = up[(g.R + r) * g.Cp + j];
+        if (pd == 0.f && ds == 0.f) continue;
+        const size_t qo = q_base + (size_t)unit_row(g, i, r) * g.dim + d;
+        sk = fmaf(ds, to_f32(q3[qo]), sk);
+        sv = fmaf(pd, to_f32(dout[qo]), sv);
+      }
+    }
+    dk_part[part_base + (size_t)c * g.dim + d] = sk;
+    dv_part[part_base + (size_t)c * g.dim + d] = sv;
+  }
+}
+
+template <typename T, bool kGated>
+int launch_attn_wide(const void* q3, const void* k, const void* v,
+                     const void* lengths, Gate gate, void* out, int batch,
+                     const Geom& g, size_t smem, Dropout drop,
+                     cudaStream_t stream) {
+  SIMULST_TRY(cudaFuncSetAttribute(
+      grouped_attn_wide_kernel<T, kGated>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  grouped_attn_wide_kernel<T, kGated>
+      <<<batch * g.ng * g.heads * g.G, kWideThreads, smem, stream>>>(
+          static_cast<const T*>(q3), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const int*>(lengths), gate,
+          static_cast<T*>(out), g, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool kGated>
+int launch_attn_wide_bwd(const void* q3, const void* k, const void* v,
+                         const void* dout, const void* lengths, Gate gate,
+                         void* dq, void* dk, void* dv, float* probs,
+                         float* dk_part, float* dv_part, int batch,
+                         const Geom& g, size_t smem, Dropout drop,
+                         cudaStream_t s) {
+  SIMULST_TRY(cudaFuncSetAttribute(
+      grouped_attn_wide_bwd_kernel<T, kGated>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  grouped_attn_wide_bwd_kernel<T, kGated>
+      <<<batch * g.ng * g.heads * g.G, kWideThreads, smem, s>>>(
+          static_cast<const T*>(q3), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout),
+          static_cast<const int*>(lengths), gate, static_cast<T*>(dq),
+          probs, g, drop);
+  SIMULST_TRY(cudaGetLastError());
+  grouped_attn_wide_dkv_kernel<T><<<batch * g.ng * g.heads, kWideThreads, 0,
+                                    s>>>(static_cast<const T*>(q3),
+                                         static_cast<const T*>(dout), probs,
+                                         dk_part, dv_part, g);
+  SIMULST_TRY(cudaGetLastError());
+  const size_t total = (size_t)batch * g.tk * g.dim;
+  grouped_attn_dkv_sum_kernel<T>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+          dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), batch,
+          g);
+  return (int)cudaGetLastError();
+}
+
 // unit_cols: the columns of a segment's unit, max_mem + rc + lc + seg
 bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
                int hd_real, int seg, int lc, int rc, int max_mem, int G,
@@ -940,7 +1243,7 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
   g->hd_real = hd_real;
   return batch > 0 && g->hd > 0 && g->hd % kHeadDimStep == 0 &&
          hd_real <= g->hd && hd_real > g->hd - kHeadDimStep && hd_real > 0 &&
-         g->hd <= kMaxHeadDim && rc > 0 && seg > 0 && max_mem >= 0 &&
+         rc > 0 && seg > 0 && max_mem >= 0 &&
          lc >= 0 && nq == G * (rc + seg + 1) &&
          tk == (g->n - 1) + g->n * rc + g->U &&
          unit_cols == max_mem + rc + lc + seg;
@@ -970,9 +1273,10 @@ bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
 
 // q3, out: (batch, ng, nq, dim); k, v: (batch, tk, dim), all of `dtype`;
 // lengths: (batch,) int32 valid utterance frames.  dim = heads * hd with hd
-// a multiple of 8 up to 128; hd_real the head dim of a call zero-padded to
-// hd (hd itself when nothing is padded; less than 8 below it), whose
-// 1 / sqrt scales the scores;
+// a multiple of 8 (above 128 the wide kernels, whose blocks hold only the
+// unit's matrices: wide_*_smem_bytes); hd_real the head dim of a call
+// zero-padded to hd (hd itself when nothing is padded; less than 8 below
+// it), whose 1 / sqrt scales the scores;
 // nq = G * (rc + seg + 1), tk = (n - 1) + n * rc + n * seg with n = ng * G.
 // kid (batch, tk) and seg_eid (batch, n), int32: the sequence-packing
 // gate, both null for none.  unit_cols = max_mem + rc + lc + seg and
@@ -991,15 +1295,25 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
                                      unsigned threshold, float inv_keep,
                                      void* stream) {
   Geom g;
+  const bool wide = heads > 0 && dim / heads > kMaxHeadDim;
   if (!make_geom(&g, batch, ng, nq, dim, heads, hd_real, seg, lc, rc,
                  max_mem, G, tk, unit_cols) ||
-      fwd_smem_bytes(g) != (size_t)smem_bytes || smem_bytes > kSmemLimit ||
-      (kid == nullptr) != (seg_eid == nullptr))
+      (wide ? wide_fwd_smem_bytes(g) : fwd_smem_bytes(g)) !=
+          (size_t)smem_bytes ||
+      smem_bytes > kSmemLimit || (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dropout drop{seed, threshold, inv_keep, drop_on};
   const Gate gate{static_cast<const int*>(kid),
                   static_cast<const int*>(seg_eid)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide)
+    SIMULST_DISPATCH(dtype,
+                     return gate.kid ? launch_attn_wide<scalar_t, true>(
+                                           q3, k, v, lengths, gate, out,
+                                           batch, g, smem_bytes, drop, s)
+                                     : launch_attn_wide<scalar_t, false>(
+                                           q3, k, v, lengths, gate, out,
+                                           batch, g, smem_bytes, drop, s));
   ATTN_HD_DISPATCH(g, SIMULST_DISPATCH(dtype,
                    return gate.kid ? launch_attn<scalar_t, true, kH, kE>(
                                          q3, k, v, lengths, gate, out, batch,
@@ -1015,7 +1329,8 @@ extern "C" int simulst_emformer_attn(int dtype, const void* q3, const void* k,
 // the forward.  Scratch, fp32: probs (batch, ng, heads, G, 2, R, Cp) with
 // R = rc + seg + 1 and Cp = unit_cols rounded up to 64, dk_part and
 // dv_part (batch, ng, ctx, dim).  Two launches: the segment-walking block
-// kernel and the ordered sum.  Returns a cudaError_t.
+// kernel and the ordered sum (above head dim 128 three: the wide units,
+// the wide dK / dV sums and the ordered sum).  Returns a cudaError_t.
 extern "C" int simulst_emformer_attn_bwd(
     int dtype, const void* q3, const void* k, const void* v,
     const void* lengths, const void* kid, const void* seg_eid,
@@ -1025,9 +1340,11 @@ extern "C" int simulst_emformer_attn_bwd(
     int tk, int unit_cols, int smem_bytes, int drop_on, unsigned long long seed,
     unsigned threshold, float inv_keep, void* stream) {
   Geom g;
+  const bool wide = heads > 0 && dim / heads > kMaxHeadDim;
   if (!make_geom(&g, batch, ng, nq, dim, heads, hd_real, seg, lc, rc,
                  max_mem, G, tk, unit_cols) ||
-      bwd_smem_bytes(g, g.F) != (size_t)smem_bytes ||
+      (wide ? wide_bwd_smem_bytes(g) : bwd_smem_bytes(g, g.F)) !=
+          (size_t)smem_bytes ||
       smem_bytes > kSmemLimit ||
       (kid == nullptr) != (seg_eid == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -1037,6 +1354,17 @@ extern "C" int simulst_emformer_attn_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *pp = static_cast<float*>(probs), *kp = static_cast<float*>(dk_part),
         *vp = static_cast<float*>(dv_part);
+  if (wide)
+    SIMULST_DISPATCH(dtype,
+                     return gate.kid
+                                ? launch_attn_wide_bwd<scalar_t, true>(
+                                      q3, k, v, dout, lengths, gate, dq, dk,
+                                      dv, pp, kp, vp, batch, g, smem_bytes,
+                                      drop, s)
+                                : launch_attn_wide_bwd<scalar_t, false>(
+                                      q3, k, v, dout, lengths, gate, dq, dk,
+                                      dv, pp, kp, vp, batch, g, smem_bytes,
+                                      drop, s));
   ATTN_HD_DISPATCH(g, SIMULST_DISPATCH(dtype,
                    return gate.kid ? launch_attn_bwd<scalar_t, true, kH, kE>(
                                          q3, k, v, dout, lengths, gate, dq,

@@ -161,31 +161,40 @@ __global__ void ffn_epilogue_kernel(const float* __restrict__ partial,
   y[idx] = from_f32<T>(s);
 }
 
-// h = round_T(act(acc + b1) m_a) into the fp32 hidden buffer: the fused
-// kernel's hidden chunk, for the whole hidden (the mask at the offsets of
-// a hidden hidden_real wide)
+// h = act(acc + b1) m_a rounded to T: the fused kernel's hidden chunk,
+// for the whole hidden (the mask at the offsets of a hidden hidden_real
+// wide)
 template <typename T, int kAct>
 struct HiddenStore {
-  float* h;
+  T* h;
   const T* b1;
   int hidden, hidden_real;
   Dropout act_drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     const size_t off = (size_t)m * hidden + n;
     const float uu = v + to_f32(b1[n]);
-    h[off] = round_to<T>(act_fn<kAct>(uu) *
+    h[off] = from_f32<T>(act_fn<kAct>(uu) *
                          act_drop.scale((size_t)m * hidden_real + n, 0));
+  }
+  // columns n and n + 1 at once (wgmma_product's epilogue)
+  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
+                                       float2) const {
+    const size_t moff = (size_t)m * hidden_real + n;
+    simulst::store_pair(
+        h + (size_t)m * hidden + n,
+        act_fn<kAct>(v0 + to_f32(b1[n])) * act_drop.scale(moff, 0),
+        act_fn<kAct>(v1 + to_f32(b1[n + 1])) * act_drop.scale(moff + 1, 0));
   }
 };
 
 // h == nullptr: the fused row-block kernel (a width of
 // FFN_FUSED_DIM_DISPATCH); else the LN row pass into xn (kLayerNorm), the
-// hidden product into h and the output product into the split partials.
-// Then the epilogue.
+// hidden product into h and the output product into the split partials,
+// on ffn_product (bf16: the tensor cores).  Then the epilogue.
 template <typename T, bool kLayerNorm, int kAct>
 int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
                const void* w1_, const void* b1_, const void* w2_,
-               const void* b2, void* y, float* partial, float* xn, float* h,
+               const void* b2, void* y, float* partial, T* xn, T* h,
                int n_rows, int dim, int hidden, int splits, int dim_real,
                int hidden_real, Dropout act_drop, Dropout out_drop,
                cudaStream_t stream) {
@@ -213,24 +222,21 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
   } else {
     const HiddenStore<T, kAct> store{h, b1, hidden, hidden_real, act_drop};
     if constexpr (kLayerNorm) {
-      FFN_DIM_DISPATCH(dim, {
-        ln_rows_kernel<T, kD><<<simulst::ceil_div(n_rows, kRowThreads / 32),
-                                kRowThreads, 0, stream>>>(
-            x, ln_g, ln_b, xn, nullptr, n_rows, dim_real);
-        break;
-      });
-      SIMULST_TRY(cudaGetLastError());
-      SIMULST_TRY((simulst::tile_product<128, true>(
-          n_rows, hidden, dim, 1, RowMajor<float>{xn, dim},
-          RowMajor<T>{w1, hidden}, store, stream)));
+      SIMULST_TRY((cudaError_t)launch_ln_rows<T>(
+          x, ln_g, ln_b, xn, nullptr, n_rows, dim, dim_real, stream));
+      SIMULST_TRY((ffn_product<128, true>(n_rows, hidden, dim, 1,
+                                          RowMajor<T>{xn, dim},
+                                          RowMajor<T>{w1, hidden}, store,
+                                          stream)));
     } else {
-      SIMULST_TRY((simulst::tile_product<128, true>(
-          n_rows, hidden, dim, 1, RowMajor<T>{x, dim},
-          RowMajor<T>{w1, hidden}, store, stream)));
+      SIMULST_TRY((ffn_product<128, true>(n_rows, hidden, dim, 1,
+                                          RowMajor<T>{x, dim},
+                                          RowMajor<T>{w1, hidden}, store,
+                                          stream)));
     }
     // the fused kernel's hidden splits, as K slices: the same sums
-    SIMULST_TRY((simulst::tile_product<64>(
-        n_rows, dim, hidden, splits, RowMajor<float>{h, hidden},
+    SIMULST_TRY((ffn_product<64>(
+        n_rows, dim, hidden, splits, RowMajor<T>{h, hidden},
         RowMajor<T>{w2, dim},
         simulst::PartialStore<TagFfnFwd>{partial, (size_t)n_rows * dim, 0,
                                          dim},
@@ -251,17 +257,18 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
 // ln_res = 0: y = drop_o(fc2(drop_a(act(fc1(x)))))  (fused_ffn; ln_g/ln_b
 //             unused)
 // x, y: (n_rows, dim); w1: (dim, hidden); w2: (hidden, dim), all of `dtype`,
-// dim a multiple of 64 up to 1024 and hidden a multiple of 64;
+// dim and hidden multiples of 64;
 // ln_g, ln_b: (dim) fp32 whatever `dtype` (the LN is computed in fp32);
 // partial: fp32 scratch of (splits, n_rows, dim); act 0 gelu, 1 relu,
 // 2 silu, 3 tanh; each dropout site is on when its flag is set.  h null: the fused row-block
-// kernel (dim 64, 128, 256 or 512); else the tiled path, with fp32 scratch
-// h (n_rows, hidden) and, for
-// ln_res = 1, xn (n_rows, dim), and x, w1, w2 16-byte aligned.  Both paths
-// give the same bits.  dim_real and hidden_real: the widths of a call
-// zero-padded to dim and hidden (equal to them when nothing is padded; less
-// than 64 below them), over which LN takes its statistics and the dropout
-// sites their offsets.  Returns a cudaError_t.
+// kernel (dim 64, 128, 256 or 512); else the tiled path, with scratch of
+// `dtype` h (n_rows, hidden) and, for ln_res = 1, xn (n_rows, dim), and x,
+// w1, w2 16-byte aligned.  In fp32 both paths give the same bits; in bf16
+// the tiled path's products run on the tensor cores (wgmma.cuh), within
+// bf16 tolerance of the fused kernel.  dim_real and hidden_real: the
+// widths of a call zero-padded to dim and hidden (equal to them when
+// nothing is padded; less than 64 below them), over which LN takes its
+// statistics and the dropout sites their offsets.  Returns a cudaError_t.
 extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
                            const void* ln_g, const void* ln_b, const void* w1,
                            const void* b1, const void* w2, const void* b2,
@@ -278,18 +285,21 @@ extern "C" int simulst_ffn(int dtype, int ln_res, int act, const void* x,
       !ffn_real_ok(dim, hidden, dim_real, hidden_real))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *p = static_cast<float*>(partial), *xf = static_cast<float*>(xn),
-        *hf = static_cast<float*>(h);
+  float* p = static_cast<float*>(partial);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
   const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
   if (ln_res) {
     FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, true, kA>(
-                                x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                                x, ln_g, ln_b, w1, b1, w2, b2, y, p,
+                                static_cast<scalar_t*>(xn),
+                                static_cast<scalar_t*>(h),
                                 n_rows, dim, hidden, splits, dim_real,
                                 hidden_real, act_drop, out_drop, s)));
   }
   FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ffn<scalar_t, false, kA>(
-                              x, ln_g, ln_b, w1, b1, w2, b2, y, p, xf, hf,
+                              x, ln_g, ln_b, w1, b1, w2, b2, y, p,
+                              static_cast<scalar_t*>(xn),
+                              static_cast<scalar_t*>(h),
                               n_rows, dim, hidden, splits, dim_real,
                               hidden_real, act_drop, out_drop, s)));
 }

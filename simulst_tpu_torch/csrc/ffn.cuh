@@ -39,21 +39,35 @@
 // Dropout draws Philox bits keyed by (seed, row * hidden + column) for the
 // hidden (stream 0) and (seed, row * D + column) for the output (stream 1).
 //
-// Widths: D is any multiple of 64 from 64 to 1024 and the hidden any
-// multiple of 64.  The row kernels and the fused kernel keep a row's
-// columns in registers, so they are templates on D (instantiated for every
-// width the row kernels take, and for 64, 128, 256 and 512 in the fused
-// kernel, whose 32-row tile and W1 / W2 chunks take 200 KB of shared
-// memory at 512); the tile_products take any width.  At the other widths
-// the forward runs its tiled path at every row count (same bits).  Any
-// other D up to 1024 and any other hidden reach the kernels zero-padded to
-// the next multiple of 64 (ops/ffn.py), with the real widths beside the
-// padded ones: LN's mean and variance and its backward's row means are
-// over the real D (a padded column adds nothing to them), and both dropout
-// sites draw the unpadded offsets (common.cuh unpadded_offset).  The
-// padded columns stay zero through every step (zero LN parameters, zero
-// weights and biases, act(0) = 0 for every activation), so the real
-// columns are those of the unpadded call.
+// Widths: D is any multiple of 64 and the hidden any multiple of 64.  The
+// row kernels and the fused kernel keep a row's columns in registers, so
+// they are templates on D: the row kernels for every multiple of 64 up to
+// kMaxDim (1024), the fused kernel for 64, 128, 256 and 512 (its 32-row
+// tile and W1 / W2 chunks take 200 KB of shared memory at 512).  Above
+// kMaxDim the row kernels walk a row 32 columns a lane at a time, reading
+// it again for each of their passes (ln_rows_wide_kernel,
+// ln_bwd_rows_wide_kernel: correct, not tuned); the tile_products and
+// wgmma_products take any width.  At widths without a fused kernel the
+// forward runs its tiled path at every row count (same bits in fp32).
+// Any other D and hidden reach the kernels zero-padded to the next
+// multiple of 64 (ops/ffn.py), with the real widths beside the padded
+// ones: LN's mean and variance and its backward's row means are over the
+// real D (a padded column adds nothing to them), and both dropout sites
+// draw the unpadded offsets (common.cuh unpadded_offset).  The padded
+// columns stay zero through every step (zero LN parameters, zero weights
+// and biases, act(0) = 0 for every activation), so the real columns are
+// those of the unpadded call.
+//
+// bf16: the tiled path's products and the LN-FFN
+// backward's five run on wgmma.cuh's wgmma_product, bf16 operands on the
+// tensor cores with fp32 sums, and the intermediates that feed a product
+// (the fc1 input xn, the hidden h / h_d, g and du) are bf16 buffers: the
+// JAX kernels round each of them to the activation dtype before its dot,
+// as the plain versions do, so storing them as bf16 changes no value.
+// The LN statistics, dn, the pre-activation u and the partials stay fp32.
+// The fp32 path, the FFN backward (ffn_bwd.cu) and the fused row-block
+// kernel stay on tile_product and the CUDA cores.  In bf16 the tiled and
+// fused forwards therefore agree within bf16 tolerance, not bit for bit.
 //
 // The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
 // LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
@@ -87,6 +101,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -96,11 +111,11 @@ using simulst::gelu_erf;
 using simulst::round_to;
 using simulst::to_f32;
 
-// model widths: every multiple of kDimStep from kDimStep to kMaxDim; the
-// fused row-block kernel is built for the widths of ffn.cu's
+// model widths: every multiple of kDimStep; the row kernels hold a row in
+// registers up to kMaxDim (launch_ln_rows) and walk it above; the fused
+// row-block kernel is built for the widths of ffn.cu's
 // FFN_FUSED_DIM_DISPATCH (its shared memory grows with the width: 200 KB
-// at 512), the tiled path takes them all (ops/ffn.py DIM_STEP, MAX_DIM,
-// FUSED_DIMS)
+// at 512) (ops/ffn.py DIM_STEP, FUSED_DIMS)
 constexpr int kDimStep = 64;
 constexpr int kMaxDim = 1024;
 constexpr int kRows = 32;      // rows per block
@@ -109,8 +124,8 @@ constexpr int kThreads = 256;  // 8 warps; warp w owns rows 4w .. 4w+3
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kRows / kWarps;
 // runs the statement with kD bound to the model width `dim` as a constant,
-// for every width kDimStep to kMaxDim (the row kernels'); another width
-// returns cudaErrorInvalidValue
+// for every width kDimStep to kMaxDim (the row kernels' registered
+// variants); another width returns cudaErrorInvalidValue
 #define FFN_DIM_DISPATCH(dim, ...)                       \
   switch (dim) {                                         \
     case 64: { constexpr int kD = 64; __VA_ARGS__; }     \
@@ -177,13 +192,13 @@ __device__ __forceinline__ float act_grad(float u) {
 
 constexpr int kRowThreads = 256;   // one warp per row, 8 rows per block
 
-// xn = round_T(LN(x) gamma + beta) in fp32 (the expression of
+// xn = LN(x) gamma + beta rounded to T (the expression of
 // ffn_partial_kernel's prologue), stats = (mean, 1/sigma) per row unless
 // null; the statistics over the first d_real columns (the rest padding)
 template <typename T, int kDim>
 __global__ void __launch_bounds__(kRowThreads)
     ln_rows_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
-                   const float* __restrict__ ln_b, float* __restrict__ xn,
+                   const float* __restrict__ ln_b, T* __restrict__ xn,
                    float* __restrict__ stats, int n_rows, int d_real) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
@@ -207,12 +222,62 @@ __global__ void __launch_bounds__(kRowThreads)
   for (int i = 0; i < kDim / 32; ++i) {
     const int col = lane + 32 * i;
     xn[(size_t)row * kDim + col] =
-        round_to<T>((v[i] - mean) * inv * ln_g[col] + ln_b[col]);
+        from_f32<T>((v[i] - mean) * inv * ln_g[col] + ln_b[col]);
   }
   if (stats != nullptr && lane == 0) {
     stats[2 * row] = mean;
     stats[2 * row + 1] = inv;
   }
+}
+
+// ln_rows_kernel at a width above kMaxDim: the row read three times (sum,
+// centred squares, output), lane l taking columns l, l + 32, ...
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+    ln_rows_wide_kernel(const T* __restrict__ x,
+                        const float* __restrict__ ln_g,
+                        const float* __restrict__ ln_b, T* __restrict__ xn,
+                        float* __restrict__ stats, int n_rows, int dim,
+                        int d_real) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const T* xr = x + (size_t)row * dim;
+  float s = 0.f;
+  for (int c = lane; c < dim; c += 32) s += to_f32(xr[c]);
+  const float mean = simulst::warp_sum(s) / d_real;
+  float q = 0.f;
+  for (int c = lane; c < d_real; c += 32) {
+    const float v = to_f32(xr[c]) - mean;
+    q += v * v;
+  }
+  const float inv = rsqrtf(simulst::warp_sum(q) / d_real + 1e-5f);
+  for (int c = lane; c < dim; c += 32)
+    xn[(size_t)row * dim + c] =
+        from_f32<T>((to_f32(xr[c]) - mean) * inv * ln_g[c] + ln_b[c]);
+  if (stats != nullptr && lane == 0) {
+    stats[2 * row] = mean;
+    stats[2 * row + 1] = inv;
+  }
+}
+
+// the LN row pass over n_rows rows of width dim: registers up to kMaxDim,
+// the walking variant above; returns a cudaError_t
+template <typename T>
+int launch_ln_rows(const T* x, const float* ln_g, const float* ln_b, T* xn,
+                   float* stats, int n_rows, int dim, int d_real,
+                   cudaStream_t s) {
+  const int blocks = simulst::ceil_div(n_rows, kRowThreads / 32);
+  if (dim > kMaxDim) {
+    ln_rows_wide_kernel<T><<<blocks, kRowThreads, 0, s>>>(
+        x, ln_g, ln_b, xn, stats, n_rows, dim, d_real);
+    return (int)cudaGetLastError();
+  }
+  FFN_DIM_DISPATCH(dim, {
+    ln_rows_kernel<T, kD><<<blocks, kRowThreads, 0, s>>>(
+        x, ln_g, ln_b, xn, stats, n_rows, d_real);
+    return (int)cudaGetLastError();
+  });
 }
 
 // callers of the tile_products, the tags of their shared store functors
@@ -229,27 +294,67 @@ struct BiasStore {
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     u[(size_t)m * hidden + n] = v + to_f32(b1[n]);
   }
+  // columns n and n + 1 at once (wgmma_product's epilogue)
+  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
+                                       float2) const {
+    simulst::store_pair(u + (size_t)m * hidden + n, v0 + to_f32(b1[n]),
+                        v1 + to_f32(b1[n + 1]));
+  }
 };
 
-// dh -> du = round_T(dh act'(u) m_a); u -> h_d = round_T(act(u) m_a); the
-// mask at the offsets of a hidden hidden_real wide
-template <typename T, int kAct, class Caller>
+// dh -> du = round_T(dh act'(u) m_a); h_d = round_T(act(u) m_a), both
+// stored as G (fp32, or bf16 where the products are wgmma's); the mask at
+// the offsets of a hidden hidden_real wide.  hd may be u itself (fp32: u
+// is overwritten with h_d)
+template <typename T, int kAct, class Caller, typename G = float>
 struct HiddenGradStore {
-  float* u;   // in: u, out: h_d
-  float* du;
+  const float* u;
+  G* hd;
+  G* du;
   int hidden, hidden_real;
   Dropout act_drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     const size_t off = (size_t)m * hidden + n;
     const float uu = u[off];
     const float mult = act_drop.scale((size_t)m * hidden_real + n, 0);
-    du[off] = round_to<T>(v * act_grad<kAct>(uu) * mult);
-    u[off] = round_to<T>(act_fn<kAct>(uu) * mult);
+    du[off] = from_f32<G>(round_to<T>(v * act_grad<kAct>(uu) * mult));
+    hd[off] = from_f32<G>(round_to<T>(act_fn<kAct>(uu) * mult));
+  }
+  // wgmma_product's epilogue: u of columns n and n + 1, read for a group
+  // of pairs before any is stored; then both columns at once
+  __device__ __forceinline__ float2 load(int m, int n) const {
+    return *reinterpret_cast<const float2*>(u + (size_t)m * hidden + n);
+  }
+  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
+                                       float2 uu) const {
+    const size_t off = (size_t)m * hidden + n;
+    const size_t moff = (size_t)m * hidden_real + n;
+    const float m0 = act_drop.scale(moff, 0), m1 = act_drop.scale(moff + 1, 0);
+    simulst::store_pair(du + off,
+                        round_to<T>(v0 * act_grad<kAct>(uu.x) * m0),
+                        round_to<T>(v1 * act_grad<kAct>(uu.y) * m1));
+    simulst::store_pair(hd + off, round_to<T>(act_fn<kAct>(uu.x) * m0),
+                        round_to<T>(act_fn<kAct>(uu.y) * m1));
   }
 };
 
+// C = A B as the FFN's products take it: bf16 operands on the tensor
+// cores (wgmma_product), any other on tile_product (kBN, kStaged as its)
+template <int kBN, bool kStaged = false, class A, class B, class Store>
+cudaError_t ffn_product(int M, int N, int K, int splits, A a, B b,
+                        Store store, cudaStream_t s) {
+  using TA = typename simulst::TileOperand<A>::type;
+  using TB = typename simulst::TileOperand<B>::type;
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value &&
+                std::is_same<TB, __nv_bfloat16>::value)
+    return simulst::wgmma_product(M, N, K, splits, a, b, store, s);
+  else
+    return simulst::tile_product<kBN, kStaged>(M, N, K, splits, a, b, store,
+                                               s);
+}
+
 inline bool ffn_dim_ok(int dim) {
-  return dim >= kDimStep && dim <= kMaxDim && dim % kDimStep == 0;
+  return dim >= kDimStep && dim % kDimStep == 0;
 }
 
 // the real widths of a padded call: at most the padded ones, and less than

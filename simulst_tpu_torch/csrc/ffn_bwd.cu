@@ -36,7 +36,7 @@ int launch_ffn_bwd(const void* x_, const void* w1_, const void* b1_,
       BiasStore<T, TagFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
   SIMULST_TRY((simulst::tile_product<128, true>(
       n, hidden, d, 1, RowMajor<float>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct, TagFfnBwd>{u, du, hidden, hidden_real,
+      HiddenGradStore<T, kAct, TagFfnBwd>{u, u, du, hidden, hidden_real,
                                           act_drop},
       s)));
   // N = d: 128 x 64 tiles, so that the grid spreads over the SMs

@@ -30,8 +30,10 @@
 //    at a time through a two-stage cp.async ring (h rows broadcast from
 //    shared memory), so that 40 rows take 40 blocks instead of 4.  ptxas:
 //    48 registers (bf16 40), no spills.
-// Dropout draws Philox bits keyed by (seed, row * D_out + column).  Any
-// other D_in and D_out up to 1024 reach the kernels zero-padded to the
+// Dropout draws Philox bits keyed by (seed, row * D_out + column).  The
+// kernels take any width (the row kernel stages W and h 64 k at a time,
+// the tile_products tile any shape); a D_in and a D_out that are not
+// multiples of 32 and 64 reach the kernels zero-padded to the
 // next multiples of 32 and 64 (ops/linear_res.py), with the real D_out
 // beside the padded one for the dropout offsets (common.cuh
 // unpadded_offset); padded columns of W, b and res are zero, so the real

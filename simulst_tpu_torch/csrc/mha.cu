@@ -30,17 +30,26 @@
 // does); the TPU kernel's exp(min(s, 80)) clamp is not copied: the running
 // max keeps every exponent <= 0.  Products run in fp32 on the CUDA cores.
 //
-// Head dims: any multiple of 8 from 8 to 128.  The kernels are templates on
+// Head dims: any multiple of 8.  Up to 128 the kernels are templates on
 // the staged head dim kHD, 64 or 128 (the next at or above hd): a head's
 // rows are staged into kHD-wide shared tiles whose features past hd are
 // zero-filled, so every dot product over d adds exact zeros past hd, and
 // only the hd real features of an output are stored.  At hd 64 and 128
 // nothing is padded.  kHD 128 doubles each thread's outputs along d (two
 // 64-feature column blocks); its blocks take more shared memory (one block
-// per SM instead of two).  Any other head dim up to 128 reaches the kernels
+// per SM instead of two).  Any other head dim reaches the kernels
 // zero-padded to the next multiple of 8 (ops/mha.py), with the real head
 // dim beside it for the scale 1 / sqrt(hd): the padded features add exact
-// zeros to every score, and their outputs (zero) are sliced away.
+// zeros to every score, and their outputs (zero) are sliced away.  Above
+// 128 (a 256-wide staged tile would not fit a block's shared memory with
+// the ring) the "wide" kernels run instead, correct rather than fast: one
+// block per query row of a head, which reads q . k and dO . v from device
+// memory one key a thread and walks the output features 128 at a time
+// (forward: the softmax's max, then its sum, then the output, the scores
+// recomputed in each pass; backward: a row pass writes dS and the dropped
+// probabilities to fp32 scratch and dQ, a key-row pass sums dK and dV over
+// the query rows ascending).  Their sums are not the tiled kernels' (no
+// other path exists above 128 to agree with).
 #include <math.h>
 
 #include "common.cuh"
@@ -53,7 +62,7 @@ using simulst::round_to;
 using simulst::to_f32;
 
 constexpr int kTile = 64;     // query rows / keys per tile
-constexpr int kMaxHD = 128;   // head dims: multiples of kHDStep up to kMaxHD
+constexpr int kMaxHD = 128;   // staged head dims up to it; wide kernels above
 constexpr int kHDStep = 8;
 
 struct Geometry {
@@ -943,12 +952,287 @@ int launch_bwd(const void* q, const void* k, const void* v, const int* kmask,
   return (int)cudaGetLastError();
 }
 
-// the head dim of D over `heads`, 0 unless a multiple of kHDStep up to
-// kMaxHD
+// ---------------------------------------------------------------------------
+// head dims above kMaxHD: the wide kernels
+// ---------------------------------------------------------------------------
+constexpr int kWideThreads = 128;
+
+// the block's max / sum of v (every thread gets it); red: kWideThreads / 32
+// floats of shared memory
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = simulst::warp_max(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int w = 1; w < kWideThreads / 32; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = simulst::warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float m = red[0];
+#pragma unroll
+  for (int w = 1; w < kWideThreads / 32; ++w) m += red[w];
+  return m;
+}
+
+// x . y over hd features, x fp32 in shared memory, y a row of T
+template <typename T>
+__device__ __forceinline__ float row_dot(const float* x, const T* y, int hd) {
+  float s = 0.f;
+  for (int d = 0; d < hd; ++d) s = fmaf(x[d], to_f32(y[d]), s);
+  return s;
+}
+
+// q . k_key * scale for query row qr of head h, batch b, -inf where the
+// pair is not visible (or key >= Tk)
+template <typename T>
+__device__ __forceinline__ float wide_score(const Geometry& g,
+                                            const float* qs, const T* k,
+                                            const int* kmask, int b, int h,
+                                            int qr, int key) {
+  if (key >= g.Tk || kmask[(size_t)b * g.Tk + key] == 0 ||
+      (g.causal && key > qr))
+    return -INFINITY;
+  return row_dot(qs, k + ((size_t)b * g.Tk + key) * (g.H * g.hd) + h * g.hd,
+                 g.hd) *
+         g.scale;
+}
+
+// acc[d] += sum over the tile's n keys j ascending of w[j] rows[key0 + j][d]
+// for the features d of this thread (t, t + kWideThreads, ...)
+template <typename T>
+__device__ __forceinline__ void wide_accumulate(float* acc, const float* w,
+                                                int n, const T* rows,
+                                                size_t row_stride, int hd) {
+  for (int j = 0; j < n; ++j) {
+    const float wj = w[j];
+    if (wj == 0.f) continue;
+    const T* r = rows + j * row_stride;
+    for (int d = threadIdx.x; d < hd; d += kWideThreads)
+      acc[d] = fmaf(wj, to_f32(r[d]), acc[d]);
+  }
+}
+
+// grid (Tq, H, B): out = sum_k round_T(p_k mult) v_k with p the softmax
+// of the scores (max, then sum, then the output: three passes over the
+// keys), lse = max + log(sum); zeros and lse +inf for a row that sees no
+// key.  Shared memory: q row, the output row, one tile of weights.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    mha_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ kmask,
+                        T* __restrict__ out, float* __restrict__ lse,
+                        Geometry g, Dropout drop) {
+  extern __shared__ __align__(16) float wide_smem[];
+  __shared__ float red[kWideThreads / 32];
+  float* qs = wide_smem;
+  float* acc = qs + g.hd;
+  float* ws = acc + g.hd;
+  const int qr = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int hd = g.hd, D = g.H * hd;
+  const size_t row = ((size_t)b * g.Tq + qr) * D + h * hd;
+  for (int d = t; d < hd; d += kWideThreads) {
+    qs[d] = to_f32(q[row + d]);
+    acc[d] = 0.f;
+  }
+  __syncthreads();
+  float m = -INFINITY;
+  for (int k0 = 0; k0 < g.Tk; k0 += kWideThreads)
+    m = fmaxf(m, wide_score(g, qs, k, kmask, b, h, qr, k0 + t));
+  m = block_max(m, red);
+  float l = 0.f;
+  if (m != -INFINITY)
+    for (int k0 = 0; k0 < g.Tk; k0 += kWideThreads) {
+      const float s = wide_score(g, qs, k, kmask, b, h, qr, k0 + t);
+      if (s != -INFINITY) l += expf(s - m);
+    }
+  l = block_sum(l, red);
+  if (m != -INFINITY)
+    for (int k0 = 0; k0 < g.Tk; k0 += kWideThreads) {
+      const int key = k0 + t;
+      const float s = wide_score(g, qs, k, kmask, b, h, qr, key);
+      float p = 0.f;
+      if (s != -INFINITY)
+        p = round_to<T>(expf(s - m) / l *
+                        drop.scale(prob_offset(g, b, h, qr, key), 0));
+      __syncthreads();   // the previous tile's weights are read
+      ws[t] = p;
+      __syncthreads();
+      wide_accumulate(acc, ws, min(kWideThreads, g.Tk - k0),
+                      v + ((size_t)b * g.Tk + k0) * D + h * hd, D, hd);
+    }
+  for (int d = t; d < hd; d += kWideThreads) out[row + d] = from_f32<T>(acc[d]);
+  if (t == 0)
+    lse[((size_t)b * g.H + h) * g.Tq + qr] =
+        m == -INFINITY ? INFINITY : m + logf(l);
+}
+
+// delta[(b H + h) Tq + q] = sum_d dout . out, one warp a row
+template <typename T>
+__global__ void __launch_bounds__(256)
+    mha_bwd_delta_wide_kernel(const T* __restrict__ out,
+                              const T* __restrict__ dout,
+                              float* __restrict__ delta, Geometry g,
+                              int rows) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int qr = row % g.Tq, bh = row / g.Tq;
+  const int h = bh % g.H, b = bh / g.H;
+  const size_t base = ((size_t)b * g.Tq + qr) * (g.H * g.hd) + h * g.hd;
+  float s = 0.f;
+  for (int c = lane; c < g.hd; c += 32)
+    s += to_f32(dout[base + c]) * to_f32(out[base + c]);
+  s = simulst::warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// grid (Tq, H, B): per key, p = exp(s - lse), pd = round_T(p mult) and
+// dS = round_T(p (dO . v mult - delta) scale) into the scratch rows of
+// this query row (row stride tk64), and dQ = sum_k dS_k k_k
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    mha_bwd_rows_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const int* __restrict__ kmask,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const T* __restrict__ dout, T* __restrict__ dq,
+                             float* __restrict__ ds, float* __restrict__ pd,
+                             int tk64, Geometry g, Dropout drop) {
+  extern __shared__ __align__(16) float wide_smem[];
+  float* qs = wide_smem;
+  float* dos = qs + g.hd;
+  float* acc = dos + g.hd;
+  float* ws = acc + g.hd;
+  const int qr = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int hd = g.hd, D = g.H * hd;
+  const size_t row = ((size_t)b * g.Tq + qr) * D + h * hd;
+  const size_t head_row = ((size_t)b * g.H + h) * g.Tq + qr;
+  for (int d = t; d < hd; d += kWideThreads) {
+    qs[d] = to_f32(q[row + d]);
+    dos[d] = to_f32(dout[row + d]);
+    acc[d] = 0.f;
+  }
+  __syncthreads();
+  const float row_lse = lse[head_row], row_delta = delta[head_row];
+  for (int k0 = 0; k0 < g.Tk; k0 += kWideThreads) {
+    const int key = k0 + t;
+    const float s = wide_score(g, qs, k, kmask, b, h, qr, key);
+    float p_d = 0.f, d_s = 0.f;
+    if (s != -INFINITY) {
+      const float p = expf(s - row_lse);
+      const float mult = drop.scale(prob_offset(g, b, h, qr, key), 0);
+      const float dp =
+          row_dot(dos, v + ((size_t)b * g.Tk + key) * D + h * hd, hd);
+      p_d = round_to<T>(p * mult);
+      d_s = round_to<T>(p * (dp * mult - row_delta) * g.scale);
+    }
+    if (key < g.Tk) {
+      ds[head_row * tk64 + key] = d_s;
+      pd[head_row * tk64 + key] = p_d;
+    }
+    __syncthreads();
+    ws[t] = d_s;
+    __syncthreads();
+    wide_accumulate(acc, ws, min(kWideThreads, g.Tk - k0),
+                    k + ((size_t)b * g.Tk + k0) * D + h * hd, D, hd);
+  }
+  for (int d = t; d < hd; d += kWideThreads) dq[row + d] = from_f32<T>(acc[d]);
+}
+
+// grid (Tk, H, B): dK_k = sum_q dS[q][k] q_q and dV_k = sum_q pd[q][k]
+// dO_q over the query rows ascending (under the causal rule from row k)
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    mha_bwd_keys_wide_kernel(const T* __restrict__ q,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ ds,
+                             const float* __restrict__ pd,
+                             T* __restrict__ dk, T* __restrict__ dv,
+                             int tk64, Geometry g) {
+  extern __shared__ __align__(16) float wide_smem[];
+  float* dka = wide_smem;
+  float* dva = dka + g.hd;
+  float* w = dva + g.hd;   // [2][kWideThreads]: dS, then pd
+  const int key = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t = threadIdx.x;
+  const int hd = g.hd, D = g.H * hd;
+  for (int d = t; d < hd; d += kWideThreads) dka[d] = dva[d] = 0.f;
+  const size_t head = ((size_t)b * g.H + h) * g.Tq;
+  const int q_begin = g.causal ? key : 0;
+  for (int q0 = q_begin; q0 < g.Tq; q0 += kWideThreads) {
+    const int qr = q0 + t;
+    __syncthreads();
+    w[t] = qr < g.Tq ? ds[(head + qr) * tk64 + key] : 0.f;
+    w[kWideThreads + t] = qr < g.Tq ? pd[(head + qr) * tk64 + key] : 0.f;
+    __syncthreads();
+    const int n = min(kWideThreads, g.Tq - q0);
+    const size_t r0 = ((size_t)b * g.Tq + q0) * D + h * hd;
+    wide_accumulate(dka, w, n, q + r0, D, hd);
+    wide_accumulate(dva, w + kWideThreads, n, dout + r0, D, hd);
+  }
+  const size_t row = ((size_t)b * g.Tk + key) * D + h * hd;
+  for (int d = t; d < hd; d += kWideThreads) {
+    dk[row + d] = from_f32<T>(dka[d]);
+    dv[row + d] = from_f32<T>(dva[d]);
+  }
+}
+
+template <typename T>
+int launch_fwd_wide(const void* q, const void* k, const void* v,
+                    const int* kmask, void* out, float* lse, int B,
+                    const Geometry& g, Dropout drop, cudaStream_t s) {
+  const size_t smem = (2 * (size_t)g.hd + kWideThreads) * sizeof(float);
+  SIMULST_TRY(allow_smem(mha_fwd_wide_kernel<T>, smem));
+  mha_fwd_wide_kernel<T><<<dim3(g.Tq, g.H, B), kWideThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kmask, static_cast<T*>(out), lse, g, drop);
+  return (int)cudaGetLastError();
+}
+
+// ds: the scratch of the tiled backward twice over, dS then pd
+template <typename T>
+int launch_bwd_wide(const void* q, const void* k, const void* v,
+                    const int* kmask, const void* out, const float* lse,
+                    const void* dout, void* dq, void* dk, void* dv,
+                    float* delta, float* ds, int B, const Geometry& g,
+                    Dropout drop, cudaStream_t s) {
+  const int rows = B * g.H * g.Tq;
+  const int tk64 = simulst::ceil_div(g.Tk, kTile) * kTile;
+  float* pd = ds + (size_t)rows * tk64;
+  mha_bwd_delta_wide_kernel<T><<<simulst::ceil_div(rows, 8), 256, 0, s>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, g,
+      rows);
+  SIMULST_TRY(cudaGetLastError());
+  const size_t rows_smem = (3 * (size_t)g.hd + kWideThreads) * sizeof(float);
+  SIMULST_TRY(allow_smem(mha_bwd_rows_wide_kernel<T>, rows_smem));
+  mha_bwd_rows_wide_kernel<T>
+      <<<dim3(g.Tq, g.H, B), kWideThreads, rows_smem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), kmask, lse, delta,
+          static_cast<const T*>(dout), static_cast<T*>(dq), ds, pd, tk64, g,
+          drop);
+  SIMULST_TRY(cudaGetLastError());
+  const size_t keys_smem =
+      (2 * (size_t)g.hd + 2 * kWideThreads) * sizeof(float);
+  SIMULST_TRY(allow_smem(mha_bwd_keys_wide_kernel<T>, keys_smem));
+  mha_bwd_keys_wide_kernel<T>
+      <<<dim3(g.Tk, g.H, B), kWideThreads, keys_smem, s>>>(
+          static_cast<const T*>(q), static_cast<const T*>(dout), ds, pd,
+          static_cast<T*>(dk), static_cast<T*>(dv), tk64, g);
+  return (int)cudaGetLastError();
+}
+
+// the head dim of D over `heads`, 0 unless a positive multiple of kHDStep
 int head_dim(int D, int heads) {
   if (heads <= 0 || D % heads != 0) return 0;
   const int hd = D / heads;
-  return hd % kHDStep == 0 && hd <= kMaxHD ? hd : 0;
+  return hd % kHDStep == 0 ? hd : 0;
 }
 
 // runs the statement with kH bound to the staged head dim of hd and kP to
@@ -982,7 +1266,8 @@ bool hd_real_ok(int hd, int hd_real) {
 }  // namespace
 
 // q: (B, Tq, D); k, v: (B, Tk, D), all of `dtype`, D = heads * hd with hd
-// a multiple of 8 up to 128, each starting on a 16-byte boundary; hd_real
+// a multiple of 8 (above 128 the wide kernel, whatever the path), each
+// starting on a 16-byte boundary; hd_real
 // the head dim of a call zero-padded to hd (hd itself when nothing is
 // padded; less than 8 below it), whose 1 / sqrt scales the scores; kmask:
 // (B, Tk) int32; out: (B, Tq, D);
@@ -1004,6 +1289,12 @@ extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > kMaxHD) {
+    const Geometry g = make_geometry(Tq, Tk, heads, hd, hd_real, causal);
+    SIMULST_DISPATCH(dtype, return launch_fwd_wide<scalar_t>(
+                                q, k, v, static_cast<const int*>(kmask), out,
+                                static_cast<float*>(lse), B, g, drop, s));
+  }
   MHA_HD_DISPATCH(hd, SIMULST_DISPATCH(dtype, return launch_fwd<scalar_t, kH, kP>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<float*>(lse), B, Tq, Tk, heads, hd,
@@ -1012,7 +1303,8 @@ extern "C" int simulst_mha_fwd(int dtype, const void* q, const void* k,
 
 // The backward of simulst_mha_fwd: dq (B, Tq, D), dk and dv (B, Tk, D) from
 // the forward's inputs, its out and lse, and dout (B, Tq, D).  Scratch,
-// fp32: delta (B, heads, Tq) and ds (B, heads, Tq, Tk rounded up to 64).
+// fp32: delta (B, heads, Tq) and ds (B, heads, Tq, Tk rounded up to 64),
+// twice that above head dim 128 (the wide kernels' dS and probabilities).
 // q, k, v, dout, dq, dk and dv start on a 16-byte boundary; hd_real as the
 // forward's.  Returns a cudaError_t.
 extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
@@ -1032,6 +1324,14 @@ extern "C" int simulst_mha_bwd(int dtype, const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const Dropout drop = make_dropout(dropout, seed, threshold, inv_keep);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd > kMaxHD) {
+    const Geometry g = make_geometry(Tq, Tk, heads, hd, hd_real, causal);
+    SIMULST_DISPATCH(dtype, return launch_bwd_wide<scalar_t>(
+                                q, k, v, static_cast<const int*>(kmask), out,
+                                static_cast<const float*>(lse), dout, dq, dk,
+                                dv, static_cast<float*>(delta),
+                                static_cast<float*>(ds), B, g, drop, s));
+  }
   MHA_HD_DISPATCH(hd, SIMULST_DISPATCH(dtype, return launch_bwd<scalar_t, kH, kP>(
                               q, k, v, static_cast<const int*>(kmask), out,
                               static_cast<const float*>(lse), dout, dq, dk,

@@ -72,9 +72,9 @@ SIGNATURES = {
     "simulst_mha_bwd": [_I] + [_P] * 12 + [_I] * 8 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads, xn, stats, u,
-    # du, g, dn, partial, n_rows, dim, hidden, splits, dim_real,
+    # hd, du, g, dn, partial, n_rows, dim, hidden, splits, dim_real,
     # hidden_real, seed, act site, out site, stream
-    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 16 + [_I] * 6 + _DROP
+    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 17 + [_I] * 6 + _DROP
                           + _DROP[1:] + [_P],
     # dtype, q3, k, v, lengths, kid, seg_eid, out, batch, ng, nq, dim,
     # heads, hd_real, seg, lc, rc, max_mem, G, tk, unit_cols, smem_bytes,
@@ -194,6 +194,20 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def sass_functions(sass: str) -> dict:
+    """{mangled kernel name: its SASS} from `cuobjdump --dump-sass` of the
+    library (a kernel built in several sources: their SASS one after the
+    other)."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out.setdefault(name, "")
+        elif name is not None:
+            out[name] += line + "\n"
+    return out
 
 
 def dtype_code(t: torch.Tensor) -> int:

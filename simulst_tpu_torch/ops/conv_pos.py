@@ -9,8 +9,8 @@ torch's conv layout (the JAX package keeps (K, D / groups, D)).  Its
 forward and its input gradient are ordinary convolutions (`F.conv1d`,
 `torch.nn.grad.conv1d_input`), as they are XLA convolutions in the JAX
 package; its weight gradient is `convpos_wgrad`: the CUDA kernel of
-csrc/conv_pos.cu on a CUDA tensor (D / groups channels per group from 1
-to 64: `check_channels`; a count other than 1 that is not a multiple of 4
+csrc/conv_pos.cu on a CUDA tensor (any number D / groups of channels per
+group: `check_channels`; a count other than 1 that is not a multiple of 4
 reaches it with each group zero-padded to the next multiple of 4, and the
 gradient is sliced back), the plain version
 `convpos_wgrad_plain` on a CPU tensor.  Both sum in fp32 and
@@ -23,8 +23,8 @@ import torch.nn.functional as F
 
 from simulst_tpu_torch.ops import _build
 
-MAX_CHANNELS = 64   # channels per group up to this (the kernel's: 1 or a
-CHANNEL_STEP = 4    # multiple of this; others are padded)
+CHANNEL_STEP = 4    # channels per group the kernel takes: 1 or a multiple
+                    # of this; others are padded
 BATCH_SPLITS = 8          # batch slices the kernel sums as fp32 partials
 
 
@@ -45,13 +45,12 @@ def convpos_wgrad_plain(xp, dy, taps: int, groups: int):
 
 def check_channels(name: str, d: int, groups: int) -> int:
     """The channels per group D / groups; a ValueError naming them unless
-    the kernel takes them (from 1 to MAX_CHANNELS, D a whole number of
-    groups)."""
+    the kernel takes them (at least one, D a whole number of groups)."""
     cg = d // groups if groups > 0 else 0
-    if groups <= 0 or cg * groups != d or not 1 <= cg <= MAX_CHANNELS:
+    if groups <= 0 or cg * groups != d or cg < 1:
         raise ValueError(
-            f"{name}: kernel takes 1 to {MAX_CHANNELS} channels per group; "
-            f"got D {d} in {groups} groups")
+            f"{name}: kernel takes a positive number of channels per group, "
+            f"D a whole number of groups; got D {d} in {groups} groups")
     return cg
 
 

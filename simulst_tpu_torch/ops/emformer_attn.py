@@ -12,10 +12,11 @@ q3's device: kid (B, Tk), the example id of each key row, and seg_eid
 sees a key row only where seg_eid[b, s] == kid[b, row], besides the
 length rule.  Equality is the whole rule (dead frames and segments carry
 -1 and see each other).  Returns (B, ng, nq, D), before out_proj.  On a CUDA tensor the kernels of
-csrc/emformer_attn.cu run, at any head dim D / heads from 1 to 128
-(`check_head_dim`; one that is not a multiple of 8 reaches them with each
-head zero-padded to the next one, the real head dim beside it for the
-scale, and the outputs are sliced back); on a CPU tensor `grouped_attention_plain` and
+csrc/emformer_attn.cu run, at any head dim D / heads (`check_head_dim`;
+one that is not a multiple of 8 reaches them with each head zero-padded
+to the next one, the real head dim beside it for the scale, and the
+outputs are sliced back; above 128 the wide kernels, correct rather than
+fast); on a CPU tensor `grouped_attention_plain` and
 `grouped_attention_plain_backward`, the gathered-context formulation of
 nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
 ops/philox.py's mask, stream 0, at the row-major offset of each element of
@@ -39,6 +40,7 @@ MAX_ACC_FEATURES = 64  # kMaxAccFeatures: the dK / dV walks' features a pass
 MIN_ACC_FEATURES = 16  # kMinAccFeatures: ... at the least
 ROW_TILE, COL_TILE = 32, 64  # kRowTile, kColTile: a unit's padded tiles
 SMEM_LIMIT = 227 * 1024      # shared memory one block may take on sm_90
+MAX_STAGED_HEAD_DIM = 128    # kMaxHeadDim: the wide kernels above
 
 
 def staged_head_dim(hd: int) -> int:
@@ -95,9 +97,11 @@ class UnitShape(NamedTuple):
     rows: int      # the segment's query rows: rc + seg + 1
     cols: int      # the context slots they see at most: max_mem + rc + lc + seg
     fwd_smem: int  # shared-memory bytes of a forward block (one unit)
-    bwd_smem: int  # ... of a backward block (the group's G units)
+    bwd_smem: int  # ... of a backward block (the group's G units; one unit
+                   # in the wide kernels)
     probs: int     # fp32 scratch of a backward block: G x 2 x rows x cols_pad
     acc_features: int  # features of the backward's dK / dV accumulators
+                       # (0: the wide kernels hold none)
 
 
 def unit_shape(geom: AttnGeom, head_dim: int) -> UnitShape:
@@ -109,11 +113,19 @@ def unit_shape(geom: AttnGeom, head_dim: int) -> UnitShape:
     + 4; three ints per column; the backward adds fp32 dK and dV
     accumulators of F features over the whole group context, F the
     largest of MAX_ACC_FEATURES, its half, ... down to MIN_ACC_FEATURES
-    with which the block fits (`acc_features`)."""
+    with which the block fits (`acc_features`).  Above
+    MAX_STAGED_HEAD_DIM the wide kernels' blocks hold only the unit's
+    matrices: one (the forward) or three (a backward unit block) and the
+    three ints per column (csrc/emformer_attn.cu `wide_*_smem_bytes`)."""
     rows = geom.rc + geom.seg + 1
     cols = geom.max_mem + geom.rc + geom.lc + geom.seg
     rp = -(-rows // ROW_TILE) * ROW_TILE
     cp = -(-cols // COL_TILE) * COL_TILE
+    if head_dim > MAX_STAGED_HEAD_DIM:
+        matrix = rp * (cp + 4)
+        return UnitShape(rows, cols, 4 * (matrix + 3 * cp),
+                         4 * (3 * matrix + 3 * cp), 2 * geom.G * rows * cp,
+                         0)
     shd = staged_head_dim(head_dim)
     ld = shd + 4
     tiles = rp * ld + 2 * cp * ld + rp * (cp + 4)

@@ -9,15 +9,19 @@ backward (the JAX package computes silu and tanh in XLA; the port runs
 every activation through its kernel).  Both
 run the CUDA kernels of csrc/ffn.cu (the forward), ffn_bwd.cu and
 ln_ffn_bwd.cu (the backwards; ffn.cuh what they share) on a CUDA tensor,
-at any row count, any width D from 1 to 1024 and any hidden width
-(`check_widths`; a wider D raises): a D or hidden that is not a multiple of
-64 reaches the kernels zero-padded to the next one, with the real widths
-beside them (LN's statistics over the real D, the dropout offsets of the
-unpadded tensors), and the outputs are sliced back; and
-their plain PyTorch versions (`ln_ffn_res_plain`,
-`ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`) on a CPU
-tensor.  GELU is the exact erf form.  Weights keep the JAX layout: w1 (D,
-H), w2 (H, D).  The plain versions round to the activation dtype where the
+at any row count and any positive widths D and hidden (`check_widths`): a
+D or hidden that is not a multiple of 64 reaches the kernels zero-padded
+to the next one, with the real widths beside them (LN's statistics over
+the real D, the dropout offsets of the unpadded tensors), and the outputs
+are sliced back; above D 1024 the LN row passes walk each row instead of
+holding it in registers.  In bf16 the tiled forward's products and the
+LN-FFN backward's five run on the tensor cores (csrc/wgmma.cuh), their
+bf16 intermediates (xn, h, g, du) in bf16 buffers; everything else
+multiplies in fp32 on the CUDA cores.  On a CPU tensor they run their
+plain PyTorch versions (`ln_ffn_res_plain`,
+`ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`).  GELU
+is the exact erf form.  Weights keep the JAX layout: w1 (D, H), w2 (H,
+D).  The plain versions round to the activation dtype where the
 kernel does (fc1 input, hidden, the gradients the JAX kernel casts), so
 bf16 compares like with like; in fp32 they are the JAX package's
 ln_ffn_res_reference and ffn_reference at dropout 0.  LN statistics and the
@@ -42,7 +46,7 @@ from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
 DIM_STEP = 64        # the kernels' D: a multiple of it (csrc/ffn.cuh
-MAX_DIM = 1024       # kDimStep) up to this (kMaxDim); others are padded
+                     # kDimStep); others are padded
 # the widths the fused row-block kernel is built for (FFN_FUSED_DIM_DISPATCH:
 # its shared memory grows with D); the forward runs its tiled path at every
 # row count at the others
@@ -50,11 +54,16 @@ FUSED_DIMS = (64, 128, 256, 512)
 HIDDEN_CHUNK = 64    # hidden columns per inner step (csrc/ffn.cuh kChunk)
 ROWS_PER_BLOCK = 32  # csrc/ffn.cuh kRows
 WGRAD_TILE = 64      # k_splits counts weight-gradient tiles of 64 x 64
-# the forward runs on tile_product from this many rows up, below it as the
-# fused row-block kernel: both give the same bits, and on an H100 the two
-# take the same time at 384-512 rows, where the fused kernel still has 16
-# hidden splits; from 513 rows it has 8 (PERF.md)
+# the forward runs its tiled path from this many rows up, below it as the
+# fused row-block kernel.  fp32: both on the CUDA cores, the same bits,
+# the same time on an H100 at 384-512 rows, where the fused kernel still
+# has 16 hidden splits; from 513 rows it has 8 (PERF.md)
 TILED_MIN_ROWS = 512
+# ... in bf16, where the tiled path's products run on the tensor cores
+# (within bf16 tolerance of the fused kernel): on an H100 the fused kernel
+# is faster up to 256 rows (LN-FFN), the tiled path from 384 on
+# (tools/kernel_bitcheck.py --time's bf16 sweep, PERF.md)
+BF16_TILED_MIN_ROWS = 384
 ACTIVATION_CODES = {"gelu": 0, "relu": 1, "silu": 2, "tanh": 3}
 
 
@@ -205,18 +214,22 @@ class SlicePlan(NamedTuple):
     bwd_splits: int
 
 
-def slice_plan(rows: int, hidden: int, sms: int, dim: int) -> SlicePlan:
+def slice_plan(rows: int, hidden: int, sms: int, dim: int,
+               dtype=torch.float32) -> SlicePlan:
     """The FFN kernels' plan for `rows` rows of width `dim` and hidden
     width `hidden` on a card of `sms` SMs; hidden / splits is a multiple of
-    HIDDEN_CHUNK.  The forward is tiled from TILED_MIN_ROWS rows, and at
-    every row count at a width outside FUSED_DIMS."""
+    HIDDEN_CHUNK.  The forward is tiled from TILED_MIN_ROWS rows
+    (BF16_TILED_MIN_ROWS in bf16), and at every row count at a width
+    outside FUSED_DIMS."""
     tiles = -(-rows // ROWS_PER_BLOCK)
     chunks = hidden // HIDDEN_CHUNK
     splits = 1
     while tiles * splits < sms and chunks % (2 * splits) == 0:
         splits *= 2
     out_tiles = -(-dim // WGRAD_TILE) * -(-hidden // WGRAD_TILE)
-    return SlicePlan(rows >= TILED_MIN_ROWS or dim not in FUSED_DIMS, splits,
+    min_rows = BF16_TILED_MIN_ROWS if dtype == torch.bfloat16 \
+        else TILED_MIN_ROWS
+    return SlicePlan(rows >= min_rows or dim not in FUSED_DIMS, splits,
                      _row_slices(rows, out_tiles, sms))
 
 
@@ -235,11 +248,10 @@ def k_splits(rows: int, out_tiles: int, device) -> int:
 
 
 def check_widths(name: str, d: int, hidden: int) -> None:
-    """Raise a ValueError naming the width unless the kernels take it: D
-    from 1 to MAX_DIM, a positive hidden."""
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"{name}: kernel takes D from 1 to {MAX_DIM}; got "
-                         f"D={d}")
+    """Raise a ValueError naming the width unless the kernels take it: a
+    positive D and a positive hidden."""
+    if d < 1:
+        raise ValueError(f"{name}: kernel takes a positive D; got D={d}")
     if hidden <= 0:
         raise ValueError(f"{name}: kernel takes a positive hidden width; "
                          f"got {hidden}")
@@ -306,14 +318,15 @@ def _launch(ln_res: bool, x, ln_g, ln_b, w1, b1, w2, b2, activation="gelu",
     if ln_res:
         ln_g, ln_b = _build.padded(ln_g, d), _build.padded(ln_b, d)
     y = torch.empty_like(x2)
-    plan = slice_plan(n, hidden, _sm_count(x.device.index), d)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    partial = torch.empty(plan.splits, n, d, **f32)
+    plan = slice_plan(n, hidden, _sm_count(x.device.index), d, x.dtype)
+    partial = torch.empty(plan.splits, n, d, dtype=torch.float32,
+                          device=x.device)
     xn = h = None
-    if plan.tiled:
-        x2, w1, w2 = (_build.aligned(t) for t in (x2, w1, w2))  # operands
-        h = torch.empty(n, hidden, **f32)
-        xn = torch.empty(n, d, **f32) if ln_res else None
+    if plan.tiled:   # the products' operands, of the activation dtype
+        x2, w1, w2 = (_build.aligned(t) for t in (x2, w1, w2))
+        h = torch.empty(n, hidden, dtype=x2.dtype, device=x.device)
+        xn = torch.empty(n, d, dtype=x2.dtype, device=x.device) \
+            if ln_res else None
     _build.launch(
         "simulst_ffn", _build.dtype_code(x2), int(ln_res),
         ACTIVATION_CODES[activation], x2.data_ptr(),
@@ -342,8 +355,8 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     grads = torch.zeros(length, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        splits = slice_plan(n, hidden, _sm_count(x.device.index),
-                            d).bwd_splits
+        splits = slice_plan(n, hidden, _sm_count(x.device.index), d,
+                            x.dtype).bwd_splits
         u = torch.empty(n, hidden, **f32)
         du = torch.empty(n, hidden, **f32)
         g = torch.empty(n, d, **f32)
@@ -386,10 +399,17 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
     grads = torch.zeros(o_db2 + 3 * d, **f32)
     dx = torch.zeros_like(x2)
     if n:
-        splits = slice_plan(n, hidden, _sm_count(x.device.index),
-                            d).bwd_splits
-        xn, g, dn = (torch.empty(n, d, **f32) for _ in range(3))
-        u, du = (torch.empty(n, hidden, **f32) for _ in range(2))
+        splits = slice_plan(n, hidden, _sm_count(x.device.index), d,
+                            x.dtype).bwd_splits
+        # the products' operands of the activation dtype (bf16: on the
+        # tensor cores); in fp32 h_d overwrites u
+        act = dict(dtype=x2.dtype, device=x.device)
+        xn, g = torch.empty(n, d, **act), torch.empty(n, d, **act)
+        dn = torch.empty(n, d, **f32)
+        u = torch.empty(n, hidden, **f32)
+        du = torch.empty(n, hidden, **act)
+        hd = u if x2.dtype == torch.float32 else torch.empty(n, hidden,
+                                                             **act)
         stats = torch.empty(n, 2, **f32)
         partial = torch.zeros(splits, grads.numel(), **f32)
         _build.launch(
@@ -397,10 +417,10 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
             ACTIVATION_CODES[activation], x2.data_ptr(), ln_g.data_ptr(),
             ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), xn.data_ptr(),
-            stats.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
-            dn.data_ptr(), partial.data_ptr(), n, d, hidden, splits, d_real,
-            h_real, *_dropout_sites(act_rate, out_rate, seed),
-            _build.stream_of(x2))
+            stats.data_ptr(), u.data_ptr(), hd.data_ptr(), du.data_ptr(),
+            g.data_ptr(), dn.data_ptr(), partial.data_ptr(), n, d, hidden,
+            splits, d_real, h_real,
+            *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
         fused_ln_ffn_res_backward.launches += 1
     return (_build.unpadded(dx, d_real).reshape(x.shape),
             grads[o_db2 + d:o_db2 + d + d_real],

@@ -8,9 +8,9 @@ backward).
 Rows are counted in the flattened row-major order of h's leading axes;
 period = 0 makes every row a residual row.  On a CUDA tensor the CUDA
 kernels of csrc/linear_res.cu run (the forward on one of two paths that
-give the same bits, as `fwd_plan` picks by row count) at any D_in and D_out
-from 1 to 1024 (`check_widths`; a D_in not a multiple of 32 or a D_out not
-a multiple of 64 reaches them zero-padded to the next one, the real D_out
+give the same bits, as `fwd_plan` picks by row count) at any positive D_in
+and D_out (`check_widths`; a D_in not a multiple of 32 or a D_out not a
+multiple of 64 reaches them zero-padded to the next one, the real D_out
 beside it for the dropout offsets, and the output is sliced back); on a
 CPU tensor
 `linear_res_plain` and `linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
@@ -28,7 +28,6 @@ from simulst_tpu_torch.ops.philox import drop_scale
 
 K_STEP = 32      # csrc/linear_res.cu kBK: the kernels' D_in a multiple
 COL_TILE = 64    # csrc/linear_res.cu kBN: the kernels' D_out a multiple
-MAX_DIM = 1024   # D_in and D_out up to this
 # the forward's paths, which give the same bits: the row kernel (8 rows x
 # 32 columns per block) below TILED_MIN_ROWS, tile_product with 128 x 64
 # output tiles from it, with 128 x 128 tiles from WIDE_MIN_ROWS (H100
@@ -90,10 +89,10 @@ def fwd_plan(rows: int) -> str:
 
 def check_widths(name: str, din: int, dout: int) -> None:
     """Raise a ValueError naming the widths unless the kernels take them:
-    D_in and D_out from 1 to MAX_DIM."""
-    if not (1 <= din <= MAX_DIM and 1 <= dout <= MAX_DIM):
-        raise ValueError(f"{name}: kernel takes D_in and D_out from 1 to "
-                         f"{MAX_DIM}; got D_in={din}, D_out={dout}")
+    a positive D_in and D_out."""
+    if din < 1 or dout < 1:
+        raise ValueError(f"{name}: kernel takes a positive D_in and D_out; "
+                         f"got D_in={din}, D_out={dout}")
 
 
 def _check(name, h, w, res=None, period=0):

@@ -6,11 +6,12 @@ qp (B, Tq, D), kp / vp (B, Tk, D), heads are column slices of D;
 kmask (B, Tk) int32, nonzero where the key may be attended; `causal` adds
 key <= query; dropout at `rate` on the probabilities.  Returns the merged
 (B, Tq, D) output.  On a CUDA tensor the CUDA kernels of csrc/mha.cu run
-(any head dim D / heads from 1 to 128, `check_head_dim`, and any Tq and
-Tk; a head dim that is not a multiple of 8 reaches them with each head
-zero-padded to the next one, the real head dim beside it for the scale,
-and the outputs are sliced back; the forward on one of two kernels
-that give the same bits, as `fwd_plan` picks by Tq); on a CPU tensor
+(any head dim D / heads, `check_head_dim`, and any Tq and Tk; a head dim
+that is not a multiple of 8 reaches them with each head zero-padded to
+the next one, the real head dim beside it for the scale, and the outputs
+are sliced back; up to head dim 128 the forward on one of two kernels
+that give the same bits, as `fwd_plan` picks by Tq, above it the wide
+kernels, correct rather than fast); on a CPU tensor
 `mha_plain` and `mha_plain_backward`.  The softmax is the running-max form in fp32; a
 query row that sees no key returns exact zeros, as the JAX kernel's -1e9
 bias with its 1e-30 denominator does.  Probabilities are rounded to the
@@ -28,7 +29,8 @@ from simulst_tpu_torch.ops import _build
 from simulst_tpu_torch.ops.philox import drop_scale
 
 HEAD_DIM_STEP = 8    # the kernels' head dim: a multiple of it (csrc/mha.cu
-MAX_HEAD_DIM = 128   # kHDStep) up to this (kMaxHD); others are padded
+                     # kHDStep); others are padded
+MAX_HEAD_DIM = 128   # the tiled kernels' (kMaxHD); the wide kernels above
 KEY_TILE = 64    # csrc/mha.cu kTile: the dS scratch's rows are whole tiles
 # the forward runs the decode kernel (up to 2 query rows of a head per
 # block) up to this many query rows, the training kernel (64-row q tiles)
@@ -106,13 +108,12 @@ def mha_plain_backward(qp, kp, vp, kmask, dout, num_heads: int,
 
 def check_head_dim(name: str, d: int, num_heads: int) -> int:
     """The head dim D / num_heads; a ValueError naming it unless the
-    kernels take it (from 1 to MAX_HEAD_DIM, D a whole number of heads)."""
+    kernels take it (a positive head dim, D a whole number of heads)."""
     hd = d // num_heads if num_heads > 0 else 0
-    if num_heads <= 0 or hd * num_heads != d or \
-            not 1 <= hd <= MAX_HEAD_DIM:
+    if num_heads <= 0 or hd * num_heads != d or hd < 1:
         raise ValueError(
-            f"{name}: kernel takes a head dim from 1 to {MAX_HEAD_DIM}; got "
-            f"D {d} over {num_heads} heads")
+            f"{name}: kernel takes a positive head dim, D a whole number of "
+            f"heads; got D {d} over {num_heads} heads")
     return hd
 
 
@@ -146,12 +147,15 @@ def _check_lse(lse, qp, num_heads):
                          f"tensor on {qp.device}")
 
 
-def backward_scratch_shapes(b: int, num_heads: int, tq: int, tk: int):
+def backward_scratch_shapes(b: int, num_heads: int, tq: int, tk: int,
+                            hd: int = 0):
     """Shapes of the backward kernels' fp32 scratch: delta = dO . O per
     query row (B, H, Tq), and dS (B, H, Tq, Tk rounded up to KEY_TILE),
-    which the dK / dV kernel writes and the dQ kernel reads."""
-    return ((b, num_heads, tq),
-            (b, num_heads, tq, -(-tk // KEY_TILE) * KEY_TILE))
+    which the dK / dV kernel writes and the dQ kernel reads; above head
+    dim MAX_HEAD_DIM twice that (the wide kernels' dS and dropped
+    probabilities)."""
+    ds = (b, num_heads, tq, -(-tk // KEY_TILE) * KEY_TILE)
+    return ((b, num_heads, tq), (2, *ds) if hd > MAX_HEAD_DIM else ds)
 
 
 def _launch(qp, kp, vp, kmask, num_heads, causal, rate, seed):
@@ -202,7 +206,7 @@ def _launch_backward(qp, kp, vp, kmask, out, lse, dout, num_heads, causal,
         on, seed64, thr, inv = _build.dropout_args(rate, seed)
         delta, ds = (torch.empty(shape, dtype=torch.float32, device=qp.device)
                      for shape in backward_scratch_shapes(b, num_heads, tq,
-                                                          tk))
+                                                          tk, hdp))
         _build.launch("simulst_mha_bwd", _build.dtype_code(qp), qp.data_ptr(),
                       kp.data_ptr(), vp.data_ptr(), kmask.data_ptr(),
                       out.data_ptr(), lse.data_ptr(), dout.data_ptr(),

@@ -19,14 +19,19 @@ entries (both sides take the same cumsums; only the order of the sums
 over frames differs).  The grouped attention's example-id gate
 (sequence-packed rows) holds its forward and backward to the dense
 kernels' tolerances.  The FFN kernels' silu and tanh run fp32 and bf16
-at these tolerances.
+at these tolerances.  The bf16 LN-FFN forward's tiled path and its
+backward run their products on the tensor cores: held to their plain
+versions at the bf16 tolerance (with relu, the plain backward under the
+kernel's own relu mask), the same bits twice, HGMMA in their SASS.  The
+widths above the old maxima (D 1280 / 2048, head dims 160 / 256, 96 /
+128 channels a group) run their kernels at the fp32 tolerances.
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from simulst_tpu_torch.ops import (cif_integrate, conv_pos, ctc,  # noqa: E402
-                                   linear_res, mha, monotonic_align)
+                                   ffn, linear_res, mha, monotonic_align)
 from simulst_tpu_torch.nn.emformer import (EmformerConfig,  # noqa: E402
                                            make_packed_eids)
 from simulst_tpu_torch.ops.emformer_attn import (  # noqa: E402
@@ -1003,7 +1008,11 @@ def test_label_encoder_kernels_at_the_transducer_shapes(randn, rate):
 # and 800, head dims 4, 8, 12, 50 and 100
 WIDTH_CORNERS = [(64, 4, 256), (128, 4, 512), (384, 4, 1536),
                  (512, 4, 2048), (1024, 8, 4096), (16, 4, 32), (16, 2, 48),
-                 (48, 4, 100), (200, 4, 800), (200, 2, 48)]
+                 (48, 4, 100), (200, 4, 800), (200, 2, 48),
+                 # above the old maxima: D 1280 and 2048 (the LN row passes
+                 # walking each row), head dims 160 and 256 (the wide
+                 # attention kernels)
+                 (1280, 8, 2560), (2048, 8, 1024)]
 
 
 @pytest.mark.cuda
@@ -1077,11 +1086,13 @@ def test_kernels_take_every_width(randn, d, heads, hidden, rate):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,groups", [(64, 16), (512, 16), (1024, 16),
                                       (256, 256), (32, 16), (48, 16),
-                                      (96, 16), (800, 16)])
+                                      (96, 16), (800, 16), (1536, 16),
+                                      (2048, 16), (200, 2)])
 def test_convpos_wgrad_takes_every_channel_count(randn, d, groups):
-    """4, 32, 64 and 1 channels a group, and 2, 3, 6 and 50 (padded to
-    4, 4, 8 and 52), K 64, (B, T) (5, 70): within 1e-4 of the largest
-    entry, through the kernel (its launch counted)."""
+    """4, 32, 64 and 1 channels a group, 2, 3, 6 and 50 (padded to 4, 4, 8
+    and 52), and above the old maximum of 64: 96, 128 and 100 (padded to
+    104), K 64, (B, T) (5, 70): within 1e-4 of the largest entry, through
+    the kernel (its launch counted)."""
     xp, dy = randn(5, 70 + 63, d), randn(5, 70, d)
     before = conv_pos.convpos_wgrad.launches
     _close_to_largest(conv_pos.convpos_wgrad(xp, dy, 64, groups),
@@ -1091,12 +1102,14 @@ def test_convpos_wgrad_takes_every_channel_count(randn, d, groups):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("din,dout", [(16, 16), (48, 200), (200, 48),
-                                      (200, 200), (256, 256)])
+                                      (200, 200), (256, 256), (1280, 1280),
+                                      (1280, 200), (2000, 1280)])
 @pytest.mark.parametrize("rows", [40, 300, 2304])
 def test_linear_res_takes_every_width(randn, din, dout, rows):
     """D_in and D_out of 16, 48 and 200 (padded to multiples of 32 and
-    64) and 256, rate 0.1 with the Emformer gate, on the row kernel (40,
-    300 rows) and the tiled path (2,304): the forward and backward against
+    64), 256, and above the old maximum of 1024: 1280 and 2000, rate 0.1
+    with the Emformer gate, on the row kernel (40, 300 rows) and the tiled
+    path (2,304): the forward and backward against
     the plain versions at TOL, weight gradients within 1e-4 of their
     largest entry, each call a launch."""
     h, res, dy = randn(rows, din), randn(rows, dout), randn(rows, dout)
@@ -1117,19 +1130,137 @@ def test_linear_res_takes_every_width(randn, din, dout, rows):
 
 @pytest.mark.cuda
 def test_wrappers_raise_outside_the_widths(randn):
-    """A CUDA tensor above the widths' maxima (D 1088, head dim 136, 68
-    channels a group) gives a ValueError naming them, never the plain
-    version."""
-    x = randn(4, 1088)
-    with pytest.raises(ValueError, match="D=1088"):
-        fused_ffn(x, randn(1088, 128), randn(128), randn(128, 1088),
-                  randn(1088))
-    with pytest.raises(ValueError, match="D_in=1088"):
-        linear_res.fused_linear_res_forward(x, randn(1088, 64), randn(64),
-                                            randn(4, 64))
+    """A CUDA tensor of a width no kernel takes (D not a whole number of
+    heads or groups, no width at all) gives a ValueError naming it, never
+    the plain version; D 1088, head dim 136 and 68 channels a group, above
+    the old maxima, run their kernels (their launches counted)."""
+    with pytest.raises(ValueError, match="D=0"):
+        fused_ffn(randn(4, 0), randn(0, 128), randn(128), randn(128, 0),
+                  randn(0))
     q = randn(2, 3, 4 * 136)
+    kmask = torch.ones(2, 3, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
-        fused_mha_forward(q, q, q, torch.ones(2, 3, dtype=torch.int32,
-                                              device="cuda"), 4)
+        fused_mha_forward(q, q, q, kmask, 3)
     with pytest.raises(ValueError, match="channel"):
-        conv_pos.convpos_wgrad(randn(2, 20, 1088), randn(2, 5, 1088), 16, 16)
+        conv_pos.convpos_wgrad(randn(2, 20, 1088), randn(2, 5, 1088), 16, 3)
+    x = randn(4, 1088)
+    before = (fused_ffn.launches, fused_linear_res.launches,
+              mha.fused_mha.launches, conv_pos.convpos_wgrad.launches)
+    xav = (6.0 / (1088 + 128)) ** 0.5
+    w1, b1 = randn(1088, 128, scale=xav), randn(128, scale=0.02)
+    w2, b2 = randn(128, 1088, scale=xav), randn(1088, scale=0.02)
+    torch.testing.assert_close(fused_ffn(x, w1, b1, w2, b2),
+                               ffn_plain(x, w1, b1, w2, b2), **TOL)
+    w, b, res = randn(1088, 64, scale=0.03), randn(64), randn(4, 64)
+    torch.testing.assert_close(
+        linear_res.fused_linear_res_forward(x, w, b, res),
+        linear_res_plain(x, w, b, res), **TOL)
+    torch.testing.assert_close(fused_mha_forward(q, q, q, kmask, 4)[0],
+                               mha_plain(q, q, q, kmask, 4), **TOL)
+    xp, dy = randn(2, 20, 1088), randn(2, 5, 1088)
+    _close_to_largest(conv_pos.convpos_wgrad(xp, dy, 16, 16),
+                      conv_pos.convpos_wgrad_plain(xp, dy, 16, 16))
+    assert (fused_ffn.launches, fused_linear_res.launches,
+            mha.fused_mha.launches, conv_pos.convpos_wgrad.launches) == \
+        tuple(n + 1 for n in before)
+
+
+# bf16 on the tensor cores: the LN-FFN forward's tiled path and its
+# backward (and the decoder FFN's forward, which shares the tiled path) at
+# asr-train's 12,288 rows x 256 x 2048, at a padded width (D 200, hidden
+# 800) and at D 512; BF16 as DTYPES["bf16"], weight gradients 1e-2 of the
+# largest entry
+BF16 = DTYPES["bf16"][1]
+BF16_SHAPES = {"asr": (12288, 256, 2048), "d200": (3000, 200, 800),
+               "d512": (3000, 512, 2048)}
+
+
+def _plain_ln_ffn_backward(x, ws, dy, cfg):
+    """ln_ffn_res_plain_backward; with relu under the kernel's relu mask
+    (chip_smoke.kernel_relu_mask: relu' jumps at u = 0, where the
+    kernels' and torch's roundings of u fall on either side for some
+    entries)."""
+    if cfg[0] != "relu":
+        return ln_ffn_res_plain_backward(x, *ws[:5], dy, *cfg)
+    import chip_smoke
+    return chip_smoke.plain_ln_ffn_backward_under(
+        x, ws, dy, cfg, chip_smoke.kernel_relu_mask(x, ws, cfg))
+
+
+def _bf16_ffn_inputs(randn, rows, d, hidden):
+    bf = torch.bfloat16
+    xav = (6.0 / (d + hidden)) ** 0.5
+    ws = [1 + randn(d, scale=0.1), randn(d, scale=0.1),
+          randn(d, hidden, scale=xav).to(bf), randn(hidden, scale=0.02).to(bf),
+          randn(hidden, d, scale=xav).to(bf), randn(d, scale=0.02).to(bf)]
+    return randn(rows, d).to(bf), randn(rows, d).to(bf), ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(BF16_SHAPES))
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["gelu", "relu", "silu", "tanh"])
+def test_bf16_ln_ffn_runs_on_the_tensor_cores(randn, shape, rate,
+                                              activation):
+    """The bf16 LN-FFN forward (tiled) and backward against their plain
+    versions at BF16 (outputs, dx) and 1e-2 of the largest entry (the
+    weight and LN gradients; with relu, the plain backward under the
+    kernel's relu mask: `_plain_ln_ffn_backward`), the decoder FFN's forward
+    too; each run twice gives the same bits (no atomics, fixed split
+    sums)."""
+    rows, d, hidden = BF16_SHAPES[shape]
+    x, dy, ws = _bf16_ffn_inputs(randn, rows, d, hidden)
+    cfg = (activation, rate, rate, 5)
+    assert ffn.slice_plan(rows, hidden, 132, d, torch.bfloat16).tiled
+    y = fused_ln_ffn_res(x, *ws, *cfg)
+    torch.testing.assert_close(y, ln_ffn_res_plain(x, *ws, *cfg), **BF16)
+    assert torch.equal(y, fused_ln_ffn_res(x, *ws, *cfg))
+    got = fused_ln_ffn_res_backward(x, *ws[:5], dy, *cfg)
+    want = _plain_ln_ffn_backward(x, ws, dy, cfg)
+    torch.testing.assert_close(got[0], want[0], **BF16)
+    for g, w in zip(got[1:], want[1:]):
+        _close_to_largest(g, w, 1e-2)
+    again = fused_ln_ffn_res_backward(x, *ws[:5], dy, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    yf = fused_ffn(x, *ws[2:], *cfg)
+    torch.testing.assert_close(yf, ffn_plain(x, *ws[2:], *cfg), **BF16)
+    assert torch.equal(yf, fused_ffn(x, *ws[2:], *cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 40, 300, 511, 512, 4133])
+def test_bf16_fused_and_tiled_forwards_agree(randn, monkeypatch, rows):
+    """In bf16 the tiled forward (tensor cores) and the fused row-block
+    kernel (CUDA cores) agree within BF16, no longer bit for bit; every
+    row count, either path forced."""
+    x, _, ws = _bf16_ffn_inputs(randn, rows, 256, 2048)
+    cfg = ("gelu", 0.1, 0.1, 9)
+    outs = []
+    for tiled in (False, True):
+        plan = ffn.slice_plan
+
+        def forced(*args, tiled=tiled, plan=plan):
+            return plan(*args)._replace(tiled=tiled)
+        monkeypatch.setattr(ffn, "slice_plan", forced)
+        outs.append(fused_ln_ffn_res(x, *ws, *cfg))
+        monkeypatch.setattr(ffn, "slice_plan", plan)
+    torch.testing.assert_close(outs[1], outs[0], **BF16)
+    torch.testing.assert_close(outs[1], ln_ffn_res_plain(x, *ws, *cfg),
+                               **BF16)
+
+
+@pytest.mark.cuda
+def test_bf16_products_are_hgmma(randn):
+    """The built library's SASS has HGMMA (wgmma) instructions in the
+    wgmma_product kernels, and none elsewhere."""
+    import shutil
+    import subprocess
+    from simulst_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    functions = _build.sass_functions(sass)
+    wgmma = [n for n in functions if "wgmma_product_kernel" in n]
+    assert wgmma and all("HGMMA" in functions[n] for n in wgmma)
+    assert not any("HGMMA" in body for n, body in functions.items()
+                   if n not in wgmma)

@@ -2,11 +2,12 @@
 port against the JAX package at widths other than s2t_emformer_s's, on
 the CPU.
 
-The wrappers take D from 1 to 1024 (FFN, LN-FFN), any FFN hidden, D_in
-and D_out from 1 to 1024 (linear-res), head dims from 1 to 128 (MHA,
-Emformer attention) and conv-pos channels per group from 1 to 64; they
-raise a ValueError naming the width above that, before anything reaches
-the card (checked here through the launch paths with CPU tensors).  The
+The wrappers take any positive D (FFN, LN-FFN), FFN hidden, D_in and D_out
+(linear-res), head dim (MHA, Emformer attention) and number of conv-pos
+channels per group; they
+raise a ValueError naming a width no kernel takes (none at all, D not a
+whole number of heads or groups) before anything reaches the card
+(checked here through the launch paths with CPU tensors).  The
 CUDA kernels themselves take D a multiple of 64, a hidden a multiple of
 64, D_in a multiple of 32, D_out a multiple of 64, head dims a multiple
 of 8 and 1 or a multiple of 4 channels per group: the wrappers zero-pad
@@ -96,7 +97,11 @@ def test_ffn_takes_every_width_of_the_matrix(d):
                                       (0, 256), (2048, 64), (256, 0),
                                       (-64, 256), (64, -64)])
 def test_ffn_refuses_widths_just_outside(d, hidden):
-    """Above the largest D (1024), and no width at all."""
+    """No width at all is refused, naming it; D above 1024 (the old
+    maximum, where the LN row passes now walk each row) is taken."""
+    if d >= 1 and hidden >= 1:
+        tffn.check_widths("fused_ffn", d, hidden)
+        return
     with pytest.raises(ValueError, match=f"{d}|{hidden}"):
         tffn.check_widths("fused_ffn", d, hidden)
 
@@ -118,8 +123,11 @@ def test_attention_takes_every_head_dim_of_the_matrix(hd):
 @pytest.mark.parametrize("d,heads", [(136 * 2, 2), (129, 1), (100, 3),
                                      (64, 0), (0, 4)])
 def test_attention_refuses_head_dims_just_outside(d, heads):
-    """Above head dim 128, D not a whole number of heads, no heads, no
-    width."""
+    """D not a whole number of heads, no heads, no width are refused;
+    head dims above 128 (136, 129: the wide kernels) are taken."""
+    if heads > 0 and d > 0 and d % heads == 0:
+        assert tmha.check_head_dim("fused_mha", d, heads) == d // heads
+        return
     with pytest.raises(ValueError, match="head dim"):
         tmha.check_head_dim("fused_mha", d, heads)
 
@@ -132,36 +140,55 @@ def test_convpos_takes_every_channel_count_of_the_matrix(cg):
 @pytest.mark.parametrize("d,groups", [(1088, 16), (65 * 16, 16), (100, 16),
                                       (64, 0), (0, 16)])
 def test_convpos_refuses_channel_counts_just_outside(d, groups):
-    """Above 64 channels a group, D not a whole number of groups, no
-    groups, no width."""
+    """D not a whole number of groups, no groups, no width are refused;
+    above 64 channels a group (68, 65) is taken."""
+    if groups > 0 and d > 0 and d % groups == 0:
+        assert tconv.check_channels("convpos_wgrad", d, groups) == \
+            d // groups
+        return
     with pytest.raises(ValueError, match="channel"):
         tconv.check_channels("convpos_wgrad", d, groups)
 
 
 def test_launch_paths_raise_before_the_card():
     """The wrappers' CUDA paths (called here with CPU tensors) raise the
-    ValueError naming the width before any launch: D 1088, head dim 136,
-    68 channels a group."""
+    ValueError naming a width no kernel takes before any launch (no width,
+    D not a whole number of heads or groups); D 1088, head dim 136 and 68
+    channels a group, above the old maxima, pass the width checks and stop
+    only at the device check."""
     x = torch.zeros(4, 1088)
-    with pytest.raises(ValueError, match="D=1088"):
-        tffn._launch(False, x, None, None, torch.zeros(1088, 128),
-                     torch.zeros(128), torch.zeros(128, 1088),
-                     torch.zeros(1088))
-    with pytest.raises(ValueError, match="D_in=1088"):
-        tlr._launch(x, torch.zeros(1088, 64), torch.zeros(64),
+    with pytest.raises(ValueError, match="D=0"):
+        tffn._launch(False, torch.zeros(4, 0), None, None,
+                     torch.zeros(0, 128), torch.zeros(128),
+                     torch.zeros(128, 0), torch.zeros(0))
+    with pytest.raises(ValueError, match="D_in=0"):
+        tlr._launch(torch.zeros(4, 0), torch.zeros(0, 64), torch.zeros(64),
                     torch.zeros(4, 64), 0, 0, 0.0, 0)
     q = torch.zeros(2, 3, 4 * 136)
     with pytest.raises(ValueError, match="head dim"):
+        tmha._launch(q, q, q, torch.ones(2, 3, dtype=torch.int32), 3, False,
+                     0.0, 0)
+    with pytest.raises(ValueError, match="channel"):
+        tconv._launch(torch.zeros(2, 20, 1088), torch.zeros(2, 5, 1088), 16,
+                      3)
+    with pytest.raises(ValueError, match="must be on"):
+        tffn._launch(False, x, None, None, torch.zeros(1088, 128),
+                     torch.zeros(128), torch.zeros(128, 1088),
+                     torch.zeros(1088))
+    with pytest.raises(ValueError, match="must be on"):
+        tlr._launch(x, torch.zeros(1088, 64), torch.zeros(64),
+                    torch.zeros(4, 64), 0, 0, 0.0, 0)
+    with pytest.raises(ValueError, match="must be on"):
         tmha._launch(q, q, q, torch.ones(2, 3, dtype=torch.int32), 4, False,
                      0.0, 0)
     geom = tattn.AttnGeom(U=32, seg=16, lc=16, rc=4, max_mem=2, G=2,
                           num_heads=3)
     q3 = torch.zeros(1, geom.ng, geom.nq, 3 * 136)
     k = torch.zeros(1, geom.tk, 3 * 136)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="must be on"):
         tattn._launch(q3, k, k, torch.full((1,), 32, dtype=torch.int32),
                       geom, 0.0, 0)
-    with pytest.raises(ValueError, match="channel"):
+    with pytest.raises(ValueError, match="must be on"):
         tconv._launch(torch.zeros(2, 20, 1088), torch.zeros(2, 5, 1088), 16,
                       16)
 
@@ -216,6 +243,10 @@ def test_linear_res_takes_the_new_widths(din, dout):
 @pytest.mark.parametrize("din,dout", [(1088, 64), (64, 1088), (0, 64),
                                       (64, 0)])
 def test_linear_res_refuses_widths_outside(din, dout):
+    """No width is refused; above the old maximum of 1024 is taken."""
+    if din >= 1 and dout >= 1:
+        tlr.check_widths("fused_linear_res", din, dout)
+        return
     with pytest.raises(ValueError, match="D_in"):
         tlr.check_widths("fused_linear_res", din, dout)
 
@@ -305,7 +336,7 @@ def _emu_ffn_bwd(dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g,
 
 
 def _emu_ln_ffn_bwd(dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads,
-                    xn, stats, u, du, g, dn, partial, n, d, hid, splits,
+                    xn, stats, u, hd, du, g, dn, partial, n, d, hid, splits,
                     d_real, h_real, seed, a_on, a_thr, a_inv, o_on, o_thr,
                     o_inv, stream):
     name = [k for k, v in tffn.ACTIVATION_CODES.items() if v == act][0]
@@ -473,7 +504,7 @@ def _emu_rand(rng, *shape, scale=1.0):
 
 
 @pytest.mark.parametrize("d,hidden", [(16, 32), (48, 48), (200, 100),
-                                      (64, 64)])
+                                      (64, 64), (1280, 64), (1090, 40)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_ffn_padding_matches_the_plain_versions(emulated, d, hidden, rate):
     """The FFN and LN-FFN forward and backward through their launch paths
@@ -482,9 +513,12 @@ def test_ffn_padding_matches_the_plain_versions(emulated, d, hidden, rate):
     versions', the dropout masks included; D 64 / hidden 64 pads
     nothing."""
     rng = np.random.RandomState(d + hidden)
+    # above D 1024, weights of 1 / sqrt(D), so that the fp32 sums over D
+    # of the emulation and of the plain version stay within EMU_TOL
+    s1 = s2 = 0.2 if d <= 1024 else d ** -0.5
     ln = (1 + _emu_rand(rng, d, scale=0.1), _emu_rand(rng, d, scale=0.1))
-    w1, b1 = _emu_rand(rng, d, hidden, scale=0.2), _emu_rand(rng, hidden)
-    w2, b2 = _emu_rand(rng, hidden, d, scale=0.2), _emu_rand(rng, d)
+    w1, b1 = _emu_rand(rng, d, hidden, scale=s1), _emu_rand(rng, hidden)
+    w2, b2 = _emu_rand(rng, hidden, d, scale=s2), _emu_rand(rng, d)
     cfg = ("gelu", rate, rate, 31)
     for rows in (5, 40):
         x, dy = _emu_rand(rng, rows, d), _emu_rand(rng, rows, d)
@@ -509,7 +543,7 @@ def test_ffn_padding_matches_the_plain_versions(emulated, d, hidden, rate):
 
 
 @pytest.mark.parametrize("din,dout", [(16, 16), (48, 200), (200, 48),
-                                      (64, 64)])
+                                      (64, 64), (1280, 1280), (1300, 1090)])
 @pytest.mark.parametrize("period,res_rows", [(0, 0), (7, 5)])
 def test_linear_res_padding_matches_the_plain_versions(emulated, din, dout,
                                                        period, res_rows):
@@ -533,7 +567,8 @@ def test_linear_res_padding_matches_the_plain_versions(emulated, din, dout,
     assert set(emulated) == {"simulst_linear_res", "simulst_linear_res_bwd"}
 
 
-@pytest.mark.parametrize("d,heads", [(16, 4), (48, 4), (100, 1), (64, 4)])
+@pytest.mark.parametrize("d,heads", [(16, 4), (48, 4), (100, 1), (64, 4),
+                                     (320, 2), (250, 1)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_padding_matches_the_plain_versions(emulated, d, heads,
                                                       rate):
@@ -574,7 +609,7 @@ def test_attention_padding_matches_the_plain_versions(emulated, d, heads,
                              "simulst_emformer_attn_bwd"}
 
 
-@pytest.mark.parametrize("cg", [2, 3, 6, 50, 4, 1])
+@pytest.mark.parametrize("cg", [2, 3, 6, 50, 4, 1, 96, 126])
 def test_convpos_padding_matches_the_plain_version(emulated, cg):
     """The conv-pos weight gradient through its launch path (each group's
     channels padded to a multiple of 4): the sliced gradient equals the

@@ -10,19 +10,33 @@ inputs, and each output is compared with torch.equal:
   simulst_ffn            y of ln_res 1 (fused_ln_ffn_res) and ln_res 0
                          (fused_ffn), this checkout's entry called twice,
                          on its fused row-block path and on its tiled path
-                         (each call with its own build's C signature: a
-                         revision without the tiled path takes no xn / h);
-                         fp32 and bf16, gelu and relu, dropout 0 and 0.1, at
-                         1, 24, 40, 300, 3072, 4,133, 8192 and 12,288 rows
-                         (D 256, FFN 2048)
+                         (each call with its own build's C signature and
+                         scratch: a revision without the tiled path takes
+                         no xn / h, one before the bf16 tensor-core path
+                         fp32 ones); fp32 and bf16, gelu and relu, dropout
+                         0 and 0.1, at 1, 24, 40, 300, 3072, 4,133, 8192 and
+                         12,288 rows (D 256, FFN 2048).  The bf16 tiled
+                         path (its products on the tensor cores) is held
+                         to the plain version at chip_smoke's
+                         BF16_TOL instead, its largest differences from the
+                         plain version and from the revision printed beside
+                         it
   simulst_ffn_bwd        dx, dW1, db1, dW2, db2 through ops/ffn.py's
                          wrapper, at the same cases
-  simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2 through the
-                         wrapper; fp32 and bf16, gelu and relu, dropout 0
-                         and 0.1, at 1, 300, 4,133 and 12,288 rows
-                         (bf16 LN parameters: each build takes them in its
-                         own dtype, fp32 from the build whose LN-FFN reads
-                         fp32 ones, with the same values)
+  simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2, each
+                         build's C entry called with its own signature and
+                         scratch (a revision before the bf16 tensor-core
+                         path takes no h_d and fp32 xn, g, du); fp32 and
+                         bf16, gelu and relu, dropout 0 and 0.1, at 1, 300,
+                         4,133 and 12,288 rows (bf16 LN parameters: each
+                         build takes them in its own dtype, fp32 from the
+                         build whose LN-FFN reads fp32 ones, with the same
+                         values).  bf16 (the five products on the tensor
+                         cores) is held to the plain version at BF16_TOL
+                         (weight and LN gradients within 1e-2 of their
+                         largest entry; relu under this build's relu mask,
+                         chip_smoke.kernel_relu_mask), the largest
+                         differences printed beside it
   simulst_cif_integrate  out and delays at the shapes of
                          tests/test_torch_port_cuda.py's CIF cases (a
                          revision whose entry takes cprev gets csum - alpha
@@ -93,12 +107,15 @@ forwards also at a decoder-step shape, on their other path), and each
 output of the second call must equal the first's (torch.equal).  Then the
 widths the revision may not take (WIDTH_CASES), this checkout alone: the
 FFN forward's fused and tiled paths at D 64, 128 and 512 (1, 40 and 300
-rows, both ln_res, fp32 and bf16, rate 0.1) and the MHA forward's decode
-and training kernels at head dims 16, 32, 96 and 128 (Tq 1 and 2 over 77
-keys, causal and not) must give the same bits, and the FFN, LN-FFN, MHA,
-grouped-attention and conv-pos entries the same bits twice at D 64 to
-1024, head dims 16 to 128 (the grouped backward's split dK / dV walks at
-128) and 4, 64 and 1 channels per group.
+rows, both ln_res, fp32 and bf16, rate 0.1; in bf16 within BF16_TOL of
+each other, the tiled products on the tensor cores) and the MHA forward's
+decode and training kernels at head dims 16, 32, 96 and 128 (Tq 1 and 2
+over 77 keys, causal and not) must give the same bits, and the FFN,
+LN-FFN, MHA, grouped-attention and conv-pos entries the same bits twice
+at D 64 to 2048 (the walking LN rows from 1280), head dims 16 to 256 (the
+grouped backward's split dK / dV walks at 128, the wide kernels at 160
+and 256) and 4, 64, 96, 128 and 1 channels per group.  The determinism
+check adds the bf16 LN-FFN forward (tiled) and backward.
 A revision whose C entries take no real widths (the widths of a call
 zero-padded to the kernels' widths: `REAL_WIDTH_ARGS`) is called with
 this checkout's argument lists less those arguments, which equal the
@@ -112,7 +129,10 @@ With --time it also times both builds in one process, in turns (revision,
 this checkout, this checkout, revision), with CUDA events: the LN-FFN
 forward at 12,288 rows (gelu, rate 0.1) and the FFN forward at 8192 rows
 (relu, rate 0.1), the revision's C entry against this checkout's on the
-path its wrapper takes; the linear-res forward's C entry at 8192 rows,
+path its wrapper takes, and both again in bf16 (rows 1 / 1b: this
+checkout's products on the tensor cores, a revision's on the CUDA cores,
+the LN-FFN backward through each build's C entry); the linear-res
+forward's C entry at 8192 rows,
 12,800 and 3,200 rows with the Emformer gate, 2,304, 40 and 1 rows, and
 the grouped attention forward and backward through the wrappers at
 chip_smoke.py's ASR shape (q3 (32, 2, 200, 256), rate 0.1), the MHA
@@ -133,6 +153,7 @@ shapes; the conv-pos weight gradient's C entry at xp (32, 319, 256), dy
 device time per call by kernel (torch.profiler), and this checkout's
 forward on both of its paths from 24 to 3072 rows (fp32, dropout 0: the
 serving and offline row counts), which places ops/ffn.py's TILED_MIN_ROWS,
+and in bf16 (BF16_TILED_MIN_ROWS),
 the linear-res forward on each path from 1 to 12,800 rows (fp32, rate
 0.1), which places ops/linear_res.py's TILED_MIN_ROWS and WIDE_MIN_ROWS,
 and the MHA forward on both kernels at Tq 1 to 64 over 256 keys (B 40,
@@ -325,10 +346,16 @@ def export(rev, dest):
     return out
 
 
+def source(csrc, name):
+    """A source file of `csrc` with every run of whitespace one space, so
+    that a signature reads the same however its lines are broken."""
+    return " ".join((csrc / name).read_text().split())
+
+
 def takes_f32_ln(csrc):
     """Whether the build of `csrc` reads the LN-FFN's LN parameters in
     fp32 whatever the activation dtype (before that, in its dtype)."""
-    return "const float* __restrict__ ln_g" in (csrc / "ffn.cu").read_text()
+    return "const float* __restrict__ ln_g" in source(csrc, "ffn.cu")
 
 
 def ln_params_for(f32_ln, ws):
@@ -376,19 +403,22 @@ def ln_ffn_inputs(torch, rows, dtype, seed):
 
 
 def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
-              rate, tiled, takes_real=True):
+              rate, tiled, takes_real=True, act_scratch=True):
     """simulst_ffn of `lib` bound to its arguments and called once, with
     its build's signature (takes_scratch: xn and h, null for the fused
-    path; takes_real: the real widths); `.y` is the output.  A call costs
-    the host little beside the launch, so that CUDA events time the
-    kernels."""
+    path; takes_real: the real widths; act_scratch: xn and h of the
+    activation dtype, else fp32, as builds before the bf16 tensor-core
+    path take them); `.y` is the output.  A call costs the host little
+    beside the launch, so that CUDA events time the kernels."""
     n = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = dict(dtype=x.dtype if act_scratch else torch.float32,
+                   device=x.device)
     plan = ffn.slice_plan(n, 2048, ffn._sm_count(x.device.index), 256)
     y = torch.empty_like(x)
     partial = torch.empty(plan.splits, n, 256, **f32)
-    xn = torch.empty(n, 256, **f32) if tiled and ln_res else None
-    h = torch.empty(n, 2048, **f32) if tiled else None
+    xn = torch.empty(n, 256, **scratch) if tiled and ln_res else None
+    h = torch.empty(n, 2048, **scratch) if tiled else None
     scratch = (ffn._ptr(xn), ffn._ptr(h)) if takes_scratch else ()
     call = functools.partial(
         lib.simulst_ffn, _build.dtype_code(x), ln_res,
@@ -401,6 +431,65 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
     if call():
         raise RuntimeError("simulst_ffn: CUDA error")
     return call
+
+
+def ln_ffn_bwd_entry(torch, _build, lib, takes_hd, x, ws, dy, act, rate,
+                     takes_real=True):
+    """simulst_ln_ffn_bwd of `lib` bound to its arguments (D 256, hidden
+    2048) and called once, with its build's signature and scratch:
+    takes_hd, this checkout's and later builds', takes h_d apart from u
+    and reads xn, g, du and h_d in the activation dtype; a build before
+    takes them all in fp32 (h_d overwriting u).  `.outs` is (dx, dgamma,
+    dbeta, dW1, db1, dW2, db2), the wrapper's order."""
+    n, d, hid = x.shape[0], 256, 2048
+    f32 = dict(dtype=torch.float32, device=x.device)
+    act_dtype = dict(dtype=x.dtype if takes_hd else torch.float32,
+                     device=x.device)
+    o_dw2, o_db1 = d * hid, 2 * d * hid
+    o_db2 = o_db1 + hid
+    grads = torch.zeros(o_db2 + 3 * d, **f32)
+    dx = torch.zeros_like(x)
+    from simulst_tpu_torch.ops import ffn
+    splits = ffn.slice_plan(n, hid, ffn._sm_count(x.device.index), d,
+                            x.dtype).bwd_splits
+    xn, g = (torch.empty(n, d, **act_dtype) for _ in range(2))
+    dn = torch.empty(n, d, **f32)
+    u = torch.empty(n, hid, **f32)
+    du = torch.empty(n, hid, **act_dtype)
+    hd = torch.empty(n, hid, **act_dtype) if takes_hd else None
+    stats = torch.empty(n, 2, **f32)
+    partial = torch.zeros(splits, grads.numel(), **f32)
+    ptrs = [xn, stats, u] + ([hd] if takes_hd else []) + [du, g, dn, partial]
+    call = functools.partial(
+        lib.simulst_ln_ffn_bwd, _build.dtype_code(x),
+        ffn.ACTIVATION_CODES[act], x.data_ptr(),
+        *(w.data_ptr() for w in ws[:5]), dy.data_ptr(), dx.data_ptr(),
+        grads.data_ptr(), *(t.data_ptr() for t in ptrs), n, d, hid, splits,
+        *((d, hid) if takes_real else ()),
+        *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
+    call.outs = (dx, grads[o_db2 + d:o_db2 + 2 * d],
+                 grads[o_db2 + 2 * d:o_db2 + 3 * d],
+                 grads[:o_dw2].view(d, hid), grads[o_db1:o_db1 + hid],
+                 grads[o_dw2:o_db1].view(hid, d), grads[o_db2:o_db2 + d])
+    call.keep = ptrs
+    if call():
+        raise RuntimeError("simulst_ln_ffn_bwd: CUDA error")
+    return call
+
+
+def bf16_close(torch, got, want, weight=False):
+    """Within chip_smoke's BF16_TOL of the plain version (weight=True:
+    1e-2 of its largest entry, a weight gradient's bound)."""
+    import chip_smoke as cs
+    got, want = got.float(), want.float()
+    if weight:
+        return bool((got - want).abs().max() <=
+                    1e-2 * want.abs().max())
+    return bool(torch.isclose(got, want, **cs.BF16_TOL).all())
+
+
+def max_diff(a, b):
+    return (a.float() - b.float()).abs().max().item()
 
 
 def mha_inputs(torch, b, tq, tk, mask, dtype, seed):
@@ -614,6 +703,8 @@ def determinism_calls(torch):
     lnw = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
            randn(d, hid, scale=0.03), randn(hid, scale=0.02),
            randn(hid, d, scale=0.03), randn(d, scale=0.02))
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    lnwb = lnw[:2] + tuple(w.bfloat16() for w in lnw[2:])
     h, res, dyl = randn(12800, d), randn(12800, d), randn(12800, d)
     wl, bl = randn(d, d, scale=0.06), randn(d, scale=0.02)
     q, k, v, dout, kmask = mha_inputs(torch, 64, 128, 128, "ragged",
@@ -652,6 +743,11 @@ def determinism_calls(torch):
             x[:8192], *lnw[2:5], dy[:8192], "relu", 0.1, 0.1, 29),
         "simulst_ln_ffn_bwd": lambda: ffn.fused_ln_ffn_res_backward(
             x, *lnw[:5], dy, "gelu", 0.1, 0.1, 29),
+        # bf16: the products on the tensor cores
+        "simulst_ffn (tiled path, bf16)": lambda: (
+            ffn.fused_ln_ffn_res_forward(xb, *lnwb, "gelu", 0.1, 0.1, 29),),
+        "simulst_ln_ffn_bwd (bf16)": lambda: ffn.fused_ln_ffn_res_backward(
+            xb, *lnwb[:5], dyb, "gelu", 0.1, 0.1, 29),
         "simulst_linear_res": lambda: (linear_res.fused_linear_res_forward(
             h, wl, bl, res, 200, 192, 0.1, 7),),
         "simulst_linear_res_bwd": lambda: linear_res.fused_linear_res_backward(
@@ -744,16 +840,21 @@ def width_cases(torch):
     def ffn_paths(ln_res, x, ws):
         def run():
             outs = {}
+            saved = ffn.TILED_MIN_ROWS, ffn.BF16_TILED_MIN_ROWS
             for path, min_rows in (("fused", 10 ** 9), ("tiled", 0)):
-                saved, ffn.TILED_MIN_ROWS = ffn.TILED_MIN_ROWS, min_rows
+                ffn.TILED_MIN_ROWS = ffn.BF16_TILED_MIN_ROWS = min_rows
                 try:
                     outs[path] = (ffn.fused_ln_ffn_res_forward(
                         x, *ws, "gelu", 0.1, 0.1, 29) if ln_res else
                         ffn.fused_ffn_forward(x, *ws[2:], "relu", 0.1, 0.1,
                                               29))
                 finally:
-                    ffn.TILED_MIN_ROWS = saved
-            return {"y fused vs tiled": (outs["fused"], outs["tiled"])}
+                    ffn.TILED_MIN_ROWS, ffn.BF16_TILED_MIN_ROWS = saved
+            # bf16: the tiled path's products on the tensor cores, within
+            # BF16_TOL of the fused kernel's (no longer bit for bit)
+            name = "y fused vs tiled" + (
+                " within BF16_TOL" if x.dtype == torch.bfloat16 else "")
+            return {name: (outs["fused"], outs["tiled"])}
         return run
 
     def mha_paths(q, k, v, kmask, heads, causal):
@@ -835,7 +936,50 @@ def width_cases(torch):
             ("simulst_emformer_attn_bwd", case, twice(
                 lambda a=attn, do=dout: ea.emformer_grouped_attention_backward(
                     *a, do, geom, 0.1, 23)))]
-    for d, groups in ((64, 16), (1024, 16), (256, 256)):
+    # above the old maxima: D 1280 (the walking LN row passes), head dims
+    # 160 and 256 (the wide attention kernels), 96 and 128 channels
+    for d, hid, rows in ((1280, 2560, 1000), (2048, 1024, 300)):
+        x, dy = randn(rows, d), randn(rows, d)
+        ws = (1 + randn(d, scale=0.1), randn(d, scale=0.1),
+              randn(d, hid, scale=d ** -0.5), randn(hid, scale=0.02),
+              randn(hid, d, scale=hid ** -0.5), randn(d, scale=0.02))
+        case = f"D {d} hidden {hid} rows {rows}"
+        cases += [
+            ("simulst_ffn", case, twice(lambda x=x, ws=ws: (
+                ffn.fused_ln_ffn_res_forward(x, *ws, "gelu", 0.1, 0.1, 29),))),
+            ("simulst_ln_ffn_bwd", case, twice(
+                lambda x=x, ws=ws, dy=dy: ffn.fused_ln_ffn_res_backward(
+                    x, *ws[:5], dy, "gelu", 0.1, 0.1, 29)))]
+    for d, heads in ((1280, 8), (1024, 4)):
+        q, dout = (randn(8, 40, d) for _ in range(2))
+        k, v = (randn(8, 40, d) for _ in range(2))
+        kmask = torch.ones(8, 40, dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            out, lse = mha.fused_mha_forward(q, k, v, kmask, heads, True,
+                                             0.1, 9)
+        cases += [
+            ("simulst_mha_fwd", f"head dim {d // heads}", twice(
+                lambda q=q, k=k, v=v, km=kmask, h=heads:
+                mha.fused_mha_forward(q, k, v, km, h, True, 0.1, 9))),
+            ("simulst_mha_bwd", f"head dim {d // heads}", twice(
+                lambda q=q, k=k, v=v, km=kmask, o=out, l=lse, do=dout,
+                h=heads: mha.fused_mha_backward(q, k, v, km, o, l, do, h,
+                                                True, 0.1, 9)))]
+    for d in (640, 1024):
+        lengths = torch.randint(192, 257, (2,), generator=g).to(
+            torch.int32).cuda()
+        attn = (randn(2, geom.ng, geom.nq, d), randn(2, geom.tk, d),
+                randn(2, geom.tk, d), lengths)
+        dout = randn(2, geom.ng, geom.nq, d)
+        case = f"head dim {d // 4}"
+        cases += [
+            ("simulst_emformer_attn", case, twice(lambda a=attn: (
+                ea.emformer_grouped_attention_forward(*a, geom, 0.1, 23),))),
+            ("simulst_emformer_attn_bwd", case, twice(
+                lambda a=attn, do=dout: ea.emformer_grouped_attention_backward(
+                    *a, do, geom, 0.1, 23)))]
+    for d, groups in ((64, 16), (1024, 16), (256, 256), (1536, 16),
+                      (2048, 16)):
         xp, dy = randn(32, 319, d), randn(32, 256, d)
         cases.append(("simulst_convpos_wgrad",
                       f"{d // groups} channels a group", twice(
@@ -900,9 +1044,9 @@ def main():
     libs = {"rev": _build.open_library(ref_path, every_entry=False),
             "this": _build.open_library(cur_path)}
     ref_takes_cprev = "const void* cprev" in \
-        (ref_csrc / "cif.cu").read_text()
+        source(ref_csrc, "cif.cu")
     ref_takes_scratch = "void* xn, void* h" in \
-        (ref_csrc / "ffn.cu").read_text()
+        source(ref_csrc, "ffn.cu")
     f32_ln = {"rev": takes_f32_ln(ref_csrc), "this": True}
     _P, _I = _build._P, _build._I
     if not ref_takes_scratch:    # simulst_ffn before the tiled path
@@ -910,29 +1054,36 @@ def main():
             [_I] * 3 + [_P] * 9 + [_I] * 4 + _build._DROP
             + _build._DROP[1:] + [_P])
     ref_mha_scratch = "void* delta, void* ds" in \
-        (ref_csrc / "mha.cu").read_text()
+        source(ref_csrc, "mha.cu")
     if not ref_mha_scratch:      # simulst_mha_bwd before the dS scratch
         libs["rev"].simulst_mha_bwd.argtypes = (
             [_I] + [_P] * 10 + [_I] * 7 + [ctypes.c_uint64]
             + _build._DROP[2:] + [_P])
     ref_lr_path = "int res_rows, int path" in \
-        (ref_csrc / "linear_res.cu").read_text()
+        source(ref_csrc, "linear_res.cu")
     if not ref_lr_path:          # simulst_linear_res before its two paths
         libs["rev"].simulst_linear_res.argtypes = (
             [_I] + [_P] * 5 + [_I] * 6 + [ctypes.c_uint64] + _build._DROP[2:]
             + [_P])
-    ref_mha_path = "int causal, int path" in (ref_csrc / "mha.cu").read_text()
+    ref_mha_path = "int causal, int path" in source(ref_csrc, "mha.cu")
     if not ref_mha_path:         # simulst_mha_fwd before its two kernels
         libs["rev"].simulst_mha_fwd.argtypes = (
             [_I] + [_P] * 6 + [_I] * 7 + [ctypes.c_uint64] + _build._DROP[2:]
             + [_P])
-    ref_real = "int dim_real" in (ref_csrc / "ffn.cu").read_text()
+    # a revision before the bf16 tensor-core path: simulst_ln_ffn_bwd
+    # takes no h_d and both FFN entries read fp32 scratch
+    ref_takes_hd = (ref_csrc / "wgmma.cuh").exists()
+    if not ref_takes_hd:
+        libs["rev"].simulst_ln_ffn_bwd.argtypes = (
+            [_I] * 2 + [_P] * 16 + [_I] * 6 + _build._DROP
+            + _build._DROP[1:] + [_P])
+    ref_real = "int dim_real" in source(ref_csrc, "ffn.cu")
     # the builds as the wrappers call them: a revision without the real
     # widths through WithoutRealWidths (which declares its signatures)
     apis = {"rev": libs["rev"] if ref_real else
             WithoutRealWidths(_build, libs["rev"]), "this": libs["this"]}
     ref_align_carry = "void* carry" in \
-        (ref_csrc / "monotonic.cu").read_text()
+        source(ref_csrc, "monotonic.cu")
     if ref_align_carry:          # simulst_alignment_bwd with the carry
         libs["rev"].simulst_alignment_bwd.argtypes = (
             [_P] * 7 + [_I] * 3 + [_P])
@@ -958,7 +1109,13 @@ def main():
         takes = ref_takes_scratch if key == "rev" else True
         return ffn_entry(torch, _build, ffn, libs[key], takes, ln_res, act,
                          x, ln_params_for(f32_ln[key], ws), rate, tiled,
-                         real(key))
+                         real(key), ref_takes_hd if key == "rev" else True)
+
+    def ln_ffn_bwd(key, x, ws, dy, act, rate):
+        return ln_ffn_bwd_entry(torch, _build, libs[key],
+                                ref_takes_hd if key == "rev" else True, x,
+                                ln_params_for(f32_ln[key], ws), dy, act,
+                                rate, real(key))
 
     def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
         takes = ref_lr_path if key == "rev" else True
@@ -985,9 +1142,26 @@ def main():
                                              path == "tiled").y
                                for path in ("fused", "tiled")}
                         torch.cuda.synchronize()
-                        report(f"simulst_ffn ln_res {ln_res}", case,
-                               {f"y {p}": torch.equal(want, y)
-                                for p, y in got.items()})
+                        equal = {f"y {p}": torch.equal(want, y)
+                                 for p, y in got.items()}
+                        if dtype == torch.bfloat16:
+                            # the tiled path's products on the tensor cores:
+                            # held to the plain version, beside the parent
+                            plain = (ffn.ln_ffn_res_plain(x, *ws, act, rate,
+                                                          rate, 29)
+                                     if ln_res else ffn.ffn_plain(
+                                         x, *ws[2:], act, rate, rate, 29))
+                            del equal["y tiled"]
+                            equal["y tiled within BF16_TOL of plain"] = \
+                                bf16_close(torch, got["tiled"], plain)
+                            print(json.dumps({
+                                "entry": f"simulst_ffn ln_res {ln_res}",
+                                "case": case, "bf16 tiled max_abs_diff": {
+                                    "vs parent": max_diff(got["tiled"], want),
+                                    "vs plain": max_diff(got["tiled"], plain),
+                                    "parent vs plain": max_diff(want,
+                                                                plain)}}))
+                        report(f"simulst_ffn ln_res {ln_res}", case, equal)
                     outs = {}
                     for key, lib in apis.items():
                         with library_of(_build, lib):
@@ -1004,18 +1178,42 @@ def main():
             for rate in (0.0, 0.1):
                 for rows in LN_ROWS:
                     x, ws, dy = ln_ffn_inputs(torch, rows, dtype, rows)
-                    outs = {}
-                    for key, lib in apis.items():
-                        with library_of(_build, lib), \
-                                ln_check_of(ffn, f32_ln[key]):
-                            outs[key] = ffn.fused_ln_ffn_res_backward(
-                                x, *ln_params_for(f32_ln[key], ws)[:5], dy,
-                                act, rate, rate, 29)
+                    outs = {key: ln_ffn_bwd(key, x, ws, dy, act, rate).outs
+                            for key in libs}
                     torch.cuda.synchronize()
-                    report("simulst_ln_ffn_bwd",
-                           f"{str(dtype)[6:]} {act} rate {rate} rows {rows}",
-                           {n: torch.equal(a, b) for n, a, b in
-                            zip(names, outs["rev"], outs["this"])})
+                    case = f"{str(dtype)[6:]} {act} rate {rate} rows {rows}"
+                    if dtype == torch.float32:
+                        report("simulst_ln_ffn_bwd", case,
+                               {n: torch.equal(a, b) for n, a, b in
+                                zip(names, outs["rev"], outs["this"])})
+                        continue
+                    # bf16: the five products on the tensor cores, held to
+                    # the plain version (with relu under this build's relu
+                    # mask: chip_smoke.kernel_relu_mask), beside the parent
+                    lnw = (ws[0].float(), ws[1].float(), *ws[2:])
+                    cfg = (act, rate, rate, 29)
+                    if act == "relu":   # under the kernel's relu mask
+                        with library_of(_build, libs["this"]):
+                            mask = cs.kernel_relu_mask(x, lnw, cfg)
+                        plain = cs.plain_ln_ffn_backward_under(x, lnw, dy,
+                                                               cfg, mask)
+                    else:
+                        plain = ffn.ln_ffn_res_plain_backward(
+                            x, *lnw[:5], dy, *cfg)
+                    close = {f"{n} within BF16_TOL of plain": bf16_close(
+                        torch, a, c, weight=i > 0) for i, (n, a, c) in
+                        enumerate(zip(names, outs["this"], plain))}
+                    print(json.dumps({
+                        "entry": "simulst_ln_ffn_bwd", "case": case,
+                        "bf16 max_abs_diff vs parent": {
+                            n: max_diff(a, b) for n, a, b in
+                            zip(names, outs["this"], outs["rev"])},
+                        "vs plain": {n: max_diff(a, c) for n, a, c in
+                                     zip(names, outs["this"], plain)},
+                        "parent vs plain": {n: max_diff(b, c) for n, b, c
+                                            in zip(names, outs["rev"],
+                                                   plain)}}), flush=True)
+                    report("simulst_ln_ffn_bwd", case, close)
 
     def cif_entry(lib, x, alpha, csum, t, beta, out, delays):
         """The C entry bound to its arguments: a call costs the host little
@@ -1244,7 +1442,8 @@ def main():
             pairs = fn()
             torch.cuda.synchronize()
             report(f"widths {entry}", case,
-                   {n: torch.equal(a, b) for n, (a, b) in pairs.items()})
+                   {n: bf16_close(torch, a, b) if n.endswith("BF16_TOL")
+                    else torch.equal(a, b) for n, (a, b) in pairs.items()})
 
     if args.time:
         from simulst_tpu_torch.ops import emformer_attn as ea
@@ -1261,6 +1460,7 @@ def main():
                 torch.int32).cuda())
         attn_dout = torch.randn(32, attn_geom.ng, attn_geom.nq, 256,
                                 generator=ga).cuda()
+        xb, wsb, dyb = ln_ffn_inputs(torch, 12288, torch.bfloat16, 12288)
         xm, wm, dym = ln_ffn_inputs(torch, 8192, torch.float32, 8192)
         xc, alpha, csum = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
         out = torch.empty(32, 72, 256, device="cuda")
@@ -1307,8 +1507,13 @@ def main():
                 "ffn_fwd_ms": ffn_fwd(key, 0, "relu", xm, wm, 0.1, tiled),
                 "ffn_bwd_ms": wrapped(ffn.fused_ffn_backward, xm, *wm[2:5],
                                       dym, "relu", 0.1, 0.1, 29),
-                "ln_ffn_bwd_ms": wrapped(ffn.fused_ln_ffn_res_backward, x,
-                                         *ws[:5], dy, "gelu", 0.1, 0.1, 29),
+                "ln_ffn_bwd_ms": ln_ffn_bwd(key, x, ws, dy, "gelu", 0.1),
+                # rows 1 / 1b in bf16: this checkout's products on the
+                # tensor cores, a parent's on the CUDA cores
+                "ln_ffn_fwd_bf16_ms": ffn_fwd(key, 1, "gelu", xb, wsb, 0.1,
+                                              tiled),
+                "ln_ffn_bwd_bf16_ms": ln_ffn_bwd(key, xb, wsb, dyb, "gelu",
+                                                 0.1),
                 "cif_c_entry_ms": cif_entry(lib, xc, alpha, csum, 72, 1.0,
                                             out, delays),
                 "linear_res_bwd_8192_ms": wrapped(
@@ -1369,6 +1574,17 @@ def main():
                                              0.0, path == "tiled"))
                     for path in ("fused", "tiled")}
         print("crossover_ms " + json.dumps(crossover), flush=True)
+        # bf16: the tiled path on the tensor cores against the fused
+        # kernel, which places ops/ffn.py's BF16_TILED_MIN_ROWS
+        crossover = {}
+        for rows in CROSSOVER_ROWS if wanted("simulst_ffn") else ():
+            for ln_res, act in ((1, "gelu"), (0, "relu")):
+                xs, wss, _ = ln_ffn_inputs(torch, rows, torch.bfloat16, rows)
+                crossover[f"ln_res {ln_res} rows {rows}"] = {
+                    path: cs.cuda_ms(ffn_fwd("this", ln_res, act, xs, wss,
+                                             0.0, path == "tiled"))
+                    for path in ("fused", "tiled")}
+        print("crossover_bf16_ms " + json.dumps(crossover), flush=True)
         crossover = {}
         for rows in LR_CROSSOVER_ROWS if wanted("simulst_linear_res") else ():
             lr_args = lr_inputs(rows, torch.float32, rows)
