@@ -76,9 +76,11 @@ targets):
               gradient, the CTC alphas and d_em) vs their plain versions at
               the shapes of a 32 x 1024-frame batch, at dropout 0 and 0.1
               with one seed, bf16 cases of the LN-FFN and the attention;
-              the CTC alphas also at S 33, 257 and 1023 (T 256, B 32: the
-              kernel's one-warp, halo and every-step-exchange blocks), its
-              registers and spills, and the CTC recursions' chain floor
+              the CTC alphas also at S 33, 257, 1023, 1025 and 2049 (T
+              256, B 32: the kernel's one-warp, halo and
+              every-step-exchange blocks, and 2 and 4 states a thread),
+              d_em at S 1025 and 2049, their registers and spills, and the
+              CTC recursions' chain floor
               (one warp's dependent LSE pairs on registers, ms per step);
               CUDA-event times beside one PyTorch call of the same function
               (SDPA on the gathered context, conv1d_weight, F.ctc_loss), the
@@ -243,14 +245,16 @@ targets):
  20. bf16     bf16 compute and the model options: fused_ffn and
               fused_ln_ffn_res with silu and tanh (and gelu beside
               them), forward and backward, fp32 and bf16, vs plain
-              at 12,288 and 40 rows with CUDA-event times; rows 1 / 1b
-              in bf16 on the tensor cores (their wgmma kernels' SASS
-              holds HGMMA, no other kernel's does; asr-train's shape at
-              every activation and rates 0 / 0.1, D 200 and D 512, vs
-              plain, each twice bit for bit); rows 1-6 in bf16 at
+              at 12,288 and 40 rows with CUDA-event times; rows 1 / 1b,
+              2b and 4b in bf16 on the tensor cores (their wgmma kernels'
+              SASS holds HGMMA, those of rows 2b / 4b among them, no
+              other kernel's does; asr-train's shapes at every activation
+              (rows 2b / 4b: gelu and relu) and rates 0 / 0.1, D 200 and
+              D 512 (rows 2b / 4b: rate 0.1), vs plain, twice bit for bit
+              (rows 2b / 4b: at rate 0.1)); rows 1-6 in bf16 at
               asr-train's shapes (times, plain, bounds at the dense bf16
-              peak, SDPA or the products' torch.matmul); asr-train with
-              --override
+              peak, SDPA or the products' torch.matmul); the seconds of
+              each part of the phase; asr-train with --override
               compute_dtype=bfloat16 through cli/train's config path for
               8 steps (launches per step as phase 8's, median, 3 profiled
               steps, peak memory beside phase 8's fp32 numbers), one step
@@ -572,11 +576,12 @@ KERNEL_FAMILIES = (
     ("HiddenStore<", "FFN forwards' hidden products"),
     ("TagFfnFwd", "FFN forwards' output products"),
     ("TagLnFfnBwd", "fused_ln_ffn_res_backward products"),
-    ("F32Store", "fused_ln_ffn_res_backward products"),
     ("TagLinearResFwd", "fused_linear_res"),
     ("TagLinearResBwd", "linear_res backward products, the backwards' sums"),
     ("TagFfnBwd", "fused_ffn_backward products"),
     ("CastStore<", "fused_ffn_backward products"),
+    ("hidden_grad_kernel",
+     "bf16 FFN and LN-FFN backwards' hidden-gradient pass"),
     ("mha_fwd_kernel", "fused_mha"), ("mha_decode_kernel", "fused_mha"),
     *((k, "fused_mha_backward") for k in (
         "mha_bwd_delta_kernel", "mha_bwd_dkdv_kernel", "mha_bwd_dq_kernel")),
@@ -585,7 +590,8 @@ KERNEL_FAMILIES = (
     ("ln_rows_kernel", "LN-FFN LN rows (forward and backward)"),
     ("ln_bwd_rows_kernel", "fused_ln_ffn_res_backward (LN rows)"),
     ("convpos_wgrad", "convpos_wgrad"), ("ctc_alpha_kernel", "ctc_alphas"),
-    ("ctc_beta_kernel", "ctc_d_em"),
+    ("ctc_beta_kernel", "ctc_d_em"), ("ctc_alpha_wide", "ctc_alphas"),
+    ("ctc_beta_wide", "ctc_d_em"),
     ("ctc_posterior_kernel", POSTERIOR_FAMILY),
     ("alignment_fwd_kernel", "alignment_fwd"),
     ("alignment_bwd_kernel", "alignment_bwd"),
@@ -1293,7 +1299,10 @@ def phase_train_kernels(dev, batch):
     errs["fused_ffn"] = max_err("fused_ffn bf16", ffn.fused_ffn_forward(
         *fargs, *cfg), ffn.ffn_plain(*fargs, *cfg), **BF16_TOL)
     got = ffn.fused_ffn_backward(*fargs[:4], dy.to(bf), *cfg)
-    want = ffn.ffn_plain_backward(*fargs[:4], dy.to(bf), *cfg)
+    # relu under the kernel's relu mask: its u comes from the tensor cores
+    want = plain_ffn_backward_under(fargs[0], fargs[1:], dy.to(bf), cfg,
+                                    kernel_ffn_relu_mask(fargs[0], fargs[1:],
+                                                         cfg))
     errs["fused_ffn_backward"] = max(
         [max_err("fused_ffn_backward bf16 dx", got[0], want[0], **BF16_TOL)]
         + [max_err_to_largest(f"fused_ffn_backward bf16 {nm}", gw, ww, 1e-2)
@@ -1755,11 +1764,18 @@ def phase_asr_kernels(dev, batch):
                nbytes(em, can_skip, lengths, tl, got),
                12 * em.numel()))))
     # the alpha kernel on its other block shapes (halo warps at S 257, an
-    # exchange every step at S 1023), T 256, B 32, ragged lengths
+    # exchange every step at S 1023, 2 and 4 states a thread at S 1025 and
+    # 2049, where d_em is held to its plain version too), T 256, B 32,
+    # ragged lengths
     gs, alpha_wide = torch.Generator().manual_seed(SEED + 19), {}
+    d_em_wide = {}
     for s_ in CTC_ALPHA_WIDE_S:
         Ls = (s_ - 1) // 2
-        tls = torch.randint(Ls // 2, Ls + 1, (b,), generator=gs)
+        # above S 1024 targets of 32-96 labels, which fit 128-256 frames,
+        # so that d_em has posteriors to compare; the alphas run over
+        # every state whatever the length
+        tls = torch.randint(Ls // 2, Ls + 1, (b,), generator=gs) \
+            if s_ <= 1024 else torch.randint(32, 97, (b,), generator=gs)
         ils = torch.randint(t_len // 2, t_len + 1, (b,), generator=gs)
         tgs = torch.randint(4, 9, (b, Ls), generator=gs)
         tgs = torch.where(torch.arange(Ls)[None] < tls[:, None], tgs,
@@ -1780,16 +1796,34 @@ def phase_asr_kernels(dev, batch):
             "max_abs_err": max_err(f"ctc_alphas S {s_}", got_s[~sent_s],
                                    want_s[~sent_s], **F32_TOL),
             "ms": ms_s, "us_per_step": ms_s * 1e3 / t_len}
+        if s_ <= 1024:
+            continue
+        nll_s = ctc._nll_from_alpha(want_s[-1], tls.to(dev))
+        # zero_infinity's scale: 0 where the target cannot fit its frames
+        scale_s = torch.where(nll_s <= -ctc.NEG / 2,
+                              -torch.rand(b, generator=gs).to(dev), 0.0)
+        d_args = (ems, want_s, skips, ils.to(dev), tls.to(dev), scale_s,
+                  nll_s)
+        got_d = ctc.ctc_d_em(*d_args)
+        torch.cuda.synchronize()
+        ms_d = cuda_ms(lambda: ctc.ctc_d_em(*d_args))
+        d_em_wide[f"S {s_}"] = {
+            "max_abs_err": max_err(f"ctc_d_em S {s_}", got_d,
+                                   ctc.d_em_plain(*d_args), **F32_TOL),
+            "ms": ms_d, "us_per_step": ms_d * 1e3 / t_len,
+            "examples_with_posteriors": int((scale_s != 0).sum())}
     record("ctc_alphas", max_abs_err=max(
         v["max_abs_err"] for v in alpha_wide.values()),
         us_per_step=report["ctc_alphas"]["ms"] * 1e3 / t_len,
-        ptxas=ptxas_report("ctc_alpha_kernel"), shapes=alpha_wide,
+        ptxas=ptxas_report("ctc_alpha_"), shapes=alpha_wide,
         chain_floor=ctc_chain_floor(dev))
     d_em_ms = cuda_ms(lambda: ctc.ctc_d_em(em, want, can_skip, lengths, tl,
                                            scale, nll))
-    record("ctc_d_em", max_abs_err=err_d, shape=shape, ms=d_em_ms,
-           us_per_step=d_em_ms * 1e3 / t_len,
-           ptxas={**ptxas_report("ctc_beta_kernel"),
+    record("ctc_d_em", max_abs_err=max(
+        [err_d] + [v["max_abs_err"] for v in d_em_wide.values()]),
+           shape=shape, ms=d_em_ms, us_per_step=d_em_ms * 1e3 / t_len,
+           shapes=d_em_wide,
+           ptxas={**ptxas_report("ctc_beta_"),
                   **ptxas_report("ctc_posterior_kernel")},
            plain_ms=cuda_ms(lambda: ctc.d_em_plain(
                em, want, can_skip, lengths, tl, scale, nll), samples=3,
@@ -2242,7 +2276,8 @@ def ptxas_report(fragment):
 
 
 CHAIN_PROBE_STEPS = (256, 65536)
-CTC_ALPHA_WIDE_S = (33, 257, 1023)   # phase 7's alpha shapes beside S 129
+# phase 7's alpha shapes beside S 129; d_em too above S 1024
+CTC_ALPHA_WIDE_S = (33, 257, 1023, 1025, 2049)
 
 
 def ctc_chain_floor(dev):
@@ -4807,19 +4842,12 @@ def phase_bf16_kernels(dev, batch):
 BF16_TC_SHAPES = {"asr": (12288, 256, 2048), "d200": (3000, 200, 800),
                   "d512": (3000, 512, 2048)}
 BF16_TC_ACTIVATIONS = ("gelu", "relu", "silu", "tanh")
-def kernel_relu_mask(x, lnw, cfg):
-    """(rows, hidden) bool: where the LN-FFN kernels take relu's derivative
-    as 1, h > 0 of the tiled forward's hidden (the forward forced onto its
-    tiled path, its hidden read from the wrapper's scratch; the backward
-    recomputes u with the same products, the same bits).  relu' jumps
-    at u = 0, where the kernels' and torch's roundings (LN in fp32, the
-    fc1 input rounded to bf16, sums in other orders) fall on either side
-    of 0 for some entries, so the plain backward is held to the kernel
-    under the kernel's own mask (`plain_ln_ffn_backward_under`)."""
+def _tiled_relu_mask(forward, x, weights, hid, cfg):
+    """h > 0 of `forward`'s hidden on its tiled path (forced; the hidden
+    read from the wrapper's scratch), the first `hid` columns."""
     import torch
     from simulst_tpu_torch.ops import ffn
-    rows, hid = x.shape[0], lnw[2].shape[1]
-    captured, empty = [], torch.empty
+    rows, captured, empty = x.shape[0], [], torch.empty
 
     def capture(*shape, **kw):
         t = empty(*shape, **kw)
@@ -4829,8 +4857,29 @@ def kernel_relu_mask(x, lnw, cfg):
         return t
     with patched([(torch, "empty", capture), (ffn, "TILED_MIN_ROWS", 0),
                   (ffn, "BF16_TILED_MIN_ROWS", 0)]):
-        ffn.fused_ln_ffn_res_forward(x, *lnw, *cfg)
+        forward(x, *weights, *cfg)
     return captured[-1][:, :hid] > 0
+
+
+def kernel_relu_mask(x, lnw, cfg):
+    """(rows, hidden) bool: where the LN-FFN kernels take relu's derivative
+    as 1, h > 0 of the tiled forward's hidden (the forward forced onto its
+    tiled path, its hidden read from the wrapper's scratch; the backward
+    recomputes u with the same products, the same bits).  relu' jumps
+    at u = 0, where the kernels' and torch's roundings (LN in fp32, the
+    fc1 input rounded to bf16, sums in other orders) fall on either side
+    of 0 for some entries, so the plain backward is held to the kernel
+    under the kernel's own mask (`plain_ln_ffn_backward_under`)."""
+    from simulst_tpu_torch.ops import ffn
+    return _tiled_relu_mask(ffn.fused_ln_ffn_res_forward, x, lnw,
+                            lnw[2].shape[1], cfg)
+
+
+def kernel_ffn_relu_mask(x, w, cfg):
+    """kernel_relu_mask of the FFN without LN (w = w1, b1, w2, b2): the
+    FFN backward recomputes u with the tiled forward's hidden product."""
+    from simulst_tpu_torch.ops import ffn
+    return _tiled_relu_mask(ffn.fused_ffn_forward, x, w, w[0].shape[1], cfg)
 
 
 def plain_ln_ffn_backward_under(x, lnw, dy, cfg, mask):
@@ -4839,6 +4888,14 @@ def plain_ln_ffn_backward_under(x, lnw, dy, cfg, mask):
     from simulst_tpu_torch.ops import ffn
     with patched([(ffn, "_act_grad", lambda name, u: mask.to(u.dtype))]):
         return ffn.ln_ffn_res_plain_backward(x, *lnw[:5], dy, *cfg)
+
+
+def plain_ffn_backward_under(x, w, dy, cfg, mask):
+    """ffn_plain_backward with relu's derivative taken from `mask` (the
+    kernel's: kernel_ffn_relu_mask)."""
+    from simulst_tpu_torch.ops import ffn
+    with patched([(ffn, "_act_grad", lambda name, u: mask.to(u.dtype))]):
+        return ffn.ffn_plain_backward(x, *w[:3], dy, *cfg)
 
 
 def sass_hgmma():
@@ -4857,6 +4914,10 @@ def sass_hgmma():
     return wgmma, sum(c for n, c in counts.items() if n not in wgmma)
 
 
+# the caller tags of the FFN and linear-res backwards' wgmma products
+WGMMA_CALLERS = ("TagFfnBwd", "TagLinearResBwd")
+
+
 def phase_bf16_tensor_cores(dev):
     """Rows 1 / 1b in bf16 through the wrappers (the LN-FFN forward's tiled
     path and its backward on wgmma_product) at BF16_TC_SHAPES, rates 0 and
@@ -4864,8 +4925,10 @@ def phase_bf16_tensor_cores(dev):
     within 1e-2 of their largest entry; with relu, the plain backward
     under the kernel's relu mask: `kernel_relu_mask`), each
     called twice (the same bits: no atomics, fixed split sums), the
-    decoder FFN's forward (the same tiled path) too; and the SASS of the
-    wgmma kernels holds HGMMA.  Returns {kernel: largest error}."""
+    decoder FFN's forward (the same tiled path) too; rows 2b and 4b
+    (`phase_bf16_backwards`); and the SASS of every wgmma kernel, those of
+    the two backwards among them (WGMMA_CALLERS), holds HGMMA.  Returns
+    {kernel: largest error}."""
     import torch
     from simulst_tpu_torch.ops import ffn
     bf = torch.bfloat16
@@ -4875,11 +4938,16 @@ def phase_bf16_tensor_cores(dev):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
     wgmma, elsewhere = sass_hgmma()
+    # rows 2b and 4b's products, named by their callers' tags
+    callers = {c: sum(c in n for n in wgmma) for c in WGMMA_CALLERS}
     log("phase20", wgmma_kernels=len(wgmma),
-        hgmma_per_kernel=sorted(wgmma.values()), hgmma_elsewhere=elsewhere)
-    if not wgmma or not all(wgmma.values()) or elsewhere:
+        hgmma_per_kernel=sorted(wgmma.values()), hgmma_elsewhere=elsewhere,
+        wgmma_kernels_of=callers)
+    if not wgmma or not all(wgmma.values()) or elsewhere or \
+            not all(callers.values()):
         raise AssertionError("phase 20: the wgmma kernels' SASS lacks HGMMA "
-                             "(or another kernel has it)")
+                             "(or another kernel has it, or a backward's "
+                             f"products are not among them: {callers})")
     errs = {}
     for shape, (rows, d, hid) in BF16_TC_SHAPES.items():
         xav = (6.0 / (d + hid)) ** 0.5
@@ -4923,6 +4991,83 @@ def phase_bf16_tensor_cores(dev):
                 for k, e in (("fused_ln_ffn_res", e_f), ("fused_ffn", e_d),
                              ("fused_ln_ffn_res_backward", e_b)):
                     errs[k] = max(errs.get(k, 0.0), e)
+    for k, e in phase_bf16_backwards(dev, randn).items():
+        errs[k] = max(errs.get(k, 0.0), e)
+    return errs
+
+
+# rows 2b / 4b in bf16 on the tensor cores: the FFN backward at asr-train's
+# decoder rows (32 x 72), the linear-res backward at the Emformer
+# out-projection's 12,800 rows with its gate (period 200, 192 residual
+# rows) and at the decoder's 2,304 ungated; a padded width and D 512 (FFN
+# rows, D, hidden; linear-res rows, D, period, residual rows)
+BF16_BWD_SHAPES = {
+    "asr": ((2304, 256, 2048), ((12800, 256, 200, 192), (2304, 256, 0, 0))),
+    "d200": ((3000, 200, 800), ((3000, 200, 200, 192),)),
+    "d512": ((3000, 512, 2048), ((3000, 512, 200, 192),))}
+
+
+def phase_bf16_backwards(dev, randn):
+    """Rows 2b and 4b in bf16 through the wrappers (every product on
+    wgmma_product) at BF16_BWD_SHAPES, rate 0.1 and, at asr-train's shapes,
+    rate 0: against the plain versions (BF16_TOL on dx / dh; weight and
+    bias gradients within 1e-2 of their largest entry; the FFN with relu
+    under the kernel's relu mask: `kernel_ffn_relu_mask`), the rate 0.1
+    cases called twice (the same bits; tests/test_torch_port_cuda.py
+    covers every rate at every width).  Returns {kernel: largest
+    error}."""
+    import torch
+    from simulst_tpu_torch.ops import ffn, linear_res
+    bf = torch.bfloat16
+    errs = {}
+
+    def grads_err(name, got, want):
+        return max([max_err(f"{name} d0", got[0], want[0], **BF16_TOL)]
+                   + [max_err_to_largest(f"{name} grad {i}", a, c, 1e-2)
+                      for i, (a, c) in enumerate(zip(got[1:], want[1:]))])
+
+    def hold(name, case, call, want, twice):
+        got = call()
+        err = grads_err(f"{name} bf16 {case}", got, want)
+        same = all(torch.equal(a, c) for a, c in zip(got, call())) \
+            if twice else None
+        log("phase20", tensor_cores=f"{name} {case}", err=err,
+            twice_bit_for_bit=same)
+        if same is False:
+            raise AssertionError(f"phase 20: {name} {case} gave other bits "
+                                 "the second time")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for shape, ((rows, d, hid), linear) in BF16_BWD_SHAPES.items():
+        xav = (6.0 / (d + hid)) ** 0.5
+        x, dy = randn(rows, d).to(bf), randn(rows, d).to(bf)
+        w = (randn(d, hid, scale=xav).to(bf), randn(hid, scale=0.02).to(bf),
+             randn(hid, d, scale=xav).to(bf), randn(d, scale=0.02).to(bf))
+        # silu and tanh: phase_activations holds row 2b's at 12,288 rows
+        rates = (0.0, 0.1) if shape == "asr" else (0.1,)
+        for act in ("gelu", "relu") if shape == "asr" else ("gelu",):
+            for rate in rates:
+                cfg = (act, rate, rate, 5)
+                want = plain_ffn_backward_under(
+                    x, w, dy, cfg, kernel_ffn_relu_mask(x, w, cfg)) \
+                    if act == "relu" else \
+                    ffn.ffn_plain_backward(x, *w[:3], dy, *cfg)
+                hold("fused_ffn_backward",
+                     f"{shape} ({rows},{d},{hid}) {act} rate {rate}",
+                     lambda: ffn.fused_ffn_backward(x, *w[:3], dy, *cfg),
+                     want, rate > 0)
+        for n, dl, period, res_rows in linear:
+            h, dyl = randn(n, dl).to(bf), randn(n, dl).to(bf)
+            wl = randn(dl, dl, scale=dl ** -0.5).to(bf)
+            for rate in rates:
+                lcfg = (period, res_rows, rate, 7)
+                hold("fused_linear_res_backward",
+                     f"{shape} ({n},{dl}) period {period} gate {res_rows} "
+                     f"rate {rate}",
+                     lambda: linear_res.fused_linear_res_backward(
+                         h, wl, dyl, *lcfg),
+                     linear_res.linear_res_plain_backward(h, wl, dyl, *lcfg),
+                     rate > 0)
     return errs
 
 
@@ -5286,21 +5431,33 @@ def phase_bf16(dev, batch, speech, fp32_tokens, fp32_asr):
     asr-train steps' launches, {kernel: report fields})."""
     import torch
     t0 = time.perf_counter()
+    parts_s, last = {}, [t0]
+
+    def part(name):
+        now = time.perf_counter()
+        parts_s[name], last[0] = now - last[0], now
     with torch.no_grad():
         activations = phase_activations(dev)
+        part("activations")
         tensor_cores = phase_bf16_tensor_cores(dev)
+        part("tensor_cores")
         bf16 = phase_bf16_kernels(dev, batch)
+        part("kernels")
     for name, err in tensor_cores.items():
         bf16[name]["tensor_core_max_abs_err"] = err
     launches = phase_bf16_train(dev, batch, fp32_asr)
+    part("train")
     with torch.no_grad():   # as cli/generate and the agents serve
         phase_bf16_serve(dev, speech, fp32_tokens)
+    part("serve")
     phase_bf16_students(dev, batch)
+    part("students")
     phase_variants(dev, batch)
+    part("variants")
     report = {name: {"activations": activations.get(name),
                      "bf16": bf16.get(name)}
               for name in set(activations) | set(bf16)}
-    log("phase20", phase_s=time.perf_counter() - t0)
+    log("phase20", phase_s=time.perf_counter() - t0, parts_s=parts_s)
     return launches, report
 
 
@@ -6063,7 +6220,8 @@ def phase_convergence(dev):
 
 # the tone-language CIF leg's updates here: tools/synthetic_smoke.py runs
 # 1000, as the JAX script does; 400 keep the run inside its time (on an
-# H100 the leg read BLEU 92.6 at 400 updates, 98.1 at 600, 100 at 1000)
+# H100 the leg read BLEU 86.4-97.6 at 400 updates, 98.1 at 600, 100 at
+# 1000)
 SYNTHETIC_UPDATES = 400
 
 

@@ -177,8 +177,8 @@ struct HiddenStore {
                          act_drop.scale((size_t)m * hidden_real + n, 0));
   }
   // columns n and n + 1 at once (wgmma_product's epilogue)
-  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
-                                       float2) const {
+  __device__ __forceinline__ void pair(int m, int n, int, float v0,
+                                       float v1) const {
     const size_t moff = (size_t)m * hidden_real + n;
     simulst::store_pair(
         h + (size_t)m * hidden + n,
@@ -190,7 +190,7 @@ struct HiddenStore {
 // h == nullptr: the fused row-block kernel (a width of
 // FFN_FUSED_DIM_DISPATCH); else the LN row pass into xn (kLayerNorm), the
 // hidden product into h and the output product into the split partials,
-// on ffn_product (bf16: the tensor cores).  Then the epilogue.
+// on simulst::product (bf16: the tensor cores).  Then the epilogue.
 template <typename T, bool kLayerNorm, int kAct>
 int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
                const void* w1_, const void* b1_, const void* w2_,
@@ -224,18 +224,18 @@ int launch_ffn(const void* x_, const void* ln_g_, const void* ln_b_,
     if constexpr (kLayerNorm) {
       SIMULST_TRY((cudaError_t)launch_ln_rows<T>(
           x, ln_g, ln_b, xn, nullptr, n_rows, dim, dim_real, stream));
-      SIMULST_TRY((ffn_product<128, true>(n_rows, hidden, dim, 1,
-                                          RowMajor<T>{xn, dim},
-                                          RowMajor<T>{w1, hidden}, store,
-                                          stream)));
+      SIMULST_TRY((simulst::product<128, true>(n_rows, hidden, dim, 1,
+                                                   RowMajor<T>{xn, dim},
+                                                   RowMajor<T>{w1, hidden},
+                                                   store, stream)));
     } else {
-      SIMULST_TRY((ffn_product<128, true>(n_rows, hidden, dim, 1,
-                                          RowMajor<T>{x, dim},
-                                          RowMajor<T>{w1, hidden}, store,
-                                          stream)));
+      SIMULST_TRY((simulst::product<128, true>(n_rows, hidden, dim, 1,
+                                                   RowMajor<T>{x, dim},
+                                                   RowMajor<T>{w1, hidden},
+                                                   store, stream)));
     }
     // the fused kernel's hidden splits, as K slices: the same sums
-    SIMULST_TRY((ffn_product<64>(
+    SIMULST_TRY((simulst::product<64>(
         n_rows, dim, hidden, splits, RowMajor<T>{h, hidden},
         RowMajor<T>{w2, dim},
         simulst::PartialStore<TagFfnFwd>{partial, (size_t)n_rows * dim, 0,

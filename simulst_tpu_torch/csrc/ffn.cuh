@@ -58,16 +58,17 @@
 // and biases, act(0) = 0 for every activation), so the real columns are
 // those of the unpadded call.
 //
-// bf16: the tiled path's products and the LN-FFN
-// backward's five run on wgmma.cuh's wgmma_product, bf16 operands on the
-// tensor cores with fp32 sums, and the intermediates that feed a product
-// (the fc1 input xn, the hidden h / h_d, g and du) are bf16 buffers: the
-// JAX kernels round each of them to the activation dtype before its dot,
-// as the plain versions do, so storing them as bf16 changes no value.
-// The LN statistics, dn, the pre-activation u and the partials stay fp32.
-// The fp32 path, the FFN backward (ffn_bwd.cu) and the fused row-block
-// kernel stay on tile_product and the CUDA cores.  In bf16 the tiled and
-// fused forwards therefore agree within bf16 tolerance, not bit for bit.
+// bf16: the tiled path's products and the five of each backward run on
+// wgmma.cuh's wgmma_product (simulst::product picks it for two bf16
+// operands), bf16 operands on the tensor cores with fp32 sums, and the
+// intermediates that feed a product (the fc1 input xn, the hidden h /
+// h_d, g and du) are bf16 buffers: the JAX kernels round each of them to
+// the activation dtype before its dot, as the plain versions do, so
+// storing them as bf16 changes no value.  The LN statistics, dn, the
+// pre-activation u and the partials stay fp32.  The fp32 path and the
+// fused row-block kernel stay on tile_product and the CUDA cores.  In
+// bf16 the tiled and fused forwards therefore agree within bf16
+// tolerance, not bit for bit.
 //
 // The backwards (training: the MT decoder FFN at 8192 rows, the Emformer
 // LN-FFN at 12,288 rows, x 256 x 2048: 43-64 GFLOP, so compute) recompute
@@ -295,62 +296,92 @@ struct BiasStore {
     u[(size_t)m * hidden + n] = v + to_f32(b1[n]);
   }
   // columns n and n + 1 at once (wgmma_product's epilogue)
-  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
-                                       float2) const {
+  __device__ __forceinline__ void pair(int m, int n, int, float v0,
+                                       float v1) const {
     simulst::store_pair(u + (size_t)m * hidden + n, v0 + to_f32(b1[n]),
                         v1 + to_f32(b1[n + 1]));
   }
 };
 
-// dh -> du = round_T(dh act'(u) m_a); h_d = round_T(act(u) m_a), both
-// stored as G (fp32, or bf16 where the products are wgmma's); the mask at
-// the offsets of a hidden hidden_real wide.  hd may be u itself (fp32: u
-// is overwritten with h_d)
-template <typename T, int kAct, class Caller, typename G = float>
+// the product itself into an fp32 buffer (the LN-FFN backward's dn, the
+// bf16 backwards' dh)
+template <class Caller>
+struct F32Store {
+  float* y;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    y[(size_t)m * ld + n] = v;
+  }
+  // columns n and n + 1 at once (wgmma_product's epilogue)
+  __device__ __forceinline__ void pair(int m, int n, int, float v0,
+                                       float v1) const {
+    simulst::store_pair(y + (size_t)m * ld + n, v0, v1);
+  }
+};
+
+// the fp32 backwards' hidden gradient fused into tile_product's store: dh
+// -> du = dh act'(u) m_a and h_d = act(u) m_a, the mask at the offsets of
+// a hidden hidden_real wide.  hd may be u itself (u is overwritten with
+// h_d)
+template <int kAct, class Caller>
 struct HiddenGradStore {
   const float* u;
-  G* hd;
-  G* du;
+  float* hd;
+  float* du;
   int hidden, hidden_real;
   Dropout act_drop;
   __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
     const size_t off = (size_t)m * hidden + n;
     const float uu = u[off];
     const float mult = act_drop.scale((size_t)m * hidden_real + n, 0);
-    du[off] = from_f32<G>(round_to<T>(v * act_grad<kAct>(uu) * mult));
-    hd[off] = from_f32<G>(round_to<T>(act_fn<kAct>(uu) * mult));
-  }
-  // wgmma_product's epilogue: u of columns n and n + 1, read for a group
-  // of pairs before any is stored; then both columns at once
-  __device__ __forceinline__ float2 load(int m, int n) const {
-    return *reinterpret_cast<const float2*>(u + (size_t)m * hidden + n);
-  }
-  __device__ __forceinline__ void pair(int m, int n, int, float v0, float v1,
-                                       float2 uu) const {
-    const size_t off = (size_t)m * hidden + n;
-    const size_t moff = (size_t)m * hidden_real + n;
-    const float m0 = act_drop.scale(moff, 0), m1 = act_drop.scale(moff + 1, 0);
-    simulst::store_pair(du + off,
-                        round_to<T>(v0 * act_grad<kAct>(uu.x) * m0),
-                        round_to<T>(v1 * act_grad<kAct>(uu.y) * m1));
-    simulst::store_pair(hd + off, round_to<T>(act_fn<kAct>(uu.x) * m0),
-                        round_to<T>(act_fn<kAct>(uu.y) * m1));
+    du[off] = v * act_grad<kAct>(uu) * mult;
+    hd[off] = act_fn<kAct>(uu) * mult;
   }
 };
 
-// C = A B as the FFN's products take it: bf16 operands on the tensor
-// cores (wgmma_product), any other on tile_product (kBN, kStaged as its)
-template <int kBN, bool kStaged = false, class A, class B, class Store>
-cudaError_t ffn_product(int M, int N, int K, int splits, A a, B b,
-                        Store store, cudaStream_t s) {
-  using TA = typename simulst::TileOperand<A>::type;
-  using TB = typename simulst::TileOperand<B>::type;
-  if constexpr (std::is_same<TA, __nv_bfloat16>::value &&
-                std::is_same<TB, __nv_bfloat16>::value)
-    return simulst::wgmma_product(M, N, K, splits, a, b, store, s);
-  else
-    return simulst::tile_product<kBN, kStaged>(M, N, K, splits, a, b, store,
-                                               s);
+// the bf16 backwards' hidden gradient, a pass of its own after their dh
+// product on the tensor cores: du = round_T(dh act'(u) m_a) and h_d =
+// round_T(act(u) m_a) of row blockIdx.x from u and dh (both fp32), 4
+// columns a thread (blockIdx.y: 1024 columns a block), HiddenGradStore's
+// expressions in its order.  In wgmma_product's store, at its 16 warps an
+// SM, the same work took about 3x as long (PERF.md).  hidden is a
+// multiple of 4.
+template <typename T, int kAct>
+__global__ void __launch_bounds__(256)
+    hidden_grad_kernel(const float* __restrict__ u,
+                       const float* __restrict__ dh, T* __restrict__ hd,
+                       T* __restrict__ du, int hidden, int hidden_real,
+                       Dropout act_drop) {
+  const int col = 4 * (blockIdx.y * blockDim.x + threadIdx.x);
+  if (col >= hidden) return;
+  const size_t off = (size_t)blockIdx.x * hidden + col;
+  const size_t moff = (size_t)blockIdx.x * hidden_real + col;
+  const float4 u4 = *reinterpret_cast<const float4*>(u + off);
+  const float4 g4 = *reinterpret_cast<const float4*>(dh + off);
+  const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
+  const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+  float dv[4], hv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float m = act_drop.scale(moff + j, 0);
+    dv[j] = round_to<T>(gv[j] * act_grad<kAct>(uv[j]) * m);
+    hv[j] = round_to<T>(act_fn<kAct>(uv[j]) * m);
+  }
+  simulst::store_pair(du + off, dv[0], dv[1]);
+  simulst::store_pair(du + off + 2, dv[2], dv[3]);
+  simulst::store_pair(hd + off, hv[0], hv[1]);
+  simulst::store_pair(hd + off + 2, hv[2], hv[3]);
+}
+
+// hidden_grad_kernel over n rows; returns a cudaError_t
+template <typename T, int kAct>
+cudaError_t launch_hidden_grad(const float* u, const float* dh, T* hd, T* du,
+                               int n, int hidden, int hidden_real,
+                               Dropout act_drop, cudaStream_t s) {
+  hidden_grad_kernel<T, kAct>
+      <<<dim3(n, simulst::ceil_div(hidden, 1024)), 256, 0, s>>>(
+          u, dh, hd, du, hidden, hidden_real, act_drop);
+  return cudaGetLastError();
 }
 
 inline bool ffn_dim_ok(int dim) {

@@ -38,15 +38,26 @@
 // beside the padded one for the dropout offsets (common.cuh
 // unpadded_offset); padded columns of W, b and res are zero, so the real
 // outputs are those of the unpadded call.  The
-// backward materialises du = drop(dy) on residual rows once
-// (fp32), then runs dh = du W^T (128 x 64 tiles: N = D_in = 256 spreads
-// over the SMs) and dW = h^T du (K = rows, split across blocks into fp32
-// partials) as common.cuh tile_products, and db as column sums of du; one
-// pass adds the partials, so dW and db are summed in fp32 without atomics.
-// dW's K slices are ops/linear_res.py's (k_splits of its 64 x 64 tiles):
-// they fix its bits.  d(res) is dy on residual rows and is formed by the
-// caller, as in the JAX package's _flr_bwd.
+// backward materialises du = drop(dy) on residual rows once (rounded to
+// the activation dtype, as the JAX kernel rounds it before its dots, and
+// stored in it), then runs dh = du W^T (N = D_in = 256: 128 x 64 tiles on
+// the CUDA cores, so that the grid spreads over the SMs) and dW = h^T du
+// (K = rows, split across blocks into fp32 partials) as products, and db
+// as column sums of du; one pass adds the partials, so dW and db are
+// summed in fp32 without atomics.  In fp32 both products run on
+// common.cuh's tile_product; in bf16 on wgmma.cuh's wgmma_product
+// (simulst::product: bf16 operands on the tensor cores, fp32 sums; about
+// 3.4 GFLOP at the Emformer's 12,800 rows, 0.0034 ms at 989 TFLOP/s, so
+// the bytes of h, dy and dh bound it), with 32 row lanes in db's column
+// sums.  dW's K slices are ops/linear_res.py's (k_splits of its 64 x 64
+// tiles): in fp32 slices of ceil(ceil(rows / k_splits) / 32) * 32 rows,
+// which fix its bits; wgmma_product rounds a slice up to its 64-row k
+// tile, ceil(ceil(rows / k_splits) / 64) * 64 rows, so in bf16 the last
+// slices may be shorter, or absent with their partials left zero (the
+// wrapper zero-fills them).  d(res) is dy on residual rows and is formed
+// by the caller, as in the JAX package's _flr_bwd.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -224,9 +235,10 @@ struct CastStore {
   }
 };
 
+// du is T: in bf16 both products run on the tensor cores
 template <typename T>
 int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
-                          void* dh, float* grads, float* du, float* partial,
+                          void* dh, float* grads, T* du, float* partial,
                           int n, int din, int dout, int dout_real,
                           int period, int res_rows, int splits, Dropout drop,
                           cudaStream_t s) {
@@ -236,16 +248,18 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
   const T* w = static_cast<const T*>(w_);
   // grads / partial layout: [dW (din, dout) | db (dout)]
   const size_t len = (size_t)din * dout + dout;
-  SIMULST_TRY((simulst::drop_grad<T>(dy, du, n, dout, dout_real, drop, 0,
-                                     period, res_rows, s)));
-  SIMULST_TRY((simulst::tile_product<64>(
-      n, din, dout, 1, RowMajor<float>{du, dout}, Transposed<T>{w, dout},
+  SIMULST_TRY((simulst::drop_grad<T, T>(dy, du, n, dout, dout_real, drop, 0,
+                                        period, res_rows, s)));
+  SIMULST_TRY((simulst::product<64>(
+      n, din, dout, 1, RowMajor<T>{du, dout}, Transposed<T>{w, dout},
       CastStore<T, TagLinearResBwd>{static_cast<T*>(dh), din}, s)));
-  SIMULST_TRY((simulst::tile_product<64>(
-      din, dout, n, splits, Transposed<T>{h, din}, RowMajor<float>{du, dout},
+  SIMULST_TRY((simulst::product<64>(
+      din, dout, n, splits, Transposed<T>{h, din}, RowMajor<T>{du, dout},
       simulst::PartialStore<TagLinearResBwd>{partial, len, 0, dout}, s)));
-  SIMULST_TRY(simulst::colsum_partial(du, n, dout, splits, partial, len,
-                                      (size_t)din * dout, s));
+  // the column sums: 8 row lanes in fp32 (its bits), 32 in bf16
+  constexpr int kLanes = std::is_same<T, float>::value ? 8 : 32;
+  SIMULST_TRY(simulst::colsum_partial<kLanes>(du, n, dout, splits, partial,
+                                              len, (size_t)din * dout, s));
   return (int)simulst::sum_splits(partial, splits, len, grads, s);
 }
 
@@ -281,10 +295,11 @@ extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
 
 // The backward of simulst_linear_res: dh (n_rows, din) of `dtype` and
 // grads = [dW (din, dout) | db (dout)] in fp32 from h, w and dy (n_rows,
-// dout).  Scratch, fp32: du (n_rows, dout) and partial (splits, len(grads))
-// zero-filled.  h and w start on a 16-byte boundary and din, dout are
-// multiples of 4 (tile_product's loads); dout_real as simulst_linear_res's
-// (at most dout).  Returns a cudaError_t.
+// dout).  Scratch: du (n_rows, dout) of `dtype` and partial (splits,
+// len(grads)) fp32, zero-filled.  h and w start on a 16-byte boundary and
+// din, dout are multiples of 8 (the products' loads; bf16: TMA's);
+// dout_real as simulst_linear_res's (at most dout).  Returns a
+// cudaError_t.
 extern "C" int simulst_linear_res_bwd(int dtype, const void* h, const void* w,
                                       const void* dy, void* dh, void* grads,
                                       void* du, void* partial, int n_rows,
@@ -301,7 +316,7 @@ extern "C" int simulst_linear_res_bwd(int dtype, const void* h, const void* w,
   const Dropout drop{seed, threshold, inv_keep, dropout};
   SIMULST_DISPATCH(dtype, return launch_linear_res_bwd<scalar_t>(
                               h, w, dy, dh, static_cast<float*>(grads),
-                              static_cast<float*>(du),
+                              static_cast<scalar_t*>(du),
                               static_cast<float*>(partial), n_rows, din, dout,
                               dout_real, period, res_rows, splits, drop, s));
 }

@@ -91,25 +91,19 @@ int launch_ln_bwd_rows(const T* x, const float* ln_g, const float* stats,
   });
 }
 
-struct F32Store {
-  float* y;
-  int ld;
-  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
-    y[(size_t)m * ld + n] = v;
-  }
-};
-
 // T the activation dtype: the intermediates that feed a product (xn, g,
 // h_d, du) are T, so that in bf16 every product runs on the tensor cores
-// (ffn_product); in fp32 h_d overwrites u (hd == u)
+// (simulst::product), dh through the fp32 buffer `dh` and the hidden
+// gradient a pass of its own, as the FFN backward's; in fp32 h_d
+// overwrites u (hd == u) and dh is unused
 template <typename T, int kAct>
 int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
                       const void* w1_, const void* b1_, const void* w2_,
                       const void* dy_, void* dx_, float* grads, T* xn,
                       float* stats, float* u, T* hd, T* du, T* g, float* dn,
-                      float* partial, int n, int d, int hidden, int splits,
-                      int d_real, int hidden_real, Dropout act_drop,
-                      Dropout out_drop, cudaStream_t s) {
+                      float* dh, float* partial, int n, int d, int hidden,
+                      int splits, int d_real, int hidden_real,
+                      Dropout act_drop, Dropout out_drop, cudaStream_t s) {
   using simulst::RowMajor;
   using simulst::Transposed;
   using Store = simulst::PartialStore<TagLnFfnBwd>;
@@ -127,18 +121,27 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
       x, ln_g, static_cast<const float*>(be_), xn, stats, n, d, d_real, s));
   SIMULST_TRY((simulst::drop_grad<T, T>(dy, g, n, d, d_real, out_drop, 1, 0,
                                         0, s)));
-  SIMULST_TRY((ffn_product<128>(
+  SIMULST_TRY((simulst::product<128>(
       n, hidden, d, 1, RowMajor<T>{xn, d}, RowMajor<T>{w1, hidden},
       BiasStore<T, TagLnFfnBwd>{u, static_cast<const T*>(b1_), hidden}, s)));
-  SIMULST_TRY((ffn_product<128, true>(
-      n, hidden, d, 1, RowMajor<T>{g, d}, Transposed<T>{w2, d},
-      HiddenGradStore<T, kAct, TagLnFfnBwd, T>{u, hd, du, hidden,
-                                               hidden_real, act_drop},
-      s)));
+  if constexpr (std::is_same<T, float>::value) {
+    SIMULST_TRY((simulst::tile_product<128, true>(
+        n, hidden, d, 1, RowMajor<T>{g, d}, Transposed<T>{w2, d},
+        HiddenGradStore<kAct, TagLnFfnBwd>{u, hd, du, hidden, hidden_real,
+                                           act_drop},
+        s)));
+  } else {
+    SIMULST_TRY((simulst::product<128>(
+        n, hidden, d, 1, RowMajor<T>{g, d}, Transposed<T>{w2, d},
+        F32Store<TagLnFfnBwd>{dh, hidden}, s)));
+    SIMULST_TRY((launch_hidden_grad<T, kAct>(u, dh, hd, du, n, hidden,
+                                             hidden_real, act_drop, s)));
+  }
   // N = d: 128 x 64 tiles, so that the grid spreads over the SMs
-  SIMULST_TRY((ffn_product<64>(n, d, hidden, 1, RowMajor<T>{du, hidden},
-                               Transposed<T>{w1, hidden}, F32Store{dn, d},
-                               s)));
+  SIMULST_TRY((simulst::product<64>(n, d, hidden, 1,
+                                    RowMajor<T>{du, hidden},
+                                    Transposed<T>{w1, hidden},
+                                    F32Store<TagLnFfnBwd>{dn, d}, s)));
   // dW1 and dW2 (K = rows in `splits` slices): one launch on the CUDA
   // cores, two on the tensor cores
   const auto dw1 = simulst::tile_problem<64>(d, hidden, n, splits,
@@ -152,10 +155,10 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
   if constexpr (std::is_same<T, float>::value) {
     SIMULST_TRY((simulst::tile_product_pair<64>(dw1, dw2, s)));
   } else {
-    SIMULST_TRY((ffn_product<64>(d, hidden, n, splits, dw1.a, dw1.b,
-                                 dw1.store, s)));
-    SIMULST_TRY((ffn_product<64>(hidden, d, n, splits, dw2.a, dw2.b,
-                                 dw2.store, s)));
+    SIMULST_TRY((simulst::product<64>(d, hidden, n, splits, dw1.a, dw1.b,
+                                      dw1.store, s)));
+    SIMULST_TRY((simulst::product<64>(hidden, d, n, splits, dw2.a, dw2.b,
+                                      dw2.store, s)));
   }
   // the column sums: 8 row lanes in fp32 (its bits), 32 in bf16
   constexpr int kLanes = std::is_same<T, float>::value ? 8 : 32;
@@ -180,39 +183,42 @@ int launch_ln_ffn_bwd(const void* x_, const void* g_, const void* be_,
 // db2 (dim) | dgamma (dim) | dbeta (dim)] in fp32.  Scratch: xn and g
 // (n_rows, dim) and du, hd (n_rows, hidden) of `dtype`; dn (n_rows, dim),
 // stats (n_rows, 2), u (n_rows, hidden) and partial (splits, len(grads)),
-// zero-filled, fp32.  In fp32 hd may be u (h_d overwrites it).  In bf16
-// the five products run on the tensor cores (wgmma.cuh).  dim_real and
-// hidden_real as simulst_ffn's (LN's statistics and row means, the
-// dropout sites' offsets).  Returns a cudaError_t.
+// zero-filled, fp32; dh (n_rows, hidden) fp32 in bf16 (unused in fp32,
+// where hd may be u: h_d overwrites it).  In bf16 the five products run on
+// the tensor cores (wgmma.cuh).  dim_real and hidden_real as simulst_ffn's
+// (LN's statistics and row means, the dropout sites' offsets).  Returns a
+// cudaError_t.
 extern "C" int simulst_ln_ffn_bwd(int dtype, int act, const void* x,
                                   const void* ln_g, const void* ln_b,
                                   const void* w1, const void* b1,
                                   const void* w2, const void* dy, void* dx,
                                   void* grads, void* xn, void* stats, void* u,
                                   void* hd, void* du, void* g, void* dn,
-                                  void* partial, int n_rows, int dim,
-                                  int hidden, int splits, int dim_real,
-                                  int hidden_real, unsigned long long seed,
-                                  int act_on, unsigned act_threshold,
+                                  void* dh, void* partial, int n_rows,
+                                  int dim, int hidden, int splits,
+                                  int dim_real, int hidden_real,
+                                  unsigned long long seed, int act_on,
+                                  unsigned act_threshold,
                                   float act_inv_keep, int out_on,
                                   unsigned out_threshold, float out_inv_keep,
                                   void* stream) {
   if (!ffn_dim_ok(dim) || n_rows <= 0 || splits <= 0 || hidden <= 0 ||
       hidden % kChunk != 0 || act < kGelu || act > kTanh ||
-      !ffn_real_ok(dim, hidden, dim_real, hidden_real))
+      !ffn_real_ok(dim, hidden, dim_real, hidden_real) ||
+      (dtype == simulst::kBF16 && dh == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout act_drop{seed, act_threshold, act_inv_keep, act_on};
   const Dropout out_drop{seed, out_threshold, out_inv_keep, out_on};
   float *gr = static_cast<float*>(grads), *st = static_cast<float*>(stats),
         *uf = static_cast<float*>(u), *dnf = static_cast<float*>(dn),
-        *pf = static_cast<float*>(partial);
+        *dhf = static_cast<float*>(dh), *pf = static_cast<float*>(partial);
   FFN_ACT_DISPATCH(act, SIMULST_DISPATCH(dtype, return launch_ln_ffn_bwd<scalar_t, kA>(
                               x, ln_g, ln_b, w1, b1, w2, dy, dx, gr,
                               static_cast<scalar_t*>(xn), st, uf,
                               static_cast<scalar_t*>(hd),
                               static_cast<scalar_t*>(du),
-                              static_cast<scalar_t*>(g), dnf, pf, n_rows,
+                              static_cast<scalar_t*>(g), dnf, dhf, pf, n_rows,
                               dim, hidden, splits, dim_real, hidden_real,
                               act_drop, out_drop, s)));
 }

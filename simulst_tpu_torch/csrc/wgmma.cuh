@@ -3,10 +3,12 @@
 //
 // C(m, n) = sum_k A(m, k) B(k, n) over the z-th K slice, handed to
 // store(m, n, z, value) once per output, A and B bf16 RowMajor /
-// Transposed views, the sums in fp32.  The bf16 FFN paths run their
-// products here (csrc/ffn.cu's tiled forward, csrc/ln_ffn_bwd.cu), as the
-// JAX kernels feed bf16 operands to the TPU's matrix unit with fp32
-// accumulation (simulst_tpu/ops/ffn_pallas.py `jnp.dot(...,
+// Transposed views, the sums in fp32.  The bf16 FFN and linear-res paths
+// run their products here (csrc/ffn.cu's tiled forward, csrc/ffn_bwd.cu,
+// csrc/ln_ffn_bwd.cu, csrc/linear_res.cu's backward; `product` below
+// picks it for two bf16 operands), as the JAX kernels feed bf16 operands
+// to the TPU's matrix unit with fp32 accumulation
+// (simulst_tpu/ops/ffn_pallas.py, linear_res_pallas.py `jnp.dot(...,
 // preferred_element_type=jnp.float32)`), so every epilogue of the store
 // functors (bias, activation, both dropout sites, the split-K partials)
 // stays as it is.
@@ -40,12 +42,12 @@
 //    zeros from TMA's out-of-bounds fill, and only outputs inside (M, N)
 //    are stored;
 //  - the epilogue: a thread holds its outputs in pairs of neighbouring
-//    columns (n, n + 1); a store functor with a `load(m, n)` hook (the
-//    FFN backward's HiddenGradStore, which reads the pre-activation u)
-//    has the reads of 4 pairs issued before any of them is stored (they
-//    may alias what it writes, so the compiler would not hoist them
-//    itself), and one with a `pair(m, n, z, v0, v1, loaded)` hook stores
-//    both columns at once (bf16x2, float2).
+//    columns (n, n + 1); a store functor with a `pair(m, n, z, v0, v1)`
+//    hook stores both columns at once (bf16x2, float2).  Work that reads
+//    other tensors per output (the backwards' hidden gradient) is not
+//    put here: at wgmma_product's 16 consumer warps an SM it costs more
+//    than the product (PERF.md), so it runs as a pass of its own
+//    (ffn.cuh `launch_hidden_grad`) over an fp32 product.
 // A K slice is a multiple of kWgBK long (the tiles never straddle two
 // slices); a split-K caller's slices may therefore be fewer than it asked
 // for, and the partials of the missing ones must be zero (the wrappers'
@@ -197,17 +199,12 @@ struct WgProblem {
   Store store;
 };
 
-// the store functor's optional epilogue hooks (see above)
-template <class S, class = void>
-struct WgLoads : std::false_type {};
-template <class S>
-struct WgLoads<S, decltype(void(std::declval<const S&>().load(0, 0)))>
-    : std::true_type {};
+// the store functor's optional epilogue hook (see above)
 template <class S, class = void>
 struct WgPairs : std::false_type {};
 template <class S>
 struct WgPairs<S, decltype(void(std::declval<const S&>().pair(
-                      0, 0, 0, 0.f, 0.f, float2{})))> : std::true_type {};
+                      0, 0, 0, 0.f, 0.f)))> : std::true_type {};
 
 // kAK: A is K-major (a RowMajor view), else MN-major (Transposed); kBK: B
 // is K-major (a Transposed view), else MN-major (RowMajor)
@@ -291,36 +288,23 @@ __global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSm)
   }
 
   // accumulators 2 q and 2 q + 1 of lane l in warp w: row 16 w + l / 4 + 8
-  // (q % 2), columns 8 (q / 2) + 2 (l % 4) and the next; kGroup pairs a
-  // group (4 where the store loads: 8 would spill)
-  constexpr int kGroup = WgLoads<Store>::value ? 4 : 8;
+  // (q % 2), columns 8 (q / 2) + 2 (l % 4) and the next
   const int w = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
   const int row0 = m0 + 64 * c + 16 * w + lane / 4;
   const int col0 = n0 + 2 * (lane % 4);
 #pragma unroll
-  for (int q0 = 0; q0 < 32; q0 += kGroup) {
-    float2 loaded[kGroup];
-#pragma unroll
-    for (int q = 0; q < kGroup; ++q) {
-      const int m = row0 + 8 * ((q0 + q) % 2), n = col0 + 8 * ((q0 + q) / 2);
-      loaded[q] = make_float2(0.f, 0.f);
-      if constexpr (WgLoads<Store>::value)
-        if (m < p.M && n + 1 < p.N) loaded[q] = p.store.load(m, n);
-    }
-#pragma unroll
-    for (int q = 0; q < kGroup; ++q) {
-      const int m = row0 + 8 * ((q0 + q) % 2), n = col0 + 8 * ((q0 + q) / 2);
-      const float v0 = acc[2 * (q0 + q)], v1 = acc[2 * (q0 + q) + 1];
-      if (m >= p.M || n >= p.N) continue;
-      if constexpr (WgPairs<Store>::value) {
-        if (n + 1 < p.N) {
-          p.store.pair(m, n, z, v0, v1, loaded[q]);
-          continue;
-        }
+  for (int q = 0; q < 32; ++q) {
+    const int m = row0 + 8 * (q % 2), n = col0 + 8 * (q / 2);
+    const float v0 = acc[2 * q], v1 = acc[2 * q + 1];
+    if (m >= p.M || n >= p.N) continue;
+    if constexpr (WgPairs<Store>::value) {
+      if (n + 1 < p.N) {
+        p.store.pair(m, n, z, v0, v1);
+        continue;
       }
-      p.store(m, n, z, v0);
-      if (n + 1 < p.N) p.store(m, n + 1, z, v1);
     }
+    p.store(m, n, z, v0);
+    if (n + 1 < p.N) p.store(m, n + 1, z, v1);
   }
 }
 
@@ -405,6 +389,22 @@ cudaError_t wgmma_product(int M, int N, int K, int splits, A a, B b,
   kernel<<<p.tiles_m * p.tiles_n * ceil_div(K, k_chunk), kWgThreads, kWgSmem,
            stream>>>(map_a, map_b, p);
   return cudaGetLastError();
+}
+
+// C = A B as the port's products take it: two bf16 operands on the tensor
+// cores (wgmma_product), any other pair on tile_product (kBN and kStaged
+// as its), so that one launch code serves fp32 and bf16 (the FFN forward
+// and both FFN backwards, the linear-res backward)
+template <int kBN, bool kStaged = false, class A, class B, class Store>
+cudaError_t product(int M, int N, int K, int splits, A a, B b, Store store,
+                    cudaStream_t s) {
+  using TA = typename TileOperand<A>::type;
+  using TB = typename TileOperand<B>::type;
+  if constexpr (std::is_same<TA, __nv_bfloat16>::value &&
+                std::is_same<TB, __nv_bfloat16>::value)
+    return wgmma_product(M, N, K, splits, a, b, store, s);
+  else
+    return tile_product<kBN, kStaged>(M, N, K, splits, a, b, store, s);
 }
 
 }  // namespace simulst

@@ -49,10 +49,10 @@ SIGNATURES = {
     # act_threshold, act_inv_keep, out_on, out_threshold, out_inv_keep,
     # stream
     "simulst_ffn": [_I] * 3 + [_P] * 11 + [_I] * 6 + _DROP + _DROP[1:] + [_P],
-    # dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g, partial,
+    # dtype, act, x, w1, b1, w2, dy, dx, grads, u, hd, du, g, dh, partial,
     # n_rows, dim, hidden, splits, dim_real, hidden_real, seed, act site,
     # out site, stream
-    "simulst_ffn_bwd": [_I] * 2 + [_P] * 11 + [_I] * 6 + _DROP + _DROP[1:]
+    "simulst_ffn_bwd": [_I] * 2 + [_P] * 13 + [_I] * 6 + _DROP + _DROP[1:]
                        + [_P],
     # dtype, h, w, b, res, y, n_rows, din, dout, dout_real, period,
     # res_rows, path, dropout, seed, threshold, inv_keep, stream
@@ -72,9 +72,9 @@ SIGNATURES = {
     "simulst_mha_bwd": [_I] + [_P] * 12 + [_I] * 8 + [ctypes.c_uint64]
                        + _DROP[2:] + [_P],
     # dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads, xn, stats, u,
-    # hd, du, g, dn, partial, n_rows, dim, hidden, splits, dim_real,
+    # hd, du, g, dn, dh, partial, n_rows, dim, hidden, splits, dim_real,
     # hidden_real, seed, act site, out site, stream
-    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 17 + [_I] * 6 + _DROP
+    "simulst_ln_ffn_bwd": [_I] * 2 + [_P] * 18 + [_I] * 6 + _DROP
                           + _DROP[1:] + [_P],
     # dtype, q3, k, v, lengths, kid, seg_eid, out, batch, ng, nq, dim,
     # heads, hd_real, seg, lc, rc, max_mem, G, tk, unit_cols, smem_bytes,

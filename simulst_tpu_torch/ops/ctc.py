@@ -7,7 +7,8 @@ loss on RAW logits: its forward runs the alpha recursion (`ctc_alphas`),
 its backward the beta recursion fused with the occupancy posterior
 (`ctc_d_em`), then assembles dlogits = scatter(d_em) + d_lse softmax - the
 smoothing term in one (B, T, V) pass.  `ctc_alphas` and `ctc_d_em` run the
-CUDA kernels of csrc/ctc.cu on a CUDA tensor (one block per example) and
+CUDA kernels of csrc/ctc.cu on a CUDA tensor (one block per example, one
+state a thread up to S 1024 and several above, up to MAX_STATES) and
 their plain versions `alphas_plain` / `d_em_plain` (a loop over T) on a
 CPU tensor.  Frames at t >= input_length are frozen: alpha and beta carry
 over, d_em is 0.
@@ -29,6 +30,7 @@ import torch
 from simulst_tpu_torch.ops import _build
 
 NEG = -1e30
+MAX_STATES = 16 * 1024   # the kernels' S (csrc/ctc.cu kMaxStates)
 
 
 def ctc_labels(targets, blank: int):
@@ -122,9 +124,10 @@ def _kernel_args(name, em, can_skip, input_lengths, target_lengths, *more):
     target_lengths) on em's device, or raise."""
     t, b, s = em.shape
     if can_skip.shape != (b, s) or input_lengths.shape != (b,) or \
-            target_lengths.shape != (b,) or s > 1024:
-        raise ValueError(f"{name}: kernel takes em (T, B, S <= 1024), "
-                         f"can_skip (B, S), lengths (B,); got em "
+            target_lengths.shape != (b,) or s > MAX_STATES:
+        raise ValueError(f"{name}: kernel takes em (T, B, S <= "
+                         f"{MAX_STATES}), can_skip (B, S), lengths (B,); "
+                         f"got em "
                          f"{tuple(em.shape)}, can_skip "
                          f"{tuple(can_skip.shape)}")
     if em.dtype != torch.float32:

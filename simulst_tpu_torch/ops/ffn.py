@@ -14,9 +14,9 @@ D or hidden that is not a multiple of 64 reaches the kernels zero-padded
 to the next one, with the real widths beside them (LN's statistics over
 the real D, the dropout offsets of the unpadded tensors), and the outputs
 are sliced back; above D 1024 the LN row passes walk each row instead of
-holding it in registers.  In bf16 the tiled forward's products and the
-LN-FFN backward's five run on the tensor cores (csrc/wgmma.cuh), their
-bf16 intermediates (xn, h, g, du) in bf16 buffers; everything else
+holding it in registers.  In bf16 the tiled forward's products and both
+backwards' five run on the tensor cores (csrc/wgmma.cuh), their bf16
+intermediates (xn, h, g, du, h_d) in bf16 buffers; everything else
 multiplies in fp32 on the CUDA cores.  On a CPU tensor they run their
 plain PyTorch versions (`ln_ffn_res_plain`,
 `ln_ffn_res_plain_backward`, `ffn_plain`, `ffn_plain_backward`).  GELU
@@ -357,16 +357,22 @@ def _launch_backward(x, w1, b1, w2, dy, activation, act_rate, out_rate, seed):
     if n:
         splits = slice_plan(n, hidden, _sm_count(x.device.index), d,
                             x.dtype).bwd_splits
+        # the products' operands of the activation dtype (bf16: on the
+        # tensor cores, dh through an fp32 buffer); in fp32 h_d overwrites u
+        act = dict(dtype=x2.dtype, device=x.device)
         u = torch.empty(n, hidden, **f32)
-        du = torch.empty(n, hidden, **f32)
-        g = torch.empty(n, d, **f32)
+        du, g = torch.empty(n, hidden, **act), torch.empty(n, d, **act)
+        f32_path = x2.dtype == torch.float32
+        hd = u if f32_path else torch.empty(n, hidden, **act)
+        dh = None if f32_path else torch.empty(n, hidden, **f32)
         partial = torch.zeros(splits, length, **f32)
         _build.launch(
             "simulst_ffn_bwd", _build.dtype_code(x2),
             ACTIVATION_CODES[activation], x2.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
-            grads.data_ptr(), u.data_ptr(), du.data_ptr(), g.data_ptr(),
-            partial.data_ptr(), n, d, hidden, splits, d_real, h_real,
+            grads.data_ptr(), u.data_ptr(), hd.data_ptr(), du.data_ptr(),
+            g.data_ptr(), _ptr(dh), partial.data_ptr(), n, d, hidden,
+            splits, d_real, h_real,
             *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
         fused_ffn_backward.launches += 1
     dw1 = _build.unpadded(grads[:d * hidden].view(d, hidden), d_real,
@@ -402,14 +408,15 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
         splits = slice_plan(n, hidden, _sm_count(x.device.index), d,
                             x.dtype).bwd_splits
         # the products' operands of the activation dtype (bf16: on the
-        # tensor cores); in fp32 h_d overwrites u
+        # tensor cores, dh through an fp32 buffer); in fp32 h_d overwrites u
         act = dict(dtype=x2.dtype, device=x.device)
         xn, g = torch.empty(n, d, **act), torch.empty(n, d, **act)
         dn = torch.empty(n, d, **f32)
         u = torch.empty(n, hidden, **f32)
         du = torch.empty(n, hidden, **act)
-        hd = u if x2.dtype == torch.float32 else torch.empty(n, hidden,
-                                                             **act)
+        f32_path = x2.dtype == torch.float32
+        hd = u if f32_path else torch.empty(n, hidden, **act)
+        dh = None if f32_path else torch.empty(n, hidden, **f32)
         stats = torch.empty(n, 2, **f32)
         partial = torch.zeros(splits, grads.numel(), **f32)
         _build.launch(
@@ -418,8 +425,8 @@ def _launch_ln_backward(x, ln_g, ln_b, w1, b1, w2, dy, activation, act_rate,
             ln_b.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             dy2.data_ptr(), dx.data_ptr(), grads.data_ptr(), xn.data_ptr(),
             stats.data_ptr(), u.data_ptr(), hd.data_ptr(), du.data_ptr(),
-            g.data_ptr(), dn.data_ptr(), partial.data_ptr(), n, d, hidden,
-            splits, d_real, h_real,
+            g.data_ptr(), dn.data_ptr(), _ptr(dh), partial.data_ptr(), n, d,
+            hidden, splits, d_real, h_real,
             *_dropout_sites(act_rate, out_rate, seed), _build.stream_of(x2))
         fused_ln_ffn_res_backward.launches += 1
     return (_build.unpadded(dx, d_real).reshape(x.shape),

@@ -13,7 +13,9 @@ and D_out (`check_widths`; a D_in not a multiple of 32 or a D_out not a
 multiple of 64 reaches them zero-padded to the next one, the real D_out
 beside it for the dropout offsets, and the output is sliced back); on a
 CPU tensor
-`linear_res_plain` and `linear_res_plain_backward`.  w keeps the JAX layout (D_in, D_out).  The
+`linear_res_plain` and `linear_res_plain_backward`.  In bf16 the
+backward's two products run on the tensor cores (csrc/wgmma.cuh), du a
+bf16 buffer, so kernel and plain version agree within bf16 tolerance.  w keeps the JAX layout (D_in, D_out).  The
 dropout mask is ops/philox.py's, stream 0 at offset row * D_out + column,
 keyed by the call's seed; d(res) is the upstream gradient on residual rows
 and zero elsewhere, as in the JAX package's _flr_bwd.
@@ -155,7 +157,9 @@ def _launch_backward(h, w, dy, period, res_rows, rate, seed):
     if n:
         tiles = -(-din // WGRAD_TILE) * -(-dout // WGRAD_TILE)
         splits = k_splits(n, tiles, h.device)
-        du = torch.empty(n, dout, **f32)
+        # du of the activation dtype (bf16: both products on the tensor
+        # cores)
+        du = torch.empty(n, dout, dtype=h2.dtype, device=h.device)
         partial = torch.zeros(splits, length, **f32)
         on, seed64, thr, inv = _build.dropout_args(rate, seed)
         _build.launch("simulst_linear_res_bwd", _build.dtype_code(h2),

@@ -22,7 +22,11 @@ kernels' tolerances.  The FFN kernels' silu and tanh run fp32 and bf16
 at these tolerances.  The bf16 LN-FFN forward's tiled path and its
 backward run their products on the tensor cores: held to their plain
 versions at the bf16 tolerance (with relu, the plain backward under the
-kernel's own relu mask), the same bits twice, HGMMA in their SASS.  The
+kernel's own relu mask), the same bits twice, HGMMA in their SASS; so do
+the bf16 FFN backward and linear-res backward (1 to 12,800 rows, D 256
+and the padded D 200, gated and ungated, weight gradients within 1e-2
+of their largest entry).  The CTC kernels run S 1025 and 2049 with
+several states a thread.  The
 widths above the old maxima (D 1280 / 2048, head dims 160 / 256, 96 /
 128 channels a group) run their kernels at the fp32 tolerances.
 """
@@ -480,12 +484,14 @@ def test_ctc_kernels_match_plain(randn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,s", [(60, 33), (60, 257), (120, 1023)])
+@pytest.mark.parametrize("t,s", [(60, 33), (60, 257), (120, 1023),
+                                 (120, 1025), (120, 2049), (1040, 2049)])
 def test_ctc_alpha_paths_match_plain(randn, t, s):
     """Alphas at S 33 and 257 (2 and 11 warps refreshing halo states every
-    4 steps) and at S 1023 (32 warps exchanging border states every step):
-    finite entries atol 1e-4, the -1e30 sentinels equal.  The first two
-    targets fit their frames, the third cannot, the fourth is empty."""
+    4 steps), at S 1023 (32 warps exchanging border states every step) and
+    at S 1025 and 2049 (2 and 4 states a thread): finite entries atol
+    1e-4, the -1e30 sentinels equal.  The first two targets fit their
+    frames, the third cannot, the fourth is empty."""
     b, L = 4, (s - 1) // 2
     em = torch.log_softmax(randn(t, b, s), dim=-1)
     g = torch.Generator().manual_seed(s + 1)
@@ -507,11 +513,13 @@ def test_ctc_alpha_paths_match_plain(randn, t, s):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t,s", [(60, 33), (60, 65), (60, 129), (60, 257),
-                                 (120, 1023), (1, 17)])
+                                 (120, 1023), (1, 17), (120, 1025),
+                                 (120, 2049), (1040, 2049)])
 def test_ctc_d_em_paths_match_plain(randn, t, s):
     """d_em at S 33, 65, 129 and 257 (2 to 11 beta warps refreshing halo
     states every 4 steps), at S 1023 (32 warps exchanging border states
-    every step) and at T 1, S 17 (one beta warp), each followed by the
+    every step), at T 1, S 17 (one beta warp) and at S 1025 and 2049 (2
+    and 4 states a thread), each followed by the
     posterior kernel, on the kernel's alphas: finite entries atol 1e-4,
     zero past each input length.  The first two targets fit their frames
     (up to t / 2 and t / 3 labels), the third cannot, the fourth is
@@ -535,6 +543,29 @@ def test_ctc_d_em_paths_match_plain(randn, t, s):
                                                    tl, scale, nll), **TOL)
     for k in range(b):
         assert not got[int(il[k]):, k].any()
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_raise_above_their_states(randn):
+    """Above ops/ctc.MAX_STATES the wrappers raise (no quiet fall back
+    to the plain DP); at it they launch."""
+    for s, raises in ((ctc.MAX_STATES + 2, True), (ctc.MAX_STATES, False)):
+        em = torch.log_softmax(randn(3, 1, s), dim=-1)
+        skip = torch.zeros(1, s, dtype=torch.int32, device="cuda")
+        lengths = torch.tensor([3], device="cuda")
+        tl = torch.tensor([1], device="cuda")
+        if raises:
+            with pytest.raises(ValueError, match="S <="):
+                ctc.ctc_alphas(em, skip, lengths, tl)
+            with pytest.raises(ValueError, match="S <="):
+                ctc.ctc_d_em(em, em, skip, lengths, tl, tl.float(),
+                             tl.float())
+            continue
+        got = ctc.ctc_alphas(em, skip, lengths, tl)
+        want = ctc.alphas_plain(em, skip, lengths, tl)
+        sentinel = want <= ctc.NEG / 2
+        assert torch.equal(got[sentinel], want[sentinel])
+        torch.testing.assert_close(got[~sentinel], want[~sentinel], **TOL)
 
 
 @pytest.mark.cuda
@@ -1264,3 +1295,90 @@ def test_bf16_products_are_hgmma(randn):
     assert wgmma and all("HGMMA" in functions[n] for n in wgmma)
     assert not any("HGMMA" in body for n, body in functions.items()
                    if n not in wgmma)
+
+
+# bf16 rows 2b and 4b on the tensor cores: the FFN backward (all five
+# products) and the linear-res backward (dh and dW), against their plain
+# versions at BF16 (dx / dh) and 1e-2 of the largest entry (the weight and
+# bias gradients), from one row to 12,800 (several K slices of the weight
+# products), D 256 and the padded D 200
+BF16_BWD_ROWS = [1, 300, 2304, 4133, 12800]
+BF16_BWD_WIDTHS = {"d256": (256, 2048), "d200": (200, 800)}
+
+
+def _plain_ffn_backward(x, ws, dy, cfg):
+    """ffn_plain_backward; with relu under the kernel's relu mask
+    (chip_smoke.kernel_ffn_relu_mask), as _plain_ln_ffn_backward."""
+    if cfg[0] != "relu":
+        return ffn_plain_backward(x, *ws[:3], dy, *cfg)
+    import chip_smoke
+    return chip_smoke.plain_ffn_backward_under(
+        x, ws, dy, cfg, chip_smoke.kernel_ffn_relu_mask(x, ws, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", list(BF16_BWD_WIDTHS))
+@pytest.mark.parametrize("rows", BF16_BWD_ROWS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_bf16_ffn_backward_runs_on_the_tensor_cores(randn, activation, rate,
+                                                    rows, width):
+    """Row 2b in bf16: dx within BF16 of the plain backward, the weight
+    and bias gradients within 1e-2 of their largest entry (relu under the
+    kernel's relu mask), one launch counted, the same bits twice."""
+    d, hidden = BF16_BWD_WIDTHS[width]
+    x, dy, ws = _bf16_ffn_inputs(randn, rows, d, hidden)
+    ws = ws[2:]
+    cfg = (activation, rate, rate, 11)
+    before = fused_ffn_backward.launches
+    got = fused_ffn_backward(x, *ws[:3], dy, *cfg)
+    assert fused_ffn_backward.launches == before + 1
+    want = _plain_ffn_backward(x, ws, dy, cfg)
+    torch.testing.assert_close(got[0], want[0], **BF16)
+    for g, w in zip(got[1:], want[1:]):
+        _close_to_largest(g, w, 1e-2)
+    again = fused_ffn_backward(x, *ws[:3], dy, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [256, 200])
+@pytest.mark.parametrize("rows", BF16_BWD_ROWS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("period,res_rows", [(0, 0), (200, 192)])
+def test_bf16_linear_res_backward_runs_on_the_tensor_cores(
+        randn, period, res_rows, rate, rows, width):
+    """Row 4b in bf16, gated and ungated: dh within BF16 of the plain
+    backward, dW and db within 1e-2 of their largest entry, one launch
+    counted, the same bits twice."""
+    bf = torch.bfloat16
+    h, dy = randn(rows, width).to(bf), randn(rows, width).to(bf)
+    w = randn(width, width, scale=width ** -0.5).to(bf)
+    cfg = (period, res_rows, rate, 13)
+    before = fused_linear_res_backward.launches
+    got = fused_linear_res_backward(h, w, dy, *cfg)
+    assert fused_linear_res_backward.launches == before + 1
+    want = linear_res_plain_backward(h, w, dy, *cfg)
+    torch.testing.assert_close(got[0], want[0], **BF16)
+    for g, w_ in zip(got[1:], want[1:]):
+        _close_to_largest(g, w_, 1e-2)
+    again = fused_linear_res_backward(h, w, dy, *cfg)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_backwards_products_are_hgmma(randn):
+    """The FFN backward's and the linear-res backward's bf16 products are
+    wgmma_product kernels (their callers' tags in the kernels' names)
+    with HGMMA in their SASS."""
+    import shutil
+    import subprocess
+    from simulst_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    wgmma = {n: body for n, body in _build.sass_functions(sass).items()
+             if "wgmma_product_kernel" in n}
+    for store in ("TagFfnBwd", "TagLinearResBwd"):
+        found = [n for n in wgmma if store in n]
+        assert found and all("HGMMA" in wgmma[n] for n in found), store

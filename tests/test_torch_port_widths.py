@@ -322,8 +322,8 @@ def _emu_ffn_grads(name, inp, W1, B1, W2, DY, n, d, hid, d_real, h_real,
                                  g.sum(0)])
 
 
-def _emu_ffn_bwd(dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g,
-                 partial, n, d, hid, splits, d_real, h_real, seed, a_on,
+def _emu_ffn_bwd(dtype, act, x, w1, b1, w2, dy, dx, grads, u, hd, du, g,
+                 dh, partial, n, d, hid, splits, d_real, h_real, seed, a_on,
                  a_thr, a_inv, o_on, o_thr, o_inv, stream):
     name = [k for k, v in tffn.ACTIVATION_CODES.items() if v == act][0]
     X, DY = _buf(x, n, d), _buf(dy, n, d)
@@ -336,9 +336,9 @@ def _emu_ffn_bwd(dtype, act, x, w1, b1, w2, dy, dx, grads, u, du, g,
 
 
 def _emu_ln_ffn_bwd(dtype, act, x, ln_g, ln_b, w1, b1, w2, dy, dx, grads,
-                    xn, stats, u, hd, du, g, dn, partial, n, d, hid, splits,
-                    d_real, h_real, seed, a_on, a_thr, a_inv, o_on, o_thr,
-                    o_inv, stream):
+                    xn, stats, u, hd, du, g, dn, dh, partial, n, d, hid,
+                    splits, d_real, h_real, seed, a_on, a_thr, a_inv, o_on,
+                    o_thr, o_inv, stream):
     name = [k for k, v in tffn.ACTIVATION_CODES.items() if v == act][0]
     X, DY, G = _buf(x, n, d), _buf(dy, n, d), _buf(ln_g, d)
     normed, xhat, inv = _ln_emulated(X, G, _buf(ln_b, d), d_real)

@@ -20,13 +20,24 @@ inputs, and each output is compared with torch.equal:
                          to the plain version at chip_smoke's
                          BF16_TOL instead, its largest differences from the
                          plain version and from the revision printed beside
-                         it
-  simulst_ffn_bwd        dx, dW1, db1, dW2, db2 through ops/ffn.py's
-                         wrapper, at the same cases
+                         it; where the revision's tiled path runs on the
+                         tensor cores too, both bf16 paths are held to the
+                         revision's, bit for bit
+  simulst_ffn_bwd        dx, dW1, db1, dW2, db2, each build's C entry
+                         called with its own signature and scratch (a
+                         revision before the bf16 tensor-core backward
+                         takes no h_d and dh and fp32 du, g), at the same
+                         cases; bf16 (the five products on the tensor
+                         cores) held to the plain version at BF16_TOL
+                         (weight and bias gradients within 1e-2 of their
+                         largest entry; relu under this build's relu mask,
+                         chip_smoke.kernel_ffn_relu_mask), the largest
+                         differences printed beside it
   simulst_ln_ffn_bwd     dx, dgamma, dbeta, dW1, db1, dW2, db2, each
                          build's C entry called with its own signature and
                          scratch (a revision before the bf16 tensor-core
-                         path takes no h_d and fp32 xn, g, du); fp32 and
+                         path takes no h_d and fp32 xn, g, du, one before
+                         its hidden-gradient pass no dh); fp32 and
                          bf16, gelu and relu, dropout 0 and 0.1, at 1, 300,
                          4,133 and 12,288 rows (bf16 LN parameters: each
                          build takes them in its own dtype, fp32 from the
@@ -35,18 +46,24 @@ inputs, and each output is compared with torch.equal:
                          cores) is held to the plain version at BF16_TOL
                          (weight and LN gradients within 1e-2 of their
                          largest entry; relu under this build's relu mask,
-                         chip_smoke.kernel_relu_mask), the largest
+                         chip_smoke.kernel_relu_mask) and, where the
+                         revision's products run on the tensor cores too,
+                         to the revision's bit for bit, the largest
                          differences printed beside it
   simulst_cif_integrate  out and delays at the shapes of
                          tests/test_torch_port_cuda.py's CIF cases (a
                          revision whose entry takes cprev gets csum - alpha
                          from torch, one rounding, as its wrapper computed
                          it)
-  simulst_linear_res_bwd dh, dW, db through ops/linear_res.py's wrapper;
-                         fp32 and bf16, dropout 0 and 0.1, every row a
-                         residual row and the Emformer out-projection's
-                         gate (period 200, 192 residual rows), at 1, 24,
-                         300, 2,304, 8192 and 12,800 rows (256 x 256)
+  simulst_linear_res_bwd dh, dW, db, each build's C entry with its own
+                         scratch (du fp32 in a revision before the bf16
+                         tensor-core backward, of the activation dtype
+                         since); fp32 and bf16, dropout 0 and 0.1, every
+                         row a residual row and the Emformer
+                         out-projection's gate (period 200, 192 residual
+                         rows), at 1, 24, 300, 2,304, 8192 and 12,800 rows
+                         (256 x 256); bf16 (both products on the tensor
+                         cores) held to the plain version at BF16_TOL
   simulst_linear_res     y, this checkout's entry called on both of its
                          paths (the row kernel and tile_product) and the
                          revision's with its own C signature (one without
@@ -99,7 +116,11 @@ inputs, and each output is compared with torch.equal:
                          exchange every 4 steps, at S 33-257; an exchange
                          every step at S 1023)
   simulst_ctc_d_em       d_em at the same cases on the revision's alphas,
-                         on the same block shapes
+                         on the same block shapes; then both above S 1024
+                         (CTC_WIDE_CASES: S 1025 and 2049, 2 and 4 states
+                         a thread), this checkout alone, held to the plain
+                         DP (finite entries within F32_TOL, the -1e30
+                         sentinels equal)
 
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
@@ -139,11 +160,12 @@ chip_smoke.py's ASR shape (q3 (32, 2, 200, 256), rate 0.1), the MHA
 forward's at the MT shapes (64, 128, 128) causal, self and cross,
 the ASR decoder's (32, 72, 72) causal and (32, 72, 256), the decoder
 step's (40, 1, 256) and the self-cache (40, 1, 64), all rate 0.1 (the
-decoder step 0), this checkout's on the path its plan picks; the FFN backward at 8192 rows (relu, rate 0.1)
-and the LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the
-wrappers; the CIF C entry at (32, 256, 256, 72); the linear-res backward
-through the wrapper at 8192 rows, 12,800 rows with the Emformer gate and
-2,304 rows (rate 0.1); the MHA backward's C entry at the MT shape (64,
+decoder step 0), this checkout's on the path its plan picks; the FFN backward's C entry at 8192 rows (relu,
+rate 0.1), and in bf16 at 2,304 (gelu) and 8192 rows (relu), and the
+LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the wrappers;
+the CIF C entry at (32, 256, 256, 72); the linear-res backward's C entry
+at 8192 rows, 12,800 rows with the Emformer gate and 2,304 rows (rate
+0.1), fp32 and bf16; the MHA backward's C entry at the MT shape (64,
 128, 128) causal and the ASR decoder's (32, 72, 72) causal and (32, 72,
 256), rate 0.1; the alignment forward's and backward's C entries at the
 pooled (128, 72, 32), unpooled (128, 72, 256) and S 257 (two tiles)
@@ -159,7 +181,8 @@ the linear-res forward on each path from 1 to 12,800 rows (fp32, rate
 and the MHA forward on both kernels at Tq 1 to 64 over 256 keys (B 40,
 rate 0) and at the timed shapes, which places ops/mha.py's
 DECODE_MAX_TQ; the alpha's and d_em's C entries of both builds, in
-turns, at S 33, 65, 129, 257 and 1023 (T 256, B 32); and the CTC
+turns, at S 33, 65, 129, 257 and 1023 (T 256, B 32), this checkout's
+alone at S 1025 and 2049; and the CTC
 recursions' chain floor (chip_smoke.ctc_chain_floor: one warp's T
 dependent LSE pairs on registers, with and without the two shuffles).
 
@@ -287,6 +310,13 @@ CTC_CASES = (
     ("T 1 (1,4,17)", 1, 4, 17, "ragged"),
 )
 D_EM_TIMED_S = (33, 65, 129, 257, 1023)
+# above S 1024 (2 and 4 states a thread): this checkout alone, vs plain
+# (the frames leave room for every target: posteriors to compare)
+CTC_WIDE_CASES = (
+    ("S 1025 (1400,2,1025)", 1400, 2, 1025, "ragged"),
+    ("S 2049 (2600,2,2049)", 2600, 2, 2049, "ragged"),
+)
+CTC_WIDE_TIMED_S = (1025, 2049)
 # timed name prefix -> the C entry it times (first match)
 TIMED_ENTRIES = (("ln_ffn_fwd", "simulst_ffn"), ("ffn_fwd", "simulst_ffn"),
                  ("ffn_bwd", "simulst_ffn_bwd"),
@@ -433,14 +463,16 @@ def ffn_entry(torch, _build, ffn, lib, takes_scratch, ln_res, act, x, ws,
     return call
 
 
-def ln_ffn_bwd_entry(torch, _build, lib, takes_hd, x, ws, dy, act, rate,
-                     takes_real=True):
+def ln_ffn_bwd_entry(torch, _build, lib, takes_hd, takes_dh, x, ws, dy, act,
+                     rate, takes_real=True):
     """simulst_ln_ffn_bwd of `lib` bound to its arguments (D 256, hidden
     2048) and called once, with its build's signature and scratch:
-    takes_hd, this checkout's and later builds', takes h_d apart from u
-    and reads xn, g, du and h_d in the activation dtype; a build before
-    takes them all in fp32 (h_d overwriting u).  `.outs` is (dx, dgamma,
-    dbeta, dW1, db1, dW2, db2), the wrapper's order."""
+    takes_hd, builds since the bf16 tensor-core path, takes h_d apart from
+    u and reads xn, g, du and h_d in the activation dtype; a build before
+    takes them all in fp32 (h_d overwriting u).  takes_dh, this
+    checkout's and later builds', also takes the bf16 path's fp32 dh.
+    `.outs` is (dx, dgamma, dbeta, dW1, db1, dW2, db2), the wrapper's
+    order."""
     n, d, hid = x.shape[0], 256, 2048
     f32 = dict(dtype=torch.float32, device=x.device)
     act_dtype = dict(dtype=x.dtype if takes_hd else torch.float32,
@@ -457,14 +489,16 @@ def ln_ffn_bwd_entry(torch, _build, lib, takes_hd, x, ws, dy, act, rate,
     u = torch.empty(n, hid, **f32)
     du = torch.empty(n, hid, **act_dtype)
     hd = torch.empty(n, hid, **act_dtype) if takes_hd else None
+    dh = torch.empty(n, hid, **f32) if x.dtype == torch.bfloat16 else None
     stats = torch.empty(n, 2, **f32)
     partial = torch.zeros(splits, grads.numel(), **f32)
-    ptrs = [xn, stats, u] + ([hd] if takes_hd else []) + [du, g, dn, partial]
+    ptrs = [xn, stats, u] + ([hd] if takes_hd else []) + [du, g, dn] + \
+        ([dh] if takes_dh else []) + [partial]
     call = functools.partial(
         lib.simulst_ln_ffn_bwd, _build.dtype_code(x),
         ffn.ACTIVATION_CODES[act], x.data_ptr(),
         *(w.data_ptr() for w in ws[:5]), dy.data_ptr(), dx.data_ptr(),
-        grads.data_ptr(), *(t.data_ptr() for t in ptrs), n, d, hid, splits,
+        grads.data_ptr(), *(ffn._ptr(t) for t in ptrs), n, d, hid, splits,
         *((d, hid) if takes_real else ()),
         *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
     call.outs = (dx, grads[o_db2 + d:o_db2 + 2 * d],
@@ -474,6 +508,78 @@ def ln_ffn_bwd_entry(torch, _build, lib, takes_hd, x, ws, dy, act, rate,
     call.keep = ptrs
     if call():
         raise RuntimeError("simulst_ln_ffn_bwd: CUDA error")
+    return call
+
+
+def ffn_bwd_entry(torch, _build, lib, takes_hd, x, ws, dy, act, rate,
+                  takes_real=True):
+    """simulst_ffn_bwd of `lib` bound to its arguments (D 256, hidden 2048;
+    ws = w1, b1, w2) and called once, with its build's signature and
+    scratch: takes_hd, this checkout's and later builds', takes h_d and
+    the bf16 path's fp32 dh apart from u and reads g, du and h_d in the
+    activation dtype; a build before takes u, du and g in fp32 (h_d
+    overwriting u).  `.outs` is (dx, dW1, db1, dW2, db2), the wrapper's
+    order."""
+    from simulst_tpu_torch.ops import ffn
+    n, d, hid = x.shape[0], 256, 2048
+    f32 = dict(dtype=torch.float32, device=x.device)
+    act_dtype = dict(dtype=x.dtype if takes_hd else torch.float32,
+                     device=x.device)
+    grads = torch.zeros(2 * d * hid + hid + d, **f32)
+    dx = torch.zeros_like(x)
+    splits = ffn.slice_plan(n, hid, ffn._sm_count(x.device.index), d,
+                            x.dtype).bwd_splits
+    u = torch.empty(n, hid, **f32)
+    du, g = torch.empty(n, hid, **act_dtype), torch.empty(n, d, **act_dtype)
+    bf16 = x.dtype == torch.bfloat16
+    hd = torch.empty(n, hid, **act_dtype) if bf16 else u
+    dh = torch.empty(n, hid, **f32) if bf16 else None
+    ptrs = [u] + ([hd] if takes_hd else []) + [du, g] + \
+        ([dh] if takes_hd else [])
+    partial = torch.zeros(splits, grads.numel(), **f32)
+    call = functools.partial(
+        lib.simulst_ffn_bwd, _build.dtype_code(x), ffn.ACTIVATION_CODES[act],
+        x.data_ptr(), *(w.data_ptr() for w in ws[:3]), dy.data_ptr(),
+        dx.data_ptr(), grads.data_ptr(), *(ffn._ptr(t) for t in ptrs),
+        partial.data_ptr(), n, d, hid, splits,
+        *((d, hid) if takes_real else ()),
+        *ffn._dropout_sites(rate, rate, 29), _build.stream_of(x))
+    o_dw2, o_db1 = d * hid, 2 * d * hid
+    call.outs = (dx, grads[:o_dw2].view(d, hid), grads[o_db1:o_db1 + hid],
+                 grads[o_dw2:o_db1].view(hid, d), grads[o_db1 + hid:])
+    call.keep = ptrs + [partial]
+    if call():
+        raise RuntimeError("simulst_ffn_bwd: CUDA error")
+    return call
+
+
+def linear_res_bwd_entry(torch, _build, lib, act_du, h, w, dy, period,
+                         res_rows, rate, takes_real=True):
+    """simulst_linear_res_bwd of `lib` bound to its arguments (the
+    wrapper's K slices) and called once, with its build's scratch: act_du,
+    this checkout's and later builds', takes du of the activation dtype, a
+    build before fp32.  `.outs` is (dh, dW, db)."""
+    from simulst_tpu_torch.ops import ffn
+    n, din = h.shape
+    dout = w.shape[1]
+    f32 = dict(dtype=torch.float32, device=h.device)
+    length = din * dout + dout
+    grads, dh = torch.empty(length, **f32), torch.empty_like(h)
+    splits = ffn.k_splits(n, -(-din // ffn.WGRAD_TILE)
+                          * -(-dout // ffn.WGRAD_TILE), h.device)
+    du = torch.empty(n, dout, dtype=h.dtype if act_du else torch.float32,
+                     device=h.device)
+    partial = torch.zeros(splits, length, **f32)
+    call = functools.partial(
+        lib.simulst_linear_res_bwd, _build.dtype_code(h), h.data_ptr(),
+        w.data_ptr(), dy.data_ptr(), dh.data_ptr(), grads.data_ptr(),
+        du.data_ptr(), partial.data_ptr(), n, din, dout,
+        *((dout,) if takes_real else ()), period, res_rows, splits,
+        *_build.dropout_args(rate, 7), _build.stream_of(h))
+    call.outs = (dh, grads[:din * dout].view(din, dout), grads[din * dout:])
+    call.keep = (du, partial)
+    if call():
+        raise RuntimeError("simulst_linear_res_bwd: CUDA error")
     return call
 
 
@@ -748,6 +854,12 @@ def determinism_calls(torch):
             ffn.fused_ln_ffn_res_forward(xb, *lnwb, "gelu", 0.1, 0.1, 29),),
         "simulst_ln_ffn_bwd (bf16)": lambda: ffn.fused_ln_ffn_res_backward(
             xb, *lnwb[:5], dyb, "gelu", 0.1, 0.1, 29),
+        "simulst_ffn_bwd (bf16)": lambda: ffn.fused_ffn_backward(
+            xb[:2304], *lnwb[2:5], dyb[:2304], "gelu", 0.1, 0.1, 29),
+        "simulst_linear_res_bwd (bf16)": lambda: (
+            linear_res.fused_linear_res_backward(
+                h.bfloat16(), wl.bfloat16(), dyl.bfloat16(), 200, 192, 0.1,
+                7)),
         "simulst_linear_res": lambda: (linear_res.fused_linear_res_forward(
             h, wl, bl, res, 200, 192, 0.1, 7),),
         "simulst_linear_res_bwd": lambda: linear_res.fused_linear_res_backward(
@@ -789,7 +901,7 @@ WIDTH_MHA = ((64, 4), (128, 4), (384, 4), (512, 4), (16, 4), (48, 4),
              (200, 4), (100, 1))
 # C entry -> (index, count) of the real-width arguments in its argument
 # list (ops/_build.py SIGNATURES)
-REAL_WIDTH_ARGS = {"simulst_ffn": (18, 2), "simulst_ffn_bwd": (17, 2),
+REAL_WIDTH_ARGS = {"simulst_ffn": (18, 2), "simulst_ffn_bwd": (19, 2),
                    "simulst_ln_ffn_bwd": (22, 2),
                    "simulst_linear_res": (9, 1),
                    "simulst_linear_res_bwd": (11, 1),
@@ -1077,11 +1189,31 @@ def main():
         libs["rev"].simulst_ln_ffn_bwd.argtypes = (
             [_I] * 2 + [_P] * 16 + [_I] * 6 + _build._DROP
             + _build._DROP[1:] + [_P])
+    # a revision before the bf16 LN-FFN backward's hidden-gradient pass:
+    # simulst_ln_ffn_bwd takes no dh
+    ref_ln_dh = ref_takes_hd and "void* dh, void* partial" in \
+        source(ref_csrc, "ln_ffn_bwd.cu")
+    if ref_takes_hd and not ref_ln_dh:
+        libs["rev"].simulst_ln_ffn_bwd.argtypes = (
+            [_I] * 2 + [_P] * 17 + [_I] * 6 + _build._DROP
+            + _build._DROP[1:] + [_P])
     ref_real = "int dim_real" in source(ref_csrc, "ffn.cu")
     # the builds as the wrappers call them: a revision without the real
     # widths through WithoutRealWidths (which declares its signatures)
     apis = {"rev": libs["rev"] if ref_real else
             WithoutRealWidths(_build, libs["rev"]), "this": libs["this"]}
+    # a revision before the bf16 tensor-core FFN and linear-res backwards:
+    # simulst_ffn_bwd takes no h_d and dh, and both read fp32 scratch
+    ffn_bwd_src = source(ref_csrc, "ffn_bwd.cu" if (
+        ref_csrc / "ffn_bwd.cu").exists() else "ffn.cu")
+    ref_ffn_hd = "void* u, void* hd, void* du, void* g, void* dh" in \
+        ffn_bwd_src
+    if not ref_ffn_hd:
+        libs["rev"].simulst_ffn_bwd.argtypes = (
+            [_I] * 2 + [_P] * 11 + [_I] * (6 if ref_real else 4)
+            + _build._DROP + _build._DROP[1:] + [_P])
+    ref_lr_act_du = "float* grads, T* du" in source(ref_csrc,
+                                                    "linear_res.cu")
     ref_align_carry = "void* carry" in \
         source(ref_csrc, "monotonic.cu")
     if ref_align_carry:          # simulst_alignment_bwd with the carry
@@ -1112,10 +1244,22 @@ def main():
                          real(key), ref_takes_hd if key == "rev" else True)
 
     def ln_ffn_bwd(key, x, ws, dy, act, rate):
+        rev = key == "rev"
         return ln_ffn_bwd_entry(torch, _build, libs[key],
-                                ref_takes_hd if key == "rev" else True, x,
+                                ref_takes_hd if rev else True,
+                                ref_ln_dh if rev else True, x,
                                 ln_params_for(f32_ln[key], ws), dy, act,
                                 rate, real(key))
+
+    def ffn_bwd(key, x, ws, dy, act, rate):
+        return ffn_bwd_entry(torch, _build, libs[key],
+                             ref_ffn_hd if key == "rev" else True, x, ws[2:5],
+                             dy, act, rate, real(key))
+
+    def lr_bwd(key, h, w, dy, period, res_rows, rate):
+        return linear_res_bwd_entry(
+            torch, _build, libs[key], ref_lr_act_du if key == "rev" else True,
+            h, w, dy, period, res_rows, rate, real(key))
 
     def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
         takes = ref_lr_path if key == "rev" else True
@@ -1127,17 +1271,51 @@ def main():
         return mha_fwd_entry(torch, _build, libs[key], takes, q, k, v, kmask,
                              causal, rate, path, real(key))
 
+    def bf16_report(entry, case, names, outs, plain, bitwise=False):
+        """A bf16 backward on the tensor cores: this checkout's outputs
+        within BF16_TOL of the plain version (the first, an activation
+        gradient; the others weight and bias gradients, within 1e-2 of
+        their largest entry) and, if `bitwise` (the revision's products
+        on the tensor cores too), equal to the revision's; their largest
+        differences from the plain version and from the revision
+        printed."""
+        close = {f"{n} within BF16_TOL of plain": bf16_close(
+            torch, a, c, weight=i > 0) for i, (n, a, c) in
+            enumerate(zip(names, outs["this"], plain))}
+        if bitwise:
+            close.update({f"{n} bit for bit parent": torch.equal(a, b)
+                          for n, a, b in zip(names, outs["this"],
+                                             outs["rev"])})
+        print(json.dumps({
+            "entry": entry, "case": case,
+            "bf16 max_abs_diff vs parent": {
+                n: max_diff(a, b) for n, a, b in
+                zip(names, outs["this"], outs["rev"])},
+            "vs plain": {n: max_diff(a, c) for n, a, c in
+                         zip(names, outs["this"], plain)},
+            "parent vs plain": {n: max_diff(b, c) for n, b, c
+                                in zip(names, outs["rev"], plain)}}),
+            flush=True)
+        report(entry, case, close)
+
     dtypes = (torch.float32, torch.bfloat16)
     names = ("dx", "dw1", "db1", "dw2", "db2")
-    for dtype in dtypes if wanted("simulst_ffn") else ():
+    for dtype in dtypes if wanted("simulst_ffn") \
+            or wanted("simulst_ffn_bwd") else ():
         for act in ("gelu", "relu"):
             for rate in (0.0, 0.1):
                 for rows in FFN_ROWS:
                     case = f"{str(dtype)[6:]} {act} rate {rate} rows {rows}"
                     x, ws, dy = ln_ffn_inputs(torch, rows, dtype, rows + 1)
-                    for ln_res in (1, 0):
+                    for ln_res in (1, 0) if wanted("simulst_ffn") else ():
+                        # a revision with the bf16 tensor-core path is held
+                        # on its fused path in bf16 (its tiled one sums on
+                        # the tensor cores)
+                        rev_tc = dtype == torch.bfloat16 and ref_takes_hd
                         want = ffn_fwd("rev", ln_res, act, x, ws, rate,
-                                       ref_takes_scratch).y
+                                       ref_takes_scratch and not rev_tc).y
+                        rev_tiled = ffn_fwd("rev", ln_res, act, x, ws, rate,
+                                            True).y if rev_tc else want
                         got = {path: ffn_fwd("this", ln_res, act, x, ws, rate,
                                              path == "tiled").y
                                for path in ("fused", "tiled")}
@@ -1154,23 +1332,40 @@ def main():
                             del equal["y tiled"]
                             equal["y tiled within BF16_TOL of plain"] = \
                                 bf16_close(torch, got["tiled"], plain)
+                            if rev_tc:   # the same products as the parent's
+                                equal["y tiled bit for bit parent's"] = \
+                                    torch.equal(got["tiled"], rev_tiled)
                             print(json.dumps({
                                 "entry": f"simulst_ffn ln_res {ln_res}",
                                 "case": case, "bf16 tiled max_abs_diff": {
-                                    "vs parent": max_diff(got["tiled"], want),
+                                    "vs parent": max_diff(got["tiled"],
+                                                          rev_tiled),
                                     "vs plain": max_diff(got["tiled"], plain),
-                                    "parent vs plain": max_diff(want,
+                                    "parent vs plain": max_diff(rev_tiled,
                                                                 plain)}}))
                         report(f"simulst_ffn ln_res {ln_res}", case, equal)
-                    outs = {}
-                    for key, lib in apis.items():
-                        with library_of(_build, lib):
-                            outs[key] = ffn.fused_ffn_backward(
-                                x, *ws[2:5], dy, act, rate, rate, 29)
+                    if not wanted("simulst_ffn_bwd"):
+                        continue
+                    outs = {key: ffn_bwd(key, x, ws, dy, act, rate).outs
+                            for key in libs}
                     torch.cuda.synchronize()
-                    report("simulst_ffn_bwd", case,
-                           {n: torch.equal(a, b) for n, a, b in
-                            zip(names, outs["rev"], outs["this"])})
+                    if dtype == torch.float32:
+                        report("simulst_ffn_bwd", case,
+                               {n: torch.equal(a, b) for n, a, b in
+                                zip(names, outs["rev"], outs["this"])})
+                        continue
+                    # bf16: the five products on the tensor cores, held to
+                    # the plain version (relu under this build's relu
+                    # mask), beside the parent
+                    cfg = (act, rate, rate, 29)
+                    if act == "relu":
+                        with library_of(_build, libs["this"]):
+                            mask = cs.kernel_ffn_relu_mask(x, ws[2:], cfg)
+                        plain = cs.plain_ffn_backward_under(x, ws[2:], dy,
+                                                            cfg, mask)
+                    else:
+                        plain = ffn.ffn_plain_backward(x, *ws[2:5], dy, *cfg)
+                    bf16_report("simulst_ffn_bwd", case, names, outs, plain)
 
     names = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
     for dtype in dtypes if wanted("simulst_ln_ffn_bwd") else ():
@@ -1200,20 +1395,8 @@ def main():
                     else:
                         plain = ffn.ln_ffn_res_plain_backward(
                             x, *lnw[:5], dy, *cfg)
-                    close = {f"{n} within BF16_TOL of plain": bf16_close(
-                        torch, a, c, weight=i > 0) for i, (n, a, c) in
-                        enumerate(zip(names, outs["this"], plain))}
-                    print(json.dumps({
-                        "entry": "simulst_ln_ffn_bwd", "case": case,
-                        "bf16 max_abs_diff vs parent": {
-                            n: max_diff(a, b) for n, a, b in
-                            zip(names, outs["this"], outs["rev"])},
-                        "vs plain": {n: max_diff(a, c) for n, a, c in
-                                     zip(names, outs["this"], plain)},
-                        "parent vs plain": {n: max_diff(b, c) for n, b, c
-                                            in zip(names, outs["rev"],
-                                                   plain)}}), flush=True)
-                    report("simulst_ln_ffn_bwd", case, close)
+                    bf16_report("simulst_ln_ffn_bwd", case, names, outs,
+                                plain, bitwise=ref_takes_hd)
 
     def cif_entry(lib, x, alpha, csum, t, beta, out, delays):
         """The C entry bound to its arguments: a call costs the host little
@@ -1280,17 +1463,20 @@ def main():
                         dtype).cuda() for _ in range(2))
                     w = (torch.randn(256, 256, generator=g) * 0.06).to(
                         dtype).cuda()
-                    outs = {}
-                    for key, lib in apis.items():
-                        with library_of(_build, lib):
-                            outs[key] = linear_res.fused_linear_res_backward(
-                                h, w, dy, period, res_rows, rate, 7)
+                    outs = {key: lr_bwd(key, h, w, dy, period, res_rows,
+                                        rate).outs for key in libs}
                     torch.cuda.synchronize()
-                    report("simulst_linear_res_bwd",
-                           f"{str(dtype)[6:]} rate {rate} period {period} "
-                           f"rows {rows}",
-                           {n: torch.equal(a, b) for n, a, b in
-                            zip(names, outs["rev"], outs["this"])})
+                    case = (f"{str(dtype)[6:]} rate {rate} period {period} "
+                            f"rows {rows}")
+                    if dtype == torch.float32:
+                        report("simulst_linear_res_bwd", case,
+                               {n: torch.equal(a, b) for n, a, b in
+                                zip(names, outs["rev"], outs["this"])})
+                        continue
+                    # bf16: both products on the tensor cores
+                    bf16_report("simulst_linear_res_bwd", case, names, outs,
+                                linear_res.linear_res_plain_backward(
+                                    h, w, dy, period, res_rows, rate, 7))
 
     def mha_bwd(key, q, k, v, kmask, out, lse, dout, causal, rate):
         takes = ref_mha_scratch if key == "rev" else True
@@ -1422,6 +1608,35 @@ def main():
             report("simulst_ctc_d_em", label, {"d_em": torch.equal(
                 want[1].outs[0], got[1].outs[0])})
 
+    # above S 1024 (several states a thread), this checkout alone (a
+    # revision may refuse the shape): held to the plain DP, finite entries
+    # within chip_smoke's F32_TOL, the -1e30 sentinels equal; d_em on the
+    # kernel's alphas, 0 scale where the target cannot fit its frames
+    for i, (label, t, b, s_, how) in enumerate(
+            CTC_WIDE_CASES if wanted("simulst_ctc_alpha")
+            or wanted("simulst_ctc_d_em") else ()):
+        em, skip, il, tl, scale = ctc_inputs(torch, ctc, t, b, s_, how,
+                                             70 + i)
+        plain = ctc.alphas_plain(em, skip, il, tl)
+        scale = torch.where(ctc._nll_from_alpha(plain[-1], tl)
+                            <= -ctc.NEG / 2, scale, 0.0)
+        alpha, d_em = ctc_entries(torch, _build, libs["this"], em, skip, il,
+                                  tl, scale)
+        got = alpha.outs[0]
+        torch.cuda.synchronize()
+        sent = plain <= ctc.NEG / 2
+        report("simulst_ctc_alpha (vs plain)", label, {
+            "sentinels equal": torch.equal(got <= ctc.NEG / 2, sent)
+            and torch.equal(got[sent], plain[sent]),
+            "finite within F32_TOL": bool(torch.isclose(
+                got[~sent], plain[~sent], **cs.F32_TOL).all())})
+        want = ctc.d_em_plain(em, got, skip, il, tl, scale,
+                              ctc._nll_from_alpha(got[-1], tl))
+        report("simulst_ctc_d_em (vs plain)", label, {
+            "d_em within F32_TOL": bool(torch.isclose(
+                d_em.outs[0], want, **cs.F32_TOL).all()),
+            "posteriors": bool((scale != 0).any())})
+
     # determinism: this checkout's entries, twice on the same inputs
     with library_of(_build, libs["this"]):
         for entry, call in determinism_calls(torch).items():
@@ -1462,6 +1677,13 @@ def main():
                                 generator=ga).cuda()
         xb, wsb, dyb = ln_ffn_inputs(torch, 12288, torch.bfloat16, 12288)
         xm, wm, dym = ln_ffn_inputs(torch, 8192, torch.float32, 8192)
+        # rows 2b / 4b in bf16: the FFN backward at asr-train's decoder
+        # rows and the MT's, the linear-res backward at asr-train's shapes
+        # and the MT's
+        xdb, wdb, dydb = ln_ffn_inputs(torch, 2304, torch.bfloat16, 2304)
+        xmb, wmb, dymb = (t.to(torch.bfloat16) if torch.is_tensor(t) else
+                          tuple(w.to(torch.bfloat16) for w in t)
+                          for t in (xm, wm, dym))
         xc, alpha, csum = cif_inputs(torch, 32, 256, 256, "sigmoid", 7)
         out = torch.empty(32, 72, 256, device="cuda")
         delays = torch.empty(32, 72, device="cuda")
@@ -1469,6 +1691,9 @@ def main():
         lr = {rows: [torch.randn(rows, 256, generator=gl).cuda()
                      for _ in range(2)] for rows in (2304, 8192, 12800)}
         wl = (torch.randn(256, 256, generator=gl) * 0.06).cuda()
+        lrb = {rows: [t.to(torch.bfloat16) for t in pair]
+               for rows, pair in lr.items()}
+        wlb = wl.to(torch.bfloat16)
         mha_timed = {name: mha_case(i, torch.float32, 0.1)
                      for name, i in MHA_TIMED.items()}
         lr_timed = {name: (lr_inputs(rows, torch.float32, rows), period,
@@ -1505,8 +1730,12 @@ def main():
             return {
                 "ln_ffn_fwd_ms": ffn_fwd(key, 1, "gelu", x, ws, 0.1, tiled),
                 "ffn_fwd_ms": ffn_fwd(key, 0, "relu", xm, wm, 0.1, tiled),
-                "ffn_bwd_ms": wrapped(ffn.fused_ffn_backward, xm, *wm[2:5],
-                                      dym, "relu", 0.1, 0.1, 29),
+                "ffn_bwd_ms": ffn_bwd(key, xm, wm, dym, "relu", 0.1),
+                # row 2b in bf16: this checkout's products on the tensor
+                # cores, a parent's on the CUDA cores
+                "ffn_bwd_bf16_ms": ffn_bwd(key, xdb, wdb, dydb, "gelu", 0.1),
+                "ffn_bwd_bf16_8192_ms": ffn_bwd(key, xmb, wmb, dymb, "relu",
+                                                0.1),
                 "ln_ffn_bwd_ms": ln_ffn_bwd(key, x, ws, dy, "gelu", 0.1),
                 # rows 1 / 1b in bf16: this checkout's products on the
                 # tensor cores, a parent's on the CUDA cores
@@ -1516,15 +1745,12 @@ def main():
                                                  0.1),
                 "cif_c_entry_ms": cif_entry(lib, xc, alpha, csum, 72, 1.0,
                                             out, delays),
-                "linear_res_bwd_8192_ms": wrapped(
-                    linear_res.fused_linear_res_backward, lr[8192][0], wl,
-                    lr[8192][1], 0, 0, 0.1, 7),
-                "linear_res_bwd_12800_gate_ms": wrapped(
-                    linear_res.fused_linear_res_backward, lr[12800][0], wl,
-                    lr[12800][1], 200, 192, 0.1, 7),
-                "linear_res_bwd_2304_ms": wrapped(
-                    linear_res.fused_linear_res_backward, lr[2304][0], wl,
-                    lr[2304][1], 0, 0, 0.1, 7),
+                **{f"linear_res_bwd{tag}_{rows}{gate}_ms": lr_bwd(
+                    key, hl[rows][0], w_, hl[rows][1], period, res_rows, 0.1)
+                   for tag, hl, w_ in (("", lr, wl), ("_bf16", lrb, wlb))
+                   for rows, period, res_rows, gate in (
+                       (8192, 0, 0, ""), (12800, 200, 192, "_gate"),
+                       (2304, 0, 0, ""))},
                 "emformer_attn_fwd_ms": wrapped(
                     ea.emformer_grouped_attention_forward, *attn_timed,
                     attn_geom, 0.1, 23),
@@ -1606,6 +1832,13 @@ def main():
                 for p, code in mha.FWD_PATHS.items()}
         print("forward_paths_ms " + json.dumps(crossover), flush=True)
         if wanted("simulst_ctc_alpha") or wanted("simulst_ctc_d_em"):
+            wide = {}
+            for s_ in CTC_WIDE_TIMED_S:   # this checkout's alone
+                calls = ctc_entries(torch, _build, libs["this"], *ctc_inputs(
+                    torch, ctc, 256, 32, s_, "ragged", s_))
+                for half, call in zip(("alpha", "d_em"), calls):
+                    wide[f"ctc_{half}_s{s_}_ms"] = cs.cuda_ms(call)
+            print("ctc_wide_ms " + json.dumps(wide), flush=True)
             with library_of(_build, libs["this"]):
                 print("ctc_chain_floor " + json.dumps(
                     cs.ctc_chain_floor("cuda")), flush=True)
