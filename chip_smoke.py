@@ -602,6 +602,7 @@ KERNEL_FAMILIES = (
     ("ffn_epilogue_kernel<__nv_bfloat16, true", "fused_ln_ffn_res"),
     ("ffn_partial_kernel", "fused_ffn"), ("ffn_epilogue_kernel", "fused_ffn"),
     ("linear_res_rows_kernel", "fused_linear_res"),
+    ("linear_res_epilogue_kernel", "fused_linear_res"),
     *((k, "linear_res backward products, the backwards' sums")
       for k in ("colsum_partial_kernel", "sum_splits_kernel",
                 "drop_grad_kernel")),
@@ -3373,6 +3374,8 @@ def phase_batched_serve(dev, workdir, checkpoints):
                 ms=cuda_ms(lambda: ffn.fused_ln_ffn_res(x, *ln_w, act)),
                 plain_ms=cuda_ms(lambda: ffn.ln_ffn_res_plain(x, *ln_w,
                                                               act)),
+                products_matmul_ms=matmul_yardstick(
+                    x.reshape(-1, cfg.embed_dim), ln_w[2], ln_w[4]),
                 **dict(zip(("bound_ms", "bound_by"), bound(
                     nbytes(x, x, *ln_w),
                     4 * b * (rc + seg) * cfg.embed_dim * ln_w[2].shape[1]))))
@@ -3385,6 +3388,8 @@ def phase_batched_serve(dev, workdir, checkpoints):
                 max_abs_err=err,
                 ms=cuda_ms(lambda: ffn.fused_ffn(x, *ffn_w, dact)),
                 plain_ms=cuda_ms(lambda: ffn.ffn_plain(x, *ffn_w, dact)),
+                products_matmul_ms=matmul_yardstick(
+                    x.reshape(-1, cfg.embed_dim), ffn_w[0], ffn_w[2]),
                 **dict(zip(("bound_ms", "bound_by"), bound(
                     nbytes(x, x, *ffn_w),
                     4 * b * cfg.embed_dim * ffn_w[0].shape[1]))))
@@ -4734,7 +4739,7 @@ def phase_bf16_kernels(dev, batch):
     o = ea.emformer_grouped_attention_forward(*args, geom, 0.1, 23)
     vis = grouped_visible_pairs(ea, geom, *args)
     sd, mask = sdpa_on_context(ea, geom, *args)
-    sd = [t.requires_grad_() for t in sd]
+    sd = [t.to(bf).requires_grad_() for t in sd]   # on the same bf16 inputs
     with torch.enable_grad():
         sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
                                                 dropout_p=0.1)
@@ -4761,6 +4766,40 @@ def phase_bf16_kernels(dev, batch):
                                               retain_graph=True),
           err=max(max_err(f"grouped attention backward bf16 d{c}", a, w_,
                           **BF16_TOL) for c, a, w_ in zip("qkv", got, want)))
+    del sd, sd_out
+
+    # row 3bg: the gated backward at asr-pack's packed rows, (16, 4, 175,
+    # 256) at G 7
+    pgeom = ea.AttnGeom(U=448, seg=16, lc=32, rc=8, max_mem=5, G=7,
+                        num_heads=heads)
+    pargs = (randn(16, pgeom.ng, pgeom.nq, d), randn(16, pgeom.tk, d),
+             randn(16, pgeom.tk, d),
+             torch.full((16,), pgeom.U, dtype=torch.int32, device=dev))
+    pdout = randn(16, pgeom.ng, pgeom.nq, d)
+    pgate = segment_gate(ea, pgeom, 16, g, dev)
+    pvis = grouped_visible_pairs(ea, pgeom, *pargs, pgate)
+    sd, mask = sdpa_on_context(ea, pgeom, *pargs, pgate)
+    sd = [t.to(bf).requires_grad_() for t in sd]
+    with torch.enable_grad():
+        sd_out = F.scaled_dot_product_attention(*sd, attn_mask=mask,
+                                                dropout_p=0.1)
+    sd_dout = torch.randn_like(sd_out)
+    pcfg = (pgeom, 0.1, 23, pgate)
+    got = ea.emformer_grouped_attention_backward(*pargs, pdout, *pcfg)
+    want = ea.grouped_attention_plain_backward(*pargs, pdout, *pcfg)
+    entry("emformer_grouped_attention_gated_backward",
+          f"q3=(16,{pgeom.ng},{pgeom.nq},{d}) G 7 gated bf16 rate 0.1",
+          lambda: ea.emformer_grouped_attention_backward(*pargs, pdout,
+                                                         *pcfg),
+          lambda: ea.grouped_attention_plain_backward(*pargs, pdout, *pcfg),
+          nbytes(*pargs, pdout, *pgate, *got), 10 * d * pvis,
+          library=lambda: torch.autograd.grad(sd_out, sd, sd_dout,
+                                              retain_graph=True),
+          err=max([max_err("gated grouped attention backward bf16 dq",
+                           got[0], want[0], **BF16_TOL)]
+                  + [max_err_to_largest(
+                      f"gated grouped attention backward bf16 d{c}", a, w_,
+                      1e-2) for c, a, w_ in zip("kv", got[1:], want[1:])]))
     del sd, sd_out
 
     # rows 4 / 4b: the Emformer out-projection, 12,800 rows, gate 200 / 192
@@ -4900,22 +4939,26 @@ def plain_ffn_backward_under(x, w, dy, cfg, mask):
 
 def sass_hgmma():
     """{wgmma kernel: its HGMMA instructions} in the built library's SASS
-    (cuobjdump --dump-sass), and the HGMMA count of every other kernel
-    (0 expected)."""
+    (cuobjdump --dump-sass), the HGMMA count of every other kernel (0
+    expected), and {grouped attention backward kernel on the tensor cores
+    (mma.sync): its HMMA instructions}."""
     import shutil
     import subprocess
     from simulst_tpu_torch.ops import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", str(_build.build())],
                           capture_output=True, text=True, check=True).stdout
-    counts = {name: body.count("HGMMA") for name, body in
-              _build.sass_functions(sass).items()}
+    funcs = _build.sass_functions(sass)
+    counts = {name: body.count("HGMMA") for name, body in funcs.items()}
     wgmma = {n: c for n, c in counts.items() if "wgmma_product_kernel" in n}
-    return wgmma, sum(c for n, c in counts.items() if n not in wgmma)
+    hmma = {n: body.count("HMMA") for n, body in funcs.items()
+            if "grouped_attn_bwd_tc_kernel" in n}
+    return wgmma, sum(c for n, c in counts.items() if n not in wgmma), hmma
 
 
-# the caller tags of the FFN and linear-res backwards' wgmma products
-WGMMA_CALLERS = ("TagFfnBwd", "TagLinearResBwd")
+# the caller tags of the wgmma products: the FFN and linear-res backwards'
+# and the linear-res forward's (its bf16 tiled paths)
+WGMMA_CALLERS = ("TagFfnBwd", "TagLinearResBwd", "TagLinearResFwd")
 
 
 def phase_bf16_tensor_cores(dev):
@@ -4926,9 +4969,11 @@ def phase_bf16_tensor_cores(dev):
     under the kernel's relu mask: `kernel_relu_mask`), each
     called twice (the same bits: no atomics, fixed split sums), the
     decoder FFN's forward (the same tiled path) too; rows 2b and 4b
-    (`phase_bf16_backwards`); and the SASS of every wgmma kernel, those of
-    the two backwards among them (WGMMA_CALLERS), holds HGMMA.  Returns
-    {kernel: largest error}."""
+    (`phase_bf16_backwards`); rows 3b / 3bg and 4 (`phase_bf16_attention`);
+    the SASS of every wgmma kernel, those of the two backwards and of the
+    linear-res forward among them (WGMMA_CALLERS), holds HGMMA, and that
+    of the grouped attention's tensor-core backward (its 8
+    instantiations) HMMA.  Returns {kernel: largest error}."""
     import torch
     from simulst_tpu_torch.ops import ffn
     bf = torch.bfloat16
@@ -4937,17 +4982,20 @@ def phase_bf16_tensor_cores(dev):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=g) * scale).to(dev)
 
-    wgmma, elsewhere = sass_hgmma()
-    # rows 2b and 4b's products, named by their callers' tags
+    wgmma, elsewhere, hmma = sass_hgmma()
+    # rows 2b, 4b and 4's products, named by their callers' tags
     callers = {c: sum(c in n for n in wgmma) for c in WGMMA_CALLERS}
     log("phase20", wgmma_kernels=len(wgmma),
         hgmma_per_kernel=sorted(wgmma.values()), hgmma_elsewhere=elsewhere,
-        wgmma_kernels_of=callers)
+        wgmma_kernels_of=callers, attention_tc_hmma=sorted(hmma.values()))
     if not wgmma or not all(wgmma.values()) or elsewhere or \
             not all(callers.values()):
         raise AssertionError("phase 20: the wgmma kernels' SASS lacks HGMMA "
-                             "(or another kernel has it, or a backward's "
-                             f"products are not among them: {callers})")
+                             "(or another kernel has it, or a product is "
+                             f"not among them: {callers})")
+    if len(hmma) != 8 or not all(hmma.values()):
+        raise AssertionError("phase 20: the grouped attention's tensor-core "
+                             f"backward lacks HMMA: {hmma}")
     errs = {}
     for shape, (rows, d, hid) in BF16_TC_SHAPES.items():
         xav = (6.0 / (d + hid)) ** 0.5
@@ -4992,6 +5040,8 @@ def phase_bf16_tensor_cores(dev):
                              ("fused_ln_ffn_res_backward", e_b)):
                     errs[k] = max(errs.get(k, 0.0), e)
     for k, e in phase_bf16_backwards(dev, randn).items():
+        errs[k] = max(errs.get(k, 0.0), e)
+    for k, e in phase_bf16_attention(dev, randn).items():
         errs[k] = max(errs.get(k, 0.0), e)
     return errs
 
@@ -5068,6 +5118,109 @@ def phase_bf16_backwards(dev, randn):
                          h, wl, dyl, *lcfg),
                      linear_res.linear_res_plain_backward(h, wl, dyl, *lcfg),
                      rate > 0)
+    return errs
+
+
+# rows 3b / 3bg in bf16 on the tensor cores: (B, ng, nq, D, heads, G,
+# gated) at asr-train's q3, the packed gated shapes of G 7 and G 3, head
+# dim 128, a padded head dim (50, staged 64), D 512 with 8 heads and G 16,
+# s2t_emformer_s's unit geometry; row 4 in bf16 on the tensor cores:
+# (rows, D_in, D_out, period, residual rows) at the Emformer
+# out-projection's 12,800 and 3,200 gated rows, the decoders' 8192 and
+# 2,304, a padded D_out and D_in
+BF16_ATTN_SHAPES = {"asr": (32, 2, 200, 256, 4, 8, False),
+                    "packed-G7": (16, 4, 175, 256, 4, 7, True),
+                    "packed-G3": (8, 13, 75, 256, 4, 3, True),
+                    "hd128": (4, 2, 200, 512, 4, 8, False),
+                    "hd50": (4, 2, 200, 200, 4, 8, False),
+                    "d512-8heads": (4, 2, 200, 512, 8, 8, False),
+                    "G16": (4, 2, 400, 256, 4, 16, False)}
+BF16_LR_FWD_SHAPES = {"12800-gate": (12800, 256, 256, 200, 192),
+                      "8192": (8192, 256, 256, 0, 0),
+                      "2304": (2304, 256, 256, 0, 0),
+                      "3200-gate": (3200, 256, 256, 200, 192),
+                      "dout200": (3200, 256, 200, 200, 192),
+                      "din200": (3200, 200, 256, 200, 192)}
+
+
+def segment_gate(ea, geom, b, generator, dev):
+    """An example-id gate of packed rows on the card: each row's segments
+    in runs of ascending example ids, a key row's id its segment's
+    (memory slots, rc blocks and frames, nn/emformer.py `_build_kid`'s
+    layout)."""
+    import torch
+    seg_eid = torch.sort(torch.randint(0, 4, (b, geom.n),
+                                       generator=generator), dim=1).values
+    kid = torch.cat([seg_eid[:, :-1],
+                     seg_eid.repeat_interleave(geom.rc, dim=1),
+                     seg_eid.repeat_interleave(geom.seg, dim=1)], dim=1)
+    return ea.EidGate(kid.to(torch.int32).to(dev),
+                      seg_eid.to(torch.int32).to(dev))
+
+
+def phase_bf16_attention(dev, randn):
+    """Rows 3b / 3bg (the grouped attention's backward on the tensor cores,
+    `bwd_plan`) at BF16_ATTN_SHAPES and row 4 (the linear-res forward's
+    tiled paths on wgmma_product and the epilogue pass) at
+    BF16_LR_FWD_SHAPES, in bf16 through the wrappers, rates 0 and 0.1:
+    against the plain versions (BF16_TOL on dq and y; dk, dv within 1e-2
+    of their largest entry), each called twice (the same bits).  Returns
+    {kernel: largest error}."""
+    import torch
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    from simulst_tpu_torch.ops import linear_res
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(SEED + 59)
+    errs = {}
+
+    def hold(name, case, call, want):
+        got = call()
+        err = max([max_err(f"{name} bf16 {case} d0", got[0], want[0],
+                           **BF16_TOL)]
+                  + [max_err_to_largest(f"{name} bf16 {case} grad {i}", a, c,
+                                        1e-2)
+                     for i, (a, c) in enumerate(zip(got[1:], want[1:]))])
+        same = all(torch.equal(a, c) for a, c in zip(got, call()))
+        log("phase20", tensor_cores=f"{name} {case}", err=err,
+            twice_bit_for_bit=same)
+        if not same:
+            raise AssertionError(f"phase 20: {name} {case} gave other bits "
+                                 "the second time")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    for shape, (b, ng, nq, d, heads, G, gated) in BF16_ATTN_SHAPES.items():
+        geom = ea.AttnGeom(U=ng * G * 16, seg=16, lc=32, rc=8, max_mem=5,
+                           G=G, num_heads=heads)
+        assert ea.bwd_plan(geom, ea.padded_head_dim(d // heads),
+                           bf) == "tensor_cores"
+        q3, dout = randn(b, ng, nq, d).to(bf), randn(b, ng, nq, d).to(bf)
+        k, v = randn(b, geom.tk, d).to(bf), randn(b, geom.tk, d).to(bf)
+        gate = segment_gate(ea, geom, b, g, dev) if gated else None
+        lengths = (torch.full((b,), geom.U) if gated else torch.randint(
+            geom.U // 2, geom.U + 1, (b,), generator=g)).to(
+                torch.int32).to(dev)
+        name = ("emformer_grouped_attention_gated_backward" if gated else
+                "emformer_grouped_attention_backward")
+        for rate in (0.0, 0.1):
+            args = (q3, k, v, lengths, dout, geom, rate, 31, gate)
+            hold(name, f"{shape} ({b},{ng},{nq},{d}) {heads} heads G {G} "
+                 f"rate {rate}",
+                 lambda: ea.emformer_grouped_attention_backward(*args),
+                 ea.grouped_attention_plain_backward(*args))
+    for shape, (rows, din, dout, period, res_rows) in \
+            BF16_LR_FWD_SHAPES.items():
+        assert linear_res.fwd_uses_tensor_cores(linear_res.fwd_plan(rows), bf)
+        h, res = randn(rows, din).to(bf), randn(rows, dout).to(bf)
+        w = randn(din, dout, scale=din ** -0.5).to(bf)
+        bias = randn(dout, scale=0.02).to(bf)
+        for rate in (0.0, 0.1):
+            lcfg = (period, res_rows, rate, 7)
+            hold("fused_linear_res",
+                 f"{shape} ({rows},{din},{dout}) period {period} gate "
+                 f"{res_rows} rate {rate}",
+                 lambda: (linear_res.fused_linear_res_forward(h, w, bias, res,
+                                                              *lcfg),),
+                 (linear_res.linear_res_plain(h, w, bias, res, *lcfg),))
     return errs
 
 

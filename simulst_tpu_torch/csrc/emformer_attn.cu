@@ -77,7 +77,11 @@
 // nothing races).  At the end the block writes the group's (B, ng, ctx,
 // dim) fp32 partials, and the ordered sum kernel adds the groups' partials
 // into key rows (groups overlap by lc frames and share memory slots), in
-// group order, without atomics.
+// group order, without atomics.  This backward runs fp32, head dims above
+// 128, and the bf16 shapes that ops/emformer_attn.py `bwd_plan` does not
+// send to the tensor cores: the bf16 backward up to head dim 128 is
+// csrc/emformer_attn_bwd.cu's (mma.sync, no probs scratch), which shares
+// this file's unit maps through emformer_attn.cuh.
 //
 // What bounds them is latency, not bytes or operations: per block at the
 // train shape (tools/attn_phase_profile.py), the forward spends about half
@@ -110,57 +114,12 @@
 // the same partials, and the ordered sum kernel adds them into key rows.
 #include <math.h>
 
-#include "common.cuh"
+#include "emformer_attn.cuh"
 
 namespace {
 
-using simulst::Dropout;
-using simulst::from_f32;
-using simulst::round_to;
-using simulst::to_f32;
-
-constexpr int kMaxHeadDim = 128;   // staged head dims; the wide kernels above
-constexpr int kHeadDimStep = 8;
-constexpr int kMaxAccFeatures = 64;  // the dK / dV walks' features a pass
-constexpr int kMinAccFeatures = 16;  // ... at the least
-constexpr int kRowTile = 32;       // unit rows per product tile
-constexpr int kColTile = 64;       // unit columns per product tile
 constexpr int kFwdThreads = 128;   // 8 x 16, a 4 x 4 micro-tile each
 constexpr int kBwdThreads = 256;   // 16 x 16, 2 x 4 (scores) or 4 x 4
-constexpr int kSmemLimit = 227 * 1024;
-
-struct Geom {
-  int ng, nq, dim, heads, seg, lc, rc, max_mem, G, n, U, tk, m_slots, ctx;
-  // a unit: R = rc + seg + 1 rows and C = max_mem + rc + lc + seg columns,
-  // padded to whole tiles (Rp, Cp); sld the row stride of its scores
-  int R, C, Rp, Cp, sld;
-  // the head dim, the staged head dim (64 or 128) and the features of the
-  // backward's dK / dV accumulators; the real head dim of a call padded to
-  // hd, whose 1 / sqrt scales the scores
-  int hd, shd, F, hd_real;
-};
-
-// staged row stride (floats) of a kHD-wide row
-__host__ __device__ constexpr int staged_ld(int khd) { return khd + 4; }
-
-// The sequence-packing gate: kid (batch, tk) the example id of each key
-// row, seg_eid (batch, n) that of each segment; null in the dense path.
-struct Gate {
-  const int* kid;
-  const int* seg_eid;
-
-  // the query id of row segment i of group grp, batch b
-  __device__ __forceinline__ int query_id(const Geom& g, int b, int grp,
-                                          int i) const {
-    return seg_eid[(size_t)b * g.n + grp * g.G + i];
-  }
-  // whether key row `row` (-1: outside the sequence, never seen) belongs
-  // to example qid
-  __device__ __forceinline__ bool same(const Geom& g, int b, int row,
-                                       int qid) const {
-    return row >= 0 && __ldg(kid + (size_t)b * g.tk + row) == qid;
-  }
-};
 
 // Shared memory of a forward block: Q, K, V, the scores, and three ints
 // per column.  ops/emformer_attn.py `unit_shape` computes the same bytes.
@@ -169,90 +128,6 @@ size_t fwd_smem_bytes(const Geom& g) {
   return sizeof(float) * ((size_t)g.Rp * ld + 2 * (size_t)g.Cp * ld +
                           (size_t)g.Rp * g.sld) +
          3 * sizeof(int) * (size_t)g.Cp;
-}
-
-// ... of a backward block: Q, dO, K, V, three (row, column) matrices, the
-// group's dK and dV accumulators (F features a slot), and three ints per
-// column
-size_t bwd_smem_bytes(const Geom& g, int F) {
-  const size_t ld = staged_ld(g.shd);
-  return sizeof(float) * (2 * (size_t)g.Rp * ld + 2 * (size_t)g.Cp * ld +
-                          3 * (size_t)g.Rp * g.sld + 2 * (size_t)g.ctx * F) +
-         3 * sizeof(int) * (size_t)g.Cp;
-}
-
-// the backward's accumulator features: the largest of kMaxAccFeatures,
-// its half, ..., kMinAccFeatures with which a block fits, else
-// kMinAccFeatures
-int acc_features(const Geom& g) {
-  int F = kMaxAccFeatures;
-  while (F > kMinAccFeatures && bwd_smem_bytes(g, F) > (size_t)kSmemLimit)
-    F /= 2;
-  return F;
-}
-
-// context slot c of group grp -> key row, -1 where the slot lies outside
-// the sequence
-__device__ __forceinline__ int slot_to_row(const Geom& g, int grp, int c) {
-  const int utt0 = g.m_slots + g.G * g.rc;
-  if (c < g.m_slots) {
-    const int js = grp * g.G - g.max_mem + c;  // summary of segment js
-    return (js >= 0 && js <= g.n - 2) ? js : -1;
-  }
-  if (c < utt0) return (g.n - 1) + grp * g.G * g.rc + (c - g.m_slots);
-  const int f = grp * g.G * g.seg - g.lc + (c - utt0);
-  return (f >= 0 && f < g.U) ? (g.n - 1) + g.n * g.rc + f : -1;
-}
-
-// group-context slot of column j (< C) of segment i's unit
-__device__ __forceinline__ int unit_slot(const Geom& g, int i, int j) {
-  if (j < g.max_mem) return i + j;
-  j -= g.max_mem;
-  if (j < g.rc) return g.m_slots + i * g.rc + j;
-  return g.m_slots + g.G * g.rc + i * g.seg + (j - g.rc);
-}
-
-// group query row of row r (< R) of segment i's unit
-__device__ __forceinline__ int unit_row(const Geom& g, int i, int r) {
-  if (r < g.rc) return i * g.rc + r;
-  if (r < g.rc + g.seg) return g.G * g.rc + i * g.seg + (r - g.rc);
-  return g.G * (g.rc + g.seg) + i;
-}
-
-// Per column j < Cp of segment i's unit: its group-context slot (-1:
-// padding), its key row (-1: none, staged as zeros) and whether the
-// segment's rows see it: memory slots that exist, the own rc block,
-// utterance frames that exist below the length, and with the gate only
-// keys of the segment's example.
-template <bool kGated>
-__device__ void unit_columns(const Geom& g, const Gate& gate, int b, int grp,
-                             int i, int length, int* col_slot, int* col_row,
-                             int* col_ok) {
-  const int utt0 = g.m_slots + g.G * g.rc;
-  const int frame0 = grp * g.G * g.seg - g.lc;  // frame of utterance slot 0
-  const int qid = kGated ? gate.query_id(g, b, grp, i) : 0;
-  for (int j = threadIdx.x; j < g.Cp; j += blockDim.x) {
-    int slot = -1, row = -1;
-    bool ok = false;
-    if (j < g.C) {
-      slot = unit_slot(g, i, j);
-      row = slot_to_row(g, grp, slot);
-      const bool own_rc = j >= g.max_mem && j < g.max_mem + g.rc;
-      ok = own_rc || (row >= 0 && (j < g.max_mem ||
-                                   frame0 + (slot - utt0) < length));
-      if (kGated) ok = ok && gate.same(g, b, row, qid);
-    }
-    col_slot[j] = slot;
-    col_row[j] = row;
-    col_ok[j] = ok;
-  }
-}
-
-// whether unit row r (< R) sees unit column j: the summary row (the last)
-// sees no memory slot
-__device__ __forceinline__ bool unit_visible(const Geom& g, const int* col_ok,
-                                             int r, int j) {
-  return col_ok[j] && !(r == g.R - 1 && j < g.max_mem);
 }
 
 // f(j) for the columns j of segment i's unit whose group-context slot is
@@ -840,44 +715,6 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
-// dk[b, j, :], dv[b, j, :] = sum over groups (in order) of the partial of
-// the one context slot of that group holding key row j, if any
-template <typename T>
-__global__ void grouped_attn_dkv_sum_kernel(const float* __restrict__ dk_part,
-                                            const float* __restrict__ dv_part,
-                                            T* __restrict__ dk,
-                                            T* __restrict__ dv, int batch,
-                                            Geom g) {
-  const size_t total = (size_t)batch * g.tk * g.dim;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int d = (int)(idx % g.dim);
-  const int j = (int)((idx / g.dim) % g.tk);
-  const int b = (int)(idx / ((size_t)g.dim * g.tk));
-  const int mem_len = g.n - 1, rc_len = g.n * g.rc;
-  const int utt0 = g.m_slots + g.G * g.rc;
-  float sk = 0.f, sv = 0.f;
-  for (int grp = 0; grp < g.ng; ++grp) {
-    int c = -1;
-    if (j < mem_len) {
-      const int t = j - (grp * g.G - g.max_mem);
-      if (t >= 0 && t < g.m_slots) c = t;
-    } else if (j < mem_len + rc_len) {
-      const int p = j - mem_len;
-      if (p / (g.G * g.rc) == grp) c = g.m_slots + p - grp * g.G * g.rc;
-    } else {
-      const int off = (j - mem_len - rc_len) - (grp * g.G * g.seg - g.lc);
-      if (off >= 0 && off < g.lc + g.G * g.seg) c = utt0 + off;
-    }
-    if (c >= 0) {
-      const size_t po = (((size_t)b * g.ng + grp) * g.ctx + c) * g.dim + d;
-      sk += dk_part[po];
-      sv += dv_part[po];
-    }
-  }
-  dk[idx] = from_f32<T>(sk);
-  dv[idx] = from_f32<T>(sv);
-}
 
 template <typename T, bool kGated, int kHeadDim, bool kExact>
 int launch_attn(const void* q3, const void* k, const void* v,
@@ -911,11 +748,9 @@ int launch_attn_bwd(const void* q3, const void* k, const void* v,
           static_cast<const int*>(lengths), gate, static_cast<T*>(dq),
           probs, dk_part, dv_part, g, drop);
   SIMULST_TRY(cudaGetLastError());
-  const size_t total = (size_t)batch * g.tk * g.dim;
-  grouped_attn_dkv_sum_kernel<T>
-      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-          dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), batch,
-          g);
+  grouped_attn_dkv_sum_kernel<T><<<batch * g.tk, kSumThreads, 0, s>>>(
+      dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), g,
+      false);
   return (int)cudaGetLastError();
 }
 
@@ -1206,48 +1041,12 @@ int launch_attn_wide_bwd(const void* q3, const void* k, const void* v,
                                          static_cast<const T*>(dout), probs,
                                          dk_part, dv_part, g);
   SIMULST_TRY(cudaGetLastError());
-  const size_t total = (size_t)batch * g.tk * g.dim;
-  grouped_attn_dkv_sum_kernel<T>
-      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-          dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), batch,
-          g);
+  grouped_attn_dkv_sum_kernel<T><<<batch * g.tk, kSumThreads, 0, s>>>(
+      dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), g,
+      false);
   return (int)cudaGetLastError();
 }
 
-// unit_cols: the columns of a segment's unit, max_mem + rc + lc + seg
-bool make_geom(Geom* g, int batch, int ng, int nq, int dim, int heads,
-               int hd_real, int seg, int lc, int rc, int max_mem, int G,
-               int tk, int unit_cols) {
-  g->ng = ng;
-  g->nq = nq;
-  g->dim = dim;
-  g->heads = heads;
-  g->seg = seg;
-  g->lc = lc;
-  g->rc = rc;
-  g->max_mem = max_mem;
-  g->G = G;
-  g->n = ng * G;
-  g->U = g->n * seg;
-  g->tk = tk;
-  g->m_slots = max_mem + G - 1;
-  g->ctx = g->m_slots + G * rc + lc + G * seg;
-  g->R = rc + seg + 1;
-  g->C = unit_cols;
-  g->Rp = simulst::ceil_div(g->R, kRowTile) * kRowTile;
-  g->Cp = simulst::ceil_div(g->C, kColTile) * kColTile;
-  g->sld = g->Cp + 4;
-  g->hd = heads > 0 && dim % heads == 0 ? dim / heads : 0;
-  g->shd = g->hd <= 64 ? 64 : 128;
-  g->F = acc_features(*g);
-  g->hd_real = hd_real;
-  return batch > 0 && g->hd > 0 && g->hd % kHeadDimStep == 0 &&
-         hd_real <= g->hd && hd_real > g->hd - kHeadDimStep && hd_real > 0 &&
-         rc > 0 && seg > 0 && max_mem >= 0 &&
-         lc >= 0 && nq == G * (rc + seg + 1) &&
-         tk == (g->n - 1) + g->n * rc + g->U &&
-         unit_cols == max_mem + rc + lc + seg;
-}
 
 // runs the statement with kH bound to the staged head dim g.shd and kE to
 // whether the head is 64 wide, unpadded, with 64 accumulator features (its

@@ -30,6 +30,19 @@
 //    at a time through a two-stage cp.async ring (h rows broadcast from
 //    shared memory), so that 40 rows take 40 blocks instead of 4.  ptxas:
 //    48 registers (bf16 40), no spills.
+// In bf16 (replacing linear_res_pallas.py `_fwd_call`'s bf16 dots, bf16
+// operands with fp32 sums on the TPU's matrix unit) both tiled paths run
+// the product on wgmma.cuh's wgmma_product: 12,800 x 256 x 256 (the
+// Emformer out-projection at asr-train) is 1.7 GFLOP, under 0.002 ms at
+// 989 TFLOP/s, so the bytes of h, res and y bound it (0.006 ms), and the
+// CUDA-core product over widened bf16 (0.068 ms) lost to torch.matmul.
+// The product goes to an fp32 scratch u, and the epilogue (bias, dropout,
+// the gated residual, the cast) runs as a pass of its own at full
+// occupancy, `linear_res_epilogue_kernel`: folded into wgmma_product's
+// store, at its 16 consumer warps an SM, the same epilogue took longer
+// (PERF.md, row 4).  The row kernel stays below TILED_MIN_ROWS, where the
+// bytes of W bound it.  bf16 tiled paths and their plain version agree
+// within bf16 tolerance, not bit for bit.
 // Dropout draws Philox bits keyed by (seed, row * D_out + column).  The
 // kernels take any width (the row kernel stages W and h 64 k at a time,
 // the tile_products tile any shape); a D_in and a D_out that are not
@@ -186,11 +199,55 @@ __global__ void __launch_bounds__(kRowThreads)
   }
 }
 
+// the bf16 tiled paths' product, h W, into the fp32 scratch u (Caller: the
+// tag that names the product's caller in its kernel's name)
+template <class Caller>
+struct ProductStore {
+  float* u;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, int, float v) const {
+    u[(size_t)m * ld + n] = v;
+  }
+  // columns n and n + 1 at once (wgmma_product's epilogue)
+  __device__ __forceinline__ void pair(int m, int n, int, float v0,
+                                       float v1) const {
+    simulst::store_pair(u + (size_t)m * ld + n, v0, v1);
+  }
+};
+
+// the bf16 tiled paths' epilogue, a pass of its own over wgmma_product's
+// fp32 product u: y = linear_res_out of row blockIdx.x, 4 columns a
+// thread (blockIdx.y: 1024 columns a block), the mask at the offsets of
+// rows dout_real wide.  dout is a multiple of 4.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    linear_res_epilogue_kernel(const float* __restrict__ u,
+                               const T* __restrict__ b,
+                               const T* __restrict__ res, T* __restrict__ y,
+                               int dout, int dout_real, int period,
+                               int res_rows, Dropout drop) {
+  const int col = 4 * (blockIdx.y * blockDim.x + threadIdx.x);
+  if (col >= dout) return;
+  const int row = blockIdx.x;
+  const size_t off = (size_t)row * dout + col;
+  const size_t moff = (size_t)row * dout_real + col;
+  const float4 u4 = *reinterpret_cast<const float4*>(u + off);
+  const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
+  float out[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    out[j] = to_f32(linear_res_out(uv[j], row, col + j, b, res, off + j,
+                                   moff + j, period, res_rows, drop));
+  simulst::store_pair(y + off, out[0], out[1]);
+  simulst::store_pair(y + off + 2, out[2], out[3]);
+}
+
 template <typename T>
 int launch_linear_res(const void* h_, const void* w_, const void* b_,
-                      const void* res_, void* y_, int n_rows, int din,
-                      int dout, int dout_real, int period, int res_rows,
-                      int path, Dropout drop, cudaStream_t stream) {
+                      const void* res_, void* y_, float* u, int n_rows,
+                      int din, int dout, int dout_real, int period,
+                      int res_rows, int path, Dropout drop,
+                      cudaStream_t stream) {
   using simulst::RowMajor;
   const T* h = static_cast<const T*>(h_);
   const T* w = static_cast<const T*>(w_);
@@ -204,26 +261,34 @@ int launch_linear_res(const void* h_, const void* w_, const void* b_,
         drop);
     return (int)cudaGetLastError();
   }
+  if (path != kPathTiled && path != kPathWide)
+    return (int)cudaErrorInvalidValue;
   const RowMajor<T> a{h, din}, bw{w, dout};
-  if (dout_real != dout) {   // a padded call: its tiled paths on 128 x 64
-    if (path != kPathTiled && path != kPathWide)
-      return (int)cudaErrorInvalidValue;
-    const ResidualStore<T, TagLinearResFwd, true> padded{
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // both tiled paths: the product on the tensor cores into u, then the
+    // epilogue at full occupancy
+    if (u == nullptr) return (int)cudaErrorInvalidValue;
+    SIMULST_TRY(simulst::wgmma_product(n_rows, dout, din, 1, a, bw,
+                                       ProductStore<TagLinearResFwd>{u, dout}, stream));
+    linear_res_epilogue_kernel<T>
+        <<<dim3(n_rows, simulst::ceil_div(dout, 1024)), 256, 0, stream>>>(
+            u, b, res, y, dout, dout_real, period, res_rows, drop);
+    return (int)cudaGetLastError();
+  } else {
+    if (dout_real != dout) {   // a padded call: its tiled paths on 128 x 64
+      const ResidualStore<T, TagLinearResFwd, true> padded{
+          b, res, y, dout, dout_real, period, res_rows, drop};
+      return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
+                                            padded, stream);
+    }
+    const ResidualStore<T, TagLinearResFwd, false> store{
         b, res, y, dout, dout_real, period, res_rows, drop};
-    return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
-                                          padded, stream);
-  }
-  const ResidualStore<T, TagLinearResFwd, false> store{
-      b, res, y, dout, dout_real, period, res_rows, drop};
-  switch (path) {
-    case kPathTiled:
+    if (path == kPathTiled)
       return (int)simulst::tile_product<64>(n_rows, dout, din, 1, a, bw,
                                             store, stream);
-    case kPathWide:
-      return (int)simulst::tile_product<128>(n_rows, dout, din, 1, a, bw,
-                                             store, stream);
+    return (int)simulst::tile_product<128>(n_rows, dout, din, 1, a, bw,
+                                           store, stream);
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, class Caller>
@@ -271,12 +336,14 @@ int launch_linear_res_bwd(const void* h_, const void* w_, const void* dy,
 // itself when nothing is padded; less than 64 below it), the row length
 // of the dropout offsets; dropout on residual rows when dropout != 0.  path: the
 // row kernel (0), the tiled product with 128 x 64 tiles (1) or 128 x 128
-// (2, 128 x 64 when padded), as ops/linear_res.py:fwd_plan picks; all give
-// the same bits.
+// (2, 128 x 64 when padded), as ops/linear_res.py:fwd_plan picks; in fp32
+// all give the same bits.  In bf16 paths 1 and 2 both run the product on
+// the tensor cores into u, an fp32 scratch (n_rows, dout), then the
+// epilogue pass; u is not read on path 0 or in fp32 (null there).
 // Returns a cudaError_t.
 extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
                                   const void* b, const void* res, void* y,
-                                  int n_rows, int din, int dout,
+                                  void* u, int n_rows, int din, int dout,
                                   int dout_real, int period, int res_rows,
                                   int path, int dropout,
                                   unsigned long long seed, unsigned threshold,
@@ -289,8 +356,9 @@ extern "C" int simulst_linear_res(int dtype, const void* h, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop{seed, threshold, inv_keep, dropout};
   SIMULST_DISPATCH(dtype, return launch_linear_res<scalar_t>(
-                              h, w, b, res, y, n_rows, din, dout, dout_real,
-                              period, res_rows, path, drop, s));
+                              h, w, b, res, y, static_cast<float*>(u),
+                              n_rows, din, dout, dout_real, period, res_rows,
+                              path, drop, s));
 }
 
 // The backward of simulst_linear_res: dh (n_rows, din) of `dtype` and

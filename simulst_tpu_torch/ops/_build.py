@@ -54,9 +54,9 @@ SIGNATURES = {
     # out site, stream
     "simulst_ffn_bwd": [_I] * 2 + [_P] * 13 + [_I] * 6 + _DROP + _DROP[1:]
                        + [_P],
-    # dtype, h, w, b, res, y, n_rows, din, dout, dout_real, period,
+    # dtype, h, w, b, res, y, u, n_rows, din, dout, dout_real, period,
     # res_rows, path, dropout, seed, threshold, inv_keep, stream
-    "simulst_linear_res": [_I] + [_P] * 5 + [_I] * 7 + _DROP[1:2] + _DROP[:1]
+    "simulst_linear_res": [_I] + [_P] * 6 + [_I] * 7 + _DROP[1:2] + _DROP[:1]
                           + _DROP[2:] + [_P],
     # dtype, h, w, dy, dh, grads, du, partial, n_rows, din, dout, dout_real,
     # period, res_rows, splits, dropout, seed, threshold, inv_keep, stream
@@ -87,6 +87,10 @@ SIGNATURES = {
     # inv_keep, stream
     "simulst_emformer_attn_bwd": [_I] + [_P] * 13 + [_I] * 14 + _DROP[1:2]
                                  + _DROP[:1] + _DROP[2:] + [_P],
+    # q3, k, v, lengths, kid, seg_eid, dout, dq, dk, dv, dk_part, dv_part,
+    # then simulst_emformer_attn_bwd's ints, dropout and stream (bf16 only)
+    "simulst_emformer_attn_bwd_tc": [_P] * 12 + [_I] * 14 + _DROP[1:2]
+                                    + _DROP[:1] + _DROP[2:] + [_P],
     # dtype, xp, dy, dw, partial, batch, t_out, taps, dim, groups, splits,
     # stream
     "simulst_convpos_wgrad": [_I] + [_P] * 4 + [_I] * 6 + [_P],

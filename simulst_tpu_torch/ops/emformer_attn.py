@@ -16,7 +16,8 @@ csrc/emformer_attn.cu run, at any head dim D / heads (`check_head_dim`;
 one that is not a multiple of 8 reaches them with each head zero-padded
 to the next one, the real head dim beside it for the scale, and the
 outputs are sliced back; above 128 the wide kernels, correct rather than
-fast); on a CPU tensor `grouped_attention_plain` and
+fast; in bf16 up to head dim 128 the backward on the tensor cores,
+`bwd_plan`); on a CPU tensor `grouped_attention_plain` and
 `grouped_attention_plain_backward`, the gathered-context formulation of
 nn/emformer.py `_grouped_attention`.  Dropout on the probabilities is
 ops/philox.py's mask, stream 0, at the row-major offset of each element of
@@ -41,6 +42,11 @@ MIN_ACC_FEATURES = 16  # kMinAccFeatures: ... at the least
 ROW_TILE, COL_TILE = 32, 64  # kRowTile, kColTile: a unit's padded tiles
 SMEM_LIMIT = 227 * 1024      # shared memory one block may take on sm_90
 MAX_STAGED_HEAD_DIM = 128    # kMaxHeadDim: the wide kernels above
+# the bf16 backward on the tensor cores (csrc/emformer_attn_bwd.cu): the
+# unit's padded columns it takes at most (kTcMaxCols), its rows a pass of
+# the scores (kTcRows)
+TC_MAX_COLS = 128
+TC_ROWS = 32
 
 
 def staged_head_dim(hd: int) -> int:
@@ -154,6 +160,44 @@ def _fitting_unit(name, geom: AttnGeom, head_dim: int,
             f"take (the backward holds dK and dV of the group context's "
             f"{geom.ctx} slots, at least {MIN_ACC_FEATURES} features each)")
     return unit, smem
+
+
+def tc_smem_bytes(geom: AttnGeom, head_dim: int) -> int:
+    """Shared-memory bytes of a block of the bf16 backward on the tensor
+    cores at head dim `head_dim` (a multiple of 8, at most 128), laid out
+    as csrc/emformer_attn_bwd.cu `tc_smem_bytes`: two stages of Q and dO
+    (the unit's rows padded to ROW_TILE) and K and V (its columns padded
+    to COL_TILE), bf16 rows of the staged head dim + 8; dS and round(P m),
+    bf16 rows of the padded columns + 8; the row statistics of a pass (4
+    column quarters x TC_ROWS rows x 3 floats); fp32 dK and dV
+    accumulators of the slots still open, the group's memory slots and a
+    ring of lc + seg utterance slots, rows of the staged head dim + 8;
+    two stages of four ints per column (slot, visibility, accumulator
+    row, output)."""
+    rp = _build.round_up(geom.rc + geom.seg + 1, ROW_TILE)
+    cp = _build.round_up(geom.max_mem + geom.rc + geom.lc + geom.seg,
+                         COL_TILE)
+    ldh = staged_head_dim(head_dim) + 8
+    open_slots = geom.m_slots + geom.lc + geom.seg
+    return (2 * (2 * (2 * rp + 2 * cp) * ldh + 2 * rp * (cp + 8))
+            + 4 * (4 * TC_ROWS * 3 + 2 * open_slots * ldh) + 4 * 2 * 4 * cp)
+
+
+def bwd_plan(geom: AttnGeom, head_dim: int, dtype) -> str:
+    """The backward's kernels on the card at head dim `head_dim` (as the
+    kernels take it: a multiple of 8): "tensor_cores"
+    (csrc/emformer_attn_bwd.cu) in bf16 up to head dim 128 where the
+    unit's columns, padded to COL_TILE, are at most TC_MAX_COLS and its
+    block fits (`tc_smem_bytes` at most SMEM_LIMIT); "units"
+    (csrc/emformer_attn.cu's backward: fp32, head dims above 128, and the
+    bf16 shapes beyond those) otherwise.  Either runs only on shapes
+    `_fitting_unit` takes: those the units backward takes."""
+    cols = geom.max_mem + geom.rc + geom.lc + geom.seg
+    if dtype == torch.bfloat16 and head_dim <= MAX_STAGED_HEAD_DIM \
+            and _build.round_up(cols, COL_TILE) <= TC_MAX_COLS \
+            and tc_smem_bytes(geom, head_dim) <= SMEM_LIMIT:
+        return "tensor_cores"
+    return "units"
 
 
 @functools.lru_cache(maxsize=64)
@@ -413,16 +457,23 @@ def _launch_backward(q3, k, v, lengths, dout, geom: AttnGeom, rate, seed,
     b, ng, nq, d = q3.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q3, k, v))
     f32 = dict(dtype=torch.float32, device=q3.device)
-    probs = torch.empty(b * ng * geom.num_heads * unit.probs, **f32)
     dk_part, dv_part = (torch.empty(b, ng, geom.ctx, d, **f32)
                         for _ in range(2))
-    _build.launch("simulst_emformer_attn_bwd", _build.dtype_code(q3),
-                  q3.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), *_gate_ptrs(gate), dout.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  probs.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
-                  *_geom_args(q3, geom, hd, unit, smem),
-                  *_build.dropout_args(rate, seed), _build.stream_of(q3))
+    ptrs = (q3.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            *_gate_ptrs(gate), dout.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr())
+    tail = (*_build.dropout_args(rate, seed), _build.stream_of(q3))
+    if bwd_plan(geom, hdp, q3.dtype) == "tensor_cores":
+        _build.launch("simulst_emformer_attn_bwd_tc", *ptrs,
+                      dk_part.data_ptr(), dv_part.data_ptr(),
+                      *_geom_args(q3, geom, hd, unit,
+                                  tc_smem_bytes(geom, hdp)), *tail)
+    else:
+        probs = torch.empty(b * ng * geom.num_heads * unit.probs, **f32)
+        _build.launch("simulst_emformer_attn_bwd", _build.dtype_code(q3),
+                      *ptrs, probs.data_ptr(), dk_part.data_ptr(),
+                      dv_part.data_ptr(),
+                      *_geom_args(q3, geom, hd, unit, smem), *tail)
     _count(emformer_grouped_attention_backward, gate)
     return tuple(_build.unpadded_groups(t, geom.num_heads, hd)
                  for t in (dq, dk, dv))

@@ -14,7 +14,8 @@ multiple of 64 reaches them zero-padded to the next one, the real D_out
 beside it for the dropout offsets, and the output is sliced back); on a
 CPU tensor
 `linear_res_plain` and `linear_res_plain_backward`.  In bf16 the
-backward's two products run on the tensor cores (csrc/wgmma.cuh), du a
+backward's two products and the forward's product on its tiled paths
+(`fwd_uses_tensor_cores`) run on the tensor cores (csrc/wgmma.cuh), du a
 bf16 buffer, so kernel and plain version agree within bf16 tolerance.  w keeps the JAX layout (D_in, D_out).  The
 dropout mask is ops/philox.py's, stream 0 at offset row * D_out + column,
 keyed by the call's seed; d(res) is the upstream gradient on residual rows
@@ -89,6 +90,14 @@ def fwd_plan(rows: int) -> str:
     return "tiled" if rows >= TILED_MIN_ROWS else "rows"
 
 
+def fwd_uses_tensor_cores(path: str, dtype) -> bool:
+    """Whether the forward's `path` runs its product on the tensor cores:
+    both tiled paths in bf16 (csrc/wgmma.cuh's wgmma_product into an fp32
+    scratch of rows x D_out, then the epilogue as a pass of its own); the
+    row kernel, and fp32 on every path, on the CUDA cores."""
+    return dtype == torch.bfloat16 and path != "rows"
+
+
 def check_widths(name: str, din: int, dout: int) -> None:
     """Raise a ValueError naming the widths unless the kernels take them:
     a positive D_in and D_out."""
@@ -128,12 +137,17 @@ def _launch(h, w, b, res, period, res_rows, rate, seed):
     n = h2.shape[0]
     y = torch.empty(n, dout, dtype=h.dtype, device=h.device)
     if n:
+        path = fwd_plan(n)
+        # the bf16 tiled paths' product, before its epilogue pass
+        u = torch.empty(n, dout, dtype=torch.float32, device=h.device) \
+            if fwd_uses_tensor_cores(path, h2.dtype) else None
         on, seed64, thr, inv = _build.dropout_args(rate, seed)
         _build.launch("simulst_linear_res", _build.dtype_code(h2),
                       h2.data_ptr(), w.data_ptr(), b.data_ptr(),
-                      res2.data_ptr(), y.data_ptr(), n, din, dout, dout_real,
-                      period, res_rows, FWD_PATHS[fwd_plan(n)], on, seed64,
-                      thr, inv, _build.stream_of(h2))
+                      res2.data_ptr(), y.data_ptr(),
+                      None if u is None else u.data_ptr(), n, din, dout,
+                      dout_real, period, res_rows, FWD_PATHS[path], on,
+                      seed64, thr, inv, _build.stream_of(h2))
         fused_linear_res.launches += 1
     return _build.unpadded(y, dout_real).reshape(*h.shape[:-1], dout_real)
 

@@ -1382,3 +1382,118 @@ def test_bf16_backwards_products_are_hgmma(randn):
     for store in ("TagFfnBwd", "TagLinearResBwd"):
         found = [n for n in wgmma if store in n]
         assert found and all("HGMMA" in wgmma[n] for n in found), store
+
+
+# rows 3b / 3bg in bf16 on the tensor cores (csrc/emformer_attn_bwd.cu):
+# (B, ng, nq, D, heads, G, gated): asr-train's q3, the packed gated shapes
+# of G 7 and G 3, head dim 128, a padded head dim (50, staged 64), D 512
+# with 8 heads and G 16; s2t_emformer_s's unit geometry
+BF16_ATTN_SHAPES = {
+    "asr-train": (32, 2, 200, 256, 4, 8, False),
+    "packed-G7": (16, 4, 175, 256, 4, 7, True),
+    "packed-G3": (8, 13, 75, 256, 4, 3, True),
+    "hd128": (4, 2, 200, 512, 4, 8, False),
+    "hd50": (4, 2, 200, 200, 4, 8, False),
+    "d512-8heads": (4, 2, 200, 512, 8, 8, False),
+    "G16": (4, 2, 400, 256, 4, 16, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(BF16_ATTN_SHAPES))
+def test_bf16_grouped_attention_backward_runs_on_the_tensor_cores(
+        randn, shape, rate):
+    """Rows 3b / 3bg in bf16 on the tensor-core kernel (its plan): dq within
+    BF16 of the plain backward, dk and dv within 1e-2 of their largest
+    entry, one launch counted (gated: on gated_launches), the same bits
+    twice."""
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    b, ng, nq, d, heads, G, gated = BF16_ATTN_SHAPES[shape]
+    geom = AttnGeom(U=ng * G * 16, seg=16, lc=32, rc=8, max_mem=5, G=G,
+                    num_heads=heads)
+    assert (geom.ng, geom.nq) == (ng, nq)
+    hd = ea.padded_head_dim(d // heads)
+    assert ea.bwd_plan(geom, hd, torch.bfloat16) == "tensor_cores"
+    bf = torch.bfloat16
+    q3, dout = randn(b, ng, nq, d).to(bf), randn(b, ng, nq, d).to(bf)
+    k, v = randn(b, geom.tk, d).to(bf), randn(b, geom.tk, d).to(bf)
+    gen = torch.Generator().manual_seed(b + G)
+    if gated:   # runs of ascending example ids, as packed rows hold them
+        import chip_smoke
+        gate = chip_smoke.segment_gate(ea, geom, b, gen, "cuda")
+        lengths = torch.full((b,), geom.U, dtype=torch.int32, device="cuda")
+    else:
+        gate = None
+        lengths = torch.randint(geom.U // 2, geom.U + 1, (b,),
+                                generator=gen).to(torch.int32).cuda()
+    args = (q3, k, v, lengths, dout, geom, rate, 17, gate)
+    counter = "gated_launches" if gated else "launches"
+    before = getattr(emformer_grouped_attention_backward, counter)
+    got = emformer_grouped_attention_backward(*args)
+    assert getattr(emformer_grouped_attention_backward, counter) == \
+        before + 1
+    want = grouped_attention_plain_backward(*args)
+    torch.testing.assert_close(got[0], want[0], **BF16)
+    for g, w in zip(got[1:], want[1:]):
+        _close_to_largest(g, w, 1e-2)
+    again = emformer_grouped_attention_backward(*args)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+# row 4 in bf16 on the tensor cores: (rows, D_in, D_out, period, residual
+# rows): the Emformer out-projection at asr-train (12,800 gated rows) and
+# offline (3,200), the MT decoder's 8192 and asr-train's decoder 2,304
+# ungated, a padded D_out and D_in
+BF16_LR_FWD_SHAPES = {"asr-encoder-12800-gate": (12800, 256, 256, 200, 192),
+                      "mt-8192": (8192, 256, 256, 0, 0),
+                      "asr-decoder-2304": (2304, 256, 256, 0, 0),
+                      "offline-3200-gate": (3200, 256, 256, 200, 192),
+                      "dout200": (3200, 256, 200, 200, 192),
+                      "din200": (3200, 200, 256, 200, 192)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape", list(BF16_LR_FWD_SHAPES))
+def test_bf16_linear_res_forward_runs_on_the_tensor_cores(randn, shape,
+                                                          rate):
+    """Row 4's bf16 tiled paths (wgmma_product and the epilogue pass)
+    within BF16 of the plain forward, one launch counted, the same bits
+    twice."""
+    rows, din, dout, period, res_rows = BF16_LR_FWD_SHAPES[shape]
+    assert linear_res.fwd_uses_tensor_cores(linear_res.fwd_plan(rows),
+                                            torch.bfloat16)
+    bf = torch.bfloat16
+    h, res = randn(rows, din).to(bf), randn(rows, dout).to(bf)
+    w = randn(din, dout, scale=din ** -0.5).to(bf)
+    b = randn(dout, scale=0.02).to(bf)
+    cfg = (period, res_rows, rate, 29)
+    before = fused_linear_res.launches
+    got = fused_linear_res(h, w, b, res, *cfg)
+    assert fused_linear_res.launches == before + 1
+    torch.testing.assert_close(got, linear_res_plain(h, w, b, res, *cfg),
+                               **BF16)
+    assert torch.equal(got, fused_linear_res(h, w, b, res, *cfg))
+
+
+@pytest.mark.cuda
+def test_bf16_attention_backward_and_linear_res_forward_use_tensor_cores(
+        randn):
+    """The grouped attention's bf16 backward kernels hold HMMA in their
+    SASS (mma.sync) and no other kernel of the grouped attention does;
+    the linear-res forward's bf16 product is a wgmma_product kernel (its
+    caller's tag in its name) with HGMMA."""
+    import shutil
+    import subprocess
+    from simulst_tpu_torch.ops import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = _build.sass_functions(sass)
+    tc = [n for n in funcs if "grouped_attn_bwd_tc_kernel" in n]
+    assert len(tc) == 8 and all("HMMA" in funcs[n] for n in tc)
+    assert not any("HMMA" in body for n, body in funcs.items()
+                   if "grouped_attn" in n and n not in tc)
+    fwd = [n for n in funcs if "wgmma_product_kernel" in n
+           and "TagLinearResFwd" in n]
+    assert fwd and all("HGMMA" in funcs[n] for n in fwd)

@@ -359,8 +359,8 @@ def _lr_gate(n, dout, period, res_rows):
                                                                 dtype=bool)
 
 
-def _emu_linear_res(dtype, h, w, b, res, y, n, din, dout, dout_real, period,
-                    res_rows, path, on, seed, thr, inv, stream):
+def _emu_linear_res(dtype, h, w, b, res, y, u, n, din, dout, dout_real,
+                    period, res_rows, path, on, seed, thr, inv, stream):
     H, RES = _buf(h, n, din), _buf(res, n, dout)
     _pads_zero(RES, dout_real)
     u = H @ _buf(w, din, dout) + _buf(b, dout)

@@ -64,13 +64,20 @@ inputs, and each output is compared with torch.equal:
                          rows), at 1, 24, 300, 2,304, 8192 and 12,800 rows
                          (256 x 256); bf16 (both products on the tensor
                          cores) held to the plain version at BF16_TOL
-  simulst_linear_res     y, this checkout's entry called on both of its
-                         paths (the row kernel and tile_product) and the
-                         revision's with its own C signature (one without
-                         the path argument takes none); fp32 and bf16,
-                         dropout 0 and 0.1, period 0 and the Emformer gate
-                         200 / 192, at 1, 24, 40, 300, 2,304, 3,200, 8192
-                         and 12,800 rows (256 x 256)
+  simulst_linear_res     y, this checkout's entry called on each of its
+                         paths (the row kernel and the two tiled ones) and
+                         the revision's with its own C signature (one
+                         without the path argument takes none, one before
+                         the bf16 tiled paths' fp32 scratch no u); fp32
+                         and bf16, dropout 0 and 0.1, period 0 and the
+                         Emformer gate 200 / 192, at 1, 24, 40, 300,
+                         2,304, 3,200, 8192 and 12,800 rows (256 x 256).
+                         The bf16 tiled paths (the product on the tensor
+                         cores, then the epilogue pass) are held to the
+                         plain version at BF16_TOL and to each other bit
+                         for bit, their largest differences from the plain
+                         version and the revision printed; the row kernel
+                         to the revision bit for bit
   simulst_mha_fwd        out and lse, this checkout's entry on both of its
                          kernels (decode and training tiles), the
                          revision's with its own signature; fp32 and bf16,
@@ -102,7 +109,14 @@ inputs, and each output is compared with torch.equal:
   simulst_emformer_attn  the grouped attention's out and (simulst_emformer_
   _bwd                   attn_bwd) dq, dk, dv through ops/emformer_attn.py's
                          wrappers; fp32 and bf16, dropout 0 and 0.1, with
-                         and without the example-id gate, at ATTN_CASES
+                         and without the example-id gate, at ATTN_CASES.
+                         The bf16 backward, on the tensor cores
+                         (simulst_emformer_attn_bwd_tc, `bwd_plan`), is
+                         held to the plain version (dq at BF16_TOL, dk
+                         and dv within 1e-2 of their largest entry), its
+                         largest differences from the revision printed; a
+                         revision without that entry runs its units
+                         backward (`library_of`)
   simulst_convpos_wgrad  dw through ops/conv_pos.py's wrapper; fp32 and
                          bf16, K 64, D 256, at (B, T) = (32, 256), (3, 50),
                          (33, 1) (7 batch slices of 5, the last of 3) and
@@ -124,7 +138,9 @@ inputs, and each output is compared with torch.equal:
 
 Then a determinism check of this checkout alone: every C entry, through
 its wrapper, runs twice on the same inputs at a train shape (the two
-forwards also at a decoder-step shape, on their other path), and each
+forwards also at a decoder-step shape, on their other path; the bf16
+grouped-attention backward dense and gated, and the bf16 linear-res
+forward's tiled path, on the tensor cores), and each
 output of the second call must equal the first's (torch.equal).  Then the
 widths the revision may not take (WIDTH_CASES), this checkout alone: the
 FFN forward's fused and tiled paths at D 64, 128 and 512 (1, 40 and 300
@@ -160,7 +176,11 @@ chip_smoke.py's ASR shape (q3 (32, 2, 200, 256), rate 0.1), the MHA
 forward's at the MT shapes (64, 128, 128) causal, self and cross,
 the ASR decoder's (32, 72, 72) causal and (32, 72, 256), the decoder
 step's (40, 1, 256) and the self-cache (40, 1, 64), all rate 0.1 (the
-decoder step 0), this checkout's on the path its plan picks; the FFN backward's C entry at 8192 rows (relu,
+decoder step 0), this checkout's on the path its plan picks, and in bf16
+at its tiled rows (row 4: this checkout's product on the tensor cores);
+the grouped attention backward in bf16 (rows 3b / 3bg: this checkout's
+on the tensor cores) at the ASR shape and at asr-pack's packed rows
+(16, 4, 175, 256) with the gate at G 7; the FFN backward's C entry at 8192 rows (relu,
 rate 0.1), and in bf16 at 2,304 (gelu) and 8192 rows (relu), and the
 LN-FFN backward at 12,288 rows (gelu, rate 0.1) through the wrappers;
 the CIF C entry at (32, 256, 256, 72); the linear-res backward's C entry
@@ -409,13 +429,18 @@ def ln_check_of(ffn, f32_ln):
 
 @contextlib.contextmanager
 def library_of(_build, lib):
-    """Route the wrappers' launches to `lib`."""
-    saved = _build.library
+    """Route the wrappers' launches to `lib`; a build without the bf16
+    grouped-attention backward on the tensor cores
+    (simulst_emformer_attn_bwd_tc) runs its units backward in bf16 too."""
+    from simulst_tpu_torch.ops import emformer_attn as ea
+    saved = _build.library, ea.bwd_plan
     _build.library = lambda: lib
+    if not hasattr(lib, "simulst_emformer_attn_bwd_tc"):
+        ea.bwd_plan = lambda *a: "units"
     try:
         yield
     finally:
-        _build.library = saved
+        _build.library, ea.bwd_plan = saved
 
 
 def ln_ffn_inputs(torch, rows, dtype, seed):
@@ -614,20 +639,24 @@ def mha_inputs(torch, b, tq, tk, mask, dtype, seed):
 
 
 def linear_res_entry(torch, _build, lib, takes_path, h, w, b, res, period,
-                     res_rows, rate, path, takes_real=True):
+                     res_rows, rate, path, takes_real=True, takes_u=True):
     """simulst_linear_res of `lib` bound to its arguments and called once,
     with its build's signature (takes_path: the path argument; takes_real:
-    the real D_out); `.y` is the output (NaN where the kernel writes
+    the real D_out; takes_u: the fp32 scratch of the bf16 tiled paths,
+    rows x D_out); `.y` is the output (NaN where the kernel writes
     nothing)."""
     n, dout = res.shape
     y = torch.full_like(res, float("nan"))
+    u = torch.empty(n, dout, dtype=torch.float32, device=h.device) \
+        if takes_u and h.dtype == torch.bfloat16 else None
     call = functools.partial(
         lib.simulst_linear_res, _build.dtype_code(h), h.data_ptr(),
-        w.data_ptr(), b.data_ptr(), res.data_ptr(), y.data_ptr(), n,
+        w.data_ptr(), b.data_ptr(), res.data_ptr(), y.data_ptr(),
+        *((None if u is None else u.data_ptr(),) if takes_u else ()), n,
         h.shape[1], dout, *((dout,) if takes_real else ()), period,
         res_rows, *((path,) if takes_path else ()),
         *_build.dropout_args(rate, 7), _build.stream_of(h))
-    call.y = y
+    call.y, call.keep = y, u
     if call():
         raise RuntimeError("simulst_linear_res: CUDA error")
     return call
@@ -821,6 +850,8 @@ def determinism_calls(torch):
     attn = (randn(32, geom.ng, geom.nq, d), randn(32, geom.tk, d),
             randn(32, geom.tk, d), lengths.cuda())
     attn_dout = randn(32, geom.ng, geom.nq, d)
+    attn_b = tuple(t.bfloat16() for t in attn[:3]) + attn[3:]
+    attn_gate = cs.segment_gate(ea, geom, 32, g, "cuda")
     xp, dyc = randn(32, 319, d), randn(32, 256, d)
     targets = torch.randint(4, 4100, (32, 64), generator=g)
     tl = torch.randint(38, 65, (32,), generator=g)
@@ -878,6 +909,17 @@ def determinism_calls(torch):
         "simulst_emformer_attn_bwd": lambda: (
             ea.emformer_grouped_attention_backward(*attn, attn_dout, geom,
                                                    0.1, 23)),
+        # bf16 on the tensor cores, dense and gated
+        "simulst_emformer_attn_bwd (bf16)": lambda: (
+            ea.emformer_grouped_attention_backward(
+                *attn_b, attn_dout.bfloat16(), geom, 0.1, 23)),
+        "simulst_emformer_attn_bwd (bf16, gated)": lambda: (
+            ea.emformer_grouped_attention_backward(
+                *attn_b, attn_dout.bfloat16(), geom, 0.1, 23, attn_gate)),
+        "simulst_linear_res (tiled path, bf16)": lambda: (
+            linear_res.fused_linear_res_forward(
+                h.bfloat16(), wl.bfloat16(), bl.bfloat16(), res.bfloat16(),
+                200, 192, 0.1, 7),),
         "simulst_convpos_wgrad": lambda: (
             conv_pos.convpos_wgrad(xp, dyc, 64, 16),),
         "simulst_ctc_alpha": lambda: (ctc.ctc_alphas(
@@ -903,7 +945,7 @@ WIDTH_MHA = ((64, 4), (128, 4), (384, 4), (512, 4), (16, 4), (48, 4),
 # list (ops/_build.py SIGNATURES)
 REAL_WIDTH_ARGS = {"simulst_ffn": (18, 2), "simulst_ffn_bwd": (19, 2),
                    "simulst_ln_ffn_bwd": (22, 2),
-                   "simulst_linear_res": (9, 1),
+                   "simulst_linear_res": (10, 1),
                    "simulst_linear_res_bwd": (11, 1),
                    "simulst_mha_fwd": (12, 1), "simulst_mha_bwd": (18, 1),
                    "simulst_emformer_attn": (13, 1),
@@ -1173,10 +1215,16 @@ def main():
             + _build._DROP[2:] + [_P])
     ref_lr_path = "int res_rows, int path" in \
         source(ref_csrc, "linear_res.cu")
+    # simulst_linear_res before its bf16 tiled paths' fp32 scratch
+    ref_lr_u = "void* y, void* u" in source(ref_csrc, "linear_res.cu")
     if not ref_lr_path:          # simulst_linear_res before its two paths
         libs["rev"].simulst_linear_res.argtypes = (
             [_I] + [_P] * 5 + [_I] * 6 + [ctypes.c_uint64] + _build._DROP[2:]
             + [_P])
+    elif not ref_lr_u:
+        libs["rev"].simulst_linear_res.argtypes = (
+            [_I] + [_P] * 5 + [_I] * 7 + _build._DROP[1:2] + _build._DROP[:1]
+            + _build._DROP[2:] + [_P])
     ref_mha_path = "int causal, int path" in source(ref_csrc, "mha.cu")
     if not ref_mha_path:         # simulst_mha_fwd before its two kernels
         libs["rev"].simulst_mha_fwd.argtypes = (
@@ -1262,9 +1310,11 @@ def main():
             h, w, dy, period, res_rows, rate, real(key))
 
     def lr_fwd(key, h, w, b, res, period, res_rows, rate, path):
-        takes = ref_lr_path if key == "rev" else True
-        return linear_res_entry(torch, _build, libs[key], takes, h, w, b,
-                                res, period, res_rows, rate, path, real(key))
+        rev = key == "rev"
+        return linear_res_entry(torch, _build, libs[key],
+                                ref_lr_path if rev else True, h, w, b, res,
+                                period, res_rows, rate, path, real(key),
+                                ref_lr_u if rev else True)
 
     def mha_fwd(key, q, k, v, kmask, causal, rate, path):
         takes = ref_mha_path if key == "rev" else True
@@ -1447,11 +1497,32 @@ def main():
                                      rate, code).y
                            for p, code in linear_res.FWD_PATHS.items()}
                     torch.cuda.synchronize()
-                    report("simulst_linear_res",
-                           f"{str(dtype)[6:]} rate {rate} period {period} "
-                           f"rows {rows}",
-                           {f"y {p}": torch.equal(want, y)
-                            for p, y in got.items()})
+                    case = (f"{str(dtype)[6:]} rate {rate} period {period} "
+                            f"rows {rows}")
+                    tc = {p for p in got if linear_res.fwd_uses_tensor_cores(
+                        p, dtype) and not linear_res.fwd_uses_tensor_cores(
+                            p, torch.float32)}
+                    equal = {f"y {p}": torch.equal(want, y)
+                             for p, y in got.items() if p not in tc}
+                    if tc:   # bf16 tiled paths: the product on the tensor
+                        # cores, held to the plain version, the paths to
+                        # each other bit for bit
+                        plain = linear_res.linear_res_plain(
+                            h, w, b, res, period, res_rows, rate, 7)
+                        equal.update({f"y {p} within BF16_TOL of plain":
+                                      bf16_close(torch, got[p], plain)
+                                      for p in tc})
+                        equal["tiled == wide"] = torch.equal(got["tiled"],
+                                                             got["wide"])
+                        print(json.dumps({
+                            "entry": "simulst_linear_res", "case": case,
+                            "bf16 max_abs_diff vs parent": {
+                                p: max_diff(got[p], want) for p in tc},
+                            "vs plain": {p: max_diff(got[p], plain)
+                                         for p in tc},
+                            "parent vs plain": max_diff(want, plain)}),
+                            flush=True)
+                    report("simulst_linear_res", case, equal)
 
     names = ("dh", "dw", "db")
     for dtype in dtypes if wanted("simulst_linear_res_bwd") else ():
@@ -1590,8 +1661,18 @@ def main():
                     same = [torch.equal(a, c) for a, c in
                             zip(outs["rev"], outs["this"])]
                     report("simulst_emformer_attn", case, {"out": same[0]})
-                    report("simulst_emformer_attn_bwd", case,
-                           dict(zip(("dq", "dk", "dv"), same[1:])))
+                    if ea.bwd_plan(geom, 64, dtype) == "units":
+                        report("simulst_emformer_attn_bwd", case,
+                               dict(zip(("dq", "dk", "dv"), same[1:])))
+                        continue
+                    # bf16 on the tensor cores: dq within BF16_TOL of the
+                    # plain backward, dk and dv within 1e-2 of their
+                    # largest entry
+                    bf16_report("simulst_emformer_attn_bwd", case,
+                                ("dq", "dk", "dv"),
+                                {key: o[1:] for key, o in outs.items()},
+                                ea.grouped_attention_plain_backward(
+                                    *attn_args, dout, geom, rate, 23, gate))
 
     for i, (label, t, b, s_, how) in enumerate(
             CTC_CASES if wanted("simulst_ctc_alpha")
@@ -1675,6 +1756,18 @@ def main():
                 torch.int32).cuda())
         attn_dout = torch.randn(32, attn_geom.ng, attn_geom.nq, 256,
                                 generator=ga).cuda()
+        attn_timed_b = tuple(t.bfloat16() for t in attn_timed[:3]) + \
+            attn_timed[3:]
+        # row 3bg: asr-pack's packed rows, (16, 4, 175, 256) at G 7
+        packed_geom = ea.AttnGeom(U=448, seg=16, lc=32, rc=8, max_mem=5, G=7,
+                                  num_heads=4)
+        packed_timed = (
+            *(torch.randn(shape, generator=ga).bfloat16().cuda()
+              for shape in ((16, 4, 175, 256), (16, packed_geom.tk, 256),
+                            (16, packed_geom.tk, 256))),
+            torch.full((16,), 448, dtype=torch.int32).cuda(),
+            torch.randn(16, 4, 175, 256, generator=ga).bfloat16().cuda())
+        packed_gate = cs.segment_gate(ea, packed_geom, 16, ga, "cuda")
         xb, wsb, dyb = ln_ffn_inputs(torch, 12288, torch.bfloat16, 12288)
         xm, wm, dym = ln_ffn_inputs(torch, 8192, torch.float32, 8192)
         # rows 2b / 4b in bf16: the FFN backward at asr-train's decoder
@@ -1757,6 +1850,21 @@ def main():
                 "emformer_attn_bwd_ms": wrapped(
                     ea.emformer_grouped_attention_backward, *attn_timed,
                     attn_dout, attn_geom, 0.1, 23),
+                # rows 3b / 3bg in bf16: this checkout's on the tensor
+                # cores, a parent's units backward on the CUDA cores
+                "emformer_attn_bwd_bf16_ms": wrapped(
+                    ea.emformer_grouped_attention_backward, *attn_timed_b,
+                    attn_dout.bfloat16(), attn_geom, 0.1, 23),
+                "emformer_attn_bwd_bf16_gated_ms": wrapped(
+                    ea.emformer_grouped_attention_backward, *packed_timed,
+                    packed_geom, 0.1, 23, packed_gate),
+                # row 4 in bf16: this checkout's tiled paths on the tensor
+                # cores, a parent's on the CUDA cores
+                **{name.replace("linear_res", "linear_res_bf16"): lr_fwd(
+                    key, *(t.bfloat16() for t in args), period, res_rows,
+                    0.1, path)
+                   for name, (args, period, res_rows, path) in
+                   lr_timed.items() if path != linear_res.FWD_PATHS["rows"]},
                 **{name: mha_bwd(key, *inputs)
                    for name, inputs in mha_timed.items()},
                 **{name: lr_fwd(key, *args, period, res_rows, 0.1, path)
